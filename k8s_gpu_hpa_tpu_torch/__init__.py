@@ -1,0 +1,22 @@
+"""k8s_gpu_hpa_tpu_torch — the closed autoscaling loop on PyTorch and CUDA.
+
+A port of ``k8s_gpu_hpa_tpu`` from JAX on a TPU to PyTorch on an NVIDIA
+Hopper GPU.  It keeps the JAX package's module paths and names so that each
+part has an obvious counterpart, imports nothing of that package and never
+imports JAX.  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
+
+The loop, by layer:
+
+    L1 workload    loadgen/matmul.py   bf16 matmul busy-loop, duty-cycle knob,
+                   ops/matmul.py       on a hand-written Hopper GEMM
+    L2 exporter    exporter/           device source → C++ core → /metrics
+    L3 metrics     metrics/            scrape → TSDB → recording rule
+    L4 adapter     control/adapter.py  custom-metrics API semantics
+    L5 controller  control/hpa.py      autoscaling/v2 HPA with behavior
+
+``trial.py`` wires them into the headline trial; ``chip_smoke.py`` at the
+repository root drives it on the card.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,238 @@
+"""Mini time-series database + scrape manager (the L3 stand-in).
+
+Counterpart of ``k8s_gpu_hpa_tpu/metrics/tsdb.py``, cut to what the headline
+loop reads.  In production L3 is kube-prometheus-stack; for the loop this
+module reproduces the two Prometheus behaviors the pipeline depends on:
+
+- **scrape**: pull exposition from targets every interval (the reference
+  scrapes at 1 s, kube-prometheus-stack-values.yaml:5) and attach target
+  metadata labels — the ``node`` relabel of
+  kube-prometheus-stack-values.yaml:13-16.  Targets serve text exposition or
+  pre-parsed ``MetricFamily`` lists.
+- **instant query with staleness**: the newest point per series within a
+  lookback window (Prometheus default 5 min), which is what both the
+  recording-rule engine and the custom-metrics adapter consume.  A NaN point
+  is a staleness marker and ends its series at once.
+
+Series are plain per-series point lists trimmed to the lookback window.
+The JAX package's write-ahead log, Gorilla compression, downsampled tiers,
+read capture and profiling stages are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+from bisect import bisect_right
+from dataclasses import dataclass, field
+from typing import Callable
+
+from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
+from k8s_gpu_hpa_tpu_torch.metrics.schema import MetricFamily, Sample
+from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock
+
+LabelSet = tuple[tuple[str, str], ...]
+
+
+class _Series:
+    """One labeled series: parallel sorted timestamp and value lists."""
+
+    __slots__ = ("labels", "ts", "values")
+
+    def __init__(self, labels: LabelSet):
+        self.labels = labels
+        self.ts: list[float] = []
+        self.values: list[float] = []
+
+    def latest_at(self, at: float, lookback: float) -> float | None:
+        idx = bisect_right(self.ts, at) - 1
+        if idx < 0:
+            return None
+        value = self.values[idx]
+        if value != value or at - self.ts[idx] > lookback:  # NaN: stale marker
+            return None
+        return value
+
+
+class TimeSeriesDB:
+    """Store of named series, each kept for the lookback window, queried as
+    instant vectors."""
+
+    def __init__(self, clock: Clock | None = None, lookback: float = 300.0):
+        self.clock = clock or SystemClock()
+        self.lookback = lookback
+        self._data: dict[str, dict[LabelSet, _Series]] = {}
+        #: per-name monotonic write counters (staleness markers included)
+        self._versions: dict[str, int] = {}
+
+    def append(
+        self, name: str, labels: LabelSet, value: float, ts: float | None = None
+    ) -> None:
+        ts = self.clock.now() if ts is None else ts
+        by_name = self._data.setdefault(name, {})
+        series = by_name.get(labels)
+        if series is None:
+            series = by_name[labels] = _Series(labels)
+        elif ts < series.ts[-1]:
+            # out-of-order appends would break the sorted-points invariant
+            # every read relies on; equal timestamps are allowed
+            raise ValueError(
+                f"out-of-order append to {name}{dict(labels)}: "
+                f"ts {ts} < newest {series.ts[-1]}"
+            )
+        series.ts.append(ts)
+        series.values.append(value)
+        cutoff = ts - self.lookback
+        if series.ts[0] < cutoff:
+            keep = bisect_right(series.ts, cutoff)
+            del series.ts[:keep], series.values[:keep]
+        self._versions[name] = self._versions.get(name, 0) + 1
+
+    def mark_stale(self, name: str, labels: LabelSet, ts: float | None = None) -> None:
+        """Write a staleness marker ending the series now (Prometheus writes
+        these when a target fails to scrape or a rule stops producing)."""
+        self.append(name, labels, float("nan"), ts)
+
+    def instant_vector(
+        self,
+        name: str,
+        matchers: dict[str, str] | None = None,
+        at: float | None = None,
+    ) -> list[Sample]:
+        """All series of ``name`` matching label equalities, at their latest value."""
+        at = self.clock.now() if at is None else at
+        out: list[Sample] = []
+        for labels, series in self._data.get(name, {}).items():
+            if matchers and any(
+                (k, v) not in labels for k, v in matchers.items()
+            ):
+                continue
+            value = series.latest_at(at, self.lookback)
+            if value is not None:
+                out.append(Sample(value, labels))
+        return out
+
+    def latest(self, name: str, matchers: dict[str, str] | None = None) -> float | None:
+        """Scalar convenience: value of the single matching series, else None."""
+        vec = self.instant_vector(name, matchers)
+        if not vec:
+            return None
+        if len(vec) > 1:
+            raise ValueError(f"query for {name} matched {len(vec)} series, expected 1")
+        return vec[0].value
+
+    def version(self, name: str) -> int:
+        """Monotonic write counter for ``name``: bumps on every append to any
+        series of the name (staleness markers included)."""
+        return self._versions.get(name, 0)
+
+
+@dataclass
+class ScrapeTarget:
+    """One endpoint: ``fetch`` returns exposition text (HTTP GET in
+    production) or pre-parsed families.
+
+    ``attached_labels`` are merged onto every scraped sample, overriding any
+    collision — the reference's relabel_config that stamps the Kubernetes
+    node name onto each sample (kube-prometheus-stack-values.yaml:13-16).
+    """
+
+    fetch: Callable[[], "str | list[MetricFamily]"]
+    attached_labels: dict[str, str] = field(default_factory=dict)
+    name: str = ""
+    healthy: bool = True
+    #: series produced by the last successful scrape, for staleness marking
+    last_series: set[tuple[str, LabelSet]] = field(default_factory=set)
+    #: failure streak driving the exponential backoff
+    consecutive_failures: int = 0
+    #: do not re-attempt before this timestamp (backoff gate)
+    next_attempt_at: float = -math.inf
+
+
+class Scraper:
+    """Pulls all targets into the TSDB; drive via ``scrape_once`` on a schedule.
+
+    A failing target gets staleness markers and an ``up{target=...} 0``
+    sample — the degradation is observable, never a frozen value — and
+    consecutive failures back it off exponentially (base doubling up to
+    ``backoff_cap``) with seeded jitter.  The caller's schedule is the scrape
+    interval.
+    """
+
+    def __init__(
+        self,
+        db: TimeSeriesDB,
+        backoff_base: float = 1.0,
+        backoff_cap: float = 30.0,
+        backoff_jitter: float = 0.1,
+    ):
+        self.db = db
+        self.backoff_base = backoff_base
+        self.backoff_cap = backoff_cap
+        self.backoff_jitter = backoff_jitter
+        #: seeded so virtual-time runs are reproducible event-for-event
+        self._rng = random.Random(0)
+        self.targets: list[ScrapeTarget] = []
+
+    def add_target(
+        self, fetch: Callable[[], str], name: str = "", **attached_labels: str
+    ) -> ScrapeTarget:
+        target = ScrapeTarget(fetch=fetch, attached_labels=attached_labels, name=name)
+        self.targets.append(target)
+        return target
+
+    def _up_labels(self, target: ScrapeTarget) -> LabelSet:
+        labels = dict(target.attached_labels)
+        labels["target"] = target.name or "?"
+        return tuple(sorted(labels.items()))
+
+    def _backoff(self, target: ScrapeTarget, now: float) -> None:
+        exponent = min(target.consecutive_failures - 1, 10)
+        delay = min(self.backoff_cap, self.backoff_base * 2.0**exponent)
+        target.next_attempt_at = now + delay * (
+            1.0 + self.backoff_jitter * self._rng.random()
+        )
+
+    def scrape_once(self) -> int:
+        """Scrape every due target; returns the number of samples ingested.
+
+        A failing target's last series get staleness markers (a down target's
+        series go stale at the next scrape, they don't linger for the
+        lookback window), an ``up`` sample of 0, and a backoff."""
+        count = 0
+        ts = self.db.clock.now()
+        for target in self.targets:
+            if ts < target.next_attempt_at:
+                continue  # backing off after consecutive failures
+            try:
+                fetched = target.fetch()
+                families = parse_text(fetched) if isinstance(fetched, str) else fetched
+            except Exception:  # noqa: BLE001 — any fetch failure is a down target
+                if target.healthy:
+                    for name, labels in target.last_series:
+                        self.db.mark_stale(name, labels, ts)
+                target.healthy = False
+                target.last_series = set()
+                target.consecutive_failures += 1
+                self._backoff(target, ts)
+                self.db.append("up", self._up_labels(target), 0.0, ts)
+                continue
+            target.healthy = True
+            target.consecutive_failures = 0
+            target.next_attempt_at = -math.inf
+            produced: set[tuple[str, LabelSet]] = set()
+            for fam in families:
+                for sample in fam.samples:
+                    merged = dict(sample.labels)
+                    merged.update(target.attached_labels)
+                    key = tuple(sorted(merged.items()))
+                    series_name = fam.name + sample.suffix
+                    self.db.append(series_name, key, sample.value, ts)
+                    produced.add((series_name, key))
+                    count += 1
+            # series that vanished from the exposition also go stale
+            for name, labels in target.last_series - produced:
+                self.db.mark_stale(name, labels, ts)
+            target.last_series = produced
+            self.db.append("up", self._up_labels(target), 1.0, ts)
+        return count

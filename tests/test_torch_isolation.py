@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: it imports neither JAX nor anything of the
+JAX package ``k8s_gpu_hpa_tpu``.
+
+This test process has JAX loaded already (conftest.py imports it), so the
+import check runs in a fresh interpreter.  The port's name starts with
+``k8s_gpu_hpa_tpu``, so the JAX package is matched exactly (the name itself
+or ``k8s_gpu_hpa_tpu.`` followed by a submodule), never by prefix."""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "k8s_gpu_hpa_tpu_torch"
+
+_FORBIDDEN = ("jax", "k8s_gpu_hpa_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == name or module.startswith(name + ".") for name in _FORBIDDEN)
+
+
+_IMPORT_ALL = """
+import importlib, importlib.util, json, pkgutil, sys
+import k8s_gpu_hpa_tpu_torch as pkg
+names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."))
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_importing_every_port_module_loads_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        check=True,
+    )
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the walk really reached the slice's modules, kernel wrapper included
+    for name in (
+        "k8s_gpu_hpa_tpu_torch.ops.matmul",
+        "k8s_gpu_hpa_tpu_torch.loadgen.matmul",
+        "k8s_gpu_hpa_tpu_torch.exporter.daemon",
+        "k8s_gpu_hpa_tpu_torch.control.hpa",
+        "k8s_gpu_hpa_tpu_torch.trial",
+    ):
+        assert name in out["imported"]
+    assert "torch" in out["loaded"]
+    assert [m for m in out["loaded"] if _forbidden(m)] == []
+
+
+def test_no_port_source_names_jax_or_the_jax_package():
+    """Static twin of the import check: an import inside a function body
+    never runs at import time, so every import statement is read."""
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 10
+    found = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                modules = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                modules = [node.module or ""]
+            else:
+                continue
+            found += [(path.name, m) for m in modules if _forbidden(m)]
+    assert found == []
+
+
+def test_forbidden_match_is_exact_not_by_prefix():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("k8s_gpu_hpa_tpu") and _forbidden("k8s_gpu_hpa_tpu.metrics.tsdb")
+    assert not _forbidden("k8s_gpu_hpa_tpu_torch")
+    assert not _forbidden("k8s_gpu_hpa_tpu_torch.ops.matmul")
+    assert not _forbidden("jaxlib_free_module")
