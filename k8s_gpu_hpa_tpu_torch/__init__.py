@@ -9,14 +9,18 @@ imports JAX.  Entry points run on CUDA unless the caller passes
 The loop, by layer:
 
     L1 workload    loadgen/matmul.py   bf16 matmul busy-loop, duty-cycle knob,
-                   ops/matmul.py       on a hand-written Hopper GEMM
+                   ops/matmul.py       on a hand-written Hopper GEMM;
+                   loadgen/decode.py   or the serving load: prefill + KV-cache
+                   models/transformer.py  decode, one CUDA graph a burst, its
+                   ops/flash_attention.py prefill on a hand-written Hopper
+                                       flash-attention kernel
     L2 exporter    exporter/           device source → C++ core → /metrics
     L3 metrics     metrics/            scrape → TSDB → recording rule
     L4 adapter     control/adapter.py  custom-metrics API semantics
     L5 controller  control/hpa.py      autoscaling/v2 HPA with behavior
 
-``trial.py`` wires them into the headline trial; ``chip_smoke.py`` at the
-repository root drives it on the card.
+``trial.py`` wires them into the headline and serve trials;
+``chip_smoke.py`` at the repository root drives both on the card.
 """
 
 __version__ = "0.1.0"

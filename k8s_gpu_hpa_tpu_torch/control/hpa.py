@@ -101,6 +101,14 @@ def shipped_behavior() -> HPABehavior:
     )
 
 
+def signal_ceiling_clears_band(ceiling: float, target: float) -> bool:
+    """Can a workload whose gauge saturates at ``ceiling`` ever trigger
+    scale-up against ``target``?  Only strictly above
+    ``target * (1 + TOLERANCE)``: at exactly the band edge the controller
+    holds (``|ratio - 1| <= tolerance`` skips scaling)."""
+    return ceiling > target * (1.0 + HPAController.TOLERANCE)
+
+
 class ScalableTarget(Protocol):
     """The scale-subresource contract: read and mutate ``replicas``."""
 

@@ -1,1 +1,2 @@
-"""Load generators (L1): the matmul busy-loop, its intensity knob, its telemetry."""
+"""Load generators (L1): the matmul busy-loop, the serving decode loop, their
+intensity knob and telemetry."""

@@ -194,3 +194,10 @@ def tpu_test_avg_rule(
         expr=expr,
         labels={"namespace": namespace, "deployment": deployment},
     )
+
+
+#: The serve HPA's target, percent of the device's memory-bandwidth peak
+#: (deploy/tpu-serve-hpa.yaml; ``SERVE_BW_TARGET`` of the JAX package's
+#: rules).  The serve trial checks that the workload's saturated signal
+#: clears the band above it before it drives the loop.
+SERVE_BW_TARGET = 5.0

@@ -23,35 +23,20 @@ Three entry points:
 from __future__ import annotations
 
 import ctypes
-import shutil
 from pathlib import Path
 
 import torch
 
-from k8s_gpu_hpa_tpu_torch.utils.build import build_shared
+from k8s_gpu_hpa_tpu_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 #: tile edge the kernel's grid is cut in; every dim must be a multiple
 ALIGN = 128
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise FileNotFoundError("nvcc not found on PATH or under /usr/local/cuda/bin")
 
 
 def build() -> tuple[Path, str]:
     """Compile ``csrc/matmul.cu`` if needed; returns (library, nvcc output)."""
-    return build_shared("libmatmul_bf16.so", [SOURCE], [_nvcc(), *NVCC_FLAGS])
+    return build_shared("libmatmul_bf16.so", [SOURCE], [nvcc(), *NVCC_FLAGS])
 
 
 _lib: ctypes.CDLL | None = None

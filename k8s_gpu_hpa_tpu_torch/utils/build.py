@@ -12,11 +12,31 @@ processes or threads that build at once never load a half-written library.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+#: nvcc flags of every CUDA kernel of the port: Hopper with its arch-specific
+#: features (the ``a`` of ``sm_90a``), a plain C interface for ctypes, and
+#: ptxas's register and shared-memory report
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else the toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise FileNotFoundError("nvcc not found on PATH or under /usr/local/cuda/bin")
 
 
 def build_shared(
