@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two closed autoscaling loops once on one GPU.
+"""Drive the PyTorch/CUDA port's two closed autoscaling loops and its training
+load once on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU, nvcc
 and g++:
@@ -9,9 +10,10 @@ and g++:
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device        — the card's name and power limit as nvidia-smi reports them.
-2. build         — nvcc builds the GEMM (ops/csrc/matmul.cu) and the flash
-                   attention forward (ops/csrc/flash_attention.cu), g++ the
-                   exporter core from cpp/exporter, all three at once.
+2. build         — nvcc builds the GEMM (ops/csrc/matmul.cu), the flash
+                   attention forward (ops/csrc/flash_attention.cu) and its
+                   backward (ops/csrc/flash_attention_bwd.cu), g++ the
+                   exporter core from cpp/exporter, all four at once.
 3. parity        — the GEMM against its plain PyTorch version at four shapes;
                    an f32 or unaligned operand must raise.
 4. timing        — the GEMM at 4096^3 beside its bound, the plain version and
@@ -44,6 +46,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    ExporterDaemon → Scraper → tpu-serve rule → adapter → the
                    shipped serve HPA must scale 1 → 4 on tpu_serve_hbm_bw_avg
                    within the 60 s budget.
+14. flash_bwd_parity — the dQ and dK/dV kernels against their plain versions
+                   at the llm training shape (causal and not), a causal shape
+                   whose forward has a ragged Q tile, and head_dim 64, on views
+                   of one fused QKV product; the autograd Function's gradients
+                   against autograd through the plain forward at the llm
+                   shape; off-envelope operands must raise.
+15. flash_bwd_timing — both backward kernels (and the training forward) at the
+                   llm shape and at a long one, beside their bounds, their
+                   plain versions and scaled_dot_product_attention's backward
+                   (a yardstick the port never calls).
+16. train_parity — at full width, from the same weights and tokens, the
+                   loss's gradients with attn_impl "auto" and with "ring"
+                   agree leaf by leaf; then one LlmLoadGen step of each: the
+                   losses and the updated weights agree, and the auto step
+                   launches dQ and dK/dV once a layer and the forward twice.
+17. llm_train    — LlmLoadGen at full width, auto and ring: step time,
+                   tokens/s and the losses of some twenty steps.
+18. llm_profile  — one auto step under torch.profiler: device time by
+                   kernel, launches a step, the idle share.
+19. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
+                   WORKLOAD=llm trains and reports until SIGTERM, then exits 0.
 
 Launch counts.  Each wrapper counts the launches it makes.  A decode burst
 is one replay of a CUDA graph, and the graph's launches happen without the
@@ -51,6 +74,10 @@ wrapper: the flash wrapper counts them once, when the burst is captured
 (``DecodeLoadGen.flash_launches_per_burst``).  So the serve loop's flash
 launches are the wrapper's count in that run plus the replays in that run
 times the launches one replay makes.
+
+The training path's launches are those of train_parity's auto step plus
+llm_train's auto steps, each counted from zero; the flash forward's are
+those of the serve loop plus the training path's.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Nothing falls back to the CPU: without a GPU the script exits 1 and prints
@@ -61,9 +88,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -75,11 +105,19 @@ import torch.nn.functional as F
 from k8s_gpu_hpa_tpu_torch.device import peak_hbm_gbps_for, peak_tflops_for
 from k8s_gpu_hpa_tpu_torch.exporter import native
 from k8s_gpu_hpa_tpu_torch.loadgen.decode import SERVE_SIZES, DecodeLoadGen
+from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
 from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET
 from k8s_gpu_hpa_tpu_torch.models import transformer
 from k8s_gpu_hpa_tpu_torch.ops import flash_attention, matmul
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_attention_bwd_delta,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq_reference,
+    flash_attention_bwd_kernel,
+    flash_attention_bwd_launch,
+    flash_attention_bwd_reference,
     flash_attention_kernel,
     flash_attention_reference,
 )
@@ -131,6 +169,55 @@ FLASH_TIMED = [(8, 512, 4, 128), (2, 4096, 8, 128)]
 # to 0.06 plus four bf16 ulps of its value
 SERVE_ATOL = 0.06
 SERVE_CACHE_RTOL = 2.0**-5
+
+#: the llm training rung's attention (LlmLoadGen's defaults: batch 1, 2048
+#: tokens, 4 heads of 128)
+LLM_SHAPE = (1, 2048, 4, 128)
+# (batch, seq, heads, head_dim, causal): the llm shape causal and not; seq
+# 192, whose forward cuts a ragged second Q tile of 128 and whose backward
+# runs three 64-row tiles a side, the dK/dV loop starting at the diagonal;
+# and head_dim 64
+BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 256, 2, 64, True)]
+# bf16 gradients: each side sums exact bf16 products in fp32, in other
+# orders, and rounds each gradient once; dS (and P for dV) is rounded to
+# bf16 before the second product, and where the two sides' fp32 dS straddle
+# a rounding boundary a term differs by one bf16 ulp of dS.  rtol 2^-6
+# allows two bf16 ulps of the gradient.  atol and the RMS bar are set from
+# the readings (NVIDIA H100 80GB HBM3, this phase): the worst error above
+# the rtol term (``excess_over_rtol``) was 0.0004 over the four shapes, the
+# error's RMS at most 1.8e-4 of the gradient's RMS, while the gradients'
+# RMS is 0.04-0.09 at the llm shape: a bar near it would pass a fault
+# confined to late rows or to the last tile.  atol 2e-3 is five times the
+# worst excess; the RMS bar, 1e-3, five times the worst ratio, and a
+# dropped 64-row tile of 2048 moves that ratio by some 0.1.
+BWD_RTOL = 2.0**-6
+BWD_ATOL = 2e-3
+BWD_REL_RMS = 1e-3
+# The autograd Function against autograd through the plain forward, which
+# keeps dS in fp32 and takes delta from the unrounded output: every summand
+# differs by a bf16 rounding, so near zero the difference grows with the
+# row's terms, not the entry's value.  Its readings at the llm shape: excess
+# over the rtol term 0.0059, RMS ratio 0.0034; its bars are twice those.
+FN_ATOL = 0.012
+FN_REL_RMS = 0.007
+# the llm shape and a long causal one, for timing
+BWD_TIMED = [LLM_SHAPE, (2, 4096, 8, 128)]
+# train parity: the two steps' losses agree within the JAX package's bar for
+# the same comparison (tests/test_flash_attention.py:187).  The gradients of
+# the same loss from the same weights, auto (flash kernels) against ring
+# (plain fp32 blocking), are compared leaf by leaf, wqkv's Q, K and V
+# columns apart: the norm of their difference over the ring gradient's norm.
+# bf16 roundings downstream of attention differ between the two paths: the
+# readings were 0.004-0.011 for every leaf but the last layer's Q and K
+# columns, 0.022 and 0.025 (NVIDIA H100 80GB HBM3, this phase); the bar is
+# twice the worst.  A leaf whose attention gradient went missing reads 1.  The
+# updated bf16 weights p - lr g, with lr 1e-3, differ only where the two
+# gradients' differences move a rounding: at most a bf16 ulp, held to two
+# (rtol 2^-6); most weights do not move at this lr, hence the gradients.
+TRAIN_LOSS_ATOL = 0.05
+TRAIN_GRAD_REL = 0.05
+TRAIN_PARAM_RTOL = 2.0**-6
+TRAIN_PARAM_ATOL = 1e-6
 
 
 def emit(obj: dict) -> None:
@@ -206,19 +293,27 @@ def phase_build() -> None:
         out = fn()
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    def ptxas_lines(out: str) -> list[str]:
+        # registers on the "ptxas info" lines, spills on the lines after them
+        return [ln.strip() for ln in out.splitlines() if "ptxas info" in ln or "spill" in ln]
+
+    with ThreadPoolExecutor(4) as pool:
         kernel = pool.submit(timed, matmul.build)
         flash = pool.submit(timed, flash_attention.build)
+        flash_bwd = pool.submit(timed, flash_attention.build_bwd)
         exporter = pool.submit(timed, native.build_native)
         (_, ptxas), kernel_s = kernel.result()
         (_, flash_ptxas), flash_s = flash.result()
+        (_, bwd_ptxas), bwd_s = flash_bwd.result()
         _, exporter_s = exporter.result()
     emit({
         "phase": "build", "matmul_cu_s": round(kernel_s, 3),
         "flash_attention_cu_s": round(flash_s, 3),
+        "flash_attention_bwd_cu_s": round(bwd_s, 3),
         "exporter_cc_s": round(exporter_s, 3),
-        "ptxas": [ln.strip() for ln in ptxas.splitlines() if "ptxas info" in ln],
-        "flash_ptxas": [ln.strip() for ln in flash_ptxas.splitlines() if "ptxas info" in ln],
+        "ptxas": ptxas_lines(ptxas),
+        "flash_ptxas": ptxas_lines(flash_ptxas),
+        "flash_bwd_ptxas": ptxas_lines(bwd_ptxas),
     })
 
 
@@ -638,6 +733,388 @@ def phase_serve_loop(gen: DecodeLoadGen) -> int:
     return launches
 
 
+def _grad_err(
+    got: torch.Tensor, want: torch.Tensor, atol: float = BWD_ATOL, rel_rms: float = BWD_REL_RMS
+) -> dict:
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bad = int((diff > atol + BWD_RTOL * want.abs()).sum())
+    at = int(diff.argmax())
+    rms_ratio = float(diff.square().mean().sqrt() / want.square().mean().sqrt())
+    finite = bool(torch.isfinite(got.float()).all())
+    return {
+        "ok": finite and bad == 0 and rms_ratio <= rel_rms,
+        "max_abs_err": float(diff.view(-1)[at]), "out_of_tol": bad, "atol": atol,
+        "want_at_max_err": float(want.view(-1)[at]),
+        "excess_over_rtol": float((diff - BWD_RTOL * want.abs()).max()),
+        "rms_err_over_rms_want": rms_ratio, "rel_rms_bar": rel_rms,
+        "rms_want": float(want.square().mean().sqrt()),
+        "max_abs_want": float(want.abs().max()), "finite": finite,
+    }
+
+
+def phase_flash_bwd_parity() -> dict[str, float]:
+    """The two backward kernels against their plain versions, then the
+    autograd Function against autograd through the plain forward.  Returns
+    the worst absolute error of each kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    rows = []
+    failed = []
+
+    def check(row: dict, names) -> None:
+        if not all(row[n]["ok"] for n in names):
+            failed.append(row)
+
+    for b, s, h, d, causal in BWD_SHAPES:
+        q, k, v = _qkv_views(b, s, h, d, gen)
+        o, lse = flash_attention_kernel(q, k, v, causal, with_lse=True)
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        got = flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+        row = {"bshd": [b, s, h, d], "causal": causal}
+        row.update({n: _grad_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)})
+        rows.append(row)
+        check(row, ("dq", "dk", "dv"))
+        worst["dq"] = max(worst["dq"], row["dq"]["max_abs_err"])
+        worst["dkv"] = max(worst["dkv"], row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
+    b, s, h, d = LLM_SHAPE
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    grads = {}
+    for name, fn in (
+        ("function", lambda q, k, v: FlashAttention.apply(q, k, v, True)),
+        ("plain_autograd", lambda q, k, v: flash_attention_reference(q, k, v, True)),
+    ):
+        leaf = qkv.clone().requires_grad_()
+        q, k, v = (t.view(b, s, h, d) for t in leaf.split(h * d, dim=-1))
+        fn(q, k, v).backward(do)
+        grads[name] = leaf.grad
+    torch.cuda.synchronize()
+    function = {"bshd": list(LLM_SHAPE), "causal": True,
+                "dqkv": _grad_err(grads["function"], grads["plain_autograd"], FN_ATOL,
+                                         FN_REL_RMS)}
+    check(function, ("dqkv",))
+    refused = {}
+    bf16 = torch.bfloat16
+    ok = torch.zeros(1, 128, 2, 128, device="cuda", dtype=bf16)
+    lse = torch.zeros(2, 128, 1, device="cuda")
+    cases = {
+        "f32": (ok.float(), lse),
+        "seq_100": (ok[:, :100], lse[:, :100]),
+        "head_dim_256": (torch.zeros(1, 128, 2, 256, device="cuda", dtype=bf16), lse),
+        "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128], lse),
+        "lse_shape": (ok, lse[:1]),
+        "lse_bf16": (ok, lse.to(bf16)),
+    }
+    for case, (t, l) in cases.items():
+        try:
+            flash_attention_bwd_kernel(t, t, t, t, l, t, True)
+        except (TypeError, ValueError) as e:
+            refused[case] = type(e).__name__
+        else:
+            raise AssertionError(f"flash_attention_bwd_kernel took a {case} operand")
+    emit({"phase": "flash_bwd_parity", "atol": BWD_ATOL, "rtol": BWD_RTOL,
+          "rel_rms": BWD_REL_RMS, "shapes": rows,
+          "function_vs_plain_autograd": function, "refused": refused})
+    if failed:
+        raise AssertionError(f"flash backward disagrees with its plain version: {failed}")
+    return worst
+
+
+def bwd_work(b: int, s: int, h: int, d: int, causal: bool) -> dict[str, tuple[float, float]]:
+    """(operations, bytes) of each backward kernel: per (batch-head, query,
+    key) pair at or below the diagonal three products of 2 d operations for
+    dQ (S, dP, dS K) and four for dK/dV (S, dP, P^T dO, dS^T Q); bf16 Q, K,
+    V and dO read once, fp32 lse and delta read once, the bf16 gradients
+    written once."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    elems, rows = b * s * h * d, b * h * s
+    reads = 4 * elems * 2 + 2 * rows * 4
+    return {"dq": (6.0 * d * pairs, reads + elems * 2),
+            "dkv": (8.0 * d * pairs, reads + 2 * elems * 2)}
+
+
+def _bound(flops: float, nbytes: float, peak_tflops: float, peak_gbps: float) -> dict:
+    ms_by_ops = flops / (peak_tflops * 1e12) * 1e3
+    ms_by_bytes = nbytes / (peak_gbps * 1e9) * 1e3
+    return {"bound_ms": max(ms_by_ops, ms_by_bytes),
+            "bound_by": "operations" if ms_by_ops >= ms_by_bytes else "bytes",
+            "bound_ops_ms": ms_by_ops, "bound_bytes_ms": ms_by_bytes,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def phase_flash_bwd_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
+    """Each backward kernel's device time by graph replay, in turns (plain,
+    kernel, library, kernel, plain), beside its bound, its plain version and
+    scaled_dot_product_attention's backward: SDPA forward plus backward minus
+    SDPA forward, one call that computes dQ, dK and dV together.  That call
+    is compared whole with the pair (``pair``: dQ ms + dK/dV ms); each
+    kernel's ``library_ms`` is the call's time times the kernel's share of
+    the pair's operations (6/14 for dQ, 8/14 for dK/dV), so that no row
+    reads as one kernel against the whole call.  The training forward (with
+    the logsumexp) is timed at the same shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for b, s, h, d in BWD_TIMED:
+        q, k, v, do = (
+            torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(4)
+        )
+        o, lse = flash_attention_kernel(q, k, v, True, with_lse=True)
+        delta = flash_attention_bwd_delta(o, do)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        iters = 50 if s <= 2048 else 10
+        plain_iters = 2
+
+        def sdpa_fwd():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        library_fwd = graph_time_ms(sdpa_fwd, iters)
+        library_bwd = graph_time_ms(sdpa_fwd_bwd, iters) - library_fwd
+        row = {"bshd": [b, s, h, d], "causal": True,
+               "library": "F.scaled_dot_product_attention backward (fwd+bwd minus fwd)",
+               "library_fwd_ms": library_fwd}
+        plains = {
+            "dq": lambda: flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, True),
+            "dkv": lambda: flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, True),
+        }
+        work = bwd_work(b, s, h, d, causal=True)
+        pair_flops = sum(flops for flops, _ in work.values())
+        for name, (flops, nbytes) in work.items():
+            def kernel_call(name=name):
+                flash_attention_bwd_launch(name, q, k, v, do, lse, delta, True)
+
+            plain = [graph_time_ms(plains[name], plain_iters)]
+            kernel = [graph_time_ms(kernel_call, iters)]
+            kernel.append(graph_time_ms(kernel_call, iters))
+            plain.append(graph_time_ms(plains[name], plain_iters))
+            row[name] = {
+                "ms": min(kernel), "ms_runs": kernel, "tflops": flops / min(kernel) / 1e9,
+                "plain_ms": min(plain), "plain_ms_runs": plain,
+                "library_ms": library_bwd * flops / pair_flops,
+                "library_share": flops / pair_flops,
+                **_bound(flops, nbytes, peak_tflops, peak_gbps),
+            }
+            row[name]["fraction_of_bound"] = row[name]["bound_ms"] / row[name]["ms"]
+        pair_ms = row["dq"]["ms"] + row["dkv"]["ms"]
+        row["pair"] = {"ms": pair_ms, "library_ms": library_bwd,
+                       "over_library": pair_ms / library_bwd}
+        fwd_flops, fwd_bytes = flash_work(b, s, h, d, causal=True)
+        fwd_ms = graph_time_ms(lambda: flash_attention_kernel(q, k, v, True, with_lse=True), iters)
+        row["fwd_with_lse"] = {"ms": fwd_ms, "tflops": fwd_flops / fwd_ms / 1e9,
+                               "library_ms": library_fwd,
+                               **_bound(fwd_flops, fwd_bytes, peak_tflops, peak_gbps)}
+        out.append(row)
+    emit({"phase": "flash_bwd_timing", "shapes": out})
+    return out
+
+
+def _bwd_counts() -> dict[str, int]:
+    return {"fwd": flash_attention_kernel.launches, "dq": flash_attention_bwd_kernel.dq_launches,
+            "dkv": flash_attention_bwd_kernel.dkv_launches}
+
+
+def _zero_counts() -> None:
+    flash_attention_kernel.launches = 0
+    flash_attention_bwd_kernel.dq_launches = 0
+    flash_attention_bwd_kernel.dkv_launches = 0
+
+
+def phase_train_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
+    """At full width, from the same seeded weights and tokens (LlmLoadGen's):
+    the gradients of the training loss through the flash kernels (auto) and
+    through the plain blocking (ring), leaf by leaf; then one step of each
+    generator.  Returns the generators, one step in, and the auto step's
+    launches."""
+    gens = {impl: LlmLoadGen(attn_impl=impl, device="cuda:0") for impl in ("auto", "ring")}
+    cfg = gens["auto"].cfg
+    grads = {impl: transformer.make_loss_and_grad(cfg, impl)(g.params, g.tokens)[1]
+             for impl, g in gens.items()}
+    names = ["embed", "pos", "out_norm"] + [
+        f"blocks[{i}].{leaf}" for i in range(cfg.n_layers)
+        for leaf in ("attn_norm", "wqkv", "wo", "mlp_norm", "w1", "w2")
+    ]
+    grad_rel = {}
+    for name, ga, gr in zip(names, grads["auto"], grads["ring"], strict=True):
+        # wqkv's gradient apart for its Q, K and V columns: dQ reaches the
+        # first third only, dK and dV the others
+        parts = zip(("q", "k", "v"), ga.split(cfg.d_model, -1), gr.split(cfg.d_model, -1)) \
+            if name.endswith("wqkv") else ((None, ga, gr),)
+        for part, a, r in parts:
+            a, r = a.float(), r.float()
+            key = f"{name}.{part}" if part else name
+            grad_rel[key] = float((a - r).norm() / r.norm())
+    del grads
+    before = {n: t.clone() for n, t in enumerate(transformer.param_leaves(gens["auto"].params))}
+    _zero_counts()
+    gens["auto"].warmup()
+    counts = _bwd_counts()
+    gens["ring"].warmup()
+    losses = {impl: g.stats().last_loss for impl, g in gens.items()}
+    worst, bad, moved = 0.0, 0, 0
+    leaves = zip(*(transformer.param_leaves(g.params) for g in gens.values()), strict=True)
+    for n, (a, r) in enumerate(leaves):
+        diff = (a.float() - r.float()).abs()
+        worst = max(worst, float(diff.max()))
+        bad += int((diff > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * r.float().abs()).sum())
+        moved += int((a != before[n]).sum())
+    out = {
+        "phase": "train_parity", "cfg": {"batch": gens["auto"].batch, "seq": cfg.max_seq,
+                                         "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                                         "n_layers": cfg.n_layers, "d_ff": cfg.d_ff,
+                                         "dtype": "bfloat16"},
+        "loss": losses, "loss_diff": abs(losses["auto"] - losses["ring"]),
+        "loss_atol": TRAIN_LOSS_ATOL,
+        "grad_rel_err": grad_rel, "grad_rel_err_max": max(grad_rel.values()),
+        "grad_rel_bar": TRAIN_GRAD_REL,
+        "param_max_abs_diff": worst, "param_out_of_tol": bad,
+        "param_rtol": TRAIN_PARAM_RTOL, "params_moved_by_auto_step": moved,
+        "auto_step_launches": counts,
+    }
+    emit(out)
+    want = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    if not all(math.isfinite(x) for x in losses.values()) or out["loss_diff"] > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"the auto and ring steps disagree: {out}")
+    if not all(x <= TRAIN_GRAD_REL for x in grad_rel.values()):  # a NaN fails too
+        raise AssertionError(f"the auto and ring gradients disagree: {grad_rel}")
+    if bad or moved == 0:
+        raise AssertionError(f"the updated weights disagree or did not move: {out}")
+    if counts != want:
+        raise AssertionError(f"one auto step launched {counts}, not {want}")
+    return gens, counts
+
+
+def phase_llm_train(gens: dict[str, LlmLoadGen], seconds: float = 3.0) -> dict[str, int]:
+    """Each generator steps for ``seconds`` and at least twenty steps: step
+    times, tokens/s and the losses.  Returns the auto run's launches."""
+    out = {"phase": "llm_train"}
+    counts = {}
+    for impl, gen in gens.items():
+        if impl == "auto":
+            _zero_counts()
+        ms, losses = [], []
+        t0 = time.perf_counter()
+        while len(ms) < 20 or time.perf_counter() - t0 < seconds:
+            ms.append(gen.step() * 1e3)
+            losses.append(gen.stats().last_loss)
+        if impl == "auto":
+            counts = _bwd_counts()
+        stats = gen.stats()
+        out[impl] = {
+            "steps": len(ms), "step_ms_median": sorted(ms)[len(ms) // 2], "step_ms_min": min(ms),
+            "tokens_per_s": stats.tokens_per_sec, "context_length": stats.context_length,
+            "losses": losses,
+        }
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"the {impl} run's loss went non-finite: {losses}")
+    n_layers, steps = gens["auto"].cfg.n_layers, out["auto"]["steps"]
+    out["auto"]["launches"] = counts
+    out["auto_tokens_per_s_over_ring"] = out["auto"]["tokens_per_s"] / out["ring"]["tokens_per_s"]
+    emit(out)
+    want = {"fwd": 2 * n_layers * steps, "dq": n_layers * steps, "dkv": n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"{steps} auto steps launched {counts}, not {want}")
+    return counts
+
+
+def phase_llm_profile(gen: LlmLoadGen) -> dict:
+    """One auto step under torch.profiler: device time by kernel, the
+    launches of the step, and the device's idle share of the step's host
+    wall time (profiled, so an upper bound)."""
+    gen.step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        gen.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for event in prof.key_averages():
+        if event.device_type == torch.autograd.DeviceType.CUDA and event.self_device_time_total > 0:
+            kernels[event.key[:100]] = {
+                "ms": event.self_device_time_total / 1e3, "calls": event.count,
+            }
+    busy_ms = sum(k["ms"] for k in kernels.values())
+
+    def calls_of(name: str) -> int:
+        return sum(k["calls"] for key, k in kernels.items() if name in key)
+
+    flash = {key: k for key, k in kernels.items() if "flash_" in key}
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:16])
+    # device time by kind: the flash kernels, cuBLAS's products, copies and
+    # casts, and everything else (elementwise, reductions, the update)
+    kinds = {"flash": ("flash_",), "products": ("nvjet", "gemm", "xmma"), "copies": ("copy",)}
+    by_kind = {kind: {"ms": 0.0, "calls": 0} for kind in (*kinds, "other")}
+    for key, k in kernels.items():
+        kind = next((n for n, marks in kinds.items() if any(m in key for m in marks)), "other")
+        by_kind[kind]["ms"] += k["ms"]
+        by_kind[kind]["calls"] += k["calls"]
+    out = {
+        "phase": "llm_profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
+        "kernel_names": len(kernels), "kernel_calls": sum(k["calls"] for k in kernels.values()),
+        "by_kind": by_kind, "flash": flash, "top_kernels": top,
+    }
+    emit(out)
+    n = gen.cfg.n_layers
+    got = {name: calls_of(name) for name in
+           ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    if got != {"flash_fwd_kernel": 2 * n, "flash_bwd_dq_kernel": n, "flash_bwd_dkv_kernel": n}:
+        raise AssertionError(f"the profiled step ran the flash kernels {got}")
+    return out
+
+
+def phase_llm_entry(knob_dir: str, seconds: float = 20.0) -> dict:
+    """The rung's container command, ``python -m
+    k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with WORKLOAD=llm at its
+    defaults, for ``seconds`` after its banner, then SIGTERM: it must exit 0
+    having reported steps at the full context and a finite loss."""
+    env = dict(os.environ, WORKLOAD="llm", REPORT_S="2",
+               TPU_TEST_INTENSITY_FILE=str(Path(knob_dir) / "intensity"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_gpu_hpa_tpu_torch.loadgen.multihost"],
+        cwd=Path(__file__).resolve().parent, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+    lines: list[str] = []
+    reader = threading.Thread(target=lambda: lines.extend(ln.rstrip() for ln in proc.stdout))
+    reader.start()
+    try:
+        deadline = time.monotonic() + 180
+        while not any(ln.startswith("tpu-test multihost") for ln in lines):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"the entry point never started: {lines[-20:]}")
+            time.sleep(0.2)
+        time.sleep(seconds)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=60)
+    finally:
+        proc.kill()
+        reader.join(timeout=10)
+    report_lines = [ln for ln in lines if ln.startswith("steps=")]
+    reports = [dict(f.split("=", 1) for f in ln.split()) for ln in report_lines]
+    out = {"phase": "llm_entry", "exit_code": code, "run_s": seconds,
+           "banner": next(ln for ln in lines if ln.startswith("tpu-test multihost")),
+           "reports": report_lines}
+    emit(out)
+    last = reports[-1] if reports else {}
+    if (
+        code != 0 or not reports or last.get("ctx") != "2048"
+        or int(last.get("steps", "0")) <= 0 or not math.isfinite(float(last.get("loss", "nan")))
+    ):
+        raise AssertionError(f"the llm entry point did not train as expected: {lines[-20:]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -661,7 +1138,18 @@ def main() -> int:
     phase_serve_loadgen(serve)
     phase_serve_profile(serve)
     flash_launches = phase_serve_loop(serve)
+    del serve
+    bwd_err = phase_flash_bwd_parity()
+    bwd_timing = phase_flash_bwd_timing(*peaks)
+    gens, parity_counts = phase_train_parity()
+    train_counts = phase_llm_train(gens)
+    phase_llm_profile(gens["auto"])
+    del gens
+    with tempfile.TemporaryDirectory() as knob_dir:
+        phase_llm_entry(knob_dir)
+    train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape
+    llm = bwd_timing[0]  # the llm training shape
     emit({"kernels": [
         {
             "name": "matmul_bf16", "route": "cuda",
@@ -676,11 +1164,30 @@ def main() -> int:
             "name": "flash_attention_fwd_bf16", "route": "cuda",
             "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
-            "launches": flash_launches, "max_abs_err": flash_err,
+            # the serve loop's launches and the training path's
+            "launches": flash_launches + train["fwd"], "max_abs_err": flash_err,
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
         },
+        *(
+            {
+                "name": f"flash_attention_bwd_{name}_bf16", "route": "cuda",
+                "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
+                "launches": train[name], "max_abs_err": bwd_err[name],
+                "ms": llm[name]["ms"], "plain_ms": llm[name]["plain_ms"],
+                "bound_ms": llm[name]["bound_ms"], "bound_by": llm[name]["bound_by"],
+                # SDPA's backward computes dQ, dK and dV in one call: its
+                # time times this kernel's share of the pair's operations
+                "library_ms": llm[name]["library_ms"],
+                "library": "SDPA backward x {:.4f} of the pair's operations; whole call {} ms"
+                           " against dQ + dK/dV {} ms".format(
+                               llm[name]["library_share"], llm["pair"]["library_ms"],
+                               llm["pair"]["ms"]),
+            }
+            for name, line in (("dq", 165), ("dkv", 207))
+        ),
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

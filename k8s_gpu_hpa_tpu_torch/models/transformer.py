@@ -1,10 +1,15 @@
-"""Decoder transformer, single device: the model behind the serving load.
+"""Decoder transformer, single device: the model behind the serving and the
+training load.
 
 Counterpart of the single-device part of
 ``k8s_gpu_hpa_tpu/models/transformer.py``: the config, parameter init, the
 block shared by prefill and training, the static-shape KV cache, ``prefill``
-and ``decode_step``.  The sequence-parallel training forward, tensor-parallel
-serving and the training step are ported with their slices.
+and ``decode_step``, and the training path on a ring of one device
+(``_train_attn_fn``, ``forward_local``, ``make_forward``,
+``make_train_step``).  The sequence-parallel ring over several devices and
+tensor-parallel serving wait for the multi-device slice (ROADMAP items 9 and
+10); until the mesh is ported the training functions take no mesh and run on
+the device their parameters live on.
 
 Parameters are a plain dict with the JAX pytree's keys (``embed``, ``pos``,
 ``out_norm``, ``blocks[i].{attn_norm, wqkv, wo, mlp_norm, w1, w2}``), one
@@ -30,6 +35,10 @@ Differences from the JAX module, each for the GPU:
 - Decode attention reads the whole static cache every step, masked at
   ``<= pos``, as the JAX module does: the decode load generator's bytes
   model counts a full cache read per step.
+- The training step's SGD update is the JAX module's, leaf by leaf in fp32
+  and cast back (``torch.optim.SGD`` would round a bf16 update elsewhere);
+  the per-block remat is non-reentrant ``torch.utils.checkpoint``, so each
+  layer's attention forward runs twice a step, as under ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -42,10 +51,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from k8s_gpu_hpa_tpu_torch.ops.flash_attention import flash_attention
-from k8s_gpu_hpa_tpu_torch.ops.ring_attention import NEG_INF
+from torch.utils.checkpoint import checkpoint
+
+from k8s_gpu_hpa_tpu_torch.ops.flash_attention import flash_attention, flash_shape_supported
+from k8s_gpu_hpa_tpu_torch.ops.ring_attention import NEG_INF, ring_attention_local
 
 _LEAVES = ("attn_norm", "wqkv", "wo", "mlp_norm", "w1", "w2")
+#: the JAX mesh's sequence axis, by name; the mesh is ROADMAP item 9
+DATA_AXIS = "data"
 
 
 @dataclass(frozen=True)
@@ -127,6 +140,21 @@ def param_leaves(params: dict) -> list[torch.Tensor]:
     return leaves
 
 
+def params_from_leaves(leaves: list[torch.Tensor]) -> dict:
+    """The inverse of ``param_leaves``."""
+    it = iter(leaves)
+    params: dict = {"embed": next(it), "pos": next(it), "out_norm": next(it), "blocks": []}
+    for _ in range((len(leaves) - 3) // len(_LEAVES)):
+        params["blocks"].append({name: next(it) for name in _LEAVES})
+    return params
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's parameters as the JAX pytree of float32 numpy arrays (bf16
+    widens exactly), the inverse of ``params_from_jax``."""
+    return params_from_leaves([t.detach().float().cpu().numpy() for t in param_leaves(params)])
+
+
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     # cast back to x's dtype before the gain, as JAX does
     xf = x.float()
@@ -143,7 +171,7 @@ def _mlp(x: torch.Tensor, blk: dict, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def _logits(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """Tied LM head, fp32 logits, for [batch, d_model] activations."""
+    """Tied LM head, fp32 logits, for [..., d_model] activations."""
     x = _rmsnorm(x, params["out_norm"])
     return torch.matmul(x.float(), params["embed"].float().t())
 
@@ -166,6 +194,119 @@ def _block_forward(
     attn = attn_fn(q, k, v).reshape(b, lq, cfg.d_model)
     x = x + torch.matmul(attn, blk["wo"])
     return _mlp(x, blk, cfg), k, v
+
+
+def _train_attn_fn(cfg: TransformerConfig, axis: str, n: int, lq: int, attn_impl: str):
+    """The training attention op for a ring of ``n`` devices and local
+    sequence ``lq``.
+
+    ``auto``: on a ring of one device the local shard is the whole sequence,
+    so the flash kernels serve the training forward and backward
+    (``flash_attention``'s autograd Function) whenever the shape sits in
+    their envelope; everything else (n > 1, off-envelope shapes) takes the
+    ring's plain blocking.  ``ring`` forces the plain blocking: the
+    with/without knob.  Any other value raises, as it arrives from the
+    ``LLM_ATTN`` pod env and must not silently run the ring.
+
+    The envelope is the Hopper kernels' (bf16, head_dim 64 or 128, seq a
+    multiple of 64), not the TPU kernel's (head_dim a multiple of 128 and a
+    12 MiB stripe), so for some shapes the two packages take different
+    branches.  Both branches compute exact attention, so the results agree
+    at the bars of the attention tests."""
+    if attn_impl not in ("auto", "ring"):
+        raise ValueError(f"attn_impl must be 'auto' or 'ring', got {attn_impl!r}")
+    if attn_impl == "auto" and n == 1 and flash_shape_supported(lq, cfg.head_dim, cfg.dtype):
+        return lambda q, k, v: flash_attention(q, k, v, causal=True)
+    return lambda q, k, v: ring_attention_local(q, k, v, axis, n, causal=True)
+
+
+def forward_local(
+    params: dict,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    axis: str,
+    n: int,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """fp32 logits [batch, lq, vocab] for ``tokens`` [batch, lq], the whole
+    sequence on a ring of ``n == 1`` device (n > 1 is ROADMAP item 10).
+
+    Each block is recomputed in the backward pass (layer remat: the
+    non-reentrant counterpart of ``jax.checkpoint``), trading its forward's
+    FLOPs for the [batch, lq, d_ff] activations autograd would keep."""
+    if n != 1:
+        raise NotImplementedError(
+            f"the sequence-parallel forward over {n} devices waits for the "
+            "multi-device slice, ROADMAP item 10"
+        )
+    _, lq = tokens.shape
+    pos = torch.arange(lq, device=tokens.device)  # the shard's offset is 0
+    x = params["embed"][tokens] + params["pos"][pos][None].to(cfg.dtype)
+    attn_fn = _train_attn_fn(cfg, axis, n, lq, attn_impl)
+
+    def block(x, blk):
+        return _block_forward(x, blk, cfg, attn_fn)[0]
+
+    for blk in params["blocks"]:
+        x = checkpoint(block, x, blk, use_reentrant=False)
+    return _logits(x, params)
+
+
+def make_forward(cfg: TransformerConfig):
+    """(params, tokens[batch, seq]) -> fp32 logits, on one device."""
+
+    def forward(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return forward_local(params, tokens, cfg, DATA_AXIS, 1)
+
+    return forward
+
+
+def make_loss_and_grad(cfg: TransformerConfig, attn_impl: str = "auto"):
+    """(params, tokens[batch, seq]) -> (loss, grads): the training loss on
+    one device and its gradient, one tensor per leaf in ``param_leaves``
+    order and in the leaf's dtype.
+
+    The loss is the next-token NLL over fp32 log-softmax: position i
+    predicts token i + 1, and the last position, whose target wraps to the
+    first token, weighs 0; the mean is over the weighted count.  The loss
+    is a 0-d fp32 tensor on the device (reading it syncs)."""
+
+    def loss_fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        logits = forward_local(params, tokens, cfg, DATA_AXIS, 1, attn_impl)
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        weights = torch.ones_like(nll)
+        weights[:, -1] = 0.0
+        return (nll * weights).sum() / weights.sum()
+
+    def loss_and_grad(params: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        leaves = [p.detach().requires_grad_() for p in param_leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(params_from_leaves(leaves), tokens)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), list(grads)
+
+    return loss_and_grad
+
+
+def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, attn_impl: str = "auto"):
+    """(params, tokens[batch, seq]) -> (params, loss): one SGD step on one
+    device (a ring of one; the mesh is ROADMAP item 9), on the loss and
+    gradient of ``make_loss_and_grad``.  Each leaf is updated as
+    ``(p.float() - lr * g.float()).to(p.dtype)``, as in JAX.  The
+    parameters passed in are not modified."""
+    loss_and_grad = make_loss_and_grad(cfg, attn_impl)
+
+    def train_step(params: dict, tokens: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        loss, grads = loss_and_grad(params, tokens)
+        new = [
+            (p.detach().float() - lr * g.float()).to(p.dtype)
+            for p, g in zip(param_leaves(params), grads, strict=True)
+        ]
+        return params_from_leaves(new), loss
+
+    return train_step
 
 
 def init_kv_cache(

@@ -40,16 +40,17 @@ def nvcc() -> str:
 
 
 def build_shared(
-    name: str, sources: list[Path], command: list[str]
+    name: str, sources: list[Path], command: list[str], headers: tuple[Path, ...] = ()
 ) -> tuple[Path, str]:
     """Build ``BUILD_DIR/name`` with ``command + ["-o", tmp] + sources``.
+    ``headers`` are files the sources include: a newer one rebuilds too.
 
     Returns the library's path and the compiler's output (empty when the
     library was already up to date).  A failed build raises
     ``subprocess.CalledProcessError`` carrying the compiler's output."""
     out = BUILD_DIR / name
     if out.exists() and all(
-        out.stat().st_mtime >= s.stat().st_mtime for s in sources
+        out.stat().st_mtime >= s.stat().st_mtime for s in [*sources, *headers]
     ):
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -34,6 +34,22 @@ def test_builds_once_and_again_when_a_source_is_newer(build_dir, tmp_path):
     assert sorted(p.name for p in build_dir.iterdir()) == ["libone.so"]
 
 
+def test_rebuilds_when_an_included_header_is_newer(build_dir, tmp_path):
+    header = tmp_path / "one.h"
+    header.write_text("#define ONE 1\n")
+    src = tmp_path / "one.cc"
+    src.write_text('#include "one.h"\nextern "C" int one() { return ONE; }\n')
+    lib, _ = build.build_shared("libone.so", [src], CXX, (header,))
+    # as if the library had been built from this source before the header changed
+    stale = header.stat().st_mtime - 10
+    os.utime(src, (stale - 10, stale - 10))
+    os.utime(lib, (stale, stale))
+    assert build.build_shared("libone.so", [src], CXX) == (lib, "")
+    assert lib.stat().st_mtime == stale  # the header was not named: no rebuild
+    build.build_shared("libone.so", [src], CXX, (header,))
+    assert lib.stat().st_mtime > stale
+
+
 def test_failed_build_raises_and_leaves_no_file(build_dir, tmp_path):
     src = tmp_path / "bad.cc"
     src.write_text("this is not C++\n")

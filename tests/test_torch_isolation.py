@@ -51,6 +51,11 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.exporter.daemon",
         "k8s_gpu_hpa_tpu_torch.control.hpa",
         "k8s_gpu_hpa_tpu_torch.trial",
+        "k8s_gpu_hpa_tpu_torch.ops.flash_attention",
+        "k8s_gpu_hpa_tpu_torch.ops.ring_attention",
+        "k8s_gpu_hpa_tpu_torch.models.transformer",
+        "k8s_gpu_hpa_tpu_torch.loadgen.llm",
+        "k8s_gpu_hpa_tpu_torch.loadgen.multihost",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
