@@ -7,7 +7,7 @@ loop with a kernel of its own: ``csrc/matmul.cu``, CUDA C++ for ``sm_90a``,
 built with ``nvcc`` at first use and bound with ctypes.  The source states
 which Pallas kernels it replaces and what bounds it.
 
-Three entry points:
+Four entry points:
 
 - ``matmul_kernel(a, b)``: launches the CUDA kernel for CUDA tensors and
   raises on anything it does not take.  For CPU tensors it computes
@@ -18,6 +18,8 @@ Three entry points:
 - ``matmul(a, b, use_kernel=True)``: the dispatcher.  The kernel runs only
   for 2-D operands whose dims are all multiples of 128; anything else goes
   to ``torch.matmul``.
+- ``kernel_config()``: the kernel's tile, pipeline, register and
+  shared-memory configuration, as its library reports it, for reports.
 """
 
 from __future__ import annotations
@@ -29,31 +31,60 @@ import torch
 
 from k8s_gpu_hpa_tpu_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
-#: tile edge the kernel's grid is cut in; every dim must be a multiple
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "matmul.cu"
+#: the PTX layer the source includes
+HEADERS = (CSRC / "hopper_ptx.cuh",)
+#: every dim must be a multiple of this: the kernel's tile rows, and half its
+#: tile columns (a 128-column remainder is read through TMA's zero fill)
 ALIGN = 128
+#: names of the values ``matmul_bf16_config`` reports, in its order
+CONFIG_KEYS = ("tile_m", "tile_n", "tile_k", "stages", "consumer_warpgroups",
+               "producer_regs", "consumer_regs", "smem_bytes", "group_m")
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
+#: the library's C entries and their argument types
+ENTRIES = {
+    "matmul_bf16_init": [_INT],
+    "matmul_bf16_config": [ctypes.POINTER(_INT), _INT],
+    # a, b, c, m, n, k, device, stream
+    "matmul_bf16": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR],
+}
 
 
 def build() -> tuple[Path, str]:
     """Compile ``csrc/matmul.cu`` if needed; returns (library, nvcc output)."""
-    return build_shared("libmatmul_bf16.so", [SOURCE], [nvcc(), *NVCC_FLAGS])
+    return build_shared("libmatmul_bf16.so", [SOURCE], [nvcc(), *NVCC_FLAGS], HEADERS)
 
 
 _lib: ctypes.CDLL | None = None
+_ready: set[int] = set()
 
 
-def _load() -> ctypes.CDLL:
+def _load(device: int | None = None) -> ctypes.CDLL:
+    """The library, and ``matmul_bf16_init`` run once for ``device``: the
+    shared-memory opt-in and the SM count, device attribute calls that a
+    launch must not make (it may sit inside CUDA-graph capture)."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        lib.matmul_bf16.restype = ctypes.c_int
-        lib.matmul_bf16.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
+        for entry, argtypes in ENTRIES.items():
+            getattr(lib, entry).restype = _INT
+            getattr(lib, entry).argtypes = argtypes
         _lib = lib
+    if device is not None and device not in _ready:
+        err = _lib.matmul_bf16_init(device)
+        if err:
+            raise RuntimeError(f"matmul_bf16_init failed with cudaError {err}")
+        _ready.add(device)
     return _lib
+
+
+def kernel_config() -> dict[str, int]:
+    """The kernel's tile, pipeline and register configuration, as the
+    library reports it (builds the library if needed)."""
+    out = (_INT * len(CONFIG_KEYS))()
+    _load().matmul_bf16_config(out, len(CONFIG_KEYS))
+    return dict(zip(CONFIG_KEYS, out))
 
 
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,7 +130,7 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[1]
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _load().matmul_bf16(
+    err = _load(a.device.index).matmul_bf16(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.device.index, stream
     )
     if err:

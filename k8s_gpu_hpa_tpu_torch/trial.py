@@ -478,15 +478,23 @@ def _live_trial(
         daemon.close()
 
 
-def run_headline_trial(gen: MatmulLoadGen, time_scale: float = 1.0) -> TrialResult:
+def run_headline_trial(
+    gen: MatmulLoadGen, time_scale: float = 1.0, metric: str = TENSORCORE_SERIES
+) -> TrialResult:
     """The headline trial around one matmul load generator, in real time.
 
     ``TorchDeviceSource`` reads the generator's self-reported gauges; the
-    HPA targets the duty-cycle average."""
+    HPA targets ``metric``: by default the tensor-core average, the
+    generator's MFU, as bench.py's headline trial does.  The mirror pods copy
+    the real device's duty cycle into both gauges, as bench.py's do.  The
+    tensor-core series exists only where the generator knows its device's
+    peak (``gen.peak_tflops``)."""
     source = TorchDeviceSource(
         util_fn=gen.utilization, mxu_fn=gen.mxu_utilization, device=gen.device
     )
-    return _live_trial(headline_spec(), source, gen.step, gen, gen.utilization, time_scale)
+    return _live_trial(
+        headline_spec(metric), source, gen.step, gen, gen.utilization, time_scale
+    )
 
 
 class ServeLoad:

@@ -9,6 +9,7 @@ import subprocess
 import pytest
 
 from k8s_gpu_hpa_tpu_torch.utils import build
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
 CXX = ["g++", "-O1", "-shared", "-fPIC"]
 

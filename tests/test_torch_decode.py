@@ -22,6 +22,10 @@ from k8s_gpu_hpa_tpu_torch.loadgen.decode import (
     DecodeLoadGen,
     RequestQueue,
 )
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 TINY = dict(batch=2, max_seq=16, d_model=32, n_heads=2, n_layers=1, tokens_per_burst=2)
 

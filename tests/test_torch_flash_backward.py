@@ -27,6 +27,10 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     flash_attention_kernel,
     flash_attention_reference,
 )
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 GRAD_TOL = 2e-4
 BF16_TOL = 0.06

@@ -11,6 +11,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "k8s_gpu_hpa_tpu_torch"

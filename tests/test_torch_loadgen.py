@@ -17,6 +17,10 @@ from k8s_gpu_hpa_tpu_torch.loadgen.matmul import (
     peak_tflops_for,
 )
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 
 def test_matmul_loadgen_self_reports():

@@ -15,6 +15,10 @@ import torch
 from k8s_gpu_hpa_tpu.ops.pallas_matmul import matmul as jax_matmul
 from k8s_gpu_hpa_tpu.ops.pallas_matmul import matmul_pallas
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul, matmul_kernel, matmul_reference
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 
 def _operands(m, k, n, seed=0):

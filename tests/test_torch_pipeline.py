@@ -36,6 +36,7 @@ from k8s_gpu_hpa_tpu_torch.trial import (
     wire_pipeline,
 )
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
 HPA_YAML = Path(__file__).resolve().parent.parent / "deploy" / "tpu-test-hpa.yaml"
 

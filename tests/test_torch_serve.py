@@ -36,6 +36,10 @@ from k8s_gpu_hpa_tpu_torch.trial import (
 )
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 from tests.test_torch_slice import ScriptedLoad
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 DEPLOY = Path(__file__).resolve().parent.parent / "deploy"
 SERVE_HPA = yaml.safe_load((DEPLOY / "tpu-serve-hpa.yaml").read_text())

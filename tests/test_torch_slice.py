@@ -6,6 +6,7 @@ loop twice, once over the port's planes and once over the JAX package's,
 which must give identical timelines."""
 
 import pytest
+import torch
 
 from k8s_gpu_hpa_tpu.utils.clock import VirtualClock as JaxVirtualClock
 from k8s_gpu_hpa_tpu.metrics import exposition as jax_exposition
@@ -23,6 +24,10 @@ from k8s_gpu_hpa_tpu_torch.trial import (
 )
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 from tests.test_torch_pipeline import _jax_pipeline
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 #: control-plane periods times this, as bench.py's BENCH_TIME_SCALE
 #: compresses its smoke run: in real time, pod start 2.4 s, HPA sync 3 s and
@@ -35,7 +40,7 @@ def test_slice_on_cpu_scales_one_to_four(tmp_path):
     gen = MatmulLoadGen(size=256, use_kernel=True, intensity=0.2, window=0.5, device="cpu")
     gen.intensity_file = str(tmp_path / "intensity")  # absent: API knob only
     gen.warmup()
-    result = run_headline_trial(gen, time_scale=REAL_TIME_SCALE)
+    result = run_headline_trial(gen, time_scale=REAL_TIME_SCALE, metric=DUTY_SERIES)
     assert result.replicas[-1][1:] == (MAX_REPLICAS, MAX_REPLICAS)
     assert result.scale_up_s <= 60.0 * REAL_TIME_SCALE
     assert gen.stats().steps > 0
@@ -44,6 +49,26 @@ def test_slice_on_cpu_scales_one_to_four(tmp_path):
     # series is absent until a mirror pod runs.
     assert max(duty for t, _, duty in result.series if t >= 0 and duty is not None) > 40.0
     assert all(tc is None for t, tc, _ in result.series if t < 0)
+
+
+def test_slice_on_cpu_scales_one_to_four_on_the_tensorcore_series(tmp_path):
+    """``run_headline_trial``'s default, as bench.py runs its headline trial:
+    the HPA reads the tensor-core average.  The CPU has no published peak,
+    so the generator's is calibrated from a full-tilt step, as bench.py's
+    CPU smoke run calibrates its own (make_gen)."""
+    gen = MatmulLoadGen(size=256, use_kernel=True, intensity=1.0, window=0.5, device="cpu")
+    gen.intensity_file = str(tmp_path / "intensity")  # absent: API knob only
+    gen.warmup()
+    assert gen.peak_tflops is None
+    gen.step()
+    gen.peak_tflops = max(gen.stats().achieved_tflops, 1e-9)
+    result = run_headline_trial(gen, time_scale=REAL_TIME_SCALE)
+    assert result.replicas[-1][1:] == (MAX_REPLICAS, MAX_REPLICAS)
+    assert result.scale_up_s <= 60.0 * REAL_TIME_SCALE
+    # the real pod served the tensor-core gauge from the start, and its
+    # average crossed the target after the spike
+    assert all(tc is not None for _, tc, _ in result.series)
+    assert max(tc for t, tc, _ in result.series if t >= 0) > 40.0
 
 
 class ScriptedLoad:

@@ -8,6 +8,7 @@ from k8s_gpu_hpa_tpu.exporter.selfreport import SelfReportReader
 from k8s_gpu_hpa_tpu.loadgen.telemetry import TelemetryWriter as JaxWriter
 from k8s_gpu_hpa_tpu.loadgen.telemetry import WorkloadReport as JaxReport
 from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter, WorkloadReport
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
 GAUGES = dict(
     tensorcore_util_pct=19.4,

@@ -35,6 +35,10 @@ from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
 from k8s_gpu_hpa_tpu_torch.models import transformer as pt
 from k8s_gpu_hpa_tpu_torch.ops import flash_attention as fa
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import ring_attention_local
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 F32_TOL = 2e-4

@@ -18,6 +18,10 @@ import torch
 from k8s_gpu_hpa_tpu.models import transformer as jt
 from k8s_gpu_hpa_tpu_torch.models import transformer as pt
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import flash_shape_supported
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+# the test workers share the host's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 F32_TOL = 2e-4
 BF16_TOL = 0.06

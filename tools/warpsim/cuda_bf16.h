@@ -1,9 +1,11 @@
-// Lockstep CPU simulator of the CUDA features the port's mma.sync kernels
-// use, so that their sources run on the CPU: tests/test_torch_kernel_sim.py
-// compiles them with g++ against these files.  One host thread stands for each CUDA
-// thread of a block; every warp-collective operation (ldmatrix, mma,
-// shuffle) meets at a barrier of its warp, __syncthreads at a barrier of the
-// block.  Blocks run one after another, so shared memory is one buffer.
+// Lockstep CPU simulator of the CUDA features the port's kernels use, so that
+// their sources run on the CPU: tests/test_torch_kernel_sim.py compiles them
+// with g++ against these files.  One host thread stands for each CUDA thread
+// of a block; every warp-collective operation (ldmatrix, mma, shuffle) meets
+// at a barrier of its warp, every warpgroup one (wgmma) at a barrier of its
+// warpgroup, __syncthreads at a barrier of the block; mbarriers are shared
+// state under a lock.  Blocks run one after another, so shared memory is one
+// buffer.
 //
 // This header stands in for <cuda_bf16.h> and carries the rest of the
 // device environment: the qualifiers, threadIdx/blockIdx/gridDim, bf16 with
@@ -12,17 +14,21 @@
 #pragma once
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <mutex>
 #include <stddef.h>
+#include <unordered_map>
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __grid_constant__
 
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 a, b; };
@@ -54,15 +60,35 @@ struct dim3 {
 extern thread_local uint3 threadIdx, blockIdx;
 extern dim3 gridDim;
 // the block's dynamic shared memory (the kernels' `extern __shared__` array)
-alignas(128) extern unsigned char smem_raw[];
+alignas(1024) extern unsigned char smem_raw[];
+
+// an mbarrier (hopper_ptx.cuh): arrivals still due in the current phase and
+// the phase's parity, the transaction bytes still due, the block that set it
+struct SimMbar {
+  int count, pending;
+  int64_t tx;
+  unsigned parity, block;
+};
+// one thread's wgmma operands, held against its warpgroup's
+struct SimWgmma {
+  uint64_t a, b;
+  int scale_d;
+};
 
 struct Sim {
   std::barrier<>* block;
   std::barrier<>* warps[32];
+  std::barrier<>* warpgroups[8];
   size_t smem_bytes;
   const void* addr[32][32];
   uint32_t a[32][32][4], b[32][32][2];
   float x[32][32];
+  SimWgmma wgmma[8][128];
+  // mbarriers by shared address, and the block that runs (blocks run in turn)
+  std::mutex mbar_lock;
+  std::condition_variable mbar_moved;
+  std::unordered_map<uint32_t, SimMbar> mbars;
+  unsigned block_serial;
 };
 extern Sim sim;
 

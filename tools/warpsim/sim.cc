@@ -3,5 +3,5 @@
 
 thread_local uint3 threadIdx, blockIdx;
 dim3 gridDim;
-alignas(128) unsigned char smem_raw[kSimSmemBytes];
+alignas(1024) unsigned char smem_raw[kSimSmemBytes];
 Sim sim;
