@@ -15,7 +15,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    backward (ops/csrc/flash_attention_bwd.cu), g++ the
                    exporter core from cpp/exporter, all four at once; the
                    GEMM's tile configuration, its registers by warpgroup role
-                   and its shared memory beside ptxas's report.
+                   and its shared memory beside ptxas's report; the flash
+                   forward's registers and spills for each instantiation
+                   (head_dim 64 and 128 by one or two consumer warpgroups)
+                   beside its threads, stages, CTAs an SM and shared memory.
 3. parity        — the GEMM against its plain PyTorch version at six shapes,
                    among them N = 128 mod 256 and K = 128; an f32 or
                    unaligned operand must raise.
@@ -32,14 +35,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    TorchDeviceSource → ExporterDaemon over HTTP → Scraper →
                    tpu-test rules → adapter → HPA on tpu_test_tensorcore_avg
                    (the GEMM's MFU) must scale 1 → 4 within the 60 s budget.
-8. flash_parity  — the flash kernel against its plain version at the serve
-                   prefill's shape (causal and not, with the logsumexp), a
-                   ragged causal shape whose Q and KV tiles differ, and head
-                   dim 64; off-envelope operands must raise.
-9. flash_timing  — the flash kernel at the prefill's shape and at a long one,
-                   beside its bound, the plain version and
-                   scaled_dot_product_attention (a yardstick the port never
-                   calls).
+8. flash_parity  — the flash kernel against its plain version on views of
+                   one fused QKV product: the serve prefill's shape (causal
+                   and not, with the logsumexp), the llm training shape with
+                   the logsumexp, one KV tile (seq 64), seq 192 causal and
+                   not on one and on two consumer warpgroups, head dim 64
+                   on each over ten K/V tiles (each ring wraps), and the
+                   long timed shape with the logsumexp; each output within
+                   0.02 absolute and its error's RMS within a bar of its
+                   own; off-envelope operands and an unknown split must
+                   raise.
+9. flash_timing  — the flash kernel at the prefill's shape, at the llm
+                   training shape with the logsumexp on fused-QKV views (as
+                   the transformer calls it) and at a long one, beside its
+                   bound, the plain version and scaled_dot_product_attention
+                   (a yardstick the port never calls), in turns; and each
+                   shape on one and on two consumer warpgroups.
 10. serve_parity — at the shipped serve sizes in bf16: prefill against
                    stepwise decode, and the CUDA-graph burst against the same
                    burst run eagerly, bit for bit.
@@ -156,16 +167,22 @@ RTOL = 2.0**-6
 ATOL = 1e-2
 SIZE = 4096
 
-# (batch, seq, heads, head_dim, causal, with_lse): the serve prefill's shape
-# causal and not, with the logsumexp; seq 192 cuts two Q tiles of 128 (the
-# second ragged) against three KV tiles of 64, so the causal loop bound
-# min(n_kv, ceil((i+1)*128/64)) clips; and head_dim 64
+# (batch, seq, heads, head_dim, causal, with_lse, consumer warpgroups a CTA
+# or None for the wrapper's choice): the serve prefill's shape causal and
+# not, with the logsumexp; the llm training shape with the logsumexp; one
+# KV tile; seq 192 causal and not on each split (on two warpgroups the first
+# Q tile leaves the second none); head_dim 64 on each over ten K/V tiles,
+# more than twice either ring's stages; and the long timed shape
 FLASH_SHAPES = [
-    (8, 512, 4, 128, True, False),
-    (8, 512, 4, 128, False, False),
-    (8, 512, 4, 128, True, True),
-    (2, 192, 3, 128, True, True),
-    (2, 256, 2, 64, True, False),
+    (8, 512, 4, 128, True, False, None),
+    (8, 512, 4, 128, False, False, None),
+    (8, 512, 4, 128, True, True, None),
+    (1, 2048, 4, 128, True, True, None),
+    (2, 64, 4, 128, True, True, None),
+    *((2, 192, 3, 128, causal, True, split) for causal in (True, False)
+      for split in flash_attention.FWD_SPLITS),
+    *((2, 640, 2, 64, True, True, split) for split in flash_attention.FWD_SPLITS),
+    (2, 4096, 8, 128, True, True, None),
 ]
 # bf16 output, each side rounding P to bf16 once per KV tile it sums: the
 # kernel per 64-key tile against its running max, the plain version once
@@ -173,10 +190,19 @@ FLASH_SHAPES = [
 # output rounds once on each side.  0.02 absolute allows about two ulps at
 # the outputs' magnitude (|o| < 2 for these inputs) and is under the JAX
 # package's bf16 bar of 0.06.  The logsumexp is fp32 on both sides: 1e-4.
+# Where |o| is small, as at the long shape (RMS 0.07), 0.02 is loose: the
+# error's RMS over the output's RMS is held to FLASH_REL_RMS as well.  Its
+# readings (NVIDIA H100 80GB HBM3, this phase) were 3e-5 to 2.3e-3, the
+# worst at seq 192 not causal; the bar is about twice that.  A 64-key tile
+# dropped or read stale moves it far past the bar.
 FLASH_ATOL = 0.02
 LSE_ATOL = 1e-4
-# the prefill's shape and a long causal one, for timing
-FLASH_TIMED = [(8, 512, 4, 128), (2, 4096, 8, 128)]
+FLASH_REL_RMS = 5e-3
+# (batch, seq, heads, head_dim, with_lse, on fused-QKV views), causal, for
+# timing: the prefill's shape; the llm training shape as the transformer's
+# training step calls it; a long one
+FLASH_TIMED = [(8, 512, 4, 128, False, False), (1, 2048, 4, 128, True, True),
+               (2, 4096, 8, 128, False, False)]
 # serve parity at the shipped sizes in bf16: prefill against stepwise decode
 # reach the cache and the logits through other products (a [b, 512, d] GEMM
 # and the flash kernel against [b, 1, d] GEMMs and the decode's products), so
@@ -190,8 +216,8 @@ SERVE_CACHE_RTOL = 2.0**-5
 #: tokens, 4 heads of 128)
 LLM_SHAPE = (1, 2048, 4, 128)
 # (batch, seq, heads, head_dim, causal): the llm shape causal and not; seq
-# 192, whose forward cuts a ragged second Q tile of 128 and whose backward
-# runs three 64-row tiles a side, the dK/dV loop starting at the diagonal;
+# 192, whose backward runs three 64-row tiles a side, the dK/dV loop
+# starting at the diagonal;
 # and head_dim 64
 BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 256, 2, 64, True)]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
@@ -324,6 +350,16 @@ def phase_build() -> None:
         _, exporter_s = exporter.result()
     config = matmul.kernel_config()
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
+    # ptxas reports each entry function's registers and spills in turn
+    entries = re.findall(
+        r"Function properties for \S*flash_fwd_kernelILi(\d+)ELi(\d+)E\S*\s+"
+        r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s+"
+        r"ptxas info\s+: Used (\d+) registers", flash_ptxas)
+    flash_fwd = [
+        {"head_dim": int(d), "registers": int(regs), "spill_bytes": int(st) + int(ld),
+         "kv_split": int(split), **flash_attention.fwd_config(int(d), int(split))}
+        for d, split, st, ld, regs in entries
+    ]
     emit({
         "phase": "build", "matmul_cu_s": round(kernel_s, 3),
         "flash_attention_cu_s": round(flash_s, 3),
@@ -341,8 +377,11 @@ def phase_build() -> None:
             "spill": f"{sum(spills)} bytes spill" if spills else "not reported",
         },
         "flash_ptxas": ptxas_lines(flash_ptxas),
+        "flash_fwd": flash_fwd,
         "flash_bwd_ptxas": ptxas_lines(bwd_ptxas),
     })
+    if len(flash_fwd) != 4 or any(e["spill_bytes"] for e in flash_fwd):
+        raise AssertionError(f"the flash forward's ptxas report: {flash_fwd}")
 
 
 def phase_parity() -> float:
@@ -531,30 +570,44 @@ def _qkv_views(b: int, s: int, h: int, d: int, gen: torch.Generator):
     return tuple(t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
 
 
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def phase_flash_parity() -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
     rows = []
-    for b, s, h, d, causal, with_lse in FLASH_SHAPES:
+    for b, s, h, d, causal, with_lse, split in FLASH_SHAPES:
         q, k, v = _qkv_views(b, s, h, d, gen)
-        got = flash_attention_kernel(q, k, v, causal, with_lse=with_lse)
+        if split is None:
+            got = flash_attention_kernel(q, k, v, causal, with_lse=with_lse)
+        else:
+            got = flash_attention._launch_fwd(q, k, v, causal, with_lse, split)
         torch.cuda.synchronize()
         want = flash_attention_reference(q, k, v, causal, with_lse=with_lse)
         lse_err = None
         if with_lse:
             (got, got_lse), (want, want_lse) = got, want
             lse_err = float((got_lse - want_lse).abs().max())
-        err = float((got.float() - want.float()).abs().max())
-        row = {"bshd": [b, s, h, d], "causal": causal, "max_abs_err": err,
-               "lse_max_abs_err": lse_err, "max_abs_out": float(want.float().abs().max())}
+        diff = (got.float() - want.float()).abs()
+        rms_want = float(want.float().square().mean().sqrt())
+        row = {"bshd": [b, s, h, d], "causal": causal,
+               "kv_split": split or flash_attention.fwd_split(b * h, s, _sms()),
+               "max_abs_err": float(diff.max()),
+               "rms_err_over_rms_want": float(diff.square().mean().sqrt()) / rms_want,
+               "lse_max_abs_err": lse_err, "max_abs_out": float(want.float().abs().max()),
+               "rms_out": rms_want}
         rows.append(row)
-        worst = max(worst, err)
+        worst = max(worst, row["max_abs_err"])
         if (
-            err > FLASH_ATOL
+            row["max_abs_err"] > FLASH_ATOL
+            or row["rms_err_over_rms_want"] > FLASH_REL_RMS
             or (lse_err is not None and lse_err > LSE_ATOL)
             or not bool(torch.isfinite(got.float()).all())
         ):
+            emit({"phase": "flash_parity", "shapes": rows})
             raise AssertionError(f"flash kernel disagrees with its plain version: {row}")
     refused = {}
     bf16 = torch.bfloat16
@@ -573,8 +626,14 @@ def phase_flash_parity() -> float:
             refused[case] = type(e).__name__
         else:
             raise AssertionError(f"flash_attention_kernel took a {case} operand")
+    try:
+        flash_attention._launch_fwd(ok, ok, ok, True, False, 3)
+    except ValueError as e:
+        refused["kv_split_3"] = type(e).__name__
+    else:
+        raise AssertionError("the forward took three consumer warpgroups a CTA")
     emit({"phase": "flash_parity", "atol": FLASH_ATOL, "lse_atol": LSE_ATOL,
-          "shapes": rows, "refused": refused})
+          "rel_rms": FLASH_REL_RMS, "shapes": rows, "refused": refused})
     return worst
 
 
@@ -589,41 +648,57 @@ def flash_work(b: int, s: int, h: int, d: int, causal: bool) -> tuple[float, flo
 def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
-    for b, s, h, d in FLASH_TIMED:
-        q, k, v = (
-            torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(3)
-        )
+    for b, s, h, d, with_lse, views in FLASH_TIMED:
+        if views:
+            q, k, v = _qkv_views(b, s, h, d, gen)
+        else:
+            q, k, v = (
+                torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(3)
+            )
         # scaled_dot_product_attention's layout, made before timing
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         flops, nbytes = flash_work(b, s, h, d, causal=True)
+        if with_lse:
+            nbytes += b * h * s * 4  # the fp32 logsumexp, written once
         ms_by_ops = flops / (peak_tflops * 1e12) * 1e3
         ms_by_bytes = nbytes / (peak_gbps * 1e9) * 1e3
-        iters = 100 if s <= 1024 else 20
+        iters = 100 if s <= 1024 else 50 if s <= 2048 else 20
 
         def kernel_call():
-            flash_attention_kernel(q, k, v, True)
+            flash_attention_kernel(q, k, v, True, with_lse=with_lse)
 
         def library_call():
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
         def plain_call():
-            flash_attention_reference(q, k, v, True)
+            flash_attention_reference(q, k, v, True, with_lse=with_lse)
 
         # device time from graph replays, in turns: plain, kernel, library,
-        # kernel, plain; and once the kernel in a host loop of launches
+        # kernel, library, plain; then on one and on two consumer warpgroups;
+        # and once the kernel in a host loop of launches
         plain = [graph_time_ms(plain_call, 4)]
         kernel = [graph_time_ms(kernel_call, iters)]
-        library = graph_time_ms(library_call, iters)
+        library = [graph_time_ms(library_call, iters)]
         kernel.append(graph_time_ms(kernel_call, iters))
+        library.append(graph_time_ms(library_call, iters))
         plain.append(graph_time_ms(plain_call, 4))
+        by_split = {
+            split: graph_time_ms(
+                lambda n=split: flash_attention._launch_fwd(q, k, v, True, with_lse, n), iters)
+            for split in flash_attention.FWD_SPLITS
+        }
         host_loop = cuda_time_ms(kernel_call, iters)
         row = {
-            "bshd": [b, s, h, d], "causal": True,
-            "ms": min(kernel), "ms_runs": kernel, "ms_host_launch_loop": host_loop,
+            "bshd": [b, s, h, d], "causal": True, "with_lse": with_lse, "qkv_views": views,
+            "kv_split": flash_attention.fwd_split(b * h, s, _sms()),
+            "ms": min(kernel), "ms_runs": kernel, "ms_by_split": by_split,
+            "ms_host_launch_loop": host_loop,
             "tflops": flops / min(kernel) / 1e9,
             "plain_ms": min(plain), "plain_ms_runs": plain,
-            "library_ms": library, "library": "F.scaled_dot_product_attention(is_causal=True)",
+            "library_ms": min(library), "library_ms_runs": library,
+            "library": "F.scaled_dot_product_attention(is_causal=True)",
+            "over_library": min(kernel) / min(library),
             "bound_ms": max(ms_by_ops, ms_by_bytes),
             "bound_by": "operations" if ms_by_ops >= ms_by_bytes else "bytes",
             "bound_ops_ms": ms_by_ops, "bound_bytes_ms": ms_by_bytes,
@@ -721,12 +796,9 @@ def phase_serve_loadgen(gen: DecodeLoadGen) -> dict:
     return out
 
 
-def phase_serve_profile(gen: DecodeLoadGen) -> dict:
-    """One graph burst under torch.profiler: device time by kernel, and the
-    device's idle share of the burst's host wall time (profiled, so an upper
-    bound)."""
-    gen.run_burst()
-    torch.cuda.synchronize()
+def _profile_burst(gen: DecodeLoadGen) -> tuple[dict, float]:
+    """Device time and calls by kernel of one graph burst under
+    torch.profiler, and the burst's host wall time in ms."""
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
@@ -739,13 +811,32 @@ def phase_serve_profile(gen: DecodeLoadGen) -> dict:
             kernels[event.key[:100]] = {
                 "ms": event.self_device_time_total / 1e3, "calls": event.count,
             }
+    return kernels, wall_ms
+
+
+def phase_serve_profile(gen: DecodeLoadGen, attempts: int = 3) -> dict:
+    """One graph burst under torch.profiler: device time by kernel, and the
+    device's idle share of the burst's host wall time (profiled, so an upper
+    bound).  A trace begun right at a graph replay has at times missed the
+    replay's first several hundred kernels, the prefill's among them: a
+    burst whose trace lacks the flash launches is traced again, up to
+    ``attempts`` bursts, and every attempt's kernel count is reported."""
+    gen.run_burst()
+    torch.cuda.synchronize()
+    calls_by_attempt = []
+    for _ in range(attempts):
+        kernels, wall_ms = _profile_burst(gen)
+        flash = {name: k for name, k in kernels.items() if "flash_fwd_kernel" in name}
+        calls_by_attempt.append(sum(k["calls"] for k in kernels.values()))
+        if sum(k["calls"] for k in flash.values()) == gen.cfg.n_layers:
+            break
     busy_ms = sum(k["ms"] for k in kernels.values())
-    flash = {name: k for name, k in kernels.items() if "flash_fwd_kernel" in name}
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
     out = {
         "phase": "serve_profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernel_names": len(kernels), "kernel_calls": sum(k["calls"] for k in kernels.values()),
+        "kernel_names": len(kernels), "kernel_calls": calls_by_attempt[-1],
+        "kernel_calls_by_attempt": calls_by_attempt,
         "flash": flash, "top_kernels": top,
     }
     emit(out)
@@ -1216,6 +1307,13 @@ def main() -> int:
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
+            # the same at each timed shape: the serve prefill (above), the
+            # llm training shape with the logsumexp, the long one
+            "shapes": [
+                {key: row[key] for key in ("bshd", "with_lse", "kv_split", "ms", "plain_ms",
+                                           "bound_ms", "bound_by", "library_ms")}
+                for row in flash_timing
+            ],
         },
         *(
             {

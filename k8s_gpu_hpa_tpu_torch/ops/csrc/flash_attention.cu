@@ -8,290 +8,418 @@
 // causal mask q_pos >= k_pos with -1e30 (not -inf), the online softmax
 // (m, l, acc) in fp32, P rounded to bf16 before P V, fp32 accumulation,
 // out = acc / max(l, 1e-30), and with an lse pointer lse = m + log(l_safe).
-// Causal tiles past the diagonal are skipped, not masked: Q tile i stops its
-// KV loop at min(n_kv_tiles, ceil((i+1) * BQ / BK)), the bound of :100-104.
+// Causal tiles past the diagonal are skipped, not masked: the 64 Q rows from
+// q0 stop their KV loop at tile q0 / 64, the diagonal, the only one masked.
+// The exponentials are exp2 of log2(e)-prescaled scores, and the logsumexp
+// is brought back to natural log at the end.
 //
 // The TPU kernel keeps a whole K/V stripe of one batch-head in VMEM and loops
 // over it.  A Hopper CTA has at most 227 KB of shared memory, so this kernel
-// streams K/V instead (FlashAttention-2 style): one CTA per (batch-head, Q tile
-// of 128 rows), eight warps of 16 Q rows each, K/V tiles of 64 rows staged in
-// shared memory with cp.async and double-buffered so the next tile's copy
-// overlaps this tile's products.  Q stays in registers as mma fragments for the
-// whole loop; S = Q K^T and O += P V run on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  The S accumulators are
-// reused in registers as the A operand of P V, so scores never touch shared
-// or device memory.  Shared-memory rows are padded by 8 elements so the
-// ldmatrix row addresses of one 8x8 matrix fall in distinct banks.
+// streams K/V tiles of 64 rows instead (FlashAttention-3 style):
+//   - one CTA per (batch-head, Q tile of 64 rows), heaviest causal tiles
+//     first: the grid's fast axis is the batch-head, its slow axis the Q
+//     tile counted down from the last;
+//   - one producer warp, one thread of which loads Q once and then K and V
+//     tiles by TMA into a ring of stages, each with a full and an empty
+//     mbarrier (the producer arms the full one with the stage's bytes, TMA
+//     completes it, the consumer warpgroup that read the stage releases it
+//     through the empty one);
+//   - one or two consumer warpgroups on the CTA's 64 Q rows.  S = Q K^T is
+//     wgmma m64n64k16 with both operands in shared memory, K-major (K's
+//     rows are the product's N); O += P V is wgmma m64n{D}k16 with P from
+//     registers: the fp32 S accumulators, packed to bf16 pairs, are its A
+//     fragments, so scores never leave the registers; V is read N-major
+//     with the transpose bit.  Within a warpgroup the next tile's Q K^T is
+//     issued before this tile's P V, and its softmax runs while P V is in
+//     flight;
+//   - tensors reach the TMA unit through 4-D tensor maps over (d, h, s, b)
+//     with the caller's strides, so the transformer's views of its fused QKV
+//     product are read where they lie; the map's s extent is the sequence,
+//     so a box past it reads zeros and never the next batch's rows.  Boxes
+//     are 64 x 64 (128-byte rows, the swizzle's width): d = 128 is two boxes.
+//
+// The consumer warpgroups a CTA are the host's choice (flash_attention_fwd's
+// kv_split; ops/flash_attention.py::fwd_split picks it from the grid):
+//   - one (160 threads, two stages, two CTAs an SM, so one CTA's softmax
+//     overlaps the other's products) where the CTAs outnumber the SMs, as
+//     at the serve prefill (b8 s512 h4: 256 CTAs);
+//   - two that take turns over the K/V tiles, each with its own (m, l, O),
+//     the second handing its state over through shared memory at the end
+//     (288 threads, four stages, one CTA an SM), where they do not, as at
+//     the training shape (b1 s2048 h4: 128 CTAs on 132 SMs): the heaviest
+//     CTA's 32 tiles run on two warpgroups of one SM instead of one.
 //
 // Bound.  Each (batch-head, Q row, K row) pair that the causal loop visits
-// costs 4 d operations (two products).  At the serving prefill's shape (b8, s512,
-// h4, d128, causal) the pairs below the diagonal are 32 * 512 * 513 / 2, or
-// 2.15 GFLOP: 2.2 us at the H100 SXM's 989 TFLOP/s dense bf16, against 16.8 MB
-// of Q, K, V and O, or 5.0 us at 3.35 TB/s: memory bounds that shape.  At
-// (b2, s4096, h8, d128, causal) the work is 68.7 GFLOP, or 69.5 us, against
-// 67.1 MB, 20.0 us: the tensor cores bound it (NVIDIA H100 SXM data sheet).
-// wgmma, TMA and warp specialisation, which the card needs to approach either
-// bound, are later work.
+// costs 4 d operations (two products).  At the serving prefill's shape (b8,
+// s512, h4, d128, causal) the pairs below the diagonal are 32 * 512 * 513 / 2,
+// or 2.15 GFLOP: 2.2 us at the H100 SXM's 989 TFLOP/s dense bf16, against
+// 16.8 MB of Q, K, V and O, or 5.0 us at 3.35 TB/s: memory bounds that shape.
+// At the training shape (b1, s2048, h4) it is 4.3 GFLOP, 4.3 us, and at (b2,
+// s4096, h8) 68.7 GFLOP, or 69.5 us, against 67.1 MB, 20.0 us: the tensor
+// cores bound both (NVIDIA H100 SXM data sheet).
 //
 // Layout.  Q, K, V are [B, S, H, D] with D contiguous and any other strides
 // (element counts, multiples of 8); a [B*H, S, D] tensor is the case H = 1.
 // O has its own strides; lse is [B*H, S] fp32, contiguous.  S must be a
-// multiple of the KV tile (64); the last Q tile may be ragged.  The Python
-// wrapper (ops/flash_attention.py) checks all of this before it calls in.
-// The backward kernels are in flash_attention_bwd.cu; both files take their
-// copy and mma helpers from mma_bf16.cuh.
+// multiple of the KV tile (64).  The Python wrapper (ops/flash_attention.py)
+// checks all of this before it calls in.  The backward kernels are in
+// flash_attention_bwd.cu.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "hopper_ptx.cuh"
+#include "smem_desc.cuh"
 
 namespace {
 
-constexpr int kBQ = 128;  // Q rows per CTA
-constexpr int kBK = 64;   // K/V rows per tile
-constexpr int kWarps = kBQ / 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBK = 64;     // K/V rows per tile, and Q rows per warpgroup
+constexpr int kBox = 64;    // a TMA box's columns: one 128-byte swizzle row
+constexpr int kWgK = 16;    // one wgmma's K
+constexpr uint32_t kBoxBytes = kBK * kBox * 2;  // 8 KB
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// two floats rounded to a bf16 pair, the first in the lower half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 64 Q rows a CTA on SPLIT consumer warpgroups (1 or 2) that take turns
+// over its K/V tiles
+template <int D, int SPLIT>
+struct Cfg {
+  static constexpr int kBoxes = D / kBox;  // boxes across a row of Q, K or V
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // 64 rows of Q, K or V
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;  // K and V
+  // two stages where two CTAs share an SM, four where one has it alone
+  static constexpr int kStages = SPLIT == 1 ? 2 : 4;
+  static constexpr int kThreads = 128 * SPLIT + 32;
+  static constexpr int kCtasPerSm = SPLIT == 1 ? 2 : 1;
+  // the second warpgroup hands over its O, m and l there
+  static constexpr uint32_t kXchgBytes = SPLIT == 1 ? 0 : (D / 2 + 4) * 128 * sizeof(float);
+  // Q, the ring, its barriers, Q's and the hand-over's, the hand-over, and
+  // room to align to the swizzle atom
+  static constexpr size_t kSmem = kTileBytes + kStages * kStageBytes +
+                                  (2 * kStages + 2) * sizeof(uint64_t) + kXchgBytes +
+                                  kSwizzleAtom;
+};
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  CUtensorMap q, k, v;  // [b, s, h, d], box 64 (d) x 1 x 64 (s) x 1
   __nv_bfloat16* o;
   float* lse;  // null: no logsumexp output
-  int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
   int heads, seq;
-  float scale;
+  float scale_log2;  // 1/sqrt(d) * log2(e)
   int causal;
 };
 
-template <int D>
-struct Smem {
-  static constexpr int kLd = D + 8;  // padded row stride, elements
-  static constexpr int kQ = kBQ * kLd;
-  static constexpr int kKV = kBK * kLd;
-  static constexpr size_t kBytes = (kQ + 4 * kKV) * sizeof(__nv_bfloat16);
-};
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasPerSm)
+    flash_fwd_kernel(const __grid_constant__ Params p) {
+  using C = Cfg<D, SPLIT>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle is a function of the shared address: align the tiles to it
+  unsigned char* q_s =
+      smem_raw + (kSwizzleAtom - smem_u32(smem_raw) % kSwizzleAtom) % kSwizzleAtom;
+  unsigned char* ring = q_s + C::kTileBytes;  // stage s: K tile, then V tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::kStages * C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* q_full = empty + C::kStages;
+  uint64_t* handed = q_full + 1;
+  float* xchg = reinterpret_cast<float*>(handed + 1);
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Params p) {
-  using S = Smem<D>;
-  constexpr int kLd = S::kLd;
-  constexpr int kChunks = D / 8;  // 16-byte chunks in one row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + S::kQ;       // [2][kBK][kLd]
-  __nv_bfloat16* v_s = k_s + 2 * S::kKV;  // [2][kBK][kLd]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  // heaviest causal tiles first, so the short ones fill the tail
-  const int iq = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
-  const int q0 = iq * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBK;
+  // the CTA's KV tiles: through its diagonal
+  const int n_kv = p.causal ? q0 / kBK + 1 : p.seq / kBK;
+  // tile j lies in stage j % kStages, in the ring's round j / kStages
+  auto stage_of = [](int j) { return j % C::kStages; };
+  auto phase_of = [](int j) { return static_cast<uint32_t>(j / C::kStages) & 1u; };
 
-  const __nv_bfloat16* q_base = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k_base = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v_base = p.v + b * p.v_sb + h * p.v_sh;
-
-  // Q tile: rows past the end of the sequence read as zeros and are never
-  // stored.
-  for (int id = tid; id < kBQ * kChunks; id += kThreads) {
-    const int r = id / kChunks;
-    const int c = (id % kChunks) * 8;
-    __nv_bfloat16* dst = q_s + r * kLd + c;
-    if (q0 + r < p.seq) {
-      cp_async16(dst, q_base + static_cast<int64_t>(q0 + r) * p.q_ss + c);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);  // one warpgroup reads each tile
     }
+    mbar_init(q_full, 1);
+    mbar_init(handed, 128);
+    mbar_fence_init();
   }
-  cp_async_commit();
-
-  auto load_kv = [&](int stage, int tile) {
-    const int k0 = tile * kBK;
-    __nv_bfloat16* ks = k_s + stage * S::kKV;
-    __nv_bfloat16* vs = v_s + stage * S::kKV;
-    for (int id = tid; id < kBK * kChunks; id += kThreads) {
-      const int r = id / kChunks;
-      const int c = (id % kChunks) * 8;
-      cp_async16(ks + r * kLd + c, k_base + static_cast<int64_t>(k0 + r) * p.k_ss + c);
-      cp_async16(vs + r * kLd + c, v_base + static_cast<int64_t>(k0 + r) * p.v_ss + c);
-    }
-  };
-
-  const int n_kv = p.seq / kBK;
-  const int hi = p.causal ? min(n_kv, (q0 + kBQ + kBK - 1) / kBK) : n_kv;
-
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait_one();  // the Q group has landed
   __syncthreads();
 
-  // Q fragments of this warp's 16 rows, one per 16-wide slice of D
-  uint32_t qf[D / 16][4];
-  {
-    const int row = warp * 16 + (lane % 16);
-    const int col = (lane / 16) * 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], q_s + row * kLd + kk * 16 + col);
+  // the warpgroup, taken from lane 0 so the compiler sees it uniform across
+  // the warp: branches on it are then not divergent, and it does not
+  // serialize the wgmma under them
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == SPLIT) {
+    // producer: one thread loads Q once, then K and V tile by tile
+    if (threadIdx.x % 32 == 0) {
+      mbar_arrive_expect_tx(q_full, C::kTileBytes);
+      for (int c = 0; c < C::kBoxes; ++c) {
+        tma_load_4d(q_s + c * kBoxBytes, &p.q, q_full, c * kBox, h, q0, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = stage_of(j);
+        mbar_wait(&empty[st], phase_of(j) ^ 1);  // a fresh ring starts empty
+        unsigned char* k_tile = ring + st * C::kStageBytes;
+        unsigned char* v_tile = k_tile + C::kTileBytes;
+        mbar_arrive_expect_tx(&full[st], C::kStageBytes);
+        for (int c = 0; c < C::kBoxes; ++c) {
+          tma_load_4d(k_tile + c * kBoxBytes, &p.k, &full[st], c * kBox, h, j * kBK, b);
+          tma_load_4d(v_tile + c * kBoxBytes, &p.v, &full[st], c * kBox, h, j * kBK, b);
+        }
+      }
+    }
+    return;
   }
 
-  // Thread `lane` holds rows g and g + 8 of the warp's 16, and in each
-  // 8-column block of S or O the two columns 2 * (lane % 4) + {0, 1}.
-  const int g = lane / 4;
-  const int row0 = q0 + warp * 16 + g;  // sequence position of row g
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.0f, 0.0f};  // this thread's share of the row sums
+  // consumer warpgroup `wg`: of the CTA's tiles the ones j = wg (mod SPLIT)
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int mine = n_kv > wg ? (n_kv - wg + SPLIT - 1) / SPLIT : 0;
 
-  for (int j = 0; j < hi; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < hi) load_kv(cur ^ 1, j + 1);
-    // an empty group on the last tile keeps "all but the newest" meaning
-    // "tile j has landed"
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const __nv_bfloat16* ks = k_s + cur * S::kKV;
-    const __nv_bfloat16* vs = v_s + cur * S::kKV;
+  // Thread t holds rows 16 warp + lane/4 (r = 0) and + 8 (r = 1) of the
+  // warpgroup's 64, and in each 8-column block of S or O the columns
+  // 2 (lane % 4) + {0, 1}: element 4 j + e is block j, row e / 2.
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf};  // in log2 units
+  float l_run[2] = {0.0f, 0.0f};       // this thread's share of the row sums
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < kBK / 16; ++nb) {
-        // matrices: keys nb*16 + {0..7, 8..15} x d kk*16 + {0..7, 8..15}
-        const int m = lane / 8;
-        const int key = nb * 16 + (lane % 8) + (m / 2) * 8;
-        const int col = kk * 16 + (m % 2) * 8;
-        uint32_t kf[4];
-        ldmatrix_x4(kf, ks + key * kLd + col);
-        mma_bf16(s[2 * nb], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * nb + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // scale, causal mask, and the online softmax update
-    const int key0 = j * kBK + 2 * (lane % 4);
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nb = 0; nb < kBK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nb][e] * p.scale;
-        if (p.causal) {
-          const int qpos = row0 + (e / 2) * 8;
-          const int kpos = key0 + nb * 8 + (e % 2);
-          if (qpos < kpos) x = kNegInf;
-        }
-        s[nb][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-    }
+  if (mine > 0) {
+    float s[32] = {};
+    uint32_t pk[kBK / kWgK][4];  // P in bf16 pairs: A of P V, 16 keys each
     float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = expf(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-    }
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nb = 0; nb < kBK / 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[nb][e] - mx[e / 2]);
-        s[nb][e] = pe;
-        rs[e / 2] += pe;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= corr[0];
-      acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1];
-      acc[i][3] *= corr[1];
-    }
 
-    // O += P V, P rounded to bf16 and taken from the S registers as the A
-    // operand: keys kc*16 .. kc*16 + 15 are S blocks 2 kc and 2 kc + 1
+    // S = Q K^T for tile j (K-major both: 32-byte steps along a row, the
+    // next 64-column box every four)
+    auto issue_scores = [&](int j) {
+      const unsigned char* k_tile = ring + stage_of(j) * C::kStageBytes;
 #pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        // matrices, transposed: keys kc*16 + {0..7, 8..15} x d nd*16 + {0..7, 8..15}
-        const int key = kc * 16 + (lane % 16);
-        const int col = nd * 16 + (lane / 16) * 8;
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + key * kLd + col);
-        mma_bf16(acc[2 * nd], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * nd + 1], pa, vf[2], vf[3]);
+      for (int kk = 0; kk < D / kWgK; ++kk) {
+        const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
+        wgmma_m64n64k16_ss_bf16(s, desc_k_major(q_s + at), desc_k_major(k_tile + at), kk > 0);
       }
+      wgmma_commit();
+    };
+    // causal mask on the diagonal tile, scale, and the online softmax
+    // update: S becomes P (fp32, against the new running max), corr the
+    // factor the earlier sums scale by.  The scale is positive, so the row
+    // max is taken on the raw scores and scaled once, and each score is
+    // scaled and offset by one fma.
+    auto softmax = [&](int j) {
+      const bool diagonal = p.causal && j * kBK == q0;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (diagonal && row0 + (i % 4 / 2) * 8 < j * kBK + (i / 4) * 8 + col0 + i % 2) {
+          s[i] = kNegInf;
+        }
+        mx[i % 4 / 2] = fmaxf(mx[i % 4 / 2], s[i]);
+      }
+      float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m_run[r], mx[r] * p.scale_log2);
+        corr[r] = exp2_approx(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = exp2_approx(fmaf(s[i], p.scale_log2, -mx[i % 4 / 2]));
+        rs[i % 4 / 2] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
+    };
+    // P to bf16 pairs: keys 16 kc .. 16 kc + 15 are S blocks 2 kc, 2 kc + 1
+    auto pack = [&] {
+#pragma unroll
+      for (int kc = 0; kc < kBK / kWgK; ++kc) {
+        pk[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+        pk[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+        pk[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+        pk[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+      }
+    };
+    // O += P V for tile j, P from the registers
+    auto issue_pv = [&](int j) {
+      const unsigned char* v_tile = ring + stage_of(j) * C::kStageBytes + C::kTileBytes;
+#pragma unroll
+      for (int kc = 0; kc < kBK / kWgK; ++kc) {
+        const uint64_t dv = desc_mn_major(v_tile + kc * kWgK * kSwizzleRow, kBoxBytes);
+        if constexpr (D == 128) {
+          wgmma_m64n128k16_rs_bf16(o, pk[kc], dv, 1);
+        } else {
+          wgmma_m64n64k16_rs_bf16(o, pk[kc], dv, 1);
+        }
+      }
+      wgmma_commit();
+    };
+
+    int cur = wg;  // the tile whose P is packed
+    mbar_wait(q_full, 0);
+    mbar_wait(&full[stage_of(cur)], phase_of(cur));
+    wgmma_fence();
+    issue_scores(cur);
+    wgmma_wait<0>();
+    wgmma_fence_operands(s);
+    softmax(cur);  // o is still zero: corr needs no applying
+    pack();
+    // each step issues tile j's Q K^T, then the previous tile's P V, and
+    // runs tile j's softmax while P V is in flight; no wgmma sits under a
+    // condition
+    for (int i = 1; i < mine; ++i) {
+      const int j = wg + i * SPLIT;
+      mbar_wait(&full[stage_of(j)], phase_of(j));
+      wgmma_fence();  // this thread's writes of o and pk precede the products
+      wgmma_fence_operands(o);
+      wgmma_fence_operands(pk);
+      issue_scores(j);
+      issue_pv(cur);
+      wgmma_wait<1>();
+      wgmma_fence_operands(s);
+      softmax(j);
+      wgmma_wait<0>();
+      wgmma_fence_operands(o);
+      wgmma_fence_operands(pk);
+      if (t == 0) mbar_arrive(&empty[stage_of(cur)]);  // P V is done with its stage
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) o[k] *= corr[k % 4 / 2];
+      pack();
+      cur = j;
     }
-    // every warp is done reading `cur` before the next tile refills it
-    __syncthreads();
+    wgmma_fence();
+    wgmma_fence_operands(o);
+    wgmma_fence_operands(pk);
+    issue_pv(cur);
+    wgmma_wait<0>();
+    wgmma_fence_operands(o);
+    if (t == 0) mbar_arrive(&empty[stage_of(cur)]);
   }
 
   // the four threads of a row hold parts of its sum
-  float l_div[2];
-  float lse[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float l_safe = fmaxf(l, 1e-30f);
-    l_div[r] = l_safe;
-    lse[r] = m_run[r] + logf(l_safe);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const int c0 = 2 * (lane % 4);
+  if constexpr (SPLIT == 2) {
+    // the second warpgroup hands its (m, l, O) over, thread by thread in
+    // the same layout, and the first merges them into its own
+    if (wg == 1) {
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) xchg[k * 128 + t] = o[k];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xchg[(D / 2 + r) * 128 + t] = m_run[r];
+        xchg[(D / 2 + 2 + r) * 128 + t] = l_run[r];
+      }
+      mbar_arrive(handed);
+      return;
+    }
+    mbar_wait(handed, 0);
+    float own[2], their[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_their = xchg[(D / 2 + r) * 128 + t];
+      const float m = fmaxf(m_run[r], m_their);
+      own[r] = exp2_approx(m_run[r] - m);
+      their[r] = exp2_approx(m_their - m);
+      l_run[r] = l_run[r] * own[r] + xchg[(D / 2 + 2 + r) * 128 + t] * their[r];
+      m_run[r] = m;
+    }
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) {
+      o[k] = o[k] * own[k % 4 / 2] + xchg[k * 128 + t] * their[k % 4 / 2];
+    }
+  }
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    const float l_safe = fmaxf(l_run[r], 1e-30f);
     const int row = row0 + r * 8;
-    if (row >= p.seq) continue;
     __nv_bfloat16* out = p.o + b * p.o_sb + static_cast<int64_t>(row) * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(out + i * 8 + c0) =
-          __floats2bfloat162_rn(acc[i][2 * r] / l_div[r], acc[i][2 * r + 1] / l_div[r]);
+      *reinterpret_cast<__nv_bfloat162*>(out + i * 8 + col0) =
+          __floats2bfloat162_rn(o[4 * i + 2 * r] / l_safe, o[4 * i + 2 * r + 1] / l_safe);
     }
     if (p.lse != nullptr && lane % 4 == 0) {
-      p.lse[static_cast<int64_t>(bh) * p.seq + row] = lse[r];
+      p.lse[static_cast<int64_t>(bh) * p.seq + row] = m_run[r] * kLn2 + logf(l_safe);
     }
   }
+}
+
+PFN_cuTensorMapEncodeTiled g_encode = nullptr;
+
+// a [b, s, h, d] bf16 tensor with element strides (sb, ss, sh, 1), read in
+// 64 x 64 boxes of (d, s) under the 128-byte swizzle; out of bounds reads
+// zero
+CUresult encode(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d,
+                const int64_t* strides) {
+  // a head stride never stepped (one head) may be anything legal
+  const int64_t sh = heads == 1 ? d : strides[2];
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(sh) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {kBox, 1, kBK, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return g_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes,
+                  box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D, int SPLIT>
+cudaError_t opt_in() {
+  return cudaFuncSetAttribute(flash_fwd_kernel<D, SPLIT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Cfg<D, SPLIT>::kSmem));
+}
+
+template <int D>
+void launch(const Params& p, int kv_split, int batch_heads, cudaStream_t stream) {
+  const dim3 grid(batch_heads, p.seq / kBK);
+  if (kv_split == 2) {
+    flash_fwd_kernel<D, 2><<<grid, Cfg<D, 2>::kThreads, Cfg<D, 2>::kSmem, stream>>>(p);
+  } else {
+    flash_fwd_kernel<D, 1><<<grid, Cfg<D, 1>::kThreads, Cfg<D, 1>::kSmem, stream>>>(p);
+  }
+}
+
+template <class C>
+int config_of(int* out, int n) {
+  const int values[] = {C::kThreads, C::kStages, C::kCtasPerSm, static_cast<int>(C::kSmem)};
+  const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
+  for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
+  return count;
 }
 
 }  // namespace
 
 // C entries, bound with ctypes.
 //
-// flash_attention_init opts both instantiations in to the dynamic shared
-// memory they need above the default 48 KB.  It is called once when the
-// library is loaded, never at launch: a launch may sit inside CUDA-graph
-// capture.  Returns a cudaError_t.
+// flash_attention_init opts the four instantiations (head_dim 64 and 128 by
+// one or two consumer warpgroups) in to the dynamic shared memory they need
+// above the default 48 KB and looks up the CUDA driver API's cuTensorMapEncodeTiled.
+// It is called once per device before the first launch, never at launch: a
+// launch may sit inside CUDA-graph capture.  Returns a cudaError_t.
 extern "C" int flash_attention_init(int device) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -299,54 +427,81 @@ extern "C" int flash_attention_init(int device) {
   if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  err = cudaFuncSetAttribute(flash_fwd_kernel<64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Smem<64>::kBytes));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<128>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(Smem<128>::kBytes));
+  err = opt_in<64, 1>();
+  if (err == cudaSuccess) err = opt_in<64, 2>();
+  if (err == cudaSuccess) err = opt_in<128, 1>();
+  if (err == cudaSuccess) err = opt_in<128, 2>();
+  if (err == cudaSuccess && g_encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    // the entry point's CUDA 12.0 signature, which <cudaTypedefs.h> names
+    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                           cudaEnableDefault, &found);
+    if (err == cudaSuccess && found != cudaDriverEntryPointSuccess) {
+      err = cudaErrorSymbolNotFound;
+    }
+    if (err == cudaSuccess) g_encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
 
+// The configuration of the instantiation for (head_dim, kv_split), for
+// reports: threads, stages, CTAs an SM by launch bounds, dynamic shared
+// memory in bytes.  Writes at most `n` values; returns how many there are,
+// or 0 where there is no such instantiation.
+extern "C" int flash_attention_config(int head_dim, int kv_split, int* out, int n) {
+  if (kv_split != 1 && kv_split != 2) return 0;
+  if (head_dim == 64) {
+    return kv_split == 2 ? config_of<Cfg<64, 2>>(out, n) : config_of<Cfg<64, 1>>(out, n);
+  }
+  if (head_dim == 128) {
+    return kv_split == 2 ? config_of<Cfg<128, 2>>(out, n) : config_of<Cfg<128, 1>>(out, n);
+  }
+  return 0;
+}
+
 // `strides` holds 12 element strides: (batch, seq, head) for Q, K, V and O.
-// `lse` may be null.  `device` is the CUDA ordinal the pointers live on and
-// `stream` the caller's cudaStream_t.  Returns cudaGetLastError() after the
-// launch: nonzero means the launch was refused and nothing ran.
+// `lse` may be null.  A CTA takes 64 Q rows on `kv_split` consumer
+// warpgroups (1 or 2) that take turns over its K/V tiles.  `device` is the
+// CUDA ordinal the pointers live on, initialised with flash_attention_init,
+// and `stream` the caller's cudaStream_t.  Returns cudaGetLastError() after
+// the launch: nonzero means the launch was refused and nothing ran.  A
+// refused tensor map returns the CUDA driver API's CUresult.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   void* lse, const int64_t* strides, int batch,
-                                   int heads, int seq, int head_dim, int causal,
+                                   void* lse, const int64_t* strides, int kv_split,
+                                   int batch, int heads, int seq, int head_dim, int causal,
                                    float scale, int device, void* stream) {
+  if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
+  if ((head_dim != 64 && head_dim != 128) || (kv_split != 1 && kv_split != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (cur != device && (err = cudaSetDevice(device)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
+  // cudaSetDevice makes the device's context current in this thread, which
+  // cuTensorMapEncodeTiled needs; a thread's first cudaGetDevice does not
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  CUresult refused = encode(&p.q, q, batch, seq, heads, head_dim, strides);
+  if (refused == CUDA_SUCCESS) refused = encode(&p.k, k, batch, seq, heads, head_dim, strides + 3);
+  if (refused == CUDA_SUCCESS) refused = encode(&p.v, v, batch, seq, heads, head_dim, strides + 6);
+  if (refused != CUDA_SUCCESS) {
+    if (cur != device) cudaSetDevice(cur);
+    return static_cast<int>(refused);
+  }
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
-  p.q_sb = strides[0], p.q_ss = strides[1], p.q_sh = strides[2];
-  p.k_sb = strides[3], p.k_ss = strides[4], p.k_sh = strides[5];
-  p.v_sb = strides[6], p.v_ss = strides[7], p.v_sh = strides[8];
   p.o_sb = strides[9], p.o_ss = strides[10], p.o_sh = strides[11];
   p.heads = heads;
   p.seq = seq;
-  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
   p.causal = causal;
-  const dim3 grid((seq + kBQ - 1) / kBQ, batch * heads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, Smem<128>::kBytes, s>>>(p);
-  } else if (head_dim == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, Smem<64>::kBytes, s>>>(p);
+    launch<128>(p, kv_split, batch * heads, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<64>(p, kv_split, batch * heads, s);
   }
   err = cudaGetLastError();
   if (cur != device) cudaSetDevice(cur);

@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "hopper_ptx.cuh"
+#include "smem_desc.cuh"
 
 namespace {
 
@@ -77,8 +78,6 @@ constexpr int kConsumerRegs = 232;
 static_assert(kConsumerRegs * 128 * kConsumers + kProducerRegs * 128 <= 65536,
               "register file");
 
-constexpr uint32_t kSwizzleRow = 128;            // bytes
-constexpr uint32_t kSwizzleAtom = 8 * kSwizzleRow;  // the pattern repeats every 1024 bytes
 constexpr uint32_t kABytes = kBM * kBK * 2;      // 16 KB
 constexpr uint32_t kBBoxBytes = kBK * kBoxN * 2;  // 8 KB
 constexpr uint32_t kBBytes = kBK * kBN * 2;      // 32 KB
@@ -94,30 +93,16 @@ struct Params {
   int m, n, k;
 };
 
-// wgmma's shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor"):
-// the start address, the leading and the stride byte offsets, each in units
-// of 16 bytes, and the layout (1: the 128-byte swizzle).  Base offset 0: the
-// ring is aligned to the swizzle atom.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-// A's 64x16 slice for wgmma, K-major: rows of 128 bytes, 8-row groups one
-// swizzle atom apart (stride byte offset); the leading offset is unused with
-// the swizzle, as K (32 bytes) stays inside a row.  Step kk of a stage starts
-// 32 bytes further along the row.
+// A's 64x16 slice for wgmma, K-major: step kk of a stage starts 32 bytes
+// further along the row.
 __device__ __forceinline__ uint64_t desc_a(const unsigned char* a_tile, int kk) {
-  return smem_desc(a_tile + kk * kWgK * 2, 1 << 4, kSwizzleAtom);
+  return desc_k_major(a_tile + kk * kWgK * 2);
 }
 
-// B's 16x256 slice for wgmma, N-major: each 64-column box is 64 K-rows of 128
-// bytes; along N the boxes lie kBBoxBytes apart (leading byte offset), along
-// K 8-row groups one swizzle atom apart (stride byte offset).  Step kk starts
-// 16 rows further down.
+// B's 16x256 slice for wgmma, N-major: the 64-column boxes lie kBBoxBytes
+// apart; step kk starts 16 rows further down.
 __device__ __forceinline__ uint64_t desc_b(const unsigned char* b_tile, int kk) {
-  return smem_desc(b_tile + kk * kWgK * kSwizzleRow, kBBoxBytes, kSwizzleAtom);
+  return desc_mn_major(b_tile + kk * kWgK * kSwizzleRow, kBBoxBytes);
 }
 
 // output tile t in grouped order: down kGroupM tile rows, then across

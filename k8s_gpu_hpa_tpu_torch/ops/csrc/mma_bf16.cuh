@@ -1,5 +1,5 @@
-// Warp-level building blocks of the flash-attention kernels (forward in
-// flash_attention.cu, backward in flash_attention_bwd.cu): the PTX-level
+// Warp-level building blocks of the flash-attention backward kernels
+// (flash_attention_bwd.cu): the PTX-level
 // copies, fragment loads and mma.sync of mma_ptx.cuh, and the packing of
 // fp32 accumulators into bf16 operands.
 //

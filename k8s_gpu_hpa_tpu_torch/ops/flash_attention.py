@@ -11,7 +11,9 @@ The sources state what they replace and what bounds them.
 Entry points:
 
 - ``flash_attention_kernel(q, k, v, causal, with_lse=False)``: launches the
-  forward kernel for CUDA tensors and raises on anything it does not take.
+  forward kernel for CUDA tensors, on the consumer warpgroups a CTA that
+  ``fwd_split`` picks for the grid, and raises on anything it does not
+  take.
   For CPU tensors it computes ``flash_attention_reference`` instead — the
   only case in which the plain version stands in.
   ``flash_attention_kernel.launches`` counts launches.  Operands are
@@ -53,11 +55,16 @@ from k8s_gpu_hpa_tpu_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
-#: the copy and mma helpers both sources include
-HEADERS = (CSRC / "mma_bf16.cuh", CSRC / "mma_ptx.cuh")
+#: the headers the sources include: the forward's TMA, wgmma and descriptor
+#: layer, and the backward's copy and mma helpers
+HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "smem_desc.cuh", CSRC / "mma_bf16.cuh",
+           CSRC / "mma_ptx.cuh")
 #: K/V rows per tile of the kernels; the sequence must be a multiple
 KV_TILE = 64
 HEAD_DIMS = (64, 128)
+#: the forward's consumer warpgroups a CTA of 64 Q rows, which take turns
+#: over its K/V tiles: one (two CTAs an SM) or two (one CTA an SM)
+FWD_SPLITS = (1, 2)
 
 _PTR, _INT, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
 #: the tail every launch entry takes: batch, heads, seq, head_dim, causal,
@@ -99,7 +106,8 @@ class _Library:
 
 _FWD = _Library(
     "libflash_attention.so", SOURCE, "flash_attention_init",
-    {"flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64P, *_TAIL]},
+    {"flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64P, _INT, *_TAIL],
+     "flash_attention_config": [_INT, _INT, ctypes.POINTER(ctypes.c_int), _INT]},
 )
 _BWD = _Library(
     "libflash_attention_bwd.so", BWD_SOURCE, "flash_attention_bwd_init",
@@ -113,6 +121,25 @@ _BWD = _Library(
 def build() -> tuple[Path, str]:
     """Compile ``csrc/flash_attention.cu`` if needed; returns (library, nvcc output)."""
     return _FWD.build()
+
+
+def fwd_split(batch_heads: int, seq: int, sms: int) -> int:
+    """The forward's consumer warpgroups a CTA on a card of ``sms`` SMs,
+    from ``FWD_SPLITS``: two, which split each CTA's K/V tiles, where the
+    64-row CTAs do not outnumber the SMs (the training shape, 4
+    batch-heads of 2048: 128 CTAs), so that each SM runs two warpgroups;
+    else one (two CTAs an SM)."""
+    return 2 if batch_heads * (seq // KV_TILE) <= sms else 1
+
+
+def fwd_config(head_dim: int, kv_split: int, device: int = 0) -> dict[str, int]:
+    """The forward instantiation's configuration, as the library reports
+    it: threads, ring stages, CTAs an SM, dynamic shared memory in bytes."""
+    out = (ctypes.c_int * 4)()
+    n = _FWD.load(device).flash_attention_config(head_dim, kv_split, out, 4)
+    if n != 4:
+        raise ValueError(f"no forward instantiation for head_dim {head_dim}, kv_split {kv_split}")
+    return dict(zip(("threads", "stages", "ctas_per_sm", "smem_bytes"), out))
 
 
 def build_bwd() -> tuple[Path, str]:
@@ -296,6 +323,20 @@ def flash_attention_kernel(
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_reference(q, k, v, causal, with_lse)
     _check("flash_attention_kernel", (q, k, v))
+    batch, seq, heads, _ = _dims(q)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return _launch_fwd(q, k, v, causal, with_lse, fwd_split(batch * heads, seq, sms))
+
+
+def _launch_fwd(q, k, v, causal: bool, with_lse: bool, kv_split: int):
+    """The forward kernel on operands ``_check`` has passed, on ``kv_split``
+    consumer warpgroups a CTA (one of ``FWD_SPLITS``; each computes the
+    same), counted in ``flash_attention_kernel.launches``.
+    ``flash_attention_kernel`` calls it with ``fwd_split``'s choice;
+    ``chip_smoke.py`` calls it with each to hold both to the plain
+    version."""
+    if kv_split not in FWD_SPLITS:
+        raise ValueError(f"the forward takes kv_split in {FWD_SPLITS}, got {kv_split}")
     batch, seq, heads, d = _dims(q)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (
@@ -306,7 +347,7 @@ def flash_attention_kernel(
     index = q.device.index
     err = _FWD.load(index).flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), _strides(q, k, v, o),
+        None if lse is None else lse.data_ptr(), _strides(q, k, v, o), kv_split,
         batch, heads, seq, d, int(causal), 1.0 / math.sqrt(d), index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

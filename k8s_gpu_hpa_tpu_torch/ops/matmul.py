@@ -33,8 +33,8 @@ from k8s_gpu_hpa_tpu_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "matmul.cu"
-#: the PTX layer the source includes
-HEADERS = (CSRC / "hopper_ptx.cuh",)
+#: the PTX layer and the descriptor helpers the source includes
+HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "smem_desc.cuh")
 #: every dim must be a multiple of this: the kernel's tile rows, and half its
 #: tile columns (a 128-column remainder is read through TMA's zero fill)
 ALIGN = 128

@@ -1,4 +1,5 @@
-"""Keeps the port's CPU tests off a quarter of the host's cores.
+"""Keeps the port's CPU tests off a quarter of the host's cores, and behind
+every other test on the rest.
 
 The whole suite runs in several pytest-xdist workers at once, and the JAX
 package has wall-clock tests (the fleet query p95 of
@@ -9,16 +10,35 @@ every core.  So each port test module holds torch to one intra-op thread at
 import, and imports the autouse fixture ``confined_to_port_cores``: while
 the module's tests run, every thread of the worker, and every thread or
 subprocess it starts, runs on the last three quarters of the cores it may
-use.  The first quarter stays for the other workers' tests.
+use, at the lowest CPU priority (nice 19).  The first quarter stays for the
+other workers' tests, and on the rest the scheduler gives a test at the
+default priority some seventy times the share of a port thread.  A module
+whose tests run a closed loop against the wall clock sets
+``KEEP_PRIORITY = True``: its load generator, starved at nice 19, would
+miss the loop's budget, and it computes on one torch thread.  Afterwards
+the fixture restores the cores and the priority.  Raising a priority back
+takes CAP_SYS_NICE or an RLIMIT_NICE that allows it; a process without
+either keeps its priority throughout and is confined to the cores alone,
+so that no later test of the worker runs at nice 19.
 """
 
+import contextlib
+import json
 import os
+import resource
+import subprocess
+import sys
 import threading
+from pathlib import Path
 
 import pytest
 
-#: the worker's cores before the fixture confined it
-_BEFORE: dict[str, set[int]] = {}
+#: the worker's cores and priority before the fixture confined it
+_BEFORE: dict[str, object] = {}
+#: the priority the port's tests run at: the lowest
+PORT_NICE = 19
+#: the capability that lets a thread raise its priority (linux/capability.h)
+CAP_SYS_NICE = 23
 
 
 def port_cores(allowed: set[int]) -> set[int]:
@@ -28,27 +48,75 @@ def port_cores(allowed: set[int]) -> set[int]:
     return set(ordered[len(ordered) // 4:])
 
 
-def _pin_process(cores: set[int]) -> None:
-    """Set the affinity of every thread of this process (sched_setaffinity
-    on pid 0 would set only the calling thread's)."""
+def _each_thread(fn) -> None:
+    """``fn(tid)`` for every thread of this process (sched_setaffinity and
+    setpriority on pid 0 reach only the calling thread)."""
     for tid in os.listdir("/proc/self/task"):
         try:
-            os.sched_setaffinity(int(tid), cores)
-        except OSError:  # the thread has exited
+            fn(int(tid))
+        except ProcessLookupError:  # the thread has exited
             pass
 
 
-@pytest.fixture(scope="module", autouse=True)
-def confined_to_port_cores():
-    if not (hasattr(os, "sched_setaffinity") and os.path.isdir("/proc/self/task")):
-        yield
-        return
+def _pin_process(cores: set[int]) -> None:
+    _each_thread(lambda tid: os.sched_setaffinity(tid, cores))
+
+
+def _renice_process(nice: int) -> None:
+    """Set every thread's nice value."""
+    _each_thread(lambda tid: os.setpriority(os.PRIO_PROCESS, tid, nice))
+
+
+def may_restore_priority(nice: int) -> bool:
+    """Whether this process may raise its threads back to ``nice`` once it
+    has lowered them: RLIMIT_NICE allows nice values down to 20 - limit,
+    and CAP_SYS_NICE any."""
+    limit = resource.getrlimit(resource.RLIMIT_NICE)[0]
+    if limit == resource.RLIM_INFINITY or 20 - limit <= nice:
+        return True
+    status = Path("/proc/self/status").read_text()
+    effective = next(ln.split()[1] for ln in status.splitlines() if ln.startswith("CapEff:"))
+    return bool(int(effective, 16) >> CAP_SYS_NICE & 1)
+
+
+def port_nice(nice: int, keep_priority: bool, may_restore: bool = True) -> int:
+    """The nice value a port module's tests run at, from the worker's."""
+    return nice if keep_priority or not may_restore else max(nice, PORT_NICE)
+
+
+@contextlib.contextmanager
+def confined(keep_priority: bool):
+    """Confine every thread of this process (and what it starts) to the
+    port's cores and priority, and restore both on exit."""
     before = _BEFORE["cores"] = os.sched_getaffinity(0)
+    nice = _BEFORE["nice"] = os.getpriority(os.PRIO_PROCESS, 0)
+    low = port_nice(nice, keep_priority, may_restore_priority(nice))
     _pin_process(port_cores(before))
+    if low != nice:
+        _renice_process(low)
     try:
         yield
     finally:
+        if low != nice:
+            _renice_process(nice)
         _pin_process(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def confined_to_port_cores(request):
+    if not (hasattr(os, "sched_setaffinity") and os.path.isdir("/proc/self/task")):
+        yield
+        return
+    with confined(getattr(request.module, "KEEP_PRIORITY", False)):
+        yield
+
+
+def test_port_modules_drop_to_the_lowest_priority_unless_they_keep_it():
+    assert port_nice(0, keep_priority=False) == PORT_NICE
+    assert port_nice(0, keep_priority=True) == 0
+    assert port_nice(PORT_NICE, keep_priority=True) == PORT_NICE  # never raised
+    # a process that could not raise its priority again keeps it
+    assert port_nice(0, keep_priority=False, may_restore=False) == 0
 
 
 def test_port_cores_leave_the_lowest_quarter():
@@ -62,15 +130,64 @@ def test_the_fixture_confines_every_thread_of_the_worker():
     if "cores" not in _BEFORE:
         pytest.skip("no per-thread affinity on this host: the fixture confines nothing")
     want = port_cores(_BEFORE["cores"])
+    want_nice = port_nice(_BEFORE["nice"], False, may_restore_priority(_BEFORE["nice"]))
     got = {}
     for tid in os.listdir("/proc/self/task"):
         try:
-            got[tid] = os.sched_getaffinity(int(tid))
+            got[tid] = (os.sched_getaffinity(int(tid)), os.getpriority(os.PRIO_PROCESS, int(tid)))
         except OSError:  # the thread has exited
             pass
-    assert got and all(cores == want for cores in got.values()), got
+    assert got and all(v == (want, want_nice) for v in got.values()), got
     started = []
-    thread = threading.Thread(target=lambda: started.append(os.sched_getaffinity(0)))
+    thread = threading.Thread(
+        target=lambda: started.append((os.sched_getaffinity(0), os.getpriority(os.PRIO_PROCESS, 0)))
+    )
     thread.start()
     thread.join()
-    assert started == [want]
+    assert started == [(want, want_nice)]
+
+
+def test_a_subprocess_of_the_worker_inherits_the_low_priority():
+    if "nice" not in _BEFORE:
+        pytest.skip("no per-thread affinity on this host: the fixture confines nothing")
+    out = subprocess.run(
+        [sys.executable, "-c", "import os; print(os.getpriority(os.PRIO_PROCESS, 0))"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    assert int(out) == port_nice(_BEFORE["nice"], False, may_restore_priority(_BEFORE["nice"]))
+
+
+# A worker that runs a lowered port module and then one that keeps its
+# priority: the second must run at the worker's own priority.  It runs in a
+# subprocess, started at the worker's priority, as it is or as an
+# unprivileged user (uid 65534), which has no CAP_SYS_NICE and the default
+# RLIMIT_NICE of 0 and so may not raise its priority again.
+_SEQUENCE = """
+import json, os, sys
+from tests.test_torch_cores import confined, may_restore_priority
+os.setpriority(os.PRIO_PROCESS, 0, int(sys.argv[1]))
+if sys.argv[2] == "unprivileged" and os.geteuid() == 0:
+    os.setgid(65534)
+    os.setuid(65534)
+before = os.getpriority(os.PRIO_PROCESS, 0)
+with confined(keep_priority=False):
+    lowered = os.getpriority(os.PRIO_PROCESS, 0)
+with confined(keep_priority=True):
+    kept = os.getpriority(os.PRIO_PROCESS, 0)
+print(json.dumps([before, lowered, kept, may_restore_priority(before)]))
+"""
+
+
+@pytest.mark.parametrize("user", ["as_is", "unprivileged"])
+def test_a_module_that_keeps_its_priority_after_a_lowered_one_runs_at_the_worker_s(user):
+    if "nice" not in _BEFORE:
+        pytest.skip("no per-thread affinity on this host: the fixture confines nothing")
+    out = subprocess.run(
+        [sys.executable, "-c", _SEQUENCE, str(_BEFORE["nice"]), user],
+        capture_output=True, text=True, check=True, timeout=60,
+        cwd=Path(__file__).resolve().parent.parent,
+    ).stdout
+    before, lowered, kept, may_restore = json.loads(out)
+    assert before == _BEFORE["nice"]
+    assert lowered == port_nice(before, False, may_restore)
+    assert kept == before

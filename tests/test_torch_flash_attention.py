@@ -9,6 +9,8 @@ tests': 2e-3 in f32 (the two sides sum in other orders and the Pallas
 kernel blocks its softmax), 0.06 in bf16 (each side rounds P to bf16 before
 P V at other points of its blocking)."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 from k8s_gpu_hpa_tpu.ops.flash_attention import _flash_bhsd
 from k8s_gpu_hpa_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from k8s_gpu_hpa_tpu.ops.ring_attention import reference_attention as jax_reference_attention
+from k8s_gpu_hpa_tpu_torch.ops import flash_attention as fa
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_kernel,
@@ -150,6 +153,54 @@ def test_cpu_path_is_the_plain_version_and_launches_nothing():
     got = flash_attention_kernel(q, k, v, True)
     assert flash_attention_kernel.launches == before
     assert torch.equal(got, flash_attention_reference(q, k, v, True))
+
+
+def test_cpu_path_ignores_the_tiling(monkeypatch):
+    """The consumer warpgroups a CTA are the CUDA kernel's choice; the
+    plain version has none, so a CPU call never asks for it."""
+
+    def refuse(*args):
+        raise AssertionError("the CPU path chose a kernel tiling")
+
+    monkeypatch.setattr(fa, "fwd_split", refuse)
+    q, k, v = _torch(*_qkv(seq=128), dtype=torch.bfloat16)
+    want = flash_attention_reference(q, k, v, True)
+    assert torch.equal(flash_attention_kernel(q, k, v, True), want)
+
+
+@pytest.mark.parametrize(
+    "batch_heads, seq, sms, want",
+    [
+        (4, 2048, 132, 2),  # the llm training shape: 128 CTAs, two warpgroups each
+        (32, 512, 132, 1),  # the serve prefill: 256 CTAs, two an SM
+        (16, 4096, 132, 1),  # the long timed shape: 1,024 CTAs
+        (66, 128, 132, 2),  # exactly one CTA an SM
+        (67, 128, 132, 1),
+        (33, 256, 132, 2),
+        (34, 256, 132, 1),
+        (2, 192, 2, 1),  # the simulator's two SMs
+        (1, 256, 4, 2),
+        (1, 128, 4, 2),
+    ],
+)
+def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, want):
+    assert fa.fwd_split(batch_heads, seq, sms) == want
+    assert want in fa.FWD_SPLITS
+
+
+def test_forward_source_is_wgmma_fed_by_tma():
+    """The forward's source issues wgmma for both products and loads by TMA
+    on mbarriers; the mma.sync, ldmatrix and cp.async path is gone, and the
+    headers it includes rebuild it."""
+    text = fa.SOURCE.read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    for gone in ("mma_bf16", "mma_ptx", "ldmatrix", "cp_async"):
+        assert gone not in code, gone
+    for used in ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16", "wgmma_m64n64k16_rs_bf16",
+                 "tma_load_4d", "mbar_wait", "mbar_arrive_expect_tx"):
+        assert used in code, used
+    included = set(re.findall(r'#include "([^"]+)"', code))
+    assert {fa.CSRC / name for name in included} <= set(fa.HEADERS)
 
 
 @pytest.mark.parametrize(

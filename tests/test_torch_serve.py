@@ -45,6 +45,9 @@ DEPLOY = Path(__file__).resolve().parent.parent / "deploy"
 SERVE_HPA = yaml.safe_load((DEPLOY / "tpu-serve-hpa.yaml").read_text())
 #: real time, as the headline slice test runs it: pod start 2.4 s, HPA sync 3 s
 REAL_TIME_SCALE = 0.2
+# its closed loops run against the wall clock: confined to the port's
+# cores, but at the worker's own priority (tests/test_torch_cores.py)
+KEEP_PRIORITY = True
 
 _ENV_OF = {
     "batch": "DECODE_BATCH", "max_seq": "MAX_SEQ", "d_model": "D_MODEL",

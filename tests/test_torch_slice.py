@@ -33,6 +33,9 @@ torch.set_num_threads(1)
 #: compresses its smoke run: in real time, pod start 2.4 s, HPA sync 3 s and
 #: a 12 s budget leave room for a loaded host; virtual time needs none
 REAL_TIME_SCALE = 0.2
+# its closed loops run against the wall clock: confined to the port's
+# cores, but at the worker's own priority (tests/test_torch_cores.py)
+KEEP_PRIORITY = True
 VIRTUAL_TIME_SCALE = 0.1
 
 

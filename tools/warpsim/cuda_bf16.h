@@ -84,6 +84,7 @@ struct Sim {
   uint32_t a[32][32][4], b[32][32][2];
   float x[32][32];
   SimWgmma wgmma[8][128];
+  uint32_t wgmma_a[8][128][4];  // A's registers of a wgmma that takes them
   // mbarriers by shared address, and the block that runs (blocks run in turn)
   std::mutex mbar_lock;
   std::condition_variable mbar_moved;
@@ -108,6 +109,14 @@ inline void sim_check_smem(const void* p) {
   const auto* c = static_cast<const unsigned char*>(p);
   if (reinterpret_cast<uintptr_t>(p) % 16) sim_fail("misaligned shared-memory access", p);
   if (c < smem_raw || c + 16 > smem_raw + sim.smem_bytes) sim_fail("shared memory out of bounds", p);
+}
+
+inline int __shfl_sync(unsigned, int v, int src) {
+  sim.x[sim_warp()][sim_lane()] = static_cast<float>(v);
+  sim_warp_sync();
+  const int r = static_cast<int>(sim.x[sim_warp()][src]);
+  sim_warp_sync();
+  return r;
 }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {

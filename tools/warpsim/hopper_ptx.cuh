@@ -1,19 +1,21 @@
-// The simulator's version of the GEMM's hopper_ptx.cuh (the PTX layer under
-// ops/csrc/matmul.cu, which the simulation compiles as it is).
+// The simulator's version of hopper_ptx.cuh (the PTX layer under
+// ops/csrc/matmul.cu and ops/csrc/flash_attention.cu, which the simulation
+// compiles as they are).
 //
 // - A shared address is the offset into the block's shared memory.
 // - An mbarrier is shared state under one lock: a phase completes when its
 //   arrivals and its transaction bytes are all in, and a wait blocks until
 //   the phase of the parity it names has completed (the PTX ISA's
 //   try_wait.parity).  A wait that lasts 20 s fails as a deadlock.
-// - A TMA load copies its box at once, zero where the box leaves the tensor,
-//   into shared memory under the 128-byte swizzle, and completes its bytes
-//   on the barrier.
+// - A TMA load copies its box at once, zero wherever one of its coordinates
+//   leaves the tensor's extent in that dimension, into shared memory under
+//   the 128-byte swizzle, and completes its bytes on the barrier.
 // - wgmma meets at the warpgroup's barrier, checks that all 128 threads
 //   issue the same operands, and computes at once: each thread reads the
 //   operands through the matrix descriptors (start address, leading and
 //   stride byte offsets, the 128-byte swizzle) in the PTX ISA's canonical
-//   layouts and sums into the accumulators the PTX ISA assigns it; the
+//   layouts, or A from the 128 threads' registers in the PTX ISA's fragment
+//   layout, and sums into the accumulators the PTX ISA assigns it; the
 //   threads meet again when all have read.  So commit and wait have nothing
 //   to wait for, and setmaxnreg does nothing.
 //
@@ -88,11 +90,6 @@ inline void sim_mbar_complete_tx(uint64_t* bar, uint32_t bytes) {
   sim_mbar_settle(m, bar);
 }
 
-inline bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  std::lock_guard<std::mutex> hold(sim.mbar_lock);
-  return sim_mbar(bar).parity != (parity & 1u);
-}
-
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   std::unique_lock<std::mutex> hold(sim.mbar_lock);
   SimMbar& m = sim_mbar(bar);
@@ -104,26 +101,46 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA
 
-inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int inner, int outer) {
+// box element (i0, i1, ...) innermost first lands at row-major offset
+// ((.. i2) * box1 + i1) * box0 + i0 of the destination
+inline void sim_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, const int* coord,
+                         uint32_t rank) {
   if (!map->encoded) sim_fail("TMA load through a tensor map never encoded", map);
+  if (rank != map->rank) sim_fail("TMA load of another rank than its tensor map's", map);
   const uint32_t at = smem_u32(dst);
   const bool swizzled = map->swizzle == CU_TENSOR_MAP_SWIZZLE_128B;
   if (at % (swizzled ? 1024 : 128)) sim_fail("TMA destination misaligned for its swizzle", dst);
-  const uint32_t row_bytes = map->box[0] * 2, bytes = row_bytes * map->box[1];
+  uint32_t elems = 1;
+  for (uint32_t i = 0; i < rank; ++i) elems *= map->box[i];
+  const uint32_t bytes = elems * 2;
   if (at + bytes > sim.smem_bytes) sim_fail("TMA box outside shared memory", dst);
-  for (uint32_t r = 0; r < map->box[1]; ++r) {
-    for (uint32_t c = 0; c < map->box[0]; ++c) {
-      const int64_t x = static_cast<int64_t>(inner) + c, y = static_cast<int64_t>(outer) + r;
-      uint16_t v = 0;
-      if (x >= 0 && y >= 0 && x < static_cast<int64_t>(map->dims[0]) &&
-          y < static_cast<int64_t>(map->dims[1])) {
-        std::memcpy(&v, map->base + y * map->stride + x * 2, 2);
-      }
-      const uint32_t to = at + r * row_bytes + c * 2;
-      std::memcpy(smem_raw + (swizzled ? sim_swizzle128(to) : to), &v, 2);
+  for (uint32_t n = 0; n < elems; ++n) {
+    uint32_t rest = n;
+    bool inside = true;
+    int64_t from = 0;
+    for (uint32_t i = 0; i < rank; ++i) {
+      const int64_t x = static_cast<int64_t>(coord[i]) + rest % map->box[i];
+      rest /= map->box[i];
+      inside = inside && x >= 0 && x < static_cast<int64_t>(map->dims[i]);
+      from += x * static_cast<int64_t>(map->strides[i]);
     }
+    uint16_t v = 0;
+    if (inside) std::memcpy(&v, map->base + from, 2);
+    const uint32_t to = at + n * 2;
+    std::memcpy(smem_raw + (swizzled ? sim_swizzle128(to) : to), &v, 2);
   }
   sim_mbar_complete_tx(bar, bytes);  // the whole box, filled or not
+}
+
+inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int inner, int outer) {
+  const int coord[2] = {inner, outer};
+  sim_tma_load(dst, map, bar, coord, 2);
+}
+
+inline void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                        int c3) {
+  const int coord[4] = {c0, c1, c2, c3};
+  sim_tma_load(dst, map, bar, coord, 4);
 }
 
 // ---- wgmma
@@ -132,7 +149,10 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N>
 inline void wgmma_wait() {}
-inline void wgmma_fence_operands(float (&)[128]) {}
+template <int N>
+inline void wgmma_fence_operands(float (&)[N]) {}
+template <int N>
+inline void wgmma_fence_operands(uint32_t (&)[N][4]) {}
 
 struct SimDesc {
   uint32_t start, lbo, sbo;
@@ -169,34 +189,78 @@ inline uint32_t sim_mn_major(const SimDesc& d, int mn, int k) {
   return d.start + (mn % 64) * 2 + (mn / 64) * d.lbo + (k % 8) * 128 + (k / 8) * d.sbo;
 }
 
-inline void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
-                                  int scale_d) {
+// d = A B (+ d) for a 64xNx16 tile.  A comes through `desc_a` (K-major in
+// shared memory) or, with `a_regs`, from the warpgroup's registers in the
+// m16n8k16 fragment layout; B through `desc_b`, N-major (`b_n_major`, the
+// transpose bit) or K-major.
+template <int N>
+inline void sim_wgmma(float (&d)[N / 2], uint64_t desc_a, const uint32_t* a_regs,
+                      uint64_t desc_b, bool b_n_major, int scale_d) {
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   sim.wgmma[wg][t] = {desc_a, desc_b, scale_d != 0};
+  if (a_regs) std::memcpy(sim.wgmma_a[wg][t], a_regs, sizeof(sim.wgmma_a[wg][t]));
   sim.warpgroups[wg]->arrive_and_wait();
   const SimWgmma first = sim.wgmma[wg][0];
-  sim.warpgroups[wg]->arrive_and_wait();
   if (first.a != desc_a || first.b != desc_b || first.scale_d != (scale_d != 0)) {
     sim_fail("wgmma operands differ across the warpgroup", nullptr);
   }
-  const SimDesc a = sim_desc(desc_a), b = sim_desc(desc_b);
   const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
   float arow[2][16];  // this thread's rows 16 warp + g and + 8 of A
   for (int h = 0; h < 2; ++h) {
-    for (int k = 0; k < 16; ++k) arow[h][k] = sim_operand(sim_k_major(a, 16 * warp + g + 8 * h, k));
+    const int row = 16 * warp + g + 8 * h;
+    for (int k = 0; k < 16; ++k) {
+      if (a_regs) {
+        // row r, column k sits with thread 32 (r / 16) + 4 (r % 8) + (k % 8) / 2,
+        // in register (r % 16) / 8 + 2 (k / 8), half k % 2
+        const uint32_t reg =
+            sim.wgmma_a[wg][32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16) / 8 + 2 * (k / 8)];
+        arow[h][k] = sim_bf2f(static_cast<uint16_t>(k % 2 ? reg >> 16 : reg & 0xffffu));
+      } else {
+        arow[h][k] = sim_operand(sim_k_major(sim_desc(desc_a), row, k));
+      }
+    }
   }
-  for (int j = 0; j < 32; ++j) {
+  const SimDesc b = sim_desc(desc_b);
+  for (int j = 0; j < N / 8; ++j) {
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * j + 2 * q + e % 2;
       float acc = scale_d ? d[4 * j + e] : 0.0f;
-      for (int k = 0; k < 16; ++k) acc += arow[e / 2][k] * sim_operand(sim_mn_major(b, col, k));
+      for (int k = 0; k < 16; ++k) {
+        const uint32_t at = b_n_major ? sim_mn_major(b, col, k) : sim_k_major(b, col, k);
+        acc += arow[e / 2][k] * sim_operand(at);
+      }
       d[4 * j + e] = acc;
     }
   }
   // the product is one operation of the warpgroup: no thread goes on (and
-  // releases its stage) before every thread has read its operands
+  // releases its stage, or rewrites A's registers) before every thread has
+  // read its operands
   sim.warpgroups[wg]->arrive_and_wait();
 }
+
+inline void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                  int scale_d) {
+  sim_wgmma<256>(d, desc_a, nullptr, desc_b, true, scale_d);
+}
+
+inline void wgmma_m64n64k16_ss_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                    int scale_d) {
+  sim_wgmma<64>(d, desc_a, nullptr, desc_b, false, scale_d);
+}
+
+inline void wgmma_m64n64k16_rs_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                    int scale_d) {
+  sim_wgmma<64>(d, 0, a, desc_b, true, scale_d);
+}
+
+inline void wgmma_m64n128k16_rs_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                     int scale_d) {
+  sim_wgmma<128>(d, 0, a, desc_b, true, scale_d);
+}
+
+// ---- math
+
+inline float exp2_approx(float x) { return std::exp2(x); }
 
 // ---- setmaxnreg
 
