@@ -18,7 +18,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    and its shared memory beside ptxas's report; the flash
                    forward's registers and spills for each instantiation
                    (head_dim 64 and 128 by one or two consumer warpgroups)
-                   beside its threads, stages, CTAs an SM and shared memory.
+                   beside its threads, stages, CTAs an SM and shared memory,
+                   and the backward's (dQ and dK/dV at head_dim 64 and 128)
+                   beside its threads, stages, shared memory and setmaxnreg
+                   counts.
 3. parity        — the GEMM against its plain PyTorch version at six shapes,
                    among them N = 128 mod 256 and K = 128; an f32 or
                    unaligned operand must raise.
@@ -64,11 +67,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    shipped serve HPA must scale 1 → 4 on tpu_serve_hbm_bw_avg
                    within the 60 s budget.
 14. flash_bwd_parity — the dQ and dK/dV kernels against their plain versions
-                   at the llm training shape (causal and not), a causal shape
-                   whose forward has a ragged Q tile, and head_dim 64, on views
-                   of one fused QKV product; the autograd Function's gradients
-                   against autograd through the plain forward at the llm
-                   shape; off-envelope operands must raise.
+                   at the llm training shape (causal and not), seq 192 with
+                   three heads, and head_dim 64 over ten tiles a side (each
+                   ring wraps), on views of one fused QKV product; the
+                   autograd Function's gradients against autograd through
+                   the plain forward at the llm shape; off-envelope operands
+                   must raise.
 15. flash_bwd_timing — both backward kernels (and the training forward) at the
                    llm shape and at a long one, beside their bounds, their
                    plain versions and scaled_dot_product_attention's backward
@@ -217,9 +221,9 @@ SERVE_CACHE_RTOL = 2.0**-5
 LLM_SHAPE = (1, 2048, 4, 128)
 # (batch, seq, heads, head_dim, causal): the llm shape causal and not; seq
 # 192, whose backward runs three 64-row tiles a side, the dK/dV loop
-# starting at the diagonal;
-# and head_dim 64
-BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 256, 2, 64, True)]
+# starting at the diagonal; and head_dim 64 over ten tiles a side, which
+# wraps every ring
+BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 640, 2, 64, True)]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
 # orders, and rounds each gradient once; dS (and P for dV) is rounded to
 # bf16 before the second product, and where the two sides' fp32 dS straddle
@@ -360,6 +364,15 @@ def phase_build() -> None:
          "kv_split": int(split), **flash_attention.fwd_config(int(d), int(split))}
         for d, split, st, ld, regs in entries
     ]
+    bwd_entries = re.findall(
+        r"Function properties for \S*flash_bwd_(dq|dkv)_kernelILi(\d+)E\S*\s+"
+        r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s+"
+        r"ptxas info\s+: Used (\d+) registers", bwd_ptxas)
+    flash_bwd = [
+        {"kernel": kernel, "head_dim": int(d), "registers_at_launch": int(regs),
+         "spill_bytes": int(st) + int(ld), **flash_attention.bwd_config(kernel, int(d))}
+        for kernel, d, st, ld, regs in bwd_entries
+    ]
     emit({
         "phase": "build", "matmul_cu_s": round(kernel_s, 3),
         "flash_attention_cu_s": round(flash_s, 3),
@@ -379,9 +392,24 @@ def phase_build() -> None:
         "flash_ptxas": ptxas_lines(flash_ptxas),
         "flash_fwd": flash_fwd,
         "flash_bwd_ptxas": ptxas_lines(bwd_ptxas),
+        # under setmaxnreg (every instantiation but dQ at head_dim 64) a
+        # thread launches with 168 registers, and the producer warpgroup's
+        # and the consumers' counts are set in the kernel
+        "flash_bwd": flash_bwd,
     })
     if len(flash_fwd) != 4 or any(e["spill_bytes"] for e in flash_fwd):
         raise AssertionError(f"the flash forward's ptxas report: {flash_fwd}")
+    # setmaxnreg.inc waits for registers the producer's .dec gives up: at
+    # 384 threads they add up only from exactly 168 a thread at launch
+    if len(flash_bwd) != 4 or any(
+        e["spill_bytes"] or (e["consumer_regs"] and e["registers_at_launch"] != 168)
+        for e in flash_bwd
+    ):
+        raise AssertionError(f"the flash backward's ptxas report: {flash_bwd}")
+    # a product serialized for want of registers (C7512) or under a branch
+    # (C7520)
+    if "are serialized" in flash_ptxas + bwd_ptxas:
+        raise AssertionError("ptxas serialized a flash kernel's wgmma")
 
 
 def phase_parity() -> float:

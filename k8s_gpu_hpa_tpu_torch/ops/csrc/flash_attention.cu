@@ -73,11 +73,11 @@
 
 #include "hopper_ptx.cuh"
 #include "smem_desc.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 constexpr int kBK = 64;     // K/V rows per tile, and Q rows per warpgroup
-constexpr int kBox = 64;    // a TMA box's columns: one 128-byte swizzle row
 constexpr int kWgK = 16;    // one wgmma's K
 constexpr uint32_t kBoxBytes = kBK * kBox * 2;  // 8 KB
 constexpr float kNegInf = -1e30f;
@@ -365,27 +365,6 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   }
 }
 
-PFN_cuTensorMapEncodeTiled g_encode = nullptr;
-
-// a [b, s, h, d] bf16 tensor with element strides (sb, ss, sh, 1), read in
-// 64 x 64 boxes of (d, s) under the 128-byte swizzle; out of bounds reads
-// zero
-CUresult encode(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d,
-                const int64_t* strides) {
-  // a head stride never stepped (one head) may be anything legal
-  const int64_t sh = heads == 1 ? d : strides[2];
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(sh) * 2,
-                               static_cast<cuuint64_t>(strides[1]) * 2,
-                               static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {kBox, 1, kBK, 1};
-  const cuuint32_t steps[4] = {1, 1, 1, 1};
-  return g_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes,
-                  box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D, int SPLIT>
 cudaError_t opt_in() {
   return cudaFuncSetAttribute(flash_fwd_kernel<D, SPLIT>,
@@ -431,17 +410,7 @@ extern "C" int flash_attention_init(int device) {
   if (err == cudaSuccess) err = opt_in<64, 2>();
   if (err == cudaSuccess) err = opt_in<128, 1>();
   if (err == cudaSuccess) err = opt_in<128, 2>();
-  if (err == cudaSuccess && g_encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    // the entry point's CUDA 12.0 signature, which <cudaTypedefs.h> names
-    err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                           cudaEnableDefault, &found);
-    if (err == cudaSuccess && found != cudaDriverEntryPointSuccess) {
-      err = cudaErrorSymbolNotFound;
-    }
-    if (err == cudaSuccess) g_encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-  }
+  if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
@@ -483,9 +452,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   // cuTensorMapEncodeTiled needs; a thread's first cudaGetDevice does not
   if ((err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   Params p;
-  CUresult refused = encode(&p.q, q, batch, seq, heads, head_dim, strides);
-  if (refused == CUDA_SUCCESS) refused = encode(&p.k, k, batch, seq, heads, head_dim, strides + 3);
-  if (refused == CUDA_SUCCESS) refused = encode(&p.v, v, batch, seq, heads, head_dim, strides + 6);
+  CUresult refused = encode_bshd(&p.q, q, batch, seq, heads, head_dim, strides);
+  if (refused == CUDA_SUCCESS) {
+    refused = encode_bshd(&p.k, k, batch, seq, heads, head_dim, strides + 3);
+  }
+  if (refused == CUDA_SUCCESS) {
+    refused = encode_bshd(&p.v, v, batch, seq, heads, head_dim, strides + 6);
+  }
   if (refused != CUDA_SUCCESS) {
     if (cur != device) cudaSetDevice(cur);
     return static_cast<int>(refused);

@@ -1,7 +1,8 @@
-// The PTX-level operations of the Hopper kernels (matmul.cu, the GEMM, and
-// flash_attention.cu, the attention forward): mbarriers, TMA tile loads,
-// wgmma and setmaxnreg.  tools/warpsim/hopper_ptx.cuh is the same
-// interface for the CPU simulator; everything above this layer is shared.
+// The PTX-level operations of the Hopper kernels (matmul.cu, the GEMM;
+// flash_attention.cu, the attention forward; flash_attention_bwd.cu, its
+// backward): mbarriers, TMA tile loads, wgmma and setmaxnreg.
+// tools/warpsim/hopper_ptx.cuh is the same interface for the CPU simulator;
+// everything above this layer is shared.
 // Each operation is as the PTX ISA (8.0 and later, sm_90a) defines it.
 
 #pragma once

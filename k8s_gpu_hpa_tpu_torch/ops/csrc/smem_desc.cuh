@@ -1,5 +1,5 @@
 // wgmma's shared-memory matrix descriptor, shared by the Hopper kernels
-// (matmul.cu, flash_attention.cu).  Only bit packing over hopper_ptx.cuh's
+// (matmul.cu, flash_attention.cu, flash_attention_bwd.cu).  Only bit packing over hopper_ptx.cuh's
 // smem_u32, so the CPU simulator (tools/warpsim) compiles it as it is and
 // decodes what it packs.
 //

@@ -55,16 +55,18 @@ from k8s_gpu_hpa_tpu_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
-#: the headers the sources include: the forward's TMA, wgmma and descriptor
-#: layer, and the backward's copy and mma helpers
-HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "smem_desc.cuh", CSRC / "mma_bf16.cuh",
-           CSRC / "mma_ptx.cuh")
+#: the headers the sources include: the TMA, wgmma and descriptor layer and
+#: the tensor maps
+HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "smem_desc.cuh", CSRC / "tensor_map.cuh")
 #: K/V rows per tile of the kernels; the sequence must be a multiple
 KV_TILE = 64
 HEAD_DIMS = (64, 128)
 #: the forward's consumer warpgroups a CTA of 64 Q rows, which take turns
 #: over its K/V tiles: one (two CTAs an SM) or two (one CTA an SM)
 FWD_SPLITS = (1, 2)
+#: the backward kernels, each on two consumer warpgroups a CTA of 64 rows
+#: that take turns over the ring's tiles: K/V tiles for dQ, Q tiles for dK/dV
+BWD_KERNELS = ("dq", "dkv")
 
 _PTR, _INT, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
 #: the tail every launch entry takes: batch, heads, seq, head_dim, causal,
@@ -114,6 +116,7 @@ _BWD = _Library(
     {
         "flash_attention_bwd_dq": [_PTR] * 7 + [_I64P, *_TAIL],
         "flash_attention_bwd_dkv": [_PTR] * 8 + [_I64P, *_TAIL],
+        "flash_attention_bwd_config": [_INT, _INT, ctypes.POINTER(ctypes.c_int), _INT],
     },
 )
 
@@ -145,6 +148,20 @@ def fwd_config(head_dim: int, kv_split: int, device: int = 0) -> dict[str, int]:
 def build_bwd() -> tuple[Path, str]:
     """Compile ``csrc/flash_attention_bwd.cu`` if needed; returns (library, nvcc output)."""
     return _BWD.build()
+
+
+def bwd_config(kernel: str, head_dim: int, device: int = 0) -> dict[str, int]:
+    """A backward instantiation's configuration (``kernel`` one of
+    ``BWD_KERNELS``), as the library reports it: threads, ring stages,
+    dynamic shared memory in bytes (one CTA an SM), and the producer's and
+    the consumers' registers under ``setmaxnreg`` (0 without it)."""
+    keys = ("threads", "stages", "smem_bytes", "producer_regs", "consumer_regs")
+    out = (ctypes.c_int * len(keys))()
+    n = _BWD.load(device).flash_attention_bwd_config(
+        BWD_KERNELS.index(kernel), head_dim, out, len(keys))
+    if n != len(keys):
+        raise ValueError(f"no {kernel} instantiation for head_dim {head_dim}")
+    return dict(zip(keys, out))
 
 
 def _bhsd(x: torch.Tensor) -> torch.Tensor:

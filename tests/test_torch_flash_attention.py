@@ -188,19 +188,40 @@ def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, want):
     assert want in fa.FWD_SPLITS
 
 
+def _assert_wgmma_fed_by_tma(source, used: tuple[str, ...]) -> None:
+    """``source`` issues the ``used`` wgmma and loads by TMA on mbarriers;
+    the mma.sync, ldmatrix and cp.async path is gone, and the headers it
+    includes rebuild it."""
+    code = "\n".join(line.split("//")[0] for line in source.read_text().splitlines())
+    for gone in ("mma_bf16", "mma_ptx", "ldmatrix", "cp_async"):
+        assert gone not in code, gone
+    for name in (*used, "mbar_wait", "mbar_arrive_expect_tx"):
+        assert name in code, name
+    included = set(re.findall(r'#include "([^"]+)"', code))
+    assert {fa.CSRC / name for name in included} <= set(fa.HEADERS)
+
+
 def test_forward_source_is_wgmma_fed_by_tma():
     """The forward's source issues wgmma for both products and loads by TMA
     on mbarriers; the mma.sync, ldmatrix and cp.async path is gone, and the
     headers it includes rebuild it."""
-    text = fa.SOURCE.read_text()
-    code = "\n".join(line.split("//")[0] for line in text.splitlines())
-    for gone in ("mma_bf16", "mma_ptx", "ldmatrix", "cp_async"):
-        assert gone not in code, gone
-    for used in ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16", "wgmma_m64n64k16_rs_bf16",
-                 "tma_load_4d", "mbar_wait", "mbar_arrive_expect_tx"):
-        assert used in code, used
-    included = set(re.findall(r'#include "([^"]+)"', code))
-    assert {fa.CSRC / name for name in included} <= set(fa.HEADERS)
+    _assert_wgmma_fed_by_tma(fa.SOURCE, ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16",
+                                         "wgmma_m64n64k16_rs_bf16", "tma_load_4d"))
+
+
+def test_backward_source_is_wgmma_fed_by_tma():
+    """The backward's source issues every product as wgmma (S, dP and their
+    transposes from shared memory, dQ, dK and dV with A from registers) and
+    loads Q, K, V and dO by 4-D TMA and lse and delta by 2-D TMA on
+    mbarriers; no source or header of the kernels has an mma.sync, ldmatrix
+    or cp.async left."""
+    _assert_wgmma_fed_by_tma(fa.BWD_SOURCE, ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16",
+                                             "wgmma_m64n64k16_rs_bf16", "tma_load_4d",
+                                             "tma_load_2d", "setmaxnreg_inc"))
+    for path in fa.CSRC.iterdir():
+        text = path.read_text()
+        for gone in ("mma.sync", "ldmatrix", "cp.async.ca", "cp.async.cg"):
+            assert gone not in text, (path.name, gone)
 
 
 @pytest.mark.parametrize(

@@ -2,20 +2,20 @@
 of the GEMM, run on the CPU.
 
 The sources compile as C++ against a lockstep simulator of the CUDA features
-they use (tools/warpsim: one host thread per CUDA thread; ldmatrix, mma.sync
-and shuffles exchanged at a barrier of the warp, wgmma at a barrier of the
-warpgroup, in the layouts of the PTX ISA; cp.async as a copy; mbarriers as
-shared state under a lock; a TMA load as a swizzled, zero-filled copy that
-completes its barrier's bytes; shared-memory accesses checked for alignment
-and bounds).  The simulator replaces only the PTX layers (csrc/mma_ptx.cuh,
-csrc/hopper_ptx.cuh); the kernels and csrc/mma_bf16.cuh compile as they are.
-So their tiling, fragment and descriptor layouts, causal bounds, strided
-addressing, barrier phases and the GEMM's persistent tile order are held
-against the plain versions here, at small shapes, with chip_smoke.py's bars:
+they use (tools/warpsim: one host thread per CUDA thread; shuffles exchanged
+at a barrier of the warp, wgmma at a barrier of the warpgroup, in the
+layouts of the PTX ISA; mbarriers as shared state under a lock; a TMA load
+of bf16 or fp32 as a swizzled or plain, zero-filled copy that completes its
+barrier's bytes; shared-memory addresses checked for alignment and bounds).
+The simulator replaces only the PTX layer (csrc/hopper_ptx.cuh); the kernels,
+csrc/smem_desc.cuh and csrc/tensor_map.cuh compile as they are.  So their
+tiling, fragment and descriptor layouts, causal bounds, strided addressing,
+barrier phases and the GEMM's persistent tile order are held against the
+plain versions here, at small shapes, with chip_smoke.py's bars:
 outputs within 0.02 absolute (the forward's bar), the logsumexp within 1e-4,
 gradients within 2e-3 + 2^-6 of their value, the GEMM within 1e-2 + 2^-6 of
-its value.  What it cannot show: speed; a cp.async or wgmma read before its
-wait (copies and products land at once); what nvcc refuses; and a hardware
+its value.  What it cannot show: speed; a wgmma read before its wait
+(copies and products land at once); what nvcc refuses; and a hardware
 layout (a descriptor's offsets, the swizzle, the accumulator fragment) that
 the simulator and the kernel misread the same way.  chip_smoke.py's parity
 on the card shows those.  Each simulation runs this file as a script in a
@@ -59,12 +59,15 @@ GEMM_ATOL, GEMM_RTOL = 1e-2, 2.0**-6
 # at the diagonal; seq 192 not causal with b = 2, whose 4-D tensor maps
 # must address each batch's rows and no other's; seq 192 causal split over
 # two warpgroups, whose first Q tile leaves the second warpgroup no tile and
-# whose diagonal tiles fall to either; and nine K/V tiles on each, more than
-# twice either ring's stages (two on one warpgroup, four on two), so that
-# every stage is released and refilled and every barrier's phase flips
+# whose diagonal tiles fall to either (as the backward's first Q tile and
+# last K/V tile always do); and nine tiles a side, more than twice every
+# ring's stages (two on one warpgroup of the forward, four elsewhere), so
+# that every stage is released and refilled and every barrier's phase
+# flips, at head_dim 64 on each forward split and at 128, where dQ too has
+# its producer warpgroup under setmaxnreg
 SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 128, 0, 2), (2, 192, 3, 128, 1, 1),
           (2, 192, 1, 128, 0, 1), (1, 192, 2, 128, 1, 2), (1, 576, 1, 64, 1, 1),
-          (1, 576, 1, 64, 1, 2)]
+          (1, 576, 1, 64, 1, 2), (1, 576, 1, 128, 1, 2)]
 # (M, K, N) for the GEMM, whose simulated device has two SMs: one tile with
 # N = 128 under the 256-wide tile and K = 128 (two steps); 2x2 tiles with N =
 # 384 and K = 640 (ten steps: the four-stage ring wraps inside a tile and runs
@@ -85,8 +88,8 @@ def _build(out: Path, edit=lambda name, text: text) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found")
-    # the simulator's PTX layers beside the kernels' own helpers over them
-    for f in (*SIM.iterdir(), CSRC / "mma_bf16.cuh", CSRC / "smem_desc.cuh"):
+    # the simulator's PTX layer beside the kernels' own headers over it
+    for f in (*SIM.iterdir(), CSRC / "smem_desc.cuh", CSRC / "tensor_map.cuh"):
         shutil.copy(f, out / f.name)
     units = [out / "sim.cc"]
     for name in SOURCES:
@@ -157,6 +160,7 @@ def _simulate(
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr())
     strides = fa._strides(q, k, v, do, dq, dk, dv)
+    assert lib.flash_attention_bwd_init(0) == 0
     assert lib.flash_attention_bwd_dq(*inputs, dq.data_ptr(), strides, *tail) == 0
     assert lib.flash_attention_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), strides, *tail) == 0
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, bool(causal))
@@ -209,19 +213,26 @@ def test_gemm_source_matches_the_plain_version(sim_lib, shape):
     assert err["bar"] <= 1.0, err
 
 
+def _planted(name: str, right: str, wrong: str):
+    """An edit of ``name``'s source that replaces the line ``right``, which
+    must be there, with ``wrong``."""
+
+    def plant(source, text):
+        if source != name:
+            return text
+        assert right in text
+        return text.replace(right, wrong)
+
+    return plant
+
+
 def test_the_simulation_catches_swapped_descriptor_offsets(tmp_path):
     """A planted fault: B's descriptor with its leading and stride byte
     offsets swapped, which reads B's 64-column boxes as K rows.  The
     product leaves its bar by far."""
 
-    def plant(name, text):
-        if name != "matmul.cu":
-            return text
-        right = "desc_mn_major(b_tile + kk * kWgK * kSwizzleRow, kBBoxBytes)"
-        assert right in text
-        return text.replace(
-            right, "smem_desc(b_tile + kk * kWgK * kSwizzleRow, kSwizzleAtom, kBBoxBytes)")
-
+    plant = _planted("matmul.cu", "desc_mn_major(b_tile + kk * kWgK * kSwizzleRow, kBBoxBytes)",
+                     "smem_desc(b_tile + kk * kWgK * kSwizzleRow, kSwizzleAtom, kBBoxBytes)")
     err = _run(_build(tmp_path, plant), (128, 128, 256), "gemm")
     assert err["bar"] > 10.0, err
 
@@ -229,17 +240,42 @@ def test_the_simulation_catches_swapped_descriptor_offsets(tmp_path):
 def test_the_simulation_catches_a_wrong_causal_mask(tmp_path):
     """A planted fault: the dK/dV kernel masking the diagonal too.  dQ
     stays right; dK and dV leave their bars."""
-
-    def plant(name, text):
-        if name != "flash_attention_bwd.cu":
-            return text
-        right = "if (p.causal && i * kBlk + col < row0 + (e / 2) * 8) x = kNegInf;"
-        assert right in text
-        return text.replace(right, right.replace(" < ", " <= "))
-
+    right = "if (diagonal && q0 + 8 * j + col0 + e % 2 < row0 + (e / 2) * 8) s[x] = kNegInf;"
+    plant = _planted("flash_attention_bwd.cu", right, right.replace(" < ", " <= "))
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["dq_bar"] <= 1.0
     assert err["dk_bar"] > 1.0 and err["dv_bar"] > 1.0, err
+
+
+def test_the_simulation_catches_ds_packed_in_swapped_order(tmp_path):
+    """A planted fault: the dK/dV kernel packing each bf16 pair of dS^T with
+    its two Q rows swapped, so dS^T Q weighs each Q row by its neighbour's
+    dS.  dK leaves its bar; dV, whose P^T is packed apart, and dQ stay
+    right."""
+    plant = _planted("flash_attention_bwd.cu", "    pack(pds, dp);\n    // dK += dS^T Q",
+                     "    pack(pds, dp);\n    for (auto& a : pds) for (auto& r : a) "
+                     "r = r >> 16 | r << 16;\n    // dK += dS^T Q")
+    err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
+    assert err["dq_bar"] <= 1.0 and err["dv_bar"] <= 1.0, err
+    assert err["dk_bar"] > 1.0, err
+
+
+def test_the_simulation_catches_k_read_k_major_in_dq(tmp_path):
+    """A planted fault: the dQ kernel's dS K reading the K tile with a
+    K-major descriptor where the product reads B N-major.  dQ leaves its
+    bar; dK and dV, the other kernel's, stay right."""
+    plant = _planted(
+        "flash_attention_bwd.cu",
+        "product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);",
+        "for (int kc = 0; kc < kBlk / kWgK; ++kc) {"
+        "  const uint64_t k_desc = desc_k_major(sm.ring + stage_of(j) * C::kStageBytes"
+        "                                       + kc * kWgK * 2);"
+        "  if constexpr (D == 128) wgmma_m64n128k16_rs_bf16(dq, pds[kc], k_desc, 1);"
+        "  else wgmma_m64n64k16_rs_bf16(dq, pds[kc], k_desc, 1);"
+        "}")
+    err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
+    assert err["dk_bar"] <= 1.0 and err["dv_bar"] <= 1.0, err
+    assert err["dq_bar"] > 1.0, err
 
 
 def test_the_simulation_catches_p_packed_in_swapped_order(tmp_path):
@@ -248,13 +284,8 @@ def test_the_simulation_catches_p_packed_in_swapped_order(tmp_path):
     probability.  The output leaves its bar; the logsumexp, which P's
     packing never reaches, stays right."""
 
-    def plant(name, text):
-        if name != "flash_attention.cu":
-            return text
-        right = "pk[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);"
-        assert right in text
-        return text.replace(right, "pk[kc][0] = pack_bf16(s[8 * kc + 1], s[8 * kc + 0]);")
-
+    plant = _planted("flash_attention.cu", "pk[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);",
+                     "pk[kc][0] = pack_bf16(s[8 * kc + 1], s[8 * kc + 0]);")
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["lse"] <= 1e-4
     assert err["o"] > 0.02, err

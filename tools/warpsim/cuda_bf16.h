@@ -1,16 +1,14 @@
 // Lockstep CPU simulator of the CUDA features the port's kernels use, so that
 // their sources run on the CPU: tests/test_torch_kernel_sim.py compiles them
 // with g++ against these files.  One host thread stands for each CUDA thread
-// of a block; every warp-collective operation (ldmatrix, mma, shuffle) meets
-// at a barrier of its warp, every warpgroup one (wgmma) at a barrier of its
-// warpgroup, __syncthreads at a barrier of the block; mbarriers are shared
-// state under a lock.  Blocks run one after another, so shared memory is one
-// buffer.
+// of a block; every warp-collective operation (a shuffle) meets at a barrier
+// of its warp, every warpgroup one (wgmma) at a barrier of its warpgroup,
+// __syncthreads at a barrier of the block; mbarriers are shared state under
+// a lock.  Blocks run one after another, so shared memory is one buffer.
 //
 // This header stands in for <cuda_bf16.h> and carries the rest of the
-// device environment: the qualifiers, threadIdx/blockIdx/gridDim, bf16 with
-// round-to-nearest-even, and the checks the hardware makes on shared-memory
-// addresses (16-byte alignment, inside the block's dynamic allocation).
+// device environment: the qualifiers, threadIdx/blockIdx/gridDim, float2,
+// and bf16 with round-to-nearest-even.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -50,8 +48,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 
 struct uint3 { unsigned x, y, z; };
-struct uint4 { unsigned x, y, z, w; };
-inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct float2 { float x, y; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -80,9 +77,7 @@ struct Sim {
   std::barrier<>* warps[32];
   std::barrier<>* warpgroups[8];
   size_t smem_bytes;
-  const void* addr[32][32];
-  uint32_t a[32][32][4], b[32][32][2];
-  float x[32][32];
+  float x[32][32];  // a shuffle's values, by warp and lane
   SimWgmma wgmma[8][128];
   uint32_t wgmma_a[8][128][4];  // A's registers of a wgmma that takes them
   // mbarriers by shared address, and the block that runs (blocks run in turn)
@@ -103,12 +98,6 @@ inline int min(int a, int b) { return a < b ? a : b; }
   std::fprintf(stderr, "warpsim: %s at %p (block %u,%u thread %u)\n", what, p, blockIdx.x,
                blockIdx.y, threadIdx.x);
   std::abort();
-}
-// a 16-byte access at p must be aligned and inside the block's shared memory
-inline void sim_check_smem(const void* p) {
-  const auto* c = static_cast<const unsigned char*>(p);
-  if (reinterpret_cast<uintptr_t>(p) % 16) sim_fail("misaligned shared-memory access", p);
-  if (c < smem_raw || c + 16 > smem_raw + sim.smem_bytes) sim_fail("shared memory out of bounds", p);
 }
 
 inline int __shfl_sync(unsigned, int v, int src) {

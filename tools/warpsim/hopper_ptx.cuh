@@ -1,15 +1,17 @@
 // The simulator's version of hopper_ptx.cuh (the PTX layer under
-// ops/csrc/matmul.cu and ops/csrc/flash_attention.cu, which the simulation
-// compiles as they are).
+// ops/csrc/matmul.cu, ops/csrc/flash_attention.cu and
+// ops/csrc/flash_attention_bwd.cu, which the simulation compiles as they
+// are).
 //
 // - A shared address is the offset into the block's shared memory.
 // - An mbarrier is shared state under one lock: a phase completes when its
 //   arrivals and its transaction bytes are all in, and a wait blocks until
 //   the phase of the parity it names has completed (the PTX ISA's
 //   try_wait.parity).  A wait that lasts 20 s fails as a deadlock.
-// - A TMA load copies its box at once, zero wherever one of its coordinates
-//   leaves the tensor's extent in that dimension, into shared memory under
-//   the 128-byte swizzle, and completes its bytes on the barrier.
+// - A TMA load copies its box of bf16 or fp32 at once, zero wherever one of
+//   its coordinates leaves the tensor's extent in that dimension, into
+//   shared memory under the 128-byte swizzle or none, as its tensor map
+//   says, and completes its bytes on the barrier.
 // - wgmma meets at the warpgroup's barrier, checks that all 128 threads
 //   issue the same operands, and computes at once: each thread reads the
 //   operands through the matrix descriptors (start address, leading and
@@ -112,7 +114,7 @@ inline void sim_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, const
   if (at % (swizzled ? 1024 : 128)) sim_fail("TMA destination misaligned for its swizzle", dst);
   uint32_t elems = 1;
   for (uint32_t i = 0; i < rank; ++i) elems *= map->box[i];
-  const uint32_t bytes = elems * 2;
+  const uint32_t bytes = elems * map->elem;
   if (at + bytes > sim.smem_bytes) sim_fail("TMA box outside shared memory", dst);
   for (uint32_t n = 0; n < elems; ++n) {
     uint32_t rest = n;
@@ -124,10 +126,10 @@ inline void sim_tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, const
       inside = inside && x >= 0 && x < static_cast<int64_t>(map->dims[i]);
       from += x * static_cast<int64_t>(map->strides[i]);
     }
-    uint16_t v = 0;
-    if (inside) std::memcpy(&v, map->base + from, 2);
-    const uint32_t to = at + n * 2;
-    std::memcpy(smem_raw + (swizzled ? sim_swizzle128(to) : to), &v, 2);
+    uint32_t v = 0;
+    if (inside) std::memcpy(&v, map->base + from, map->elem);
+    const uint32_t to = at + n * map->elem;
+    std::memcpy(smem_raw + (swizzled ? sim_swizzle128(to) : to), &v, map->elem);
   }
   sim_mbar_complete_tx(bar, bytes);  // the whole box, filled or not
 }
