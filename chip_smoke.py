@@ -38,7 +38,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    TorchDeviceSource → ExporterDaemon over HTTP → Scraper →
                    tpu-test rules → adapter → HPA on tpu_test_tensorcore_avg
                    (the GEMM's MFU) must scale 1 → 4 within the 60 s budget.
-8. flash_parity  — the flash kernel against its plain version on views of
+8. nvml          — NVML read from this process: the NVML device of the
+                   generator's torch device found by UUID (never index 0
+                   assumed); exporter/nvml.py's struct layouts against a probe
+                   compiled with the card's nvml.h; with the generator idle
+                   and the card's power settled, NvmlSource beside
+                   nvidia-smi (total within 1 MiB, used
+                   within 256 MiB, temperature within 3 °C, power within
+                   25 W); the mean duty cycle over 3 s of sweeps at full duty
+                   at least 90, and at knob 0.25 within 15 points of the
+                   generator's own; tensorcore_util always None; GPM's
+                   support and, where served, its DRAM bandwidth; a kubelet
+                   ListPodResourcesResponse naming the card's UUID and a
+                   plain index under nvidia.com/gpu, whose UUID must resolve
+                   to the card's NVML index.
+9. node_loop     — the headline loop through the node exporter
+                   (run_node_headline_trial): NvmlSource and the kubelet
+                   attribution decoded in nvml → ExporterDaemon, merging the
+                   generator's self-report from a temporary directory → HTTP
+                   → Scraper → HPA on tpu_test_tensorcore_avg must scale 1 → 4
+                   within the 60 s budget; /metrics during the dwell carries
+                   the power, temperature, tensor-core and duty-cycle
+                   families for the real pod.
+10. flash_parity — the flash kernel against its plain version on views of
                    one fused QKV product: the serve prefill's shape (causal
                    and not, with the logsumexp), the llm training shape with
                    the logsumexp, one KV tile (seq 64), seq 192 causal and
@@ -48,48 +70,50 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    0.02 absolute and its error's RMS within a bar of its
                    own; off-envelope operands and an unknown split must
                    raise.
-9. flash_timing  — the flash kernel at the prefill's shape, at the llm
+11. flash_timing — the flash kernel at the prefill's shape, at the llm
                    training shape with the logsumexp on fused-QKV views (as
                    the transformer calls it) and at a long one, beside its
                    bound, the plain version and scaled_dot_product_attention
                    (a yardstick the port never calls), in turns; and each
                    shape on one and on two consumer warpgroups.
-10. serve_parity — at the shipped serve sizes in bf16: prefill against
+12. serve_parity — at the shipped serve sizes in bf16: prefill against
                    stepwise decode, and the CUDA-graph burst against the same
                    burst run eagerly, bit for bit.
-11. serve_loadgen— DecodeLoadGen at the shipped sizes: burst times (graph and
+13. serve_loadgen— DecodeLoadGen at the shipped sizes: burst times (graph and
                    eager), token rates, bandwidth and the saturated signal's
                    headroom over the serve target.
-12. serve_profile— one graph burst under torch.profiler: device time by
+14. serve_profile— one graph burst under torch.profiler: device time by
                    kernel, the flash kernel once per layer, the idle share.
-13. serve_loop   — the serve loop: DecodeLoadGen → TorchDeviceSource →
+15. serve_loop   — the serve loop: DecodeLoadGen → TorchDeviceSource →
                    ExporterDaemon → Scraper → tpu-serve rule → adapter → the
                    shipped serve HPA must scale 1 → 4 on tpu_serve_hbm_bw_avg
                    within the 60 s budget.
-14. flash_bwd_parity — the dQ and dK/dV kernels against their plain versions
+16. flash_bwd_parity — the dQ and dK/dV kernels against their plain versions
                    at the llm training shape (causal and not), seq 192 with
                    three heads, and head_dim 64 over ten tiles a side (each
                    ring wraps), on views of one fused QKV product; the
                    autograd Function's gradients against autograd through
                    the plain forward at the llm shape; off-envelope operands
                    must raise.
-15. flash_bwd_timing — both backward kernels (and the training forward) at the
+17. flash_bwd_timing — both backward kernels (and the training forward) at the
                    llm shape and at a long one, beside their bounds, their
                    plain versions and scaled_dot_product_attention's backward
                    (a yardstick the port never calls).
-16. train_parity — at full width, from the same weights and tokens, the
+18. train_parity — at full width, from the same weights and tokens, the
                    loss's gradients with attn_impl "auto" and with "ring"
                    agree leaf by leaf; then one LlmLoadGen step of each: the
                    losses and the updated weights agree, and the auto step
                    launches dQ and dK/dV once a layer and the forward twice.
-17. llm_train    — LlmLoadGen at full width, auto and ring: step time,
+19. llm_train    — LlmLoadGen at full width, auto and ring: step time,
                    tokens/s and the losses of some twenty steps.
-18. llm_profile  — one auto step under torch.profiler: device time by
+20. llm_profile  — one auto step under torch.profiler: device time by
                    kernel, launches a step, the idle share.
-19. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
+21. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
                    WORKLOAD=llm trains and reports until SIGTERM, then exits 0.
 
-Launch counts.  Each wrapper counts the launches it makes.  A decode burst
+Launch counts.  Each wrapper counts the launches it makes.  The GEMM's
+launches on the main path are those of loop and node_loop, each counted
+from zero.  A decode burst
 is one replay of a CUDA graph, and the graph's launches happen without the
 wrapper: the flash wrapper counts them once, when the burst is captured
 (``DecodeLoadGen.flash_launches_per_burst``).  So the serve loop's flash
@@ -107,6 +131,7 @@ no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -117,6 +142,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -125,11 +151,24 @@ import torch
 import torch.nn.functional as F
 
 from k8s_gpu_hpa_tpu_torch.device import peak_hbm_gbps_for, peak_tflops_for
-from k8s_gpu_hpa_tpu_torch.exporter import native
+from k8s_gpu_hpa_tpu_torch.exporter import native, nvml
+from k8s_gpu_hpa_tpu_torch.exporter.podresources import (
+    GPU_RESOURCE,
+    StaticAttributor,
+    parse_list_response,
+)
+from k8s_gpu_hpa_tpu_torch.exporter.sources import NvmlSource
 from k8s_gpu_hpa_tpu_torch.loadgen.decode import SERVE_SIZES, DecodeLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
+from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET
+from k8s_gpu_hpa_tpu_torch.metrics.schema import (
+    TPU_CHIP_POWER,
+    TPU_CHIP_TEMP,
+    TPU_DUTY_CYCLE,
+    TPU_TENSORCORE_UTIL,
+)
 from k8s_gpu_hpa_tpu_torch.models import transformer
 from k8s_gpu_hpa_tpu_torch.ops import flash_attention, matmul
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
@@ -144,14 +183,19 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
+from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.trial import (
+    REAL_POD,
     SERVE_SERIES,
     TENSORCORE_SERIES,
     TARGET,
+    LoadThread,
     measure_saturated_signal,
     run_headline_trial,
+    run_node_headline_trial,
     run_serve_trial,
 )
+from k8s_gpu_hpa_tpu_torch.utils import protowire
 
 # M, K, N: the loadgen's shape; the JAX parity test's (N 128, half of the
 # kernel's 256-wide tile); a shape the JAX package would run on its k-grid
@@ -264,6 +308,33 @@ TRAIN_LOSS_ATOL = 0.05
 TRAIN_GRAD_REL = 0.05
 TRAIN_PARAM_RTOL = 2.0**-6
 TRAIN_PARAM_ATOL = 1e-6
+
+
+#: spin kernels launched inside a trace before the traced work, and left out
+#: of what it reports: late in a long run a trace has missed the first five
+#: kernels of an llm step (its first flash forward among them), for a reason
+#: not found, so the trace's first kernels are spent on these.  The profile
+#: phases also hold the trace's counts against the wrappers' own launches, so
+#: a trace that still loses kernels fails as a fault of the trace
+TRACE_WARMUP_KERNELS = 8
+
+
+def _warm_trace() -> None:
+    for _ in range(TRACE_WARMUP_KERNELS):
+        torch.cuda._sleep(1000)  # ``spin_kernel``, some microseconds
+    torch.cuda.synchronize()
+
+
+def _traced_kernels(prof, width: int) -> dict:
+    """Device time and calls by kernel name, the warm-up's spin kernels left out."""
+    kernels = {}
+    for event in prof.key_averages():
+        if (event.device_type == torch.autograd.DeviceType.CUDA
+                and event.self_device_time_total > 0 and "spin_kernel" not in event.key):
+            kernels[event.key[:width]] = {
+                "ms": event.self_device_time_total / 1e3, "calls": event.count,
+            }
+    return kernels
 
 
 def emit(obj: dict) -> None:
@@ -538,15 +609,13 @@ def phase_profile(gen) -> dict:
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
+        _warm_trace()
+        matmul_kernel.launches = 0
         t0 = time.perf_counter()
         gen._burst(gen.iters_per_burst)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA and event.self_device_time_total > 0:
-            kernels[event.key[:80]] = {
-                "ms": event.self_device_time_total / 1e3, "calls": event.count,
-            }
+    wrapper_launches = matmul_kernel.launches
+    kernels = _traced_kernels(prof, 80)
     busy_ms = sum(k["ms"] for k in kernels.values())
 
     def calls_of(name: str) -> int:
@@ -556,14 +625,20 @@ def phase_profile(gen) -> dict:
         "phase": "profile", "products": gen.iters_per_burst, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
-        "gemm_calls": calls_of("matmul_bf16_kernel"),
+        "gemm_calls": calls_of("matmul_bf16_kernel"), "wrapper_launches": wrapper_launches,
         # the renorm y.mul_(scale), PyTorch's elementwise kernel; the probe's
         # cast is its copy kernel
         "renorm_calls": calls_of("elementwise_kernel") - calls_of("copy"),
         "kernels": kernels,
     }
     emit(out)
-    if out["gemm_calls"] != gen.iters_per_burst or out["renorm_calls"] != gen.iters_per_burst:
+    if wrapper_launches != gen.iters_per_burst:
+        raise AssertionError(f"the profiled burst launched {wrapper_launches} GEMMs, "
+                             f"not {gen.iters_per_burst}")
+    if out["gemm_calls"] != wrapper_launches:
+        raise AssertionError(f"the trace lost kernels: it shows {out['gemm_calls']} of the "
+                             f"wrapper's {wrapper_launches} GEMM launches")
+    if out["renorm_calls"] != gen.iters_per_burst:
         raise AssertionError(f"the profiled burst is not one GEMM and one renorm a product: {out}")
     return out
 
@@ -588,6 +663,249 @@ def phase_loop(gen) -> int:
         "replicas": [list(r) for r in result.replicas],
         "series": [[round(t, 2), tc, duty] for t, tc, duty in result.series],
     })
+    return launches
+
+
+#: exporter/nvml.py's structs, by their nvml.h names, and its constants
+NVML_STRUCTS = {
+    "nvmlUtilization_t": nvml.Utilization, "nvmlMemory_v2_t": nvml.MemoryV2,
+    "nvmlGpmSupport_t": nvml.GpmSupport, "nvmlGpmMetric_t": nvml.GpmMetric,
+    "nvmlGpmMetricsGet_t": nvml.GpmMetricsGet,
+}
+NVML_CONSTANTS = {
+    "nvmlMemory_v2": nvml.MEMORY_V2_VERSION,
+    "NVML_GPM_METRIC_DRAM_BW_UTIL": nvml.NVML_GPM_METRIC_DRAM_BW_UTIL,
+    "NVML_GPM_METRIC_MAX": nvml.NVML_GPM_METRIC_MAX,
+    "NVML_GPM_METRICS_GET_VERSION": nvml.NVML_GPM_METRICS_GET_VERSION,
+    "NVML_GPM_SUPPORT_VERSION": nvml.NVML_GPM_SUPPORT_VERSION,
+    "NVML_ERROR_NOT_SUPPORTED": nvml.NVML_ERROR_NOT_SUPPORTED,
+    "NVML_ERROR_NOT_FOUND": nvml.NVML_ERROR_NOT_FOUND,
+    "NVML_ERROR_INVALID_ARGUMENT": nvml.NVML_ERROR_INVALID_ARGUMENT,
+    "NVML_TEMPERATURE_GPU": nvml.NVML_TEMPERATURE_GPU,
+    "NVML_DEVICE_UUID_V2_BUFFER_SIZE": nvml.NVML_DEVICE_UUID_V2_BUFFER_SIZE,
+}
+NVML_HEADERS = [Path("/usr/local/cuda/include"), Path("/usr/local/cuda/targets/x86_64-linux/include")]
+# nvidia-smi against NvmlSource, read back to back with the generator idle
+SMI_BARS = {"memory.total": 1.0, "memory.used": 256.0, "temperature.gpu": 3.0, "power.draw": 25.0}
+#: NVML's duty cycle: its least mean at full duty, and its greatest distance
+#: from the generator's own at knob 0.25
+NVML_FULL_DUTY = 90.0
+NVML_KNOB = 0.25
+NVML_KNOB_POINTS = 15.0
+
+
+def nvml_layout() -> dict:
+    """Every size, offset and constant of exporter/nvml.py against a probe
+    compiled with the card's nvml.h; raises on any difference."""
+    header_dir = next((d for d in NVML_HEADERS if (d / "nvml.h").exists()), None)
+    if header_dir is None:
+        raise FileNotFoundError(f"nvml.h under none of {NVML_HEADERS}")
+    lines, want = [], {}
+    for cname, cls in NVML_STRUCTS.items():
+        lines.append(f'printf("{cname} %zu\\n", sizeof({cname}));')
+        want[cname] = ctypes.sizeof(cls)
+        for field, *_ in cls._fields_:
+            lines.append(f'printf("{cname}.{field} %zu\\n", offsetof({cname}, {field}));')
+            want[f"{cname}.{field}"] = getattr(cls, field).offset
+    for name, value in NVML_CONSTANTS.items():
+        lines.append(f'printf("{name} %lld\\n", (long long)({name}));')
+        want[name] = value
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "probe.c"
+        src.write_text("#include <stddef.h>\n#include <stdio.h>\n#include <nvml.h>\n"
+                       "int main(void) {\n" + "\n".join(lines) + "\nreturn 0;\n}\n")
+        subprocess.run(["gcc", f"-I{header_dir}", str(src), "-o", f"{tmp}/probe"],
+                       check=True, capture_output=True, text=True, timeout=120)
+        out = subprocess.run([f"{tmp}/probe"], check=True, capture_output=True, text=True,
+                             timeout=60).stdout
+    got = {k: int(v) for k, v in (ln.rsplit(" ", 1) for ln in out.splitlines())}
+    wrong = {k: {"nvml.h": got.get(k), "ctypes": v} for k, v in want.items() if got.get(k) != v}
+    if wrong:
+        raise AssertionError(f"exporter/nvml.py disagrees with {header_dir}/nvml.h: {wrong}")
+    return {"header": str(header_dir / "nvml.h"), "checked": len(want)}
+
+
+def _smi(index: int, fields: list[str]) -> dict[str, float]:
+    line = subprocess.run(
+        ["nvidia-smi", "-i", str(index), f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return dict(zip(fields, (float(v) for v in line.split(","))))
+
+
+def _settle(source: NvmlSource, index: int, most_s: float = 30.0) -> float:
+    """Wait until the idle card's power has settled: NVML's reading moves
+    less than 5 W over a second (a card that just ran at 700 W falls for
+    several seconds), at most ``most_s``.  Returns the seconds waited."""
+    t0 = time.monotonic()
+    last = None
+    while time.monotonic() - t0 < most_s:
+        power = next(c for c in source.sample() if c.accel_index == index).power_w
+        if last is not None and power is not None and abs(power - last) < 5.0:
+            break
+        last = power
+        time.sleep(1.0)
+    return time.monotonic() - t0
+
+
+def _dwell(source: NvmlSource, index: int, gen, seconds: float, lead: float = 1.0) -> list:
+    """Sweep ``source`` every half second for ``seconds`` after ``lead``
+    while the generator runs in its own thread; returns (NVML's sample,
+    the generator's utilization) at each sweep."""
+    worker = LoadThread(gen.step).start()
+    rows = []
+    try:
+        time.sleep(lead)
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            chip = next(c for c in source.sample() if c.accel_index == index)
+            rows.append((chip, gen.utilization()))
+            worker.check()
+            time.sleep(0.5)
+    finally:
+        worker.stop()
+    return rows
+
+
+def phase_nvml(gen) -> dict[int, tuple[str, str]]:
+    """NVML beside nvidia-smi and beside the generator's own readings, and a
+    kubelet response resolved through it.  Returns the decoded attribution,
+    which node_loop uses."""
+    uuid = f"GPU-{torch.cuda.get_device_properties(gen.device).uuid}"
+    layout = nvml_layout()
+    source = NvmlSource()
+    try:
+        index = source.uuid_to_index(uuid)
+        if index is None:
+            raise AssertionError(f"NVML knows no device {uuid} (torch {gen.device})")
+        torch.cuda.synchronize()
+        settled_s = _settle(source, index)
+        # NVML, nvidia-smi, NVML: each of NVML's gauges as the mean of the
+        # two readings around nvidia-smi's
+        around = []
+        for _ in range(2):
+            chip = next(c for c in source.sample() if c.accel_index == index)
+            around.append({"memory.total": chip.hbm_total_bytes / 2**20,
+                           "memory.used": chip.hbm_usage_bytes / 2**20,
+                           "temperature.gpu": chip.temperature_c, "power.draw": chip.power_w})
+            if len(around) == 1:
+                smi = _smi(index, list(SMI_BARS))
+        idle = {k: {"nvml": (around[0][k] + around[1][k]) / 2, "nvidia_smi": smi[k], "bar": bar}
+                for k, bar in SMI_BARS.items()}
+        gen.set_intensity(1.0)
+        full = _dwell(source, index, gen, 3.0)
+        gen.set_intensity(NVML_KNOB)
+        knob = _dwell(source, index, gen, 6.0, lead=gen.window + 1.0)
+        readings = [c for c, _ in full + knob] + [chip]
+        mapping = parse_list_response(
+            kubelet_response({REAL_POD: [uuid], "tpu-test-other": ["7"]}),
+            GPU_RESOURCE, resolve_uuid=source.uuid_to_index,
+        )
+        out = {
+            "phase": "nvml", "nvml_index": index, "uuid": uuid,
+            "cuda_ordinal": gen.device.index, "layout": layout, "settled_s": settled_s,
+            "idle": idle,
+            "full_duty": {"duty_cycle": [c.duty_cycle for c, _ in full],
+                          "mean": sum(c.duty_cycle for c, _ in full) / len(full),
+                          "generator": full[-1][1], "bar": NVML_FULL_DUTY,
+                          "gpm_dram_bw_util": [c.hbm_bw_util for c, _ in full]},
+            "knob": {"intensity": NVML_KNOB, "duty_cycle": [c.duty_cycle for c, _ in knob],
+                     "mean": sum(c.duty_cycle for c, _ in knob) / len(knob),
+                     "generator_mean": sum(u for _, u in knob) / len(knob),
+                     "bar_points": NVML_KNOB_POINTS},
+            "tensorcore_util": sorted({c.tensorcore_util for c in readings}, key=str),
+            # GPM served the bandwidth from its second sample on
+            "gpm_supported": any(c.hbm_bw_util is not None for c, _ in full),
+            "power_w": [c.power_w for c, _ in full], "temperature_c": [c.temperature_c for c, _ in full],
+            "kubelet_attribution": {str(k): list(v) for k, v in mapping.items()},
+        }
+    finally:
+        source.close()
+    emit(out)
+    if any(abs(v["nvml"] - v["nvidia_smi"]) > v["bar"] for v in idle.values()):
+        raise AssertionError(f"NVML disagrees with nvidia-smi: {idle}")
+    if out["full_duty"]["mean"] < NVML_FULL_DUTY:
+        raise AssertionError(f"NVML's duty cycle at full duty: {out['full_duty']}")
+    if abs(out["knob"]["mean"] - out["knob"]["generator_mean"]) > NVML_KNOB_POINTS:
+        raise AssertionError(f"NVML's duty cycle at knob {NVML_KNOB}: {out['knob']}")
+    if out["tensorcore_util"] != [None]:
+        raise AssertionError(f"NvmlSource set tensorcore_util: {out['tensorcore_util']}")
+    if mapping != {index: ("default", REAL_POD), 7: ("default", "tpu-test-other")}:
+        raise AssertionError(f"the kubelet response decoded to {mapping}")
+    return mapping
+
+
+def kubelet_response(pods: dict[str, list[str]]) -> bytes:
+    """A ListPodResourcesResponse: each pod in namespace ``default`` with one
+    container holding ``device_ids`` of nvidia.com/gpu."""
+    body = b""
+    for pod, ids in pods.items():
+        devices = protowire.encode_string(1, GPU_RESOURCE) + b"".join(
+            protowire.encode_string(2, i) for i in ids)
+        container = protowire.encode_string(1, "main") + protowire.encode_string(2, devices)
+        pod_msg = (protowire.encode_string(1, pod) + protowire.encode_string(2, "default")
+                   + protowire.encode_string(3, container))
+        body += protowire.encode_string(1, pod_msg)
+    return body
+
+
+def phase_node_loop(gen, attribution: dict[int, tuple[str, str]]) -> int:
+    """The headline loop through the node exporter: NVML, the decoded
+    kubelet attribution and the merged self-report.  The /metrics of the
+    last ten scrapes of the exporter (the dwell at full duty, before all four
+    replicas run), as the scraper fetched them over HTTP, must carry the
+    power, temperature, tensor-core and duty-cycle families for the real
+    pod."""
+    sweeps: deque = deque(maxlen=10)
+    fetch = trial.http_fetch
+
+    def recording_fetch(port: int) -> str:
+        text = fetch(port)
+        values = {
+            fam.name: s.value for fam in parse_text(text)
+            for s in fam.samples if dict(s.labels).get("pod") == REAL_POD
+        }
+        sweeps.append((values, gen.utilization()))
+        return text
+
+    matmul_kernel.launches = 0
+    t0 = time.perf_counter()
+    trial.http_fetch = recording_fetch
+    try:
+        with tempfile.TemporaryDirectory() as telemetry_dir:
+            result = run_node_headline_trial(gen, telemetry_dir, StaticAttributor(attribution))
+    finally:
+        trial.http_fetch = fetch
+    wall = time.perf_counter() - t0
+    launches = matmul_kernel.launches
+    families = (TPU_CHIP_POWER, TPU_CHIP_TEMP, TPU_TENSORCORE_UTIL, TPU_DUTY_CYCLE)
+    missing = [f for f in families for values, _ in sweeps if f not in values]
+
+    def mean(values) -> float | None:
+        values = list(values)
+        return sum(values) / len(values) if values else None
+
+    out = {
+        "phase": "node_loop", "hpa_metric": TENSORCORE_SERIES, "time_scale": 1.0,
+        "scale_up_s": result.scale_up_s, "budget_s": 60.0,
+        "spike_to_cross_s": result.spike_to_cross_s, "wall_s": wall, "launches": launches,
+        "dwell_scrapes": len(sweeps), "missing_families": sorted(set(missing)),
+        "dwell": {
+            "nvml_duty_cycle": mean(v.get(TPU_DUTY_CYCLE, math.nan) for v, _ in sweeps),
+            "self_reported_duty_cycle": mean(u for _, u in sweeps),
+            "merged_tensorcore_util": mean(v.get(TPU_TENSORCORE_UTIL, math.nan) for v, _ in sweeps),
+            "power_w": mean(v.get(TPU_CHIP_POWER, math.nan) for v, _ in sweeps),
+            "temperature_c": mean(v.get(TPU_CHIP_TEMP, math.nan) for v, _ in sweeps),
+        },
+        "replicas": [list(r) for r in result.replicas],
+        "series": [[round(t, 2), tc, duty] for t, tc, duty in result.series],
+    }
+    emit(out)
+    if launches <= 0:
+        raise AssertionError("the node loop launched the kernel no time")
+    if not sweeps or missing:
+        raise AssertionError(f"/metrics lacked families for {REAL_POD}: {out['missing_families']}")
     return launches
 
 
@@ -833,12 +1151,7 @@ def _profile_burst(gen: DecodeLoadGen) -> tuple[dict, float]:
         t0 = time.perf_counter()
         gen.run_burst()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA and event.self_device_time_total > 0:
-            kernels[event.key[:100]] = {
-                "ms": event.self_device_time_total / 1e3, "calls": event.count,
-            }
+    kernels = _traced_kernels(prof, 100)
     return kernels, wall_ms
 
 
@@ -1200,15 +1513,13 @@ def phase_llm_profile(gen: LlmLoadGen) -> dict:
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
+        _warm_trace()
+        _zero_counts()
         t0 = time.perf_counter()
         gen.step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA and event.self_device_time_total > 0:
-            kernels[event.key[:100]] = {
-                "ms": event.self_device_time_total / 1e3, "calls": event.count,
-            }
+    wrapper = _bwd_counts()
+    kernels = _traced_kernels(prof, 100)
     busy_ms = sum(k["ms"] for k in kernels.values())
 
     def calls_of(name: str) -> int:
@@ -1228,14 +1539,17 @@ def phase_llm_profile(gen: LlmLoadGen) -> dict:
         "phase": "llm_profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
         "kernel_names": len(kernels), "kernel_calls": sum(k["calls"] for k in kernels.values()),
-        "by_kind": by_kind, "flash": flash, "top_kernels": top,
+        "by_kind": by_kind, "flash": flash, "top_kernels": top, "wrapper_launches": wrapper,
     }
     emit(out)
     n = gen.cfg.n_layers
-    got = {name: calls_of(name) for name in
-           ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
-    if got != {"flash_fwd_kernel": 2 * n, "flash_bwd_dq_kernel": n, "flash_bwd_dkv_kernel": n}:
-        raise AssertionError(f"the profiled step ran the flash kernels {got}")
+    traced = {name: calls_of(f"flash_{kind}_kernel") for name, kind in
+              (("fwd", "fwd"), ("dq", "bwd_dq"), ("dkv", "bwd_dkv"))}
+    if wrapper != {"fwd": 2 * n, "dq": n, "dkv": n}:
+        raise AssertionError(f"the profiled step launched the flash kernels {wrapper}")
+    if traced != wrapper:
+        raise AssertionError(f"the trace lost kernels: it shows {traced} of the wrappers' "
+                             f"launches {wrapper}")
     return out
 
 
@@ -1295,6 +1609,8 @@ def main() -> int:
         gen = phase_loadgen(knob_dir)
         phase_profile(gen)
         launches = phase_loop(gen)
+        attribution = phase_nvml(gen)
+        launches += phase_node_loop(gen, attribution)
     del gen
     flash_err = phase_flash_parity()
     flash_timing = phase_flash_timing(*peaks)

@@ -68,12 +68,27 @@ def _load() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_char_p),
             ctypes.c_int32,
         ]
+        lib.tpu_exporter_set_enabled_metrics.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.c_int32,
+        ]
+        lib.tpu_exporter_replace_queue_gauges.argtypes = [
+            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.c_char_p),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_int32,
+        ]
         lib.tpu_exporter_render.restype = ctypes.c_int64
         lib.tpu_exporter_render.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
         ]
         lib.tpu_exporter_port.restype = ctypes.c_int32
         lib.tpu_exporter_port.argtypes = [ctypes.c_void_p]
+        lib.tpu_exporter_request_count.restype = ctypes.c_uint64
+        lib.tpu_exporter_request_count.argtypes = [ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -128,6 +143,25 @@ class NativeExporter:
             self._handle, indices, namespaces, pods, n
         )
 
+    def set_enabled_metrics(self, names: list[str]) -> None:
+        """Restrict exposition to the named device-metric families — the
+        analog of dcgm-exporter's ``-f <metrics.csv>`` field list
+        (dcgm-exporter.yaml:37).  An empty list restores every family."""
+        arr = (ctypes.c_char_p * len(names))(*[n.encode() for n in names])
+        self._lib.tpu_exporter_set_enabled_metrics(self._handle, arr, len(names))
+
+    def set_queue_gauges(self, gauges: list[tuple[str, str, str, float]]) -> None:
+        """Atomically replace the per-pod serving-queue gauges; each entry is
+        (queue, namespace, pod, depth) → tpu_test_queue_depth samples."""
+        n = len(gauges)
+        queues = (ctypes.c_char_p * n)(*[q.encode() for q, _, _, _ in gauges])
+        namespaces = (ctypes.c_char_p * n)(*[ns.encode() for _, ns, _, _ in gauges])
+        pods = (ctypes.c_char_p * n)(*[p.encode() for _, _, p, _ in gauges])
+        depths = (ctypes.c_double * n)(*[d for _, _, _, d in gauges])
+        self._lib.tpu_exporter_replace_queue_gauges(
+            self._handle, queues, namespaces, pods, depths, n
+        )
+
     def render(self) -> str:
         size = 1 << 16
         while True:
@@ -140,6 +174,11 @@ class NativeExporter:
     @property
     def port(self) -> int:
         return self._lib.tpu_exporter_port(self._handle)
+
+    @property
+    def request_count(self) -> int:
+        """/metrics requests served over HTTP."""
+        return self._lib.tpu_exporter_request_count(self._handle)
 
     def close(self) -> None:
         if self._handle:

@@ -22,6 +22,12 @@ pod ``tpu-serve-real``, the ``tpu-serve`` rule on the bandwidth gauge, and
 the shipped serve HPA (target ``SERVE_BW_TARGET``).  A ``LoopSpec`` names
 what differs between the two; ``wire_pipeline`` and ``run_trial`` take it.
 
+The node headline trial (``run_node_headline_trial``) runs the headline
+loop as a GPU node's exporter sees it: the device read through NVML
+(``NvmlSource``), the pod attributed as the kubelet would, and the
+tensor-core gauge supplied by the generator's self-report, which the daemon
+merges.
+
 Every control-plane period (pod start latency, HPA sync, scrape interval,
 behavior windows and periods, the budget) multiplies by ``time_scale``, as
 bench.py's ``BENCH_TIME_SCALE`` does, so that a short run exercises the same
@@ -50,8 +56,10 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     signal_ceiling_clears_band,
 )
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
-from k8s_gpu_hpa_tpu_torch.exporter.podresources import StaticAttributor
-from k8s_gpu_hpa_tpu_torch.exporter.sources import TorchDeviceSource
+from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttributor
+from k8s_gpu_hpa_tpu_torch.exporter.selfreport import SelfReportReader
+from k8s_gpu_hpa_tpu_torch.exporter.sources import MetricsSource, NvmlSource, TorchDeviceSource
+from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import encode_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     SERVE_BW_TARGET,
@@ -432,35 +440,45 @@ class LoadThread:
 
 def _live_trial(
     spec: LoopSpec,
-    source: TorchDeviceSource,
+    source: MetricsSource,
     step: Callable[[], object],
     load: Load,
     mirror_util: Callable[[], float],
     time_scale: float,
+    attributor: Attributor | None = None,
+    selfreport: SelfReportReader | None = None,
 ) -> TrialResult:
     """Run ``step`` in its own thread, as the workload runs in its own pod,
     serve ``source`` over HTTP as the spec's real pod, and drive the loop.
 
     An ``ExporterDaemon`` serves the source on an ephemeral port of
-    127.0.0.1 as the real pod on node ``real-0``, fed by a thread every half
-    second (times ``time_scale``), and the scraper reads that endpoint over
-    HTTP.  Every thread and the HTTP server are stopped before this returns
-    or raises."""
+    127.0.0.1 on node ``real-0``, attributing devices through ``attributor``
+    (default: device 0 to the real pod) and merging ``selfreport``'s
+    reports, fed by a thread every half second (times ``time_scale``); the
+    scraper reads that endpoint over HTTP (``http_fetch``).  Every thread and
+    the HTTP server are stopped before this returns or raises, and an
+    exception in the feed thread is raised here."""
     daemon = ExporterDaemon(
         source,
-        StaticAttributor({0: ("default", spec.real_pod)}),
+        attributor or StaticAttributor({0: ("default", spec.real_pod)}),
         node_name="real-0",
         listen_addr="127.0.0.1",
         port=0,
+        selfreport=selfreport,
     )
     clock = SystemClock()
     stop = threading.Event()
     feed_interval = max(0.05, 0.5 * time_scale)
 
+    feed_errors: list[Exception] = []
+
     def feed() -> None:
-        while not stop.is_set():
-            daemon.step()
-            stop.wait(feed_interval)
+        try:
+            while not stop.is_set():
+                daemon.step()
+                stop.wait(feed_interval)
+        except Exception as e:  # noqa: BLE001 — raised again below
+            feed_errors.append(e)
 
     feeder = threading.Thread(target=feed, name="exporter-feed", daemon=True)
     worker = LoadThread(step)
@@ -476,6 +494,8 @@ def _live_trial(
         feeder.join(10)
         worker.stop()
         daemon.close()
+        if feed_errors:
+            raise RuntimeError("the exporter's feed thread failed") from feed_errors[0]
 
 
 def run_headline_trial(
@@ -495,6 +515,49 @@ def run_headline_trial(
     return _live_trial(
         headline_spec(metric), source, gen.step, gen, gen.utilization, time_scale
     )
+
+
+def run_node_headline_trial(
+    gen: MatmulLoadGen,
+    telemetry_dir: str,
+    attributor: Attributor,
+    source: NvmlSource | None = None,
+    time_scale: float = 1.0,
+) -> TrialResult:
+    """The headline trial through the node exporter, as a GPU node runs it.
+
+    The exporter reads the device through ``source`` (default
+    ``NvmlSource()``, the card's driver) and attributes it through
+    ``attributor``, which must map the generator's NVML index to
+    (``default``, ``tpu-test-real``), as the kubelet would.  The workload
+    thread runs ``gen.step`` and publishes its self-report into
+    ``telemetry_dir`` as pod ``tpu-test-real``: the tensor-core rate
+    (``gen.mxu_utilization()``), the duty cycle and the TFLOP/s, as the
+    matmul container does.  The daemon merges the report, and the HPA reads
+    ``tpu_test_tensorcore_avg``, which under NVML only the merge supplies.
+    The source is closed before this returns."""
+    source = source if source is not None else NvmlSource()
+    writer = TelemetryWriter(
+        telemetry_dir, pod=REAL_POD, namespace="default",
+        min_interval=max(0.05, time_scale),
+    )
+
+    def step() -> None:
+        gen.step()
+        writer.write(
+            tensorcore_util_pct=gen.mxu_utilization(),
+            duty_cycle_pct=gen.utilization(),
+            achieved_tflops=gen.stats().achieved_tflops,
+        )
+
+    try:
+        return _live_trial(
+            headline_spec(TENSORCORE_SERIES), source, step, gen, gen.utilization,
+            time_scale, attributor=attributor, selfreport=SelfReportReader(telemetry_dir),
+        )
+    finally:
+        writer.clear()
+        source.close()
 
 
 class ServeLoad:

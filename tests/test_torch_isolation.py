@@ -57,10 +57,18 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.models.transformer",
         "k8s_gpu_hpa_tpu_torch.loadgen.llm",
         "k8s_gpu_hpa_tpu_torch.loadgen.multihost",
+        "k8s_gpu_hpa_tpu_torch.exporter.nvml",
+        "k8s_gpu_hpa_tpu_torch.exporter.stub_nvml",
+        "k8s_gpu_hpa_tpu_torch.exporter.selfreport",
+        "k8s_gpu_hpa_tpu_torch.exporter.kubeapi",
+        "k8s_gpu_hpa_tpu_torch.utils.protowire",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
+    # the kubelet client imports grpc when it is called, never at import; and
+    # on a host without NVML the imports above succeed: none loads it at import
+    assert "grpc" not in out["loaded"]
 
 
 def test_no_port_source_names_jax_or_the_jax_package():

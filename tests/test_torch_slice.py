@@ -1,7 +1,8 @@
 """The whole slice on the CPU: load generator → TorchDeviceSource → exporter
 daemon over HTTP → scrape → recording rule → adapter → HPA, through the
 port's entry point ``run_headline_trial``, with the GEMM wrapper on its
-plain version.  Then the same scripted load trace through the port's trial
+plain version; and through the node exporter, ``run_node_headline_trial``
+over the stub NVML library.  Then the same scripted load trace through the port's trial
 loop twice, once over the port's planes and once over the JAX package's,
 which must give identical timelines."""
 
@@ -11,14 +12,20 @@ import torch
 from k8s_gpu_hpa_tpu.utils.clock import VirtualClock as JaxVirtualClock
 from k8s_gpu_hpa_tpu.metrics import exposition as jax_exposition
 from k8s_gpu_hpa_tpu.metrics import schema as jax_schema
+from k8s_gpu_hpa_tpu_torch.exporter.podresources import StaticAttributor
+from k8s_gpu_hpa_tpu_torch.exporter.sources import NvmlSource
+from k8s_gpu_hpa_tpu_torch.exporter.stub_nvml import StubNvml
 from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
 from k8s_gpu_hpa_tpu_torch.metrics import exposition, schema
+from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
+from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.trial import (
     DUTY_SERIES,
     MAX_REPLICAS,
     REAL_POD,
     Pipeline,
     run_headline_trial,
+    run_node_headline_trial,
     run_trial,
     wire_pipeline,
 )
@@ -72,6 +79,39 @@ def test_slice_on_cpu_scales_one_to_four_on_the_tensorcore_series(tmp_path):
     # average crossed the target after the spike
     assert all(tc is not None for _, tc, _ in result.series)
     assert max(tc for t, tc, _ in result.series if t >= 0) > 40.0
+
+
+def test_node_headline_trial_on_cpu_scales_one_to_four(tmp_path, monkeypatch):
+    """``run_node_headline_trial``: NvmlSource over the stub NVML library as
+    the card (NVML index 1 of two), the attribution the kubelet would give,
+    and the generator's self-report merged into the tensor-core gauge the
+    HPA reads."""
+    stub = StubNvml(2)
+    stub.set_utilization(1, 95)
+    gen = MatmulLoadGen(size=256, use_kernel=True, intensity=1.0, window=0.5, device="cpu")
+    gen.intensity_file = str(tmp_path / "intensity")  # absent: API knob only
+    gen.warmup()
+    gen.step()
+    gen.peak_tflops = max(gen.stats().achieved_tflops, 1e-9)  # the CPU has no peak
+    renders = []  # the exporter's /metrics, as the scraper fetched them
+    fetch = trial.http_fetch
+    monkeypatch.setattr(trial, "http_fetch", lambda port: renders.append(fetch(port)) or renders[-1])
+    result = run_node_headline_trial(
+        gen, str(tmp_path / "telemetry"), StaticAttributor({1: ("default", REAL_POD)}),
+        source=NvmlSource(stub.path), time_scale=REAL_TIME_SCALE,
+    )
+    assert result.replicas[-1][1:] == (MAX_REPLICAS, MAX_REPLICAS)
+    assert result.scale_up_s <= 60.0 * REAL_TIME_SCALE
+    assert max(tc for t, tc, _ in result.series if t >= 0 and tc is not None) > 40.0
+    real = {(f.name, dict(s.labels).get("chip")): s.value for f in parse_text(renders[-1])
+            for s in f.samples if dict(s.labels).get("pod") == REAL_POD}
+    # NVML's gauges for the card, and the tensor-core gauge only the merge gives
+    assert real[(schema.TPU_DUTY_CYCLE, "1")] == 95.0
+    assert real[(schema.TPU_CHIP_POWER, "1")] == 70.0
+    assert (schema.TPU_TENSORCORE_UTIL, "1") in real
+    assert not any(chip == "0" for _, chip in real)  # device 0 is no pod's
+    assert stub.init_count() == 0  # the source was closed
+    assert not (tmp_path / "telemetry" / f"default_{REAL_POD}.json").exists()  # report cleared
 
 
 class ScriptedLoad:
