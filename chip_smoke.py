@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two closed autoscaling loops and its training
-load once on one GPU.
+"""Drive the PyTorch/CUDA port's closed autoscaling loops and its training
+loads once on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU, nvcc
 and g++:
@@ -99,7 +99,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    llm shape and at a long one, beside their bounds, their
                    plain versions and scaled_dot_product_attention's backward
                    (a yardstick the port never calls).
-18. train_parity — at full width, from the same weights and tokens, the
+18. llm_parity   — at full width, from the same weights and tokens, the
                    loss's gradients with attn_impl "auto" and with "ring"
                    agree leaf by leaf; then one LlmLoadGen step of each: the
                    losses and the updated weights agree, and the auto step
@@ -108,8 +108,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    tokens/s and the losses of some twenty steps.
 20. llm_profile  — one auto step under torch.profiler: device time by
                    kernel, launches a step, the idle share.
-21. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
-                   WORKLOAD=llm trains and reports until SIGTERM, then exits 0.
+21. train_parity — the ResNet training rung at the shipped tpu-train width
+                   (ResNet-50, CIFAR stem, image 32): one step on the card in
+                   bf16 and channels_last against the same step on the CPU
+                   in f32 from the same seeded weights and batch (16
+                   images), the logits and the loss within 0.06 of their
+                   RMS; a stage-3 BatchNorm's running statistics moved by
+                   flax's update, the biased variance.
+22. train_loadgen— TrainLoadGen at the shipped sizes (batch 256): step ms,
+                   images/s and peak memory; the windowed duty cycle at
+                   knob 0.25.
+23. train_profile— one step under torch.profiler: kernels, device time by
+                   kind (convolution, BatchNorm, elementwise, SGD, copies),
+                   the idle share; the trace must hold every BatchNorm's
+                   four kernels and the batch draw's two.
+24. train_loop   — the training loop, as bench.py's training rung runs it:
+                   TrainLoad → TorchDeviceSource (the windowed duty cycle, no
+                   bandwidth gauge) → ExporterDaemon → Scraper → both
+                   tpu-train rules → adapter → the shipped two-metric HPA
+                   must scale 1 → 4 within the 60 s budget on the duty cycle
+                   alone; which metrics it had at each sync.
+25. train_entry  — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.train`` with
+                   CHECKPOINT_DIR, CHECKPOINT_EVERY 20 and PROFILE_S 1: it
+                   writes its Chrome trace, saves on SIGTERM, exits 0, and
+                   started again resumes from that save's step.
+26. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
+                   WORKLOAD=llm and CHECKPOINT_DIR trains and reports until
+                   SIGTERM, saves, exits 0, and resumes from that step.
+
+No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
+its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
+the JAX package.
 
 Launch counts.  Each wrapper counts the launches it makes.  The GEMM's
 launches on the main path are those of loop and node_loop, each counted
@@ -120,7 +149,7 @@ wrapper: the flash wrapper counts them once, when the burst is captured
 launches are the wrapper's count in that run plus the replays in that run
 times the launches one replay makes.
 
-The training path's launches are those of train_parity's auto step plus
+The training path's launches are those of llm_parity's auto step plus
 llm_train's auto steps, each counted from zero; the flash forward's are
 those of the serve loop plus the training path's.
 
@@ -158,9 +187,12 @@ from k8s_gpu_hpa_tpu_torch.exporter.podresources import (
     parse_list_response,
 )
 from k8s_gpu_hpa_tpu_torch.exporter.sources import NvmlSource
+from k8s_gpu_hpa_tpu_torch.control.hpa import TRAIN_BW_SERIES, TRAIN_DUTY_SERIES
 from k8s_gpu_hpa_tpu_torch.loadgen.decode import SERVE_SIZES, DecodeLoadGen
+from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
 from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
+from k8s_gpu_hpa_tpu_torch.loadgen.train import TrainLoadGen, make_checkpoint_manager
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET
 from k8s_gpu_hpa_tpu_torch.metrics.schema import (
@@ -170,6 +202,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_TENSORCORE_UTIL,
 )
 from k8s_gpu_hpa_tpu_torch.models import transformer
+from k8s_gpu_hpa_tpu_torch.models.resnet import BatchNorm
 from k8s_gpu_hpa_tpu_torch.ops import flash_attention, matmul
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     FlashAttention,
@@ -190,10 +223,12 @@ from k8s_gpu_hpa_tpu_torch.trial import (
     TENSORCORE_SERIES,
     TARGET,
     LoadThread,
+    WindowedDuty,
     measure_saturated_signal,
     run_headline_trial,
     run_node_headline_trial,
     run_serve_trial,
+    run_train_trial,
 )
 from k8s_gpu_hpa_tpu_torch.utils import protowire
 
@@ -326,11 +361,13 @@ def _warm_trace() -> None:
 
 
 def _traced_kernels(prof, width: int) -> dict:
-    """Device time and calls by kernel name, the warm-up's spin kernels left out."""
+    """Device time and calls by kernel name, the warm-up's spin kernels and
+    the regions a user annotated (``Optimizer.step#SGD.step``) left out."""
     kernels = {}
     for event in prof.key_averages():
         if (event.device_type == torch.autograd.DeviceType.CUDA
-                and event.self_device_time_total > 0 and "spin_kernel" not in event.key):
+                and event.self_device_time_total > 0 and "spin_kernel" not in event.key
+                and not getattr(event, "is_user_annotation", False)):
             kernels[event.key[:width]] = {
                 "ms": event.self_device_time_total / 1e3, "calls": event.count,
             }
@@ -1407,7 +1444,7 @@ def _zero_counts() -> None:
     flash_attention_bwd_kernel.dkv_launches = 0
 
 
-def phase_train_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
+def phase_llm_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
     """At full width, from the same seeded weights and tokens (LlmLoadGen's):
     the gradients of the training loss through the flash kernels (auto) and
     through the plain blocking (ring), leaf by leaf; then one step of each
@@ -1446,7 +1483,7 @@ def phase_train_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
         bad += int((diff > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * r.float().abs()).sum())
         moved += int((a != before[n]).sum())
     out = {
-        "phase": "train_parity", "cfg": {"batch": gens["auto"].batch, "seq": cfg.max_seq,
+        "phase": "llm_parity", "cfg": {"batch": gens["auto"].batch, "seq": cfg.max_seq,
                                          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                                          "n_layers": cfg.n_layers, "d_ff": cfg.d_ff,
                                          "dtype": "bfloat16"},
@@ -1553,45 +1590,367 @@ def phase_llm_profile(gen: LlmLoadGen) -> dict:
     return out
 
 
-def phase_llm_entry(knob_dir: str, seconds: float = 20.0) -> dict:
+def phase_llm_entry(work_dir: str, seconds: float = 15.0) -> dict:
     """The rung's container command, ``python -m
     k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with WORKLOAD=llm at its
-    defaults, for ``seconds`` after its banner, then SIGTERM: it must exit 0
-    having reported steps at the full context and a finite loss."""
-    env = dict(os.environ, WORKLOAD="llm", REPORT_S="2",
-               TPU_TEST_INTENSITY_FILE=str(Path(knob_dir) / "intensity"))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "k8s_gpu_hpa_tpu_torch.loadgen.multihost"],
-        cwd=Path(__file__).resolve().parent, env=env, text=True,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-    )
-    lines: list[str] = []
-    reader = threading.Thread(target=lambda: lines.extend(ln.rstrip() for ln in proc.stdout))
-    reader.start()
+    defaults and CHECKPOINT_DIR (CHECKPOINT_EVERY 200), for ``seconds``
+    after its banner, then SIGTERM: it must exit 0 having reported steps at
+    the full context and a finite loss; started again it resumes from its
+    last save's step."""
+    ckpt_dir = str(Path(work_dir) / "llm-ckpt")
+    env = dict(os.environ, WORKLOAD="llm", REPORT_S="2", CHECKPOINT_DIR=ckpt_dir,
+               CHECKPOINT_EVERY="200", TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
+    module = "k8s_gpu_hpa_tpu_torch.loadgen.multihost"
+    entry = _Entry(module, env)
     try:
-        deadline = time.monotonic() + 180
-        while not any(ln.startswith("tpu-test multihost") for ln in lines):
-            if proc.poll() is not None or time.monotonic() > deadline:
-                raise AssertionError(f"the entry point never started: {lines[-20:]}")
-            time.sleep(0.2)
+        banner = entry.wait_for("tpu-test multihost")
         time.sleep(seconds)
-        proc.send_signal(signal.SIGTERM)
-        code = proc.wait(timeout=60)
     finally:
-        proc.kill()
-        reader.join(timeout=10)
-    report_lines = [ln for ln in lines if ln.startswith("steps=")]
+        code = entry.stop()
+    report_lines = [ln for ln in entry.lines if ln.startswith("steps=")]
     reports = [dict(f.split("=", 1) for f in ln.split()) for ln in report_lines]
-    out = {"phase": "llm_entry", "exit_code": code, "run_s": seconds,
-           "banner": next(ln for ln in lines if ln.startswith("tpu-test multihost")),
-           "reports": report_lines}
-    emit(out)
+    out = {"phase": "llm_entry", "exit_code": code, "run_s": seconds, "banner": banner,
+           "reports": report_lines,
+           "final": [ln for ln in entry.lines if ln.startswith("final checkpoint")]}
     last = reports[-1] if reports else {}
     if (
         code != 0 or not reports or last.get("ctx") != "2048"
         or int(last.get("steps", "0")) <= 0 or not math.isfinite(float(last.get("loss", "nan")))
     ):
-        raise AssertionError(f"the llm entry point did not train as expected: {lines[-20:]}")
+        emit(out)
+        raise AssertionError(f"the llm entry point did not train as expected: {entry.lines[-20:]}")
+    out["restart"] = _resume(module, env, ckpt_dir, entry)
+    emit(out)
+    return out
+
+
+
+# The training rung at the shipped tpu-train sizes (deploy/tpu-train-deployment.yaml:
+# ResNet-50 with the CIFAR stem, BATCH_SIZE 256, IMAGE_SIZE 32).  Its convolutions
+# are cuDNN's, its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's
+# are in the JAX package: no Pallas kernel backs the path, so no hand-written
+# kernel runs on it.
+TRAIN_BATCH = 256
+TRAIN_IMAGE = 32
+#: train_parity's batch: the step on the card in bf16 against the same step on
+#: the CPU in f32.  At 16 images stage 3's BatchNorms normalise over 256 values
+#: a channel, where bf16's roundings stay well inside the bar
+TRAIN_PARITY_BATCH = 16
+#: the port's bf16 bar, on the loss and on the logits, relative to their RMS
+TRAIN_BF16_REL = 0.06
+#: the batch statistics a running buffer's move implies, (ra' - 0.9 ra) / 0.1,
+#: against the layer input's mean and biased variance, relative to their
+#: largest: the unbiased variance differs by 1/255 at stage 3 (n = 256)
+TRAIN_STATS_REL = 1e-3
+TRAIN_KNOB = 0.25
+TRAIN_KNOB_POINTS = 7.5
+#: kernels of one training step a trace must hold, by name mark: each
+#: BatchNorm's four (statistics and normalisation forward, reduction and
+#: input gradient backward; PyTorch's channels_last kernels on the card), and
+#: the batch draw's two (images and labels), the step's first kernels
+TRAIN_BN_KERNELS = 4
+TRAIN_DRAW_KERNELS = 2
+
+
+def _rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+
+def phase_train_parity() -> dict:
+    """One training step of the port at full width on the card (bf16,
+    channels_last) against the same step on the CPU in f32, from the same
+    seeded weights and the same batch: the train-mode logits and the step's
+    loss within 0.06 of their RMS.  And the running statistics of a stage-3
+    BatchNorm after one training forward against flax's update from that
+    layer's input, ``0.9 ra + 0.1 batch`` with the biased variance."""
+    gen = TrainLoadGen(batch_size=TRAIN_PARITY_BATCH, image_size=TRAIN_IMAGE, device="cuda:0")
+    ref = TrainLoadGen(batch_size=TRAIN_PARITY_BATCH, image_size=TRAIN_IMAGE,
+                       dtype=torch.float32, device="cpu")
+    ref.model.load_state_dict(gen.model.state_dict())
+    images, labels = gen.batch()
+    bn = gen.model.stage3_block2.bn2
+    seen = {}
+    hook = bn.register_forward_pre_hook(lambda m, args: seen.update(x=args[0].detach().clone()))
+    before = (bn.running_mean.clone(), bn.running_var.clone())
+    with torch.no_grad():
+        logits = gen.model(images, train=True)
+        want_logits = ref.model(images.cpu(), train=True)
+    hook.remove()
+    var, mean = torch.var_mean(seen["x"].float(), (0, 2, 3), correction=0)
+    n = seen["x"][:, 0].numel()
+
+    def implied_err(running, ra, want):
+        implied = (running - 0.9 * ra) / 0.1
+        return float((implied - want).abs().max() / want.abs().max())
+
+    stats_err = {"running_mean": implied_err(bn.running_mean, before[0], mean),
+                 "running_var": implied_err(bn.running_var, before[1], var)}
+    unbiased_err = implied_err(bn.running_var, before[1], var * n / (n - 1))
+    loss = float(gen.train_step(images, labels))
+    want_loss = float(ref.train_step(images.cpu(), labels.cpu()))
+    out = {
+        "phase": "train_parity", "model": "resnet50 cifar_stem", "batch": TRAIN_PARITY_BATCH,
+        "image": TRAIN_IMAGE, "dtype": "bfloat16 against float32 on the CPU",
+        "activations_channels_last": seen["x"].is_contiguous(memory_format=torch.channels_last),
+        "logits_rel_rms": _rel_rms(logits.float().cpu(), want_logits),
+        "loss": loss, "loss_cpu_f32": want_loss, "loss_rel": abs(loss - want_loss) / abs(want_loss),
+        "bar": TRAIN_BF16_REL, "stage3_bn_stats_rel_err": stats_err,
+        "stage3_bn_values_a_channel": n,
+        "stage3_bn_var_if_unbiased_rel_err": unbiased_err, "stats_bar": TRAIN_STATS_REL,
+    }
+    emit(out)
+    if not out["logits_rel_rms"] <= TRAIN_BF16_REL or not out["loss_rel"] <= TRAIN_BF16_REL:
+        raise AssertionError(f"the step on the card disagrees with the f32 step: {out}")
+    if not all(e <= TRAIN_STATS_REL for e in stats_err.values()):
+        raise AssertionError(f"the running statistics did not move as flax's do: {out}")
+    if not out["activations_channels_last"]:
+        raise AssertionError("the activations are not channels_last on the card")
+    return out
+
+
+def phase_train_loadgen() -> tuple[TrainLoadGen, dict]:
+    """TrainLoadGen at the shipped sizes: step time (median), images/s and
+    the peak memory over some twenty steps at full duty; then the
+    container's knob at 0.25, whose 3 s windowed duty cycle must read 0.25."""
+    gen = TrainLoadGen(batch_size=TRAIN_BATCH, image_size=TRAIN_IMAGE, device="cuda:0")
+    gen.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    t0 = time.perf_counter()
+    while len(ms) < 20 or time.perf_counter() - t0 < 3.0:
+        ms.append(gen.step() * 1e3)
+    images_per_s = len(ms) * TRAIN_BATCH / (sum(ms) / 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    knob = IntensityKnob(TRAIN_KNOB)
+    duty = WindowedDuty(3.0)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 7.0:
+        t_iter = time.perf_counter()
+        busy = gen.step()
+        duty.record(time.perf_counter() - t_iter)
+        knob.throttle(busy)
+    out = {
+        "phase": "train_loadgen", "model": "resnet50 cifar_stem", "batch": TRAIN_BATCH,
+        "image": TRAIN_IMAGE, "dtype": "bfloat16", "steps": len(ms),
+        "step_ms_median": sorted(ms)[len(ms) // 2], "step_ms_min": min(ms),
+        "images_per_s": images_per_s, "peak_memory_gib": peak / 2**30,
+        "last_loss": gen.stats().last_loss,
+        "knob": TRAIN_KNOB, "duty_at_knob_pct": duty.value(),
+    }
+    emit(out)
+    if not math.isfinite(out["last_loss"]):
+        raise AssertionError(f"the training loss went non-finite: {out}")
+    if abs(out["duty_at_knob_pct"] - 100.0 * TRAIN_KNOB) > TRAIN_KNOB_POINTS:
+        raise AssertionError(f"the duty cycle does not track the knob: {out}")
+    return gen, out
+
+
+#: device time by kind in train_profile, by kernel-name marks (cuDNN's
+#: convolution kernels; BatchNorm's; the SGD update's foreach kernels;
+#: copies, casts and memsets); the rest is elementwise work and reductions
+TRAIN_KINDS = {  # the first kind whose marks a name holds
+    "batchnorm": ("batch_norm", "batchnorm", "bn_", "welford"),
+    "sgd": ("multi_tensor_apply", "foreach"),
+    "copies": ("copy", "Memcpy", "Memset", "cast"),
+    "convolution": ("conv", "xmma", "implicit_gemm", "cudnn", "cutlass", "sm90_", "nchw", "nhwc",
+                    "gemm", "nvjet"),
+}
+
+
+def _profile_train_step(gen: TrainLoadGen) -> dict:
+    """Trace a lead step and then the measured one, each under a named
+    range, and keep the device's kernels inside the measured step's range
+    on the device's timeline: a trace that drops kernels at its head (as
+    some late in a long run have) drops the lead step's, not these."""
+    gen.step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        _warm_trace()
+        with torch.profiler.record_function("lead_step"):
+            gen.step()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("traced_step"):
+            gen.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = {e.name: e.time_range for e in on_device
+             if e.is_user_annotation and e.name in ("lead_step", "traced_step")}
+    kernels, lead_calls = {}, 0
+    for e in on_device:
+        if e.is_user_annotation or "spin_kernel" in e.name:
+            continue
+        start = e.time_range.start
+        if "lead_step" in spans and spans["lead_step"].start <= start <= spans["lead_step"].end:
+            lead_calls += 1
+        if "traced_step" in spans and spans["traced_step"].start <= start <= spans["traced_step"].end:
+            k = kernels.setdefault(e.name[:100], {"ms": 0.0, "calls": 0})
+            k["ms"] += e.time_range.elapsed_us() / 1e3
+            k["calls"] += 1
+    by_kind = {kind: {"ms": 0.0, "calls": 0} for kind in (*TRAIN_KINDS, "elementwise and other")}
+    for key, k in kernels.items():
+        kind = next((n for n, marks in TRAIN_KINDS.items()
+                     if any(m in key for m in marks)), "elementwise and other")
+        by_kind[kind]["ms"] += k["ms"]
+        by_kind[kind]["calls"] += k["calls"]
+    busy_ms = sum(k["ms"] for k in kernels.values())
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
+        "kernel_calls": sum(k["calls"] for k in kernels.values()),
+        "lead_step_calls": lead_calls,
+        "spin_kernels_seen": sum("spin_kernel" in e.name for e in on_device),
+        "by_kind": by_kind,
+        "draw_calls": sum(k["calls"] for key, k in kernels.items() if "distribution" in key),
+        "top_kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:16]),
+    }
+
+
+def phase_train_profile(gen: TrainLoadGen, attempts: int = 2) -> dict:
+    """One step at the shipped sizes under torch.profiler: the kernels it
+    launched, device time by kind, and the device's idle share of the
+    step's host wall time (profiled, so an upper bound).  The trace must
+    hold the step's batch draw, its first two kernels, and four kernels for
+    each BatchNorm layer; a trace short of them is traced again, up to
+    ``attempts`` times, then fails."""
+    n_bn = sum(isinstance(m, BatchNorm) for m in gen.model.modules())
+    want = {"batchnorm": TRAIN_BN_KERNELS * n_bn, "draw": TRAIN_DRAW_KERNELS}
+    for attempt in range(1, attempts + 1):
+        row = _profile_train_step(gen)
+        got = {"batchnorm": row["by_kind"]["batchnorm"]["calls"], "draw": row["draw_calls"]}
+        if got == want:
+            break
+    out = {"phase": "train_profile", "batch": TRAIN_BATCH, "attempts": attempt,
+           "batchnorm_layers": n_bn, "expected": want, **row}
+    emit(out)
+    if got != want:
+        raise AssertionError(f"the trace lost kernels: it holds {got}, not {want}")
+    return out
+
+
+def phase_train_loop(gen: TrainLoadGen) -> dict:
+    """The training loop, as bench.py's training rung runs it: TrainLoad at
+    0.15 then 1.0 → TorchDeviceSource (the windowed duty cycle; no bandwidth
+    gauge, none is measured on the card) → ExporterDaemon over HTTP →
+    Scraper → both tpu-train rules → adapter → the shipped two-metric HPA
+    must scale 1 → 4 within the 60 s budget on the duty cycle alone."""
+    t0 = time.perf_counter()
+    steps0 = gen.stats().steps
+    result = run_train_trial(gen)
+    out = {
+        "phase": "train_loop", "hpa_metrics": [TRAIN_DUTY_SERIES, TRAIN_BW_SERIES],
+        "time_scale": 1.0, "scale_up_s": result.scale_up_s, "budget_s": 60.0,
+        "spike_to_cross_s": result.spike_to_cross_s, "wall_s": time.perf_counter() - t0,
+        "steps": gen.stats().steps - steps0,
+        "bw_gauge": "absent: no source on the card measures it",
+        "replicas": [list(r) for r in result.replicas],
+        "metrics_at_sync": [[round(t, 2), m] for t, m in result.metrics],
+        "series": [[round(t, 2), duty, bw] for t, duty, bw in result.series],
+    }
+    emit(out)
+    if any(m[TRAIN_BW_SERIES] is not None for _, m in result.metrics):
+        raise AssertionError("the HPA had a bandwidth series no source serves")
+    if not all(m[TRAIN_DUTY_SERIES] is not None for _, m in result.metrics):
+        raise AssertionError(f"the HPA lacked the duty cycle at a sync: {result.metrics}")
+    return out
+
+
+class _Entry:
+    """A container command run as a subprocess from the repository root,
+    its output gathered by a thread."""
+
+    def __init__(self, module: str, env: dict):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module], cwd=Path(__file__).resolve().parent, env=env,
+            text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        self.lines: list[str] = []
+        self._reader = threading.Thread(
+            target=lambda: self.lines.extend(ln.rstrip() for ln in self.proc.stdout))
+        self._reader.start()
+
+    def wait_for(self, prefix: str, seconds: float = 180) -> str:
+        deadline = time.monotonic() + seconds
+        while True:
+            found = [ln for ln in self.lines if ln.startswith(prefix)]
+            if found:
+                return found[-1]
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"no line {prefix!r}: {self.lines[-20:]}")
+            time.sleep(0.2)
+
+    def stop(self) -> int:
+        """SIGTERM, then its exit code."""
+        try:
+            self.proc.send_signal(signal.SIGTERM)
+            return self.proc.wait(timeout=60)
+        finally:
+            self.proc.kill()
+            self._reader.join(timeout=10)
+
+
+def _saved_step(entry: _Entry, ckpt_dir: str) -> int:
+    """The step of the newest save a SIGTERM'd entry point left: its final
+    save's, or a periodic one's where the last step had just been saved."""
+    steps = make_checkpoint_manager(ckpt_dir).all_steps()
+    final = [ln for ln in entry.lines if ln.startswith("final checkpoint at step ")]
+    if not steps or (final and int(final[-1].rsplit(" ", 1)[1]) != steps[-1]):
+        raise AssertionError(f"the saves {steps} do not end at the final one: {final}")
+    return steps[-1]
+
+
+def _resume(module: str, env: dict, ckpt_dir: str, first: _Entry) -> dict:
+    """Restart a SIGTERM'd entry point on its checkpoint directory: it must
+    resume from the step of its last save, step on and exit 0 on SIGTERM."""
+    saved = _saved_step(first, ckpt_dir)
+    entry = _Entry(module, env)
+    try:
+        resumed = entry.wait_for("resumed from step ")
+        report = entry.wait_for("steps=")
+    finally:
+        code = entry.stop()
+    steps = int(dict(f.split("=", 1) for f in report.split())["steps"])
+    out = {"saved_step": saved, "resumed": resumed, "report_after": report, "exit_code": code}
+    if resumed != f"resumed from step {saved} in {ckpt_dir}" or steps <= saved or code != 0:
+        raise AssertionError(f"the restart did not resume from the last save: {out}")
+    return out
+
+
+def phase_train_entry(work_dir: str, seconds: float = 8.0) -> dict:
+    """The tpu-train container command, ``python -m
+    k8s_gpu_hpa_tpu_torch.loadgen.train`` at its defaults (ResNet-50,
+    batch 256, image 32), with CHECKPOINT_DIR, CHECKPOINT_EVERY 20 and a
+    1 s PROFILE_S: it trains and reports, writes its Chrome trace, saves on
+    SIGTERM and exits 0; started again it resumes from that save's step."""
+    ckpt_dir = str(Path(work_dir) / "train-ckpt")
+    profile_dir = Path(work_dir) / "train-profile"
+    env = dict(os.environ, REPORT_S="2", CHECKPOINT_DIR=ckpt_dir, CHECKPOINT_EVERY="20",
+               PROFILE_S="1", PROFILE_DIR=str(profile_dir),
+               TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
+    module = "k8s_gpu_hpa_tpu_torch.loadgen.train"
+    first = _Entry(module, env)
+    try:
+        banner = first.wait_for("tpu-train loadgen")
+        first.wait_for("profiling: trace written")
+        time.sleep(seconds)
+        report = first.wait_for("steps=")
+    finally:
+        code = first.stop()
+    traces = sorted(p.name for p in profile_dir.glob("*.json"))
+    out = {"phase": "train_entry", "exit_code": code, "banner": banner, "report": report,
+           "final": [ln for ln in first.lines if ln.startswith("final checkpoint")],
+           "traces": traces, "trace_bytes": sum(p.stat().st_size for p in profile_dir.glob("*.json"))}
+    if code != 0 or traces != [f"trace-{first.proc.pid}.json"]:
+        emit(out)
+        raise AssertionError(f"the train entry point did not run as expected: {first.lines[-20:]}")
+    out["restart"] = _resume(module, env, ckpt_dir, first)
+    emit(out)
+    loss = float(dict(f.split("=", 1) for f in report.split())["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"the train entry point's loss went non-finite: {report}")
     return out
 
 
@@ -1623,12 +1982,19 @@ def main() -> int:
     del serve
     bwd_err = phase_flash_bwd_parity()
     bwd_timing = phase_flash_bwd_timing(*peaks)
-    gens, parity_counts = phase_train_parity()
+    gens, parity_counts = phase_llm_parity()
     train_counts = phase_llm_train(gens)
     phase_llm_profile(gens["auto"])
     del gens
-    with tempfile.TemporaryDirectory() as knob_dir:
-        phase_llm_entry(knob_dir)
+    phase_train_parity()
+    train_gen, _ = phase_train_loadgen()
+    phase_train_profile(train_gen)
+    phase_train_loop(train_gen)
+    del train_gen
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        phase_train_entry(work_dir)
+        phase_llm_entry(work_dir)
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape
     llm = bwd_timing[0]  # the llm training shape

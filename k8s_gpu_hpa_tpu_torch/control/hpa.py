@@ -17,7 +17,8 @@ lag, fixable by the ``behavior`` field of newer API versions
 
 Status conditions, Pods/Resource/External metrics, slice quanta, tracing and
 checkpoints are not ported.  ``shipped_behavior()`` is the behavior stanza of
-deploy/tpu-test-hpa.yaml written in code, so the port reads no YAML.
+deploy/tpu-test-hpa.yaml written in code, and ``train_metrics()`` the metrics
+of deploy/tpu-train-hpa.yaml, so the port reads no YAML.
 """
 
 from __future__ import annotations
@@ -99,6 +100,27 @@ def shipped_behavior() -> HPABehavior:
             policies=[ScalingPolicy("Percent", 50, 60.0)],
         ),
     )
+
+
+#: The tpu-train HPA's two Object metrics (deploy/tpu-train-hpa.yaml): the
+#: deployment's mean duty cycle, percent, and its mean memory-bandwidth use,
+#: percent of the device's peak.  autoscaling/v2 takes the largest proposal
+#: of the metrics it has, so the deployment scales out when either binds.
+TRAIN_DUTY_SERIES = "tpu_train_duty_cycle_avg"
+TRAIN_DUTY_TARGET = 50.0
+TRAIN_BW_SERIES = "tpu_train_hbm_bw_avg"
+TRAIN_BW_TARGET = 30.0
+
+
+def train_metrics() -> list[ObjectMetricSpec]:
+    """The ``metrics:`` of deploy/tpu-train-hpa.yaml written in code: both
+    Object metrics on the ``tpu-train`` Deployment with ``target.type:
+    Value``.  Its replicas run 1..4 and its behavior is ``shipped_behavior()``."""
+    ref = ObjectReference("Deployment", "tpu-train", "default")
+    return [
+        ObjectMetricSpec(TRAIN_DUTY_SERIES, TRAIN_DUTY_TARGET, ref),
+        ObjectMetricSpec(TRAIN_BW_SERIES, TRAIN_BW_TARGET, ref),
+    ]
 
 
 def signal_ceiling_clears_band(ceiling: float, target: float) -> bool:

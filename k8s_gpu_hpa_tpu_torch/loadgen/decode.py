@@ -353,7 +353,7 @@ class DecodeLoadGen:
         return self.stats().hbm_bw_util_pct
 
 
-def main() -> None:
+def main(device: str | torch.device | None = None) -> None:
     """``WORKLOAD=decode python -m k8s_gpu_hpa_tpu_torch.loadgen`` — the
     serving container: offered-load generator → request queue → decode
     worker.
@@ -363,11 +363,15 @@ def main() -> None:
     MODEL_PARALLELISM (only 1 is ported), OFFERED_RPS_MAX (offered load at
     knob 1.0; default 4× one worker's measured capacity), REPORT_S, plus the
     intensity knob (TPU_TEST_INTENSITY / the watched file), meaning the
-    fraction of OFFERED_RPS_MAX offered.  The JAX container's env-gated
-    profile window is ported with ``utils/profiling.py`` (ROADMAP item 13).
+    fraction of OFFERED_RPS_MAX offered; PROFILE_S and PROFILE_DIR open one
+    trace window (utils/profiling.py).  ``device`` is CUDA unless the caller
+    passes ``"cpu"``.
     """
     from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
     from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
+    from k8s_gpu_hpa_tpu_torch.utils.profiling import ProfileWindow
+
+    profile = ProfileWindow()
 
     gen = DecodeLoadGen(
         batch=int(os.environ.get("DECODE_BATCH", "8")),
@@ -379,6 +383,7 @@ def main() -> None:
         n_layers=int(os.environ.get("N_LAYERS", "4")),
         prefill_len=int(os.environ.get("PREFILL_LEN", "0")),
         model_parallelism=int(os.environ.get("MODEL_PARALLELISM", "1")),
+        device=device,
     )
     gen.warmup()
     knob = IntensityKnob()
@@ -402,6 +407,7 @@ def main() -> None:
     last_report = time.perf_counter()
     last_tick = time.perf_counter()
     while True:
+        profile.poll()
         now = time.perf_counter()
         queue.offer((now - last_tick) * knob.poll() * offered_rps_max)
         last_tick = now

@@ -7,9 +7,9 @@ is a forward, its layer-remat recompute and a backward over the whole
 context, the attention on the hand-written flash kernels (forward twice a
 layer, dQ and dK/dV once a layer) unless ``attn_impl="ring"`` forces the
 plain blocking.  The sequence-parallel ring over several devices is ROADMAP
-item 10 and the checkpoint/resume contract (orbax in the JAX package)
-ROADMAP item 11.  Selectable in the multi-host container via
-``WORKLOAD=llm`` (loadgen/multihost.py).
+item 10.  Checkpoints go through the training rung's manager
+(``loadgen/train.py``, the port's own format, not orbax's).  Selectable in
+the multi-host container via ``WORKLOAD=llm`` (loadgen/multihost.py).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from k8s_gpu_hpa_tpu_torch.device import resolve
+from k8s_gpu_hpa_tpu_torch.loadgen.train import CheckpointManager
 from k8s_gpu_hpa_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
@@ -118,3 +119,22 @@ class LlmLoadGen:
             tokens_per_sec=tokens / self._busy if self._busy else 0.0,
             seconds=self._busy,
         )
+
+    # ---- checkpoint / resume (the same contract as loadgen/train.py) -------
+
+    def checkpoint_state(self) -> dict:
+        return {"params": self._params, "step": self._steps, "busy": self._busy}
+
+    def save_checkpoint(self, manager: CheckpointManager) -> None:
+        manager.save(self._steps, self.checkpoint_state())
+
+    def restore_checkpoint(self, manager: CheckpointManager) -> bool:
+        """Resume from the newest checkpoint; False when none exists."""
+        latest = manager.latest_step()
+        if latest is None:
+            return False
+        restored = manager.restore(latest, map_location=self.device)
+        self._params = restored["params"]
+        self._steps = int(restored["step"])
+        self._busy = float(restored["busy"])
+        return True

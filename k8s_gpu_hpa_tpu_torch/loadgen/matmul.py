@@ -294,19 +294,24 @@ class MatmulLoadGen:
         return min(100.0, 100.0 * self.stats().sustained_tflops / self.peak_tflops)
 
 
-def main() -> None:
+def main(device: str | torch.device | None = None) -> None:
     """``python -m k8s_gpu_hpa_tpu_torch.loadgen.matmul`` — the tpu-test
     container command.
 
     Env: MATMUL_SIZE, TPU_TEST_INTENSITY (initial duty cycle),
-    TPU_TEST_INTENSITY_FILE (runtime knob), REPORT_S (stats print period).
+    TPU_TEST_INTENSITY_FILE (runtime knob), REPORT_S (stats print period),
+    PROFILE_S and PROFILE_DIR (one trace window, utils/profiling.py).
+    ``device`` is CUDA unless the caller passes ``"cpu"``.
     """
     from k8s_gpu_hpa_tpu_torch.device import device_name
     from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
+    from k8s_gpu_hpa_tpu_torch.utils.profiling import ProfileWindow
+
+    profile = ProfileWindow()
 
     size = int(os.environ.get("MATMUL_SIZE", "4096"))
     report_every = float(os.environ.get("REPORT_S", "10"))
-    gen = MatmulLoadGen(size=size)
+    gen = MatmulLoadGen(size=size, device=device)
     gen.warmup()
     telemetry = TelemetryWriter()
     print(
@@ -319,6 +324,7 @@ def main() -> None:
     )
     last_report = time.perf_counter()
     while True:
+        profile.poll()
         gen.step()
         s = gen.stats()
         # self-report the gauges only the workload can measure: duty cycle

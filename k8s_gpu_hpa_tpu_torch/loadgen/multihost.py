@@ -134,11 +134,14 @@ def main(device: str | torch.device | None = None) -> None:
     steps under the same runtime intensity knob as the single-chip
     generator, reporting every ``REPORT_S`` seconds, until SIGTERM or
     SIGINT.  Env: SEQ_PER_DEVICE, BATCH_SIZE, D_MODEL, N_HEADS, N_LAYERS,
-    LLM_ATTN (``auto`` or ``ring``), REPORT_S.  ``device`` is CUDA unless
-    the caller passes ``"cpu"``."""
+    LLM_ATTN (``auto`` or ``ring``), REPORT_S; CHECKPOINT_DIR enables
+    resume-on-restart with a save every CHECKPOINT_EVERY (100) steps and a
+    final save on SIGTERM or SIGINT (scale-down kills whole slices).
+    ``device`` is CUDA unless the caller passes ``"cpu"``."""
     from k8s_gpu_hpa_tpu_torch.device import device_name
     from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
     from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
+    from k8s_gpu_hpa_tpu_torch.loadgen.train import make_checkpoint_manager
 
     topology = initialize()
     workload = os.environ.get("WORKLOAD", "allreduce")
@@ -147,10 +150,6 @@ def main(device: str | torch.device | None = None) -> None:
         raise NotImplementedError(
             f"WORKLOAD={workload!r} is not ported yet (ROADMAP item {item}); "
             "this slice runs WORKLOAD=llm"
-        )
-    if os.environ.get("CHECKPOINT_DIR"):
-        raise NotImplementedError(
-            "checkpoint/resume of the llm workload (CHECKPOINT_DIR) is ROADMAP item 11"
         )
     gen = LlmLoadGen(
         seq_per_device=int(os.environ.get("SEQ_PER_DEVICE", "2048")),
@@ -168,6 +167,14 @@ def main(device: str | torch.device | None = None) -> None:
             f"steps={s.steps} ctx={s.context_length} loss={s.last_loss:.3f} "
             f"tok/s={s.tokens_per_sec:.0f} busy={s.seconds:.1f}s"
         )
+
+    manager = None
+    ckpt_dir = os.environ.get("CHECKPOINT_DIR", "")
+    ckpt_every = int(os.environ.get("CHECKPOINT_EVERY", "100"))
+    if ckpt_dir:
+        manager = make_checkpoint_manager(ckpt_dir)
+        if gen.restore_checkpoint(manager):
+            print(f"resumed from step {gen.stats().steps} in {ckpt_dir}", flush=True)
 
     gen.warmup()
     knob = IntensityKnob()
@@ -189,11 +196,21 @@ def main(device: str | torch.device | None = None) -> None:
     signal.signal(signal.SIGINT, _terminate)
 
     last_report = time.perf_counter()
-    while not stopping:
+    last_ckpt_step = gen.stats().steps
+    while True:
+        if stopping:
+            if manager is not None and gen.stats().steps > last_ckpt_step:
+                gen.save_checkpoint(manager)
+                manager.wait_until_finished()
+                print(f"final checkpoint at step {gen.stats().steps}", flush=True)
+            return
         if knob.poll() <= 0.0:
             knob.throttle(0.0)
         else:
             knob.throttle(gen.step())
+        if manager is not None and gen.stats().steps - last_ckpt_step >= ckpt_every:
+            gen.save_checkpoint(manager)
+            last_ckpt_step = gen.stats().steps
         if time.perf_counter() - last_report >= report_every:
             print(report(gen.stats()), flush=True)
             last_report = time.perf_counter()

@@ -28,6 +28,14 @@ loop as a GPU node's exporter sees it: the device read through NVML
 tensor-core gauge supplied by the generator's self-report, which the daemon
 merges.
 
+The training trial (``run_train_trial``, the counterpart of bench.py's
+``run_rung_train_multimetric``) runs the loop around the ResNet training
+generator: pod ``tpu-train-real``, both rules of the ``tpu-train`` group and
+the shipped two-metric HPA (duty cycle target 50, bandwidth target 30).  The
+duty cycle is a 3 s sliding busy fraction (``WindowedDuty``).  No source on
+the card serves the bandwidth gauge, so it is absent, and the HPA decides by
+the metrics it has: the duty cycle alone.
+
 Every control-plane period (pod start latency, HPA sync, scrape interval,
 behavior windows and periods, the budget) multiplies by ``time_scale``, as
 bench.py's ``BENCH_TIME_SCALE`` does, so that a short run exercises the same
@@ -49,11 +57,14 @@ from k8s_gpu_hpa_tpu_torch.control.adapter import (
     ObjectReference,
 )
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    TRAIN_BW_SERIES,
+    TRAIN_DUTY_SERIES,
     HPABehavior,
     HPAController,
     ObjectMetricSpec,
     shipped_behavior,
     signal_ceiling_clears_band,
+    train_metrics,
 )
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
 from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttributor
@@ -80,6 +91,7 @@ from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock
 if TYPE_CHECKING:
     from k8s_gpu_hpa_tpu_torch.loadgen.decode import DecodeLoadGen
     from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
+    from k8s_gpu_hpa_tpu_torch.loadgen.train import TrainLoadGen
 
 TARGET = 40.0
 MAX_REPLICAS = 4
@@ -88,6 +100,7 @@ TENSORCORE_SERIES = "tpu_test_tensorcore_avg"
 DUTY_SERIES = "tpu_test_duty_cycle_avg"
 SERVE_POD = "tpu-serve-real"
 SERVE_SERIES = "tpu_serve_hbm_bw_avg"
+TRAIN_POD = "tpu-train-real"
 BASE_POD_START_LATENCY = 12.0
 BASE_HPA_SYNC = 15.0
 BASE_BUDGET_S = 60.0
@@ -108,8 +121,8 @@ class LoopSpec:
     app: str  # the Deployment's name and its pods' ``app`` label
     real_pod: str
     rules: tuple[RecordingRule, ...]
-    metric: str  # the recorded series the HPA targets
-    target: float
+    #: the HPA's Object metrics: recorded series and their targets
+    metrics: tuple[ObjectMetricSpec, ...]
     #: recorded series read at each scrape into ``TrialResult.series``
     series: tuple[str, ...]
     #: offered load before the spike, in devices' worth
@@ -128,14 +141,23 @@ def _mirror_bandwidth(i: int, bw: float) -> ChipSample:
     return ChipSample(i, None, None, 8e9, 16e9, bw)
 
 
+def _mirror_duty(i: int, duty: float) -> ChipSample:
+    # the duty cycle only, as bench.py's training rung: a bandwidth gauge
+    # here would invent a tpu_train_hbm_bw_avg series the card never serves
+    return ChipSample(i, None, duty, 0.0, 0.0, None)
+
+
+def _on_deployment(app: str, metric: str, target: float) -> ObjectMetricSpec:
+    return ObjectMetricSpec(metric, target, ObjectReference("Deployment", app, "default"))
+
+
 def headline_spec(metric: str = DUTY_SERIES) -> LoopSpec:
     """The headline loop: the shipped ``tpu-test`` rule group, target 40."""
     return LoopSpec(
         app="tpu-test",
         real_pod=REAL_POD,
         rules=tuple(tpu_test_rules()),
-        metric=metric,
-        target=TARGET,
+        metrics=(_on_deployment("tpu-test", metric, TARGET),),
         series=(TENSORCORE_SERIES, DUTY_SERIES),
         base_offered=0.2,
         settle_below=30.0,
@@ -156,12 +178,34 @@ def serve_spec() -> LoopSpec:
                 record=SERVE_SERIES,
             ),
         ),
-        metric=SERVE_SERIES,
-        target=SERVE_BW_TARGET,
+        metrics=(_on_deployment("tpu-serve", SERVE_SERIES, SERVE_BW_TARGET),),
         series=(SERVE_SERIES,),
         base_offered=0.1,
         settle_below=SERVE_BW_TARGET / 2,
         mirror_chip=_mirror_bandwidth,
+    )
+
+
+def train_spec() -> LoopSpec:
+    """The training loop: bench.py's training rung against the shipped
+    tpu-train pair (deploy/tpu-train-hpa.yaml: ``train_metrics()``, 1..4
+    replicas, the shipped behavior) with both rules of the ``tpu-train``
+    group.  Each pod runs its own steps: 0.15 of the device before the
+    spike, all of it after.  Mirror pods report the real pod's duty cycle
+    and no bandwidth."""
+    return LoopSpec(
+        app="tpu-train",
+        real_pod=TRAIN_POD,
+        rules=tuple(
+            tpu_test_avg_rule(app="tpu-train", deployment="tpu-train", metric=gauge, record=series)
+            for gauge, series in ((TPU_DUTY_CYCLE, TRAIN_DUTY_SERIES),
+                                  (TPU_HBM_BW_UTIL, TRAIN_BW_SERIES))
+        ),
+        metrics=tuple(train_metrics()),
+        series=(TRAIN_DUTY_SERIES, TRAIN_BW_SERIES),
+        base_offered=0.15,
+        settle_below=30.0,
+        mirror_chip=_mirror_duty,
     )
 
 
@@ -279,21 +323,17 @@ def wire_pipeline(
     )
     scraper.add_target(lambda: pod_labels_exposition(deployment), name="ksm")
     evaluator = RuleEvaluator(db, list(loop.rules))
-    adapter = CustomMetricsAdapter(db, [AdapterRule(series=loop.metric)])
+    adapter = CustomMetricsAdapter(db, [AdapterRule(series=m.metric_name) for m in loop.metrics])
     hpa = HPAController(
         target=deployment,
-        metrics=[
-            ObjectMetricSpec(
-                loop.metric, loop.target, ObjectReference("Deployment", loop.app, "default")
-            )
-        ],
+        metrics=list(loop.metrics),
         adapter=adapter,
         clock=clock,
         min_replicas=1,
         max_replicas=MAX_REPLICAS,
         behavior=scaled_behavior(time_scale),
     )
-    return Pipeline(deployment, db, scraper, evaluator, hpa, loop.metric, spec)
+    return Pipeline(deployment, db, scraper, evaluator, hpa, loop.metrics[0].metric_name, spec)
 
 
 class Load(Protocol):
@@ -315,6 +355,9 @@ class TrialResult:
     series: list[tuple[float | None, ...]] = field(default_factory=list)
     #: (t after spike, replicas, running) at each HPA sync and at the end
     replicas: list[tuple[float, int, int]] = field(default_factory=list)
+    #: (t after spike, {metric: the adapter's value, None where absent}) at
+    #: each HPA sync: the metrics the HPA had
+    metrics: list[tuple[float, dict[str, float | None]]] = field(default_factory=list)
     #: serve loop: the saturated signal measured before the loop, percent,
     #: and its headroom over the target
     saturated_pct: float | None = None
@@ -329,9 +372,10 @@ def run_trial(
     tick: float = 0.05,
 ) -> TrialResult:
     """Settle at the spec's base load (0.2 devices for the headline loop),
-    spike to 8, and time the scale-up.
+    spike to 8, and time the scale-up.  The crossing is the first scrape
+    after the spike at which any of the HPA's metrics exceeds its target.
 
-    Raises RuntimeError when the metric never crosses the target or the
+    Raises RuntimeError when no metric crosses its target or the
     deployment does not reach MAX_REPLICAS running pods within the budget
     after the crossing."""
     loop = pipe.loop_spec()
@@ -365,15 +409,13 @@ def run_trial(
             pipe.evaluator.evaluate_once()
             next_scrape = now + scrape_interval
             selector = {"deployment": loop.app}
-            value = pipe.db.latest(loop.metric, selector)
             result.series.append(
                 (now - spike_at, *(pipe.db.latest(s, selector) for s in loop.series))
             )
-            if (
-                t_cross is None
-                and now >= spike_at
-                and value is not None
-                and value > loop.target
+            if t_cross is None and now >= spike_at and any(
+                (value := pipe.db.latest(m.metric_name, selector)) is not None
+                and value > m.target_value
+                for m in loop.metrics
             ):
                 t_cross = now
         if now >= next_sync:
@@ -382,6 +424,10 @@ def run_trial(
             result.replicas.append(
                 (now - spike_at, deployment.replicas, len(deployment.running()))
             )
+            result.metrics.append((now - spike_at, {
+                m.metric_name: pipe.hpa.adapter.get_object_metric(m.described_object, m.metric_name)
+                for m in loop.metrics
+            }))
         if (
             t_cross is not None
             and deployment.replicas == MAX_REPLICAS
@@ -392,7 +438,8 @@ def run_trial(
             break
         clock.sleep(tick)
     if t_cross is None:
-        raise RuntimeError(f"{loop.metric} never crossed {loop.target} after the spike")
+        targets = ", ".join(f"{m.metric_name} {m.target_value}" for m in loop.metrics)
+        raise RuntimeError(f"no metric crossed its target after the spike ({targets})")
     if t_done is None or t_done - t_cross > budget:
         raise RuntimeError(
             f"no scale-up to {MAX_REPLICAS} running replicas within {budget:.1f}s "
@@ -610,7 +657,7 @@ def run_serve_trial(gen: DecodeLoadGen, time_scale: float = 1.0) -> TrialResult:
         raise RuntimeError(
             f"inert pairing: the saturated signal {saturated}% of the "
             f"{gen.peak_hbm_gbps} GB/s peak cannot clear the band above target "
-            f"{spec.target} (headroom {headroom:.3f}x)"
+            f"{SERVE_BW_TARGET} (headroom {headroom:.3f}x)"
         )
     source = TorchDeviceSource(
         util_fn=gen.utilization, bw_fn=gen.hbm_bw_utilization, device=gen.device
@@ -620,3 +667,72 @@ def run_serve_trial(gen: DecodeLoadGen, time_scale: float = 1.0) -> TrialResult:
     result.saturated_pct = saturated
     result.headroom = headroom
     return result
+
+
+class WindowedDuty:
+    """Busy fraction over a sliding window, percent: the training pod's
+    duty-cycle gauge (``TrainStats.utilization`` is cumulative since the
+    start and cannot show a spike).  Locked: the training thread records
+    while the exporter's feed thread reads."""
+
+    def __init__(self, window: float = 3.0):
+        self.window = window
+        self._events: list[tuple[float, float]] = []
+        self._lock = threading.Lock()
+
+    def record(self, busy: float) -> None:
+        now = time.perf_counter()
+        with self._lock:
+            self._events.append((now, busy))
+
+    def value(self, _chip_index: int = 0) -> float:
+        now = time.perf_counter()
+        cutoff = now - self.window
+        with self._lock:
+            self._events = [(t, b) for t, b in self._events if t >= cutoff]
+            if not self._events:
+                return 0.0
+            busy = sum(b for _, b in self._events)
+            first = min(t for t, _ in self._events)
+        wall = max(now - first, busy, 1e-9)
+        return min(100.0, 100.0 * busy / wall)
+
+
+class TrainLoad:
+    """The training pod's workload around a training generator, shaped as
+    bench.py's training rung shapes it: after each step, sleep ``busy * (1 -
+    i) / i``, at most 2 s, with ``i`` at least 0.01; the whole iteration
+    counts as busy.  Its ``utilization`` is the windowed duty cycle."""
+
+    def __init__(self, gen: TrainLoadGen, window: float = 3.0):
+        self.gen = gen
+        self.duty = WindowedDuty(window)
+        self._intensity = 0.15
+
+    def set_intensity(self, value: float) -> None:
+        self._intensity = value
+
+    def utilization(self, _chip_index: int = 0) -> float:
+        return self.duty.value()
+
+    def step(self) -> None:
+        i = max(self._intensity, 0.01)
+        t0 = time.perf_counter()
+        self.gen.step()
+        busy = time.perf_counter() - t0
+        self.duty.record(busy)
+        time.sleep(min(busy * (1.0 - i) / i, 2.0))
+
+
+def run_train_trial(gen: TrainLoadGen, time_scale: float = 1.0) -> TrialResult:
+    """The training trial around one training generator, in real time.
+
+    The generator runs as pod ``tpu-train-real`` under ``TrainLoad``:
+    intensity 0.15, then 1.0 on every pod after the spike.
+    ``TorchDeviceSource`` serves its windowed duty cycle and no bandwidth
+    gauge (none is measured on the card), mirror pods report the same duty
+    cycle, and the shipped two-metric HPA scales on the metrics it has.
+    The duty cycle's 3 s window multiplies by ``time_scale`` too."""
+    load = TrainLoad(gen, window=3.0 * time_scale)
+    source = TorchDeviceSource(util_fn=load.utilization, device=gen.device)
+    return _live_trial(train_spec(), source, load.step, load, load.utilization, time_scale)

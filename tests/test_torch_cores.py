@@ -12,14 +12,16 @@ the module's tests run, every thread of the worker, and every thread or
 subprocess it starts, runs on the last three quarters of the cores it may
 use, at the lowest CPU priority (nice 19).  The first quarter stays for the
 other workers' tests, and on the rest the scheduler gives a test at the
-default priority some seventy times the share of a port thread.  A module
-whose tests run a closed loop against the wall clock sets
-``KEEP_PRIORITY = True``: its load generator, starved at nice 19, would
-miss the loop's budget, and it computes on one torch thread.  Afterwards
-the fixture restores the cores and the priority.  Raising a priority back
-takes CAP_SYS_NICE or an RLIMIT_NICE that allows it; a process without
-either keeps its priority throughout and is confined to the cores alone,
-so that no later test of the worker runs at nice 19.
+default priority some seventy times the share of a port thread.  A test
+whose closed loop runs against the wall clock takes the ``keep_priority``
+fixture: its load generator, starved at nice 19, would miss the loop's
+budget, so for that test alone the worker runs at its own priority, on the
+last two of its cores only (``loop_cores``), where the loop's busy threads
+meet as few of the other workers' threads as they can; it computes on one
+torch thread.  Afterwards the fixtures restore the cores and the priority.
+Raising a priority back takes CAP_SYS_NICE or an RLIMIT_NICE that allows
+it; a process without either keeps its priority throughout and is confined
+to the cores alone, so that no later test of the worker runs at nice 19.
 """
 
 import contextlib
@@ -46,6 +48,12 @@ def port_cores(allowed: set[int]) -> set[int]:
     ``allowed`` (all of them where a quarter is less than one core)."""
     ordered = sorted(allowed)
     return set(ordered[len(ordered) // 4:])
+
+
+def loop_cores(allowed: set[int]) -> set[int]:
+    """The cores a wall-clock closed loop runs on: the last two of
+    ``allowed`` (all of them where it has fewer)."""
+    return set(sorted(allowed)[-2:])
 
 
 def _each_thread(fn) -> None:
@@ -85,12 +93,12 @@ def port_nice(nice: int, keep_priority: bool, may_restore: bool = True) -> int:
 
 
 @contextlib.contextmanager
-def confined(keep_priority: bool):
+def confined():
     """Confine every thread of this process (and what it starts) to the
     port's cores and priority, and restore both on exit."""
     before = _BEFORE["cores"] = os.sched_getaffinity(0)
     nice = _BEFORE["nice"] = os.getpriority(os.PRIO_PROCESS, 0)
-    low = port_nice(nice, keep_priority, may_restore_priority(nice))
+    low = port_nice(nice, False, may_restore_priority(nice))
     _pin_process(port_cores(before))
     if low != nice:
         _renice_process(low)
@@ -102,12 +110,40 @@ def confined(keep_priority: bool):
         _pin_process(before)
 
 
+@contextlib.contextmanager
+def at_worker_priority():
+    """Inside ``confined``: every thread on ``loop_cores`` of the worker's
+    cores at the worker's own priority, which ``confined`` lowered only
+    where it may be raised again; the confinement comes back on exit."""
+    cores, low = os.sched_getaffinity(0), os.getpriority(os.PRIO_PROCESS, 0)
+    nice = port_nice(_BEFORE["nice"], True)
+    _pin_process(loop_cores(_BEFORE["cores"]))
+    if nice != low:
+        _renice_process(nice)
+    try:
+        yield
+    finally:
+        if nice != low:
+            _renice_process(low)
+        _pin_process(cores)
+
+
 @pytest.fixture(scope="module", autouse=True)
-def confined_to_port_cores(request):
+def confined_to_port_cores():
     if not (hasattr(os, "sched_setaffinity") and os.path.isdir("/proc/self/task")):
         yield
         return
-    with confined(getattr(request.module, "KEEP_PRIORITY", False)):
+    with confined():
+        yield
+
+
+@pytest.fixture
+def keep_priority(confined_to_port_cores):
+    """For one test whose closed loop runs against the wall clock."""
+    if "cores" not in _BEFORE:  # no per-thread affinity: nothing was confined
+        yield
+        return
+    with at_worker_priority():
         yield
 
 
@@ -157,23 +193,26 @@ def test_a_subprocess_of_the_worker_inherits_the_low_priority():
     assert int(out) == port_nice(_BEFORE["nice"], False, may_restore_priority(_BEFORE["nice"]))
 
 
-# A worker that runs a lowered port module and then one that keeps its
-# priority: the second must run at the worker's own priority.  It runs in a
-# subprocess, started at the worker's priority, as it is or as an
-# unprivileged user (uid 65534), which has no CAP_SYS_NICE and the default
-# RLIMIT_NICE of 0 and so may not raise its priority again.
+# A worker that runs a lowered port module and then, inside another, a test
+# that keeps its priority: that test must run at the worker's own priority,
+# and the module's next test lowered again.  It runs in a subprocess,
+# started at the worker's priority, as it is or as an unprivileged user (uid
+# 65534), which has no CAP_SYS_NICE and the default RLIMIT_NICE of 0 and so
+# may not raise its priority again.
 _SEQUENCE = """
 import json, os, sys
-from tests.test_torch_cores import confined, may_restore_priority
+from tests.test_torch_cores import at_worker_priority, confined, may_restore_priority
 os.setpriority(os.PRIO_PROCESS, 0, int(sys.argv[1]))
 if sys.argv[2] == "unprivileged" and os.geteuid() == 0:
     os.setgid(65534)
     os.setuid(65534)
 before = os.getpriority(os.PRIO_PROCESS, 0)
-with confined(keep_priority=False):
+with confined():
     lowered = os.getpriority(os.PRIO_PROCESS, 0)
-with confined(keep_priority=True):
-    kept = os.getpriority(os.PRIO_PROCESS, 0)
+with confined():
+    with at_worker_priority():
+        kept = os.getpriority(os.PRIO_PROCESS, 0)
+    assert os.getpriority(os.PRIO_PROCESS, 0) == lowered
 print(json.dumps([before, lowered, kept, may_restore_priority(before)]))
 """
 
@@ -191,3 +230,22 @@ def test_a_module_that_keeps_its_priority_after_a_lowered_one_runs_at_the_worker
     assert before == _BEFORE["nice"]
     assert lowered == port_nice(before, False, may_restore)
     assert kept == before
+
+
+def test_loop_cores_are_the_last_two():
+    assert loop_cores(set(range(8))) == {6, 7}
+    assert loop_cores({5, 1, 9, 3}) == {5, 9}
+    assert loop_cores({4}) == {4}
+
+
+def test_a_test_that_keeps_its_priority_runs_on_the_loop_cores_at_the_worker_s(keep_priority):
+    if "nice" not in _BEFORE:
+        pytest.skip("no per-thread affinity on this host: the fixture confines nothing")
+    got = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            got[tid] = (os.sched_getaffinity(int(tid)), os.getpriority(os.PRIO_PROCESS, int(tid)))
+        except OSError:  # the thread has exited
+            pass
+    want = (loop_cores(_BEFORE["cores"]), _BEFORE["nice"])
+    assert got and all(v == want for v in got.values()), got

@@ -62,6 +62,9 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.exporter.selfreport",
         "k8s_gpu_hpa_tpu_torch.exporter.kubeapi",
         "k8s_gpu_hpa_tpu_torch.utils.protowire",
+        "k8s_gpu_hpa_tpu_torch.utils.profiling",
+        "k8s_gpu_hpa_tpu_torch.models.resnet",
+        "k8s_gpu_hpa_tpu_torch.loadgen.train",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]

@@ -36,7 +36,7 @@ from k8s_gpu_hpa_tpu_torch.trial import (
 )
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 from tests.test_torch_slice import ScriptedLoad
-from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+from tests.test_torch_cores import confined_to_port_cores, keep_priority  # noqa: F401
 
 # the test workers share the host's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -45,9 +45,6 @@ DEPLOY = Path(__file__).resolve().parent.parent / "deploy"
 SERVE_HPA = yaml.safe_load((DEPLOY / "tpu-serve-hpa.yaml").read_text())
 #: real time, as the headline slice test runs it: pod start 2.4 s, HPA sync 3 s
 REAL_TIME_SCALE = 0.2
-# its closed loops run against the wall clock: confined to the port's
-# cores, but at the worker's own priority (tests/test_torch_cores.py)
-KEEP_PRIORITY = True
 
 _ENV_OF = {
     "batch": "DECODE_BATCH", "max_seq": "MAX_SEQ", "d_model": "D_MODEL",
@@ -66,9 +63,10 @@ def test_serve_sizes_equal_the_deployment_manifest():
 def test_serve_loop_equals_the_hpa_manifest_and_the_jax_target():
     spec = serve_spec()
     (metric,) = jax_hpa.metrics_from_manifest(SERVE_HPA)
-    assert (spec.metric, spec.target) == (metric.metric_name, metric.target_value)
-    assert spec.target == SERVE_BW_TARGET == jax_rules.SERVE_BW_TARGET
-    assert metric.described_object.name == spec.app == "tpu-serve"
+    (got,) = spec.metrics
+    assert (got.metric_name, got.target_value) == (metric.metric_name, metric.target_value)
+    assert got.target_value == SERVE_BW_TARGET == jax_rules.SERVE_BW_TARGET
+    assert metric.described_object.name == got.described_object.name == spec.app == "tpu-serve"
     assert (SERVE_HPA["spec"]["minReplicas"], SERVE_HPA["spec"]["maxReplicas"]) == (1, MAX_REPLICAS)
     assert dataclasses.asdict(shipped_behavior()) == dataclasses.asdict(
         jax_hpa.behavior_from_manifest(SERVE_HPA)
@@ -183,6 +181,7 @@ def _serve_gen(window: float) -> DecodeLoadGen:
     return gen
 
 
+@pytest.mark.usefixtures("keep_priority")
 def test_serve_slice_on_cpu_scales_one_to_four():
     """The CPU has no bandwidth peak, so the generator reports no signal; the
     test calibrates one, as bench.py's serve rung does off the chip, here to

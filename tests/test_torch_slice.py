@@ -31,7 +31,7 @@ from k8s_gpu_hpa_tpu_torch.trial import (
 )
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 from tests.test_torch_pipeline import _jax_pipeline
-from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+from tests.test_torch_cores import confined_to_port_cores, keep_priority  # noqa: F401
 
 # the test workers share the host's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -40,12 +40,10 @@ torch.set_num_threads(1)
 #: compresses its smoke run: in real time, pod start 2.4 s, HPA sync 3 s and
 #: a 12 s budget leave room for a loaded host; virtual time needs none
 REAL_TIME_SCALE = 0.2
-# its closed loops run against the wall clock: confined to the port's
-# cores, but at the worker's own priority (tests/test_torch_cores.py)
-KEEP_PRIORITY = True
 VIRTUAL_TIME_SCALE = 0.1
 
 
+@pytest.mark.usefixtures("keep_priority")
 def test_slice_on_cpu_scales_one_to_four(tmp_path):
     gen = MatmulLoadGen(size=256, use_kernel=True, intensity=0.2, window=0.5, device="cpu")
     gen.intensity_file = str(tmp_path / "intensity")  # absent: API knob only
@@ -61,6 +59,7 @@ def test_slice_on_cpu_scales_one_to_four(tmp_path):
     assert all(tc is None for t, tc, _ in result.series if t < 0)
 
 
+@pytest.mark.usefixtures("keep_priority")
 def test_slice_on_cpu_scales_one_to_four_on_the_tensorcore_series(tmp_path):
     """``run_headline_trial``'s default, as bench.py runs its headline trial:
     the HPA reads the tensor-core average.  The CPU has no published peak,
@@ -81,6 +80,7 @@ def test_slice_on_cpu_scales_one_to_four_on_the_tensorcore_series(tmp_path):
     assert max(tc for t, tc, _ in result.series if t >= 0) > 40.0
 
 
+@pytest.mark.usefixtures("keep_priority")
 def test_node_headline_trial_on_cpu_scales_one_to_four(tmp_path, monkeypatch):
     """``run_node_headline_trial``: NvmlSource over the stub NVML library as
     the card (NVML index 1 of two), the attribution the kubelet would give,

@@ -328,8 +328,7 @@ def test_initialize_takes_one_process_and_refuses_more():
 @pytest.mark.parametrize(
     "env, item",
     [({}, 9), ({"WORKLOAD": "allreduce"}, 9), ({"WORKLOAD": "ringattn"}, 10),
-     ({"WORKLOAD": "moe"}, 12), ({"WORKLOAD": "bogus"}, 9),
-     ({"WORKLOAD": "llm", "CHECKPOINT_DIR": "/ckpt"}, 11)],
+     ({"WORKLOAD": "moe"}, 12), ({"WORKLOAD": "bogus"}, 9)],
 )
 def test_main_refuses_what_is_not_ported(monkeypatch, env, item):
     for name in ("WORKLOAD", "CHECKPOINT_DIR", "COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
