@@ -135,10 +135,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
 26. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
                    WORKLOAD=llm and CHECKPOINT_DIR trains and reports until
                    SIGTERM, saves, exits 0, and resumes from that step.
+27. mesh         — a process group of this process alone over NCCL on the
+                   card, its rendezvous on a free port of 127.0.0.1:
+                   ``make_mesh()`` is {"data": 1, "model": 1} on cuda, and a
+                   model axis of 2 is refused (ValueError).
+28. tp_mlp       — the tensor-parallel MLP on that mesh (d_model 512,
+                   d_hidden 2048, batch 256) against gelu_tanh(x @ w1) @ w2
+                   computed plainly from the same weights: f32 within 2e-4,
+                   bf16 within 0.06 of the output's RMS; its time.
+29. allreduce_loadgen — ``AllReduceLoadGen()`` (64 MB, 4 rounds a burst, bf16)
+                   on that mesh for 3 s: rounds, bytes a round, the rate
+                   (at world 1 a device-local copy, not a link), the buffer
+                   finite; one traced burst's kernels, NCCL's among them.
+30. allreduce_entry — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost``
+                   with no WORKLOAD (so allreduce) reports twice and exits 0
+                   on SIGTERM: once with no topology, once with
+                   COORDINATOR_ADDRESS=127.0.0.1:<free> NUM_PROCESSES=1.
+31. train_dp     — at the shipped tpu-train sizes: over a group of one (NCCL)
+                   ``TrainLoadGen(mesh=make_mesh())``'s three losses equal
+                   ``TrainLoadGen()``'s bit for bit; two ranks share the card
+                   over gloo, each a step on its half (128) of a global batch
+                   whose halves differ in mean, against one rank's step on
+                   the whole batch: the loss, the logits, every parameter's
+                   update and every BatchNorm's batch statistics within 0.06
+                   of their RMS; and what each half's own statistics would
+                   have read.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
-the JAX package.
+the JAX package.  Nor on the mesh's paths (phases 27-31): their collectives
+are NCCL's or gloo's and their products cuBLAS's.  The card has one GPU and
+NCCL takes one rank a GPU, so nothing there runs on NCCL across ranks.
 
 Launch counts.  Each wrapper counts the launches it makes.  The GEMM's
 launches on the main path are those of loop and node_loop, each counted
@@ -176,7 +203,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
-
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from k8s_gpu_hpa_tpu_torch.device import peak_hbm_gbps_for, peak_tflops_for
@@ -188,10 +215,14 @@ from k8s_gpu_hpa_tpu_torch.exporter.podresources import (
 )
 from k8s_gpu_hpa_tpu_torch.exporter.sources import NvmlSource
 from k8s_gpu_hpa_tpu_torch.control.hpa import TRAIN_BW_SERIES, TRAIN_DUTY_SERIES
+from k8s_gpu_hpa_tpu_torch.loadgen.allreduce import AllReduceLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.decode import SERVE_SIZES, DecodeLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
 from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
+from k8s_gpu_hpa_tpu_torch.loadgen.multihost import (
+    HostTopology, free_port, initialize, launch, stop_rank_server,
+)
 from k8s_gpu_hpa_tpu_torch.loadgen.train import TrainLoadGen, make_checkpoint_manager
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET
@@ -203,6 +234,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
 )
 from k8s_gpu_hpa_tpu_torch.models import transformer
 from k8s_gpu_hpa_tpu_torch.models.resnet import BatchNorm
+from k8s_gpu_hpa_tpu_torch.models.tp_mlp import init_tp_mlp, tp_mlp_forward
 from k8s_gpu_hpa_tpu_torch.ops import flash_attention, matmul
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     FlashAttention,
@@ -216,6 +248,7 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
+from k8s_gpu_hpa_tpu_torch.parallel.mesh import make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.trial import (
     REAL_POD,
@@ -1872,11 +1905,12 @@ class _Entry:
             target=lambda: self.lines.extend(ln.rstrip() for ln in self.proc.stdout))
         self._reader.start()
 
-    def wait_for(self, prefix: str, seconds: float = 180) -> str:
+    def wait_for(self, prefix: str, seconds: float = 180, count: int = 1) -> str:
+        """The last line that starts with ``prefix``, once ``count`` do."""
         deadline = time.monotonic() + seconds
         while True:
             found = [ln for ln in self.lines if ln.startswith(prefix)]
-            if found:
+            if len(found) >= count:
                 return found[-1]
             if self.proc.poll() is not None or time.monotonic() > deadline:
                 raise AssertionError(f"no line {prefix!r}: {self.lines[-20:]}")
@@ -1954,6 +1988,353 @@ def phase_train_entry(work_dir: str, seconds: float = 8.0) -> dict:
     return out
 
 
+# The mesh over torch.distributed (parallel/mesh.py) and what runs on it: the
+# tensor-parallel MLP (models/tp_mlp.py), the slice container's collective rung
+# (loadgen/allreduce.py, WORKLOAD=allreduce) and data-parallel ResNet training
+# (loadgen/train.py over a mesh).  NCCL takes one rank a GPU and the card has
+# one, so the NCCL group holds one rank; two ranks share the card only over
+# gloo, which carries all_reduce and broadcast of CUDA tensors, in train_dp.
+# No hand-written kernel is on these paths: the collectives are NCCL's (or
+# gloo's), the products cuBLAS's, as XLA's are in the JAX package.
+#: the MLP's d_model, d_hidden and batch
+TP_SIZES = (512, 2048, 256)
+#: its bars against gelu_tanh(x @ w1) @ w2 on the card, same weights: JAX's f32
+#: bar (tests/test_jax_workloads.py), and the port's bf16 bar on the RMS
+TP_F32_ATOL = 2e-4
+TP_BF16_REL = 0.06
+#: the collective rung's run, seconds
+ALLREDUCE_S = 3.0
+#: the data-parallel step on two ranks against one rank's on the whole batch,
+#: relative to the RMS of what is compared: the port's bf16 bar
+DP_REL = 0.06
+#: the seed of train_dp's global batch, whose halves differ in mean
+DP_SEED = 11
+#: seconds a train_dp rank waits for a rendezvous or a collective
+DP_TIMEOUT_S = 120
+
+
+def _group_of_one(device: str) -> str:
+    """A process group of this process alone (NCCL on the card), its
+    rendezvous on a free port of 127.0.0.1; its address."""
+    topology = HostTopology(0, 1, f"127.0.0.1:{free_port()}")
+    initialize(topology, device=device)
+    return f"tcp://{topology.coordinator_address}"
+
+
+def phase_mesh(device: str = "cuda:0"):
+    """``make_mesh()`` over a group of one: {"data": 1, "model": 1} on the
+    group's backend (NCCL), and a model axis of 2 refused."""
+    address = _group_of_one(device)
+    mesh = make_mesh()
+    try:
+        make_mesh(model_parallelism=2)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    out = {"phase": "mesh", "rendezvous": address, "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "mesh": mesh_shape(mesh),
+           "device_type": mesh.device_type, "model_parallelism_2": refused}
+    emit(out)
+    want_backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if (out["mesh"] != {"data": 1, "model": 1} or out["backend"] != want_backend
+            or out["device_type"] != torch.device(device).type or refused is None):
+        raise AssertionError(f"the mesh is not the one asked for: {out}")
+    return mesh
+
+
+def phase_tp_mlp(mesh, device: str = "cuda:0") -> dict:
+    """The tensor-parallel MLP on the mesh of one rank, f32 and bf16, against
+    gelu_tanh(x @ w1) @ w2 computed plainly in f32 from the same weights."""
+    d_model, d_hidden, batch = TP_SIZES
+    out = {"phase": "tp_mlp", "mesh": mesh_shape(mesh), "d_model": d_model,
+           "d_hidden": d_hidden, "batch": batch}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = init_tp_mlp(torch.Generator(device).manual_seed(0), d_model, d_hidden, mesh,
+                             dtype, device)
+        x = torch.randn(batch, d_model, generator=torch.Generator(device).manual_seed(1),
+                        device=device).to(dtype)
+        y = tp_mlp_forward(params, x, mesh).float()
+        want = F.gelu(x.float() @ params["w1"].float(), approximate="tanh") @ params["w2"].float()
+        out[str(dtype).removeprefix("torch.")] = {
+            "max_abs_err": float((y - want).abs().max()), "rel_rms": _rel_rms(y, want),
+            "finite": bool(torch.isfinite(y).all()),
+            "ms": cuda_time_ms(lambda: tp_mlp_forward(params, x, mesh), 50),
+        }
+    out["bars"] = {"float32_max_abs": TP_F32_ATOL, "bfloat16_rel_rms": TP_BF16_REL}
+    emit(out)
+    f32, bf16 = out["float32"], out["bfloat16"]
+    if not (f32["max_abs_err"] <= TP_F32_ATOL and bf16["rel_rms"] <= TP_BF16_REL
+            and f32["finite"] and bf16["finite"]):
+        raise AssertionError(f"the tensor-parallel MLP disagrees with its plain version: {out}")
+    return out
+
+
+def _burst_kernels(gen: AllReduceLoadGen) -> dict:
+    """The device's kernels inside one annotated burst, by name: a lead
+    burst goes first, so that a trace that drops kernels at its head (as
+    some late in a long run have) drops the lead burst's."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        _warm_trace()
+        gen.step()
+        with torch.profiler.record_function("traced_burst"):
+            gen.step()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range for e in on_device if e.is_user_annotation and e.name == "traced_burst"]
+    kernels = {}
+    for e in on_device:
+        if spans and not e.is_user_annotation and spans[0].start <= e.time_range.start <= spans[0].end:
+            k = kernels.setdefault(e.name[:100], {"ms": 0.0, "calls": 0})
+            k["ms"] += e.time_range.elapsed_us() / 1e3
+            k["calls"] += 1
+    return kernels
+
+
+def phase_allreduce_loadgen(device: str = "cuda:0", seconds: float = ALLREDUCE_S,
+                            attempts: int = 3) -> dict:
+    """``AllReduceLoadGen()`` at its defaults (64 MB, 4 rounds a burst, bf16)
+    on the mesh of the group of one for ``seconds``: rounds, bytes a round,
+    the rate, the buffer's finiteness; then one burst under torch.profiler,
+    its kernels by name and count (NCCL's among them), traced again up to
+    ``attempts`` times while the trace holds none."""
+    gen = AllReduceLoadGen(device=device)
+    gen.warmup()
+    stats = gen.run_for(seconds)
+    for attempt in range(1, attempts + 1):
+        kernels = _burst_kernels(gen)
+        if kernels:
+            break
+    out = {
+        "phase": "allreduce_loadgen", "mesh": mesh_shape(gen.mesh),
+        "buffer_shape": list(gen.shape), "dtype": str(gen._x.dtype).removeprefix("torch."),
+        "rounds_per_burst": gen.rounds_per_burst, "rounds": stats.rounds,
+        "busy_s": stats.seconds,
+        "burst_ms": stats.seconds / max(stats.rounds // gen.rounds_per_burst, 1) * 1e3,
+        "bytes_per_round": stats.bytes_moved_per_round, "gbps": stats.achieved_gbps,
+        "gbps_is": "world 1: the shard moved by one GPU's local copies, not a link's bandwidth",
+        "finite": bool(torch.isfinite(gen._x).all()), "trace_attempts": attempt,
+        "nccl_kernels": {k: v for k, v in kernels.items() if "nccl" in k.lower()},
+        "burst_kernels": kernels,
+    }
+    emit(out)
+    if not (stats.rounds > 0 and stats.achieved_gbps > 0 and out["finite"] and kernels):
+        raise AssertionError(f"the collective rung did not run as expected: {out}")
+    return out
+
+
+def phase_allreduce_entry(work_dir: str) -> dict:
+    """The slice container's command, ``python -m
+    k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with no WORKLOAD (so
+    allreduce) and REPORT_S 2: its banner, two reports, then SIGTERM and
+    exit 0; once with no topology (its own rendezvous) and once with
+    COORDINATOR_ADDRESS=127.0.0.1:<free> NUM_PROCESSES=1."""
+    module = "k8s_gpu_hpa_tpu_torch.loadgen.multihost"
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("WORKLOAD", "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                         "TPU_WORKER_HOSTNAMES", "HOSTS_PER_SLICE")}
+    base.update(REPORT_S="2", TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
+    runs = {"no_topology": base,
+            "explicit": {**base, "COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+                         "NUM_PROCESSES": "1"}}
+    out = {"phase": "allreduce_entry"}
+    for name, env in runs.items():
+        entry = _Entry(module, env)
+        try:
+            banner = entry.wait_for("tpu-test multihost loadgen")
+            entry.wait_for("rounds=", count=2)
+        finally:
+            code = entry.stop()
+        out[name] = {"exit_code": code, "banner": banner,
+                     "reports": [ln for ln in entry.lines if ln.startswith("rounds=")]}
+    emit(out)
+    for name in runs:
+        got = out[name]
+        if (got["exit_code"] != 0 or len(got["reports"]) < 2
+                or "(allreduce): process 0/1 " not in got["banner"]
+                or "mesh={'data': 1, 'model': 1}" not in got["banner"]):
+            raise AssertionError(f"the allreduce entry point did not run as expected: {got}")
+    return out
+
+
+def _dp_batch(batch: int, image: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """train_dp's global batch: NCHW images in channels_last memory, the
+    first half N(0, 1) and the second N(2, 1), and labels; from DP_SEED."""
+    gen = torch.Generator().manual_seed(DP_SEED)
+    images = torch.randn(batch, image, image, 3, generator=gen)
+    images[batch // 2:] += 2.0
+    labels = torch.randint(0, 10, (batch,), generator=gen)
+    return images.to(device).permute(0, 3, 1, 2), labels.to(device)
+
+
+def _dp_step(gen: TrainLoadGen, images: torch.Tensor, labels: torch.Tensor) -> dict:
+    """One step of ``gen`` on its data shard of the global batch: the loss,
+    the shard's logits, each parameter's update and each BatchNorm's batch
+    statistics, on the CPU."""
+    n = images.shape[0] // gen.n_data
+    shard = slice(gen.data_index * n, (gen.data_index + 1) * n)
+    before = {k: p.detach().clone() for k, p in gen.model.named_parameters()}
+    seen = {}
+    hook = gen.model.head.register_forward_hook(lambda m, a, y: seen.update(logits=y.detach()))
+    loss = float(gen.train_step(images[shard], labels[shard]))
+    hook.remove()
+    return {
+        "data_index": gen.data_index, "loss": loss, "logits": seen["logits"].float().cpu(),
+        "updates": {k: (p.detach() - before[k]).cpu() for k, p in gen.model.named_parameters()},
+        "stats": {k: (m.batch_mean.cpu(), m.batch_var.cpu())
+                  for k, m in gen.model.named_modules() if isinstance(m, BatchNorm)},
+    }
+
+
+def train_dp_rank(out_dir: str, batch: int, image: int, small: bool, dtype: torch.dtype,
+                  device: str) -> None:
+    """One of train_dp's two ranks: the training generator over the mesh of
+    both, one step on its half of the global batch."""
+    gen = TrainLoadGen(mesh=make_mesh(), batch_size=batch, image_size=image, small=small,
+                       dtype=dtype, device=device)
+    step = _dp_step(gen, *_dp_batch(batch, image, device))
+    step["backend"] = dist.get_backend(gen.mesh.get_group("data"))
+    torch.save(step, Path(out_dir) / f"rank{dist.get_rank()}.pt")
+
+
+def _steps(gen: TrainLoadGen, n: int = 3) -> list[list[float]]:
+    """``n`` steps: each one's loss and images/s."""
+    out = []
+    for _ in range(n):
+        busy = gen.step()
+        out.append([gen.stats().last_loss, gen.batch_size / busy])
+    return out
+
+
+def _worst(rel: dict) -> list:
+    name = max(rel, key=rel.get)
+    return [name, rel[name]]
+
+
+def phase_train_dp(work_dir: str, device: str = "cuda:0", batch: int = TRAIN_BATCH,
+                   image: int = TRAIN_IMAGE, small: bool = False,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Data-parallel training at the shipped tpu-train sizes.  (1) Over a
+    group of one (NCCL), ``TrainLoadGen(mesh=make_mesh())`` takes three
+    steps whose losses equal ``TrainLoadGen()``'s bit for bit, from the same
+    seed; then a generator of that group takes one step on a global batch
+    whose halves differ in mean.  (2) Two ranks share the card over gloo,
+    each one step on its half of that batch from the same parameters: the
+    loss and the logits, every parameter's update and every BatchNorm's
+    batch statistics within 0.06 of the RMS of (1)'s.  (3) What each half's
+    own statistics would have read against (1)'s."""
+    kw = {"batch_size": batch, "image_size": image, "small": small, "dtype": dtype,
+          "device": device}
+    plain_steps = _steps(TrainLoadGen(**kw))
+    _group_of_one(device)
+    try:
+        mesh_steps = _steps(TrainLoadGen(mesh=make_mesh(), **kw))
+        ref_gen = TrainLoadGen(mesh=make_mesh(), **kw)
+        halves = {}  # each BatchNorm's input: each half's (unbiased var, mean), f32
+
+        def per_half(name):
+            def hook(module, args):
+                halves[name] = [torch.var_mean(h, (0, 2, 3))
+                                for h in args[0].detach().float().chunk(2)]
+            return hook
+
+        hooks = [m.register_forward_pre_hook(per_half(k))
+                 for k, m in ref_gen.model.named_modules() if isinstance(m, BatchNorm)]
+        ref = _dp_step(ref_gen, *_dp_batch(batch, image, device))
+        for h in hooks:
+            h.remove()
+        del ref_gen
+    finally:
+        dist.destroy_process_group()
+    ranks_dir = Path(work_dir) / "train-dp"
+    ranks_dir.mkdir()
+    t0 = time.perf_counter()
+    code = launch(train_dp_rank, (str(ranks_dir), batch, image, small, dtype, device),
+                  devices=[device, device], backend="gloo", timeout_s=DP_TIMEOUT_S,
+                  join_timeout_s=5 * DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"a train_dp rank exited with code {code}")
+    ranks = sorted((torch.load(ranks_dir / f"rank{r}.pt", weights_only=True) for r in (0, 1)),
+                   key=lambda r: r["data_index"])
+    got = ranks[0]
+    update_rel = {k: _rel_rms(got["updates"][k], u) if u.abs().max() > 0
+                  else float(got["updates"][k].abs().max()) for k, u in ref["updates"].items()}
+    stats_rel = {k: max(_rel_rms(got["stats"][k][0], mean), _rel_rms(got["stats"][k][1], var))
+                 for k, (mean, var) in ref["stats"].items()}
+    shard_rel = {k: max(max(_rel_rms(m.cpu(), ref["stats"][k][0]), _rel_rms(v.cpu(), ref["stats"][k][1]))
+                        for v, m in halves[k]) for k in ref["stats"]}
+    shard_sorted = sorted(shard_rel.values())
+    out = {
+        "phase": "train_dp", "model": "resnet18ish" if small else "resnet50 cifar_stem",
+        "batch": batch, "image": image, "dtype": str(dtype).removeprefix("torch."),
+        "world1_nccl": {"losses_plain": [s[0] for s in plain_steps],
+                        "losses_mesh": [s[0] for s in mesh_steps],
+                        "images_per_s_plain": [s[1] for s in plain_steps],
+                        "images_per_s_mesh": [s[1] for s in mesh_steps],
+                        "bit_identical": [s[0] for s in plain_steps] == [s[0] for s in mesh_steps]},
+        "two_ranks": {"backend": [r["backend"] for r in ranks], "devices": [device, device],
+                      "shard": batch // 2, "wall_s": ranks_s},
+        "loss": got["loss"], "loss_world1": ref["loss"],
+        "loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "logits_rel_rms": _rel_rms(torch.cat([r["logits"] for r in ranks]), ref["logits"]),
+        "updates_worst_rel_rms": _worst(update_rel),
+        "updates_zero_in_world1": sum(float(u.abs().max()) == 0.0 for u in ref["updates"].values()),
+        "updates": len(update_rel),
+        "replicas_update_max_diff": max(float((ranks[1]["updates"][k] - u).abs().max())
+                                        for k, u in got["updates"].items()),
+        "bn_stats_worst_rel_rms": _worst(stats_rel), "batchnorms": len(stats_rel),
+        "per_shard_stats_rel_rms": {
+            "stem_bn": shard_rel["stem_bn"], "least": shard_sorted[0],
+            "median": shard_sorted[len(shard_sorted) // 2], "most": shard_sorted[-1],
+            "layers_over_bar": sum(r > DP_REL for r in shard_sorted)},
+        "bar": DP_REL,
+    }
+    emit(out)
+    if not out["world1_nccl"]["bit_identical"]:
+        raise AssertionError(f"a mesh of one rank changed the losses: {out['world1_nccl']}")
+    if (out["loss_rel"] > DP_REL or out["logits_rel_rms"] > DP_REL
+            or out["updates_worst_rel_rms"][1] > DP_REL or out["bn_stats_worst_rel_rms"][1] > DP_REL
+            or out["two_ranks"]["backend"] != ["gloo", "gloo"]):
+        raise AssertionError(f"two data-parallel ranks disagree with one: {out}")
+    return out
+
+
+def _descendants(pid: int) -> list[str]:
+    """The processes below ``pid`` that have not exited (zombies aside),
+    as ``pid state command``."""
+    procs = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            text = stat.read_text()
+        except OSError:  # exited meanwhile
+            continue
+        name, fields = text[text.index("(") + 1:text.rindex(")")], text[text.rindex(")") + 2:].split()
+        procs[int(stat.parent.name)] = (int(fields[1]), fields[0], name)
+    below, found = {pid}, True
+    while found:
+        found = False
+        for child, (parent, _, _) in procs.items():
+            if parent in below and child not in below:
+                below.add(child)
+                found = True
+    return [f"{p} {procs[p][1]} {procs[p][2]}" for p in sorted(below - {pid})
+            if procs[p][1] != "Z"]
+
+
+def phase_processes() -> dict:
+    """Every process this script started has ended: the container commands'
+    and the ranks', and the fork server the ranks came from (stopped here,
+    as it would be at exit)."""
+    stop_rank_server()
+    out = {"phase": "processes", "left": _descendants(os.getpid())}
+    emit(out)
+    if out["left"]:
+        raise AssertionError(f"processes this script started still run: {out['left']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
@@ -1995,6 +2376,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         phase_train_entry(work_dir)
         phase_llm_entry(work_dir)
+        mesh = phase_mesh()
+        phase_tp_mlp(mesh)
+        phase_allreduce_loadgen()
+        dist.destroy_process_group()
+        phase_allreduce_entry(work_dir)
+        phase_train_dp(work_dir)
+    phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape
     llm = bwd_timing[0]  # the llm training shape

@@ -14,6 +14,10 @@ The loop, by layer:
                    models/transformer.py  decode, one CUDA graph a burst, its
                    ops/flash_attention.py prefill on a hand-written Hopper
                                        flash-attention kernel
+                   loadgen/train.py    or the training rung, data-parallel
+                   loadgen/allreduce.py  or the slice's collective rung, over
+                   parallel/mesh.py    a torch.distributed DeviceMesh, one
+                   loadgen/multihost.py  process a GPU (initialize, launch)
     L2 exporter    exporter/           device source → C++ core → /metrics
     L3 metrics     metrics/            scrape → TSDB → recording rule
     L4 adapter     control/adapter.py  custom-metrics API semantics

@@ -1,2 +1,3 @@
-"""Load generators (L1): the matmul busy-loop, the serving decode loop, their
-intensity knob and telemetry."""
+"""Load generators (L1): the matmul busy-loop, the serving decode loop, the
+training loads, the slice container's collective rung, their intensity knob
+and telemetry."""

@@ -23,6 +23,16 @@ Two of flax's conventions differ from PyTorch's defaults, and both are kept:
   batch statistics alone (momentum 1 into scratch buffers) and the model
   folds them into the running buffers at the end of the forward, biased,
   in a few ``foreach`` launches for all layers.
+
+Under data parallelism (loadgen/train.py over a mesh) flax's BatchNorm,
+jitted over a batch sharded on ``data``, averages over the whole batch:
+XLA inserts the reductions.  Here ``ResNet.set_data_group`` hands every
+layer the data group, and a layer with a group of more than one rank
+computes its f32 statistics over the global batch in two passes (an
+all_reduce of the per-channel sums, then of the squared deviations from
+the global mean) whose backward sums the gradients over the group, so the
+step's gradient is the global batch's.  With no group, or a group of one,
+the layers run ``F.batch_norm`` as above.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -74,11 +85,34 @@ class Conv(nn.Module):
         return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=self.stride)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce`` (SUM) over ``group`` whose backward sums the incoming
+    gradients over the group in turn: every rank's input reaches every
+    rank's output.  (``torch.distributed.nn.functional.all_reduce`` does the
+    same and is deprecated in recent PyTorch.)"""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(nn.Module):
     """Flax's ``BatchNorm``: f32 statistics over (N, H, W), normalisation in
     f32, output in the compute dtype.  In training mode the batch's mean and
     unbiased variance land in the scratch buffers, and the owning
-    ``ResNet`` folds them into the running buffers (``fold_batch_stats``)."""
+    ``ResNet`` folds them into the running buffers (``fold_batch_stats``).
+    With a data ``group`` the batch is the global one: every rank of the
+    group holds as many values a channel (the training generator splits its
+    batch evenly)."""
 
     def __init__(self, channels: int, zero_scale: bool = False):
         super().__init__()
@@ -90,17 +124,38 @@ class BatchNorm(nn.Module):
         self.register_buffer("batch_mean", torch.zeros(channels), persistent=False)
         self.register_buffer("batch_var", torch.zeros(channels), persistent=False)
         #: elements a channel's statistics ran over in the last training
-        #: forward; 0 when there is nothing to fold
+        #: forward, on every rank of the group; 0 when there is nothing to fold
         self.count = 0
+        #: the data group the statistics run over; None: this rank's batch
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool, dtype: torch.dtype) -> torch.Tensor:
         if not train:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                              training=False, eps=BN_EPS)
             return y.to(dtype)
+        if self.group is not None:
+            return self._global_batch(x, dtype)
         self.count = x.numel() // x.shape[1]
         y = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight, self.bias,
                          training=True, momentum=1.0, eps=BN_EPS)
+        return y.to(dtype)
+
+    def _global_batch(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Training mode over the group's global batch: the mean from the
+        summed per-channel sums over the global count, then the biased
+        variance from the summed squared deviations from it."""
+        xf = x.float()
+        count = xf.numel() // xf.shape[1] * dist.get_world_size(self.group)
+        mean = _AllReduceSum.apply(xf.sum((0, 2, 3)), self.group) / count
+        centred = xf - mean[:, None, None]
+        squares = _AllReduceSum.apply(centred.square().sum((0, 2, 3)), self.group)
+        scale = torch.rsqrt(squares / count + BN_EPS) * self.weight
+        y = centred * scale[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            self.batch_mean.copy_(mean)
+            self.batch_var.copy_(squares / (count - 1))
+        self.count = count
         return y.to(dtype)
 
 
@@ -157,6 +212,14 @@ class ResNet(nn.Module):
                 in_ch = blk.conv3.weight.shape[0]
         self.head = nn.Linear(in_ch, num_classes)
         self._norms = [m for m in self.modules() if isinstance(m, BatchNorm)]
+
+    def set_data_group(self, group) -> None:
+        """Every BatchNorm's statistics over the global batch of ``group``'s
+        ranks; None, or a group of one rank, for this rank's batch alone."""
+        if group is not None and dist.get_world_size(group) == 1:
+            group = None
+        for m in self._norms:
+            m.group = group
 
     def blocks(self) -> list[BottleneckBlock]:
         return [

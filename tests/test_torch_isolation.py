@@ -65,6 +65,9 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.utils.profiling",
         "k8s_gpu_hpa_tpu_torch.models.resnet",
         "k8s_gpu_hpa_tpu_torch.loadgen.train",
+        "k8s_gpu_hpa_tpu_torch.parallel.mesh",
+        "k8s_gpu_hpa_tpu_torch.models.tp_mlp",
+        "k8s_gpu_hpa_tpu_torch.loadgen.allreduce",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]

@@ -320,15 +320,22 @@ def test_topology_needs_an_ordinal_and_pod_ordinal_matches_jax():
 
 
 def test_initialize_takes_one_process_and_refuses_more():
-    assert multihost.initialize(multihost.HostTopology(0, 1, "c:1")).num_processes == 1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        multihost.initialize(multihost.HostTopology(1, 2, "c:1"))
+    # a slice of one process: a group of one, its rendezvous on this host
+    topology = multihost.HostTopology(0, 1, f"127.0.0.1:{multihost.free_port()}")
+    assert multihost.initialize(topology, device="cpu").num_processes == 1
+    try:
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        torch.distributed.destroy_process_group()
+    # a process beyond its slice is refused before any rendezvous
+    with pytest.raises(ValueError, match="process 2 of a slice of 2"):
+        multihost.initialize(multihost.HostTopology(2, 2, "127.0.0.1:1"), device="cpu")
 
 
 @pytest.mark.parametrize(
     "env, item",
-    [({}, 9), ({"WORKLOAD": "allreduce"}, 9), ({"WORKLOAD": "ringattn"}, 10),
-     ({"WORKLOAD": "moe"}, 12), ({"WORKLOAD": "bogus"}, 9)],
+    [({"WORKLOAD": "ringattn"}, 10), ({"WORKLOAD": "moe"}, 12),
+     ({"WORKLOAD": "llm", "COORDINATOR_ADDRESS": "127.0.0.1:1", "NUM_PROCESSES": "2"}, 10)],
 )
 def test_main_refuses_what_is_not_ported(monkeypatch, env, item):
     for name in ("WORKLOAD", "CHECKPOINT_DIR", "COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",

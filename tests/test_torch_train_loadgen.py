@@ -130,7 +130,7 @@ def test_loadgen_steps_report_and_draw_seeded_channels_last_batches():
 
 
 def test_loadgen_runs_on_cuda_unless_asked_for_the_cpu_and_refuses_a_mesh(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="torch DeviceMesh"):  # a JAX mesh
         TrainLoadGen(mesh=make_mesh(1), small=True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
