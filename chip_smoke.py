@@ -161,11 +161,51 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    of their RMS; and what each half's own statistics would
                    have read.
 
+32. ringattn_loadgen — ``RingAttentionLoadGen()`` at the rung's defaults
+                   (1024 tokens, 8 heads of 128, bf16, 8 passes a burst) on
+                   the mesh of one for 3 s: bursts, the context, TFLOP/s by
+                   JAX's causal formula (a ring of one moves no block).
+33. tp_serve_graph — the TP burst at the shipped serve sizes on the (1, 1)
+                   mesh over NCCL, captured as one CUDA graph, against the
+                   single-device graph burst: tokens equal, the cache within
+                   0.06 of its RMS; both burst times.
+34. ringattn_entry — the multihost command with WORKLOAD=ringattn reports
+                   twice and exits 0 on SIGTERM.
+35. ring_parity  — two gloo ranks sharing the card run ``ring_attention`` at
+                   the rung's default (b1, 2 × 1024, 8 heads of 128, causal)
+                   against ``reference_attention`` over the whole sequence:
+                   f32 within 2e-5, bf16 within 3e-2, and the f32 gradients
+                   of q, k and v within 2e-4 of autograd through the
+                   reference.
+36. tp_serve_parity — ``DecodeLoadGen(model_parallelism=2)`` at the shipped
+                   serve sizes on two gloo ranks against the single-device
+                   generator, same weights and prompt: the prefill's logits,
+                   the logits of 8 greedy steps fed the one device's tokens
+                   and the cache they filled within 0.06 of their RMS; the
+                   greedy tokens equal except at near-ties (the one device's
+                   top two logits within that bar of the logits' RMS; at
+                   least 3 in 4 steps no near-tie); each rank's flash
+                   forward 4 launches a burst, the burst eager on gloo; the
+                   one device with a rank's attention split (its flash
+                   forward on each half of the heads) read beside both.
+37. llm_sp       — sequence-parallel training at the llm rung's defaults on
+                   two gloo ranks (2 × 2048 tokens) against one rank on the
+                   whole 4096 (attn_impl ring): the loss within 0.05, the
+                   logits and each leaf's f32 update within 0.06 of their
+                   RMS, both ranks' parameters identical after a step and
+                   each within a bf16 step of the one rank's; then
+                   WORKLOAD=llm as two processes of one slice
+                   (DIST_BACKEND=gloo) reports, saves on SIGTERM, exits 0
+                   and resumes from that save.
+
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
-the JAX package.  Nor on the mesh's paths (phases 27-31): their collectives
-are NCCL's or gloo's and their products cuBLAS's.  The card has one GPU and
-NCCL takes one rank a GPU, so nothing there runs on NCCL across ranks.
+the JAX package.  Nor on the mesh's paths (phases 27-35, 37): their
+collectives are NCCL's or gloo's, their products cuBLAS's and the ring plain
+PyTorch, as the JAX package leaves it to XLA.  TP serving's prefill (phases
+33 and 36) runs the flash forward on each rank's local heads.  The card has
+one GPU and NCCL takes one rank a GPU, so nothing there runs on NCCL across
+ranks: two ranks share it over gloo, whose times are not rates.
 
 Launch counts.  Each wrapper counts the launches it makes.  The GEMM's
 launches on the main path are those of loop and node_loop, each counted
@@ -178,7 +218,10 @@ times the launches one replay makes.
 
 The training path's launches are those of llm_parity's auto step plus
 llm_train's auto steps, each counted from zero; the flash forward's are
-those of the serve loop plus the training path's.
+those of the serve loop plus the training path's plus TP serving's: the
+graph bursts of tp_serve_graph (its replays times the captured burst's
+launches) and the generator bursts of tp_serve_parity's two ranks (eager on
+gloo, counted by each rank's wrapper from zero).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Nothing falls back to the CPU: without a GPU the script exits 1 and prints
@@ -223,6 +266,7 @@ from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.multihost import (
     HostTopology, free_port, initialize, launch, stop_rank_server,
 )
+from k8s_gpu_hpa_tpu_torch.loadgen.ringattn import RingAttentionLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.train import TrainLoadGen, make_checkpoint_manager
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET
@@ -248,7 +292,8 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
-from k8s_gpu_hpa_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
+from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.trial import (
     REAL_POD,
@@ -2158,6 +2203,27 @@ def phase_allreduce_entry(work_dir: str) -> dict:
     return out
 
 
+def _pair(body, work_dir: str, device: str, *args) -> list[dict]:
+    """``body(out_dir, *args)`` on two gloo ranks sharing ``device``, with a
+    directory of its own under ``work_dir``: what each rank saved, by rank,
+    with the pair's wall seconds."""
+    out_dir = Path(tempfile.mkdtemp(prefix=body.__name__, dir=work_dir))
+    t0 = time.perf_counter()
+    code = launch(body, (str(out_dir), *args), devices=[device, device], backend="gloo",
+                  timeout_s=DP_TIMEOUT_S, join_timeout_s=5 * DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"a {body.__name__} rank exited with code {code}")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    for r in ranks:
+        r["wall_s"] = wall
+    return ranks
+
+
+def _save_rank(out_dir: str, obj: dict) -> None:
+    torch.save(obj, Path(out_dir) / f"rank{dist.get_rank()}.pt")
+
+
 def _dp_batch(batch: int, image: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
     """train_dp's global batch: NCHW images in channels_last memory, the
     first half N(0, 1) and the second N(2, 1), and labels; from DP_SEED."""
@@ -2195,7 +2261,7 @@ def train_dp_rank(out_dir: str, batch: int, image: int, small: bool, dtype: torc
                        dtype=dtype, device=device)
     step = _dp_step(gen, *_dp_batch(batch, image, device))
     step["backend"] = dist.get_backend(gen.mesh.get_group("data"))
-    torch.save(step, Path(out_dir) / f"rank{dist.get_rank()}.pt")
+    _save_rank(out_dir, step)
 
 
 def _steps(gen: TrainLoadGen, n: int = 3) -> list[list[float]]:
@@ -2247,16 +2313,7 @@ def phase_train_dp(work_dir: str, device: str = "cuda:0", batch: int = TRAIN_BAT
         del ref_gen
     finally:
         dist.destroy_process_group()
-    ranks_dir = Path(work_dir) / "train-dp"
-    ranks_dir.mkdir()
-    t0 = time.perf_counter()
-    code = launch(train_dp_rank, (str(ranks_dir), batch, image, small, dtype, device),
-                  devices=[device, device], backend="gloo", timeout_s=DP_TIMEOUT_S,
-                  join_timeout_s=5 * DP_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0
-    if code != 0:
-        raise AssertionError(f"a train_dp rank exited with code {code}")
-    ranks = sorted((torch.load(ranks_dir / f"rank{r}.pt", weights_only=True) for r in (0, 1)),
+    ranks = sorted(_pair(train_dp_rank, work_dir, device, batch, image, small, dtype, device),
                    key=lambda r: r["data_index"])
     got = ranks[0]
     update_rel = {k: _rel_rms(got["updates"][k], u) if u.abs().max() > 0
@@ -2275,7 +2332,7 @@ def phase_train_dp(work_dir: str, device: str = "cuda:0", batch: int = TRAIN_BAT
                         "images_per_s_mesh": [s[1] for s in mesh_steps],
                         "bit_identical": [s[0] for s in plain_steps] == [s[0] for s in mesh_steps]},
         "two_ranks": {"backend": [r["backend"] for r in ranks], "devices": [device, device],
-                      "shard": batch // 2, "wall_s": ranks_s},
+                      "shard": batch // 2, "wall_s": ranks[0]["wall_s"]},
         "loss": got["loss"], "loss_world1": ref["loss"],
         "loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
         "logits_rel_rms": _rel_rms(torch.cat([r["logits"] for r in ranks]), ref["logits"]),
@@ -2298,6 +2355,468 @@ def phase_train_dp(work_dir: str, device: str = "cuda:0", batch: int = TRAIN_BAT
             or out["updates_worst_rel_rms"][1] > DP_REL or out["bn_stats_worst_rel_rms"][1] > DP_REL
             or out["two_ranks"]["backend"] != ["gloo", "gloo"]):
         raise AssertionError(f"two data-parallel ranks disagree with one: {out}")
+    return out
+
+
+# The sequence and tensor-parallel paths over the mesh: ring attention across
+# ranks (ops/ring_attention.py, the ringattn rung), tensor-parallel serving
+# (models/transformer.py, DecodeLoadGen with a model axis) and sequence-parallel
+# llm training.  World size 1 runs on
+# NCCL; two ranks share the card over gloo, whose collectives and point-to-point
+# hops stage CUDA tensors through host memory, so the pair's times are not rates.
+# The TP prefill runs the hand-written flash forward on each rank's local heads;
+# the ring is plain PyTorch, as the JAX package leaves it to XLA.
+#: the ringattn rung's defaults (JAX's loadgen/ringattn.py and multihost.py)
+RING_SHAPE = (1, 1024, 8, 128)
+#: the ring against reference_attention: tests/test_ring_attention.py's bars,
+#: and the gradients' (tests/test_flash_attention.py)
+RING_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+RING_GRAD_TOL = 2e-4
+#: the seconds the rung runs on the mesh of one
+RINGATTN_S = 3.0
+#: TP serving against one device: the port's bf16 bar on the RMS, and the
+#: greedy tokens compared.  A step whose top two logits on the one device lie
+#: within that bar of the logits' RMS is a near-tie: two roundings of the same
+#: logits may order them either way (the flash forward splits each CTA's K/V
+#: tiles over two warpgroups at the TP rank's 16 batch-heads, over one at the
+#: one device's 32, and rounds P to bf16 against each warpgroup's own maximum;
+#: that split alone moves the logits about as far as TP does)
+TP_REL = 0.06
+TP_TOKENS = 8
+#: the least share of the greedy steps that are no near-tie
+TP_DECIDED = 0.75
+#: sequence-parallel training against one rank: the §2 loss bar of auto against
+#: ring, and the bf16 bar on the RMS of the logits and of each leaf's update
+SP_LOSS_ATOL = 0.05
+SP_REL = 0.06
+#: each rank's sequence at the llm rung's defaults
+SP_SEQ = 2048
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    """|got - want| <= tol + tol·|want| everywhere (numpy's assert_allclose
+    with rtol = atol = tol, the JAX tests' form)."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    return {"max_abs_err": float(diff.max()), "tol": tol,
+            "out_of_tol": int((diff > tol + tol * want.abs()).sum()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _ring_inputs() -> dict[str, torch.Tensor]:
+    gen = torch.Generator().manual_seed(DP_SEED)
+    b, s, h, d = RING_SHAPE
+    return {name: torch.randn(b, 2 * s, h, d, generator=gen) for name in ("q", "k", "v", "do")}
+
+
+def ring_parity_rank(out_dir: str, x: dict, device: str) -> None:
+    """One of ring_parity's two ranks: its shard of the ring's output in f32
+    and bf16, causal, and the f32 gradients of its shards."""
+    mesh = make_mesh()
+    index, s = mesh.get_local_rank(DATA_AXIS), RING_SHAPE[1]
+    shard = {k: v[:, index * s:(index + 1) * s].to(device) for k, v in x.items()}
+    out = {"index": index, "backend": dist.get_backend(mesh.get_group(DATA_AXIS))}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (shard[n].to(dtype) for n in "qkv")
+        out[str(dtype).removeprefix("torch.")] = ring_attention(q, k, v, mesh,
+                                                                causal=True).float().cpu()
+    q, k, v = (shard[n].detach().requires_grad_() for n in "qkv")
+    ring_attention(q, k, v, mesh, causal=True).backward(shard["do"])
+    out["grads"] = [t.grad.cpu() for t in (q, k, v)]
+    torch.cuda.synchronize(device)
+    _save_rank(out_dir, out)
+
+
+def phase_ring_parity(work_dir: str, device: str = "cuda:0") -> dict:
+    """Ring attention at the rung's default (batch 1, two ranks of 1024
+    tokens, 8 heads of 128, causal) on two gloo ranks sharing the card,
+    against ``reference_attention`` over the whole sequence on one device:
+    the output in f32 and bf16 at tests/test_ring_attention.py's bars, and
+    the f32 gradients of q, k and v against autograd through the reference
+    at 2e-4."""
+    x = _ring_inputs()
+    want = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x[n].to(device, dtype) for n in "qkv")
+        want[str(dtype).removeprefix("torch.")] = reference_attention(q, k, v, causal=True).float()
+    q, k, v = (x[n].to(device).detach().requires_grad_() for n in "qkv")
+    reference_attention(q, k, v, causal=True).backward(x["do"].to(device))
+    want["grads"] = [t.grad for t in (q, k, v)]
+    ranks = sorted(_pair(ring_parity_rank, work_dir, device, x, device),
+                   key=lambda r: r["index"])
+    out = {"phase": "ring_parity", "bshd": [RING_SHAPE[0], 2 * RING_SHAPE[1], *RING_SHAPE[2:]],
+           "causal": True, "ranks": 2, "backend": [r["backend"] for r in ranks],
+           "devices": [device, device], "pair_wall_s": ranks[0]["wall_s"]}
+    for name, tol in RING_TOL.items():
+        got = torch.cat([r[name] for r in ranks], dim=1)
+        out[name] = _within(got, want[name].cpu(), tol)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got = torch.cat([r["grads"][i] for r in ranks], dim=1)
+        out[name] = _within(got, want["grads"][i].cpu(), RING_GRAD_TOL)
+    emit(out)
+    checks = [out[n] for n in (*RING_TOL, "dq", "dk", "dv")]
+    if out["backend"] != ["gloo", "gloo"] or any(c["out_of_tol"] or not c["finite"] for c in checks):
+        raise AssertionError(f"the ring across two ranks disagrees with the reference: {out}")
+    return out
+
+
+def phase_ringattn_loadgen(device: str = "cuda:0", seconds: float = RINGATTN_S) -> dict:
+    """``RingAttentionLoadGen()`` at its defaults (1024 tokens a rank, 8 heads
+    of 128, bf16, 8 passes a burst) on the mesh of the NCCL group of one for
+    ``seconds``: bursts, the context, TFLOP/s by JAX's causal formula."""
+    gen = RingAttentionLoadGen(device=device)
+    gen.warmup()
+    ms = []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        ms.append(gen.step() * 1e3)
+    stats = gen.stats()
+    probe = gen._burst()
+    out = {"phase": "ringattn_loadgen", "mesh": mesh_shape(gen.mesh),
+           "bshd": [gen.batch, gen.seq, gen.heads, gen.head_dim], "dtype": "bfloat16",
+           "passes_per_burst": gen.passes_per_burst, "bursts": stats.bursts,
+           "context_length": stats.context_length, "burst_ms_median": sorted(ms)[len(ms) // 2],
+           "achieved_tflops": stats.achieved_tflops, "busy_s": stats.seconds,
+           "finite": math.isfinite(probe),
+           "tflops_is": "JAX's causal formula over the busy host seconds; a ring of one moves "
+                        "no block"}
+    emit(out)
+    if not (stats.bursts > 0 and stats.context_length == RING_SHAPE[1]
+            and stats.achieved_tflops > 0 and out["finite"]):
+        raise AssertionError(f"the ringattn rung did not run as expected: {out}")
+    return out
+
+
+def phase_ringattn_entry(work_dir: str) -> dict:
+    """The slice container's command with WORKLOAD=ringattn and REPORT_S 2:
+    its banner, two reports at the rung's context, then SIGTERM and exit 0."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                        "TPU_WORKER_HOSTNAMES", "HOSTS_PER_SLICE")}
+    env.update(WORKLOAD="ringattn", REPORT_S="2",
+               TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
+    entry = _Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env)
+    try:
+        banner = entry.wait_for("tpu-test multihost loadgen")
+        entry.wait_for("bursts=", count=2)
+    finally:
+        code = entry.stop()
+    reports = [ln for ln in entry.lines if ln.startswith("bursts=")]
+    out = {"phase": "ringattn_entry", "exit_code": code, "banner": banner, "reports": reports}
+    emit(out)
+    last = dict(f.split("=", 1) for f in reports[-1].split()) if reports else {}
+    if (code != 0 or len(reports) < 2 or "(ringattn): process 0/1 " not in banner
+            or "mesh={'data': 1, 'model': 1}" not in banner
+            or last.get("ctx") != str(RING_SHAPE[1])):
+        raise AssertionError(f"the ringattn entry point did not run as expected: {out}")
+    return out
+
+
+def _burst_ms(gen: DecodeLoadGen, bursts: int = 10) -> float:
+    t0 = time.perf_counter()
+    for _ in range(bursts):
+        gen.run_burst()
+    return (time.perf_counter() - t0) * 1e3 / bursts
+
+
+def phase_tp_serve_graph(device: str = "cuda:0") -> tuple[dict, int]:
+    """The TP burst at the shipped serve sizes on the (1, 1) mesh of the NCCL
+    group of one, captured as one CUDA graph (the communicator brought up by
+    the eager burst before the capture), against the single-device graph
+    burst from the same weights and prompt: tokens equal, the cache within
+    0.06 of its RMS; both bursts' times.  Returns the TP run's flash
+    launches (the captured burst's, times its replays)."""
+    single = DecodeLoadGen(**SERVE_SIZES, window=3.0, device=device)
+    tp = DecodeLoadGen(**SERVE_SIZES, window=3.0, device=device, mesh=make_mesh())
+    for gen in (single, tp):
+        gen.warmup()
+    flash_attention_kernel.launches = 0
+    tp.replays = 0
+    runs = {}
+    for name, gen in (("single", single), ("tp", tp)):
+        gen.reset_state()
+        gen.run_burst()
+        tokens, cache, pos = gen.state()
+        runs[name] = (tokens.clone(), {n: t.clone() for n, t in cache.items()}, pos)
+    times = {name: _burst_ms(gen) for name, gen in (("single", single), ("tp", tp))}
+    launches = flash_attention_kernel.launches + tp.replays * tp.flash_launches_per_burst
+    (st, sc, sp), (tt, tc, tpos) = runs["single"], runs["tp"]
+    out = {"phase": "tp_serve_graph", "sizes": SERVE_SIZES, "mesh": mesh_shape(tp.mesh),
+           "backend": dist.get_backend(tp.mesh.get_group(MODEL_AXIS)),
+           "burst_mode": tp.stats().burst_mode, "tokens_per_burst": tp.tokens_per_burst,
+           "tokens_equal": torch.equal(st, tt), "pos": [sp, tpos],
+           "cache_rel_rms": max(_rel_rms(tc[n].float(), sc[n].float()) for n in sc),
+           "bit_identical": torch.equal(st, tt) and all(torch.equal(sc[n], tc[n]) for n in sc),
+           "burst_ms_graph": times, "flash_launches_per_burst": tp.flash_launches_per_burst,
+           "replays": tp.replays, "flash_launches": launches, "bar": TP_REL}
+    emit(out)
+    if (out["burst_mode"] != "cuda_graph" or not out["tokens_equal"] or sp != tpos
+            or out["cache_rel_rms"] > TP_REL or tp.flash_launches_per_burst != tp.cfg.n_layers):
+        raise AssertionError(f"the TP graph burst disagrees with the single-device one: {out}")
+    return out, launches
+
+
+def _greedy(prefill_fn, step_fn, params, prompt, cache, plen: int, forced=None) -> tuple:
+    """The logits of the prefill and of ``TP_TOKENS - 1`` decode steps, and
+    the greedy tokens: the prefill's argmax and each step's.  With
+    ``forced`` [batch, TP_TOKENS] each step is fed ``forced``'s token
+    instead of its own."""
+    logits, _ = prefill_fn(params, prompt, cache)
+    all_logits, tokens = [logits.float()], [logits.argmax(-1)]
+    for i in range(TP_TOKENS - 1):
+        fed = tokens[-1] if forced is None else forced[:, i]
+        step_logits, _ = step_fn(params, fed, cache, plen + i)
+        all_logits.append(step_logits.float())
+        tokens.append(step_logits.argmax(-1))
+    return torch.stack(all_logits, dim=1), torch.stack(tokens, dim=1)
+
+
+def _head_groups_flash(groups: int):
+    """``flash_attention`` called once for each of ``groups`` equal groups
+    of heads: on one device, the attention a TP rank of ``groups`` runs, at
+    its batch-heads and so with its ``fwd_split``."""
+    flash = transformer.flash_attention
+
+    def attn(q, k, v, causal=False):
+        h = q.shape[2] // groups
+        parts = [slice(i * h, (i + 1) * h) for i in range(groups)]
+        return torch.cat([flash(q[:, :, g], k[:, :, g], v[:, :, g], causal=causal)
+                          for g in parts], dim=2)
+
+    return attn
+
+
+def _one_device_greedy(gen: DecodeLoadGen, head_groups: int = 1) -> tuple:
+    """``_greedy`` on one device with the full weights; with ``head_groups``
+    > 1 the prefill's flash forward runs on that many groups of heads."""
+    cfg, device = gen.cfg, gen.device
+    cache = transformer.init_kv_cache(cfg, gen.batch, device)
+    flash = transformer.flash_attention
+    transformer.flash_attention = flash if head_groups == 1 else _head_groups_flash(head_groups)
+    try:
+        logits, tokens = _greedy(
+            lambda p, t, c: transformer.prefill(p, cfg, t, c),
+            lambda p, t, c, pos: transformer.decode_step(p, cfg, t, c, pos),
+            gen.params, gen.prompt, cache, gen.prefill_len)
+    finally:
+        transformer.flash_attention = flash
+    return logits.cpu(), tokens.cpu(), cache
+
+
+def tp_serve_rank(out_dir: str, device: str, forced: torch.Tensor) -> None:
+    """One of tp_serve_parity's two ranks: ``DecodeLoadGen`` at the shipped
+    sizes with MODEL_PARALLELISM 2: the TP prefill's logits, the first
+    greedy tokens and the cache slice they filled; the logits with the one
+    device's tokens fed (``forced``); then the generator's own bursts and
+    the flash forward's launches in them."""
+    gen = DecodeLoadGen(**SERVE_SIZES, window=3.0, model_parallelism=2, device=device)
+    cfg, plen = gen.cfg, gen.prefill_len
+    prefill = transformer.make_tp_prefill(gen.mesh, cfg)
+    step = transformer.make_tp_decode_step(gen.mesh, cfg)
+    cache = transformer.init_tp_kv_cache(cfg, gen.batch, gen.mesh, device)
+    logits, tokens = _greedy(prefill, step, gen.params, gen.prompt, cache, plen)
+    filled = plen + TP_TOKENS - 1
+    out = {"model": gen.mesh.get_local_rank(MODEL_AXIS), "mesh": mesh_shape(gen.mesh),
+           "backend": dist.get_backend(gen.mesh.get_group(MODEL_AXIS)),
+           "logits": logits.cpu(), "tokens": tokens.cpu(),
+           "cache": {n: t[:, :, :, :filled].cpu() for n, t in cache.items()}}
+    cache = transformer.init_tp_kv_cache(cfg, gen.batch, gen.mesh, device)
+    out["forced_logits"] = _greedy(prefill, step, gen.params, gen.prompt, cache, plen,
+                                   forced.to(device))[0].cpu()
+    flash_attention_kernel.launches = 0
+    gen.warmup()
+    ms = [gen.step() * 1e3 for _ in range(2)]
+    out.update(launches=flash_attention_kernel.launches, bursts=3, burst_ms=ms,
+               burst_mode=gen.stats().burst_mode, peak=gen.peak_hbm_gbps,
+               param_stream_factor=gen._param_stream_factor,
+               bytes_per_burst=gen.bytes_per_burst())
+    torch.cuda.synchronize(device)
+    _save_rank(out_dir, out)
+
+
+def phase_tp_serve_parity(work_dir: str, device: str = "cuda:0") -> tuple[dict, int]:
+    """``DecodeLoadGen`` at deploy/tpu-serve-deployment.yaml's sizes with
+    MODEL_PARALLELISM 2 on two gloo ranks sharing the card, against the
+    single-device generator from the same weights and prompt: the prefill's
+    logits, every step's logits with the one device's tokens fed, and the
+    cache the first greedy tokens filled within 0.06 of their RMS; of the
+    first 8 greedy tokens, each step's argmax with the one device's tokens
+    fed equal wherever the step is no near-tie (``TP_REL``), at least
+    ``TP_DECIDED`` of the steps no near-tie, and each row's own chain equal
+    up to its first near-tie; each rank's flash forward launches, one a
+    layer a burst.  Read beside them, the rounding spread behind the
+    near-ties: the one device with a TP rank's attention split
+    (``_head_groups_flash``), its tokens and logits against the pair's and
+    the plain one device's.  Returns both ranks' launches."""
+    ref = DecodeLoadGen(**SERVE_SIZES, window=3.0, device=device)
+    cfg, plen = ref.cfg, ref.prefill_len
+    logits, tokens, cache = _one_device_greedy(ref)
+    filled = plen + TP_TOKENS - 1
+    ref_cache = {n: t[:, :, :, :filled].float().cpu() for n, t in cache.items()}
+    # the one device with a TP rank's attention split: its flash forward on
+    # each half of the heads, at the rank's batch-heads
+    split_logits, split_tokens, _ = _one_device_greedy(ref, head_groups=2)
+    splits = [flash_attention.fwd_split(ref.batch * heads, plen, _sms())
+              for heads in (cfg.n_heads, cfg.n_heads // 2)]
+    del ref, cache
+    ranks = sorted(_pair(tp_serve_rank, work_dir, device, device, tokens), key=lambda r: r["model"])
+    got_cache = {n: torch.cat([r["cache"][n] for r in ranks], dim=2).float() for n in ("k", "v")}
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]  # [batch, steps]: the one device's top-2 gap
+    tie_bar = TP_REL * float(logits.square().mean().sqrt())
+    decided = margin > tie_bar
+    # the free-running chains: equal up to each row's first near-tie
+    before_tie = torch.cumprod(decided.long(), dim=1).bool()
+    free_equal = all(bool((r["tokens"] == tokens)[before_tie].all()) for r in ranks)
+    # fed the one device's tokens: the same argmax at every step that is no near-tie
+    forced_equal = all(bool((r["forced_logits"].argmax(-1) == tokens)[decided].all())
+                       for r in ranks)
+    differ = (ranks[0]["tokens"] != tokens).nonzero().tolist()
+    out = {
+        "phase": "tp_serve_parity", "sizes": SERVE_SIZES, "mesh": ranks[0]["mesh"],
+        "backend": [r["backend"] for r in ranks], "devices": [device, device],
+        "logits_rel_rms": max(_rel_rms(r["logits"][:, 0], logits[:, 0]) for r in ranks),
+        "forced_logits_rel_rms": max(_rel_rms(r["forced_logits"], logits) for r in ranks),
+        "cache_rel_rms": max(_rel_rms(got_cache[n], ref_cache[n]) for n in got_cache),
+        "tokens_equal": all(torch.equal(r["tokens"], tokens) for r in ranks),
+        "tokens_equal_before_near_ties": free_equal,
+        "forced_tokens_equal_where_decided": forced_equal,
+        "near_tie_bar": tie_bar, "near_ties": int((~decided).sum()),
+        "decided_share": float(decided.float().mean()),
+        "tokens": tokens[0].tolist(), "tokens_differ_at": differ,
+        "margins_there": [float(margin[b, t]) for b, t in differ],
+        "margin_min": float(margin.min()), "margin_median": float(margin.median()),
+        "forced_max_abs_logit_dev": max(float((r["forced_logits"] - logits).abs().max())
+                                        for r in ranks),
+        # the cause of the differing tokens: the flash forward's split
+        "fwd_split_one_device_tp_rank": splits,
+        "split_tokens_differ_from_one_device_at": (split_tokens != tokens).nonzero().tolist(),
+        "split_tokens_equal_tp": all(torch.equal(r["tokens"], split_tokens) for r in ranks),
+        "split_logits_rel_rms_tp": max(_rel_rms(r["logits"], split_logits) for r in ranks),
+        "split_prefill_logits_rel_rms": {
+            "one_device": _rel_rms(split_logits[:, 0], logits[:, 0]),
+            "tp": max(_rel_rms(r["logits"][:, 0], split_logits[:, 0]) for r in ranks)},
+        "split_max_abs_logit_dev_tp": max(float((r["logits"] - split_logits).abs().max())
+                                          for r in ranks),
+        "flash_launches": [r["launches"] for r in ranks],
+        "flash_launches_per_burst": [r["launches"] / r["bursts"] for r in ranks],
+        "burst_mode": [r["burst_mode"] for r in ranks],
+        "burst_ms_eager_gloo": [r["burst_ms"] for r in ranks],
+        "pod_peak_hbm_gbps": ranks[0]["peak"], "param_stream_factor": ranks[0]["param_stream_factor"],
+        "pod_bytes_per_burst": ranks[0]["bytes_per_burst"],
+        "pair_wall_s": ranks[0]["wall_s"], "bar": TP_REL,
+    }
+    emit(out)
+    if (out["logits_rel_rms"] > TP_REL or out["forced_logits_rel_rms"] > TP_REL
+            or out["cache_rel_rms"] > TP_REL or not free_equal or not forced_equal
+            or out["decided_share"] < TP_DECIDED or out["backend"] != ["gloo", "gloo"]
+            or out["flash_launches_per_burst"] != [cfg.n_layers] * 2
+            or out["burst_mode"] != ["eager", "eager"]):
+        raise AssertionError(f"TP serving on two ranks disagrees with one device: {out}")
+    return out, sum(out["flash_launches"])
+
+
+def _updates(grads: list[torch.Tensor], lr: float) -> list[torch.Tensor]:
+    """Each leaf's SGD update in f32, before the cast back to the leaf's dtype."""
+    return [(-lr * g.float()).cpu() for g in grads]
+
+
+def llm_sp_rank(out_dir: str, device: str) -> None:
+    """One of llm_sp's two ranks: ``LlmLoadGen`` over the mesh of both at the
+    rung's defaults, its shard's logits, loss and f32 updates, then one step
+    of the generator and the parameters it leaves."""
+    gen = LlmLoadGen(mesh=make_mesh(), seq_per_device=SP_SEQ, device=device)
+    logits = transformer.make_forward(gen.cfg, gen.mesh)(gen.params, gen.tokens)
+    loss, grads = transformer.make_loss_and_grad(gen.cfg, "auto", gen.mesh)(gen.params, gen.tokens)
+    out = {"index": gen.data_index, "logits": logits.cpu(), "loss": float(loss),
+           "updates": _updates(grads, 1e-3), "max_seq": gen.cfg.max_seq,
+           "backend": dist.get_backend(gen.mesh.get_group(DATA_AXIS))}
+    del grads
+    t0 = time.perf_counter()
+    gen.warmup()
+    out.update(step_s=time.perf_counter() - t0, step_loss=gen.stats().last_loss,
+               params=[t.cpu() for t in transformer.param_leaves(gen.params)])
+    _save_rank(out_dir, out)
+
+
+def _slice_of_two(work_dir: str, ckpt_dir: str) -> list[dict]:
+    port = free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("TPU_WORKER_HOSTNAMES", "HOSTS_PER_SLICE")}
+    base.update(WORKLOAD="llm", REPORT_S="2", CHECKPOINT_DIR=ckpt_dir, CHECKPOINT_EVERY="1000",
+                DIST_BACKEND="gloo", COORDINATOR_ADDRESS=f"127.0.0.1:{port}", NUM_PROCESSES="2",
+                TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
+    return [dict(base, PROCESS_ID=str(pid)) for pid in (0, 1)]
+
+
+def _run_slice(envs: list[dict], prefix: str, count: int) -> tuple[list[str], list[int]]:
+    entries = [_Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env) for env in envs]
+    try:
+        entries[0].wait_for(prefix, seconds=300, count=count)
+    finally:
+        codes = [e.stop() for e in entries]
+    return entries[0].lines, codes
+
+
+def phase_llm_sp(work_dir: str, device: str = "cuda:0") -> dict:
+    """Sequence-parallel training at the llm rung's defaults (2048 tokens a
+    rank, d_model 512, 4 heads, 4 layers, bf16, SGD lr 1e-3) on two gloo
+    ranks sharing the card, against one rank on the whole 4096-token
+    sequence (attn_impl ring): the loss within 0.05, the logits and each
+    leaf's f32 update within 0.06 of their RMS, both ranks' updated
+    parameters identical and each within a bf16 step of the one rank's.
+    Then the container's WORKLOAD=llm as two processes of one slice (gloo):
+    reports, saves on SIGTERM, exits 0, and resumes from that save."""
+    ref = LlmLoadGen(seq_per_device=2 * SP_SEQ, attn_impl="ring", device=device)
+    logits = transformer.make_forward(ref.cfg)(ref.params, ref.tokens).cpu()
+    loss, grads = transformer.make_loss_and_grad(ref.cfg, "ring")(ref.params, ref.tokens)
+    updates = _updates(grads, 1e-3)
+    del grads
+    ref.warmup()
+    ref_params = [t.cpu() for t in transformer.param_leaves(ref.params)]
+    del ref
+    torch.cuda.empty_cache()
+    ranks = sorted(_pair(llm_sp_rank, work_dir, device, device), key=lambda r: r["index"])
+    update_rel = [max(_rel_rms(r["updates"][i], u) for r in ranks) for i, u in enumerate(updates)]
+    param_bad = sum(
+        int(((p.float() - w.float()).abs() > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * w.float().abs())
+            .sum()) for p, w in zip(ranks[0]["params"], ref_params))
+    out = {
+        "phase": "llm_sp", "seq_per_rank": SP_SEQ, "context": ranks[0]["max_seq"],
+        "backend": [r["backend"] for r in ranks], "devices": [device, device],
+        "loss": [r["loss"] for r in ranks], "loss_one_rank": float(loss),
+        "loss_diff": max(abs(r["loss"] - float(loss)) for r in ranks),
+        "step_loss": [r["step_loss"] for r in ranks],
+        "logits_rel_rms": _rel_rms(torch.cat([r["logits"] for r in ranks], dim=1), logits),
+        "updates_worst_rel_rms": max(update_rel), "updates": len(update_rel),
+        "replicas_identical": all(torch.equal(a, b) for a, b in
+                                  zip(ranks[0]["params"], ranks[1]["params"])),
+        "params_out_of_bf16_step": param_bad, "param_rtol": TRAIN_PARAM_RTOL,
+        "rank_step_s": [r["step_s"] for r in ranks], "pair_wall_s": ranks[0]["wall_s"],
+        "bars": {"loss": SP_LOSS_ATOL, "rel_rms": SP_REL},
+    }
+    if (out["context"] != 2 * SP_SEQ or out["loss_diff"] > SP_LOSS_ATOL
+            or out["logits_rel_rms"] > SP_REL or out["updates_worst_rel_rms"] > SP_REL
+            or not out["replicas_identical"] or param_bad or out["backend"] != ["gloo", "gloo"]):
+        emit(out)
+        raise AssertionError(f"two sequence-parallel ranks disagree with one: {out}")
+    ckpt_dir = str(Path(work_dir) / "llm-sp-ckpt")
+    lines, codes = _run_slice(_slice_of_two(work_dir, ckpt_dir), "steps=", 2)
+    reports = [ln for ln in lines if ln.startswith("steps=")]
+    final = [ln for ln in lines if ln.startswith("final checkpoint at step ")]
+    saved = make_checkpoint_manager(ckpt_dir).all_steps()
+    again, again_codes = _run_slice(_slice_of_two(work_dir, ckpt_dir), "steps=", 1)
+    resumed = [ln for ln in again if ln.startswith("resumed from step ")]
+    after = [int(ln.split()[0].split("=")[1]) for ln in again if ln.startswith("steps=")]
+    out["entry"] = {"banner": next((ln for ln in lines if ln.startswith("tpu-test multihost")), None),
+                    "reports": reports, "final": final, "exit_codes": codes, "saves": saved,
+                    "resumed": resumed, "steps_after_resume": after, "restart_exit_codes": again_codes}
+    emit(out)
+    last = dict(f.split("=", 1) for f in reports[-1].split()) if reports else {}
+    if (codes != [0, 0] or again_codes != [0, 0] or last.get("ctx") != str(2 * SP_SEQ)
+            or not final or not saved or resumed != [f"resumed from step {saved[-1]} in {ckpt_dir}"]
+            or not after or after[-1] <= saved[-1]):
+        raise AssertionError(f"the llm slice of two processes did not run as expected: {out}")
     return out
 
 
@@ -2379,9 +2898,16 @@ def main() -> int:
         mesh = phase_mesh()
         phase_tp_mlp(mesh)
         phase_allreduce_loadgen()
+        phase_ringattn_loadgen()
+        _, tp_launches = phase_tp_serve_graph()
         dist.destroy_process_group()
         phase_allreduce_entry(work_dir)
+        phase_ringattn_entry(work_dir)
         phase_train_dp(work_dir)
+        phase_ring_parity(work_dir)
+        _, pair_launches = phase_tp_serve_parity(work_dir)
+        tp_launches += pair_launches
+        phase_llm_sp(work_dir)
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape
@@ -2400,8 +2926,8 @@ def main() -> int:
             "name": "flash_attention_fwd_bf16", "route": "cuda",
             "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
-            # the serve loop's launches and the training path's
-            "launches": flash_launches + train["fwd"], "max_abs_err": flash_err,
+            # the serve loop's launches, the training path's and TP serving's
+            "launches": flash_launches + train["fwd"] + tp_launches, "max_abs_err": flash_err,
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],

@@ -23,6 +23,14 @@ Kernel launches inside the graph happen at every replay, but the wrapper's
 ``flash_launches_per_burst`` is that count, and ``replays`` counts the
 replays, so a run's launches are their product.
 
+With ``model_parallelism > 1`` (or a ``mesh``) the generator serves
+tensor-parallel (``models/transformer.py``: heads and d_ff sharded over the
+mesh's model axis, a head-sharded KV cache, two all_reduces a layer), each
+rank of the group one part of the pod, the batch sharded over the data
+axis.  On NCCL the TP burst is captured as one CUDA graph like the
+single-device one; gloo cannot be captured, so on gloo every burst runs
+eagerly (``DecodeStats.burst_mode`` says which).
+
 Two self-reported signals feed the pipeline where device counters cannot:
 
 - **achieved bandwidth** — each decode token-step reads the full static KV
@@ -31,29 +39,42 @@ Two self-reported signals feed the pipeline where device counters cannot:
   ``tpu_hbm_memory_bandwidth_utilization`` gauge.  None on the CPU.
 - **queue depth** — a request queue sits in front of the worker, exported
   as ``tpu_test_queue_depth`` (``main()``).
+
+Both count the whole pod: under TP the bytes are the global model's and
+cache's, the weights streamed once a data replica, against the per-device
+peak times the mesh's size, as the JAX generator counts them.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
-from k8s_gpu_hpa_tpu_torch.device import device_name, peak_hbm_gbps_for, resolve
+from k8s_gpu_hpa_tpu_torch.device import device_name, local_devices, peak_hbm_gbps_for, resolve
 from k8s_gpu_hpa_tpu_torch.models.transformer import (
     TransformerConfig,
     decode_step,
     init_kv_cache,
     init_params,
+    init_tp_kv_cache,
+    make_tp_decode_burst,
+    make_tp_prefill,
     param_leaves,
     params_from_jax,
+    params_to_numpy,
     prefill,
+    tp_params,
 )
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import flash_attention_kernel
+from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 
 
 @dataclass
@@ -71,6 +92,8 @@ class DecodeStats:
     #: plus the cache writes for the prompt positions per burst); its
     #: activation traffic is not modeled, so the numbers are a lower bound.
     prefill_tokens_per_sec: float = 0.0
+    #: how each burst ran: "cuda_graph" (one replay) or "eager"
+    burst_mode: str = "eager"
 
 
 #: decode-chain length per burst on a GPU (launch amortization); the CPU
@@ -120,12 +143,18 @@ class RequestQueue:
 
 
 class DecodeLoadGen:
-    """Busy-loop of greedy KV-cache decode bursts on one device.
+    """Busy-loop of greedy KV-cache decode bursts on one device, or on one
+    rank of a tensor-parallel pod.
 
     Windowed accounting (``window`` seconds): utilization and bandwidth are
     rates over the recent wall clock, so an idle worker decays to 0 instead
     of reporting its historical average — the serve HPA must see demand drop
     to scale in.  ``device`` is CUDA unless the caller passes ``"cpu"``.
+    ``model_parallelism > 1`` serves tensor-parallel over
+    ``make_mesh(model_parallelism=...)`` of the process group.  ``mesh``
+    serves it over a mesh of the caller's, whatever its size: for tests and
+    bring-up only (the TP path on a mesh of one, held against the single
+    device); no deployment passes it.
     """
 
     def __init__(
@@ -141,12 +170,8 @@ class DecodeLoadGen:
         prefill_len: int = 0,
         model_parallelism: int = 1,
         device: str | torch.device | None = None,
+        mesh: DeviceMesh | None = None,
     ):
-        if model_parallelism > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (model_parallelism > 1) waits for the "
-                "multi-device slice, ROADMAP item 10"
-            )
         self.device = resolve(device)
         self.window = window
         self.prefill_len = prefill_len
@@ -170,17 +195,39 @@ class DecodeLoadGen:
                 f"prefill_len {prefill_len} + tokens_per_burst "
                 f"{tokens_per_burst} must stay inside max_seq {max_seq}"
             )
-        dev = self.device
-        self._params = init_params(self.cfg, torch.Generator().manual_seed(0), dev)
-        self._cache = init_kv_cache(self.cfg, batch, dev)
-        self._tokens = torch.zeros(batch, dtype=torch.long, device=dev)
-        self._pos = torch.zeros((), dtype=torch.long, device=dev)
-        self._prompt = None
+        if mesh is None and model_parallelism > 1:
+            mesh = make_mesh(model_parallelism=model_parallelism)
+        self.mesh = mesh
+        dev, cfg = self.device, self.cfg
+        # under TP the whole model is drawn on the host, each rank keeping its shard
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu" if mesh else dev)
+        prompt = None
         if prefill_len > 0:
-            self._prompt = torch.randint(
-                0, self.cfg.vocab, (batch, prefill_len),
-                generator=torch.Generator().manual_seed(2),
-            ).to(dev)
+            prompt = torch.randint(
+                0, cfg.vocab, (batch, prefill_len), generator=torch.Generator().manual_seed(2),
+            )
+        #: this rank's rows of the batch (all of it on one device)
+        self._rows = slice(0, batch)
+        if mesh is None:
+            self._params = params
+            self._cache = init_kv_cache(cfg, batch, dev)
+        else:
+            shape = mesh_shape(mesh)
+            if batch % shape[DATA_AXIS]:
+                raise ValueError(
+                    f"batch {batch} must be divisible by the data axis ({shape[DATA_AXIS]})"
+                )
+            local = batch // shape[DATA_AXIS]
+            index = mesh.get_local_rank(DATA_AXIS)
+            self._rows = slice(index * local, (index + 1) * local)
+            self._params = tp_params(params_to_numpy(params), cfg, mesh, dev)
+            self._cache = init_tp_kv_cache(cfg, batch, mesh, dev)
+            self._tp_prefill = make_tp_prefill(mesh, cfg)
+            self._tp_burst = make_tp_decode_burst(mesh, cfg, tokens_per_burst)
+        rows = self._rows.stop - self._rows.start
+        self._tokens = torch.zeros(rows, dtype=torch.long, device=dev)
+        self._pos = torch.zeros((), dtype=torch.long, device=dev)
+        self._prompt = None if prompt is None else prompt[self._rows].to(dev)
         #: the captured burst (GPU only) and the stream it was captured on
         self._graph: torch.cuda.CUDAGraph | None = None
         self._stream: torch.cuda.Stream | None = None
@@ -194,23 +241,43 @@ class DecodeLoadGen:
         #: every access holds _hist_lock.
         self._history: list[tuple[float, float]] = []
         self._hist_lock = threading.Lock()
-        self._param_bytes = sum(t.numel() * t.element_size() for t in param_leaves(self._params))
-        self.peak_hbm_gbps = peak_hbm_gbps_for(dev)
+        # the whole pod's bytes, as JAX counts its global arrays: the model's
+        # weights and the cache of every head and request
+        elem = torch.empty((), dtype=dtype).element_size()
+        self._param_bytes = sum(t.numel() * t.element_size() for t in param_leaves(params))
+        self._cache_bytes = 2 * n_layers * batch * max_seq * d_model * elem
+        peak = peak_hbm_gbps_for(dev)
+        #: weight reads multiply by the data-axis replica count: TP shards
+        #: the weights over the model axis only, so each data replica
+        #: streams its own copy every step
+        self._param_stream_factor = 1
+        if mesh is not None:
+            self._param_stream_factor = mesh_shape(mesh)[DATA_AXIS]
+            if peak is not None:
+                # the aggregate peak: what this pod's devices can move
+                peak = peak * mesh.size()
+        self.peak_hbm_gbps = peak
 
     # ---- state -------------------------------------------------------------
 
     def set_params(self, params_np: dict) -> None:
-        """Replace the weights with a JAX parameter pytree of numpy arrays.
-        The copy is in place: a captured graph keeps reading these tensors."""
-        new = params_from_jax(params_np, self.cfg, self.device)
+        """Replace the weights with a JAX parameter pytree of numpy arrays
+        (under TP, this rank keeps its shard).  The copy is in place: a
+        captured graph keeps reading these tensors."""
+        if self.mesh is None:
+            new = params_from_jax(params_np, self.cfg, self.device)
+        else:
+            new = tp_params(params_np, self.cfg, self.mesh, self.device)
         for dst, src in zip(param_leaves(self._params), param_leaves(new), strict=True):
             dst.copy_(src)
 
     def set_prompt(self, prompt: np.ndarray) -> None:
-        """Replace the prompt batch [batch, prefill_len] (in place)."""
+        """Replace the prompt batch [batch, prefill_len] (in place; under TP
+        this rank keeps its rows)."""
         if self._prompt is None:
             raise ValueError("a decode-only generator (prefill_len 0) has no prompt")
-        self._prompt.copy_(torch.from_numpy(np.asarray(prompt, dtype=np.int64)))
+        prompt = torch.from_numpy(np.asarray(prompt, dtype=np.int64))
+        self._prompt.copy_(prompt[self._rows])
 
     def reset_state(self) -> None:
         """Zero the cache, the carried tokens and the position, in place."""
@@ -218,8 +285,19 @@ class DecodeLoadGen:
             t.zero_()
 
     def state(self) -> tuple[torch.Tensor, dict, int]:
-        """(tokens, cache, pos) as they stand: the live tensors."""
+        """(tokens, cache, pos) as they stand: the live tensors (under TP,
+        this rank's rows and heads)."""
         return self._tokens, self._cache, int(self._pos)
+
+    @property
+    def params(self) -> dict:
+        """The live weights (under TP, this rank's shard)."""
+        return self._params
+
+    @property
+    def prompt(self) -> torch.Tensor | None:
+        """The live prompt (under TP, this rank's rows)."""
+        return self._prompt
 
     # ---- the burst ---------------------------------------------------------
 
@@ -228,19 +306,32 @@ class DecodeLoadGen:
         runs eagerly on the CPU and what the GPU captures once."""
         cfg = self.cfg
         if self._prompt is not None:
-            logits, _ = prefill(self._params, cfg, self._prompt, self._cache)
+            if self.mesh is None:
+                logits, _ = prefill(self._params, cfg, self._prompt, self._cache)
+            else:
+                logits, _ = self._tp_prefill(self._params, self._prompt, self._cache)
             self._tokens.copy_(logits.argmax(dim=-1))
             self._pos.fill_(self.prefill_len)
+        if self.mesh is not None:
+            self._tp_burst(self._params, self._tokens, self._cache, self._pos)
+            return
         for _ in range(self.tokens_per_burst):
             logits, _ = decode_step(self._params, cfg, self._tokens, self._cache, self._pos)
             self._tokens.copy_(logits.argmax(dim=-1))
             # wrap before max_seq so the burst never writes past the cache
             self._pos.add_(1).remainder_(cfg.max_seq - 1)
 
+    def _capturable(self) -> bool:
+        """A GPU burst is captured unless it runs a gloo collective (gloo
+        waits on the host, which a graph cannot hold)."""
+        return self.device.type == "cuda" and (
+            self.mesh is None or dist.get_backend(self.mesh.get_group(MODEL_AXIS)) == "nccl")
+
     def _capture(self) -> None:
         """Capture the burst as a CUDA graph on the generator's own stream,
         after one eager burst on that stream (lazy library and allocator
-        set-up must not happen inside capture)."""
+        set-up must not happen inside capture; under TP its all_reduces
+        bring the communicator up before the capture, as NCCL needs)."""
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
@@ -269,7 +360,7 @@ class DecodeLoadGen:
         """First burst (builds and loads the kernel), then on a GPU the
         capture.  Accounting starts after both."""
         self.run_burst(use_graph=False)
-        if self.device.type == "cuda":
+        if self._capturable():
             self._capture()
             self.run_burst()
         self._steps = 0
@@ -297,18 +388,19 @@ class DecodeLoadGen:
     # ---- self-reporting ----------------------------------------------------
 
     def bytes_per_burst(self) -> int:
-        """Bytes one burst must move: per decode token-step the whole static
-        KV cache plus the weights; with prefill, one more weight read and the
-        cache writes for the prompt positions."""
-        cache_bytes = sum(t.numel() * t.element_size() for t in self._cache.values())
-        total = self.tokens_per_burst * (cache_bytes + self._param_bytes)
+        """Bytes one burst must move, the whole pod's: per decode token-step
+        the whole static KV cache plus the weights (once a data replica);
+        with prefill, one more weight read and the cache writes for the
+        prompt positions."""
+        param_stream = self._param_bytes * self._param_stream_factor
+        total = self.tokens_per_burst * (self._cache_bytes + param_stream)
         if self.prefill_len:
-            total += self._param_bytes + cache_bytes * self.prefill_len // self.cfg.max_seq
+            total += param_stream + self._cache_bytes * self.prefill_len // self.cfg.max_seq
         return total
 
     def stats(self) -> DecodeStats:
         tokens = self.batch * self.tokens_per_burst * self._steps
-        cache_bytes = sum(t.numel() * t.element_size() for t in self._cache.values())
+        cache_bytes = self._cache_bytes
         now = time.perf_counter()
         with self._hist_lock:
             self._prune(now)
@@ -341,6 +433,7 @@ class DecodeLoadGen:
             hbm_bw_util_pct=bw_pct,
             utilization_pct=min(100.0, 100.0 * win_busy / wall),
             prefill_tokens_per_sec=prefill_tokens / self._busy if self._busy else 0.0,
+            burst_mode="cuda_graph" if self._graph is not None else "eager",
         )
 
     def utilization(self, _chip_index: int = 0) -> float:
@@ -360,14 +453,33 @@ def main(device: str | torch.device | None = None) -> None:
 
     Env: DECODE_BATCH, MAX_SEQ, D_MODEL, N_HEADS, N_LAYERS, PREFILL_LEN
     (prompt tokens scored per burst; 0 = decode-only, the default),
-    MODEL_PARALLELISM (only 1 is ported), OFFERED_RPS_MAX (offered load at
-    knob 1.0; default 4× one worker's measured capacity), REPORT_S, plus the
-    intensity knob (TPU_TEST_INTENSITY / the watched file), meaning the
-    fraction of OFFERED_RPS_MAX offered; PROFILE_S and PROFILE_DIR open one
-    trace window (utils/profiling.py).  ``device`` is CUDA unless the caller
+    MODEL_PARALLELISM (> 1: tensor-parallel over the pod's GPUs, one rank a
+    local GPU through ``multihost.launch`` on a group of this host alone;
+    rank 0 holds the queue and self-reports the pod's aggregate),
+    OFFERED_RPS_MAX (offered load at knob 1.0; default 4× one worker's
+    measured capacity), REPORT_S, plus the intensity knob
+    (TPU_TEST_INTENSITY / the watched file), meaning the fraction of
+    OFFERED_RPS_MAX offered; PROFILE_S and PROFILE_DIR open one trace window
+    a rank (utils/profiling.py).  ``device`` is CUDA unless the caller
     passes ``"cpu"``.
     """
+    if int(os.environ.get("MODEL_PARALLELISM", "1")) > 1:
+        from k8s_gpu_hpa_tpu_torch.loadgen.multihost import HostTopology, free_port, launch
+
+        host = HostTopology(0, 1, f"127.0.0.1:{free_port()}")
+        code = launch(serve, (device,), devices=local_devices(device), topology=host)
+        if code:
+            sys.exit(code)
+        return
+    serve(device)
+
+
+def serve(device: str | torch.device | None = None) -> None:
+    """The serving loop of ``main``, on one device or on one rank of a TP
+    pod: the ranks burst together (each burst is a collective), as rank 0's
+    queue asks."""
     from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
+    from k8s_gpu_hpa_tpu_torch.loadgen.multihost import agree
     from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
     from k8s_gpu_hpa_tpu_torch.utils.profiling import ProfileWindow
 
@@ -386,6 +498,7 @@ def main(device: str | torch.device | None = None) -> None:
         device=device,
     )
     gen.warmup()
+    lead = gen.mesh is None or dist.get_rank() == 0
     knob = IntensityKnob()
     telemetry = TelemetryWriter()
     queue = RequestQueue()
@@ -395,15 +508,17 @@ def main(device: str | torch.device | None = None) -> None:
     capacity_rps = gen.batch / burst_seconds
     offered_rps_max = float(os.environ.get("OFFERED_RPS_MAX", str(4.0 * capacity_rps)))
     report_every = float(os.environ.get("REPORT_S", "10"))
-    print(
-        f"tpu-test decode loadgen: batch={gen.batch} ctx={gen.cfg.max_seq} "
-        f"cache={gen.stats().cache_bytes / 1e6:.0f}MB on {device_name(gen.device)} "
-        f"capacity~{capacity_rps:.1f}rps offered_max={offered_rps_max:.1f}rps "
-        f"(knob: {knob.file}"
-        + (f", telemetry: {telemetry.path}" if telemetry.enabled else "")
-        + ")",
-        flush=True,
-    )
+    if lead:
+        world = "" if gen.mesh is None else f" mesh={mesh_shape(gen.mesh)}"
+        print(
+            f"tpu-test decode loadgen: batch={gen.batch} ctx={gen.cfg.max_seq} "
+            f"cache={gen.stats().cache_bytes / 1e6:.0f}MB on {device_name(gen.device)}{world} "
+            f"capacity~{capacity_rps:.1f}rps offered_max={offered_rps_max:.1f}rps "
+            f"(knob: {knob.file}"
+            + (f", telemetry: {telemetry.path}" if telemetry.enabled else "")
+            + ")",
+            flush=True,
+        )
     last_report = time.perf_counter()
     last_tick = time.perf_counter()
     while True:
@@ -411,11 +526,15 @@ def main(device: str | torch.device | None = None) -> None:
         now = time.perf_counter()
         queue.offer((now - last_tick) * knob.poll() * offered_rps_max)
         last_tick = now
-        if queue.depth >= 1.0:
+        # rank 0's queue decides for every rank
+        _, go = agree(False, float(queue.depth >= 1.0), gen.device)
+        if go:
             gen.step()
             queue.take(gen.batch)
         else:
             time.sleep(0.05)  # idle: wait for demand, don't spin
+        if not lead:
+            continue
         s = gen.stats()
         telemetry.write(
             duty_cycle_pct=s.utilization_pct,

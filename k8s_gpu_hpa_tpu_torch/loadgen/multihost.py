@@ -25,9 +25,9 @@ process exits (``stop_rank_server``).  With one local device it starts nothing a
 runs the rank in its own process.  With no topology the rendezvous is
 ``127.0.0.1`` on a free port.
 
-``main`` runs ``WORKLOAD=allreduce`` (the default) over the mesh of every
-rank, and ``llm`` in one process; ``ringattn`` and ``moe`` name the ROADMAP
-item that ports them.
+``main`` runs ``WORKLOAD=allreduce`` (the default), ``ringattn`` and
+``llm`` over the mesh of every rank of the slice; ``moe`` names the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -38,11 +38,13 @@ import multiprocessing.connection
 import multiprocessing.forkserver
 import multiprocessing.resource_tracker
 import os
+import random
 import signal
 import socket
 import sys
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Mapping, Sequence
 
 import torch
@@ -57,13 +59,16 @@ DEFAULT_COORDINATOR_PORT = 8476
 
 #: workloads of the JAX container that wait for a later slice, by ROADMAP
 #: item; an unknown WORKLOAD means allreduce there, as here
-_LATER = {"ringattn": 10, "moe": 12}
+_LATER = {"moe": 12}
 
 #: seconds a rank waits for the rendezvous, and for a collective on gloo
 #: (NCCL's watchdog aborts one that outlasts it), before it raises
 DEFAULT_TIMEOUT_S = 300.0
 #: seconds ranks get to exit after a SIGTERM when one of them has died
 _GRACE_S = 10.0
+#: seconds a failing rank watches for a peer's exit before it counts its
+#: failure as its own
+_PEER_EXIT_S = 1.0
 
 
 @dataclass(frozen=True)
@@ -182,13 +187,53 @@ def initialize(
 
 
 def free_port() -> int:
-    """A TCP port on 127.0.0.1 that nothing listens on now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A TCP port on 127.0.0.1 that nothing is bound to now, drawn at random
+    below the kernel's ephemeral range.  A port from that range (what a bind
+    to port 0 returns) is what the kernel hands the next socket bound to
+    port 0, as each gloo pair binds its own: one could take it before the
+    rendezvous binds it."""
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    draw = random.SystemRandom()
+    for _ in range(100):
+        port = draw.randrange(max(1024, low - 16384), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise RuntimeError("no free TCP port below the ephemeral range on 127.0.0.1")
 
 
-def _rank_main(fn, args, topology, local_rank, n_local, device, backend, timeout_s) -> None:
+def _has_exited(pid: int) -> bool:
+    """Whether process ``pid`` has ended: reaped, or a zombie."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return True
+    return stat[stat.rindex(")") + 2] in "ZX"
+
+
+def _after_a_peer(pids, me: int) -> bool:
+    """Whether a peer of rank ``me`` (``pids``, 0 where not started) has
+    exited, now or within ``_PEER_EXIT_S``: a collective fails as soon as
+    the peer's sockets close, a moment before the peer has exited."""
+    deadline = time.monotonic() + _PEER_EXIT_S
+    while not any(pid and i != me and _has_exited(pid) for i, pid in enumerate(pids)):
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def _rank_main(fn, args, topology, local_rank, n_local, device, backend, timeout_s,
+               pids=None, late=None) -> None:
+    """One rank: its group, ``fn``, the closing barrier.  A rank that fails
+    after a peer has exited marks itself in ``late``: its failure is the
+    peer's (a collective that lost it), not the first."""
     if n_local > 1 and "OMP_NUM_THREADS" not in os.environ:
         # the host's cores shared among its ranks: each rank's intra-op
         # threads spinning on all of them stalls every collective
@@ -199,6 +244,10 @@ def _rank_main(fn, args, topology, local_rank, n_local, device, backend, timeout
         fn(*args)
         # rank 0 serves the rendezvous store: it goes last
         dist.barrier()
+    except BaseException:
+        if late is not None and _after_a_peer(pids, local_rank):
+            late[local_rank] = 1
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -255,9 +304,11 @@ def launch(
     ctx.set_forkserver_preload(["__main__", "torch"])
     atexit.unregister(stop_rank_server)
     atexit.register(stop_rank_server)
+    # each rank's pid, and whether it failed after a peer had exited
+    pids, late = ctx.RawArray("i", len(devices)), ctx.RawArray("i", len(devices))
     procs = [
         ctx.Process(target=_rank_main, args=(fn, tuple(args), topology, i, len(devices), dev,
-                                             backend, timeout_s))
+                                             backend, timeout_s, pids, late))
         for i, dev in enumerate(devices)
     ]
 
@@ -268,9 +319,10 @@ def launch(
 
     before = {s: signal.signal(s, forward) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        for p in procs:
+        for i, p in enumerate(procs):
             p.start()
-        return _join(procs, join_timeout_s)
+            pids[i] = p.pid
+        return _join(procs, join_timeout_s, late)
     finally:
         for s, handler in before.items():
             signal.signal(s, handler)
@@ -281,7 +333,11 @@ def launch(
                 p.join()
 
 
-def _join(procs: list, join_timeout_s: float | None) -> int:
+def _join(procs: list, join_timeout_s: float | None, late) -> int:
+    """Wait for every rank; on a failure stop the others and return the
+    first failure's code.  Ranks found exited in one wake-up are in no
+    order of their own: one that failed after a peer had exited (``late``)
+    is not the first failure, unless every one of them did."""
     deadline = None if join_timeout_s is None else time.monotonic() + join_timeout_s
     running = list(procs)
     while running:
@@ -290,15 +346,18 @@ def _join(procs: list, join_timeout_s: float | None) -> int:
             raise TimeoutError(f"{len(running)} of {len(procs)} ranks still running "
                                f"after {join_timeout_s} s")
         multiprocessing.connection.wait([p.sentinel for p in running], left)
-        for p in [p for p in running if p.exitcode is not None]:
+        done = [p for p in running if p.exitcode is not None]
+        for p in done:
             running.remove(p)
-            if p.exitcode != 0:
-                print(f"rank {procs.index(p)} exited with code {p.exitcode}; "
-                      "stopping the others", file=sys.stderr, flush=True)
-                for other in running:
-                    other.terminate()
-                multiprocessing.connection.wait([o.sentinel for o in running], _GRACE_S)
-                return _exit_code(p)
+        failed = [p for p in done if p.exitcode != 0]
+        if failed:
+            first = next((p for p in failed if not late[procs.index(p)]), failed[0])
+            print(f"rank {procs.index(first)} exited with code {first.exitcode}; "
+                  "stopping the others", file=sys.stderr, flush=True)
+            for other in running:
+                other.terminate()
+            multiprocessing.connection.wait([o.sentinel for o in running], _GRACE_S)
+            return _exit_code(first)
     return 0
 
 
@@ -323,10 +382,12 @@ def agree(stopping: bool, intensity: float, device: torch.device) -> tuple[bool,
     return stop > 0, value
 
 
-def _run(gen, knob, report, device, manager=None, ckpt_every: int = 0) -> None:
+def _run(gen, knob, report, device, manager=None, ckpt_every: int = 0,
+         lead: bool = True) -> None:
     """The container's loop: a step under the duty-cycle ``knob``, a report
     every ``REPORT_S`` seconds, a save every ``ckpt_every`` steps where a
-    ``manager`` is given, until SIGTERM or SIGINT (then a final save)."""
+    ``manager`` is given, until SIGTERM or SIGINT (then a final save).  Only
+    a ``lead`` rank prints its reports and its final save."""
     report_every = float(os.environ.get("REPORT_S", "10"))
     stopping = False
 
@@ -345,14 +406,15 @@ def _run(gen, knob, report, device, manager=None, ckpt_every: int = 0) -> None:
             if manager is not None and gen.stats().steps > last_ckpt_step:
                 gen.save_checkpoint(manager)
                 manager.wait_until_finished()
-                say(f"final checkpoint at step {gen.stats().steps}")
+                if lead:
+                    say(f"final checkpoint at step {gen.stats().steps}")
             return
         knob.set(intensity)
         knob.throttle(0.0 if intensity <= 0.0 else gen.step())
         if manager is not None and gen.stats().steps - last_ckpt_step >= ckpt_every:
             gen.save_checkpoint(manager)
             last_ckpt_step = gen.stats().steps
-        if time.perf_counter() - last_report >= report_every:
+        if lead and time.perf_counter() - last_report >= report_every:
             say(report(gen.stats()))
             last_report = time.perf_counter()
 
@@ -386,17 +448,52 @@ def run_allreduce(topology: HostTopology | None, device: str | torch.device | No
     _run(gen, knob, report, gen.device)
 
 
-def _run_llm(topology: HostTopology | None, device: str | torch.device | None) -> None:
+def run_ringattn(topology: HostTopology | None, device: str | torch.device | None) -> None:
+    """One rank of ``WORKLOAD=ringattn``: ``RingAttentionLoadGen`` over the
+    mesh of every rank of the group, the sequence on its data axis
+    (SEQ_PER_DEVICE 1024 a rank, HEADS 8 of HEAD_DIM 128)."""
+    from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
+    from k8s_gpu_hpa_tpu_torch.loadgen.ringattn import RingAttentionLoadGen
+    from k8s_gpu_hpa_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+    mesh = make_mesh()
+    gen = RingAttentionLoadGen(
+        mesh=mesh,
+        seq_per_device=int(os.environ.get("SEQ_PER_DEVICE", "1024")),
+        heads=int(os.environ.get("HEADS", "8")),
+        head_dim=int(os.environ.get("HEAD_DIM", "128")),
+        device=device,
+    )
+    gen.warmup()
+    knob = IntensityKnob()
+    say(_banner("ringattn", topology, f"mesh={mesh_shape(mesh)}", knob))
+
+    def report(s):
+        return (f"bursts={s.bursts} ctx={s.context_length} "
+                f"attn={s.achieved_tflops:.1f}TFLOP/s busy={s.seconds:.1f}s")
+
+    _run(gen, knob, report, gen.device)
+
+
+def run_llm(topology: HostTopology | None, device: str | torch.device | None) -> None:
+    """One rank of ``WORKLOAD=llm``: ``LlmLoadGen`` over the mesh of every
+    rank of the group, the context sharded over its data axis; rank 0
+    prints, saves and reports the resume."""
     from k8s_gpu_hpa_tpu_torch.device import device_name
     from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
     from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
     from k8s_gpu_hpa_tpu_torch.loadgen.train import make_checkpoint_manager
+    from k8s_gpu_hpa_tpu_torch.parallel.mesh import make_mesh, mesh_shape
 
+    mesh = make_mesh()
+    lead = dist.get_rank() == 0
     gen = LlmLoadGen(
+        mesh=mesh,
         seq_per_device=int(os.environ.get("SEQ_PER_DEVICE", "2048")),
         batch=int(os.environ.get("BATCH_SIZE", "1")),
         d_model=int(os.environ.get("D_MODEL", "512")),
-        # head_dim = D_MODEL/N_HEADS; 64 or 128 rides the flash kernels
+        # head_dim = D_MODEL/N_HEADS; 64 or 128 rides the flash kernels on
+        # a ring of one
         n_heads=int(os.environ.get("N_HEADS", "4")),
         n_layers=int(os.environ.get("N_LAYERS", "4")),
         attn_impl=os.environ.get("LLM_ATTN", "auto"),
@@ -413,45 +510,49 @@ def _run_llm(topology: HostTopology | None, device: str | torch.device | None) -
     ckpt_dir = os.environ.get("CHECKPOINT_DIR", "")
     if ckpt_dir:
         manager = make_checkpoint_manager(ckpt_dir)
-        if gen.restore_checkpoint(manager):
+        if gen.restore_checkpoint(manager) and lead:
             say(f"resumed from step {gen.stats().steps} in {ckpt_dir}")
     gen.warmup()
     knob = IntensityKnob()
-    say(_banner("llm", topology, f"device={device_name(gen.device)}", knob))
-    _run(gen, knob, report, gen.device, manager, int(os.environ.get("CHECKPOINT_EVERY", "100")))
+    if lead:
+        say(_banner("llm", topology, f"device={device_name(gen.device)} mesh={mesh_shape(mesh)}",
+                    knob))
+    _run(gen, knob, report, gen.device, manager, int(os.environ.get("CHECKPOINT_EVERY", "100")),
+         lead)
+
+
+_WORKLOADS = {"allreduce": run_allreduce, "ringattn": run_ringattn, "llm": run_llm}
 
 
 def main(device: str | torch.device | None = None) -> None:
     """``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` — the slice
-    container's command: resolve the slice, then drive its workload under
-    the same runtime intensity knob as the single-chip generator, reporting
-    every ``REPORT_S`` seconds, until SIGTERM or SIGINT.
+    container's command: resolve the slice, start one rank a local device
+    (``launch``), and drive the workload over the mesh of every rank of the
+    slice under the same runtime intensity knob as the single-chip
+    generator, reporting every ``REPORT_S`` seconds, until SIGTERM or
+    SIGINT.
 
-    ``WORKLOAD=allreduce`` (the default, and any name not below) starts one
-    rank a local device (``launch``) and drives the collectives over the
-    mesh of every rank of the slice (BUFFER_MB).  ``WORKLOAD=llm`` takes
-    training steps in this one process (SEQ_PER_DEVICE, BATCH_SIZE,
-    D_MODEL, N_HEADS, N_LAYERS, LLM_ATTN ``auto`` or ``ring``);
-    CHECKPOINT_DIR enables its resume-on-restart with a save every
-    CHECKPOINT_EVERY (100) steps and a final save on SIGTERM or SIGINT
-    (scale-down kills whole slices).  ``device`` is CUDA unless the caller
-    passes ``"cpu"``."""
+    ``WORKLOAD=allreduce`` (the default, and any name not below) drives the
+    collectives (BUFFER_MB).  ``WORKLOAD=ringattn`` runs causal ring
+    attention over a context of SEQ_PER_DEVICE (1024) a rank, HEADS (8) of
+    HEAD_DIM (128).  ``WORKLOAD=llm`` takes sequence-parallel training
+    steps (SEQ_PER_DEVICE, BATCH_SIZE, D_MODEL, N_HEADS, N_LAYERS, LLM_ATTN
+    ``auto`` or ``ring``); CHECKPOINT_DIR enables its resume-on-restart with
+    a save every CHECKPOINT_EVERY (100) steps and a final save on SIGTERM or
+    SIGINT (scale-down kills whole slices), written by rank 0.
+    DIST_BACKEND names the group's backend (NCCL on GPUs and gloo on the CPU
+    unless set): for tests and bring-up only, where gloo lets the ranks of
+    several processes share one GPU; no deployment sets it.
+    ``device`` is CUDA unless the caller passes ``"cpu"``."""
     workload = os.environ.get("WORKLOAD", "allreduce")
     if workload in _LATER:
         raise NotImplementedError(
             f"WORKLOAD={workload!r} is not ported yet (ROADMAP item {_LATER[workload]})"
         )
     topology = topology_from_env()
-    if workload == "llm":
-        if topology is not None and topology.num_processes > 1:
-            raise NotImplementedError(
-                "WORKLOAD=llm over a slice of several processes needs ring attention "
-                "across ranks (ROADMAP item 10); it runs in one process"
-            )
-        _run_llm(topology, device)
-        return
-    code = launch(run_allreduce, (topology, device), devices=local_devices(device),
-                  topology=topology)
+    code = launch(_WORKLOADS.get(workload, run_allreduce), (topology, device),
+                  devices=local_devices(device), topology=topology,
+                  backend=os.environ.get("DIST_BACKEND") or None)
     if code:
         sys.exit(code)
 

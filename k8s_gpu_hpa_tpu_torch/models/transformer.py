@@ -1,15 +1,19 @@
-"""Decoder transformer, single device: the model behind the serving and the
-training load.
+"""Decoder transformer: the model behind the serving and the training load,
+on one device or over a mesh.
 
-Counterpart of the single-device part of
-``k8s_gpu_hpa_tpu/models/transformer.py``: the config, parameter init, the
-block shared by prefill and training, the static-shape KV cache, ``prefill``
-and ``decode_step``, and the training path on a ring of one device
+Counterpart of ``k8s_gpu_hpa_tpu/models/transformer.py``: the config,
+parameter init, the block shared by prefill and training, the static-shape
+KV cache, ``prefill`` and ``decode_step``; the training path
 (``_train_attn_fn``, ``forward_local``, ``make_forward``,
-``make_train_step``).  The sequence-parallel ring over several devices and
-tensor-parallel serving wait for the multi-device slice (ROADMAP items 9 and
-10); until the mesh is ported the training functions take no mesh and run on
-the device their parameters live on.
+``make_train_step``), sequence-parallel over the mesh's ``data`` axis when
+given a mesh (ring attention, ``ops/ring_attention.py``); and
+tensor-parallel serving over the ``model`` axis (``tp_params``,
+``init_tp_kv_cache``, ``make_tp_decode_step``, ``make_tp_decode_burst``,
+``make_tp_prefill``).  JAX runs one SPMD program over global arrays; here
+each rank of the ``torch.distributed`` group runs the per-device body on
+its own shard, as ``shard_map``'s body sees it: a sequence shard of the
+tokens for training, a batch shard of the requests and a head shard of
+the weights and the cache for serving.
 
 Parameters are a plain dict with the JAX pytree's keys (``embed``, ``pos``,
 ``out_norm``, ``blocks[i].{attn_norm, wqkv, wo, mlp_norm, w1, w2}``), one
@@ -39,26 +43,37 @@ Differences from the JAX module, each for the GPU:
   and cast back (``torch.optim.SGD`` would round a bf16 update elsewhere);
   the per-block remat is non-reentrant ``torch.utils.checkpoint``, so each
   layer's attention forward runs twice a step, as under ``jax.checkpoint``.
+  Over a mesh the recomputation re-sends the ring's blocks; it runs in full
+  (no early stop), so every rank sends the same hops in the same order.
+- Tensor-parallel layers sum their partial products over the model axis in
+  fp32 and round once, as JAX's psum of fp32 partials; each partial is a
+  product in the working dtype, as above.  At a model axis of one the TP
+  functions compute exactly what ``prefill`` and ``decode_step`` compute.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from torch.utils.checkpoint import checkpoint
-
+from k8s_gpu_hpa_tpu_torch.device import resolve
 from k8s_gpu_hpa_tpu_torch.ops.flash_attention import flash_attention, flash_shape_supported
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import NEG_INF, ring_attention_local
+from k8s_gpu_hpa_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, axis_index, mesh_shape, ppermute,
+)
 
 _LEAVES = ("attn_norm", "wqkv", "wo", "mlp_norm", "w1", "w2")
-#: the JAX mesh's sequence axis, by name; the mesh is ROADMAP item 9
-DATA_AXIS = "data"
 
 
 @dataclass(frozen=True)
@@ -176,24 +191,56 @@ def _logits(x: torch.Tensor, params: dict) -> torch.Tensor:
     return torch.matmul(x.float(), params["embed"].float().t())
 
 
+def _layer_tail(x: torch.Tensor, attn: torch.Tensor, blk: dict, cfg: TransformerConfig):
+    """The layer after its attention, on one device: output projection,
+    residual, MLP."""
+    return _mlp(x + torch.matmul(attn, blk["wo"]), blk, cfg)
+
+
+def _tp_block_tail(x: torch.Tensor, attn: torch.Tensor, blk: dict, cfg: TransformerConfig,
+                   group: dist.ProcessGroup) -> torch.Tensor:
+    """The TP layer after its attention, decode and prefill alike: the
+    row-shard of ``wo``'s partial product summed over the model axis, then
+    the MLP's column/row shards and their sum: the layer's exactly two
+    all_reduces, each of fp32 partials rounded once after."""
+    out = torch.matmul(attn, blk["wo"]).float()
+    dist.all_reduce(out, group=group)
+    x = x + out.to(cfg.dtype)
+    h = _rmsnorm(x, blk["mlp_norm"])
+    up = torch.matmul(h, blk["w1"]).float()
+    down = torch.matmul(F.gelu(up, approximate="tanh").to(cfg.dtype), blk["w2"]).float()
+    dist.all_reduce(down, group=group)
+    return x + down.to(cfg.dtype)
+
+
+def _qkv(h: torch.Tensor, blk: dict, cfg: TransformerConfig, heads: int):
+    """q, k and v [..., heads·head_dim]: views of the fused product with
+    ``wqkv`` ([d_model, 3·d_model], or a head shard [d_model, 3, heads,
+    head_dim], whose columns are laid out alike)."""
+    qkv = torch.matmul(h, blk["wqkv"].reshape(cfg.d_model, -1))
+    return qkv.split(heads * cfg.head_dim, dim=-1)
+
+
 def _block_forward(
     x: torch.Tensor,
     blk: dict,
     cfg: TransformerConfig,
     attn_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    heads: int | None = None,
+    tail: Callable = _layer_tail,
 ):
-    """One block over a full sequence: norm, QKV, attention, output
-    projection, MLP.  ``attn_fn([b,s,h,d] q, k, v) -> [b,s,h,d]``; q, k and
-    v are views of the fused QKV product.  Returns (x, k, v) so that
-    cache-filling callers keep the projected K and V."""
+    """One block over a full sequence: norm, QKV, attention, then ``tail``
+    (output projection and MLP; tensor-parallel serving passes its own, of
+    ``heads`` local heads).  ``attn_fn([b,s,h,d] q, k, v) -> [b,s,h,d]``;
+    q, k and v are views of the fused QKV product.  Returns (x, k, v) so
+    that cache-filling callers keep the projected K and V."""
     b, lq, _ = x.shape
+    heads = cfg.n_heads if heads is None else heads
     h = _rmsnorm(x, blk["attn_norm"])
-    qkv = torch.matmul(h, blk["wqkv"])
-    shape = (b, lq, cfg.n_heads, cfg.head_dim)
-    q, k, v = (t.view(shape) for t in qkv.split(cfg.d_model, dim=-1))
-    attn = attn_fn(q, k, v).reshape(b, lq, cfg.d_model)
-    x = x + torch.matmul(attn, blk["wo"])
-    return _mlp(x, blk, cfg), k, v
+    shape = (b, lq, heads, cfg.head_dim)
+    q, k, v = (t.view(shape) for t in _qkv(h, blk, cfg, heads))
+    attn = attn_fn(q, k, v).reshape(b, lq, heads * cfg.head_dim)
+    return tail(x, attn, blk, cfg), k, v
 
 
 def _train_attn_fn(cfg: TransformerConfig, axis: str, n: int, lq: int, attn_impl: str):
@@ -224,79 +271,117 @@ def forward_local(
     params: dict,
     tokens: torch.Tensor,
     cfg: TransformerConfig,
-    axis: str,
+    axis: str | dist.ProcessGroup,
     n: int,
     attn_impl: str = "auto",
 ) -> torch.Tensor:
-    """fp32 logits [batch, lq, vocab] for ``tokens`` [batch, lq], the whole
-    sequence on a ring of ``n == 1`` device (n > 1 is ROADMAP item 10).
+    """fp32 logits [batch, lq, vocab] for this rank's shard ``tokens``
+    [batch, lq] of a sequence sharded in order over a ring of ``n`` ranks
+    (``axis``: the ring's process group; on a ring of one, where the shard
+    is the whole sequence, a name will do).  Positions are global:
+    ``my·lq + arange(lq)``.
 
     Each block is recomputed in the backward pass (layer remat: the
     non-reentrant counterpart of ``jax.checkpoint``), trading its forward's
-    FLOPs for the [batch, lq, d_ff] activations autograd would keep."""
-    if n != 1:
-        raise NotImplementedError(
-            f"the sequence-parallel forward over {n} devices waits for the "
-            "multi-device slice, ROADMAP item 10"
-        )
+    FLOPs for the [batch, lq, d_ff] activations autograd would keep.  On a
+    ring of several ranks the recomputation re-sends the ring's hops, so it
+    runs in full on every rank: an early stop could end one rank's
+    recomputation before a hop its peer waits for."""
     _, lq = tokens.shape
-    pos = torch.arange(lq, device=tokens.device)  # the shard's offset is 0
+    my = axis_index(axis) if n > 1 else 0
+    pos = my * lq + torch.arange(lq, device=tokens.device)
     x = params["embed"][tokens] + params["pos"][pos][None].to(cfg.dtype)
     attn_fn = _train_attn_fn(cfg, axis, n, lq, attn_impl)
 
     def block(x, blk):
         return _block_forward(x, blk, cfg, attn_fn)[0]
 
-    for blk in params["blocks"]:
-        x = checkpoint(block, x, blk, use_reentrant=False)
+    with set_checkpoint_early_stop(False) if n > 1 else contextlib.nullcontext():
+        for blk in params["blocks"]:
+            x = checkpoint(block, x, blk, use_reentrant=False)
     return _logits(x, params)
 
 
-def make_forward(cfg: TransformerConfig):
-    """(params, tokens[batch, seq]) -> fp32 logits, on one device."""
+def _ring(mesh: DeviceMesh | None) -> tuple[str | dist.ProcessGroup, int]:
+    """The sequence ring of ``mesh``: its data axis's group and size; a ring
+    of one without a mesh."""
+    if mesh is None:
+        return DATA_AXIS, 1
+    return mesh.get_group(DATA_AXIS), mesh_shape(mesh)[DATA_AXIS]
+
+
+def make_forward(cfg: TransformerConfig, mesh: DeviceMesh | None = None):
+    """(params, tokens[batch, seq]) -> fp32 logits [batch, seq, vocab].
+    With a mesh the sequence is sharded over its data axis: each rank passes
+    its shard [batch, seq/n] (positions ``i·seq/n`` on, i its index on the
+    axis) and gets that shard's logits; without one the whole sequence runs
+    on one device."""
+    axis, n = _ring(mesh)
 
     def forward(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return forward_local(params, tokens, cfg, DATA_AXIS, 1)
+        return forward_local(params, tokens, cfg, axis, n)
 
     return forward
 
 
-def make_loss_and_grad(cfg: TransformerConfig, attn_impl: str = "auto"):
-    """(params, tokens[batch, seq]) -> (loss, grads): the training loss on
-    one device and its gradient, one tensor per leaf in ``param_leaves``
-    order and in the leaf's dtype.
+def make_loss_and_grad(cfg: TransformerConfig, attn_impl: str = "auto",
+                       mesh: DeviceMesh | None = None):
+    """(params, tokens[batch, seq]) -> (loss, grads): the training loss and
+    its gradient, one tensor per leaf in ``param_leaves`` order.  With a
+    mesh whose data axis has n > 1 ranks, sequence-parallel over that axis,
+    after JAX's ``make_train_step``: each rank passes its token shard, its
+    last position predicts the next shard's first token (one ``ppermute``
+    hop), and one flat fp32 all_reduce sums the gradients and the loss,
+    which come back in fp32.  On one rank (no mesh, or a data axis of one)
+    neither happens and the gradients come back in the leaves' dtype.
 
     The loss is the next-token NLL over fp32 log-softmax: position i
-    predicts token i + 1, and the last position, whose target wraps to the
-    first token, weighs 0; the mean is over the weighted count.  The loss
-    is a 0-d fp32 tensor on the device (reading it syncs)."""
-
-    def loss_fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        logits = forward_local(params, tokens, cfg, DATA_AXIS, 1, attn_impl)
-        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, targets[..., None])[..., 0]
-        weights = torch.ones_like(nll)
-        weights[:, -1] = 0.0
-        return (nll * weights).sum() / weights.sum()
+    predicts token i + 1, and the global last position, whose target wraps
+    to the first token, weighs 0; the mean is over the global weighted
+    count, ``batch·(n·seq - 1)``.  Each rank differentiates its own NLL
+    total over that count, the ring's backward hops carrying what its loss
+    owes every rank's computation, so the sum over ranks is the gradient of
+    the global mean: JAX's ``psum(g) / n``, whose psum transposes into
+    n/count on each rank's cotangent.  The loss is a 0-d fp32 tensor on the
+    device (reading it syncs)."""
+    axis, n = _ring(mesh)
+    wrap = [(j, (j - 1) % n) for j in range(n)]
 
     def loss_and_grad(params: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        b, lq = tokens.shape
         leaves = [p.detach().requires_grad_() for p in param_leaves(params)]
         with torch.enable_grad():
-            loss = loss_fn(params_from_leaves(leaves), tokens)
+            logits = forward_local(params_from_leaves(leaves), tokens, cfg, axis, n, attn_impl)
+            first = tokens[:, :1] if n == 1 else ppermute(tokens[:, :1], axis, wrap)
+            targets = torch.cat([tokens[:, 1:], first], dim=1)
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, targets[..., None])[..., 0]
+            weights = torch.ones_like(nll)
+            if n == 1 or axis_index(axis) == n - 1:
+                weights[:, -1] = 0.0  # the global last position wraps to the first token
+            loss = (nll * weights).sum() / (b * (n * lq - 1))
             grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), list(grads)
+        if n == 1:
+            return loss.detach(), list(grads)
+        flat = torch.cat([g.float().reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        dist.all_reduce(flat, group=axis)
+        grads = flat[:-1].split([g.numel() for g in grads])
+        return flat[-1], [g.view(leaf.shape) for g, leaf in zip(grads, leaves)]
 
     return loss_and_grad
 
 
-def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, attn_impl: str = "auto"):
-    """(params, tokens[batch, seq]) -> (params, loss): one SGD step on one
-    device (a ring of one; the mesh is ROADMAP item 9), on the loss and
-    gradient of ``make_loss_and_grad``.  Each leaf is updated as
+def make_train_step(cfg: TransformerConfig, lr: float = 1e-3, attn_impl: str = "auto",
+                    mesh: DeviceMesh | None = None):
+    """(params, tokens[batch, seq]) -> (params, loss): one SGD step on the
+    loss and gradient of ``make_loss_and_grad``.  Without a mesh on one
+    device (a ring of one); with one, sequence-parallel over its data axis:
+    each rank passes its token shard
+    [batch, seq/n] and the replicated parameters, and every rank gets the
+    same updated parameters and the global loss.  Each leaf is updated as
     ``(p.float() - lr * g.float()).to(p.dtype)``, as in JAX.  The
     parameters passed in are not modified."""
-    loss_and_grad = make_loss_and_grad(cfg, attn_impl)
+    loss_and_grad = make_loss_and_grad(cfg, attn_impl, mesh)
 
     def train_step(params: dict, tokens: torch.Tensor) -> tuple[dict, torch.Tensor]:
         loss, grads = loss_and_grad(params, tokens)
@@ -321,6 +406,20 @@ def init_kv_cache(
     }
 
 
+def _prefill(params: dict, cfg: TransformerConfig, tokens: torch.Tensor, cache: dict,
+             heads: int, tail: Callable) -> tuple[torch.Tensor, dict]:
+    """``prefill`` over ``heads`` heads, each layer ended by ``tail``."""
+    _, plen = tokens.shape
+    x = params["embed"][tokens] + params["pos"][:plen][None].to(cfg.dtype)
+    for i, blk in enumerate(params["blocks"]):
+        x, k, v = _block_forward(
+            x, blk, cfg, lambda q, k, v: flash_attention(q, k, v, causal=True), heads, tail
+        )
+        cache["k"][i, :, :, :plen] = k.transpose(1, 2)
+        cache["v"][i, :, :, :plen] = v.transpose(1, 2)
+    return _logits(x[:, -1], params), cache
+
+
 def prefill(
     params: dict, cfg: TransformerConfig, tokens: torch.Tensor, cache: dict
 ) -> tuple[torch.Tensor, dict]:
@@ -329,15 +428,31 @@ def prefill(
     place), and return the fp32 logits at the last prompt position with the
     cache.  Attention is ``flash_attention``: the Hopper kernel inside its
     envelope, the exact reference outside it."""
-    _, plen = tokens.shape
-    x = params["embed"][tokens] + params["pos"][:plen][None].to(cfg.dtype)
+    return _prefill(params, cfg, tokens, cache, cfg.n_heads, _layer_tail)
+
+
+def _decode(params: dict, cfg: TransformerConfig, tokens: torch.Tensor, cache: dict,
+            pos: int | torch.Tensor, heads: int, tail: Callable) -> tuple[torch.Tensor, dict]:
+    """``decode_step`` over ``heads`` heads, each layer ended by ``tail``."""
+    b = tokens.shape[0]
+    dev = cache["k"].device
+    pos_t = torch.as_tensor(pos, device=dev).reshape(1)
+    x = params["embed"][tokens] + params["pos"].index_select(0, pos_t).to(cfg.dtype)
+    x = x[:, None]  # [b, 1, d_model]
+    hd = cfg.head_dim
+    visible = torch.arange(cfg.max_seq, device=dev) <= pos_t  # [max_seq]
     for i, blk in enumerate(params["blocks"]):
-        x, k, v = _block_forward(
-            x, blk, cfg, lambda q, k, v: flash_attention(q, k, v, causal=True)
-        )
-        cache["k"][i, :, :, :plen] = k.transpose(1, 2)
-        cache["v"][i, :, :, :plen] = v.transpose(1, 2)
-    return _logits(x[:, -1], params), cache
+        h = _rmsnorm(x, blk["attn_norm"])
+        q, k, v = (t.reshape(b, heads, 1, hd) for t in _qkv(h, blk, cfg, heads))
+        k_cache, v_cache = cache["k"][i], cache["v"][i]  # [b, heads, max_seq, hd]
+        k_cache.index_copy_(2, pos_t, k)
+        v_cache.index_copy_(2, pos_t, v)
+        s = torch.matmul(q, k_cache.transpose(2, 3)).float() / math.sqrt(hd)
+        s = torch.where(visible, s, NEG_INF)  # [b, heads, 1, max_seq]
+        p = torch.softmax(s, dim=-1).to(cfg.dtype)
+        attn = torch.matmul(p, v_cache).reshape(b, 1, heads * hd)
+        x = tail(x, attn, blk, cfg)
+    return _logits(x[:, 0], params), cache
 
 
 def decode_step(
@@ -352,24 +467,143 @@ def decode_step(
     are written into ``cache`` in place, attention reads the whole static
     cache masked at ``<= pos``, and the fp32 logits for the next position
     come back with the cache."""
-    b = tokens.shape[0]
-    dev = cache["k"].device
-    pos_t = torch.as_tensor(pos, device=dev).reshape(1)
-    x = params["embed"][tokens] + params["pos"].index_select(0, pos_t).to(cfg.dtype)
-    x = x[:, None]  # [b, 1, d_model]
-    hd, heads = cfg.head_dim, cfg.n_heads
-    visible = torch.arange(cfg.max_seq, device=dev) <= pos_t  # [max_seq]
-    for i, blk in enumerate(params["blocks"]):
-        h = _rmsnorm(x, blk["attn_norm"])
-        qkv = torch.matmul(h, blk["wqkv"])
-        q, k, v = (t.reshape(b, heads, 1, hd) for t in qkv.split(cfg.d_model, dim=-1))
-        k_cache, v_cache = cache["k"][i], cache["v"][i]  # [b, heads, max_seq, hd]
-        k_cache.index_copy_(2, pos_t, k)
-        v_cache.index_copy_(2, pos_t, v)
-        s = torch.matmul(q, k_cache.transpose(2, 3)).float() / math.sqrt(hd)
-        s = torch.where(visible, s, NEG_INF)  # [b, heads, 1, max_seq]
-        p = torch.softmax(s, dim=-1).to(cfg.dtype)
-        attn = torch.matmul(p, v_cache).reshape(b, 1, cfg.d_model)
-        x = x + torch.matmul(attn, blk["wo"])
-        x = _mlp(x, blk, cfg)
-    return _logits(x[:, 0], params), cache
+    return _decode(params, cfg, tokens, cache, pos, cfg.n_heads, _layer_tail)
+
+
+# ---- tensor-parallel serving (data x model over the mesh) -----------------
+#
+# Megatron's layout, as JAX shards it: attention heads and the MLP's d_ff are
+# column-sharded over the model axis, the output projections row-sharded, so
+# each layer needs exactly two all_reduces (after wo, after w2) and attention
+# is local to the rank, which owns n_heads/m heads and their slice of the KV
+# cache.  The batch is sharded over the data axis: independent replicas.
+
+
+def tp_param_specs(cfg: TransformerConfig) -> dict:
+    """The TP layout of ``init_params``' pytree as DTensor placements, one a
+    mesh axis (data, model): JAX's PartitionSpecs.  ``wqkv`` is viewed as
+    [d_model, 3, n_heads, head_dim] (``tp_params``), so the packed q/k/v
+    columns shard by head, never inside one head's slice."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole = [Replicate(), Replicate()]
+    blk = {"attn_norm": whole, "wqkv": [Replicate(), Shard(2)], "wo": [Replicate(), Shard(0)],
+           "mlp_norm": whole, "w1": [Replicate(), Shard(1)], "w2": [Replicate(), Shard(0)]}
+    return {"embed": whole, "pos": whole, "out_norm": whole,
+            "blocks": [dict(blk) for _ in range(cfg.n_layers)]}
+
+
+def _tp_validate(cfg: TransformerConfig, mesh: DeviceMesh) -> None:
+    m = mesh_shape(mesh)[MODEL_AXIS]
+    if cfg.n_heads % m or cfg.d_ff % m:
+        raise ValueError(
+            f"n_heads {cfg.n_heads} and d_ff {cfg.d_ff} must be divisible "
+            f"by the model axis size ({m})"
+        )
+
+
+def _tp_device(mesh: DeviceMesh, device: str | torch.device | None) -> torch.device:
+    return resolve(device if device is not None else mesh.device_type)
+
+
+def tp_params(params_np: dict, cfg: TransformerConfig, mesh: DeviceMesh,
+              device: str | torch.device | None = None) -> dict:
+    """This rank's shard of the full parameters ``params_np`` (the JAX
+    pytree of numpy arrays: ``params_to_numpy``, or JAX's own), in
+    ``cfg.dtype`` on ``device`` (default: the mesh's device type):
+    ``wqkv`` viewed as [d_model, 3, n_heads, head_dim] and cut by head,
+    ``wo`` and ``w2`` by rows, ``w1`` by columns, the rest whole."""
+    _tp_validate(cfg, mesh)
+    m, index = mesh_shape(mesh)[MODEL_AXIS], mesh.get_local_rank(MODEL_AXIS)
+    dev = _tp_device(mesh, device)
+    specs = tp_param_specs(cfg)
+
+    def shard(x, placements):
+        t = torch.tensor(np.asarray(x, dtype=np.float32))
+        on_model = placements[1]
+        if on_model.is_shard():
+            t = t.chunk(m, dim=on_model.dim)[index]
+        return t.contiguous().to(cfg.dtype).to(dev)
+
+    blocks = [dict(blk, wqkv=np.asarray(blk["wqkv"]).reshape(
+        cfg.d_model, 3, cfg.n_heads, cfg.head_dim)) for blk in params_np["blocks"]]
+    return {
+        "embed": shard(params_np["embed"], specs["embed"]),
+        "pos": shard(params_np["pos"], specs["pos"]),
+        "out_norm": shard(params_np["out_norm"], specs["out_norm"]),
+        "blocks": [{name: shard(blk[name], spec[name]) for name in _LEAVES}
+                   for blk, spec in zip(blocks, specs["blocks"], strict=True)],
+    }
+
+
+def init_tp_kv_cache(cfg: TransformerConfig, batch: int, mesh: DeviceMesh,
+                     device: str | torch.device | None = None) -> dict:
+    """This rank's slice of the TP KV cache, zeros: batch over the data
+    axis, heads over the model axis, head-major as ``init_kv_cache``:
+    ``{"k", "v": [layers, batch/data, n_heads/model, max_seq, head_dim]}``.
+    Only the slice is allocated, never the whole cache: the layout exists
+    for a cache larger than one device holds."""
+    _tp_validate(cfg, mesh)
+    shape = mesh_shape(mesh)
+    if batch % shape[DATA_AXIS]:
+        raise ValueError(f"batch {batch} must be divisible by the data axis ({shape[DATA_AXIS]})")
+    local = (cfg.n_layers, batch // shape[DATA_AXIS], cfg.n_heads // shape[MODEL_AXIS],
+             cfg.max_seq, cfg.head_dim)
+    dev = _tp_device(mesh, device)
+    return {"k": torch.zeros(local, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(local, dtype=cfg.dtype, device=dev)}
+
+
+def _tp_layout(mesh: DeviceMesh, cfg: TransformerConfig) -> tuple[int, Callable]:
+    """The rank's local head count and its layers' TP tail."""
+    _tp_validate(cfg, mesh)
+    heads = cfg.n_heads // mesh_shape(mesh)[MODEL_AXIS]
+    return heads, partial(_tp_block_tail, group=mesh.get_group(MODEL_AXIS))
+
+
+def make_tp_decode_step(mesh: DeviceMesh, cfg: TransformerConfig):
+    """(tp_params, tokens[batch/data], tp_cache, pos) -> (logits[batch/data,
+    vocab], tp_cache): one autoregressive step of this rank's batch shard
+    over its heads (two all_reduces a layer); the cache is written in place.
+    ``pos`` is an int or a 0-d integer tensor on the device.  Logits come
+    out of the sums, so every rank of a model group holds the same."""
+    heads, tail = _tp_layout(mesh, cfg)
+
+    def step(params, tokens, cache, pos):
+        return _decode(params, cfg, tokens, cache, pos, heads, tail)
+
+    return step
+
+
+def make_tp_decode_burst(mesh: DeviceMesh, cfg: TransformerConfig, tokens_per_burst: int):
+    """(tp_params, tokens[batch/data], tp_cache, pos) -> (tokens, tp_cache,
+    pos): ``tokens_per_burst`` greedy steps on the TP layout, as the
+    single-device burst chains them: each step's argmax feeds the next and
+    ``pos`` wraps before ``max_seq``.  ``tokens`` (long) and ``pos`` (a 0-d
+    long tensor on the device) are updated in place with the cache and
+    returned, so the burst can be captured in a CUDA graph."""
+    step = make_tp_decode_step(mesh, cfg)
+
+    def burst(params, tokens, cache, pos):
+        for _ in range(tokens_per_burst):
+            logits, cache = step(params, tokens, cache, pos)
+            tokens.copy_(logits.argmax(dim=-1))
+            pos.add_(1).remainder_(cfg.max_seq - 1)
+        return tokens, cache, pos
+
+    return burst
+
+
+def make_tp_prefill(mesh: DeviceMesh, cfg: TransformerConfig):
+    """(tp_params, tokens[batch/data, prompt_len], tp_cache) -> (last-position
+    logits, tp_cache): the admission path of TP serving.  Each rank's
+    attention is ``flash_attention`` over its local heads (the Hopper
+    forward kernel inside its envelope: head sharding leaves head_dim as it
+    is), then the same two all_reduces a layer as decode; the cache is
+    written in place."""
+    heads, tail = _tp_layout(mesh, cfg)
+
+    def prefill_fn(params, tokens, cache):
+        return _prefill(params, cfg, tokens, cache, heads, tail)
+
+    return prefill_fn

@@ -14,11 +14,16 @@ is imported when they are called: it takes a second to import, and no
 workload needs it).  The workloads themselves
 (models/tp_mlp.py, loadgen/allreduce.py, loadgen/train.py) call explicit
 collectives on ``mesh.get_group(DATA_AXIS)`` and ``mesh.get_group(MODEL_AXIS)``,
-as the JAX workloads call explicit ``shard_map`` collectives.
+as the JAX workloads call explicit ``shard_map`` collectives.  Two of those
+collectives have no differentiable counterpart in torch and are here:
+``axis_index`` (``lax.axis_index``) and ``ppermute`` (``lax.ppermute``, with
+its transpose as the backward), the ring's and the pipeline's
+point-to-point step.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -84,3 +89,73 @@ def model_sharding(mesh: DeviceMesh, axis: int = 1, ndim: int = 2) -> list:
     if not 0 <= axis < ndim:
         raise ValueError(f"axis {axis} of a {ndim}-d weight")
     return [Replicate(), Shard(axis)]
+
+
+def axis_index(group: dist.ProcessGroup) -> int:
+    """This rank's index on the mesh axis whose group is ``group``:
+    ``lax.axis_index``.  An axis name is refused: in torch a rank reaches
+    its axis through the axis's group (``mesh.get_group(name)``)."""
+    if not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"an axis of several ranks is reached through its process group "
+                        f"(mesh.get_group), not {group!r}")
+    return dist.get_group_rank(group, dist.get_rank())
+
+
+def ppermute(x: torch.Tensor, group: dist.ProcessGroup,
+             perm: list[tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute`` over the ranks of ``group``: for each ``(src, dst)``
+    of ``perm`` (indices on the axis) the rank at ``src`` sends its ``x`` to
+    the rank at ``dst``; a rank that receives nothing gets zeros.  Every rank
+    of the group calls it with the same ``perm``.
+
+    Differentiable: the backward sends the gradient along the inverse
+    permutation, as JAX transposes ``ppermute``.  The transport is one
+    ``batch_isend_irecv`` of the rank's sends and receives, waited for
+    under the group's timeout, so a ring whose ranks disagree raises.  A
+    gloo group carries CUDA tensors only through all_reduce and broadcast,
+    so on gloo (``dist.get_backend``) a CUDA tensor travels as a host copy
+    and comes back to its device: the staging gloo does for the
+    collectives it carries.  NCCL sends the device tensor."""
+    return _PPermute.apply(x, group, tuple((int(s), int(d)) for s, d in perm))
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _send_recv(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _send_recv(grad, ctx.group, inverse), None, None
+
+
+def host_staged(x: torch.Tensor, group: dist.ProcessGroup) -> bool:
+    """Whether ``ppermute`` sends ``x`` over ``group`` as a host copy: a
+    tensor off the CPU on a gloo group (chosen by the group's backend)."""
+    return dist.get_backend(group) == "gloo" and x.device.type != "cpu"
+
+
+def _send_recv(x: torch.Tensor, group: dist.ProcessGroup, perm: tuple) -> torch.Tensor:
+    n, me = dist.get_world_size(group), axis_index(group)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or not all(
+            0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"{list(perm)} is not a permutation of an axis of {n}")
+    send_to = [d for s, d in perm if s == me and d != me]
+    recv_from = [s for s, d in perm if d == me]
+    if recv_from == [me]:  # an edge to itself
+        return x.clone()
+    staged = host_staged(x, group)
+    send = x.detach().to("cpu" if staged else x.device).contiguous()
+    recv = torch.empty_like(send)
+    ranks = dist.get_process_group_ranks(group)
+    ops = [dist.P2POp(dist.isend, send, ranks[d], group) for d in send_to]
+    ops += [dist.P2POp(dist.irecv, recv, ranks[s], group) for s in recv_from]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if not recv_from:
+        return torch.zeros_like(x)
+    return recv.to(x.device) if staged else recv

@@ -68,6 +68,8 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.parallel.mesh",
         "k8s_gpu_hpa_tpu_torch.models.tp_mlp",
         "k8s_gpu_hpa_tpu_torch.loadgen.allreduce",
+        "k8s_gpu_hpa_tpu_torch.loadgen.ringattn",
+        "k8s_gpu_hpa_tpu_torch.loadgen.decode",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -75,6 +77,46 @@ def test_importing_every_port_module_loads_no_jax():
     # the kubelet client imports grpc when it is called, never at import; and
     # on a host without NVML the imports above succeed: none loads it at import
     assert "grpc" not in out["loaded"]
+
+
+_RUN_MESH_PATHS = """
+import json, sys
+import torch, torch.distributed as dist
+from k8s_gpu_hpa_tpu_torch.loadgen.multihost import free_port
+from k8s_gpu_hpa_tpu_torch.loadgen.ringattn import RingAttentionLoadGen
+from k8s_gpu_hpa_tpu_torch.loadgen.decode import DecodeLoadGen
+from k8s_gpu_hpa_tpu_torch.models import transformer as t
+from k8s_gpu_hpa_tpu_torch.parallel.mesh import make_mesh
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                        world_size=1)
+mesh = make_mesh()
+ring = RingAttentionLoadGen(mesh=mesh, seq_per_device=16, heads=1, head_dim=8, device="cpu")
+ring.warmup()
+cfg = t.TransformerConfig(d_model=32, n_heads=2, n_layers=1, d_ff=64, max_seq=16,
+                          dtype=torch.float32)
+params = t.init_params(cfg, torch.Generator().manual_seed(0))
+tokens = torch.zeros(1, 16, dtype=torch.long)
+t.make_train_step(cfg, mesh=mesh)(params, tokens)
+serve = DecodeLoadGen(batch=1, max_seq=16, d_model=32, n_heads=2, n_layers=1,
+                      tokens_per_burst=2, prefill_len=4, dtype=torch.float32, device="cpu",
+                      mesh=mesh)
+serve.warmup()
+dist.destroy_process_group()
+print(json.dumps({"loaded": sorted(sys.modules)}))
+"""
+
+
+def test_running_the_ring_tp_and_sequence_parallel_paths_loads_no_jax():
+    """The ring rung, a sequence-parallel step and a tensor-parallel burst,
+    run on a gloo group of one in a fresh interpreter, load neither JAX nor
+    the JAX package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_MESH_PATHS], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
+    assert "k8s_gpu_hpa_tpu_torch.loadgen.ringattn" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_no_port_source_names_jax_or_the_jax_package():

@@ -288,6 +288,36 @@ def test_a_rank_that_dies_fails_the_launcher_with_its_exit_code(capfd):
     assert "rank 1 exited with code 3; stopping the others" in capfd.readouterr().err
 
 
+def test_the_launcher_names_the_first_failure_when_it_wakes_after_both_ranks_exited(
+        monkeypatch, capfd):
+    """Under load the launcher may wake only once rank 1 has died (code 3)
+    and rank 0, whose barrier lost it, has exited too (code 1): the code is
+    still rank 1's.  The launcher's wait is made to return only once every
+    rank it waits for has exited."""
+    import multiprocessing.connection
+    import types
+
+    from k8s_gpu_hpa_tpu_torch.loadgen import multihost
+
+    real = multiprocessing.connection.wait
+
+    def late(objects, timeout=None):
+        deadline = time.monotonic() + JOIN_S
+        while len(real(objects, 0)) < len(objects) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return real(objects, 0)
+
+    monkeypatch.setattr(multihost, "multiprocessing", types.SimpleNamespace(
+        connection=types.SimpleNamespace(wait=late), forkserver=multiprocessing.forkserver,
+        resource_tracker=multiprocessing.resource_tracker))
+    code = launch(die_on_rank_one, devices=["cpu", "cpu"], timeout_s=TIMEOUT_S,
+                  join_timeout_s=JOIN_S)
+    err = capfd.readouterr().err
+    assert "rank 0 exited" not in err
+    assert code == 3
+    assert "rank 1 exited with code 3; stopping the others" in err
+
+
 def test_the_launcher_kills_its_ranks_past_its_deadline():
     with pytest.raises(TimeoutError, match="2 of 2 ranks still running after 1 s"):
         launch(block, devices=["cpu", "cpu"], timeout_s=TIMEOUT_S, join_timeout_s=1)
@@ -299,6 +329,13 @@ def test_a_free_port_is_free():
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", free_port()))
+
+
+def test_a_free_port_lies_below_the_ephemeral_range():
+    """Where a socket bound to port 0 (a gloo pair's) can never take it
+    before the rendezvous binds it."""
+    low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    assert all(1024 <= free_port() < low for _ in range(20))
 
 
 def test_matmul_loadgen_loads_every_local_device(monkeypatch):
