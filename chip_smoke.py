@@ -37,7 +37,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. loop          — the headline loop, as bench.py runs it: loadgen →
                    TorchDeviceSource → ExporterDaemon over HTTP → Scraper →
                    tpu-test rules → adapter → HPA on tpu_test_tensorcore_avg
-                   (the GEMM's MFU) must scale 1 → 4 within the 60 s budget.
+                   (the GEMM's MFU) must scale 1 → 4 within the 60 s budget;
+                   then the load drops to 0.08 devices and the drain back to
+                   one replica must end within bench.py's 255 s with no flap.
+7b. overshoot    — bench.py's overshoot probe on the headline loop: one
+                   device of load (a need of 3 replicas) on the duty-cycle
+                   average; no replica beyond 3 (bench.py's bar on a chip),
+                   and what each sync read.
 8. nvml          — NVML read from this process: the NVML device of the
                    generator's torch device found by UUID (never index 0
                    assumed); exporter/nvml.py's struct layouts against a probe
@@ -165,18 +171,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    (1024 tokens, 8 heads of 128, bf16, 8 passes a burst) on
                    the mesh of one for 3 s: bursts, the context, TFLOP/s by
                    JAX's causal formula (a ring of one moves no block).
+32b. moe_loadgen — ``MoELoadGen()`` at the container's defaults (d_model
+                   512, d_ff 2048, 1024 tokens, 2 experts, 8 FFNs a burst,
+                   bf16) on the mesh of one for 3 s, where the exchange moves
+                   nothing: burst ms, tokens/s, the exchange's bytes (0); one
+                   profiled burst's kernels and idle share; a burst against
+                   the same chain through moe_ffn_reference within 0.06 of
+                   its RMS.
 33. tp_serve_graph — the TP burst at the shipped serve sizes on the (1, 1)
                    mesh over NCCL, captured as one CUDA graph, against the
                    single-device graph burst: tokens equal, the cache within
                    0.06 of its RMS; both burst times.
 34. ringattn_entry — the multihost command with WORKLOAD=ringattn reports
                    twice and exits 0 on SIGTERM.
+34b. moe_entry   — the same with WORKLOAD=moe, one process: its banner shows
+                   the generator's mesh {"data": 1, "model": 1}.
 35. ring_parity  — two gloo ranks sharing the card run ``ring_attention`` at
                    the rung's default (b1, 2 × 1024, 8 heads of 128, causal)
                    against ``reference_attention`` over the whole sequence:
                    f32 within 2e-5, bf16 within 3e-2, and the f32 gradients
                    of q, k and v within 2e-4 of autograd through the
                    reference.
+35b. ep_parity   — two gloo ranks sharing the card run the EP FFN at the
+                   container's width with a model axis of 2 (4 experts, 1024
+                   tokens) against moe_ffn_reference on one device: f32
+                   within 2e-5, bf16 within 0.06 of its RMS, and the f32
+                   gradients of the router and both expert weights within
+                   2e-4 (each rank's loss scaled by 1/2, each gradient summed
+                   over the ranks that hold the parameter).
+35c. pp_parity   — two gloo ranks run the pipeline at PipelineConfig()'s
+                   width in f32 (8 layers, 4 a stage, 4 microbatches of 16)
+                   against pp_forward_reference on one device in f64: the
+                   output within 2e-5 on both stages, the gradients within
+                   2e-4; the same reference in f32 on one device is read
+                   beside them.
 36. tp_serve_parity — ``DecodeLoadGen(model_parallelism=2)`` at the shipped
                    serve sizes on two gloo ranks against the single-device
                    generator, same weights and prompt: the prefill's logits,
@@ -200,16 +228,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
-the JAX package.  Nor on the mesh's paths (phases 27-35, 37): their
-collectives are NCCL's or gloo's, their products cuBLAS's and the ring plain
-PyTorch, as the JAX package leaves it to XLA.  TP serving's prefill (phases
+the JAX package.  Nor on the mesh's paths (phases 27-35c, 37): their
+collectives are NCCL's or gloo's, their products cuBLAS's and the ring, the
+experts' routing and exchange and the pipeline's stages plain PyTorch, as
+the JAX package leaves them to XLA.  TP serving's prefill (phases
 33 and 36) runs the flash forward on each rank's local heads.  The card has
 one GPU and NCCL takes one rank a GPU, so nothing there runs on NCCL across
 ranks: two ranks share it over gloo, whose times are not rates.
 
 Launch counts.  Each wrapper counts the launches it makes.  The GEMM's
-launches on the main path are those of loop and node_loop, each counted
-from zero.  A decode burst
+launches on the main path are those of loop, overshoot and node_loop, each
+counted from zero.  A decode burst
 is one replay of a CUDA graph, and the graph's launches happen without the
 wrapper: the flash wrapper counts them once, when the burst is captured
 (``DecodeLoadGen.flash_launches_per_burst``).  So the serve loop's flash
@@ -263,6 +292,7 @@ from k8s_gpu_hpa_tpu_torch.loadgen.decode import SERVE_SIZES, DecodeLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
 from k8s_gpu_hpa_tpu_torch.loadgen.llm import LlmLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
+from k8s_gpu_hpa_tpu_torch.loadgen.moe import MoELoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.multihost import (
     HostTopology, free_port, initialize, launch, stop_rank_server,
 )
@@ -276,7 +306,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_DUTY_CYCLE,
     TPU_TENSORCORE_UTIL,
 )
-from k8s_gpu_hpa_tpu_torch.models import transformer
+from k8s_gpu_hpa_tpu_torch.models import moe, pipeline, transformer
 from k8s_gpu_hpa_tpu_torch.models.resnet import BatchNorm
 from k8s_gpu_hpa_tpu_torch.models.tp_mlp import init_tp_mlp, tp_mlp_forward
 from k8s_gpu_hpa_tpu_torch.ops import flash_attention, matmul
@@ -296,6 +326,8 @@ from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_a
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.trial import (
+    DUTY_SERIES,
+    PROBE_NEED,
     REAL_POD,
     SERVE_SERIES,
     TENSORCORE_SERIES,
@@ -303,6 +335,7 @@ from k8s_gpu_hpa_tpu_torch.trial import (
     LoadThread,
     WindowedDuty,
     measure_saturated_signal,
+    run_headline_overshoot_probe,
     run_headline_trial,
     run_node_headline_trial,
     run_serve_trial,
@@ -438,18 +471,44 @@ def _warm_trace() -> None:
     torch.cuda.synchronize()
 
 
-def _traced_kernels(prof, width: int) -> dict:
-    """Device time and calls by kernel name, the warm-up's spin kernels and
-    the regions a user annotated (``Optimizer.step#SGD.step``) left out."""
+def _traced_kernels(events, width: int, after: float | None = None) -> dict:
+    """Device time and calls by kernel name among a trace's events, the
+    warm-up's spin kernels and the regions a user annotated
+    (``Optimizer.step#SGD.step``) left out; with ``after``, only the
+    kernels that start at or after it."""
     kernels = {}
-    for event in prof.key_averages():
-        if (event.device_type == torch.autograd.DeviceType.CUDA
-                and event.self_device_time_total > 0 and "spin_kernel" not in event.key
-                and not getattr(event, "is_user_annotation", False)):
-            kernels[event.key[:width]] = {
-                "ms": event.self_device_time_total / 1e3, "calls": event.count,
-            }
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation
+                or "spin_kernel" in e.name or (after is not None and e.time_range.start < after)):
+            continue
+        k = kernels.setdefault(e.name[:width], {"ms": 0.0, "calls": 0})
+        k["ms"] += e.time_range.elapsed_us() / 1e3
+        k["calls"] += 1
     return kernels
+
+
+def _after_lead(step, before=None) -> tuple[dict, float]:
+    """Device time and calls by kernel name of one ``step()`` under
+    torch.profiler, and its host wall time in ms.  A lead ``step()`` and
+    the spin kernels of ``_warm_trace`` go first in the same trace, and the
+    step's kernels are those that start after the last spin kernel ends: a
+    trace that drops kernels at its head (as traces begun at a graph
+    replay, and late in a long run, have) drops the lead step's.
+    ``before`` runs between the spins and the step."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        step()
+        _warm_trace()
+        if before is not None:
+            before()
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    spins = [e.time_range.end for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" in e.name]
+    return (_traced_kernels(events, 100, after=max(spins)) if spins else {}), wall_ms
 
 
 def emit(obj: dict) -> None:
@@ -730,7 +789,7 @@ def phase_profile(gen) -> dict:
         gen._burst(gen.iters_per_burst)
         wall_ms = (time.perf_counter() - t0) * 1e3
     wrapper_launches = matmul_kernel.launches
-    kernels = _traced_kernels(prof, 80)
+    kernels = _traced_kernels(prof.events(), 80)
     busy_ms = sum(k["ms"] for k in kernels.values())
 
     def calls_of(name: str) -> int:
@@ -758,11 +817,20 @@ def phase_profile(gen) -> dict:
     return out
 
 
+#: bench.py's scale-down budget on a chip and its flaps (SCALE_DOWN_BUDGET_S
+#: ["real_chip"], SCALE_DOWN_MAX_FLAPS), and its overshoot bar (OVERSHOOT_MAX)
+SCALE_DOWN_BUDGET_S = 255.0
+SCALE_DOWN_MAX_FLAPS = 0
+OVERSHOOT_MAX = 0
+
+
 def phase_loop(gen) -> int:
     """The headline loop on the kernel, as bench.py runs it: the HPA reads
     the tensor-core average, the kernel's MFU, which phase_loadgen showed
     can clear the band above the target.  The series holds both recorded
-    averages, tensor-core and duty cycle."""
+    averages, tensor-core and duty cycle.  Once all 4 replicas run the load
+    drops to 0.08 devices, and the drain back to one replica must end
+    within bench.py's 255 s without a flap."""
     matmul_kernel.launches = 0
     t0 = time.perf_counter()
     result = run_headline_trial(gen)
@@ -773,11 +841,42 @@ def phase_loop(gen) -> int:
     emit({
         "phase": "loop", "hpa_metric": TENSORCORE_SERIES, "time_scale": 1.0,
         "scale_up_s": result.scale_up_s, "budget_s": 60.0,
-        "spike_to_cross_s": result.spike_to_cross_s, "wall_s": wall,
+        "spike_to_cross_s": result.spike_to_cross_s,
+        "scale_down_s": result.scale_down_s, "scale_down_budget_s": SCALE_DOWN_BUDGET_S,
+        "scale_down_flaps": result.scale_down_flaps,
+        "scale_down_max_flaps": SCALE_DOWN_MAX_FLAPS, "wall_s": wall,
         "launches": launches,
         "replicas": [list(r) for r in result.replicas],
         "series": [[round(t, 2), tc, duty] for t, tc, duty in result.series],
     })
+    if (result.scale_down_s is None or result.scale_down_s > SCALE_DOWN_BUDGET_S
+            or result.scale_down_flaps > SCALE_DOWN_MAX_FLAPS):
+        raise AssertionError(
+            f"the drain took {result.scale_down_s} s with {result.scale_down_flaps} flaps "
+            f"(bars: {SCALE_DOWN_BUDGET_S} s, {SCALE_DOWN_MAX_FLAPS} flaps)")
+    return launches
+
+
+def phase_overshoot(gen) -> int:
+    """bench.py's overshoot probe on the headline loop around the GEMM, at
+    time scale 1: one device of load, whose steady need is 3 of 4 replicas
+    where each running pod reads 100/n (the HPA reads the duty-cycle
+    average).  Held to bench.py's bar on a chip, OVERSHOOT_MAX: the 3 pods
+    run 3 s before the next sync, and that sync must read the load's 3 s
+    window below the band edge 44.  The GEMM's launches are returned."""
+    matmul_kernel.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    overshoot = run_headline_overshoot_probe(gen, log=lines.append)
+    wall = time.perf_counter() - t0
+    launches = matmul_kernel.launches
+    emit({"phase": "overshoot", "hpa_metric": DUTY_SERIES, "time_scale": 1.0,
+          "need": PROBE_NEED, "overshoot": overshoot, "overshoot_max": OVERSHOOT_MAX,
+          "band_edge": TARGET * 1.1, "wall_s": wall, "launches": launches, "syncs": lines})
+    if launches <= 0:
+        raise AssertionError("the overshoot probe launched the kernel no time")
+    if overshoot > OVERSHOOT_MAX:
+        raise AssertionError(f"the probe overshot by {overshoot} (bar: {OVERSHOOT_MAX}): {lines}")
     return launches
 
 
@@ -1257,42 +1356,21 @@ def phase_serve_loadgen(gen: DecodeLoadGen) -> dict:
     return out
 
 
-def _profile_burst(gen: DecodeLoadGen) -> tuple[dict, float]:
-    """Device time and calls by kernel of one graph burst under
-    torch.profiler, and the burst's host wall time in ms."""
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        t0 = time.perf_counter()
-        gen.run_burst()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _traced_kernels(prof, 100)
-    return kernels, wall_ms
-
-
-def phase_serve_profile(gen: DecodeLoadGen, attempts: int = 3) -> dict:
-    """One graph burst under torch.profiler: device time by kernel, and the
-    device's idle share of the burst's host wall time (profiled, so an upper
-    bound).  A trace begun right at a graph replay has at times missed the
-    replay's first several hundred kernels, the prefill's among them: a
-    burst whose trace lacks the flash launches is traced again, up to
-    ``attempts`` bursts, and every attempt's kernel count is reported."""
+def phase_serve_profile(gen: DecodeLoadGen) -> dict:
+    """One graph burst under torch.profiler (``_after_lead``): device
+    time by kernel, and the device's idle share of the burst's host wall
+    time (profiled, so an upper bound).  The burst must hold one flash
+    launch a layer."""
     gen.run_burst()
     torch.cuda.synchronize()
-    calls_by_attempt = []
-    for _ in range(attempts):
-        kernels, wall_ms = _profile_burst(gen)
-        flash = {name: k for name, k in kernels.items() if "flash_fwd_kernel" in name}
-        calls_by_attempt.append(sum(k["calls"] for k in kernels.values()))
-        if sum(k["calls"] for k in flash.values()) == gen.cfg.n_layers:
-            break
+    kernels, wall_ms = _after_lead(gen.run_burst)
+    flash = {name: k for name, k in kernels.items() if "flash_fwd_kernel" in name}
     busy_ms = sum(k["ms"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
     out = {
         "phase": "serve_profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernel_names": len(kernels), "kernel_calls": calls_by_attempt[-1],
-        "kernel_calls_by_attempt": calls_by_attempt,
+        "kernel_names": len(kernels), "kernel_calls": sum(k["calls"] for k in kernels.values()),
         "flash": flash, "top_kernels": top,
     }
     emit(out)
@@ -1620,21 +1698,13 @@ def phase_llm_train(gens: dict[str, LlmLoadGen], seconds: float = 3.0) -> dict[s
 
 
 def phase_llm_profile(gen: LlmLoadGen) -> dict:
-    """One auto step under torch.profiler: device time by kernel, the
-    launches of the step, and the device's idle share of the step's host
-    wall time (profiled, so an upper bound)."""
+    """One auto step under torch.profiler (``_after_lead``): device time by
+    kernel, the launches of the step, and the device's idle share of the
+    step's host wall time (profiled, so an upper bound)."""
     gen.step()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        _warm_trace()
-        _zero_counts()
-        t0 = time.perf_counter()
-        gen.step()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, wall_ms = _after_lead(gen.step, before=_zero_counts)
     wrapper = _bwd_counts()
-    kernels = _traced_kernels(prof, 100)
     busy_ms = sum(k["ms"] for k in kernels.values())
 
     def calls_of(name: str) -> int:
@@ -2391,6 +2461,22 @@ SP_LOSS_ATOL = 0.05
 SP_REL = 0.06
 #: each rank's sequence at the llm rung's defaults
 SP_SEQ = 2048
+#: the seconds the moe rung runs on the mesh of one; its burst against the
+#: same chain through moe_ffn_reference on the RMS (the port's bf16 bar)
+MOE_S = 3.0
+MOE_REL = 0.06
+#: the EP pair at the container's width (d_model 512, d_ff 2048, 1024 tokens
+#: a shard) with 4 experts over a model axis of 2, and the PP pair at
+#: PipelineConfig()'s, against one device: tests/test_parallelism.py's bars
+#: in f32 (the output 2e-5, the gradients 2e-4; the pipeline's in units of
+#: their RMS) and the port's bf16 bar
+EP_SIZES = dict(d_model=512, d_ff=2048, n_experts=4)
+EP_TOKENS = 1024
+PAR_TOL = 2e-5
+PAR_GRAD_TOL = 2e-4
+PAR_BF16_REL = 0.06
+PP_BATCH = 64
+PP_MICRO = 4
 
 
 def _within(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
@@ -2509,6 +2595,219 @@ def phase_ringattn_entry(work_dir: str) -> dict:
             or "mesh={'data': 1, 'model': 1}" not in banner
             or last.get("ctx") != str(RING_SHAPE[1])):
         raise AssertionError(f"the ringattn entry point did not run as expected: {out}")
+    return out
+
+
+def _moe_chain(gen: MoELoadGen, x: torch.Tensor) -> torch.Tensor:
+    """``gen``'s burst from ``x`` with each FFN through
+    ``moe_ffn_reference``: at a model axis of 1 the rank holds every expert."""
+    with torch.no_grad():
+        for i in range(gen.ffns_per_burst):
+            x = gen._renorm(x + moe.moe_ffn_reference(gen._params, gen.cfg, x), i)
+    return x
+
+
+def phase_moe_loadgen(device: str = "cuda:0", seconds: float = MOE_S) -> dict:
+    """``MoELoadGen()`` at the container's defaults (d_model 512, d_ff 2048,
+    1024 tokens, 2 experts, 8 FFNs a burst, bf16) on the mesh of the NCCL
+    group of one, where the exchange moves nothing, for ``seconds``: burst
+    ms, tokens/s and the exchange's bytes by JAX's formula; one profiled
+    burst's kernels and the device's idle share of its host wall time; one
+    burst against the same chain through moe_ffn_reference."""
+    gen = MoELoadGen(device=device)
+    gen.warmup()
+    ms = []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        ms.append(gen.step() * 1e3)
+    stats = gen.stats()
+    kernels, wall_ms = _after_lead(gen.step)
+    busy_ms = sum(k["ms"] for k in kernels.values())
+    x = gen._x.clone()
+    got, want = gen._burst(x).float(), _moe_chain(gen, x).float()
+    out = {"phase": "moe_loadgen", "mesh": mesh_shape(gen.mesh), "d_model": gen.cfg.d_model,
+           "d_ff": gen.cfg.d_ff, "n_experts": gen.cfg.n_experts,
+           "tokens_per_shard": gen.tokens_per_shard, "ffns_per_burst": gen.ffns_per_burst,
+           "dtype": "bfloat16", "bursts": stats.bursts, "burst_ms_median": sorted(ms)[len(ms) // 2],
+           "tokens_per_sec": stats.tokens_per_sec, "a2a_bytes_per_burst": stats.a2a_bytes_per_burst,
+           "a2a_gbps": stats.a2a_gbps, "busy_s": stats.seconds,
+           "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
+           "kernel_calls": sum(k["calls"] for k in kernels.values()),
+           "top_kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12]),
+           "reference_rel_rms": _rel_rms(got, want), "reference_bar": MOE_REL,
+           "finite": bool(torch.isfinite(got).all())}
+    emit(out)
+    if not (stats.bursts > 0 and stats.a2a_bytes_per_burst == 0 and kernels and out["finite"]
+            and out["reference_rel_rms"] <= MOE_REL):
+        raise AssertionError(f"the moe rung did not run as expected: {out}")
+    return out
+
+
+def phase_moe_entry(work_dir: str) -> dict:
+    """The slice container's command with WORKLOAD=moe and REPORT_S 2 as
+    one process: its banner (the generator's mesh, a model axis of 1 at
+    world 1), two reports, then SIGTERM and exit 0."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                        "TPU_WORKER_HOSTNAMES", "HOSTS_PER_SLICE", "MODEL_PARALLELISM")}
+    env.update(WORKLOAD="moe", REPORT_S="2",
+               TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
+    entry = _Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env)
+    try:
+        banner = entry.wait_for("tpu-test multihost loadgen")
+        entry.wait_for("bursts=", count=2)
+    finally:
+        code = entry.stop()
+    reports = [ln for ln in entry.lines if ln.startswith("bursts=")]
+    out = {"phase": "moe_entry", "exit_code": code, "banner": banner, "reports": reports}
+    emit(out)
+    last = dict(f.split("=", 1) for f in reports[-1].split()) if reports else {}
+    if (code != 0 or len(reports) < 2 or "(moe): process 0/1 " not in banner
+            or "mesh={'data': 1, 'model': 1}" not in banner or int(last.get("bursts", 0)) <= 0):
+        raise AssertionError(f"the moe entry point did not run as expected: {out}")
+    return out
+
+
+def _ep_inputs() -> torch.Tensor:
+    gen = torch.Generator().manual_seed(DP_SEED)
+    return torch.randn(EP_TOKENS, EP_SIZES["d_model"], generator=gen) * 0.5
+
+
+def ep_parity_rank(out_dir: str, x: torch.Tensor, device: str) -> None:
+    """One of ep_parity's two ranks (mesh (1, 2), two experts each): the EP
+    output in f32 and bf16, and the f32 gradients of router, w1 and w2 with
+    the loss scaled by ``replica_share`` and summed over their copies."""
+    mesh = make_mesh(model_parallelism=2)
+    out = {"model_index": mesh.get_local_rank(MODEL_AXIS),
+           "backend": dist.get_backend(mesh.get_group(MODEL_AXIS))}
+    x = x.to(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = moe.MoEConfig(**EP_SIZES, dtype=dtype)
+        params = moe.init_moe_params(torch.Generator().manual_seed(0), cfg, mesh, device)
+        ffn = moe.make_ep_moe_ffn(mesh, cfg)
+        if dtype == torch.float32:
+            params = {k: v.requires_grad_() for k, v in params.items()}
+            y = ffn(params, x)
+            (y.square().sum() * moe.replica_share(mesh)).backward()
+            moe.sum_replicated_grads(params, mesh)
+            out["grads"] = {k: v.grad.cpu() for k, v in params.items()}
+        else:
+            y = ffn(params, x.to(dtype))
+        out[str(dtype).removeprefix("torch.")] = y.detach().float().cpu()
+    torch.cuda.synchronize(device)
+    _save_rank(out_dir, out)
+
+
+def phase_ep_parity(work_dir: str, device: str = "cuda:0") -> dict:
+    """The EP FFN at the container's width on two gloo ranks sharing the
+    card (mesh (1, 2): a model axis of 2, 4 experts, 1024 tokens) against
+    ``moe_ffn_reference`` on the one data shard on one device: the output
+    in f32 at 2e-5 and in bf16 within 0.06 of its RMS, the f32 gradients of
+    the router and both expert weights at 2e-4.  Every exchange crosses the
+    host (gloo): the pair's time is not a rate."""
+    x = _ep_inputs()
+    want = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = moe.MoEConfig(**EP_SIZES, dtype=dtype)
+        params = moe.init_moe_params(torch.Generator().manual_seed(0), cfg, device=device)
+        if dtype == torch.float32:
+            params = {k: v.requires_grad_() for k, v in params.items()}
+            y = moe.moe_ffn_reference(params, cfg, x.to(device))
+            y.square().sum().backward()
+            want["grads"] = {k: v.grad.cpu() for k, v in params.items()}
+        else:
+            y = moe.moe_ffn_reference(params, cfg, x.to(device, dtype))
+        want[str(dtype).removeprefix("torch.")] = y.detach().float().cpu()
+    ranks = sorted(_pair(ep_parity_rank, work_dir, device, x, device),
+                   key=lambda r: r["model_index"])
+    out = {"phase": "ep_parity", "mesh": {"data": 1, "model": 2}, **EP_SIZES,
+           "tokens": EP_TOKENS, "backend": [r["backend"] for r in ranks],
+           "pair_wall_s": ranks[0]["wall_s"],
+           "float32": [_within(r["float32"], want["float32"], PAR_TOL) for r in ranks],
+           "bfloat16_rel_rms": [_rel_rms(r["bfloat16"], want["bfloat16"]) for r in ranks],
+           "bars": {"float32": PAR_TOL, "bfloat16_rel_rms": PAR_BF16_REL, "grads": PAR_GRAD_TOL}}
+    local_e = EP_SIZES["n_experts"] // 2
+    for name in ("router", "w1", "w2"):
+        got = (ranks[0]["grads"][name] if name == "router"
+               else torch.cat([r["grads"][name] for r in ranks]))
+        out[f"d{name}"] = _within(got, want["grads"][name], PAR_GRAD_TOL)
+        if name == "router":
+            out["drouter"]["replicas_equal"] = bool(torch.equal(ranks[0]["grads"]["router"],
+                                                                ranks[1]["grads"]["router"]))
+        else:
+            assert all(r["grads"][name].shape[0] == local_e for r in ranks)
+    emit(out)
+    checks = [*out["float32"], out["drouter"], out["dw1"], out["dw2"]]
+    if (out["backend"] != ["gloo", "gloo"] or any(c["out_of_tol"] or not c["finite"] for c in checks)
+            or max(out["bfloat16_rel_rms"]) > PAR_BF16_REL or not out["drouter"]["replicas_equal"]):
+        raise AssertionError(f"the EP FFN across two ranks disagrees with the reference: {out}")
+    return out
+
+
+def pp_parity_rank(out_dir: str, x: torch.Tensor, device: str) -> None:
+    """One of pp_parity's two ranks (mesh (1, 2), four layers each): the
+    pipeline's output and its stage's f32 gradients, the loss scaled by 1/2."""
+    mesh = make_mesh(model_parallelism=2)
+    cfg = pipeline.PipelineConfig(dtype=torch.float32)
+    params = {k: v.requires_grad_() for k, v in
+              pipeline.init_pp_params(torch.Generator().manual_seed(0), cfg, mesh, device).items()}
+    y = pipeline.make_pp_forward(mesh, cfg, n_micro=PP_MICRO)(params, x.to(device))
+    (y.square().sum() / 2).backward()
+    torch.cuda.synchronize(device)
+    _save_rank(out_dir, {"stage": mesh.get_local_rank(MODEL_AXIS), "y": y.detach().cpu(),
+                         "grads": {k: v.grad.cpu() for k, v in params.items()},
+                         "backend": dist.get_backend(mesh.get_group(MODEL_AXIS))})
+
+
+def _worst_raw(got: torch.Tensor, want: torch.Tensor, other: torch.Tensor, tol: float) -> dict:
+    """The element where ``got`` comes nearest ``_within``'s bar against
+    ``want`` (or passes it by the most): its index, ``want`` there, and the
+    errors of ``got`` and of ``other`` there."""
+    got, want, other = got.double(), want.double(), other.double()
+    over = (got - want).abs() - tol - tol * want.abs()
+    i = int(over.argmax())
+    return {"index": i, "want": float(want.flatten()[i]),
+            "err": float((got - want).flatten()[i]), "other_err": float((other - want).flatten()[i])}
+
+
+def phase_pp_parity(work_dir: str, device: str = "cuda:0") -> dict:
+    """The pipeline at PipelineConfig()'s width (d_model 128, d_ff 256, 8
+    layers) in f32 on two gloo ranks sharing the card (mesh (1, 2), 4
+    microbatches of 16) against ``pp_forward_reference`` on one device in
+    f64: the output at 2e-5 and each weight's gradient at 2e-4.  The same
+    reference in f32 on one device is read beside it, with its error at the
+    element where the pair comes nearest the bar (``worst``): against each
+    other the two f32 results miss 2e-4 at an element, by f32 sums over
+    gradients whose RMS is some 80-140.  Every stage returns the whole
+    block."""
+    cfg = pipeline.PipelineConfig(dtype=torch.float32)
+    x = torch.randn(PP_BATCH, cfg.d_model, generator=torch.Generator().manual_seed(DP_SEED)) * 0.5
+    init = pipeline.init_pp_params(torch.Generator().manual_seed(0), cfg, device=device)
+    ref = {}
+    for dtype in (torch.float64, torch.float32):
+        params = {k: v.to(dtype).requires_grad_() for k, v in init.items()}
+        y = pipeline.pp_forward_reference(params, cfg, x.to(device, dtype))
+        y.square().sum().backward()
+        ref[dtype] = y.detach().cpu(), {k: v.grad.cpu() for k, v in params.items()}
+    (y64, g64), (y32, g32) = ref[torch.float64], ref[torch.float32]
+    ranks = sorted(_pair(pp_parity_rank, work_dir, device, x, device), key=lambda r: r["stage"])
+    out = {"phase": "pp_parity", "mesh": {"data": 1, "model": 2}, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "n_layers": cfg.n_layers, "batch": PP_BATCH, "n_micro": PP_MICRO,
+           "reference": "float64, one device",
+           "backend": [r["backend"] for r in ranks], "pair_wall_s": ranks[0]["wall_s"],
+           "y": [_within(r["y"], y64, PAR_TOL) for r in ranks],
+           "y_one_device_f32": _within(y32, y64, PAR_TOL),
+           "bars": {"y": PAR_TOL, "grads": PAR_GRAD_TOL}}
+    for name in ("w1", "w2"):
+        got = torch.cat([r["grads"][name] for r in ranks])
+        out[f"d{name}"] = {**_within(got, g64[name], PAR_GRAD_TOL),
+                           "worst": _worst_raw(got, g64[name], g32[name], PAR_GRAD_TOL)}
+        out[f"d{name}_one_device_f32"] = _within(g32[name], g64[name], PAR_GRAD_TOL)
+    emit(out)
+    checks = [*out["y"], out["dw1"], out["dw2"]]
+    if out["backend"] != ["gloo", "gloo"] or any(c["out_of_tol"] or not c["finite"] for c in checks):
+        raise AssertionError(f"the pipeline across two ranks disagrees with the reference: {out}")
     return out
 
 
@@ -2868,6 +3167,7 @@ def main() -> int:
         gen = phase_loadgen(knob_dir)
         phase_profile(gen)
         launches = phase_loop(gen)
+        launches += phase_overshoot(gen)
         attribution = phase_nvml(gen)
         launches += phase_node_loop(gen, attribution)
     del gen
@@ -2899,12 +3199,16 @@ def main() -> int:
         phase_tp_mlp(mesh)
         phase_allreduce_loadgen()
         phase_ringattn_loadgen()
+        phase_moe_loadgen()
         _, tp_launches = phase_tp_serve_graph()
         dist.destroy_process_group()
         phase_allreduce_entry(work_dir)
         phase_ringattn_entry(work_dir)
+        phase_moe_entry(work_dir)
         phase_train_dp(work_dir)
         phase_ring_parity(work_dir)
+        phase_ep_parity(work_dir)
+        phase_pp_parity(work_dir)
         _, pair_launches = phase_tp_serve_parity(work_dir)
         tp_launches += pair_launches
         phase_llm_sp(work_dir)

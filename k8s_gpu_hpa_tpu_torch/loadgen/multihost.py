@@ -25,9 +25,8 @@ process exits (``stop_rank_server``).  With one local device it starts nothing a
 runs the rank in its own process.  With no topology the rendezvous is
 ``127.0.0.1`` on a free port.
 
-``main`` runs ``WORKLOAD=allreduce`` (the default), ``ringattn`` and
-``llm`` over the mesh of every rank of the slice; ``moe`` names the ROADMAP
-item that ports it.
+``main`` runs ``WORKLOAD=allreduce`` (the default), ``ringattn``, ``llm``
+and ``moe`` over the mesh of every rank of the slice.
 """
 
 from __future__ import annotations
@@ -56,10 +55,6 @@ from k8s_gpu_hpa_tpu_torch.device import local_devices, resolve
 #: the JAX coordinator's default port, kept for the addresses it resolves;
 #: overridable via COORDINATOR_PORT
 DEFAULT_COORDINATOR_PORT = 8476
-
-#: workloads of the JAX container that wait for a later slice, by ROADMAP
-#: item; an unknown WORKLOAD means allreduce there, as here
-_LATER = {"moe": 12}
 
 #: seconds a rank waits for the rendezvous, and for a collective on gloo
 #: (NCCL's watchdog aborts one that outlasts it), before it raises
@@ -521,7 +516,39 @@ def run_llm(topology: HostTopology | None, device: str | torch.device | None) ->
          lead)
 
 
-_WORKLOADS = {"allreduce": run_allreduce, "ringattn": run_ringattn, "llm": run_llm}
+def run_moe(topology: HostTopology | None, device: str | torch.device | None) -> None:
+    """One rank of ``WORKLOAD=moe``: ``MoELoadGen`` on a mesh of its own, a
+    model axis of MODEL_PARALLELISM ranks, or the generator's default (2
+    where the group's size is even and more than 1) where that is 0 or
+    unset: the exchange needs a model axis, which the slice's default
+    mesh, pure data parallel, lacks.  D_MODEL 512, D_FF 2048 and
+    TOKENS_PER_SHARD 1024."""
+    from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
+    from k8s_gpu_hpa_tpu_torch.loadgen.moe import MoELoadGen
+    from k8s_gpu_hpa_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+    mp = int(os.environ.get("MODEL_PARALLELISM", "0"))
+    gen = MoELoadGen(
+        mesh=make_mesh(model_parallelism=mp) if mp else None,
+        d_model=int(os.environ.get("D_MODEL", "512")),
+        d_ff=int(os.environ.get("D_FF", "2048")),
+        tokens_per_shard=int(os.environ.get("TOKENS_PER_SHARD", "1024")),
+        device=device,
+    )
+    gen.warmup()
+    knob = IntensityKnob()
+    # the mesh the generator built, not the slice's default
+    say(_banner("moe", topology, f"mesh={mesh_shape(gen.mesh)}", knob))
+
+    def report(s):
+        return (f"bursts={s.bursts} tok/s={s.tokens_per_sec:.0f} "
+                f"a2a={s.a2a_gbps:.2f}GB/s busy={s.seconds:.1f}s")
+
+    _run(gen, knob, report, gen.device)
+
+
+_WORKLOADS = {"allreduce": run_allreduce, "ringattn": run_ringattn, "llm": run_llm,
+              "moe": run_moe}
 
 
 def main(device: str | torch.device | None = None) -> None:
@@ -540,15 +567,13 @@ def main(device: str | torch.device | None = None) -> None:
     ``auto`` or ``ring``); CHECKPOINT_DIR enables its resume-on-restart with
     a save every CHECKPOINT_EVERY (100) steps and a final save on SIGTERM or
     SIGINT (scale-down kills whole slices), written by rank 0.
+    ``WORKLOAD=moe`` runs expert-parallel MoE FFN bursts on a mesh whose
+    model axis is MODEL_PARALLELISM (D_MODEL, D_FF, TOKENS_PER_SHARD).
     DIST_BACKEND names the group's backend (NCCL on GPUs and gloo on the CPU
     unless set): for tests and bring-up only, where gloo lets the ranks of
     several processes share one GPU; no deployment sets it.
     ``device`` is CUDA unless the caller passes ``"cpu"``."""
     workload = os.environ.get("WORKLOAD", "allreduce")
-    if workload in _LATER:
-        raise NotImplementedError(
-            f"WORKLOAD={workload!r} is not ported yet (ROADMAP item {_LATER[workload]})"
-        )
     topology = topology_from_env()
     code = launch(_WORKLOADS.get(workload, run_allreduce), (topology, device),
                   devices=local_devices(device), topology=topology,

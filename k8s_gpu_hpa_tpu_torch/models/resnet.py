@@ -46,6 +46,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from k8s_gpu_hpa_tpu_torch.parallel.mesh import psum
+
 #: flax's BatchNorm: ``momentum=0.9, epsilon=1e-5``
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -83,26 +85,6 @@ class Conv(nn.Module):
         if top == bottom and left == right:
             return F.conv2d(x, w, stride=self.stride, padding=(top, left))
         return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=self.stride)
-
-
-class _AllReduceSum(torch.autograd.Function):
-    """``all_reduce`` (SUM) over ``group`` whose backward sums the incoming
-    gradients over the group in turn: every rank's input reaches every
-    rank's output.  (``torch.distributed.nn.functional.all_reduce`` does the
-    same and is deprecated in recent PyTorch.)"""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
 
 
 class BatchNorm(nn.Module):
@@ -147,9 +129,9 @@ class BatchNorm(nn.Module):
         variance from the summed squared deviations from it."""
         xf = x.float()
         count = xf.numel() // xf.shape[1] * dist.get_world_size(self.group)
-        mean = _AllReduceSum.apply(xf.sum((0, 2, 3)), self.group) / count
+        mean = psum(xf.sum((0, 2, 3)), self.group) / count
         centred = xf - mean[:, None, None]
-        squares = _AllReduceSum.apply(centred.square().sum((0, 2, 3)), self.group)
+        squares = psum(centred.square().sum((0, 2, 3)), self.group)
         scale = torch.rsqrt(squares / count + BN_EPS) * self.weight
         y = centred * scale[:, None, None] + self.bias[:, None, None]
         with torch.no_grad():

@@ -14,11 +14,14 @@ is imported when they are called: it takes a second to import, and no
 workload needs it).  The workloads themselves
 (models/tp_mlp.py, loadgen/allreduce.py, loadgen/train.py) call explicit
 collectives on ``mesh.get_group(DATA_AXIS)`` and ``mesh.get_group(MODEL_AXIS)``,
-as the JAX workloads call explicit ``shard_map`` collectives.  Two of those
-collectives have no differentiable counterpart in torch and are here:
-``axis_index`` (``lax.axis_index``) and ``ppermute`` (``lax.ppermute``, with
-its transpose as the backward), the ring's and the pipeline's
-point-to-point step.
+as the JAX workloads call explicit ``shard_map`` collectives.  Those with
+no differentiable counterpart in torch are here: ``axis_index``
+(``lax.axis_index``), ``ppermute`` (``lax.ppermute``, with its transpose as
+the backward), the ring's and the pipeline's point-to-point step,
+``all_to_all`` (``lax.all_to_all`` untiled), the expert-parallel exchange,
+and ``psum`` (``lax.psum``, a sum whose backward sums too).
+(``torch.distributed.nn.functional`` has such collectives and is deprecated
+in recent PyTorch.)
 """
 
 from __future__ import annotations
@@ -132,7 +135,7 @@ class _PPermute(torch.autograd.Function):
 
 
 def host_staged(x: torch.Tensor, group: dist.ProcessGroup) -> bool:
-    """Whether ``ppermute`` sends ``x`` over ``group`` as a host copy: a
+    """Whether a collective here sends ``x`` over ``group`` as a host copy: a
     tensor off the CPU on a gloo group (chosen by the group's backend)."""
     return dist.get_backend(group) == "gloo" and x.device.type != "cpu"
 
@@ -159,3 +162,75 @@ def _send_recv(x: torch.Tensor, group: dist.ProcessGroup, perm: tuple) -> torch.
     if not recv_from:
         return torch.zeros_like(x)
     return recv.to(x.device) if staged else recv
+
+
+def all_to_all(x: torch.Tensor, group: dist.ProcessGroup, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=False)`` over
+    the ranks of ``group``: ``x``'s dimension ``split_axis`` has one entry a
+    rank of the group, and entry ``j`` goes to the rank at index ``j``; each
+    rank stacks what it receives, by the sender's index, on a new dimension
+    at ``concat_axis`` of the result (``x``'s shape with ``split_axis``
+    removed).  So ``[n, e, c, d]`` with split 0 and concat 1 becomes ``[e, n,
+    c, d]``, entry ``[i, j]`` from rank ``j``'s ``[me, i]``.
+
+    Differentiable: the backward is the reverse exchange, split and concat
+    swapped, as JAX transposes ``all_to_all``.  The transport is one
+    ``all_to_all_single`` on dimension 0 between two permutes; on gloo
+    (``host_staged``) a CUDA tensor travels as a host copy and comes back to
+    its device.  A group of one sends nothing."""
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] != n:
+        raise ValueError(f"all_to_all splits dimension {split_axis} of {tuple(x.shape)} "
+                         f"over a group of {n}")
+    if not 0 <= concat_axis < x.dim():
+        raise ValueError(f"concat_axis {concat_axis} for a result of {x.dim()} dimensions")
+    if n == 1:
+        return x.movedim(split_axis, concat_axis)
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _exchange(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return _exchange(grad, ctx.group, concat_axis, split_axis), None, None, None
+
+
+def _exchange(x: torch.Tensor, group: dist.ProcessGroup, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    staged = host_staged(x, group)
+    send = x.detach().movedim(split_axis, 0).to("cpu" if staged else x.device).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # dimension 0 of what arrived indexes the sender
+    return (recv.to(x.device) if staged else recv).movedim(0, concat_axis)
+
+
+def psum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """``lax.psum`` over the ranks of ``group``: an all_reduce (SUM) whose
+    backward sums the incoming gradients over the group in turn, so every
+    rank's input reaches every rank's output.  Each rank's output is a
+    replica of one value: a loss that counts it once a group scales each
+    rank's share by 1 / the group's size."""
+    return _AllReduceSum.apply(x, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None

@@ -1,8 +1,8 @@
 """The closed autoscaling loop around one real device: the headline trial.
 
 The port's counterpart of the headline trial in the repository's bench.py
-(``MirrorDeployment``, ``_wire_pipeline`` and the scale-up half of
-``run_trial``).  One real pod, ``tpu-test-real``, runs the matmul load
+(``MirrorDeployment``, ``_wire_pipeline``, ``run_trial`` and
+``run_overshoot_probe``).  One real pod, ``tpu-test-real``, runs the matmul load
 generator on the device; its exporter serves the generator's self-reported
 gauges over HTTP.  The deployment's other replicas are mirror pods on a
 synthetic node whose gauges copy the real device's current utilization once
@@ -12,9 +12,16 @@ group records the per-deployment averages, and an HPA with target 40 and
 
 The trial offers 0.2 devices of load, then spikes to 8 devices' worth: the
 generator's intensity is the per-running-pod share, so it runs flat out
-until four pods share the load.  The trial ends when all four replicas
-run, and fails if that takes longer than the budget after the metric
-crossed the target.
+until four pods share the load.  The scale-up fails if all four replicas do
+not run within the budget after the metric crossed the target.  Then the
+headline trial drains, as bench.py's does: the load drops to 0.08 devices,
+and the trial times the way back to one replica under the shipped
+behavior (a 120 s window, then 50% every 60 s) and counts the flaps, the
+syncs at which the replicas rise again after a fall.  The other loops end
+at the scale-up.  The overshoot probe (``run_overshoot_probe``) offers one
+device of load, whose steady need is 3 of 4 replicas, and counts the
+replicas the HPA asks for beyond 3 while its metric still reads the load
+from before the new pods started.
 
 The serve trial (``run_serve_trial``, the counterpart of bench.py's
 ``run_rung_serve``) runs the same loop around the decode load generator:
@@ -45,6 +52,8 @@ real run, a ``VirtualClock`` for a scripted one.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import threading
 import time
 import urllib.request
@@ -131,6 +140,9 @@ class LoopSpec:
     settle_below: float
     #: a started mirror pod's device, given the value ``mirror_util`` reads
     mirror_chip: Callable[[int, float], ChipSample]
+    #: offered load once all replicas run, in devices' worth, whose drain
+    #: back to one replica the trial times; None: the trial ends there
+    drain_offered: float | None = None
 
 
 def _mirror_busy(i: int, util: float) -> ChipSample:
@@ -162,6 +174,10 @@ def headline_spec(metric: str = DUTY_SERIES) -> LoopSpec:
         base_offered=0.2,
         settle_below=30.0,
         mirror_chip=_mirror_busy,
+        # well below one pod's target even once the load concentrates on
+        # fewer pods (4 → 2 → 1), so every recommendation after the drop is
+        # 1 and the drain is the behavior's own pace (bench.py's value)
+        drain_offered=0.08,
     )
 
 
@@ -362,6 +378,41 @@ class TrialResult:
     #: and its headroom over the target
     saturated_pct: float | None = None
     headroom: float | None = None
+    #: the load's drop once all replicas ran → one replica (None: no drain,
+    #: or a drain that did not end within its bound), and the syncs of the
+    #: drain at which the replicas rose after a fall
+    scale_down_s: float | None = None
+    scale_down_flaps: int = 0
+
+
+class _Grid:
+    """The scrapes' times: every ``period`` from ``first`` on a fixed grid,
+    as Prometheus keeps them.  A due time is taken at the tick nearest it,
+    and a late tick moves none of the times after it.  (bench.py's loop
+    sets each next scrape from the tick that ran the last, so its scrapes
+    drift against the syncs, and a sync can read a scrape up to a period
+    old.)  The HPA's syncs stay off any grid: each comes a full period
+    after the last one ran, as the controller requeues its target, so the
+    policy periods the HPA looks back over have passed by the next sync."""
+
+    def __init__(self, first: float, period: float, tick: float):
+        self.first, self.period, self.slack = first, period, tick / 2
+        self._k = 0
+
+    def due(self, now: float) -> bool:
+        if now < self.first + self._k * self.period - self.slack:
+            return False
+        self._k = math.floor((now + self.slack - self.first) / self.period) + 1
+        return True
+
+
+def _settle(load: Load, loop: LoopSpec, clock: Clock, time_scale: float) -> None:
+    """Drop to the spec's base load and let the generator's window flush any
+    earlier load, so the trial starts from a true baseline."""
+    load.set_intensity(loop.base_offered)
+    settle_deadline = clock.now() + max(30.0 * time_scale, 5.0)
+    while load.utilization() > loop.settle_below and clock.now() < settle_deadline:
+        clock.sleep(0.1)
 
 
 def run_trial(
@@ -374,6 +425,9 @@ def run_trial(
     """Settle at the spec's base load (0.2 devices for the headline loop),
     spike to 8, and time the scale-up.  The crossing is the first scrape
     after the spike at which any of the HPA's metrics exceeds its target.
+    Where the spec drains (``drain_offered``), the load then drops and the
+    trial times the drain to one replica, bounded at ``max(600 ×
+    time_scale, 60)`` s, and counts its flaps.
 
     Raises RuntimeError when no metric crosses its target or the
     deployment does not reach MAX_REPLICAS running pods within the budget
@@ -383,31 +437,28 @@ def run_trial(
     hpa_sync = BASE_HPA_SYNC * time_scale
     budget = BASE_BUDGET_S * time_scale
     deployment = pipe.deployment
-    # drop to the pre-spike load and let the generator's window flush any
-    # earlier load, so the crossing starts from a true baseline
-    load.set_intensity(loop.base_offered)
-    settle_deadline = clock.now() + max(30.0 * time_scale, 5.0)
-    while load.utilization() > loop.settle_below and clock.now() < settle_deadline:
-        clock.sleep(0.1)
+    _settle(load, loop, clock, time_scale)
 
     offered = loop.base_offered  # in devices' worth; below the target
     start = clock.now()
     spike_at = start + 6.0 * time_scale
     t_cross = None
     t_done = None
+    t_drop = None
+    fell = False  # the replicas fell at a sync of the drain
+    prev_replicas = deployment.replicas
     result = TrialResult(0.0, 0.0)
-    next_scrape = start
+    scrapes = _Grid(start, scrape_interval, tick)
     next_sync = start + hpa_sync
     deadline = spike_at + 6.0 * hpa_sync + budget
     while clock.now() < deadline:
         now = clock.now()
-        if now >= spike_at:
+        if t_drop is None and now >= spike_at:
             offered = 8.0  # drives per-pod utilization to 100 until 4 pods
         load.set_intensity(min(1.0, offered / max(1, len(deployment.running()))))
-        if now >= next_scrape:
+        if scrapes.due(now):
             pipe.scraper.scrape_once()
             pipe.evaluator.evaluate_once()
-            next_scrape = now + scrape_interval
             selector = {"deployment": loop.app}
             result.series.append(
                 (now - spike_at, *(pipe.db.latest(s, selector) for s in loop.series))
@@ -428,13 +479,26 @@ def run_trial(
                 m.metric_name: pipe.hpa.adapter.get_object_metric(m.described_object, m.metric_name)
                 for m in loop.metrics
             }))
+            if t_drop is not None:
+                if deployment.replicas > prev_replicas and fell:
+                    result.scale_down_flaps += 1
+                fell = fell or deployment.replicas < prev_replicas
+            prev_replicas = deployment.replicas
         if (
-            t_cross is not None
+            t_done is None
+            and t_cross is not None
             and deployment.replicas == MAX_REPLICAS
             and len(deployment.running()) == MAX_REPLICAS
         ):
             t_done = now
             result.replicas.append((now - spike_at, MAX_REPLICAS, MAX_REPLICAS))
+            if loop.drain_offered is None:
+                break
+            t_drop, offered = now, loop.drain_offered
+            deadline = now + max(600.0 * time_scale, 60.0)
+        if t_drop is not None and deployment.replicas == 1:
+            result.scale_down_s = now - t_drop
+            result.replicas.append((now - spike_at, 1, len(deployment.running())))
             break
         clock.sleep(tick)
     if t_cross is None:
@@ -448,6 +512,72 @@ def run_trial(
     result.scale_up_s = t_done - t_cross
     result.spike_to_cross_s = t_cross - spike_at
     return result
+
+
+#: the overshoot probe's offered load, in devices' worth, and the replicas
+#: it needs: at n running pods each is 100/n % busy, and ceil(n × (100/n) /
+#: 40) is 3 at n = 1 and at n = 3
+PROBE_OFFERED = 1.0
+PROBE_NEED = 3
+
+
+def run_overshoot_probe(
+    load: Load,
+    pipe: Pipeline,
+    clock: Clock,
+    time_scale: float = 1.0,
+    tick: float = 0.05,
+    log: Callable[[str], None] | None = None,
+) -> int:
+    """bench.py's overshoot probe: settle at the spec's base load, offer
+    ``PROBE_OFFERED`` device, and watch two further syncs and 2 s (times
+    ``time_scale``) after ``PROBE_NEED`` pods run, where a sync that reads
+    the metric from before the new pods started would overshoot.  Returns
+    the most replicas seen less ``PROBE_NEED``, at least 0; ``log`` gets a
+    line at each sync.  Raises RuntimeError when ``PROBE_NEED`` pods never
+    run within ``max(240 × time_scale, 60)`` s."""
+    loop = pipe.loop_spec()
+    scrape_interval = max(0.05, 1.0 * time_scale)
+    hpa_sync = BASE_HPA_SYNC * time_scale
+    deployment = pipe.deployment
+    _settle(load, loop, clock, time_scale)
+
+    offered = loop.base_offered
+    start = clock.now()
+    spike_at = start + 6.0 * time_scale
+    max_seen = deployment.replicas
+    t_steady = None
+    scrapes = _Grid(start, scrape_interval, tick)
+    next_sync = start + hpa_sync
+    deadline = start + max(240.0 * time_scale, 60.0)
+    while clock.now() < deadline:
+        now = clock.now()
+        if now >= spike_at:
+            offered = PROBE_OFFERED
+        load.set_intensity(min(1.0, offered / max(1, len(deployment.running()))))
+        if scrapes.due(now):
+            pipe.scraper.scrape_once()
+            pipe.evaluator.evaluate_once()
+        if now >= next_sync:
+            pipe.hpa.sync_once()
+            next_sync = now + hpa_sync
+            max_seen = max(max_seen, deployment.replicas)
+            if log is not None:
+                values = (pipe.hpa.adapter.get_object_metric(m.described_object, m.metric_name)
+                          for m in loop.metrics)
+                read = " ".join(f"read={v:.2f}" if v is not None else "read=none" for v in values)
+                log(f"probe sync: t={now - spike_at:+.2f}s {read} replicas={deployment.replicas} "
+                    f"running={len(deployment.running())} max_seen={max_seen}")
+        if t_steady is None and len(deployment.running()) >= PROBE_NEED:
+            t_steady = now
+        # a metric-lag overshoot fires at the first sync after the new pods
+        # start: two further syncs cover it
+        if t_steady is not None and now >= t_steady + 2 * hpa_sync + 2.0 * time_scale:
+            break
+        clock.sleep(tick)
+    if t_steady is None:
+        raise RuntimeError(f"the overshoot probe never had {PROBE_NEED} pods running")
+    return max(0, max_seen - PROBE_NEED)
 
 
 class LoadThread:
@@ -494,9 +624,11 @@ def _live_trial(
     time_scale: float,
     attributor: Attributor | None = None,
     selfreport: SelfReportReader | None = None,
-) -> TrialResult:
+    drive: Callable[..., object] = run_trial,
+):
     """Run ``step`` in its own thread, as the workload runs in its own pod,
-    serve ``source`` over HTTP as the spec's real pod, and drive the loop.
+    serve ``source`` over HTTP as the spec's real pod, and drive the loop
+    (``run_trial``, or ``run_overshoot_probe``): what ``drive`` returns.
 
     An ``ExporterDaemon`` serves the source on an ephemeral port of
     127.0.0.1 on node ``real-0``, attributing devices through ``attributor``
@@ -535,7 +667,7 @@ def _live_trial(
         pipe = wire_pipeline(
             lambda: http_fetch(daemon.port), mirror_util, clock, time_scale, spec=spec
         )
-        return run_trial(load, pipe, clock, time_scale)
+        return drive(load, pipe, clock, time_scale)
     finally:
         stop.set()
         feeder.join(10)
@@ -556,11 +688,29 @@ def run_headline_trial(
     the real device's duty cycle into both gauges, as bench.py's do.  The
     tensor-core series exists only where the generator knows its device's
     peak (``gen.peak_tflops``)."""
-    source = TorchDeviceSource(
+    return _live_trial(
+        headline_spec(metric), _matmul_source(gen), gen.step, gen, gen.utilization, time_scale
+    )
+
+
+def _matmul_source(gen: MatmulLoadGen) -> TorchDeviceSource:
+    return TorchDeviceSource(
         util_fn=gen.utilization, mxu_fn=gen.mxu_utilization, device=gen.device
     )
+
+
+def run_headline_overshoot_probe(
+    gen: MatmulLoadGen, log: Callable[[str], None] | None = None
+) -> int:
+    """``run_overshoot_probe`` on the headline loop around one matmul load
+    generator, in real time at time scale 1, wired as ``run_headline_trial``
+    wires it.  Its HPA reads the duty-cycle average, where each of n running
+    pods reads 100/n under one device of load, as the probe's need of 3
+    assumes: on the tensor-core average the real pod reads its MFU, about
+    half its duty cycle, and the need would be 2."""
     return _live_trial(
-        headline_spec(metric), source, gen.step, gen, gen.utilization, time_scale
+        headline_spec(DUTY_SERIES), _matmul_source(gen), gen.step, gen, gen.utilization, 1.0,
+        drive=lambda *args: run_overshoot_probe(*args, log=log),
     )
 
 
@@ -582,7 +732,7 @@ def run_node_headline_trial(
     (``gen.mxu_utilization()``), the duty cycle and the TFLOP/s, as the
     matmul container does.  The daemon merges the report, and the HPA reads
     ``tpu_test_tensorcore_avg``, which under NVML only the merge supplies.
-    The source is closed before this returns."""
+    It ends at the scale-up.  The source is closed before this returns."""
     source = source if source is not None else NvmlSource()
     writer = TelemetryWriter(
         telemetry_dir, pod=REAL_POD, namespace="default",
@@ -599,7 +749,9 @@ def run_node_headline_trial(
 
     try:
         return _live_trial(
-            headline_spec(TENSORCORE_SERIES), source, step, gen, gen.utilization,
+            # the scale-up alone: the headline trial times the drain
+            dataclasses.replace(headline_spec(TENSORCORE_SERIES), drain_offered=None),
+            source, step, gen, gen.utilization,
             time_scale, attributor=attributor, selfreport=SelfReportReader(telemetry_dir),
         )
     finally:

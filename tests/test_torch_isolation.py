@@ -70,6 +70,9 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.loadgen.allreduce",
         "k8s_gpu_hpa_tpu_torch.loadgen.ringattn",
         "k8s_gpu_hpa_tpu_torch.loadgen.decode",
+        "k8s_gpu_hpa_tpu_torch.models.moe",
+        "k8s_gpu_hpa_tpu_torch.models.pipeline",
+        "k8s_gpu_hpa_tpu_torch.loadgen.moe",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]

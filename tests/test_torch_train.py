@@ -334,17 +334,6 @@ def test_initialize_takes_one_process_and_refuses_more():
         multihost.initialize(multihost.HostTopology(2, 2, "127.0.0.1:1"), device="cpu")
 
 
-@pytest.mark.parametrize("env, item", [({"WORKLOAD": "moe"}, 12)])
-def test_main_refuses_what_is_not_ported(monkeypatch, env, item):
-    for name in ("WORKLOAD", "CHECKPOINT_DIR", "COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
-                 "HOSTS_PER_SLICE"):
-        monkeypatch.delenv(name, raising=False)
-    for name, value in env.items():
-        monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        multihost.main(device="cpu")
-
-
 _MAIN = "from k8s_gpu_hpa_tpu_torch.loadgen.multihost import main; main(device='cpu')"
 
 
