@@ -182,6 +182,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    mesh over NCCL, captured as one CUDA graph, against the
                    single-device graph burst: tokens equal, the cache within
                    0.06 of its RMS; both burst times.
+33b. slice_loop  — the slice pod's closed loop (run_slice_trial) while the
+                   group of one is up: AllReduceLoadGen at its full width
+                   (64 MB) as ordinal 0 of slice 0, a slice of one on NCCL
+                   (a real second host would block at the rendezvous); its
+                   slice peer and slices 1-3 are mirror pods of a
+                   StatefulSet.  PacedLoad's windowed duty → TorchDeviceSource
+                   → ExporterDaemon → Scraper → the slice rule on the duty
+                   cycle → adapter on the StatefulSet → the shipped slice HPA
+                   (target 40, pods 2..8, quantum 2, its behavior) at 0.2,
+                   then 3.2 devices of load: all 8 pods run within 60 s of
+                   the crossing, and no scale event lands off a slice
+                   boundary.  It launches no hand-written kernel.
+33c. slice_nvml  — NVML's duty cycle while the collective rung runs at knob
+                   1.0 and 0.25, beside the generator's own busy share:
+                   whether NVML reads the pod's copies and collectives as
+                   busy.  Reported, not held to a bar.
+33d. doctor_nvml — ``python -m k8s_gpu_hpa_tpu_torch.doctor nvml`` (the
+                   NVML probe of doctor.py): every NVML call the node
+                   exporter makes answers on the card (exit 0); GPM's
+                   support and one sample's answer are reported.
 34. ringattn_entry — the multihost command with WORKLOAD=ringattn reports
                    twice and exits 0 on SIGTERM.
 34b. moe_entry   — the same with WORKLOAD=moe, one process: its banner shows
@@ -286,7 +306,12 @@ from k8s_gpu_hpa_tpu_torch.exporter.podresources import (
     parse_list_response,
 )
 from k8s_gpu_hpa_tpu_torch.exporter.sources import NvmlSource
-from k8s_gpu_hpa_tpu_torch.control.hpa import TRAIN_BW_SERIES, TRAIN_DUTY_SERIES
+from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    MULTIHOST_MAX_REPLICAS,
+    MULTIHOST_QUANTUM,
+    TRAIN_BW_SERIES,
+    TRAIN_DUTY_SERIES,
+)
 from k8s_gpu_hpa_tpu_torch.loadgen.allreduce import AllReduceLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.decode import SERVE_SIZES, DecodeLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
@@ -339,6 +364,7 @@ from k8s_gpu_hpa_tpu_torch.trial import (
     run_headline_trial,
     run_node_headline_trial,
     run_serve_trial,
+    run_slice_trial,
     run_train_trial,
 )
 from k8s_gpu_hpa_tpu_torch.utils import protowire
@@ -3119,6 +3145,101 @@ def phase_llm_sp(work_dir: str, device: str = "cuda:0") -> dict:
     return out
 
 
+#: the slice loop's bars: bench.py's multihost rung's, a scale-up to all 8
+#: pods within the 60 s budget of the crossing and no scale event off a
+#: slice boundary
+SLICE_BUDGET_S = 60.0
+SLICE_MAX_VIOLATIONS = 0
+
+
+def _kernel_counts() -> dict[str, int]:
+    return {"matmul_bf16": matmul_kernel.launches,
+            **{f"flash_attention_{k}": v for k, v in _bwd_counts().items()}}
+
+
+def phase_slice_loop(device: str = "cuda:0") -> dict:
+    """The slice pod's closed loop on the group of one: the collective rung
+    at its full width as ordinal 0, the shipped slice HPA in whole slices.
+    The kernels' counts are set to 0 before it and read after: the slice
+    path runs none of them."""
+    gen = AllReduceLoadGen(device=device)
+    gen.warmup()
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    result = run_slice_trial(gen)
+    running = result.replicas[-1][2]
+    out = {
+        "phase": "slice_loop",
+        "slice": f"a slice of one: world {dist.get_world_size()} on {dist.get_backend()}, "
+                 "ordinal 0 of slice 0 on this card; its peer and slices 1-3 are mirror pods",
+        "hpa_metric": trial.MULTIHOST_DUTY_SERIES, "time_scale": 1.0,
+        "mesh": mesh_shape(gen.mesh), "buffer_shape": list(gen.shape),
+        "scale_up_s": result.scale_up_s, "budget_s": SLICE_BUDGET_S,
+        "spike_to_cross_s": result.spike_to_cross_s,
+        "slice_boundary_violations": result.slice_boundary_violations,
+        "violations_bar": SLICE_MAX_VIOLATIONS,
+        "pods_running": running, "pods_max": MULTIHOST_MAX_REPLICAS, "quantum": MULTIHOST_QUANTUM,
+        "rounds": gen.stats().rounds, "wall_s": time.perf_counter() - t0,
+        "kernel_launches": _kernel_counts(),
+        "replicas": [list(r) for r in result.replicas],
+        "series": [[round(t, 2), v] for t, v in result.series],
+    }
+    emit(out)
+    if (result.scale_up_s > SLICE_BUDGET_S or running != MULTIHOST_MAX_REPLICAS
+            or result.slice_boundary_violations > SLICE_MAX_VIOLATIONS):
+        raise AssertionError(f"the slice loop missed its bars: {out}")
+    return out
+
+
+def phase_slice_nvml(device: str = "cuda:0", seconds: float = 3.0) -> dict:
+    """NVML's duty cycle while the collective rung runs under PacedLoad, as
+    in the slice loop, at knob 1.0 and at 0.25, beside the generator's own
+    busy share over its 3 s window: does NVML count the pod's copies and
+    collectives as busy?  The answer is reported, not held to a bar."""
+    gen = AllReduceLoadGen(device=device)
+    gen.warmup()
+    load = trial.PacedLoad(gen)
+    uuid = f"GPU-{torch.cuda.get_device_properties(gen.device).uuid}"
+    source = NvmlSource()
+    out = {"phase": "slice_nvml", "mesh": mesh_shape(gen.mesh), "buffer_shape": list(gen.shape)}
+    try:
+        index = source.uuid_to_index(uuid)
+        if index is None:
+            raise AssertionError(f"NVML knows no device {uuid} (torch {gen.device})")
+        for knob in (1.0, NVML_KNOB):
+            load.set_intensity(knob)
+            rows = _dwell(source, index, load, seconds, lead=load.duty.window + 1.0)
+            out[f"knob_{knob}"] = {
+                "nvml_duty_cycle": [c.duty_cycle for c, _ in rows],
+                "nvml_mean": sum(c.duty_cycle for c, _ in rows) / len(rows),
+                "generator_mean": sum(u for _, u in rows) / len(rows),
+                "gpm_dram_bw_util": [c.hbm_bw_util for c, _ in rows],
+            }
+    finally:
+        source.close()
+    out["burst_ms"] = gen.stats().seconds / max(gen.stats().rounds // gen.rounds_per_burst, 1) * 1e3
+    emit(out)
+    return out
+
+
+def phase_doctor_nvml() -> dict:
+    """The NVML probe as an operator runs it, ``python -m
+    k8s_gpu_hpa_tpu_torch.doctor nvml``: exit 0 (every NVML call the node
+    exporter makes answered); its GPM lines are the finding."""
+    proc = subprocess.run([sys.executable, "-m", "k8s_gpu_hpa_tpu_torch.doctor", "nvml"],
+                          capture_output=True, text=True, timeout=120)
+    lines = proc.stdout.splitlines()
+    out = {"phase": "doctor_nvml", "exit_code": proc.returncode,
+           "failed": [ln for ln in lines if ln.startswith("[FAIL]")],
+           "gpm": [ln for ln in lines if "GPM" in ln], "summary": lines[-1] if lines else "",
+           "stderr": proc.stderr[-2000:]}
+    emit(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"the NVML probe failed: {out}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -3201,6 +3322,9 @@ def main() -> int:
         phase_ringattn_loadgen()
         phase_moe_loadgen()
         _, tp_launches = phase_tp_serve_graph()
+        phase_slice_loop()
+        phase_slice_nvml()
+        phase_doctor_nvml()
         dist.destroy_process_group()
         phase_allreduce_entry(work_dir)
         phase_ringattn_entry(work_dir)

@@ -23,8 +23,12 @@ The loop, by layer:
     L4 adapter     control/adapter.py  custom-metrics API semantics
     L5 controller  control/hpa.py      autoscaling/v2 HPA with behavior
 
-``trial.py`` wires them into the headline and serve trials;
-``chip_smoke.py`` at the repository root drives both on the card.
+``trial.py`` wires them into the headline, serve, training and slice
+trials (the slice trial scales a StatefulSet of multi-host slices in whole
+slices); ``chip_smoke.py`` at the repository root drives them on the card.
+The deploy side: ``manifests.py`` renders the GPU manifests from the
+pipeline's string contracts, and ``doctor.py`` probes a deployed pipeline
+joint by joint and a node's NVML.
 """
 
 __version__ = "0.1.0"

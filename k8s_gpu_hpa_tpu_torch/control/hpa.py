@@ -15,10 +15,15 @@ lag, fixable by the ``behavior`` field of newer API versions
         window, scale-up the min
     scaling policies (Pods / Percent per periodSeconds) bound the step size
 
-Status conditions, Pods/Resource/External metrics, slice quanta, tracing and
-checkpoints are not ported.  ``shipped_behavior()`` is the behavior stanza of
-deploy/tpu-test-hpa.yaml written in code, and ``train_metrics()`` the metrics
-of deploy/tpu-train-hpa.yaml, so the port reads no YAML.
+and replica quanta: on a StatefulSet of multi-host slices replicas move in
+whole slices (``replica_quantum``, read from the HPA's
+``k8s-tpu-hpa/replica-quantum`` annotation by ``quantum_from_manifest``).
+
+Status conditions, Pods/Resource/External metrics, tracing and checkpoints
+are not ported.  ``shipped_behavior()`` is the behavior stanza of
+deploy/tpu-test-hpa.yaml written in code, ``shipped_multihost_behavior()``
+that of deploy/tpu-test-multihost-hpa.yaml, and ``train_metrics()`` the
+metrics of deploy/tpu-train-hpa.yaml, so the port reads no YAML.
 """
 
 from __future__ import annotations
@@ -102,6 +107,44 @@ def shipped_behavior() -> HPABehavior:
     )
 
 
+def shipped_multihost_behavior(quantum: int = 2) -> HPABehavior:
+    """The ``behavior:`` stanza of deploy/tpu-test-multihost-hpa.yaml, in
+    pods, which are hosts, for slices of ``quantum`` hosts (the shipped 2):
+    scale up by two slices per 15 s with no window; scale down by one slice
+    per 60 s after a 120 s stabilization window."""
+    return HPABehavior(
+        scale_up=ScalingRules(
+            stabilization_window_seconds=0.0,
+            select_policy="Max",
+            policies=[ScalingPolicy("Pods", 2 * quantum, 15.0)],
+        ),
+        scale_down=ScalingRules(
+            stabilization_window_seconds=120.0,
+            select_policy="Max",
+            policies=[ScalingPolicy("Pods", quantum, 60.0)],
+        ),
+    )
+
+
+#: The slice HPA's annotation: pods per slice, the quantum replicas move in
+QUANTUM_ANNOTATION = "k8s-tpu-hpa/replica-quantum"
+#: deploy/tpu-test-multihost-hpa.yaml: its Object metric on the
+#: ``tpu-test-multihost`` StatefulSet with ``target.type: Value``, its pods
+#: 2..8 (one to four slices of 2 hosts) and its quantum
+MULTIHOST_SERIES = "tpu_test_multihost_tensorcore_avg"
+MULTIHOST_TARGET = 40.0
+MULTIHOST_MIN_REPLICAS = 2
+MULTIHOST_MAX_REPLICAS = 8
+MULTIHOST_QUANTUM = 2
+
+
+def quantum_from_manifest(hpa_doc: dict) -> int:
+    """Slice-atomicity quantum from the ``k8s-tpu-hpa/replica-quantum``
+    annotation (deploy/tpu-test-multihost-hpa.yaml); 1 when absent."""
+    annotations = hpa_doc.get("metadata", {}).get("annotations", {})
+    return int(annotations.get(QUANTUM_ANNOTATION, 1))
+
+
 #: The tpu-train HPA's two Object metrics (deploy/tpu-train-hpa.yaml): the
 #: deployment's mean duty cycle, percent, and its mean memory-bandwidth use,
 #: percent of the device's peak.  autoscaling/v2 takes the largest proposal
@@ -164,6 +207,7 @@ class HPAController:
         min_replicas: int = 1,
         max_replicas: int = 4,
         behavior: HPABehavior | None = None,
+        replica_quantum: int = 1,
     ):
         self.target = target
         self.metrics = metrics
@@ -172,6 +216,18 @@ class HPAController:
         self.min_replicas = min_replicas
         self.max_replicas = max_replicas
         self.behavior = behavior or HPABehavior()
+        # Slice atomicity: on multi-host slices one logical replica is
+        # ``hosts_per_slice`` pods, and a partial slice contributes zero
+        # capacity (its hosts block at the process group's rendezvous), so
+        # replicas move in whole-slice quanta.
+        if replica_quantum < 1:
+            raise ValueError("replica_quantum must be >= 1")
+        if replica_quantum > 1 and max_replicas < replica_quantum:
+            raise ValueError(
+                f"max_replicas={max_replicas} cannot fit one slice of "
+                f"replica_quantum={replica_quantum} pods"
+            )
+        self.replica_quantum = replica_quantum
         self.status = HPAStatus(current_replicas=target.replicas)
         #: (ts, recommendation) ring for stabilization windows
         self._recommendations: list[tuple[float, int]] = []
@@ -271,6 +327,28 @@ class HPAController:
             reason = "within tolerance / stabilized"
 
         desired = min(max(desired, self.min_replicas), self.max_replicas)
+        q = self.replica_quantum
+        if q > 1:
+            # Round up when growing (a partial slice serves nothing, so the
+            # policy step may be exceeded by < one quantum; rounding down
+            # instead could deadlock against a tight policy forever).  When
+            # shrinking, round up TOWARD current: behavior policies are hard
+            # caps in the down direction, so hold the extra slice until the
+            # policy window permits removing a whole one.  Bounds that aren't
+            # slice multiples would themselves strand a partial slice; snap
+            # them inward (the constructor guarantees max_replicas >= q).
+            max_q = self.max_replicas // q * q
+            min_q = min(math.ceil(self.min_replicas / q) * q, max_q)
+            if desired > current:
+                desired = min(math.ceil(desired / q) * q, max_q)
+            elif desired < current:
+                desired = max(min(math.ceil(desired / q) * q, current), min_q)
+            elif desired % q:
+                # the current count is itself a partial slice (scaled by
+                # hand, or a misaligned target adopted): release the
+                # stranded hosts, which serve nothing anyway
+                desired = max(desired // q * q, min_q)
+                reason = f"repair partial slice {current}->{desired}"
         self.status.desired_replicas = desired
         self.status.last_reason = reason
 

@@ -1,0 +1,870 @@
+"""Manifest generation for GPU nodes: one source for the pipeline's string
+contracts.
+
+Counterpart of ``k8s_gpu_hpa_tpu/manifests.py``, cut to the manifests of
+the pipelines the port runs.  The reference's five layers are joined only
+by string contracts (a pod label, a metric name, a port name, a release
+label) duplicated by hand across files, so breaking one string silently
+breaks the loop.  Here every manifest is a function of the constants below
+and of the port's own rule ASTs, HPA constants and behavior stanzas, so the
+YAML an operator applies is what the port's closed loops test.  The
+contracts are the JAX package's, string for string; only what a GPU node
+needs changes:
+
+- workloads request ``nvidia.com/gpu`` (the reference's request,
+  cuda-test-deployment.yaml:20-22) instead of ``google.com/tpu``;
+- pods select GKE's GPU node pools (``cloud.google.com/gke-accelerator``)
+  and tolerate their ``nvidia.com/gpu`` taint, unless a ``node_selector``
+  and ``tolerations`` replace them;
+- the containers run the port's commands (``python -m
+  k8s_gpu_hpa_tpu_torch.loadgen``, ``…loadgen.train``,
+  ``…loadgen.multihost``, ``…exporter``) in the port's images;
+- the exporter DaemonSet reads the node's GPUs through NVML (``SOURCE=nvml``):
+  it runs privileged with the host's driver libraries mounted, as the
+  reference's dcgm-exporter does (dcgm-exporter.yaml:30-62), beside the
+  kubelet pod-resources socket that ``exporter/podresources.py`` reads and
+  the telemetry hostPath of the self-report.
+
+``python -m k8s_gpu_hpa_tpu_torch.manifests --out DIR`` writes
+``default_bundle()`` as one YAML file each; ``render_pipeline`` renders a
+whole pipeline for any app, single-host or a StatefulSet of slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+from dataclasses import dataclass, field
+from pathlib import Path
+
+from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    MULTIHOST_MAX_REPLICAS,
+    MULTIHOST_MIN_REPLICAS,
+    MULTIHOST_QUANTUM,
+    MULTIHOST_SERIES,
+    MULTIHOST_TARGET,
+    QUANTUM_ANNOTATION,
+    TRAIN_BW_SERIES,
+    TRAIN_BW_TARGET,
+    TRAIN_DUTY_SERIES,
+    TRAIN_DUTY_TARGET,
+    HPABehavior,
+    ScalingRules,
+    shipped_behavior,
+    shipped_multihost_behavior,
+)
+from k8s_gpu_hpa_tpu_torch.metrics.rules import (
+    SERVE_BW_TARGET,
+    RecordingRule,
+    tpu_test_avg_rule,
+    tpu_test_multihost_avg_rule,
+)
+from k8s_gpu_hpa_tpu_torch.metrics.schema import (
+    TPU_DUTY_CYCLE,
+    TPU_HBM_BW_UTIL,
+    TPU_HBM_USAGE,
+    TPU_TENSORCORE_UTIL,
+)
+
+# ---------------------------------------------------------------------------
+# The string contracts: the JAX package's, unless a GPU node needs another.
+
+EXPORTER_NAME = "tpu-metrics-exporter"  # DaemonSet/Service/scrape relabel key
+EXPORTER_PORT = 9400  # dcgm-exporter's port (dcgm-exporter.yaml:31)
+EXPORTER_PORT_NAME = "metrics"  # the *name* the scrape config binds to
+EXPORTER_IMAGE = "ghcr.io/k8s-tpu-hpa/tpu-metrics-exporter-cuda:0.1.0"
+WORKLOAD_IMAGE = "ghcr.io/k8s-tpu-hpa/tpu-test-cuda:0.1.0"
+VERSION = "0.1.0"
+
+SCRAPE_JOB = "tpu-metrics"
+SCRAPE_INTERVAL = "1s"  # reference parity (kube-prometheus-stack-values.yaml:5)
+RULE_INTERVAL = "1s"  # not Prometheus' default 30s: freshness bounds the loop
+RELEASE_LABEL = "kube-prometheus-stack"  # the operator's rule-selector label
+PROMETHEUS_URL = "http://kube-prometheus-stack-prometheus.default.svc.cluster.local"
+
+GPU_RESOURCE = "nvidia.com/gpu"  # the device plugin's resource and node taint
+ACCEL_H100 = "nvidia-h100-80gb"
+NODE_SELECTOR_ACCEL = "cloud.google.com/gke-accelerator"
+
+INTENSITY_FILE = "/tmp/tpu-test-intensity"  # the runtime load knob
+COORDINATOR_PORT = 8476  # the slice's rendezvous port (multihost rung)
+
+#: workload self-telemetry hostPath: pods write their report there, the
+#: exporter DaemonSet reads it (loadgen/telemetry.py ↔ exporter/selfreport.py)
+TELEMETRY_HOST_PATH = "/var/run/tpu-telemetry"
+#: the kubelet's PodResources socket directory (exporter/podresources.py)
+POD_RESOURCES_PATH = "/var/lib/kubelet/pod-resources"
+#: where GKE installs the NVIDIA driver's libraries on a GPU node, and where
+#: the exporter mounts them for NVML (``libnvidia-ml.so.1``)
+NVIDIA_HOST_PATH = "/home/kubernetes/bin/nvidia"
+NVIDIA_MOUNT_PATH = "/usr/local/nvidia"
+
+#: device metric -> short stem used in recorded-series names
+METRIC_STEMS = {
+    TPU_TENSORCORE_UTIL: "tensorcore",
+    TPU_DUTY_CYCLE: "duty_cycle",
+    TPU_HBM_BW_UTIL: "hbm_bw",
+    TPU_HBM_USAGE: "hbm_used_bytes",
+}
+
+
+def gpu_tolerations() -> list[dict]:
+    return [{"key": GPU_RESOURCE, "operator": "Exists", "effect": "NoSchedule"}]
+
+
+def _target(value: float) -> str:
+    """An HPA target value as the manifests write it: ``40``, ``2.5``."""
+    return f"{value:g}"
+
+
+def _rules_doc(rules: ScalingRules) -> dict:
+    return {
+        "stabilizationWindowSeconds": int(rules.stabilization_window_seconds),
+        "selectPolicy": rules.select_policy,
+        "policies": [
+            {"type": p.type, "value": p.value, "periodSeconds": int(p.period_seconds)}
+            for p in rules.policies
+        ],
+    }
+
+
+def behavior_doc(behavior: HPABehavior) -> dict:
+    """The ``behavior:`` stanza of an HPA, from the behavior the port's HPA
+    runs (``shipped_behavior()``, ``shipped_multihost_behavior()``)."""
+    return {
+        "scaleUp": _rules_doc(behavior.scale_up),
+        "scaleDown": _rules_doc(behavior.scale_down),
+    }
+
+
+def object_metric(name: str, kind: str, target_name: str, value: str) -> dict:
+    """One Object-type HPA metric entry (the reference's only metric shape,
+    cuda-test-hpa.yaml:13-21, upgraded to autoscaling/v2)."""
+    return {
+        "type": "Object",
+        "object": {
+            "metric": {"name": name},
+            "describedObject": {
+                "apiVersion": "apps/v1",
+                "kind": kind,
+                "name": target_name,
+            },
+            "target": {"type": "Value", "value": value},
+        },
+    }
+
+
+def hpa_manifest(
+    name: str,
+    *,
+    target_kind: str = "Deployment",
+    metrics: list[dict],
+    min_replicas: int = 1,
+    max_replicas: int = 4,
+    behavior: dict | None = None,
+    annotations: dict[str, str] | None = None,
+) -> dict:
+    doc: dict = {
+        "apiVersion": "autoscaling/v2",
+        "kind": "HorizontalPodAutoscaler",
+        "metadata": {"name": name},
+        "spec": {
+            "scaleTargetRef": {
+                "apiVersion": "apps/v1",
+                "kind": target_kind,
+                "name": name,
+            },
+            "minReplicas": min_replicas,
+            "maxReplicas": max_replicas,
+            "metrics": metrics,
+            "behavior": behavior if behavior is not None else behavior_doc(shipped_behavior()),
+        },
+    }
+    if annotations:
+        doc["metadata"]["annotations"] = annotations
+    return doc
+
+
+def _placement(
+    accelerator: str, node_selector: dict[str, str] | None, tolerations: list[dict] | None
+) -> dict:
+    """A pod's nodeSelector and tolerations: GKE's GPU node pool of
+    ``accelerator``, or the given ones wholesale (clusters without GKE's
+    labels; the reference labels its nodes by hand, README.md:26-30)."""
+    return {
+        "nodeSelector": (
+            dict(node_selector)
+            if node_selector is not None
+            else {NODE_SELECTOR_ACCEL: accelerator}
+        ),
+        "tolerations": (
+            [dict(t) for t in tolerations] if tolerations is not None else gpu_tolerations()
+        ),
+    }
+
+
+def workload_deployment(
+    name: str,
+    *,
+    command: list[str],
+    env: dict[str, str],
+    gpu_limit: int,
+    accelerator: str = ACCEL_H100,
+    node_selector: dict[str, str] | None = None,
+    tolerations: list[dict] | None = None,
+) -> dict:
+    """A GPU workload Deployment (the reference's cuda-test-deployment.yaml):
+    the ``app: <name>`` label is the pipeline join key, ``spec.replicas`` is
+    absent so the HPA takes ownership, the intensity-file env gives the
+    runtime load knob, and the telemetry hostPath with the Downward API's
+    identity lets the workload self-report the gauges NVML cannot give
+    (loadgen/telemetry.py)."""
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "Deployment",
+        "metadata": {"name": name, "labels": {"app": name}},
+        "spec": {
+            "selector": {"matchLabels": {"app": name}},
+            "template": {
+                "metadata": {"labels": {"app": name}},
+                "spec": {
+                    **_placement(accelerator, node_selector, tolerations),
+                    "containers": [
+                        {
+                            "name": name,
+                            "image": WORKLOAD_IMAGE,
+                            "command": command,
+                            "env": [{"name": k, "value": v} for k, v in env.items()]
+                            + telemetry_identity_env(queue=name),
+                            "resources": {"limits": {GPU_RESOURCE: gpu_limit}},
+                            "volumeMounts": [telemetry_volume_mount()],
+                        }
+                    ],
+                    "volumes": [telemetry_volume()],
+                },
+            },
+        },
+    }
+
+
+def telemetry_volume() -> dict:
+    return {
+        "name": "tpu-telemetry",
+        "hostPath": {"path": TELEMETRY_HOST_PATH, "type": "DirectoryOrCreate"},
+    }
+
+
+def telemetry_volume_mount(read_only: bool = False) -> dict:
+    """A workload's mount is its own ``<ns>_<pod>/`` subdirectory of the
+    shared hostPath (``subPathExpr``), so a pod cannot write a report under
+    another pod's identity; the exporter's read-only mount sees them all."""
+    mount = {"name": "tpu-telemetry", "mountPath": TELEMETRY_HOST_PATH}
+    if read_only:
+        mount["readOnly"] = True
+    else:
+        mount["subPathExpr"] = "$(POD_NAMESPACE)_$(POD_NAME)"
+    return mount
+
+
+def telemetry_identity_env(queue: str) -> list[dict]:
+    """TPU_TELEMETRY_DIR and the Downward API's pod identity the self-report
+    carries."""
+    return [
+        {"name": "TPU_TELEMETRY_DIR", "value": TELEMETRY_HOST_PATH},
+        {"name": "QUEUE_NAME", "value": queue},
+        {"name": "POD_NAME", "valueFrom": {"fieldRef": {"fieldPath": "metadata.name"}}},
+        {
+            "name": "POD_NAMESPACE",
+            "valueFrom": {"fieldRef": {"fieldPath": "metadata.namespace"}},
+        },
+    ]
+
+
+def loadgen_env(intensity: str = "0.5") -> dict[str, str]:
+    return {
+        "MATMUL_SIZE": "4096",
+        "TPU_TEST_INTENSITY": intensity,
+        "TPU_TEST_INTENSITY_FILE": INTENSITY_FILE,
+    }
+
+
+# ---------------------------------------------------------------------------
+# L2: the exporter DaemonSet + Service (the reference's dcgm-exporter.yaml).
+
+
+def exporter_daemonset(
+    accelerator: str = ACCEL_H100,
+    *,
+    node_selector: dict[str, str] | None = None,
+    tolerations: list[dict] | None = None,
+) -> dict:
+    labels = {
+        "app.kubernetes.io/name": EXPORTER_NAME,
+        "app.kubernetes.io/version": VERSION,
+    }
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "DaemonSet",
+        "metadata": {"name": EXPORTER_NAME, "labels": dict(labels)},
+        "spec": {
+            "updateStrategy": {"type": "RollingUpdate"},
+            "selector": {"matchLabels": {"app.kubernetes.io/name": EXPORTER_NAME}},
+            "template": {
+                "metadata": {"labels": dict(labels)},
+                "spec": {
+                    **_placement(accelerator, node_selector, tolerations),
+                    "hostNetwork": True,
+                    "containers": [
+                        {
+                            "name": "exporter",
+                            "image": EXPORTER_IMAGE,
+                            "command": ["python", "-m", "k8s_gpu_hpa_tpu_torch.exporter"],
+                            "env": [
+                                {"name": "SOURCE", "value": "nvml"},
+                                {"name": "LD_LIBRARY_PATH", "value": f"{NVIDIA_MOUNT_PATH}/lib64"},
+                                {"name": "LISTEN_PORT", "value": str(EXPORTER_PORT)},
+                                {"name": "COLLECT_MS", "value": "1000"},
+                                {"name": "TPU_TELEMETRY_DIR", "value": TELEMETRY_HOST_PATH},
+                                {
+                                    "name": "NODE_NAME",
+                                    "valueFrom": {"fieldRef": {"fieldPath": "spec.nodeName"}},
+                                },
+                            ],
+                            "ports": [{"name": EXPORTER_PORT_NAME, "containerPort": EXPORTER_PORT}],
+                            # NVML opens every GPU's device node, which a pod
+                            # that requests no nvidia.com/gpu is not given
+                            "securityContext": {"privileged": True},
+                            "volumeMounts": [
+                                {
+                                    "name": "pod-resources",
+                                    "mountPath": POD_RESOURCES_PATH,
+                                    "readOnly": True,
+                                },
+                                {
+                                    "name": "nvidia-install-dir-host",
+                                    "mountPath": NVIDIA_MOUNT_PATH,
+                                    "readOnly": True,
+                                },
+                                telemetry_volume_mount(read_only=True),
+                            ],
+                        }
+                    ],
+                    "volumes": [
+                        {"name": "pod-resources", "hostPath": {"path": POD_RESOURCES_PATH}},
+                        {"name": "nvidia-install-dir-host", "hostPath": {"path": NVIDIA_HOST_PATH}},
+                        telemetry_volume(),
+                    ],
+                },
+            },
+        },
+    }
+
+
+def exporter_service() -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {
+            "name": EXPORTER_NAME,
+            "labels": {"app.kubernetes.io/name": EXPORTER_NAME},
+        },
+        "spec": {
+            "selector": {"app.kubernetes.io/name": EXPORTER_NAME},
+            "ports": [{"name": EXPORTER_PORT_NAME, "port": EXPORTER_PORT}],
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# L3: Prometheus stack values + PrometheusRule.
+
+
+def prom_stack_values() -> dict:
+    """Helm values for kube-prometheus-stack: the 1 s ``tpu-metrics`` scrape
+    job with the reference's node relabel (kube-prometheus-stack-values.yaml:
+    13-16) and keep-filters pinning it to the exporter Service's named port."""
+    return {
+        "prometheus": {
+            "prometheusSpec": {
+                "additionalScrapeConfigs": [
+                    {
+                        "job_name": SCRAPE_JOB,
+                        "scrape_interval": SCRAPE_INTERVAL,
+                        "metrics_path": "/metrics",
+                        "kubernetes_sd_configs": [
+                            {"role": "endpoints", "namespaces": {"names": ["default"]}}
+                        ],
+                        "relabel_configs": [
+                            {
+                                "source_labels": ["__meta_kubernetes_service_name"],
+                                "regex": EXPORTER_NAME,
+                                "action": "keep",
+                            },
+                            {
+                                "source_labels": ["__meta_kubernetes_endpoint_port_name"],
+                                "regex": EXPORTER_PORT_NAME,
+                                "action": "keep",
+                            },
+                            {
+                                "source_labels": ["__meta_kubernetes_pod_node_name"],
+                                "separator": ";",
+                                "regex": "^(.*)$",
+                                "target_label": "node",
+                                "replacement": "$1",
+                                "action": "replace",
+                            },
+                        ],
+                    },
+                ]
+            }
+        }
+    }
+
+
+def _rule_entry(rule: RecordingRule) -> dict:
+    entry: dict = {"record": rule.record, "expr": rule.expr.promql()}
+    if rule.labels:
+        entry["labels"] = dict(rule.labels)
+    return entry
+
+
+def shipped_rule_groups() -> list[tuple[str, list[RecordingRule]]]:
+    """Every recording rule the port's loops evaluate, grouped as in
+    deploy/tpu-test-prometheusrule.yaml, from the same ASTs the loops run
+    (metrics/rules.py)."""
+    return [
+        (
+            "tpu-test",
+            [
+                tpu_test_avg_rule(),
+                tpu_test_avg_rule(metric=TPU_DUTY_CYCLE, record="tpu_test_duty_cycle_avg"),
+            ],
+        ),
+        (
+            "tpu-serve",
+            [
+                tpu_test_avg_rule(
+                    app="tpu-serve", deployment="tpu-serve", metric=TPU_HBM_BW_UTIL,
+                    record="tpu_serve_hbm_bw_avg",
+                )
+            ],
+        ),
+        (
+            "tpu-train",
+            [
+                tpu_test_avg_rule(
+                    app="tpu-train", deployment="tpu-train", metric=TPU_DUTY_CYCLE,
+                    record=TRAIN_DUTY_SERIES,
+                ),
+                tpu_test_avg_rule(
+                    app="tpu-train", deployment="tpu-train", metric=TPU_HBM_BW_UTIL,
+                    record=TRAIN_BW_SERIES,
+                ),
+            ],
+        ),
+        ("tpu-test-multihost", [tpu_test_multihost_avg_rule(record=MULTIHOST_SERIES)]),
+    ]
+
+
+def prometheusrule_manifest(
+    name: str = "tpu-test",
+    groups: list[tuple[str, list[RecordingRule]]] | None = None,
+) -> dict:
+    """A PrometheusRule of recording rules (the port has no alert rules)."""
+    return {
+        "apiVersion": "monitoring.coreos.com/v1",
+        "kind": "PrometheusRule",
+        "metadata": {"name": name, "labels": {"release": RELEASE_LABEL}},
+        "spec": {
+            "groups": [
+                {
+                    "name": group_name,
+                    "interval": RULE_INTERVAL,
+                    "rules": [_rule_entry(r) for r in rules],
+                }
+                for group_name, rules in (groups or shipped_rule_groups())
+            ]
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# L4: prometheus-adapter values (explicit rules, not default discovery).
+
+
+def adapter_rule(series: str, resource: str = "deployment") -> dict:
+    """One explicit seriesQuery rule: expose ``series`` addressed by its
+    ``namespace`` and object labels (the association trick of
+    cuda-test-prometheusrule.yaml:14-16, made explicit)."""
+    return {
+        "seriesQuery": f'{series}{{namespace!="",{resource}!=""}}',
+        "resources": {
+            "overrides": {
+                "namespace": {"resource": "namespace"},
+                resource: {"resource": resource},
+            }
+        },
+        "name": {"as": series},
+        "metricsQuery": "max by (<<.GroupBy>>) (<<.Series>>{<<.LabelMatchers>>})",
+    }
+
+
+def adapter_values(rules: list[dict] | None = None) -> dict:
+    """The adapter's values: Object-metric rules only (the port has no
+    External metrics)."""
+    if rules is None:
+        rules = [
+            adapter_rule("tpu_test_tensorcore_avg"),
+            adapter_rule("tpu_test_duty_cycle_avg"),
+            adapter_rule("tpu_serve_hbm_bw_avg"),
+            adapter_rule(TRAIN_DUTY_SERIES),
+            adapter_rule(TRAIN_BW_SERIES),
+            adapter_rule(MULTIHOST_SERIES, resource="statefulset"),
+        ]
+    return {
+        "prometheus": {"url": PROMETHEUS_URL, "port": 9090},
+        "rules": {"default": False, "custom": rules, "external": []},
+    }
+
+
+# ---------------------------------------------------------------------------
+# The bundle: every manifest of the port's pipelines.
+
+
+def _tpu_test_deployment() -> dict:
+    return workload_deployment(
+        "tpu-test",
+        command=["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen"],
+        env=loadgen_env(),
+        gpu_limit=1,
+    )
+
+
+def _tpu_serve_deployment() -> dict:
+    return workload_deployment(
+        "tpu-serve",
+        command=["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen"],
+        env={
+            "WORKLOAD": "decode",
+            "DECODE_BATCH": "8",
+            "MAX_SEQ": "2048",
+            "D_MODEL": "512",
+            # head_dim 128 (512/4): the prefill rides the flash kernel
+            "N_HEADS": "4",
+            "N_LAYERS": "4",
+            "PREFILL_LEN": "512",
+            "TPU_TEST_INTENSITY": "1.0",
+            "TPU_TEST_INTENSITY_FILE": INTENSITY_FILE,
+        },
+        gpu_limit=1,
+    )
+
+
+def _tpu_train_deployment() -> dict:
+    return workload_deployment(
+        "tpu-train",
+        command=["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen.train"],
+        env={
+            "BATCH_SIZE": "256",
+            "IMAGE_SIZE": "32",
+            "TPU_TEST_INTENSITY": "1.0",
+            "TPU_TEST_INTENSITY_FILE": INTENSITY_FILE,
+        },
+        gpu_limit=4,
+    )
+
+
+def multihost_service(name: str = "tpu-test-multihost") -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": {"name": name, "labels": {"app": name}},
+        "spec": {
+            # the literal string "None" is the headless-service sentinel
+            "clusterIP": "None",
+            # the coordinator's DNS must exist while it is still starting
+            "publishNotReadyAddresses": True,
+            "selector": {"app": name},
+            "ports": [{"name": "coordinator", "port": COORDINATOR_PORT}],
+        },
+    }
+
+
+def multihost_statefulset(
+    name: str = "tpu-test-multihost",
+    *,
+    hosts_per_slice: int = MULTIHOST_QUANTUM,
+    gpu_limit: int = 4,
+    accelerator: str = ACCEL_H100,
+    intensity: str = "0.5",
+    node_selector: dict[str, str] | None = None,
+    tolerations: list[dict] | None = None,
+) -> dict:
+    """One StatefulSet holds every slice: pod ordinal N is worker N %
+    hosts_per_slice of slice N // hosts_per_slice, whose worker 0 is the
+    rendezvous at the headless service's per-pod DNS
+    (loadgen/multihost.py::topology_from_env)."""
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "StatefulSet",
+        "metadata": {"name": name, "labels": {"app": name}},
+        "spec": {
+            "serviceName": name,
+            "podManagementPolicy": "Parallel",  # slice hosts start together
+            "selector": {"matchLabels": {"app": name}},
+            "template": {
+                "metadata": {"labels": {"app": name}},
+                "spec": {
+                    **_placement(accelerator, node_selector, tolerations),
+                    "containers": [
+                        {
+                            "name": "tpu-test",
+                            "image": WORKLOAD_IMAGE,
+                            "command": [
+                                "python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen.multihost",
+                            ],
+                            "env": [
+                                {"name": "HOSTS_PER_SLICE", "value": str(hosts_per_slice)},
+                                {"name": "HEADLESS_SERVICE", "value": name},
+                                {
+                                    "name": "POD_NAMESPACE",
+                                    "valueFrom": {
+                                        "fieldRef": {"fieldPath": "metadata.namespace"}
+                                    },
+                                },
+                                {"name": "BUFFER_MB", "value": "64"},
+                                {"name": "TPU_TEST_INTENSITY", "value": intensity},
+                                {"name": "TPU_TEST_INTENSITY_FILE", "value": INTENSITY_FILE},
+                            ],
+                            "ports": [{"name": "coordinator", "containerPort": COORDINATOR_PORT}],
+                            "resources": {"limits": {GPU_RESOURCE: gpu_limit}},
+                        }
+                    ],
+                },
+            },
+        },
+    }
+
+
+def multihost_hpa(
+    name: str, record: str, target: str, quantum: int, min_slices: int, max_slices: int
+) -> dict:
+    """The slice HPA: its Object metric on the StatefulSet, bounds in whole
+    slices, the quantum annotation, and a behavior in slices."""
+    return hpa_manifest(
+        name,
+        target_kind="StatefulSet",
+        metrics=[object_metric(record, "StatefulSet", name, target)],
+        min_replicas=min_slices * quantum,
+        max_replicas=max_slices * quantum,
+        annotations={QUANTUM_ANNOTATION: str(quantum)},
+        behavior=behavior_doc(shipped_multihost_behavior(quantum)),
+    )
+
+
+def default_bundle() -> dict[str, list[dict]]:
+    """filename -> documents, for every manifest of the port's pipelines:
+    the exporter, the Prometheus and adapter values, the PrometheusRule, and
+    each of the four workloads with its HPA."""
+    return {
+        "tpu-metrics-exporter.yaml": [exporter_daemonset(), exporter_service()],
+        "kube-prometheus-stack-values.yaml": [prom_stack_values()],
+        "prometheus-adapter-values.yaml": [adapter_values()],
+        "tpu-test-prometheusrule.yaml": [prometheusrule_manifest()],
+        "tpu-test-deployment.yaml": [_tpu_test_deployment()],
+        "tpu-test-hpa.yaml": [
+            hpa_manifest(
+                "tpu-test",
+                metrics=[object_metric("tpu_test_tensorcore_avg", "Deployment", "tpu-test", "40")],
+            )
+        ],
+        "tpu-serve-deployment.yaml": [_tpu_serve_deployment()],
+        "tpu-serve-hpa.yaml": [
+            hpa_manifest(
+                "tpu-serve",
+                metrics=[object_metric(
+                    "tpu_serve_hbm_bw_avg", "Deployment", "tpu-serve", _target(SERVE_BW_TARGET)
+                )],
+            )
+        ],
+        "tpu-train-deployment.yaml": [_tpu_train_deployment()],
+        "tpu-train-hpa.yaml": [
+            hpa_manifest(
+                "tpu-train",
+                metrics=[
+                    object_metric(
+                        TRAIN_DUTY_SERIES, "Deployment", "tpu-train", _target(TRAIN_DUTY_TARGET)
+                    ),
+                    object_metric(
+                        TRAIN_BW_SERIES, "Deployment", "tpu-train", _target(TRAIN_BW_TARGET)
+                    ),
+                ],
+            )
+        ],
+        "tpu-test-multihost.yaml": [multihost_service(), multihost_statefulset()],
+        "tpu-test-multihost-hpa.yaml": [
+            multihost_hpa(
+                "tpu-test-multihost", MULTIHOST_SERIES, _target(MULTIHOST_TARGET),
+                MULTIHOST_QUANTUM, MULTIHOST_MIN_REPLICAS // MULTIHOST_QUANTUM,
+                MULTIHOST_MAX_REPLICAS // MULTIHOST_QUANTUM,
+            )
+        ],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Parameterized pipelines: the whole vertical stack for any app.
+
+
+@dataclass
+class PipelineSpec:
+    """A complete autoscaling pipeline for one GPU workload: workload,
+    recording rule, adapter rule and HPA, with every string contract derived
+    from ``app`` once, so they cannot drift."""
+
+    app: str
+    device_metric: str = TPU_TENSORCORE_UTIL
+    target: str = "40"
+    min_replicas: int = 1
+    max_replicas: int = 4
+    gpu_limit: int = 1
+    accelerator: str = ACCEL_H100
+    namespace: str = "default"
+    intensity: str = "0.5"
+    command: list[str] = field(
+        default_factory=lambda: ["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen"]
+    )
+    #: >1 renders the multi-host shape: StatefulSet of slices, headless
+    #: service and the slice-quantum HPA (one logical replica = this many pods)
+    hosts_per_slice: int = 1
+    #: slices at min/max for the multi-host shape (pods = slices * hosts)
+    min_slices: int = 1
+    max_slices: int = 4
+    #: clusters without GKE's labels: the node labels and taints to use
+    #: instead; the pipeline then carries its own exporter DaemonSet, since
+    #: the bundle's GKE-labelled one would not schedule there
+    node_selector: dict[str, str] | None = None
+    tolerations: list[dict] | None = None
+
+    def __post_init__(self) -> None:
+        # RFC 1123 label: what every derived contract must survive (object
+        # names, the app label, and via '-'→'_' the recorded series name)
+        if not re.fullmatch(r"[a-z0-9]([a-z0-9-]{0,61}[a-z0-9])?", self.app):
+            raise ValueError(
+                f"app {self.app!r} is not a DNS-1123 label (lowercase "
+                "alphanumerics and '-', at most 63 chars, alphanumeric ends)"
+            )
+        if self.device_metric not in METRIC_STEMS:
+            raise ValueError(
+                f"unknown device metric {self.device_metric!r}; one of {sorted(METRIC_STEMS)}"
+            )
+
+    @property
+    def record(self) -> str:
+        """The recorded series' name, derived from the app's as the
+        reference derives cuda_test_gpu_avg from cuda-test."""
+        return f"{self.app.replace('-', '_')}_{METRIC_STEMS[self.device_metric]}_avg"
+
+    @property
+    def multihost(self) -> bool:
+        return self.hosts_per_slice > 1
+
+    def recording_rule(self) -> RecordingRule:
+        if self.multihost:
+            return tpu_test_multihost_avg_rule(
+                app=self.app, statefulset=self.app, namespace=self.namespace,
+                metric=self.device_metric, record=self.record,
+            )
+        return tpu_test_avg_rule(
+            app=self.app, deployment=self.app, namespace=self.namespace,
+            metric=self.device_metric, record=self.record,
+        )
+
+
+def render_pipeline(spec: PipelineSpec) -> dict[str, list[dict]]:
+    """filename -> documents for the app's own artifacts of one pipeline.
+
+    The shared layers (exporter DaemonSet, Prometheus values) come from
+    ``default_bundle()``; the adapter values here carry this pipeline's rule
+    alone: merge them into the adapter's config beside others.
+    ``hosts_per_slice > 1`` renders the multi-host shape: headless Service
+    and StatefulSet of slices, the rule addressed at the StatefulSet, and
+    the slice-quantum HPA."""
+    extra: dict[str, list[dict]] = {}
+    if spec.node_selector is not None:
+        extra[f"{spec.app}-exporter-daemonset.yaml"] = [
+            exporter_daemonset(
+                spec.accelerator, node_selector=spec.node_selector, tolerations=spec.tolerations
+            ),
+            exporter_service(),
+        ]
+    rules = [
+        prometheusrule_manifest(spec.app, groups=[(spec.app, [spec.recording_rule()])])
+    ]
+    if spec.multihost:
+        q = spec.hosts_per_slice
+        return {
+            f"{spec.app}-statefulset.yaml": [
+                multihost_service(spec.app),
+                multihost_statefulset(
+                    spec.app, hosts_per_slice=q, gpu_limit=spec.gpu_limit,
+                    accelerator=spec.accelerator, intensity=spec.intensity,
+                    node_selector=spec.node_selector, tolerations=spec.tolerations,
+                ),
+            ],
+            **extra,
+            f"{spec.app}-prometheusrule.yaml": rules,
+            f"{spec.app}-adapter-values.yaml": [
+                adapter_values([adapter_rule(spec.record, resource="statefulset")])
+            ],
+            f"{spec.app}-hpa.yaml": [
+                multihost_hpa(spec.app, spec.record, spec.target, q, spec.min_slices,
+                              spec.max_slices)
+            ],
+        }
+    return {
+        f"{spec.app}-deployment.yaml": [
+            workload_deployment(
+                spec.app, command=spec.command, env=loadgen_env(intensity=spec.intensity),
+                gpu_limit=spec.gpu_limit, accelerator=spec.accelerator,
+                node_selector=spec.node_selector, tolerations=spec.tolerations,
+            )
+        ],
+        **extra,
+        f"{spec.app}-prometheusrule.yaml": rules,
+        f"{spec.app}-adapter-values.yaml": [adapter_values([adapter_rule(spec.record)])],
+        f"{spec.app}-hpa.yaml": [
+            hpa_manifest(
+                spec.app,
+                metrics=[object_metric(spec.record, "Deployment", spec.app, spec.target)],
+                min_replicas=spec.min_replicas,
+                max_replicas=spec.max_replicas,
+            )
+        ],
+    }
+
+
+def to_yaml(docs: list[dict]) -> str:
+    import yaml
+
+    return "---\n".join(
+        yaml.safe_dump(doc, sort_keys=False, default_flow_style=False) for doc in docs
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    """``python -m k8s_gpu_hpa_tpu_torch.manifests --out DIR``: write the
+    GPU manifests of ``default_bundle()`` into DIR, one YAML file each, and
+    print each path."""
+    parser = argparse.ArgumentParser(prog="python -m k8s_gpu_hpa_tpu_torch.manifests")
+    parser.add_argument("--out", required=True, help="directory to write the YAML files into")
+    out = Path(parser.parse_args(argv).out)
+    out.mkdir(parents=True, exist_ok=True)
+    for name, docs in default_bundle().items():
+        (out / name).write_text(to_yaml(docs))
+        print(out / name)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,9 +22,12 @@ Three load-bearing tricks, all preserved here:
    the custom-metrics adapter address the series as an Object metric on the
    Deployment.
 
-Rules are expression ASTs that evaluate against the in-process TSDB.  Every
+Rules are expression ASTs that (a) evaluate against the in-process TSDB and
+(b) render the equivalent PromQL via ``promql()``, character for character
+the JAX package's, from which ``manifests.py`` renders the PrometheusRule:
+one source for the tested semantics and the shipped manifest.  Every
 evaluation is a full one: the JAX package's incremental short-circuit,
-planner, tracing, alert rules and PromQL rendering are not ported.
+planner, tracing and alert rules are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ class Expr:
     def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
         raise NotImplementedError
 
+    def promql(self) -> str:
+        raise NotImplementedError
+
 
 @dataclass
 class Select(Expr):
@@ -51,6 +57,12 @@ class Select(Expr):
 
     def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
         return db.instant_vector(self.name, self.matchers, at)
+
+    def promql(self) -> str:
+        if not self.matchers:
+            return self.name
+        inner = ",".join(f'{k}="{v}"' for k, v in sorted(self.matchers.items()))
+        return f"{self.name}{{{inner}}}"
 
 
 def _project(sample: Sample, keys: tuple[str, ...]) -> tuple[tuple[str, str], ...]:
@@ -72,6 +84,9 @@ class MaxBy(Expr):
             if key not in groups or sample.value > groups[key]:
                 groups[key] = sample.value
         return [Sample(v, k) for k, v in groups.items()]
+
+    def promql(self) -> str:
+        return f"max by({','.join(self.keys)})({self.child.promql()})"
 
 
 @dataclass
@@ -112,6 +127,13 @@ class MulOnGroupLeft(Expr):
             out.append(Sample(sample.value * match.value, tuple(sorted(labels.items()))))
         return out
 
+    def promql(self) -> str:
+        gl = ",".join(self.group_left)
+        return (
+            f"{self.left.promql()} * on({','.join(self.on)}) "
+            f"group_left({gl}) {self.right.promql()}"
+        )
+
 
 @dataclass
 class Avg(Expr):
@@ -124,6 +146,9 @@ class Avg(Expr):
         if not vec:
             return []
         return [Sample(sum(s.value for s in vec) / len(vec), ())]
+
+    def promql(self) -> str:
+        return f"avg({self.child.promql()})"
 
 
 @dataclass
@@ -167,6 +192,21 @@ class RuleEvaluator:
         return sum(rule.evaluate_into(self.db) for rule in self.rules)
 
 
+def _app_scoped(metric: str, app: str) -> Expr:
+    """The per-pod maxima of ``metric`` joined to the pods labelled ``app``:
+    ``max by(node,pod,namespace)(metric) * on(pod) group_left(label_app)
+    max by(pod,label_app)(kube_pod_labels{label_app="app"})``."""
+    return MulOnGroupLeft(
+        left=MaxBy(("node", "pod", "namespace"), Select(metric)),
+        right=MaxBy(
+            ("pod", "label_app"),
+            Select("kube_pod_labels", {"label_app": app}),
+        ),
+        on=("pod",),
+        group_left=("label_app",),
+    )
+
+
 def tpu_test_avg_rule(
     app: str = "tpu-test",
     deployment: str = "tpu-test",
@@ -178,21 +218,30 @@ def tpu_test_avg_rule(
     (cuda-test-prometheusrule.yaml:13), with a per-device max: the device
     metric is per device, so ``max by(node,pod,namespace)`` also collapses
     the devices of a multi-device pod."""
-    expr = Avg(
-        MulOnGroupLeft(
-            left=MaxBy(("node", "pod", "namespace"), Select(metric)),
-            right=MaxBy(
-                ("pod", "label_app"),
-                Select("kube_pod_labels", {"label_app": app}),
-            ),
-            on=("pod",),
-            group_left=("label_app",),
-        )
-    )
     return RecordingRule(
         record=record,
-        expr=expr,
+        expr=Avg(_app_scoped(metric, app)),
         labels={"namespace": namespace, "deployment": deployment},
+    )
+
+
+def tpu_test_multihost_avg_rule(
+    app: str = "tpu-test-multihost",
+    statefulset: str = "tpu-test-multihost",
+    namespace: str = "default",
+    metric: str = TPU_TENSORCORE_UTIL,
+    record: str = "tpu_test_multihost_tensorcore_avg",
+) -> RecordingRule:
+    """The slice pod's rule (deploy/tpu-test-multihost-hpa.yaml's series):
+    the same three-trick shape over a StatefulSet of slices, each pod one
+    host of a multi-host slice.  The average over the per-pod maxima is the
+    average over every host of every slice, which equals the per-slice
+    average when the slices are of one size.  The output labels address the
+    series at the StatefulSet object."""
+    return RecordingRule(
+        record=record,
+        expr=Avg(_app_scoped(metric, app)),
+        labels={"namespace": namespace, "statefulset": statefulset},
     )
 
 

@@ -51,6 +51,10 @@ CHIP_METRICS: dict[str, tuple[str, str]] = {
     TPU_CHIP_POWER: ("gauge", "Chip power draw in watts per TPU chip"),
 }
 
+#: the families every healthy source serves (the rest are absent where
+#: nothing measures them): what the doctor's exporter probe requires
+CORE_CHIP_METRICS = (TPU_HBM_USAGE, TPU_HBM_TOTAL)
+
 
 @dataclass(frozen=True)
 class Exemplar:

@@ -35,6 +35,16 @@ loop as a GPU node's exporter sees it: the device read through NVML
 tensor-core gauge supplied by the generator's self-report, which the daemon
 merges.
 
+The slice trial (``run_slice_trial``, the counterpart of bench.py's
+``run_rung_multihost_quantum``) scales a StatefulSet of multi-host slices
+(``MirrorStatefulSet``: pods ``tpu-test-multihost-<ordinal>``, two hosts a
+slice) in whole-slice quanta under the shipped slice HPA
+(deploy/tpu-test-multihost-hpa.yaml: target 40, pods 2..8, quantum 2).  The
+real pod, ordinal 0, runs the slice container's collective generator; its
+slice peer and the other slices are mirror pods.  It offers 0.2 devices of
+load, then 3.2 ("320 shared"): 53.3 a pod at 6 pods, which needs all 8, and
+40 at 8.  It counts the scale events that land off a slice boundary.
+
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
 generator: pod ``tpu-train-real``, both rules of the ``tpu-train`` group and
@@ -68,10 +78,16 @@ from k8s_gpu_hpa_tpu_torch.control.adapter import (
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
     TRAIN_BW_SERIES,
     TRAIN_DUTY_SERIES,
+    MULTIHOST_MAX_REPLICAS,
+    MULTIHOST_MIN_REPLICAS,
+    MULTIHOST_QUANTUM,
+    MULTIHOST_SERIES,
+    MULTIHOST_TARGET,
     HPABehavior,
     HPAController,
     ObjectMetricSpec,
     shipped_behavior,
+    shipped_multihost_behavior,
     signal_ceiling_clears_band,
     train_metrics,
 )
@@ -86,10 +102,12 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     RecordingRule,
     RuleEvaluator,
     tpu_test_avg_rule,
+    tpu_test_multihost_avg_rule,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_DUTY_CYCLE,
     TPU_HBM_BW_UTIL,
+    TPU_TENSORCORE_UTIL,
     ChipSample,
     MetricFamily,
     families_from_chips,
@@ -98,6 +116,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock
 
 if TYPE_CHECKING:
+    from k8s_gpu_hpa_tpu_torch.loadgen.allreduce import AllReduceLoadGen
     from k8s_gpu_hpa_tpu_torch.loadgen.decode import DecodeLoadGen
     from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
     from k8s_gpu_hpa_tpu_torch.loadgen.train import TrainLoadGen
@@ -110,6 +129,10 @@ DUTY_SERIES = "tpu_test_duty_cycle_avg"
 SERVE_POD = "tpu-serve-real"
 SERVE_SERIES = "tpu_serve_hbm_bw_avg"
 TRAIN_POD = "tpu-train-real"
+MULTIHOST_APP = "tpu-test-multihost"
+#: the slice trial on the card: the duty-cycle series of the slice rule,
+#: named with the JAX manifests' stem for the duty cycle
+MULTIHOST_DUTY_SERIES = "tpu_test_multihost_duty_cycle_avg"
 BASE_POD_START_LATENCY = 12.0
 BASE_HPA_SYNC = 15.0
 BASE_BUDGET_S = 60.0
@@ -141,8 +164,27 @@ class LoopSpec:
     #: a started mirror pod's device, given the value ``mirror_util`` reads
     mirror_chip: Callable[[int, float], ChipSample]
     #: offered load once all replicas run, in devices' worth, whose drain
-    #: back to one replica the trial times; None: the trial ends there
+    #: back to ``min_replicas`` the trial times; None: the trial ends there
     drain_offered: float | None = None
+    #: offered load after the spike, in devices' worth
+    spike_offered: float = 8.0
+    min_replicas: int = 1
+    max_replicas: int = MAX_REPLICAS
+    #: pods a slice: replicas move in multiples of it
+    replica_quantum: int = 1
+    #: the HPA's behavior stanza at time scale 1
+    behavior: Callable[[], HPABehavior] = shipped_behavior
+
+    @property
+    def kind(self) -> str:
+        """The scaled object's kind, the HPA's metrics' described object's:
+        ``Deployment`` or ``StatefulSet``."""
+        return self.metrics[0].described_object.kind
+
+    @property
+    def object_label(self) -> str:
+        """The recorded series' label that names the scaled object."""
+        return self.kind.lower()
 
 
 def _mirror_busy(i: int, util: float) -> ChipSample:
@@ -225,9 +267,35 @@ def train_spec() -> LoopSpec:
     )
 
 
-def scaled_behavior(time_scale: float) -> HPABehavior:
-    """``shipped_behavior()`` with every window and period times ``time_scale``."""
-    behavior = shipped_behavior()
+def slice_spec(metric: str = TPU_TENSORCORE_UTIL, series: str = MULTIHOST_SERIES) -> LoopSpec:
+    """The slice loop: bench.py's multihost rung against the shipped slice
+    HPA (deploy/tpu-test-multihost-hpa.yaml: target 40 on the StatefulSet,
+    pods 2..8, quantum 2, its behavior) with the slice rule on ``metric``,
+    recorded as ``series``.  The trial offers 0.2 devices of load, then 3.2;
+    it drains back to 0.2.  Mirror pods report the real pod's value in
+    both activity gauges."""
+    return LoopSpec(
+        app=MULTIHOST_APP,
+        real_pod=f"{MULTIHOST_APP}-0",
+        rules=(tpu_test_multihost_avg_rule(metric=metric, record=series),),
+        metrics=(ObjectMetricSpec(
+            series, MULTIHOST_TARGET, ObjectReference("StatefulSet", MULTIHOST_APP, "default")
+        ),),
+        series=(series,),
+        base_offered=0.2,
+        settle_below=30.0,
+        mirror_chip=_mirror_busy,
+        drain_offered=0.2,
+        spike_offered=3.2,
+        min_replicas=MULTIHOST_MIN_REPLICAS,
+        max_replicas=MULTIHOST_MAX_REPLICAS,
+        replica_quantum=MULTIHOST_QUANTUM,
+        behavior=shipped_multihost_behavior,
+    )
+
+
+def scaled_behavior(time_scale: float, behavior: HPABehavior) -> HPABehavior:
+    """``behavior`` with every window and period times ``time_scale``."""
     for rules in (behavior.scale_up, behavior.scale_down):
         rules.stabilization_window_seconds *= time_scale
         for policy in rules.policies:
@@ -264,6 +332,26 @@ class MirrorDeployment:
     def running(self) -> list[str]:
         now = self.clock.now()
         return [p for p, ready in self.pods.items() if ready <= now]
+
+
+class MirrorStatefulSet(MirrorDeployment):
+    """Scalable StatefulSet whose pods are ``<app>-<ordinal>``: ordinal 0 is
+    the real pod, the others mirror its device.  It starts with
+    ``replicas`` pods running; scaling adds the next ordinals, each running
+    ``pod_start_latency`` after, and removes the highest, as a StatefulSet
+    does."""
+
+    def __init__(self, clock: Clock, pod_start_latency: float, app: str, replicas: int):
+        super().__init__(clock, pod_start_latency, f"{app}-0", app)
+        self.pods = {f"{app}-{i}": -float("inf") for i in range(replicas)}
+        self.replicas = replicas
+
+    def scale_to(self, n: int) -> None:
+        while len(self.pods) < n:
+            self.pods[f"{self.app}-{len(self.pods)}"] = self.clock.now() + self.pod_start_latency
+        while len(self.pods) > n:
+            self.pods.pop(f"{self.app}-{len(self.pods) - 1}")
+        self.replicas = n
 
 
 @dataclass
@@ -319,16 +407,19 @@ def wire_pipeline(
     metric: str = DUTY_SERIES,
     spec: LoopSpec | None = None,
 ) -> Pipeline:
-    """Build the metric pipeline and HPA around a fresh MirrorDeployment.
+    """Build the metric pipeline and HPA around a fresh MirrorDeployment
+    (a MirrorStatefulSet at its minimum for a StatefulSet spec).
 
     ``fetch_real`` serves the real pod's exposition (its node is ``real-0``),
     ``mirror_util`` the value the mirror pods report.  ``spec`` is the loop
     (default: the headline loop with ``metric`` the recorded series the HPA
     targets)."""
     loop = spec if spec is not None else headline_spec(metric)
-    deployment = MirrorDeployment(
-        clock, BASE_POD_START_LATENCY * time_scale, loop.real_pod, loop.app
-    )
+    latency = BASE_POD_START_LATENCY * time_scale
+    if loop.kind == "StatefulSet":
+        deployment = MirrorStatefulSet(clock, latency, loop.app, loop.min_replicas)
+    else:
+        deployment = MirrorDeployment(clock, latency, loop.real_pod, loop.app)
     db = TimeSeriesDB(clock)
     scraper = Scraper(db)
     scraper.add_target(fetch_real, name="exporter/real", node="real-0")
@@ -339,15 +430,19 @@ def wire_pipeline(
     )
     scraper.add_target(lambda: pod_labels_exposition(deployment), name="ksm")
     evaluator = RuleEvaluator(db, list(loop.rules))
-    adapter = CustomMetricsAdapter(db, [AdapterRule(series=m.metric_name) for m in loop.metrics])
+    overrides = {"namespace": "namespace", loop.object_label: loop.kind}
+    adapter = CustomMetricsAdapter(
+        db, [AdapterRule(m.metric_name, dict(overrides)) for m in loop.metrics]
+    )
     hpa = HPAController(
         target=deployment,
         metrics=list(loop.metrics),
         adapter=adapter,
         clock=clock,
-        min_replicas=1,
-        max_replicas=MAX_REPLICAS,
-        behavior=scaled_behavior(time_scale),
+        min_replicas=loop.min_replicas,
+        max_replicas=loop.max_replicas,
+        behavior=scaled_behavior(time_scale, loop.behavior()),
+        replica_quantum=loop.replica_quantum,
     )
     return Pipeline(deployment, db, scraper, evaluator, hpa, loop.metrics[0].metric_name, spec)
 
@@ -378,11 +473,14 @@ class TrialResult:
     #: and its headroom over the target
     saturated_pct: float | None = None
     headroom: float | None = None
-    #: the load's drop once all replicas ran → one replica (None: no drain,
+    #: the load's drop once all replicas ran → the minimum (None: no drain,
     #: or a drain that did not end within its bound), and the syncs of the
     #: drain at which the replicas rose after a fall
     scale_down_s: float | None = None
     scale_down_flaps: int = 0
+    #: scale events whose new replica count is not a multiple of the
+    #: spec's quantum (a partial slice)
+    slice_boundary_violations: int = 0
 
 
 class _Grid:
@@ -409,7 +507,7 @@ class _Grid:
 def _settle(load: Load, loop: LoopSpec, clock: Clock, time_scale: float) -> None:
     """Drop to the spec's base load and let the generator's window flush any
     earlier load, so the trial starts from a true baseline."""
-    load.set_intensity(loop.base_offered)
+    load.set_intensity(min(1.0, loop.base_offered / loop.min_replicas))
     settle_deadline = clock.now() + max(30.0 * time_scale, 5.0)
     while load.utilization() > loop.settle_below and clock.now() < settle_deadline:
         clock.sleep(0.1)
@@ -423,20 +521,23 @@ def run_trial(
     tick: float = 0.05,
 ) -> TrialResult:
     """Settle at the spec's base load (0.2 devices for the headline loop),
-    spike to 8, and time the scale-up.  The crossing is the first scrape
-    after the spike at which any of the HPA's metrics exceeds its target.
-    Where the spec drains (``drain_offered``), the load then drops and the
-    trial times the drain to one replica, bounded at ``max(600 ×
-    time_scale, 60)`` s, and counts its flaps.
+    spike to the spec's ``spike_offered`` (8 devices), and time the
+    scale-up.  The crossing is the first scrape after the spike at which
+    any of the HPA's metrics exceeds its target.  Where the spec drains
+    (``drain_offered``), the load then drops and the trial times the drain
+    to the spec's minimum, bounded at ``max(600 × time_scale, 60)`` s, and
+    counts its flaps.  Every sync's scale event off the spec's quantum
+    counts as a slice-boundary violation.
 
     Raises RuntimeError when no metric crosses its target or the
-    deployment does not reach MAX_REPLICAS running pods within the budget
-    after the crossing."""
+    deployment does not reach the spec's maximum of running pods within
+    the budget after the crossing."""
     loop = pipe.loop_spec()
     scrape_interval = max(0.05, 1.0 * time_scale)
     hpa_sync = BASE_HPA_SYNC * time_scale
     budget = BASE_BUDGET_S * time_scale
     deployment = pipe.deployment
+    top = loop.max_replicas
     _settle(load, loop, clock, time_scale)
 
     offered = loop.base_offered  # in devices' worth; below the target
@@ -454,12 +555,12 @@ def run_trial(
     while clock.now() < deadline:
         now = clock.now()
         if t_drop is None and now >= spike_at:
-            offered = 8.0  # drives per-pod utilization to 100 until 4 pods
+            offered = loop.spike_offered
         load.set_intensity(min(1.0, offered / max(1, len(deployment.running()))))
         if scrapes.due(now):
             pipe.scraper.scrape_once()
             pipe.evaluator.evaluate_once()
-            selector = {"deployment": loop.app}
+            selector = {loop.object_label: loop.app}
             result.series.append(
                 (now - spike_at, *(pipe.db.latest(s, selector) for s in loop.series))
             )
@@ -479,6 +580,8 @@ def run_trial(
                 m.metric_name: pipe.hpa.adapter.get_object_metric(m.described_object, m.metric_name)
                 for m in loop.metrics
             }))
+            if deployment.replicas != prev_replicas and deployment.replicas % loop.replica_quantum:
+                result.slice_boundary_violations += 1
             if t_drop is not None:
                 if deployment.replicas > prev_replicas and fell:
                     result.scale_down_flaps += 1
@@ -487,18 +590,18 @@ def run_trial(
         if (
             t_done is None
             and t_cross is not None
-            and deployment.replicas == MAX_REPLICAS
-            and len(deployment.running()) == MAX_REPLICAS
+            and deployment.replicas == top
+            and len(deployment.running()) == top
         ):
             t_done = now
-            result.replicas.append((now - spike_at, MAX_REPLICAS, MAX_REPLICAS))
+            result.replicas.append((now - spike_at, top, top))
             if loop.drain_offered is None:
                 break
             t_drop, offered = now, loop.drain_offered
             deadline = now + max(600.0 * time_scale, 60.0)
-        if t_drop is not None and deployment.replicas == 1:
+        if t_drop is not None and deployment.replicas == loop.min_replicas:
             result.scale_down_s = now - t_drop
-            result.replicas.append((now - spike_at, 1, len(deployment.running())))
+            result.replicas.append((now - spike_at, loop.min_replicas, len(deployment.running())))
             break
         clock.sleep(tick)
     if t_cross is None:
@@ -506,7 +609,7 @@ def run_trial(
         raise RuntimeError(f"no metric crossed its target after the spike ({targets})")
     if t_done is None or t_done - t_cross > budget:
         raise RuntimeError(
-            f"no scale-up to {MAX_REPLICAS} running replicas within {budget:.1f}s "
+            f"no scale-up to {top} running replicas within {budget:.1f}s "
             f"of the crossing; replicas: {result.replicas}"
         )
     result.scale_up_s = t_done - t_cross
@@ -876,6 +979,34 @@ class TrainLoad:
         time.sleep(min(busy * (1.0 - i) / i, 2.0))
 
 
+class PacedLoad(TrainLoad):
+    """``TrainLoad`` paced against a schedule: each step is allotted ``busy
+    / i`` of wall time from where the last allotment ended, and sleeps
+    until its end, so a sleep that wakes late, or the host's time between
+    steps, is taken from the next sleep instead of from the duty cycle.  A
+    late start of more than ``CATCH_UP_S`` restarts the schedule (the
+    intensity rose, or the host stalled).  The slice pod's collective
+    bursts take some 1.7 ms on an H100: under ``TrainLoad``'s sleep after
+    each step, amid the trial's threads, the pod read 43.9 for a commanded
+    53.3, below the HPA's band edge of 44."""
+
+    CATCH_UP_S = 0.05
+
+    def __init__(self, gen: AllReduceLoadGen, window: float = 3.0):
+        super().__init__(gen, window)
+        self._due: float | None = None
+
+    def step(self) -> None:
+        i = max(self._intensity, 0.01)
+        t0 = time.perf_counter()
+        self.gen.step()
+        busy = time.perf_counter() - t0
+        self.duty.record(busy)
+        on_schedule = self._due is not None and t0 - self._due <= self.CATCH_UP_S
+        self._due = (self._due if on_schedule else t0) + busy / i
+        time.sleep(min(max(0.0, self._due - time.perf_counter()), 2.0))
+
+
 def run_train_trial(gen: TrainLoadGen, time_scale: float = 1.0) -> TrialResult:
     """The training trial around one training generator, in real time.
 
@@ -888,3 +1019,23 @@ def run_train_trial(gen: TrainLoadGen, time_scale: float = 1.0) -> TrialResult:
     load = TrainLoad(gen, window=3.0 * time_scale)
     source = TorchDeviceSource(util_fn=load.utilization, device=gen.device)
     return _live_trial(train_spec(), source, load.step, load, load.utilization, time_scale)
+
+
+def run_slice_trial(gen: AllReduceLoadGen, time_scale: float = 1.0) -> TrialResult:
+    """The slice trial around one collective generator, in real time: the
+    scale-up alone.
+
+    The generator, the slice container's default workload, runs as pod
+    ``tpu-test-multihost-0`` (ordinal 0 of slice 0) under ``PacedLoad``;
+    its slice peer and the other slices' hosts are mirror pods.  The loop
+    reads the duty cycle, the generator's busy share over a 3 s window
+    (times ``time_scale``) served by ``TorchDeviceSource``, recorded by the
+    slice rule as ``tpu_test_multihost_duty_cycle_avg``: a GPU serves no
+    tensor-core gauge for a collective pod.  Target, bounds, quantum and
+    behavior are the shipped slice HPA's."""
+    load = PacedLoad(gen, window=3.0 * time_scale)
+    source = TorchDeviceSource(util_fn=load.utilization, device=gen.device)
+    spec = dataclasses.replace(
+        slice_spec(TPU_DUTY_CYCLE, MULTIHOST_DUTY_SERIES), drain_offered=None
+    )
+    return _live_trial(spec, source, load.step, load, load.utilization, time_scale)

@@ -73,6 +73,9 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.models.moe",
         "k8s_gpu_hpa_tpu_torch.models.pipeline",
         "k8s_gpu_hpa_tpu_torch.loadgen.moe",
+        "k8s_gpu_hpa_tpu_torch.metrics.rules",
+        "k8s_gpu_hpa_tpu_torch.manifests",
+        "k8s_gpu_hpa_tpu_torch.doctor",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -119,6 +122,46 @@ def test_running_the_ring_tp_and_sequence_parallel_paths_loads_no_jax():
     )
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
     assert "k8s_gpu_hpa_tpu_torch.loadgen.ringattn" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+_RUN_DEPLOY_SIDE = """
+import json, sys
+from k8s_gpu_hpa_tpu_torch import doctor, manifests
+from k8s_gpu_hpa_tpu_torch.exporter.stub_nvml import StubNvml
+from k8s_gpu_hpa_tpu_torch.trial import run_trial, slice_spec, wire_pipeline
+from k8s_gpu_hpa_tpu_torch.metrics import exposition, schema
+from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
+for docs in manifests.default_bundle().values():
+    manifests.to_yaml(docs)
+doctor.diagnose(exporter_fetch=lambda: "")
+assert doctor.probe_nvml(StubNvml(1).path) == 0
+class Load:
+    intensity = 0.0
+    def set_intensity(self, value): self.intensity = value
+    def utilization(self, _chip_index=0): return 100.0 * self.intensity
+load, clock = Load(), VirtualClock()
+def real():
+    duty = load.utilization()
+    chip = schema.ChipSample(0, duty, duty, 1.0, 2.0, None)
+    return exposition.encode_text(schema.families_from_chips(
+        [chip], "real-0", {0: ("default", "tpu-test-multihost-0")}))
+pipe = wire_pipeline(real, load.utilization, clock, 0.1, spec=slice_spec())
+assert run_trial(load, pipe, clock, 0.1).slice_boundary_violations == 0
+print(json.dumps({"loaded": sorted(sys.modules)}))
+"""
+
+
+def test_running_the_deploy_side_and_the_slice_loop_loads_no_jax():
+    """The manifest generator, the doctor (its joints and the NVML probe
+    over the stub library) and the slice loop on a virtual clock, run in a
+    fresh interpreter, load neither JAX nor the JAX package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_DEPLOY_SIDE], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
+    assert {"k8s_gpu_hpa_tpu_torch.manifests", "k8s_gpu_hpa_tpu_torch.doctor", "yaml"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -1,0 +1,296 @@
+"""The GPU manifest generator against the JAX package's: the same string
+contracts, leaf for leaf, except where a GPU node needs another value.
+
+``default_bundle()`` is walked against the JAX package's bundle, file by
+file and leaf by leaf.  A leaf may differ only under one of ``GPU_PATHS``
+(the accelerator's resource key, node selector and taint, the images, the
+commands, and the exporter's NVML access), and each of them must differ
+somewhere, so the list cannot go stale.  Where the port renders a subset of
+the JAX package's entries (``SUBSET_PATHS``: the scrape jobs, the adapter
+rules, the rule groups), each entry it renders must equal the JAX entry of
+the same name.  Each recording rule's PromQL is JAX's, character for
+character."""
+
+import fnmatch
+
+import pytest
+import torch
+import yaml
+
+from k8s_gpu_hpa_tpu import manifests as jax_manifests
+from k8s_gpu_hpa_tpu.metrics import rules as jax_rules
+from k8s_gpu_hpa_tpu_torch import manifests
+from k8s_gpu_hpa_tpu_torch.metrics import rules
+from k8s_gpu_hpa_tpu_torch.metrics.schema import (
+    TPU_DUTY_CYCLE,
+    TPU_HBM_BW_UTIL,
+    TPU_HBM_USAGE,
+    TPU_TENSORCORE_UTIL,
+)
+from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+
+torch.set_num_threads(1)
+
+_POD = ("spec", "template", "spec")
+_CONTAINER = (*_POD, "containers", "*")
+_EXPORTER = ("tpu-metrics-exporter.yaml", "0")
+#: (file, document, *keys) patterns, "*" any one key: where a GPU node needs
+#: another value than a TPU node, each with everything under it
+GPU_PATHS = [
+    ("*", "*", *_POD, "nodeSelector"),
+    ("*", "*", *_POD, "tolerations", "*", "key"),
+    ("*", "*", *_CONTAINER, "image"),
+    ("*", "*", *_CONTAINER, "command"),
+    ("*", "*", *_CONTAINER, "resources", "limits"),
+    # NVML instead of libtpu: its env, the driver's libraries, privileged
+    (*_EXPORTER, *_CONTAINER, "env"),
+    (*_EXPORTER, *_CONTAINER, "securityContext"),
+    (*_EXPORTER, *_CONTAINER, "volumeMounts"),
+    (*_EXPORTER, *_POD, "volumes"),
+]
+#: lists whose port entries are a subset of the JAX package's, by name
+SUBSET_PATHS = {
+    ("kube-prometheus-stack-values.yaml", "0", "prometheus", "prometheusSpec",
+     "additionalScrapeConfigs"): "job_name",
+    ("prometheus-adapter-values.yaml", "0", "rules", "custom"): "seriesQuery",
+    ("prometheus-adapter-values.yaml", "0", "rules", "external"): "seriesQuery",
+    ("tpu-test-prometheusrule.yaml", "0", "spec", "groups"): "name",
+}
+
+
+def _walk(port, ref, path: tuple, out: list) -> None:
+    """The paths at which ``port`` and ``ref`` differ: a key one side
+    lacks, a list of another length, a leaf of another value or type."""
+    if isinstance(port, dict) and isinstance(ref, dict):
+        for key in [*port, *(k for k in ref if k not in port)]:
+            if key in port and key in ref:
+                _walk(port[key], ref[key], (*path, str(key)), out)
+            else:
+                out.append((*path, str(key)))
+    elif isinstance(port, list) and isinstance(ref, list):
+        if len(port) != len(ref):
+            out.append(path)
+        else:
+            for i, (a, b) in enumerate(zip(port, ref)):
+                _walk(a, b, (*path, str(i)), out)
+    elif type(port) is not type(ref) or port != ref:
+        out.append(path)
+
+
+def _under(path: tuple, pattern: tuple) -> bool:
+    return len(path) >= len(pattern) and all(
+        fnmatch.fnmatchcase(key, want) for key, want in zip(path, pattern)
+    )
+
+
+def _differences(port: dict, ref: dict) -> list[tuple]:
+    out: list[tuple] = []
+    for name, docs in port.items():
+        _walk(docs, ref[name], (name,), out)
+    return out
+
+
+def _by(entries: list[dict], key: str) -> dict:
+    return {e[key]: e for e in entries}
+
+
+def _lookup(bundle: dict, path: tuple):
+    node = bundle[path[0]]
+    for key in path[1:]:
+        node = node[int(key)] if isinstance(node, list) else node[key]
+    return node
+
+
+def test_the_bundle_holds_the_jax_bundle_s_manifests_of_the_port_s_pipelines():
+    port, ref = manifests.default_bundle(), jax_manifests.default_bundle()
+    assert set(port) < set(ref)
+    assert set(port) == {
+        "tpu-metrics-exporter.yaml", "kube-prometheus-stack-values.yaml",
+        "prometheus-adapter-values.yaml", "tpu-test-prometheusrule.yaml",
+        *(f"{w}-{kind}.yaml" for w in ("tpu-test", "tpu-serve", "tpu-train")
+          for kind in ("deployment", "hpa")),
+        "tpu-test-multihost.yaml", "tpu-test-multihost-hpa.yaml",
+    }
+    for name, docs in port.items():
+        assert [d.get("kind") for d in docs] == [d.get("kind") for d in ref[name]]
+
+
+def test_every_leaf_of_the_bundle_is_jax_s_but_where_a_gpu_node_needs_another():
+    diffs = _differences(manifests.default_bundle(), jax_manifests.default_bundle())
+    allowed = GPU_PATHS + list(SUBSET_PATHS)
+    stray = [d for d in diffs if not any(_under(d, p) for p in allowed)]
+    assert stray == []
+    # each listed path differs somewhere: the list names real differences
+    stale = [p for p in allowed if not any(_under(d, p) for d in diffs)]
+    assert stale == []
+
+
+@pytest.mark.parametrize("path", list(SUBSET_PATHS), ids=lambda p: "/".join(p[:1] + p[-1:]))
+def test_each_entry_the_port_renders_of_a_list_is_jax_s_entry(path):
+    key = SUBSET_PATHS[path]
+    port = _by(_lookup(manifests.default_bundle(), path), key)
+    ref = _by(_lookup(jax_manifests.default_bundle(), path), key)
+    assert set(port) <= set(ref)
+    for name, entry in port.items():
+        if path[-1] == "groups":
+            # a rule group: the port evaluates some of the JAX group's rules
+            assert {k: v for k, v in entry.items() if k != "rules"} == {
+                k: v for k, v in ref[name].items() if k != "rules"
+            }
+            want = _by(ref[name]["rules"], "record")
+            assert entry["rules"] and all(r == want[r["record"]] for r in entry["rules"])
+        else:
+            assert entry == ref[name]
+
+
+def test_the_gpu_values_are_the_ones_a_gpu_node_needs():
+    bundle = manifests.default_bundle()
+    workloads = [d for name, docs in bundle.items() for d in docs
+                 if d.get("kind") in ("Deployment", "StatefulSet", "DaemonSet")]
+    for doc in workloads:
+        pod = doc["spec"]["template"]["spec"]
+        assert pod["nodeSelector"] == {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
+        assert pod["tolerations"] == [
+            {"key": "nvidia.com/gpu", "operator": "Exists", "effect": "NoSchedule"}
+        ]
+        command = pod["containers"][0]["command"]
+        assert command[:2] == ["python", "-m"]
+        assert command[2].startswith("k8s_gpu_hpa_tpu_torch.")
+    limits = {d["metadata"]["name"]: d["spec"]["template"]["spec"]["containers"][0]["resources"]
+              for d in workloads if d["kind"] != "DaemonSet"}
+    # the JAX manifests' device counts, as nvidia.com/gpu
+    assert limits == {
+        "tpu-test": {"limits": {"nvidia.com/gpu": 1}},
+        "tpu-serve": {"limits": {"nvidia.com/gpu": 1}},
+        "tpu-train": {"limits": {"nvidia.com/gpu": 4}},
+        "tpu-test-multihost": {"limits": {"nvidia.com/gpu": 4}},
+    }
+    exporter = bundle["tpu-metrics-exporter.yaml"][0]["spec"]["template"]["spec"]
+    container = exporter["containers"][0]
+    env = {e["name"]: e.get("value") for e in container["env"]}
+    assert env["SOURCE"] == "nvml" and env["LD_LIBRARY_PATH"] == "/usr/local/nvidia/lib64"
+    mounts = {m["mountPath"] for m in container["volumeMounts"]}
+    assert mounts == {"/var/lib/kubelet/pod-resources", "/usr/local/nvidia",
+                      "/var/run/tpu-telemetry"}
+    hosts = {v["hostPath"]["path"] for v in exporter["volumes"]}
+    assert hosts == {"/var/lib/kubelet/pod-resources", "/home/kubernetes/bin/nvidia",
+                     "/var/run/tpu-telemetry"}
+
+
+def _rule_pairs():
+    """Each recording rule of the port's groups beside the JAX rule of the
+    same record, and the slice rule and PipelineSpec rules on every metric."""
+    ref = {r.record: r for _, group in jax_manifests.shipped_rule_groups() for r in group}
+    pairs = [(r, ref[r.record]) for _, group in manifests.shipped_rule_groups() for r in group]
+    for metric in (TPU_TENSORCORE_UTIL, TPU_DUTY_CYCLE, TPU_HBM_BW_UTIL, TPU_HBM_USAGE):
+        pairs.append((
+            rules.tpu_test_multihost_avg_rule("s-app", "s-app", "ml", metric, "r"),
+            jax_rules.tpu_test_multihost_avg_rule("s-app", "s-app", "ml", metric, "r"),
+        ))
+        for hosts in (1, 2):
+            pairs.append((
+                manifests.PipelineSpec("my-app", metric, hosts_per_slice=hosts).recording_rule(),
+                jax_manifests.PipelineSpec("my-app", metric, hosts_per_slice=hosts).recording_rule(),
+            ))
+    return pairs
+
+
+@pytest.mark.parametrize("port,ref", _rule_pairs(),
+                         ids=lambda r: getattr(r, "record", None))
+def test_each_rule_s_promql_is_jax_s(port, ref):
+    assert port.record == ref.record
+    assert port.expr.promql() == ref.expr.promql()
+    assert port.labels == ref.labels
+
+
+def test_the_rule_asts_render_jax_s_promql_node_by_node():
+    sel = rules.Select("kube_pod_labels", {"label_app": "a", "b": "c"})
+    jsel = jax_rules.Select("kube_pod_labels", {"label_app": "a", "b": "c"})
+    assert sel.promql() == jsel.promql() == 'kube_pod_labels{b="c",label_app="a"}'
+    assert rules.Select("m").promql() == jax_rules.Select("m").promql() == "m"
+    by = rules.MaxBy(("pod", "label_app"), sel)
+    assert by.promql() == jax_rules.MaxBy(("pod", "label_app"), jsel).promql()
+    mul = rules.MulOnGroupLeft(rules.Select("x"), by, ("pod",), ("label_app",))
+    jmul = jax_rules.MulOnGroupLeft(
+        jax_rules.Select("x"), jax_rules.MaxBy(("pod", "label_app"), jsel), ("pod",), ("label_app",)
+    )
+    assert mul.promql() == jmul.promql()
+    assert rules.Avg(mul).promql() == jax_rules.Avg(jmul).promql()
+    assert rules.tpu_test_multihost_avg_rule().expr.promql() == (
+        'avg(max by(node,pod,namespace)(tpu_tensorcore_utilization) * on(pod) '
+        'group_left(label_app) max by(pod,label_app)'
+        '(kube_pod_labels{label_app="tpu-test-multihost"}))'
+    )
+
+
+def test_the_bundle_round_trips_through_yaml():
+    for name, docs in manifests.default_bundle().items():
+        assert list(yaml.safe_load_all(manifests.to_yaml(docs))) == docs, name
+
+
+@pytest.mark.parametrize("hosts", [1, 2, 4])
+def test_render_pipeline_round_trips_and_matches_jax_s(hosts):
+    kwargs = {"hosts_per_slice": hosts, "min_slices": 1, "max_slices": 3, "target": "55",
+              "device_metric": TPU_DUTY_CYCLE}
+    port = manifests.render_pipeline(manifests.PipelineSpec("my-app", gpu_limit=4, **kwargs))
+    ref = jax_manifests.render_pipeline(jax_manifests.PipelineSpec("my-app", tpu_limit=4, **kwargs))
+    assert list(port) == list(ref)
+    for name, docs in port.items():
+        assert list(yaml.safe_load_all(manifests.to_yaml(docs))) == docs, name
+    stray = [d for d in _differences(port, ref) if not any(_under(d, p) for p in GPU_PATHS)]
+    assert stray == []
+
+
+def test_the_multihost_pipeline_shape():
+    spec = manifests.PipelineSpec("slice-app", hosts_per_slice=4, min_slices=1, max_slices=3)
+    out = manifests.render_pipeline(spec)
+    assert list(out) == ["slice-app-statefulset.yaml", "slice-app-prometheusrule.yaml",
+                         "slice-app-adapter-values.yaml", "slice-app-hpa.yaml"]
+    service, sts = out["slice-app-statefulset.yaml"]
+    assert service["spec"]["clusterIP"] == "None" and service["spec"]["publishNotReadyAddresses"]
+    assert sts["kind"] == "StatefulSet" and sts["spec"]["serviceName"] == "slice-app"
+    env = {e["name"]: e.get("value") for e in
+           sts["spec"]["template"]["spec"]["containers"][0]["env"]}
+    assert (env["HOSTS_PER_SLICE"], env["HEADLESS_SERVICE"]) == ("4", "slice-app")
+    (rule_doc,) = out["slice-app-prometheusrule.yaml"]
+    (rule,) = rule_doc["spec"]["groups"][0]["rules"]
+    assert rule["record"] == "slice_app_tensorcore_avg"
+    assert rule["labels"] == {"namespace": "default", "statefulset": "slice-app"}
+    (adapter,) = out["slice-app-adapter-values.yaml"][0]["rules"]["custom"]
+    assert adapter == manifests.adapter_rule("slice_app_tensorcore_avg", resource="statefulset")
+    (hpa,) = out["slice-app-hpa.yaml"]
+    assert hpa["metadata"]["annotations"] == {"k8s-tpu-hpa/replica-quantum": "4"}
+    assert (hpa["spec"]["minReplicas"], hpa["spec"]["maxReplicas"]) == (4, 12)
+    assert hpa["spec"]["scaleTargetRef"]["kind"] == "StatefulSet"
+    assert hpa["spec"]["behavior"]["scaleUp"]["policies"] == [
+        {"type": "Pods", "value": 8, "periodSeconds": 15}
+    ]
+    assert hpa["spec"]["behavior"]["scaleDown"]["policies"] == [
+        {"type": "Pods", "value": 4, "periodSeconds": 60}
+    ]
+
+
+def test_a_node_selector_replaces_gke_s_and_brings_the_exporter():
+    selector, tolerations = {"accelerator": "nvidia-gpu"}, [{"operator": "Exists"}]
+    out = manifests.render_pipeline(manifests.PipelineSpec(
+        "my-app", node_selector=selector, tolerations=tolerations))
+    deployment = out["my-app-deployment.yaml"][0]["spec"]["template"]["spec"]
+    exporter = out["my-app-exporter-daemonset.yaml"][0]["spec"]["template"]["spec"]
+    for pod in (deployment, exporter):
+        assert pod["nodeSelector"] == selector and pod["tolerations"] == tolerations
+
+
+@pytest.mark.parametrize("kwargs", [{"app": "Bad_App"}, {"app": "ok", "device_metric": "nope"}])
+def test_pipeline_spec_refuses_what_would_break_a_contract(kwargs):
+    with pytest.raises(ValueError):
+        manifests.PipelineSpec(**kwargs)
+
+
+def test_the_cli_writes_the_bundle(tmp_path, capsys):
+    assert manifests.main(["--out", str(tmp_path / "gpu")]) == 0
+    bundle = manifests.default_bundle()
+    written = sorted(p.name for p in (tmp_path / "gpu").iterdir())
+    assert written == sorted(bundle)
+    for name, docs in bundle.items():
+        assert list(yaml.safe_load_all((tmp_path / "gpu" / name).read_text())) == docs
+    assert len(capsys.readouterr().out.splitlines()) == len(bundle)
