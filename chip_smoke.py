@@ -245,6 +245,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    WORKLOAD=llm as two processes of one slice
                    (DIST_BACKEND=gloo) reports, saves on SIGTERM, exits 0
                    and resumes from that save.
+38. hbm_pods_loop — the HBM Pods loop (run_hbm_pods_trial), bench.py's HBM
+                   rung at time scale 1: HbmHold holds real device memory
+                   in 1/4 GiB blocks as pod tpu-test-v5e8-real, each running
+                   pod's one device reports the held bytes → ExporterDaemon
+                   → Scraper → the pod-max rule → the adapter's Pods API →
+                   the shipped HBM HPA (Pods, AverageValue 13Gi, pods 1..4):
+                   0.5 GiB, then from 3 s min(44 GiB / running, 14.5 GiB) a
+                   pod; all 4 replicas run within 60 s of the crossing.  At
+                   the peak the held bytes beside the growth of the
+                   allocator's bytes, its reservation and NVML's memory in
+                   use; the allocator's growth must be at least the held
+                   bytes.  Every sync's reading and reason.  It launches no
+                   hand-written kernel.
+39. queue_external — the serving container (``python -m
+                   k8s_gpu_hpa_tpu_torch.loadgen``, WORKLOAD=decode,
+                   PREFILL_LEN=512, N_HEADS=4, QUEUE_NAME=tpu-serve) as a
+                   subprocess, attributed through a kubelet response; an
+                   ExporterDaemon on NVML merges its self-report, and the
+                   queue's path (trial.QueueJoint) serves
+                   tpu_test_queue_depth{queue="tpu-serve"} on
+                   external.metrics.k8s.io: the served depth equals the
+                   depth the telemetry file held at that sweep, the depth
+                   grows at knob 1.0 (4x one worker's capacity offered), one
+                   sync of the queue HPA (external_hpa_doc()) from 1
+                   replica proposes ceil(sum / 100) within the policy's 3,
+                   the queue drains below one request at knob 0, and the
+                   container exits 0 on SIGTERM.  Its prefill runs the flash
+                   forward: the container reports its launches.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -270,7 +298,9 @@ llm_train's auto steps, each counted from zero; the flash forward's are
 those of the serve loop plus the training path's plus TP serving's: the
 graph bursts of tp_serve_graph (its replays times the captured burst's
 launches) and the generator bursts of tp_serve_parity's two ranks (eager on
-gloo, counted by each rank's wrapper from zero).
+gloo, counted by each rank's wrapper from zero), and the serving
+container's in queue_external, which it counts the same way in its own
+process and reports when it stops.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 Nothing falls back to the CPU: without a GPU the script exits 1 and prints
@@ -307,8 +337,12 @@ from k8s_gpu_hpa_tpu_torch.exporter.podresources import (
 )
 from k8s_gpu_hpa_tpu_torch.exporter.sources import NvmlSource
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    HBM_MAX_REPLICAS,
+    HBM_SERIES,
     MULTIHOST_MAX_REPLICAS,
     MULTIHOST_QUANTUM,
+    QUEUE_SELECTOR,
+    QUEUE_SERIES,
     TRAIN_BW_SERIES,
     TRAIN_DUTY_SERIES,
 )
@@ -351,17 +385,21 @@ from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_a
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.trial import (
+    GIB,
     DUTY_SERIES,
     PROBE_NEED,
     REAL_POD,
     SERVE_SERIES,
     TENSORCORE_SERIES,
     TARGET,
+    HbmHold,
     LoadThread,
+    QueueJoint,
     WindowedDuty,
     measure_saturated_signal,
     run_headline_overshoot_probe,
     run_headline_trial,
+    run_hbm_pods_trial,
     run_node_headline_trial,
     run_serve_trial,
     run_slice_trial,
@@ -3240,6 +3278,164 @@ def phase_doctor_nvml() -> dict:
     return out
 
 
+#: the HBM loop: bench.py's budget from the crossing to all replicas running
+HBM_BUDGET_S = 60.0
+
+
+class _PeakHold(HbmHold):
+    """An HbmHold that, at each new peak of its held bytes, reads how far
+    the allocator's bytes, its reservation and NVML's memory in use have
+    grown since it was made."""
+
+    def __init__(self, device: str, source: NvmlSource, index: int):
+        super().__init__(device)
+        self.source, self.index = source, index
+        self.base = self._read()
+        self.peak: dict = {"held_bytes": 0}
+
+    def _read(self) -> dict:
+        chip = next(c for c in self.source.sample() if c.accel_index == self.index)
+        return {"allocated": torch.cuda.memory_allocated(self.device),
+                "reserved": torch.cuda.memory_reserved(self.device),
+                "nvml_used": chip.hbm_usage_bytes}
+
+    def set_target(self, target_bytes: float) -> None:
+        super().set_target(target_bytes)
+        if self.held_bytes() > self.peak["held_bytes"]:
+            now = self._read()
+            self.peak = {"held_bytes": self.held_bytes(),
+                         **{f"{k}_growth": now[k] - self.base[k] for k in now}}
+
+
+def phase_hbm_pods_loop(device: str = "cuda:0") -> dict:
+    """bench.py's HBM rung on the card at time scale 1, through
+    run_hbm_pods_trial over a hold of real device memory.  The kernels'
+    counts are set to 0 before it and read after: the loop runs none."""
+    torch.cuda.empty_cache()
+    source = NvmlSource()
+    try:
+        uuid = f"GPU-{torch.cuda.get_device_properties(device).uuid}"
+        index = source.uuid_to_index(uuid)
+        if index is None:
+            raise AssertionError(f"NVML knows no device {uuid} (torch {device})")
+        hold = _PeakHold(device, source, index)
+        matmul_kernel.launches = 0
+        _zero_counts()
+        t0 = time.perf_counter()
+        result = run_hbm_pods_trial(device, hold=hold)
+        wall = time.perf_counter() - t0
+    finally:
+        source.close()
+    running = result.replicas[-1][2]
+    syncs = [
+        {"t": round(t, 3), "replicas": r, "running": n,
+         "read_gib": None if v[HBM_SERIES] is None else v[HBM_SERIES] / GIB, "reason": why}
+        for (t, r, n), (_, v), (_, why) in zip(result.replicas, result.metrics, result.reasons)
+    ]
+    for sync in syncs:
+        print(f"hbm sync: t={sync['t']:+.2f}s read={sync['read_gib']} GiB "
+              f"replicas={sync['replicas']} running={sync['running']} ({sync['reason']})",
+              flush=True)
+    peak = hold.peak
+    out = {
+        "phase": "hbm_pods_loop", "hpa_metric": f"Pods {HBM_SERIES}", "target_gib": 13.0,
+        "time_scale": 1.0, "scale_up_s": result.scale_up_s, "budget_s": HBM_BUDGET_S,
+        "spike_to_cross_s": result.spike_to_cross_s, "pods_running": running,
+        "pods_max": HBM_MAX_REPLICAS, "wall_s": wall,
+        "peak": {**peak, "held_gib": peak["held_bytes"] / GIB,
+                 **{f"{k}_gib": v / GIB for k, v in peak.items() if k.endswith("_growth")}},
+        "kernel_launches": _kernel_counts(), "syncs": syncs,
+        "replicas": [list(r) for r in result.replicas],
+        "series": [[round(t, 2), v] for t, v in result.series],
+    }
+    emit(out)
+    if result.scale_up_s > HBM_BUDGET_S or running != HBM_MAX_REPLICAS:
+        raise AssertionError(f"the HBM loop missed its budget: {out['syncs']}")
+    if peak["allocated_growth"] < peak["held_bytes"]:
+        raise AssertionError(f"the held bytes are not on the card: {out['peak']}")
+    return out
+
+
+#: the queue joint: the shipped serve deployment's sizes, the container's
+#: telemetry identity, and how long the depth grows and may take to drain
+QUEUE_POD = "tpu-serve-real"
+QUEUE_GROW_S = 3.0
+QUEUE_DRAIN_S = 120.0
+
+
+def phase_queue_external(work_dir: str, device: str = "cuda:0") -> dict:
+    """The serving container's queue through the node exporter to the
+    queue HPA (trial.QueueJoint), the container run as a user runs it."""
+    telemetry = Path(work_dir) / "queue-telemetry"
+    knob = Path(work_dir) / "queue-knob"
+    knob.write_text("1.0")
+    env = dict(os.environ, WORKLOAD="decode", PREFILL_LEN="512", N_HEADS="4",
+               QUEUE_NAME="tpu-serve", TPU_TELEMETRY_DIR=str(telemetry), POD_NAME=QUEUE_POD,
+               POD_NAMESPACE="default", REPORT_S="2", TPU_TEST_INTENSITY="1.0",
+               TPU_TEST_INTENSITY_FILE=str(knob))
+    uuid = f"GPU-{torch.cuda.get_device_properties(device).uuid}"
+    source = NvmlSource()
+    entry = _Entry("k8s_gpu_hpa_tpu_torch.loadgen", env)
+    joint = None
+    out: dict = {"phase": "queue_external", "env": {k: env[k] for k in (
+        "WORKLOAD", "PREFILL_LEN", "N_HEADS", "QUEUE_NAME", "POD_NAME")}}
+    try:
+        out["banner"] = entry.wait_for("tpu-test decode loadgen")
+        attribution = parse_list_response(kubelet_response({QUEUE_POD: [uuid]}), GPU_RESOURCE,
+                                           resolve_uuid=source.uuid_to_index)
+        out["kubelet_attribution"] = {str(k): list(v) for k, v in attribution.items()}
+        deadline = time.monotonic() + 60
+        while not (telemetry / f"default_{QUEUE_POD}.json").exists():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"no self-report in {telemetry}: {entry.lines[-20:]}")
+            time.sleep(0.1)
+        joint = QueueJoint(source, StaticAttributor(attribution), str(telemetry), QUEUE_POD)
+        sweeps = [joint.sweep()]
+        time.sleep(QUEUE_GROW_S)
+        sweeps.append(joint.sweep())
+        status = joint.hpa.sync_once()
+        total = status.last_metric_values.get(f"external/{QUEUE_SERIES}")
+        ratio = sweeps[-1][0] / 100.0
+        want = 1 if abs(ratio - 1.0) <= 0.1 else min(max(math.ceil(ratio), 1), 4, 3)
+        out["hpa"] = {"sum": total, "desired": status.desired_replicas,
+                      "replicas": joint.target.replicas, "reason": status.last_reason,
+                      "want": want, "conditions": status.conditions_as_k8s()}
+        knob.write_text("0")
+        t_drain = time.monotonic()
+        while sweeps[-1][0] >= 1.0 and time.monotonic() - t_drain < QUEUE_DRAIN_S:
+            time.sleep(1.0)
+            sweeps.append(joint.sweep())
+        out["drain_s"] = time.monotonic() - t_drain
+    finally:
+        if joint is not None:
+            joint.close()
+        source.close()
+        code = entry.stop()
+    stopped = [ln for ln in entry.lines if ln.startswith("stopped: ")]
+    flash = int(stopped[-1].rsplit("flash=", 1)[1]) if stopped else 0
+    out.update({
+        "exit_code": code, "stopped": stopped,
+        "reports": [ln for ln in entry.lines if ln.startswith("bursts=")],
+        "sweeps": [{"file_depth": d, "served": v} for d, v in sweeps],
+        "selector": QUEUE_SELECTOR, "flash_launches": flash,
+        "report_removed": not (telemetry / f"default_{QUEUE_POD}.json").exists(),
+    })
+    emit(out)
+    if any(v != [d] for d, v in sweeps):
+        raise AssertionError(f"the served depth is not the self-reported one: {out['sweeps']}")
+    if not sweeps[1][0] > sweeps[0][0]:
+        raise AssertionError(f"the queue did not grow at knob 1.0: {out['sweeps']}")
+    if total != sweeps[1][0] or status.desired_replicas != want or joint.target.replicas != want:
+        raise AssertionError(f"the queue HPA's proposal is not JAX's formula: {out['hpa']}")
+    if sweeps[-1][0] >= 1.0:
+        raise AssertionError(f"the queue did not drain at knob 0: {out['sweeps'][-3:]}")
+    if code != 0 or not out["report_removed"]:
+        raise AssertionError(f"the container did not stop cleanly: {entry.lines[-20:]}")
+    if flash <= 0:
+        raise AssertionError(f"the serving container launched the flash kernel no time: {stopped}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -3336,6 +3532,8 @@ def main() -> int:
         _, pair_launches = phase_tp_serve_parity(work_dir)
         tp_launches += pair_launches
         phase_llm_sp(work_dir)
+        phase_hbm_pods_loop()
+        queue = phase_queue_external(work_dir)
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape
@@ -3354,8 +3552,10 @@ def main() -> int:
             "name": "flash_attention_fwd_bf16", "route": "cuda",
             "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
-            # the serve loop's launches, the training path's and TP serving's
-            "launches": flash_launches + train["fwd"] + tp_launches, "max_abs_err": flash_err,
+            # the serve loop's launches, the training path's, TP serving's and
+            # the serving container's
+            "launches": flash_launches + train["fwd"] + tp_launches + queue["flash_launches"],
+            "max_abs_err": flash_err,
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],

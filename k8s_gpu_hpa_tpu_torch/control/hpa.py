@@ -1,5 +1,4 @@
-"""HorizontalPodAutoscaler controller (L5): ``autoscaling/v2`` semantics, the
-Object-metric subset.
+"""HorizontalPodAutoscaler controller (L5): ``autoscaling/v2`` semantics.
 
 Counterpart of ``k8s_gpu_hpa_tpu/control/hpa.py``.  The reference closes its
 loop with an ``autoscaling/v2beta1`` HPA (cuda-test-hpa.yaml:1) and documents
@@ -15,15 +14,22 @@ lag, fixable by the ``behavior`` field of newer API versions
         window, scale-up the min
     scaling policies (Pods / Percent per periodSeconds) bound the step size
 
-and replica quanta: on a StatefulSet of multi-host slices replicas move in
-whole slices (``replica_quantum``, read from the HPA's
-``k8s-tpu-hpa/replica-quantum`` annotation by ``quantum_from_manifest``).
+for three metric types: Object (``target.type: Value``, or ``AverageValue``
+divided by current replicas), Pods (the average over the target's ready
+pods, with Kubernetes' conservative rule for pods that report nothing) and
+External (the sum of the series a selector matches, or that sum per current
+replica).  Each sync sets the ``AbleToScale`` and ``ScalingActive`` status
+conditions a real HPA object carries.  Replica quanta: on a StatefulSet of
+multi-host slices replicas move in whole slices (``replica_quantum``, read
+from the HPA's ``k8s-tpu-hpa/replica-quantum`` annotation by
+``quantum_from_manifest``).
 
-Status conditions, Pods/Resource/External metrics, tracing and checkpoints
-are not ported.  ``shipped_behavior()`` is the behavior stanza of
-deploy/tpu-test-hpa.yaml written in code, ``shipped_multihost_behavior()``
-that of deploy/tpu-test-multihost-hpa.yaml, and ``train_metrics()`` the
-metrics of deploy/tpu-train-hpa.yaml, so the port reads no YAML.
+Resource metrics, tracing, self-metrics, checkpoints and the capacity
+conditions are not ported.  ``behavior_from_manifest`` and
+``metrics_from_manifest`` parse an HPA manifest given as a dict; the shipped
+manifests' values are also written in code here (``shipped_behavior()``,
+``train_metrics()``, ``hbm_metrics()``, the ``MULTIHOST_*``, ``HBM_*`` and
+``QUEUE_*`` constants), so the port reads no YAML.
 """
 
 from __future__ import annotations
@@ -34,17 +40,61 @@ from typing import Protocol
 
 from k8s_gpu_hpa_tpu_torch.control.adapter import CustomMetricsAdapter, ObjectReference
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock
+from k8s_gpu_hpa_tpu_torch.utils.quantity import parse_quantity
 
 
 @dataclass
 class ObjectMetricSpec:
-    """One Object-type metric with a ``target.type: Value`` target: the
-    object's metric compares directly with ``target_value``
-    (cuda-test-hpa.yaml:13-21)."""
+    """One Object-type metric (cuda-test-hpa.yaml:13-21): ``target_value``
+    compares the object's metric directly; ``average`` is a ``target.type:
+    AverageValue`` target, which divides the object's value by current
+    replicas before comparing."""
 
     metric_name: str
     target_value: float
     described_object: ObjectReference
+    average: bool = False
+
+
+@dataclass
+class PodsMetricSpec:
+    """One Pods-type metric: a per-pod custom metric with an AverageValue
+    target.  The HPA averages the metric over the target's ready pods and
+    scales by value/target: the shape of the per-device HBM HPA
+    (deploy/tpu-test-hbm-hpa.yaml), whose signal is per pod."""
+
+    metric_name: str
+    target_average_value: float
+
+
+@dataclass
+class ExternalMetricSpec:
+    """One External-type metric: a series on ``external.metrics.k8s.io``
+    addressed by name and label selector, associated with no Kubernetes
+    object.  ``target_value`` compares the sum of the matched series;
+    ``target_average_value`` divides that sum by current replicas (the
+    queue-depth-per-worker idiom)."""
+
+    metric_name: str
+    selector: dict[str, str] = field(default_factory=dict)
+    target_value: float | None = None
+    target_average_value: float | None = None
+    #: None: the controller's namespace (the HPA object's own)
+    namespace: str | None = None
+
+    def __post_init__(self) -> None:
+        if (self.target_value is None) == (self.target_average_value is None):
+            raise ValueError("exactly one of target_value / target_average_value required")
+
+
+MetricSpec = ObjectMetricSpec | PodsMetricSpec | ExternalMetricSpec
+
+
+class PodLister(Protocol):
+    """What Pods-type metrics need: the HPA lists the scale target's ready
+    pods, then asks the adapter for each pod's value."""
+
+    def ready_pod_names(self) -> list[str]: ...
 
 
 @dataclass
@@ -138,6 +188,109 @@ MULTIHOST_MAX_REPLICAS = 8
 MULTIHOST_QUANTUM = 2
 
 
+#: deploy/tpu-test-hbm-hpa.yaml: a Pods metric, the per-pod hottest
+#: device's bytes in use, with an AverageValue target, on the
+#: ``tpu-test-v5e8`` Deployment, pods 1..4 and the shipped behavior.  13Gi
+#: is the JAX manifest's target (of a 16 GiB v5e chip); an operator sets the
+#: target for the card's memory.
+HBM_APP = "tpu-test-v5e8"
+HBM_SERIES = "tpu_test_hbm_used_bytes"
+HBM_TARGET = "13Gi"
+HBM_MIN_REPLICAS = 1
+HBM_MAX_REPLICAS = 4
+#: deploy/tpu-test-external-hpa.yaml (HPA ``tpu-serve-queue``): an External
+#: metric, the serving fleet's summed queue depth under the selector, with
+#: an AverageValue target (100 queued requests a replica), on the
+#: ``tpu-serve`` Deployment, pods 1..4 and the shipped behavior
+QUEUE_HPA = "tpu-serve-queue"
+QUEUE_APP = "tpu-serve"
+QUEUE_SERIES = "tpu_test_queue_depth"
+QUEUE_SELECTOR = {"queue": "tpu-serve"}
+QUEUE_TARGET = "100"
+QUEUE_MIN_REPLICAS = 1
+QUEUE_MAX_REPLICAS = 4
+
+
+def hbm_metrics() -> list[PodsMetricSpec]:
+    """The ``metrics:`` of deploy/tpu-test-hbm-hpa.yaml written in code."""
+    return [PodsMetricSpec(HBM_SERIES, parse_quantity(HBM_TARGET))]
+
+
+def behavior_from_manifest(hpa_doc: dict) -> HPABehavior:
+    """The controller's behavior from the ``behavior:`` stanza of an
+    autoscaling/v2 HPA manifest given as a dict; a direction the stanza
+    leaves out keeps Kubernetes' default."""
+
+    def parse_rules(d: dict) -> ScalingRules:
+        return ScalingRules(
+            stabilization_window_seconds=float(d.get("stabilizationWindowSeconds", 0)),
+            select_policy=d.get("selectPolicy", "Max"),
+            policies=[
+                ScalingPolicy(p["type"], p["value"], float(p["periodSeconds"]))
+                for p in d.get("policies", [])
+            ],
+        )
+
+    b = hpa_doc["spec"].get("behavior", {})
+    behavior = HPABehavior()
+    if "scaleUp" in b:
+        behavior.scale_up = parse_rules(b["scaleUp"])
+    if "scaleDown" in b:
+        behavior.scale_down = parse_rules(b["scaleDown"])
+    return behavior
+
+
+def metrics_from_manifest(hpa_doc: dict, namespace: str = "default") -> list[MetricSpec]:
+    """The controller's specs from the ``spec.metrics`` list of an
+    autoscaling/v2 HPA manifest given as a dict: Object, Pods and External
+    metrics, their targets parsed as Kubernetes quantities (``"40"``,
+    ``"13Gi"``, ``"500m"``).  A Resource metric raises ValueError: the
+    metrics.k8s.io reader it needs is not ported (ROADMAP.md item 15)."""
+    specs: list[MetricSpec] = []
+    for m in hpa_doc["spec"].get("metrics", []):
+        kind = m["type"]
+        if kind == "Object":
+            o = m["object"]
+            target = o["target"]
+            average = "averageValue" in target
+            specs.append(ObjectMetricSpec(
+                metric_name=o["metric"]["name"],
+                target_value=parse_quantity(target["averageValue"] if average else target["value"]),
+                described_object=ObjectReference(
+                    o["describedObject"]["kind"],
+                    o["describedObject"]["name"],
+                    o["describedObject"].get("namespace", namespace),
+                ),
+                average=average,
+            ))
+        elif kind == "Pods":
+            p = m["pods"]
+            specs.append(PodsMetricSpec(
+                metric_name=p["metric"]["name"],
+                target_average_value=parse_quantity(p["target"]["averageValue"]),
+            ))
+        elif kind == "External":
+            e = m["external"]
+            target = e["target"]
+            specs.append(ExternalMetricSpec(
+                metric_name=e["metric"]["name"],
+                selector=e["metric"].get("selector", {}).get("matchLabels", {}),
+                target_value=parse_quantity(target["value"]) if "value" in target else None,
+                target_average_value=(
+                    parse_quantity(target["averageValue"]) if "averageValue" in target else None
+                ),
+                namespace=namespace,
+            ))
+        elif kind == "Resource":
+            raise ValueError(
+                f"Resource metric {m['resource']['name']}: Resource metrics are not "
+                "ported (they need a metrics.k8s.io reader; ROADMAP.md item 15)"
+            )
+        else:
+            raise ValueError(f"unsupported HPA metric type {kind}")
+    return specs
+
+
 def quantum_from_manifest(hpa_doc: dict) -> int:
     """Slice-atomicity quantum from the ``k8s-tpu-hpa/replica-quantum``
     annotation (deploy/tpu-test-multihost-hpa.yaml); 1 when absent."""
@@ -183,6 +336,28 @@ class ScalableTarget(Protocol):
 
 
 @dataclass
+class HPACondition:
+    """One status condition (``status.conditions[]`` of an autoscaling/v2
+    object): why the HPA acts or holds, in the shape the doctor's L5 probe
+    reads off a live cluster (``doctor.check_hpa_status``)."""
+
+    type: str  # "AbleToScale" | "ScalingActive"
+    status: bool
+    reason: str = ""
+    message: str = ""
+    last_transition_time: float | None = None
+
+    def as_k8s(self) -> dict:
+        """The shape ``kubectl get --raw .../horizontalpodautoscalers`` serves."""
+        return {
+            "type": self.type,
+            "status": "True" if self.status else "False",
+            "reason": self.reason,
+            "message": self.message,
+        }
+
+
+@dataclass
 class HPAStatus:
     current_replicas: int = 1
     desired_replicas: int = 1
@@ -190,6 +365,14 @@ class HPAStatus:
     last_scale_time: float | None = None
     #: why the last sync made its decision, for observability/tests
     last_reason: str = ""
+    #: condition type -> current condition (AbleToScale / ScalingActive)
+    conditions: dict[str, HPACondition] = field(default_factory=dict)
+
+    def condition(self, type_: str) -> HPACondition | None:
+        return self.conditions.get(type_)
+
+    def conditions_as_k8s(self) -> list[dict]:
+        return [c.as_k8s() for c in self.conditions.values()]
 
 
 class HPAController:
@@ -201,13 +384,15 @@ class HPAController:
     def __init__(
         self,
         target: ScalableTarget,
-        metrics: list[ObjectMetricSpec],
-        adapter: CustomMetricsAdapter,
+        metrics: list[MetricSpec],
+        adapter: CustomMetricsAdapter | None,
         clock: Clock,
         min_replicas: int = 1,
         max_replicas: int = 4,
         behavior: HPABehavior | None = None,
         replica_quantum: int = 1,
+        pod_lister: PodLister | None = None,
+        namespace: str = "default",
     ):
         self.target = target
         self.metrics = metrics
@@ -228,18 +413,101 @@ class HPAController:
                 f"replica_quantum={replica_quantum} pods"
             )
         self.replica_quantum = replica_quantum
+        self.pod_lister = pod_lister
+        self.namespace = namespace
         self.status = HPAStatus(current_replicas=target.replicas)
+        #: (ts, type, status, reason) at every change of a condition's
+        #: status or reason (a real HPA keeps only the latest condition)
+        self.condition_history: list[tuple[float, str, bool, str]] = []
         #: (ts, recommendation) ring for stabilization windows
         self._recommendations: list[tuple[float, int]] = []
         #: (ts, replicas_after) scale-event log for policy period lookback
         self._scale_events: list[tuple[float, int]] = [(clock.now(), target.replicas)]
+        #: the current sync's notes from the missing-pod rule, appended to
+        #: ``last_reason``
+        self._proposal_notes: list[str] = []
+        #: clock time of the last sync that computed a replica count
+        #: (ScalingActive true)
+        self.last_good_sync_at: float | None = None
 
-    def _metric_proposal(self, spec: ObjectMetricSpec, current: int) -> int | None:
-        value = self.adapter.get_object_metric(spec.described_object, spec.metric_name)
-        if value is None:
+    def _set_condition(self, type_: str, status: bool, reason: str, message: str = "") -> None:
+        now = self.clock.now()
+        prev = self.status.conditions.get(type_)
+        transition = (
+            now if prev is None or prev.status != status else prev.last_transition_time
+        )
+        if prev is None or prev.status != status or prev.reason != reason:
+            self.condition_history.append((now, type_, status, reason))
+        self.status.conditions[type_] = HPACondition(type_, status, reason, message, transition)
+
+    def _unavailable_reason(self) -> str:
+        """Kubernetes' reason for "could not fetch the metric", by the type
+        of the first metric spec (FailedGet{Object,Pods,External}Metric, as
+        kube-controller-manager sets it on ScalingActive)."""
+        spec = self.metrics[0] if self.metrics else None
+        if isinstance(spec, PodsMetricSpec):
+            return "FailedGetPodsMetric"
+        if isinstance(spec, ExternalMetricSpec):
+            return "FailedGetExternalMetric"
+        return "FailedGetObjectMetric"
+
+    def _metric_proposal(self, spec: MetricSpec, current: int) -> int | None:
+        if self.adapter is None:
             return None
-        self.status.last_metric_values[spec.metric_name] = value
-        ratio = value / spec.target_value
+        if isinstance(spec, PodsMetricSpec):
+            if self.pod_lister is None:
+                return None
+            pods = self.pod_lister.ready_pod_names()
+            values = self.adapter.get_pods_metric(self.namespace, spec.metric_name, pods)
+            if not values:
+                return None
+            target = spec.target_average_value
+            value = sum(values.values()) / len(values)
+            missing = len(pods) - len(values)
+            if missing > 0 and abs(value / target - 1.0) > self.TOLERANCE:
+                # Kubernetes' conservative missing-pod rule: pods without a
+                # sample never amplify the move.  Toward scale-up they count
+                # 0, toward scale-down at the target; if that erases or
+                # flips the signal, hold.
+                if value > target:
+                    adjusted = sum(values.values()) / len(pods)
+                    assumed = "0"
+                else:
+                    adjusted = (sum(values.values()) + target * missing) / len(pods)
+                    assumed = "target"
+                note = f"{missing}/{len(pods)} pods missing {spec.metric_name}; assumed {assumed}"
+                flipped = (adjusted > target) != (value > target)
+                if flipped or abs(adjusted / target - 1.0) <= self.TOLERANCE:
+                    self._proposal_notes.append(note + "; held")
+                    self.status.last_metric_values[f"pods/{spec.metric_name}"] = adjusted
+                    return current
+                self._proposal_notes.append(note)
+                value = adjusted
+            self.status.last_metric_values[f"pods/{spec.metric_name}"] = value
+        elif isinstance(spec, ExternalMetricSpec):
+            series = self.adapter.get_external_metric(
+                spec.namespace or self.namespace, spec.metric_name, spec.selector
+            )
+            if not series:
+                return None
+            total = sum(series)
+            self.status.last_metric_values[f"external/{spec.metric_name}"] = total
+            if spec.target_average_value is not None:
+                # per replica of the target's current count, not per running pod
+                value = total / max(1, current)
+                target = spec.target_average_value
+            else:
+                value = total
+                target = spec.target_value
+        else:
+            value = self.adapter.get_object_metric(spec.described_object, spec.metric_name)
+            if value is None:
+                return None
+            self.status.last_metric_values[spec.metric_name] = value
+            if spec.average:  # target.type: AverageValue, per current replica
+                value = value / max(1, current)
+            target = spec.target_value
+        ratio = value / target
         if abs(ratio - 1.0) <= self.TOLERANCE:
             return current
         return max(1, math.ceil(current * ratio))
@@ -303,13 +571,27 @@ class HPAController:
         """One sync pass of the v2 algorithm."""
         current = self.target.replicas
         self.status.current_replicas = current
+        self._proposal_notes = []
+        self._set_condition(
+            "AbleToScale", True, "SucceededGetScale",
+            "the HPA controller was able to get the target's current scale",
+        )
         proposals = [self._metric_proposal(spec, current) for spec in self.metrics]
         valid = [p for p in proposals if p is not None]
         if not valid:
             # All metrics unavailable: hold (K8s skips scaling on total failure).
             self.status.last_reason = "metrics unavailable; holding"
             self.status.desired_replicas = current
+            self._set_condition(
+                "ScalingActive", False, self._unavailable_reason(),
+                "the HPA was unable to compute the replica count: no metric values available",
+            )
             return self.status
+        self._set_condition(
+            "ScalingActive", True, "ValidMetricFound",
+            "the HPA was able to successfully calculate a replica count",
+        )
+        self.last_good_sync_at = self.clock.now()
 
         recommendation = max(valid)  # multiple metrics -> largest proposal
         recommendation = min(max(recommendation, self.min_replicas), self.max_replicas)
@@ -349,6 +631,8 @@ class HPAController:
                 # stranded hosts, which serve nothing anyway
                 desired = max(desired // q * q, min_q)
                 reason = f"repair partial slice {current}->{desired}"
+        if self._proposal_notes:
+            reason += " [" + "; ".join(self._proposal_notes) + "]"
         self.status.desired_replicas = desired
         self.status.last_reason = reason
 
@@ -358,6 +642,10 @@ class HPAController:
             self._scale_events.append((now, desired))
             self._prune_scale_events(now)
             self.status.last_scale_time = now
+            self._set_condition(
+                "AbleToScale", True, "SucceededRescale",
+                f"the HPA controller was able to update the target scale to {desired}",
+            )
         return self.status
 
     def _prune_scale_events(self, now: float) -> None:

@@ -48,6 +48,7 @@ peak times the mesh's size, as the JAX generator counts them.
 from __future__ import annotations
 
 import os
+import signal
 import sys
 import threading
 import time
@@ -474,10 +475,18 @@ def main(device: str | torch.device | None = None) -> None:
     serve(device)
 
 
+def _flash_launches(gen: DecodeLoadGen) -> int:
+    """The flash forward's launches in this process: the wrapper's count
+    and, for graph bursts, the replays times the launches a replay makes."""
+    return flash_attention_kernel.launches + gen.replays * gen.flash_launches_per_burst
+
+
 def serve(device: str | torch.device | None = None) -> None:
     """The serving loop of ``main``, on one device or on one rank of a TP
     pod: the ranks burst together (each burst is a collective), as rank 0's
-    queue asks."""
+    queue asks, until SIGTERM or SIGINT reaches any rank (a scale-down):
+    then they stop together, the lead rank removes its self-report, and
+    ``serve`` returns."""
     from k8s_gpu_hpa_tpu_torch.loadgen.knob import IntensityKnob
     from k8s_gpu_hpa_tpu_torch.loadgen.multihost import agree
     from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
@@ -519,6 +528,14 @@ def serve(device: str | torch.device | None = None) -> None:
             + ")",
             flush=True,
         )
+    stopping = False
+
+    def _terminate(signum, frame):
+        nonlocal stopping
+        stopping = True
+
+    signal.signal(signal.SIGTERM, _terminate)
+    signal.signal(signal.SIGINT, _terminate)
     last_report = time.perf_counter()
     last_tick = time.perf_counter()
     while True:
@@ -526,8 +543,15 @@ def serve(device: str | torch.device | None = None) -> None:
         now = time.perf_counter()
         queue.offer((now - last_tick) * knob.poll() * offered_rps_max)
         last_tick = now
-        # rank 0's queue decides for every rank
-        _, go = agree(False, float(queue.depth >= 1.0), gen.device)
+        # rank 0's queue decides for every rank, and any rank's stop stops all
+        stop, go = agree(stopping, float(queue.depth >= 1.0), gen.device)
+        if stop:
+            profile.close()
+            if lead:
+                telemetry.clear()
+                print(f"stopped: bursts={gen.stats().steps} queue={queue.depth:.0f} "
+                      f"flash={_flash_launches(gen)}", flush=True)
+            return
         if go:
             gen.step()
             queue.take(gen.batch)
@@ -550,7 +574,8 @@ def serve(device: str | torch.device | None = None) -> None:
                     f" ({s.hbm_bw_util_pct:.1f}% of peak)"
                     if s.hbm_bw_util_pct is not None
                     else ""
-                ),
+                )
+                + f" flash={_flash_launches(gen)}",
                 flush=True,
             )
             last_report = time.perf_counter()

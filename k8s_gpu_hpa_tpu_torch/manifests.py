@@ -33,17 +33,31 @@ whole pipeline for any app, single-host or a StatefulSet of slices.
 from __future__ import annotations
 
 import argparse
+import json
+import math
 import re
 from dataclasses import dataclass, field
 from pathlib import Path
 
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    HBM_APP,
+    HBM_MAX_REPLICAS,
+    HBM_MIN_REPLICAS,
+    HBM_SERIES,
+    HBM_TARGET,
     MULTIHOST_MAX_REPLICAS,
     MULTIHOST_MIN_REPLICAS,
     MULTIHOST_QUANTUM,
     MULTIHOST_SERIES,
     MULTIHOST_TARGET,
     QUANTUM_ANNOTATION,
+    QUEUE_APP,
+    QUEUE_HPA,
+    QUEUE_MAX_REPLICAS,
+    QUEUE_MIN_REPLICAS,
+    QUEUE_SELECTOR,
+    QUEUE_SERIES,
+    QUEUE_TARGET,
     TRAIN_BW_SERIES,
     TRAIN_BW_TARGET,
     TRAIN_DUTY_SERIES,
@@ -58,6 +72,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     RecordingRule,
     tpu_test_avg_rule,
     tpu_test_multihost_avg_rule,
+    tpu_test_pod_max_rule,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_DUTY_CYCLE,
@@ -154,10 +169,35 @@ def object_metric(name: str, kind: str, target_name: str, value: str) -> dict:
     }
 
 
+def pods_metric(name: str, average_value: str) -> dict:
+    """One Pods-type HPA metric entry: a per-pod metric averaged over the
+    target's pods against an AverageValue target."""
+    return {
+        "type": "Pods",
+        "pods": {
+            "metric": {"name": name},
+            "target": {"type": "AverageValue", "averageValue": average_value},
+        },
+    }
+
+
+def external_metric(name: str, selector: dict[str, str], average_value: str) -> dict:
+    """One External-type HPA metric entry: the sum of the series the label
+    selector matches, per current replica against an AverageValue target."""
+    return {
+        "type": "External",
+        "external": {
+            "metric": {"name": name, "selector": {"matchLabels": dict(selector)}},
+            "target": {"type": "AverageValue", "averageValue": average_value},
+        },
+    }
+
+
 def hpa_manifest(
     name: str,
     *,
     target_kind: str = "Deployment",
+    target_name: str | None = None,
     metrics: list[dict],
     min_replicas: int = 1,
     max_replicas: int = 4,
@@ -172,7 +212,7 @@ def hpa_manifest(
             "scaleTargetRef": {
                 "apiVersion": "apps/v1",
                 "kind": target_kind,
-                "name": name,
+                "name": target_name or name,
             },
             "minReplicas": min_replicas,
             "maxReplicas": max_replicas,
@@ -210,6 +250,7 @@ def workload_deployment(
     env: dict[str, str],
     gpu_limit: int,
     accelerator: str = ACCEL_H100,
+    container_name: str | None = None,
     node_selector: dict[str, str] | None = None,
     tolerations: list[dict] | None = None,
 ) -> dict:
@@ -231,7 +272,7 @@ def workload_deployment(
                     **_placement(accelerator, node_selector, tolerations),
                     "containers": [
                         {
-                            "name": name,
+                            "name": container_name or name,
                             "image": WORKLOAD_IMAGE,
                             "command": command,
                             "env": [{"name": k, "value": v} for k, v in env.items()]
@@ -280,9 +321,9 @@ def telemetry_identity_env(queue: str) -> list[dict]:
     ]
 
 
-def loadgen_env(intensity: str = "0.5") -> dict[str, str]:
+def loadgen_env(intensity: str = "0.5", matmul_size: str = "4096") -> dict[str, str]:
     return {
-        "MATMUL_SIZE": "4096",
+        "MATMUL_SIZE": matmul_size,
         "TPU_TEST_INTENSITY": intensity,
         "TPU_TEST_INTENSITY_FILE": INTENSITY_FILE,
     }
@@ -438,8 +479,10 @@ def shipped_rule_groups() -> list[tuple[str, list[RecordingRule]]]:
             [
                 tpu_test_avg_rule(),
                 tpu_test_avg_rule(metric=TPU_DUTY_CYCLE, record="tpu_test_duty_cycle_avg"),
+                tpu_test_avg_rule(metric=TPU_HBM_BW_UTIL, record="tpu_test_hbm_bw_avg"),
             ],
         ),
+        (HBM_APP, [tpu_test_pod_max_rule(app=HBM_APP, record=HBM_SERIES)]),
         (
             "tpu-serve",
             [
@@ -509,21 +552,41 @@ def adapter_rule(series: str, resource: str = "deployment") -> dict:
     }
 
 
-def adapter_values(rules: list[dict] | None = None) -> dict:
-    """The adapter's values: Object-metric rules only (the port has no
-    External metrics)."""
+def external_rule(series: str) -> dict:
+    """One ``externalRules`` entry: ``series`` served on
+    ``external.metrics.k8s.io``, addressed by name and label selector within
+    the namespace, associated with no Kubernetes object (the queue-depth
+    idiom); the API sums the matched series by the selector's labels."""
+    return {
+        "seriesQuery": f'{series}{{namespace!=""}}',
+        "resources": {"overrides": {"namespace": {"resource": "namespace"}}},
+        "name": {"as": series},
+        "metricsQuery": "sum by (<<.GroupBy>>) (<<.Series>>{<<.LabelMatchers>>})",
+    }
+
+
+def adapter_values(
+    rules: list[dict] | None = None, external_rules: list[dict] | None = None
+) -> dict:
+    """The adapter's values: the custom-metrics rules (Object metrics on
+    their objects, the HBM series on its pods) and the external rules (the
+    serving queue's depth)."""
     if rules is None:
         rules = [
             adapter_rule("tpu_test_tensorcore_avg"),
             adapter_rule("tpu_test_duty_cycle_avg"),
+            adapter_rule("tpu_test_hbm_bw_avg"),
+            adapter_rule(HBM_SERIES, resource="pod"),
             adapter_rule("tpu_serve_hbm_bw_avg"),
             adapter_rule(TRAIN_DUTY_SERIES),
             adapter_rule(TRAIN_BW_SERIES),
             adapter_rule(MULTIHOST_SERIES, resource="statefulset"),
         ]
+    if external_rules is None:
+        external_rules = [external_rule(QUEUE_SERIES)]
     return {
         "prometheus": {"url": PROMETHEUS_URL, "port": 9090},
-        "rules": {"default": False, "custom": rules, "external": []},
+        "rules": {"default": False, "custom": rules, "external": external_rules},
     }
 
 
@@ -537,6 +600,43 @@ def _tpu_test_deployment() -> dict:
         command=["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen"],
         env=loadgen_env(),
         gpu_limit=1,
+    )
+
+
+def _tpu_test_v5e8_deployment() -> dict:
+    """The HBM rung's workload: one pod on the whole of an 8-GPU H100 node
+    (GKE's a3-highgpu-8g pool), the matmul container at 8192 over all its
+    GPUs, each running its own product chain."""
+    return workload_deployment(
+        HBM_APP,
+        command=["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen"],
+        env=loadgen_env(matmul_size="8192"),
+        gpu_limit=8,
+        container_name="tpu-test",
+    )
+
+
+def hbm_hpa_doc() -> dict:
+    """deploy/tpu-test-hbm-hpa.yaml: the Pods metric on the per-pod
+    hottest device's bytes in use, AverageValue 13Gi, pods 1..4."""
+    return hpa_manifest(
+        HBM_APP,
+        metrics=[pods_metric(HBM_SERIES, HBM_TARGET)],
+        min_replicas=HBM_MIN_REPLICAS,
+        max_replicas=HBM_MAX_REPLICAS,
+    )
+
+
+def external_hpa_doc() -> dict:
+    """deploy/tpu-test-external-hpa.yaml: the External metric on the serving
+    fleet's queue depth under ``queue=tpu-serve``, AverageValue 100 a
+    replica, on the tpu-serve Deployment, pods 1..4."""
+    return hpa_manifest(
+        QUEUE_HPA,
+        target_name=QUEUE_APP,
+        metrics=[external_metric(QUEUE_SERIES, QUEUE_SELECTOR, QUEUE_TARGET)],
+        min_replicas=QUEUE_MIN_REPLICAS,
+        max_replicas=QUEUE_MAX_REPLICAS,
     )
 
 
@@ -664,8 +764,9 @@ def multihost_hpa(
 
 def default_bundle() -> dict[str, list[dict]]:
     """filename -> documents, for every manifest of the port's pipelines:
-    the exporter, the Prometheus and adapter values, the PrometheusRule, and
-    each of the four workloads with its HPA."""
+    the exporter, the Prometheus and adapter values, the PrometheusRule,
+    each of the five workloads with its HPA, and the serving fleet's
+    queue-depth HPA."""
     return {
         "tpu-metrics-exporter.yaml": [exporter_daemonset(), exporter_service()],
         "kube-prometheus-stack-values.yaml": [prom_stack_values()],
@@ -678,6 +779,8 @@ def default_bundle() -> dict[str, list[dict]]:
                 metrics=[object_metric("tpu_test_tensorcore_avg", "Deployment", "tpu-test", "40")],
             )
         ],
+        "tpu-test-v5e8-deployment.yaml": [_tpu_test_v5e8_deployment()],
+        "tpu-test-hbm-hpa.yaml": [hbm_hpa_doc()],
         "tpu-serve-deployment.yaml": [_tpu_serve_deployment()],
         "tpu-serve-hpa.yaml": [
             hpa_manifest(
@@ -701,6 +804,7 @@ def default_bundle() -> dict[str, list[dict]]:
                 ],
             )
         ],
+        "tpu-test-external-hpa.yaml": [external_hpa_doc()],
         "tpu-test-multihost.yaml": [multihost_service(), multihost_statefulset()],
         "tpu-test-multihost-hpa.yaml": [
             multihost_hpa(
@@ -815,7 +919,8 @@ def render_pipeline(spec: PipelineSpec) -> dict[str, list[dict]]:
             **extra,
             f"{spec.app}-prometheusrule.yaml": rules,
             f"{spec.app}-adapter-values.yaml": [
-                adapter_values([adapter_rule(spec.record, resource="statefulset")])
+                adapter_values([adapter_rule(spec.record, resource="statefulset")],
+                               external_rules=[])
             ],
             f"{spec.app}-hpa.yaml": [
                 multihost_hpa(spec.app, spec.record, spec.target, q, spec.min_slices,
@@ -832,7 +937,9 @@ def render_pipeline(spec: PipelineSpec) -> dict[str, list[dict]]:
         ],
         **extra,
         f"{spec.app}-prometheusrule.yaml": rules,
-        f"{spec.app}-adapter-values.yaml": [adapter_values([adapter_rule(spec.record)])],
+        f"{spec.app}-adapter-values.yaml": [
+            adapter_values([adapter_rule(spec.record)], external_rules=[])
+        ],
         f"{spec.app}-hpa.yaml": [
             hpa_manifest(
                 spec.app,
@@ -844,12 +951,72 @@ def render_pipeline(spec: PipelineSpec) -> dict[str, list[dict]]:
     }
 
 
-def to_yaml(docs: list[dict]) -> str:
-    import yaml
+#: a string that YAML reads back as the same string when written plain
+_PLAIN = re.compile(r"[A-Za-z_/][A-Za-z0-9_./-]*")
+#: plain words YAML 1.1 reads as booleans or null
+_RESERVED = {"true", "false", "yes", "no", "on", "off", "y", "n", "null", "~"}
 
-    return "---\n".join(
-        yaml.safe_dump(doc, sort_keys=False, default_flow_style=False) for doc in docs
-    )
+
+def _scalar(value) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "e" in text and "." not in text:  # YAML 1.1 floats need the point
+            mantissa, exponent = text.split("e")
+            text = f"{mantissa}.0e{exponent}"
+        return text
+    text = str(value)
+    if _PLAIN.fullmatch(text) and text.lower() not in _RESERVED:
+        return text
+    return json.dumps(text)  # a double-quoted YAML scalar: JSON's escapes are YAML's
+
+
+def _emit(node, indent: int, out: list[str]) -> None:
+    pad = " " * indent
+    if isinstance(node, dict):
+        for key, value in node.items():
+            if isinstance(value, (dict, list)) and value:
+                out.append(f"{pad}{_scalar(key)}:")
+                _emit(value, indent + 2, out)
+            else:
+                out.append(f"{pad}{_scalar(key)}: {_block_or_scalar(value)}")
+    else:
+        for item in node:
+            if isinstance(item, (dict, list)) and item:
+                lines: list[str] = []
+                _emit(item, indent + 2, lines)
+                out.append(f"{pad}- {lines[0][indent + 2:]}" if isinstance(item, dict) else f"{pad}-")
+                out.extend(lines[1:] if isinstance(item, dict) else lines)
+            else:
+                out.append(f"{pad}- {_block_or_scalar(item)}")
+
+
+def _block_or_scalar(value) -> str:
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, list):
+        return "[]"
+    return _scalar(value)
+
+
+def to_yaml(docs: list[dict]) -> str:
+    """The documents as one YAML stream, in block style, keys in their
+    order.  Written here, so that the generator needs no YAML library."""
+    texts = []
+    for doc in docs:
+        lines: list[str] = []
+        _emit(doc, 0, lines)
+        texts.append("\n".join(lines) + "\n")
+    return "---\n".join(texts)
 
 
 def main(argv: list[str] | None = None) -> int:

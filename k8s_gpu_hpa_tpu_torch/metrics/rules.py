@@ -2,7 +2,7 @@
 metric.
 
 Counterpart of ``k8s_gpu_hpa_tpu/metrics/rules.py``, cut to the expressions
-and the rule the headline loop evaluates.  The reference's single recording
+and the rules the port's loops evaluate.  The reference's single recording
 rule (cuda-test-prometheusrule.yaml:12-16) is the semantic heart of its
 pipeline:
 
@@ -34,7 +34,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from k8s_gpu_hpa_tpu_torch.metrics.schema import Sample, TPU_TENSORCORE_UTIL
+from k8s_gpu_hpa_tpu_torch.metrics.schema import Sample, TPU_HBM_USAGE, TPU_TENSORCORE_UTIL
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
 
 Vector = list[Sample]
@@ -192,12 +192,15 @@ class RuleEvaluator:
         return sum(rule.evaluate_into(self.db) for rule in self.rules)
 
 
-def _app_scoped(metric: str, app: str) -> Expr:
+def _app_scoped(
+    metric: str, app: str, keys: tuple[str, ...] = ("node", "pod", "namespace")
+) -> Expr:
     """The per-pod maxima of ``metric`` joined to the pods labelled ``app``:
     ``max by(node,pod,namespace)(metric) * on(pod) group_left(label_app)
-    max by(pod,label_app)(kube_pod_labels{label_app="app"})``."""
+    max by(pod,label_app)(kube_pod_labels{label_app="app"})``, the maxima
+    grouped by ``keys``."""
     return MulOnGroupLeft(
-        left=MaxBy(("node", "pod", "namespace"), Select(metric)),
+        left=MaxBy(keys, Select(metric)),
         right=MaxBy(
             ("pod", "label_app"),
             Select("kube_pod_labels", {"label_app": app}),
@@ -243,6 +246,20 @@ def tpu_test_multihost_avg_rule(
         expr=Avg(_app_scoped(metric, app)),
         labels={"namespace": namespace, "statefulset": statefulset},
     )
+
+
+def tpu_test_pod_max_rule(
+    app: str = "tpu-test",
+    metric: str = TPU_HBM_USAGE,
+    record: str = "tpu_test_hbm_used_bytes",
+) -> RecordingRule:
+    """The per-pod rule of a Pods-type HPA metric (deploy/tpu-test-hbm-hpa.yaml):
+    each pod's devices collapse to the hottest (``max by(namespace,pod)``,
+    no node: one value a pod) and the same ``kube_pod_labels`` join scopes
+    them to the app, but the per-pod label set stays, with no output labels:
+    the adapter addresses the result per pod (``/namespaces/{ns}/pods/*/...``)
+    and the HPA averages it (AverageValue)."""
+    return RecordingRule(record=record, expr=_app_scoped(metric, app, ("namespace", "pod")))
 
 
 #: The serve HPA's target, percent of the device's memory-bandwidth peak

@@ -45,6 +45,20 @@ slice peer and the other slices are mirror pods.  It offers 0.2 devices of
 load, then 3.2 ("320 shared"): 53.3 a pod at 6 pods, which needs all 8, and
 40 at 8.  It counts the scale events that land off a slice boundary.
 
+The HBM trial (``run_hbm_pods_trial``, the counterpart of bench.py's
+``run_rung_hbm_pods``) scales the ``tpu-test-v5e8`` Deployment under the
+shipped HBM HPA (deploy/tpu-test-hbm-hpa.yaml: a Pods metric, the per-pod
+hottest device's bytes in use, AverageValue 13Gi, pods 1..4) through the
+pod-max rule and the adapter's Pods API.  The real pod holds real device
+memory (``HbmHold``), and each running pod's one device reports the bytes
+the real pod holds.  It offers 0.5 GiB, then from 3 s after the start
+44 GiB shared by the running pods, each holding at most 14.5 GiB (bench.py's
+traffic), and ends at the scale-up.  The External rung
+(``run_external_queue_trial``, the counterpart of bench.py's
+``run_rung_external_queue``) runs the shipped queue-depth HPA on a virtual
+clock over ``control/external_sim.py``; ``QueueJoint`` is that HPA's path
+on a node, around a serving container that runs as its own process.
+
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
 generator: pod ``tpu-train-real``, both rules of the ``tpu-train`` group and
@@ -63,19 +77,27 @@ real run, a ``VirtualClock`` for a scripted one.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import threading
 import time
 import urllib.request
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import TYPE_CHECKING, Callable, Protocol
+
+import torch
 
 from k8s_gpu_hpa_tpu_torch.control.adapter import (
     AdapterRule,
     CustomMetricsAdapter,
+    ExternalRule,
     ObjectReference,
 )
+from k8s_gpu_hpa_tpu_torch.control.external_sim import ScaleTarget, external_sim_from_manifest
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    HBM_APP,
+    HBM_SERIES,
     TRAIN_BW_SERIES,
     TRAIN_DUTY_SERIES,
     MULTIHOST_MAX_REPLICAS,
@@ -86,16 +108,22 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     HPABehavior,
     HPAController,
     ObjectMetricSpec,
+    PodsMetricSpec,
+    behavior_from_manifest,
+    hbm_metrics,
+    metrics_from_manifest,
     shipped_behavior,
     shipped_multihost_behavior,
     signal_ceiling_clears_band,
     train_metrics,
 )
+from k8s_gpu_hpa_tpu_torch.device import resolve
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
 from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttributor
 from k8s_gpu_hpa_tpu_torch.exporter.selfreport import SelfReportReader
 from k8s_gpu_hpa_tpu_torch.exporter.sources import MetricsSource, NvmlSource, TorchDeviceSource
 from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
+from k8s_gpu_hpa_tpu_torch.manifests import external_hpa_doc
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import encode_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     SERVE_BW_TARGET,
@@ -103,6 +131,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     RuleEvaluator,
     tpu_test_avg_rule,
     tpu_test_multihost_avg_rule,
+    tpu_test_pod_max_rule,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_DUTY_CYCLE,
@@ -113,7 +142,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     families_from_chips,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
-from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock
+from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock, VirtualClock
 
 if TYPE_CHECKING:
     from k8s_gpu_hpa_tpu_torch.loadgen.allreduce import AllReduceLoadGen
@@ -136,6 +165,14 @@ MULTIHOST_DUTY_SERIES = "tpu_test_multihost_duty_cycle_avg"
 BASE_POD_START_LATENCY = 12.0
 BASE_HPA_SYNC = 15.0
 BASE_BUDGET_S = 60.0
+GIB = 1 << 30
+#: the HBM trial (bench.py's run_rung_hbm_pods): the real pod, the base
+#: demand, the demand from 3 s after the start, shared by the running pods,
+#: and the most one pod holds
+HBM_POD = f"{HBM_APP}-real"
+HBM_BASE = GIB // 2
+HBM_DEMAND = 44 * GIB
+HBM_CAP = 14.5 * GIB
 
 
 def tpu_test_rules() -> list[RecordingRule]:
@@ -153,8 +190,10 @@ class LoopSpec:
     app: str  # the Deployment's name and its pods' ``app`` label
     real_pod: str
     rules: tuple[RecordingRule, ...]
-    #: the HPA's Object metrics: recorded series and their targets
-    metrics: tuple[ObjectMetricSpec, ...]
+    #: the HPA's metrics: Object metrics (recorded series on the object and
+    #: their targets) or Pods metrics (per-pod series averaged over the
+    #: running pods)
+    metrics: tuple[ObjectMetricSpec | PodsMetricSpec, ...]
     #: recorded series read at each scrape into ``TrialResult.series``
     series: tuple[str, ...]
     #: offered load before the spike, in devices' worth
@@ -174,12 +213,15 @@ class LoopSpec:
     replica_quantum: int = 1
     #: the HPA's behavior stanza at time scale 1
     behavior: Callable[[], HPABehavior] = shipped_behavior
+    #: seconds from the start to the spike, at time scale 1
+    spike_after: float = 6.0
 
     @property
     def kind(self) -> str:
         """The scaled object's kind, the HPA's metrics' described object's:
-        ``Deployment`` or ``StatefulSet``."""
-        return self.metrics[0].described_object.kind
+        ``Deployment`` or ``StatefulSet``; a Deployment for Pods metrics."""
+        metric = self.metrics[0]
+        return "Deployment" if isinstance(metric, PodsMetricSpec) else metric.described_object.kind
 
     @property
     def object_label(self) -> str:
@@ -294,6 +336,28 @@ def slice_spec(metric: str = TPU_TENSORCORE_UTIL, series: str = MULTIHOST_SERIES
     )
 
 
+def hbm_pods_spec(hbm_total: float = 80 * GIB) -> LoopSpec:
+    """The HBM loop: bench.py's HBM rung against the shipped HBM HPA
+    (``hbm_metrics()``: Pods, AverageValue 13Gi, pods 1..4, the shipped
+    behavior) through the pod-max rule on the per-device bytes in use.  The
+    offered load is in units of ``HBM_CAP``, so that each running pod holds
+    ``min(1, offered / running) × HBM_CAP``: 0.5 GiB, then
+    ``min(44 GiB / running, 14.5 GiB)``.  Mirror pods report the real pod's
+    held bytes of ``hbm_total``."""
+    return LoopSpec(
+        app=HBM_APP,
+        real_pod=HBM_POD,
+        rules=(tpu_test_pod_max_rule(app=HBM_APP, record=HBM_SERIES),),
+        metrics=tuple(hbm_metrics()),
+        series=(HBM_SERIES,),
+        base_offered=HBM_BASE / HBM_CAP,
+        settle_below=HBM_BASE,
+        mirror_chip=lambda i, held: ChipSample(i, None, None, held, hbm_total, None),
+        spike_offered=HBM_DEMAND / HBM_CAP,
+        spike_after=3.0,
+    )
+
+
 def scaled_behavior(time_scale: float, behavior: HPABehavior) -> HPABehavior:
     """``behavior`` with every window and period times ``time_scale``."""
     for rules in (behavior.scale_up, behavior.scale_down):
@@ -332,6 +396,10 @@ class MirrorDeployment:
     def running(self) -> list[str]:
         now = self.clock.now()
         return [p for p, ready in self.pods.items() if ready <= now]
+
+    def ready_pod_names(self) -> list[str]:
+        """The pods a Pods-type metric is read for (``PodLister``)."""
+        return self.running()
 
 
 class MirrorStatefulSet(MirrorDeployment):
@@ -431,9 +499,11 @@ def wire_pipeline(
     scraper.add_target(lambda: pod_labels_exposition(deployment), name="ksm")
     evaluator = RuleEvaluator(db, list(loop.rules))
     overrides = {"namespace": "namespace", loop.object_label: loop.kind}
-    adapter = CustomMetricsAdapter(
-        db, [AdapterRule(m.metric_name, dict(overrides)) for m in loop.metrics]
-    )
+    pod_overrides = {"namespace": "namespace", "pod": "Pod"}
+    adapter = CustomMetricsAdapter(db, [
+        AdapterRule(m.metric_name, dict(pod_overrides if isinstance(m, PodsMetricSpec) else overrides))
+        for m in loop.metrics
+    ])
     hpa = HPAController(
         target=deployment,
         metrics=list(loop.metrics),
@@ -443,6 +513,7 @@ def wire_pipeline(
         max_replicas=loop.max_replicas,
         behavior=scaled_behavior(time_scale, loop.behavior()),
         replica_quantum=loop.replica_quantum,
+        pod_lister=deployment,
     )
     return Pipeline(deployment, db, scraper, evaluator, hpa, loop.metrics[0].metric_name, spec)
 
@@ -467,8 +538,11 @@ class TrialResult:
     #: (t after spike, replicas, running) at each HPA sync and at the end
     replicas: list[tuple[float, int, int]] = field(default_factory=list)
     #: (t after spike, {metric: the adapter's value, None where absent}) at
-    #: each HPA sync: the metrics the HPA had
+    #: each HPA sync: the metrics the HPA had (a Pods metric's value is its
+    #: mean over the running pods)
     metrics: list[tuple[float, dict[str, float | None]]] = field(default_factory=list)
+    #: (t after spike, the HPA's reason) at each HPA sync
+    reasons: list[tuple[float, str]] = field(default_factory=list)
     #: serve loop: the saturated signal measured before the loop, percent,
     #: and its headroom over the target
     saturated_pct: float | None = None
@@ -502,6 +576,22 @@ class _Grid:
             return False
         self._k = math.floor((now + self.slack - self.first) / self.period) + 1
         return True
+
+
+def pods_mean(pipe: Pipeline, metric: PodsMetricSpec) -> float | None:
+    """A Pods metric as the HPA reads it: the adapter's per-pod values of
+    the running pods, averaged; None where no pod has one."""
+    values = pipe.hpa.adapter.get_pods_metric(
+        "default", metric.metric_name, pipe.deployment.running()
+    )
+    return sum(values.values()) / len(values) if values else None
+
+
+def _hpa_reading(pipe: Pipeline, metric: ObjectMetricSpec | PodsMetricSpec) -> float | None:
+    """The value the adapter serves the HPA for ``metric``."""
+    if isinstance(metric, PodsMetricSpec):
+        return pods_mean(pipe, metric)
+    return pipe.hpa.adapter.get_object_metric(metric.described_object, metric.metric_name)
 
 
 def _settle(load: Load, loop: LoopSpec, clock: Clock, time_scale: float) -> None:
@@ -542,7 +632,7 @@ def run_trial(
 
     offered = loop.base_offered  # in devices' worth; below the target
     start = clock.now()
-    spike_at = start + 6.0 * time_scale
+    spike_at = start + loop.spike_after * time_scale
     t_cross = None
     t_done = None
     t_drop = None
@@ -552,6 +642,13 @@ def run_trial(
     scrapes = _Grid(start, scrape_interval, tick)
     next_sync = start + hpa_sync
     deadline = spike_at + 6.0 * hpa_sync + budget
+    selector = {loop.object_label: loop.app}
+    pods = {m.metric_name: m for m in loop.metrics if isinstance(m, PodsMetricSpec)}
+
+    def reading(name: str) -> float | None:
+        # a recorded series on the object, or a Pods metric as the HPA reads it
+        return pods_mean(pipe, pods[name]) if name in pods else pipe.db.latest(name, selector)
+
     while clock.now() < deadline:
         now = clock.now()
         if t_drop is None and now >= spike_at:
@@ -560,26 +657,22 @@ def run_trial(
         if scrapes.due(now):
             pipe.scraper.scrape_once()
             pipe.evaluator.evaluate_once()
-            selector = {loop.object_label: loop.app}
-            result.series.append(
-                (now - spike_at, *(pipe.db.latest(s, selector) for s in loop.series))
-            )
+            result.series.append((now - spike_at, *(reading(s) for s in loop.series)))
             if t_cross is None and now >= spike_at and any(
-                (value := pipe.db.latest(m.metric_name, selector)) is not None
-                and value > m.target_value
+                (value := reading(m.metric_name)) is not None and value > _target(m)
                 for m in loop.metrics
             ):
                 t_cross = now
         if now >= next_sync:
-            pipe.hpa.sync_once()
+            status = pipe.hpa.sync_once()
             next_sync = now + hpa_sync
             result.replicas.append(
                 (now - spike_at, deployment.replicas, len(deployment.running()))
             )
-            result.metrics.append((now - spike_at, {
-                m.metric_name: pipe.hpa.adapter.get_object_metric(m.described_object, m.metric_name)
-                for m in loop.metrics
-            }))
+            result.metrics.append(
+                (now - spike_at, {m.metric_name: _hpa_reading(pipe, m) for m in loop.metrics})
+            )
+            result.reasons.append((now - spike_at, status.last_reason))
             if deployment.replicas != prev_replicas and deployment.replicas % loop.replica_quantum:
                 result.slice_boundary_violations += 1
             if t_drop is not None:
@@ -605,7 +698,7 @@ def run_trial(
             break
         clock.sleep(tick)
     if t_cross is None:
-        targets = ", ".join(f"{m.metric_name} {m.target_value}" for m in loop.metrics)
+        targets = ", ".join(f"{m.metric_name} {_target(m)}" for m in loop.metrics)
         raise RuntimeError(f"no metric crossed its target after the spike ({targets})")
     if t_done is None or t_done - t_cross > budget:
         raise RuntimeError(
@@ -615,6 +708,12 @@ def run_trial(
     result.scale_up_s = t_done - t_cross
     result.spike_to_cross_s = t_cross - spike_at
     return result
+
+
+def _target(metric: ObjectMetricSpec | PodsMetricSpec) -> float:
+    if isinstance(metric, PodsMetricSpec):
+        return metric.target_average_value
+    return metric.target_value
 
 
 #: the overshoot probe's offered load, in devices' worth, and the replicas
@@ -666,8 +765,7 @@ def run_overshoot_probe(
             next_sync = now + hpa_sync
             max_seen = max(max_seen, deployment.replicas)
             if log is not None:
-                values = (pipe.hpa.adapter.get_object_metric(m.described_object, m.metric_name)
-                          for m in loop.metrics)
+                values = (_hpa_reading(pipe, m) for m in loop.metrics)
                 read = " ".join(f"read={v:.2f}" if v is not None else "read=none" for v in values)
                 log(f"probe sync: t={now - spike_at:+.2f}s {read} replicas={deployment.replicas} "
                     f"running={len(deployment.running())} max_seen={max_seen}")
@@ -721,7 +819,7 @@ class LoadThread:
 def _live_trial(
     spec: LoopSpec,
     source: MetricsSource,
-    step: Callable[[], object],
+    step: Callable[[], object] | None,
     load: Load,
     mirror_util: Callable[[], float],
     time_scale: float,
@@ -729,8 +827,9 @@ def _live_trial(
     selfreport: SelfReportReader | None = None,
     drive: Callable[..., object] = run_trial,
 ):
-    """Run ``step`` in its own thread, as the workload runs in its own pod,
-    serve ``source`` over HTTP as the spec's real pod, and drive the loop
+    """Run ``step`` in its own thread, as the workload runs in its own pod
+    (None: the load acts when it is set, and no thread runs), serve
+    ``source`` over HTTP as the spec's real pod, and drive the loop
     (``run_trial``, or ``run_overshoot_probe``): what ``drive`` returns.
 
     An ``ExporterDaemon`` serves the source on an ephemeral port of
@@ -763,10 +862,11 @@ def _live_trial(
             feed_errors.append(e)
 
     feeder = threading.Thread(target=feed, name="exporter-feed", daemon=True)
-    worker = LoadThread(step)
+    worker = LoadThread(step) if step is not None else None
     try:
         feeder.start()
-        worker.start()
+        if worker is not None:
+            worker.start()
         pipe = wire_pipeline(
             lambda: http_fetch(daemon.port), mirror_util, clock, time_scale, spec=spec
         )
@@ -774,7 +874,8 @@ def _live_trial(
     finally:
         stop.set()
         feeder.join(10)
-        worker.stop()
+        if worker is not None:
+            worker.stop()
         daemon.close()
         if feed_errors:
             raise RuntimeError("the exporter's feed thread failed") from feed_errors[0]
@@ -1039,3 +1140,212 @@ def run_slice_trial(gen: AllReduceLoadGen, time_scale: float = 1.0) -> TrialResu
         slice_spec(TPU_DUTY_CYCLE, MULTIHOST_DUTY_SERIES), drain_offered=None
     )
     return _live_trial(spec, source, load.step, load, load.utilization, time_scale)
+
+
+class HbmHold:
+    """Holds real device memory, so that the HBM gauge reports bytes that
+    are resident on the device (bench.py's ``HbmHold``): blocks of 1/4 GiB,
+    each zeroed on the device and synchronized before it counts.
+
+    ``clear`` drops the blocks and empties PyTorch's caching allocator:
+    without that the allocator keeps the freed blocks reserved, and NVML's
+    memory in use never falls.  ``held_bytes`` is read from other threads
+    (the exporter's feed) and is one integer."""
+
+    BLOCK = GIB // 4
+
+    def __init__(self, device: str | torch.device | None = None):
+        self.device = resolve(device)
+        self._blocks: list[torch.Tensor] = []
+        self._held = 0
+
+    def held_bytes(self) -> int:
+        return self._held
+
+    def set_target(self, target_bytes: float) -> None:
+        """Hold the most whole blocks that fit in ``target_bytes``."""
+        while self._held + self.BLOCK <= target_bytes:
+            block = torch.zeros(self.BLOCK, dtype=torch.uint8, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._blocks.append(block)
+            self._held += self.BLOCK
+        while self._blocks and self._held > target_bytes:
+            self._blocks.pop()
+            self._held -= self.BLOCK
+
+    def clear(self) -> None:
+        self._blocks.clear()
+        self._held = 0
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+class Hold(Protocol):
+    """What the HBM trial commands: ``HbmHold``, or a stand-in that counts."""
+
+    def held_bytes(self) -> int: ...
+
+    def set_target(self, target_bytes: float) -> None: ...
+
+    def clear(self) -> None: ...
+
+
+class HbmLoad:
+    """The HBM pod's workload around a hold: an intensity is the fraction
+    of ``HBM_CAP`` the pod holds, set at once (bench.py sets its hold in
+    the loop's tick).  Its ``utilization`` is the held bytes, which the
+    mirror pods report too."""
+
+    def __init__(self, hold: Hold):
+        self.hold = hold
+
+    def set_intensity(self, value: float) -> None:
+        self.hold.set_target(value * HBM_CAP)
+
+    def utilization(self, _chip_index: int = 0) -> float:
+        return float(self.hold.held_bytes())
+
+
+class HeldBytesSource:
+    """The real pod's one device as its exporter reads it for the HBM loop:
+    the held bytes in use of ``total`` and no activity gauge."""
+
+    def __init__(self, hold: Hold, total: float):
+        self.hold = hold
+        self.total = total
+
+    def sample(self) -> list[ChipSample]:
+        return [ChipSample(0, None, None, float(self.hold.held_bytes()), self.total, None)]
+
+
+def run_hbm_pods_trial(
+    device: str | torch.device | None = None,
+    time_scale: float = 1.0,
+    hold: Hold | None = None,
+    clock: VirtualClock | None = None,
+) -> TrialResult:
+    """The HBM trial: bench.py's HBM rung around real device memory.
+
+    ``hold`` (default ``HbmHold(device)``) holds the real pod's bytes, and
+    every running pod's one device reports them.  With no ``clock`` it runs
+    in real time: an ``ExporterDaemon`` serves the real pod over HTTP and
+    the HPA reads ``tpu_test_hbm_used_bytes`` through the pod-max rule and
+    the adapter's Pods API.  With a ``VirtualClock`` the real pod's
+    exposition is read in process.  The crossing is the first scrape after
+    the spike at which the mean over the running pods exceeds 13Gi.  It
+    ends at the scale-up; the hold is cleared before it returns."""
+    dev = resolve(device)
+    hold = hold if hold is not None else HbmHold(dev)
+    total = float(torch.cuda.get_device_properties(dev).total_memory) if dev.type == "cuda" else 0.0
+    spec = hbm_pods_spec(total)
+    load = HbmLoad(hold)
+    source = HeldBytesSource(hold, total)
+    try:
+        if clock is None:
+            return _live_trial(spec, source, None, load, load.utilization, time_scale)
+        attribution = {0: ("default", spec.real_pod)}
+
+        def fetch_real() -> str:
+            return encode_text(families_from_chips(source.sample(), "real-0", attribution))
+
+        pipe = wire_pipeline(fetch_real, load.utilization, clock, time_scale, spec=spec)
+        return run_trial(load, pipe, clock, time_scale)
+    finally:
+        hold.clear()
+
+
+#: bench.py's External rung: the queued requests before and after the spike
+#: at 10 s, published every second; the HPA syncs every 15 s
+QUEUE_BASE = 40.0
+QUEUE_SPIKE = 240.0
+QUEUE_SPIKE_AT = 10.0
+
+
+@dataclass
+class QueueResult:
+    spike_to_desired_s: float
+    replicas_reached: int
+    #: (t, replicas, the HPA's reason) at each sync
+    syncs: list[tuple[float, int, str]] = field(default_factory=list)
+
+
+def run_external_queue_trial() -> QueueResult:
+    """bench.py's External rung on a virtual clock: the queue-depth HPA
+    (``external_hpa_doc()``, the generator's tpu-test-external-hpa) over
+    ``external_sim``, 40 requests queued, then 240 from 10 s, a sample a
+    second and a sync every 15 s.  Times the spike to the steady desired
+    count, ceil(240 / the AverageValue target).  Raises RuntimeError when
+    it is not reached within 300 s."""
+    sim = external_sim_from_manifest(external_hpa_doc())
+    need = math.ceil(QUEUE_SPIKE / sim.metric.target_average_value)
+    result = QueueResult(0.0, need)
+    next_sync = 15.0
+    while sim.clock.now() < 300.0:
+        now = sim.clock.now()
+        sim.publish(QUEUE_SPIKE if now >= QUEUE_SPIKE_AT else QUEUE_BASE)
+        if now >= next_sync:
+            status = sim.hpa.sync_once()
+            next_sync += 15.0
+            result.syncs.append((now, sim.target.replicas, status.last_reason))
+        if now >= QUEUE_SPIKE_AT and sim.target.replicas == need:
+            result.spike_to_desired_s = now - QUEUE_SPIKE_AT
+            return result
+        sim.clock.advance(1.0)
+    raise RuntimeError(f"the queue HPA never reached {need} replicas: {result.syncs}")
+
+
+class QueueJoint:
+    """The External metric's path on one node, around a serving container
+    that runs as its own process: its self-reported queue depth (the
+    telemetry file of pod ``pod``) → the node exporter, which merges the
+    reports the kubelet's attribution vouches for → HTTP → scraper → TSDB
+    → ``external.metrics.k8s.io`` → the queue HPA of
+    ``external_hpa_doc()`` on a scale target of one replica.
+
+    ``sweep`` runs one exporter sweep while the pod's report holds still
+    and one scrape after it, so that what the adapter serves can be held to
+    what the file held.  ``close`` stops the exporter's HTTP server."""
+
+    def __init__(self, source: MetricsSource, attributor: Attributor, telemetry_dir: str,
+                 pod: str, namespace: str = "default"):
+        self.daemon = ExporterDaemon(
+            source, attributor, node_name="real-0", listen_addr="127.0.0.1", port=0,
+            selfreport=SelfReportReader(telemetry_dir),
+        )
+        clock = SystemClock()
+        self.db = TimeSeriesDB(clock)
+        self.scraper = Scraper(self.db)
+        self.scraper.add_target(lambda: http_fetch(self.daemon.port), name="exporter/real",
+                                node="real-0")
+        doc = external_hpa_doc()
+        (self.metric,) = metrics_from_manifest(doc, namespace)
+        self.adapter = CustomMetricsAdapter(
+            self.db, [], external_rules=[ExternalRule(self.metric.metric_name)])
+        self.target = ScaleTarget(doc["spec"]["minReplicas"])
+        self.hpa = HPAController(
+            self.target, [self.metric], self.adapter, clock,
+            min_replicas=doc["spec"]["minReplicas"], max_replicas=doc["spec"]["maxReplicas"],
+            behavior=behavior_from_manifest(doc),
+        )
+        self.namespace = namespace
+        self.report = Path(telemetry_dir) / f"{namespace}_{pod}.json"
+
+    def served(self) -> list[float]:
+        return self.adapter.get_external_metric(
+            self.namespace, self.metric.metric_name, self.metric.selector)
+
+    def sweep(self, attempts: int = 50) -> tuple[float, list[float]]:
+        """The report's queue depth at one exporter sweep, and what the
+        adapter serves after the scrape that follows.  Raises RuntimeError
+        when the report changed across every attempt's sweep."""
+        for _ in range(attempts):
+            before = self.report.read_text()
+            self.daemon.step()
+            if self.report.read_text() == before:
+                self.scraper.scrape_once()
+                return json.loads(before)["queue_depth"], self.served()
+        raise RuntimeError(f"{self.report} changed across {attempts} sweeps")
+
+    def close(self) -> None:
+        self.daemon.close()

@@ -76,6 +76,8 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.metrics.rules",
         "k8s_gpu_hpa_tpu_torch.manifests",
         "k8s_gpu_hpa_tpu_torch.doctor",
+        "k8s_gpu_hpa_tpu_torch.control.external_sim",
+        "k8s_gpu_hpa_tpu_torch.utils.quantity",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -161,8 +163,45 @@ def test_running_the_deploy_side_and_the_slice_loop_loads_no_jax():
         timeout=120, check=True,
     )
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
-    assert {"k8s_gpu_hpa_tpu_torch.manifests", "k8s_gpu_hpa_tpu_torch.doctor", "yaml"} <= set(loaded)
+    assert {"k8s_gpu_hpa_tpu_torch.manifests", "k8s_gpu_hpa_tpu_torch.doctor"} <= set(loaded)
+    # the generator writes its YAML itself: the GPU machine has no PyYAML
+    assert "yaml" not in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+_RUN_PODS_EXTERNAL = """
+import json, sys
+from k8s_gpu_hpa_tpu_torch import manifests
+from k8s_gpu_hpa_tpu_torch.control import hpa
+from k8s_gpu_hpa_tpu_torch.trial import GIB, run_external_queue_trial, run_hbm_pods_trial
+from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
+class Hold:
+    held = 0
+    def held_bytes(self): return self.held
+    def set_target(self, target): self.held = int(target) // (GIB // 4) * (GIB // 4)
+    def clear(self): self.held = 0
+assert run_hbm_pods_trial("cpu", 1.0, Hold(), VirtualClock()).replicas[-1][1:] == (4, 4)
+assert run_external_queue_trial().replicas_reached == 3
+for doc in (manifests.hbm_hpa_doc(), manifests.external_hpa_doc()):
+    hpa.metrics_from_manifest(doc), hpa.behavior_from_manifest(doc)
+    manifests.to_yaml([doc])
+print(json.dumps({"loaded": sorted(sys.modules)}))
+"""
+
+
+def test_running_the_pods_and_external_paths_loads_no_jax_or_yaml():
+    """The HBM Pods loop and the External rung on virtual clocks, and the
+    two HPAs parsed from the generator's dicts and rendered, run in a fresh
+    interpreter, load neither JAX, nor the JAX package, nor a YAML
+    library."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_PODS_EXTERNAL], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
+    assert {"k8s_gpu_hpa_tpu_torch.control.external_sim",
+            "k8s_gpu_hpa_tpu_torch.utils.quantity"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m == "yaml"] == []
 
 
 def test_no_port_source_names_jax_or_the_jax_package():
@@ -180,6 +219,23 @@ def test_no_port_source_names_jax_or_the_jax_package():
             else:
                 continue
             found += [(path.name, m) for m in modules if _forbidden(m)]
+    assert found == []
+
+
+def test_no_port_source_imports_a_yaml_library():
+    """The port reads and writes no YAML through a library: the GPU
+    machine has none.  Shipped specs are dicts or code."""
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    found = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                modules = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                modules = [node.module or ""]
+            else:
+                continue
+            found += [(path.name, m) for m in modules if m == "yaml" or m.startswith("yaml.")]
     assert found == []
 
 

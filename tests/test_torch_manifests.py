@@ -6,12 +6,13 @@ file and leaf by leaf.  A leaf may differ only under one of ``GPU_PATHS``
 (the accelerator's resource key, node selector and taint, the images, the
 commands, and the exporter's NVML access), and each of them must differ
 somewhere, so the list cannot go stale.  Where the port renders a subset of
-the JAX package's entries (``SUBSET_PATHS``: the scrape jobs, the adapter
-rules, the rule groups), each entry it renders must equal the JAX entry of
-the same name.  Each recording rule's PromQL is JAX's, character for
+the JAX package's entries (``SUBSET_PATHS``: the scrape jobs and the rule
+groups; the adapter's custom and external rules, whole now), each entry it
+renders must equal the JAX entry of the same name.  Each recording rule's PromQL is JAX's, character for
 character."""
 
 import fnmatch
+from pathlib import Path
 
 import pytest
 import torch
@@ -109,6 +110,7 @@ def test_the_bundle_holds_the_jax_bundle_s_manifests_of_the_port_s_pipelines():
         "prometheus-adapter-values.yaml", "tpu-test-prometheusrule.yaml",
         *(f"{w}-{kind}.yaml" for w in ("tpu-test", "tpu-serve", "tpu-train")
           for kind in ("deployment", "hpa")),
+        "tpu-test-v5e8-deployment.yaml", "tpu-test-hbm-hpa.yaml", "tpu-test-external-hpa.yaml",
         "tpu-test-multihost.yaml", "tpu-test-multihost-hpa.yaml",
     }
     for name, docs in port.items():
@@ -120,9 +122,13 @@ def test_every_leaf_of_the_bundle_is_jax_s_but_where_a_gpu_node_needs_another():
     allowed = GPU_PATHS + list(SUBSET_PATHS)
     stray = [d for d in diffs if not any(_under(d, p) for p in allowed)]
     assert stray == []
-    # each listed path differs somewhere: the list names real differences
-    stale = [p for p in allowed if not any(_under(d, p) for d in diffs)]
+    # each GPU path differs somewhere: the list names real differences
+    stale = [p for p in GPU_PATHS if not any(_under(d, p) for d in diffs)]
     assert stale == []
+    # the lists the port still renders in part; the adapter's rules, custom
+    # and external, are JAX's whole
+    partial = {p[0] for p in SUBSET_PATHS if any(_under(d, p) for d in diffs)}
+    assert partial == {"kube-prometheus-stack-values.yaml", "tpu-test-prometheusrule.yaml"}
 
 
 @pytest.mark.parametrize("path", list(SUBSET_PATHS), ids=lambda p: "/".join(p[:1] + p[-1:]))
@@ -161,6 +167,7 @@ def test_the_gpu_values_are_the_ones_a_gpu_node_needs():
     # the JAX manifests' device counts, as nvidia.com/gpu
     assert limits == {
         "tpu-test": {"limits": {"nvidia.com/gpu": 1}},
+        "tpu-test-v5e8": {"limits": {"nvidia.com/gpu": 8}},
         "tpu-serve": {"limits": {"nvidia.com/gpu": 1}},
         "tpu-train": {"limits": {"nvidia.com/gpu": 4}},
         "tpu-test-multihost": {"limits": {"nvidia.com/gpu": 4}},
@@ -294,3 +301,61 @@ def test_the_cli_writes_the_bundle(tmp_path, capsys):
     for name, docs in bundle.items():
         assert list(yaml.safe_load_all((tmp_path / "gpu" / name).read_text())) == docs
     assert len(capsys.readouterr().out.splitlines()) == len(bundle)
+
+
+DEPLOY = Path(__file__).resolve().parent.parent / "deploy"
+
+
+@pytest.mark.parametrize("name,doc", [("tpu-test-hbm-hpa.yaml", manifests.hbm_hpa_doc),
+                                      ("tpu-test-external-hpa.yaml", manifests.external_hpa_doc)])
+def test_the_pods_and_external_hpas_are_jax_s_and_the_shipped_manifests(name, doc):
+    assert manifests.default_bundle()[name] == [doc()]
+    assert [doc()] == jax_manifests.default_bundle()[name]
+    assert doc() == yaml.safe_load((DEPLOY / name).read_text())
+
+
+def test_the_v5e8_deployment_runs_the_matmul_container_on_eight_gpus():
+    (port,) = manifests.default_bundle()["tpu-test-v5e8-deployment.yaml"]
+    (ref,) = jax_manifests.default_bundle()["tpu-test-v5e8-deployment.yaml"]
+    pod = port["spec"]["template"]["spec"]
+    (container,) = pod["containers"]
+    assert container["name"] == "tpu-test" == ref["spec"]["template"]["spec"]["containers"][0]["name"]
+    assert container["resources"] == {"limits": {"nvidia.com/gpu": 8}}
+    assert container["command"] == ["python", "-m", "k8s_gpu_hpa_tpu_torch.loadgen"]
+    env = {e["name"]: e.get("value") for e in container["env"]}
+    assert (env["MATMUL_SIZE"], env["QUEUE_NAME"]) == ("8192", "tpu-test-v5e8")
+    assert pod["nodeSelector"] == {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
+    stray = [d for d in _differences({"d": [port]}, {"d": [ref]})
+             if not any(_under(d, p) for p in GPU_PATHS)]
+    assert stray == []
+
+
+def test_the_adapter_values_are_jax_s_with_the_pod_and_external_rules():
+    port = manifests.adapter_values()["rules"]
+    ref = jax_manifests.adapter_values()["rules"]
+    assert port == ref
+    pod_rule = _by(port["custom"], "seriesQuery")['tpu_test_hbm_used_bytes{namespace!="",pod!=""}']
+    assert pod_rule["resources"]["overrides"]["pod"] == {"resource": "pod"}
+    (queue,) = port["external"]
+    assert queue == manifests.external_rule("tpu_test_queue_depth")
+    assert queue["metricsQuery"].startswith("sum by (<<.GroupBy>>)")
+    groups = {g: [r.record for r in rs] for g, rs in manifests.shipped_rule_groups()}
+    assert groups["tpu-test-v5e8"] == ["tpu_test_hbm_used_bytes"]
+    assert "tpu_test_hbm_bw_avg" in groups["tpu-test"]
+
+
+@pytest.mark.parametrize("value", [
+    "yes", "No", "ON", "off", "true", "null", "~", "8192", "1x1", "", " lead", "trail ",
+    "a: b", "- x", "#c", "key: [1]", ".inf", ".5", "1e3", "0x1F", "$(POD_NAMESPACE)_$(POD_NAME)",
+    "line\nbreak", 'quote"s', "back\\slash", "ü", "@at", "*star", "&amp", "!tag", "%pct",
+    1.5, 1e20, 1e-05, -0.0, 0, -7, True, False, None, float("inf"), [], {}, [[1, "a"], []],
+    [{"k": "v", "n": [1, 2]}, {}],
+])
+def test_to_yaml_round_trips_awkward_values(value):
+    doc = {"value": value, "nested": {"list": [value, {"inner": value}]}, value_key(value): 1}
+    assert yaml.safe_load(manifests.to_yaml([doc])) == doc
+
+
+def value_key(value) -> str:
+    """A mapping key made of the value, where the value can be a key."""
+    return value if isinstance(value, str) and value else "plain-key"

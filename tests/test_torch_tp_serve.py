@@ -360,5 +360,6 @@ def test_the_serving_container_serves_tensor_parallel_over_two_ranks(tmp_path):
     reports = [dict(f.split("=", 1) for f in ln.split()[:3]) for ln in lines
                if ln.startswith("bursts=")]
     assert len(reports) >= 2 and int(reports[-1]["bursts"]) > 0
-    # the ranks die of the forwarded SIGTERM: the launcher exits 128 + 15
-    assert proc.returncode == 128 + signal.SIGTERM, out
+    # the ranks stop together at the forwarded SIGTERM and exit 0, and so
+    # does the launcher
+    assert proc.returncode == 0, out
