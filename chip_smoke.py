@@ -273,6 +273,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    the queue drains below one request at knob 0, and the
                    container exits 0 on SIGTERM.  Its prefill runs the flash
                    forward: the container reports its launches.
+40. simulate     — the scenario simulator on the card's machine, importing
+                   neither JAX nor a YAML library: default_bundle() rendered with
+                   to_yaml and read back with load_yaml_all, equal document
+                   for document, and every shipped deploy/*-hpa.yaml read
+                   and parsed; simulate.run_scenario("spike") on the
+                   headline HPA with saturated_pct the loadgen phase's
+                   dwell MFU, and on the serve HPA with the serve phase's
+                   saturated signal: both verdicts "target reachable", as
+                   the live loops' 1 → 4 showed, each simulated
+                   scale_up_latency printed beside that loop's scale_up_s;
+                   the slice HPA's spike, every scale event on a multiple
+                   of 2 and 8 pods reached; run_cpu_resource_trial(), the
+                   Resource HPA's rung, 4 replicas.  The kernels' counts are
+                   set to 0 before it and read after: it launches none.
+                   Whether PyYAML is installed there is reported; the
+                   port never imports it.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -302,7 +318,9 @@ gloo, counted by each rank's wrapper from zero), and the serving
 container's in queue_external, which it counts the same way in its own
 process and reports when it stops.
 
-Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Each phase's line carries ``t_s``, its end in seconds since the script
+began.  Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+...}`` line.
 Nothing falls back to the CPU: without a GPU the script exits 1 and prints
 no result.
 """
@@ -310,6 +328,7 @@ no result.
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import math
 import os
@@ -383,7 +402,9 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
-from k8s_gpu_hpa_tpu_torch import trial
+from k8s_gpu_hpa_tpu_torch import simulate, trial
+from k8s_gpu_hpa_tpu_torch.control.hpa import metrics_from_manifest
+from k8s_gpu_hpa_tpu_torch.manifests import default_bundle, load_yaml, load_yaml_all, to_yaml
 from k8s_gpu_hpa_tpu_torch.trial import (
     GIB,
     DUTY_SERIES,
@@ -400,6 +421,7 @@ from k8s_gpu_hpa_tpu_torch.trial import (
     run_headline_overshoot_probe,
     run_headline_trial,
     run_hbm_pods_trial,
+    run_cpu_resource_trial,
     run_node_headline_trial,
     run_serve_trial,
     run_slice_trial,
@@ -575,7 +597,14 @@ def _after_lead(step, before=None) -> tuple[dict, float]:
     return (_traced_kernels(events, 100, after=max(spins)) if spins else {}), wall_ms
 
 
+#: perf_counter at the start of main(): each phase's line carries its
+#: seconds since then (``t_s``), so a run's time splits by phase
+_START: float | None = None
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj and _START is not None:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -835,7 +864,7 @@ def phase_loadgen(knob_dir: str):
     # the tensor-core HPA scales up only above its target times its 10% band
     if out["dwell_mfu_pct"] <= out["band_edge_pct"]:
         raise AssertionError(f"the GEMM cannot drive the tensor-core loop: {out}")
-    return gen
+    return gen, out["dwell_mfu_pct"]
 
 
 def phase_profile(gen) -> dict:
@@ -888,7 +917,7 @@ SCALE_DOWN_MAX_FLAPS = 0
 OVERSHOOT_MAX = 0
 
 
-def phase_loop(gen) -> int:
+def phase_loop(gen) -> tuple[int, float]:
     """The headline loop on the kernel, as bench.py runs it: the HPA reads
     the tensor-core average, the kernel's MFU, which phase_loadgen showed
     can clear the band above the target.  The series holds both recorded
@@ -918,7 +947,7 @@ def phase_loop(gen) -> int:
         raise AssertionError(
             f"the drain took {result.scale_down_s} s with {result.scale_down_flaps} flaps "
             f"(bars: {SCALE_DOWN_BUDGET_S} s, {SCALE_DOWN_MAX_FLAPS} flaps)")
-    return launches
+    return launches, result.scale_up_s
 
 
 def phase_overshoot(gen) -> int:
@@ -1443,7 +1472,7 @@ def phase_serve_profile(gen: DecodeLoadGen) -> dict:
     return out
 
 
-def phase_serve_loop(gen: DecodeLoadGen) -> int:
+def phase_serve_loop(gen: DecodeLoadGen) -> tuple[int, float]:
     """The serve loop on the flash kernel, at time scale 1."""
     flash_attention_kernel.launches = 0
     replays = gen.replays
@@ -1466,7 +1495,7 @@ def phase_serve_loop(gen: DecodeLoadGen) -> int:
         "replicas": [list(r) for r in result.replicas],
         "series": [[round(t, 2), v] for t, v in result.series],
     })
-    return launches
+    return launches, result.scale_up_s
 
 
 def _grad_err(
@@ -3436,6 +3465,62 @@ def phase_queue_external(work_dir: str, device: str = "cuda:0") -> dict:
     return out
 
 
+def phase_simulate(headline: tuple[float, float], serve: tuple[float, float]) -> dict:
+    """The scenario simulator and the port's YAML reader on this machine:
+    ``headline`` and ``serve`` are each live loop's measured
+    signal ceiling and scale_up_s.  The simulated verdicts on those ceilings
+    must agree with the live loops, which reached 4 replicas."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    bundle = default_bundle()
+    for name, docs in bundle.items():
+        if load_yaml_all(to_yaml(docs)) != docs:
+            raise AssertionError(f"{name} does not read back as it was written")
+    hpas = {path.name: load_yaml(path.read_text())
+            for path in sorted(trial.DEPLOY.glob("*-hpa.yaml"))}
+    parsed = {name: [type(m).__name__ for m in metrics_from_manifest(doc)]
+              for name, doc in hpas.items()}
+    runs = {}
+    for name, (ceiling, live_s) in (("tpu-test-hpa.yaml", headline),
+                                    ("tpu-serve-hpa.yaml", serve)):
+        report = simulate.run_scenario(hpas[name], "spike", saturated_pct=ceiling)
+        runs[name] = {"saturated_pct": ceiling, "note": report.target_note,
+                      "simulated_scale_up_s": report.scale_up_latency,
+                      "live_scale_up_s": live_s, "scale_events": report.scale_events}
+        print(f"simulate {name}: ceiling {ceiling:.2f}, simulated scale-up "
+              f"{report.scale_up_latency} s beside the live loop's {live_s:.2f} s; "
+              f"{report.target_note}", flush=True)
+    slice_report = simulate.run_scenario(hpas["tpu-test-multihost-hpa.yaml"], "spike")
+    cpu = run_cpu_resource_trial()
+    wall = time.perf_counter() - t0
+    out = {
+        "phase": "simulate", "bundle_files": len(bundle), "hpa_files": parsed,
+        "runs": runs, "slice_scale_events": slice_report.scale_events,
+        "slice_scale_up_s": slice_report.scale_up_latency,
+        "cpu_resource": {"scale_up_s": cpu.scale_up_s, "replicas_reached": cpu.replicas_reached},
+        # the port reads no YAML through a library, whether or not one is here
+        "yaml_loaded": "yaml" in sys.modules,
+        "pyyaml_installed": importlib.util.find_spec("yaml") is not None,
+        "kernel_launches": _kernel_counts(),
+        "wall_s": wall,
+    }
+    emit(out)
+    for name, run in runs.items():
+        reachable = (run["note"] or "").endswith("target reachable")
+        if not reachable or run["simulated_scale_up_s"] is None:
+            raise AssertionError(f"the simulator disagrees with the live loop on {name}: {run}")
+    events = slice_report.scale_events
+    if not events or events[-1][2] != MULTIHOST_MAX_REPLICAS or any(
+            a % MULTIHOST_QUANTUM or b % MULTIHOST_QUANTUM for _, a, b in events):
+        raise AssertionError(f"the slice HPA's spike left whole slices: {events}")
+    if cpu.replicas_reached != 4:
+        raise AssertionError(f"the cpu rung reached {cpu.replicas_reached} replicas")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the simulator launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -3471,9 +3556,11 @@ def phase_processes() -> dict:
 
 
 def main() -> int:
+    global _START
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU", file=sys.stderr)
         return 1
+    _START = time.perf_counter()
     torch.cuda.set_device(0)
     device = phase_device()
     peaks = device["peak_bf16_tflops"], device["peak_hbm_gbps"]
@@ -3481,9 +3568,9 @@ def main() -> int:
     max_err = phase_parity()
     timing = phase_timing(*peaks)
     with tempfile.TemporaryDirectory() as knob_dir:
-        gen = phase_loadgen(knob_dir)
+        gen, dwell_mfu_pct = phase_loadgen(knob_dir)
         phase_profile(gen)
-        launches = phase_loop(gen)
+        launches, loop_scale_up_s = phase_loop(gen)
         launches += phase_overshoot(gen)
         attribution = phase_nvml(gen)
         launches += phase_node_loop(gen, attribution)
@@ -3493,9 +3580,9 @@ def main() -> int:
     serve = DecodeLoadGen(**SERVE_SIZES, window=3.0, device="cuda:0")
     serve.warmup()
     phase_serve_parity(serve)
-    phase_serve_loadgen(serve)
+    serve_saturated_pct = phase_serve_loadgen(serve)["saturated_signal_pct"]
     phase_serve_profile(serve)
-    flash_launches = phase_serve_loop(serve)
+    flash_launches, serve_scale_up_s = phase_serve_loop(serve)
     del serve
     bwd_err = phase_flash_bwd_parity()
     bwd_timing = phase_flash_bwd_timing(*peaks)
@@ -3534,6 +3621,7 @@ def main() -> int:
         phase_llm_sp(work_dir)
         phase_hbm_pods_loop()
         queue = phase_queue_external(work_dir)
+    phase_simulate((dwell_mfu_pct, loop_scale_up_s), (serve_saturated_pct, serve_scale_up_s))
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

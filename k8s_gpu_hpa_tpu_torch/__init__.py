@@ -26,9 +26,14 @@ The loop, by layer:
 ``trial.py`` wires them into the headline, serve, training and slice
 trials (the slice trial scales a StatefulSet of multi-host slices in whole
 slices); ``chip_smoke.py`` at the repository root drives them on the card.
-The deploy side: ``manifests.py`` renders the GPU manifests from the
-pipeline's string contracts, and ``doctor.py`` probes a deployed pipeline
-joint by joint and a node's NVML.
+On a virtual clock, ``control/cluster.py`` simulates the cluster (nodes,
+pod lifecycle, node exporters, kube-state-metrics, faults),
+``control/loop.py`` assembles the five layers over it, and ``simulate.py``
+plays a load scenario against a shipped HPA manifest
+(``python -m k8s_gpu_hpa_tpu_torch simulate``, the CLI umbrella of
+``__main__.py``).  The deploy side: ``manifests.py`` renders the GPU
+manifests from the pipeline's string contracts and reads YAML back, and
+``doctor.py`` probes a deployed pipeline joint by joint and a node's NVML.
 """
 
 __version__ = "0.1.0"

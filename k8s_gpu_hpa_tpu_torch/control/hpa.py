@@ -14,18 +14,20 @@ lag, fixable by the ``behavior`` field of newer API versions
         window, scale-up the min
     scaling policies (Pods / Percent per periodSeconds) bound the step size
 
-for three metric types: Object (``target.type: Value``, or ``AverageValue``
-divided by current replicas), Pods (the average over the target's ready
-pods, with Kubernetes' conservative rule for pods that report nothing) and
-External (the sum of the series a selector matches, or that sum per current
-replica).  Each sync sets the ``AbleToScale`` and ``ScalingActive`` status
-conditions a real HPA object carries.  Replica quanta: on a StatefulSet of
+for four metric types: Object (``target.type: Value``, or ``AverageValue``
+divided by current replicas), Resource (the pods' mean utilization percent
+of their request, read from a metrics.k8s.io stand-in), Pods (the average
+over the target's ready pods, with Kubernetes' conservative rule for pods
+that report nothing) and External (the sum of the series a selector
+matches, or that sum per current replica).  Each sync sets the
+``AbleToScale`` and ``ScalingActive`` status conditions a real HPA object
+carries, and ``on_scale`` hears of each change of replicas.  Replica quanta: on a StatefulSet of
 multi-host slices replicas move in whole slices (``replica_quantum``, read
 from the HPA's ``k8s-tpu-hpa/replica-quantum`` annotation by
 ``quantum_from_manifest``).
 
-Resource metrics, tracing, self-metrics, checkpoints and the capacity
-conditions are not ported.  ``behavior_from_manifest`` and
+Tracing, self-metrics, checkpoints and the capacity conditions are not
+ported.  ``behavior_from_manifest`` and
 ``metrics_from_manifest`` parse an HPA manifest given as a dict; the shipped
 manifests' values are also written in code here (``shipped_behavior()``,
 ``train_metrics()``, ``hbm_metrics()``, the ``MULTIHOST_*``, ``HBM_*`` and
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Protocol
+from typing import Callable, Protocol
 
 from k8s_gpu_hpa_tpu_torch.control.adapter import CustomMetricsAdapter, ObjectReference
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock
@@ -54,6 +56,17 @@ class ObjectMetricSpec:
     target_value: float
     described_object: ObjectReference
     average: bool = False
+
+
+@dataclass
+class ResourceMetricSpec:
+    """One Resource-type metric: ``resource`` (e.g. "cpu") with a target
+    average utilization, percent of the pods' requests: the metrics.k8s.io
+    path a plain HPA uses (deploy/cpu-busyloop-hpa.yaml, the rung without
+    an accelerator)."""
+
+    resource: str
+    target_average_utilization: float
 
 
 @dataclass
@@ -87,7 +100,7 @@ class ExternalMetricSpec:
             raise ValueError("exactly one of target_value / target_average_value required")
 
 
-MetricSpec = ObjectMetricSpec | PodsMetricSpec | ExternalMetricSpec
+MetricSpec = ObjectMetricSpec | ResourceMetricSpec | PodsMetricSpec | ExternalMetricSpec
 
 
 class PodLister(Protocol):
@@ -95,6 +108,13 @@ class PodLister(Protocol):
     pods, then asks the adapter for each pod's value."""
 
     def ready_pod_names(self) -> list[str]: ...
+
+
+class ResourceMetricsReader(Protocol):
+    """The metrics.k8s.io stand-in: each of the scale target's pods'
+    utilization, percent of its request."""
+
+    def pod_utilizations(self, resource: str) -> list[float]: ...
 
 
 @dataclass
@@ -242,10 +262,10 @@ def behavior_from_manifest(hpa_doc: dict) -> HPABehavior:
 
 def metrics_from_manifest(hpa_doc: dict, namespace: str = "default") -> list[MetricSpec]:
     """The controller's specs from the ``spec.metrics`` list of an
-    autoscaling/v2 HPA manifest given as a dict: Object, Pods and External
-    metrics, their targets parsed as Kubernetes quantities (``"40"``,
-    ``"13Gi"``, ``"500m"``).  A Resource metric raises ValueError: the
-    metrics.k8s.io reader it needs is not ported (ROADMAP.md item 15)."""
+    autoscaling/v2 HPA manifest given as a dict: Object, Resource, Pods and
+    External metrics, their targets parsed as Kubernetes quantities
+    (``"40"``, ``"13Gi"``, ``"500m"``).  A Resource metric must have a
+    Utilization target: the reader serves percent of request, not usage."""
     specs: list[MetricSpec] = []
     for m in hpa_doc["spec"].get("metrics", []):
         kind = m["type"]
@@ -282,10 +302,16 @@ def metrics_from_manifest(hpa_doc: dict, namespace: str = "default") -> list[Met
                 namespace=namespace,
             ))
         elif kind == "Resource":
-            raise ValueError(
-                f"Resource metric {m['resource']['name']}: Resource metrics are not "
-                "ported (they need a metrics.k8s.io reader; ROADMAP.md item 15)"
-            )
+            r = m["resource"]
+            if "averageUtilization" not in r["target"]:
+                raise ValueError(
+                    f"Resource metric {r['name']}: only target.type Utilization is "
+                    f"supported (got {r['target'].get('type', '?')})"
+                )
+            specs.append(ResourceMetricSpec(
+                resource=r["name"],
+                target_average_utilization=float(r["target"]["averageUtilization"]),
+            ))
         else:
             raise ValueError(f"unsupported HPA metric type {kind}")
     return specs
@@ -390,7 +416,9 @@ class HPAController:
         min_replicas: int = 1,
         max_replicas: int = 4,
         behavior: HPABehavior | None = None,
+        on_scale: Callable[[int, int], None] | None = None,
         replica_quantum: int = 1,
+        resource_metrics: ResourceMetricsReader | None = None,
         pod_lister: PodLister | None = None,
         namespace: str = "default",
     ):
@@ -401,6 +429,8 @@ class HPAController:
         self.min_replicas = min_replicas
         self.max_replicas = max_replicas
         self.behavior = behavior or HPABehavior()
+        #: called with (from, to) after each change of the target's replicas
+        self.on_scale = on_scale
         # Slice atomicity: on multi-host slices one logical replica is
         # ``hosts_per_slice`` pods, and a partial slice contributes zero
         # capacity (its hosts block at the process group's rendezvous), so
@@ -413,6 +443,7 @@ class HPAController:
                 f"replica_quantum={replica_quantum} pods"
             )
         self.replica_quantum = replica_quantum
+        self.resource_metrics = resource_metrics
         self.pod_lister = pod_lister
         self.namespace = namespace
         self.status = HPAStatus(current_replicas=target.replicas)
@@ -442,19 +473,31 @@ class HPAController:
 
     def _unavailable_reason(self) -> str:
         """Kubernetes' reason for "could not fetch the metric", by the type
-        of the first metric spec (FailedGet{Object,Pods,External}Metric, as
-        kube-controller-manager sets it on ScalingActive)."""
+        of the first metric spec (FailedGet{Object,Pods,Resource,External}Metric,
+        as kube-controller-manager sets it on ScalingActive)."""
         spec = self.metrics[0] if self.metrics else None
         if isinstance(spec, PodsMetricSpec):
             return "FailedGetPodsMetric"
+        if isinstance(spec, ResourceMetricSpec):
+            return "FailedGetResourceMetric"
         if isinstance(spec, ExternalMetricSpec):
             return "FailedGetExternalMetric"
         return "FailedGetObjectMetric"
 
     def _metric_proposal(self, spec: MetricSpec, current: int) -> int | None:
-        if self.adapter is None:
+        if isinstance(spec, ResourceMetricSpec):
+            # the metrics.k8s.io path: no adapter, the reader's per-pod percent
+            if self.resource_metrics is None:
+                return None
+            utils = self.resource_metrics.pod_utilizations(spec.resource)
+            if not utils:
+                return None
+            value = sum(utils) / len(utils)
+            self.status.last_metric_values[f"resource/{spec.resource}"] = value
+            target = spec.target_average_utilization
+        elif self.adapter is None:
             return None
-        if isinstance(spec, PodsMetricSpec):
+        elif isinstance(spec, PodsMetricSpec):
             if self.pod_lister is None:
                 return None
             pods = self.pod_lister.ready_pod_names()
@@ -646,6 +689,8 @@ class HPAController:
                 "AbleToScale", True, "SucceededRescale",
                 f"the HPA controller was able to update the target scale to {desired}",
             )
+            if self.on_scale:
+                self.on_scale(current, desired)
         return self.status
 
     def _prune_scale_events(self, now: float) -> None:

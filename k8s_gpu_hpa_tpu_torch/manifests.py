@@ -27,7 +27,11 @@ needs changes:
 
 ``python -m k8s_gpu_hpa_tpu_torch.manifests --out DIR`` writes
 ``default_bundle()`` as one YAML file each; ``render_pipeline`` renders a
-whole pipeline for any app, single-host or a StatefulSet of slices.
+whole pipeline for any app, single-host or a StatefulSet of slices.  The
+bundle also holds the CPU busy-loop and its Resource HPA, the JAX
+package's, unchanged.  ``to_yaml`` writes YAML and ``load_yaml`` /
+``load_yaml_all`` read the subset the shipped HPA files and ``to_yaml``
+use, so the port needs no YAML library.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     TRAIN_DUTY_SERIES,
     TRAIN_DUTY_TARGET,
     HPABehavior,
+    ScalingPolicy,
     ScalingRules,
     shipped_behavior,
     shipped_multihost_behavior,
@@ -177,6 +182,18 @@ def pods_metric(name: str, average_value: str) -> dict:
         "pods": {
             "metric": {"name": name},
             "target": {"type": "AverageValue", "averageValue": average_value},
+        },
+    }
+
+
+def resource_metric(name: str, average_utilization: int) -> dict:
+    """One Resource-type HPA metric entry: the pods' mean use of a resource,
+    percent of their request (metrics.k8s.io)."""
+    return {
+        "type": "Resource",
+        "resource": {
+            "name": name,
+            "target": {"type": "Utilization", "averageUtilization": average_utilization},
         },
     }
 
@@ -674,6 +691,46 @@ def _tpu_train_deployment() -> dict:
     )
 
 
+def _cpu_busyloop() -> dict:
+    """The rung without an accelerator: a shell busy-loop whose CPU use,
+    against its 500m request, a Resource HPA scales on.  It is the JAX
+    package's Deployment unchanged, as it asks for no device."""
+    return {
+        "apiVersion": "apps/v1",
+        "kind": "Deployment",
+        "metadata": {"name": "cpu-busyloop", "labels": {"app": "cpu-busyloop"}},
+        "spec": {
+            "selector": {"matchLabels": {"app": "cpu-busyloop"}},
+            "template": {
+                "metadata": {"labels": {"app": "cpu-busyloop"}},
+                "spec": {
+                    "containers": [
+                        {
+                            "name": "busyloop",
+                            "image": "busybox:1.36",
+                            "command": ["sh", "-c", "while :; do :; done"],
+                            "resources": {"requests": {"cpu": "500m"}, "limits": {"cpu": "1"}},
+                        }
+                    ]
+                },
+            },
+        },
+    }
+
+
+def cpu_busyloop_hpa_doc() -> dict:
+    """deploy/cpu-busyloop-hpa.yaml: the Resource metric on cpu at 60% of
+    the request, pods 1..4, the shipped behavior but for the scale-up's
+    Percent policy: 2 pods a 15 s period."""
+    behavior = shipped_behavior()
+    behavior.scale_up.policies = [ScalingPolicy("Pods", 2, 15.0)]
+    return hpa_manifest(
+        "cpu-busyloop",
+        metrics=[resource_metric("cpu", 60)],
+        behavior=behavior_doc(behavior),
+    )
+
+
 def multihost_service(name: str = "tpu-test-multihost") -> dict:
     return {
         "apiVersion": "v1",
@@ -765,8 +822,8 @@ def multihost_hpa(
 def default_bundle() -> dict[str, list[dict]]:
     """filename -> documents, for every manifest of the port's pipelines:
     the exporter, the Prometheus and adapter values, the PrometheusRule,
-    each of the five workloads with its HPA, and the serving fleet's
-    queue-depth HPA."""
+    each of the five workloads with its HPA, the serving fleet's
+    queue-depth HPA, and the CPU busy-loop with its Resource HPA."""
     return {
         "tpu-metrics-exporter.yaml": [exporter_daemonset(), exporter_service()],
         "kube-prometheus-stack-values.yaml": [prom_stack_values()],
@@ -813,6 +870,8 @@ def default_bundle() -> dict[str, list[dict]]:
                 MULTIHOST_MAX_REPLICAS // MULTIHOST_QUANTUM,
             )
         ],
+        "cpu-busyloop.yaml": [_cpu_busyloop()],
+        "cpu-busyloop-hpa.yaml": [cpu_busyloop_hpa_doc()],
     }
 
 
@@ -1017,6 +1076,344 @@ def to_yaml(docs: list[dict]) -> str:
         _emit(doc, 0, lines)
         texts.append("\n".join(lines) + "\n")
     return "---\n".join(texts)
+
+
+# ---------------------------------------------------------------------------
+# Reading YAML back: the subset the shipped HPA files and ``to_yaml`` use.
+
+#: YAML 1.1's implicit scalar types, as a safe loader resolves plain scalars
+_YAML_BOOL = re.compile(
+    r"yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF"
+)
+_YAML_NULL = re.compile(r"~|null|Null|NULL")
+_YAML_INT = re.compile(
+    r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)|[-+]?0x[0-9a-fA-F_]+"
+    r"|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+"
+)
+_YAML_FLOAT = re.compile(
+    r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)"
+)
+#: a plain scalar that a YAML 1.1 loader would read as a date or time
+_YAML_TIMESTAMP = re.compile(r"[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}")
+#: characters that cannot begin a plain scalar here: flow, anchor, alias,
+#: tag, block-scalar, directive and reserved indicators
+_YAML_INDICATORS = set("[]{},#&*!|>%@`")
+_YAML_ESCAPES = {
+    "0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v", "f": "\f",
+    "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85",
+    "_": "\xa0", "L": "\u2028", "P": "\u2029",
+}
+_YAML_HEX = {"x": 2, "u": 4, "U": 8}
+
+
+class _Line:
+    __slots__ = ("indent", "text", "no")
+
+    def __init__(self, indent: int, text: str, no: int):
+        self.indent, self.text, self.no = indent, text, no
+
+
+def _yaml_error(no: int, message: str) -> ValueError:
+    return ValueError(f"YAML line {no}: {message}")
+
+
+def _sexagesimal(text: str, cast):
+    value = cast(0)
+    for part in text.split(":"):
+        value = value * 60 + cast(part)
+    return value
+
+
+def _resolve_plain(text: str, no: int):
+    """A plain scalar's value by YAML 1.1's implicit types."""
+    if _YAML_NULL.fullmatch(text):
+        return None
+    if _YAML_BOOL.fullmatch(text):
+        return text.lower() in ("yes", "true", "on")
+    if _YAML_INT.fullmatch(text):
+        digits = text.replace("_", "")
+        sign = -1 if digits[0] == "-" else 1
+        digits = digits.lstrip("+-")
+        if digits == "0":
+            return 0
+        if digits.startswith("0b"):
+            return sign * int(digits[2:], 2)
+        if digits.startswith("0x"):
+            return sign * int(digits[2:], 16)
+        if digits.startswith("0"):
+            return sign * int(digits, 8)
+        if ":" in digits:
+            return sign * _sexagesimal(digits, int)
+        return sign * int(digits)
+    if _YAML_FLOAT.fullmatch(text):
+        digits = text.replace("_", "").lower()
+        sign = -1.0 if digits[0] == "-" else 1.0
+        digits = digits.lstrip("+-")
+        if digits == ".inf":
+            return sign * math.inf
+        if digits == ".nan":
+            return math.nan
+        if ":" in digits:
+            return sign * _sexagesimal(digits, float)
+        return sign * float(digits)
+    if _YAML_TIMESTAMP.match(text):
+        raise _yaml_error(no, f"timestamps are not supported: {text!r}")
+    if text in ("<<", "="):
+        raise _yaml_error(no, f"merge and value keys are not supported: {text!r}")
+    return text
+
+
+def _after_scalar(text: str, pos: int, no: int) -> None:
+    """Only blanks and a comment may follow a scalar on its line."""
+    rest = text[pos:]
+    if rest.strip() and not (rest.lstrip().startswith("#") and rest[:1] in (" ", "\t")):
+        raise _yaml_error(no, f"unexpected text after a scalar: {rest.strip()!r}")
+
+
+def _scan_quoted(text: str, pos: int, no: int) -> tuple[str, int]:
+    """The quoted scalar starting at ``pos`` and the index after its close."""
+    quote = text[pos]
+    out: list[str] = []
+    i = pos + 1
+    while i < len(text):
+        c = text[i]
+        if quote == "'":
+            if c == "'":
+                if text[i + 1:i + 2] == "'":
+                    out.append("'")
+                    i += 2
+                    continue
+                return "".join(out), i + 1
+        elif c == '"':
+            return "".join(out), i + 1
+        elif c == "\\":
+            code = text[i + 1:i + 2]
+            if code in _YAML_ESCAPES:
+                out.append(_YAML_ESCAPES[code])
+                i += 2
+                continue
+            width = _YAML_HEX.get(code)
+            digits = text[i + 2:i + 2 + width] if width else ""
+            if not width or len(digits) != width or any(
+                    d not in "0123456789abcdefABCDEF" for d in digits):
+                raise _yaml_error(
+                    no, f"unsupported escape in a double-quoted scalar: {text[i:i + 2]!r}"
+                )
+            out.append(chr(int(digits, 16)))
+            i += 2 + width
+            continue
+        out.append(c)
+        i += 1
+    raise _yaml_error(no, "a quoted scalar must close on its line")
+
+
+def _plain(text: str, no: int):
+    """A plain scalar that runs to the end of ``text`` (its comment cut)."""
+    if text[0] in _YAML_INDICATORS or (text[0] in "-?:" and text[1:2] in ("", " ")):
+        raise _yaml_error(no, f"unsupported construct: {text!r}")
+    cut = re.search(r"[ \t]#", text)
+    value = (text[:cut.start()] if cut else text).rstrip()
+    if ": " in value or value.endswith(":") or "\t" in value:
+        raise _yaml_error(no, f"a mapping is not allowed here: {value!r}")
+    return _resolve_plain(value, no)
+
+
+def _flow_sequence(text: str, no: int) -> tuple[list, int]:
+    """A one-line flow sequence of scalars, ``[a, "b", 3]``."""
+    items: list = []
+    i = 1
+    while True:
+        while text[i:i + 1] == " ":
+            i += 1
+        if text[i:i + 1] == "]" and not items:
+            return items, i + 1
+        if i >= len(text):
+            raise _yaml_error(no, "a flow sequence must close on its line")
+        if text[i] in "'\"":
+            value, i = _scan_quoted(text, i, no)
+        else:
+            m = re.compile(r"[^,\[\]{}#]*").match(text, i)
+            raw = m.group().rstrip()
+            if not raw or text[m.end():m.end() + 1] in ("[", "{", "#"):
+                raise _yaml_error(no, f"only scalars are supported in a flow sequence: {text!r}")
+            value, i = _plain(raw, no), m.end()
+        items.append(value)
+        while text[i:i + 1] == " ":
+            i += 1
+        if text[i:i + 1] == "]":
+            return items, i + 1
+        if text[i:i + 1] != ",":
+            raise _yaml_error(no, f"malformed flow sequence: {text!r}")
+        i += 1
+
+
+def _inline(text: str, no: int):
+    """The value written after ``key:`` or ``- `` on the same line."""
+    c = text[0]
+    if c in "'\"":
+        value, end = _scan_quoted(text, 0, no)
+    elif c == "[":
+        value, end = _flow_sequence(text, no)
+    elif c == "{":
+        m = re.match(r"\{ *\}", text)
+        if not m:
+            raise _yaml_error(no, f"flow mappings are not supported: {text!r}")
+        value, end = {}, m.end()
+    elif c in "|>":
+        raise _yaml_error(no, f"block scalars are not supported: {text!r}")
+    else:
+        return _plain(text, no)
+    _after_scalar(text, end, no)
+    return value
+
+
+def _split_key(text: str, no: int):
+    """``(key, rest)`` when the line is a mapping entry, else None."""
+    if text[0] in "'\"":
+        key, end = _scan_quoted(text, 0, no)
+        rest = text[end:].lstrip(" ")
+        if not rest.startswith(":") or rest[1:2] not in ("", " "):
+            return None
+        return key, rest[1:]
+    m = re.search(r":(?: |$)", text)
+    cut = re.search(r"(?:^|[ \t])#", text)
+    if m is None or (cut and cut.start() < m.start()):
+        return None
+    raw = text[:m.start()].rstrip()
+    if not raw:
+        raise _yaml_error(no, "an empty mapping key is not supported")
+    if raw[0] in "?" and raw[1:2] in ("", " "):
+        raise _yaml_error(no, "complex mapping keys are not supported")
+    key = _plain(raw, no)
+    if isinstance(key, (list, dict)):
+        raise _yaml_error(no, "a mapping key must be a scalar")
+    return key, text[m.start() + 1:]
+
+
+def _is_item(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def _empty(rest: str) -> bool:
+    rest = rest.strip()
+    return not rest or rest.startswith("#")
+
+
+def _block(lines: list[_Line], i: int, indent: int):
+    """The node whose first line is ``lines[i]``, at column ``indent``."""
+    line = lines[i]
+    if _is_item(line.text):
+        return _sequence(lines, i, indent)
+    if _split_key(line.text, line.no) is not None:
+        return _mapping(lines, i, indent)
+    value = _inline(line.text, line.no)
+    if i + 1 < len(lines) and lines[i + 1].indent > indent:
+        raise _yaml_error(lines[i + 1].no, "multi-line scalars are not supported")
+    return value, i + 1
+
+
+def _nested(lines: list[_Line], i: int, indent: int, allow_same_indent_items: bool):
+    """The block under a key or item whose inline value is empty: a more
+    indented block, a sequence at the key's own column, or null."""
+    if i < len(lines) and lines[i].indent > indent:
+        return _block(lines, i, lines[i].indent)
+    if allow_same_indent_items and i < len(lines) and lines[i].indent == indent \
+            and _is_item(lines[i].text):
+        return _sequence(lines, i, indent)
+    return None, i
+
+
+def _sequence(lines: list[_Line], i: int, indent: int):
+    items: list = []
+    while i < len(lines) and lines[i].indent == indent and _is_item(lines[i].text):
+        line = lines[i]
+        rest = line.text[1:]
+        if _empty(rest):
+            value, i = _nested(lines, i + 1, indent, False)
+        else:
+            stripped = rest.lstrip(" ")
+            col = indent + 1 + len(rest) - len(stripped)
+            # the item's content as a line of its own at its column, so that a
+            # mapping begun on the item's line takes the keys below it
+            lines[i] = _Line(col, stripped, line.no)
+            value, i = _block(lines, i, col)
+        items.append(value)
+    if i < len(lines) and lines[i].indent > indent:
+        raise _yaml_error(lines[i].no, "bad indentation")
+    return items, i
+
+
+def _mapping(lines: list[_Line], i: int, indent: int):
+    out: dict = {}
+    while i < len(lines) and lines[i].indent == indent and not _is_item(lines[i].text):
+        line = lines[i]
+        entry = _split_key(line.text, line.no)
+        if entry is None:
+            raise _yaml_error(line.no, f"expected a mapping entry: {line.text!r}")
+        key, rest = entry
+        if key in out:
+            raise _yaml_error(line.no, f"duplicate key {key!r}")
+        if _empty(rest):
+            value, i = _nested(lines, i + 1, indent, True)
+        else:
+            value = _inline(rest.lstrip(" "), line.no)
+            i += 1
+            if i < len(lines) and lines[i].indent > indent:
+                raise _yaml_error(lines[i].no, "multi-line scalars are not supported")
+        out[key] = value
+    if i < len(lines) and lines[i].indent > indent:
+        raise _yaml_error(lines[i].no, "bad indentation")
+    return out, i
+
+
+def _document(lines: list[_Line]):
+    if not lines:
+        return None
+    value, i = _block(lines, 0, lines[0].indent)
+    if i < len(lines):
+        raise _yaml_error(lines[i].no, "bad indentation")
+    return value
+
+
+def load_yaml_all(text: str) -> list:
+    """Every document of a YAML stream, as a safe loader reads them, for
+    the subset the shipped HPA files and ``to_yaml`` write: block mappings
+    and sequences (``- key: value`` items too), comments, plain and quoted
+    scalars with YAML 1.1's int, float, bool and null resolution (``"40"``
+    stays a string), one-line flow sequences of scalars, ``{}`` and ``[]``,
+    and ``---`` between documents.  Anything else raises ValueError naming
+    the line: the reader never guesses."""
+    docs: list[list[_Line]] = [[]]
+    explicit = False
+    for no, raw in enumerate(text.splitlines(), 1):
+        body = raw.lstrip(" ")
+        if not body.strip() or body.startswith("#"):
+            continue
+        if body[0] == "\t":
+            raise _yaml_error(no, "tabs are not allowed in indentation")
+        if raw.startswith("---") and (len(raw) == 3 or raw[3] in " \t"):
+            if not _empty(raw[3:]):
+                raise _yaml_error(no, "content on a '---' line is not supported")
+            if docs[-1] or explicit:
+                docs.append([])
+            explicit = True
+            continue
+        if raw.startswith(("...", "%")) and raw == body:
+            raise _yaml_error(no, "directives and document end markers are not supported")
+        docs[-1].append(_Line(len(raw) - len(body), body.rstrip(), no))
+    if not explicit and not docs[0]:
+        return []
+    return [_document(lines) for lines in docs]
+
+
+def load_yaml(text: str):
+    """The one document of a YAML stream (None for an empty stream); see
+    ``load_yaml_all`` for what it reads."""
+    docs = load_yaml_all(text)
+    if len(docs) > 1:
+        raise ValueError(f"expected one YAML document, found {len(docs)}")
+    return docs[0] if docs else None
 
 
 def main(argv: list[str] | None = None) -> int:

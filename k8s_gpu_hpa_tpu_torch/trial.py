@@ -57,7 +57,10 @@ traffic), and ends at the scale-up.  The External rung
 (``run_external_queue_trial``, the counterpart of bench.py's
 ``run_rung_external_queue``) runs the shipped queue-depth HPA on a virtual
 clock over ``control/external_sim.py``; ``QueueJoint`` is that HPA's path
-on a node, around a serving container that runs as its own process.
+on a node, around a serving container that runs as its own process.  The
+cpu rung (``run_cpu_resource_trial``, bench.py's ``run_rung_cpu_resource``)
+scales the CPU busy-loop under the shipped Resource HPA on a virtual clock,
+over the simulated cluster of ``control/cluster.py``.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -94,6 +97,7 @@ from k8s_gpu_hpa_tpu_torch.control.adapter import (
     ExternalRule,
     ObjectReference,
 )
+from k8s_gpu_hpa_tpu_torch.control.cluster import SimCluster, SimDeployment, SimResourceMetrics
 from k8s_gpu_hpa_tpu_torch.control.external_sim import ScaleTarget, external_sim_from_manifest
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
     HBM_APP,
@@ -109,6 +113,7 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     HPAController,
     ObjectMetricSpec,
     PodsMetricSpec,
+    ResourceMetricSpec,
     behavior_from_manifest,
     hbm_metrics,
     metrics_from_manifest,
@@ -123,7 +128,7 @@ from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttrib
 from k8s_gpu_hpa_tpu_torch.exporter.selfreport import SelfReportReader
 from k8s_gpu_hpa_tpu_torch.exporter.sources import MetricsSource, NvmlSource, TorchDeviceSource
 from k8s_gpu_hpa_tpu_torch.loadgen.telemetry import TelemetryWriter
-from k8s_gpu_hpa_tpu_torch.manifests import external_hpa_doc
+from k8s_gpu_hpa_tpu_torch.manifests import external_hpa_doc, load_yaml
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import encode_text
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     SERVE_BW_TARGET,
@@ -1293,6 +1298,65 @@ def run_external_queue_trial() -> QueueResult:
             return result
         sim.clock.advance(1.0)
     raise RuntimeError(f"the queue HPA never reached {need} replicas: {result.syncs}")
+
+
+#: the shipped manifests, read as an operator would apply them
+DEPLOY = Path(__file__).resolve().parent.parent / "deploy"
+#: bench.py's cpu rung: the busy-loop's load before and after the spike at
+#: 30 s, percent of a pod's CPU request
+CPU_BASE = 20.0
+CPU_SPIKE = 100.0
+CPU_SPIKE_AT = 30.0
+
+
+@dataclass
+class ResourceResult:
+    scale_up_s: float
+    replicas_reached: int
+
+
+def run_cpu_resource_trial() -> ResourceResult:
+    """bench.py's ``0_cpu_resource`` rung on a virtual clock: the shipped
+    Resource HPA (deploy/cpu-busyloop-hpa.yaml, read with ``load_yaml``)
+    over the simulated cluster's metrics.k8s.io stand-in.  Pods claim no
+    device and start in 3 s; each busy-loop replica runs at the offered
+    load (20%, then 100% of its request from 30 s); the HPA syncs every
+    15 s.  Times the spike to every replica of ``maxReplicas`` running,
+    stepping the clock 0.5 s.  Raises RuntimeError when that does not
+    happen within 400 s."""
+    hpa_doc = load_yaml((DEPLOY / "cpu-busyloop-hpa.yaml").read_text())
+    (metric,) = metrics_from_manifest(hpa_doc)
+    if not isinstance(metric, ResourceMetricSpec):
+        raise ValueError(f"the cpu rung needs a Resource metric, not {metric}")
+    clock = VirtualClock()
+    cluster = SimCluster(clock, nodes=[("node-0", 0)], pod_start_latency=3.0)
+    dep = SimDeployment(
+        cluster, "cpu-busyloop", "cpu-busyloop", chips_per_pod=0,
+        load_fn=lambda t: CPU_SPIKE if t >= CPU_SPIKE_AT else CPU_BASE, load_mode="per_pod",
+    )
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(5.0)
+    max_replicas = hpa_doc["spec"]["maxReplicas"]
+    hpa = HPAController(
+        target=dep,
+        metrics=[metric],
+        adapter=None,
+        clock=clock,
+        min_replicas=hpa_doc["spec"]["minReplicas"],
+        max_replicas=max_replicas,
+        behavior=behavior_from_manifest(hpa_doc),
+        resource_metrics=SimResourceMetrics(cluster, dep.name),
+    )
+    next_sync = 15.0
+    while clock.now() < 400.0:
+        if clock.now() >= next_sync:
+            hpa.sync_once()
+            next_sync += 15.0
+        if (clock.now() >= CPU_SPIKE_AT and dep.replicas == max_replicas
+                and len(cluster.running_pods(dep.name)) == max_replicas):
+            return ResourceResult(round(clock.now() - CPU_SPIKE_AT, 1), max_replicas)
+        clock.advance(0.5)
+    raise RuntimeError(f"the cpu rung never reached {max_replicas} replicas")
 
 
 class QueueJoint:

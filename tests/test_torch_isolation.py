@@ -78,6 +78,10 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.doctor",
         "k8s_gpu_hpa_tpu_torch.control.external_sim",
         "k8s_gpu_hpa_tpu_torch.utils.quantity",
+        "k8s_gpu_hpa_tpu_torch.control.cluster",
+        "k8s_gpu_hpa_tpu_torch.control.loop",
+        "k8s_gpu_hpa_tpu_torch.simulate",
+        "k8s_gpu_hpa_tpu_torch.__main__",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -164,7 +168,7 @@ def test_running_the_deploy_side_and_the_slice_loop_loads_no_jax():
     )
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
     assert {"k8s_gpu_hpa_tpu_torch.manifests", "k8s_gpu_hpa_tpu_torch.doctor"} <= set(loaded)
-    # the generator writes its YAML itself: the GPU machine has no PyYAML
+    # the generator writes its YAML itself: the port imports no YAML library
     assert "yaml" not in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -202,6 +206,26 @@ def test_running_the_pods_and_external_paths_loads_no_jax_or_yaml():
     assert {"k8s_gpu_hpa_tpu_torch.control.external_sim",
             "k8s_gpu_hpa_tpu_torch.utils.quantity"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m == "yaml"] == []
+
+
+def test_the_simulate_command_loads_no_jax_yaml_or_torch():
+    """``python -m k8s_gpu_hpa_tpu_torch simulate --scenario spike`` as a
+    user runs it, in a fresh interpreter: its report, exit 0, and the
+    interpreter's import log (``-X importtime``) names neither JAX, the JAX
+    package, PyYAML nor torch: the command reads the manifest with the
+    port's own YAML reader and runs on the host alone."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", "simulate",
+         "--scenario", "spike"],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert "scale-up latency (signal crossing -> all replicas running): 45s" in proc.stdout
+    imported = {line.rsplit("|", 1)[1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line}
+    assert "k8s_gpu_hpa_tpu_torch.simulate" in imported
+    assert "k8s_gpu_hpa_tpu_torch.control.loop" in imported
+    heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch")]
+    assert heavy == []
 
 
 def test_no_port_source_names_jax_or_the_jax_package():

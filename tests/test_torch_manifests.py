@@ -112,6 +112,7 @@ def test_the_bundle_holds_the_jax_bundle_s_manifests_of_the_port_s_pipelines():
           for kind in ("deployment", "hpa")),
         "tpu-test-v5e8-deployment.yaml", "tpu-test-hbm-hpa.yaml", "tpu-test-external-hpa.yaml",
         "tpu-test-multihost.yaml", "tpu-test-multihost-hpa.yaml",
+        "cpu-busyloop.yaml", "cpu-busyloop-hpa.yaml",
     }
     for name, docs in port.items():
         assert [d.get("kind") for d in docs] == [d.get("kind") for d in ref[name]]
@@ -151,8 +152,10 @@ def test_each_entry_the_port_renders_of_a_list_is_jax_s_entry(path):
 
 def test_the_gpu_values_are_the_ones_a_gpu_node_needs():
     bundle = manifests.default_bundle()
+    # every workload but the CPU busy-loop, which asks for no device
     workloads = [d for name, docs in bundle.items() for d in docs
-                 if d.get("kind") in ("Deployment", "StatefulSet", "DaemonSet")]
+                 if d.get("kind") in ("Deployment", "StatefulSet", "DaemonSet")
+                 and d["metadata"]["name"] != "cpu-busyloop"]
     for doc in workloads:
         pod = doc["spec"]["template"]["spec"]
         assert pod["nodeSelector"] == {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
@@ -344,13 +347,16 @@ def test_the_adapter_values_are_jax_s_with_the_pod_and_external_rules():
     assert "tpu_test_hbm_bw_avg" in groups["tpu-test"]
 
 
-@pytest.mark.parametrize("value", [
+AWKWARD = [
     "yes", "No", "ON", "off", "true", "null", "~", "8192", "1x1", "", " lead", "trail ",
     "a: b", "- x", "#c", "key: [1]", ".inf", ".5", "1e3", "0x1F", "$(POD_NAMESPACE)_$(POD_NAME)",
     "line\nbreak", 'quote"s', "back\\slash", "ü", "@at", "*star", "&amp", "!tag", "%pct",
     1.5, 1e20, 1e-05, -0.0, 0, -7, True, False, None, float("inf"), [], {}, [[1, "a"], []],
     [{"k": "v", "n": [1, 2]}, {}],
-])
+]
+
+
+@pytest.mark.parametrize("value", AWKWARD)
 def test_to_yaml_round_trips_awkward_values(value):
     doc = {"value": value, "nested": {"list": [value, {"inner": value}]}, value_key(value): 1}
     assert yaml.safe_load(manifests.to_yaml([doc])) == doc
@@ -359,3 +365,87 @@ def test_to_yaml_round_trips_awkward_values(value):
 def value_key(value) -> str:
     """A mapping key made of the value, where the value can be a key."""
     return value if isinstance(value, str) and value else "plain-key"
+
+
+def test_the_cpu_busyloop_pair_is_jax_s_and_the_shipped_manifests():
+    """The rung without an accelerator: JAX's Deployment and Resource HPA,
+    leaf by leaf (no GPU path applies), and the files in deploy/."""
+    port, ref = manifests.default_bundle(), jax_manifests.default_bundle()
+    for name in ("cpu-busyloop.yaml", "cpu-busyloop-hpa.yaml"):
+        assert _differences({name: port[name]}, {name: ref[name]}) == []
+        assert port[name] == list(yaml.safe_load_all((DEPLOY / name).read_text()))
+    assert port["cpu-busyloop-hpa.yaml"] == [manifests.cpu_busyloop_hpa_doc()]
+
+
+HPA_FILES = sorted(p.name for p in DEPLOY.glob("*-hpa.yaml"))
+
+
+@pytest.mark.parametrize("name", HPA_FILES)
+def test_load_yaml_reads_each_shipped_hpa_as_a_safe_loader_does(name):
+    text = (DEPLOY / name).read_text()
+    assert manifests.load_yaml_all(text) == list(yaml.safe_load_all(text))
+    assert manifests.load_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("name", sorted(manifests.default_bundle()))
+def test_load_yaml_reads_back_each_file_of_the_bundle(name):
+    text = manifests.to_yaml(manifests.default_bundle()[name])
+    assert manifests.load_yaml_all(text) == list(yaml.safe_load_all(text))
+
+
+def _alike(a, b) -> bool:
+    """Equal, with NaN equal to NaN and types compared."""
+    if isinstance(a, float) and isinstance(b, float) and a != a and b != b:
+        return True
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_alike(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_alike(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("value", AWKWARD + [float("nan"), "2020-1-1x", "tab\there"])
+def test_load_yaml_reads_to_yaml_s_awkward_values_back(value):
+    doc = {"value": value, "nested": {"list": [value, {"inner": value}]}, value_key(value): 1}
+    text = manifests.to_yaml([doc])
+    assert _alike(manifests.load_yaml(text), yaml.safe_load(text))
+
+
+#: streams a safe loader reads, in the block style of hand-written manifests
+STREAMS = [
+    "a: 1\n---\n", "---\n---\na: 1\n", "", "# only a comment\n", "word\n", "- a\n- b\n",
+    "k:\n- a\n- b\nj: 2\n", "a: 'it''s'  # trailing\n", 'a: "x\\ty\\u00e9"\n',
+    "a: [1, 'b', c d, 2.5, \"q\"]  # flow\n", "a: 017\nb: 1_000\nc: 1:30\nd: -0\ne: +.inf\nf: 0b101\n",
+    "- - a\n  - b\n- c\n", "-\n  - a\n", "a:\n  b:\n    c: 1\n  d: 2\ne: 3\n", "a: { }\nb: []\n",
+    "key with spaces: v\n", '"quoted key": v\n', "- a: 1\n  b: 2\n- c: 3\n",
+    "a: b # c: d\n", "a: b#c\n", "- x#y # z\n", "a: http://x:80/y\n", "a:\n\n  b: 1\n",
+    "v: Yes\nw: NULL\nx: ~\ny: .NaN\n",
+]
+
+
+@pytest.mark.parametrize("text", STREAMS)
+def test_load_yaml_all_reads_each_stream_as_a_safe_loader_does(text):
+    assert _alike(manifests.load_yaml_all(text), list(yaml.safe_load_all(text)))
+
+
+#: what the reader does not support; each raises ValueError with a line number
+UNSUPPORTED = [
+    "a: |\n  block\n", "a: >-\n  folded\n", "a: {b: 1}\n", "a: &anchor 1\n", "a: *alias\n",
+    "a: !tag 1\n", "? complex\n", "a: x\n  continued\n", "a: 2001-12-14\n", "a: [1, [2]]\n",
+    "a: [1, 2\n", "a: 'open\n", "a: 1\na: 2\n", "a: b: c\n", "\ta: 1\n", "%YAML 1.1\n---\na: 1\n",
+    "a: 1\n...\n", "--- a: 1\n", "a:\n  - 1\n b: 2\n", 'a: "bad \\q escape"\n', "<<: x\n",
+]
+
+
+@pytest.mark.parametrize("text", UNSUPPORTED)
+def test_load_yaml_refuses_what_it_does_not_support(text):
+    with pytest.raises(ValueError, match="YAML line [0-9]+: "):
+        manifests.load_yaml_all(text)
+
+
+def test_load_yaml_wants_one_document():
+    with pytest.raises(ValueError, match="one YAML document"):
+        manifests.load_yaml("a: 1\n---\nb: 2\n")
+    assert manifests.load_yaml("") is None

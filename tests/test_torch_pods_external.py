@@ -5,7 +5,7 @@ Pods loop.
 
 - ``parse_quantity`` over the quantity grammar, value for value.
 - ``metrics_from_manifest`` and ``behavior_from_manifest`` on every shipped
-  HPA manifest, field for field; a Resource metric raises in the port only.
+  HPA manifest, field for field, the Resource metric of the cpu rung too.
 - Each Pods and External case of the JAX package's own tests through both
   controllers: the same adapter values, decisions, ``last_reason``,
   ``last_metric_values``, conditions and condition histories, exactly.
@@ -101,11 +101,9 @@ def test_manifest_parsers_are_jax_s_on_every_shipped_hpa(name):
         jax_hpa.behavior_from_manifest(doc))
     ref = jax_hpa.metrics_from_manifest(doc)
     if any(m["type"] == "Resource" for m in doc["spec"]["metrics"]):
-        # the port has no metrics.k8s.io reader: Resource raises, JAX parses
-        assert any(isinstance(m, jax_hpa.ResourceMetricSpec) for m in ref)
-        with pytest.raises(ValueError, match="Resource metric"):
-            hpa.metrics_from_manifest(doc)
-        return
+        # the cpu rung's Resource metric, which the port now reads as JAX does
+        assert [type(m).__name__ for m in hpa.metrics_from_manifest(doc)] == [
+            "ResourceMetricSpec"]
     assert [_fields(m) for m in hpa.metrics_from_manifest(doc)] == [_fields(m) for m in ref]
     assert [_fields(m) for m in hpa.metrics_from_manifest(doc, "prod")] == [
         _fields(m) for m in jax_hpa.metrics_from_manifest(doc, "prod")]
