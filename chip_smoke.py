@@ -289,6 +289,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    set to 0 before it and read after: it launches none.
                    Whether PyYAML is installed there is reported; the
                    port never imports it.
+41. trace        — the tracing plane, in this process: the signal-latency
+                   rung (trial.signal_latency_run, the traced pipeline of
+                   bench.py's run_rung_signal_latency) must give the JAX
+                   package's dict: 3 of 3 load steps scaled, sync and scale
+                   latency p50 = p95 = 15.0 s within the 60 s budget, 2162
+                   spans, 5 replicas, and no SLO burn-rate alert may fire at
+                   any second of that clean run; its self-metrics, read from
+                   its TSDB as an instant-query payload, must pass
+                   doctor.check_self_metrics.  Then the traced spike on
+                   deploy/tpu-test-hpa.yaml (read with load_yaml) must give
+                   the JAX package's span counts, every scale event's
+                   lineage must reach the exporter sweeps, and the trace
+                   must come back from a JSONL file unchanged.  The spans by
+                   kind, the propagation report and each scale event's hops
+                   are printed.  The kernels' counts are set to 0 before it
+                   and read after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -403,6 +419,14 @@ from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import simulate, trial
+from k8s_gpu_hpa_tpu_torch.doctor import check_self_metrics
+from k8s_gpu_hpa_tpu_torch.obs import (
+    SELF_METRIC_NAMES,
+    index_spans,
+    lineage_of,
+    propagation_report,
+    read_jsonl,
+)
 from k8s_gpu_hpa_tpu_torch.control.hpa import metrics_from_manifest
 from k8s_gpu_hpa_tpu_torch.manifests import default_bundle, load_yaml, load_yaml_all, to_yaml
 from k8s_gpu_hpa_tpu_torch.trial import (
@@ -3521,6 +3545,93 @@ def phase_simulate(headline: tuple[float, float], serve: tuple[float, float]) ->
     return out
 
 
+#: the signal-latency rung as the JAX package gives it (bench.py's
+#: run_rung_signal_latency on a virtual clock, so exact)
+SIGNAL_LATENCY_EXPECTED = {
+    "changes_total": 3, "changes_scaled": 3,
+    "sync_latency_p50_s": 15.0, "sync_latency_p95_s": 15.0,
+    "scale_latency_p50_s": 15.0, "scale_latency_p95_s": 15.0,
+    "budget_s": 60.0, "within_budget": True, "trace_spans": 2162, "final_replicas": 5,
+}
+#: the traced spike's spans by kind on deploy/tpu-test-hpa.yaml, the JAX
+#: package's (simulate.run_scenario(..., trace=True), 420 s)
+TRACE_SPIKE_SPANS = {
+    "scrape": 1680, "exporter_sample": 840, "rule_eval": 420, "adapter_query": 28,
+    "hpa_sync": 28, "scale_event": 2, "workload_change": 1,
+}
+
+
+def _self_metrics_payload(pipe) -> str:
+    """The pipeline's self-metric series as Prometheus answers
+    ``SELF_METRICS_QUERY``: an instant-query payload read from its TSDB."""
+    now = pipe.clock.now()
+    results = [
+        {"metric": {"__name__": name, **dict(sample.labels)}, "value": [now, str(sample.value)]}
+        for name in SELF_METRIC_NAMES
+        for sample in pipe.db.instant_vector(name)
+    ]
+    return json.dumps({"status": "success", "data": {"result": results}})
+
+
+def phase_trace() -> dict:
+    """The tracing plane: the signal-latency rung, its SLO alerts and
+    self-metrics, and the traced spike's spans, lineages and JSONL round
+    trip (the module docstring, phase 41, has the bars)."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = trial.signal_latency_run()
+    rung = trial.signal_latency_rung(run.pipe)
+    self_metrics = check_self_metrics(_self_metrics_payload(run.pipe))
+    report = simulate.run_scenario(
+        load_yaml((trial.DEPLOY / "tpu-test-hpa.yaml").read_text()), "spike", trace=True
+    )
+    tracer, base = report.tracer, report.trace_base
+    kinds: dict[str, int] = {}
+    for span in tracer.spans:
+        kinds[span.kind] = kinds.get(span.kind, 0) + 1
+    by_id = index_spans(tracer.spans)
+    lineages = []
+    for event in tracer.spans_of("scale_event"):
+        lin = lineage_of(event, by_id)
+        lineages.append({
+            "span_id": event.span_id, "t": event.start - base,
+            "from": event.attrs["from_replicas"], "to": event.attrs["to_replicas"],
+            "complete": lin["complete"],
+            "hops": [[h["kind"], len(h["span_ids"]), h["first_ts"] - base, h["last_ts"] - base]
+                     for h in lin["hops"]],
+        })
+    prop = propagation_report(tracer.spans)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.jsonl"
+        written = tracer.write_jsonl(path)
+        round_trip = [s.as_dict() for s in read_jsonl(path)] == [s.as_dict() for s in tracer.spans]
+    wall = time.perf_counter() - t0
+    out = {
+        "phase": "trace", "signal_latency": rung, "slo_alerts_fired": run.fired,
+        "self_metrics": self_metrics, "spike_spans_by_kind": kinds,
+        "spike_propagation": {k: v for k, v in prop.items() if k != "changes"},
+        "spike_changes": prop["changes"], "spike_lineages": lineages,
+        "jsonl_spans": written, "jsonl_round_trip": round_trip,
+        "kernel_launches": _kernel_counts(), "wall_s": wall,
+    }
+    emit(out)
+    got = {k: rung[k] for k in SIGNAL_LATENCY_EXPECTED}
+    if got != SIGNAL_LATENCY_EXPECTED:
+        raise AssertionError(f"the signal-latency rung differs from the JAX package's: {got}")
+    if run.fired:
+        raise AssertionError(f"SLO alerts fired on a clean run: {run.fired}")
+    if kinds != TRACE_SPIKE_SPANS:
+        raise AssertionError(f"the traced spike's spans differ from the JAX package's: {kinds}")
+    if not lineages or not all(lin["complete"] for lin in lineages):
+        raise AssertionError(f"a scale event's lineage is incomplete: {lineages}")
+    if not round_trip:
+        raise AssertionError("the trace changed on its JSONL round trip")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the tracing plane launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -3622,6 +3733,7 @@ def main() -> int:
         phase_hbm_pods_loop()
         queue = phase_queue_external(work_dir)
     phase_simulate((dwell_mfu_pct, loop_scale_up_s), (serve_saturated_pct, serve_scale_up_s))
+    phase_trace()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

@@ -28,7 +28,8 @@ trials (the slice trial scales a StatefulSet of multi-host slices in whole
 slices); ``chip_smoke.py`` at the repository root drives them on the card.
 On a virtual clock, ``control/cluster.py`` simulates the cluster (nodes,
 pod lifecycle, node exporters, kube-state-metrics, faults),
-``control/loop.py`` assembles the five layers over it, and ``simulate.py``
+``control/loop.py`` assembles the five layers over it (traced, with its
+self-metrics and SLO burn-rate alerts, by ``obs/``), and ``simulate.py``
 plays a load scenario against a shipped HPA manifest
 (``python -m k8s_gpu_hpa_tpu_torch simulate``, the CLI umbrella of
 ``__main__.py``).  The deploy side: ``manifests.py`` renders the GPU

@@ -10,12 +10,14 @@ for this, cuda-test-prometheusrule.yaml:14-16), and serve instant values on
 the two aggregated APIs the HPA polls: ``custom.metrics.k8s.io/v1beta1``
 (Object and Pods metrics) and ``external.metrics.k8s.io/v1beta1`` (External
 metrics, addressed by name and label selector within a namespace).  Every
-read is a plain ``instant_vector`` of the TSDB: tracing and the query
-planner are not ported.
+read is a plain ``instant_vector`` of the TSDB; with a tracer each query
+emits an ``adapter_query`` span linked to the origins of the points it read.
+The query planner is not ported.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
@@ -76,10 +78,43 @@ class CustomMetricsAdapter:
         db: TimeSeriesDB,
         rules: list[AdapterRule],
         external_rules: list[ExternalRule] | None = None,
+        tracer=None,
+        selfmetrics=None,
     ):
         self.db = db
         self.rules = {r.metric_name: r for r in rules}
         self.external_rules = {r.metric_name: r for r in (external_rules or [])}
+        #: obs.Tracer: every query emits an ``adapter_query`` span
+        self.tracer = tracer
+        #: obs.PipelineSelfMetrics: the query-duration histogram, each
+        #: observation's exemplar the query's span
+        self.selfmetrics = selfmetrics
+
+    def _traced(self, api: str, metric: str, query, found):
+        """Run ``query`` under an ``adapter_query`` span whose links are the
+        origins of every point it read (the TSDB's read capture); ``found``
+        maps the result to the span's served-or-empty flag."""
+        if self.tracer is None:
+            return query()
+        span = self.tracer.open("adapter_query", {"api": api, "metric": metric})
+        self.db.begin_capture()
+        wall_start = time.perf_counter()
+        ok = False
+        result = None
+        try:
+            result = query()
+            ok = found(result)
+            return result
+        finally:
+            duration = time.perf_counter() - wall_start
+            reads = self.db.end_capture()
+            links = tuple({r[4] for r in reads if r[4] is not None})
+            attrs: dict = {"found": ok, "duration_seconds": duration}
+            if ok and isinstance(result, (int, float)):
+                attrs["value"] = float(result)
+            self.tracer.close(span, links, **attrs)
+            if self.selfmetrics is not None:
+                self.selfmetrics.observe_adapter_query(duration, span.span_id)
 
     def list_metrics(self) -> list[str]:
         """Discovery on ``custom.metrics.k8s.io``: the names whose series
@@ -102,6 +137,14 @@ class CustomMetricsAdapter:
         Staleness falls out of the TSDB lookback window — a dead pipeline stops
         answering, which makes the HPA hold its last decision (K8s semantics for
         failed metric queries)."""
+        return self._traced(
+            "object",
+            metric_name,
+            lambda: self._object_metric(ref, metric_name),
+            lambda r: r is not None,
+        )
+
+    def _object_metric(self, ref: ObjectReference, metric_name: str) -> float | None:
         rule = self.rules.get(metric_name)
         if rule is None:
             return None
@@ -132,6 +175,16 @@ class CustomMetricsAdapter:
         rule must map a label to ``Pod`` (the series' ``pod`` label).  Pods
         with no fresh series are absent from the result: the HPA's
         missing-pod rule decides what that means."""
+        return self._traced(
+            "pods",
+            metric_name,
+            lambda: self._pods_metric(namespace, metric_name, pod_names),
+            lambda r: bool(r),
+        )
+
+    def _pods_metric(
+        self, namespace: str, metric_name: str, pod_names: list[str]
+    ) -> dict[str, float]:
         rule = self.rules.get(metric_name)
         if rule is None:
             return {}
@@ -160,6 +213,16 @@ class CustomMetricsAdapter:
         """Every value of an External metric in ``namespace`` that matches
         the label selector: ``external.metrics.k8s.io`` returns a list, and
         the HPA sums it."""
+        return self._traced(
+            "external",
+            metric_name,
+            lambda: self._external_metric(namespace, metric_name, selector),
+            lambda r: bool(r),
+        )
+
+    def _external_metric(
+        self, namespace: str, metric_name: str, selector: dict[str, str] | None = None
+    ) -> list[float]:
         rule = self.external_rules.get(metric_name)
         if rule is None:
             return []

@@ -28,8 +28,9 @@ The device model of ``_NodeExporter._collect`` is the JAX package's, number
 for number, so both packages serve the same series: it models the shipped
 HPA contract, not a measured card.
 
-The JAX module's tracer (``exporter_sample`` spans) and capacity scheduler
-hook are not ported.
+With a tracer (``obs/trace.py``), each fresh collection sweep of a node
+exporter emits an ``exporter_sample`` span, the root of every metric
+lineage.  The JAX module's capacity scheduler hook is not ported.
 """
 
 from __future__ import annotations
@@ -173,6 +174,10 @@ class _NodeExporter:
         self._families: list[MetricFamily] | None = None
         self._text: str | None = None
         self._last_sample = -float("inf")
+        #: span id of the sweep behind the current cache: the lineage root a
+        #: scrape of this exporter links to (a cache hit keeps the old id,
+        #: since the data is that old)
+        self.last_span_id: int | None = None
 
     def _refresh(self) -> None:
         now = self.cluster.clock.now()
@@ -180,6 +185,11 @@ class _NodeExporter:
             self._families = self._collect()
             self._text = None
             self._last_sample = now
+            if self.cluster.tracer is not None:
+                self.last_span_id = self.cluster.tracer.emit(
+                    "exporter_sample",
+                    {"node": self.node.name, "chips": self.node.num_chips},
+                ).span_id
 
     def fetch(self) -> str:
         self._refresh()
@@ -229,8 +239,12 @@ class SimCluster:
         nodes: list[tuple[str, int]] | None = None,
         pod_start_latency: float = 12.0,
         exporter_sample_interval: float = 1.0,
+        tracer=None,
     ):
         self.clock = clock
+        #: obs.Tracer, or None; settable after construction (control/loop.py
+        #: wires it in)
+        self.tracer = tracer
         self.nodes = {
             name: SimNode(name, chips) for name, chips in (nodes or [("tpu-node-0", 8)])
         }
@@ -432,6 +446,11 @@ class SimCluster:
         if not self.nodes[node_name].ready:
             raise ConnectionError(f"node {node_name} is down (preempted)")
         return self.exporters[node_name].fetch_families()
+
+    def exporter_sample_span(self, node_name: str) -> int | None:
+        """Span id of the sweep behind the node exporter's current cache
+        (the provider of ``ScrapeTarget.trace_origin``)."""
+        return self.exporters[node_name].last_span_id
 
     def kube_state_metrics_families(self) -> list[MetricFamily]:
         """``kube_pod_labels`` and the one-hot ``kube_pod_status_phase`` of

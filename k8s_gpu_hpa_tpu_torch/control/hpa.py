@@ -26,8 +26,11 @@ multi-host slices replicas move in whole slices (``replica_quantum``, read
 from the HPA's ``k8s-tpu-hpa/replica-quantum`` annotation by
 ``quantum_from_manifest``).
 
-Tracing, self-metrics, checkpoints and the capacity conditions are not
-ported.  ``behavior_from_manifest`` and
+With a tracer, each sync emits an ``hpa_sync`` span linked to the
+``adapter_query`` spans it issued and, when replicas change, a
+``scale_event`` span; with self-metrics it reports its duration, its
+decision and each change's signal-propagation latency.  Checkpoints and the
+capacity conditions are not ported.  ``behavior_from_manifest`` and
 ``metrics_from_manifest`` parse an HPA manifest given as a dict; the shipped
 manifests' values are also written in code here (``shipped_behavior()``,
 ``train_metrics()``, ``hbm_metrics()``, the ``MULTIHOST_*``, ``HBM_*`` and
@@ -37,6 +40,7 @@ manifests' values are also written in code here (``shipped_behavior()``,
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Protocol
 
@@ -421,6 +425,8 @@ class HPAController:
         resource_metrics: ResourceMetricsReader | None = None,
         pod_lister: PodLister | None = None,
         namespace: str = "default",
+        tracer=None,
+        selfmetrics=None,
     ):
         self.target = target
         self.metrics = metrics
@@ -446,6 +452,11 @@ class HPAController:
         self.resource_metrics = resource_metrics
         self.pod_lister = pod_lister
         self.namespace = namespace
+        #: obs.Tracer: each sync emits an ``hpa_sync`` span, each change of
+        #: replicas a ``scale_event`` span
+        self.tracer = tracer
+        #: obs.PipelineSelfMetrics: sync durations, decisions, propagation
+        self.selfmetrics = selfmetrics
         self.status = HPAStatus(current_replicas=target.replicas)
         #: (ts, type, status, reason) at every change of a condition's
         #: status or reason (a real HPA keeps only the latest condition)
@@ -460,6 +471,8 @@ class HPAController:
         #: clock time of the last sync that computed a replica count
         #: (ScalingActive true)
         self.last_good_sync_at: float | None = None
+        #: the workload_change span whose propagation was last observed
+        self._propagation_seen: int | None = None
 
     def _set_condition(self, type_: str, status: bool, reason: str, message: str = "") -> None:
         now = self.clock.now()
@@ -611,7 +624,65 @@ class HPAController:
         return stabilized
 
     def sync_once(self) -> HPAStatus:
-        """One sync pass of the v2 algorithm."""
+        """One sync pass.  Untraced, this is the v2 algorithm
+        (``_sync_inner``) alone; traced, the pass runs inside an ``hpa_sync``
+        span that links the adapter_query spans it issued (a tracer scope)
+        and, when replicas change, is followed by a ``scale_event`` span, the
+        start of every lineage walk."""
+        if self.tracer is None and self.selfmetrics is None:
+            return self._sync_inner()
+        before = self.target.replicas
+        wall_start = time.perf_counter()
+        span = None
+        if self.tracer is not None:
+            span = self.tracer.open("hpa_sync")
+            self.tracer.push_scope()
+        try:
+            status = self._sync_inner()
+        finally:
+            children = self.tracer.pop_scope() if self.tracer is not None else ()
+        duration = time.perf_counter() - wall_start
+        if self.selfmetrics is not None:
+            self.selfmetrics.observe_sync(
+                duration, status.last_reason, None if span is None else span.span_id
+            )
+        if span is not None:
+            self.tracer.close(
+                span,
+                children,
+                reason=status.last_reason,
+                current_replicas=before,
+                desired_replicas=status.desired_replicas,
+                duration_seconds=duration,
+            )
+            after = self.target.replicas
+            if after != before:
+                event = self.tracer.emit(
+                    "scale_event",
+                    {"from_replicas": before, "to_replicas": after},
+                    links=(span.span_id,),
+                )
+                self._observe_propagation(event)
+        return status
+
+    def _observe_propagation(self, event) -> None:
+        """The first scale event after each workload_change observes the
+        signal-propagation latency (clock seconds) into the self-metrics
+        histogram, exemplared with the scale_event span: the live
+        counterpart of ``obs/latency.propagation_report``."""
+        if self.selfmetrics is None:
+            return
+        changes = self.tracer.spans_of("workload_change")
+        if not changes:
+            return
+        change = changes[-1]
+        if change.span_id == self._propagation_seen:
+            return
+        self._propagation_seen = change.span_id
+        latency = max(0.0, event.start - change.start)
+        self.selfmetrics.observe_propagation(latency, event.span_id)
+
+    def _sync_inner(self) -> HPAStatus:
         current = self.target.replicas
         self.status.current_replicas = current
         self._proposal_notes = []

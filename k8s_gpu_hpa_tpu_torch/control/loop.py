@@ -15,12 +15,19 @@ HPA sync; the cluster's exporters collect every 1 s by default (the
 reference's every 10 s, dcgm-exporter.yaml:37).  Runs are on a
 ``VirtualClock``.
 
-The JAX pipeline's tracer, self-metrics and SLO recorders, its write-ahead
-log, checkpoints and component restarts, sharded scraping and downsampled
-tiers, the capacity economy with ``add_tenant_hpa``, and the query planner
-are not ported; the constructor takes none of their parameters.  The
-planner gives the naive evaluation's values bit for bit by its own
-contract, so the naive ``RuleEvaluator`` here records the same series.
+With ``tracer=`` (an ``obs.Tracer``) every stage emits spans and each
+scale event's lineage walks back to the exporter sweeps (obs/): the cluster
+gets the tracer, a ``PipelineSelfMetrics`` is scraped as the
+``pipeline-self`` target after kube-state-metrics, the shipped SLO
+recorders evaluate after the rules and their burn-rate alerts after them.
+Without it every stage takes its untraced path.
+
+The JAX pipeline's write-ahead log, checkpoints and component restarts,
+sharded scraping and downsampled tiers, the capacity economy with
+``add_tenant_hpa``, and the query planner are not ported; the constructor
+takes none of their parameters.  The planner gives the naive evaluation's
+values bit for bit by its own contract, so the naive ``RuleEvaluator`` here
+records the same series.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     tpu_test_multihost_avg_rule,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import SELF_TARGET_NAME, PipelineSelfMetrics
+from k8s_gpu_hpa_tpu_torch.obs.slo import shipped_slo_alerts, shipped_slo_recorders
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 
 
@@ -91,14 +100,20 @@ class AutoscalingPipeline:
         object_kind: str = "Deployment",  # "Deployment" | "StatefulSet"
         metric_specs: list[MetricSpec] | None = None,
         extra_adapter_rules: list[AdapterRule] | None = None,
+        tracer=None,
         structured_scrapes: bool = True,
     ):
         self.cluster = cluster
         self.deployment = deployment
         self.intervals = intervals or PipelineIntervals()
         clock: VirtualClock = cluster.clock
+        self.tracer = tracer
+        self.selfmetrics = None
+        if tracer is not None:
+            cluster.tracer = tracer
+            self.selfmetrics = PipelineSelfMetrics(clock=clock)
         self.db = TimeSeriesDB(clock)
-        self.scraper = Scraper(self.db)
+        self.scraper = Scraper(self.db, tracer=tracer, selfmetrics=self.selfmetrics)
         # Structured scrapes (the default) hand the scraper the exporters'
         # families, the same samples without a text round trip;
         # structured_scrapes=False runs the text path end to end.
@@ -115,6 +130,10 @@ class AutoscalingPipeline:
         cluster.on_node_added.append(lambda node: self._add_node_target(node.name))
         cluster.on_node_removed.append(self._drop_node_target)
         self.scraper.add_target(ksm_fetch, name="kube-state-metrics")
+        if self.selfmetrics is not None:
+            # the pipeline scrapes its own self-metrics like any target, so
+            # they land in the same TSDB
+            self.scraper.add_target(self.selfmetrics.exposition, name=SELF_TARGET_NAME)
 
         if object_kind == "StatefulSet":
             primary = tpu_test_multihost_avg_rule(
@@ -131,11 +150,26 @@ class AutoscalingPipeline:
                 record=record,
             )
         rules = [primary] + (extra_rules or [])
-        self.evaluator = RuleEvaluator(self.db, rules)
+        # the SLOs come with the tracer: the propagation SLO reads the
+        # self-metrics, and the untraced loops skip the recorders' reads
+        slo_recorders: list = []
+        alerts = None
+        if self.selfmetrics is not None:
+            slo_recorders = shipped_slo_recorders()
+            alerts = shipped_slo_alerts()
+        self.evaluator = RuleEvaluator(
+            self.db,
+            rules + slo_recorders,
+            alerts=alerts,
+            tracer=tracer,
+            selfmetrics=self.selfmetrics,
+        )
         self.adapter = CustomMetricsAdapter(
             self.db,
             [AdapterRule(series=r.record, resource_overrides=_overrides_for(r)) for r in rules]
             + (extra_adapter_rules or []),
+            tracer=tracer,
+            selfmetrics=self.selfmetrics,
         )
 
         ref = ObjectReference(object_kind, deployment.name, deployment.namespace)
@@ -161,6 +195,8 @@ class AutoscalingPipeline:
             replica_quantum=replica_quantum,
             pod_lister=deployment,
             namespace=deployment.namespace,
+            tracer=tracer,
+            selfmetrics=self.selfmetrics,
         )
         self.scale_history: list[tuple[float, int, int]] = []  # (ts, from, to)
         self.hpa.on_scale = lambda a, b: self.scale_history.append((clock.now(), a, b))
@@ -168,9 +204,11 @@ class AutoscalingPipeline:
         self._started = False
 
     def _add_node_target(self, node_name: str) -> None:
-        self.scraper.add_target(
+        target = self.scraper.add_target(
             lambda: self._exporter_fetch(node_name), name=f"exporter/{node_name}", node=node_name
         )
+        if self.tracer is not None:
+            target.trace_origin = lambda: self.cluster.exporter_sample_span(node_name)
 
     def _drop_node_target(self, node_name: str) -> None:
         self.scraper.targets[:] = [

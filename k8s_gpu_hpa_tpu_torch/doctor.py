@@ -12,6 +12,9 @@ joint and says which contract broke.
 
 - ``diagnose(...)`` takes plain callables (the tests' in-process payloads,
   ``main``'s HTTP and kubectl fetchers);
+- ``check_self_metrics`` probes the traced pipeline's own families (the
+  ``pipeline-self`` target, obs/selfmetrics.py) in an instant-query payload
+  of ``SELF_METRICS_QUERY``;
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor`` probes a cluster.  Its
   environment: EXPORTER_URL (default http://localhost:9400/metrics),
   PROM_URL (default http://localhost:9090), METRIC (default
@@ -39,6 +42,10 @@ from urllib.parse import quote
 from k8s_gpu_hpa_tpu_torch.exporter import nvml
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.schema import CHIP_METRICS, CORE_CHIP_METRICS
+from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import SELF_METRIC_NAMES, SELF_TARGET_NAME
+
+#: one instant query covering every self-metric family (obs/selfmetrics.py)
+SELF_METRICS_QUERY = '{__name__=~"%s"}' % "|".join(SELF_METRIC_NAMES)
 
 
 @dataclass
@@ -141,6 +148,41 @@ def check_scrape_up(payload: str) -> str:
             f"{len(down)}/{len(results)} scrape target(s) down: " + ", ".join(sorted(down))
         )
     return f"all {len(results)} scrape targets up"
+
+
+def check_self_metrics(payload: str) -> str:
+    """The pipeline watching itself: every self-metric family present and
+    fresh (an instant query returns only points inside the lookback, so
+    presence is freshness), and a ``scrape_duration_seconds`` sample for the
+    ``pipeline-self`` target itself, which shows the self-monitoring loop
+    closed over its own scrape.  ``payload`` is the instant-query JSON for
+    :data:`SELF_METRICS_QUERY`."""
+    doc = json.loads(payload)
+    if doc.get("status") != "success":
+        raise AssertionError(f"prometheus query failed: {doc}")
+    results = doc["data"]["result"]
+    if not results:
+        raise AssertionError(
+            "no pipeline self-metric series at all: the pipeline is not "
+            "traced/instrumented, or its pipeline-self target is not scraped"
+        )
+    found = {r["metric"].get("__name__", "") for r in results}
+    missing = [n for n in SELF_METRIC_NAMES if n not in found]
+    if missing:
+        raise AssertionError(
+            f"self-metric families missing or stale: {missing} (got {sorted(found)})"
+        )
+    self_scraped = any(
+        r["metric"].get("__name__") == "scrape_duration_seconds"
+        and r["metric"].get("target") == SELF_TARGET_NAME
+        for r in results
+    )
+    if not self_scraped:
+        raise AssertionError(
+            f"no scrape_duration_seconds sample for target={SELF_TARGET_NAME!r}: "
+            "the self-metrics target is served but not being scraped"
+        )
+    return f"all {len(SELF_METRIC_NAMES)} self-metric families fresh ({len(results)} series)"
 
 
 def check_custom_metrics_api(payload: str, metric: str) -> str:

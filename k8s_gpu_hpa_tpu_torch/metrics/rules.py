@@ -25,13 +25,22 @@ Three load-bearing tricks, all preserved here:
 Rules are expression ASTs that (a) evaluate against the in-process TSDB and
 (b) render the equivalent PromQL via ``promql()``, character for character
 the JAX package's, from which ``manifests.py`` renders the PrometheusRule:
-one source for the tested semantics and the shipped manifest.  Every
-evaluation is a full one: the JAX package's incremental short-circuit,
-planner, tracing and alert rules are not ported.
+one source for the tested semantics and the shipped manifest.
+
+Evaluation is incremental, as the JAX package's: a rule whose inputs saw no
+write since its last full evaluation skips (``RecordingRule._can_skip``).
+With a tracer a full evaluation emits a ``rule_eval`` span linked to the
+spans that wrote the points it read.  ``BurnRate``, ``AndOn``, ``Cmp`` and
+``AlertRule`` carry the SLO burn-rate alerts (obs/slo.py).  The JAX
+package's query planner, ``HistogramQuantile``, ``Ratio``, the aggregations
+other than ``max by`` and ``avg``, ``Absent``, ``AvgOverTime`` and its
+shipped alert rules are not ported.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from dataclasses import dataclass, field
 
 from k8s_gpu_hpa_tpu_torch.metrics.schema import Sample, TPU_HBM_USAGE, TPU_TENSORCORE_UTIL
@@ -47,6 +56,11 @@ class Expr:
     def promql(self) -> str:
         raise NotImplementedError
 
+    def input_names(self) -> frozenset[str]:
+        """Series names this expression reads: the names whose TSDB write
+        versions incremental evaluation compares between evaluations."""
+        raise NotImplementedError
+
 
 @dataclass
 class Select(Expr):
@@ -57,6 +71,9 @@ class Select(Expr):
 
     def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
         return db.instant_vector(self.name, self.matchers, at)
+
+    def input_names(self) -> frozenset[str]:
+        return frozenset((self.name,))
 
     def promql(self) -> str:
         if not self.matchers:
@@ -84,6 +101,9 @@ class MaxBy(Expr):
             if key not in groups or sample.value > groups[key]:
                 groups[key] = sample.value
         return [Sample(v, k) for k, v in groups.items()]
+
+    def input_names(self) -> frozenset[str]:
+        return self.child.input_names()
 
     def promql(self) -> str:
         return f"max by({','.join(self.keys)})({self.child.promql()})"
@@ -127,6 +147,9 @@ class MulOnGroupLeft(Expr):
             out.append(Sample(sample.value * match.value, tuple(sorted(labels.items()))))
         return out
 
+    def input_names(self) -> frozenset[str]:
+        return self.left.input_names() | self.right.input_names()
+
     def promql(self) -> str:
         gl = ",".join(self.group_left)
         return (
@@ -147,49 +170,381 @@ class Avg(Expr):
             return []
         return [Sample(sum(s.value for s in vec) / len(vec), ())]
 
+    def input_names(self) -> frozenset[str]:
+        return self.child.input_names()
+
     def promql(self) -> str:
         return f"avg({self.child.promql()})"
 
 
 @dataclass
+class AndOn(Expr):
+    """``left and on() right``: PromQL's set intersection with an empty
+    match group, so left's samples survive if and only if right is
+    non-empty ("condition A, while condition B holds somewhere")."""
+
+    left: Expr
+    right: Expr
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        if not self.right.evaluate(db, at):
+            return []
+        return self.left.evaluate(db, at)
+
+    def input_names(self) -> frozenset[str]:
+        return self.left.input_names() | self.right.input_names()
+
+    def promql(self) -> str:
+        return f"{self.left.promql()} and on() {self.right.promql()}"
+
+
+@dataclass
+class Cmp(Expr):
+    """``child > threshold`` and the like, with PromQL's filter semantics:
+    the samples that pass survive, the rest drop (an alert fires on a
+    non-empty result)."""
+
+    child: Expr
+    op: str  # "<" | ">" | "<=" | ">=" | "==" | "!="
+    threshold: float
+
+    _OPS = {
+        "<": lambda a, b: a < b,
+        ">": lambda a, b: a > b,
+        "<=": lambda a, b: a <= b,
+        ">=": lambda a, b: a >= b,
+        "==": lambda a, b: a == b,
+        "!=": lambda a, b: a != b,
+    }
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        fn = self._OPS[self.op]
+        return [s for s in self.child.evaluate(db, at) if fn(s.value, self.threshold)]
+
+    def input_names(self) -> frozenset[str]:
+        return self.child.input_names()
+
+    def promql(self) -> str:
+        t = self.threshold
+        rendered = str(int(t)) if t == int(t) else repr(t)
+        return f"{self.child.promql()} {self.op} {rendered}"
+
+
+def bucket_quantile(buckets: list[tuple[float, float]], q: float) -> float | None:
+    """Prometheus's ``histogram_quantile`` interpolation over one series'
+    cumulative buckets.
+
+    ``buckets`` is [(le, cumulative_count), ...] with the +Inf bucket; ``q``
+    is in [0, 1].  Linear interpolation inside the bucket the rank lands in,
+    with 0 as the first bucket's lower edge; a rank in +Inf returns the
+    highest finite bound (the histogram resolves nothing beyond it).  None
+    when the histogram is empty or has no +Inf bucket."""
+    buckets = sorted(buckets)
+    if not buckets or buckets[-1][0] != math.inf:
+        return None
+    total = buckets[-1][1]
+    if total <= 0:
+        return None
+    q = min(1.0, max(0.0, q))
+    rank = q * total
+    prev_bound, prev_count = 0.0, 0.0
+    for bound, count in buckets:
+        # count > 0: q = 0 (rank 0) lands in the first non-empty bucket, the
+        # one that holds the minimum
+        if count >= rank and count > 0:
+            if bound == math.inf:
+                return buckets[-2][0] if len(buckets) > 1 else None
+            in_bucket = count - prev_count
+            if in_bucket <= 0:
+                return bound
+            return prev_bound + (bound - prev_bound) * (rank - prev_count) / in_bucket
+        prev_bound, prev_count = bound, count
+    return buckets[-2][0] if len(buckets) > 1 else None
+
+
+def _fmt_window(seconds: float) -> str:
+    """PromQL's range duration: 3600 -> ``1h``, 300 -> ``5m``."""
+    s = int(seconds)
+    if s % 3600 == 0:
+        return f"{s // 3600}h"
+    if s % 60 == 0:
+        return f"{s // 60}m"
+    return f"{s}s"
+
+
+@dataclass
+class BurnRate(Expr):
+    """An SLO's error-budget burn rate over a trailing window (SRE Workbook).
+
+    ``burn = ((total_inc - good_inc) / total_inc) / (1 - objective)``, the
+    increases being counter deltas over ``window`` seconds, read as two
+    instant queries (now and now - window) summed over the matching series.
+    A burn of 1.0 spends the budget exactly at the objective.  The result
+    is empty, so an alert on it cannot fire, when the total counter is
+    absent or did not move in the window (no traffic is no evidence of a
+    burn); a counter reset is clamped to zero."""
+
+    good_name: str
+    total_name: str
+    objective: float  # e.g. 0.99
+    window: float  # seconds
+    good_matchers: dict[str, str] = field(default_factory=dict)
+    total_matchers: dict[str, str] = field(default_factory=dict)
+
+    def _sum_at(
+        self, db: TimeSeriesDB, name: str, matchers: dict[str, str], at: float
+    ) -> float | None:
+        vec = db.instant_vector(name, matchers, at)
+        if not vec:
+            return None
+        return sum(s.value for s in vec)
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        at = db.clock.now() if at is None else at
+        total_now = self._sum_at(db, self.total_name, self.total_matchers, at)
+        if total_now is None:
+            return []
+        good_now = self._sum_at(db, self.good_name, self.good_matchers, at) or 0.0
+        then = at - self.window
+        # before the counters existed (a run younger than the window) the
+        # trailing read is empty, read as 0: the increase since the start
+        total_then = self._sum_at(db, self.total_name, self.total_matchers, then) or 0.0
+        good_then = self._sum_at(db, self.good_name, self.good_matchers, then) or 0.0
+        total_inc = max(0.0, total_now - total_then)  # reset clamp
+        if total_inc <= 0:
+            return []
+        good_inc = min(total_inc, max(0.0, good_now - good_then))
+        error_ratio = (total_inc - good_inc) / total_inc
+        burn = error_ratio / (1.0 - self.objective)
+        return [Sample(burn, ())]
+
+    def input_names(self) -> frozenset[str]:
+        return frozenset((self.good_name, self.total_name))
+
+    def promql(self) -> str:
+        w = _fmt_window(self.window)
+        good = Select(self.good_name, dict(self.good_matchers)).promql()
+        total = Select(self.total_name, dict(self.total_matchers)).promql()
+        budget = 1.0 - self.objective
+        return (
+            f"(1 - (increase({good}[{w}]) / increase({total}[{w}])))"
+            f" / {budget:g}"
+        )
+
+
+@dataclass
+class AlertRule:
+    """One ``alert:`` rule with Prometheus's ``for:`` semantics: the
+    expression must stay non-empty for ``for_seconds`` before the alert
+    moves from pending to firing; one empty evaluation resets it."""
+
+    alert: str
+    expr: Expr
+    for_seconds: float = 0.0
+    labels: dict[str, str] = field(default_factory=dict)
+    annotations: dict[str, str] = field(default_factory=dict)
+    _pending_since: float | None = field(default=None, repr=False)
+    firing: bool = field(default=False, repr=False)
+    #: clock time of the move to firing, None while not firing
+    firing_since: float | None = field(default=None, repr=False)
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> bool:
+        now = db.clock.now() if at is None else at
+        if not self.expr.evaluate(db, at):
+            self._pending_since = None
+            self.firing = False
+            self.firing_since = None
+            return False
+        if self._pending_since is None:
+            self._pending_since = now
+        was_firing = self.firing
+        self.firing = now - self._pending_since >= self.for_seconds
+        if self.firing and not was_firing:
+            self.firing_since = now
+        return self.firing
+
+
+@dataclass
 class RecordingRule:
-    """``record:`` output series name, expression, and static output labels."""
+    """``record:`` output series name, expression, and static output labels.
+
+    Evaluation is incremental: each full evaluation records the write
+    versions of its input names, and a later one skips when nothing it could
+    read has changed (``_can_skip`` has the conditions), so a rule whose
+    inputs update more slowly than it evaluates costs a few integer
+    compares a tick."""
 
     record: str
     expr: Expr
     labels: dict[str, str] = field(default_factory=dict)
     _last_keys: set[tuple[tuple[str, str], ...]] = field(default_factory=set, repr=False)
+    #: incremental state: the input names, their versions and the time of
+    #: the last full evaluation, and the age extremes of the points it read
+    _input_names: tuple[str, ...] | None = field(default=None, repr=False)
+    _last_sig: tuple[int, ...] | None = field(default=None, repr=False)
+    _last_eval_ts: float = field(default=-math.inf, repr=False)
+    _last_oldest_read: float | None = field(default=None, repr=False)
+    _last_newest_read: float | None = field(default=None, repr=False)
+    full_evals: int = field(default=0, repr=False)
+    skipped_evals: int = field(default=0, repr=False)
 
-    def evaluate_into(self, db: TimeSeriesDB, at: float | None = None) -> int:
+    def _can_skip(self, db: TimeSeriesDB, ts: float, sig: tuple[int, ...]) -> bool:
+        """A skipped evaluation must be invisible to every reader at
+        ``>= ts``.  Three hazards forbid it:
+
+        - **dirty inputs**: any write to an input name (staleness markers
+          too) can change the result;
+        - **refresh horizon**: a full evaluation rewrites the outputs at
+          ``ts``; idling past half the lookback forces one, so outputs never
+          drift toward the lookback's edge;
+        - **aging inputs**: with no writes the visible inputs can only
+          shrink (a point crossing the lookback changes a max); while the
+          oldest point the last evaluation read is inside the window,
+          nothing it used has expired.
+        """
+        if not self._input_names:
+            return False  # inputs undeclared: always evaluate
+        if sig != self._last_sig or ts < self._last_eval_ts:
+            return False
+        if ts - self._last_eval_ts > db.lookback * 0.5:
+            return False
+        if self._last_oldest_read is not None and ts - self._last_oldest_read > db.lookback:
+            return False
+        return True
+
+    def evaluate_into(
+        self,
+        db: TimeSeriesDB,
+        at: float | None = None,
+        tracer=None,
+        selfmetrics=None,
+    ) -> int:
         """Evaluate and write the result series back into the TSDB.  Output
         series that stop being produced get staleness markers (Prometheus rule
         semantics) so a broken input pipeline propagates to consumers instead
-        of serving a frozen value for the whole lookback window."""
+        of serving a frozen value for the whole lookback window.
+
+        With a tracer a full evaluation emits a ``rule_eval`` span linked to
+        the spans that wrote every point it read (the TSDB's read capture),
+        and stamps its id as the origin of the points it writes.  A skipped
+        evaluation emits nothing: readers keep the last full evaluation's
+        points, with their values and origins."""
+        count = 0
         ts = db.clock.now() if at is None else at
+        if self._input_names is None:
+            try:
+                self._input_names = tuple(sorted(self.expr.input_names()))
+            except NotImplementedError:
+                self._input_names = ()
+        sig = tuple(db.version(n) for n in self._input_names)
+        if self._can_skip(db, ts, sig):
+            self.skipped_evals += 1
+            if selfmetrics is not None and self._last_newest_read is not None:
+                selfmetrics.observe_rule_eval(self.record, ts - self._last_newest_read)
+            return 0
+        self.full_evals += 1
+        span = tracer.open("rule_eval", {"rule": self.record}) if tracer else None
+        origin = None if span is None else span.span_id
+        wall_start = time.perf_counter()
+        # a full evaluation always captures its reads: their timestamps feed
+        # the aging guard above, and lineage and staleness when wired
+        db.begin_capture()
+        try:
+            outputs = self.expr.evaluate(db, at)
+        finally:
+            reads = db.end_capture()
         produced: set[tuple[tuple[str, str], ...]] = set()
-        for sample in self.expr.evaluate(db, at):
+        for sample in outputs:
             labels = dict(sample.labels)
             labels.update(self.labels)
             key = tuple(sorted(labels.items()))
-            db.append(self.record, key, sample.value, ts)
+            db.append(self.record, key, sample.value, ts, origin=origin)
             produced.add(key)
+            count += 1
         for key in self._last_keys - produced:
-            db.mark_stale(self.record, key, ts)
+            db.mark_stale(self.record, key, ts, origin=origin)
         self._last_keys = produced
-        return len(produced)
+        self._last_sig = sig
+        self._last_eval_ts = ts
+        if reads:
+            read_ts = [r[2] for r in reads]
+            self._last_oldest_read = min(read_ts)
+            self._last_newest_read = max(read_ts)
+        else:
+            self._last_oldest_read = None
+            self._last_newest_read = None
+        staleness = ts - self._last_newest_read if reads else None
+        if selfmetrics is not None:
+            selfmetrics.observe_rule_eval(
+                self.record,
+                float("nan") if staleness is None else staleness,
+                duration=time.perf_counter() - wall_start,
+                span_id=origin,
+            )
+        if span is not None:
+            links = tuple({r[4] for r in reads if r[4] is not None})
+            attrs = {"samples_out": count}
+            if staleness is not None:
+                attrs["staleness_seconds"] = staleness
+            if reads:
+                tier_counts: dict[str, int] = {}
+                for r in reads:
+                    tier_counts[r[5]] = tier_counts.get(r[5], 0) + 1
+                attrs["tiers"] = ",".join(f"{t}:{n}" for t, n in sorted(tier_counts.items()))
+            tracer.close(span, links, **attrs)
+        return count
 
 
 class RuleEvaluator:
     """Evaluates a rule group once per call; the caller's schedule is the
     evaluation interval (Prometheus defaults to 30 s; the headline loop
-    evaluates after every scrape to meet the 60 s scale-up budget)."""
+    evaluates after every scrape to meet the 60 s scale-up budget).  Alert
+    rules evaluate after the recording rules of each pass, as in
+    Prometheus's group order (an alert may read a recorded series).  A rule
+    may be anything with ``evaluate_into`` (obs/slo.py's ``SLORecorder``)."""
 
-    def __init__(self, db: TimeSeriesDB, rules: list[RecordingRule]):
+    def __init__(
+        self,
+        db: TimeSeriesDB,
+        rules: list[RecordingRule],
+        alerts: list[AlertRule] | None = None,
+        tracer=None,
+        selfmetrics=None,
+    ):
         self.db = db
         self.rules = rules
+        self.alerts = alerts or []
+        #: obs.Tracer / obs.PipelineSelfMetrics, passed to every evaluation
+        self.tracer = tracer
+        self.selfmetrics = selfmetrics
 
     def evaluate_once(self) -> int:
-        return sum(rule.evaluate_into(self.db) for rule in self.rules)
+        count = sum(
+            rule.evaluate_into(self.db, tracer=self.tracer, selfmetrics=self.selfmetrics)
+            for rule in self.rules
+        )
+        for alert in self.alerts:
+            alert.evaluate(self.db)
+        return count
+
+    def firing_alert_instances(self) -> list[dict]:
+        """The firing alerts as plain dicts (name, labels, annotations and
+        the clock time they began firing), sorted by name and labels."""
+        instances = [
+            {
+                "name": a.alert,
+                "labels": dict(a.labels),
+                "annotations": dict(a.annotations),
+                "active_since": a.firing_since,
+            }
+            for a in self.alerts
+            if a.firing
+        ]
+        instances.sort(key=lambda i: (i["name"], sorted(i["labels"].items())))
+        return instances
+
+    def firing_alerts(self) -> list[str]:
+        return [i["name"] for i in self.firing_alert_instances()]
 
 
 def _app_scoped(

@@ -1,4 +1,5 @@
-"""Metric schema for the metrics exporter (the subset the headline loop reads).
+"""Metric schema for the metrics exporter (the subset the headline loop
+reads), and the histogram the pipeline's self-metrics render.
 
 Counterpart of ``k8s_gpu_hpa_tpu/metrics/schema.py``.  The family names stay
 the JAX package's ``tpu_*`` names: they are the string contracts the rules,
@@ -26,6 +27,7 @@ tpu_chip_power_watts               device power draw
 
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass, field
 
 TPU_TENSORCORE_UTIL = "tpu_tensorcore_utilization"  # percent, 0-100
@@ -59,7 +61,8 @@ CORE_CHIP_METRICS = (TPU_HBM_USAGE, TPU_HBM_TOTAL)
 @dataclass(frozen=True)
 class Exemplar:
     """An OpenMetrics exemplar: the traced observation behind a bucket count
-    (parsed and rendered by exposition.py; nothing in the port emits one)."""
+    (``Histogram`` keeps the latest a bucket; exposition.py renders and
+    parses it).  ``trace_id`` equals ``span_id``: the tracer is one process's."""
 
     value: float
     trace_id: int
@@ -101,6 +104,102 @@ class MetricFamily:
 
     def add(self, value: float, **labels: str) -> None:
         self.samples.append(Sample.make(value, **labels))
+
+
+#: duration buckets of the pipeline's own wall-clock latencies (a scrape,
+#: rule evaluation, adapter query or sync takes well under a millisecond to
+#: tens of them in-process; the 1.0 and 2.5 tail catches a wedged joint)
+DEFAULT_DURATION_BUCKETS: tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+)
+
+
+def format_le(bound: float) -> str:
+    """The ``le`` label value of a bucket bound: an integral bound without
+    its fraction (``30``, not ``30.0``), the overflow bucket ``+Inf``, as
+    exposition.py formats values, so text round trips are stable."""
+    if bound == float("inf"):
+        return "+Inf"
+    if bound == int(bound):
+        return str(int(bound))
+    return repr(bound)
+
+
+class Histogram:
+    """A cumulative-bucket histogram in the OpenMetrics layout.
+
+    Per label set it keeps the bucket counts (one a finite bound plus the
+    implicit +Inf bucket), a ``_sum``, a ``_count`` and the latest
+    :class:`Exemplar` of each bucket.  :meth:`family` renders it as one
+    :class:`MetricFamily` of type ``histogram`` whose samples carry the
+    ``_bucket``/``_sum``/``_count`` suffixes, so it goes through
+    ``encode_text`` and the structured scrape like any other family."""
+
+    def __init__(
+        self,
+        name: str,
+        help: str = "",
+        bounds: tuple[float, ...] = DEFAULT_DURATION_BUCKETS,
+    ):
+        if not bounds:
+            raise ValueError(f"histogram {name}: needs at least one bound")
+        self.name = name
+        self.help = help
+        self.bounds = tuple(sorted(bounds))
+        if self.bounds[-1] == float("inf"):
+            self.bounds = self.bounds[:-1]  # +Inf is implicit
+        # labels -> [per-bucket counts (+Inf last), sum, count,
+        #            per-bucket latest exemplar]
+        self._series: dict[tuple[tuple[str, str], ...], list] = {}
+
+    def observe(self, value: float, exemplar: Exemplar | None = None, **labels: str) -> None:
+        key = tuple(sorted(labels.items()))
+        state = self._series.get(key)
+        if state is None:
+            n = len(self.bounds) + 1
+            state = [[0] * n, 0.0, 0, [None] * n]
+            self._series[key] = state
+        idx = bisect.bisect_left(self.bounds, value)  # first bound >= value
+        state[0][idx] += 1
+        state[1] += value
+        state[2] += 1
+        if exemplar is not None:
+            state[3][idx] = exemplar
+
+    def cumulative_buckets(
+        self, labels: tuple[tuple[str, str], ...] = ()
+    ) -> list[tuple[float, float]]:
+        """``[(le, cumulative_count), ...]`` with +Inf, for one label set:
+        what ``rules.bucket_quantile`` reads."""
+        state = self._series.get(labels)
+        if state is None:
+            return []
+        out: list[tuple[float, float]] = []
+        cumulative = 0
+        for i, bound in enumerate(self.bounds + (float("inf"),)):
+            cumulative += state[0][i]
+            out.append((bound, float(cumulative)))
+        return out
+
+    def family(self) -> MetricFamily:
+        fam = MetricFamily(self.name, type="histogram", help=self.help)
+        bounds = self.bounds + (float("inf"),)
+        for key in sorted(self._series):
+            counts, total, count, exemplars = self._series[key]
+            cumulative = 0
+            for i, bound in enumerate(bounds):
+                cumulative += counts[i]
+                fam.samples.append(
+                    Sample(
+                        float(cumulative),
+                        tuple(sorted(key + (("le", format_le(bound)),))),
+                        suffix="_bucket",
+                        exemplar=exemplars[i],
+                    )
+                )
+            fam.samples.append(Sample(total, key, suffix="_sum"))
+            fam.samples.append(Sample(float(count), key, suffix="_count"))
+        return fam
 
 
 @dataclass(frozen=True)

@@ -14,16 +14,23 @@ module reproduces the two Prometheus behaviors the pipeline depends on:
   recording-rule engine and the custom-metrics adapter consume.  A NaN point
   is a staleness marker and ends its series at once.
 
-Series are plain per-series point lists trimmed to the lookback window.
-The JAX package's write-ahead log, Gorilla compression, downsampled tiers,
-read capture and profiling stages are not ported.
+For metric lineage every point may carry an ``origin``, the id of the span
+that wrote it (obs/trace.py): the scraper's ``scrape`` span or a rule's
+``rule_eval`` span.  A read bracketed by ``begin_capture``/``end_capture``
+learns the origin of every point it returned, which is how rule evaluations
+and adapter queries link to their inputs.
+
+Series are plain per-series point lists trimmed to the lookback window, so
+every read is served from raw points.  The JAX package's write-ahead log,
+Gorilla compression, downsampled tiers and profiling stages are not ported.
 """
 
 from __future__ import annotations
 
 import math
 import random
-from bisect import bisect_right
+import time
+from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -35,23 +42,29 @@ LabelSet = tuple[tuple[str, str], ...]
 
 
 class _Series:
-    """One labeled series: parallel sorted timestamp and value lists."""
+    """One labeled series: parallel sorted timestamp, value and origin
+    lists (an origin is the id of the span that wrote the point, or None)."""
 
-    __slots__ = ("labels", "ts", "values")
+    __slots__ = ("labels", "ts", "values", "origins")
 
     def __init__(self, labels: LabelSet):
         self.labels = labels
         self.ts: list[float] = []
         self.values: list[float] = []
+        self.origins: list[int | None] = []
 
-    def latest_at(self, at: float, lookback: float) -> float | None:
+    def latest_point_at(
+        self, at: float, lookback: float
+    ) -> tuple[float, float, int | None] | None:
+        """The newest (ts, value, origin) at or before ``at``, unless it is a
+        staleness marker or older than the lookback."""
         idx = bisect_right(self.ts, at) - 1
         if idx < 0:
             return None
         value = self.values[idx]
         if value != value or at - self.ts[idx] > lookback:  # NaN: stale marker
             return None
-        return value
+        return self.ts[idx], value, self.origins[idx]
 
 
 class TimeSeriesDB:
@@ -64,9 +77,16 @@ class TimeSeriesDB:
         self._data: dict[str, dict[LabelSet, _Series]] = {}
         #: per-name monotonic write counters (staleness markers included)
         self._versions: dict[str, int] = {}
+        #: the active read capture (see begin_capture), else None
+        self._capture: list[tuple[str, LabelSet, float, float, int | None, str]] | None = None
 
     def append(
-        self, name: str, labels: LabelSet, value: float, ts: float | None = None
+        self,
+        name: str,
+        labels: LabelSet,
+        value: float,
+        ts: float | None = None,
+        origin: int | None = None,
     ) -> None:
         ts = self.clock.now() if ts is None else ts
         by_name = self._data.setdefault(name, {})
@@ -82,16 +102,45 @@ class TimeSeriesDB:
             )
         series.ts.append(ts)
         series.values.append(value)
+        series.origins.append(origin)
+        # drop what is older than the lookback; a point exactly at its edge
+        # stays, since a read at ``ts - lookback`` (a burn rate's trailing
+        # read) still sees it, as the JAX package's retention keeps it
         cutoff = ts - self.lookback
         if series.ts[0] < cutoff:
-            keep = bisect_right(series.ts, cutoff)
-            del series.ts[:keep], series.values[:keep]
+            drop = bisect_left(series.ts, cutoff)
+            del series.ts[:drop], series.values[:drop], series.origins[:drop]
         self._versions[name] = self._versions.get(name, 0) + 1
 
-    def mark_stale(self, name: str, labels: LabelSet, ts: float | None = None) -> None:
+    def mark_stale(
+        self,
+        name: str,
+        labels: LabelSet,
+        ts: float | None = None,
+        origin: int | None = None,
+    ) -> None:
         """Write a staleness marker ending the series now (Prometheus writes
         these when a target fails to scrape or a rule stops producing)."""
-        self.append(name, labels, float("nan"), ts)
+        self.append(name, labels, float("nan"), ts, origin=origin)
+
+    # ---- read capture (metric lineage) ------------------------------------
+    #
+    # Rule evaluations and adapter queries learn their exact inputs by
+    # bracketing their reads: every point an instant query returns while a
+    # capture is active is recorded with its origin.  Lineage stays out of
+    # the expressions and the adapter's queries: every read goes through
+    # ``instant_vector``.
+
+    def begin_capture(self) -> None:
+        self._capture = []
+
+    def end_capture(self) -> list[tuple[str, LabelSet, float, float, int | None, str]]:
+        """Stop capturing; returns (name, labels, ts, value, origin, tier)
+        for each point read since ``begin_capture``.  ``tier`` names the
+        storage the read was served from, always ``"raw"`` here (the JAX
+        package's downsampled tiers are not ported)."""
+        captured, self._capture = self._capture or [], None
+        return captured
 
     def instant_vector(
         self,
@@ -101,15 +150,19 @@ class TimeSeriesDB:
     ) -> list[Sample]:
         """All series of ``name`` matching label equalities, at their latest value."""
         at = self.clock.now() if at is None else at
+        capture = self._capture
         out: list[Sample] = []
         for labels, series in self._data.get(name, {}).items():
             if matchers and any(
                 (k, v) not in labels for k, v in matchers.items()
             ):
                 continue
-            value = series.latest_at(at, self.lookback)
-            if value is not None:
-                out.append(Sample(value, labels))
+            point = series.latest_point_at(at, self.lookback)
+            if point is None:
+                continue
+            if capture is not None:
+                capture.append((name, labels, point[0], point[1], point[2], "raw"))
+            out.append(Sample(point[1], labels))
         return out
 
     def latest(self, name: str, matchers: dict[str, str] | None = None) -> float | None:
@@ -120,6 +173,9 @@ class TimeSeriesDB:
         if len(vec) > 1:
             raise ValueError(f"query for {name} matched {len(vec)} series, expected 1")
         return vec[0].value
+
+    def series_names(self) -> list[str]:
+        return sorted(self._data)
 
     def version(self, name: str) -> int:
         """Monotonic write counter for ``name``: bumps on every append to any
@@ -147,6 +203,10 @@ class ScrapeTarget:
     consecutive_failures: int = 0
     #: do not re-attempt before this timestamp (backoff gate)
     next_attempt_at: float = -math.inf
+    #: optional provider of the span id of the upstream data a successful
+    #: fetch served (the node exporter's last collection sweep); the scrape
+    #: span links to it, rooting metric lineage at the raw device samples
+    trace_origin: "Callable[[], int | None] | None" = None
 
 
 class Scraper:
@@ -157,6 +217,11 @@ class Scraper:
     consecutive failures back it off exponentially (base doubling up to
     ``backoff_cap``) with seeded jitter.  The caller's schedule is the scrape
     interval.
+
+    With a tracer each attempt emits a ``scrape`` span, opened before the
+    fetch, whose id is the origin of every point it writes (staleness
+    markers too); with self-metrics each attempt reports its wall-clock
+    duration.
     """
 
     def __init__(
@@ -165,11 +230,17 @@ class Scraper:
         backoff_base: float = 1.0,
         backoff_cap: float = 30.0,
         backoff_jitter: float = 0.1,
+        tracer=None,
+        selfmetrics=None,
     ):
         self.db = db
         self.backoff_base = backoff_base
         self.backoff_cap = backoff_cap
         self.backoff_jitter = backoff_jitter
+        #: obs.Tracer, or None
+        self.tracer = tracer
+        #: obs.PipelineSelfMetrics, or None
+        self.selfmetrics = selfmetrics
         #: seeded so virtual-time runs are reproducible event-for-event
         self._rng = random.Random(0)
         self.targets: list[ScrapeTarget] = []
@@ -201,21 +272,29 @@ class Scraper:
         lookback window), an ``up`` sample of 0, and a backoff."""
         count = 0
         ts = self.db.clock.now()
+        tracer = self.tracer
+        selfmetrics = self.selfmetrics
         for target in self.targets:
             if ts < target.next_attempt_at:
                 continue  # backing off after consecutive failures
+            span = tracer.open("scrape", {"target": target.name or "?"}) if tracer else None
+            origin = None if span is None else span.span_id
+            wall_start = time.perf_counter()
             try:
                 fetched = target.fetch()
                 families = parse_text(fetched) if isinstance(fetched, str) else fetched
-            except Exception:  # noqa: BLE001 — any fetch failure is a down target
+            except Exception as exc:  # noqa: BLE001 — any fetch failure is a down target
                 if target.healthy:
                     for name, labels in target.last_series:
-                        self.db.mark_stale(name, labels, ts)
+                        self.db.mark_stale(name, labels, ts, origin=origin)
                 target.healthy = False
                 target.last_series = set()
                 target.consecutive_failures += 1
                 self._backoff(target, ts)
                 self.db.append("up", self._up_labels(target), 0.0, ts)
+                self._observe_scrape(target, wall_start, origin)
+                if span is not None:
+                    tracer.close(span, ok=False, error=str(exc))
                 continue
             target.healthy = True
             target.consecutive_failures = 0
@@ -227,12 +306,28 @@ class Scraper:
                     merged.update(target.attached_labels)
                     key = tuple(sorted(merged.items()))
                     series_name = fam.name + sample.suffix
-                    self.db.append(series_name, key, sample.value, ts)
+                    self.db.append(series_name, key, sample.value, ts, origin=origin)
                     produced.add((series_name, key))
                     count += 1
             # series that vanished from the exposition also go stale
             for name, labels in target.last_series - produced:
-                self.db.mark_stale(name, labels, ts)
+                self.db.mark_stale(name, labels, ts, origin=origin)
             target.last_series = produced
             self.db.append("up", self._up_labels(target), 1.0, ts)
+            self._observe_scrape(target, wall_start, origin)
+            if span is not None:
+                links: tuple[int, ...] = ()
+                if target.trace_origin is not None:
+                    upstream = target.trace_origin()
+                    if upstream is not None:
+                        links = (upstream,)
+                tracer.close(span, links, ok=True, samples=len(produced))
         return count
+
+    def _observe_scrape(self, target: ScrapeTarget, wall_start: float, span_id: int | None) -> None:
+        """Report the attempt's wall-clock duration; ``span_id`` (its scrape
+        span) becomes the histogram bucket's exemplar."""
+        if self.selfmetrics is not None:
+            self.selfmetrics.observe_scrape(
+                target.name or "?", time.perf_counter() - wall_start, span_id
+            )

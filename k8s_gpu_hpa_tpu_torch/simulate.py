@@ -17,7 +17,13 @@ Scenarios (offered load in percent of one device; the replicas share it):
 - ``outage``: steady load, every exporter down from t=120 for 2 minutes:
               the HPA holds;
 - ``crash``:  steady load, one pod crashes at t=120: its replacement pays
-              the start latency.
+              the start latency;
+- ``trace``:  the spike, traced (``run_scenario(trace=True)``): the
+              decision timeline with each scale event's metric lineage back
+              to the raw exporter sweeps, the signal-propagation summary and
+              a JSONL export of the spans (``--trace-out``, default
+              trace.jsonl).  Exit 2 when a scale event's lineage is
+              incomplete or no scale event was traced.
 
 An External-metric HPA (the queue rung, deploy/tpu-test-external-hpa.yaml)
 is told from its manifest and plays ``spike``, ``ramp`` and ``flap`` in
@@ -26,9 +32,10 @@ timeline shows the desired replicas following it (queue depth is demand,
 so the replicas do not feed back into it).
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's traced, sharded and planner runs (``trace``, ``shards``,
-``explain``) and its fault, capacity, recovery, SLO, history, coverage,
-race, fuzz, profile, evacuation and incident scenarios are not ported.
+JAX simulator's sharded and planner runs (``shards``, ``explain``, the
+query-engine line of ``trace``) and its fault, capacity, recovery, SLO,
+history, coverage, race, fuzz, profile, evacuation and incident scenarios
+are not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +56,14 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
 )
 from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
 from k8s_gpu_hpa_tpu_torch.manifests import load_yaml
+from k8s_gpu_hpa_tpu_torch.obs import (
+    TracedLoad,
+    Tracer,
+    format_lineage,
+    index_spans,
+    lineage_of,
+    propagation_report,
+)
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 
 SCENARIOS = {
@@ -79,6 +94,11 @@ class SimReport:
     offered_units: str = "%"  # "%" of one device, or "req" for queue depth
     #: the reachability verdict when a measured signal ceiling was given
     target_note: str | None = None
+    #: the obs.Tracer that recorded the run (``trace=True``), else None
+    tracer: Tracer | None = None
+    #: the clock time the scenario started: a span's start minus this is on
+    #: the timeline's t axis (the 15 s settle precedes the scenario)
+    trace_base: float = 0.0
     #: the query planner's counters; None, as the planner is not ported
     query_engine: dict | None = None
 
@@ -106,10 +126,13 @@ def run_scenario(
     pod_start_latency: float = 12.0,
     sample_every: float = 5.0,
     saturated_pct: float | None = None,
+    trace: bool = False,
 ) -> SimReport:
     """Play one shipped Object-metric HPA manifest under a load scenario.
 
     Behavior, bounds, target and slice quantum come from the manifest.
+    ``trace=True`` runs the pipeline with a tracer, the offered load's
+    steps emitting ``workload_change`` spans (``SimReport.tracer``).
     ``saturated_pct`` caps each pod's signal at the workload's measured
     ceiling: without it the simulated gauge can reach 100, which makes an
     inert pairing (a serve pod saturating at 6.3% against a target of 60)
@@ -127,6 +150,7 @@ def run_scenario(
     quantum = quantum_from_manifest(hpa_doc)
 
     clock = VirtualClock()
+    tracer = Tracer(clock) if trace else None
     max_replicas = spec["maxReplicas"]
     cluster = SimCluster(
         clock,
@@ -148,6 +172,8 @@ def run_scenario(
     # 15 s settle is not part of the scenario)
     base = clock.now()
     dep.load_fn = lambda t: load_fn(t - base)
+    if tracer is not None:
+        dep.load_fn = TracedLoad(dep.load_fn, tracer)
 
     pipe = AutoscalingPipeline(
         cluster,
@@ -159,6 +185,7 @@ def run_scenario(
         behavior=behavior_from_manifest(hpa_doc),
         replica_quantum=quantum,
         object_kind=ref["kind"],
+        tracer=tracer,
     )
     pipe.start()
 
@@ -166,7 +193,7 @@ def run_scenario(
     crash_at: float | None = 120.0 if scenario == "crash" else None
     originals: list[tuple] = []
 
-    report = SimReport(scenario=scenario)
+    report = SimReport(scenario=scenario, tracer=tracer, trace_base=base)
     t_cross = None
     target_value = metrics[0].target_value
     if saturated_pct is not None:
@@ -272,10 +299,139 @@ def render_report(report: SimReport) -> str:
     return "\n".join(lines)
 
 
+def render_trace_timeline(report: SimReport) -> str:
+    """The decision timeline of a traced run, in causal order: the offered
+    load's changes, every sync's decision, and each scale event with its
+    metric lineage back to the raw exporter sweeps."""
+    tracer = report.tracer
+    base = report.trace_base
+    by_id = index_spans(tracer.spans)
+    rows = sorted(
+        (
+            s
+            for s in tracer.spans
+            if s.kind in ("workload_change", "hpa_sync", "scale_event", "fault_window")
+        ),
+        key=lambda s: (s.start, s.span_id),
+    )
+    lines = ["decision timeline (t = seconds since scenario start):"]
+    for s in rows:
+        t = s.start - base
+        if s.kind == "workload_change":
+            prev = s.attrs.get("previous")
+            prev_txt = f"{prev:g}" if prev is not None else "?"
+            desc = f"offered load {prev_txt} -> {s.attrs['intensity']:g}"
+        elif s.kind == "hpa_sync":
+            desc = (
+                f"{s.attrs['reason']} (replicas {s.attrs['current_replicas']}, "
+                f"desired {s.attrs['desired_replicas']})"
+            )
+        elif s.kind == "fault_window":
+            desc = f"{s.attrs['fault']} ({s.attrs['kind']})"
+        else:
+            desc = f"replicas {s.attrs['from_replicas']} -> {s.attrs['to_replicas']}"
+        lines.append(f"t={t:>5.0f}s  {s.kind:<16} #{s.span_id:<5} {desc}")
+        if s.kind == "scale_event":
+            lin = lineage_of(s, by_id)
+            shifted = dict(
+                lin,
+                hops=[
+                    dict(h, first_ts=h["first_ts"] - base, last_ts=h["last_ts"] - base)
+                    for h in lin["hops"]
+                ],
+            )
+            lines.append(f"{'':9}lineage: {format_lineage(shifted)}")
+            # the storage tier each read of this event's rule evaluations
+            # was served from
+            tiers = _tier_counts(
+                by_id[sid]
+                for h in lin["hops"]
+                if h["kind"] == "rule_eval"
+                for sid in h["span_ids"]
+            )
+            if tiers:
+                lines.append(
+                    f"{'':9}read tiers: " + ", ".join(f"{k}:{v}" for k, v in sorted(tiers.items()))
+                )
+    return "\n".join(lines)
+
+
+def _tier_counts(spans) -> dict[str, int]:
+    """The ``tiers`` attributes of rule_eval spans ("raw:3") summed into
+    one {tier: reads} dict."""
+    totals: dict[str, int] = {}
+    for s in spans:
+        for part in s.attrs.get("tiers", "").split(","):
+            if part:
+                label, _, n = part.rpartition(":")
+                totals[label] = totals.get(label, 0) + int(n)
+    return totals
+
+
+def _main_trace(args) -> int:
+    """The ``trace`` scenario: the spike, traced, its timeline and
+    propagation summary printed and its spans written as JSONL.  Exit 2
+    when a scale event has no lineage back to exporter samples, or no scale
+    event was traced."""
+    hpa_doc = load_yaml(Path(args.hpa).read_text())
+    try:
+        report = run_scenario(
+            hpa_doc,
+            scenario="spike",
+            duration=args.duration,
+            pod_start_latency=args.pod_start,
+            trace=True,
+        )
+    except ValueError as e:
+        print(f"simulate: {e}")
+        return 2
+    print(render_trace_timeline(report))
+    tracer = report.tracer
+    tier_totals = _tier_counts(tracer.spans_of("rule_eval"))
+    if tier_totals:
+        print(
+            "captured reads by storage tier: "
+            + ", ".join(f"{k}:{v}" for k, v in sorted(tier_totals.items()))
+        )
+    prop = propagation_report(tracer.spans)
+    print()
+    if prop["changes_total"]:
+        def fmt(v):
+            return "-" if v is None else f"{v:.0f}s"
+
+        print(
+            "signal propagation: "
+            f"change -> first sync p50={fmt(prop['sync_latency_p50'])} "
+            f"p95={fmt(prop['sync_latency_p95'])}; "
+            f"change -> scale event p50={fmt(prop['scale_latency_p50'])} "
+            f"p95={fmt(prop['scale_latency_p95'])} "
+            f"({prop['changes_scaled']}/{prop['changes_total']} changes scaled)"
+        )
+    out = getattr(args, "trace_out", None) or "trace.jsonl"
+    n = tracer.write_jsonl(out)
+    print(f"wrote {n} spans to {out}")
+    by_id = index_spans(tracer.spans)
+    events = tracer.spans_of("scale_event")
+    incomplete = [ev.span_id for ev in events if not lineage_of(ev, by_id)["complete"]]
+    if not events or incomplete:
+        print(
+            "TRACE CONTRACT VIOLATED: "
+            + (
+                f"scale events {incomplete} have no lineage back to exporter samples"
+                if incomplete
+                else "no scale events traced"
+            )
+        )
+        return 2
+    return 0
+
+
 def main(args) -> int:
     """Run ``args.scenario`` on the manifest ``args.hpa`` and print the
     report.  Exit 2 with a one-line diagnosis for a manifest or scenario the
     simulator cannot play, and for ``--saturated-pct`` on an External HPA."""
+    if args.scenario == "trace":
+        return _main_trace(args)
     hpa_doc = load_yaml(Path(args.hpa).read_text())
     metrics = metrics_from_manifest(hpa_doc)
     try:
@@ -313,7 +469,7 @@ def add_arguments(parser) -> None:
     """The ``simulate`` command's flags (``python -m k8s_gpu_hpa_tpu_torch
     simulate``)."""
     parser.add_argument("--hpa", default="deploy/tpu-test-hpa.yaml")
-    parser.add_argument("--scenario", choices=list(SCENARIOS), default="spike")
+    parser.add_argument("--scenario", choices=[*SCENARIOS, "trace"], default="spike")
     parser.add_argument("--duration", type=float, default=420.0)
     parser.add_argument("--pod-start", type=float, default=12.0)
     parser.add_argument(
@@ -323,4 +479,9 @@ def add_arguments(parser) -> None:
         help="the workload's measured signal ceiling: caps the simulated "
         "per-pod gauge so an inert manifest/workload pairing (ceiling below "
         "target x 1.1) is diagnosed instead of simulated as healthy",
+    )
+    parser.add_argument(
+        "--trace-out",
+        default=None,
+        help="JSONL span export path for --scenario trace (default trace.jsonl)",
     )

@@ -60,7 +60,11 @@ clock over ``control/external_sim.py``; ``QueueJoint`` is that HPA's path
 on a node, around a serving container that runs as its own process.  The
 cpu rung (``run_cpu_resource_trial``, bench.py's ``run_rung_cpu_resource``)
 scales the CPU busy-loop under the shipped Resource HPA on a virtual clock,
-over the simulated cluster of ``control/cluster.py``.
+over the simulated cluster of ``control/cluster.py``.  The signal-latency
+rung (``run_signal_latency_trial``, bench.py's ``run_rung_signal_latency``)
+traces the assembled pipeline of ``control/loop.py`` under a staircase of
+load steps and reports how long each step takes to reach a sync and a scale
+event.  The live loops run untraced, as bench.py's.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -122,6 +126,7 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     signal_ceiling_clears_band,
     train_metrics,
 )
+from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
 from k8s_gpu_hpa_tpu_torch.device import resolve
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
 from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttributor
@@ -147,6 +152,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     families_from_chips,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs import TracedLoad, Tracer, propagation_report
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock, VirtualClock
 
 if TYPE_CHECKING:
@@ -1357,6 +1363,89 @@ def run_cpu_resource_trial() -> ResourceResult:
             return ResourceResult(round(clock.now() - CPU_SPIKE_AT, 1), max_replicas)
         clock.advance(0.5)
     raise RuntimeError(f"the cpu rung never reached {max_replicas} replicas")
+
+
+#: the signal-latency rung's loop: the latency budget a step's scale event
+#: must meet at p95, and the run's length, clock seconds
+SIGNAL_LATENCY_BUDGET = 60.0
+SIGNAL_LATENCY_RUN = 420.0
+
+
+def _signal_latency_load(t: float) -> float:
+    """The rung's offered load, devices' worth x 100: three upward steps far
+    enough apart that the loop settles between them (35 holds 1 replica at
+    target 40; 90 needs 3, 140 needs 4, 200 needs 5)."""
+    if t < 60.0:
+        return 35.0
+    if t < 180.0:
+        return 90.0
+    if t < 300.0:
+        return 140.0
+    return 200.0
+
+
+@dataclass
+class SignalLatencyRun:
+    """A finished run of the signal-latency rung's traced pipeline
+    (``pipe.tracer`` holds its spans), and every SLO alert that fired at any
+    second of it, in the order they first fired."""
+
+    pipe: AutoscalingPipeline
+    fired: list[str]
+
+
+def signal_latency_run() -> SignalLatencyRun:
+    """The pipeline of bench.py's ``signal_latency`` rung, run on a virtual
+    clock: one simulated node of 8 devices, traced, the shared load of
+    ``_signal_latency_load`` (steps at 60, 180 and 300 s), target 40, at
+    most 8 replicas and a 12 s pod start, for 420 s, the firing SLO alerts
+    read after each second."""
+    clock = VirtualClock()
+    cluster = SimCluster(clock, nodes=[("n0", 8)], pod_start_latency=BASE_POD_START_LATENCY)
+    dep = SimDeployment(
+        cluster, "tpu-test", "tpu-test", load_fn=_signal_latency_load, load_mode="shared"
+    )
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(15.0)
+    base = clock.now()
+    tracer = Tracer(clock)
+    dep.load_fn = TracedLoad(lambda t: _signal_latency_load(t - base), tracer)
+    pipe = AutoscalingPipeline(cluster, dep, target_value=TARGET, max_replicas=8, tracer=tracer)
+    fired: list[str] = []
+    for _ in range(int(SIGNAL_LATENCY_RUN)):
+        pipe.run_for(1.0)
+        fired.extend(n for n in pipe.evaluator.firing_alerts() if n not in fired)
+    return SignalLatencyRun(pipe, fired)
+
+
+def signal_latency_rung(pipe: AutoscalingPipeline) -> dict:
+    """bench.py's rung dict, key for key, from a finished run: each step's
+    ``workload_change`` span paired with the first sync and the first scale
+    event after it (``obs.propagation_report``)."""
+    prop = propagation_report(pipe.tracer.spans)
+    return {
+        "mode": "virtual",
+        "metric": "signal propagation latency (s, workload change -> sync/scale)",
+        "changes_total": prop["changes_total"],
+        "changes_scaled": prop["changes_scaled"],
+        "sync_latency_p50_s": prop["sync_latency_p50"],
+        "sync_latency_p95_s": prop["sync_latency_p95"],
+        "scale_latency_p50_s": prop["scale_latency_p50"],
+        "scale_latency_p95_s": prop["scale_latency_p95"],
+        "budget_s": SIGNAL_LATENCY_BUDGET,
+        "within_budget": (
+            prop["scale_latency_p95"] is not None
+            and prop["scale_latency_p95"] <= SIGNAL_LATENCY_BUDGET
+        ),
+        "trace_spans": len(pipe.tracer.spans),
+        "final_replicas": pipe.replicas(),
+    }
+
+
+def run_signal_latency_trial() -> dict:
+    """bench.py's ``signal_latency`` rung (``run_rung_signal_latency``):
+    ``signal_latency_rung`` of ``signal_latency_run``."""
+    return signal_latency_rung(signal_latency_run().pipe)
 
 
 class QueueJoint:

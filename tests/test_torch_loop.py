@@ -277,8 +277,7 @@ def test_a_metric_spec_in_another_namespace_is_refused_as_jax_refuses_it():
 
 
 def test_the_constructor_takes_none_of_the_left_out_parameters():
-    for name in ("tracer", "wal", "checkpoint_store", "scrape_shards", "downsample",
-                 "capacity"):
+    for name in ("wal", "checkpoint_store", "scrape_shards", "downsample", "capacity"):
         with pytest.raises(TypeError):
             make_pipeline(PORT, lambda t: 0.0, **{name: None})
     assert not hasattr(loop.AutoscalingPipeline, "add_tenant_hpa")
