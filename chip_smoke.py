@@ -305,6 +305,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    kind, the propagation report and each scale event's hops
                    are printed.  The kernels' counts are set to 0 before it
                    and read after: it launches none.
+42. chaos        — the chaos plane and the shipped alerts, in this process on
+                   virtual clocks: the canned fault storm
+                   (chaos.run_fault_storm, bench.py's chaos_storm rung through
+                   trial.chaos_storm_rung) must give the JAX package's
+                   numbers exactly: 3 replicas settled, every fault recovered,
+                   no scale event and the FailedGetObjectMetric condition
+                   during the blackout, MTTR 8, 15, 11 and 37 s, every
+                   detection at 0 s, 8979 spans and fault_window spans 1954,
+                   2790, 4967 and 6851; the SLO check (trial.slo_burn_rung,
+                   bench.py's slo_burn rung) no false positive on the clean
+                   run, the fast scrape-success alert first firing at 140 s
+                   and the slow one at 127 s (20 and 7 s after the
+                   blackout).  The storm runs again with the shipped alerts
+                   (metrics.rules.shipped_alert_rules) evaluated on its TSDB
+                   each second: as in the JAX package only
+                   TpuAutoscaleSignalAbsent fires, from 375 s (inside the
+                   315-405 s blackout) until 415 s; doctor.check_alerts,
+                   given the alerts as Prometheus's /api/v1/alerts lists
+                   them, must raise on that alert at its first firing and
+                   pass on the storm's end.  gen-manifests' PrometheusRule,
+                   written and read back with load_yaml_all, must hold the
+                   tpu-pipeline-alerts and tpu-slo-burn groups as the
+                   generator renders them.
+                   The kernels' counts are set to 0 before it and read after:
+                   it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -343,8 +368,10 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib.util
+import io
 import json
 import math
 import os
@@ -393,7 +420,7 @@ from k8s_gpu_hpa_tpu_torch.loadgen.multihost import (
 from k8s_gpu_hpa_tpu_torch.loadgen.ringattn import RingAttentionLoadGen
 from k8s_gpu_hpa_tpu_torch.loadgen.train import TrainLoadGen, make_checkpoint_manager
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
-from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET
+from k8s_gpu_hpa_tpu_torch.metrics.rules import SERVE_BW_TARGET, RuleEvaluator, shipped_alert_rules
 from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_CHIP_POWER,
     TPU_CHIP_TEMP,
@@ -419,7 +446,9 @@ from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import simulate, trial
-from k8s_gpu_hpa_tpu_torch.doctor import check_self_metrics
+from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
+from k8s_gpu_hpa_tpu_torch.chaos import run_fault_storm
+from k8s_gpu_hpa_tpu_torch.doctor import check_alerts, check_self_metrics
 from k8s_gpu_hpa_tpu_torch.obs import (
     SELF_METRIC_NAMES,
     index_spans,
@@ -428,7 +457,13 @@ from k8s_gpu_hpa_tpu_torch.obs import (
     read_jsonl,
 )
 from k8s_gpu_hpa_tpu_torch.control.hpa import metrics_from_manifest
-from k8s_gpu_hpa_tpu_torch.manifests import default_bundle, load_yaml, load_yaml_all, to_yaml
+from k8s_gpu_hpa_tpu_torch.manifests import (
+    default_bundle,
+    load_yaml,
+    load_yaml_all,
+    prometheusrule_manifest,
+    to_yaml,
+)
 from k8s_gpu_hpa_tpu_torch.trial import (
     GIB,
     DUTY_SERIES,
@@ -3632,6 +3667,138 @@ def phase_trace() -> dict:
     return out
 
 
+#: the canned storm as the JAX package gives it (chaos.run_fault_storm at a
+#: 12 s pod start, on a virtual clock, so exact)
+CHAOS_EXPECTED = {
+    "settled_replicas": 3, "all_recovered": True, "spurious_scale_events_during_blackout": 0,
+    "blackout_condition_observed": True,
+    "mttr_s": {"exporter_outage/exporter/chaos-node-1@30s": 8.0, "scrape_blackout@180s": 15.0,
+               "node_preempt/chaos-node-0@420s": 11.0, "crashloop/tpu-test@660s": 37.0},
+    "detection_s": {"exporter_outage/exporter/chaos-node-1@30s": 0.0,
+                    "scrape_blackout@180s": 0.0, "node_preempt/chaos-node-0@420s": 0.0,
+                    "crashloop/tpu-test@660s": 0.0},
+}
+#: the same storm's trace, and the shipped alerts (shipped_alert_rules)
+#: evaluated on its TSDB each second, as the JAX package's fire them: only
+#: TpuAutoscaleSignalAbsent, firing from 375 s (60 s of for: into the
+#: 315-405 s blackout) until 415 s
+STORM_EXPECTED = {
+    "trace_spans": 8979, "fault_window_spans": [1954, 2790, 4967, 6851],
+    "alerts_firing": {"TpuAutoscaleSignalAbsent": [[375.0, 415.0]]},
+}
+#: the SLO check as the JAX package gives it (simulate.run_slo_check)
+SLO_BURN_EXPECTED = {
+    "clean_false_positives": [],
+    "fault_first_fired": {"SLOScrapeSuccessFastBurn": 140.0, "SLOScrapeSuccessSlowBurn": 127.0},
+    "fast_detection_s": 20.0, "slow_detection_s": 7.0, "ok": True,
+}
+ALERT_GROUPS = ("tpu-pipeline-alerts", "tpu-slo-burn")
+
+
+def _alerts_payload(evaluator) -> str:
+    """An evaluator's alerts as Prometheus's ``/api/v1/alerts`` lists them:
+    the firing ones, each with its ``alertname`` label."""
+    alerts = [
+        {"state": "firing", "labels": {"alertname": i["name"], **i["labels"]},
+         "annotations": i["annotations"], "activeAt": i["active_since"]}
+        for i in evaluator.firing_alert_instances()
+    ]
+    return json.dumps({"status": "success", "data": {"alerts": alerts}})
+
+
+def _storm_with_alerts() -> tuple[dict, str, str]:
+    """The canned storm with the shipped alerts evaluated on its TSDB each
+    second (they only read it).  Returns the storm's result with
+    ``alerts_firing``, each alert's firing runs as [start, end), and the
+    alerts payloads at the first tick that any alert fired and at the end."""
+    ticks, held = [], {}
+
+    def attach(pipe, _schedule):
+        evaluator = held["evaluator"] = RuleEvaluator(pipe.db, [], alerts=shipped_alert_rules())
+
+        def tick():
+            evaluator.evaluate_once()
+            ticks.append((pipe.clock.now(), evaluator.firing_alerts()))
+            if ticks[-1][1] and "firing" not in held:
+                held["firing"] = _alerts_payload(evaluator)
+            pipe.clock.call_later(1.0, tick)
+
+        pipe.clock.call_later(1.0, tick)
+
+    storm = run_fault_storm(pod_start_latency=trial.BASE_POD_START_LATENCY, on_pipeline=attach)
+    runs: dict[str, list[list[float | None]]] = {}
+    before: set[str] = set()
+    for t, names in ticks:
+        for name in sorted(set(names) - before):
+            runs.setdefault(name, []).append([t, None])
+        for name in before - set(names):
+            runs[name][-1][1] = t
+        before = set(names)
+    storm["alerts_firing"] = runs
+    final = _alerts_payload(held["evaluator"])
+    return storm, held.get("firing", final), final
+
+
+def phase_chaos() -> dict:
+    """The chaos plane and the shipped alerts: the storm and SLO rungs, the
+    storm again with the shipped alerts evaluated on it, the
+    PrometheusRule's alert groups read back from gen-manifests' file, and
+    the doctor's alert probe on the alerts in and after the blackout (the
+    module docstring, phase 42, has the bars)."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    rung = trial.chaos_storm_rung()
+    storm_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    storm, firing_payload, final_payload = _storm_with_alerts()
+    alerts_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    slo = trial.slo_burn_rung()
+    slo_s = time.perf_counter() - t2
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        code = cli_main(["gen-manifests", "-o", tmp])
+        (rule_doc,) = load_yaml_all((Path(tmp) / "tpu-test-prometheusrule.yaml").read_text())
+    read_back = {g["name"]: g for g in rule_doc["spec"]["groups"] if g["name"] in ALERT_GROUPS}
+    rendered = {g["name"]: g for g in prometheusrule_manifest()["spec"]["groups"]
+                if g["name"] in ALERT_GROUPS}
+    try:
+        check_alerts(firing_payload)
+        blackout_probe = "passed"
+    except AssertionError as err:
+        blackout_probe = str(err)
+    final_probe = check_alerts(final_payload)
+    wall = time.perf_counter() - t0
+    out = {
+        "phase": "chaos", "chaos_storm": rung, "storm_faults": storm["faults"],
+        "storm_final": [storm["final_replicas"], storm["final_running"], storm["scale_events"]],
+        **{k: storm[k] for k in STORM_EXPECTED},
+        "slo_burn": slo, "gen_manifests_exit": code,
+        "alert_groups": {name: [r["alert"] for r in g["rules"]] for name, g in read_back.items()},
+        "alerts_probe_in_blackout": blackout_probe, "alerts_probe_final": final_probe,
+        "kernel_launches": _kernel_counts(),
+        "storm_s": storm_s, "storm_alerts_s": alerts_s, "slo_s": slo_s, "wall_s": wall,
+    }
+    emit(out)
+    got = {k: rung[k] for k in CHAOS_EXPECTED}
+    if got != CHAOS_EXPECTED:
+        raise AssertionError(f"the fault storm differs from the JAX package's: {got}")
+    got = {k: storm[k] for k in STORM_EXPECTED}
+    if got != STORM_EXPECTED:
+        raise AssertionError(f"the storm's trace or alerts differ from the JAX package's: {got}")
+    if blackout_probe != "pipeline alerts firing: TpuAutoscaleSignalAbsent":
+        raise AssertionError(f"check_alerts missed the blackout's alert: {blackout_probe}")
+    got = {k: slo[k] for k in SLO_BURN_EXPECTED}
+    if got != SLO_BURN_EXPECTED:
+        raise AssertionError(f"the SLO check differs from the JAX package's: {got}")
+    if code != 0 or set(read_back) != set(ALERT_GROUPS) or read_back != rendered:
+        raise AssertionError(f"gen-manifests' alert groups differ from the generator's: {code}, "
+                             f"{out['alert_groups']}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the chaos plane launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -3734,6 +3901,7 @@ def main() -> int:
         queue = phase_queue_external(work_dir)
     phase_simulate((dwell_mfu_pct, loop_scale_up_s), (serve_saturated_pct, serve_scale_up_s))
     phase_trace()
+    phase_chaos()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

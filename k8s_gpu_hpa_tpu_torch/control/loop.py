@@ -211,9 +211,9 @@ class AutoscalingPipeline:
             target.trace_origin = lambda: self.cluster.exporter_sample_span(node_name)
 
     def _drop_node_target(self, node_name: str) -> None:
-        self.scraper.targets[:] = [
-            t for t in self.scraper.targets if t.name != f"exporter/{node_name}"
-        ]
+        for target in list(self.scraper.targets):
+            if target.name == f"exporter/{node_name}":
+                self.scraper.remove_target(target)
 
     @property
     def clock(self) -> VirtualClock:

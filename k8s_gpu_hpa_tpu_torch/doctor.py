@@ -2,11 +2,12 @@
 NVML probe of a GPU node.
 
 Counterpart of ``k8s_gpu_hpa_tpu/doctor.py``, cut to the joints the port
-runs.  The reference's only test story is four manual curl probes
-interleaved with install steps (exporter text, README.md:42-47; Prometheus
-query, :80-88; custom-metrics raw API, :98-102; the scale-up watch,
-:112-121), with the discipline "don't advance past a failing probe"
-implicit in their order.  ``diagnose`` makes it executable: an ordered list
+runs: its shard, query-planner, rollup, capacity-pool and operator probes
+come with the modules they read.  The reference's only test story is four
+manual curl probes interleaved with install steps (exporter text,
+README.md:42-47; Prometheus query, :80-88; custom-metrics raw API,
+:98-102; the scale-up watch, :112-121), with the discipline "don't advance
+past a failing probe" implicit in their order.  ``diagnose`` makes it executable: an ordered list
 of probes, one per string-contract joint, that stops at the first broken
 joint and says which contract broke.
 
@@ -14,12 +15,17 @@ joint and says which contract broke.
   ``main``'s HTTP and kubectl fetchers);
 - ``check_self_metrics`` probes the traced pipeline's own families (the
   ``pipeline-self`` target, obs/selfmetrics.py) in an instant-query payload
-  of ``SELF_METRICS_QUERY``;
+  of ``SELF_METRICS_QUERY``, ``check_histograms`` that target's histograms
+  in its exposition, and ``check_alerts`` Prometheus's alerts: a firing
+  ``Tpu*`` alert (metrics/rules.py's ``shipped_alert_rules``) is a
+  diagnosis even when every joint answered;
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor`` probes a cluster.  Its
   environment: EXPORTER_URL (default http://localhost:9400/metrics),
   PROM_URL (default http://localhost:9090), METRIC (default
   tpu_test_tensorcore_avg), HPA and NAMESPACE for the HPA check (the
-  custom-metrics and HPA probes need ``kubectl``);
+  custom-metrics and HPA probes need ``kubectl``), SELF_METRICS=1 to probe
+  the self-metric series (only where the pipeline's ``pipeline-self``
+  target is scraped);
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor nvml`` runs ``probe_nvml``, the
   counterpart of the JAX doctor's libtpu probe: every NVML call the node
   exporter's ``NvmlSource`` makes, on every GPU of the host.
@@ -42,7 +48,11 @@ from urllib.parse import quote
 from k8s_gpu_hpa_tpu_torch.exporter import nvml
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.schema import CHIP_METRICS, CORE_CHIP_METRICS
-from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import SELF_METRIC_NAMES, SELF_TARGET_NAME
+from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import (
+    SELF_HISTOGRAM_NAMES,
+    SELF_METRIC_NAMES,
+    SELF_TARGET_NAME,
+)
 
 #: one instant query covering every self-metric family (obs/selfmetrics.py)
 SELF_METRICS_QUERY = '{__name__=~"%s"}' % "|".join(SELF_METRIC_NAMES)
@@ -185,6 +195,59 @@ def check_self_metrics(payload: str) -> str:
     return f"all {len(SELF_METRIC_NAMES)} self-metric families fresh ({len(results)} series)"
 
 
+def check_histograms(text: str) -> str:
+    """Every self-histogram family in the ``pipeline-self`` exposition
+    ``text`` keeps the OpenMetrics bucket contract, for each label set:
+    counts non-decreasing in ``le``, a ``+Inf`` bucket equal to ``_count``,
+    and ``_sum`` non-negative and 0 while the count is 0.  A break here
+    spoils the quantiles and the SLO's bucket-derived counters while every
+    series looks fresh, which no freshness probe sees."""
+    fams = {f.name: f for f in parse_text(text)}
+    checked = 0
+    for name in SELF_HISTOGRAM_NAMES:
+        fam = fams.get(name)
+        if fam is None:
+            raise AssertionError(f"histogram family {name} missing from exposition")
+        # the suffixed series grouped by their label sets less le
+        groups: dict[tuple, dict] = {}
+        for s in fam.samples:
+            key = tuple(sorted((k, v) for k, v in s.labels if k != "le"))
+            g = groups.setdefault(key, {"buckets": [], "sum": None, "count": None})
+            if s.suffix == "_bucket":
+                le = s.label("le")
+                if le is None:
+                    raise AssertionError(f"{name}_bucket sample lacks the le label")
+                g["buckets"].append((float(le), s.value))
+            elif s.suffix == "_sum":
+                g["sum"] = s.value
+            elif s.suffix == "_count":
+                g["count"] = s.value
+        if not groups:
+            raise AssertionError(f"histogram family {name} has no samples")
+        for key, g in groups.items():
+            where = f"{name}{dict(key) if key else ''}"
+            if g["sum"] is None or g["count"] is None:
+                raise AssertionError(f"{where}: _sum/_count series missing")
+            buckets = sorted(g["buckets"])
+            if not buckets or buckets[-1][0] != float("inf"):
+                raise AssertionError(f"{where}: no +Inf bucket")
+            counts = [c for _, c in buckets]
+            if any(later < earlier for earlier, later in zip(counts, counts[1:])):
+                raise AssertionError(
+                    f"{where}: bucket counts not cumulative (non-decreasing in le): {counts}"
+                )
+            if counts[-1] != g["count"]:
+                raise AssertionError(
+                    f"{where}: +Inf bucket {counts[-1]:g} != _count {g['count']:g}"
+                )
+            if g["sum"] < 0 or (g["count"] == 0 and g["sum"] != 0):
+                raise AssertionError(
+                    f"{where}: _sum {g['sum']:g} inconsistent with _count {g['count']:g}"
+                )
+            checked += 1
+    return f"{len(SELF_HISTOGRAM_NAMES)} histogram families conformant ({checked} label sets)"
+
+
 def check_custom_metrics_api(payload: str, metric: str) -> str:
     """L4 joint: the aggregated API lists the metric (README.md:98-102)."""
     doc = json.loads(payload)
@@ -215,13 +278,31 @@ def check_hpa_status(payload: str) -> str:
     return f"ScalingActive, replicas current={cur} desired={des}"
 
 
+def check_alerts(payload: str) -> str:
+    """After the joints: Prometheus's alerts (``/api/v1/alerts``).  A firing
+    ``Tpu*`` alert is a diagnosis even when every joint answered, e.g. one
+    node's exporter down in a fleet whose other exporter the L2 probe read."""
+    doc = json.loads(payload)
+    firing = sorted(
+        a["labels"].get("alertname", "?")
+        for a in doc.get("data", {}).get("alerts", [])
+        if a.get("state") == "firing" and a["labels"].get("alertname", "").startswith("Tpu")
+    )
+    if firing:
+        raise AssertionError(f"pipeline alerts firing: {', '.join(firing)}")
+    return "no pipeline alerts firing"
+
+
 def diagnose(
     exporter_fetch: Callable[[], str] | None = None,
     prom_fetch: Callable[[], str] | None = None,
     api_fetch: Callable[[], str] | None = None,
     hpa_fetch: Callable[[], str] | None = None,
     metric: str = "tpu_test_tensorcore_avg",
+    alerts_fetch: Callable[[], str] | None = None,
     up_fetch: Callable[[], str] | None = None,
+    self_metrics_fetch: Callable[[], str] | None = None,
+    self_exposition_fetch: Callable[[], str] | None = None,
 ) -> list[ProbeResult]:
     """Run the ordered joint probes, stopping at the first failure (the
     runbook's discipline).  Fetchers set to None are skipped."""
@@ -237,10 +318,16 @@ def diagnose(
               lambda p: check_prom_vector(p, metric), prom_fetch),
         probe("L3 scrape health", "every scrape target serving (up==1)",
               check_scrape_up, up_fetch),
+        probe("L3 self-metrics", "pipeline self-metric families present and fresh",
+              check_self_metrics, self_metrics_fetch),
+        probe("L3 histogram conformance",
+              "self-histograms cumulative, +Inf == _count, _sum consistent",
+              check_histograms, self_exposition_fetch),
         probe("L4 custom-metrics API", f"{metric} discoverable on custom.metrics.k8s.io",
               lambda p: check_custom_metrics_api(p, metric), api_fetch),
         probe("L5 HPA", "HPA is reading the metric (ScalingActive)",
               check_hpa_status, hpa_fetch),
+        probe("alerts", "no tpu-pipeline-alerts firing", check_alerts, alerts_fetch),
     ]
     results: list[ProbeResult] = []
     for p in probes:
@@ -382,7 +469,14 @@ def main() -> int:
             if have_kubectl else None
         ),
         metric=metric,
+        alerts_fetch=lambda: _http_fetch(f"{prom_url}/api/v1/alerts"),
         up_fetch=lambda: _http_fetch(f"{prom_url}/api/v1/query?query=up"),
+        # the self-metric families exist only where the pipeline's
+        # pipeline-self target is scraped: SELF_METRICS=1 opts in
+        self_metrics_fetch=(
+            (lambda: _http_fetch(f"{prom_url}/api/v1/query?query={quote(SELF_METRICS_QUERY)}"))
+            if os.environ.get("SELF_METRICS") else None
+        ),
     )
     broken = False
     for r in results:

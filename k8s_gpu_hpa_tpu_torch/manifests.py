@@ -74,7 +74,9 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
 )
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     SERVE_BW_TARGET,
+    AlertRule,
     RecordingRule,
+    shipped_alert_rules,
     tpu_test_avg_rule,
     tpu_test_multihost_avg_rule,
     tpu_test_pod_max_rule,
@@ -85,6 +87,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     TPU_HBM_USAGE,
     TPU_TENSORCORE_UTIL,
 )
+from k8s_gpu_hpa_tpu_torch.obs.slo import shipped_slo_alerts
 
 # ---------------------------------------------------------------------------
 # The string contracts: the JAX package's, unless a GPU node needs another.
@@ -486,6 +489,17 @@ def _rule_entry(rule: RecordingRule) -> dict:
     return entry
 
 
+def _alert_entry(rule: AlertRule) -> dict:
+    entry: dict = {"alert": rule.alert, "expr": rule.expr.promql()}
+    if rule.for_seconds:
+        entry["for"] = f"{int(rule.for_seconds)}s"
+    if rule.labels:
+        entry["labels"] = dict(rule.labels)
+    if rule.annotations:
+        entry["annotations"] = dict(rule.annotations)
+    return entry
+
+
 def shipped_rule_groups() -> list[tuple[str, list[RecordingRule]]]:
     """Every recording rule the port's loops evaluate, grouped as in
     deploy/tpu-test-prometheusrule.yaml, from the same ASTs the loops run
@@ -530,21 +544,26 @@ def prometheusrule_manifest(
     name: str = "tpu-test",
     groups: list[tuple[str, list[RecordingRule]]] | None = None,
 ) -> dict:
-    """A PrometheusRule of recording rules (the port has no alert rules)."""
+    """A PrometheusRule of recording-rule groups.  With none given it is the
+    shipped one: every recording rule, then ``tpu-pipeline-alerts``
+    (``shipped_alert_rules``) and ``tpu-slo-burn`` (the pipeline's SLO
+    burn-rate pairs).  Given groups carry no alert group."""
+    group_docs = [
+        {"name": group_name, "interval": RULE_INTERVAL, "rules": [_rule_entry(r) for r in rules]}
+        for group_name, rules in (groups or shipped_rule_groups())
+    ]
+    if groups is None:
+        group_docs += [
+            {"name": "tpu-pipeline-alerts", "interval": RULE_INTERVAL,
+             "rules": [_alert_entry(a) for a in shipped_alert_rules()]},
+            {"name": "tpu-slo-burn", "interval": RULE_INTERVAL,
+             "rules": [_alert_entry(a) for a in shipped_slo_alerts()]},
+        ]
     return {
         "apiVersion": "monitoring.coreos.com/v1",
         "kind": "PrometheusRule",
         "metadata": {"name": name, "labels": {"release": RELEASE_LABEL}},
-        "spec": {
-            "groups": [
-                {
-                    "name": group_name,
-                    "interval": RULE_INTERVAL,
-                    "rules": [_rule_entry(r) for r in rules],
-                }
-                for group_name, rules in (groups or shipped_rule_groups())
-            ]
-        },
+        "spec": {"groups": group_docs},
     }
 
 

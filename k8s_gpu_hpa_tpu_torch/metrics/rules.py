@@ -31,10 +31,12 @@ Evaluation is incremental, as the JAX package's: a rule whose inputs saw no
 write since its last full evaluation skips (``RecordingRule._can_skip``).
 With a tracer a full evaluation emits a ``rule_eval`` span linked to the
 spans that wrote the points it read.  ``BurnRate``, ``AndOn``, ``Cmp`` and
-``AlertRule`` carry the SLO burn-rate alerts (obs/slo.py).  The JAX
-package's query planner, ``HistogramQuantile``, ``Ratio``, the aggregations
-other than ``max by`` and ``avg``, ``Absent``, ``AvgOverTime`` and its
-shipped alert rules are not ported.
+``AlertRule`` carry the SLO burn-rate alerts (obs/slo.py); ``Aggregate``
+and ``Absent`` the pipeline's own health alerts (``shipped_alert_rules``,
+which ``manifests.py`` renders into the PrometheusRule's
+``tpu-pipeline-alerts`` group).  The JAX package's query planner,
+``HistogramQuantile``, ``Ratio``, ``AggregateBy`` and ``AvgOverTime`` are
+not ported.
 """
 
 from __future__ import annotations
@@ -43,7 +45,12 @@ import math
 import time
 from dataclasses import dataclass, field
 
-from k8s_gpu_hpa_tpu_torch.metrics.schema import Sample, TPU_HBM_USAGE, TPU_TENSORCORE_UTIL
+from k8s_gpu_hpa_tpu_torch.metrics.schema import (
+    TPU_DUTY_CYCLE,
+    TPU_HBM_USAGE,
+    TPU_TENSORCORE_UTIL,
+    Sample,
+)
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
 
 Vector = list[Sample]
@@ -178,6 +185,30 @@ class Avg(Expr):
 
 
 @dataclass
+class Aggregate(Expr):
+    """``min(child)``, ``max(child)``, ``sum(child)`` or ``count(child)``:
+    the whole vector to one sample (``avg`` keeps its own node, as the
+    shipped rules render it)."""
+
+    op: str  # "min" | "max" | "sum" | "count"
+    child: Expr
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        vec = self.child.evaluate(db, at)
+        if not vec:
+            return []
+        values = [s.value for s in vec]
+        fn = {"min": min, "max": max, "sum": sum, "count": len}[self.op]
+        return [Sample(float(fn(values)), ())]
+
+    def input_names(self) -> frozenset[str]:
+        return self.child.input_names()
+
+    def promql(self) -> str:
+        return f"{self.op}({self.child.promql()})"
+
+
+@dataclass
 class AndOn(Expr):
     """``left and on() right``: PromQL's set intersection with an empty
     match group, so left's samples survive if and only if right is
@@ -228,6 +259,25 @@ class Cmp(Expr):
         t = self.threshold
         rendered = str(int(t)) if t == int(t) else repr(t)
         return f"{self.child.promql()} {self.op} {rendered}"
+
+
+@dataclass
+class Absent(Expr):
+    """``absent(child)``: one sample when the child is empty.  A broken
+    joint stops producing; it does not produce zeros."""
+
+    child: Expr
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        if self.child.evaluate(db, at):
+            return []
+        return [Sample(1.0, ())]
+
+    def input_names(self) -> frozenset[str]:
+        return self.child.input_names()
+
+    def promql(self) -> str:
+        return f"absent({self.child.promql()})"
 
 
 def bucket_quantile(buckets: list[tuple[float, float]], q: float) -> float | None:
@@ -620,5 +670,201 @@ def tpu_test_pod_max_rule(
 #: The serve HPA's target, percent of the device's memory-bandwidth peak
 #: (deploy/tpu-serve-hpa.yaml; ``SERVE_BW_TARGET`` of the JAX package's
 #: rules).  The serve trial checks that the workload's saturated signal
-#: clears the band above it before it drives the loop.
+#: clears the band above it before it drives the loop, and the
+#: unreachable-target alert pages below the band under it.
 SERVE_BW_TARGET = 5.0
+
+
+# ---- the shipped alerts: the pipeline's silent failures made loud ----------
+
+
+def pipeline_alert_rules(
+    record: str = "tpu_test_tensorcore_avg", app: str = "tpu-test"
+) -> list[AlertRule]:
+    """The pipeline's own health alerts, one for each way the loop dies
+    without an error anywhere: an exporter's source goes stale (up 0), an
+    exporter's newest reading ages, the recorded series vanishes (any joint
+    upstream broken), or it is present but pinned at zero while the
+    workload runs (``flat_zero_alert``)."""
+    return [
+        flat_zero_alert(record, app),
+        AlertRule(
+            alert="TpuExporterDown",
+            expr=Cmp(Aggregate("min", Select("tpu_metrics_exporter_up")), "<", 1),
+            for_seconds=30.0,
+            labels={"severity": "critical"},
+            annotations={
+                "summary": "a tpu-metrics-exporter is serving but its metric "
+                "source went stale (up=0); per-chip gauges are withheld"
+            },
+        ),
+        AlertRule(
+            alert="TpuExporterStale",
+            expr=Cmp(
+                Aggregate("max", Select("tpu_metrics_exporter_sample_age_seconds")), ">", 10
+            ),
+            for_seconds=30.0,
+            labels={"severity": "warning"},
+            annotations={
+                "summary": "an exporter's newest chip reading is older than "
+                "10s (collect loop wedged or libtpu unresponsive)"
+            },
+        ),
+        AlertRule(
+            alert="TpuAutoscaleSignalAbsent",
+            expr=Absent(Select(record)),
+            for_seconds=60.0,
+            labels={"severity": "critical"},
+            annotations={
+                "summary": f"recorded series {record} is absent: scrape job, "
+                "recording rule, kube_pod_labels join, or the workload itself "
+                "is broken - the HPA is flying blind (holding)"
+            },
+        ),
+    ]
+
+
+def _app_duty_max(app: str) -> Expr:
+    """The largest per-device duty cycle over ``app``'s pods: the "the
+    workload is demonstrably busy" conjunct of the flat-zero and
+    unreachable-target alerts."""
+    return Aggregate(
+        "max",
+        MulOnGroupLeft(
+            left=MaxBy(("pod",), Select(TPU_DUTY_CYCLE)),
+            right=MaxBy(("pod",), Select("kube_pod_labels", {"label_app": app})),
+            on=("pod",),
+        ),
+    )
+
+
+def serve_target_unreachable_alert(
+    target: float = SERVE_BW_TARGET, for_seconds: float = 600.0
+) -> AlertRule:
+    """The serve fleet is saturated (duty above 90%) while the bandwidth
+    signal its HPA reads sits below the tolerance band's floor, where the
+    HPA would scale down: the signal cannot follow the load (a workload too
+    small to push bandwidth, a broken fallback, or a mistuned target).  The
+    band keeps a correctly paired hot fleet, which may settle anywhere in
+    [0.9, 1.1] x target, from paging."""
+    # the controller's own tolerance (imported here: the metrics layer needs
+    # the constant, not the control plane)
+    from k8s_gpu_hpa_tpu_torch.control.hpa import HPAController
+
+    band = target * (1.0 - HPAController.TOLERANCE)
+    return AlertRule(
+        alert="TpuServeTargetUnreachable",
+        expr=AndOn(
+            Cmp(Select("tpu_serve_hbm_bw_avg"), "<", band),
+            Cmp(_app_duty_max("tpu-serve"), ">", 90.0),
+        ),
+        for_seconds=for_seconds,
+        labels={"severity": "warning"},
+        annotations={
+            "summary": "tpu-serve pods have been saturated (duty > 90%) for "
+            "10m while tpu_serve_hbm_bw_avg sits below every HPA "
+            f"equilibrium (< {band:g}, the tolerance band floor): the "
+            "autoscale signal cannot follow the load — resize the workload, "
+            "fix the bandwidth fallback chain, or retune the target"
+        },
+    )
+
+
+def flat_zero_alert(record: str, app: str) -> AlertRule:
+    """The autoscale series is present but zero while the workload is
+    demonstrably active: a source feeding zeros or a broken self-report,
+    which ``Absent`` cannot see.  Its three conjuncts: the series is 0;
+    some pod of ``app`` is Running (kube_pod_labels alone also lists
+    Pending pods); the app's pods have a nonzero duty cycle (an idle
+    workload may sit at 0 for hours)."""
+    running_pods = Aggregate(
+        "count",
+        MulOnGroupLeft(
+            left=MaxBy(("pod",), Select("kube_pod_labels", {"label_app": app})),
+            right=MaxBy(
+                ("pod",), Cmp(Select("kube_pod_status_phase", {"phase": "Running"}), "==", 1)
+            ),
+            on=("pod",),
+        ),
+    )
+    return AlertRule(
+        alert="TpuAutoscaleSignalFlatZero",
+        expr=AndOn(
+            AndOn(Cmp(Select(record), "==", 0), Cmp(running_pods, ">", 0)),
+            Cmp(_app_duty_max(app), ">", 0),
+        ),
+        for_seconds=120.0,
+        labels={"severity": "warning", "record": record},
+        annotations={
+            "summary": f"autoscale series {record} is present but flat zero "
+            f"while {app} pods are Running with nonzero duty cycle: the "
+            "device counter or workload self-report feeding it is broken, "
+            "and the HPA will never scale this rung"
+        },
+    )
+
+
+def device_counters_dead_alert() -> AlertRule:
+    """Every device claims zero total memory, which no real device reports
+    even idle: the source serves zeros, not measurements (duty included, so
+    the flat-zero alert's gate cannot see it)."""
+    return AlertRule(
+        alert="TpuDeviceCountersDead",
+        expr=Cmp(Aggregate("max", Select("tpu_hbm_memory_total_bytes")), "==", 0),
+        for_seconds=120.0,
+        labels={"severity": "critical"},
+        annotations={
+            "summary": "every chip reports 0 total HBM bytes: the metric "
+            "source is serving zeros, not measurements — all utilization "
+            "gauges (and the HPA signals built on them) are fake"
+        },
+    )
+
+
+def chip_hot_alert(threshold_c: float = 90.0) -> AlertRule:
+    """A device over ``threshold_c`` for a minute.  The temperature family
+    is exported only where the source measures it, so elsewhere the
+    expression is empty and the alert silent."""
+    return AlertRule(
+        alert="TpuChipHot",
+        expr=Cmp(Aggregate("max", Select("tpu_chip_temperature_celsius")), ">", threshold_c),
+        for_seconds=60.0,
+        labels={"severity": "warning"},
+        annotations={
+            "summary": f"a TPU chip reports over {threshold_c:g}C for 60s: "
+            "sustained thermal pressure degrades clocks before it trips "
+            "hardware protection — check node cooling / duty cycles"
+        },
+    )
+
+
+def slice_held_partial_alert(for_seconds: float = 300.0) -> AlertRule:
+    """The slice-quantum operator holds a target off a slice boundary (its
+    ``quantum_operator_partial_slice_held`` gauge) for ``for_seconds``:
+    stranded hosts running and serving nothing."""
+    return AlertRule(
+        alert="TpuSliceHeldPartial",
+        expr=Cmp(Aggregate("max", Select("quantum_operator_partial_slice_held")), ">", 0),
+        for_seconds=for_seconds,
+        labels={"severity": "warning"},
+        annotations={
+            "summary": "the slice-quantum operator has been holding a target "
+            "on a partial slice for 5m: stranded hosts are running but "
+            "serving nothing — make the HPA's minReplicas/maxReplicas slice "
+            "multiples so the vanilla HPA stops landing off-boundary"
+        },
+    )
+
+
+def shipped_alert_rules() -> list[AlertRule]:
+    """The shipped alert list, the PrometheusRule's ``tpu-pipeline-alerts``
+    group: the pipeline's alerts, a flat-zero guard of its own for the
+    serve rung's bandwidth series, and the unreachable-target, dead-counter,
+    hot-device and held-partial-slice alerts."""
+    return pipeline_alert_rules() + [
+        flat_zero_alert("tpu_serve_hbm_bw_avg", "tpu-serve"),
+        serve_target_unreachable_alert(),
+        device_counters_dead_alert(),
+        chip_hot_alert(),
+        slice_held_partial_alert(),
+    ]

@@ -20,9 +20,18 @@ that wrote it (obs/trace.py): the scraper's ``scrape`` span or a rule's
 learns the origin of every point it returned, which is how rule evaluations
 and adapter queries link to their inputs.
 
-Series are plain per-series point lists trimmed to the lookback window, so
-every read is served from raw points.  The JAX package's write-ahead log,
-Gorilla compression, downsampled tiers and profiling stages are not ported.
+Series are plain per-series point lists, so every read is served from raw
+points.  Retention is the JAX package's: points leave in whole groups of
+``chunk_size`` (its sealed Gorilla chunks), counted from the series' first
+point, once a group's last point is older than ``retention``; the open
+group (JAX's head) never leaves.  So a read older than the lookback sees
+what JAX's sees.  The JAX package's write-ahead log, Gorilla encoding,
+downsampled tiers, stale-series GC and profiling stages are not ported.
+
+Targets may report how long serving took (``TimedExposition``,
+``StructuredExposition``): a fetch past its target's ``deadline`` counts as
+a failed scrape (``ScrapeTimeout``), which is how the chaos plane's
+``slow_scrape`` bites on virtual time.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from __future__ import annotations
 import math
 import random
 import time
-from bisect import bisect_left, bisect_right
+from bisect import bisect_right
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -68,12 +77,23 @@ class _Series:
 
 
 class TimeSeriesDB:
-    """Store of named series, each kept for the lookback window, queried as
-    instant vectors."""
+    """Store of named series with bounded retention, queried as instant
+    vectors."""
 
-    def __init__(self, clock: Clock | None = None, lookback: float = 300.0):
+    def __init__(
+        self,
+        clock: Clock | None = None,
+        lookback: float = 300.0,
+        retention: float | None = None,
+        chunk_size: int = 64,
+    ):
         self.clock = clock or SystemClock()
         self.lookback = lookback
+        #: per-series retained window, never below the lookback (a shorter
+        #: one would drop points an ``at >= newest`` read still sees)
+        self.retention = lookback if retention is None else max(retention, lookback)
+        #: points leave in whole groups of this many, as JAX's sealed chunks
+        self.chunk_size = chunk_size
         self._data: dict[str, dict[LabelSet, _Series]] = {}
         #: per-name monotonic write counters (staleness markers included)
         self._versions: dict[str, int] = {}
@@ -103,13 +123,14 @@ class TimeSeriesDB:
         series.ts.append(ts)
         series.values.append(value)
         series.origins.append(origin)
-        # drop what is older than the lookback; a point exactly at its edge
-        # stays, since a read at ``ts - lookback`` (a burn rate's trailing
-        # read) still sees it, as the JAX package's retention keeps it
-        cutoff = ts - self.lookback
-        if series.ts[0] < cutoff:
-            drop = bisect_left(series.ts, cutoff)
-            del series.ts[:drop], series.values[:drop], series.origins[:drop]
+        # The lists start on a group boundary, so each full group of
+        # chunk_size at the front is a sealed chunk of JAX's; the rest is
+        # its head.  A sealed group leaves once its last point is older
+        # than the retention, and the head never does.
+        size = self.chunk_size
+        cutoff = ts - self.retention
+        while len(series.ts) >= size and series.ts[size - 1] < cutoff:
+            del series.ts[:size], series.values[:size], series.origins[:size]
         self._versions[name] = self._versions.get(name, 0) + 1
 
     def mark_stale(
@@ -183,22 +204,54 @@ class TimeSeriesDB:
         return self._versions.get(name, 0)
 
 
+class ScrapeTimeout(Exception):
+    """A fetch whose (simulated) duration exceeded the target's deadline."""
+
+
+@dataclass
+class TimedExposition:
+    """Exposition text plus how long serving it took.  A fetch may return
+    this instead of a plain string, so that virtual-time runs can model a
+    slow endpoint; the scraper holds ``duration`` to the target's deadline
+    (in production the HTTP client's timeout does)."""
+
+    text: str
+    duration: float = 0.0
+
+
+@dataclass
+class StructuredExposition:
+    """Pre-parsed families with a modeled duration: the structured scrape
+    path under the same deadline as ``TimedExposition``.  Sample label
+    tuples must be sorted (``Sample.make`` and ``MetricFamily.add`` sort
+    them)."""
+
+    families: list[MetricFamily]
+    duration: float = 0.0
+
+
 @dataclass
 class ScrapeTarget:
     """One endpoint: ``fetch`` returns exposition text (HTTP GET in
-    production) or pre-parsed families.
+    production), pre-parsed families, or either with a modeled duration
+    (``TimedExposition``, ``StructuredExposition``).
 
     ``attached_labels`` are merged onto every scraped sample, overriding any
     collision — the reference's relabel_config that stamps the Kubernetes
     node name onto each sample (kube-prometheus-stack-values.yaml:13-16).
     """
 
-    fetch: Callable[[], "str | list[MetricFamily]"]
+    fetch: Callable[
+        [], "str | TimedExposition | list[MetricFamily] | StructuredExposition"
+    ]
     attached_labels: dict[str, str] = field(default_factory=dict)
     name: str = ""
     healthy: bool = True
     #: series produced by the last successful scrape, for staleness marking
     last_series: set[tuple[str, LabelSet]] = field(default_factory=set)
+    #: the scrape deadline (Prometheus's ``scrape_timeout``): a fetch that
+    #: reports a longer duration counts as a failed scrape
+    deadline: float = 10.0
     #: failure streak driving the exponential backoff
     consecutive_failures: int = 0
     #: do not re-attempt before this timestamp (backoff gate)
@@ -212,16 +265,17 @@ class ScrapeTarget:
 class Scraper:
     """Pulls all targets into the TSDB; drive via ``scrape_once`` on a schedule.
 
-    A failing target gets staleness markers and an ``up{target=...} 0``
-    sample — the degradation is observable, never a frozen value — and
-    consecutive failures back it off exponentially (base doubling up to
-    ``backoff_cap``) with seeded jitter.  The caller's schedule is the scrape
-    interval.
+    A failing target, or one whose fetch ran past its deadline, gets
+    staleness markers and an ``up{target=...} 0`` sample — the degradation
+    is observable, never a frozen value — and consecutive failures back it
+    off exponentially (base doubling up to ``backoff_cap``) with seeded
+    jitter.  The caller's schedule is the scrape interval.
 
     With a tracer each attempt emits a ``scrape`` span, opened before the
     fetch, whose id is the origin of every point it writes (staleness
-    markers too); with self-metrics each attempt reports its wall-clock
-    duration.
+    markers too); with self-metrics each attempt reports its
+    duration, the modeled one where the target reports it, else the wall
+    clock's.
     """
 
     def __init__(
@@ -252,10 +306,16 @@ class Scraper:
         self.targets.append(target)
         return target
 
+    def remove_target(self, target: ScrapeTarget) -> None:
+        self.targets.remove(target)
+
     def _up_labels(self, target: ScrapeTarget) -> LabelSet:
         labels = dict(target.attached_labels)
         labels["target"] = target.name or "?"
         return tuple(sorted(labels.items()))
+
+    def _record_up(self, target: ScrapeTarget, value: float, ts: float) -> None:
+        self.db.append("up", self._up_labels(target), value, ts)
 
     def _backoff(self, target: ScrapeTarget, now: float) -> None:
         exponent = min(target.consecutive_failures - 1, 10)
@@ -267,21 +327,34 @@ class Scraper:
     def scrape_once(self) -> int:
         """Scrape every due target; returns the number of samples ingested.
 
-        A failing target's last series get staleness markers (a down target's
-        series go stale at the next scrape, they don't linger for the
-        lookback window), an ``up`` sample of 0, and a backoff."""
+        A failing target (a fetch that raised, or one whose reported
+        duration ran past its deadline) gets staleness markers on its last
+        series (a down target's series go stale at the next scrape, they
+        don't linger for the lookback window), an ``up`` sample of 0, and a
+        backoff."""
         count = 0
         ts = self.db.clock.now()
         tracer = self.tracer
-        selfmetrics = self.selfmetrics
         for target in self.targets:
             if ts < target.next_attempt_at:
                 continue  # backing off after consecutive failures
             span = tracer.open("scrape", {"target": target.name or "?"}) if tracer else None
             origin = None if span is None else span.span_id
             wall_start = time.perf_counter()
+            duration: float | None = None
             try:
                 fetched = target.fetch()
+                if isinstance(fetched, TimedExposition):
+                    duration = fetched.duration
+                    fetched = fetched.text
+                elif isinstance(fetched, StructuredExposition):
+                    duration = fetched.duration
+                    fetched = fetched.families
+                if duration is not None and duration > target.deadline:
+                    raise ScrapeTimeout(
+                        f"{target.name or '?'}: scrape took {duration:.1f}s > "
+                        f"deadline {target.deadline:.1f}s"
+                    )
                 families = parse_text(fetched) if isinstance(fetched, str) else fetched
             except Exception as exc:  # noqa: BLE001 — any fetch failure is a down target
                 if target.healthy:
@@ -291,8 +364,8 @@ class Scraper:
                 target.last_series = set()
                 target.consecutive_failures += 1
                 self._backoff(target, ts)
-                self.db.append("up", self._up_labels(target), 0.0, ts)
-                self._observe_scrape(target, wall_start, origin)
+                self._record_up(target, 0.0, ts)
+                self._observe_scrape(target, wall_start, duration, origin)
                 if span is not None:
                     tracer.close(span, ok=False, error=str(exc))
                 continue
@@ -313,8 +386,8 @@ class Scraper:
             for name, labels in target.last_series - produced:
                 self.db.mark_stale(name, labels, ts, origin=origin)
             target.last_series = produced
-            self.db.append("up", self._up_labels(target), 1.0, ts)
-            self._observe_scrape(target, wall_start, origin)
+            self._record_up(target, 1.0, ts)
+            self._observe_scrape(target, wall_start, duration, origin)
             if span is not None:
                 links: tuple[int, ...] = ()
                 if target.trace_origin is not None:
@@ -324,10 +397,17 @@ class Scraper:
                 tracer.close(span, links, ok=True, samples=len(produced))
         return count
 
-    def _observe_scrape(self, target: ScrapeTarget, wall_start: float, span_id: int | None) -> None:
-        """Report the attempt's wall-clock duration; ``span_id`` (its scrape
-        span) becomes the histogram bucket's exemplar."""
+    def _observe_scrape(
+        self,
+        target: ScrapeTarget,
+        wall_start: float,
+        duration: float | None,
+        span_id: int | None,
+    ) -> None:
+        """Report the attempt's duration: the modeled one where the target
+        reported it, else the wall clock's; ``span_id`` (its scrape span)
+        becomes the histogram bucket's exemplar."""
         if self.selfmetrics is not None:
-            self.selfmetrics.observe_scrape(
-                target.name or "?", time.perf_counter() - wall_start, span_id
-            )
+            if duration is None:
+                duration = time.perf_counter() - wall_start
+            self.selfmetrics.observe_scrape(target.name or "?", duration, span_id)

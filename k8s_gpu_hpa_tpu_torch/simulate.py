@@ -23,7 +23,16 @@ Scenarios (offered load in percent of one device; the replicas share it):
               to the raw exporter sweeps, the signal-propagation summary and
               a JSONL export of the spans (``--trace-out``, default
               trace.jsonl).  Exit 2 when a scale event's lineage is
-              incomplete or no scale event was traced.
+              incomplete or no scale event was traced;
+- ``chaos``:  the canned fault storm (``chaos.run_fault_storm``), which
+              needs no manifest: an exporter outage, a scrape blackout, a
+              node preemption and a crash loop, each with its detection
+              time and MTTR.  Exit 2 when a fault never recovers or a scale
+              event fires during the blackout;
+- ``slo``:    the SLO burn-rate alerts scored both ways (``run_slo_check``):
+              a clean staircase, where any SLO alert is a false positive,
+              and the same staircase with a total scrape blackout, where
+              the fast scrape-success alert must fire.  Exit 2 otherwise.
 
 An External-metric HPA (the queue rung, deploy/tpu-test-external-hpa.yaml)
 is told from its manifest and plays ``spike``, ``ramp`` and ``flap`` in
@@ -33,9 +42,9 @@ so the replicas do not feed back into it).
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
 JAX simulator's sharded and planner runs (``shards``, ``explain``, the
-query-engine line of ``trace``) and its fault, capacity, recovery, SLO,
-history, coverage, race, fuzz, profile, evacuation and incident scenarios
-are not ported.
+query-engine line of ``trace``) and its capacity, recovery, history,
+coverage, race, fuzz, profile, evacuation and incident scenarios are not
+ported.
 """
 
 from __future__ import annotations
@@ -426,12 +435,163 @@ def _main_trace(args) -> int:
     return 0
 
 
+#: the SLO check's rising staircase: (scenario seconds, offered % of one
+#: device).  Rising only: a scale-down waits out the 300 s window, and a
+#: propagation latency measured across it would read as budget burn on a
+#: clean run.  Each step lands the shared signal above the band around
+#: target 40 at the replicas of the step before, so each makes a scale event.
+SLO_STAIRCASE: tuple[tuple[float, float], ...] = (
+    (60.0, 60.0),
+    (180.0, 120.0),
+    (300.0, 240.0),
+)
+
+
+def _slo_load(t: float) -> float:
+    level = 20.0
+    for at, value in SLO_STAIRCASE:
+        if t >= at:
+            level = value
+    return level
+
+
+def _slo_pipeline(pod_start_latency: float) -> AutoscalingPipeline:
+    """A traced pipeline under the SLO staircase, with no manifest (as the
+    chaos storm), so burn numbers compare run to run."""
+    clock = VirtualClock()
+    tracer = Tracer(clock)
+    cluster = SimCluster(
+        clock, nodes=[("tpu-node-0", 4), ("tpu-node-1", 4)], pod_start_latency=pod_start_latency
+    )
+    dep = SimDeployment(cluster, "tpu-test", "tpu-test", load_fn=_slo_load, load_mode="shared")
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(15.0)
+    base = clock.now()
+    dep.load_fn = TracedLoad(lambda t: _slo_load(t - base), tracer)
+    pipe = AutoscalingPipeline(cluster, dep, tracer=tracer)
+    pipe.start()
+    return pipe
+
+
+def run_slo_check(
+    duration: float = 420.0,
+    fault_at: float = 120.0,
+    fault_duration: float = 150.0,
+    pod_start_latency: float = 12.0,
+) -> dict:
+    """Score the SLO burn-rate alerts against chaos, both ways, on two runs
+    of the staircase on a traced pipeline (which evaluates the SLO
+    recorders and their burn-rate pairs, control/loop.py):
+
+    - clean: no fault; an SLO alert firing at any second is a false
+      positive;
+    - fault: a total scrape blackout at ``fault_at`` for
+      ``fault_duration``; the fast (page) scrape-success alert not firing
+      is a false negative.
+
+    Returns each alert's first firing second and the fast and slow
+    scrape-success alerts' detection latencies (injection to first firing
+    sample); ``ok`` is the verdict."""
+    from k8s_gpu_hpa_tpu_torch.chaos import ChaosSchedule, FaultSpec
+
+    phases: dict[str, dict[str, float]] = {}
+    for phase in ("clean", "fault"):
+        pipe = _slo_pipeline(pod_start_latency)
+        if phase == "fault":
+            ChaosSchedule(
+                pipe, [FaultSpec("scrape_blackout", at=fault_at, duration=fault_duration)]
+            ).arm()
+        first_fired: dict[str, float] = {}
+        elapsed = 0.0
+        while elapsed < duration:
+            pipe.clock.advance(1.0)
+            elapsed += 1.0
+            for name in pipe.evaluator.firing_alerts():
+                if name.startswith("SLO"):
+                    first_fired.setdefault(name, elapsed)
+        phases[phase] = first_fired
+
+    def detection(alert: str) -> float | None:
+        fired_at = phases["fault"].get(alert)
+        return None if fired_at is None else fired_at - fault_at
+
+    result = {
+        "duration": duration,
+        "fault_at": fault_at,
+        "fault_duration": fault_duration,
+        "clean_false_positives": sorted(phases["clean"]),
+        "fault_first_fired": dict(sorted(phases["fault"].items())),
+        "fast_detection_s": detection("SLOScrapeSuccessFastBurn"),
+        "slow_detection_s": detection("SLOScrapeSuccessSlowBurn"),
+    }
+    result["ok"] = not result["clean_false_positives"] and result["fast_detection_s"] is not None
+    return result
+
+
+def render_slo_report(result: dict) -> str:
+    lines = [
+        "SLO burn-rate check (clean window + scrape blackout "
+        f"t={result['fault_at']:.0f}s for {result['fault_duration']:.0f}s):",
+        "",
+    ]
+    fps = result["clean_false_positives"]
+    lines.append(
+        "clean phase: no SLO alert fired"
+        if not fps
+        else f"clean phase: FALSE POSITIVE(S): {', '.join(fps)}"
+    )
+    if result["fault_first_fired"]:
+        for name, at in result["fault_first_fired"].items():
+            lines.append(f"fault phase: {name} first fired at t={at:.0f}s")
+    else:
+        lines.append("fault phase: no SLO alert fired")
+    for speed, key in (("fast/page", "fast_detection_s"), ("slow/ticket", "slow_detection_s")):
+        d = result[key]
+        lines.append(
+            f"scrape-success {speed} detection latency: "
+            + ("NEVER FIRED" if d is None else f"{d:.0f}s after injection")
+        )
+    lines.append("")
+    lines.append("verdict: " + ("OK" if result["ok"] else "SLO CONTRACT VIOLATED"))
+    return "\n".join(lines)
+
+
+def _main_chaos(args) -> int:
+    """The ``chaos`` scenario: the storm needs no manifest (it measures the
+    pipeline's recovery on a fixed cluster), so ``--hpa`` is ignored.  Exit
+    2 when a fault never recovers or a scale event fires while the metrics
+    are black."""
+    from k8s_gpu_hpa_tpu_torch.chaos import render_chaos_report, run_fault_storm
+
+    result = run_fault_storm(pod_start_latency=args.pod_start)
+    print(render_chaos_report(result))
+    unrecovered = [f["fault"] for f in result["faults"] if not f["recovered"]]
+    spurious = result["spurious_scale_events_during_blackout"]
+    if unrecovered or spurious:
+        print(
+            "CHAOS CONTRACT VIOLATED: "
+            + (
+                f"faults never recovered: {', '.join(unrecovered)}"
+                if unrecovered
+                else f"{spurious} scale event(s) during the blackout"
+            )
+        )
+        return 2
+    return 0
+
+
 def main(args) -> int:
     """Run ``args.scenario`` on the manifest ``args.hpa`` and print the
     report.  Exit 2 with a one-line diagnosis for a manifest or scenario the
     simulator cannot play, and for ``--saturated-pct`` on an External HPA."""
     if args.scenario == "trace":
         return _main_trace(args)
+    if args.scenario == "chaos":
+        return _main_chaos(args)
+    if args.scenario == "slo":
+        result = run_slo_check(pod_start_latency=args.pod_start)
+        print(render_slo_report(result))
+        return 0 if result["ok"] else 2
     hpa_doc = load_yaml(Path(args.hpa).read_text())
     metrics = metrics_from_manifest(hpa_doc)
     try:
@@ -469,7 +629,7 @@ def add_arguments(parser) -> None:
     """The ``simulate`` command's flags (``python -m k8s_gpu_hpa_tpu_torch
     simulate``)."""
     parser.add_argument("--hpa", default="deploy/tpu-test-hpa.yaml")
-    parser.add_argument("--scenario", choices=[*SCENARIOS, "trace"], default="spike")
+    parser.add_argument("--scenario", choices=[*SCENARIOS, "trace", "chaos", "slo"], default="spike")
     parser.add_argument("--duration", type=float, default=420.0)
     parser.add_argument("--pod-start", type=float, default=12.0)
     parser.add_argument(

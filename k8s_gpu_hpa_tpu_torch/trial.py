@@ -64,7 +64,10 @@ over the simulated cluster of ``control/cluster.py``.  The signal-latency
 rung (``run_signal_latency_trial``, bench.py's ``run_rung_signal_latency``)
 traces the assembled pipeline of ``control/loop.py`` under a staircase of
 load steps and reports how long each step takes to reach a sync and a scale
-event.  The live loops run untraced, as bench.py's.
+event.  The live loops run untraced, as bench.py's.  The chaos rungs,
+``chaos_storm_rung`` and ``slo_burn_rung`` (bench.py's ``run_rung_chaos``
+and ``run_rung_slo_burn``), run the canned fault storm and the SLO
+burn-rate check on virtual clocks.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -95,6 +98,7 @@ from typing import TYPE_CHECKING, Callable, Protocol
 
 import torch
 
+from k8s_gpu_hpa_tpu_torch.chaos import run_fault_storm
 from k8s_gpu_hpa_tpu_torch.control.adapter import (
     AdapterRule,
     CustomMetricsAdapter,
@@ -153,6 +157,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
 from k8s_gpu_hpa_tpu_torch.obs import TracedLoad, Tracer, propagation_report
+from k8s_gpu_hpa_tpu_torch.simulate import run_slo_check
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock, VirtualClock
 
 if TYPE_CHECKING:
@@ -1446,6 +1451,39 @@ def run_signal_latency_trial() -> dict:
     """bench.py's ``signal_latency`` rung (``run_rung_signal_latency``):
     ``signal_latency_rung`` of ``signal_latency_run``."""
     return signal_latency_rung(signal_latency_run().pipe)
+
+
+def chaos_storm_rung() -> dict:
+    """bench.py's ``chaos_storm`` rung (``run_rung_chaos``), key for key:
+    the canned fault storm (``chaos.run_fault_storm``) at the base pod
+    start, each fault's MTTR and detection time."""
+    result = run_fault_storm(pod_start_latency=BASE_POD_START_LATENCY)
+    return {
+        "mode": "virtual",
+        "metric": "fault storm MTTR (s, cleared -> reconverged)",
+        "settled_replicas": result["settled_replicas"],
+        "mttr_s": {f["fault"]: f["mttr"] for f in result["faults"]},
+        "detection_s": {f["fault"]: f["detection_time"] for f in result["faults"]},
+        "all_recovered": result["all_recovered"],
+        "spurious_scale_events_during_blackout": result["spurious_scale_events_during_blackout"],
+        "blackout_condition_observed": result["blackout_condition_observed"],
+    }
+
+
+def slo_burn_rung() -> dict:
+    """bench.py's ``slo_burn`` rung (``run_rung_slo_burn``), key for key:
+    ``simulate.run_slo_check`` at the base pod start, the SLO burn-rate
+    alerts on a clean staircase and under a scrape blackout."""
+    result = run_slo_check(pod_start_latency=BASE_POD_START_LATENCY)
+    return {
+        "mode": "virtual",
+        "metric": "SLO burn-rate detection (s, blackout -> alert firing)",
+        "clean_false_positives": result["clean_false_positives"],
+        "fault_first_fired": result["fault_first_fired"],
+        "fast_detection_s": result["fast_detection_s"],
+        "slow_detection_s": result["slow_detection_s"],
+        "ok": result["ok"],
+    }
 
 
 class QueueJoint:

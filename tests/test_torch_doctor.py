@@ -1,25 +1,40 @@
 """The port's doctor against the JAX package's: each joint check gives the
 same detail, or raises the same words, on the payloads of
-tests/test_doctor.py; ``diagnose`` stops at the first broken joint; the
-CLI probes an exporter and a Prometheus over HTTP; and ``probe_nvml`` over
-the stub NVML library: exit 0 with GPM served, with GPM refused and with no
-GPM at all, exit 1 when NVML or a device call fails."""
+tests/test_doctor.py, and ``check_alerts`` and ``check_histograms`` on
+alert payloads and on a traced pipeline's self-metrics exposition, whole
+and broken; ``diagnose`` stops at the first broken joint; the CLI probes an
+exporter and a Prometheus over HTTP, its alerts and, with SELF_METRICS=1,
+its self-metric series; ``gen-pipeline`` writes JAX's pipeline but where a
+GPU node needs another value, and refuses what JAX's refuses; and
+``probe_nvml`` over the stub NVML library: exit 0 with GPM served, with GPM
+refused and with no GPM at all, exit 1 when NVML or a device call fails."""
 
+import functools
 import json
+import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import unquote
 
 import pytest
 import torch
+import yaml
 
+import k8s_gpu_hpa_tpu.__main__ as jax_cli
 from k8s_gpu_hpa_tpu import doctor as jax_doctor
-from k8s_gpu_hpa_tpu_torch import doctor
+from k8s_gpu_hpa_tpu import simulate as jax_simulate
+from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
+import k8s_gpu_hpa_tpu_torch.__main__ as cli
+from k8s_gpu_hpa_tpu_torch import doctor, simulate
+from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
+from k8s_gpu_hpa_tpu_torch.utils import clock
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
 from k8s_gpu_hpa_tpu_torch.exporter.podresources import StaticAttributor
 from k8s_gpu_hpa_tpu_torch.exporter.sources import StubSource
 from k8s_gpu_hpa_tpu_torch.exporter.stub_nvml import StubNvml
 from tests.test_doctor import exposition, prom_payload
 from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
+from tests.test_torch_manifests import _EXPORTER, GPU_PATHS, _under, _walk
 
 torch.set_num_threads(1)
 
@@ -43,6 +58,52 @@ HPA_FAILED = json.dumps({"status": {"conditions": [
      "message": "unable to get metric"}]}})
 METRIC = "tpu_test_multihost_tensorcore_avg"
 
+
+def _alerts(*alerts) -> str:
+    return json.dumps({"status": "success", "data": {"alerts": [
+        {"state": state, "labels": {"alertname": name}} for name, state in alerts]}})
+
+
+ALERTS_QUIET = _alerts()
+
+
+@functools.cache
+def _traced(package: str = "port") -> tuple[str, str]:
+    """The SLO check's traced pipeline (``simulate._slo_pipeline``) of one
+    package after 200 s, one load step scaled: its self-metric series as
+    Prometheus answers ``SELF_METRICS_QUERY``, and its ``pipeline-self``
+    exposition."""
+    sim, names = ((simulate, selfmetrics.SELF_METRIC_NAMES) if package == "port"
+                  else (jax_simulate, jax_selfmetrics.SELF_METRIC_NAMES))
+    pipe = sim._slo_pipeline(12.0)
+    pipe.clock.advance(200.0)
+    results = [{"metric": {"__name__": name, **dict(s.labels)}, "value": [0, str(s.value)]}
+               for name in names for s in pipe.db.instant_vector(name)]
+    return prom_payload(results), pipe.selfmetrics.exposition()
+
+
+def _broken(how: str) -> str:
+    """The traced exposition with one histogram contract broken."""
+    text = _traced()[1]
+    name = selfmetrics.SELF_HISTOGRAM_NAMES[0]
+    if how == "no_inf":
+        return "\n".join(l for l in text.splitlines() if not (
+            l.startswith(name + "_bucket") and 'le="+Inf"' in l))
+    if how == "count":
+        return re.sub(rf"^({name}_count(?:{{[^}}]*}})?) (\S+)", r"\1 99999", text, count=1,
+                      flags=re.M)
+    if how == "not_cumulative":
+        return re.sub(rf"^({name}_bucket{{[^}}]*}}) (\S+)", r"\1 99999", text, count=1,
+                      flags=re.M)
+    if how == "negative_sum":
+        return re.sub(rf"^({name}_sum(?:{{[^}}]*}})?) (\S+)", r"\1 -5", text, count=1,
+                      flags=re.M)
+    if how == "no_sum":
+        return "\n".join(l for l in text.splitlines() if not l.startswith(name + "_sum"))
+    if how == "missing":
+        return "\n".join(l for l in text.splitlines() if name not in l)
+    raise KeyError(how)
+
 CASES = [
     ("check_exporter_text", (exposition(),)),
     ("check_exporter_text", (exposition(up=0.0),)),
@@ -60,7 +121,15 @@ CASES = [
     ("check_hpa_status", (HPA_ACTIVE,)),
     ("check_hpa_status", (HPA_FAILED,)),
     ("check_hpa_status", (json.dumps({"status": {}}),)),
+    ("check_alerts", (ALERTS_QUIET,)),
+    ("check_alerts", (_alerts(("Watchdog", "firing")),)),
+    ("check_alerts", (_alerts(("TpuExporterStale", "pending")),)),
+    ("check_alerts", (_alerts(("TpuExporterDown", "firing"), ("TpuChipHot", "firing"),
+                              ("TpuExporterStale", "pending")),)),
+    ("check_alerts", (json.dumps({}),)),
 ]
+HISTOGRAM_CASES = ["whole", "no_inf", "count", "not_cumulative", "negative_sum", "no_sum",
+                   "missing", "empty"]
 
 
 def _outcome(fn, *args) -> tuple[bool, str]:
@@ -73,6 +142,29 @@ def _outcome(fn, *args) -> tuple[bool, str]:
 @pytest.mark.parametrize("name,args", CASES, ids=[f"{n}-{i}" for i, (n, _) in enumerate(CASES)])
 def test_each_check_gives_jax_s_result(name, args):
     assert _outcome(getattr(doctor, name), *args) == _outcome(getattr(jax_doctor, name), *args)
+
+
+@pytest.mark.parametrize("how", HISTOGRAM_CASES)
+def test_the_histogram_probe_gives_jax_s_result(how):
+    if how == "whole":
+        text = _traced()[1]
+    elif how == "empty":
+        text = selfmetrics.PipelineSelfMetrics(clock=clock.VirtualClock()).exposition()
+    else:
+        text = _broken(how)
+    port = _outcome(doctor.check_histograms, text)
+    assert port == _outcome(jax_doctor.check_histograms, text)
+    assert port[0] == (how == "whole"), port
+
+
+def test_the_self_metrics_probe_passes_on_each_package_s_traced_pipeline():
+    """Each package's probe passes on its own pipeline's series; JAX's asks
+    for the query planner's six families too, which the port has not."""
+    port = _outcome(doctor.check_self_metrics, _traced()[0])
+    assert port == (True, "all 4 self-metric families fresh (8 series)")
+    assert _outcome(jax_doctor.check_self_metrics, _traced("jax")[0])[0]
+    missing = _outcome(jax_doctor.check_self_metrics, _traced()[0])
+    assert not missing[0] and str(list(jax_selfmetrics.SELF_METRIC_NAMES[4:])) in missing[1]
 
 
 def _fetchers(**payloads):
@@ -91,17 +183,25 @@ def _fetchers(**payloads):
     return {f"{name}_fetch": make(name) for name in payloads}, called
 
 
-@pytest.mark.parametrize("broken", [None, "exporter", "prom", "up", "api", "hpa"])
+@pytest.mark.parametrize("broken", [None, "exporter", "prom", "up", "self_metrics",
+                                    "self_exposition", "api", "hpa", "alerts"])
 def test_diagnose_stops_at_the_first_broken_joint_as_jax_s_does(broken):
-    good = {"exporter": exposition(), "prom": ADDRESSED, "up": UP, "api": API, "hpa": HPA_ACTIVE}
-    order = ["exporter", "prom", "up", "api", "hpa"]
+    good = {"exporter": exposition(), "prom": ADDRESSED, "up": UP,
+            "self_metrics": _traced()[0], "self_exposition": _traced()[1], "api": API,
+            "hpa": HPA_ACTIVE, "alerts": ALERTS_QUIET}
+    order = ["exporter", "prom", "up", "self_metrics", "self_exposition", "api", "hpa", "alerts"]
     payloads = {k: (None if k == broken else v) for k, v in good.items()}
     port_fetch, port_called = _fetchers(**payloads)
-    jax_fetch, _ = _fetchers(**payloads)
+    # JAX's self-metrics probe reads its own pipeline's series (it asks for
+    # the planner's families); its detail counts them
+    jax_fetch, _ = _fetchers(**{**payloads, "self_metrics": payloads["self_metrics"]
+                                and _traced("jax")[0]})
     port = doctor.diagnose(metric=METRIC, **port_fetch)
     ref = {r.name: r for r in jax_doctor.diagnose(metric=METRIC, **jax_fetch)}
     for r in port:
-        assert (r.ok, r.detail) == (ref[r.name].ok, ref[r.name].detail)
+        assert r.ok == ref[r.name].ok
+        if r.name != "L3 self-metrics" or not r.ok:
+            assert r.detail == ref[r.name].detail
     stop = order.index(broken) + 1 if broken else len(order)
     assert len(port) == stop and port_called == order[:stop]
     assert [r.ok for r in port] == [True] * (stop - 1) + [broken is None]
@@ -110,16 +210,24 @@ def test_diagnose_stops_at_the_first_broken_joint_as_jax_s_does(broken):
 def test_diagnose_skips_absent_fetchers():
     results = doctor.diagnose(exporter_fetch=exposition)
     assert [r.name for r in results] == [
-        "L2 exporter", "L3 prometheus", "L3 scrape health", "L4 custom-metrics API", "L5 HPA"]
+        "L2 exporter", "L3 prometheus", "L3 scrape health", "L3 self-metrics",
+        "L3 histogram conformance", "L4 custom-metrics API", "L5 HPA", "alerts"]
     assert all(r.ok for r in results)
     assert all(r.detail.startswith("skipped") for r in results[1:])
 
 
 class _Prometheus(BaseHTTPRequestHandler):
-    """Answers the doctor's two instant queries."""
+    """Answers the doctor's instant queries and its alerts."""
 
     def do_GET(self):  # noqa: N802 — the handler's name
-        body = ADDRESSED if f"query={METRIC}" in self.path else UP
+        if self.path.startswith("/api/v1/alerts"):
+            body = ALERTS_QUIET
+        elif f"query={METRIC}" in self.path:
+            body = ADDRESSED
+        elif unquote(self.path).endswith(f"query={doctor.SELF_METRICS_QUERY}"):
+            body = _traced()[0]
+        else:
+            body = UP
         data = body.encode()
         self.send_response(200)
         self.send_header("Content-Length", str(len(data)))
@@ -130,10 +238,13 @@ class _Prometheus(BaseHTTPRequestHandler):
         pass
 
 
-def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys):
+@pytest.mark.parametrize("self_metrics", [False, True])
+def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys, self_metrics):
     """``main`` over HTTP: the port's exporter daemon on a stub source and
-    a Prometheus that answers both queries.  Without kubectl the API and
-    HPA joints are skipped."""
+    a Prometheus that answers the queries and the alerts.  Without kubectl
+    the API and HPA joints are skipped, and without SELF_METRICS=1 the
+    self-metrics joint; the exposition's histogram joint has no fetcher
+    there."""
     daemon = ExporterDaemon(
         StubSource(num_chips=2), StaticAttributor({0: ("default", "tpu-test-multihost-0")}),
         node_name="doctor-node", listen_addr="127.0.0.1", port=0,
@@ -147,6 +258,10 @@ def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys):
         monkeypatch.setenv("PROM_URL", f"http://127.0.0.1:{prom.server_address[1]}")
         monkeypatch.setenv("METRIC", METRIC)
         monkeypatch.setattr(doctor.shutil, "which", lambda cmd: None)
+        if self_metrics:
+            monkeypatch.setenv("SELF_METRICS", "1")
+        else:
+            monkeypatch.delenv("SELF_METRICS", raising=False)
         assert doctor.cli([]) == 0
     finally:
         prom.shutdown()
@@ -158,8 +273,66 @@ def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys):
     assert out[1] == f"[ok ] L3 prometheus: {METRIC}=53.3 " + str(
         {"namespace": "default", "statefulset": "tpu-test-multihost"})
     assert out[2] == "[ok ] L3 scrape health: all 3 scrape targets up"
-    assert out[3:] == ["[ok ] L4 custom-metrics API: skipped (no fetcher)",
-                       "[ok ] L5 HPA: skipped (no fetcher)"]
+    payload = _traced()[0]
+    assert out[3] == ("[ok ] L3 self-metrics: " + doctor.check_self_metrics(payload)
+                      if self_metrics else "[ok ] L3 self-metrics: skipped (no fetcher)")
+    assert out[4:] == ["[ok ] L3 histogram conformance: skipped (no fetcher)",
+                       "[ok ] L4 custom-metrics API: skipped (no fetcher)",
+                       "[ok ] L5 HPA: skipped (no fetcher)",
+                       "[ok ] alerts: no pipeline alerts firing"]
+
+
+# ---- gen-pipeline ----------------------------------------------------------------
+
+
+def _written(main, argv: list[str], out) -> dict:
+    assert main(["gen-pipeline", *argv, "-o", str(out)]) == 0
+    return {p.name: list(yaml.safe_load_all(p.read_text())) for p in sorted(out.iterdir())}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--app", "my-app"],
+    ["--app", "my-app", "--metric", "duty-cycle", "--target", "55", "--min-replicas", "2",
+     "--max-replicas", "6", "--namespace", "ml"],
+    ["--app", "slice-app", "--metric", "hbm-bw", "--hosts-per-slice", "4", "--min-slices", "1",
+     "--max-slices", "3"],
+    ["--app", "my-app", "--node-selector", "accel=h100", "--node-selector", "zone=a",
+     "--toleration", "gpu=yes:NoSchedule", "--toleration", "spot:NoExecute"],
+], ids=["default", "duty", "slices", "selector"])
+def test_gen_pipeline_writes_jax_s_pipeline_but_where_a_gpu_node_needs_another(argv, tmp_path,
+                                                                               capsys):
+    port = _written(cli.main, argv + ["--gpu-limit", "2"], tmp_path / "port")
+    ref = _written(jax_cli.main, argv + ["--tpu-limit", "2"], tmp_path / "jax")
+    assert list(port) == list(ref)
+    diffs: list = []
+    for name, docs in port.items():
+        _walk(docs, ref[name], (name,), diffs)
+    # a pipeline's own exporter DaemonSet differs where the bundle's does
+    exporter = [(f"{argv[1]}-exporter-daemonset.yaml", "0", *p[2:])
+                for p in GPU_PATHS if p[:2] == _EXPORTER]
+    assert [d for d in diffs if not any(_under(d, p) for p in GPU_PATHS + exporter)] == []
+    lines = capsys.readouterr().out.splitlines()
+    assert sorted(line.rsplit("/", 1)[-1] for line in lines if "/port/" in line) == list(port)
+
+
+def test_gen_pipeline_prints_the_pipeline_without_an_out_directory(capsys):
+    assert cli.main(["gen-pipeline", "--app", "my-app"]) == 0
+    text = capsys.readouterr().out
+    names = re.findall(r"^# ===== (\S+) =====$", text, flags=re.M)
+    assert names == ["my-app-deployment.yaml", "my-app-prometheusrule.yaml",
+                     "my-app-adapter-values.yaml", "my-app-hpa.yaml"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--node-selector", "novalue"], ["--node-selector", "=v"], ["--toleration", "noeffect"],
+    ["--toleration", ":NoSchedule"], ["--toleration", "key:"],
+])
+def test_gen_pipeline_refuses_what_jax_s_refuses(argv, capsys):
+    assert cli.main(["gen-pipeline", "--app", "my-app", *argv]) == 2
+    port = capsys.readouterr()
+    assert jax_cli.main(["gen-pipeline", "--app", "my-app", *argv]) == 2
+    ref = capsys.readouterr()
+    assert (port.out, port.err) == (ref.out, ref.err) and port.err
 
 
 def _probe(library: str, capsys) -> tuple[int, list[str]]:

@@ -11,6 +11,9 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+
 from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -82,6 +85,10 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.control.loop",
         "k8s_gpu_hpa_tpu_torch.simulate",
         "k8s_gpu_hpa_tpu_torch.__main__",
+        "k8s_gpu_hpa_tpu_torch.chaos",
+        "k8s_gpu_hpa_tpu_torch.chaos.faults",
+        "k8s_gpu_hpa_tpu_torch.chaos.schedule",
+        "k8s_gpu_hpa_tpu_torch.chaos.storm",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -224,6 +231,26 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
                 if line.startswith("import time:") and "|" in line}
     assert "k8s_gpu_hpa_tpu_torch.simulate" in imported
     assert "k8s_gpu_hpa_tpu_torch.control.loop" in imported
+    heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch")]
+    assert heavy == []
+
+
+@pytest.mark.parametrize("argv,says", [
+    (["simulate", "--scenario", "chaos"], "all recovered:            True"),
+    (["simulate", "--scenario", "slo"], "verdict: OK"),
+    (["gen-pipeline", "--app", "my-app"], "# ===== my-app-hpa.yaml ====="),
+], ids=["chaos", "slo", "gen-pipeline"])
+def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
+    """The storm, the SLO check and the pipeline generator as a user runs
+    them, in a fresh interpreter: exit 0, and the import log names neither
+    JAX, the JAX package, PyYAML nor torch."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert says in proc.stdout
+    imported = {line.rsplit("|", 1)[1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line}
     heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch")]
     assert heavy == []
 

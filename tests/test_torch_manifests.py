@@ -6,9 +6,10 @@ file and leaf by leaf.  A leaf may differ only under one of ``GPU_PATHS``
 (the accelerator's resource key, node selector and taint, the images, the
 commands, and the exporter's NVML access), and each of them must differ
 somewhere, so the list cannot go stale.  Where the port renders a subset of
-the JAX package's entries (``SUBSET_PATHS``: the scrape jobs and the rule
-groups; the adapter's custom and external rules, whole now), each entry it
-renders must equal the JAX entry of the same name.  Each recording rule's PromQL is JAX's, character for
+the JAX package's entries (``SUBSET_PATHS``: the scrape jobs; the rule
+groups, the alert groups among them, and the adapter's custom and external
+rules are whole now), each entry it renders must equal the JAX entry of the
+same name.  Each recording rule's PromQL is JAX's, character for
 character."""
 
 import fnmatch
@@ -127,9 +128,10 @@ def test_every_leaf_of_the_bundle_is_jax_s_but_where_a_gpu_node_needs_another():
     stale = [p for p in GPU_PATHS if not any(_under(d, p) for d in diffs)]
     assert stale == []
     # the lists the port still renders in part; the adapter's rules, custom
-    # and external, are JAX's whole
+    # and external, and the PrometheusRule's groups, alert groups included,
+    # are JAX's whole
     partial = {p[0] for p in SUBSET_PATHS if any(_under(d, p) for d in diffs)}
-    assert partial == {"kube-prometheus-stack-values.yaml", "tpu-test-prometheusrule.yaml"}
+    assert partial == {"kube-prometheus-stack-values.yaml"}
 
 
 @pytest.mark.parametrize("path", list(SUBSET_PATHS), ids=lambda p: "/".join(p[:1] + p[-1:]))
@@ -139,15 +141,7 @@ def test_each_entry_the_port_renders_of_a_list_is_jax_s_entry(path):
     ref = _by(_lookup(jax_manifests.default_bundle(), path), key)
     assert set(port) <= set(ref)
     for name, entry in port.items():
-        if path[-1] == "groups":
-            # a rule group: the port evaluates some of the JAX group's rules
-            assert {k: v for k, v in entry.items() if k != "rules"} == {
-                k: v for k, v in ref[name].items() if k != "rules"
-            }
-            want = _by(ref[name]["rules"], "record")
-            assert entry["rules"] and all(r == want[r["record"]] for r in entry["rules"])
-        else:
-            assert entry == ref[name]
+        assert entry == ref[name]
 
 
 def test_the_gpu_values_are_the_ones_a_gpu_node_needs():
