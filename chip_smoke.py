@@ -330,6 +330,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    generator renders them.
                    The kernels' counts are set to 0 before it and read after:
                    it launches none.
+43. drill        — durability, in this process on virtual clocks and a
+                   temporary directory of this host: the recovery drill
+                   (control.scale_harness.run_recovery_drill, bench.py's
+                   recovery_drill rung through trial.drill_rung)
+                   must give the JAX package's numbers exactly: 3 replicas
+                   settled; a TSDB restart from the WAL at 30 s, an HPA
+                   restart from its checkpoint file at 210 s, an adapter
+                   restart at 390 s and a WAL truncated and recovered at
+                   570 s, each with MTTR 0 and its first good sync at 0 s;
+                   a replay gap of 1.0 s; no scale event in a recovery
+                   window; 2 scale events with complete lineages; 4/4 at the
+                   end; 8724 spans.  Its two TSDB restarts must recover
+                   131 series, 17406 points, 1022 replayed records and 121,
+                   46644, 7492 (the JAX package's with its six planner and
+                   decode-cache self-metric series left out).  Then a
+                   durable pipeline under the drill's load for 10 s has its
+                   WAL's last segment cut at every byte: each cut must
+                   recover to the snapshot fed exactly the records that
+                   landed.  And an HPA rebuilt mid-window from its
+                   checkpoint file must recommend 4, 4, 4, 4, 4, 4, 1, 1 as
+                   an uninterrupted one does, a cold one must scale down at
+                   its first sync, and a torn file must load as None.  The
+                   kernels' counts are set to 0 before it and read after:
+                   it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -456,7 +480,22 @@ from k8s_gpu_hpa_tpu_torch.obs import (
     propagation_report,
     read_jsonl,
 )
-from k8s_gpu_hpa_tpu_torch.control.hpa import metrics_from_manifest
+from k8s_gpu_hpa_tpu_torch.control.adapter import ObjectReference
+from k8s_gpu_hpa_tpu_torch.control.checkpoint import FileCheckpointStore
+from k8s_gpu_hpa_tpu_torch.control.cluster import SimCluster, SimDeployment
+from k8s_gpu_hpa_tpu_torch.control.external_sim import ScaleTarget
+from k8s_gpu_hpa_tpu_torch.control.hpa import (
+    HPABehavior,
+    HPAController,
+    ObjectMetricSpec,
+    ScalingRules,
+    metrics_from_manifest,
+)
+from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
+from k8s_gpu_hpa_tpu_torch.control.scale_harness import run_recovery_drill
+from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.metrics.wal import WriteAheadLog
+from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 from k8s_gpu_hpa_tpu_torch.manifests import (
     default_bundle,
     load_yaml,
@@ -3799,6 +3838,236 @@ def phase_chaos() -> dict:
     return out
 
 
+#: the recovery drill as the JAX package gives it (bench.py's recovery_drill
+#: rung, trial.drill_rung, at a 12 s pod start on a virtual clock,
+#: so exact), and the rest of the drill's result
+DRILL_EXPECTED = {
+    "components": ["tsdb", "hpa", "adapter", "wal"], "settled_replicas": 3,
+    "mttr_s": {"tsdb_restart@30s": 0.0, "hpa_restart@210s": 0.0, "adapter_restart@390s": 0.0,
+               "wal_truncate@570s": 0.0},
+    "mttr_max_s": 0.0, "replay_gap_max_s": 1.0, "first_good_sync_max_s": 0.0,
+    "all_recovered": True, "spurious_scale_events_during_replay": 0, "lineage_complete": True,
+    "final_replicas": 4, "ok": True,
+}
+DRILL_RESULT_EXPECTED = {
+    "final_running": 4, "scale_events": 2, "scale_event_lineages": 2, "trace_spans": 8724,
+}
+#: (recovered_series, recovered_points, replayed_records) at each TSDB
+#: restart of the drill: the port's, which are the JAX package's with its
+#: six planner and decode-cache self-metric series left out (with them,
+#: JAX's are (137, 18300, 1916) and (127, 45486, 2560))
+DRILL_RECOVERIES = [[131, 17406, 1022], [121, 46644, 7492]]
+#: the kill check's durable pipeline: seconds of the drill's load, and the
+#: WAL's segment and snapshot cadence (records), small so the last segment
+#: is short and its tail replays fast
+KILL_RUN_S = 10.0
+KILL_SEGMENT = 8
+KILL_SNAPSHOT_EVERY = 32
+#: the checkpoint check's syncs (tests/test_recovery.py's): 40 scales to 4,
+#: then 5 recommends 1, held by the 60 s window; the restart after the
+#: fourth sync
+CKPT_LOAD = [40.0, 40.0, 5.0, 5.0, 5.0, 5.0, 5.0, 5.0]
+CKPT_EXPECTED = [4, 4, 4, 4, 4, 4, 1, 1]
+
+
+def _db_state(db) -> tuple:
+    """What a recovery must restore: each series' points with their
+    origins (a marker as None), the version counters, the stale map."""
+    points = {
+        (name, labels): [(t, None if v != v else v, o)
+                         for t, v, o in zip(series.ts, series.values, series.origins)]
+        for name, by_name in db._data.items() for labels, series in by_name.items()
+    }
+    return points, dict(db._versions), dict(db._stale_pending)
+
+
+def _kill_at_every_byte(work: Path) -> dict:
+    """A durable pipeline under the drill's load for ``KILL_RUN_S``; then
+    its WAL's last segment cut at every byte.  Each cut must recover, and
+    to a DB equal to the snapshot fed exactly the records that landed (a
+    line without its newline is the torn tail a kill leaves)."""
+    clock = VirtualClock()
+    cluster = SimCluster(clock, nodes=[(f"drill-node-{i}", 2) for i in range(3)],
+                         pod_start_latency=trial.BASE_POD_START_LATENCY)
+    dep = SimDeployment(cluster, "tpu-test", "tpu-test", load_fn=lambda t: 90.0,
+                        load_mode="shared")
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(15.0)
+    log = WriteAheadLog(work / "wal", segment_max_records=KILL_SEGMENT)
+    pipe = AutoscalingPipeline(cluster, dep, target_value=40.0, max_replicas=4, wal=log,
+                               checkpoint_store=FileCheckpointStore(work / "hpa.json"))
+    pipe.db.snapshot_every = KILL_SNAPSHOT_EVERY
+    pipe.run_for(KILL_RUN_S)
+    log.close()
+    payload, _ = WriteAheadLog(work / "wal").read()
+    segments = sorted((work / "wal").glob("wal-*.jsonl"))
+    final = segments[-1].read_bytes()
+    before = [json.loads(line) for seg in segments[:-1] for line in seg.read_text().splitlines()]
+    snap = work / "snapshot-only"
+    only = WriteAheadLog(snap)
+    only.write_snapshot(payload)
+    only.close()
+    references: dict[int, tuple] = {}
+    cuts = 0
+    for cut in range(len(final) + 1):
+        segments[-1].write_bytes(final[:cut])
+        recovered = TimeSeriesDB.recover(WriteAheadLog(work / "wal"), VirtualClock())
+        lines = final[:cut].split(b"\n")
+        landed = [json.loads(line) for line in lines[:-1] if line]
+        if lines[-1]:
+            try:  # a last line that parses whole landed though its newline did not
+                landed.append(json.loads(lines[-1]))
+            except ValueError:
+                pass  # the torn last record
+        if len(landed) not in references:
+            reference = TimeSeriesDB.recover(WriteAheadLog(snap), VirtualClock())
+            reference.wal = None
+            for rec in before + landed:
+                reference.append(rec["name"], tuple(map(tuple, rec["labels"])),
+                                 float("nan") if rec["op"] == "stale" else rec["value"],
+                                 rec["ts"], rec.get("origin"))
+            references[len(landed)] = _db_state(reference)
+        if _db_state(recovered) != references[len(landed)]:
+            raise AssertionError(f"the WAL cut at byte {cut} of {len(final)} recovered a DB "
+                                 f"other than the records that landed")
+        cuts += 1
+    segments[-1].write_bytes(final)
+    return {"records": log.records_written, "snapshot_restored": payload is not None,
+            "segments": len(segments), "final_segment_bytes": len(final), "cuts": cuts,
+            "final_segment_records": len(references) - 1,
+            "replayed_whole": TimeSeriesDB.recover(WriteAheadLog(work / "wal"),
+                                                   VirtualClock()).last_recovery}
+
+
+class _ScriptedAdapter:
+    """An Object-metric adapter whose value is set before each sync."""
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def get_object_metric(self, described_object, metric_name):
+        return self.value
+
+
+def _checkpoint_restore(work: Path) -> dict:
+    """tests/test_recovery.py's restart on a checkpoint file: four syncs,
+    the controller rebuilt from the file mid-window, four more: the
+    recommendations of an uninterrupted controller; a cold restart scales
+    down at its first sync; a torn file loads as None."""
+
+    def controller(vclock, scripted, target, store):
+        return HPAController(
+            target=target,
+            metrics=[ObjectMetricSpec("m", 10.0, ObjectReference("Deployment", "d", "default"),
+                                      average=True)],
+            adapter=scripted, clock=vclock, max_replicas=8,
+            behavior=HPABehavior(scale_down=ScalingRules(stabilization_window_seconds=60.0)),
+            checkpoint_store=store,
+        )
+
+    def drive(ctrl, scripted, vclock, values):
+        out = []
+        for v in values:
+            scripted.value = v
+            ctrl.sync_once()
+            out.append(ctrl.target.replicas)
+            vclock.advance(15.0)
+        return out
+
+    runs = {}
+    for mode in ("uninterrupted", "restored", "cold"):
+        vclock, scripted, target = VirtualClock(), _ScriptedAdapter(), ScaleTarget()
+        store = FileCheckpointStore(work / f"{mode}.json")
+        ctrl = controller(vclock, scripted, target, store)
+        if mode == "uninterrupted":
+            runs[mode] = drive(ctrl, scripted, vclock, CKPT_LOAD)
+            continue
+        first = drive(ctrl, scripted, vclock, CKPT_LOAD[:4])
+        again = controller(vclock, scripted, target, store if mode == "restored" else None)
+        runs[mode] = first + drive(again, scripted, vclock, CKPT_LOAD[4:])
+        runs[f"{mode}_from_checkpoint"] = again.restored_from_checkpoint
+    torn = work / "restored.json"
+    torn.write_text(torn.read_text()[:40])
+    runs["torn_loads"] = FileCheckpointStore(torn).load()
+    return runs
+
+
+@contextlib.contextmanager
+def _timed_fsync(totals: dict):
+    """Count the calls to ``os.fsync`` inside the block and the seconds
+    they take (the WAL's snapshots and the HPA's checkpoint files sync)."""
+    fsync = os.fsync
+
+    def timed(fd):
+        t = time.perf_counter()
+        try:
+            return fsync(fd)
+        finally:
+            totals["fsyncs"] += 1
+            totals["fsync_s"] += time.perf_counter() - t
+
+    os.fsync = timed
+    try:
+        yield totals
+    finally:
+        os.fsync = fsync
+
+
+def phase_drill() -> dict:
+    """Durability: the recovery drill (bench.py's recovery_drill rung), a
+    WAL killed at every byte of its last segment and an HPA restored from
+    its checkpoint file, on a temporary directory of this host, in virtual
+    time (the module docstring, phase 43, has the bars).  The seconds spent
+    in ``os.fsync`` are reported beside each part's wall time."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    syncs = {part: {"fsyncs": 0, "fsync_s": 0.0} for part in ("drill", "kill", "checkpoint")}
+    t0 = time.perf_counter()
+    with _timed_fsync(syncs["drill"]):
+        result = run_recovery_drill(pod_start_latency=trial.BASE_POD_START_LATENCY)
+    rung = trial.drill_rung(result)
+    drill_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-durability-") as tmp:
+        t1 = time.perf_counter()
+        with _timed_fsync(syncs["kill"]):
+            kill = _kill_at_every_byte(Path(tmp))
+        kill_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        with _timed_fsync(syncs["checkpoint"]):
+            ckpt = _checkpoint_restore(Path(tmp))
+        ckpt_s = time.perf_counter() - t2
+    recoveries = [[r["recovered_series"], r["recovered_points"], r["replayed_records"]]
+                  for r in result["restarts"] if r["component"] == "tsdb"]
+    wall = time.perf_counter() - t0
+    out = {
+        "phase": "drill", "recovery_drill": rung,
+        **{k: result[k] for k in DRILL_RESULT_EXPECTED},
+        "faults": result["faults"], "restarts": result["restarts"], "recoveries": recoveries,
+        "kill_at_every_byte": kill, "checkpoint": ckpt, "kernel_launches": _kernel_counts(),
+        "drill_s": drill_s, "kill_s": kill_s, "checkpoint_s": ckpt_s, "fsync": syncs,
+        "wall_s": wall,
+    }
+    emit(out)
+    got = {k: rung[k] for k in DRILL_EXPECTED}
+    if got != DRILL_EXPECTED:
+        raise AssertionError(f"the recovery drill differs from the JAX package's: {got}")
+    got = {k: result[k] for k in DRILL_RESULT_EXPECTED}
+    if got != DRILL_RESULT_EXPECTED:
+        raise AssertionError(f"the drill's trace or scale events differ from JAX's: {got}")
+    if recoveries != DRILL_RECOVERIES:
+        raise AssertionError(f"the drill's TSDB restarts recovered other counts: {recoveries}")
+    if not kill["snapshot_restored"] or kill["final_segment_records"] < 1:
+        raise AssertionError(f"the kill check's WAL has no snapshot or no tail: {kill}")
+    if (ckpt["uninterrupted"], ckpt["restored"]) != (CKPT_EXPECTED, CKPT_EXPECTED) or not (
+            ckpt["restored_from_checkpoint"]) or ckpt["cold_from_checkpoint"]:
+        raise AssertionError(f"the HPA restored from its checkpoint recommends otherwise: {ckpt}")
+    if ckpt["cold"][4] != 1 or ckpt["torn_loads"] is not None:
+        raise AssertionError(f"the cold restart kept its window or a torn file loaded: {ckpt}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the durability plane launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -3902,6 +4171,7 @@ def main() -> int:
     phase_simulate((dwell_mfu_pct, loop_scale_up_s), (serve_saturated_pct, serve_scale_up_s))
     phase_trace()
     phase_chaos()
+    phase_drill()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

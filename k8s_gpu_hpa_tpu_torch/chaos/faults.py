@@ -18,20 +18,23 @@ kind                      layer it breaks
 ``pod_crash``             L1: one pod dies once; its replacement pays the start
 ``crashloop``             L1: containers crash on start (CrashLoopBackOff)
 ``adapter_blackout``      L4: the custom-metrics API answers nothing
+``tsdb_restart``          L3: the TSDB crashes and is rebuilt from its WAL
+``hpa_restart``           L5: controller failover, restored from its checkpoint
+``adapter_restart``       L4: the adapter is replaced (it keeps no state)
+``wal_truncate``          L3: the WAL's tail is destroyed, then the TSDB restarts
 ========================  =====================================================
 
 An injector returns a ``clear()`` that undoes its fault; a duration-0 fault
-(``pod_crash``) is an impulse and clears at once.  ``clear()`` is
+(``pod_crash`` and the four restarts) is an impulse and clears at once.  ``clear()`` is
 idempotent and safe under overlapping windows: a scrape target gets its
 pristine fetch back only when the last fault over it clears, whatever order
 the windows close in, and the same per-resource depth counter holds a node
 (``node_preempt``, ``node_drain``), a deployment's crash loop and the
 adapter slot (``adapter_blackout``) down until their last window closes.
 
-The JAX package's restart kinds (``tsdb_restart``, ``hpa_restart``,
-``adapter_restart``, ``wal_truncate``) come with the durability slice, and
-``tenant_spike``, ``provision_fail``, ``region_kill``, ``region_partition``
-and ``objstore_outage`` with the capacity and region slice.  ``inject_fault``
+The JAX package's ``tenant_spike``, ``provision_fail``, ``region_kill``,
+``region_partition`` and ``objstore_outage`` come with the capacity and
+region slice.  ``inject_fault``
 records no coverage probe: the coverage plane is not ported.
 """
 
@@ -302,6 +305,42 @@ def _inject_adapter_blackout(pipe: "AutoscalingPipeline", spec: FaultSpec) -> Cl
     return clear
 
 
+def _inject_tsdb_restart(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """Impulse: crash the TSDB and rebuild it from its WAL
+    (``params["from_wal"] = False``: the empty rebuild of a DB without
+    one)."""
+    pipe.restart_tsdb(from_wal=bool(spec.params.get("from_wal", True)))
+    return lambda: None
+
+
+def _inject_hpa_restart(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """Impulse: controller failover, a new HPAController restored from the
+    pipeline's checkpoint store (cold without one)."""
+    pipe.restart_hpa()
+    return lambda: None
+
+
+def _inject_adapter_restart(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """Impulse: replace the custom-metrics adapter (rewiring alone)."""
+    pipe.restart_adapter()
+    return lambda: None
+
+
+def _inject_wal_truncate(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """Impulse: destroy the WAL's tail, ``params["records"]`` whole
+    records (64) and a torn partial one (``tear=False`` leaves it out), then
+    crash and recover the TSDB, so the recovery starts from the damaged
+    log."""
+    if pipe.wal is None:
+        raise ValueError("wal_truncate: pipeline has no WAL attached")
+    pipe.wal.truncate_tail(
+        records=int(spec.params.get("records", 64)),
+        tear=bool(spec.params.get("tear", True)),
+    )
+    pipe.restart_tsdb()
+    return lambda: None
+
+
 FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = {
     "exporter_outage": _inject_exporter_outage,
     "frozen_samples": _inject_frozen_samples,
@@ -312,6 +351,10 @@ FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = 
     "pod_crash": _inject_pod_crash,
     "crashloop": _inject_crashloop,
     "adapter_blackout": _inject_adapter_blackout,
+    "tsdb_restart": _inject_tsdb_restart,
+    "hpa_restart": _inject_hpa_restart,
+    "adapter_restart": _inject_adapter_restart,
+    "wal_truncate": _inject_wal_truncate,
 }
 
 

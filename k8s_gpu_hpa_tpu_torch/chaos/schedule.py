@@ -13,11 +13,11 @@ Everything is scheduled through ``clock.call_at``/``call_later``
 clock).  Faults are taken not to overlap in time (the storm is built so);
 the monitor puts unhealth down to the earliest unresolved fault.
 
-The port's pipeline has no component restarts yet (the durability slice),
-so ``RecoveryReport.replay_gap``, which JAX's schedule stamps from the
-pipeline's restart log, stays None; nor has it tenant HPAs or regions (the
-capacity and region slice), so health is judged on the pipeline's own
-deployment and ``region`` is not reported.
+A restart fault leaves its recovery stats in the pipeline's restart log,
+and ``RecoveryReport.replay_gap`` takes the worst replay gap of the
+restarts logged while the fault was injected.  The port has no tenant HPAs
+or regions yet (the capacity and region slice), so health is judged on the
+pipeline's own deployment and ``region`` is not reported.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ class RecoveryReport:
       without the fault's dwell.  A fault nobody noticed recovers with
       ``detected_at`` None.
     - ``replay_gap``: for a restart fault, the seconds of data its replay
-      could not restore; None here (the port has no restart kinds yet).
+      could not restore (the clock less the newest point recovered).
     - ``time_to_first_good_sync``: cleared → the HPA's first sync that
       computed a valid replica count (``last_good_sync_at``).
     """
@@ -188,7 +188,15 @@ class ChaosSchedule:
         # the replica count before the fault, for the report (callers check
         # the final count against it when the load holds still)
         armed.report.expected_replicas = self.pipeline.deployment.replicas
+        restarts_before = len(self.pipeline.restart_log)
         armed.clear_fn = inject_fault(self.pipeline, armed.spec)
+        # a restart fault's stats are in the restart log: the worst replay
+        # gap of this fault's restarts goes on its report
+        for entry in self.pipeline.restart_log[restarts_before:]:
+            gap = entry.get("replay_gap_seconds")
+            worst = armed.report.replay_gap
+            if gap is not None and (worst is None or gap > worst):
+                armed.report.replay_gap = gap
         if armed.spec.duration <= 0:  # an impulse: nothing to undo later
             self._clear(armed)
 

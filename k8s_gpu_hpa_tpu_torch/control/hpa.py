@@ -29,12 +29,15 @@ from the HPA's ``k8s-tpu-hpa/replica-quantum`` annotation by
 With a tracer, each sync emits an ``hpa_sync`` span linked to the
 ``adapter_query`` spans it issued and, when replicas change, a
 ``scale_event`` span; with self-metrics it reports its duration, its
-decision and each change's signal-propagation latency.  Checkpoints and the
-capacity conditions are not ported.  ``behavior_from_manifest`` and
-``metrics_from_manifest`` parse an HPA manifest given as a dict; the shipped
-manifests' values are also written in code here (``shipped_behavior()``,
-``train_metrics()``, ``hbm_metrics()``, the ``MULTIHOST_*``, ``HBM_*`` and
-``QUEUE_*`` constants), so the port reads no YAML.
+decision and each change's signal-propagation latency.  With a
+``checkpoint_store`` (control/checkpoint.py) it saves its state after every
+sync and restores it when built, so a restarted controller keeps its
+stabilization windows.  The capacity conditions are not ported.
+``behavior_from_manifest`` and ``metrics_from_manifest`` parse an HPA
+manifest given as a dict; the shipped manifests' values are also written in
+code here (``shipped_behavior()``, ``train_metrics()``, ``hbm_metrics()``,
+the ``MULTIHOST_*``, ``HBM_*`` and ``QUEUE_*`` constants), so the port
+reads no YAML.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Protocol
 
 from k8s_gpu_hpa_tpu_torch.control.adapter import CustomMetricsAdapter, ObjectReference
+from k8s_gpu_hpa_tpu_torch.control.checkpoint import CHECKPOINT_VERSION
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock
 from k8s_gpu_hpa_tpu_torch.utils.quantity import parse_quantity
 
@@ -427,6 +431,7 @@ class HPAController:
         namespace: str = "default",
         tracer=None,
         selfmetrics=None,
+        checkpoint_store=None,
     ):
         self.target = target
         self.metrics = metrics
@@ -473,6 +478,68 @@ class HPAController:
         self.last_good_sync_at: float | None = None
         #: the workload_change span whose propagation was last observed
         self._propagation_seen: int | None = None
+        #: control.checkpoint.CheckpointStore: the state kept across syncs,
+        #: restored here, before the first sync, so that a restarted
+        #: controller keeps the stabilization windows in force
+        self.checkpoint_store = checkpoint_store
+        self.restored_from_checkpoint = False
+        if checkpoint_store is not None:
+            self.restored_from_checkpoint = self._restore_checkpoint()
+
+    # ---- durable state (control/checkpoint.py) -----------------------------
+
+    def _checkpoint_state(self) -> dict:
+        return {
+            "version": CHECKPOINT_VERSION,
+            "saved_at": self.clock.now(),
+            "recommendations": [list(r) for r in self._recommendations],
+            "scale_events": [list(e) for e in self._scale_events],
+            "last_good_sync_at": self.last_good_sync_at,
+            "status": {
+                "desired_replicas": self.status.desired_replicas,
+                "last_metric_values": dict(self.status.last_metric_values),
+                "last_scale_time": self.status.last_scale_time,
+                "last_reason": self.status.last_reason,
+                "conditions": [
+                    [c.type, c.status, c.reason, c.message, c.last_transition_time]
+                    for c in self.status.conditions.values()
+                ],
+            },
+            "condition_history": [list(h) for h in self.condition_history],
+        }
+
+    def _save_checkpoint(self) -> None:
+        if self.checkpoint_store is not None:
+            self.checkpoint_store.save(self._checkpoint_state())
+
+    def _restore_checkpoint(self) -> bool:
+        """Take the store's state if there is one of this schema.  The
+        scale target stays the truth for ``current_replicas``: a checkpoint
+        restores history, never the world."""
+        state = self.checkpoint_store.load()
+        if not state or state.get("version") != CHECKPOINT_VERSION:
+            return False
+        self._recommendations = [
+            (float(ts), int(rec)) for ts, rec in state.get("recommendations", [])
+        ]
+        events = [(float(ts), int(n)) for ts, n in state.get("scale_events", [])]
+        if events:
+            self._scale_events = events
+        self.last_good_sync_at = state.get("last_good_sync_at")
+        status = state.get("status", {})
+        self.status.desired_replicas = int(status.get("desired_replicas", self.target.replicas))
+        self.status.last_metric_values = dict(status.get("last_metric_values", {}))
+        self.status.last_scale_time = status.get("last_scale_time")
+        self.status.last_reason = status.get("last_reason", "")
+        for type_, st, reason, message, transition in status.get("conditions", []):
+            self.status.conditions[type_] = HPACondition(
+                type_, bool(st), reason, message, transition
+            )
+        self.condition_history = [
+            (float(ts), type_, bool(st), reason)
+            for ts, type_, st, reason in state.get("condition_history", [])
+        ]
+        return True
 
     def _set_condition(self, type_: str, status: bool, reason: str, message: str = "") -> None:
         now = self.clock.now()
@@ -630,7 +697,9 @@ class HPAController:
         and, when replicas change, is followed by a ``scale_event`` span, the
         start of every lineage walk."""
         if self.tracer is None and self.selfmetrics is None:
-            return self._sync_inner()
+            status = self._sync_inner()
+            self._save_checkpoint()
+            return status
         before = self.target.replicas
         wall_start = time.perf_counter()
         span = None
@@ -663,6 +732,7 @@ class HPAController:
                     links=(span.span_id,),
                 )
                 self._observe_propagation(event)
+        self._save_checkpoint()
         return status
 
     def _observe_propagation(self, event) -> None:

@@ -22,12 +22,19 @@ gets the tracer, a ``PipelineSelfMetrics`` is scraped as the
 recorders evaluate after the rules and their burn-rate alerts after them.
 Without it every stage takes its untraced path.
 
-The JAX pipeline's write-ahead log, checkpoints and component restarts,
-sharded scraping and downsampled tiers, the capacity economy with
-``add_tenant_hpa``, and the query planner are not ported; the constructor
-takes none of their parameters.  The planner gives the naive evaluation's
-values bit for bit by its own contract, so the naive ``RuleEvaluator`` here
-records the same series.
+Durability: with ``wal=`` (a ``metrics.wal.WriteAheadLog``) the TSDB logs
+every append and can be rebuilt from the log, and with
+``checkpoint_store=`` (control/checkpoint.py) the HPA keeps its state
+across a rebuild.  ``restart_tsdb``, ``restart_hpa`` and
+``restart_adapter`` crash a component and rebuild it from that state (the
+chaos plane's restart faults drive them); each restart lands in
+``restart_log`` and, traced, as a ``component_restart`` span.
+
+The JAX pipeline's sharded scraping and downsampled tiers, the capacity
+economy with ``add_tenant_hpa``, and the query planner are not ported; the
+constructor takes none of their parameters.  The planner gives the naive
+evaluation's values bit for bit by its own contract, so the naive
+``RuleEvaluator`` here records the same series.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     tpu_test_multihost_avg_rule,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.metrics.wal import WriteAheadLog
 from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import SELF_TARGET_NAME, PipelineSelfMetrics
 from k8s_gpu_hpa_tpu_torch.obs.slo import shipped_slo_alerts, shipped_slo_recorders
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
@@ -102,18 +110,28 @@ class AutoscalingPipeline:
         extra_adapter_rules: list[AdapterRule] | None = None,
         tracer=None,
         structured_scrapes: bool = True,
+        wal=None,
+        checkpoint_store=None,
     ):
         self.cluster = cluster
         self.deployment = deployment
         self.intervals = intervals or PipelineIntervals()
         clock: VirtualClock = cluster.clock
+        #: the TSDB's WriteAheadLog and the HPA's CheckpointStore, kept for
+        #: the restarts, which rebuild from them
+        self.wal = wal
+        self.checkpoint_store = checkpoint_store
+        #: one entry a component restart: component, at, recovery stats
+        self.restart_log: list[dict] = []
         self.tracer = tracer
         self.selfmetrics = None
         if tracer is not None:
             cluster.tracer = tracer
             self.selfmetrics = PipelineSelfMetrics(clock=clock)
-        self.db = TimeSeriesDB(clock)
-        self.scraper = Scraper(self.db, tracer=tracer, selfmetrics=self.selfmetrics)
+        self.db = TimeSeriesDB(clock, wal=wal)
+        self.scraper = Scraper(
+            self.db, interval=self.intervals.scrape, tracer=tracer, selfmetrics=self.selfmetrics
+        )
         # Structured scrapes (the default) hand the scraper the exporters'
         # families, the same samples without a text round trip;
         # structured_scrapes=False runs the text path end to end.
@@ -197,6 +215,7 @@ class AutoscalingPipeline:
             namespace=deployment.namespace,
             tracer=tracer,
             selfmetrics=self.selfmetrics,
+            checkpoint_store=checkpoint_store,
         )
         self.scale_history: list[tuple[float, int, int]] = []  # (ts, from, to)
         self.hpa.on_scale = lambda a, b: self.scale_history.append((clock.now(), a, b))
@@ -248,3 +267,104 @@ class AutoscalingPipeline:
 
     def running(self) -> int:
         return len(self.cluster.running_pods(self.deployment.name))
+
+    # ---- crash and restart (the chaos plane's restart faults) --------------
+
+    def restart_tsdb(self, from_wal: bool = True) -> dict:
+        """Kill the TSDB and rebuild it: from its WAL when one is attached
+        (``TimeSeriesDB.recover``), else empty (the failure durability
+        exists to prevent, kept so a drill can show the difference).  The
+        scraper, the evaluator and the adapter are pointed at the new DB,
+        and the scraper spreads its next sweep so the recovered DB does not
+        take every target on one tick.  JAX's restart also drops the query
+        planner's plans and re-attaches its counters; the port has no
+        planner."""
+        old = self.db
+        if from_wal and self.wal is not None:
+            # a crashed process cannot reuse its file handles: a new WAL over
+            # the same directory opens a segment past any torn tail, as a
+            # real restart would
+            self.wal.close()
+            self.wal = WriteAheadLog(self.wal.directory, self.wal.segment_max_records)
+            db = TimeSeriesDB.recover(
+                self.wal,
+                self._clock,
+                lookback=old.lookback,
+                retention=old.retention,
+                snapshot_every=old.snapshot_every,
+                chunk_size=old.chunk_size,
+            )
+            info = dict(db.last_recovery or {})
+        else:
+            db = TimeSeriesDB(
+                self._clock,
+                lookback=old.lookback,
+                retention=old.retention,
+                chunk_size=old.chunk_size,
+            )
+            info = {"snapshot_restored": False, "recovered_points": 0}
+        self.db = db
+        self.scraper.db = db
+        self.evaluator.db = db
+        self.adapter.db = db
+        self.scraper.stagger_after_recovery()
+        return self._log_restart("tsdb", info)
+
+    def restart_hpa(self) -> dict:
+        """Kill the HPAController and build a replacement with the same
+        wiring, restored from the checkpoint store when one is attached (it
+        takes the stabilization window and the scale-event history before
+        its first sync)."""
+        old = self.hpa
+        self.hpa = HPAController(
+            target=old.target,
+            metrics=old.metrics,
+            adapter=self.adapter,
+            clock=self._clock,
+            min_replicas=old.min_replicas,
+            max_replicas=old.max_replicas,
+            behavior=old.behavior,
+            on_scale=old.on_scale,
+            replica_quantum=old.replica_quantum,
+            resource_metrics=old.resource_metrics,
+            pod_lister=old.pod_lister,
+            namespace=old.namespace,
+            tracer=old.tracer,
+            selfmetrics=old.selfmetrics,
+            checkpoint_store=self.checkpoint_store,
+        )
+        return self._log_restart("hpa", {"checkpoint_restored": self.hpa.restored_from_checkpoint})
+
+    def restart_adapter(self) -> dict:
+        """Kill the CustomMetricsAdapter and rebuild it over the live DB.
+        The adapter keeps no state between queries, so its restart is
+        rewiring alone; a drill shows that it is."""
+        old = self.adapter
+        self.adapter = CustomMetricsAdapter(
+            self.db,
+            list(old.rules.values()),
+            external_rules=list(old.external_rules.values()),
+            tracer=old.tracer,
+            selfmetrics=old.selfmetrics,
+        )
+        self.hpa.adapter = self.adapter
+        return self._log_restart("adapter", {})
+
+    def _log_restart(self, component: str, info: dict) -> dict:
+        entry = {"component": component, "at": self._clock.now(), **info}
+        self.restart_log.append(entry)
+        if self.tracer is not None:
+            attrs = {"component": component}
+            for key in (
+                "snapshot_restored",
+                "recovered_series",
+                "recovered_points",
+                "replayed_records",
+                "dropped_records",
+                "replay_gap_seconds",
+                "checkpoint_restored",
+            ):
+                if info.get(key) is not None:
+                    attrs[key] = info[key]
+            self.tracer.emit("component_restart", attrs)
+        return entry

@@ -25,8 +25,20 @@ points.  Retention is the JAX package's: points leave in whole groups of
 ``chunk_size`` (its sealed Gorilla chunks), counted from the series' first
 point, once a group's last point is older than ``retention``; the open
 group (JAX's head) never leaves.  So a read older than the lookback sees
-what JAX's sees.  The JAX package's write-ahead log, Gorilla encoding,
-downsampled tiers, stale-series GC and profiling stages are not ported.
+what JAX's sees.  A series ended by a staleness marker is dropped by
+``gc`` once the marker is older than the lookback, every ``GC_EVERY``
+appends, as in JAX.
+
+Durability: constructed with a ``WriteAheadLog`` (metrics/wal.py), the DB
+logs every accepted append (markers too) before the call returns and cuts
+a snapshot every ``snapshot_every`` logged records; ``TimeSeriesDB.recover``
+rebuilds the store (points with their origins, version counters, the
+pending-staleness map) from the snapshot and a replay of the tail.  The
+snapshot is JAX's format 1, per-point ``[ts, value|null, origin]``
+triples, which JAX's ``recover`` reads; JAX's formats 2 and 3 carry
+Gorilla chunks and rollups, which the port has not (they come with the
+metrics plane at scale).  The JAX package's Gorilla encoding, downsampled
+tiers, exemplars and profiling stages are not ported.
 
 Targets may report how long serving took (``TimedExposition``,
 ``StructuredExposition``): a fetch past its target's ``deadline`` counts as
@@ -39,6 +51,7 @@ from __future__ import annotations
 import math
 import random
 import time
+import zlib
 from bisect import bisect_right
 from dataclasses import dataclass, field
 from typing import Callable
@@ -76,15 +89,27 @@ class _Series:
         return self.ts[idx], value, self.origins[idx]
 
 
+#: the snapshot payload format ``TimeSeriesDB.snapshot`` writes: JAX's
+#: format 1 (per-point triples), the one its ``recover`` reads without
+#: Gorilla chunks
+SNAPSHOT_FORMAT = 1
+
+
 class TimeSeriesDB:
     """Store of named series with bounded retention, queried as instant
     vectors."""
+
+    #: the GC's cadence: every this many appends, drop the series whose
+    #: staleness marker is older than the lookback
+    GC_EVERY = 4096
 
     def __init__(
         self,
         clock: Clock | None = None,
         lookback: float = 300.0,
         retention: float | None = None,
+        wal=None,
+        snapshot_every: int = 8192,
         chunk_size: int = 64,
     ):
         self.clock = clock or SystemClock()
@@ -97,8 +122,23 @@ class TimeSeriesDB:
         self._data: dict[str, dict[LabelSet, _Series]] = {}
         #: per-name monotonic write counters (staleness markers included)
         self._versions: dict[str, int] = {}
+        #: (name, labels) -> marker ts of each series a staleness marker
+        #: ended; ``gc`` drops it once the marker is older than the lookback
+        self._stale_pending: dict[tuple[str, LabelSet], float] = {}
+        self._appends_since_gc = 0
         #: the active read capture (see begin_capture), else None
         self._capture: list[tuple[str, LabelSet, float, float, int | None, str]] | None = None
+        #: metrics.wal.WriteAheadLog, or None for a DB in memory only; each
+        #: accepted append is logged, and a snapshot cut every
+        #: ``snapshot_every`` logged records bounds a restart's replay
+        self.wal = wal
+        self.snapshot_every = snapshot_every
+        self._wal_records_since_snapshot = 0
+        #: True while ``recover`` replays the tail: nothing is logged again
+        self._replaying = False
+        #: the stats of the recovery that built this DB (``recover``), else
+        #: None
+        self.last_recovery: dict | None = None
 
     def append(
         self,
@@ -132,6 +172,169 @@ class TimeSeriesDB:
         while len(series.ts) >= size and series.ts[size - 1] < cutoff:
             del series.ts[:size], series.values[:size], series.origins[:size]
         self._versions[name] = self._versions.get(name, 0) + 1
+        if value != value:  # a marker: the ended series waits for the GC
+            self._stale_pending[(name, labels)] = ts
+        elif self._stale_pending:
+            # a live point brings a marker-ended series back
+            self._stale_pending.pop((name, labels), None)
+        self._appends_since_gc += 1
+        if self._appends_since_gc >= self.GC_EVERY:
+            self.gc()
+        if self.wal is not None and not self._replaying:
+            self.wal.log_append(name, labels, value, ts, origin)
+            self._wal_records_since_snapshot += 1
+            if self._wal_records_since_snapshot >= self.snapshot_every:
+                self.snapshot()
+
+    def gc(self) -> int:
+        """Drop the series whose staleness marker is older than the
+        lookback: no read at or after ``marker + lookback`` can tell the
+        dropped series from its marker.  Runs every ``GC_EVERY`` appends;
+        returns the number of series dropped."""
+        self._appends_since_gc = 0
+        if not self._stale_pending:
+            return 0
+        now = self.clock.now()
+        dropped = 0
+        for key, marker_ts in list(self._stale_pending.items()):
+            if now - marker_ts <= self.lookback:
+                continue
+            del self._stale_pending[key]
+            name, labels = key
+            by_name = self._data.get(name)
+            if by_name is None or by_name.pop(labels, None) is None:
+                continue
+            if not by_name:
+                del self._data[name]
+            dropped += 1
+        return dropped
+
+    # ---- durability (snapshot and recovery) --------------------------------
+
+    def snapshot(self) -> None:
+        """Cut a snapshot of the whole state into the WAL and drop the
+        segments it subsumes: the retained points with their origins (so
+        lineage survives a restart), the version counters (so incremental
+        rule evaluation compares as before) and the pending-staleness map
+        (so the GC resumes where it was)."""
+        if self.wal is None:
+            return
+        self.wal.write_snapshot(self.snapshot_payload())
+        self._wal_records_since_snapshot = 0
+
+    def snapshot_payload(self) -> dict:
+        """The format-1 snapshot payload: each series' points as
+        ``[ts, value or None for a marker, origin]``."""
+        return {
+            "format": SNAPSHOT_FORMAT,
+            "at": self.clock.now(),
+            "lookback": self.lookback,
+            "retention": self.retention,
+            "series": [
+                {
+                    "name": name,
+                    "labels": list(series.labels),
+                    "points": [
+                        [ts, None if value != value else value, origin]
+                        for ts, value, origin in zip(series.ts, series.values, series.origins)
+                    ],
+                }
+                for name, by_name in self._data.items()
+                for series in by_name.values()
+            ],
+            "versions": dict(self._versions),
+            "stale_pending": [
+                [name, list(labels), ts] for (name, labels), ts in self._stale_pending.items()
+            ],
+            "exemplars": [],
+        }
+
+    @classmethod
+    def recover(
+        cls,
+        wal,
+        clock: Clock | None = None,
+        lookback: float = 300.0,
+        retention: float | None = None,
+        snapshot_every: int = 8192,
+        chunk_size: int = 64,
+    ) -> "TimeSeriesDB":
+        """Rebuild a DB from its WAL: restore the snapshot, then replay the
+        tail in append order through ``append`` itself, which rebuilds the
+        version counters, retention and staleness as it built them the
+        first time.  A tail record at the newest timestamp of its series
+        appends (a snapshot cut inside a tick); one that lands out of order
+        (after a ``wal_truncate`` tear) is dropped, never fatal.  A payload
+        of format 2 or 3 (JAX's Gorilla chunks and rollups) raises.
+
+        The DB takes over ``wal`` and stamps ``last_recovery`` with the
+        replay's stats; ``replay_gap_seconds`` is the clock's time less the
+        newest timestamp recovered."""
+        payload, tail = wal.read()
+        fmt = 1 if payload is None else payload.get("format", 1)
+        if fmt != 1:
+            raise ValueError(
+                f"snapshot format {fmt} holds Gorilla chunks, which the port reads "
+                "from the metrics-plane slice (queue 1, slice 4) on; it reads format 1"
+            )
+        db = cls(
+            clock,
+            lookback=(payload or {}).get("lookback", lookback),
+            retention=(payload or {}).get("retention", retention),
+            snapshot_every=snapshot_every,
+            chunk_size=chunk_size,
+        )
+        newest_ts = -math.inf
+        recovered_points = 0
+        if payload is not None:
+            for entry in payload["series"]:
+                if not entry["points"]:
+                    continue
+                labels = tuple((k, v) for k, v in entry["labels"])
+                series = _Series(labels)
+                for ts, value, origin in entry["points"]:
+                    series.ts.append(ts)
+                    series.values.append(float("nan") if value is None else value)
+                    series.origins.append(origin)
+                db._data.setdefault(entry["name"], {})[labels] = series
+                recovered_points += len(series.ts)
+                newest_ts = max(newest_ts, series.ts[-1])
+            db._versions.update(payload.get("versions", {}))
+            for name, labels, ts in payload.get("stale_pending", []):
+                db._stale_pending[(name, tuple((k, v) for k, v in labels))] = ts
+        replayed = dropped = 0
+        db._replaying = True
+        try:
+            for rec in tail:
+                labels = tuple((k, v) for k, v in rec["labels"])
+                value = float("nan") if rec["op"] == "stale" else rec["value"]
+                try:
+                    db.append(rec["name"], labels, value, rec["ts"], rec.get("origin"))
+                except ValueError:
+                    dropped += 1
+                    continue
+                replayed += 1
+                recovered_points += 1
+                newest_ts = max(newest_ts, rec["ts"])
+        finally:
+            db._replaying = False
+        db.wal = wal
+        now = db.clock.now()
+        db.last_recovery = {
+            "snapshot_restored": payload is not None,
+            "recovered_series": db.series_count(),
+            "recovered_points": recovered_points,
+            "replayed_records": replayed,
+            "dropped_records": dropped,
+            "newest_ts": None if newest_ts == -math.inf else newest_ts,
+            "replay_gap_seconds": (
+                max(0.0, now - newest_ts) if newest_ts != -math.inf else None
+            ),
+            "rollup_series_restored": 0,
+            "rollup_series_rebuilt": 0,
+            "rollup_enabled": False,
+        }
+        return db
 
     def mark_stale(
         self,
@@ -198,6 +401,13 @@ class TimeSeriesDB:
     def series_names(self) -> list[str]:
         return sorted(self._data)
 
+    def series_count(self) -> int:
+        return sum(len(by_name) for by_name in self._data.values())
+
+    def total_points(self) -> int:
+        """Points retained across all series."""
+        return sum(len(s.ts) for by_name in self._data.values() for s in by_name.values())
+
     def version(self, name: str) -> int:
         """Monotonic write counter for ``name``: bumps on every append to any
         series of the name (staleness markers included)."""
@@ -256,6 +466,8 @@ class ScrapeTarget:
     consecutive_failures: int = 0
     #: do not re-attempt before this timestamp (backoff gate)
     next_attempt_at: float = -math.inf
+    #: fetch attempts made
+    attempts: int = 0
     #: optional provider of the span id of the upstream data a successful
     #: fetch served (the node exporter's last collection sweep); the scrape
     #: span links to it, rooting metric lineage at the raw device samples
@@ -281,6 +493,7 @@ class Scraper:
     def __init__(
         self,
         db: TimeSeriesDB,
+        interval: float = 1.0,
         backoff_base: float = 1.0,
         backoff_cap: float = 30.0,
         backoff_jitter: float = 0.1,
@@ -288,6 +501,9 @@ class Scraper:
         selfmetrics=None,
     ):
         self.db = db
+        #: the caller's scrape period, which spreads the sweep after a
+        #: recovery (``stagger_after_recovery``)
+        self.interval = interval
         self.backoff_base = backoff_base
         self.backoff_cap = backoff_cap
         self.backoff_jitter = backoff_jitter
@@ -324,6 +540,20 @@ class Scraper:
             1.0 + self.backoff_jitter * self._rng.random()
         )
 
+    def stagger_after_recovery(self, spread: float | None = None) -> None:
+        """Spread the first sweep after a TSDB restart: every target's gap
+        ran out while the DB was down, so without this they all land on one
+        tick.  Each target gets a slot inside ``spread`` (4 intervals by
+        default) keyed by a CRC of its ``up`` label set, which is the same
+        in every process (``hash()`` is salted) and the JAX package's.  A
+        target is never moved earlier than a backoff in force."""
+        if spread is None:
+            spread = 4.0 * self.interval
+        now = self.db.clock.now()
+        for target in self.targets:
+            frac = (zlib.crc32(repr(self._up_labels(target)).encode()) % 1024) / 1024.0
+            target.next_attempt_at = max(target.next_attempt_at, now + spread * frac)
+
     def scrape_once(self) -> int:
         """Scrape every due target; returns the number of samples ingested.
 
@@ -338,6 +568,7 @@ class Scraper:
         for target in self.targets:
             if ts < target.next_attempt_at:
                 continue  # backing off after consecutive failures
+            target.attempts += 1
             span = tracer.open("scrape", {"target": target.name or "?"}) if tracer else None
             origin = None if span is None else span.span_id
             wall_start = time.perf_counter()

@@ -32,7 +32,13 @@ Scenarios (offered load in percent of one device; the replicas share it):
 - ``slo``:    the SLO burn-rate alerts scored both ways (``run_slo_check``):
               a clean staircase, where any SLO alert is a false positive,
               and the same staircase with a total scrape blackout, where
-              the fast scrape-success alert must fire.  Exit 2 otherwise.
+              the fast scrape-success alert must fire.  Exit 2 otherwise;
+- ``drill``:  the recovery drill (``control.scale_harness``), which needs no
+              manifest: a durable pipeline (WAL, HPA checkpoint) has each
+              of ``--components`` (tsdb, hpa, adapter, wal; default all)
+              crashed and rebuilt mid-run, then a surge.  Exit 2 when a
+              fault never recovers, a scale event falls in a recovery
+              window, a lineage is incomplete, or a component is unknown.
 
 An External-metric HPA (the queue rung, deploy/tpu-test-external-hpa.yaml)
 is told from its manifest and plays ``spike``, ``ramp`` and ``flap`` in
@@ -42,9 +48,8 @@ so the replicas do not feed back into it).
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
 JAX simulator's sharded and planner runs (``shards``, ``explain``, the
-query-engine line of ``trace``) and its capacity, recovery, history,
-coverage, race, fuzz, profile, evacuation and incident scenarios are not
-ported.
+query-engine line of ``trace``) and its capacity, history, coverage, race,
+fuzz, profile, evacuation and incident scenarios are not ported.
 """
 
 from __future__ import annotations
@@ -580,6 +585,27 @@ def _main_chaos(args) -> int:
     return 0
 
 
+def _main_drill(args) -> int:
+    """The ``drill`` scenario: crash each of ``--components`` mid-run and
+    require the loop to converge again, with no scale event in a recovery
+    window and every lineage complete.  ``--hpa`` is ignored."""
+    from k8s_gpu_hpa_tpu_torch.control.scale_harness import (
+        DRILL_COMPONENTS,
+        render_drill_report,
+        run_recovery_drill,
+    )
+
+    raw = getattr(args, "components", None) or ",".join(DRILL_COMPONENTS)
+    components = tuple(c.strip() for c in raw.split(",") if c.strip())
+    try:
+        result = run_recovery_drill(components=components, pod_start_latency=args.pod_start)
+    except ValueError as e:
+        print(f"simulate: {e}")
+        return 2
+    print(render_drill_report(result))
+    return 0 if result["ok"] else 2
+
+
 def main(args) -> int:
     """Run ``args.scenario`` on the manifest ``args.hpa`` and print the
     report.  Exit 2 with a one-line diagnosis for a manifest or scenario the
@@ -588,6 +614,8 @@ def main(args) -> int:
         return _main_trace(args)
     if args.scenario == "chaos":
         return _main_chaos(args)
+    if args.scenario == "drill":
+        return _main_drill(args)
     if args.scenario == "slo":
         result = run_slo_check(pod_start_latency=args.pod_start)
         print(render_slo_report(result))
@@ -629,7 +657,9 @@ def add_arguments(parser) -> None:
     """The ``simulate`` command's flags (``python -m k8s_gpu_hpa_tpu_torch
     simulate``)."""
     parser.add_argument("--hpa", default="deploy/tpu-test-hpa.yaml")
-    parser.add_argument("--scenario", choices=[*SCENARIOS, "trace", "chaos", "slo"], default="spike")
+    parser.add_argument(
+        "--scenario", choices=[*SCENARIOS, "trace", "chaos", "slo", "drill"], default="spike"
+    )
     parser.add_argument("--duration", type=float, default=420.0)
     parser.add_argument("--pod-start", type=float, default=12.0)
     parser.add_argument(
@@ -644,4 +674,10 @@ def add_arguments(parser) -> None:
         "--trace-out",
         default=None,
         help="JSONL span export path for --scenario trace (default trace.jsonl)",
+    )
+    parser.add_argument(
+        "--components",
+        default=None,
+        help="comma list of components --scenario drill restarts "
+        "(tsdb,hpa,adapter,wal); default all",
     )

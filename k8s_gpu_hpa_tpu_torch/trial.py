@@ -67,7 +67,9 @@ load steps and reports how long each step takes to reach a sync and a scale
 event.  The live loops run untraced, as bench.py's.  The chaos rungs,
 ``chaos_storm_rung`` and ``slo_burn_rung`` (bench.py's ``run_rung_chaos``
 and ``run_rung_slo_burn``), run the canned fault storm and the SLO
-burn-rate check on virtual clocks.
+burn-rate check on virtual clocks, and ``recovery_drill_rung`` (bench.py's
+``run_rung_recovery_drill``, ``drill_rung`` of a finished drill) the
+recovery drill, each durable component crashed and rebuilt mid-run.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -131,6 +133,7 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     train_metrics,
 )
 from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
+from k8s_gpu_hpa_tpu_torch.control.scale_harness import run_recovery_drill
 from k8s_gpu_hpa_tpu_torch.device import resolve
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
 from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttributor
@@ -1484,6 +1487,34 @@ def slo_burn_rung() -> dict:
         "slow_detection_s": result["slow_detection_s"],
         "ok": result["ok"],
     }
+
+
+def drill_rung(result: dict) -> dict:
+    """bench.py's ``recovery_drill`` rung dict, key for key, from a
+    finished drill (``control.scale_harness.run_recovery_drill``): each
+    restart's MTTR, the worst replay gap and first good sync, and whether
+    any scale event fell in a recovery window."""
+    return {
+        "mode": "virtual",
+        "metric": "recovery drill MTTR (s, restart -> reconverged)",
+        "components": result["components"],
+        "settled_replicas": result["settled_replicas"],
+        "mttr_s": {f["fault"]: f["mttr"] for f in result["faults"]},
+        "mttr_max_s": result["mttr_max_s"],
+        "replay_gap_max_s": result["replay_gap_max_s"],
+        "first_good_sync_max_s": result["first_good_sync_max_s"],
+        "all_recovered": result["all_recovered"],
+        "spurious_scale_events_during_replay": result["spurious_scale_events_during_replay"],
+        "lineage_complete": result["lineage_complete"],
+        "final_replicas": result["final_replicas"],
+        "ok": result["ok"],
+    }
+
+
+def recovery_drill_rung() -> dict:
+    """bench.py's ``recovery_drill`` rung (``run_rung_recovery_drill``):
+    ``drill_rung`` of the drill at the base pod start."""
+    return drill_rung(run_recovery_drill(pod_start_latency=BASE_POD_START_LATENCY))
 
 
 class QueueJoint:

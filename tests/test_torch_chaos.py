@@ -2,15 +2,20 @@
 (``metrics/tsdb.py``) and the ``chaos`` and ``slo`` scenarios
 (``simulate.py``) against the JAX package's.
 
-- The registry: the nine ported kinds, which are JAX's less the restart,
-  tenant, provisioning, region and object-store kinds of later slices;
+- The registry: the thirteen ported kinds, which are JAX's less the
+  tenant, provisioning, region and object-store kinds of a later slice;
   ``FaultSpec``'s names and refusals.
-- Each of the nine kinds, injected with its natural spec into equal
-  pipelines (two nodes of 4 devices, 90% shared load, target 40), held,
+- Each of the thirteen kinds, injected with its natural spec into equal
+  pipelines (two nodes of 4 devices, 90% shared load, target 40; a WAL
+  and an in-memory checkpoint store for the four restart kinds), held,
   cleared twice and followed for 90 s: the same ``scale_history``, HPA
-  conditions, replicas and ``up`` series at every second as JAX's, and the
-  JAX test's hygiene (the loop healthy again, no wrapped fetch left);
-  ``frozen_samples`` and ``slow_scrape`` on the text scrape path too.
+  conditions, replicas, ``up`` series and restart log at every second as
+  JAX's, and the JAX test's hygiene (the loop healthy again, no wrapped
+  fetch left, every consumer on the recovered TSDB);
+  ``frozen_samples`` and ``slow_scrape`` on the text scrape path too.  A
+  TSDB restart from the WAL keeps its points and a cold one loses them, an
+  adapter restart inside a blackout outlives the blackout's clear, and
+  ``wal_truncate`` without a WAL is refused, each as JAX's.
 - Overlapping windows, after tests/test_fault_injectors.py: two scrape
   faults on one target, two same-kind node, crash-loop and adapter
   windows, a preempt inside a drain, and an adapter put in during a
@@ -47,17 +52,19 @@ from k8s_gpu_hpa_tpu import simulate as jax_simulate
 from k8s_gpu_hpa_tpu.chaos import faults as jax_faults
 from k8s_gpu_hpa_tpu.chaos import schedule as jax_schedule
 from k8s_gpu_hpa_tpu.chaos import storm as jax_storm
+from k8s_gpu_hpa_tpu.control import checkpoint as jax_checkpoint
 from k8s_gpu_hpa_tpu.control import cluster as jax_cluster
 from k8s_gpu_hpa_tpu.control import loop as jax_loop
 from k8s_gpu_hpa_tpu.metrics import exposition as jax_exposition
 from k8s_gpu_hpa_tpu.metrics import tsdb as jax_tsdb
+from k8s_gpu_hpa_tpu.metrics import wal as jax_wal
 from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
 from k8s_gpu_hpa_tpu.utils import clock as jax_clock
 import k8s_gpu_hpa_tpu_torch.__main__ as cli
 from k8s_gpu_hpa_tpu_torch import chaos, obs, simulate, trial
 from k8s_gpu_hpa_tpu_torch.chaos import faults, schedule, storm
-from k8s_gpu_hpa_tpu_torch.control import cluster, loop
-from k8s_gpu_hpa_tpu_torch.metrics import exposition, tsdb
+from k8s_gpu_hpa_tpu_torch.control import checkpoint, cluster, loop
+from k8s_gpu_hpa_tpu_torch.metrics import exposition, tsdb, wal
 from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
 from k8s_gpu_hpa_tpu_torch.utils import clock
 from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
@@ -67,15 +74,17 @@ torch.set_num_threads(1)
 
 PORT = dict(chaos=chaos, faults=faults, schedule=schedule, storm=storm, cluster=cluster,
             loop=loop, clock=clock, tsdb=tsdb, obs=obs, exposition=exposition,
-            selfmetrics=selfmetrics, simulate=simulate)
+            selfmetrics=selfmetrics, simulate=simulate, wal=wal, checkpoint=checkpoint)
 JAX = dict(chaos=jax_chaos, faults=jax_faults, schedule=jax_schedule, storm=jax_storm,
            cluster=jax_cluster, loop=jax_loop, clock=jax_clock, tsdb=jax_tsdb, obs=jax_obs,
-           exposition=jax_exposition, selfmetrics=jax_selfmetrics, simulate=jax_simulate)
+           exposition=jax_exposition, selfmetrics=jax_selfmetrics, simulate=jax_simulate,
+           wal=jax_wal, checkpoint=jax_checkpoint)
 
-#: the JAX kinds that come with later slices: durability, then capacity and regions
-LATER_KINDS = {"tsdb_restart", "hpa_restart", "adapter_restart", "wal_truncate",
-               "tenant_spike", "provision_fail", "region_kill", "region_partition",
+#: the JAX kinds that come with a later slice: capacity and regions
+LATER_KINDS = {"tenant_spike", "provision_fail", "region_kill", "region_partition",
                "objstore_outage"}
+#: the impulse restarts, which run on a pipeline with a WAL and a checkpoint store
+RESTART_KINDS = {"tsdb_restart", "hpa_restart", "adapter_restart", "wal_truncate"}
 #: tests/test_fault_injectors.py's natural spec of each ported kind
 NATURAL_SPECS = {
     "exporter_outage": dict(duration=10.0),
@@ -87,6 +96,10 @@ NATURAL_SPECS = {
     "pod_crash": dict(),
     "crashloop": dict(duration=10.0),
     "adapter_blackout": dict(duration=10.0),
+    "tsdb_restart": dict(),
+    "hpa_restart": dict(),
+    "adapter_restart": dict(),
+    "wal_truncate": dict(params={"records": 8}),
 }
 
 
@@ -123,10 +136,11 @@ def test_a_kind_of_a_later_slice_is_refused(kind):
 # ---- each kind on equal pipelines ------------------------------------------------
 
 
-def make_pipeline(mods, structured_scrapes: bool = True, tracer=False):
-    """tests/test_fault_injectors.py's pipeline without its WAL, checkpoint
-    store, capacity economy and region: two nodes of 4 devices, 90% shared
-    load, target 40, settled for 60 s."""
+def make_pipeline(mods, structured_scrapes: bool = True, tracer=False, durable=None):
+    """tests/test_fault_injectors.py's pipeline without its capacity economy
+    and region: two nodes of 4 devices, 90% shared load, target 40, settled
+    for 60 s; with ``durable`` (a directory) its WAL there and an in-memory
+    checkpoint store, as the JAX test's, else neither."""
     vclock = mods["clock"].VirtualClock()
     sim = mods["cluster"].SimCluster(
         vclock, nodes=[("tpu-node-0", 4), ("tpu-node-1", 4)], pod_start_latency=12.0)
@@ -135,6 +149,9 @@ def make_pipeline(mods, structured_scrapes: bool = True, tracer=False):
     sim.add_deployment(dep, replicas=1)
     vclock.advance(15.0)
     kw = {"tracer": mods["obs"].Tracer(vclock)} if tracer else {}
+    if durable is not None:
+        kw.update(wal=mods["wal"].WriteAheadLog(durable / "wal", segment_max_records=256),
+                  checkpoint_store=mods["checkpoint"].InMemoryCheckpointStore())
     pipe = mods["loop"].AutoscalingPipeline(sim, dep, target_value=40.0, max_replicas=4,
                                             structured_scrapes=structured_scrapes, **kw)
     pipe.start()
@@ -147,8 +164,8 @@ def _observe(pipe) -> tuple:
     return pipe.clock.now(), ups, pipe.replicas(), pipe.running(), pipe.hpa.status.last_reason
 
 
-def _kind_run(mods, kind: str, structured_scrapes: bool = True) -> dict:
-    vclock, pipe = make_pipeline(mods, structured_scrapes)
+def _kind_run(mods, kind: str, structured_scrapes: bool = True, durable=None) -> dict:
+    vclock, pipe = make_pipeline(mods, structured_scrapes, durable=durable)
     spec = mods["faults"].FaultSpec(kind=kind, at=0.0, **NATURAL_SPECS[kind])
     clear = mods["faults"].FAULT_KINDS[kind](pipe, spec)
     seconds = []
@@ -168,19 +185,80 @@ def _kind_run(mods, kind: str, structured_scrapes: bool = True) -> dict:
         "up_node_1": pipe.db.latest("up", {"target": "exporter/tpu-node-1"}),
         "depths": [getattr(t, "_fault_depth", 0) for t in pipe.scraper.targets],
         "running": (pipe.running(), pipe.replicas()),
+        "restarts": pipe.restart_log,
+        "rewired": [c.db is pipe.db for c in (pipe.scraper, pipe.evaluator, pipe.adapter)],
+        "hpa_adapter": pipe.hpa.adapter is pipe.adapter,
+        "restored": pipe.hpa.restored_from_checkpoint,
     }
 
 
 @pytest.mark.parametrize("kind", sorted(NATURAL_SPECS))
-def test_each_kind_breaks_and_heals_the_pipeline_as_jax_s(kind):
-    port = _kind_run(PORT, kind)
-    assert port == _kind_run(JAX, kind)
+def test_each_kind_breaks_and_heals_the_pipeline_as_jax_s(kind, tmp_path):
+    durable = {}
+    if kind in RESTART_KINDS:
+        durable = {"port": tmp_path / "port", "jax": tmp_path / "jax"}
+    port = _kind_run(PORT, kind, durable=durable.get("port"))
+    assert port == _kind_run(JAX, kind, durable=durable.get("jax"))
     # tests/test_fault_injectors.py's hygiene
     running, replicas = port["running"]
     assert running == replicas >= 1
     assert port["up_node_1"] == 1.0
     assert port["depths"] == [0] * len(port["depths"])
     assert port["healthy"]
+    assert port["rewired"] == [True] * 3 and port["hpa_adapter"]
+    assert bool(port["restarts"]) == (kind in RESTART_KINDS)
+    if kind in RESTART_KINDS:
+        assert port["restarts"][-1]["component"] == kind.split("_")[0].replace("wal", "tsdb")
+    if kind in ("tsdb_restart", "wal_truncate"):
+        assert port["restarts"][-1]["snapshot_restored"] is False
+        assert port["restarts"][-1]["replayed_records"] > 0
+    assert port["restored"] == (kind == "hpa_restart")
+
+
+def _tsdb_restarts(mods, directory) -> list:
+    """tests/test_fault_injectors.py's TSDB restart from the WAL, then cold."""
+    _, pipe = make_pipeline(mods, durable=directory)
+    before = pipe.db.total_points()
+    warm = pipe.restart_tsdb()
+    after = pipe.db.total_points()
+    cold = pipe.restart_tsdb(from_wal=False)
+    return [before, warm, after, cold, pipe.db.total_points()]
+
+
+def test_a_tsdb_restart_from_the_wal_keeps_its_points_and_a_cold_one_loses_them(tmp_path):
+    port = _tsdb_restarts(PORT, tmp_path / "port")
+    assert port == _tsdb_restarts(JAX, tmp_path / "jax")
+    before, warm, after, cold, last = port
+    assert before > 0 and after == before and warm["replayed_records"] > 0
+    assert cold == {"component": "tsdb", "at": cold["at"], "snapshot_restored": False,
+                    "recovered_points": 0}
+    assert last == 0
+
+
+def _restart_in_blackout(mods, directory) -> tuple:
+    _, pipe = make_pipeline(mods, durable=directory)
+    f = mods["faults"]
+    clear = f.FAULT_KINDS["adapter_blackout"](pipe, f.FaultSpec("adapter_blackout", 0.0, 30.0))
+    f.FAULT_KINDS["adapter_restart"](pipe, f.FaultSpec("adapter_restart", 0.0))
+    restarted = pipe.hpa.adapter
+    clear()
+    return pipe.hpa.adapter is restarted, pipe.hpa.adapter is pipe.adapter
+
+
+def test_an_adapter_restart_in_a_blackout_outlives_its_clear_as_jax_s(tmp_path):
+    assert _restart_in_blackout(PORT, tmp_path / "port") == (True, True)
+    assert _restart_in_blackout(JAX, tmp_path / "jax") == (True, True)
+
+
+def test_wal_truncate_without_a_wal_is_refused_as_jax_s():
+    errors = []
+    for mods in (PORT, JAX):
+        _, pipe = make_pipeline(mods)
+        with pytest.raises(ValueError) as err:
+            mods["faults"].FAULT_KINDS["wal_truncate"](
+                pipe, mods["faults"].FaultSpec("wal_truncate", 0.0))
+        errors.append(str(err.value))
+    assert errors[0] == errors[1] == "wal_truncate: pipeline has no WAL attached"
 
 
 def _broke(run: dict, kind: str) -> bool:
@@ -504,7 +582,7 @@ def test_the_canned_storm_is_jax_s_span_for_span():
     assert [f["detection_time"] for f in port["faults"]] == [0.0] * 4
     assert port["trace_spans"] == 8979
     assert port["fault_window_spans"] == [1954, 2790, 4967, 6851]
-    assert all(f["replay_gap"] is None for f in port["faults"])  # no restart kinds yet
+    assert all(f["replay_gap"] is None for f in port["faults"])  # no restart in the storm
     assert storm.render_chaos_report(port) == jax_storm.render_chaos_report(ref)
 
 

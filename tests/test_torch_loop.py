@@ -277,10 +277,13 @@ def test_a_metric_spec_in_another_namespace_is_refused_as_jax_refuses_it():
 
 
 def test_the_constructor_takes_none_of_the_left_out_parameters():
-    for name in ("wal", "checkpoint_store", "scrape_shards", "downsample", "capacity"):
+    for name in ("scrape_shards", "downsample", "capacity"):
         with pytest.raises(TypeError):
             make_pipeline(PORT, lambda t: 0.0, **{name: None})
     assert not hasattr(loop.AutoscalingPipeline, "add_tenant_hpa")
+    # the durability slice's two are taken, as JAX's
+    pipe = make_pipeline(PORT, lambda t: 0.0, wal=None, checkpoint_store=None)
+    assert (pipe.wal, pipe.checkpoint_store, pipe.restart_log) == (None, None, [])
 
 
 def _tick_order(mods) -> list[tuple[float, str]]:
