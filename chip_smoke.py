@@ -342,9 +342,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    a replay gap of 1.0 s; no scale event in a recovery
                    window; 2 scale events with complete lineages; 4/4 at the
                    end; 8724 spans.  Its two TSDB restarts must recover
-                   131 series, 17406 points, 1022 replayed records and 121,
-                   46644, 7492 (the JAX package's with its six planner and
-                   decode-cache self-metric series left out).  Then a
+                   the JAX package's 137 series, 18300 points, 1916
+                   replayed records and 127, 45486, 2560.  Then a
                    durable pipeline under the drill's load for 10 s has its
                    WAL's last segment cut at every byte: each cut must
                    recover to the snapshot fed exactly the records that
@@ -354,6 +353,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    its first sync, and a torn file must load as None.  The
                    kernels' counts are set to 0 before it and read after:
                    it launches none.
+44. metrics_scale — the metrics plane at scale, in this process on virtual
+                   clocks: bench.py's sim_scale (200 targets over 600 s),
+                   sim_scale_10k (2000 over 600 s on 4 hash-ring shards)
+                   and query_bench (500 series on 4 shard DBs over 1800 s)
+                   rungs at their smoke sizes (trial.sim_scale_rung,
+                   sim_scale_10k_rung and query_bench_rung) on Gorilla
+                   chunks, the query planner and the federated TSDB.  Every
+                   field that does not read the wall clock must be the JAX
+                   package's (METRICS_SCALE_EXPECTED: retained points and
+                   bytes, compression, appends, series, the fleet vector,
+                   the rule's full and skipped evaluations, replicas, scale
+                   events, the ring's invariants, identical vectors, the
+                   planner's and the decode cache's counts), and each
+                   rung's speedup must clear its perfgates floor.  The
+                   query p95 and the appends rate are printed beside their
+                   bars (meets_p95_budget, meets_appends_floor) and do not
+                   fail it.  The kernels' counts are set to 0 before it and
+                   read after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -469,7 +486,7 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
-from k8s_gpu_hpa_tpu_torch import simulate, trial
+from k8s_gpu_hpa_tpu_torch import perfgates, simulate, trial
 from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
 from k8s_gpu_hpa_tpu_torch.chaos import run_fault_storm
 from k8s_gpu_hpa_tpu_torch.doctor import check_alerts, check_self_metrics
@@ -3853,10 +3870,8 @@ DRILL_RESULT_EXPECTED = {
     "final_running": 4, "scale_events": 2, "scale_event_lineages": 2, "trace_spans": 8724,
 }
 #: (recovered_series, recovered_points, replayed_records) at each TSDB
-#: restart of the drill: the port's, which are the JAX package's with its
-#: six planner and decode-cache self-metric series left out (with them,
-#: JAX's are (137, 18300, 1916) and (127, 45486, 2560))
-DRILL_RECOVERIES = [[131, 17406, 1022], [121, 46644, 7492]]
+#: restart of the drill, the JAX package's
+DRILL_RECOVERIES = [[137, 18300, 1916], [127, 45486, 2560]]
 #: the kill check's durable pipeline: seconds of the drill's load, and the
 #: WAL's segment and snapshot cadence (records), small so the last segment
 #: is short and its tail replays fast
@@ -3874,8 +3889,7 @@ def _db_state(db) -> tuple:
     """What a recovery must restore: each series' points with their
     origins (a marker as None), the version counters, the stale map."""
     points = {
-        (name, labels): [(t, None if v != v else v, o)
-                         for t, v, o in zip(series.ts, series.values, series.origins)]
+        (name, labels): [(t, None if v != v else v, o) for t, v, o in series.points]
         for name, by_name in db._data.items() for labels, series in by_name.items()
     }
     return points, dict(db._versions), dict(db._stale_pending)
@@ -4068,6 +4082,83 @@ def phase_drill() -> dict:
     return out
 
 
+#: the metrics plane's three rungs at bench.py's smoke sizes, as the JAX
+#: package gives them (bench.py's run_rung_sim_scale, run_rung_sim_scale_10k
+#: and run_rung_query_bench under BENCH_TIME_SCALE below 1): every field
+#: that does not read the wall clock
+METRICS_SCALE_EXPECTED = {
+    "sim_scale": {
+        "targets": 200, "horizon_s": 600.0, "shards": 0, "peak_retained_points": 23565,
+        "final_retained_points": 23565, "peak_retained_bytes": 74997,
+        "bytes_per_sample": 3.183, "compression_ratio": 5.03, "total_appends": 23600,
+        "series_count": 607, "fleet_vector_size": 200, "rule_full_evals": 41,
+        "rule_skipped_evals": 79, "final_replicas": 5, "scale_events": 4,
+    },
+    "sim_scale_10k": {
+        "targets": 2000, "horizon_s": 600.0, "shards": 4, "peak_retained_points": 167885,
+        "final_retained_points": 167885, "peak_retained_bytes": 565585,
+        "bytes_per_sample": 3.369, "compression_ratio": 4.75, "total_appends": 167920,
+        "series_count": 4215, "fleet_vector_size": 2000, "rule_full_evals": 41,
+        "rule_skipped_evals": 79, "final_replicas": 5, "scale_events": 4,
+        "shards_disjoint": True, "shards_cover_fleet": True,
+    },
+    "query_bench": {
+        "targets": 500, "shards": 4, "horizon_s": 1800.0, "window_s": 1500.0,
+        "retained_points": 180001, "identical": True, "planner_fastpath": 8000,
+        "planner_fallback": 2000, "series_cache_hits": 276, "series_resolves": 14,
+        "plans_built": 7, "decode_cache_hits": 0, "decode_cache_misses": 12000,
+    },
+}
+#: the wall-clock fields each rung prints beside its bars
+METRICS_SCALE_WALL = ("wall_s", "speedup", "speedup_floor", "meets_floor", "query_p50_ms",
+                      "query_p95_ms", "appends_per_sec", "naive_ms", "planned_ms", "exprs",
+                      "federated_scan_p95_ms", "ok")
+
+
+def phase_metrics_scale() -> dict:
+    """The metrics plane at scale: bench.py's sim_scale, sim_scale_10k and
+    query_bench rungs at their smoke sizes, on the host and virtual clocks
+    (the module docstring, phase 44, has the bars).  Each rung's
+    deterministic fields are held to the JAX package's, its speedup to its
+    floor; the fleet query's p95 and the appends rate are reported beside
+    their perfgates bars."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    rungs, calls = {}, {}
+    for name, rung in (("sim_scale", trial.sim_scale_rung),
+                       ("sim_scale_10k", trial.sim_scale_10k_rung),
+                       ("query_bench", trial.query_bench_rung)):
+        t = time.perf_counter()
+        rungs[name] = rung()
+        calls[name] = time.perf_counter() - t
+    out = {"phase": "metrics_scale", "kernel_launches": _kernel_counts()}
+    for name, result in rungs.items():
+        got = {k: result[k] for k in METRICS_SCALE_EXPECTED[name]}
+        wall = {k: result[k] for k in METRICS_SCALE_WALL if k in result}
+        wall["call_s"] = calls[name]
+        wall["query_p95_budget_ms"] = perfgates.MAX_FLEET_QUERY_P95_MS
+        wall["meets_p95_budget"] = result["query_p95_ms"] <= perfgates.MAX_FLEET_QUERY_P95_MS
+        if "appends_per_sec" in result:
+            wall["appends_per_sec_floor"] = perfgates.MIN_APPENDS_PER_SEC
+            wall["meets_appends_floor"] = (
+                result["appends_per_sec"] >= perfgates.MIN_APPENDS_PER_SEC)
+        out[name] = {"deterministic": got, "matches_jax": got == METRICS_SCALE_EXPECTED[name],
+                     **wall}
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for name in rungs:
+        if not out[name]["matches_jax"]:
+            raise AssertionError(f"{name} differs from the JAX package's: "
+                                 f"{out[name]['deterministic']}")
+        if not out[name]["meets_floor"]:
+            raise AssertionError(f"{name}'s speedup {out[name]['speedup']} is under its "
+                                 f"floor {out[name]['speedup_floor']}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the metrics plane launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -4172,6 +4263,7 @@ def main() -> int:
     phase_trace()
     phase_chaos()
     phase_drill()
+    phase_metrics_scale()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

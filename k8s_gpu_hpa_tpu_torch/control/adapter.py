@@ -10,9 +10,10 @@ for this, cuda-test-prometheusrule.yaml:14-16), and serve instant values on
 the two aggregated APIs the HPA polls: ``custom.metrics.k8s.io/v1beta1``
 (Object and Pods metrics) and ``external.metrics.k8s.io/v1beta1`` (External
 metrics, addressed by name and label selector within a namespace).  Every
-read is a plain ``instant_vector`` of the TSDB; with a tracer each query
+read is an instant vector of the TSDB, through a planned index scan cached
+per (series, matchers) when a query planner is wired (metrics/planner.py;
+bit-identical to the plain ``instant_vector``); with a tracer each query
 emits an ``adapter_query`` span linked to the origins of the points it read.
-The query planner is not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
+from k8s_gpu_hpa_tpu_torch.metrics.rules import Select
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
 
 
@@ -80,6 +82,7 @@ class CustomMetricsAdapter:
         external_rules: list[ExternalRule] | None = None,
         tracer=None,
         selfmetrics=None,
+        planner=None,
     ):
         self.db = db
         self.rules = {r.metric_name: r for r in rules}
@@ -89,6 +92,29 @@ class CustomMetricsAdapter:
         #: obs.PipelineSelfMetrics: the query-duration histogram, each
         #: observation's exemplar the query's span
         self.selfmetrics = selfmetrics
+        #: metrics.planner.QueryPlanner, or None for plain reads; the HPA's
+        #: polls repeat a handful of queries, so each one's series set
+        #: resolves through the inverted index once
+        self.planner = planner
+        self._plan_cache: dict[tuple, object] = {}
+
+    def _vector(self, series: str, matchers: dict[str, str] | None = None):
+        """One instant read: planned when a planner is wired, else the
+        plain ``instant_vector`` (the same vector either way)."""
+        if self.planner is None:
+            return self.db.instant_vector(series, matchers)
+        key = (series, tuple(sorted((matchers or {}).items())))
+        plan = self._plan_cache.get(key)
+        if plan is None:
+            plan = self._plan_cache[key] = self.planner.plan(
+                Select(series, dict(matchers or {}))
+            )
+        return plan.evaluate(self.db)
+
+    def invalidate_plans(self) -> None:
+        """Forget the cached plans, so the next read of each query plans it
+        afresh (``restart_tsdb``, beside ``QueryPlanner.invalidate``)."""
+        self._plan_cache.clear()
 
     def _traced(self, api: str, metric: str, query, found):
         """Run ``query`` under an ``adapter_query`` span whose links are the
@@ -119,16 +145,14 @@ class CustomMetricsAdapter:
     def list_metrics(self) -> list[str]:
         """Discovery on ``custom.metrics.k8s.io``: the names whose series
         exist now (what ``kubectl get --raw`` on the API lists)."""
-        return sorted(
-            name for name, rule in self.rules.items() if self.db.instant_vector(rule.series)
-        )
+        return sorted(name for name, rule in self.rules.items() if self._vector(rule.series))
 
     def list_external_metrics(self) -> list[str]:
         """Discovery on ``external.metrics.k8s.io``."""
         return sorted(
             name
             for name, rule in self.external_rules.items()
-            if self.db.instant_vector(rule.series)
+            if self._vector(rule.series)
         )
 
     def get_object_metric(self, ref: ObjectReference, metric_name: str) -> float | None:
@@ -156,7 +180,7 @@ class CustomMetricsAdapter:
                 break
         else:
             return None
-        vec = self.db.instant_vector(rule.series, matchers)
+        vec = self._vector(rule.series, matchers)
         if not vec:
             return None
         if len(vec) > 1:
@@ -196,7 +220,7 @@ class CustomMetricsAdapter:
             return {}
         out: dict[str, float] = {}
         for name in pod_names:
-            vec = self.db.instant_vector(rule.series, {"namespace": namespace, pod_label: name})
+            vec = self._vector(rule.series, {"namespace": namespace, pod_label: name})
             if not vec:
                 continue
             if len(vec) > 1:
@@ -227,4 +251,4 @@ class CustomMetricsAdapter:
         if rule is None:
             return []
         matchers = {"namespace": namespace, **(selector or {})}
-        return [s.value for s in self.db.instant_vector(rule.series, matchers)]
+        return [s.value for s in self._vector(rule.series, matchers)]

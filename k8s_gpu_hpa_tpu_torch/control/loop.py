@@ -30,11 +30,18 @@ across a rebuild.  ``restart_tsdb``, ``restart_hpa`` and
 chaos plane's restart faults drive them); each restart lands in
 ``restart_log`` and, traced, as a ``component_restart`` span.
 
-The JAX pipeline's sharded scraping and downsampled tiers, the capacity
-economy with ``add_tenant_hpa``, and the query planner are not ported; the
-constructor takes none of their parameters.  The planner gives the naive
-evaluation's values bit for bit by its own contract, so the naive
-``RuleEvaluator`` here records the same series.
+With ``scrape_shards=N`` scraping splits over N hash-ring shards, each
+with its own TSDB (metrics/federation.py), and every consumer reads a
+``FederatedTSDB`` over the global DB (which keeps the WAL and takes every
+write) and the shards.  One query planner over that view
+(metrics/planner.py) compiles every rule, alert and adapter query into a
+physical plan once; the evaluator and the adapter run the plans, and the
+traced pipeline serves the planner's and the decode cache's counters among
+its self-metrics.
+
+The JAX pipeline's downsampled tiers and its capacity economy with
+``add_tenant_hpa`` are not ported; the constructor takes neither
+``downsample`` nor ``capacity``.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     MetricSpec,
     ObjectMetricSpec,
 )
+from k8s_gpu_hpa_tpu_torch.metrics.federation import FederatedTSDB, ShardedScrapePlane
+from k8s_gpu_hpa_tpu_torch.metrics.planner import QueryPlanner
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     RecordingRule,
     RuleEvaluator,
@@ -112,6 +121,7 @@ class AutoscalingPipeline:
         structured_scrapes: bool = True,
         wal=None,
         checkpoint_store=None,
+        scrape_shards: int = 0,
     ):
         self.cluster = cluster
         self.deployment = deployment
@@ -128,10 +138,28 @@ class AutoscalingPipeline:
         if tracer is not None:
             cluster.tracer = tracer
             self.selfmetrics = PipelineSelfMetrics(clock=clock)
-        self.db = TimeSeriesDB(clock, wal=wal)
-        self.scraper = Scraper(
-            self.db, interval=self.intervals.scrape, tracer=tracer, selfmetrics=self.selfmetrics
-        )
+        #: the ShardedScrapePlane with ``scrape_shards``, else None; raw
+        #: scraped series then live in its shard DBs, and everything the
+        #: control plane writes in the global DB
+        self.shard_plane = None
+        if scrape_shards:
+            self.shard_plane = ShardedScrapePlane(
+                clock,
+                scrape_shards,
+                interval=self.intervals.scrape,
+                tracer=tracer,
+                selfmetrics=self.selfmetrics,
+            )
+            self.db = FederatedTSDB(TimeSeriesDB(clock, wal=wal), self.shard_plane.shard_dbs)
+            self.scraper = self.shard_plane
+        else:
+            self.db = TimeSeriesDB(clock, wal=wal)
+            self.scraper = Scraper(
+                self.db,
+                interval=self.intervals.scrape,
+                tracer=tracer,
+                selfmetrics=self.selfmetrics,
+            )
         # Structured scrapes (the default) hand the scraper the exporters'
         # families, the same samples without a text round trip;
         # structured_scrapes=False runs the text path end to end.
@@ -175,12 +203,16 @@ class AutoscalingPipeline:
         if self.selfmetrics is not None:
             slo_recorders = shipped_slo_recorders()
             alerts = shipped_slo_alerts()
+        self.planner = QueryPlanner(self.db)
+        if self.selfmetrics is not None:
+            self.selfmetrics.attach_query_engine(self.planner.stats, self.db)
         self.evaluator = RuleEvaluator(
             self.db,
             rules + slo_recorders,
             alerts=alerts,
             tracer=tracer,
             selfmetrics=self.selfmetrics,
+            planner=self.planner,
         )
         self.adapter = CustomMetricsAdapter(
             self.db,
@@ -188,6 +220,7 @@ class AutoscalingPipeline:
             + (extra_adapter_rules or []),
             tracer=tracer,
             selfmetrics=self.selfmetrics,
+            planner=self.planner,
         )
 
         ref = ObjectReference(object_kind, deployment.name, deployment.namespace)
@@ -248,8 +281,15 @@ class AutoscalingPipeline:
             return
         self._started = True
         self._periodic(self.intervals.scrape, lambda: self.scraper.scrape_once())
-        self._periodic(self.intervals.rule_eval, lambda: self.evaluator.evaluate_once())
+        self._periodic(self.intervals.rule_eval, self._rule_tick)
         self._periodic(self.intervals.hpa_sync, lambda: self.hpa.sync_once())
+
+    def _rule_tick(self) -> None:
+        """One rule tick: the shards' local rules first (the federation's
+        pre-reductions), then the global evaluator that reads them."""
+        if self.shard_plane is not None:
+            self.shard_plane.evaluate_rules_once()
+        self.evaluator.evaluate_once()
 
     def _periodic(self, interval: float, fn) -> None:
         def tick():
@@ -276,9 +316,16 @@ class AutoscalingPipeline:
         exists to prevent, kept so a drill can show the difference).  The
         scraper, the evaluator and the adapter are pointed at the new DB,
         and the scraper spreads its next sweep so the recovered DB does not
-        take every target on one tick.  JAX's restart also drops the query
-        planner's plans and re-attaches its counters; the port has no
-        planner."""
+        take every target on one tick.  The planner's cached plans (series
+        sets resolved against the dead DB) are dropped, and the self-metrics
+        read the new DB's decode cache.  A sharded pipeline raises: its raw
+        series live in memory-only shard DBs (a restarted agent re-scrapes)."""
+        if self.shard_plane is not None:
+            raise RuntimeError(
+                "restart_tsdb drives the single-TSDB durability path; "
+                "sharded pipelines keep raw series in memory-only shard DBs "
+                "(Prometheus-agent semantics: a restarted agent re-scrapes)"
+            )
         old = self.db
         if from_wal and self.wal is not None:
             # a crashed process cannot reuse its file handles: a new WAL over
@@ -307,6 +354,10 @@ class AutoscalingPipeline:
         self.scraper.db = db
         self.evaluator.db = db
         self.adapter.db = db
+        self.planner.invalidate()
+        self.adapter.invalidate_plans()
+        if self.selfmetrics is not None:
+            self.selfmetrics.attach_query_engine(self.planner.stats, db)
         self.scraper.stagger_after_recovery()
         return self._log_restart("tsdb", info)
 
@@ -346,6 +397,7 @@ class AutoscalingPipeline:
             external_rules=list(old.external_rules.values()),
             tracer=old.tracer,
             selfmetrics=old.selfmetrics,
+            planner=old.planner,
         )
         self.hpa.adapter = self.adapter
         return self._log_restart("adapter", {})

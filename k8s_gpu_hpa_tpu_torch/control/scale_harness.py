@@ -1,26 +1,465 @@
-"""The recovery drill: crash each durable component of the control plane
-mid-run and measure its recovery.
+"""Fleet-scale harnesses of the metrics plane, and the recovery drill.
 
-Counterpart of ``k8s_gpu_hpa_tpu/control/scale_harness.py``, cut to its
-recovery drill (``run_recovery_drill``, the ``drill`` scenario and
-bench.py's ``recovery_drill`` rung, ``trial.recovery_drill_rung``).  The
-JAX module's fleet, query and downsampling benches come with the
-metrics-plane slice.
+Counterpart of ``k8s_gpu_hpa_tpu/control/scale_harness.py``, less its
+downsampling bench (``run_downsample_bench``), which waits for the port's
+rollup tiers.
+
+- ``run_fleet_scale`` (bench.py's ``sim_scale`` and ``sim_scale_10k``
+  rungs, ``trial.sim_scale_rung`` and ``trial.sim_scale_10k_rung``): N
+  synthetic structured targets beside the real exporter, kube-state-metrics
+  and HPA loop on one virtual clock, driven for a long virtual horizon and
+  measured in wall time.  It exercises the structured scrape path, the
+  inverted label index, bounded retention on Gorilla chunks, incremental
+  rule evaluation (``rule_interval < scrape_interval``, so most fleet-rule
+  ticks skip) and, with ``shards``, the hash-ring scrape plane with its
+  per-shard pre-reductions and the federated ``Ratio``.
+- ``run_query_bench`` (bench.py's ``query_bench`` rung,
+  ``trial.query_bench_rung``): the fleet-aggregate rule basket evaluated
+  naive and planned over one populated sharded TSDB.
+- ``run_recovery_drill`` (the ``drill`` scenario and bench.py's
+  ``recovery_drill`` rung, ``trial.recovery_drill_rung``): each durable
+  component of the control plane crashed and rebuilt mid-run.
+
+Everything is deterministic (a virtual clock, no randomness in the
+synthetic load), so two runs differ only in their wall-clock numbers.
 """
 
 from __future__ import annotations
 
+import gc
 import tempfile
+import time
 from pathlib import Path
 
 from k8s_gpu_hpa_tpu_torch.chaos import ChaosSchedule, FaultSpec
 from k8s_gpu_hpa_tpu_torch.control.checkpoint import FileCheckpointStore
 from k8s_gpu_hpa_tpu_torch.control.cluster import SimCluster, SimDeployment
 from k8s_gpu_hpa_tpu_torch.control.hpa import HPABehavior, ScalingPolicy, ScalingRules
-from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
+from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline, PipelineIntervals
+from k8s_gpu_hpa_tpu_torch.metrics.federation import FederatedTSDB
+from k8s_gpu_hpa_tpu_torch.metrics.planner import QueryPlanner
+from k8s_gpu_hpa_tpu_torch.metrics.rules import (
+    Aggregate,
+    Avg,
+    AvgOverTime,
+    Ratio,
+    RecordingRule,
+    Select,
+)
+from k8s_gpu_hpa_tpu_torch.metrics.schema import MetricFamily
+from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
 from k8s_gpu_hpa_tpu_torch.metrics.wal import WriteAheadLog
 from k8s_gpu_hpa_tpu_torch.obs import Tracer, index_spans, lineage_of
+from k8s_gpu_hpa_tpu_torch.perfgates import UNCOMPRESSED_BYTES_PER_SAMPLE
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
+
+#: how many prebaked exposition variants each synthetic target cycles
+#: through — values must CHANGE between scrapes so every scrape dirties the
+#: fleet series (the worst case for incremental eval's signature check)
+_VARIANTS = 4
+
+
+def _percentile(sorted_vals: list[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1) + 0.5))
+    return sorted_vals[idx]
+
+
+def _synthetic_fetch(index: int):
+    """A structured fetch for one fleet member: one ``fleet_duty_cycle``
+    gauge whose value cycles through ``_VARIANTS`` prebaked families.
+    Families are built once; the scraper's fast path ingests them with no
+    per-tick text round trip and (labels already sorted by ``Sample.make``)
+    no per-sample label merge."""
+    variants: list[list[MetricFamily]] = []
+    for v in range(_VARIANTS):
+        fam = MetricFamily(
+            "fleet_duty_cycle", "gauge", "synthetic fleet member duty cycle"
+        )
+        fam.add(
+            30.0 + (index % 40) + 5.0 * v, job="fleet", instance=f"synt-{index:04d}"
+        )
+        variants.append([fam])
+    state = {"tick": 0}
+
+    def fetch() -> list[MetricFamily]:
+        out = variants[state["tick"] % _VARIANTS]
+        state["tick"] += 1
+        return out
+
+    return fetch
+
+
+def fleet_rule() -> RecordingRule:
+    """``fleet_duty_cycle_avg = avg(fleet_duty_cycle{job="fleet"})`` — the
+    fleet-wide aggregate whose input set is the full N-target series
+    population (the expensive eval incremental skipping must avoid)."""
+    return RecordingRule(
+        record="fleet_duty_cycle_avg",
+        expr=Avg(Select("fleet_duty_cycle", {"job": "fleet"})),
+        labels={"namespace": "default", "deployment": "fleet"},
+    )
+
+
+def fleet_shard_rules(shard: int) -> list[RecordingRule]:
+    """Per-shard pre-reductions (the Prometheus federation pattern): each
+    shard records the sum and count over ITS slice of the fleet, labeled by
+    shard, so the global average never re-scans raw series."""
+    sel = Select("fleet_duty_cycle", {"job": "fleet"})
+    labels = {"job": "fleet-agg", "shard": str(shard)}
+    return [
+        RecordingRule(
+            record="fleet_duty_cycle_sum",
+            expr=Aggregate("sum", sel),
+            labels=dict(labels),
+        ),
+        RecordingRule(
+            record="fleet_duty_cycle_count",
+            expr=Aggregate("count", sel),
+            labels=dict(labels),
+        ),
+    ]
+
+
+def fleet_federated_rule() -> RecordingRule:
+    """The federated fleet average: ``sum(shard sums) / sum(shard counts)``
+    over the S pre-reduced series — O(shards) per eval instead of O(fleet).
+    Same output series as :func:`fleet_rule`, so every consumer (adapter
+    read, drill timeline) is oblivious to which plane computed it."""
+    return RecordingRule(
+        record="fleet_duty_cycle_avg",
+        expr=Ratio(
+            Aggregate("sum", Select("fleet_duty_cycle_sum", {"job": "fleet-agg"})),
+            Aggregate("sum", Select("fleet_duty_cycle_count", {"job": "fleet-agg"})),
+        ),
+        labels={"namespace": "default", "deployment": "fleet"},
+    )
+
+
+def run_fleet_scale(
+    targets: int = 1000,
+    horizon_s: float = 3600.0,
+    scrape_interval: float = 15.0,
+    rule_interval: float = 5.0,
+    sample_every: float = 60.0,
+    shards: int = 0,
+) -> dict:
+    """Drive a full ``AutoscalingPipeline`` plus ``targets`` synthetic fleet
+    targets for ``horizon_s`` virtual seconds; return scale metrics.
+
+    The returned dict is the ``sim_scale``/``sim_scale_10k`` bench-rung
+    payload: wall time, virtual/wall ``speedup``, ``peak_retained_points``
+    (retention bound), retained-bytes accounting (``bytes_per_sample`` and
+    ``compression_ratio`` vs the 16-byte uncompressed point), query latency
+    percentiles, appends/sec, and the rule evaluator's full/skipped split.
+
+    ``shards > 0`` runs the sharded plane: targets split across hash-ring
+    scraper shards, per-shard sum/count pre-reductions, and the federated
+    ``Ratio`` fleet average.  The gated ``query_p95_ms`` then times the
+    queries the plane actually serves steady-state — per-shard fleet scans
+    (each ~targets/shards series, like-for-like with the unsharded fleet
+    scan) and the adapter's federated single-series read — while the full
+    cross-shard union scan is reported separately as
+    ``federated_scan_p95_ms`` (it exists for completeness, not on any
+    steady-state path)."""
+    clock = VirtualClock()
+    cluster = SimCluster(
+        clock,
+        nodes=[(f"tpu-node-{i}", 8) for i in range(4)],
+        exporter_sample_interval=scrape_interval,
+    )
+
+    def offered(t: float) -> float:
+        # slow staircase: one genuine scale event per ~quarter horizon, so
+        # the HPA/feedback layers do real work without thrashing
+        phase = t / max(horizon_s, 1.0)
+        return 35.0 + 120.0 * min(1.0, phase * 1.5)
+
+    dep = SimDeployment(
+        cluster, "tpu-test", "tpu-test", load_fn=offered, load_mode="shared"
+    )
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(scrape_interval)
+
+    intervals = PipelineIntervals(
+        scrape=scrape_interval,
+        rule_eval=rule_interval,
+        hpa_sync=15.0,
+    )
+    rule = fleet_federated_rule() if shards else fleet_rule()
+    pipe = AutoscalingPipeline(
+        cluster,
+        dep,
+        target_value=40.0,
+        max_replicas=8,
+        intervals=intervals,
+        extra_rules=[rule],
+        scrape_shards=shards,
+    )
+    if shards:
+        pipe.shard_plane.add_shard_rules(fleet_shard_rules)
+    for i in range(targets):
+        pipe.scraper.add_target(_synthetic_fetch(i), name=f"fleet/synt-{i:04d}")
+
+    db = pipe.db
+    pipe.start()
+
+    query_times_ms: list[float] = []
+    fed_times_ms: list[float] = []
+    peak_points = db.total_points()
+    peak_bytes = db.retained_bytes()
+    # The drive loop's allocations are acyclic (tuples and lists, freed by
+    # refcount); pausing the cyclic collector keeps a large host process
+    # (millions of heap objects a gen-2 sweep) from taxing the measured
+    # window.
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    wall_start = time.perf_counter()
+    try:
+        elapsed = 0.0
+        while elapsed < horizon_s:
+            step = min(sample_every, horizon_s - elapsed)
+            clock.advance(step)
+            elapsed += step
+            peak_points = max(peak_points, db.total_points())
+            peak_bytes = max(peak_bytes, db.retained_bytes())
+            if shards:
+                # the steady-state query shapes of the sharded plane:
+                # each shard's local fleet scan (what its recording
+                # rules run over, ~targets/shards series apiece) and
+                # the adapter's federated single-series read
+                for shard_db in pipe.shard_plane.shard_dbs:
+                    q0 = time.perf_counter()
+                    shard_db.instant_vector(
+                        "fleet_duty_cycle", {"job": "fleet"}
+                    )
+                    query_times_ms.append((time.perf_counter() - q0) * 1e3)
+                q0 = time.perf_counter()
+                db.latest("fleet_duty_cycle_avg", {"deployment": "fleet"})
+                query_times_ms.append((time.perf_counter() - q0) * 1e3)
+                # the full cross-shard union scan — not on any
+                # steady-state path (rules read pre-reductions),
+                # reported ungated
+                q0 = time.perf_counter()
+                vec = db.instant_vector("fleet_duty_cycle", {"job": "fleet"})
+                fed_times_ms.append((time.perf_counter() - q0) * 1e3)
+            else:
+                # the two query shapes the plane serves: a matcher scan
+                # over the whole fleet (index path) and the adapter's
+                # single-series read (last-point fast path)
+                q0 = time.perf_counter()
+                vec = db.instant_vector("fleet_duty_cycle", {"job": "fleet"})
+                q1 = time.perf_counter()
+                db.latest("fleet_duty_cycle_avg", {"deployment": "fleet"})
+                q2 = time.perf_counter()
+                query_times_ms.append((q1 - q0) * 1e3)
+                query_times_ms.append((q2 - q1) * 1e3)
+        wall = time.perf_counter() - wall_start
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+
+    query_times_ms.sort()
+    fed_times_ms.sort()
+    total_points = db.total_points()
+    bytes_per_sample = db.retained_bytes() / total_points if total_points else 0.0
+    result = {
+        "targets": targets,
+        "horizon_s": horizon_s,
+        "shards": shards,
+        "wall_s": round(wall, 3),
+        "speedup": round(horizon_s / wall, 1) if wall > 0 else float("inf"),
+        "peak_retained_points": peak_points,
+        "final_retained_points": total_points,
+        "peak_retained_bytes": peak_bytes,
+        "bytes_per_sample": round(bytes_per_sample, 3),
+        "compression_ratio": round(
+            UNCOMPRESSED_BYTES_PER_SAMPLE / bytes_per_sample, 2
+        )
+        if bytes_per_sample
+        else 0.0,
+        "total_appends": db.total_appends(),
+        "appends_per_sec": round(db.total_appends() / wall, 0) if wall > 0 else 0.0,
+        "series_count": db.series_count(),
+        "fleet_vector_size": len(vec),
+        "query_p50_ms": round(_percentile(query_times_ms, 0.50), 4),
+        "query_p95_ms": round(_percentile(query_times_ms, 0.95), 4),
+        "rule_full_evals": rule.full_evals,
+        "rule_skipped_evals": rule.skipped_evals,
+        "final_replicas": pipe.replicas(),
+        "scale_events": len(pipe.scale_history),
+    }
+    if shards:
+        status = pipe.shard_plane.shard_status()
+        fleet_names = status["fleet"]
+        synth = {f"fleet/synt-{i:04d}" for i in range(targets)}
+        owned = set(fleet_names)
+        result["federated_scan_p95_ms"] = round(_percentile(fed_times_ms, 0.95), 4)
+        result["shards_disjoint"] = len(fleet_names) == len(owned)
+        result["shards_cover_fleet"] = synth <= owned
+    return result
+
+
+# ---- query bench: planned vs naive rule evaluation ---------------------------
+
+
+def _vectors_identical(a, b) -> bool:
+    """Bit-identical vector equality: same length, same order, same labels,
+    and per-sample float equality (NaN matching NaN)."""
+    return len(a) == len(b) and all(
+        x.labels == y.labels
+        and (x.value == y.value or (x.value != x.value and y.value != y.value))
+        for x, y in zip(a, b)
+    )
+
+
+def run_query_bench(
+    targets: int = 1000,
+    shards: int = 4,
+    horizon_s: float = 1800.0,
+    scrape_interval: float = 5.0,
+    window_s: float | None = None,
+    iters: int = 3,
+    p95_iters: int = 30,
+) -> dict:
+    """Planned-vs-naive evaluation of the fleet-wide aggregate rule basket
+    over a populated sharded TSDB — the ``query_bench`` rung's payload.
+
+    The population mirrors the sim_scale_10k steady state: ``targets``
+    fleet series spread round-robin across ``shards`` shard DBs behind a
+    ``FederatedTSDB``, scraped at ``scrape_interval`` for ``horizon_s``
+    virtual seconds, so each series ends with several sealed Gorilla chunks
+    plus a live head.  The basket is the two fleet-aggregate shapes rules
+    actually run: the instant fleet average and a windowed
+    ``avg(avg_over_time(...))`` whose window covers most sealed chunks in
+    full (the chunk-summary pushdown case) but starts mid-chunk (so the
+    boundary-decode path stays honest).
+
+    Both paths evaluate the SAME logical exprs at the SAME instant;
+    ``identical`` asserts the result vectors are bit-identical before any
+    timing is trusted.  ``query_p95_ms`` times the steady-state planned
+    queries the sharded plane serves — per-shard fleet scans plus the
+    federated single-series read — against
+    ``perfgates.MAX_FLEET_QUERY_P95_MS``."""
+    if window_s is None:
+        # cover all but the first ~300 s so the window starts mid-chunk
+        window_s = horizon_s - 300.0
+    clock = VirtualClock()
+    retention = horizon_s + 60.0
+    global_db = TimeSeriesDB(clock, retention=retention)
+    shard_dbs = [TimeSeriesDB(clock, retention=retention) for _ in range(shards)]
+    db = FederatedTSDB(global_db, shard_dbs)
+
+    labels = [
+        tuple(sorted({"job": "fleet", "instance": f"synt-{i:05d}"}.items()))
+        for i in range(targets)
+    ]
+    ts = 0.0
+    for tick in range(int(horizon_s / scrape_interval)):
+        ts += scrape_interval
+        clock.advance(scrape_interval)
+        for i, lbl in enumerate(labels):
+            shard_dbs[i % shards].append(
+                "fleet_duty_cycle", lbl, 30.0 + (i % 40) + 5.0 * (tick % _VARIANTS), ts
+            )
+    # the adapter's steady-state read target: the recorded fleet aggregate
+    # (rule outputs land in the global member on a sharded plane)
+    global_db.append(
+        "fleet_duty_cycle_avg",
+        tuple(sorted({"namespace": "default", "deployment": "fleet"}.items())),
+        42.0,
+        ts,
+    )
+
+    basket = {
+        "instant": Avg(Select("fleet_duty_cycle", {"job": "fleet"})),
+        "range": Avg(AvgOverTime("fleet_duty_cycle", window_s, {"job": "fleet"})),
+    }
+    planner = QueryPlanner(db)
+    at = clock.now()
+
+    # warmup + the identity check the speedup claim rests on
+    identical = True
+    for expr in basket.values():
+        naive_vec = expr.evaluate(db, at)
+        planned_vec = planner.plan(expr).evaluate(db, at)
+        identical = identical and _vectors_identical(naive_vec, planned_vec)
+
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        per_expr = {}
+        naive_total = planned_total = 0.0
+        for key, expr in basket.items():
+            plan = planner.plan(expr)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                expr.evaluate(db, at)
+            naive_s = (time.perf_counter() - t0) / iters
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                plan.evaluate(db, at)
+            planned_s = (time.perf_counter() - t0) / iters
+            naive_total += naive_s
+            planned_total += planned_s
+            per_expr[key] = {
+                "naive_ms": round(naive_s * 1e3, 3),
+                "planned_ms": round(planned_s * 1e3, 3),
+                "speedup": round(naive_s / planned_s, 2) if planned_s else 0.0,
+            }
+
+        # steady-state fleet queries: per-shard planned scans + the
+        # adapter's federated single-series read (one plan per shard DB —
+        # a plan's series cache binds to the view it evaluates against)
+        shard_plans = [
+            planner.plan(Select("fleet_duty_cycle", {"job": "fleet"}))
+            for _ in shard_dbs
+        ]
+        single_plan = planner.plan(
+            Select("fleet_duty_cycle_avg", {"deployment": "fleet"})
+        )
+        query_times_ms: list[float] = []
+        for _ in range(p95_iters):
+            for shard_db, plan in zip(shard_dbs, shard_plans):
+                q0 = time.perf_counter()
+                plan.evaluate(shard_db, at)
+                query_times_ms.append((time.perf_counter() - q0) * 1e3)
+            q0 = time.perf_counter()
+            single_plan.evaluate(db, at)
+            query_times_ms.append((time.perf_counter() - q0) * 1e3)
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+
+    query_times_ms.sort()
+    stats = planner.stats
+    return {
+        "targets": targets,
+        "shards": shards,
+        "horizon_s": horizon_s,
+        "window_s": window_s,
+        "retained_points": db.total_points(),
+        "identical": identical,
+        "exprs": per_expr,
+        "naive_ms": round(naive_total * 1e3, 3),
+        "planned_ms": round(planned_total * 1e3, 3),
+        "speedup": round(naive_total / planned_total, 2) if planned_total else 0.0,
+        "query_p50_ms": round(_percentile(query_times_ms, 0.50), 4),
+        "query_p95_ms": round(_percentile(query_times_ms, 0.95), 4),
+        "planner_fastpath": stats.fastpath,
+        "planner_fallback": stats.fallback,
+        "series_cache_hits": stats.series_cache_hits,
+        "series_resolves": stats.series_resolves,
+        "plans_built": stats.plans_built,
+        "decode_cache_hits": db.decode_cache_hits,
+        "decode_cache_misses": db.decode_cache_misses,
+    }
+
+
+
+# ---- the recovery drill -----------------------------------------------------
+
 
 #: the restart fault of each component the drill can crash
 DRILL_COMPONENTS = {

@@ -2,8 +2,8 @@
 NVML probe of a GPU node.
 
 Counterpart of ``k8s_gpu_hpa_tpu/doctor.py``, cut to the joints the port
-runs: its shard, query-planner, rollup, capacity-pool and operator probes
-come with the modules they read.  The reference's only test story is four
+runs: its rollup, capacity-pool and operator probes come with the modules
+they read.  The reference's only test story is four
 manual curl probes interleaved with install steps (exporter text,
 README.md:42-47; Prometheus query, :80-88; custom-metrics raw API,
 :98-102; the scale-up watch, :112-121), with the discipline "don't advance
@@ -16,7 +16,9 @@ joint and says which contract broke.
 - ``check_self_metrics`` probes the traced pipeline's own families (the
   ``pipeline-self`` target, obs/selfmetrics.py) in an instant-query payload
   of ``SELF_METRICS_QUERY``, ``check_histograms`` that target's histograms
-  in its exposition, and ``check_alerts`` Prometheus's alerts: a firing
+  in its exposition, ``check_shards`` a sharded scrape plane's topology
+  (metrics/federation.py), ``check_query_planner`` the planner's selfcheck
+  (metrics/planner.py), and ``check_alerts`` Prometheus's alerts: a firing
   ``Tpu*`` alert (metrics/rules.py's ``shipped_alert_rules``) is a
   diagnosis even when every joint answered;
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor`` probes a cluster.  Its
@@ -160,6 +162,52 @@ def check_scrape_up(payload: str) -> str:
     return f"all {len(results)} scrape targets up"
 
 
+def check_shards(payload: str) -> str:
+    """L3 shard topology (sharded scrape planes only): every scraper shard
+    reachable, the shards' target sets pairwise disjoint, and their union
+    the whole fleet.  A shard that is down fails quietly (its targets stop
+    being scraped while the federated average is served from the rest), and
+    an assignment fault (two shards owning one target, or none) double-counts
+    or drops series the global rules read.  ``payload`` is
+    ``ShardedScrapePlane.shard_status_json()`` (in production each agent's
+    /-/ready and its target list)."""
+    doc = json.loads(payload)
+    shards = doc.get("shards", [])
+    if not shards:
+        raise AssertionError("no shards reported: not a sharded scrape plane?")
+    unreachable = [s["shard"] for s in shards if not s.get("reachable", False)]
+    if unreachable:
+        raise AssertionError(
+            f"shard(s) {unreachable} unreachable: their targets are not "
+            "being scraped (the federated aggregate keeps serving from "
+            "survivors, so this degrades coverage silently)"
+        )
+    owned: dict[str, int] = {}
+    dupes = []
+    for s in shards:
+        for name in s["targets"]:
+            if name in owned:
+                dupes.append(f"{name} (shards {owned[name]} and {s['shard']})")
+            owned[name] = s["shard"]
+    if dupes:
+        raise AssertionError(
+            f"{len(dupes)} target(s) owned by more than one shard — "
+            "double-scraped and double-counted by fleet aggregates: "
+            + ", ".join(sorted(dupes)[:5])
+        )
+    fleet = doc.get("fleet", [])
+    orphans = sorted(set(fleet) - set(owned))
+    if orphans:
+        raise AssertionError(
+            f"{len(orphans)} fleet target(s) owned by no shard (never "
+            "scraped): " + ", ".join(orphans[:5])
+        )
+    return (
+        f"{len(shards)} shards reachable, {len(owned)} targets "
+        "disjointly owned, union covers fleet"
+    )
+
+
 def check_self_metrics(payload: str) -> str:
     """The pipeline watching itself: every self-metric family present and
     fresh (an instant query returns only points inside the lookback, so
@@ -248,6 +296,38 @@ def check_histograms(text: str) -> str:
     return f"{len(SELF_HISTOGRAM_NAMES)} histogram families conformant ({checked} label sets)"
 
 
+def check_query_planner(payload: str) -> str:
+    """Query-engine health (metrics/planner.py): the planned and the naive
+    evaluation of every rule agree sample for sample, and the chunk-summary
+    fast path is taken.  A disagreement means the plans compute other
+    numbers than the rules' semantics, and the HPA acts on the plans; a
+    fast path never taken means the summaries stopped applying and every
+    window pays a full decode.  ``payload`` is ``planner_selfcheck(...)``
+    JSON."""
+    doc = json.loads(payload)
+    disagree = [r["record"] for r in doc.get("rules", []) if not r["agree"]]
+    if not doc.get("agree_all", False) or disagree:
+        raise AssertionError(
+            "planned evaluation DISAGREES with naive AST evaluation for: "
+            + (", ".join(disagree) or "(unreported rules)")
+            + " — do not trust scale decisions until this is fixed"
+        )
+    fastpath = doc.get("fastpath", 0)
+    fallback = doc.get("fallback", 0)
+    if fastpath <= 0:
+        raise AssertionError(
+            f"planner summary fast path never taken (fastpath=0, "
+            f"fallback={fallback}): windowed reads are decoding every chunk "
+            "— seal-time summaries are missing or the planner fell back"
+        )
+    return (
+        f"{len(doc.get('rules', []))} rules planned==naive; "
+        f"fastpath {fastpath} chunk(s), fallback {fallback} decode(s), "
+        f"series cache {doc.get('series_cache_hits', 0)} hit(s)/"
+        f"{doc.get('series_resolves', 0)} resolve(s)"
+    )
+
+
 def check_custom_metrics_api(payload: str, metric: str) -> str:
     """L4 joint: the aggregated API lists the metric (README.md:98-102)."""
     doc = json.loads(payload)
@@ -303,6 +383,8 @@ def diagnose(
     up_fetch: Callable[[], str] | None = None,
     self_metrics_fetch: Callable[[], str] | None = None,
     self_exposition_fetch: Callable[[], str] | None = None,
+    shards_fetch: Callable[[], str] | None = None,
+    planner_fetch: Callable[[], str] | None = None,
 ) -> list[ProbeResult]:
     """Run the ordered joint probes, stopping at the first failure (the
     runbook's discipline).  Fetchers set to None are skipped."""
@@ -318,11 +400,17 @@ def diagnose(
               lambda p: check_prom_vector(p, metric), prom_fetch),
         probe("L3 scrape health", "every scrape target serving (up==1)",
               check_scrape_up, up_fetch),
+        probe("L3 shard topology",
+              "every scraper shard reachable, target sets disjoint, union covers fleet",
+              check_shards, shards_fetch),
         probe("L3 self-metrics", "pipeline self-metric families present and fresh",
               check_self_metrics, self_metrics_fetch),
         probe("L3 histogram conformance",
               "self-histograms cumulative, +Inf == _count, _sum consistent",
               check_histograms, self_exposition_fetch),
+        probe("L3 query planner",
+              "planned rule evaluation bit-agrees with naive, fast path live",
+              check_query_planner, planner_fetch),
         probe("L4 custom-metrics API", f"{metric} discoverable on custom.metrics.k8s.io",
               lambda p: check_custom_metrics_api(p, metric), api_fetch),
         probe("L5 HPA", "HPA is reading the metric (ScalingActive)",

@@ -34,9 +34,12 @@ spans that wrote the points it read.  ``BurnRate``, ``AndOn``, ``Cmp`` and
 ``AlertRule`` carry the SLO burn-rate alerts (obs/slo.py); ``Aggregate``
 and ``Absent`` the pipeline's own health alerts (``shipped_alert_rules``,
 which ``manifests.py`` renders into the PrometheusRule's
-``tpu-pipeline-alerts`` group).  The JAX package's query planner,
-``HistogramQuantile``, ``Ratio``, ``AggregateBy`` and ``AvgOverTime`` are
-not ported.
+``tpu-pipeline-alerts`` group).  ``AggregateBy``, ``Ratio``,
+``HistogramQuantile`` and ``AvgOverTime`` carry the sharded plane's
+federated aggregates, the quantile reads and the range rules; the query
+planner (metrics/planner.py) rewrites any of these trees into a physical
+plan that ``RuleEvaluator(planner=)`` runs in its place, with bit-identical
+results.
 """
 
 from __future__ import annotations
@@ -209,6 +212,68 @@ class Aggregate(Expr):
 
 
 @dataclass
+class AggregateBy(Expr):
+    """``sum by(k1,...)(child)``, ``count by(...)``, ``min by`` or ``avg
+    by``: grouped aggregation keeping the projected label set (``max by``
+    keeps its own :class:`MaxBy` node, as the shipped rules render it; the
+    parser reads ``max by`` as MaxBy, never as this)."""
+
+    op: str  # "sum" | "count" | "min" | "avg"
+    keys: tuple[str, ...]
+    child: Expr
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        groups: dict[tuple[tuple[str, str], ...], list[float]] = {}
+        for sample in self.child.evaluate(db, at):
+            groups.setdefault(_project(sample, self.keys), []).append(sample.value)
+        out: Vector = []
+        for key, values in groups.items():
+            if self.op == "sum":
+                value = sum(values)
+            elif self.op == "count":
+                value = float(len(values))
+            elif self.op == "min":
+                value = min(values)
+            elif self.op == "avg":
+                value = sum(values) / len(values)
+            else:
+                raise ValueError(f"unsupported grouped aggregation {self.op!r}")
+            out.append(Sample(value, key))
+        return out
+
+    def input_names(self) -> frozenset[str]:
+        return self.child.input_names()
+
+    def promql(self) -> str:
+        return f"{self.op} by({','.join(self.keys)})({self.child.promql()})"
+
+
+@dataclass
+class Ratio(Expr):
+    """``left / right`` over two scalar-producing expressions: the federated
+    average, ``sum(per_shard_sums) / sum(per_shard_counts)``, which never
+    re-scans the raw series the shards already reduced.  An empty operand or
+    a zero denominator gives an empty vector (the output goes stale rather
+    than record a division artifact)."""
+
+    left: Expr
+    right: Expr
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        num = self.left.evaluate(db, at)
+        den = self.right.evaluate(db, at)
+        if not num or not den or den[0].value == 0.0:
+            return []
+        return [Sample(num[0].value / den[0].value, ())]
+
+    def input_names(self) -> frozenset[str]:
+        return self.left.input_names() | self.right.input_names()
+
+    def promql(self) -> str:
+        return f"({self.left.promql()}) / ({self.right.promql()})"
+
+
+@dataclass
 class AndOn(Expr):
     """``left and on() right``: PromQL's set intersection with an empty
     match group, so left's samples survive if and only if right is
@@ -312,6 +377,57 @@ def bucket_quantile(buckets: list[tuple[float, float]], q: float) -> float | Non
     return buckets[-2][0] if len(buckets) > 1 else None
 
 
+@dataclass
+class HistogramQuantile(Expr):
+    """``histogram_quantile(q, name_bucket{matchers})``: each series'
+    quantile estimate from its cumulative buckets.  Reads the ``_bucket``
+    series of a histogram family, groups them by the label set less ``le``
+    and interpolates in the bucket the rank lands in
+    (``bucket_quantile``), so the error is bounded by that bucket's width."""
+
+    q: float  # quantile in [0, 1]
+    name: str  # the histogram's base name (no _bucket suffix)
+    matchers: dict[str, str] = field(default_factory=dict)
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        return self._group(db.instant_vector(self.name + "_bucket", self.matchers, at))
+
+    def _group(self, bucket_samples: Vector) -> Vector:
+        """The grouping and interpolation over a bucket vector, shared with
+        the planned scan (planner._PlannedHistogramQuantile)."""
+        groups: dict[tuple[tuple[str, str], ...], list[tuple[float, float]]] = {}
+        for sample in bucket_samples:
+            le = None
+            rest: list[tuple[str, str]] = []
+            for k, v in sample.labels:
+                if k == "le":
+                    le = v
+                else:
+                    rest.append((k, v))
+            if le is None:
+                continue
+            try:
+                bound = math.inf if le == "+Inf" else float(le)
+            except ValueError:
+                continue
+            groups.setdefault(tuple(rest), []).append((bound, sample.value))
+        out: Vector = []
+        for labels, buckets in groups.items():
+            value = bucket_quantile(buckets, self.q)
+            if value is not None:
+                out.append(Sample(value, labels))
+        return out
+
+    def input_names(self) -> frozenset[str]:
+        return frozenset((self.name + "_bucket",))
+
+    def promql(self) -> str:
+        inner = Select(self.name + "_bucket", dict(self.matchers))
+        q = self.q
+        rendered = str(int(q)) if q == int(q) else repr(q)
+        return f"histogram_quantile({rendered}, {inner.promql()})"
+
+
 def _fmt_window(seconds: float) -> str:
     """PromQL's range duration: 3600 -> ``1h``, 300 -> ``5m``."""
     s = int(seconds)
@@ -320,6 +436,29 @@ def _fmt_window(seconds: float) -> str:
     if s % 60 == 0:
         return f"{s // 60}m"
     return f"{s}s"
+
+
+@dataclass
+class AvgOverTime(Expr):
+    """``avg_over_time(name{matchers}[window])``: each series' mean over the
+    trailing window, NaN staleness markers excluded (they are not samples).
+    Evaluation is :meth:`TimeSeriesDB.range_avg`, the one windowed read both
+    paths share: this node decodes every chunk it touches, and the planner
+    calls the same method with the chunk-summary pushdown, bit for bit."""
+
+    name: str
+    window: float  # seconds
+    matchers: dict[str, str] = field(default_factory=dict)
+
+    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> Vector:
+        return db.range_avg(self.name, self.matchers, self.window, at)
+
+    def input_names(self) -> frozenset[str]:
+        return frozenset((self.name,))
+
+    def promql(self) -> str:
+        inner = Select(self.name, dict(self.matchers))
+        return f"avg_over_time({inner.promql()}[{_fmt_window(self.window)}])"
 
 
 @dataclass
@@ -398,9 +537,13 @@ class AlertRule:
     #: clock time of the move to firing, None while not firing
     firing_since: float | None = field(default=None, repr=False)
 
-    def evaluate(self, db: TimeSeriesDB, at: float | None = None) -> bool:
+    def evaluate(
+        self, db: TimeSeriesDB, at: float | None = None, plan: Expr | None = None
+    ) -> bool:
+        """One evaluation; ``plan`` (the planner's physical plan of
+        ``expr``) runs in the expression's place."""
         now = db.clock.now() if at is None else at
-        if not self.expr.evaluate(db, at):
+        if not (self.expr if plan is None else plan).evaluate(db, at):
             self._pending_since = None
             self.firing = False
             self.firing_since = None
@@ -468,8 +611,10 @@ class RecordingRule:
         at: float | None = None,
         tracer=None,
         selfmetrics=None,
+        plan: Expr | None = None,
     ) -> int:
-        """Evaluate and write the result series back into the TSDB.  Output
+        """Evaluate and write the result series back into the TSDB (``plan``,
+        the planner's physical plan of ``expr``, runs in its place).  Output
         series that stop being produced get staleness markers (Prometheus rule
         semantics) so a broken input pipeline propagates to consumers instead
         of serving a frozen value for the whole lookback window.
@@ -500,7 +645,7 @@ class RecordingRule:
         # the aging guard above, and lineage and staleness when wired
         db.begin_capture()
         try:
-            outputs = self.expr.evaluate(db, at)
+            outputs = (self.expr if plan is None else plan).evaluate(db, at)
         finally:
             reads = db.end_capture()
         produced: set[tuple[tuple[str, str], ...]] = set()
@@ -551,7 +696,12 @@ class RuleEvaluator:
     evaluates after every scrape to meet the 60 s scale-up budget).  Alert
     rules evaluate after the recording rules of each pass, as in
     Prometheus's group order (an alert may read a recorded series).  A rule
-    may be anything with ``evaluate_into`` (obs/slo.py's ``SLORecorder``)."""
+    may be anything with ``evaluate_into`` (obs/slo.py's ``SLORecorder``).
+
+    With a ``planner`` (metrics.planner.QueryPlanner) every rule's and
+    alert's expression runs its cached physical plan; the incremental skip
+    and the read capture live outside the expression, so they hold as
+    before."""
 
     def __init__(
         self,
@@ -560,6 +710,7 @@ class RuleEvaluator:
         alerts: list[AlertRule] | None = None,
         tracer=None,
         selfmetrics=None,
+        planner=None,
     ):
         self.db = db
         self.rules = rules
@@ -567,14 +718,30 @@ class RuleEvaluator:
         #: obs.Tracer / obs.PipelineSelfMetrics, passed to every evaluation
         self.tracer = tracer
         self.selfmetrics = selfmetrics
+        self.planner = planner
+
+    def _plan_for(self, rule) -> Expr | None:
+        # a rule with no expression (obs.slo.SLORecorder folds its counters
+        # itself) has nothing to plan
+        expr = getattr(rule, "expr", None)
+        if self.planner is None or expr is None:
+            return None
+        return self.planner.plan(expr)
 
     def evaluate_once(self) -> int:
-        count = sum(
-            rule.evaluate_into(self.db, tracer=self.tracer, selfmetrics=self.selfmetrics)
-            for rule in self.rules
-        )
+        count = 0
+        for rule in self.rules:
+            plan = self._plan_for(rule)
+            if plan is None:
+                count += rule.evaluate_into(
+                    self.db, tracer=self.tracer, selfmetrics=self.selfmetrics
+                )
+            else:
+                count += rule.evaluate_into(
+                    self.db, tracer=self.tracer, selfmetrics=self.selfmetrics, plan=plan
+                )
         for alert in self.alerts:
-            alert.evaluate(self.db)
+            alert.evaluate(self.db, plan=self._plan_for(alert))
         return count
 
     def firing_alert_instances(self) -> list[dict]:

@@ -24,7 +24,7 @@ The store round-trips whatever payload the TSDB hands it; the payload's
 ``format`` is read in one place, ``TimeSeriesDB.recover``.  The files are
 the JAX package's, byte for byte where the records are the same, so a
 directory either package wrote recovers in the other.  The JAX package's
-exemplars, coverage probes and profile stages are not ported.
+coverage probes and profile stages are not ported.
 
 Recovery reads the snapshot and then the tail segments in order.  An
 undecodable line is tolerated only where a kill can leave one, as the last
@@ -83,15 +83,25 @@ class WriteAheadLog:
         value: float,
         ts: float,
         origin: int | None = None,
+        exemplar=None,
     ) -> None:
         """Record one accepted append.  NaN (a staleness marker) is written
-        as ``op: "stale"`` with no value."""
+        as ``op: "stale"`` with no value; an exemplar
+        (``metrics.schema.Exemplar``, a histogram bucket's traced
+        observation) rides along with a live point."""
         if value != value:  # NaN
             rec: dict = {"op": "stale", "name": name, "labels": list(labels), "ts": ts}
         else:
             rec = {"op": "append", "name": name, "labels": list(labels), "value": value, "ts": ts}
         if origin is not None:
             rec["origin"] = origin
+        if exemplar is not None and rec["op"] == "append":
+            rec["exemplar"] = {
+                "value": exemplar.value,
+                "trace_id": exemplar.trace_id,
+                "span_id": exemplar.span_id,
+                "ts": exemplar.ts,
+            }
         self._write_line(json.dumps(rec, separators=(",", ":")))
 
     def _write_line(self, line: str) -> None:

@@ -5,15 +5,11 @@ and controller-runtime export metrics of their own reconcile loops;
 :class:`PipelineSelfMetrics` is that layer for this pipeline: every stage
 reports into it, and ``exposition()`` renders four families (the last sync's
 duration, each target's last scrape duration, each rule's input staleness,
-the sync decisions by outcome) and five latency histograms in the Prometheus
-text format, served as one more scrape target (``pipeline-self``), so the
-self-metrics land in the same TSDB and the same doctor probe
-(``doctor.check_self_metrics``).
-
-Stated difference: the JAX module also serves the query planner's and the
-TSDB decode cache's counters (``attach_query_engine``).  The port has no
-planner yet, so neither the method nor those six families are here; their
-names are, and they join ``SELF_METRIC_NAMES`` when the planner does.
+the sync decisions by outcome), the query engine's six counters once
+``attach_query_engine`` wires them, and five latency histograms in the
+Prometheus text format, served as one more scrape target
+(``pipeline-self``), so the self-metrics land in the same TSDB and the same
+doctor probe (``doctor.check_self_metrics``).
 """
 
 from __future__ import annotations
@@ -38,7 +34,12 @@ RULE_EVAL_STALENESS = "rule_eval_staleness_seconds"
 #: HPA sync decisions by outcome (counter)
 HPA_DECISION_TOTAL = "hpa_decision_total"
 
-# The query engine's counters; the port serves them once it has a planner.
+# The query engine's counters: how rule evaluation is served.  The planner's
+# fastpath/fallback count chunks of planned range reads served from the
+# seal-time summary vs decoded; its series counters split each evaluation's
+# series-set check into revalidated from the cache vs re-resolved through
+# the inverted index; the decode-cache pair counts sealed-chunk column reads
+# served from the TSDB's decoded-window cache vs decoded afresh.
 
 #: chunks served from seal-time summaries on planned range reads (counter)
 PLANNER_FASTPATH_TOTAL = "query_planner_fastpath_chunks_total"
@@ -53,12 +54,17 @@ DECODE_CACHE_HITS = "tsdb_decode_cache_hits_total"
 #: sealed-chunk column reads that decoded Gorilla blobs (counter)
 DECODE_CACHE_MISSES = "tsdb_decode_cache_misses_total"
 
-#: the gauge and counter families the port serves
 SELF_METRIC_NAMES = (
     HPA_SYNC_DURATION,
     SCRAPE_DURATION,
     RULE_EVAL_STALENESS,
     HPA_DECISION_TOTAL,
+    PLANNER_FASTPATH_TOTAL,
+    PLANNER_FALLBACK_TOTAL,
+    PLANNER_SERIES_CACHE_HITS,
+    PLANNER_SERIES_RESOLVES,
+    DECODE_CACHE_HITS,
+    DECODE_CACHE_MISSES,
 )
 
 # ---- distributions (histograms with trace exemplars) -----------------------
@@ -151,6 +157,17 @@ class PipelineSelfMetrics:
             "workload change to scale event, virtual seconds",
             bounds=SIGNAL_PROPAGATION_BUCKETS,
         )
+        #: the query engine's counter sources (``attach_query_engine``), read
+        #: at exposition time: the counts live on the planner and the TSDB
+        self._planner_stats = None
+        self._query_db = None
+
+    def attach_query_engine(self, planner_stats, db) -> None:
+        """Wire the query engine's counters: a ``PlannerStats`` and the DB
+        whose decode cache counts.  The pipeline calls it when it builds its
+        planner, and again after ``restart_tsdb`` swaps the DB."""
+        self._planner_stats = planner_stats
+        self._query_db = db
 
     def histograms(self) -> tuple[Histogram, ...]:
         return (
@@ -230,5 +247,30 @@ class PipelineSelfMetrics:
         for reason, count in sorted(self.decisions.items()):
             decisions.add(float(count), reason=reason)
         families = [sync, scrape, staleness, decisions]
+        counters = []
+        if self._planner_stats is not None:
+            s = self._planner_stats
+            counters += [
+                (PLANNER_FASTPATH_TOTAL,
+                 "chunks served from seal-time summaries without decode", s.fastpath),
+                (PLANNER_FALLBACK_TOTAL, "chunks a planned range read decoded", s.fallback),
+                (PLANNER_SERIES_CACHE_HITS,
+                 "series sets revalidated from the plan cache", s.series_cache_hits),
+                (PLANNER_SERIES_RESOLVES,
+                 "series sets re-resolved through the inverted index", s.series_resolves),
+            ]
+        if self._query_db is not None:
+            db = self._query_db
+            counters += [
+                (DECODE_CACHE_HITS,
+                 "sealed-chunk reads served from the decoded-window cache",
+                 db.decode_cache_hits),
+                (DECODE_CACHE_MISSES,
+                 "sealed-chunk reads that decoded Gorilla blobs", db.decode_cache_misses),
+            ]
+        for name, help_text, value in counters:
+            fam = MetricFamily(name, "counter", help_text)
+            fam.add(float(value))
+            families.append(fam)
         families.extend(h.family() for h in self.histograms())
         return encode_text(families)

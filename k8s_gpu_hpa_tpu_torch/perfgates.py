@@ -1,0 +1,80 @@
+"""Performance-gate constants of the fleet-scale metrics plane.
+
+Counterpart of ``k8s_gpu_hpa_tpu/perfgates.py``, cut to the constants the
+``sim_scale``, ``sim_scale_10k`` and ``query_bench`` rungs read
+(``trial.py``): the same values, in one place, so a deliberate
+re-baselining is one edit.
+
+Two kinds of constants live here:
+
+- **sizing** (targets, horizon, shards): what a rung runs, in a full and a
+  smoke size; a smoke size runs the same code paths at some 10-30x less
+  work.
+- **gates** (floors and ceilings): what a run must clear.  The floors sit
+  some 4-5x under the numbers the JAX package measured on a development
+  host (its BASELINE.md), so they catch an algorithmic regression (a hot
+  path gone quadratic, retention stopped, compression fallen back to raw)
+  without flaking on machine variance.
+"""
+
+from __future__ import annotations
+
+#: the uncompressed cost of one retained point, a (float64 ts, float64
+#: value) pair; ``compression_ratio`` is measured against it, so the 4x gate
+#: is a statement about the encoded columns, not about Python's boxing
+UNCOMPRESSED_BYTES_PER_SAMPLE = 16.0
+
+# ---- sim_scale: the 1000-target unsharded rung ------------------------------
+
+SIM_SCALE_TARGETS = 1000
+SIM_SCALE_HORIZON_S = 3600.0
+#: virtual seconds per wall second, the full rung's floor
+SIM_SCALE_MIN_SPEEDUP = 1000.0
+
+SIM_SCALE_SMOKE_TARGETS = 200
+SIM_SCALE_SMOKE_HORIZON_S = 600.0
+SIM_SCALE_SMOKE_MIN_SPEEDUP = 100.0
+
+# ---- sim_scale_10k: the sharded federation rung -----------------------------
+
+SIM_SCALE_10K_TARGETS = 10000
+SIM_SCALE_10K_HORIZON_S = 3600.0
+SIM_SCALE_10K_SHARDS = 8
+SIM_SCALE_10K_MIN_SPEEDUP = 25.0
+
+SIM_SCALE_10K_SMOKE_TARGETS = 2000
+SIM_SCALE_10K_SMOKE_HORIZON_S = 600.0
+SIM_SCALE_10K_SMOKE_SHARDS = 4
+SIM_SCALE_10K_SMOKE_MIN_SPEEDUP = 50.0
+
+# ---- query_bench: planned vs naive rule evaluation --------------------------
+
+#: the full rung runs the fleet-aggregate basket at the sim_scale_10k
+#: population (10k fleet series over 8 shard DBs), with enough history that
+#: most sealed chunks sit wholly inside the range window
+QUERY_BENCH_TARGETS = SIM_SCALE_10K_TARGETS
+QUERY_BENCH_SHARDS = SIM_SCALE_10K_SHARDS
+QUERY_BENCH_HORIZON_S = 3600.0
+QUERY_BENCH_INTERVAL_S = 5.0
+#: the range rule's window; it starts mid-chunk, so boundary decodes run
+QUERY_BENCH_WINDOW_S = 3300.0
+#: planned-vs-naive wall-time floor over the basket (a pushdown that
+#: stopped working would land near 1x)
+MIN_PLANNED_SPEEDUP = 3.0
+
+QUERY_BENCH_SMOKE_TARGETS = 500
+QUERY_BENCH_SMOKE_SHARDS = 4
+QUERY_BENCH_SMOKE_HORIZON_S = 1800.0
+#: the smoke size keeps fewer sealed chunks a series, so its margin is
+#: smaller than the full rung's
+QUERY_BENCH_SMOKE_MIN_PLANNED_SPEEDUP = 2.0
+
+#: Gorilla columns must stay at least 4x denser than the 16-byte point (a
+#: fall-back to raw encoding or an origins-column leak lands well under 4)
+MIN_COMPRESSION_RATIO = 4.0
+#: the fleet query's p95 budget: per-shard scans (~targets/shards series
+#: each) and the adapter's federated single-series read
+MAX_FLEET_QUERY_P95_MS = 3.0
+#: the plane's ingest floor (below it the append path gained per-point
+#: overhead)
+MIN_APPENDS_PER_SEC = 25000.0

@@ -20,10 +20,10 @@ Scenarios (offered load in percent of one device; the replicas share it):
               the start latency;
 - ``trace``:  the spike, traced (``run_scenario(trace=True)``): the
               decision timeline with each scale event's metric lineage back
-              to the raw exporter sweeps, the signal-propagation summary and
-              a JSONL export of the spans (``--trace-out``, default
-              trace.jsonl).  Exit 2 when a scale event's lineage is
-              incomplete or no scale event was traced;
+              to the raw exporter sweeps, the query engine's counters, the
+              signal-propagation summary and a JSONL export of the spans
+              (``--trace-out``, default trace.jsonl).  Exit 2 when a scale
+              event's lineage is incomplete or no scale event was traced;
 - ``chaos``:  the canned fault storm (``chaos.run_fault_storm``), which
               needs no manifest: an exporter outage, a scrape blackout, a
               node preemption and a crash loop, each with its detection
@@ -46,10 +46,14 @@ queued requests: the demand is published to the external series, and the
 timeline shows the desired replicas following it (queue depth is demand,
 so the replicas do not feed back into it).
 
+``--shards N`` plays an Object-metric scenario against a sharded scrape
+plane of N hash-ring shards (metrics/federation.py), and ``--explain``
+prints the query planner's physical plan of every rule and alert the
+pipeline evaluates.
+
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's sharded and planner runs (``shards``, ``explain``, the
-query-engine line of ``trace``) and its capacity, history, coverage, race,
-fuzz, profile, evacuation and incident scenarios are not ported.
+JAX simulator's capacity, history, why, coverage, race, fuzz, profile,
+evacuation and incident scenarios are not ported.
 """
 
 from __future__ import annotations
@@ -113,8 +117,11 @@ class SimReport:
     #: the clock time the scenario started: a span's start minus this is on
     #: the timeline's t axis (the 15 s settle precedes the scenario)
     trace_base: float = 0.0
-    #: the query planner's counters; None, as the planner is not ported
+    #: the query engine's counters: the run's planner and the TSDB's
+    #: decode cache (metrics/planner.py), printed by the trace scenario
     query_engine: dict | None = None
+    #: the physical plans of the pipeline's rules and alerts (``explain``)
+    plan_explain: str | None = None
 
 
 def _reachability(saturated_pct: float, target_value: float) -> str:
@@ -141,12 +148,16 @@ def run_scenario(
     sample_every: float = 5.0,
     saturated_pct: float | None = None,
     trace: bool = False,
+    shards: int = 0,
+    explain: bool = False,
 ) -> SimReport:
     """Play one shipped Object-metric HPA manifest under a load scenario.
 
     Behavior, bounds, target and slice quantum come from the manifest.
     ``trace=True`` runs the pipeline with a tracer, the offered load's
     steps emitting ``workload_change`` spans (``SimReport.tracer``).
+    ``shards`` scrapes through that many hash-ring shards, and ``explain``
+    renders the planner's physical plans (``SimReport.plan_explain``).
     ``saturated_pct`` caps each pod's signal at the workload's measured
     ceiling: without it the simulated gauge can reach 100, which makes an
     inert pairing (a serve pod saturating at 6.3% against a target of 60)
@@ -200,6 +211,7 @@ def run_scenario(
         replica_quantum=quantum,
         object_kind=ref["kind"],
         tracer=tracer,
+        scrape_shards=shards,
     )
     pipe.start()
 
@@ -245,7 +257,37 @@ def run_scenario(
             report.scale_up_latency = elapsed - t_cross
 
     report.scale_events = [(ts - base, a, b) for ts, a, b in pipe.scale_history]
+    stats = pipe.planner.stats
+    report.query_engine = {
+        "fastpath_chunks": stats.fastpath,
+        "fallback_chunks": stats.fallback,
+        "series_cache_hits": stats.series_cache_hits,
+        "series_resolves": stats.series_resolves,
+        "plans_built": stats.plans_built,
+        "decode_cache_hits": pipe.db.decode_cache_hits,
+        "decode_cache_misses": pipe.db.decode_cache_misses,
+    }
+    if explain:
+        sections = []
+        for rule in pipe.evaluator.rules:
+            expr = getattr(rule, "expr", None)
+            if expr is None:
+                continue  # an SLO recorder folds its counters itself: no AST
+            sections.append(f"{rule.record} = {expr.promql()}\n" + pipe.planner.explain(expr))
+        for alert in pipe.evaluator.alerts:
+            sections.append(
+                f"ALERT {alert.alert} = {alert.expr.promql()}\n"
+                + pipe.planner.explain(alert.expr)
+            )
+        report.plan_explain = "\n\n".join(sections)
     return report
+
+
+def _print_plans(report: SimReport) -> None:
+    if report.plan_explain:
+        print()
+        print("physical plans (query planner):")
+        print(report.plan_explain)
 
 
 def _exporter_down():
@@ -395,11 +437,25 @@ def _main_trace(args) -> int:
             duration=args.duration,
             pod_start_latency=args.pod_start,
             trace=True,
+            shards=getattr(args, "shards", 0),
+            explain=getattr(args, "explain", False),
         )
     except ValueError as e:
         print(f"simulate: {e}")
         return 2
     print(render_trace_timeline(report))
+    _print_plans(report)
+    qe = report.query_engine
+    print()
+    print(
+        "query engine: planner fastpath "
+        f"{qe['fastpath_chunks']} chunk(s) / fallback "
+        f"{qe['fallback_chunks']} decode(s); series cache "
+        f"{qe['series_cache_hits']} hit(s) / {qe['series_resolves']} "
+        f"resolve(s); decoded-window cache {qe['decode_cache_hits']} "
+        f"hit(s) / {qe['decode_cache_misses']} miss(es); "
+        f"{qe['plans_built']} plan(s) built"
+    )
     tracer = report.tracer
     tier_totals = _tier_counts(tracer.spans_of("rule_eval"))
     if tier_totals:
@@ -643,6 +699,8 @@ def main(args) -> int:
                 duration=args.duration,
                 pod_start_latency=args.pod_start,
                 saturated_pct=getattr(args, "saturated_pct", None),
+                shards=getattr(args, "shards", 0),
+                explain=getattr(args, "explain", False),
             )
     except ValueError as e:
         # e.g. an External manifest with an Object-only scenario: a
@@ -650,6 +708,7 @@ def main(args) -> int:
         print(f"simulate: {e}")
         return 2
     print(render_report(report))
+    _print_plans(report)
     return 0
 
 
@@ -669,6 +728,19 @@ def add_arguments(parser) -> None:
         help="the workload's measured signal ceiling: caps the simulated "
         "per-pod gauge so an inert manifest/workload pairing (ceiling below "
         "target x 1.1) is diagnosed instead of simulated as healthy",
+    )
+    parser.add_argument(
+        "--shards",
+        type=int,
+        default=0,
+        help="run the scenario against a sharded scrape plane with N "
+        "hash-ring scraper shards (0 = single scraper)",
+    )
+    parser.add_argument(
+        "--explain",
+        action="store_true",
+        help="print the query planner's physical plan for every rule and "
+        "alert the pipeline evaluates",
     )
     parser.add_argument(
         "--trace-out",

@@ -69,7 +69,12 @@ event.  The live loops run untraced, as bench.py's.  The chaos rungs,
 and ``run_rung_slo_burn``), run the canned fault storm and the SLO
 burn-rate check on virtual clocks, and ``recovery_drill_rung`` (bench.py's
 ``run_rung_recovery_drill``, ``drill_rung`` of a finished drill) the
-recovery drill, each durable component crashed and rebuilt mid-run.
+recovery drill, each durable component crashed and rebuilt mid-run.  The
+metrics plane's rungs, ``sim_scale_rung``, ``sim_scale_10k_rung`` and
+``query_bench_rung`` (bench.py's ``run_rung_sim_scale``,
+``run_rung_sim_scale_10k`` and ``run_rung_query_bench``), drive the fleet
+harnesses of ``control/scale_harness.py`` at the smoke sizes of
+``perfgates.py`` or, with ``full``, its full sizes.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -133,7 +138,12 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     train_metrics,
 )
 from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
-from k8s_gpu_hpa_tpu_torch.control.scale_harness import run_recovery_drill
+from k8s_gpu_hpa_tpu_torch import perfgates
+from k8s_gpu_hpa_tpu_torch.control.scale_harness import (
+    run_fleet_scale,
+    run_query_bench,
+    run_recovery_drill,
+)
 from k8s_gpu_hpa_tpu_torch.device import resolve
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
 from k8s_gpu_hpa_tpu_torch.exporter.podresources import Attributor, StaticAttributor
@@ -1515,6 +1525,100 @@ def recovery_drill_rung() -> dict:
     """bench.py's ``recovery_drill`` rung (``run_rung_recovery_drill``):
     ``drill_rung`` of the drill at the base pod start."""
     return drill_rung(run_recovery_drill(pod_start_latency=BASE_POD_START_LATENCY))
+
+
+def _scale_rung(result: dict, metric: str, floor: float) -> dict:
+    """A ``run_fleet_scale``/``run_query_bench`` result annotated as
+    bench.py's metrics-plane rungs are: its mode, metric and speedup floor."""
+    result["mode"] = "virtual"
+    result["metric"] = metric
+    result["speedup_floor"] = floor
+    result["meets_floor"] = result["speedup"] >= floor
+    return result
+
+
+# The three metrics-plane rungs run at bench.py's smoke sizes unless
+# ``full`` asks for the sizes of its TIME_SCALE 1 branch.  Wall time is what
+# they measure, so the smoke size shrinks the population, not the clock.
+# No run of the port takes the full sizes yet (minutes of host time each).
+
+
+def sim_scale_rung(full: bool = False) -> dict:
+    """bench.py's ``sim_scale`` rung (``run_rung_sim_scale``), key for key:
+    the pipeline and 200 synthetic structured targets over 600 s of virtual
+    time (``full``: 1000 over an hour)."""
+    if full:
+        targets, horizon_s = perfgates.SIM_SCALE_TARGETS, perfgates.SIM_SCALE_HORIZON_S
+        floor = perfgates.SIM_SCALE_MIN_SPEEDUP
+    else:
+        targets = perfgates.SIM_SCALE_SMOKE_TARGETS
+        horizon_s = perfgates.SIM_SCALE_SMOKE_HORIZON_S
+        floor = perfgates.SIM_SCALE_SMOKE_MIN_SPEEDUP
+    return _scale_rung(run_fleet_scale(targets=targets, horizon_s=horizon_s),
+                       "fleet-scale metrics plane (virtual s per wall s)", floor)
+
+
+def sim_scale_10k_rung(full: bool = False) -> dict:
+    """bench.py's ``sim_scale_10k`` rung (``run_rung_sim_scale_10k``), key
+    for key: 2000 synthetic targets over 4 hash-ring scraper shards with
+    their pre-reductions, federated into the view the HPA reads, over 600 s
+    of virtual time (``full``: 10,000 over 8 shards for an hour).  ``ok``
+    holds the speedup floor, the compression floor, the fleet query's p95
+    budget, the appends floor and the ring's invariants."""
+    if full:
+        targets, shards = perfgates.SIM_SCALE_10K_TARGETS, perfgates.SIM_SCALE_10K_SHARDS
+        horizon_s = perfgates.SIM_SCALE_10K_HORIZON_S
+        floor = perfgates.SIM_SCALE_10K_MIN_SPEEDUP
+    else:
+        targets = perfgates.SIM_SCALE_10K_SMOKE_TARGETS
+        shards = perfgates.SIM_SCALE_10K_SMOKE_SHARDS
+        horizon_s = perfgates.SIM_SCALE_10K_SMOKE_HORIZON_S
+        floor = perfgates.SIM_SCALE_10K_SMOKE_MIN_SPEEDUP
+    result = _scale_rung(
+        run_fleet_scale(targets=targets, horizon_s=horizon_s, shards=shards),
+        "sharded 10k-target federation plane (virtual s per wall s)", floor)
+    result["compression_floor"] = perfgates.MIN_COMPRESSION_RATIO
+    result["query_p95_budget_ms"] = perfgates.MAX_FLEET_QUERY_P95_MS
+    result["appends_per_sec_floor"] = perfgates.MIN_APPENDS_PER_SEC
+    result["ok"] = (
+        result["meets_floor"]
+        and result["compression_ratio"] >= perfgates.MIN_COMPRESSION_RATIO
+        and result["query_p95_ms"] <= perfgates.MAX_FLEET_QUERY_P95_MS
+        and result["appends_per_sec"] >= perfgates.MIN_APPENDS_PER_SEC
+        and result["shards_disjoint"]
+        and result["shards_cover_fleet"]
+    )
+    return result
+
+
+def query_bench_rung(full: bool = False) -> dict:
+    """bench.py's ``query_bench`` rung (``run_rung_query_bench``), key for
+    key: the fleet-aggregate basket evaluated naive and planned over one
+    populated sharded TSDB, 500 series over 4 shards for 1800 s (``full``:
+    10k over 8 for an hour).  ``ok`` holds the vectors bit-identical, the
+    planned speedup floor, the p95 budget and a nonzero summary fast
+    path."""
+    if full:
+        targets, shards = perfgates.QUERY_BENCH_TARGETS, perfgates.QUERY_BENCH_SHARDS
+        horizon_s = perfgates.QUERY_BENCH_HORIZON_S
+        floor = perfgates.MIN_PLANNED_SPEEDUP
+    else:
+        targets = perfgates.QUERY_BENCH_SMOKE_TARGETS
+        shards = perfgates.QUERY_BENCH_SMOKE_SHARDS
+        horizon_s = perfgates.QUERY_BENCH_SMOKE_HORIZON_S
+        floor = perfgates.QUERY_BENCH_SMOKE_MIN_PLANNED_SPEEDUP
+    result = _scale_rung(
+        run_query_bench(targets=targets, shards=shards, horizon_s=horizon_s,
+                        scrape_interval=perfgates.QUERY_BENCH_INTERVAL_S),
+        "planned vs naive rule eval (wall-time speedup)", floor)
+    result["query_p95_budget_ms"] = perfgates.MAX_FLEET_QUERY_P95_MS
+    result["ok"] = (
+        result["identical"]
+        and result["meets_floor"]
+        and result["query_p95_ms"] <= perfgates.MAX_FLEET_QUERY_P95_MS
+        and result["planner_fastpath"] > 0
+    )
+    return result
 
 
 class QueueJoint:

@@ -2,7 +2,10 @@
 same detail, or raises the same words, on the payloads of
 tests/test_doctor.py, and ``check_alerts`` and ``check_histograms`` on
 alert payloads and on a traced pipeline's self-metrics exposition, whole
-and broken; ``diagnose`` stops at the first broken joint; the CLI probes an
+and broken; ``check_self_metrics`` passes on either package's traced
+series (the port serves JAX's ten families); ``diagnose``, with the shard
+topology and query-planner probes, stops at the first broken joint as
+JAX's does; the CLI probes an
 exporter and a Prometheus over HTTP, its alerts and, with SELF_METRICS=1,
 its self-metric series; ``gen-pipeline`` writes JAX's pipeline but where a
 GPU node needs another value, and refuses what JAX's refuses; and
@@ -26,6 +29,7 @@ from k8s_gpu_hpa_tpu import simulate as jax_simulate
 from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
 import k8s_gpu_hpa_tpu_torch.__main__ as cli
 from k8s_gpu_hpa_tpu_torch import doctor, simulate
+from k8s_gpu_hpa_tpu_torch.metrics import federation, planner, rules, tsdb
 from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
 from k8s_gpu_hpa_tpu_torch.utils import clock
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
@@ -158,13 +162,14 @@ def test_the_histogram_probe_gives_jax_s_result(how):
 
 
 def test_the_self_metrics_probe_passes_on_each_package_s_traced_pipeline():
-    """Each package's probe passes on its own pipeline's series; JAX's asks
-    for the query planner's six families too, which the port has not."""
+    """Each package's probe passes on its own pipeline's series and on the
+    other's, with one detail: the port serves JAX's ten families, the query
+    planner's and the decode cache's six counters among them."""
     port = _outcome(doctor.check_self_metrics, _traced()[0])
-    assert port == (True, "all 4 self-metric families fresh (8 series)")
-    assert _outcome(jax_doctor.check_self_metrics, _traced("jax")[0])[0]
-    missing = _outcome(jax_doctor.check_self_metrics, _traced()[0])
-    assert not missing[0] and str(list(jax_selfmetrics.SELF_METRIC_NAMES[4:])) in missing[1]
+    assert port == (True, "all 10 self-metric families fresh (14 series)")
+    assert _outcome(jax_doctor.check_self_metrics, _traced()[0]) == port
+    assert _outcome(jax_doctor.check_self_metrics, _traced("jax")[0]) == port
+    assert _outcome(doctor.check_self_metrics, _traced("jax")[0]) == port
 
 
 def _fetchers(**payloads):
@@ -183,25 +188,43 @@ def _fetchers(**payloads):
     return {f"{name}_fetch": make(name) for name in payloads}, called
 
 
-@pytest.mark.parametrize("broken", [None, "exporter", "prom", "up", "self_metrics",
-                                    "self_exposition", "api", "hpa", "alerts"])
+@functools.cache
+def _shards_and_planner() -> tuple[str, str]:
+    """A sharded scrape plane's status (three shards over a fleet of ten)
+    and the planner's selfcheck of an instant and an ``avg_over_time`` rule
+    over ten minutes of four series (sealed chunks, so the fast path runs)."""
+    plane = federation.ShardedScrapePlane(clock.VirtualClock(), 3)
+    for i in range(10):
+        plane.add_target(lambda: "", name=f"exporter/node-{i}")
+    vclock = clock.VirtualClock()
+    db = tsdb.TimeSeriesDB(vclock, retention=900.0)
+    for t in range(1, 601):
+        vclock.advance(1.0)
+        for i in range(4):
+            db.append("m", (("i", str(i)),), float((t * 7 + i) % 13), float(t))
+    selfcheck = planner.planner_selfcheck(db, [
+        rules.RecordingRule("m_avg", rules.Avg(rules.Select("m"))),
+        rules.RecordingRule("m_5m", rules.Avg(rules.AvgOverTime("m", 300.0))),
+    ])
+    return plane.shard_status_json(), json.dumps(selfcheck)
+
+
+@pytest.mark.parametrize("broken", [None, "exporter", "prom", "up", "shards", "self_metrics",
+                                    "self_exposition", "planner", "api", "hpa", "alerts"])
 def test_diagnose_stops_at_the_first_broken_joint_as_jax_s_does(broken):
-    good = {"exporter": exposition(), "prom": ADDRESSED, "up": UP,
-            "self_metrics": _traced()[0], "self_exposition": _traced()[1], "api": API,
-            "hpa": HPA_ACTIVE, "alerts": ALERTS_QUIET}
-    order = ["exporter", "prom", "up", "self_metrics", "self_exposition", "api", "hpa", "alerts"]
+    shards, selfcheck = _shards_and_planner()
+    good = {"exporter": exposition(), "prom": ADDRESSED, "up": UP, "shards": shards,
+            "self_metrics": _traced()[0], "self_exposition": _traced()[1], "planner": selfcheck,
+            "api": API, "hpa": HPA_ACTIVE, "alerts": ALERTS_QUIET}
+    order = ["exporter", "prom", "up", "shards", "self_metrics", "self_exposition", "planner",
+             "api", "hpa", "alerts"]
     payloads = {k: (None if k == broken else v) for k, v in good.items()}
     port_fetch, port_called = _fetchers(**payloads)
-    # JAX's self-metrics probe reads its own pipeline's series (it asks for
-    # the planner's families); its detail counts them
-    jax_fetch, _ = _fetchers(**{**payloads, "self_metrics": payloads["self_metrics"]
-                                and _traced("jax")[0]})
+    jax_fetch, _ = _fetchers(**payloads)
     port = doctor.diagnose(metric=METRIC, **port_fetch)
     ref = {r.name: r for r in jax_doctor.diagnose(metric=METRIC, **jax_fetch)}
     for r in port:
-        assert r.ok == ref[r.name].ok
-        if r.name != "L3 self-metrics" or not r.ok:
-            assert r.detail == ref[r.name].detail
+        assert (r.ok, r.detail) == (ref[r.name].ok, ref[r.name].detail)
     stop = order.index(broken) + 1 if broken else len(order)
     assert len(port) == stop and port_called == order[:stop]
     assert [r.ok for r in port] == [True] * (stop - 1) + [broken is None]
@@ -210,8 +233,9 @@ def test_diagnose_stops_at_the_first_broken_joint_as_jax_s_does(broken):
 def test_diagnose_skips_absent_fetchers():
     results = doctor.diagnose(exporter_fetch=exposition)
     assert [r.name for r in results] == [
-        "L2 exporter", "L3 prometheus", "L3 scrape health", "L3 self-metrics",
-        "L3 histogram conformance", "L4 custom-metrics API", "L5 HPA", "alerts"]
+        "L2 exporter", "L3 prometheus", "L3 scrape health", "L3 shard topology",
+        "L3 self-metrics", "L3 histogram conformance", "L3 query planner",
+        "L4 custom-metrics API", "L5 HPA", "alerts"]
     assert all(r.ok for r in results)
     assert all(r.detail.startswith("skipped") for r in results[1:])
 
@@ -273,10 +297,12 @@ def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys, self
     assert out[1] == f"[ok ] L3 prometheus: {METRIC}=53.3 " + str(
         {"namespace": "default", "statefulset": "tpu-test-multihost"})
     assert out[2] == "[ok ] L3 scrape health: all 3 scrape targets up"
+    assert out[3] == "[ok ] L3 shard topology: skipped (no fetcher)"
     payload = _traced()[0]
-    assert out[3] == ("[ok ] L3 self-metrics: " + doctor.check_self_metrics(payload)
+    assert out[4] == ("[ok ] L3 self-metrics: " + doctor.check_self_metrics(payload)
                       if self_metrics else "[ok ] L3 self-metrics: skipped (no fetcher)")
-    assert out[4:] == ["[ok ] L3 histogram conformance: skipped (no fetcher)",
+    assert out[5:] == ["[ok ] L3 histogram conformance: skipped (no fetcher)",
+                       "[ok ] L3 query planner: skipped (no fetcher)",
                        "[ok ] L4 custom-metrics API: skipped (no fetcher)",
                        "[ok ] L5 HPA: skipped (no fetcher)",
                        "[ok ] alerts: no pipeline alerts firing"]

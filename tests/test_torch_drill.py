@@ -9,13 +9,10 @@ package's.
   lineages, the span count, ``ok``), and JAX's numbers: settled at 3, MTTR
   0 for each fault, a replay gap of 1.0 s, no spurious scale event, 2
   scale events with complete lineages, 4/4 at the end, 8724 spans.
-- The restart log: the port's ``pipeline-self`` target serves six series
-  fewer than JAX's, the query planner's four counters and the decode
-  cache's two, which come with the metrics plane.  With those six left out
-  of JAX's exposition the two logs are equal, key for key; as they stand
-  the port recovers exactly six series fewer, and the points and replayed
-  records differ by the numbers below (the snapshots, every 8192 records,
-  are cut at other times).
+- The restart log: JAX's, key for key (each TSDB restart recovers
+  137 series, 18300 points, 1916 replayed records, then 127, 45486,
+  2560), the port's ``pipeline-self`` target serving JAX's six query-engine
+  series (the planner's four counters, the decode cache's two).
 - An unknown component; ``simulate --scenario drill`` exits 0 and prints
   JAX's report, and exits 2 as JAX's does on an unknown component and on a
   failing drill; the rung is bench.py's dict.
@@ -37,6 +34,7 @@ from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
 import k8s_gpu_hpa_tpu_torch.__main__ as cli
 from k8s_gpu_hpa_tpu_torch import trial
 from k8s_gpu_hpa_tpu_torch.control import scale_harness
+from k8s_gpu_hpa_tpu_torch.obs import selfmetrics as port_selfmetrics
 from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
@@ -49,28 +47,22 @@ DECISION_FIELDS = (
     "trace_spans", "ok",
 )
 #: the JAX package's restart log of the whole drill: (recovered_series,
-#: recovered_points, replayed_records) at each TSDB restart, and the port's
+#: recovered_points, replayed_records) at each TSDB restart
 JAX_RECOVERIES = [(137, 18300, 1916), (127, 45486, 2560)]
-PORT_RECOVERIES = [(131, 17406, 1022), (121, 46644, 7492)]
-#: the self-metric series JAX's pipeline-self target serves and the port's
-#: does not (no query planner yet)
-PLANNER_SERIES = (
-    "query_planner_fastpath_chunks_total", "query_planner_fallback_chunks_total",
-    "query_planner_series_cache_hits_total", "query_planner_series_resolves_total",
-    "tsdb_decode_cache_hits_total", "tsdb_decode_cache_misses_total",
-)
 
 
 @functools.cache
 def _drill(package: str, components: tuple[str, ...], planner_series: bool = True) -> str:
-    if package == "port":
-        return json.dumps(scale_harness.run_recovery_drill(components=components))
+    """One package's drill; without ``planner_series`` its self-metrics
+    attach no query engine, so they serve six series fewer."""
+    harness, metrics = ((scale_harness, port_selfmetrics) if package == "port"
+                        else (jax_harness, jax_selfmetrics))
     if planner_series:
-        return json.dumps(jax_harness.run_recovery_drill(components=components))
+        return json.dumps(harness.run_recovery_drill(components=components))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_selfmetrics.PipelineSelfMetrics, "attach_query_engine",
+        mp.setattr(metrics.PipelineSelfMetrics, "attach_query_engine",
                    lambda self, stats, db: None)
-        return json.dumps(jax_harness.run_recovery_drill(components=components))
+        return json.dumps(harness.run_recovery_drill(components=components))
 
 
 def _result(package: str, components=ALL, planner_series: bool = True) -> dict:
@@ -109,7 +101,10 @@ def _recoveries(result: dict) -> list[tuple]:
 
 
 def test_the_restart_log_is_jax_s_without_the_planner_series():
-    port = _result("port")
+    """With the six query-engine series withheld from both packages'
+    self-metrics, the restart log is still JAX's key for key: every other
+    series recovers as JAX's does."""
+    port = _result("port", planner_series=False)
     assert port["restarts"] == _result("jax", planner_series=False)["restarts"]
     assert [(r["component"], r["at"]) for r in port["restarts"]] == [
         ("tsdb", 165.0), ("hpa", 345.0), ("adapter", 525.0), ("tsdb", 705.0)]
@@ -122,19 +117,25 @@ def test_the_restart_log_is_jax_s_without_the_planner_series():
 
 
 def test_the_restart_log_differs_from_jax_s_by_the_planner_series_alone():
+    """The whole restart log is JAX's, its two TSDB restarts recovering
+    JAX's series, points and replayed records; the log with the six
+    query-engine series withheld differs from it in the recovered counts
+    alone, by six series at each TSDB restart."""
     port, ref = _result("port"), _result("jax")
     assert _recoveries(ref) == JAX_RECOVERIES
-    assert _recoveries(port) == PORT_RECOVERIES
-    series_less = [j[0] - p[0] for j, p in zip(JAX_RECOVERIES, PORT_RECOVERIES)]
-    assert series_less == [len(PLANNER_SERIES)] * 2
+    assert port["restarts"] == ref["restarts"]
+    withheld = _result("port", planner_series=False)
+    assert [p[0] - w[0] for p, w in zip(_recoveries(port), _recoveries(withheld))] == [6, 6]
     strip = ("recovered_series", "recovered_points", "replayed_records")
-    assert [{k: v for k, v in r.items() if k not in strip} for r in port["restarts"]] == [
-        {k: v for k, v in r.items() if k not in strip} for r in ref["restarts"]]
+    assert [{k: v for k, v in r.items() if k not in strip} for r in withheld["restarts"]] == [
+        {k: v for k, v in r.items() if k not in strip} for r in port["restarts"]]
 
 
 def test_the_planner_series_are_the_six_jax_serves_and_the_port_does_not():
+    """The six query-engine series are the ones JAX's self-metrics serve
+    once a query engine is attached; until then the port's do not serve
+    them, as JAX's do not, and once attached its exposition is JAX's."""
     from k8s_gpu_hpa_tpu.utils.clock import VirtualClock as JaxClock
-    from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
     from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 
     class Stats:
@@ -147,11 +148,15 @@ def test_the_planner_series_are_the_six_jax_serves_and_the_port_does_not():
         return {(f.name + s.suffix, s.labels) for f in parse_text(exposition) for s in f.samples}
 
     ref = jax_selfmetrics.PipelineSelfMetrics(clock=JaxClock())
+    port = port_selfmetrics.PipelineSelfMetrics(clock=VirtualClock())
+    assert samples(port.exposition()) == samples(ref.exposition())
+    unattached = {name for name, _ in samples(port.exposition())}
     ref.attach_query_engine(Stats(), Db())
-    port = selfmetrics.PipelineSelfMetrics(clock=VirtualClock())
-    extra = samples(ref.exposition()) - samples(port.exposition())
-    assert samples(port.exposition()) < samples(ref.exposition())
-    assert sorted(name for name, _ in extra) == sorted(PLANNER_SERIES)
+    port.attach_query_engine(Stats(), Db())
+    assert port.exposition() == ref.exposition()
+    six = {name for name, _ in samples(ref.exposition())} - unattached
+    assert sorted(six) == sorted(port_selfmetrics.SELF_METRIC_NAMES[4:])
+    assert len(six) == 6 and not six & unattached
 
 
 def test_an_unknown_component_is_refused_as_jax_s():

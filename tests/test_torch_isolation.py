@@ -89,6 +89,16 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.chaos.faults",
         "k8s_gpu_hpa_tpu_torch.chaos.schedule",
         "k8s_gpu_hpa_tpu_torch.chaos.storm",
+        "k8s_gpu_hpa_tpu_torch.metrics.wal",
+        "k8s_gpu_hpa_tpu_torch.control.checkpoint",
+        "k8s_gpu_hpa_tpu_torch.control.scale_harness",
+        "k8s_gpu_hpa_tpu_torch.metrics.gorilla",
+        "k8s_gpu_hpa_tpu_torch.metrics.tsdb",
+        "k8s_gpu_hpa_tpu_torch.metrics.promql",
+        "k8s_gpu_hpa_tpu_torch.metrics.planner",
+        "k8s_gpu_hpa_tpu_torch.metrics.federation",
+        "k8s_gpu_hpa_tpu_torch.obs.selfmetrics",
+        "k8s_gpu_hpa_tpu_torch.perfgates",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -239,7 +249,9 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
     (["simulate", "--scenario", "chaos"], "all recovered:            True"),
     (["simulate", "--scenario", "slo"], "verdict: OK"),
     (["gen-pipeline", "--app", "my-app"], "# ===== my-app-hpa.yaml ====="),
-], ids=["chaos", "slo", "gen-pipeline"])
+    (["simulate", "--scenario", "spike", "--shards", "2", "--explain"],
+     "IndexScan kube_pod_labels"),
+], ids=["chaos", "slo", "gen-pipeline", "shards-explain"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
     """The storm, the SLO check and the pipeline generator as a user runs
     them, in a fresh interpreter: exit 0, and the import log names neither

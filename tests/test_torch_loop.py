@@ -277,13 +277,19 @@ def test_a_metric_spec_in_another_namespace_is_refused_as_jax_refuses_it():
 
 
 def test_the_constructor_takes_none_of_the_left_out_parameters():
-    for name in ("scrape_shards", "downsample", "capacity"):
+    """``downsample`` and ``capacity`` are still left out; ``scrape_shards``
+    (the metrics plane) and the durability slice's two are taken, as JAX's."""
+    for name in ("downsample", "capacity"):
         with pytest.raises(TypeError):
             make_pipeline(PORT, lambda t: 0.0, **{name: None})
     assert not hasattr(loop.AutoscalingPipeline, "add_tenant_hpa")
-    # the durability slice's two are taken, as JAX's
     pipe = make_pipeline(PORT, lambda t: 0.0, wal=None, checkpoint_store=None)
     assert (pipe.wal, pipe.checkpoint_store, pipe.restart_log) == (None, None, [])
+    assert pipe.shard_plane is None and pipe.planner.db is pipe.db
+    sharded = make_pipeline(PORT, lambda t: 0.0, scrape_shards=3)
+    assert len(sharded.shard_plane.shard_dbs) == 3
+    assert sharded.scraper is sharded.shard_plane
+    assert sharded.db.members == [sharded.db.global_db, *sharded.shard_plane.shard_dbs]
 
 
 def _tick_order(mods) -> list[tuple[float, str]]:

@@ -25,7 +25,9 @@ through both packages:
 Across the packages: a WAL directory the port wrote (snapshot and tail)
 recovers in JAX's ``TimeSeriesDB.recover`` to the port's own recovered
 state; a directory of JAX's segments recovers in the port to JAX's state;
-a JAX format-3 snapshot is refused with one line; a checkpoint file either
+a JAX format-3 snapshot carrying downsampled rollups is refused with one
+line (the port reads formats 1-3 without them: tests/test_torch_tsdb_chunks.py);
+the port's snapshot is JAX's format 3; a checkpoint file either
 HPA wrote restores in the other; an HPA restarted mid-window from its
 checkpoint recommends ``[4, 4, 4, 4, 4, 4, 1, 1]`` as an uninterrupted one
 does, in both packages, and a cold restart scales down early.
@@ -44,6 +46,7 @@ import torch
 from k8s_gpu_hpa_tpu.control import adapter as jax_adapter
 from k8s_gpu_hpa_tpu.control import checkpoint as jax_checkpoint
 from k8s_gpu_hpa_tpu.control import hpa as jax_hpa
+from k8s_gpu_hpa_tpu.metrics import downsample as jax_downsample
 from k8s_gpu_hpa_tpu.metrics import tsdb as jax_tsdb
 from k8s_gpu_hpa_tpu.metrics import wal as jax_wal
 from k8s_gpu_hpa_tpu.utils import clock as jax_clock
@@ -517,23 +520,42 @@ def test_jax_s_segments_recover_in_the_port_to_jax_s_state(tmp_path):
 
 
 def test_a_jax_format_3_snapshot_is_refused_in_one_line(tmp_path):
-    _written(JAX, tmp_path / "wal", _writes(), snapshot_every=25)
+    """A format-3 snapshot with downsampled rollups (a JAX DB with a
+    downsample policy) is refused in one line: the port has no tiers yet."""
+    _written(JAX, tmp_path / "wal", _writes(), snapshot_every=25,
+             downsample=jax_downsample.DownsamplePolicy())
     payload, _ = jax_wal.WriteAheadLog(tmp_path / "wal").read()
-    assert payload["format"] == 3
+    assert payload["format"] == 3 and "downsample" in payload
     with pytest.raises(ValueError) as err:
         _recover(PORT, tmp_path / "wal")
     assert "\n" not in str(err.value)
-    assert "format 3" in str(err.value) and "slice 4" in str(err.value)
+    assert "format 3" in str(err.value) and "rollups" in str(err.value)
 
 
-def test_the_port_writes_format_1_which_jax_reads():
+def test_the_port_writes_format_1_which_jax_reads(tmp_path):
+    """A format-1 payload (per-point triples), written by the port's WAL,
+    recovers in JAX's package and in the port to the port's state; so does
+    the format-3 payload the port's TSDB snapshots now (Gorilla blobs, no
+    rollups)."""
     db = tsdb.TimeSeriesDB(clock.VirtualClock())
     _populate(db, _writes())
     payload = db.snapshot_payload()
-    assert payload["format"] == tsdb.SNAPSHOT_FORMAT == 1
+    assert payload["format"] == tsdb.SNAPSHOT_FORMAT == jax_tsdb.SNAPSHOT_FORMAT == 3
     assert set(payload) == {"format", "at", "lookback", "retention", "series", "versions",
                             "stale_pending", "exemplars"}
-    json.dumps(payload, allow_nan=False)  # a marker travels as null
+    json.dumps(payload, allow_nan=False)  # the blobs carry every marker
+    v1 = dict(payload, format=1, series=[
+        {"name": name, "labels": list(labels),
+         "points": [[t, None if v != v else v, o] for t, v, o in points]}
+        for (name, labels), points in _points(db).items()
+    ])
+    for label, snap in (("v1", v1), ("v3", payload)):
+        log = wal.WriteAheadLog(tmp_path / label)
+        log.write_snapshot(snap)
+        log.close()
+        for mods in (JAX, PORT):
+            back = _recover(mods, tmp_path / label)
+            assert _full(back, 59.0) == _full(db, 59.0), (label, mods["tsdb"].__name__)
 
 
 # ---- across the packages: the HPA's checkpoints --------------------------------------

@@ -8,7 +8,7 @@ probe, against the JAX package's.
   ``parse_text`` with its exemplars; ``bucket_quantile``, ``percentile``
   and ``histogram_quantiles`` equal JAX's on seeded inputs and the edges.
 - ``PipelineSelfMetrics``: the same reports give JAX's exposition byte for
-  byte (JAX's with no query engine attached, the port having none).
+  byte, with and without a query engine attached (its six counters).
 - The SLO machinery on hand-built TSDBs, after
   ``tests/test_histogram_slo.py``: the recorders in gauge and counter mode,
   ``BurnRate`` and the alert pairs evaluated every second beside JAX's
@@ -16,7 +16,7 @@ probe, against the JAX package's.
   semantics, the shipped alerts' PromQL.
 - A traced pipeline: every recorded series equal to JAX's at every scrape
   (the SLO counters, ``up``, ``signal_propagation_seconds_*`` and the
-  workload's), save the wall-clock families and those JAX's planner adds;
+  workload's, the query engine's counters), save the wall-clock families;
   a clean run fires no SLO alert and a total scrape blackout fires the
   fast alert at the second JAX's does.
 - ``doctor.check_self_metrics`` passes on the port's pipeline and fails as
@@ -27,6 +27,7 @@ Tolerance: exact throughout (the same float operations in the same order).
 
 import json
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -189,6 +190,13 @@ def test_the_self_metrics_expose_jax_s_text(seed):
     port = _reported(selfmetrics, clock, seed)
     ref = _reported(jax_selfmetrics, jax_clock, seed)
     assert port.exposition() == ref.exposition()
+    counts = np.random.default_rng(seed).integers(0, 10_000, 6).tolist()
+    stats = SimpleNamespace(fastpath=counts[0], fallback=counts[1],
+                            series_cache_hits=counts[2], series_resolves=counts[3])
+    db = SimpleNamespace(decode_cache_hits=counts[4], decode_cache_misses=counts[5])
+    port.attach_query_engine(stats, db)
+    ref.attach_query_engine(stats, db)
+    assert port.exposition() == ref.exposition()
     assert port.decisions == ref.decisions and port.sync_durations == ref.sync_durations
     assert obs.histogram_quantiles(port.hist_propagation) == jax_obs.histogram_quantiles(
         ref.hist_propagation)
@@ -210,8 +218,7 @@ def test_the_self_metric_names_are_jax_s():
                  "SELF_HISTOGRAM_NAMES", "SELF_HISTOGRAM_SERIES", "SIGNAL_PROPAGATION_BUCKETS",
                  "SELF_TARGET_NAME", "DECISION_REASONS"):
         assert getattr(selfmetrics, name) == getattr(jax_selfmetrics, name), name
-    # the stated difference: the planner's counters are not served yet
-    assert selfmetrics.SELF_METRIC_NAMES == jax_selfmetrics.SELF_METRIC_NAMES[:4]
+    assert selfmetrics.SELF_METRIC_NAMES == jax_selfmetrics.SELF_METRIC_NAMES
     for reason in ("scale up 1->2", "scale down 3->1", "repair partial slice 3->2",
                    "metrics unavailable; holding", "within tolerance / stabilized", ""):
         assert selfmetrics.decision_reason_label(reason) == (
@@ -436,18 +443,18 @@ def test_an_slo_definition_is_refused_with_jax_s_message(kw):
 
 # ---- a traced pipeline: recorded series, SLO alerts ------------------------------
 
-#: families whose values are wall-clock durations, and the families JAX's
-#: query planner adds to the self-metrics
+#: families whose values are wall-clock durations
 WALL_CLOCK = {"scrape_duration_seconds", "hpa_sync_duration_seconds"} | {
     name + suffix for name in ("hpa_sync_latency_seconds", "scrape_latency_seconds",
                                "rule_eval_latency_seconds", "adapter_query_latency_seconds")
     for suffix in ("_bucket", "_sum", "_count")}
-PLANNER_ONLY = set(jax_selfmetrics.SELF_METRIC_NAMES[4:])
 
 
 def _snapshot(db) -> dict:
+    """Every recorded series at its latest value, the query engine's
+    counters included, the wall-clock families left out."""
     return {(name, s.labels): s.value
-            for name in db.series_names() if name not in WALL_CLOCK | PLANNER_ONLY
+            for name in db.series_names() if name not in WALL_CLOCK
             for s in db.instant_vector(name)}
 
 
@@ -548,8 +555,9 @@ def test_the_probe_passes_on_the_port_s_traced_pipeline():
     assert any(t.name == selfmetrics.SELF_TARGET_NAME for t in pipe.scraper.targets)
     results = [{"metric": {"__name__": name, **dict(s.labels)}, "value": [0, str(s.value)]}
                for name in selfmetrics.SELF_METRIC_NAMES for s in pipe.db.instant_vector(name)]
-    assert doctor.check_self_metrics(_payload(results)) == (
-        f"all 4 self-metric families fresh ({len(results)} series)")
+    detail = f"all 10 self-metric families fresh ({len(results)} series)"
+    assert doctor.check_self_metrics(_payload(results)) == detail
+    assert jax_doctor.check_self_metrics(_payload(results)) == detail
     families = {f.name: f for f in exposition.parse_text(pipe.selfmetrics.exposition())}
     for name in selfmetrics.SELF_METRIC_NAMES:
         assert families[name].samples, name

@@ -67,7 +67,7 @@ def test_each_object_scenario_plays_as_jax_s(name, scenario):
     port = simulate.run_scenario(port_doc, scenario)
     ref = jax_simulate.run_scenario(ref_doc, scenario)
     assert_reports_alike(port, ref)
-    assert port.query_engine is None
+    assert port.query_engine == ref.query_engine
 
 
 #: (HPA, measured ceiling, the band edge in the note, reachable)
