@@ -371,6 +371,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    bars (meets_p95_budget, meets_appends_floor) and do not
                    fail it.  The kernels' counts are set to 0 before it and
                    read after: it launches none.
+45. rollups      — the metrics plane's rollup tiers and the flight recorder,
+                   in this process on virtual clocks: bench.py's
+                   downsample_bench rung at its smoke size
+                   (trial.downsample_bench_rung: 200 series on 2
+                   downsampling shard DBs, 6 h at 30 s, a 3 h window at hour
+                   4 from the 1h rollups and from raw), then simulate's
+                   history at 0.125 virtual days and why on its first scale
+                   event.  Every deterministic field must be the JAX
+                   package's (ROLLUPS_EXPECTED: the bench's points, series,
+                   rollup reads, bytes, ratio, tiers and differential; the
+                   history's scale events with their lineages, fault
+                   windows, restarts, hourly table, tier buckets and rule
+                   reads by tier, with no violation; the why's hop kinds,
+                   its lineage complete, and an unknown id refused).  The
+                   bench's speedup must clear its smoke floor of 3.0 and its
+                   bytes ratio stay within 0.1; the history's tier bytes,
+                   which roll up the pipeline's wall-clock self-metrics,
+                   are printed beside the range the JAX package's runs gave
+                   and do not fail it.  The kernels' counts are set to 0
+                   before it and read after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -1946,13 +1966,14 @@ def phase_llm_profile(gen: LlmLoadGen) -> dict:
     return out
 
 
-def phase_llm_entry(work_dir: str, seconds: float = 15.0) -> dict:
+def phase_llm_entry(work_dir: str, seconds: float = 5.0) -> dict:
     """The rung's container command, ``python -m
     k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with WORKLOAD=llm at its
     defaults and CHECKPOINT_DIR (CHECKPOINT_EVERY 200), for ``seconds``
     after its banner, then SIGTERM: it must exit 0 having reported steps at
     the full context and a finite loss; started again it resumes from its
-    last save's step."""
+    last save's step.  Five seconds hold some 150 steps and two reports: the
+    script's time goes to the later phases (the whole run must end within 1200 s)."""
     ckpt_dir = str(Path(work_dir) / "llm-ckpt")
     env = dict(os.environ, WORKLOAD="llm", REPORT_S="2", CHECKPOINT_DIR=ckpt_dir,
                CHECKPOINT_EVERY="200", TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
@@ -2276,12 +2297,13 @@ def _resume(module: str, env: dict, ckpt_dir: str, first: _Entry) -> dict:
     return out
 
 
-def phase_train_entry(work_dir: str, seconds: float = 8.0) -> dict:
+def phase_train_entry(work_dir: str, seconds: float = 3.0) -> dict:
     """The tpu-train container command, ``python -m
     k8s_gpu_hpa_tpu_torch.loadgen.train`` at its defaults (ResNet-50,
     batch 256, image 32), with CHECKPOINT_DIR, CHECKPOINT_EVERY 20 and a
     1 s PROFILE_S: it trains and reports, writes its Chrome trace, saves on
-    SIGTERM and exits 0; started again it resumes from that save's step."""
+    SIGTERM and exits 0; started again it resumes from that save's step.
+    The ``seconds`` after its trace hold some 100 steps and a report."""
     ckpt_dir = str(Path(work_dir) / "train-ckpt")
     profile_dir = Path(work_dir) / "train-profile"
     env = dict(os.environ, REPORT_S="2", CHECKPOINT_DIR=ckpt_dir, CHECKPOINT_EVERY="20",
@@ -4159,6 +4181,122 @@ def phase_metrics_scale() -> dict:
     return out
 
 
+#: the rollup phase's deterministic fields as the JAX package gives them:
+#: bench.py's run_rung_downsample_bench at its smoke size, and simulate's
+#: run_history(days=0.125) with run_why on its first scale event
+ROLLUPS_EXPECTED = {
+    "downsample_bench": {
+        "appended_points": 144000, "retained_points": 144000, "fleet_series": 200,
+        "identical": True, "rollup_reads": {"1h": 2}, "tier_selected": True,
+        "aged_points": 128000, "rollup_bytes": 169245, "bytes_ratio": 0.0826,
+        "tiers": {"5m": {"series": 200, "chunks": 0, "buckets": 12600, "bytes": 147960},
+                  "1h": {"series": 200, "chunks": 0, "buckets": 1000, "bytes": 21285}},
+        "differential": {"windows_checked": 50, "fold_mismatches": 0, "row_mismatches": 0,
+                         "identical": True},
+    },
+    "history": {
+        "ok": True, "violations": [],
+        "scale_events": [
+            {"span_id": 516, "t": 1560.0, "from": 1, "to": 2, "complete": True},
+            {"span_id": 1378, "t": 4380.0, "from": 2, "to": 3, "complete": True},
+            {"span_id": 2368, "t": 7380.0, "from": 3, "to": 4, "complete": True},
+        ],
+        "fault_windows": [
+            {"t0": 3240.0, "t1": 3900.0, "fault": "exporter_outage@3240s",
+             "kind": "exporter_outage"},
+            {"t0": 6480.0, "t1": 6480.0, "fault": "tsdb_restart@6480s", "kind": "tsdb_restart"},
+        ],
+        "restarts": [{"component": "tsdb", "t": 6480.0}],
+        "hours": {
+            1: {"signal": 30.846835426606866, "replicas_avg": 1.5714285714285714,
+                "replicas_max": 2.0, "duty": 0.5714285714285714, "slo_bad": 36.0},
+            2: {"signal": 37.52585496514544, "replicas_avg": 2.783333333333333,
+                "replicas_max": 3.0, "duty": 1.0, "slo_bad": 25.0},
+            3: {"signal": None, "replicas_avg": None, "replicas_max": None, "duty": 1.0,
+                "slo_bad": 0.0},
+        },
+        "tier_buckets": {"5m": 5218, "1h": 327},
+        "tier_reads": {"raw": 5052},
+    },
+    "why": {"ok": True, "complete": True, "event": {"span_id": 516, "t": 1560.0, "from": 1, "to": 2},
+            "hops": ["scale_event", "hpa_sync", "adapter_query", "rule_eval", "scrape",
+                     "exporter_sample"]},
+}
+#: the history's tier bytes over the JAX package's runs on a CPU: they roll
+#: up the pipeline's self-metrics, which record wall-clock durations
+HISTORY_TIER_BYTES_JAX = {"5m": (69679, 69756), "1h": (11228, 11231)}
+HISTORY_DAYS = 0.125
+
+
+def phase_rollups() -> dict:
+    """The rollup tiers and the flight recorder: bench.py's downsample_bench
+    rung at its smoke size, the history scenario at 0.125 virtual days and
+    why on its first scale event, on the host and virtual clocks (the
+    module docstring, phase 45, has the bars)."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    bench = trial.downsample_bench_rung()
+    bench_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    hist = simulate.run_history(days=HISTORY_DAYS)
+    history_s = time.perf_counter() - t
+    t = time.perf_counter()
+    why = simulate.run_why(hist["scale_events"][0]["span_id"], history=hist)
+    unknown = simulate.run_why(10 ** 9, history=hist)
+    why_s = time.perf_counter() - t
+    got = {
+        "downsample_bench": {k: bench[k] for k in ROLLUPS_EXPECTED["downsample_bench"]},
+        "history": {
+            **{k: hist[k] for k in ROLLUPS_EXPECTED["history"]
+               if k not in ("tier_buckets",)},
+            "tier_buckets": {label: t["buckets"]
+                             for label, t in hist["tier_stats"]["tiers"].items()},
+        },
+        "why": {"ok": why["ok"], "complete": why["complete"], "event": why["event"],
+                "hops": [h["kind"] for h in why["hops"]]},
+    }
+    tier_bytes = {label: t["bytes"] for label, t in hist["tier_stats"]["tiers"].items()}
+    out = {
+        "phase": "rollups", "kernel_launches": _kernel_counts(),
+        "matches_jax": {name: got[name] == want for name, want in ROLLUPS_EXPECTED.items()},
+        "downsample_bench": {
+            "speedup": bench["speedup"], "speedup_floor": bench["speedup_floor"],
+            "meets_floor": bench["meets_floor"], "bytes_ratio": bench["bytes_ratio"],
+            "bytes_ratio_budget": bench["bytes_ratio_budget"], "ok": bench["ok"],
+            "populate_s": bench["populate_s"], "appends_per_sec": bench["appends_per_sec"],
+            "rollup_ms": bench["rollup_ms"], "raw_ms": bench["raw_ms"], "call_s": bench_s,
+        },
+        "history": {
+            "days": HISTORY_DAYS, "call_s": history_s, "tier_bytes": tier_bytes,
+            "tier_bytes_jax_range": HISTORY_TIER_BYTES_JAX,
+            "tier_bytes_in_jax_range": {
+                label: lo <= tier_bytes.get(label, -1) <= hi
+                for label, (lo, hi) in HISTORY_TIER_BYTES_JAX.items()},
+            "scale_events": [e["span_id"] for e in hist["scale_events"]],
+        },
+        "why": {"call_s": why_s, "event": why["event"]["span_id"],
+                "hops": got["why"]["hops"], "unknown_id_ok": unknown["ok"],
+                "unknown_id_error": unknown.get("error")},
+    }
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for name, same in out["matches_jax"].items():
+        if not same:
+            raise AssertionError(f"{name} differs from the JAX package's: {got[name]}")
+    if not bench["meets_floor"]:
+        raise AssertionError(f"downsample_bench's speedup {bench['speedup']} is under its floor "
+                             f"{bench['speedup_floor']}")
+    if bench["bytes_ratio"] > perfgates.MAX_ROLLUP_BYTES_RATIO:
+        raise AssertionError(f"downsample_bench's bytes ratio {bench['bytes_ratio']} is over "
+                             f"{perfgates.MAX_ROLLUP_BYTES_RATIO}")
+    if unknown["ok"]:
+        raise AssertionError("why accepted an unknown scale-event id")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the rollup plane launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -4264,6 +4402,7 @@ def main() -> int:
     phase_chaos()
     phase_drill()
     phase_metrics_scale()
+    phase_rollups()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

@@ -39,9 +39,13 @@ physical plan once; the evaluator and the adapter run the plans, and the
 traced pipeline serves the planner's and the decode cache's counters among
 its self-metrics.
 
-The JAX pipeline's downsampled tiers and its capacity economy with
-``add_tenant_hpa`` are not ported; the constructor takes neither
-``downsample`` nor ``capacity``.
+With ``downsample=`` (a ``metrics.downsample.DownsamplePolicy``) every
+TSDB of the pipeline compacts its aged raw chunks into rollup tiers, which
+the planner reads for tier-aligned range queries; a restarted TSDB keeps
+the policy.
+
+The JAX pipeline's capacity economy with ``add_tenant_hpa`` is not ported;
+the constructor takes no ``capacity``.
 """
 
 from __future__ import annotations
@@ -122,6 +126,7 @@ class AutoscalingPipeline:
         wal=None,
         checkpoint_store=None,
         scrape_shards: int = 0,
+        downsample=None,
     ):
         self.cluster = cluster
         self.deployment = deployment
@@ -149,11 +154,14 @@ class AutoscalingPipeline:
                 interval=self.intervals.scrape,
                 tracer=tracer,
                 selfmetrics=self.selfmetrics,
+                downsample=downsample,
             )
-            self.db = FederatedTSDB(TimeSeriesDB(clock, wal=wal), self.shard_plane.shard_dbs)
+            self.db = FederatedTSDB(
+                TimeSeriesDB(clock, wal=wal, downsample=downsample), self.shard_plane.shard_dbs
+            )
             self.scraper = self.shard_plane
         else:
-            self.db = TimeSeriesDB(clock, wal=wal)
+            self.db = TimeSeriesDB(clock, wal=wal, downsample=downsample)
             self.scraper = Scraper(
                 self.db,
                 interval=self.intervals.scrape,
@@ -318,7 +326,8 @@ class AutoscalingPipeline:
         and the scraper spreads its next sweep so the recovered DB does not
         take every target on one tick.  The planner's cached plans (series
         sets resolved against the dead DB) are dropped, and the self-metrics
-        read the new DB's decode cache.  A sharded pipeline raises: its raw
+        read the new DB's decode cache.  The new DB keeps the old one's
+        downsample policy.  A sharded pipeline raises: its raw
         series live in memory-only shard DBs (a restarted agent re-scrapes)."""
         if self.shard_plane is not None:
             raise RuntimeError(
@@ -340,6 +349,7 @@ class AutoscalingPipeline:
                 retention=old.retention,
                 snapshot_every=old.snapshot_every,
                 chunk_size=old.chunk_size,
+                downsample=old.downsample_policy,
             )
             info = dict(db.last_recovery or {})
         else:
@@ -348,6 +358,7 @@ class AutoscalingPipeline:
                 lookback=old.lookback,
                 retention=old.retention,
                 chunk_size=old.chunk_size,
+                downsample=old.downsample_policy,
             )
             info = {"snapshot_restored": False, "recovered_points": 0}
         self.db = db

@@ -1,8 +1,6 @@
 """Fleet-scale harnesses of the metrics plane, and the recovery drill.
 
-Counterpart of ``k8s_gpu_hpa_tpu/control/scale_harness.py``, less its
-downsampling bench (``run_downsample_bench``), which waits for the port's
-rollup tiers.
+Counterpart of ``k8s_gpu_hpa_tpu/control/scale_harness.py``.
 
 - ``run_fleet_scale`` (bench.py's ``sim_scale`` and ``sim_scale_10k``
   rungs, ``trial.sim_scale_rung`` and ``trial.sim_scale_10k_rung``): N
@@ -16,6 +14,11 @@ rollup tiers.
 - ``run_query_bench`` (bench.py's ``query_bench`` rung,
   ``trial.query_bench_rung``): the fleet-aggregate rule basket evaluated
   naive and planned over one populated sharded TSDB.
+- ``run_downsample_bench`` (bench.py's ``downsample_bench`` rung,
+  ``trial.downsample_bench_rung``): a day of fleet history aged through the
+  5m/1h compactor, a tier-aligned fleet query read from the 1h rollups
+  against the cold raw rescan, the rollups' bytes, and a randomized
+  rollup-against-raw-twin differential.
 - ``run_recovery_drill`` (the ``drill`` scenario and bench.py's
   ``recovery_drill`` rung, ``trial.recovery_drill_rung``): each durable
   component of the control plane crashed and rebuilt mid-run.
@@ -27,6 +30,7 @@ synthetic load), so two runs differ only in their wall-clock numbers.
 from __future__ import annotations
 
 import gc
+import random
 import tempfile
 import time
 from pathlib import Path
@@ -36,6 +40,7 @@ from k8s_gpu_hpa_tpu_torch.control.checkpoint import FileCheckpointStore
 from k8s_gpu_hpa_tpu_torch.control.cluster import SimCluster, SimDeployment
 from k8s_gpu_hpa_tpu_torch.control.hpa import HPABehavior, ScalingPolicy, ScalingRules
 from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline, PipelineIntervals
+from k8s_gpu_hpa_tpu_torch.metrics.downsample import DownsamplePolicy, raw_bucket_rows
 from k8s_gpu_hpa_tpu_torch.metrics.federation import FederatedTSDB
 from k8s_gpu_hpa_tpu_torch.metrics.planner import QueryPlanner
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
@@ -456,6 +461,244 @@ def run_query_bench(
         "decode_cache_misses": db.decode_cache_misses,
     }
 
+
+# ---- downsample_bench: rollup tiers against raw decode -----------------------
+
+
+def _rollup_differential(
+    rng, series: int = 12, horizon_s: float = 86400.0, windows: int = 50
+) -> dict:
+    """The randomized bit-exactness check the rollup tiers rest on: a small
+    raw-retaining DB is populated for a virtual day, compacted, and then
+    ``windows`` random tier-aligned reads are evaluated BOTH ways — the
+    rollup fold and the raw bucketed twin (``range_avg_bucketed``, which
+    regenerates identical bucket rows from the raw chunks and folds them in
+    the same segment shape).  Every per-bucket (count, sum, min, max, last)
+    row and every folded average must match bit-for-bit; any drift means
+    the compactor and the fold no longer share one accumulation order."""
+    policy = DownsamplePolicy()
+    clock = VirtualClock()
+    db = TimeSeriesDB(
+        clock, retention=horizon_s + 7200.0, downsample=policy
+    )
+    labels = [
+        tuple(sorted({"job": "diff", "instance": f"d-{i:03d}"}.items()))
+        for i in range(series)
+    ]
+    interval = 45.0
+    ts = 0.0
+    for _tick in range(int(horizon_s / interval)):
+        ts += interval
+        clock.advance(interval)
+        for i, lbl in enumerate(labels):
+            # occasional gaps and NaN staleness markers keep the bucket
+            # boundary logic honest, not just the happy path
+            if rng.random() < 0.02:
+                continue
+            v = float("nan") if rng.random() < 0.01 else rng.uniform(0.0, 100.0)
+            db.append("diff_gauge", lbl, v, ts)
+
+    row_mismatches = fold_mismatches = checked = 0
+    for _ in range(windows):
+        step = rng.choice(policy.steps)
+        upper = int(ts // step)
+        # stay a couple of hours behind "now": bucket ends past the
+        # compactor's aging point legitimately return None (raw fallback),
+        # which would leave the differential checking nothing
+        hi_max = upper - int(7200.0 // step) - 1
+        if hi_max < 2:
+            continue
+        hi = rng.randrange(max(1, hi_max // 2), hi_max + 1)
+        n = rng.randrange(1, max(2, hi))
+        at = hi * step
+        window_s = n * step
+        roll_vec = db.rollup_range_avg(
+            "diff_gauge", {"job": "diff"}, window_s=window_s, at=at, step=step
+        )
+        if roll_vec is None:
+            continue  # window reaches past the compacted span: legal fallback
+        checked += 1
+        twin_vec = db.range_avg_bucketed(
+            "diff_gauge", {"job": "diff"}, window_s=window_s, at=at, step=step
+        )
+        if not _vectors_identical(roll_vec, twin_vec):
+            fold_mismatches += 1
+    # per-bucket row identity across the whole compacted span, both tiers
+    for step in policy.steps:
+        stored = dict(db.rollup_rows("diff_gauge", step=step))
+        for lbl_set, rows in stored.items():
+            series_obj = db._data["diff_gauge"][lbl_set]
+            raw_by_end = {
+                r[0]: r
+                for r in zip(
+                    *raw_bucket_rows(series_obj, step, db._chunk_arrays)
+                )
+            }
+            for row in rows:
+                raw = raw_by_end.get(row[0])
+                if raw is None or any(
+                    a != b and not (a != a and b != b)
+                    for a, b in zip(row, raw)
+                ):
+                    row_mismatches += 1
+    return {
+        "windows_checked": checked,
+        "fold_mismatches": fold_mismatches,
+        "row_mismatches": row_mismatches,
+        "identical": checked > 0
+        and fold_mismatches == 0
+        and row_mismatches == 0,
+    }
+
+
+def run_downsample_bench(
+    targets: int = 10000,
+    shards: int = 8,
+    horizon_s: float = 86400.0,
+    scrape_interval: float = 30.0,
+    window_s: float = 72000.0,
+    at_s: float = 79200.0,
+    iters: int = 3,
+    seed: int = 1186,
+) -> dict:
+    """Rollup tiers vs raw decode over a day of fleet history: the
+    ``downsample_bench`` rung's payload.
+
+    ``targets`` fleet series spread across ``shards`` downsampling shard
+    DBs behind a ``FederatedTSDB`` are scraped every ``scrape_interval``
+    for ``horizon_s`` virtual seconds; the compactor ages sealed chunks
+    past its horizon into 5m/1h rollups as the run goes.  Three claims are
+    then measured:
+
+    - **speedup**: the tier-aligned fleet query (``window_s`` ending at
+      ``at_s``, both multiples of 1h) served from the 1h rollups vs the
+      same window evaluated naively from raw chunk decodes (cold, one
+      iteration — the flight-recorder-vs-full-rescan comparison).  Gated
+      by ``perfgates.MIN_ROLLUP_SPEEDUP``.
+    - **storage**: rollup bytes for the aged span vs the uncompressed
+      16-byte cost of the raw samples they summarize, gated by
+      ``perfgates.MAX_ROLLUP_BYTES_RATIO``.
+    - **exactness**: the big-fleet rollup read must be bit-identical to
+      the raw bucketed twin, and ``_rollup_differential`` fuzzes random
+      aligned windows (plus every stored bucket row) on a raw-retaining
+      DB.  A planner pass over the same window proves tier selection
+      engages (``rollup_reads``)."""
+    policy = DownsamplePolicy()
+    clock = VirtualClock()
+    retention = horizon_s + 60.0  # raw stays resident: the naive rescan needs it
+    global_db = TimeSeriesDB(clock, retention=retention, downsample=policy)
+    shard_dbs = [
+        TimeSeriesDB(clock, retention=retention, downsample=policy)
+        for _ in range(shards)
+    ]
+    db = FederatedTSDB(global_db, shard_dbs)
+
+    labels = [
+        tuple(sorted({"job": "fleet", "instance": f"synt-{i:05d}"}.items()))
+        for i in range(targets)
+    ]
+    t0 = time.perf_counter()
+    ts = 0.0
+    day = 86400.0
+    for tick in range(int(horizon_s / scrape_interval)):
+        ts += scrape_interval
+        clock.advance(scrape_interval)
+        # diurnal base + per-series offset + short-period wobble: rollup
+        # buckets carry real spread, not a constant the encoder flattens.
+        # Quantized to 0.25 like the exporter's fixed-precision gauges —
+        # full-mantissa noise would be a synthetic worst case no chip
+        # utilization series exhibits, and the Gorilla columns' density
+        # (the bytes gate) is a claim about realistic inputs
+        base = 40.0 + 25.0 * (1.0 - abs((ts % day) / day - 0.5) * 2.0)
+        base = round(base * 4.0) / 4.0
+        for i, lbl in enumerate(labels):
+            shard_dbs[i % shards].append(
+                "fleet_duty_cycle",
+                lbl,
+                base + (i % 40) + 5.0 * (tick % _VARIANTS),
+                ts,
+            )
+    populate_s = time.perf_counter() - t0
+    appended = int(horizon_s / scrape_interval) * targets
+
+    at = at_s
+    matchers = {"job": "fleet"}
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        # the rollup read (warm once to build summaries, then timed)
+        roll_vec = db.rollup_range_avg(
+            "fleet_duty_cycle", matchers, window_s=window_s, at=at, step=3600.0
+        )
+        q0 = time.perf_counter()
+        for _ in range(iters):
+            db.rollup_range_avg(
+                "fleet_duty_cycle",
+                matchers,
+                window_s=window_s,
+                at=at,
+                step=3600.0,
+            )
+        rollup_s = (time.perf_counter() - q0) / iters
+        # the naive raw rescan: cold decode, one iteration
+        q0 = time.perf_counter()
+        naive_vec = db.range_avg(
+            "fleet_duty_cycle", matchers, window_s=window_s, at=at
+        )
+        raw_s = time.perf_counter() - q0
+        # exactness on the big fleet: rollup vs the raw bucketed twin
+        twin_vec = db.range_avg_bucketed(
+            "fleet_duty_cycle", matchers, window_s=window_s, at=at, step=3600.0
+        )
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+
+    identical = roll_vec is not None and _vectors_identical(roll_vec, twin_vec)
+
+    # planner proof: the same logical expr planned over the federated view
+    # must route through the rollup tier, not the raw decode path
+    planner = QueryPlanner(db)
+    plan = planner.plan(
+        Avg(AvgOverTime("fleet_duty_cycle", window_s, matchers))
+    )
+    plan.evaluate(db, at)
+    rollup_reads = dict(planner.stats.rollup_reads)
+
+    storage = db.rollup_storage_stats()
+    aged_points = storage["ingested_points"]
+    rollup_bytes = storage["rollup_bytes"]
+    aged_raw_bytes = aged_points * UNCOMPRESSED_BYTES_PER_SAMPLE
+    differential = _rollup_differential(random.Random(seed))
+
+    return {
+        "targets": targets,
+        "shards": shards,
+        "horizon_s": horizon_s,
+        "scrape_interval": scrape_interval,
+        "window_s": window_s,
+        "at_s": at_s,
+        "appended_points": appended,
+        "populate_s": round(populate_s, 3),
+        "appends_per_sec": round(appended / populate_s, 1) if populate_s else 0.0,
+        "retained_points": db.total_points(),
+        "fleet_series": len(naive_vec),
+        "rollup_ms": round(rollup_s * 1e3, 3),
+        "raw_ms": round(raw_s * 1e3, 3),
+        "speedup": round(raw_s / rollup_s, 2) if rollup_s else 0.0,
+        "identical": identical,
+        "rollup_reads": rollup_reads,
+        "tier_selected": sum(rollup_reads.values()) > 0,
+        "aged_points": aged_points,
+        "rollup_bytes": rollup_bytes,
+        "bytes_ratio": round(rollup_bytes / aged_raw_bytes, 4)
+        if aged_raw_bytes
+        else 1.0,
+        "tiers": {
+            label: dict(t) for label, t in storage.get("tiers", {}).items()
+        },
+        "differential": differential,
+    }
 
 
 # ---- the recovery drill -----------------------------------------------------

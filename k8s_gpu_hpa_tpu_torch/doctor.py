@@ -2,8 +2,8 @@
 NVML probe of a GPU node.
 
 Counterpart of ``k8s_gpu_hpa_tpu/doctor.py``, cut to the joints the port
-runs: its rollup, capacity-pool and operator probes come with the modules
-they read.  The reference's only test story is four
+runs: its capacity-pool and operator probes come with the modules they
+read.  The reference's only test story is four
 manual curl probes interleaved with install steps (exporter text,
 README.md:42-47; Prometheus query, :80-88; custom-metrics raw API,
 :98-102; the scale-up watch, :112-121), with the discipline "don't advance
@@ -18,7 +18,8 @@ joint and says which contract broke.
   of ``SELF_METRICS_QUERY``, ``check_histograms`` that target's histograms
   in its exposition, ``check_shards`` a sharded scrape plane's topology
   (metrics/federation.py), ``check_query_planner`` the planner's selfcheck
-  (metrics/planner.py), and ``check_alerts`` Prometheus's alerts: a firing
+  (metrics/planner.py), ``check_downsampling`` the rollup tiers' selfcheck
+  (metrics/downsample.py), and ``check_alerts`` Prometheus's alerts: a firing
   ``Tpu*`` alert (metrics/rules.py's ``shipped_alert_rules``) is a
   diagnosis even when every joint answered;
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor`` probes a cluster.  Its
@@ -328,6 +329,67 @@ def check_query_planner(payload: str) -> str:
     )
 
 
+def check_downsampling(payload: str) -> str:
+    """Long-horizon rollup-tier health (TSDBs running a DownsamplePolicy,
+    metrics/downsample.py): every configured tier holds sealed buckets,
+    and on tier-aligned windows where raw retention still overlaps rollup
+    coverage the rollup fold returns the SAME floats as re-bucketing the
+    raw points.  A tier with zero buckets means compaction silently
+    stopped (horizon misconfigured, or the append/evict hooks detached);
+    a disagreement means the flight recorder and ``simulate history`` are
+    narrating numbers the raw store never produced — distrust every
+    long-horizon readout until fixed.  ``payload`` is
+    ``downsample_selfcheck(...)`` JSON."""
+    doc = json.loads(payload)
+    if not doc.get("enabled", False):
+        raise AssertionError(
+            "no downsample policy on this TSDB — long-horizon queries are "
+            "serving raw decode only (enable DownsamplePolicy to get tiers)"
+        )
+    tiers = doc.get("tiers", {})
+    empty = sorted(t for t, e in tiers.items() if e.get("buckets", 0) <= 0)
+    if not tiers or empty:
+        raise AssertionError(
+            "rollup tier(s) hold no sealed buckets: "
+            + (", ".join(empty) or "(none configured)")
+            + " — compaction is not running (pipeline younger than "
+            "step+horizon, or the downsampler lost its append/evict hooks)"
+        )
+    disagree = [
+        f"{a['name']}@{a['tier']}"
+        for a in doc.get("agreement", [])
+        if a.get("served") and not a.get("agree")
+    ]
+    if not doc.get("agree_all", True) or disagree:
+        raise AssertionError(
+            "rollup fold DISAGREES with the raw twin for: "
+            + (", ".join(disagree) or "(unreported windows)")
+            + " — long-horizon rollup reads are not faithful to raw history"
+        )
+    served = doc.get("windows_served", 0)
+    if served <= 0:
+        raise AssertionError(
+            f"no tier-aligned window could be differentially verified "
+            f"({doc.get('windows_skipped', 0)} skipped): rollup coverage "
+            "never overlaps raw retention — probe from a DB whose raw "
+            "window still holds compacted points"
+        )
+    tier_bits = ", ".join(
+        f"{label} {e.get('buckets', 0)} bucket(s)/"
+        f"{e.get('bytes', 0)} B (lag "
+        + (
+            f"{e['coverage_lag_s']:.0f}s"
+            if e.get("coverage_lag_s") is not None
+            else "n/a"
+        )
+        + ")"
+        for label, e in sorted(tiers.items())
+    )
+    return (
+        f"{served} aligned window(s) rollup==raw twin; {tier_bits}"
+    )
+
+
 def check_custom_metrics_api(payload: str, metric: str) -> str:
     """L4 joint: the aggregated API lists the metric (README.md:98-102)."""
     doc = json.loads(payload)
@@ -385,6 +447,7 @@ def diagnose(
     self_exposition_fetch: Callable[[], str] | None = None,
     shards_fetch: Callable[[], str] | None = None,
     planner_fetch: Callable[[], str] | None = None,
+    downsample_fetch: Callable[[], str] | None = None,
 ) -> list[ProbeResult]:
     """Run the ordered joint probes, stopping at the first failure (the
     runbook's discipline).  Fetchers set to None are skipped."""
@@ -411,6 +474,9 @@ def diagnose(
         probe("L3 query planner",
               "planned rule evaluation bit-agrees with naive, fast path live",
               check_query_planner, planner_fetch),
+        probe("L3 rollup tiers",
+              "downsample tiers hold buckets, rollup folds bit-agree with raw",
+              check_downsampling, downsample_fetch),
         probe("L4 custom-metrics API", f"{metric} discoverable on custom.metrics.k8s.io",
               lambda p: check_custom_metrics_api(p, metric), api_fetch),
         probe("L5 HPA", "HPA is reading the metric (ScalingActive)",

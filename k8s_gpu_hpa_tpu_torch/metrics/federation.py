@@ -1,12 +1,9 @@
 """Sharded scraping and TSDB federation: the 10k-target metrics plane.
 
-Counterpart of ``k8s_gpu_hpa_tpu/metrics/federation.py``, less
-``FederatedTSDB``'s rollup members (``rollup_steps``,
-``downsample_policy``, ``rollup_range_avg``, ``range_avg_bucketed``,
-``rollup_rows``, ``rollup_storage_stats``), which wait for the port's
-downsampled tiers.  ``ShardedScrapePlane`` is cut to what the pipeline
-sets: its shard DBs take the TSDB's defaults (no ``lookback``,
-``retention``, ``chunk_size`` or ``ring`` knob), and the shards' rules run
+Counterpart of ``k8s_gpu_hpa_tpu/metrics/federation.py``.
+``ShardedScrapePlane`` is cut to what the pipeline sets: its shard DBs take
+the TSDB's defaults but for ``downsample`` (no ``lookback``, ``retention``,
+``chunk_size`` or ``ring`` knob), and the shards' rules run
 one shard after another, without JAX's thread-pool fan-out
 (``parallel_rules``); the recorded values are the same either way.
 
@@ -83,9 +80,10 @@ class ShardedScrapePlane:
     ``add_target`` / ``scrape_once`` / ``targets`` /
     ``stagger_after_recovery`` surface)."""
 
-    def __init__(self, clock, shards: int, interval: float = 1.0, tracer=None, selfmetrics=None):
+    def __init__(self, clock, shards: int, interval: float = 1.0, tracer=None, selfmetrics=None,
+                 downsample=None):
         self.ring = HashRing(shards)
-        self.shard_dbs = [TimeSeriesDB(clock) for _ in range(shards)]
+        self.shard_dbs = [TimeSeriesDB(clock, downsample=downsample) for _ in range(shards)]
         self.scrapers = [
             Scraper(db, interval=interval, tracer=tracer, selfmetrics=selfmetrics)
             for db in self.shard_dbs
@@ -339,3 +337,89 @@ class FederatedTSDB:
         for db in self.members:
             names.update(db.series_names())
         return sorted(names)
+
+    # -- downsampled rollup tiers (fan out like any read) --------------------
+
+    @property
+    def rollup_steps(self) -> tuple[float, ...]:
+        """Union of the members' tier menus (shards and the global DB may
+        downsample independently; the planner only needs to know a step
+        exists somewhere to try it)."""
+        steps: set[float] = set()
+        for db in self.members:
+            steps.update(db.rollup_steps)
+        return tuple(sorted(steps))
+
+    @property
+    def downsample_policy(self):
+        for db in self.members:
+            policy = db.downsample_policy
+            if policy is not None:
+                return policy
+        return None
+
+    def rollup_range_avg(
+        self,
+        name: str,
+        matchers: dict[str, str] | None = None,
+        window_s: float = 0.0,
+        at: float | None = None,
+        step: float | None = None,
+        stats=None,
+    ) -> list[Sample] | None:
+        """Tier read across members: every member holding matching series
+        must serve the tier, else the whole federated query reports None
+        (mixing tier and raw members would break the bit-exactness
+        contract).  Members without matching series contribute []."""
+        at = self.clock.now() if at is None else at
+        out: list[Sample] = []
+        for db in self.members:
+            vec = db.rollup_range_avg(name, matchers, window_s, at, step, stats=stats)
+            if vec is None:
+                return None
+            out.extend(vec)
+        return out
+
+    def range_avg_bucketed(
+        self,
+        name: str,
+        matchers: dict[str, str] | None = None,
+        window_s: float = 0.0,
+        at: float | None = None,
+        step: float | None = None,
+    ) -> list[Sample]:
+        at = self.clock.now() if at is None else at
+        out: list[Sample] = []
+        for db in self.members:
+            out.extend(db.range_avg_bucketed(name, matchers, window_s, at, step=step))
+        return out
+
+    def rollup_rows(self, *args, **kwargs) -> list:
+        out: list = []
+        for db in self.members:
+            out.extend(db.rollup_rows(*args, **kwargs))
+        return out
+
+    def rollup_storage_stats(self) -> dict:
+        merged: dict = {"enabled": False, "tiers": {}}
+        for db in self.members:
+            stats = db.rollup_storage_stats()
+            if not stats.get("enabled"):
+                continue
+            merged["enabled"] = True
+            for label, entry in stats["tiers"].items():
+                slot = merged["tiers"].setdefault(
+                    label, {"series": 0, "chunks": 0, "buckets": 0, "bytes": 0}
+                )
+                for k, v in entry.items():
+                    slot[k] += v
+            for key in (
+                "rollup_bytes",
+                "ingested_points",
+                "ingested_chunks",
+                "ingested_bytes",
+                "sealed_buckets",
+                "dropped_buckets",
+            ):
+                merged[key] = merged.get(key, 0) + stats[key]
+        return merged

@@ -1,9 +1,7 @@
 """Query planner: physical execution plans over the columnar TSDB.
 
-Counterpart of ``k8s_gpu_hpa_tpu/metrics/planner.py``, less its rollup-tier
-selection (the port has no downsampled tiers yet: the rollup counters keep
-their empty values, and a range read always takes the raw path JAX's takes
-on a DB without tiers).
+Counterpart of ``k8s_gpu_hpa_tpu/metrics/planner.py``, less its coverage
+probes and profiling stage.
 
 ``Expr.evaluate`` is the logical definition of every rule: correct, and
 slow at fleet scale, since each evaluation re-resolves the matcher's series
@@ -17,6 +15,12 @@ replaced), and rule evaluation runs the plan thereafter:
   against ``TimeSeriesDB.series_generation``, a per-name counter that moves
   only when a series is created or dropped, so the steady-state evaluation
   goes straight to the per-series last-point read.
+- **rollup tier selection** (:class:`_PlannedAvgOverTime`): a range query
+  whose window and ``at`` are both aligned to a downsampled rollup step
+  (metrics/downsample.py) reads the coarsest such tier, bit-exact for
+  avg/sum/count by the shared bucket fold, and falls back to finer tiers
+  and then raw wherever a tier's coverage is incomplete, counted per tier
+  in ``PlannerStats.rollup_reads``/``rollup_fallbacks``.
 - **chunk-summary aggregation pushdown** (:class:`_PlannedAvgOverTime`): a
   sealed chunk wholly inside the query window contributes the ``(count,
   sum, min, max, nan_count)`` summary recorded at seal time instead of a
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from k8s_gpu_hpa_tpu_torch.metrics.downsample import tier_label as _tier_label
 from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     Absent,
     Aggregate,
@@ -68,9 +73,12 @@ class PlannerStats:
     set validations: revalidated-from-cache vs re-resolved through the
     inverted index.
 
-    The rollup counters are JAX's, for its downsampled tiers; the port has
-    no tiers yet, so they keep their empty values (no read is served from a
-    tier, and none falls back from one)."""
+    Rollup tiers (metrics/downsample.py): ``rollup_reads`` counts range
+    queries served per tier label (``{"1h": 3, ...}``),
+    ``rollup_fallbacks`` counts tier-eligible queries that fell back to raw
+    (a coverage hole), and ``rollup_fastpath``/``rollup_fallback`` mirror
+    the chunk counters at rollup-chunk granularity (seal summary served
+    against decoded)."""
 
     fastpath: int = 0
     fallback: int = 0
@@ -127,15 +135,35 @@ class PlannedSelect(Select):
 
 class _PlannedAvgOverTime(AvgOverTime):
     """Physical range aggregate: the chunk-summary pushdown of
-    ``TimeSeriesDB.range_avg(use_summaries=True)``.  JAX's node first tries
-    its downsampled rollup tiers; the port has none, so every read is the
-    raw one JAX's takes on a DB without tiers."""
+    ``TimeSeriesDB.range_avg(use_summaries=True)``, preceded by rollup
+    **tier selection**: a window and ``at`` both aligned to a rollup step
+    (and no finer than it) read the coarsest such tier instead of raw,
+    bit-exact by the shared bucket fold, falling to finer tiers and then
+    raw where a tier cannot cover the query (``stats.rollup_fallbacks``)."""
 
     def __init__(self, src: AvgOverTime, stats: PlannerStats):
         super().__init__(src.name, src.window, dict(src.matchers))
         self._stats = stats
 
     def evaluate(self, db, at: float | None = None) -> Vector:
+        stats = self._stats
+        steps = getattr(db, "rollup_steps", ())
+        if steps:
+            at_v = db.clock.now() if at is None else at
+            window = self.window
+            eligible = False
+            for step in reversed(steps):  # the coarsest aligned tier first
+                if window < step or window % step != 0.0 or at_v % step != 0.0:
+                    continue
+                eligible = True
+                vec = db.rollup_range_avg(
+                    self.name, self.matchers, window, at_v, step, stats=stats
+                )
+                if vec is not None:
+                    return vec
+            if eligible:
+                stats.rollup_fallbacks += 1
+            at = at_v
         return db.range_avg(
             self.name,
             self.matchers,
@@ -267,10 +295,18 @@ class QueryPlanner:
                     "  [series-set cache (gen-validated) + last-point fast path]"
                 )
             elif isinstance(node, _PlannedAvgOverTime):
+                steps = getattr(self.db, "rollup_steps", ())
+                tiers = (
+                    "tier selection over "
+                    + "/".join(_tier_label(s) for s in reversed(steps))
+                    + " rollups, then "
+                    if steps
+                    else ""
+                )
                 lines.append(
                     f"{pad}RangeAgg avg_over_time[{int(node.window)}s] "
                     f"{Select(node.name, node.matchers).promql()}"
-                    "  [chunk-summary pushdown; boundary chunks via"
+                    f"  [{tiers}chunk-summary pushdown; boundary chunks via"
                     " decode cache]"
                 )
             elif isinstance(node, _PlannedHistogramQuantile):

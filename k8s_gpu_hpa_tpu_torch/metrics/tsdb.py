@@ -45,8 +45,19 @@ logs every accepted append (markers and exemplars too) before the call
 returns and cuts a snapshot every ``snapshot_every`` logged records;
 ``TimeSeriesDB.recover`` rebuilds the store from the snapshot and a replay
 of the tail.  The snapshot is JAX's format 3, the Gorilla blobs verbatim;
-``recover`` reads formats 1, 2 and 3.  The JAX package's downsampled
-rollup tiers and profiling stages are not ported.
+``recover`` reads formats 1, 2 and 3.  The JAX package's profiling stages
+are not ported.
+
+Long-horizon rollups: constructed with a
+:class:`~k8s_gpu_hpa_tpu_torch.metrics.downsample.DownsamplePolicy`, sealed
+raw chunks aging past the policy horizon compact into per-tier rollup rows
+(count, sum, min, max, last) from the append path, and a chunk evicted by
+raw retention before reaching the horizon is ingested on its way out, so
+rollups never lose data to a short raw window.  ``rollup_range_avg`` serves
+tier-aligned range queries from the rollups (the planner's tier
+selection), ``range_avg_bucketed`` is its raw twin for bit-identity checks,
+and format-3 snapshots carry the rollup state verbatim beside the raw
+columns.
 
 Targets may report how long serving took (``TimedExposition``,
 ``StructuredExposition``): a fetch past its target's ``deadline`` counts as
@@ -65,6 +76,16 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable
 
+from k8s_gpu_hpa_tpu_torch.metrics.downsample import (
+    DownsamplePolicy,
+    Downsampler,
+    fold_avg as _ds_fold_avg,
+    newest_bucket_in_window as _ds_newest_bucket,
+    raw_fold as _ds_raw_fold,
+    restore_rollup as _ds_restore_rollup,
+    serialize_rollup as _ds_serialize_rollup,
+    tier_segments as _ds_tier_segments,
+)
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.gorilla import (
     GorillaChunk,
@@ -78,9 +99,10 @@ LabelSet = tuple[tuple[str, str], ...]
 
 #: the snapshot payload format ``TimeSeriesDB.snapshot`` writes, JAX's:
 #: 1 = per-point JSON triples; 2 = Gorilla chunk blobs; 3 = 2 plus each
-#: series' downsampled rollups.  The port writes format 3 without rollups
-#: and reads all three; a payload that carries rollups is refused until
-#: the downsampled tiers are ported.
+#: series' downsampled rollups (metrics/downsample.py).  ``recover`` reads
+#: all three: a payload without a ``format`` field is format 1, and a
+#: format 1 or 2 payload recovered into a downsampling DB rebuilds its
+#: rollups from the installed raw chunks.
 SNAPSHOT_FORMAT = 3
 
 
@@ -109,7 +131,7 @@ class _Series:
     """
 
     __slots__ = ("labels", "chunks", "enc", "head_origins", "head_first_ts",
-                 "last_ts", "last_val", "last_origin", "_head_cache")
+                 "last_ts", "last_val", "last_origin", "_head_cache", "rollup")
 
     def __init__(self, labels: LabelSet):
         self.labels = labels
@@ -124,6 +146,9 @@ class _Series:
         self.last_origin: int | None = None
         #: memoized head decode, invalidated by count (appends bump it)
         self._head_cache: tuple | None = None
+        #: SeriesRollups (metrics/downsample.py) once the owning DB's
+        #: downsampler has touched this series, else None
+        self.rollup = None
 
     def push(self, ts: float, value: float, origin: int | None) -> None:
         """Store one point (``TimeSeriesDB.append`` and the restore paths).
@@ -293,6 +318,7 @@ class TimeSeriesDB:
         wal=None,
         snapshot_every: int = 8192,
         chunk_size: int = 64,
+        downsample: DownsamplePolicy | None = None,
     ):
         self.clock = clock or SystemClock()
         self.lookback = lookback
@@ -352,6 +378,12 @@ class TimeSeriesDB:
         #: stats of the recovery that built this instance (``recover``), or
         #: None for a cold-started DB
         self.last_recovery: dict | None = None
+        #: the rollup compaction engine (metrics/downsample.py), or None for
+        #: a raw-only store (the default: rollups cost ingest work and only
+        #: long-horizon surfaces read them)
+        self._downsampler = (
+            None if downsample is None else Downsampler(downsample, chunk_size)
+        )
 
     def append(
         self,
@@ -390,9 +422,29 @@ class TimeSeriesDB:
             series.seal_head()
         dropped = 0
         chunks = series.chunks
+        ds = self._downsampler
+        if ds is None:
+            roll = None
+        else:
+            # rollup compaction: ingest the sealed chunks aged past the
+            # horizon (the guard is one list probe and a compare an append)
+            roll = series.rollup
+            if roll is None:
+                roll = series.rollup = ds.new_state()
+            k = roll.ingested
+            if k < len(chunks) and chunks[k].last_ts < ts - ds.horizon:
+                ds.ingest_pending(roll, chunks, ts)
         if chunks:
             cutoff = ts - self.retention
             while chunks and chunks[0].last_ts < cutoff:
+                if roll is not None:
+                    if roll.ingested:
+                        roll.ingested -= 1
+                    else:
+                        # compact on evict: a chunk dropped before aging past
+                        # the horizon is ingested on its way out, so a raw
+                        # window shorter than the horizon loses nothing
+                        ds.ingest_chunk(roll, chunks[0])
                 dropped += chunks.pop(0).count
         self._total_points += 1 - dropped
         self._versions[name] = self._versions.get(name, 0) + 1
@@ -472,8 +524,8 @@ class TimeSeriesDB:
     def snapshot_payload(self) -> dict:
         """The format-3 snapshot payload, built without touching the WAL:
         each series' sealed chunks and head as base64 Gorilla blobs with
-        their origins, the version counters, the pending-staleness map and
-        the exemplars.  It is JSON-equal to the JAX package's for the same
+        their origins and its rollups, the version counters, the
+        pending-staleness map, the exemplars and the downsample policy.  It is JSON-equal to the JAX package's for the same
         appends, and :meth:`recover` of either package restores it."""
         b64 = base64.b64encode
         series_out = []
@@ -505,6 +557,10 @@ class TimeSeriesDB:
                         enc.ts_mode,
                     ],
                 }
+                if series.rollup is not None:
+                    # format 3: the rollup columns travel verbatim beside the
+                    # raw ones, so compaction survives the restart
+                    entry["rollup"] = _ds_serialize_rollup(series.rollup, b64)
                 series_out.append(entry)
         payload = {
             "format": SNAPSHOT_FORMAT,
@@ -522,6 +578,13 @@ class TimeSeriesDB:
                 for (name, labels), ex in self._exemplars.items()
             ],
         }
+        ds = self._downsampler
+        if ds is not None:
+            payload["downsample"] = {
+                "steps": list(ds.steps),
+                "horizon": ds.horizon,
+                "retention": ds.retention,
+            }
         return payload
 
     @classmethod
@@ -533,6 +596,7 @@ class TimeSeriesDB:
         retention: float | None = None,
         snapshot_every: int = 8192,
         chunk_size: int = 64,
+        downsample: DownsamplePolicy | None = None,
     ) -> "TimeSeriesDB":
         """Rebuild a TSDB from its durable state: restore the snapshot, then
         replay the WAL tail in append order.  Replay goes through ``append``
@@ -546,33 +610,37 @@ class TimeSeriesDB:
         The snapshot's format is read here: format 2 or 3 installs the
         Gorilla blobs verbatim (chunks byte for byte, the head encoder
         resumed mid-stream); a payload without a ``format`` field is format
-        1, whose per-point triples re-encode through the columnar path.  A
-        payload carrying downsampled rollups (a series' ``rollup`` or a
-        ``downsample`` block) raises ``ValueError`` in one line: the port
-        has no rollup tiers yet.
+        1, whose per-point triples re-encode through the columnar path.
+        Format 3 adds each series' rollups, restored verbatim when the
+        recovered DB downsamples; a format 1 or 2 payload (or a newly
+        enabled policy) rebuilds them by re-ingesting the installed raw
+        chunks, and ``downsample=None`` takes the policy the payload
+        records, so a restart keeps compacting without being told how.
 
         The DB takes over ``wal`` and stamps ``last_recovery`` with the
         replay's stats; ``replay_gap_seconds`` is the clock's time less the
         newest timestamp recovered."""
         payload, tail = wal.read()
-        if payload is not None and (
-            "downsample" in payload
-            or any("rollup" in entry for entry in payload["series"])
-        ):
-            raise ValueError(
-                f"snapshot format {payload.get('format', 1)} carries downsampled "
-                "rollups, which the port reads once its rollup tiers are ported; "
-                "it reads formats 1-3 without them"
-            )
+        if downsample is None and payload is not None:
+            ds_payload = payload.get("downsample")
+            if ds_payload is not None:
+                downsample = DownsamplePolicy(
+                    tuple(ds_payload["steps"]),
+                    ds_payload["horizon"],
+                    ds_payload["retention"],
+                )
         db = cls(
             clock,
             lookback=(payload or {}).get("lookback", lookback),
             retention=(payload or {}).get("retention", retention),
             snapshot_every=snapshot_every,
             chunk_size=chunk_size,
+            downsample=downsample,
         )
         newest_ts = -math.inf
         recovered_points = 0
+        rollup_restored = 0
+        rollup_rebuilt = 0
         if payload is not None:
             fmt = payload.get("format", 1)
             b64 = base64.b64decode
@@ -630,6 +698,20 @@ class TimeSeriesDB:
                             series.seal_head()
                 if series.last_ts == -math.inf:
                     continue  # empty series: nothing to install
+                ds = db._downsampler
+                if ds is not None:
+                    roll_payload = entry.get("rollup") if fmt >= 3 else None
+                    if roll_payload is not None:
+                        series.rollup = _ds_restore_rollup(ds, roll_payload, b64)
+                        rollup_restored += 1
+                    elif series.chunks:
+                        # no rollups in the payload: rebuild them from the
+                        # aged raw chunks, aged against the series' own
+                        # newest timestamp (the "now" of its last append;
+                        # the snapshot's ``at`` may be another clock's)
+                        roll = series.rollup = ds.new_state()
+                        ds.ingest_pending(roll, series.chunks, series.last_ts)
+                        rollup_rebuilt += 1
                 db._data.setdefault(name, {})[labels] = series
                 index = db._index.setdefault(name, {})
                 for pair in labels:
@@ -698,9 +780,9 @@ class TimeSeriesDB:
             "replay_gap_seconds": (
                 max(0.0, now - newest_ts) if newest_ts != -math.inf else None
             ),
-            "rollup_series_restored": 0,
-            "rollup_series_rebuilt": 0,
-            "rollup_enabled": False,
+            "rollup_series_restored": rollup_restored,
+            "rollup_series_rebuilt": rollup_rebuilt,
+            "rollup_enabled": db._downsampler is not None,
         }
         return db
 
@@ -720,8 +802,7 @@ class TimeSeriesDB:
     ) -> list[tuple[str, LabelSet, float, float, int | None, str]]:
         """Stop capturing; returns (name, labels, ts, value, origin, tier)
         per point read since begin_capture — ``tier`` names the storage the
-        read was served from (always ``"raw"`` here: the downsampled tiers
-        are not ported)."""
+        read was served from (``"raw"``, or a rollup label like ``"5m"``)."""
         captured, self._capture = self._capture or [], None
         return captured
 
@@ -913,6 +994,199 @@ class TimeSeriesDB:
                         None if origins is None else origins[i],
                     )
         return None
+
+    # ---- downsampled rollup tiers (metrics/downsample.py) ------------------
+
+    @property
+    def rollup_steps(self) -> tuple[float, ...]:
+        """Configured tier resolutions, finest first; empty when raw-only.
+        The planner's tier-selection menu."""
+        ds = self._downsampler
+        return () if ds is None else ds.steps
+
+    @property
+    def downsample_policy(self) -> DownsamplePolicy | None:
+        ds = self._downsampler
+        return None if ds is None else ds.policy
+
+    def rollup_range_avg(
+        self,
+        name: str,
+        matchers: dict[str, str] | None = None,
+        window_s: float = 0.0,
+        at: float | None = None,
+        step: float | None = None,
+        stats=None,
+    ) -> list[Sample] | None:
+        """``avg_over_time`` served from the ``step`` rollup tier, or None
+        when the tier cannot serve it faithfully (no downsampler, unknown
+        step, or any matching series not compacted through ``at`` yet) —
+        the caller falls back to :meth:`range_avg`.
+
+        The window is the tier-aligned ``(at - window_s, at]``; bucket rows
+        fold through the shared segment shape (full rollup chunks via their
+        seal-time column sums, boundary chunks and the head decoded), so the
+        result is bit-identical to :meth:`range_avg_bucketed` — the raw twin
+        — by construction.  Capture records the newest in-window bucket per
+        series with the tier's label (``"5m"``/``"1h"``), origin None:
+        rollups aggregate many origins, and lineage stays honest by naming
+        the tier instead of inventing a span."""
+        series_list = self.series_for(name, matchers)
+        if not series_list:
+            return []
+        ds = self._downsampler
+        if ds is None:
+            return None
+        ti = ds.tier_index(step)
+        if ti is None:
+            return None
+        at = self.clock.now() if at is None else at
+        # tier alignment is enforced here, not trusted from the caller: an
+        # unaligned window cuts buckets mid-span and silently diverges from
+        # raw semantics, so it must fall back instead
+        if window_s < step or window_s % step != 0.0 or at % step != 0.0:
+            return None
+        start = at - window_s
+        label = ds.labels[ti]
+        capture = self._capture
+        chunk_arrays = self._chunk_arrays
+        out: list[Sample] = []
+        for series in series_list:
+            roll = series.rollup
+            tier = None if roll is None else roll.tiers[ti]
+            if tier is None or tier.covered_through < at:
+                # a series born after the window contributes nothing either
+                # way; anything else forces the whole query back to raw
+                if series.chunks:
+                    first_ts = series.chunks[0].first_ts
+                elif series.enc.count:
+                    first_ts = series.head_first_ts
+                else:
+                    first_ts = math.inf
+                if first_ts > at:
+                    continue
+                return None
+            n, total = _ds_fold_avg(
+                _ds_tier_segments(tier, chunk_arrays), start, at, stats
+            )
+            if n == 0:
+                continue
+            if capture is not None:
+                bucket = _ds_newest_bucket(tier, start, at, chunk_arrays)
+                if bucket is not None:
+                    capture.append(
+                        (name, series.labels, bucket[0], bucket[5], None, label)
+                    )
+            out.append(Sample(total / n, series.labels))
+        if stats is not None:
+            stats.rollup_reads[label] = stats.rollup_reads.get(label, 0) + 1
+        return out
+
+    def range_avg_bucketed(
+        self,
+        name: str,
+        matchers: dict[str, str] | None = None,
+        window_s: float = 0.0,
+        at: float | None = None,
+        step: float | None = None,
+    ) -> list[Sample]:
+        """The raw twin of :meth:`rollup_range_avg`: regenerate ``step``
+        bucket rows from the retained RAW points and run the identical
+        segment fold over ``(at - window_s, at]``.  Exists for the
+        differential gates (bench, doctor, tests): where raw retention still
+        covers the span, its floats must equal the rollup read's bit for
+        bit.  No capture — this is a verification surface, not a query
+        path."""
+        if step is None or step <= 0:
+            raise ValueError(f"range_avg_bucketed needs a positive step: {step}")
+        at = self.clock.now() if at is None else at
+        start = at - window_s
+        chunk_arrays = self._chunk_arrays
+        out: list[Sample] = []
+        for series in self.series_for(name, matchers):
+            n, total = _ds_raw_fold(
+                series, step, self.chunk_size, start, at, chunk_arrays
+            )
+            if n == 0:
+                continue
+            out.append(Sample(total / n, series.labels))
+        return out
+
+    def rollup_rows(
+        self,
+        name: str,
+        matchers: dict[str, str] | None = None,
+        start: float = -math.inf,
+        at: float = math.inf,
+        step: float | None = None,
+    ) -> list[tuple[LabelSet, list[tuple]]]:
+        """Stored rollup rows per matching series — ``(labels, rows)`` with
+        each row ``(end, count, sum, min, max, last)`` and end in
+        ``(start, at]``.  The flight recorder's bulk read; empty when the
+        tier is absent."""
+        ds = self._downsampler
+        if ds is None:
+            return []
+        ti = ds.tier_index(step)
+        if ti is None:
+            return []
+        chunk_arrays = self._chunk_arrays
+        out = []
+        for series in self.series_for(name, matchers):
+            roll = series.rollup
+            if roll is None:
+                continue
+            rows: list[tuple] = []
+            for seg in _ds_tier_segments(roll.tiers[ti], chunk_arrays):
+                if seg.last_ts <= start or seg.first_ts > at:
+                    continue
+                ends, cols = seg.cols()
+                for i in range(len(ends)):
+                    end = float(ends[i])
+                    if end <= start or end > at:
+                        continue
+                    rows.append((end,) + tuple(float(c[i]) for c in cols))
+            if rows:
+                out.append((series.labels, rows))
+        return out
+
+    def rollup_storage_stats(self) -> dict:
+        """Rollup-plane accounting for the bench/doctor surface: per-tier
+        chunk/bucket/byte totals plus the downsampler's lifetime counters."""
+        ds = self._downsampler
+        if ds is None:
+            return {"enabled": False, "tiers": {}}
+        per_tier: dict[str, dict] = {
+            label: {"series": 0, "chunks": 0, "buckets": 0, "bytes": 0}
+            for label in ds.labels
+        }
+        total_bytes = 0
+        for by_name in self._data.values():
+            for series in by_name.values():
+                roll = series.rollup
+                if roll is None:
+                    continue
+                for label, tier in zip(ds.labels, roll.tiers):
+                    buckets = tier.nbuckets()
+                    if not buckets and not tier.chunks:
+                        continue
+                    entry = per_tier[label]
+                    entry["series"] += 1
+                    entry["chunks"] += len(tier.chunks)
+                    entry["buckets"] += buckets
+                    nbytes = tier.nbytes()
+                    entry["bytes"] += nbytes
+                    total_bytes += nbytes
+        return {
+            "enabled": True,
+            "tiers": per_tier,
+            "rollup_bytes": total_bytes,
+            "ingested_points": ds.ingested_points,
+            "ingested_chunks": ds.ingested_chunks,
+            "ingested_bytes": ds.ingested_bytes,
+            "sealed_buckets": ds.sealed_buckets,
+            "dropped_buckets": ds.dropped_buckets,
+        }
 
     def _chunk_arrays(self, chunk: GorillaChunk):
         """Decoded (ts, values) arrays of a sealed chunk, cached on the

@@ -1,8 +1,8 @@
 """Performance-gate constants of the fleet-scale metrics plane.
 
 Counterpart of ``k8s_gpu_hpa_tpu/perfgates.py``, cut to the constants the
-``sim_scale``, ``sim_scale_10k`` and ``query_bench`` rungs read
-(``trial.py``): the same values, in one place, so a deliberate
+``sim_scale``, ``sim_scale_10k``, ``query_bench`` and ``downsample_bench``
+rungs read (``trial.py``): the same values, in one place, so a deliberate
 re-baselining is one edit.
 
 Two kinds of constants live here:
@@ -78,3 +78,38 @@ MAX_FLEET_QUERY_P95_MS = 3.0
 #: the plane's ingest floor (below it the append path gained per-point
 #: overhead)
 MIN_APPENDS_PER_SEC = 25000.0
+
+# ---- downsample_bench: rollup tiers vs raw decode ----------------------------
+
+#: the full rung ages a day of 10k-target fleet history (30 s cadence)
+#: through the 5m/1h compactor, then reads a 20 h tier-aligned fleet window
+#: ending at hour 22 both ways
+DOWNSAMPLE_BENCH_TARGETS = SIM_SCALE_10K_TARGETS
+DOWNSAMPLE_BENCH_SHARDS = SIM_SCALE_10K_SHARDS
+DOWNSAMPLE_BENCH_HORIZON_S = 86400.0
+DOWNSAMPLE_BENCH_INTERVAL_S = 30.0
+DOWNSAMPLE_BENCH_WINDOW_S = 72000.0
+DOWNSAMPLE_BENCH_AT_S = 79200.0
+#: the rollup-tier fleet query against the cold raw rescan of the same
+#: window (a tier silently falling back to raw lands near 1x)
+MIN_ROLLUP_SPEEDUP = 5.0
+
+#: the smoke size keeps the full rung's 30 s cadence (the storage ratio is a
+#: statement about samples a bucket, so thinning the cadence would fake it)
+#: but shrinks the span to 6 h and the fleet to 200
+DOWNSAMPLE_SMOKE_TARGETS = 200
+DOWNSAMPLE_SMOKE_SHARDS = 2
+DOWNSAMPLE_SMOKE_HORIZON_S = 21600.0
+DOWNSAMPLE_SMOKE_INTERVAL_S = 30.0
+#: a 3 h window ending at hour 4: aligned, and well inside the compacted
+#: span (the compactor trails "now" by the horizon and some two chunks)
+DOWNSAMPLE_SMOKE_WINDOW_S = 10800.0
+DOWNSAMPLE_SMOKE_AT_S = 14400.0
+#: fewer raw points a series shrink the decode-avoidance margin
+DOWNSAMPLE_SMOKE_MIN_ROLLUP_SPEEDUP = 3.0
+
+#: rollup bytes for the aged span against the 16-byte uncompressed cost of
+#: the raw samples they summarize (five Gorilla columns a bucket at
+#: 1/10-1/120 the sample count); a tier storing a row a sample would land
+#: near 1.0
+MAX_ROLLUP_BYTES_RATIO = 0.1

@@ -33,6 +33,18 @@ Scenarios (offered load in percent of one device; the replicas share it):
               a clean staircase, where any SLO alert is a false positive,
               and the same staircase with a total scrape blackout, where
               the fast scrape-success alert must fire.  Exit 2 otherwise;
+- ``history``: the flight recorder (``run_history``), which needs no
+              manifest: ``--days`` virtual days (default 2) of a diurnal
+              load on a WAL-backed, traced, downsampling pipeline with an
+              exporter outage and a TSDB restart, summarized hour by hour
+              from the rollup tiers.  Exit 2 on a missing tier, an hourly
+              coverage hole, an unrecovered fault or an incomplete lineage;
+- ``why``:    one scale event of that run (``--event``, a span id the
+              history lists) walked hop by hop back to the exporter
+              sweeps, with the fault windows and restarts around it.  Exit
+              2 on an unknown event or an incomplete lineage.  With
+              ``--shards`` both exit 2 in one line (the TSDB restart needs
+              the single-TSDB durability path), where JAX's raises;
 - ``drill``:  the recovery drill (``control.scale_harness``), which needs no
               manifest: a durable pipeline (WAL, HPA checkpoint) has each
               of ``--components`` (tsdb, hpa, adapter, wal; default all)
@@ -52,8 +64,8 @@ prints the query planner's physical plan of every rule and alert the
 pipeline evaluates.
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's capacity, history, why, coverage, race, fuzz, profile,
-evacuation and incident scenarios are not ported.
+JAX simulator's capacity, coverage, race, fuzz, profile, evacuation and
+incident scenarios are not ported.
 """
 
 from __future__ import annotations
@@ -617,6 +629,421 @@ def render_slo_report(result: dict) -> str:
     return "\n".join(lines)
 
 
+#: flight-recorder cadence: the history scenario runs its pipeline at a
+#: 30 s tick (vs the live loop's 1 s) so multi-day virtual windows stay
+#: cheap; the HPA still syncs every other tick
+HISTORY_TICK = 30.0
+HISTORY_DAY = 86400.0
+
+
+def _history_load(t: float) -> float:
+    """Diurnal demand (%-of-one-chip, shared): quiet nights at 20, a midday
+    peak at 240 — enough to swing the default manifest's replica count
+    between 1 and ~6 once a virtual day, which is exactly the duty-cycle
+    content the flight recorder exists to retain."""
+    day = (t % HISTORY_DAY) / HISTORY_DAY
+    # the run starts at "dawn" (load rising immediately), peaks at day 0.25,
+    # and spends the back half of each day at the 20 floor
+    return 20.0 + 220.0 * max(0.0, math.sin(2.0 * math.pi * day))
+
+
+def _history_pipeline(wal_dir: str, pod_start_latency: float, shards: int):
+    """A WAL-backed, traced, downsampling pipeline under the diurnal load:
+    the long-horizon analog of ``_slo_pipeline`` (no manifest, so flight
+    recorder output compares run to run).  The cluster's exporters keep
+    their 1 s sweep, as JAX's do (its ``PipelineIntervals.exporter_sample``
+    is read by nothing)."""
+    from k8s_gpu_hpa_tpu_torch.control.loop import PipelineIntervals
+    from k8s_gpu_hpa_tpu_torch.metrics.downsample import DownsamplePolicy
+    from k8s_gpu_hpa_tpu_torch.metrics.wal import WriteAheadLog
+
+    clock = VirtualClock()
+    tracer = Tracer(clock)
+    cluster = SimCluster(
+        clock,
+        nodes=[("tpu-node-0", 4), ("tpu-node-1", 4), ("tpu-node-2", 4)],
+        pod_start_latency=pod_start_latency,
+    )
+    dep = SimDeployment(
+        cluster, "tpu-test", "tpu-test", load_fn=_history_load, load_mode="shared"
+    )
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(15.0)
+    base = clock.now()
+    dep.load_fn = TracedLoad(lambda t: _history_load(t - base), tracer)
+    pipe = AutoscalingPipeline(
+        cluster,
+        dep,
+        max_replicas=8,
+        intervals=PipelineIntervals(
+            scrape=HISTORY_TICK,
+            rule_eval=HISTORY_TICK,
+            hpa_sync=2 * HISTORY_TICK,
+        ),
+        tracer=tracer,
+        wal=WriteAheadLog(wal_dir),
+        scrape_shards=shards,
+        downsample=DownsamplePolicy(),
+    )
+    pipe.start()
+    return pipe, base
+
+
+def run_history(
+    days: float = 2.0,
+    pod_start_latency: float = 30.0,
+    shards: int = 0,
+) -> dict:
+    """The flight recorder: a multi-day diurnal run on a WAL-backed,
+    downsampling, traced pipeline, summarized hour-by-hour FROM THE ROLLUP
+    TIERS (metrics/downsample.py) — replica counts and duty cycle from the
+    5m/1h rollups of recorder series, SLO burn from the error-budget
+    counters' rollup min/last columns, fault windows and scale events from
+    the trace.  A mid-run ``tsdb_restart`` (WAL replay) and an exporter
+    outage are injected so the timeline proves the rollups and the lineage
+    survive a crash.
+
+    Returns the report dict; ``violations`` lists every broken contract
+    (missing rollup tier, hourly coverage hole, unrecovered fault, scale
+    event without complete lineage): the CLI exits 2 on any.
+
+    ``shards`` > 0 raises ``RuntimeError`` before the run: the
+    ``tsdb_restart`` fault needs the single-TSDB durability path (JAX's
+    raises the same error from ``restart_tsdb`` when the fault fires)."""
+    import tempfile
+
+    from k8s_gpu_hpa_tpu_torch.chaos import ChaosSchedule, FaultSpec
+
+    if shards:
+        raise RuntimeError(
+            "the history scenario's tsdb_restart fault needs the single-TSDB "
+            "durability path; a sharded pipeline keeps raw series in "
+            "memory-only shard DBs (run it without --shards)"
+        )
+    duration = days * HISTORY_DAY
+    with tempfile.TemporaryDirectory(prefix="history-wal-") as wal_dir:
+        pipe, base = _history_pipeline(wal_dir, pod_start_latency, shards)
+        faults = [
+            FaultSpec(
+                "exporter_outage", at=round(duration * 0.3), duration=600.0
+            ),
+            FaultSpec("tsdb_restart", at=round(duration * 0.6)),
+        ]
+        schedule = ChaosSchedule(
+            pipe, faults, monitor_interval=HISTORY_TICK, stable_for=120.0
+        )
+        schedule.arm()
+        min_replicas = 1
+        elapsed = 0.0
+        while elapsed < duration:
+            pipe.clock.advance(HISTORY_TICK)
+            elapsed += HISTORY_TICK
+            # the recorder series: replica count and an above-floor indicator,
+            # appended like any scraped sample so compaction rolls them up
+            # (and the WAL carries them across the tsdb_restart)
+            reps = float(pipe.deployment.replicas)
+            pipe.db.append("sim_replicas", (), reps)
+            pipe.db.append(
+                "sim_replicas_active",
+                (),
+                1.0 if reps > min_replicas else 0.0,
+            )
+
+        tracer = pipe.tracer
+        tier_stats = pipe.db.rollup_storage_stats()
+
+        def hour_of(end: float) -> int:
+            return int(math.ceil(end / 3600.0))
+
+        def rows_of(name: str, step: float) -> list[tuple]:
+            got = pipe.db.rollup_rows(name, step=step)
+            return got[0][1] if got else []
+
+        hours: dict[int, dict] = {}
+
+        def hour_row(h: int) -> dict:
+            return hours.setdefault(
+                h,
+                {
+                    "signal": None,
+                    "replicas_avg": None,
+                    "replicas_max": None,
+                    "duty": None,
+                    "slo_bad": 0.0,
+                },
+            )
+
+        record = "tpu_test_tensorcore_avg"
+        sig_rows = []
+        got = pipe.db.rollup_rows(
+            record, matchers={"deployment": "tpu-test"}, step=3600.0
+        )
+        if got:
+            sig_rows = got[0][1]
+        for end, count, total, _mn, _mx, _last in sig_rows:
+            if count:
+                hour_row(hour_of(end))["signal"] = total / count
+        rep_rows = rows_of("sim_replicas", 3600.0)
+        for end, count, total, _mn, mx, _last in rep_rows:
+            if count:
+                row = hour_row(hour_of(end))
+                row["replicas_avg"] = total / count
+                row["replicas_max"] = mx
+        # duty cycle from the 5m tier: fraction of samples above the floor
+        duty_acc: dict[int, list[float]] = {}
+        for end, count, total, _mn, _mx, _last in rows_of(
+            "sim_replicas_active", 300.0
+        ):
+            acc = duty_acc.setdefault(hour_of(end), [0.0, 0.0])
+            acc[0] += total
+            acc[1] += count
+        for h, (good, n) in duty_acc.items():
+            if n:
+                hour_row(h)["duty"] = good / n
+        # SLO burn from the error-budget counters: cumulative series, so a
+        # 1h bucket's own (min, last) columns bound its delta — bad events
+        # this hour = Δevents - Δgood, no cross-bucket subtraction needed
+        for counter, sign in (("slo_events_total", 1.0), ("slo_good_total", -1.0)):
+            for _labels, rows in pipe.db.rollup_rows(counter, step=3600.0):
+                for end, count, _sum, mn, _mx, last in rows:
+                    if count:
+                        hour_row(hour_of(end))["slo_bad"] += sign * (last - mn)
+
+        by_id = index_spans(tracer.spans)
+        scale_events = [
+            {
+                "span_id": s.span_id,
+                "t": s.start - base,
+                "from": s.attrs["from_replicas"],
+                "to": s.attrs["to_replicas"],
+                "complete": lineage_of(s, by_id)["complete"],
+            }
+            for s in tracer.spans_of("scale_event")
+        ]
+        fault_windows = [
+            {
+                "t0": s.start - base,
+                "t1": s.end - base,
+                "fault": s.attrs["fault"],
+                "kind": s.attrs["kind"],
+            }
+            for s in tracer.spans_of("fault_window")
+        ]
+        restarts = [
+            {"component": e.get("component"), "t": e.get("at", 0.0) - base}
+            for e in pipe.restart_log
+        ]
+
+        violations: list[str] = []
+        tiers = tier_stats.get("tiers", {})
+        for label in ("5m", "1h"):
+            if tiers.get(label, {}).get("buckets", 0) <= 0:
+                violations.append(f"rollup tier {label} missing (no buckets)")
+        expected_hours = int(duration // 3600.0)
+        covered = sum(
+            1 for h in hours.values() if h["replicas_avg"] is not None
+        )
+        if covered < max(1, expected_hours - 2):
+            violations.append(
+                f"hourly replica coverage hole: {covered} of "
+                f"{expected_hours} hours served by the 1h tier"
+            )
+        if not scale_events:
+            violations.append("no scale events traced over the whole run")
+        incomplete = [e["span_id"] for e in scale_events if not e["complete"]]
+        if incomplete:
+            violations.append(
+                f"scale events {incomplete} have no lineage back to "
+                "exporter samples"
+            )
+        for report in schedule.reports:
+            if report.recovered_at is None:
+                violations.append(f"fault {report.fault.name} never recovered")
+
+        return {
+            "days": days,
+            "duration": duration,
+            "hours": dict(sorted(hours.items())),
+            "scale_events": scale_events,
+            "fault_windows": fault_windows,
+            "restarts": restarts,
+            "tier_stats": tier_stats,
+            "tier_reads": _tier_counts(tracer.spans_of("rule_eval")),
+            "violations": violations,
+            "ok": not violations,
+            "tracer": tracer,
+            "trace_base": base,
+        }
+
+
+def render_history(result: dict) -> str:
+    lines = [
+        f"flight recorder: {result['days']:g} virtual day(s), "
+        "hourly view from the rollup tiers:",
+        "",
+        f"{'hour':>5} {'signal':>7} {'repl avg':>9} {'max':>4} "
+        f"{'duty%':>6} {'slo bad':>8}  events",
+    ]
+    marks: dict[int, list[str]] = {}
+    for e in result["scale_events"]:
+        marks.setdefault(int(e["t"] // 3600.0) + 1, []).append(
+            f"#{e['span_id']} {e['from']}->{e['to']}"
+        )
+    for w in result["fault_windows"]:
+        marks.setdefault(int(w["t0"] // 3600.0) + 1, []).append(
+            f"[fault {w['fault']}]"
+        )
+    for r in result["restarts"]:
+        marks.setdefault(int(r["t"] // 3600.0) + 1, []).append(
+            f"[restart {r['component']}]"
+        )
+
+    def fmt(v, spec: str) -> str:
+        return "-" if v is None else format(v, spec)
+
+    for h, row in result["hours"].items():
+        duty = "-" if row["duty"] is None else f"{100.0 * row['duty']:.0f}"
+        lines.append(
+            f"{h:>5} {fmt(row['signal'], '.1f'):>7} "
+            f"{fmt(row['replicas_avg'], '.2f'):>9} "
+            f"{fmt(row['replicas_max'], '.0f'):>4} {duty:>6} "
+            f"{row['slo_bad']:>8.1f}  " + " ".join(marks.get(h, []))
+        )
+    lines.append("")
+    tiers = result["tier_stats"].get("tiers", {})
+    lines.append(
+        "rollup storage: "
+        + "; ".join(
+            f"{label} tier: {t['buckets']} buckets / {t['bytes']} bytes"
+            for label, t in sorted(tiers.items())
+        )
+    )
+    if result["tier_reads"]:
+        lines.append(
+            "rule reads by storage tier: "
+            + ", ".join(
+                f"{k}:{v}" for k, v in sorted(result["tier_reads"].items())
+            )
+        )
+    n_complete = sum(1 for e in result["scale_events"] if e["complete"])
+    lines.append(
+        f"scale events: {len(result['scale_events'])} "
+        f"({n_complete} with complete lineage) — replay one with "
+        "'simulate why <id>'"
+    )
+    for v in result["violations"]:
+        lines.append(f"HISTORY CONTRACT VIOLATED: {v}")
+    return "\n".join(lines)
+
+
+def run_why(
+    event_id: int,
+    days: float = 2.0,
+    pod_start_latency: float = 30.0,
+    shards: int = 0,
+    history: dict | None = None,
+) -> dict:
+    """Replay one scale decision's full causal chain: re-run the (fully
+    deterministic) history scenario, locate the scale_event span, and walk
+    its lineage hop by hop — sync reason, adapter reads, rule evaluations
+    (with the storage tier each captured read came from), scrapes, exporter
+    sweeps, plus any fault window or restart the decision sat inside.
+    ``history``, a finished ``run_history`` result, is walked instead of a
+    new run (the port's addition: the same run gives the same answer)."""
+    hist = history if history is not None else run_history(
+        days=days, pod_start_latency=pod_start_latency, shards=shards
+    )
+    tracer = hist["tracer"]
+    base = hist["trace_base"]
+    by_id = index_spans(tracer.spans)
+    span = by_id.get(event_id)
+    if span is None or span.kind != "scale_event":
+        known = [e["span_id"] for e in hist["scale_events"]]
+        return {
+            "ok": False,
+            "error": f"no scale event #{event_id} in this run "
+            f"(known ids: {known})",
+        }
+    lin = lineage_of(span, by_id)
+    t = span.start - base
+    context = [
+        f"inside fault window {w['fault']} "
+        f"(t={w['t0']:.0f}-{w['t1']:.0f}s)"
+        for w in hist["fault_windows"]
+        if w["t0"] <= t <= w["t1"]
+    ]
+    for r in hist["restarts"]:
+        if 0.0 <= t - r["t"] <= 600.0:
+            context.append(
+                f"{t - r['t']:.0f}s after {r['component']} restart"
+            )
+    hops = []
+    for hop in lin["hops"]:
+        members = [by_id[sid] for sid in hop["span_ids"]]
+        hops.append(
+            {
+                "kind": hop["kind"],
+                "count": len(members),
+                "first_t": hop["first_ts"] - base,
+                "last_t": hop["last_ts"] - base,
+                "details": [
+                    {"span_id": s.span_id, "t": s.start - base, **s.attrs}
+                    for s in members[:6]
+                ],
+            }
+        )
+    return {
+        "ok": lin["complete"],
+        "event": {
+            "span_id": span.span_id,
+            "t": t,
+            "from": span.attrs["from_replicas"],
+            "to": span.attrs["to_replicas"],
+        },
+        "context": context,
+        "hops": hops,
+        "complete": lin["complete"],
+    }
+
+
+def render_why(result: dict) -> str:
+    if "error" in result:
+        return f"simulate why: {result['error']}"
+    ev = result["event"]
+    lines = [
+        f"scale event #{ev['span_id']} at t={ev['t']:.0f}s: "
+        f"replicas {ev['from']} -> {ev['to']}",
+    ]
+    for c in result["context"]:
+        lines.append(f"  context: {c}")
+    for hop in result["hops"]:
+        span_txt = (
+            f"t={hop['first_t']:.0f}s"
+            if hop["first_t"] == hop["last_t"]
+            else f"t={hop['first_t']:.0f}-{hop['last_t']:.0f}s"
+        )
+        lines.append(f"  {hop['kind']} x{hop['count']} ({span_txt}):")
+        for d in hop["details"]:
+            attrs = {
+                k: v for k, v in d.items() if k not in ("span_id", "t")
+            }
+            body = ", ".join(f"{k}={v}" for k, v in attrs.items())
+            lines.append(f"    #{d['span_id']} t={d['t']:.0f}s  {body}")
+        if hop["count"] > len(hop["details"]):
+            lines.append(
+                f"    ... and {hop['count'] - len(hop['details'])} more"
+            )
+    lines.append(
+        "lineage: "
+        + (
+            "COMPLETE (reaches raw exporter samples)"
+            if result["complete"]
+            else "INCOMPLETE — no exporter samples reached"
+        )
+    )
+    return "\n".join(lines)
+
+
 def _main_chaos(args) -> int:
     """The ``chaos`` scenario: the storm needs no manifest (it measures the
     pipeline's recovery on a fixed cluster), so ``--hpa`` is ignored.  Exit
@@ -662,6 +1089,31 @@ def _main_drill(args) -> int:
     return 0 if result["ok"] else 2
 
 
+def _main_history(args) -> int:
+    """The flight recorder's two scenarios, which need no manifest:
+    ``history`` prints the hourly view from the rollup tiers, ``why`` one
+    scale event's causal chain (``--event``, a span id ``history`` lists).
+    Exit 2 on a broken history contract, an unknown or missing event, and
+    with ``--shards``, in one line where JAX's raises."""
+    days = getattr(args, "days", 2.0)
+    shards = getattr(args, "shards", 0)
+    event = getattr(args, "event", None)
+    if args.scenario == "why" and event is None:
+        print("simulate why: pass a scale-event span id (run 'simulate history' to list them)")
+        return 2
+    try:
+        if args.scenario == "history":
+            result = run_history(days=days, shards=shards)
+            print(render_history(result))
+        else:
+            result = run_why(int(event), days=days, shards=shards)
+            print(render_why(result))
+    except RuntimeError as e:
+        print(f"simulate {args.scenario}: {e}")
+        return 2
+    return 0 if result["ok"] else 2
+
+
 def main(args) -> int:
     """Run ``args.scenario`` on the manifest ``args.hpa`` and print the
     report.  Exit 2 with a one-line diagnosis for a manifest or scenario the
@@ -676,6 +1128,8 @@ def main(args) -> int:
         result = run_slo_check(pod_start_latency=args.pod_start)
         print(render_slo_report(result))
         return 0 if result["ok"] else 2
+    if args.scenario in ("history", "why"):
+        return _main_history(args)
     hpa_doc = load_yaml(Path(args.hpa).read_text())
     metrics = metrics_from_manifest(hpa_doc)
     try:
@@ -717,9 +1171,23 @@ def add_arguments(parser) -> None:
     simulate``)."""
     parser.add_argument("--hpa", default="deploy/tpu-test-hpa.yaml")
     parser.add_argument(
-        "--scenario", choices=[*SCENARIOS, "trace", "chaos", "slo", "drill"], default="spike"
+        "--scenario",
+        choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why"],
+        default="spike",
     )
     parser.add_argument("--duration", type=float, default=420.0)
+    parser.add_argument(
+        "--days",
+        type=float,
+        default=2.0,
+        help="virtual days the history/why flight-recorder run covers",
+    )
+    parser.add_argument(
+        "--event",
+        type=int,
+        default=None,
+        help="scale-event span id for --scenario why (listed by history)",
+    )
     parser.add_argument("--pod-start", type=float, default=12.0)
     parser.add_argument(
         "--saturated-pct",

@@ -70,10 +70,10 @@ and ``run_rung_slo_burn``), run the canned fault storm and the SLO
 burn-rate check on virtual clocks, and ``recovery_drill_rung`` (bench.py's
 ``run_rung_recovery_drill``, ``drill_rung`` of a finished drill) the
 recovery drill, each durable component crashed and rebuilt mid-run.  The
-metrics plane's rungs, ``sim_scale_rung``, ``sim_scale_10k_rung`` and
-``query_bench_rung`` (bench.py's ``run_rung_sim_scale``,
-``run_rung_sim_scale_10k`` and ``run_rung_query_bench``), drive the fleet
-harnesses of ``control/scale_harness.py`` at the smoke sizes of
+metrics plane's rungs, ``sim_scale_rung``, ``sim_scale_10k_rung``,
+``query_bench_rung`` and ``downsample_bench_rung`` (bench.py's
+``run_rung_sim_scale``, ``run_rung_sim_scale_10k``, ``run_rung_query_bench``
+and ``run_rung_downsample_bench``), drive the fleet harnesses of ``control/scale_harness.py`` at the smoke sizes of
 ``perfgates.py`` or, with ``full``, its full sizes.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
@@ -140,6 +140,7 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
 from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
 from k8s_gpu_hpa_tpu_torch import perfgates
 from k8s_gpu_hpa_tpu_torch.control.scale_harness import (
+    run_downsample_bench,
     run_fleet_scale,
     run_query_bench,
     run_recovery_drill,
@@ -1528,7 +1529,8 @@ def recovery_drill_rung() -> dict:
 
 
 def _scale_rung(result: dict, metric: str, floor: float) -> dict:
-    """A ``run_fleet_scale``/``run_query_bench`` result annotated as
+    """A ``run_fleet_scale``/``run_query_bench``/``run_downsample_bench``
+    result annotated as
     bench.py's metrics-plane rungs are: its mode, metric and speedup floor."""
     result["mode"] = "virtual"
     result["metric"] = metric
@@ -1537,7 +1539,7 @@ def _scale_rung(result: dict, metric: str, floor: float) -> dict:
     return result
 
 
-# The three metrics-plane rungs run at bench.py's smoke sizes unless
+# The four metrics-plane rungs run at bench.py's smoke sizes unless
 # ``full`` asks for the sizes of its TIME_SCALE 1 branch.  Wall time is what
 # they measure, so the smoke size shrinks the population, not the clock.
 # No run of the port takes the full sizes yet (minutes of host time each).
@@ -1617,6 +1619,41 @@ def query_bench_rung(full: bool = False) -> dict:
         and result["meets_floor"]
         and result["query_p95_ms"] <= perfgates.MAX_FLEET_QUERY_P95_MS
         and result["planner_fastpath"] > 0
+    )
+    return result
+
+
+def downsample_bench_rung(full: bool = False) -> dict:
+    """bench.py's ``downsample_bench`` rung (``run_rung_downsample_bench``),
+    key for key: 200 fleet series over 2 downsampling shard DBs scraped
+    every 30 s for 6 h, then a 3 h tier-aligned fleet query ending at hour
+    4 read from the 1h rollups and from raw (``full``: 10,000 over 8 for a
+    day, a 20 h window ending at hour 22).  ``ok`` holds the rollup read
+    bit-identical to its raw twin, the randomized differential clean, the
+    speedup floor, the bytes budget and the planner selecting the tier."""
+    if full:
+        targets, shards = perfgates.DOWNSAMPLE_BENCH_TARGETS, perfgates.DOWNSAMPLE_BENCH_SHARDS
+        horizon_s = perfgates.DOWNSAMPLE_BENCH_HORIZON_S
+        scrape_interval = perfgates.DOWNSAMPLE_BENCH_INTERVAL_S
+        window_s, at_s = perfgates.DOWNSAMPLE_BENCH_WINDOW_S, perfgates.DOWNSAMPLE_BENCH_AT_S
+        floor = perfgates.MIN_ROLLUP_SPEEDUP
+    else:
+        targets, shards = perfgates.DOWNSAMPLE_SMOKE_TARGETS, perfgates.DOWNSAMPLE_SMOKE_SHARDS
+        horizon_s = perfgates.DOWNSAMPLE_SMOKE_HORIZON_S
+        scrape_interval = perfgates.DOWNSAMPLE_SMOKE_INTERVAL_S
+        window_s, at_s = perfgates.DOWNSAMPLE_SMOKE_WINDOW_S, perfgates.DOWNSAMPLE_SMOKE_AT_S
+        floor = perfgates.DOWNSAMPLE_SMOKE_MIN_ROLLUP_SPEEDUP
+    result = _scale_rung(
+        run_downsample_bench(targets=targets, shards=shards, horizon_s=horizon_s,
+                             scrape_interval=scrape_interval, window_s=window_s, at_s=at_s),
+        "rollup tier vs raw rescan (wall-time speedup)", floor)
+    result["bytes_ratio_budget"] = perfgates.MAX_ROLLUP_BYTES_RATIO
+    result["ok"] = (
+        result["identical"]
+        and result["differential"]["identical"]
+        and result["meets_floor"]
+        and result["bytes_ratio"] <= perfgates.MAX_ROLLUP_BYTES_RATIO
+        and result["tier_selected"]
     )
     return result
 

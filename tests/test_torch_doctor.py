@@ -29,7 +29,7 @@ from k8s_gpu_hpa_tpu import simulate as jax_simulate
 from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
 import k8s_gpu_hpa_tpu_torch.__main__ as cli
 from k8s_gpu_hpa_tpu_torch import doctor, simulate
-from k8s_gpu_hpa_tpu_torch.metrics import federation, planner, rules, tsdb
+from k8s_gpu_hpa_tpu_torch.metrics import downsample, federation, planner, rules, tsdb
 from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
 from k8s_gpu_hpa_tpu_torch.utils import clock
 from k8s_gpu_hpa_tpu_torch.exporter.daemon import ExporterDaemon
@@ -209,15 +209,31 @@ def _shards_and_planner() -> tuple[str, str]:
     return plane.shard_status_json(), json.dumps(selfcheck)
 
 
+@functools.cache
+def _rollup_selfcheck() -> str:
+    """The rollup tiers' selfcheck of six hours of four series at 30 s on
+    the default 5m/1h policy (both tiers hold buckets, raw still covers
+    them)."""
+    vclock = clock.VirtualClock()
+    db = tsdb.TimeSeriesDB(vclock, retention=7 * 3600.0, downsample=downsample.DownsamplePolicy())
+    for t in range(1, 721):
+        vclock.advance(30.0)
+        for i in range(4):
+            db.append("m", (("i", str(i)),), float((t * 7 + i) % 13), 30.0 * t)
+    return json.dumps(downsample.downsample_selfcheck(db, ["m"]))
+
+
 @pytest.mark.parametrize("broken", [None, "exporter", "prom", "up", "shards", "self_metrics",
-                                    "self_exposition", "planner", "api", "hpa", "alerts"])
+                                    "self_exposition", "planner", "downsample", "api", "hpa",
+                                    "alerts"])
 def test_diagnose_stops_at_the_first_broken_joint_as_jax_s_does(broken):
     shards, selfcheck = _shards_and_planner()
     good = {"exporter": exposition(), "prom": ADDRESSED, "up": UP, "shards": shards,
             "self_metrics": _traced()[0], "self_exposition": _traced()[1], "planner": selfcheck,
-            "api": API, "hpa": HPA_ACTIVE, "alerts": ALERTS_QUIET}
+            "downsample": _rollup_selfcheck(), "api": API, "hpa": HPA_ACTIVE,
+            "alerts": ALERTS_QUIET}
     order = ["exporter", "prom", "up", "shards", "self_metrics", "self_exposition", "planner",
-             "api", "hpa", "alerts"]
+             "downsample", "api", "hpa", "alerts"]
     payloads = {k: (None if k == broken else v) for k, v in good.items()}
     port_fetch, port_called = _fetchers(**payloads)
     jax_fetch, _ = _fetchers(**payloads)
@@ -235,7 +251,7 @@ def test_diagnose_skips_absent_fetchers():
     assert [r.name for r in results] == [
         "L2 exporter", "L3 prometheus", "L3 scrape health", "L3 shard topology",
         "L3 self-metrics", "L3 histogram conformance", "L3 query planner",
-        "L4 custom-metrics API", "L5 HPA", "alerts"]
+        "L3 rollup tiers", "L4 custom-metrics API", "L5 HPA", "alerts"]
     assert all(r.ok for r in results)
     assert all(r.detail.startswith("skipped") for r in results[1:])
 
@@ -303,6 +319,7 @@ def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys, self
                       if self_metrics else "[ok ] L3 self-metrics: skipped (no fetcher)")
     assert out[5:] == ["[ok ] L3 histogram conformance: skipped (no fetcher)",
                        "[ok ] L3 query planner: skipped (no fetcher)",
+                       "[ok ] L3 rollup tiers: skipped (no fetcher)",
                        "[ok ] L4 custom-metrics API: skipped (no fetcher)",
                        "[ok ] L5 HPA: skipped (no fetcher)",
                        "[ok ] alerts: no pipeline alerts firing"]

@@ -97,6 +97,7 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.metrics.promql",
         "k8s_gpu_hpa_tpu_torch.metrics.planner",
         "k8s_gpu_hpa_tpu_torch.metrics.federation",
+        "k8s_gpu_hpa_tpu_torch.metrics.downsample",
         "k8s_gpu_hpa_tpu_torch.obs.selfmetrics",
         "k8s_gpu_hpa_tpu_torch.perfgates",
     ):
@@ -251,11 +252,14 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
     (["gen-pipeline", "--app", "my-app"], "# ===== my-app-hpa.yaml ====="),
     (["simulate", "--scenario", "spike", "--shards", "2", "--explain"],
      "IndexScan kube_pod_labels"),
-], ids=["chaos", "slo", "gen-pipeline", "shards-explain"])
+    (["simulate", "--scenario", "history", "--days", "0.125"],
+     "hourly view from the rollup tiers"),
+], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
-    """The storm, the SLO check and the pipeline generator as a user runs
-    them, in a fresh interpreter: exit 0, and the import log names neither
-    JAX, the JAX package, PyYAML nor torch."""
+    """The storm, the SLO check, the pipeline generator, the sharded spike
+    with its plans and the flight recorder as a user runs them, in a fresh
+    interpreter: exit 0, and the import log names neither JAX, the JAX
+    package, PyYAML nor torch."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True,

@@ -276,12 +276,23 @@ def test_a_metric_spec_in_another_namespace_is_refused_as_jax_refuses_it():
     assert errors[0] == errors[1] and "namespace 'prod'" in errors[0]
 
 
-def test_the_constructor_takes_none_of_the_left_out_parameters():
-    """``downsample`` and ``capacity`` are still left out; ``scrape_shards``
-    (the metrics plane) and the durability slice's two are taken, as JAX's."""
-    for name in ("downsample", "capacity"):
-        with pytest.raises(TypeError):
-            make_pipeline(PORT, lambda t: 0.0, **{name: None})
+def test_the_constructor_takes_downsample_and_still_refuses_capacity():
+    """``capacity`` is still left out; ``downsample`` (the rollup tiers),
+    ``scrape_shards`` (the metrics plane) and the durability slice's two
+    are taken, as JAX's.  A downsampling pipeline gives every TSDB the
+    policy, and a restarted TSDB keeps it."""
+    from k8s_gpu_hpa_tpu_torch.metrics.downsample import DownsamplePolicy
+
+    with pytest.raises(TypeError):
+        make_pipeline(PORT, lambda t: 0.0, capacity=None)
+    policy = DownsamplePolicy()
+    tiered = make_pipeline(PORT, lambda t: 0.0, downsample=policy)
+    assert tiered.db.downsample_policy is policy and tiered.db.rollup_steps == (300.0, 3600.0)
+    tiered.restart_tsdb()
+    assert tiered.db.downsample_policy is policy
+    sharded_tiers = make_pipeline(PORT, lambda t: 0.0, downsample=policy, scrape_shards=2)
+    assert all(db.downsample_policy is policy for db in sharded_tiers.db.members)
+    assert make_pipeline(PORT, lambda t: 0.0, downsample=None).db.downsample_policy is None
     assert not hasattr(loop.AutoscalingPipeline, "add_tenant_hpa")
     pipe = make_pipeline(PORT, lambda t: 0.0, wal=None, checkpoint_store=None)
     assert (pipe.wal, pipe.checkpoint_store, pipe.restart_log) == (None, None, [])

@@ -19,6 +19,7 @@
 Tolerance: exact.
 """
 
+import math
 import random
 
 import numpy as np
@@ -113,13 +114,15 @@ def lbl(**kw):
     return tuple(sorted(kw.items()))
 
 
-def _random_db(mods, seed: int):
+def _random_db(mods, seed: int, downsample=None):
     """tests/test_promql.py's layout: chunk_size 16, so ~200 ticks seal
     ~12 chunks a series; scrape gaps, NaN markers, a live head.  The draws
-    are made once, with ``random.Random(seed)``, and fed to each package."""
+    are made once, with ``random.Random(seed)``, and fed to each package.
+    ``downsample`` is a DownsamplePolicy of the package's, or None."""
     rng = random.Random(seed)
     vclock = mods["clock"].VirtualClock()
-    db = mods["tsdb"].TimeSeriesDB(vclock, lookback=300.0, retention=86400.0, chunk_size=16)
+    db = mods["tsdb"].TimeSeriesDB(vclock, lookback=300.0, retention=86400.0, chunk_size=16,
+                                   downsample=downsample)
     pods = [f"p{i}" for i in range(rng.randint(3, 7))]
     for _ in range(rng.randint(150, 220)):
         vclock.advance(rng.choice((1.0, 5.0, 5.0, 15.0)))
@@ -173,7 +176,7 @@ def _run(mods, seed: int, window: float):
                         s.plans_built, db.decode_cache_hits, db.decode_cache_misses)
 
 
-@settings(max_examples=12, deadline=None)
+@settings(max_examples=12, deadline=None, derandomize=True, database=None)
 @given(st.integers(min_value=0, max_value=10_000), st.sampled_from([120.0, 300.0, 700.0]))
 def test_planned_is_bit_identical_to_naive_and_to_jax_s(seed, window):
     port = _run(PORT, seed, window)
@@ -200,11 +203,30 @@ def test_explain_is_jax_s_for_every_shipped_rule_and_the_basket():
         exprs[-4])
 
 
-def test_planner_selfcheck_is_jax_s():
-    port_db, _, _ = _random_db(PORT, 99)
-    ref_db, _, _ = _random_db(JAX, 99)
+def _tiered_db(mods, ds):
+    """``_random_db`` with 1m/5m rollup tiers, its clock then moved to an
+    instant aligned to 5 minutes, and every pod written on for 15 minutes
+    past it (explicit timestamps), so the tiers cover that instant and a
+    20-minute window read there is served from them."""
+    db, pods, _ = _random_db(mods, 99, ds.DownsamplePolicy(steps=(60.0, 300.0), horizon=120.0))
+    at = (math.floor(db.clock.now() / 300.0) + 1) * 300.0
+    for k in range(1, 61):
+        for i, pod in enumerate(pods):
+            db.append("m", lbl(pod=pod, shard=str(i % 2), job="fleet"), float(k % 7 + i),
+                      ts=at + 15.0 * k)
+    db.clock.advance(at - db.clock.now())
+    return db
+
+
+def test_planner_selfcheck_and_its_rollup_counters_are_jax_s_on_a_downsampling_db():
+    from k8s_gpu_hpa_tpu.metrics import downsample as jax_downsample
+    from k8s_gpu_hpa_tpu_torch.metrics import downsample
+
+    port_db, ref_db = _tiered_db(PORT, downsample), _tiered_db(JAX, jax_downsample)
     port_rules = [r for _, group in shipped_rule_groups() for r in group] + [
-        rules.RecordingRule("m_avg", rules.Avg(rules.AvgOverTime("m", 300.0))),
+        rules.RecordingRule("m_avg", rules.Avg(rules.AvgOverTime("m", 1200.0))),
+        # a window no tier divides: the raw path and its chunk-summary pushdown
+        rules.RecordingRule("m_avg_raw", rules.Avg(rules.AvgOverTime("m", 1190.0))),
         rules.RecordingRule("m_by_shard", rules.AggregateBy("avg", ("shard",),
                                                             rules.Select("m"))),
     ]
@@ -213,4 +235,4 @@ def test_planner_selfcheck_is_jax_s():
     got = planner.planner_selfcheck(port_db, port_rules)
     assert got == jax_planner.planner_selfcheck(ref_db, ref_rules)
     assert got["agree_all"] is True and got["fastpath"] > 0
-    assert (got["rollup_reads"], got["rollup_fallbacks"]) == ({}, 0)
+    assert got["rollup_reads"] == {"5m": 1} and got["rollup_fallbacks"] == 0

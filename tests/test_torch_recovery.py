@@ -25,8 +25,8 @@ through both packages:
 Across the packages: a WAL directory the port wrote (snapshot and tail)
 recovers in JAX's ``TimeSeriesDB.recover`` to the port's own recovered
 state; a directory of JAX's segments recovers in the port to JAX's state;
-a JAX format-3 snapshot carrying downsampled rollups is refused with one
-line (the port reads formats 1-3 without them: tests/test_torch_tsdb_chunks.py);
+a JAX format-3 snapshot carrying downsampled rollups recovers in the port
+to JAX's state (the rollups' own contracts: tests/test_torch_rollup_recovery.py);
 the port's snapshot is JAX's format 3; a checkpoint file either
 HPA wrote restores in the other; an HPA restarted mid-window from its
 checkpoint recommends ``[4, 4, 4, 4, 4, 4, 1, 1]`` as an uninterrupted one
@@ -519,17 +519,23 @@ def test_jax_s_segments_recover_in_the_port_to_jax_s_state(tmp_path):
     assert port.last_recovery == ref.last_recovery
 
 
-def test_a_jax_format_3_snapshot_is_refused_in_one_line(tmp_path):
+def test_a_jax_format_3_snapshot_with_rollups_is_recovered_as_jax_s(tmp_path):
     """A format-3 snapshot with downsampled rollups (a JAX DB with a
-    downsample policy) is refused in one line: the port has no tiers yet."""
+    downsample policy) recovers in the port to JAX's state: the recorded
+    policy taken over, each series' rollups restored, and the recovered
+    DB's own snapshot JAX's."""
     _written(JAX, tmp_path / "wal", _writes(), snapshot_every=25,
              downsample=jax_downsample.DownsamplePolicy())
     payload, _ = jax_wal.WriteAheadLog(tmp_path / "wal").read()
     assert payload["format"] == 3 and "downsample" in payload
-    with pytest.raises(ValueError) as err:
-        _recover(PORT, tmp_path / "wal")
-    assert "\n" not in str(err.value)
-    assert "format 3" in str(err.value) and "rollups" in str(err.value)
+    port, ref = _recover(PORT, tmp_path / "wal"), _recover(JAX, tmp_path / "wal")
+    assert port.last_recovery == ref.last_recovery
+    assert port.last_recovery["rollup_series_restored"] == sum(
+        "rollup" in entry for entry in payload["series"]) > 0
+    assert port.last_recovery["rollup_enabled"] is True
+    assert port.rollup_steps == ref.rollup_steps == (300.0, 3600.0)
+    assert _full(port, 59.0) == _full(ref, 59.0)
+    assert json.dumps(port.snapshot_payload()) == json.dumps(ref.snapshot_payload())
 
 
 def test_the_port_writes_format_1_which_jax_reads(tmp_path):

@@ -10,8 +10,8 @@ into both packages' ``TimeSeriesDB``:
   the stale map, the exemplars), after chunks sealed and retention dropped
   whole chunks;
 - the port recovers JAX's format 1, 2 and 3 payloads, and JAX recovers the
-  port's, each to the other's state; a payload carrying downsampled
-  rollups is refused in one line;
+  port's, each to the other's state, a payload carrying downsampled
+  rollups included;
 - ``range_avg`` (naive and with the chunk-summary pushdown and its
   counters), historical instant reads, the decode cache's hits and misses,
   ``series_for``, ``series_generation``, ``retained_bytes``,
@@ -36,7 +36,7 @@ from k8s_gpu_hpa_tpu.metrics import tsdb as jax_tsdb
 from k8s_gpu_hpa_tpu.metrics import wal as jax_wal
 from k8s_gpu_hpa_tpu.metrics.planner import PlannerStats as JaxStats
 from k8s_gpu_hpa_tpu.utils import clock as jax_clock
-from k8s_gpu_hpa_tpu_torch.metrics import schema, tsdb, wal
+from k8s_gpu_hpa_tpu_torch.metrics import downsample, schema, tsdb, wal
 from k8s_gpu_hpa_tpu_torch.metrics.planner import PlannerStats
 from k8s_gpu_hpa_tpu_torch.utils import clock
 from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
@@ -177,15 +177,32 @@ def test_each_package_recovers_the_other_s_snapshots(fmt, tmp_path):
         assert states[0][0] == _points(db)
 
 
-def test_a_rollup_payload_is_refused_in_one_line(tmp_path):
-    db = _fill(PORT, _writes(n=100))
+def test_a_rollup_payload_round_trips_between_the_packages(tmp_path):
+    """A snapshot with rollups (each series' ``rollup`` entry and the
+    ``downsample`` block), written by the port's TSDB with 1m/5m tiers,
+    recovers in both packages to the same state, rollups included, and
+    each recovered DB snapshots the same payload again."""
+    writes = _writes(n=100)
+    port_ds = downsample.DownsamplePolicy(steps=(60.0, 300.0), horizon=120.0)
+    db = _fill(PORT, writes, downsample=port_ds)
     payload = db.snapshot_payload()
-    entry = payload["series"][0]
-    entry["rollup"] = {"tiers": []}
-    _wal_with(PORT, tmp_path / "wal", payload)
-    with pytest.raises(ValueError) as err:
-        tsdb.TimeSeriesDB.recover(wal.WriteAheadLog(tmp_path / "wal"), clock.VirtualClock())
-    assert "\n" not in str(err.value) and "rollups" in str(err.value)
+    assert "downsample" in payload and all("rollup" in e for e in payload["series"])
+    states = []
+    for mods in (PORT, JAX):
+        directory = tmp_path / mods["tsdb"].__name__
+        _wal_with(mods, directory, payload)
+        got = mods["tsdb"].TimeSeriesDB.recover(mods["wal"].WriteAheadLog(directory),
+                                                mods["clock"].VirtualClock())
+        got.wal = None
+        states.append((_points(got), got.last_recovery,
+                       [got.rollup_rows(name, step=60.0) for name in got.series_names()],
+                       got.rollup_storage_stats()))
+        again = got.snapshot_payload()
+        again["at"] = payload["at"]
+        assert json.dumps(again) == json.dumps(payload)
+    assert states[0] == states[1]
+    assert states[0][1]["rollup_series_restored"] == len(payload["series"])
+    assert states[0][3]["tiers"]["1m"]["buckets"] > 0
 
 
 @pytest.mark.parametrize("window", [60.0, 299.0, 1200.0, 5000.0])
