@@ -156,7 +156,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 30. allreduce_entry — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost``
                    with no WORKLOAD (so allreduce) reports twice and exits 0
                    on SIGTERM: once with no topology, once with
-                   COORDINATOR_ADDRESS=127.0.0.1:<free> NUM_PROCESSES=1.
+                   COORDINATOR_ADDRESS=127.0.0.1:<free> NUM_PROCESSES=1, the
+                   two processes at once.
 31. train_dp     — at the shipped tpu-train sizes: over a group of one (NCCL)
                    ``TrainLoadGen(mesh=make_mesh())``'s three losses equal
                    ``TrainLoadGen()``'s bit for bit; two ranks share the card
@@ -391,6 +392,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    are printed beside the range the JAX package's runs gave
                    and do not fail it.  The kernels' counts are set to 0
                    before it and read after: it launches none.
+46. capacity     — the capacity economy and the slice-quantum operator, in
+                   this process on virtual clocks and 127.0.0.1: the crunch
+                   (chaos.run_capacity_crunch, bench.py's capacity_crunch
+                   rung: three tenants spike into a pool of two 8-device
+                   nodes while provisioning fails and a node drains) must be
+                   the JAX package's field for field (CRUNCH_EXPECTED: each
+                   tenant's time to capacity, worst wait, evictions and end
+                   state; 2 provisions, 1 failure, both autoscaled nodes
+                   reaped; 224 audits, all conserved; the scheduler's events
+                   by kind; no violation) and as a whole (CRUNCH_SHA256 of
+                   its sorted JSON); capacity_selfcheck() must be JAX's and
+                   pass the doctor's check_capacity_pool with JAX's verdict;
+                   and a QuantumOperator with its Lease and health server
+                   against a fake API server (FakeKubeAPI) must round a
+                   growing partial slice up (5 → 8), hold a steady one (6)
+                   until its HPA grows, answer /healthz and /readyz, and
+                   serve /metrics that check_operator_metrics refuses while
+                   the slice is held and passes after (OPERATOR_EXPECTED).
+                   The kernels' counts are set to 0 before it and read
+                   after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -431,6 +452,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import importlib.util
 import io
 import json
@@ -443,6 +465,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -464,6 +488,7 @@ from k8s_gpu_hpa_tpu_torch.control.hpa import (
     HBM_SERIES,
     MULTIHOST_MAX_REPLICAS,
     MULTIHOST_QUANTUM,
+    QUANTUM_ANNOTATION,
     QUEUE_SELECTOR,
     QUEUE_SERIES,
     TRAIN_BW_SERIES,
@@ -508,8 +533,20 @@ from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_a
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import perfgates, simulate, trial
 from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
-from k8s_gpu_hpa_tpu_torch.chaos import run_fault_storm
-from k8s_gpu_hpa_tpu_torch.doctor import check_alerts, check_self_metrics
+from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm
+from k8s_gpu_hpa_tpu_torch.control.capacity import capacity_selfcheck
+from k8s_gpu_hpa_tpu_torch.control.operator import (
+    KubeClient,
+    LeaseElector,
+    QuantumOperator,
+    start_health_server,
+)
+from k8s_gpu_hpa_tpu_torch.doctor import (
+    check_alerts,
+    check_capacity_pool,
+    check_operator_metrics,
+    check_self_metrics,
+)
 from k8s_gpu_hpa_tpu_torch.obs import (
     SELF_METRIC_NAMES,
     index_spans,
@@ -2474,7 +2511,8 @@ def phase_allreduce_entry(work_dir: str) -> dict:
     k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with no WORKLOAD (so
     allreduce) and REPORT_S 2: its banner, two reports, then SIGTERM and
     exit 0; once with no topology (its own rendezvous) and once with
-    COORDINATOR_ADDRESS=127.0.0.1:<free> NUM_PROCESSES=1."""
+    COORDINATOR_ADDRESS=127.0.0.1:<free> NUM_PROCESSES=1, the two at once
+    (each a group of one on the card), so their starts overlap."""
     module = "k8s_gpu_hpa_tpu_torch.loadgen.multihost"
     base = {k: v for k, v in os.environ.items()
             if k not in ("WORKLOAD", "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
@@ -2484,14 +2522,17 @@ def phase_allreduce_entry(work_dir: str) -> dict:
             "explicit": {**base, "COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
                          "NUM_PROCESSES": "1"}}
     out = {"phase": "allreduce_entry"}
-    for name, env in runs.items():
-        entry = _Entry(module, env)
-        try:
-            banner = entry.wait_for("tpu-test multihost loadgen")
+    entries = {name: _Entry(module, env) for name, env in runs.items()}
+    banners, codes = {}, {}
+    try:
+        for name, entry in entries.items():
+            banners[name] = entry.wait_for("tpu-test multihost loadgen")
             entry.wait_for("rounds=", count=2)
-        finally:
-            code = entry.stop()
-        out[name] = {"exit_code": code, "banner": banner,
+    finally:
+        for name, entry in entries.items():
+            codes[name] = entry.stop()
+    for name, entry in entries.items():
+        out[name] = {"exit_code": codes[name], "banner": banners[name],
                      "reports": [ln for ln in entry.lines if ln.startswith("rounds=")]}
     emit(out)
     for name in runs:
@@ -4297,6 +4338,244 @@ def phase_rollups() -> dict:
     return out
 
 
+#: the crunch's deterministic fields as the JAX package gives them
+#: (run_capacity_crunch() on a CPU), and the SHA-256 of its whole result as
+#: sorted JSON (9388 bytes: these fields, the fault reports and the
+#: scheduler's 51 events)
+CRUNCH_EXPECTED = {
+    "ok": True, "violations": [], "all_recovered": True, "preemptions_total": 3,
+    "settled": {"tpu-prod": 1, "tpu-batch": 1, "tpu-best": 1},
+    "pool": {"capacity_final": 16, "used_final": 7, "audit_ticks": 224, "conserved_all": True,
+             "audit_violations": []},
+    "autoscaler": {"provisions": 2, "provision_failures": 1, "nodes_final": 0,
+                   "reaped": ["tpu-auto-0", "tpu-auto-1"]},
+    "tenants": {
+        "tpu-prod": {"priority": 100, "weight": 2.0, "chips_per_pod": 4, "preemption_budget": 0,
+                     "starvation_budget_s": 120.0, "ttc_gate_s": 60.0, "admissions": 5,
+                     "ttc_p95_s": 10.0, "max_pending_stint_s": 10.0, "pending_seconds": 10.0,
+                     "preemptions_suffered": 0, "final_replicas": 1, "final_running": 1,
+                     "final_pending": 0, "final_terminating": 0, "scale_events": 3},
+        "tpu-batch": {"priority": 10, "weight": 1.0, "chips_per_pod": 2, "preemption_budget": 6,
+                      "starvation_budget_s": 600.0, "ttc_gate_s": 480.0, "admissions": 7,
+                      "ttc_p95_s": 310.0, "max_pending_stint_s": 310.0,
+                      "pending_seconds": 1300.0, "preemptions_suffered": 1, "final_replicas": 1,
+                      "final_running": 1, "final_pending": 0, "final_terminating": 0,
+                      "scale_events": 3},
+        "tpu-best": {"priority": 10, "weight": 0.5, "chips_per_pod": 1, "preemption_budget": 10,
+                     "starvation_budget_s": 900.0, "ttc_gate_s": 480.0, "admissions": 8,
+                     "ttc_p95_s": 235.0, "max_pending_stint_s": 235.0, "pending_seconds": 1350.0,
+                     "preemptions_suffered": 2, "final_replicas": 1, "final_running": 1,
+                     "final_pending": 0, "final_terminating": 0, "scale_events": 6},
+    },
+    "event_counts": {"admitted": 17, "pending": 15, "provision_requested": 3, "preempted": 3,
+                     "evicted": 3, "readmitted": 3, "fair_share_limited": 2, "provisioned": 2,
+                     "node_reaped": 2, "provision_failed": 1},
+}
+CRUNCH_SHA256 = "1eeeb79e0c0250714a51e732213936eb5a3c01b90a2a747e7e9f9367b150726b"
+#: capacity_selfcheck()'s fields and the doctor's verdict on it, as the JAX
+#: package gives them
+SELFCHECK_EXPECTED = {"ticks": 70, "conserved_all": True, "violations": [],
+                      "preemption_roundtrip": True, "lo_running": 1, "hi_running": 1,
+                      "preemptions_total": 1, "events": 10}
+SELFCHECK_VERDICT = "pool conserved over 70 tick(s), 1 preemption(s) round-tripped to Running"
+
+
+class FakeKubeAPI:
+    """The few API-server paths the quantum operator speaks, on 127.0.0.1:
+    the namespace's HPAs, each target's scale subresource (GET and merge
+    PATCH) and a coordination.k8s.io Lease (absent until POSTed; a PATCH
+    with a stale resourceVersion gets 409).  ``patches`` logs each scale
+    PATCH as (target, replicas)."""
+
+    def __init__(self, hpas: list[dict], scales: dict[str, int]):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.hpas, self.scales = hpas, scales
+        self.lease: dict | None = None
+        self.patches: list[tuple[str, int]] = []
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _send(self, code: int, doc: dict | None = None) -> None:
+                body = json.dumps(doc or {}).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _body(self) -> dict:
+                return json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+
+            def do_GET(self):
+                parts = self.path.strip("/").split("/")
+                if parts[-1] == "horizontalpodautoscalers":
+                    return self._send(200, {"items": api.hpas})
+                if parts[-1] == "scale" and parts[-2] in api.scales:
+                    return self._send(200, {"spec": {"replicas": api.scales[parts[-2]]}})
+                if "leases" in parts and api.lease is not None:
+                    return self._send(200, api.lease)
+                return self._send(404)
+
+            def do_POST(self):
+                if api.lease is not None:
+                    return self._send(409)
+                api.lease = {**self._body(), "metadata": {"name": "quantum-operator",
+                                                          "resourceVersion": "1"}}
+                return self._send(201, api.lease)
+
+            def do_PATCH(self):
+                parts, body = self.path.strip("/").split("/"), self._body()
+                if parts[-1] == "scale":
+                    api.scales[parts[-2]] = body["spec"]["replicas"]
+                    api.patches.append((parts[-2], body["spec"]["replicas"]))
+                    return self._send(200, {"spec": {"replicas": api.scales[parts[-2]]}})
+                rv = api.lease["metadata"]["resourceVersion"]
+                if body.get("metadata", {}).get("resourceVersion") != rv:
+                    return self._send(409)
+                api.lease["spec"].update(body["spec"])
+                api.lease["metadata"]["resourceVersion"] = str(int(rv) + 1)
+                return self._send(200, api.lease)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, args=(0.05,),
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def _slice_hpa(name: str, desired: int) -> dict:
+    """A slice HPA on StatefulSet ``name``: quantum 4, replicas 4..16."""
+    return {"metadata": {"name": name, "annotations": {QUANTUM_ANNOTATION: "4"}},
+            "spec": {"scaleTargetRef": {"kind": "StatefulSet", "name": name},
+                     "minReplicas": 4, "maxReplicas": 16},
+            "status": {"desiredReplicas": desired}}
+
+
+def _get(url: str) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _operator_run() -> dict:
+    """The slice-quantum operator against FakeKubeAPI, with its Lease and
+    its health server on 127.0.0.1: a growing partial slice (5 pods, the
+    HPA wanting 6) rounded up to 8 and a steady one (6 and 6) held, whose
+    gauge the doctor must report; then the held HPA grows (7), the operator
+    rounds it up too, and the doctor passes."""
+    api = FakeKubeAPI([_slice_hpa("slice-grow", 6), _slice_hpa("slice-steady", 6),
+                       {"metadata": {"name": "plain"}, "spec": {}}],
+                      {"slice-grow": 5, "slice-steady": 6})
+    client = KubeClient(api_base=api.url, token="smoke")
+    op = QuantumOperator(client, elector=LeaseElector(client, "default", identity="smoke"))
+    health = start_health_server(op, 0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{health.server_port}"
+    try:
+        first = op.tick()
+        op.last_tick = time.monotonic()
+        probes = {path: _get(base + path)[0] for path in ("/healthz", "/readyz", "/nope")}
+        held_text = _get(base + "/metrics")[1]
+        try:
+            held_verdict = check_operator_metrics(held_text)
+            held_refused = False
+        except AssertionError as e:
+            held_verdict, held_refused = str(e), True
+        api.hpas[1]["status"]["desiredReplicas"] = 7
+        second = op.tick()
+        clear_text = _get(base + "/metrics")[1]
+        clear_verdict = check_operator_metrics(clear_text)
+    finally:
+        health.shutdown()
+        health.server_close()
+        api.close()
+    return {
+        "repairs": [[a.target, a.from_replicas, a.to_replicas] for a in first + second],
+        "patches": [list(p) for p in api.patches], "leader": op.elector.is_leader,
+        "lease_holder": (api.lease or {}).get("spec", {}).get("holderIdentity"),
+        "probes": probes, "held_refused": held_refused, "held_verdict": held_verdict,
+        "clear_verdict": clear_verdict,
+        "metrics": {f.name: [s.value for s in f.samples] for f in parse_text(clear_text)},
+    }
+
+
+#: what the operator run must give: each repair, the PATCHes in order, the
+#: probes' codes and the doctor's two verdicts
+OPERATOR_EXPECTED = {
+    "repairs": [["StatefulSet/slice-grow", 5, 8], ["StatefulSet/slice-steady", 6, 8]],
+    "patches": [["slice-grow", 8], ["slice-steady", 8]], "leader": True, "lease_holder": "smoke",
+    "probes": {"/healthz": 200, "/readyz": 200, "/nope": 404}, "held_refused": True,
+    "held_verdict": "partial slice held on StatefulSet/slice-steady: stranded hosts are running "
+                    "but serving nothing — make the HPA's minReplicas/maxReplicas slice multiples",
+    "clear_verdict": "operator alive (2 reconcile passes), no partial slice held",
+    "metrics": {"quantum_operator_reconciles_total": [2.0],
+                "quantum_operator_repairs_total": [0.0, 2.0],
+                "quantum_operator_suppressed_repairs_total": [0.0],
+                "quantum_operator_lease_transitions_total": [0.0],
+                "quantum_operator_partial_slice_held": [0.0, 0.0]},
+}
+
+
+def phase_capacity() -> dict:
+    """The capacity economy and the slice-quantum operator, in this process
+    on virtual clocks and 127.0.0.1 (the module docstring, phase 46, has the
+    bars)."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    crunch = run_capacity_crunch()
+    crunch_s = time.perf_counter() - t0
+    digest = hashlib.sha256(json.dumps(crunch, sort_keys=True).encode()).hexdigest()
+    events: dict[str, int] = {}
+    for e in crunch["events"]:
+        events[e["event"]] = events.get(e["event"], 0) + 1
+    got = {k: crunch[k] for k in CRUNCH_EXPECTED if k != "event_counts"}
+    got["event_counts"] = events
+    t = time.perf_counter()
+    selfcheck = capacity_selfcheck()
+    verdict = check_capacity_pool(json.dumps(selfcheck))
+    selfcheck_s = time.perf_counter() - t
+    t = time.perf_counter()
+    operator = _operator_run()
+    operator_s = time.perf_counter() - t
+    out = {
+        "phase": "capacity", "kernel_launches": _kernel_counts(),
+        "crunch": {"call_s": crunch_s, "sha256": digest, "bytes": len(json.dumps(crunch, sort_keys=True)),
+                   "matches_jax": {k: got[k] == want for k, want in CRUNCH_EXPECTED.items()},
+                   "sha256_matches_jax": digest == CRUNCH_SHA256,
+                   "ttc_p95_s": {n: t["ttc_p95_s"] for n, t in crunch["tenants"].items()}},
+        "selfcheck": {"call_s": selfcheck_s, "verdict": verdict,
+                      "fields": {**{k: v for k, v in selfcheck.items() if k != "events"},
+                                 "events": len(selfcheck["events"])}},
+        "operator": {"call_s": operator_s, **operator},
+    }
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for key, same in out["crunch"]["matches_jax"].items():
+        if not same:
+            raise AssertionError(f"the crunch's {key} differs from the JAX package's: {got[key]}")
+    if digest != CRUNCH_SHA256:
+        raise AssertionError(f"the crunch's result differs from the JAX package's: {digest}")
+    if out["selfcheck"]["fields"] != SELFCHECK_EXPECTED or verdict != SELFCHECK_VERDICT:
+        raise AssertionError(f"capacity_selfcheck differs from the JAX package's: {out['selfcheck']}")
+    for key, want in OPERATOR_EXPECTED.items():
+        if operator[key] != want:
+            raise AssertionError(f"the operator's {key} is {operator[key]!r}, not {want!r}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the capacity plane launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -4403,6 +4682,7 @@ def main() -> int:
     phase_drill()
     phase_metrics_scale()
     phase_rollups()
+    phase_capacity()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

@@ -22,6 +22,8 @@ kind                      layer it breaks
 ``hpa_restart``           L5: controller failover, restored from its checkpoint
 ``adapter_restart``       L4: the adapter is replaced (it keeps no state)
 ``wal_truncate``          L3: the WAL's tail is destroyed, then the TSDB restarts
+``tenant_spike``          L1: one tenant's offered load jumps (a capacity crunch)
+``provision_fail``        L0: the cluster autoscaler's cloud API hangs
 ========================  =====================================================
 
 An injector returns a ``clear()`` that undoes its fault; a duration-0 fault
@@ -32,9 +34,8 @@ the windows close in, and the same per-resource depth counter holds a node
 (``node_preempt``, ``node_drain``), a deployment's crash loop and the
 adapter slot (``adapter_blackout``) down until their last window closes.
 
-The JAX package's ``tenant_spike``, ``provision_fail``, ``region_kill``,
-``region_partition`` and ``objstore_outage`` come with the capacity and
-region slice.  ``inject_fault``
+The JAX package's ``region_kill``, ``region_partition`` and
+``objstore_outage`` come with the region slice.  ``inject_fault``
 records no coverage probe: the coverage plane is not ported.
 """
 
@@ -341,6 +342,69 @@ def _inject_wal_truncate(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearF
     return lambda: None
 
 
+def _inject_tenant_spike(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """One tenant's offered load rises by ``params["add"]`` (60.0) for the
+    window: the demand side of a capacity crunch.  The pipeline's primary
+    deployment by default, or the tenant deployment ``target`` names.
+    Overlapping spikes stack as ``_wrap_fetch``'s faults do: each wraps the
+    load function in force, and a depth counter a deployment gives the
+    pristine function back only when the last one clears."""
+    name = spec.target or pipe.deployment.name
+    deployment = pipe.cluster.deployments.get(name)
+    if deployment is None:
+        raise ValueError(f"tenant_spike: no deployment named {name!r}")
+    add = float(spec.params.get("add", 60.0))
+    depth = getattr(deployment, "_spike_depth", 0)
+    if depth == 0:
+        deployment._pristine_load_fn = deployment.load_fn
+    deployment._spike_depth = depth + 1
+    inner = deployment.load_fn
+    deployment.load_fn = lambda t: inner(t) + add
+    if pipe.tracer is not None:
+        pipe.tracer.emit("workload_change", {"deployment": name, "load_add": add})
+    cleared = False
+
+    def clear() -> None:
+        nonlocal cleared
+        if cleared:
+            return
+        cleared = True
+        deployment._spike_depth -= 1
+        if deployment._spike_depth == 0:
+            deployment.load_fn = deployment._pristine_load_fn
+
+    return clear
+
+
+def _inject_provision_fail(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """The cluster autoscaler's cloud API hangs: each provision started in
+    the window fails after ``provision_timeout_s`` and drives the
+    autoscaler's backoff.  An attempt in flight when the window closes still
+    fails (its request is lost already).  Overlapping windows stack on a
+    depth counter; the flag drops when the last one clears."""
+    scheduler = getattr(pipe, "capacity_scheduler", None)
+    autoscaler = getattr(scheduler, "autoscaler", None)
+    if autoscaler is None:
+        raise ValueError(
+            "provision_fail: pipeline has no cluster autoscaler attached "
+            "(pass capacity=CapacityConfig(autoscaler_node_chips=...))"
+        )
+    autoscaler._fail_depth += 1
+    autoscaler.failing = True
+    cleared = False
+
+    def clear() -> None:
+        nonlocal cleared
+        if cleared:
+            return
+        cleared = True
+        autoscaler._fail_depth -= 1
+        if autoscaler._fail_depth == 0:
+            autoscaler.failing = False
+
+    return clear
+
+
 FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = {
     "exporter_outage": _inject_exporter_outage,
     "frozen_samples": _inject_frozen_samples,
@@ -355,6 +419,8 @@ FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = 
     "hpa_restart": _inject_hpa_restart,
     "adapter_restart": _inject_adapter_restart,
     "wal_truncate": _inject_wal_truncate,
+    "tenant_spike": _inject_tenant_spike,
+    "provision_fail": _inject_provision_fail,
 }
 
 

@@ -15,9 +15,10 @@ the monitor puts unhealth down to the earliest unresolved fault.
 
 A restart fault leaves its recovery stats in the pipeline's restart log,
 and ``RecoveryReport.replay_gap`` takes the worst replay gap of the
-restarts logged while the fault was injected.  The port has no tenant HPAs
-or regions yet (the capacity and region slice), so health is judged on the
-pipeline's own deployment and ``region`` is not reported.
+restarts logged while the fault was injected.  Health is judged on every
+autoscaled tenant of the pipeline (its own deployment and each
+``add_tenant_hpa``'s); the port has no regions yet (the region slice), so
+``region`` is not reported.
 """
 
 from __future__ import annotations
@@ -36,19 +37,24 @@ def pipeline_healthy(pipe: "AutoscalingPipeline") -> bool:
     looping, every node schedulable, every scrape target answering, and the
     HPA able to read its metric.  Not "replicas == the count before the
     fault": load may move the goal while a fault is live; whether the final
-    count is right is the caller's check."""
-    dep, hpa = pipe.deployment, pipe.hpa
-    if len(pipe.cluster.running_pods(dep.name)) != dep.replicas:
-        return False
-    if any(
-        p.phase == "CrashLoopBackOff"
-        for p in pipe.cluster.pods.values()
-        if p.deployment == dep.name
-    ):
-        return False
-    active = hpa.status.condition("ScalingActive")
-    if active is not None and not active.status:
-        return False
+    count is right is the caller's check.  On a pool shared by tenants
+    (control/capacity.py) each tenant HPA's deployment is judged so too: a
+    fault that leaves a second tenant's pods Pending is not recovered."""
+    controllers = [(pipe.deployment, pipe.hpa)] + [
+        (pipe.cluster.deployments[name], hpa) for name, hpa in pipe.tenant_hpas.items()
+    ]
+    for dep, hpa in controllers:
+        if len(pipe.cluster.running_pods(dep.name)) != dep.replicas:
+            return False
+        if any(
+            p.phase == "CrashLoopBackOff"
+            for p in pipe.cluster.pods.values()
+            if p.deployment == dep.name
+        ):
+            return False
+        active = hpa.status.condition("ScalingActive")
+        if active is not None and not active.status:
+            return False
     for node in pipe.cluster.nodes.values():
         if not (node.ready and node.schedulable):
             return False

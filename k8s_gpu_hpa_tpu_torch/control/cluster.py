@@ -30,7 +30,9 @@ HPA contract, not a measured card.
 
 With a tracer (``obs/trace.py``), each fresh collection sweep of a node
 exporter emits an ``exporter_sample`` span, the root of every metric
-lineage.  The JAX module's capacity scheduler hook is not ported.
+lineage.  With a capacity scheduler installed (``control/capacity.py``),
+every placement goes through its ladder of priority, fair share and
+preemption instead of first-fit.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ class SimPod:
     deployment: str
     chips_requested: int
     #: Pending -> Running -> (deleted); CrashLoopBackOff while its container
-    #: crashes on start
+    #: crashes on start; Terminating while a preemption's grace period runs
+    #: (its devices still held, until control/capacity.py releases them and
+    #: queues the pod again as Pending)
     phase: str = "Pending"
     node: str | None = None
     chip_ids: list[int] = field(default_factory=list)
@@ -254,6 +258,9 @@ class SimCluster:
         self.exporter_sample_interval = exporter_sample_interval
         #: deployments whose containers crash on start
         self.crashlooping: set[str] = set()
+        #: control/capacity.CapacityScheduler once the capacity economy is
+        #: installed: every placement then goes through it, not first-fit
+        self.scheduler = None
         #: called when a node joins or leaves; control/loop.py keeps its
         #: scrape targets in step through these
         self.on_node_added: list[Callable[[SimNode], None]] = []
@@ -308,7 +315,11 @@ class SimCluster:
             delay = min(300.0, 10.0 * 2.0 ** (pod.restart_count - 1))
             self.clock.call_later(delay, lambda: self._try_start(pod))
             return
-        if self._first_fit(pod):
+        if self.scheduler is not None:
+            placed = self.scheduler.try_place(pod)
+        else:
+            placed = self._first_fit(pod)
+        if placed:
             return
         # no node fits: stay Pending and retry (kube-scheduler's requeue)
         pod.phase = "Pending"
@@ -320,7 +331,8 @@ class SimCluster:
 
     def bind_pod(self, pod: SimPod, node: SimNode) -> bool:
         """Bind a pod to a node if it fits: the one place devices are
-        assigned."""
+        assigned, where first-fit and the capacity scheduler both end, so the
+        pool's audit has one allocation path to trust."""
         if not (node.ready and node.schedulable):
             return False
         free = node.free_chips()
@@ -341,6 +353,8 @@ class SimCluster:
                 for idx in pod.chip_ids:
                     node.allocations.pop(idx, None)
         self.pods.pop(pod.name, None)
+        if self.scheduler is not None:
+            self.scheduler.on_pod_deleted(pod)
 
     def kill_pod(self, name: str) -> None:
         """Crash one pod (OOM, eviction, a node's blip): its devices free at

@@ -32,7 +32,9 @@ With a tracer, each sync emits an ``hpa_sync`` span linked to the
 decision and each change's signal-propagation latency.  With a
 ``checkpoint_store`` (control/checkpoint.py) it saves its state after every
 sync and restores it when built, so a restarted controller keeps its
-stabilization windows.  The capacity conditions are not ported.
+stabilization windows.  With a ``capacity_probe`` (a tenant's standing in
+control/capacity.py) every sync sets the Unschedulable, Preempting and
+FairShareLimited conditions.
 ``behavior_from_manifest`` and ``metrics_from_manifest`` parse an HPA
 manifest given as a dict; the shipped manifests' values are also written in
 code here (``shipped_behavior()``, ``train_metrics()``, ``hbm_metrics()``,
@@ -432,6 +434,7 @@ class HPAController:
         tracer=None,
         selfmetrics=None,
         checkpoint_store=None,
+        capacity_probe=None,
     ):
         self.target = target
         self.metrics = metrics
@@ -478,6 +481,10 @@ class HPAController:
         self.last_good_sync_at: float | None = None
         #: the workload_change span whose propagation was last observed
         self._propagation_seen: int | None = None
+        #: returns the tenant's standing in the capacity economy (the dict of
+        #: control/capacity.CapacityScheduler.tenant_status); with it every
+        #: sync shows a starved tenant on its own HPA, where one looks first
+        self.capacity_probe = capacity_probe
         #: control.checkpoint.CheckpointStore: the state kept across syncs,
         #: restored here, before the first sync, so that a restarted
         #: controller keeps the stabilization windows in force
@@ -752,6 +759,38 @@ class HPAController:
         latency = max(0.0, event.start - change.start)
         self.selfmetrics.observe_propagation(latency, event.span_id)
 
+    def _capacity_conditions(self) -> None:
+        """The tenant's standing in the capacity economy as conditions
+        (control/capacity.py), at every sync whatever its metrics say: a
+        tenant starved of devices usually still has metrics."""
+        if self.capacity_probe is None:
+            return
+        probe = self.capacity_probe()
+        pending = int(probe.get("pending_pods", 0))
+        self._set_condition(
+            "Unschedulable",
+            pending > 0,
+            "PodsPending" if pending > 0 else "AllPodsScheduled",
+            f"{pending} pod(s) awaiting pool capacity"
+            if pending > 0 else "every pod of the target is scheduled",
+        )
+        evicting = int(probe.get("evictions_in_flight", 0))
+        self._set_condition(
+            "Preempting",
+            evicting > 0,
+            "EvictionInProgress" if evicting > 0 else "NoVictims",
+            f"{evicting} lower-priority victim(s) in eviction grace"
+            if evicting > 0 else "no evictions running on the target's behalf",
+        )
+        limited = bool(probe.get("fair_share_limited", False))
+        self._set_condition(
+            "FairShareLimited",
+            limited,
+            "OverFairShare" if limited else "WithinFairShare",
+            "over weighted fair share while peers wait under theirs"
+            if limited else "within the tenant's weighted fair share",
+        )
+
     def _sync_inner(self) -> HPAStatus:
         current = self.target.replicas
         self.status.current_replicas = current
@@ -760,6 +799,7 @@ class HPAController:
             "AbleToScale", True, "SucceededGetScale",
             "the HPA controller was able to get the target's current scale",
         )
+        self._capacity_conditions()
         proposals = [self._metric_proposal(spec, current) for spec in self.metrics]
         valid = [p for p in proposals if p is not None]
         if not valid:

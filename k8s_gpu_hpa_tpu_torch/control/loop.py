@@ -44,8 +44,14 @@ TSDB of the pipeline compacts its aged raw chunks into rollup tiers, which
 the planner reads for tier-aligned range queries; a restarted TSDB keeps
 the policy.
 
-The JAX pipeline's capacity economy with ``add_tenant_hpa`` is not ported;
-the constructor takes no ``capacity``.
+With ``capacity=`` (a ``control.capacity.CapacityConfig``) the capacity
+economy is installed over the cluster before any pod schedules: a bounded
+slice pool, the scheduler of priority, fair share and preemption, and
+optionally the simulated cluster autoscaler.  The pool's own families are
+scraped as the ``capacity-pool`` target after kube-state-metrics, every HPA
+of the pipeline reports its tenant's standing as conditions, and
+``add_tenant_hpa`` wires more tenants through the same plane, each with its
+rule, its adapter entry and its HPA on the shared clock.
 """
 
 from __future__ import annotations
@@ -56,6 +62,11 @@ from k8s_gpu_hpa_tpu_torch.control.adapter import (
     AdapterRule,
     CustomMetricsAdapter,
     ObjectReference,
+)
+from k8s_gpu_hpa_tpu_torch.control.capacity import (
+    POOL_TARGET_NAME,
+    PoolMetricsExporter,
+    build_capacity,
 )
 from k8s_gpu_hpa_tpu_torch.control.cluster import SimCluster, SimDeployment
 from k8s_gpu_hpa_tpu_torch.control.hpa import (
@@ -127,11 +138,20 @@ class AutoscalingPipeline:
         checkpoint_store=None,
         scrape_shards: int = 0,
         downsample=None,
+        capacity=None,
     ):
         self.cluster = cluster
         self.deployment = deployment
         self.intervals = intervals or PipelineIntervals()
         clock: VirtualClock = cluster.clock
+        #: the CapacityScheduler and its PoolMetricsExporter with
+        #: ``capacity``, else None; installed before any pod schedules, so
+        #: even the first reconcile is arbitrated
+        self.capacity_scheduler = None
+        self.pool_metrics = None
+        if capacity is not None:
+            self.capacity_scheduler = build_capacity(cluster, capacity)
+            self.pool_metrics = PoolMetricsExporter(self.capacity_scheduler)
         #: the TSDB's WriteAheadLog and the HPA's CheckpointStore, kept for
         #: the restarts, which rebuild from them
         self.wal = wal
@@ -184,6 +204,11 @@ class AutoscalingPipeline:
         cluster.on_node_added.append(lambda node: self._add_node_target(node.name))
         cluster.on_node_removed.append(self._drop_node_target)
         self.scraper.add_target(ksm_fetch, name="kube-state-metrics")
+        if self.pool_metrics is not None:
+            self.scraper.add_target(
+                self.pool_metrics.families if structured_scrapes else self.pool_metrics.exposition,
+                name=POOL_TARGET_NAME,
+            )
         if self.selfmetrics is not None:
             # the pipeline scrapes its own self-metrics like any target, so
             # they land in the same TSDB
@@ -257,11 +282,84 @@ class AutoscalingPipeline:
             tracer=tracer,
             selfmetrics=self.selfmetrics,
             checkpoint_store=checkpoint_store,
+            capacity_probe=self._capacity_probe_for(deployment.name),
         )
         self.scale_history: list[tuple[float, int, int]] = []  # (ts, from, to)
         self.hpa.on_scale = lambda a, b: self.scale_history.append((clock.now(), a, b))
+        #: tenant deployment name -> its HPAController (``add_tenant_hpa``);
+        #: the primary deployment's stays ``self.hpa``
+        self.tenant_hpas: dict[str, HPAController] = {}
+        #: tenant name -> its (ts, from, to) scale log, as ``scale_history``
+        self.tenant_scale_history: dict[str, list[tuple[float, int, int]]] = {}
         self._clock = clock
         self._started = False
+
+    def _capacity_probe_for(self, tenant: str):
+        """The tenant's capacity probe for its HPA's conditions, or None
+        without a capacity economy."""
+        if self.capacity_scheduler is None:
+            return None
+        return lambda: self.capacity_scheduler.tenant_status(tenant)
+
+    def add_tenant_hpa(
+        self,
+        deployment: SimDeployment,
+        record: str | None = None,
+        target_value: float = 40.0,
+        min_replicas: int = 1,
+        max_replicas: int = 4,
+        behavior: HPABehavior | None = None,
+        replica_quantum: int = 1,
+    ) -> HPAController:
+        """Wire one more tenant deployment through the same plane: its own
+        recorded rule (its pods picked by the app-label join), its adapter
+        entry and its HPAController on the shared clock, N controllers
+        arbitrated by one CapacityScheduler.  The deployment must already be
+        in the cluster (``cluster.add_deployment``)."""
+        name = deployment.name
+        if name in self.tenant_hpas or name == self.deployment.name:
+            raise ValueError(f"deployment {name} already has an HPA")
+        record = record or f"{name.replace('-', '_')}_tensorcore_avg"
+        rule = tpu_test_avg_rule(
+            app=deployment.app_label,
+            deployment=name,
+            namespace=deployment.namespace,
+            record=record,
+        )
+        self.evaluator.rules.append(rule)
+        self.adapter.rules[record] = AdapterRule(series=record)
+        ref = ObjectReference("Deployment", name, deployment.namespace)
+        hpa = HPAController(
+            target=deployment,
+            metrics=[ObjectMetricSpec(record, target_value, ref)],
+            adapter=self.adapter,
+            clock=self._clock,
+            min_replicas=min_replicas,
+            max_replicas=max_replicas,
+            behavior=behavior,
+            replica_quantum=replica_quantum,
+            pod_lister=deployment,
+            namespace=deployment.namespace,
+            tracer=self.tracer,
+            selfmetrics=self.selfmetrics,
+            capacity_probe=self._capacity_probe_for(name),
+        )
+        history: list[tuple[float, int, int]] = []
+        hpa.on_scale = lambda a, b: history.append((self._clock.now(), a, b))
+        self.tenant_scale_history[name] = history
+        self.tenant_hpas[name] = hpa
+        if self._started:
+            self._periodic_tenant_sync(name)
+        return hpa
+
+    def _periodic_tenant_sync(self, name: str) -> None:
+        self._periodic(self.intervals.hpa_sync, lambda: self.tenant_hpas[name].sync_once())
+
+    def tenant_replicas(self, name: str) -> int:
+        return self.cluster.deployments[name].replicas
+
+    def tenant_running(self, name: str) -> int:
+        return len(self.cluster.running_pods(name))
 
     def _add_node_target(self, node_name: str) -> None:
         target = self.scraper.add_target(
@@ -282,8 +380,8 @@ class AutoscalingPipeline:
 
     def start(self) -> None:
         """Register the periodic ticks on the clock: scrape, rule evaluation,
-        HPA sync, in that order, which orders the ticks that fall at one
-        instant.  Each tick finds its component through ``self`` when it
+        HPA sync (then each tenant's, in the order added), which orders the
+        ticks that fall at one instant.  Each tick finds its component through ``self`` when it
         fires, so a component replaced between ticks takes over at the next."""
         if self._started:
             return
@@ -291,6 +389,8 @@ class AutoscalingPipeline:
         self._periodic(self.intervals.scrape, lambda: self.scraper.scrape_once())
         self._periodic(self.intervals.rule_eval, self._rule_tick)
         self._periodic(self.intervals.hpa_sync, lambda: self.hpa.sync_once())
+        for name in self.tenant_hpas:
+            self._periodic_tenant_sync(name)
 
     def _rule_tick(self) -> None:
         """One rule tick: the shards' local rules first (the federation's
@@ -376,7 +476,7 @@ class AutoscalingPipeline:
         """Kill the HPAController and build a replacement with the same
         wiring, restored from the checkpoint store when one is attached (it
         takes the stabilization window and the scale-event history before
-        its first sync)."""
+        its first sync), and keeping its capacity probe."""
         old = self.hpa
         self.hpa = HPAController(
             target=old.target,
@@ -394,13 +494,15 @@ class AutoscalingPipeline:
             tracer=old.tracer,
             selfmetrics=old.selfmetrics,
             checkpoint_store=self.checkpoint_store,
+            capacity_probe=old.capacity_probe,
         )
         return self._log_restart("hpa", {"checkpoint_restored": self.hpa.restored_from_checkpoint})
 
     def restart_adapter(self) -> dict:
         """Kill the CustomMetricsAdapter and rebuild it over the live DB.
         The adapter keeps no state between queries, so its restart is
-        rewiring alone; a drill shows that it is."""
+        rewiring alone; a drill shows that it is.  The tenants' HPAs move to
+        the new adapter too (the JAX pipeline leaves them on the old one)."""
         old = self.adapter
         self.adapter = CustomMetricsAdapter(
             self.db,
@@ -410,7 +512,8 @@ class AutoscalingPipeline:
             selfmetrics=old.selfmetrics,
             planner=old.planner,
         )
-        self.hpa.adapter = self.adapter
+        for hpa in (self.hpa, *self.tenant_hpas.values()):
+            hpa.adapter = self.adapter
         return self._log_restart("adapter", {})
 
     def _log_restart(self, component: str, info: dict) -> dict:

@@ -1,9 +1,7 @@
 """Pipeline doctor: the runbook's per-joint probes as one command, and the
 NVML probe of a GPU node.
 
-Counterpart of ``k8s_gpu_hpa_tpu/doctor.py``, cut to the joints the port
-runs: its capacity-pool and operator probes come with the modules they
-read.  The reference's only test story is four
+Counterpart of ``k8s_gpu_hpa_tpu/doctor.py``.  The reference's only test story is four
 manual curl probes interleaved with install steps (exporter text,
 README.md:42-47; Prometheus query, :80-88; custom-metrics raw API,
 :98-102; the scale-up watch, :112-121), with the discipline "don't advance
@@ -19,7 +17,10 @@ joint and says which contract broke.
   in its exposition, ``check_shards`` a sharded scrape plane's topology
   (metrics/federation.py), ``check_query_planner`` the planner's selfcheck
   (metrics/planner.py), ``check_downsampling`` the rollup tiers' selfcheck
-  (metrics/downsample.py), and ``check_alerts`` Prometheus's alerts: a firing
+  (metrics/downsample.py), ``check_capacity_pool`` the capacity economy's
+  selfcheck (control/capacity.py), ``check_operator_metrics`` the
+  slice-quantum operator's ``/metrics`` (control/operator.py), and
+  ``check_alerts`` Prometheus's alerts: a firing
   ``Tpu*`` alert (metrics/rules.py's ``shipped_alert_rules``) is a
   diagnosis even when every joint answered;
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor`` probes a cluster.  Its
@@ -28,7 +29,10 @@ joint and says which contract broke.
   tpu_test_tensorcore_avg), HPA and NAMESPACE for the HPA check (the
   custom-metrics and HPA probes need ``kubectl``), SELF_METRICS=1 to probe
   the self-metric series (only where the pipeline's ``pipeline-self``
-  target is scraped);
+  target is scraped), OPERATOR_URL to probe the quantum operator's
+  ``/metrics`` (e.g. http://localhost:8086/metrics through a port-forward),
+  CAPACITY_SELFCHECK=1 to run ``capacity_selfcheck()`` in process and probe
+  it;
 - ``python -m k8s_gpu_hpa_tpu_torch.doctor nvml`` runs ``probe_nvml``, the
   counterpart of the JAX doctor's libtpu probe: every NVML call the node
   exporter's ``NvmlSource`` makes, on every GPU of the host.
@@ -48,6 +52,7 @@ from dataclasses import dataclass
 from typing import Callable
 from urllib.parse import quote
 
+from k8s_gpu_hpa_tpu_torch.control.capacity import capacity_selfcheck
 from k8s_gpu_hpa_tpu_torch.exporter import nvml
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import parse_text
 from k8s_gpu_hpa_tpu_torch.metrics.schema import CHIP_METRICS, CORE_CHIP_METRICS
@@ -390,6 +395,42 @@ def check_downsampling(payload: str) -> str:
     )
 
 
+def check_capacity_pool(payload: str) -> str:
+    """The capacity economy's health (control/capacity.py): the pool's
+    accounting conserved (used + free == capacity, no boundary violation)
+    at every tick of a small crunch, and a preemption taking its victim
+    round to Running again (pending, admitted, preempted, readmitted).  A
+    broken conservation means devices leaked or were booked twice, so every
+    placement after it is suspect; a missing round trip means eviction
+    with grace deletes victims instead of queueing them again.
+    ``payload`` is ``capacity_selfcheck()`` as JSON."""
+    doc = json.loads(payload)
+    if not doc.get("conserved_all", False) or doc.get("violations"):
+        broken = doc.get("violations", [])
+        raise AssertionError(
+            "pool accounting NOT conserved across "
+            f"{doc.get('ticks', 0)} tick(s): "
+            + ("; ".join(broken[:3]) or "used + free != capacity")
+            + " — chips leaked or double-booked; distrust every placement"
+        )
+    if not doc.get("preemption_roundtrip", False):
+        raise AssertionError(
+            "no preemption round-tripped its victim back to Running "
+            f"({doc.get('preemptions_total', 0)} preemption(s) recorded) — "
+            "eviction-with-grace is losing victims instead of re-queueing"
+        )
+    if doc.get("lo_running", 0) < 1 or doc.get("hi_running", 0) < 1:
+        raise AssertionError(
+            "crunch did not converge: lo_running="
+            f"{doc.get('lo_running', 0)}, hi_running={doc.get('hi_running', 0)}"
+            " — the provisioned node never re-admitted the victim"
+        )
+    return (
+        f"pool conserved over {doc['ticks']} tick(s), "
+        f"{doc['preemptions_total']} preemption(s) round-tripped to Running"
+    )
+
+
 def check_custom_metrics_api(payload: str, metric: str) -> str:
     """L4 joint: the aggregated API lists the metric (README.md:98-102)."""
     doc = json.loads(payload)
@@ -435,6 +476,36 @@ def check_alerts(payload: str) -> str:
     return "no pipeline alerts firing"
 
 
+def check_operator_metrics(text: str) -> str:
+    """The quantum operator's own report (its ``/metrics`` on the health
+    port).  Serving the counters shows the reconcile loop alive; a
+    ``partial_slice_held`` sample at 1 is a diagnosis itself: stranded
+    hosts running and serving nothing (the steady hold of
+    control/operator.py), whose remedy the TpuSliceHeldPartial alert
+    states: make the HPA's replica bounds slice multiples."""
+    families = {f.name: f for f in parse_text(text)}
+    reconciles_fam = families.get("quantum_operator_reconciles_total")
+    if reconciles_fam is None or not reconciles_fam.samples:
+        raise AssertionError(
+            "no quantum_operator_reconciles_total sample served — not the "
+            "operator's /metrics endpoint, or a truncated scrape?"
+        )
+    reconciles = int(reconciles_fam.samples[0].value)
+    held_fam = families.get("quantum_operator_partial_slice_held")
+    held = [
+        dict(s.labels).get("target", "?")
+        for s in (held_fam.samples if held_fam is not None else [])
+        if s.value > 0
+    ]
+    if held:
+        raise AssertionError(
+            f"partial slice held on {', '.join(held)}: stranded hosts are "
+            "running but serving nothing — make the HPA's minReplicas/"
+            "maxReplicas slice multiples"
+        )
+    return f"operator alive ({reconciles} reconcile passes), no partial slice held"
+
+
 def diagnose(
     exporter_fetch: Callable[[], str] | None = None,
     prom_fetch: Callable[[], str] | None = None,
@@ -442,12 +513,14 @@ def diagnose(
     hpa_fetch: Callable[[], str] | None = None,
     metric: str = "tpu_test_tensorcore_avg",
     alerts_fetch: Callable[[], str] | None = None,
+    operator_fetch: Callable[[], str] | None = None,
     up_fetch: Callable[[], str] | None = None,
     self_metrics_fetch: Callable[[], str] | None = None,
     self_exposition_fetch: Callable[[], str] | None = None,
     shards_fetch: Callable[[], str] | None = None,
     planner_fetch: Callable[[], str] | None = None,
     downsample_fetch: Callable[[], str] | None = None,
+    capacity_fetch: Callable[[], str] | None = None,
 ) -> list[ProbeResult]:
     """Run the ordered joint probes, stopping at the first failure (the
     runbook's discipline).  Fetchers set to None are skipped."""
@@ -477,10 +550,15 @@ def diagnose(
         probe("L3 rollup tiers",
               "downsample tiers hold buckets, rollup folds bit-agree with raw",
               check_downsampling, downsample_fetch),
+        probe("capacity pool",
+              "slice pool conserved every tick, preemptions round-trip victims",
+              check_capacity_pool, capacity_fetch),
         probe("L4 custom-metrics API", f"{metric} discoverable on custom.metrics.k8s.io",
               lambda p: check_custom_metrics_api(p, metric), api_fetch),
         probe("L5 HPA", "HPA is reading the metric (ScalingActive)",
               check_hpa_status, hpa_fetch),
+        probe("quantum operator", "operator self-metrics live, no partial slice held",
+              check_operator_metrics, operator_fetch),
         probe("alerts", "no tpu-pipeline-alerts firing", check_alerts, alerts_fetch),
     ]
     results: list[ProbeResult] = []
@@ -625,6 +703,19 @@ def main() -> int:
         metric=metric,
         alerts_fetch=lambda: _http_fetch(f"{prom_url}/api/v1/alerts"),
         up_fetch=lambda: _http_fetch(f"{prom_url}/api/v1/query?query=up"),
+        # the operator is deployed beside the multihost rungs only:
+        # OPERATOR_URL opts in (after `kubectl port-forward
+        # deploy/quantum-operator 8086`)
+        operator_fetch=(
+            (lambda: _http_fetch(os.environ["OPERATOR_URL"]))
+            if os.environ.get("OPERATOR_URL") else None
+        ),
+        # the capacity economy runs in the simulator, not in a cluster:
+        # CAPACITY_SELFCHECK=1 runs its small crunch in process
+        capacity_fetch=(
+            (lambda: json.dumps(capacity_selfcheck()))
+            if os.environ.get("CAPACITY_SELFCHECK") else None
+        ),
         # the self-metric families exist only where the pipeline's
         # pipeline-self target is scraped: SELF_METRICS=1 opts in
         self_metrics_fetch=(

@@ -18,7 +18,8 @@ needs changes:
   and ``tolerations`` replace them;
 - the containers run the port's commands (``python -m
   k8s_gpu_hpa_tpu_torch.loadgen``, ``…loadgen.train``,
-  ``…loadgen.multihost``, ``…exporter``) in the port's images;
+  ``…loadgen.multihost``, ``…exporter``, ``…control.operator``) in the
+  port's images;
 - the exporter DaemonSet reads the node's GPUs through NVML (``SOURCE=nvml``):
   it runs privileged with the host's driver libraries mounted, as the
   reference's dcgm-exporter does (dcgm-exporter.yaml:30-62), beside the
@@ -443,7 +444,9 @@ def exporter_service() -> dict:
 def prom_stack_values() -> dict:
     """Helm values for kube-prometheus-stack: the 1 s ``tpu-metrics`` scrape
     job with the reference's node relabel (kube-prometheus-stack-values.yaml:
-    13-16) and keep-filters pinning it to the exporter Service's named port."""
+    13-16) and keep-filters pinning it to the exporter Service's named port,
+    and the ``quantum-operator`` job that scrapes the slice-quantum
+    operator's own families from its health port."""
     return {
         "prometheus": {
             "prometheusSpec": {
@@ -473,6 +476,29 @@ def prom_stack_values() -> dict:
                                 "target_label": "node",
                                 "replacement": "$1",
                                 "action": "replace",
+                            },
+                        ],
+                    },
+                    {
+                        # control/operator.py::OperatorMetrics: its counters
+                        # and the partial_slice_held gauge that the
+                        # TpuSliceHeldPartial alert reads
+                        "job_name": "quantum-operator",
+                        "scrape_interval": "15s",
+                        "metrics_path": "/metrics",
+                        "kubernetes_sd_configs": [
+                            {"role": "pod", "namespaces": {"names": ["default"]}}
+                        ],
+                        "relabel_configs": [
+                            {
+                                "source_labels": ["__meta_kubernetes_pod_label_app"],
+                                "regex": "quantum-operator",
+                                "action": "keep",
+                            },
+                            {
+                                "source_labels": ["__meta_kubernetes_pod_container_port_name"],
+                                "regex": "health",
+                                "action": "keep",
                             },
                         ],
                     },
@@ -838,11 +864,109 @@ def multihost_hpa(
     )
 
 
+def quantum_operator_bundle() -> list[dict]:
+    """The slice-quantum operator (control/operator.py): its ServiceAccount,
+    the RBAC to read HPAs, patch scale subresources and hold its Lease, and
+    the Deployment of one replica, running the port's operator in the
+    exporter's image."""
+    name = "quantum-operator"
+    return [
+        {"apiVersion": "v1", "kind": "ServiceAccount", "metadata": {"name": name}},
+        {
+            "apiVersion": "rbac.authorization.k8s.io/v1",
+            "kind": "Role",
+            "metadata": {"name": name},
+            "rules": [
+                {
+                    "apiGroups": ["autoscaling"],
+                    "resources": ["horizontalpodautoscalers"],
+                    "verbs": ["get", "list"],
+                },
+                {
+                    "apiGroups": ["apps"],
+                    "resources": ["deployments/scale", "statefulsets/scale", "replicasets/scale"],
+                    "verbs": ["get", "patch"],
+                },
+                {
+                    # the election's Lease, for the rolling update's overlap
+                    "apiGroups": ["coordination.k8s.io"],
+                    "resources": ["leases"],
+                    "verbs": ["get", "create", "patch"],
+                },
+            ],
+        },
+        {
+            "apiVersion": "rbac.authorization.k8s.io/v1",
+            "kind": "RoleBinding",
+            "metadata": {"name": name},
+            "roleRef": {"apiGroup": "rbac.authorization.k8s.io", "kind": "Role", "name": name},
+            "subjects": [{"kind": "ServiceAccount", "name": name}],
+        },
+        {
+            "apiVersion": "apps/v1",
+            "kind": "Deployment",
+            "metadata": {"name": name, "labels": {"app": name}},
+            "spec": {
+                "replicas": 1,
+                # Recreate: a surge pod could never pass /readyz while the
+                # old one holds the Lease (maxUnavailable rounds to 0 at one
+                # replica), so the rollout would stall
+                "strategy": {"type": "Recreate"},
+                "selector": {"matchLabels": {"app": name}},
+                "template": {
+                    "metadata": {"labels": {"app": name}},
+                    "spec": {
+                        "serviceAccountName": name,
+                        "containers": [
+                            {
+                                "name": "operator",
+                                "image": EXPORTER_IMAGE,
+                                "command": [
+                                    "python", "-m", "k8s_gpu_hpa_tpu_torch.control.operator",
+                                ],
+                                "env": [
+                                    {
+                                        "name": "NAMESPACE",
+                                        "valueFrom": {
+                                            "fieldRef": {"fieldPath": "metadata.namespace"}
+                                        },
+                                    },
+                                    {
+                                        "name": "POD_NAME",
+                                        "valueFrom": {"fieldRef": {"fieldPath": "metadata.name"}},
+                                    },
+                                    {"name": "INTERVAL_S", "value": "5"},
+                                    {"name": "HEALTH_PORT", "value": "8086"},
+                                ],
+                                "ports": [{"name": "health", "containerPort": 8086}],
+                                # /healthz goes stale when the loop hangs;
+                                # /readyz also wants the Lease held
+                                "livenessProbe": {
+                                    "httpGet": {"path": "/healthz", "port": "health"},
+                                    "initialDelaySeconds": 10,
+                                    "periodSeconds": 15,
+                                },
+                                "readinessProbe": {
+                                    "httpGet": {"path": "/readyz", "port": "health"},
+                                    "initialDelaySeconds": 5,
+                                    "periodSeconds": 10,
+                                },
+                                "resources": {"requests": {"cpu": "10m", "memory": "64Mi"}},
+                            }
+                        ],
+                    },
+                },
+            },
+        },
+    ]
+
+
 def default_bundle() -> dict[str, list[dict]]:
     """filename -> documents, for every manifest of the port's pipelines:
     the exporter, the Prometheus and adapter values, the PrometheusRule,
     each of the five workloads with its HPA, the serving fleet's
-    queue-depth HPA, and the CPU busy-loop with its Resource HPA."""
+    queue-depth HPA, the slice-quantum operator, and the CPU busy-loop with
+    its Resource HPA."""
     return {
         "tpu-metrics-exporter.yaml": [exporter_daemonset(), exporter_service()],
         "kube-prometheus-stack-values.yaml": [prom_stack_values()],
@@ -889,6 +1013,7 @@ def default_bundle() -> dict[str, list[dict]]:
                 MULTIHOST_MAX_REPLICAS // MULTIHOST_QUANTUM,
             )
         ],
+        "quantum-operator.yaml": quantum_operator_bundle(),
         "cpu-busyloop.yaml": [_cpu_busyloop()],
         "cpu-busyloop-hpa.yaml": [cpu_busyloop_hpa_doc()],
     }

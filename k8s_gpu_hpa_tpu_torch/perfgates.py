@@ -2,7 +2,8 @@
 
 Counterpart of ``k8s_gpu_hpa_tpu/perfgates.py``, cut to the constants the
 ``sim_scale``, ``sim_scale_10k``, ``query_bench`` and ``downsample_bench``
-rungs read (``trial.py``): the same values, in one place, so a deliberate
+rungs read (``trial.py``) and the ``capacity_crunch`` sizing and gates
+(``chaos/crunch.py``): the same values, in one place, so a deliberate
 re-baselining is one edit.
 
 Two kinds of constants live here:
@@ -113,3 +114,37 @@ DOWNSAMPLE_SMOKE_MIN_ROLLUP_SPEEDUP = 3.0
 #: 1/10-1/120 the sample count); a tier storing a row a sample would land
 #: near 1.0
 MAX_ROLLUP_BYTES_RATIO = 0.1
+
+# ---- capacity_crunch: the pool shared by three tenants -----------------------
+
+#: the base pool is 2 nodes of 8 devices; the autoscaler may add 2 more
+#: 8-device nodes (whole 4-device slice quanta), so peak supply is 32
+#: devices against a peak demand of some 31 from three tenants: the crunch
+#: clears only if preemption, the fair share and provisioning all work
+CRUNCH_BASE_NODES = 2
+CRUNCH_NODE_CHIPS = 8
+CRUNCH_SLICE_QUANTUM = 4
+CRUNCH_AUTOSCALER_MAX_NODES = 2
+CRUNCH_PROVISION_DELAY_S = 45.0
+CRUNCH_PROVISION_TIMEOUT_S = 60.0
+CRUNCH_EVICTION_GRACE_S = 10.0
+#: virtual seconds after the faults arm (the spikes clear at some 510 s;
+#: the tail is the convergence window the contract checks)
+CRUNCH_TOTAL_S = 1000.0
+
+#: time-to-capacity p95 ceilings by priority (seconds a pod waits Pending
+#: before it binds, over every admission of the run).  The high-priority
+#: tenant is served by preemption (grace and requeue, p95 10 s); the low
+#: priorities wait for the autoscaler to get past its provision_fail
+#: backoff (p95 235-310 s); the ceilings leave room over both
+CRUNCH_HIGH_TTC_P95_MAX_S = 60.0
+CRUNCH_LOW_TTC_P95_MAX_S = 480.0
+
+#: the declared starvation budgets (the longest Pending stint a tenant
+#: tolerates); ``simulate --scenario crunch --starvation-budget`` overrides
+#: them to show the contract can fail
+CRUNCH_STARVATION_BUDGETS_S = {
+    "tpu-prod": 120.0,
+    "tpu-batch": 600.0,
+    "tpu-best": 900.0,
+}

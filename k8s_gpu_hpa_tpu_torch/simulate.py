@@ -50,7 +50,14 @@ Scenarios (offered load in percent of one device; the replicas share it):
               of ``--components`` (tsdb, hpa, adapter, wal; default all)
               crashed and rebuilt mid-run, then a surge.  Exit 2 when a
               fault never recovers, a scale event falls in a recovery
-              window, a lineage is incomplete, or a component is unknown.
+              window, a lineage is incomplete, or a component is unknown;
+- ``crunch``: the capacity crunch (``chaos.run_capacity_crunch``), which
+              needs no manifest: three tenants of a bounded slice pool
+              spike while provisioning fails and a node drains; the
+              tenants' time to capacity, their worst waits and evictions,
+              and the scheduler's timeline.  ``--starvation-budget``
+              overrides every tenant's budget (0 shows the contract can
+              fail).  Exit 2 on any violation of the capacity contract.
 
 An External-metric HPA (the queue rung, deploy/tpu-test-external-hpa.yaml)
 is told from its manifest and plays ``spike``, ``ramp`` and ``flap`` in
@@ -1130,6 +1137,12 @@ def main(args) -> int:
         return 0 if result["ok"] else 2
     if args.scenario in ("history", "why"):
         return _main_history(args)
+    if args.scenario == "crunch":
+        from k8s_gpu_hpa_tpu_torch.chaos import render_crunch_report, run_capacity_crunch
+
+        result = run_capacity_crunch(starvation_budget=getattr(args, "starvation_budget", None))
+        print(render_crunch_report(result))
+        return 0 if result["ok"] else 2
     hpa_doc = load_yaml(Path(args.hpa).read_text())
     metrics = metrics_from_manifest(hpa_doc)
     try:
@@ -1172,7 +1185,7 @@ def add_arguments(parser) -> None:
     parser.add_argument("--hpa", default="deploy/tpu-test-hpa.yaml")
     parser.add_argument(
         "--scenario",
-        choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why"],
+        choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why", "crunch"],
         default="spike",
     )
     parser.add_argument("--duration", type=float, default=420.0)
@@ -1220,4 +1233,11 @@ def add_arguments(parser) -> None:
         default=None,
         help="comma list of components --scenario drill restarts "
         "(tsdb,hpa,adapter,wal); default all",
+    )
+    parser.add_argument(
+        "--starvation-budget",
+        type=float,
+        default=None,
+        help="override every tenant's starvation budget (seconds) for "
+        "--scenario crunch; 0 proves the contract can fail",
     )

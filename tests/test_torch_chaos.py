@@ -2,12 +2,14 @@
 (``metrics/tsdb.py``) and the ``chaos`` and ``slo`` scenarios
 (``simulate.py``) against the JAX package's.
 
-- The registry: the thirteen ported kinds, which are JAX's less the
-  tenant, provisioning, region and object-store kinds of a later slice;
-  ``FaultSpec``'s names and refusals.
-- Each of the thirteen kinds, injected with its natural spec into equal
+- The registry: the fifteen ported kinds, which are JAX's less the
+  region and object-store kinds of a later slice; ``FaultSpec``'s names
+  and refusals.
+- Each of the fifteen kinds, injected with its natural spec into equal
   pipelines (two nodes of 4 devices, 90% shared load, target 40; a WAL
-  and an in-memory checkpoint store for the four restart kinds), held,
+  and an in-memory checkpoint store for the four restart kinds; the JAX
+  test's small capacity economy, an autoscaler among it, for
+  ``tenant_spike`` and ``provision_fail``), held,
   cleared twice and followed for 90 s: the same ``scale_history``, HPA
   conditions, replicas, ``up`` series and restart log at every second as
   JAX's, and the JAX test's hygiene (the loop healthy again, no wrapped
@@ -52,6 +54,7 @@ from k8s_gpu_hpa_tpu import simulate as jax_simulate
 from k8s_gpu_hpa_tpu.chaos import faults as jax_faults
 from k8s_gpu_hpa_tpu.chaos import schedule as jax_schedule
 from k8s_gpu_hpa_tpu.chaos import storm as jax_storm
+from k8s_gpu_hpa_tpu.control import capacity as jax_capacity
 from k8s_gpu_hpa_tpu.control import checkpoint as jax_checkpoint
 from k8s_gpu_hpa_tpu.control import cluster as jax_cluster
 from k8s_gpu_hpa_tpu.control import loop as jax_loop
@@ -63,7 +66,7 @@ from k8s_gpu_hpa_tpu.utils import clock as jax_clock
 import k8s_gpu_hpa_tpu_torch.__main__ as cli
 from k8s_gpu_hpa_tpu_torch import chaos, obs, simulate, trial
 from k8s_gpu_hpa_tpu_torch.chaos import faults, schedule, storm
-from k8s_gpu_hpa_tpu_torch.control import checkpoint, cluster, loop
+from k8s_gpu_hpa_tpu_torch.control import capacity, checkpoint, cluster, loop
 from k8s_gpu_hpa_tpu_torch.metrics import exposition, tsdb, wal
 from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
 from k8s_gpu_hpa_tpu_torch.utils import clock
@@ -74,15 +77,17 @@ torch.set_num_threads(1)
 
 PORT = dict(chaos=chaos, faults=faults, schedule=schedule, storm=storm, cluster=cluster,
             loop=loop, clock=clock, tsdb=tsdb, obs=obs, exposition=exposition,
-            selfmetrics=selfmetrics, simulate=simulate, wal=wal, checkpoint=checkpoint)
+            selfmetrics=selfmetrics, simulate=simulate, wal=wal, checkpoint=checkpoint,
+            capacity=capacity)
 JAX = dict(chaos=jax_chaos, faults=jax_faults, schedule=jax_schedule, storm=jax_storm,
            cluster=jax_cluster, loop=jax_loop, clock=jax_clock, tsdb=jax_tsdb, obs=jax_obs,
            exposition=jax_exposition, selfmetrics=jax_selfmetrics, simulate=jax_simulate,
-           wal=jax_wal, checkpoint=jax_checkpoint)
+           wal=jax_wal, checkpoint=jax_checkpoint, capacity=jax_capacity)
 
-#: the JAX kinds that come with a later slice: capacity and regions
-LATER_KINDS = {"tenant_spike", "provision_fail", "region_kill", "region_partition",
-               "objstore_outage"}
+#: the JAX kinds that come with a later slice: regions and the object store
+LATER_KINDS = {"region_kill", "region_partition", "objstore_outage"}
+#: the kinds that break the capacity economy, run on a pipeline with one
+CAPACITY_KINDS = {"tenant_spike", "provision_fail"}
 #: the impulse restarts, which run on a pipeline with a WAL and a checkpoint store
 RESTART_KINDS = {"tsdb_restart", "hpa_restart", "adapter_restart", "wal_truncate"}
 #: tests/test_fault_injectors.py's natural spec of each ported kind
@@ -100,6 +105,8 @@ NATURAL_SPECS = {
     "hpa_restart": dict(),
     "adapter_restart": dict(),
     "wal_truncate": dict(params={"records": 8}),
+    "tenant_spike": dict(duration=10.0, params={"add": 60.0}),
+    "provision_fail": dict(duration=10.0),
 }
 
 
@@ -136,11 +143,14 @@ def test_a_kind_of_a_later_slice_is_refused(kind):
 # ---- each kind on equal pipelines ------------------------------------------------
 
 
-def make_pipeline(mods, structured_scrapes: bool = True, tracer=False, durable=None):
-    """tests/test_fault_injectors.py's pipeline without its capacity economy
-    and region: two nodes of 4 devices, 90% shared load, target 40, settled
-    for 60 s; with ``durable`` (a directory) its WAL there and an in-memory
-    checkpoint store, as the JAX test's, else neither."""
+def make_pipeline(mods, structured_scrapes: bool = True, tracer=False, durable=None,
+                  capacity=False):
+    """tests/test_fault_injectors.py's pipeline without its region: two
+    nodes of 4 devices, 90% shared load, target 40, settled for 60 s; with
+    ``durable`` (a directory) its WAL there and an in-memory checkpoint
+    store, as the JAX test's, else neither; with ``capacity`` the JAX test's
+    capacity economy (the one tenant, an autoscaler of one 4-device node
+    that provisions in 20 s and times out in 15 s), else none."""
     vclock = mods["clock"].VirtualClock()
     sim = mods["cluster"].SimCluster(
         vclock, nodes=[("tpu-node-0", 4), ("tpu-node-1", 4)], pod_start_latency=12.0)
@@ -152,6 +162,11 @@ def make_pipeline(mods, structured_scrapes: bool = True, tracer=False, durable=N
     if durable is not None:
         kw.update(wal=mods["wal"].WriteAheadLog(durable / "wal", segment_max_records=256),
                   checkpoint_store=mods["checkpoint"].InMemoryCheckpointStore())
+    if capacity:
+        cap = mods["capacity"]
+        kw["capacity"] = cap.CapacityConfig(
+            tenants=[cap.TenantSpec("tpu-test")], autoscaler_node_chips=4,
+            autoscaler_max_nodes=1, provision_delay_s=20.0, provision_timeout_s=15.0)
     pipe = mods["loop"].AutoscalingPipeline(sim, dep, target_value=40.0, max_replicas=4,
                                             structured_scrapes=structured_scrapes, **kw)
     pipe.start()
@@ -165,7 +180,8 @@ def _observe(pipe) -> tuple:
 
 
 def _kind_run(mods, kind: str, structured_scrapes: bool = True, durable=None) -> dict:
-    vclock, pipe = make_pipeline(mods, structured_scrapes, durable=durable)
+    vclock, pipe = make_pipeline(mods, structured_scrapes, durable=durable,
+                                 capacity=kind in CAPACITY_KINDS)
     spec = mods["faults"].FaultSpec(kind=kind, at=0.0, **NATURAL_SPECS[kind])
     clear = mods["faults"].FAULT_KINDS[kind](pipe, spec)
     seconds = []

@@ -4,10 +4,13 @@ tests/test_doctor.py, and ``check_alerts`` and ``check_histograms`` on
 alert payloads and on a traced pipeline's self-metrics exposition, whole
 and broken; ``check_self_metrics`` passes on either package's traced
 series (the port serves JAX's ten families); ``diagnose``, with the shard
-topology and query-planner probes, stops at the first broken joint as
-JAX's does; the CLI probes an
-exporter and a Prometheus over HTTP, its alerts and, with SELF_METRICS=1,
-its self-metric series; ``gen-pipeline`` writes JAX's pipeline but where a
+topology, query-planner, capacity-pool and operator probes, stops at the
+first broken joint as JAX's does; ``check_capacity_pool`` and
+``check_operator_metrics`` give JAX's verdicts on whole and broken
+payloads; the CLI probes an exporter and a Prometheus over HTTP, its
+alerts and, with SELF_METRICS=1, its self-metric series, and with
+OPERATOR_URL and CAPACITY_SELFCHECK=1 an operator's /metrics and the
+capacity selfcheck; ``gen-pipeline`` writes JAX's pipeline but where a
 GPU node needs another value, and refuses what JAX's refuses; and
 ``probe_nvml`` over the stub NVML library: exit 0 with GPM served, with GPM
 refused and with no GPM at all, exit 1 when NVML or a device call fails."""
@@ -29,6 +32,7 @@ from k8s_gpu_hpa_tpu import simulate as jax_simulate
 from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
 import k8s_gpu_hpa_tpu_torch.__main__ as cli
 from k8s_gpu_hpa_tpu_torch import doctor, simulate
+from k8s_gpu_hpa_tpu_torch.control import capacity, operator
 from k8s_gpu_hpa_tpu_torch.metrics import downsample, federation, planner, rules, tsdb
 from k8s_gpu_hpa_tpu_torch.obs import selfmetrics
 from k8s_gpu_hpa_tpu_torch.utils import clock
@@ -69,6 +73,19 @@ def _alerts(*alerts) -> str:
 
 
 ALERTS_QUIET = _alerts()
+
+
+def _operator_text(reconciles: int = 3, held: dict | None = None, up: int = 1) -> str:
+    """An operator's /metrics after ``reconciles`` passes, its held gauges."""
+    m = operator.OperatorMetrics()
+    m.reconciles_total, m.repairs_total["up"] = reconciles, up
+    for target, value in (held or {}).items():
+        m.set_held(target, value)
+    return m.render()
+
+
+OPERATOR_LIVE = _operator_text(held={"StatefulSet/a": False})
+_SELFCHECK = capacity.capacity_selfcheck()
 
 
 @functools.cache
@@ -131,6 +148,20 @@ CASES = [
     ("check_alerts", (_alerts(("TpuExporterDown", "firing"), ("TpuChipHot", "firing"),
                               ("TpuExporterStale", "pending")),)),
     ("check_alerts", (json.dumps({}),)),
+    ("check_capacity_pool", (json.dumps(_SELFCHECK),)),
+    ("check_capacity_pool", (json.dumps({**_SELFCHECK, "conserved_all": False}),)),
+    ("check_capacity_pool", (json.dumps({**_SELFCHECK, "violations": [
+        "node n: used 3 + free 0 != capacity 4", "pod p: holds 1 chips, requested 2"]}),)),
+    ("check_capacity_pool", (json.dumps({**_SELFCHECK, "preemption_roundtrip": False}),)),
+    ("check_capacity_pool", (json.dumps({**_SELFCHECK, "lo_running": 0}),)),
+    ("check_capacity_pool", (json.dumps({}),)),
+    ("check_operator_metrics", (OPERATOR_LIVE,)),
+    ("check_operator_metrics", (_operator_text(0),)),
+    ("check_operator_metrics", (_operator_text(held={"StatefulSet/a": True,
+                                                      "StatefulSet/b": True}),)),
+    ("check_operator_metrics", (_operator_text(held={"StatefulSet/b": True}),)),
+    ("check_operator_metrics", ("",)),
+    ("check_operator_metrics", (exposition(),)),
 ]
 HISTOGRAM_CASES = ["whole", "no_inf", "count", "not_cumulative", "negative_sum", "no_sum",
                    "missing", "empty"]
@@ -210,6 +241,13 @@ def _shards_and_planner() -> tuple[str, str]:
 
 
 @functools.cache
+def _capacity_selfcheck() -> str:
+    """The capacity economy's small crunch as JSON (the JAX package's, field
+    for field: tests/test_torch_capacity.py)."""
+    return json.dumps(capacity.capacity_selfcheck())
+
+
+@functools.cache
 def _rollup_selfcheck() -> str:
     """The rollup tiers' selfcheck of six hours of four series at 30 s on
     the default 5m/1h policy (both tiers hold buckets, raw still covers
@@ -225,15 +263,15 @@ def _rollup_selfcheck() -> str:
 
 @pytest.mark.parametrize("broken", [None, "exporter", "prom", "up", "shards", "self_metrics",
                                     "self_exposition", "planner", "downsample", "api", "hpa",
-                                    "alerts"])
+                                    "alerts", "capacity", "operator"])
 def test_diagnose_stops_at_the_first_broken_joint_as_jax_s_does(broken):
     shards, selfcheck = _shards_and_planner()
     good = {"exporter": exposition(), "prom": ADDRESSED, "up": UP, "shards": shards,
             "self_metrics": _traced()[0], "self_exposition": _traced()[1], "planner": selfcheck,
-            "downsample": _rollup_selfcheck(), "api": API, "hpa": HPA_ACTIVE,
-            "alerts": ALERTS_QUIET}
+            "downsample": _rollup_selfcheck(), "capacity": _capacity_selfcheck(), "api": API,
+            "hpa": HPA_ACTIVE, "operator": OPERATOR_LIVE, "alerts": ALERTS_QUIET}
     order = ["exporter", "prom", "up", "shards", "self_metrics", "self_exposition", "planner",
-             "downsample", "api", "hpa", "alerts"]
+             "downsample", "capacity", "api", "hpa", "operator", "alerts"]
     payloads = {k: (None if k == broken else v) for k, v in good.items()}
     port_fetch, port_called = _fetchers(**payloads)
     jax_fetch, _ = _fetchers(**payloads)
@@ -251,7 +289,8 @@ def test_diagnose_skips_absent_fetchers():
     assert [r.name for r in results] == [
         "L2 exporter", "L3 prometheus", "L3 scrape health", "L3 shard topology",
         "L3 self-metrics", "L3 histogram conformance", "L3 query planner",
-        "L3 rollup tiers", "L4 custom-metrics API", "L5 HPA", "alerts"]
+        "L3 rollup tiers", "capacity pool", "L4 custom-metrics API", "L5 HPA",
+        "quantum operator", "alerts"]
     assert all(r.ok for r in results)
     assert all(r.detail.startswith("skipped") for r in results[1:])
 
@@ -320,9 +359,60 @@ def test_the_cli_probes_a_live_exporter_and_prometheus(monkeypatch, capsys, self
     assert out[5:] == ["[ok ] L3 histogram conformance: skipped (no fetcher)",
                        "[ok ] L3 query planner: skipped (no fetcher)",
                        "[ok ] L3 rollup tiers: skipped (no fetcher)",
+                       "[ok ] capacity pool: skipped (no fetcher)",
                        "[ok ] L4 custom-metrics API: skipped (no fetcher)",
                        "[ok ] L5 HPA: skipped (no fetcher)",
+                       "[ok ] quantum operator: skipped (no fetcher)",
                        "[ok ] alerts: no pipeline alerts firing"]
+
+
+class _Operator(BaseHTTPRequestHandler):
+    """Serves an operator's /metrics: ``OPERATOR_LIVE``."""
+
+    def do_GET(self):  # noqa: N802 — the handler's name
+        data = OPERATOR_LIVE.encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, *args):
+        pass
+
+
+def test_the_cli_probes_the_operator_and_the_capacity_selfcheck(monkeypatch, capsys):
+    """``main`` with OPERATOR_URL (an operator's /metrics over HTTP) and
+    CAPACITY_SELFCHECK=1 (the small crunch in process), its exporter and
+    Prometheus unreachable: the first joint fails, so nothing after it
+    runs; with those two alone wired into ``diagnose``, each probe answers
+    as the JAX doctor's on the same payloads."""
+    operator = ThreadingHTTPServer(("127.0.0.1", 0), _Operator)
+    server = threading.Thread(target=operator.serve_forever, daemon=True)
+    server.start()
+    fetched = {}
+    try:
+        monkeypatch.setenv("OPERATOR_URL", f"http://127.0.0.1:{operator.server_address[1]}/m")
+        monkeypatch.setenv("CAPACITY_SELFCHECK", "1")
+        monkeypatch.setattr(doctor.shutil, "which", lambda cmd: None)
+        real = doctor.diagnose
+
+        def wired(**kw):
+            fetched.update(operator=kw["operator_fetch"](), capacity=kw["capacity_fetch"]())
+            return real(operator_fetch=kw["operator_fetch"], capacity_fetch=kw["capacity_fetch"])
+
+        monkeypatch.setattr(doctor, "diagnose", wired)
+        assert doctor.cli([]) == 0
+    finally:
+        operator.shutdown()
+        server.join(10)
+        operator.server_close()
+    out = capsys.readouterr().out.splitlines()
+    assert fetched["operator"] == OPERATOR_LIVE
+    assert json.loads(fetched["capacity"]) == json.loads(_capacity_selfcheck())
+    assert ("[ok ] capacity pool: "
+            + jax_doctor.check_capacity_pool(fetched["capacity"])) in out
+    assert ("[ok ] quantum operator: "
+            + jax_doctor.check_operator_metrics(OPERATOR_LIVE)) in out
 
 
 # ---- gen-pipeline ----------------------------------------------------------------

@@ -100,6 +100,9 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.metrics.downsample",
         "k8s_gpu_hpa_tpu_torch.obs.selfmetrics",
         "k8s_gpu_hpa_tpu_torch.perfgates",
+        "k8s_gpu_hpa_tpu_torch.control.capacity",
+        "k8s_gpu_hpa_tpu_torch.control.operator",
+        "k8s_gpu_hpa_tpu_torch.chaos.crunch",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -254,12 +257,13 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
      "IndexScan kube_pod_labels"),
     (["simulate", "--scenario", "history", "--days", "0.125"],
      "hourly view from the rollup tiers"),
-], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history"])
+    (["simulate", "--scenario", "crunch"], "contract: all clauses hold"),
+], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
     """The storm, the SLO check, the pipeline generator, the sharded spike
-    with its plans and the flight recorder as a user runs them, in a fresh
-    interpreter: exit 0, and the import log names neither JAX, the JAX
-    package, PyYAML nor torch."""
+    with its plans, the flight recorder and the capacity crunch as a user
+    runs them, in a fresh interpreter: exit 0, and the import log names
+    neither JAX, the JAX package, PyYAML nor torch."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
@@ -269,6 +273,33 @@ def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv,
                 if line.startswith("import time:") and "|" in line}
     heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch")]
     assert heavy == []
+
+
+_RUN_OPERATOR = """
+import json, subprocess, sys
+from k8s_gpu_hpa_tpu_torch.control import operator
+proc = subprocess.run([sys.executable, "-X", "importtime", "-c",
+                       "import k8s_gpu_hpa_tpu_torch.control.operator"],
+                      capture_output=True, text=True, check=True)
+print(json.dumps({"stderr": proc.stderr, "quantum": operator.quantum_desired(5, 6, 4, 4, 16)}))
+"""
+
+
+def test_the_operator_loads_no_jax_yaml_or_torch():
+    """The slice-quantum operator's module, as its container imports it
+    (``python -m k8s_gpu_hpa_tpu_torch.control.operator``), in a fresh
+    interpreter: the import log names neither JAX, the JAX package, PyYAML
+    nor torch, and its rule answers."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_OPERATOR], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    imported = {line.rsplit("|", 1)[1].strip() for line in out["stderr"].splitlines()
+                if line.startswith("import time:") and "|" in line}
+    assert "k8s_gpu_hpa_tpu_torch.control.operator" in imported
+    heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch")]
+    assert heavy == [] and out["quantum"] == 8
 
 
 def test_no_port_source_names_jax_or_the_jax_package():

@@ -277,14 +277,32 @@ def test_a_metric_spec_in_another_namespace_is_refused_as_jax_refuses_it():
 
 
 def test_the_constructor_takes_downsample_and_still_refuses_capacity():
-    """``capacity`` is still left out; ``downsample`` (the rollup tiers),
-    ``scrape_shards`` (the metrics plane) and the durability slice's two
-    are taken, as JAX's.  A downsampling pipeline gives every TSDB the
-    policy, and a restarted TSDB keeps it."""
+    """The constructor's parameters are JAX's, name for name and default
+    for default: ``capacity`` (the capacity economy, which an earlier slice
+    refused, hence this test's name), ``downsample`` (the rollup tiers),
+    ``scrape_shards`` (the metrics plane) and the durability slice's two.
+    A capacity pipeline installs its scheduler on the cluster and scrapes
+    the pool; a downsampling pipeline gives every TSDB the policy, and a
+    restarted TSDB keeps it."""
+    import inspect
+
+    from k8s_gpu_hpa_tpu_torch.control.capacity import CapacityConfig, TenantSpec
     from k8s_gpu_hpa_tpu_torch.metrics.downsample import DownsamplePolicy
 
-    with pytest.raises(TypeError):
-        make_pipeline(PORT, lambda t: 0.0, capacity=None)
+    def params(cls):
+        return [(p.name, p.default) for p in
+                inspect.signature(cls.__init__).parameters.values()]
+
+    assert params(loop.AutoscalingPipeline) == params(jax_loop.AutoscalingPipeline)
+    economy = make_pipeline(PORT, lambda t: 0.0, capacity=CapacityConfig(
+        tenants=[TenantSpec("tpu-test", priority=5)], autoscaler_node_chips=4))
+    assert economy.cluster.scheduler is economy.capacity_scheduler
+    assert economy.capacity_scheduler.autoscaler.node_chips == 4
+    assert "capacity-pool" in [t.name for t in economy.scraper.targets]
+    assert economy.hpa.capacity_probe()["pending_pods"] == 0
+    plain = make_pipeline(PORT, lambda t: 0.0, capacity=None)
+    assert plain.capacity_scheduler is None and plain.cluster.scheduler is None
+    assert plain.hpa.capacity_probe is None and plain.tenant_hpas == {}
     policy = DownsamplePolicy()
     tiered = make_pipeline(PORT, lambda t: 0.0, downsample=policy)
     assert tiered.db.downsample_policy is policy and tiered.db.rollup_steps == (300.0, 3600.0)
@@ -293,7 +311,6 @@ def test_the_constructor_takes_downsample_and_still_refuses_capacity():
     sharded_tiers = make_pipeline(PORT, lambda t: 0.0, downsample=policy, scrape_shards=2)
     assert all(db.downsample_policy is policy for db in sharded_tiers.db.members)
     assert make_pipeline(PORT, lambda t: 0.0, downsample=None).db.downsample_policy is None
-    assert not hasattr(loop.AutoscalingPipeline, "add_tenant_hpa")
     pipe = make_pipeline(PORT, lambda t: 0.0, wal=None, checkpoint_store=None)
     assert (pipe.wal, pipe.checkpoint_store, pipe.restart_log) == (None, None, [])
     assert pipe.shard_plane is None and pipe.planner.db is pipe.db

@@ -105,14 +105,15 @@ def _lookup(bundle: dict, path: tuple):
 
 def test_the_bundle_holds_the_jax_bundle_s_manifests_of_the_port_s_pipelines():
     port, ref = manifests.default_bundle(), jax_manifests.default_bundle()
-    assert set(port) < set(ref)
+    # with the slice-quantum operator the port renders every file of JAX's
+    assert set(port) == set(ref)
     assert set(port) == {
         "tpu-metrics-exporter.yaml", "kube-prometheus-stack-values.yaml",
         "prometheus-adapter-values.yaml", "tpu-test-prometheusrule.yaml",
         *(f"{w}-{kind}.yaml" for w in ("tpu-test", "tpu-serve", "tpu-train")
           for kind in ("deployment", "hpa")),
         "tpu-test-v5e8-deployment.yaml", "tpu-test-hbm-hpa.yaml", "tpu-test-external-hpa.yaml",
-        "tpu-test-multihost.yaml", "tpu-test-multihost-hpa.yaml",
+        "tpu-test-multihost.yaml", "tpu-test-multihost-hpa.yaml", "quantum-operator.yaml",
         "cpu-busyloop.yaml", "cpu-busyloop-hpa.yaml",
     }
     for name, docs in port.items():
@@ -127,11 +128,11 @@ def test_every_leaf_of_the_bundle_is_jax_s_but_where_a_gpu_node_needs_another():
     # each GPU path differs somewhere: the list names real differences
     stale = [p for p in GPU_PATHS if not any(_under(d, p) for d in diffs)]
     assert stale == []
-    # the lists the port still renders in part; the adapter's rules, custom
-    # and external, and the PrometheusRule's groups, alert groups included,
-    # are JAX's whole
+    # no list is rendered in part any more: the scrape jobs (the operator's
+    # among them), the adapter's rules, custom and external, and the
+    # PrometheusRule's groups, alert groups included, are JAX's whole
     partial = {p[0] for p in SUBSET_PATHS if any(_under(d, p) for d in diffs)}
-    assert partial == {"kube-prometheus-stack-values.yaml"}
+    assert partial == set()
 
 
 @pytest.mark.parametrize("path", list(SUBSET_PATHS), ids=lambda p: "/".join(p[:1] + p[-1:]))
@@ -144,12 +145,36 @@ def test_each_entry_the_port_renders_of_a_list_is_jax_s_entry(path):
         assert entry == ref[name]
 
 
+def test_the_quantum_operator_and_its_scrape_job_are_jax_s_but_image_and_command():
+    """The operator's ServiceAccount, Role, RoleBinding and Deployment are
+    JAX's leaf for leaf but for the container's image and command (the
+    port's operator in the port's exporter image), and the Prometheus values
+    carry JAX's ``quantum-operator`` scrape job beside ``tpu-metrics``."""
+    port, ref = manifests.quantum_operator_bundle(), jax_manifests.quantum_operator_bundle()
+    diffs: list = []
+    _walk(port, ref, ("quantum-operator.yaml",), diffs)
+    container = ("quantum-operator.yaml", "3", *_CONTAINER[:-1], "0")
+    assert sorted(diffs) == [(*container, "command", "2"), (*container, "image")]
+    got = port[3]["spec"]["template"]["spec"]["containers"][0]
+    assert got["command"] == ["python", "-m", "k8s_gpu_hpa_tpu_torch.control.operator"]
+    assert got["image"] == manifests.EXPORTER_IMAGE
+    jobs = manifests.prom_stack_values()["prometheus"]["prometheusSpec"]["additionalScrapeConfigs"]
+    ref_jobs = jax_manifests.prom_stack_values()["prometheus"]["prometheusSpec"][
+        "additionalScrapeConfigs"]
+    assert [j["job_name"] for j in jobs] == ["tpu-metrics", "quantum-operator"]
+    assert jobs == ref_jobs
+    assert manifests.default_bundle()["quantum-operator.yaml"] == port
+
+
 def test_the_gpu_values_are_the_ones_a_gpu_node_needs():
     bundle = manifests.default_bundle()
-    # every workload but the CPU busy-loop, which asks for no device
+    # every workload but the CPU busy-loop and the quantum operator, which
+    # ask for no device (and select no GPU node)
     workloads = [d for name, docs in bundle.items() for d in docs
                  if d.get("kind") in ("Deployment", "StatefulSet", "DaemonSet")
-                 and d["metadata"]["name"] != "cpu-busyloop"]
+                 and d["metadata"]["name"] not in ("cpu-busyloop", "quantum-operator")]
+    operator = bundle["quantum-operator.yaml"][3]["spec"]["template"]["spec"]
+    assert "nodeSelector" not in operator and "tolerations" not in operator
     for doc in workloads:
         pod = doc["spec"]["template"]["spec"]
         assert pod["nodeSelector"] == {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}

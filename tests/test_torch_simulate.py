@@ -189,8 +189,13 @@ def test_the_umbrella_offers_the_ported_commands_only(capsys):
                     "gen-pipeline", "gen-manifests"):
         assert command in text
     assert "stub-libtpu" not in text
+    # the crunch is ported (tests/test_torch_crunch.py); the region
+    # evacuation is not yet
     with pytest.raises(SystemExit):
-        main(["simulate", "--scenario", "crunch"])
+        main(["simulate", "--help"])
+    assert "crunch" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        main(["simulate", "--scenario", "evacuate"])
 
 
 def test_gen_manifests_writes_the_bundle(tmp_path, capsys):
