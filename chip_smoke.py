@@ -141,6 +141,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 26. llm_entry    — ``python -m k8s_gpu_hpa_tpu_torch.loadgen.multihost`` with
                    WORKLOAD=llm and CHECKPOINT_DIR trains and reports until
                    SIGTERM, saves, exits 0, and resumes from that step.
+                   train_entry and llm_entry run at once, in two threads.
 27. mesh         — a process group of this process alone over NCCL on the
                    card, its rendezvous on a free port of 127.0.0.1:
                    ``make_mesh()`` is {"data": 1, "model": 1} on cuda, and a
@@ -206,7 +207,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 34. ringattn_entry — the multihost command with WORKLOAD=ringattn reports
                    twice and exits 0 on SIGTERM.
 34b. moe_entry   — the same with WORKLOAD=moe, one process: its banner shows
-                   the generator's mesh {"data": 1, "model": 1}.
+                   the generator's mesh {"data": 1, "model": 1}.  The two
+                   commands run at once, each line with its ``wall_s``.
 35. ring_parity  — two gloo ranks sharing the card run ``ring_attention`` at
                    the rung's default (b1, 2 × 1024, 8 heads of 128, causal)
                    against ``reference_attention`` over the whole sequence:
@@ -412,6 +414,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    the slice is held and passes after (OPERATOR_EXPECTED).
                    The kernels' counts are set to 0 before it and read
                    after: it launches none.
+47. evacuate     — the region evacuation, in this process on a virtual
+                   clock: three regional stacks under one global control
+                   plane, the home region killed through an object-store
+                   outage and a survivor's partition (bench.py's
+                   region_evacuation rung: the full run and the smoke canary
+                   with spilling off).  Each run's wall seconds,
+                   evacuation_fingerprint and SHA-256 of its sorted JSON
+                   without ``objstore.bytes`` must be the JAX package's
+                   (EVAC_EXPECTED; the canary breaks the contract with 5
+                   violations), and the rung's ``ok`` must hold.  The
+                   store's byte count is printed beside the range JAX's runs
+                   gave (EVAC_JAX_BYTES).  The kernels' counts are set to 0
+                   before it and read after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -533,7 +548,8 @@ from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_a
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
 from k8s_gpu_hpa_tpu_torch import perfgates, simulate, trial
 from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
-from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm
+from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm, run_region_evacuation
+from k8s_gpu_hpa_tpu_torch.chaos.evacuate import evacuation_fingerprint
 from k8s_gpu_hpa_tpu_torch.control.capacity import capacity_selfcheck
 from k8s_gpu_hpa_tpu_torch.control.operator import (
     KubeClient,
@@ -772,12 +788,15 @@ def _after_lead(step, before=None) -> tuple[dict, float]:
 #: perf_counter at the start of main(): each phase's line carries its
 #: seconds since then (``t_s``), so a run's time splits by phase
 _START: float | None = None
+#: phases that run at once in threads print whole lines
+_EMIT_LOCK = threading.Lock()
 
 
 def emit(obj: dict) -> None:
     if "phase" in obj and _START is not None:
         obj = {**obj, "t_s": time.perf_counter() - _START}
-    print(json.dumps(obj), flush=True)
+    with _EMIT_LOCK:
+        print(json.dumps(obj), flush=True)
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2019,6 +2038,7 @@ def phase_llm_entry(work_dir: str, seconds: float = 5.0) -> dict:
     try:
         banner = entry.wait_for("tpu-test multihost")
         time.sleep(seconds)
+        entry.wait_for("steps=")  # a card shared with train_entry can be slower
     finally:
         code = entry.stop()
     report_lines = [ln for ln in entry.lines if ln.startswith("steps=")]
@@ -2844,22 +2864,31 @@ def phase_ringattn_loadgen(device: str = "cuda:0", seconds: float = RINGATTN_S) 
     return out
 
 
-def phase_ringattn_entry(work_dir: str) -> dict:
-    """The slice container's command with WORKLOAD=ringattn and REPORT_S 2:
-    its banner, two reports at the rung's context, then SIGTERM and exit 0."""
+def start_ringattn_entry(work_dir: str) -> tuple[_Entry, float]:
+    """The slice container's command with WORKLOAD=ringattn and REPORT_S 2,
+    started, and the time it was started."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
                         "TPU_WORKER_HOSTNAMES", "HOSTS_PER_SLICE")}
     env.update(WORKLOAD="ringattn", REPORT_S="2",
                TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
-    entry = _Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env)
+    return _Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env), time.perf_counter()
+
+
+def phase_ringattn_entry(work_dir: str, started: tuple[_Entry, float] | None = None) -> dict:
+    """The slice container's command with WORKLOAD=ringattn and REPORT_S 2
+    (``started`` by ``start_ringattn_entry``, or here): its banner, two
+    reports at the rung's context, then SIGTERM and exit 0; ``wall_s`` from
+    its start to its exit."""
+    entry, t0 = started or start_ringattn_entry(work_dir)
     try:
         banner = entry.wait_for("tpu-test multihost loadgen")
         entry.wait_for("bursts=", count=2)
     finally:
         code = entry.stop()
     reports = [ln for ln in entry.lines if ln.startswith("bursts=")]
-    out = {"phase": "ringattn_entry", "exit_code": code, "banner": banner, "reports": reports}
+    out = {"phase": "ringattn_entry", "exit_code": code, "banner": banner, "reports": reports,
+           "wall_s": time.perf_counter() - t0}
     emit(out)
     last = dict(f.split("=", 1) for f in reports[-1].split()) if reports else {}
     if (code != 0 or len(reports) < 2 or "(ringattn): process 0/1 " not in banner
@@ -2915,23 +2944,31 @@ def phase_moe_loadgen(device: str = "cuda:0", seconds: float = MOE_S) -> dict:
     return out
 
 
-def phase_moe_entry(work_dir: str) -> dict:
-    """The slice container's command with WORKLOAD=moe and REPORT_S 2 as
-    one process: its banner (the generator's mesh, a model axis of 1 at
-    world 1), two reports, then SIGTERM and exit 0."""
+def start_moe_entry(work_dir: str) -> tuple[_Entry, float]:
+    """The slice container's command with WORKLOAD=moe and REPORT_S 2 as one
+    process, started, and the time it was started."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
                         "TPU_WORKER_HOSTNAMES", "HOSTS_PER_SLICE", "MODEL_PARALLELISM")}
     env.update(WORKLOAD="moe", REPORT_S="2",
                TPU_TEST_INTENSITY_FILE=str(Path(work_dir) / "intensity"))
-    entry = _Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env)
+    return _Entry("k8s_gpu_hpa_tpu_torch.loadgen.multihost", env), time.perf_counter()
+
+
+def phase_moe_entry(work_dir: str, started: tuple[_Entry, float] | None = None) -> dict:
+    """The slice container's command with WORKLOAD=moe and REPORT_S 2 as
+    one process (``started`` by ``start_moe_entry``, or here): its banner
+    (the generator's mesh, a model axis of 1 at world 1), two reports, then
+    SIGTERM and exit 0; ``wall_s`` from its start to its exit."""
+    entry, t0 = started or start_moe_entry(work_dir)
     try:
         banner = entry.wait_for("tpu-test multihost loadgen")
         entry.wait_for("bursts=", count=2)
     finally:
         code = entry.stop()
     reports = [ln for ln in entry.lines if ln.startswith("bursts=")]
-    out = {"phase": "moe_entry", "exit_code": code, "banner": banner, "reports": reports}
+    out = {"phase": "moe_entry", "exit_code": code, "banner": banner, "reports": reports,
+           "wall_s": time.perf_counter() - t0}
     emit(out)
     last = dict(f.split("=", 1) for f in reports[-1].split()) if reports else {}
     if (code != 0 or len(reports) < 2 or "(moe): process 0/1 " not in banner
@@ -4576,6 +4613,67 @@ def phase_capacity() -> dict:
     return out
 
 
+#: the region evacuation's runs as the JAX package gives them
+#: (run_region_evacuation() on a CPU): evacuation_fingerprint, and the
+#: SHA-256 of the whole result as sorted JSON with ``objstore.bytes`` left
+#: out (the object store's byte count follows PYTHONHASHSEED in both
+#: packages, and is printed beside JAX's range instead)
+EVAC_EXPECTED = {
+    "full": {"fingerprint": "crc32:38f93eee",
+             "sha256": "9ba0e4b9f7ee92275f20a4219c4a4b9043b71f403652eb92432f9f186cea49ee",
+             "ok": True, "violations": 0},
+    "canary": {"fingerprint": "crc32:4c4c8bae",
+               "sha256": "7c45d1764e40c8f148544c340faba258423646dc49fabeb6427b86c55555ad04",
+               "ok": False, "violations": 5},
+}
+#: the least and most ``objstore.bytes`` the JAX package's runs gave under
+#: PYTHONHASHSEED 0-3 on a CPU
+EVAC_JAX_BYTES = {"full": [13970478, 13970485], "canary": [8195148, 8195150]}
+
+
+def _evac_sha256(result: dict) -> str:
+    rest = {**result, "objstore": {k: v for k, v in result["objstore"].items() if k != "bytes"}}
+    return hashlib.sha256(json.dumps(rest, sort_keys=True).encode()).hexdigest()
+
+
+def phase_evacuate() -> dict:
+    """The region evacuation, in this process on a virtual clock:
+    ``trial.evacuation_rung`` (bench.py's region_evacuation rung) of the
+    full run and the smoke canary, each run timed, fingerprinted and hashed
+    against the JAX package's (EVAC_EXPECTED); the rung's ``ok`` must hold
+    (the run keeps the contract, the canary breaks it), and no kernel is
+    launched."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    runs, out = {}, {"phase": "evacuate"}
+    for name, kw in (("full", {}), ("canary", {"spill_enabled": False, "smoke": True})):
+        t = time.perf_counter()
+        runs[name] = run_region_evacuation(**kw)
+        out[name] = {"call_s": time.perf_counter() - t,
+                     "fingerprint": evacuation_fingerprint(runs[name]),
+                     "sha256": _evac_sha256(runs[name]), "ok": runs[name]["ok"],
+                     "violations": len(runs[name]["violations"]),
+                     "objstore_bytes": runs[name]["objstore"]["bytes"],
+                     "jax_objstore_bytes": EVAC_JAX_BYTES[name]}
+    rung = trial.evacuation_rung(runs["full"], runs["canary"])
+    out["rung"] = {k: rung[k] for k in ("ok", "ttc_s", "spills_admitted", "spills_denied",
+                                        "generations", "bit_identical", "canary_failed",
+                                        "canary_violations")}
+    out["kernel_launches"] = _kernel_counts()
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for name, want in EVAC_EXPECTED.items():
+        got = {k: out[name][k] for k in want}
+        if got != want:
+            raise AssertionError(f"the evacuation's {name} run differs from the JAX package's: {got}")
+    if not rung["ok"]:
+        raise AssertionError(f"the region_evacuation rung failed: {rung}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the evacuation launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -4652,8 +4750,13 @@ def main() -> int:
     del train_gen
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
-        phase_train_entry(work_dir)
-        phase_llm_entry(work_dir)
+        # the two training commands at once: neither has a rate bar, and
+        # each checks only its own reports, save and resume
+        with ThreadPoolExecutor(2) as pool:
+            entries = [pool.submit(phase_train_entry, work_dir),
+                       pool.submit(phase_llm_entry, work_dir)]
+        for done in entries:
+            done.result()
         mesh = phase_mesh()
         phase_tp_mlp(mesh)
         phase_allreduce_loadgen()
@@ -4665,8 +4768,15 @@ def main() -> int:
         phase_doctor_nvml()
         dist.destroy_process_group()
         phase_allreduce_entry(work_dir)
-        phase_ringattn_entry(work_dir)
-        phase_moe_entry(work_dir)
+        # the two commands at once: neither has a rate bar, and each
+        # checks only its own banner and reports
+        ring, moe_started = start_ringattn_entry(work_dir), start_moe_entry(work_dir)
+        try:
+            phase_ringattn_entry(work_dir, ring)
+        except BaseException:
+            moe_started[0].stop()
+            raise
+        phase_moe_entry(work_dir, moe_started)
         phase_train_dp(work_dir)
         phase_ring_parity(work_dir)
         phase_ep_parity(work_dir)
@@ -4683,6 +4793,7 @@ def main() -> int:
     phase_metrics_scale()
     phase_rollups()
     phase_capacity()
+    phase_evacuate()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

@@ -1,16 +1,23 @@
 """Declarative fault injection on virtual time: FaultSpecs armed by a
 ChaosSchedule, each fault's recovery accounted as a RecoveryReport
-(detection time, degraded duration, MTTR), the canned storm and the
-capacity crunch.
+(detection time, degraded duration, MTTR), the canned storm, the
+capacity crunch and the region evacuation.
 
-Counterpart of ``k8s_gpu_hpa_tpu/chaos/``; the region evacuation, the
-fuzzer and the paging drill come with later slices."""
+Counterpart of ``k8s_gpu_hpa_tpu/chaos/``; the fuzzer and the paging drill
+come with later slices."""
 
 from k8s_gpu_hpa_tpu_torch.chaos.crunch import (
     CRUNCH_FAULTS,
     evaluate_crunch_contract,
     render_crunch_report,
     run_capacity_crunch,
+)
+from k8s_gpu_hpa_tpu_torch.chaos.evacuate import (
+    evaluate_evacuation_contract,
+    render_evacuation_report,
+    render_evacuation_why,
+    replay_evacuation_artifact,
+    run_region_evacuation,
 )
 from k8s_gpu_hpa_tpu_torch.chaos.faults import FAULT_KINDS, FaultSpec
 from k8s_gpu_hpa_tpu_torch.chaos.schedule import ChaosSchedule, RecoveryReport
@@ -28,4 +35,9 @@ __all__ = [
     "evaluate_crunch_contract",
     "render_crunch_report",
     "run_capacity_crunch",
+    "evaluate_evacuation_contract",
+    "render_evacuation_report",
+    "render_evacuation_why",
+    "replay_evacuation_artifact",
+    "run_region_evacuation",
 ]

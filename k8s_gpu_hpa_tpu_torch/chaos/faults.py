@@ -24,6 +24,11 @@ kind                      layer it breaks
 ``wal_truncate``          L3: the WAL's tail is destroyed, then the TSDB restarts
 ``tenant_spike``          L1: one tenant's offered load jumps (a capacity crunch)
 ``provision_fail``        L0: the cluster autoscaler's cloud API hangs
+``region_kill``           fleet: a whole region dies; its demand spills to the
+                          surviving regions (control/region.py)
+``region_partition``      fleet: a region is cut off from the exchange; it
+                          serves its own tenants and takes no spill
+``objstore_outage``       fleet: the object store under the exchange is down
 ========================  =====================================================
 
 An injector returns a ``clear()`` that undoes its fault; a duration-0 fault
@@ -34,9 +39,11 @@ the windows close in, and the same per-resource depth counter holds a node
 (``node_preempt``, ``node_drain``), a deployment's crash loop and the
 adapter slot (``adapter_blackout``) down until their last window closes.
 
-The JAX package's ``region_kill``, ``region_partition`` and
-``objstore_outage`` come with the region slice.  ``inject_fault``
-records no coverage probe: the coverage plane is not ported.
+The three fleet kinds act through the pipeline's region and its
+``GlobalControlPlane`` (``pipeline.region.plane``), and raise ValueError,
+in the JAX package's words, on a pipeline that is not part of one.
+``inject_fault`` records no coverage probe: the coverage plane is not
+ported.
 """
 
 from __future__ import annotations
@@ -405,6 +412,84 @@ def _inject_provision_fail(pipe: "AutoscalingPipeline", spec: FaultSpec) -> Clea
     return clear
 
 
+def _region_plane(pipe: "AutoscalingPipeline", kind: str):
+    """The pipeline's region and its global plane, or a ValueError that says
+    why a fleet kind cannot bite (as ``provision_fail`` does)."""
+    region = getattr(pipe, "region", None)
+    plane = getattr(region, "plane", None) if region is not None else None
+    if plane is None:
+        raise ValueError(
+            f"{kind}: pipeline is not part of a region under a "
+            "GlobalControlPlane (wrap it in control/region.Region and "
+            "register it on a plane)"
+        )
+    return region, plane
+
+
+def _resolve_region_target(region, plane, spec: FaultSpec, kind: str) -> str:
+    target = spec.target or region.name
+    if target not in plane.regions:
+        raise ValueError(f"{kind}: no region named {target!r}")
+    return target
+
+
+def _inject_region_kill(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """A whole region dies mid-traffic: the plane freezes its demand and
+    preempts every node, and the spill must serve the frozen replicas from
+    the surviving regions.  Kills nest on the plane's depth counter a
+    region."""
+    region, plane = _region_plane(pipe, "region_kill")
+    target = _resolve_region_target(region, plane, spec, "region_kill")
+    plane.kill_region(target)
+    cleared = False
+
+    def clear() -> None:
+        nonlocal cleared
+        if cleared:
+            return
+        cleared = True
+        plane.recover_region(target)
+
+    return clear
+
+
+def _inject_region_partition(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """Cut a region off from the exchange: it stops publishing sealed
+    generations (global reads serve its last one) and takes no spill, while
+    its own loops go on serving."""
+    region, plane = _region_plane(pipe, "region_partition")
+    target = _resolve_region_target(region, plane, spec, "region_partition")
+    plane.partition_region(target)
+    cleared = False
+
+    def clear() -> None:
+        nonlocal cleared
+        if cleared:
+            return
+        cleared = True
+        plane.heal_partition(target)
+
+    return clear
+
+
+def _inject_objstore_outage(pipe: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
+    """The object store goes dark for the whole fleet: publishes fail (no
+    generation number is used up) and the global query layer serves its
+    cached payloads.  Outage windows nest in the store."""
+    _, plane = _region_plane(pipe, "objstore_outage")
+    plane.objstore.begin_outage()
+    cleared = False
+
+    def clear() -> None:
+        nonlocal cleared
+        if cleared:
+            return
+        cleared = True
+        plane.objstore.end_outage()
+
+    return clear
+
+
 FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = {
     "exporter_outage": _inject_exporter_outage,
     "frozen_samples": _inject_frozen_samples,
@@ -421,6 +506,9 @@ FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = 
     "wal_truncate": _inject_wal_truncate,
     "tenant_spike": _inject_tenant_spike,
     "provision_fail": _inject_provision_fail,
+    "region_kill": _inject_region_kill,
+    "region_partition": _inject_region_partition,
+    "objstore_outage": _inject_objstore_outage,
 }
 
 

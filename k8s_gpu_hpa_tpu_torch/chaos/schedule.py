@@ -17,8 +17,9 @@ A restart fault leaves its recovery stats in the pipeline's restart log,
 and ``RecoveryReport.replay_gap`` takes the worst replay gap of the
 restarts logged while the fault was injected.  Health is judged on every
 autoscaled tenant of the pipeline (its own deployment and each
-``add_tenant_hpa``'s); the port has no regions yet (the region slice), so
-``region`` is not reported.
+``add_tenant_hpa``'s).  Given a ``GlobalControlPlane`` (``plane=``), health
+is the plane's: every live region's pipeline judged so, a killed region
+passed over; and each report names the region of the pipeline it judged.
 """
 
 from __future__ import annotations
@@ -75,6 +76,9 @@ class RecoveryReport:
       could not restore (the clock less the newest point recovered).
     - ``time_to_first_good_sync``: cleared → the HPA's first sync that
       computed a valid replica count (``last_good_sync_at``).
+    - ``region``: the region of the pipeline this report judged, None
+      outside a region; ``as_dict`` gives it only when it is set, so the
+      reports of a single cluster keep their shape.
     """
 
     fault: FaultSpec
@@ -85,6 +89,7 @@ class RecoveryReport:
     expected_replicas: int | None = None
     replay_gap: float | None = None
     first_good_sync_at: float | None = None
+    region: str | None = None
     #: id of the fault_window span covering injected → recovered, when the
     #: pipeline is traced
     trace_span_id: int | None = None
@@ -121,7 +126,7 @@ class RecoveryReport:
         def r(x: float | None) -> float | None:
             return None if x is None else round(x, 1)
 
-        return {
+        out = {
             "fault": self.fault.name,
             "kind": self.fault.kind,
             "injected_at": r(self.injected_at),
@@ -136,6 +141,9 @@ class RecoveryReport:
             "recovered": self.recovered,
             "trace_span_id": self.trace_span_id,
         }
+        if self.region is not None:
+            out["region"] = self.region
+        return out
 
 
 @dataclass
@@ -153,7 +161,11 @@ class ChaosSchedule:
 
     ``stable_for``: a fault counts as recovered once the pipeline has been
     healthy for this many seconds on end after the fault cleared
-    (``recovered_at`` is the start of that healthy run)."""
+    (``recovered_at`` is the start of that healthy run).
+
+    ``plane``: a GlobalControlPlane that judges health region by region, so
+    a killed region is expected to be unhealthy (``plane.healthy()`` passes
+    it over) instead of holding the whole drill unrecovered."""
 
     def __init__(
         self,
@@ -161,8 +173,10 @@ class ChaosSchedule:
         faults: list[FaultSpec],
         monitor_interval: float = 1.0,
         stable_for: float = 10.0,
+        plane=None,
     ):
         self.pipeline = pipeline
+        self.plane = plane
         self.monitor_interval = monitor_interval
         self.stable_for = stable_for
         self._armed = [
@@ -191,6 +205,7 @@ class ChaosSchedule:
 
     def _inject(self, armed: _Armed) -> None:
         armed.report.injected_at = self.pipeline.clock.now()
+        armed.report.region = getattr(getattr(self.pipeline, "region", None), "name", None)
         # the replica count before the fault, for the report (callers check
         # the final count against it when the load holds still)
         armed.report.expected_replicas = self.pipeline.deployment.replicas
@@ -212,6 +227,11 @@ class ChaosSchedule:
             armed.clear_fn()
             armed.clear_fn = None
 
+    def _healthy(self) -> bool:
+        if self.plane is not None:
+            return self.plane.healthy()
+        return pipeline_healthy(self.pipeline)
+
     def _tick(self) -> None:
         now = self.pipeline.clock.now()
         current = next((a for a in self._armed if not a.resolved), None)
@@ -219,7 +239,7 @@ class ChaosSchedule:
             return  # every fault accounted: the tick chain stops
         report = current.report
         if report.injected_at is not None:
-            healthy = pipeline_healthy(self.pipeline)
+            healthy = self._healthy()
             if not healthy and report.detected_at is None:
                 report.detected_at = now
             if report.cleared_at is not None:

@@ -2,8 +2,9 @@
 
 Counterpart of ``k8s_gpu_hpa_tpu/perfgates.py``, cut to the constants the
 ``sim_scale``, ``sim_scale_10k``, ``query_bench`` and ``downsample_bench``
-rungs read (``trial.py``) and the ``capacity_crunch`` sizing and gates
-(``chaos/crunch.py``): the same values, in one place, so a deliberate
+rungs read (``trial.py``), the ``capacity_crunch`` sizing and gates
+(``chaos/crunch.py``) and the ``region_evacuation`` ones
+(``chaos/evacuate.py``): the same values, in one place, so a deliberate
 re-baselining is one edit.
 
 Two kinds of constants live here:
@@ -148,3 +149,56 @@ CRUNCH_STARVATION_BUDGETS_S = {
     "tpu-batch": 600.0,
     "tpu-best": 900.0,
 }
+
+# ---- region_evacuation: the control plane over three regions -----------------
+
+#: three regions on one clock, each a pool like the crunch's.  The home
+#: region ("us") holds the prod and batch tenants; the survivors hold one
+#: local tenant each and the headroom the evacuation spills into
+EVAC_REGIONS = ("us", "eu", "ap")
+EVAC_BASE_NODES = 2
+EVAC_NODE_CHIPS = 8
+EVAC_SLICE_QUANTUM = 4
+#: the object store's visibility latency (put → readable)
+EVAC_OBJSTORE_LATENCY_S = 2.0
+#: the global plane's periods: spill scheduling and sealed publishing
+EVAC_SYNC_INTERVAL_S = 15.0
+EVAC_PUBLISH_INTERVAL_S = 30.0
+
+#: the faults (seconds after arming): the kill lands mid-traffic, an
+#: object-store outage overlaps the evacuation's busiest phase, and a
+#: partition of a survivor ("ap"), opened before the kill, shows the spill
+#: routing around it: prod and part of batch land on "eu", the rest of
+#: batch is denied (``no_capacity``) until the partition heals
+EVAC_KILL_AT_S = 60.0
+EVAC_KILL_DURATION_S = 300.0
+EVAC_OUTAGE_AT_S = 120.0
+EVAC_OUTAGE_DURATION_S = 45.0
+EVAC_PARTITION_AT_S = 30.0
+EVAC_PARTITION_DURATION_S = 90.0
+#: the settle before arming and the run after it (the tail past the kill
+#: and the recovery is the window the contract checks)
+EVAC_SETTLE_S = 120.0
+EVAC_TOTAL_S = 900.0
+
+#: time-to-reconvergence ceilings by priority band: seconds from the kill
+#: to the band's frozen replicas all Running on the survivors' mirrors.
+#: Prod's is tighter: its spill comes first and binds into standing
+#: headroom (15 s in the canned run); batch may wait out the fair share
+#: behind the survivors' own tenants (75 s)
+EVAC_PROD_TTC_MAX_S = 150.0
+EVAC_BATCH_TTC_MAX_S = 420.0
+
+#: the starvation budgets of the tenants during the evacuation (the spill
+#: must not starve the survivors' own tenants past these)
+EVAC_STARVATION_BUDGETS_S = {
+    "tpu-prod": 120.0,
+    "tpu-batch": 600.0,
+    "eu-local": 600.0,
+    "ap-local": 600.0,
+}
+
+#: the smoke size (``simulate --scenario evacuate --smoke``): the same
+#: lifecycle over three regions, a shorter kill and tail
+EVAC_SMOKE_KILL_DURATION_S = 180.0
+EVAC_SMOKE_TOTAL_S = 600.0

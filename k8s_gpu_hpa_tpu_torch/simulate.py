@@ -57,7 +57,20 @@ Scenarios (offered load in percent of one device; the replicas share it):
               tenants' time to capacity, their worst waits and evictions,
               and the scheduler's timeline.  ``--starvation-budget``
               overrides every tenant's budget (0 shows the contract can
-              fail).  Exit 2 on any violation of the capacity contract.
+              fail).  Exit 2 on any violation of the capacity contract;
+- ``evacuate``: the region evacuation (``chaos.run_region_evacuation``),
+              which needs no manifest: three regional stacks under one
+              global control plane, the home region killed mid-traffic
+              through an object-store outage and a survivor's partition;
+              each band's time to reconvergence against its budget, the
+              cross-region decision chain and the global reads against a
+              merged reference.  ``--smoke`` shortens the kill and the
+              tail, ``--no-spill`` is the planted canary (must exit 2),
+              ``--why TENANT`` prints one tenant's decision chain after the
+              run, and ``--replay SCENARIO_JSON`` runs a committed artifact
+              (tests/scenarios/evac-*.json) again instead.  Exit 2 on any
+              violation of the fleet contract, on a replay that does not
+              reproduce, and on an artifact that cannot be read.
 
 An External-metric HPA (the queue rung, deploy/tpu-test-external-hpa.yaml)
 is told from its manifest and plays ``spike``, ``ramp`` and ``flap`` in
@@ -71,8 +84,9 @@ prints the query planner's physical plan of every rule and alert the
 pipeline evaluates.
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's capacity, coverage, race, fuzz, profile, evacuation and
-incident scenarios are not ported.
+JAX simulator's coverage, race, fuzz, profile and incident scenarios are not
+ported, nor the meanings of ``--smoke``, ``--why`` and ``--replay`` other
+than the evacuation's.
 """
 
 from __future__ import annotations
@@ -1121,6 +1135,51 @@ def _main_history(args) -> int:
     return 0 if result["ok"] else 2
 
 
+def _main_evacuate(args) -> int:
+    """The ``evacuate`` scenario, which needs no manifest: the canned
+    evacuation and its report (with ``--why``, one tenant's decision chain
+    after it), or with ``--replay`` a committed artifact run again.  Exit 2
+    on a contract violation, a replay that does not reproduce, or an
+    artifact that cannot be read."""
+    import json
+
+    from k8s_gpu_hpa_tpu_torch.chaos.evacuate import (
+        render_evacuation_report,
+        render_evacuation_why,
+        replay_evacuation_artifact,
+        run_region_evacuation,
+    )
+
+    replay = getattr(args, "replay", None)
+    if replay:
+        try:
+            with open(replay, encoding="utf-8") as f:
+                artifact = json.load(f)
+            outcome = replay_evacuation_artifact(artifact)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"simulate evacuate --replay: {e}")
+            return 2
+        if outcome["ok"]:
+            print(
+                f"scenario {artifact['name']}: reproduced bit-identically "
+                f"({outcome['actual']['fingerprint']})"
+            )
+            return 0
+        print(f"scenario {artifact['name']}: DID NOT REPRODUCE")
+        print(f"  expected: {outcome['expected']}")
+        print(f"  got:      {outcome['actual']}")
+        return 2
+    result = run_region_evacuation(
+        spill_enabled=not getattr(args, "no_spill", False), smoke=getattr(args, "smoke", False)
+    )
+    print(render_evacuation_report(result))
+    why = getattr(args, "why", None)
+    if why:
+        print()
+        print(render_evacuation_why(result, why))
+    return 0 if result["ok"] else 2
+
+
 def main(args) -> int:
     """Run ``args.scenario`` on the manifest ``args.hpa`` and print the
     report.  Exit 2 with a one-line diagnosis for a manifest or scenario the
@@ -1143,6 +1202,8 @@ def main(args) -> int:
         result = run_capacity_crunch(starvation_budget=getattr(args, "starvation_budget", None))
         print(render_crunch_report(result))
         return 0 if result["ok"] else 2
+    if args.scenario == "evacuate":
+        return _main_evacuate(args)
     hpa_doc = load_yaml(Path(args.hpa).read_text())
     metrics = metrics_from_manifest(hpa_doc)
     try:
@@ -1185,7 +1246,8 @@ def add_arguments(parser) -> None:
     parser.add_argument("--hpa", default="deploy/tpu-test-hpa.yaml")
     parser.add_argument(
         "--scenario",
-        choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why", "crunch"],
+        choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why", "crunch",
+                 "evacuate"],
         default="spike",
     )
     parser.add_argument("--duration", type=float, default=420.0)
@@ -1240,4 +1302,28 @@ def add_arguments(parser) -> None:
         default=None,
         help="override every tenant's starvation budget (seconds) for "
         "--scenario crunch; 0 proves the contract can fail",
+    )
+    parser.add_argument(
+        "--smoke",
+        action="store_true",
+        help="evacuate: shorten the kill and the tail",
+    )
+    parser.add_argument(
+        "--no-spill",
+        action="store_true",
+        help="evacuate: disable cross-region spilling (the planted canary; "
+        "must exit 2)",
+    )
+    parser.add_argument(
+        "--why",
+        default=None,
+        metavar="TENANT",
+        help="evacuate: print TENANT's cross-region decision chain after the run",
+    )
+    parser.add_argument(
+        "--replay",
+        default=None,
+        metavar="SCENARIO_JSON",
+        help="evacuate: run a committed scenario artifact (tests/scenarios/"
+        "evac-*.json) again instead; exit 2 unless it reproduces bit-identically",
     )

@@ -74,7 +74,10 @@ metrics plane's rungs, ``sim_scale_rung``, ``sim_scale_10k_rung``,
 ``query_bench_rung`` and ``downsample_bench_rung`` (bench.py's
 ``run_rung_sim_scale``, ``run_rung_sim_scale_10k``, ``run_rung_query_bench``
 and ``run_rung_downsample_bench``), drive the fleet harnesses of ``control/scale_harness.py`` at the smoke sizes of
-``perfgates.py`` or, with ``full``, its full sizes.
+``perfgates.py`` or, with ``full``, its full sizes.  ``region_evacuation_rung``
+(bench.py's ``run_rung_region_evacuation``, ``evacuation_rung`` of a
+finished run and its canary) runs the region evacuation and its planted
+canary on virtual clocks.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -105,7 +108,7 @@ from typing import TYPE_CHECKING, Callable, Protocol
 
 import torch
 
-from k8s_gpu_hpa_tpu_torch.chaos import run_fault_storm
+from k8s_gpu_hpa_tpu_torch.chaos import run_fault_storm, run_region_evacuation
 from k8s_gpu_hpa_tpu_torch.control.adapter import (
     AdapterRule,
     CustomMetricsAdapter,
@@ -1526,6 +1529,43 @@ def recovery_drill_rung() -> dict:
     """bench.py's ``recovery_drill`` rung (``run_rung_recovery_drill``):
     ``drill_rung`` of the drill at the base pod start."""
     return drill_rung(run_recovery_drill(pod_start_latency=BASE_POD_START_LATENCY))
+
+
+def evacuation_rung(result: dict, canary: dict) -> dict:
+    """bench.py's ``region_evacuation`` rung dict, key for key, from a
+    finished evacuation and its canary (``chaos.run_region_evacuation()``
+    and ``run_region_evacuation(spill_enabled=False, smoke=True)``): each
+    band's time to reconvergence against its budget, the spills, the sealed
+    generations and the global reads.  ``ok`` holds when the run keeps the
+    contract and the canary breaks it."""
+    evac = result["evacuations"][0] if result["evacuations"] else {}
+    return {
+        "mode": "virtual",
+        "metric": "region evacuation (s, kill -> frozen demand Running on "
+        "survivors, per band)",
+        "ttc_s": evac.get("tenant_ttc_s", {}),
+        "ttc_budgets_s": result["ttc_budgets_s"],
+        "bands": {t: result["bands"][t] for t in evac.get("frozen", {})},
+        "spills_admitted": result["spills"]["admitted"],
+        "spills_denied": result["spills"]["denied"],
+        "generations": result["exchange"]["generations"],
+        "publish_failures": result["exchange"]["publish_failures"],
+        "survivor_pools_conserved": result["audits"]["alive_conserved"],
+        "bit_identical": result["global"]["bit_identical"],
+        "all_recovered": result["all_recovered"],
+        "violations": result["violations"],
+        "canary_failed": not canary["ok"],
+        "canary_violations": len(canary["violations"]),
+        "ok": result["ok"] and not canary["ok"],
+    }
+
+
+def region_evacuation_rung() -> dict:
+    """bench.py's ``region_evacuation`` rung (``run_rung_region_evacuation``):
+    ``evacuation_rung`` of the full evacuation and the smoke canary."""
+    return evacuation_rung(
+        run_region_evacuation(), run_region_evacuation(spill_enabled=False, smoke=True)
+    )
 
 
 def _scale_rung(result: dict, metric: str, floor: float) -> dict:

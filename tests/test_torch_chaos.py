@@ -2,8 +2,9 @@
 (``metrics/tsdb.py``) and the ``chaos`` and ``slo`` scenarios
 (``simulate.py``) against the JAX package's.
 
-- The registry: the fifteen ported kinds, which are JAX's less the
-  region and object-store kinds of a later slice; ``FaultSpec``'s names
+- The registry: JAX's eighteen kinds, in JAX's order; the region and
+  object-store kinds refuse a pipeline outside a region
+  (tests/test_torch_evacuate.py runs them on one); ``FaultSpec``'s names
   and refusals.
 - Each of the fifteen kinds, injected with its natural spec into equal
   pipelines (two nodes of 4 devices, 90% shared load, target 40; a WAL
@@ -84,7 +85,8 @@ JAX = dict(chaos=jax_chaos, faults=jax_faults, schedule=jax_schedule, storm=jax_
            exposition=jax_exposition, selfmetrics=jax_selfmetrics, simulate=jax_simulate,
            wal=jax_wal, checkpoint=jax_checkpoint, capacity=jax_capacity)
 
-#: the JAX kinds that come with a later slice: regions and the object store
+#: the JAX kinds of the region slice, which act on a GlobalControlPlane
+#: (tests/test_torch_evacuate.py) and so are not injected here
 LATER_KINDS = {"region_kill", "region_partition", "objstore_outage"}
 #: the kinds that break the capacity economy, run on a pipeline with one
 CAPACITY_KINDS = {"tenant_spike", "provision_fail"}
@@ -111,9 +113,9 @@ NATURAL_SPECS = {
 
 
 def test_the_registry_holds_the_ported_kinds_only():
-    assert set(faults.FAULT_KINDS) == set(NATURAL_SPECS)
-    assert set(faults.FAULT_KINDS) == set(jax_faults.FAULT_KINDS) - LATER_KINDS
-    assert list(faults.FAULT_KINDS) == [k for k in jax_faults.FAULT_KINDS if k not in LATER_KINDS]
+    assert set(faults.FAULT_KINDS) == set(NATURAL_SPECS) | LATER_KINDS
+    assert set(faults.FAULT_KINDS) == set(jax_faults.FAULT_KINDS)
+    assert list(faults.FAULT_KINDS) == list(jax_faults.FAULT_KINDS)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -136,8 +138,20 @@ def test_a_fault_spec_refuses_a_negative_time_as_jax_s(kwargs):
 
 @pytest.mark.parametrize("kind", sorted(LATER_KINDS) + ["no_such_kind"])
 def test_a_kind_of_a_later_slice_is_refused(kind):
-    with pytest.raises(ValueError, match=f"unknown fault kind '{kind}'"):
-        faults.FaultSpec(kind, at=0.0)
+    """An unknown kind is refused by ``FaultSpec``; a region kind is a
+    known kind, refused by its injector on a pipeline outside a region, in
+    JAX's words."""
+    if kind not in LATER_KINDS:
+        with pytest.raises(ValueError, match=f"unknown fault kind '{kind}'"):
+            faults.FaultSpec(kind, at=0.0)
+        return
+    pipes = [make_pipeline(mods)[1] for mods in (PORT, JAX)]
+    with pytest.raises(ValueError) as got:
+        faults.FAULT_KINDS[kind](pipes[0], faults.FaultSpec(kind, 0.0, 10.0))
+    with pytest.raises(ValueError) as want:
+        jax_faults.FAULT_KINDS[kind](pipes[1], jax_faults.FaultSpec(kind, 0.0, 10.0))
+    assert str(got.value) == str(want.value)
+    assert "pipeline is not part of a region" in str(got.value)
 
 
 # ---- each kind on equal pipelines ------------------------------------------------

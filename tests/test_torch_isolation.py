@@ -103,6 +103,10 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.control.capacity",
         "k8s_gpu_hpa_tpu_torch.control.operator",
         "k8s_gpu_hpa_tpu_torch.chaos.crunch",
+        "k8s_gpu_hpa_tpu_torch.metrics.objstore",
+        "k8s_gpu_hpa_tpu_torch.metrics.global_query",
+        "k8s_gpu_hpa_tpu_torch.control.region",
+        "k8s_gpu_hpa_tpu_torch.chaos.evacuate",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -258,11 +262,12 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
     (["simulate", "--scenario", "history", "--days", "0.125"],
      "hourly view from the rollup tiers"),
     (["simulate", "--scenario", "crunch"], "contract: all clauses hold"),
-], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch"])
+    (["simulate", "--scenario", "evacuate", "--smoke"], "contract: all clauses hold"),
+], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch", "evacuate"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
     """The storm, the SLO check, the pipeline generator, the sharded spike
-    with its plans, the flight recorder and the capacity crunch as a user
-    runs them, in a fresh interpreter: exit 0, and the import log names
+    with its plans, the flight recorder, the capacity crunch and the region
+    evacuation as a user runs them, in a fresh interpreter: exit 0, and the import log names
     neither JAX, the JAX package, PyYAML nor torch."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],

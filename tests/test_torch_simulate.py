@@ -189,13 +189,14 @@ def test_the_umbrella_offers_the_ported_commands_only(capsys):
                     "gen-pipeline", "gen-manifests"):
         assert command in text
     assert "stub-libtpu" not in text
-    # the crunch is ported (tests/test_torch_crunch.py); the region
-    # evacuation is not yet
+    # the crunch and the region evacuation are ported
+    # (tests/test_torch_{crunch,evacuate}.py); the incident drill is not yet
     with pytest.raises(SystemExit):
         main(["simulate", "--help"])
-    assert "crunch" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    assert "crunch" in text and "evacuate" in text
     with pytest.raises(SystemExit):
-        main(["simulate", "--scenario", "evacuate"])
+        main(["simulate", "--scenario", "incident"])
 
 
 def test_gen_manifests_writes_the_bundle(tmp_path, capsys):
