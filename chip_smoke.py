@@ -412,8 +412,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    until its HPA grows, answer /healthz and /readyz, and
                    serve /metrics that check_operator_metrics refuses while
                    the slice is held and passes after (OPERATOR_EXPECTED).
-                   The kernels' counts are set to 0 before it and read
-                   after: it launches none.
+                   The crunch runs under a coverage map and a profile map
+                   together, which the coverage phase holds.  The kernels'
+                   counts are set to 0 before it and read after: it
+                   launches none.
 47. evacuate     — the region evacuation, in this process on a virtual
                    clock: three regional stacks under one global control
                    plane, the home region killed through an object-store
@@ -427,6 +429,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    store's byte count is printed beside the range JAX's runs
                    gave (EVAC_JAX_BYTES).  The kernels' counts are set to 0
                    before it and read after: it launches none.
+48. coverage     — the simulator's self-observability, in this process on
+                   virtual clocks: the capacity phase's crunch maps, then
+                   simulate.run_coverage("profile") and
+                   profile_harness.run_profile("scale", smoke=True).  The
+                   crunch's coverage export and profile canonical export,
+                   the profile run's coverage export and the smoke scale
+                   run's canonical export must hash (SHA-256) to the JAX
+                   package's (COVERAGE_EXPECTED), with no open span and the
+                   scale run's attribution at least
+                   perfgates.PROFILE_MIN_ATTRIBUTION; each export's hit
+                   count and wall seconds, and the attributions, are
+                   printed.  The kernels' counts are set to 0 before it and
+                   read after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -551,6 +566,7 @@ from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
 from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm, run_region_evacuation
 from k8s_gpu_hpa_tpu_torch.chaos.evacuate import evacuation_fingerprint
 from k8s_gpu_hpa_tpu_torch.control.capacity import capacity_selfcheck
+from k8s_gpu_hpa_tpu_torch.control.profile_harness import run_profile
 from k8s_gpu_hpa_tpu_torch.control.operator import (
     KubeClient,
     LeaseElector,
@@ -565,8 +581,10 @@ from k8s_gpu_hpa_tpu_torch.doctor import (
 )
 from k8s_gpu_hpa_tpu_torch.obs import (
     SELF_METRIC_NAMES,
+    coverage,
     index_spans,
     lineage_of,
+    profile,
     propagation_report,
     read_jsonl,
 )
@@ -4566,11 +4584,13 @@ OPERATOR_EXPECTED = {
 def phase_capacity() -> dict:
     """The capacity economy and the slice-quantum operator, in this process
     on virtual clocks and 127.0.0.1 (the module docstring, phase 46, has the
-    bars)."""
+    bars).  The crunch runs under a coverage map and a profile map, which
+    the returned dict carries to phase_coverage under ``maps``."""
     matmul_kernel.launches = 0
     _zero_counts()
     t0 = time.perf_counter()
-    crunch = run_capacity_crunch()
+    with coverage.collect("crunch") as cmap, profile.collect("crunch") as pmap:
+        crunch = run_capacity_crunch()
     crunch_s = time.perf_counter() - t0
     digest = hashlib.sha256(json.dumps(crunch, sort_keys=True).encode()).hexdigest()
     events: dict[str, int] = {}
@@ -4610,6 +4630,7 @@ def phase_capacity() -> dict:
             raise AssertionError(f"the operator's {key} is {operator[key]!r}, not {want!r}")
     if any(out["kernel_launches"].values()):
         raise AssertionError(f"the capacity plane launched a kernel: {out['kernel_launches']}")
+    out["maps"] = {"coverage": cmap, "profile": pmap, "wall_s": crunch_s}
     return out
 
 
@@ -4671,6 +4692,71 @@ def phase_evacuate() -> dict:
         raise AssertionError(f"the region_evacuation rung failed: {rung}")
     if any(out["kernel_launches"].values()):
         raise AssertionError(f"the evacuation launched a kernel: {out['kernel_launches']}")
+    return out
+
+
+#: SHA-256 of each export as the JAX package gives it on a CPU: the
+#: crunch's CoverageMap.export_json() and ProfileMap.export_json() (its
+#: canonical export), run_coverage("profile")'s export as export_json()
+#: gives it, and run_profile("scale", smoke=True)'s canonical export
+COVERAGE_EXPECTED = {
+    "crunch_coverage": "d2204e144e2067d91de1f3e47a036e0019179009f274d917b88643f8f3da9065",
+    "crunch_profile": "179a4e96e5ab6a5e29f3b73f9a0b6ba4e076fab554ba1d2f2a78a9c4c0f9a2b0",
+    "profile_coverage": "92675d984010bbf244e65590aacdcc95505cfcc4708a8786e24b1c4a9a644a6f",
+    "scale_profile": "324b379db7ec181d1aabc89782fc5b384342912453081049a0894422e61f618f",
+}
+
+
+def _sha256(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def phase_coverage(maps: dict) -> dict:
+    """The simulator's self-observability, in this process on virtual
+    clocks: the crunch's two maps from phase_capacity (``maps``), the
+    ``coverage --run profile`` session and the smoke scale run profiled,
+    each export hashed against the JAX package's (COVERAGE_EXPECTED), the
+    scale run's attribution against its floor, and no kernel launched."""
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    cmap, pmap = maps["coverage"], maps["profile"]
+    crunch_timed = pmap.timed_export(maps["wall_s"])
+    out = {"phase": "coverage",
+           "crunch_coverage": {"sha256": _sha256(cmap.export_json()),
+                               "probes_hit": cmap.hit_count(), "call_s": maps["wall_s"]},
+           "crunch_profile": {"sha256": _sha256(pmap.export_json()),
+                              "paths": len(crunch_timed["paths"]),
+                              "attribution": crunch_timed["attribution"],
+                              "open_spans": pmap.open_spans(), "call_s": maps["wall_s"]}}
+    t = time.perf_counter()
+    export = simulate.run_coverage("profile")
+    out["profile_coverage"] = {
+        "sha256": _sha256(json.dumps(export, sort_keys=True, separators=(",", ":"))),
+        "probes_hit": sum(1 for rec in export["probes"].values() if rec["count"]),
+        "call_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    scale = run_profile("scale", smoke=True)[0]
+    out["scale_profile"] = {"sha256": _sha256(scale["canonical"]),
+                            "paths": len(scale["export"]["paths"]),
+                            "attribution": scale["attribution"],
+                            "attribution_floor": perfgates.PROFILE_MIN_ATTRIBUTION,
+                            "attribution_ok": scale["attribution_ok"],
+                            "open_spans": scale["open_spans"], "measured_wall_s": scale["wall_s"],
+                            "call_s": time.perf_counter() - t}
+    out["kernel_launches"] = _kernel_counts()
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for name, want in COVERAGE_EXPECTED.items():
+        if out[name]["sha256"] != want:
+            raise AssertionError(f"the {name} export differs from the JAX package's: {out[name]}")
+    for name in ("crunch_profile", "scale_profile"):
+        if out[name]["open_spans"]:
+            raise AssertionError(f"the {name} run left spans open: {out[name]['open_spans']}")
+    if not scale["attribution_ok"] or scale["attribution"] < perfgates.PROFILE_MIN_ATTRIBUTION:
+        raise AssertionError(f"the scale run's attribution is under its floor: {out['scale_profile']}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the coverage phase launched a kernel: {out['kernel_launches']}")
     return out
 
 
@@ -4792,8 +4878,9 @@ def main() -> int:
     phase_drill()
     phase_metrics_scale()
     phase_rollups()
-    phase_capacity()
+    capacity = phase_capacity()
     phase_evacuate()
+    phase_coverage(capacity["maps"])
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

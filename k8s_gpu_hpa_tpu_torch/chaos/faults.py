@@ -42,8 +42,8 @@ adapter slot (``adapter_blackout``) down until their last window closes.
 The three fleet kinds act through the pipeline's region and its
 ``GlobalControlPlane`` (``pipeline.region.plane``), and raise ValueError,
 in the JAX package's words, on a pipeline that is not part of one.
-``inject_fault`` records no coverage probe: the coverage plane is not
-ported.
+``inject_fault`` records the kind's ``fault_kind:*`` coverage probe
+(obs/coverage.py) before it dispatches.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.tsdb import (
     StructuredExposition,
     TimedExposition,
 )
+from k8s_gpu_hpa_tpu_torch.obs import coverage
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from k8s_gpu_hpa_tpu_torch.control.loop import AutoscalingPipeline
@@ -514,5 +515,8 @@ FAULT_KINDS: dict[str, Callable[["AutoscalingPipeline", FaultSpec], ClearFn]] = 
 
 def inject_fault(pipeline: "AutoscalingPipeline", spec: FaultSpec) -> ClearFn:
     """The injection entry point (``ChaosSchedule`` calls this, not the
-    table)."""
+    table): records the kind's coverage probe, then dispatches.  The
+    ``fault_kind`` probes are one per key of FAULT_KINDS, which
+    ``obs.coverage.FAULT_PROBE_KINDS`` mirrors."""
+    coverage.hit_dynamic("fault_kind", spec.kind)
     return FAULT_KINDS[spec.kind](pipeline, spec)

@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 
 from k8s_gpu_hpa_tpu_torch.metrics.rules import Select
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs import profile
 
 
 @dataclass(frozen=True)
@@ -101,15 +102,16 @@ class CustomMetricsAdapter:
     def _vector(self, series: str, matchers: dict[str, str] | None = None):
         """One instant read: planned when a planner is wired, else the
         plain ``instant_vector`` (the same vector either way)."""
-        if self.planner is None:
-            return self.db.instant_vector(series, matchers)
-        key = (series, tuple(sorted((matchers or {}).items())))
-        plan = self._plan_cache.get(key)
-        if plan is None:
-            plan = self._plan_cache[key] = self.planner.plan(
-                Select(series, dict(matchers or {}))
-            )
-        return plan.evaluate(self.db)
+        with profile.stage("adapter:query"):
+            if self.planner is None:
+                return self.db.instant_vector(series, matchers)
+            key = (series, tuple(sorted((matchers or {}).items())))
+            plan = self._plan_cache.get(key)
+            if plan is None:
+                plan = self._plan_cache[key] = self.planner.plan(
+                    Select(series, dict(matchers or {}))
+                )
+            return plan.evaluate(self.db)
 
     def invalidate_plans(self) -> None:
         """Forget the cached plans, so the next read of each query plans it

@@ -32,8 +32,8 @@ priority and quota and the Kubernetes scheduler's preemption:
 
 Nothing here advances the clock: the scheduler reacts to callbacks
 (``SimCluster._try_start``'s retries) and schedules later work with
-``clock.call_later``.  The JAX module's coverage and profile probes are not
-ported.
+``clock.call_later``.  Each branch is a ``scheduler_branch:*`` coverage
+probe and each placement a ``capacity:try_place`` profile stage (obs/).
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from dataclasses import dataclass, field
 from k8s_gpu_hpa_tpu_torch.control.cluster import SimCluster, SimNode, SimPod
 from k8s_gpu_hpa_tpu_torch.metrics.exposition import encode_text
 from k8s_gpu_hpa_tpu_torch.metrics.schema import MetricFamily
+from k8s_gpu_hpa_tpu_torch.obs import coverage, profile
 
 # ---- the pool's own metric names (the dashboard's and manifests' contract) --
 
@@ -251,6 +252,7 @@ class ClusterAutoscaler:
             return
         self.in_flight = True
         will_fail = self.failing
+        coverage.hit("scheduler_branch:provision_requested")
         self._event(
             "provision_requested",
             f"{self.node_chips}-chip node, "
@@ -274,6 +276,7 @@ class ClusterAutoscaler:
             self.backoff_base_s * 2.0 ** (self.consecutive_failures - 1),
         )
         self.backoff_until = self.cluster.clock.now() + delay
+        coverage.hit("scheduler_branch:provision_backoff")
         self._event(
             "provision_failed",
             f"failure #{self.consecutive_failures}, backing off {delay:.0f}s",
@@ -287,6 +290,7 @@ class ClusterAutoscaler:
         self.cluster.add_node(name, self.node_chips)
         self.provisioned.append(name)
         self.provisions_total += 1
+        coverage.hit("scheduler_branch:provision_done")
         self._event("provisioned", f"node {name} ({self.node_chips} chips)")
 
     def reap_idle(self, idle_s: float = 120.0) -> list[str]:
@@ -310,6 +314,7 @@ class ClusterAutoscaler:
                 self.provisioned.remove(name)
                 self._empty_since.pop(name, None)
                 reaped.append(name)
+                coverage.hit("scheduler_branch:node_reaped")
                 self._event("node_reaped", f"node {name} idle {idle_s:.0f}s")
         return reaped
 
@@ -451,28 +456,29 @@ class CapacityScheduler:
     def try_place(self, pod: SimPod) -> bool:
         """One placement attempt (``_try_start``'s hook): True if the pod
         bound to a node; on False it stays Pending for the cluster's retry."""
-        nodes = self._schedulable_nodes()
-        budget = {n.name: len(n.free_chips()) for n in nodes}
-        for other in self._pending_order():
-            if other.name == pod.name:
-                for node in nodes:
-                    if budget[node.name] >= pod.chips_requested and (
-                        self.cluster.bind_pod(pod, node)
-                    ):
-                        self._record_admission(pod)
-                        return True
-                break
-            for name in budget:
-                if budget[name] >= other.chips_requested:
-                    budget[name] -= other.chips_requested
+        with profile.stage("capacity:try_place"):
+            nodes = self._schedulable_nodes()
+            budget = {n.name: len(n.free_chips()) for n in nodes}
+            for other in self._pending_order():
+                if other.name == pod.name:
+                    for node in nodes:
+                        if budget[node.name] >= pod.chips_requested and (
+                            self.cluster.bind_pod(pod, node)
+                        ):
+                            self._record_admission(pod)
+                            return True
                     break
-        self._note_pending(pod)
-        if self._fair_share_gate(pod):
+                for name in budget:
+                    if budget[name] >= other.chips_requested:
+                        budget[name] -= other.chips_requested
+                        break
+            self._note_pending(pod)
+            if self._fair_share_gate(pod):
+                return False
+            self._maybe_preempt(pod)
+            if self.autoscaler is not None:
+                self.autoscaler.request()
             return False
-        self._maybe_preempt(pod)
-        if self.autoscaler is not None:
-            self.autoscaler.request()
-        return False
 
     def _note_pending(self, pod: SimPod) -> None:
         if pod.name in self.pending_since:
@@ -496,7 +502,12 @@ class CapacityScheduler:
         self.admission_waits.setdefault(tenant, []).append(wait)
         if self.fair_share_limited.get(tenant):
             self.fair_share_limited[tenant] = False
-        event = "readmitted" if pod.name in self._preempted_pods else "admitted"
+        if pod.name in self._preempted_pods:
+            event = "readmitted"
+            coverage.hit("scheduler_branch:readmitted")
+        else:
+            event = "admitted"
+            coverage.hit("scheduler_branch:admitted")
         self.record_event(tenant, pod.name, event, f"node {pod.node}, waited {wait:.1f}s")
 
     def _fair_share_gate(self, pod: SimPod) -> bool:
@@ -518,6 +529,8 @@ class CapacityScheduler:
                 ):
                     limited = True
                     break
+        if limited:
+            coverage.hit("scheduler_branch:fair_share_gate")
         if limited and not self.fair_share_limited.get(tenant):
             self.record_event(
                 tenant,
@@ -592,6 +605,7 @@ class CapacityScheduler:
         self.preemptions_total += 1
         self.evictions_for[beneficiary] = self.evictions_for.get(beneficiary, 0) + 1
         self._preempted_pods.add(victim.name)
+        coverage.hit("scheduler_branch:preemption_eviction")
         self.record_event(
             tenant,
             victim.name,
@@ -614,6 +628,7 @@ class CapacityScheduler:
         victim.node = None
         victim.chip_ids = []
         victim.phase = "Pending"
+        coverage.hit("scheduler_branch:eviction_requeued")
         self.record_event(victim.deployment, victim.name, "evicted", "grace elapsed, re-queued")
         self._note_pending(victim)
         self.cluster._try_start(victim)

@@ -51,6 +51,7 @@ from typing import Callable, Protocol
 
 from k8s_gpu_hpa_tpu_torch.control.adapter import CustomMetricsAdapter, ObjectReference
 from k8s_gpu_hpa_tpu_torch.control.checkpoint import CHECKPOINT_VERSION
+from k8s_gpu_hpa_tpu_torch.obs import coverage, profile
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock
 from k8s_gpu_hpa_tpu_torch.utils.quantity import parse_quantity
 
@@ -546,6 +547,7 @@ class HPAController:
             (float(ts), type_, bool(st), reason)
             for ts, type_, st, reason in state.get("condition_history", [])
         ]
+        coverage.hit("hpa_condition:checkpoint_restored")
         return True
 
     def _set_condition(self, type_: str, status: bool, reason: str, message: str = "") -> None:
@@ -703,6 +705,10 @@ class HPAController:
         span that links the adapter_query spans it issued (a tracer scope)
         and, when replicas change, is followed by a ``scale_event`` span, the
         start of every lineage walk."""
+        with profile.stage("hpa:sync"):
+            return self._sync_once_impl()
+
+    def _sync_once_impl(self) -> HPAStatus:
         if self.tracer is None and self.selfmetrics is None:
             status = self._sync_inner()
             self._save_checkpoint()
@@ -767,6 +773,8 @@ class HPAController:
             return
         probe = self.capacity_probe()
         pending = int(probe.get("pending_pods", 0))
+        if pending > 0:
+            coverage.hit("hpa_condition:unschedulable")
         self._set_condition(
             "Unschedulable",
             pending > 0,
@@ -775,6 +783,8 @@ class HPAController:
             if pending > 0 else "every pod of the target is scheduled",
         )
         evicting = int(probe.get("evictions_in_flight", 0))
+        if evicting > 0:
+            coverage.hit("hpa_condition:preempting")
         self._set_condition(
             "Preempting",
             evicting > 0,
@@ -783,6 +793,8 @@ class HPAController:
             if evicting > 0 else "no evictions running on the target's behalf",
         )
         limited = bool(probe.get("fair_share_limited", False))
+        if limited:
+            coverage.hit("hpa_condition:fair_share_limited")
         self._set_condition(
             "FairShareLimited",
             limited,
@@ -804,6 +816,7 @@ class HPAController:
         valid = [p for p in proposals if p is not None]
         if not valid:
             # All metrics unavailable: hold (K8s skips scaling on total failure).
+            coverage.hit("hpa_condition:sync_metrics_unavailable")
             self.status.last_reason = "metrics unavailable; holding"
             self.status.desired_replicas = current
             self._set_condition(
@@ -822,14 +835,17 @@ class HPAController:
         desired = self._stabilized(recommendation)
 
         if desired > current:
+            coverage.hit("hpa_condition:sync_scale_up")
             limit = self._policy_limit(self.behavior.scale_up, current, up=True)
             desired = min(desired, max(limit, current))
             reason = f"scale up {current}->{desired} (policy limit {limit})"
         elif desired < current:
+            coverage.hit("hpa_condition:sync_scale_down")
             limit = self._policy_limit(self.behavior.scale_down, current, up=False)
             desired = max(desired, min(limit, current))
             reason = f"scale down {current}->{desired} (policy limit {limit})"
         else:
+            coverage.hit("hpa_condition:sync_within_tolerance")
             reason = "within tolerance / stabilized"
 
         desired = min(max(desired, self.min_replicas), self.max_replicas)
@@ -845,6 +861,7 @@ class HPAController:
             # them inward (the constructor guarantees max_replicas >= q).
             max_q = self.max_replicas // q * q
             min_q = min(math.ceil(self.min_replicas / q) * q, max_q)
+            coverage.hit("hpa_condition:quantum_round")
             if desired > current:
                 desired = min(math.ceil(desired / q) * q, max_q)
             elif desired < current:
@@ -854,6 +871,7 @@ class HPAController:
                 # hand, or a misaligned target adopted): release the
                 # stranded hosts, which serve nothing anyway
                 desired = max(desired // q * q, min_q)
+                coverage.hit("hpa_condition:repair_partial_slice")
                 reason = f"repair partial slice {current}->{desired}"
         if self._proposal_notes:
             reason += " [" + "; ".join(self._proposal_notes) + "]"

@@ -85,6 +85,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import Scraper, TimeSeriesDB
 from k8s_gpu_hpa_tpu_torch.metrics.wal import WriteAheadLog
+from k8s_gpu_hpa_tpu_torch.obs import coverage
 from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import SELF_TARGET_NAME, PipelineSelfMetrics
 from k8s_gpu_hpa_tpu_torch.obs.slo import shipped_slo_alerts, shipped_slo_recorders
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
@@ -144,6 +145,10 @@ class AutoscalingPipeline:
         self.deployment = deployment
         self.intervals = intervals or PipelineIntervals()
         clock: VirtualClock = cluster.clock
+        # a run collecting coverage (obs/coverage.py) takes its first-hit
+        # times and spans from this pipeline's clock and tracer; with no
+        # active map this does nothing
+        coverage.bind_active(clock, tracer)
         #: the CapacityScheduler and its PoolMetricsExporter with
         #: ``capacity``, else None; installed before any pod schedules, so
         #: even the first reconcile is arbitrated
@@ -519,6 +524,7 @@ class AutoscalingPipeline:
     def _log_restart(self, component: str, info: dict) -> dict:
         entry = {"component": component, "at": self._clock.now(), **info}
         self.restart_log.append(entry)
+        coverage.hit("recovery_path:pipeline_component_restarted")
         if self.tracer is not None:
             attrs = {"component": component}
             for key in (

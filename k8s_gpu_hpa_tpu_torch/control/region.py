@@ -42,9 +42,9 @@ An evacuation (one a ``region_kill``):
     DEAD --recover--> ALIVE (nodes restored)
       ALIVE + home converged again --schedule tick--> mirrors drained to 0
 
-The JAX module's coverage probes (``region:evacuation_started``,
-``spill_admitted``, ``spill_denied`` and ``evacuation_completed``) are not
-ported.
+The lifecycle's joints are ``region:*`` coverage probes
+(``evacuation_started``, ``spill_admitted``, ``spill_denied`` and
+``evacuation_completed``; obs/coverage.py).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.global_query import (
     publish_snapshot,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.objstore import ObjectStoreUnavailable, SimObjectStore
+from k8s_gpu_hpa_tpu_torch.obs import coverage
 
 #: mirror deployments are ``<tenant>-evac`` in every region but the home
 MIRROR_SUFFIX = "-evac"
@@ -379,6 +380,7 @@ class GlobalControlPlane:
         region.cluster.on_node_added.append(dead_node_hook)
         for node in list(region.cluster.nodes):
             region.cluster.preempt_node(node)
+        coverage.hit("region:evacuation_started")
         self._event("region_kill", name, f"frozen demand {frozen}")
 
     def recover_region(self, name: str) -> None:
@@ -470,6 +472,7 @@ class GlobalControlPlane:
     def _place_spill(self, tenant: str, home: Region, deficit: int, cause: str, now: float) -> None:
         if not self.spill_enabled:
             self.spills_denied += 1
+            coverage.hit("region:spill_denied")
             self.decision_log.append({
                 "t": now, "tenant": tenant, "from": home.name, "to": None,
                 "replicas": deficit, "cause": cause, "denied": "spill_disabled",
@@ -491,6 +494,7 @@ class GlobalControlPlane:
             dep.scale_to(dep.replicas + admit)
             deficit -= admit
             self.spills_admitted += 1
+            coverage.hit("region:spill_admitted")
             self.decision_log.append({
                 "t": now, "tenant": tenant, "from": home.name, "to": region.name,
                 "replicas": admit, "cause": cause,
@@ -498,6 +502,7 @@ class GlobalControlPlane:
             })
         if deficit > 0:
             self.spills_denied += 1
+            coverage.hit("region:spill_denied")
             self.decision_log.append({
                 "t": now, "tenant": tenant, "from": home.name, "to": None,
                 "replicas": deficit, "cause": cause, "denied": "no_capacity",
@@ -534,6 +539,7 @@ class GlobalControlPlane:
                     evac["tenant_ttc_s"][tenant] = round(now - evac["killed_at"], 1)
             if len(evac["tenant_ttc_s"]) == len(evac["frozen"]):
                 evac["completed_at"] = now
+                coverage.hit("region:evacuation_completed")
                 self._event("evacuation_complete", evac["region"], f"ttc {evac['tenant_ttc_s']}")
 
     # ---- health + introspection --------------------------------------------

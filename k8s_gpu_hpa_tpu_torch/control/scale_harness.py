@@ -54,7 +54,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
 from k8s_gpu_hpa_tpu_torch.metrics.schema import MetricFamily
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
 from k8s_gpu_hpa_tpu_torch.metrics.wal import WriteAheadLog
-from k8s_gpu_hpa_tpu_torch.obs import Tracer, index_spans, lineage_of
+from k8s_gpu_hpa_tpu_torch.obs import Tracer, index_spans, lineage_of, profile
 from k8s_gpu_hpa_tpu_torch.perfgates import UNCOMPRESSED_BYTES_PER_SAMPLE
 from k8s_gpu_hpa_tpu_torch.utils.clock import VirtualClock
 
@@ -227,39 +227,40 @@ def run_fleet_scale(
             step = min(sample_every, horizon_s - elapsed)
             clock.advance(step)
             elapsed += step
-            peak_points = max(peak_points, db.total_points())
-            peak_bytes = max(peak_bytes, db.retained_bytes())
-            if shards:
-                # the steady-state query shapes of the sharded plane:
-                # each shard's local fleet scan (what its recording
-                # rules run over, ~targets/shards series apiece) and
-                # the adapter's federated single-series read
-                for shard_db in pipe.shard_plane.shard_dbs:
+            with profile.stage("harness:observe"):
+                peak_points = max(peak_points, db.total_points())
+                peak_bytes = max(peak_bytes, db.retained_bytes())
+                if shards:
+                    # the steady-state query shapes of the sharded plane:
+                    # each shard's local fleet scan (what its recording
+                    # rules run over, ~targets/shards series apiece) and
+                    # the adapter's federated single-series read
+                    for shard_db in pipe.shard_plane.shard_dbs:
+                        q0 = time.perf_counter()
+                        shard_db.instant_vector(
+                            "fleet_duty_cycle", {"job": "fleet"}
+                        )
+                        query_times_ms.append((time.perf_counter() - q0) * 1e3)
                     q0 = time.perf_counter()
-                    shard_db.instant_vector(
-                        "fleet_duty_cycle", {"job": "fleet"}
-                    )
+                    db.latest("fleet_duty_cycle_avg", {"deployment": "fleet"})
                     query_times_ms.append((time.perf_counter() - q0) * 1e3)
-                q0 = time.perf_counter()
-                db.latest("fleet_duty_cycle_avg", {"deployment": "fleet"})
-                query_times_ms.append((time.perf_counter() - q0) * 1e3)
-                # the full cross-shard union scan — not on any
-                # steady-state path (rules read pre-reductions),
-                # reported ungated
-                q0 = time.perf_counter()
-                vec = db.instant_vector("fleet_duty_cycle", {"job": "fleet"})
-                fed_times_ms.append((time.perf_counter() - q0) * 1e3)
-            else:
-                # the two query shapes the plane serves: a matcher scan
-                # over the whole fleet (index path) and the adapter's
-                # single-series read (last-point fast path)
-                q0 = time.perf_counter()
-                vec = db.instant_vector("fleet_duty_cycle", {"job": "fleet"})
-                q1 = time.perf_counter()
-                db.latest("fleet_duty_cycle_avg", {"deployment": "fleet"})
-                q2 = time.perf_counter()
-                query_times_ms.append((q1 - q0) * 1e3)
-                query_times_ms.append((q2 - q1) * 1e3)
+                    # the full cross-shard union scan — not on any
+                    # steady-state path (rules read pre-reductions),
+                    # reported ungated
+                    q0 = time.perf_counter()
+                    vec = db.instant_vector("fleet_duty_cycle", {"job": "fleet"})
+                    fed_times_ms.append((time.perf_counter() - q0) * 1e3)
+                else:
+                    # the two query shapes the plane serves: a matcher scan
+                    # over the whole fleet (index path) and the adapter's
+                    # single-series read (last-point fast path)
+                    q0 = time.perf_counter()
+                    vec = db.instant_vector("fleet_duty_cycle", {"job": "fleet"})
+                    q1 = time.perf_counter()
+                    db.latest("fleet_duty_cycle_avg", {"deployment": "fleet"})
+                    q2 = time.perf_counter()
+                    query_times_ms.append((q1 - q0) * 1e3)
+                    query_times_ms.append((q2 - q1) * 1e3)
         wall = time.perf_counter() - wall_start
     finally:
         if gc_was_enabled:

@@ -1,8 +1,8 @@
 """Downsampled rollup tiers: long-horizon retention over the columnar TSDB.
 
-Counterpart of ``k8s_gpu_hpa_tpu/metrics/downsample.py``, whole but for its
-profiling stage around ``Downsampler.ingest_chunk`` (the port has no
-``obs.profile`` yet).  Rollup chunks are the port's own ``GorillaEncoder``
+Counterpart of ``k8s_gpu_hpa_tpu/metrics/downsample.py``, whole, with its
+``downsample:compact`` profile stage around ``Downsampler.ingest_chunk``
+(obs/profile.py).  Rollup chunks are the port's own ``GorillaEncoder``
 columns, byte for byte JAX's, and every fold is JAX's float for float.
 
 Raw Gorilla chunks answer every query the live control loop asks, but they
@@ -47,6 +47,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.gorilla import (
     decode as gorilla_decode,
     summarize_values,
 )
+from k8s_gpu_hpa_tpu_torch.obs import profile
 
 #: rollup row columns, in storage order (``RollupChunk.val_blobs`` /
 #: ``_TierState.encs`` are parallel to this)
@@ -336,6 +337,10 @@ class Downsampler:
         """Feed one sealed raw chunk's points into every tier accumulator.
         Decodes directly (aged chunks are cold; caching them would evict
         hot query decodes for data read exactly once)."""
+        with profile.stage("downsample:compact"):
+            self._ingest_chunk(roll, chunk)
+
+    def _ingest_chunk(self, roll: SeriesRollups, chunk) -> None:
         ts_arr, val_arr = chunk.arrays()
         ts_list = ts_arr.tolist()
         val_list = val_arr.tolist()

@@ -5,7 +5,9 @@ Counterpart of ``k8s_gpu_hpa_tpu/metrics/federation.py``.
 the TSDB's defaults but for ``downsample`` (no ``lookback``, ``retention``,
 ``chunk_size`` or ``ring`` knob), and the shards' rules run
 one shard after another, without JAX's thread-pool fan-out
-(``parallel_rules``); the recorded values are the same either way.
+(``parallel_rules``); the recorded values are the same either way.  So
+JAX's two ``concurrency:shard_rules_*`` coverage probes, which mark that
+fan-out and its serial fallback, have no call site here yet.
 
 One scraper over one TSDB tops out well before 10,000 targets: every sweep
 walks the whole fleet and every fleet-wide query scans every series.  This

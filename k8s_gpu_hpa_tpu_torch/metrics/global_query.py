@@ -28,9 +28,9 @@ Payloads are cached per region, keyed by sealed generation, and
 :meth:`GlobalQueryLayer.invalidate` drops one region's entry: a
 ``tsdb_restart`` in region A never evicts region B's cached view.
 
-The JAX module's coverage probes (``region:global_merge_fallback``,
-``objstore_hit``, ``objstore_miss``, ``objstore_outage`` and
-``global_merge_sealed``) are not ported.
+The exchange's joints are ``region:*`` coverage probes
+(``global_merge_fallback``, ``objstore_hit``, ``objstore_miss``,
+``objstore_outage`` and ``global_merge_sealed``; obs/coverage.py).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import zlib
 
 from k8s_gpu_hpa_tpu_torch.metrics.objstore import ObjectStoreUnavailable, SimObjectStore
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs import coverage
 
 #: the exchange's artifact format: the TSDB snapshot format (read by
 #: ``TimeSeriesDB.recover``, so older payloads restore too)
@@ -98,8 +99,12 @@ def read_latest_sealed(store: SimObjectStore, region: str) -> tuple[int, dict] |
         except ObjectStoreUnavailable:
             raise
         except (KeyError, ValueError, TypeError, UnicodeDecodeError):
-            continue  # a torn seal, a torn blob, or a blob its seal disowns
+            # a torn seal, a torn blob, or a blob its seal disowns
+            coverage.hit("region:global_merge_fallback")
+            continue
+        coverage.hit("region:objstore_hit")
         return generation, payload
+    coverage.hit("region:objstore_miss")
     return None
 
 
@@ -260,6 +265,7 @@ class GlobalQueryLayer:
             try:
                 latest = read_latest_sealed(self.store, region)
             except ObjectStoreUnavailable:
+                coverage.hit("region:objstore_outage")
                 self.outages_seen += 1
                 self.stale_serves += 1
                 stale = True
@@ -285,6 +291,7 @@ class GlobalQueryLayer:
                 {region: payload for region, (_, payload) in self._payloads.items()}
             )
             self._merged = (key, restore_payload(merged_payload, self.clock))
+            coverage.hit("region:global_merge_sealed")
         return self._merged[1]
 
     # -- reads through the merged DB's query engine ---------------------------

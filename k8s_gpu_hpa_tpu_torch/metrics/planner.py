@@ -1,7 +1,8 @@
 """Query planner: physical execution plans over the columnar TSDB.
 
-Counterpart of ``k8s_gpu_hpa_tpu/metrics/planner.py``, less its coverage
-probes and profiling stage.
+Counterpart of ``k8s_gpu_hpa_tpu/metrics/planner.py``.  Each joint below
+is a ``planner_path:*`` coverage probe and each ``plan`` call a
+``planner:plan`` profile stage (obs/).
 
 ``Expr.evaluate`` is the logical definition of every rule: correct, and
 slow at fleet scale, since each evaluation re-resolves the matcher's series
@@ -61,6 +62,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.rules import (
     Select,
     Vector,
 )
+from k8s_gpu_hpa_tpu_torch.obs import coverage, profile
 
 
 @dataclass
@@ -126,8 +128,10 @@ class PlannedSelect(Select):
                 entry[1] = member.series_for(name, matchers)
                 entry[2] = gen
                 stats.series_resolves += 1
+                coverage.hit("planner_path:series_resolve")
             else:
                 stats.series_cache_hits += 1
+                coverage.hit("planner_path:series_cache_hit")
             if entry[1]:
                 out.extend(member.latest_of(name, entry[1], at))
         return out
@@ -160,9 +164,11 @@ class _PlannedAvgOverTime(AvgOverTime):
                     self.name, self.matchers, window, at_v, step, stats=stats
                 )
                 if vec is not None:
+                    coverage.hit("planner_path:rollup_tier_read")
                     return vec
             if eligible:
                 stats.rollup_fallbacks += 1
+                coverage.hit("planner_path:rollup_fallback_raw")
             at = at_v
         return db.range_avg(
             self.name,
@@ -185,6 +191,7 @@ class _PlannedHistogramQuantile(HistogramQuantile):
         )
 
     def evaluate(self, db, at: float | None = None) -> Vector:
+        coverage.hit("planner_path:histogram_quantile")
         return self._group(self._bucket.evaluate(db, at))
 
 
@@ -209,6 +216,7 @@ class _PlannedBurnRate(BurnRate):
         )
 
     def _sum_at(self, db, name, matchers, at):
+        coverage.hit("planner_path:burn_rate")
         sel = (
             self._good
             if name == self.good_name and matchers == self.good_matchers
@@ -237,13 +245,16 @@ class QueryPlanner:
         self._plans: dict[int, tuple[Expr, Expr]] = {}
 
     def plan(self, expr: Expr) -> Expr:
-        cached = self._plans.get(id(expr))
-        if cached is not None and cached[0] is expr:
-            return cached[1]
-        plan = self._rewrite(expr)
-        self._plans[id(expr)] = (expr, plan)
-        self.stats.plans_built += 1
-        return plan
+        with profile.stage("planner:plan"):
+            cached = self._plans.get(id(expr))
+            if cached is not None and cached[0] is expr:
+                coverage.hit("planner_path:plan_cache_hit")
+                return cached[1]
+            plan = self._rewrite(expr)
+            self._plans[id(expr)] = (expr, plan)
+            self.stats.plans_built += 1
+            coverage.hit("planner_path:plan_built")
+            return plan
 
     def invalidate(self) -> None:
         self._plans.clear()

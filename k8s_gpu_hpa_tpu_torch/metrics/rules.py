@@ -55,6 +55,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.schema import (
     Sample,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs import coverage, profile
 
 Vector = list[Sample]
 
@@ -544,16 +545,20 @@ class AlertRule:
         ``expr``) runs in the expression's place."""
         now = db.clock.now() if at is None else at
         if not (self.expr if plan is None else plan).evaluate(db, at):
+            if self.firing:
+                coverage.hit("alert_state:resolved")
             self._pending_since = None
             self.firing = False
             self.firing_since = None
             return False
         if self._pending_since is None:
             self._pending_since = now
+            coverage.hit("alert_state:pending")
         was_firing = self.firing
         self.firing = now - self._pending_since >= self.for_seconds
         if self.firing and not was_firing:
             self.firing_since = now
+            coverage.hit("alert_state:firing")
         return self.firing
 
 
@@ -729,17 +734,28 @@ class RuleEvaluator:
         return self.planner.plan(expr)
 
     def evaluate_once(self) -> int:
+        with profile.stage("rules:eval"):
+            return self._evaluate_once()
+
+    def _evaluate_once(self) -> int:
         count = 0
         for rule in self.rules:
+            # planned outside the rule's own stage, as the JAX package
+            # brackets it: ``planner:plan`` sits directly under ``rules:eval``
             plan = self._plan_for(rule)
             if plan is None:
-                count += rule.evaluate_into(
-                    self.db, tracer=self.tracer, selfmetrics=self.selfmetrics
-                )
+                with profile.stage("rules:eval_fallback"):
+                    count += rule.evaluate_into(
+                        self.db, tracer=self.tracer, selfmetrics=self.selfmetrics
+                    )
             else:
-                count += rule.evaluate_into(
-                    self.db, tracer=self.tracer, selfmetrics=self.selfmetrics, plan=plan
-                )
+                with profile.stage("rules:eval_planned"):
+                    count += rule.evaluate_into(
+                        self.db,
+                        tracer=self.tracer,
+                        selfmetrics=self.selfmetrics,
+                        plan=plan,
+                    )
         for alert in self.alerts:
             alert.evaluate(self.db, plan=self._plan_for(alert))
         return count

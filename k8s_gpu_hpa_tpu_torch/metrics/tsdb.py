@@ -45,8 +45,9 @@ logs every accepted append (markers and exemplars too) before the call
 returns and cuts a snapshot every ``snapshot_every`` logged records;
 ``TimeSeriesDB.recover`` rebuilds the store from the snapshot and a replay
 of the tail.  The snapshot is JAX's format 3, the Gorilla blobs verbatim;
-``recover`` reads formats 1, 2 and 3.  The JAX package's profiling stages
-are not ported.
+``recover`` reads formats 1, 2 and 3.  Each sweep is a ``scrape:sweep``
+profile stage and each healthy target's ingest a ``tsdb:append`` one
+(obs/profile.py).
 
 Long-horizon rollups: constructed with a
 :class:`~k8s_gpu_hpa_tpu_torch.metrics.downsample.DownsamplePolicy`, sealed
@@ -93,6 +94,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.gorilla import (
     decode as gorilla_decode,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.schema import Exemplar, MetricFamily, Sample
+from k8s_gpu_hpa_tpu_torch.obs import profile
 from k8s_gpu_hpa_tpu_torch.utils.clock import Clock, SystemClock
 
 LabelSet = tuple[tuple[str, str], ...]
@@ -1427,6 +1429,10 @@ class Scraper:
         series go stale at the next scrape, they don't linger for the lookback
         window), an ``up`` sample of 0, and an exponential backoff before the
         next attempt.  Returns number of samples ingested."""
+        with profile.stage("scrape:sweep"):
+            return self._scrape_once()
+
+    def _scrape_once(self) -> int:
         count = 0
         # per-sweep invariants, hoisted: a 1000-target fleet pays every
         # per-target attribute chase 1000 times per tick (the clock cannot
@@ -1496,46 +1502,47 @@ class Scraper:
             target.healthy = True
             target.consecutive_failures = 0
             target.next_attempt_at = -math.inf
-            produced: set[tuple[str, LabelSet]] = set()
-            attached = target.attached_labels
-            merge_cache = target.merge_cache
-            for fam in families:
-                fam_name = fam.name
-                for sample in fam.samples:
-                    if attached:
-                        key = merge_cache.get(sample.labels)
-                        if key is None:
-                            merged = dict(sample.labels)
-                            merged.update(attached)
-                            key = tuple(sorted(merged.items()))
-                            merge_cache[sample.labels] = key
-                    else:
-                        # parse_text and Sample.make both emit sorted
-                        # label tuples, so the sample's labels ARE the
-                        # series key
-                        key = sample.labels
-                    # histogram samples carry a suffix: the TSDB series
-                    # is the full wire name (x_bucket/x_sum/x_count)
-                    series_name = (
-                        fam_name + sample.suffix
-                        if sample.suffix
-                        else fam_name
-                    )
-                    db_append(
-                        series_name,
-                        key,
-                        sample.value,
-                        ts,
-                        origin=origin,
-                        exemplar=sample.exemplar,
-                    )
-                    produced.add((series_name, key))
-                    count += 1
-            # series that vanished from the exposition also go stale
-            for name, labels in target.last_series - produced:
-                self.db.mark_stale(name, labels, ts, origin=origin)
-            target.last_series = produced
-            self._record_up(target, 1.0, ts)
+            with profile.stage("tsdb:append"):
+                produced: set[tuple[str, LabelSet]] = set()
+                attached = target.attached_labels
+                merge_cache = target.merge_cache
+                for fam in families:
+                    fam_name = fam.name
+                    for sample in fam.samples:
+                        if attached:
+                            key = merge_cache.get(sample.labels)
+                            if key is None:
+                                merged = dict(sample.labels)
+                                merged.update(attached)
+                                key = tuple(sorted(merged.items()))
+                                merge_cache[sample.labels] = key
+                        else:
+                            # parse_text and Sample.make both emit sorted
+                            # label tuples, so the sample's labels ARE the
+                            # series key
+                            key = sample.labels
+                        # histogram samples carry a suffix: the TSDB series
+                        # is the full wire name (x_bucket/x_sum/x_count)
+                        series_name = (
+                            fam_name + sample.suffix
+                            if sample.suffix
+                            else fam_name
+                        )
+                        db_append(
+                            series_name,
+                            key,
+                            sample.value,
+                            ts,
+                            origin=origin,
+                            exemplar=sample.exemplar,
+                        )
+                        produced.add((series_name, key))
+                        count += 1
+                # series that vanished from the exposition also go stale
+                for name, labels in target.last_series - produced:
+                    self.db.mark_stale(name, labels, ts, origin=origin)
+                target.last_series = produced
+                self._record_up(target, 1.0, ts)
             if selfmetrics is not None:
                 self._observe_scrape(target, wall_start, duration, origin)
             if span is not None:

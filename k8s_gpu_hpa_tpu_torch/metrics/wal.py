@@ -23,8 +23,9 @@ directory:
 The store round-trips whatever payload the TSDB hands it; the payload's
 ``format`` is read in one place, ``TimeSeriesDB.recover``.  The files are
 the JAX package's, byte for byte where the records are the same, so a
-directory either package wrote recovers in the other.  The JAX package's
-coverage probes and profile stages are not ported.
+directory either package wrote recovers in the other.  Each record's write
+is a ``wal:flush`` profile stage, and the rotation, snapshot, truncation
+and replay branches are ``recovery_path:*`` coverage probes (obs/).
 
 Recovery reads the snapshot and then the tail segments in order.  An
 undecodable line is tolerated only where a kill can leave one, as the last
@@ -38,6 +39,8 @@ import json
 import os
 import re
 from pathlib import Path
+
+from k8s_gpu_hpa_tpu_torch.obs import coverage, profile
 
 _SEGMENT_RE = re.compile(r"^wal-(\d{8})\.jsonl$")
 SNAPSHOT_NAME = "snapshot.json"
@@ -105,18 +108,20 @@ class WriteAheadLog:
         self._write_line(json.dumps(rec, separators=(",", ":")))
 
     def _write_line(self, line: str) -> None:
-        if self._fh is None or self._seg_records >= self.segment_max_records:
-            self._rotate()
-        self._fh.write(line + "\n")
-        self._fh.flush()
-        self._seg_records += 1
-        self.records_written += 1
+        with profile.stage("wal:flush"):
+            if self._fh is None or self._seg_records >= self.segment_max_records:
+                self._rotate()
+            self._fh.write(line + "\n")
+            self._fh.flush()
+            self._seg_records += 1
+            self.records_written += 1
 
     def _rotate(self) -> None:
         """Seal the open segment, if any, and open the next."""
         if self._fh is not None:
             self._fh.close()
             self._seg_index += 1
+            coverage.hit("recovery_path:wal_segment_rotated")
         self._fh = open(self.directory / _segment_name(self._seg_index), "a")
         self._seg_records = 0
 
@@ -147,6 +152,7 @@ class WriteAheadLog:
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, self.directory / SNAPSHOT_NAME)
+        coverage.hit("recovery_path:wal_snapshot_written")
         for idx in covered:
             (self.directory / _segment_name(idx)).unlink(missing_ok=True)
         # the next record starts the segment after all the snapshot covers
@@ -170,6 +176,7 @@ class WriteAheadLog:
         if tear:
             body += '{"op":"append","name":"torn_mid_rec'
         path.write_text(body)
+        coverage.hit("recovery_path:wal_tail_truncated")
         return lost
 
     # ---- read path ----------------------------------------------------------
@@ -187,7 +194,11 @@ class WriteAheadLog:
                 payload = doc["payload"]
                 covered_through = doc["covered_through"]
             except (ValueError, KeyError) as exc:
+                coverage.hit("recovery_path:wal_corruption_detected")
                 raise WALCorruption(f"unreadable snapshot {snap_path}: {exc}") from exc
+            coverage.hit("recovery_path:wal_replay_snapshot")
+        else:
+            coverage.hit("recovery_path:wal_replay_cold")
         records: list[dict] = []
         indices = [i for i in self._segment_indices() if i > covered_through]
         for pos, idx in enumerate(indices):
@@ -201,7 +212,10 @@ class WriteAheadLog:
                     records.append(json.loads(line))
                 except ValueError as exc:
                     if last_segment and lineno == len(lines) - 1:
-                        continue  # the one tear a kill can leave: dropped
+                        # the one tear a kill can leave: dropped
+                        coverage.hit("recovery_path:wal_torn_tail_dropped")
+                        continue
+                    coverage.hit("recovery_path:wal_corruption_detected")
                     raise WALCorruption(f"torn record mid-log ({path.name}:{lineno + 1})") from exc
         return payload, records
 

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import Callable
 
-from k8s_gpu_hpa_tpu_torch.metrics.rules import bucket_quantile
 from k8s_gpu_hpa_tpu_torch.obs.trace import Span, Tracer
 
 
@@ -78,6 +77,11 @@ def histogram_quantiles(
     cumulative buckets, by Prometheus's bucket interpolation
     (``rules.bucket_quantile``).  Keys are ``p50``-style; a value is None
     while the histogram (or the label set asked for) is empty."""
+    # imported here: the metrics modules import this package for their
+    # coverage probes and stage brackets, so its eager imports stay free
+    # of them
+    from k8s_gpu_hpa_tpu_torch.metrics.rules import bucket_quantile
+
     buckets = hist.cumulative_buckets(labels)
     return {f"p{round(q * 100):g}": bucket_quantile(buckets, q) for q in qs}
 

@@ -28,7 +28,8 @@ The shipped SLOs (:func:`shipped_slos`):
   per-target ``up`` gauge the scraper writes each sweep (1 healthy,
   0 failed), so a scrape blackout burns budget from the next tick.
 
-The JAX module's coverage probes are not ported.
+Each recorder branch is an ``alert_state:slo_*`` coverage probe
+(obs/coverage.py).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from dataclasses import dataclass, field
 
 from k8s_gpu_hpa_tpu_torch.metrics.rules import AlertRule, AndOn, BurnRate, Cmp, _fmt_window
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs import coverage
 from k8s_gpu_hpa_tpu_torch.obs.selfmetrics import SIGNAL_PROPAGATION
 
 #: the error-budget counters every SLO records into (label: slo=<name>)
@@ -123,9 +125,11 @@ class SLORecorder:
             self._good = db.latest(SLO_GOOD_TOTAL, dict(self.slo.labels)) or 0.0
             self._total = db.latest(SLO_EVENTS_TOTAL, dict(self.slo.labels)) or 0.0
             self._seeded = True
+            coverage.hit("alert_state:slo_seeded")
         if self.slo.source == "gauge":
             read = self._sum(db, self.slo.good_series, self.slo.good_matchers, ts)
             if read is None:
+                coverage.hit("alert_state:slo_gauge_no_evidence")
                 return 0  # source absent: no evidence this tick, no write
             value_sum, count = read
             self._good += value_sum
@@ -134,11 +138,13 @@ class SLORecorder:
             good = self._sum(db, self.slo.good_series, self.slo.good_matchers, ts)
             total = self._sum(db, self.slo.total_series, self.slo.total_matchers, ts)
             if total is None:
+                coverage.hit("alert_state:slo_counter_missing")
                 return 0  # the histogram not scraped yet, or expired
             # mirror the source counters but never regress: a source briefly
             # out of the lookback window is not a reset
             self._good = max(self._good, (good or (0.0, 0))[0])
             self._total = max(self._total, total[0])
+        coverage.hit("alert_state:slo_budget_recorded")
         db.append(SLO_GOOD_TOTAL, self.slo.labels, self._good, ts)
         db.append(SLO_EVENTS_TOTAL, self.slo.labels, self._total, ts)
         return 2

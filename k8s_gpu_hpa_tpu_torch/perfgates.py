@@ -3,9 +3,10 @@
 Counterpart of ``k8s_gpu_hpa_tpu/perfgates.py``, cut to the constants the
 ``sim_scale``, ``sim_scale_10k``, ``query_bench`` and ``downsample_bench``
 rungs read (``trial.py``), the ``capacity_crunch`` sizing and gates
-(``chaos/crunch.py``) and the ``region_evacuation`` ones
-(``chaos/evacuate.py``): the same values, in one place, so a deliberate
-re-baselining is one edit.
+(``chaos/crunch.py``), the ``region_evacuation`` ones
+(``chaos/evacuate.py``), the coverage floors (``simulate --scenario
+coverage``) and the ``profile_bench`` ones (``control/profile_harness.py``):
+the same values, in one place, so a deliberate re-baselining is one edit.
 
 Two kinds of constants live here:
 
@@ -202,3 +203,67 @@ EVAC_STARVATION_BUDGETS_S = {
 #: lifecycle over three regions, a shorter kill and tail
 EVAC_SMOKE_KILL_DURATION_S = 180.0
 EVAC_SMOKE_TOTAL_S = 600.0
+
+# ---- coverage_floor: the execution-coverage floors --------------------------
+
+#: union decision-path coverage the canned runs must reach together, as
+#: hit probes / registered probes.  The floor is not 1.0 on purpose: the
+#: never-hit remainder is the published gap list, so a registry that grows
+#: past what the canned runs exercise widens the gap instead of failing
+COVERAGE_UNION_FLOOR = 0.70
+
+#: per-domain floors under the same union map, each with margin below the
+#: ratio the JAX package's canned runs reach: a scenario edit that stops
+#: exercising a whole domain trips its floor even if the union survives
+COVERAGE_DOMAIN_FLOORS = {
+    "hpa_condition": 0.70,
+    "scheduler_branch": 0.85,
+    "planner_path": 0.50,
+    "fault_kind": 0.65,
+    "alert_state": 0.70,
+    "recovery_path": 0.60,
+    "concurrency": 0.80,
+    "fuzz": 0.75,
+    "profile": 0.75,
+    "region": 0.75,
+    "alerting": 0.85,
+}
+
+#: the union must also leave at least this many probes never hit: zero
+#: would mean the gap list went dark and coverage stopped carrying
+#: information
+COVERAGE_MIN_NEVER_HIT = 1
+
+# ---- profile_bench: the continuous-profiling plane --------------------------
+
+#: attribution floor for the scale run: at least this share of
+#: run_fleet_scale's own measured (gc-disabled) wall window must land
+#: inside named stage brackets
+PROFILE_MIN_ATTRIBUTION = 0.90
+
+#: --diff regression tolerance: a stage's share of attributed self time
+#: may grow by at most this many absolute share points over the baseline.
+#: Shares, not seconds, make the gate machine-portable (a uniformly slower
+#: machine cancels out)
+PROFILE_DIFF_SHARE_TOLERANCE = 0.25
+#: stages below this candidate self time are exempt from the share gate
+#: (sub-5 ms totals are all jitter)
+PROFILE_DIFF_MIN_SELF_S = 0.005
+
+#: the planted-slowdown canary the rung proves the diff gate catches:
+#: PROFILE_CANARY_PLANT_S accounted (never slept) seconds added per call
+#: to this stage must push its share past the tolerance against a clean run
+PROFILE_CANARY_STAGE = "tsdb:append"
+PROFILE_CANARY_PLANT_S = 0.05
+
+#: scale-run shapes for run_profile: full = the sim_scale shape the
+#: attribution gate is specified at; smoke = the tests' sizing
+PROFILE_SCALE_TARGETS = 1000
+PROFILE_SCALE_HORIZON_S = 3600.0
+PROFILE_SCALE_SMOKE_TARGETS = 200
+PROFILE_SCALE_SMOKE_HORIZON_S = 600.0
+
+#: the `coverage --run profile` session's tiny fleet shape: just enough
+#: scrape and rule traffic to fill a real ProfileMap for the exporters
+PROFILE_COVERAGE_TARGETS = 10
+PROFILE_COVERAGE_HORIZON_S = 120.0

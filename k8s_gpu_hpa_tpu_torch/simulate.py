@@ -70,7 +70,25 @@ Scenarios (offered load in percent of one device; the replicas share it):
               run, and ``--replay SCENARIO_JSON`` runs a committed artifact
               (tests/scenarios/evac-*.json) again instead.  Exit 2 on any
               violation of the fleet contract, on a replay that does not
-              reproduce, and on an artifact that cannot be read.
+              reproduce, and on an artifact that cannot be read;
+- ``coverage``: a canned run (``--run``: storm, crunch, drill, slo,
+              profile or evacuate) under a coverage map
+              (``run_coverage``): the per-domain scorecard and the
+              never-hit probes; ``--json`` writes the canonical export,
+              ``--diff BASELINE CANDIDATE`` compares two exports (exit 2 on
+              a lost probe) and ``--floor`` gates the union ratio.  The
+              races, fuzz and incident runs, and ``all``, which unions them
+              with the rest, exit 2 in one line naming the plane each
+              needs;
+- ``profile``: a canned run (``--run``: storm, crunch, scale or all)
+              under a profile map (``control.profile_harness``): the
+              per-stage scorecard with its attribution; ``--json`` writes
+              the timed export, ``--trace-out`` the Chrome trace and
+              ``--flame-out`` the collapsed stacks, ``--plant STAGE=SECONDS``
+              adds accounted (never slept) seconds to a stage, and
+              ``--diff`` gates against one baseline (this run) or two
+              exports (offline): exit 2 on a lost call path or a stage
+              share regression.  ``--smoke`` shrinks the scale run.
 
 An External-metric HPA (the queue rung, deploy/tpu-test-external-hpa.yaml)
 is told from its manifest and plays ``spike``, ``ramp`` and ``flap`` in
@@ -84,9 +102,9 @@ prints the query planner's physical plan of every rule and alert the
 pipeline evaluates.
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's coverage, race, fuzz, profile and incident scenarios are not
-ported, nor the meanings of ``--smoke``, ``--why`` and ``--replay`` other
-than the evacuation's.
+JAX simulator's race, fuzz and incident scenarios are not ported, nor the
+meanings of ``--why`` and ``--replay`` other than the evacuation's, nor the
+incident meaning of ``--smoke``.
 """
 
 from __future__ import annotations
@@ -653,6 +671,95 @@ def render_slo_report(result: dict) -> str:
 #: flight-recorder cadence: the history scenario runs its pipeline at a
 #: 30 s tick (vs the live loop's 1 s) so multi-day virtual windows stay
 #: cheap; the HPA still syncs every other tick
+#: the canned runs ``simulate --scenario coverage`` can collect under one
+#: map, the JAX package's nine (its ``all`` unions them)
+COVERAGE_RUN_NAMES = (
+    "storm",
+    "crunch",
+    "drill",
+    "slo",
+    "races",
+    "fuzz",
+    "profile",
+    "evacuate",
+    "incident",
+)
+
+#: the runs whose planes the port does not have yet, each with what it
+#: needs; ``all`` unions them with the rest, so it waits for all three
+COVERAGE_RUNS_NOT_PORTED = {
+    "races": "the race harness and the static analysis "
+    "(control/race_harness.py, analysis/), a later slice of the port",
+    "fuzz": "the coverage-guided fuzzer (chaos/fuzz.py, "
+    "control/fuzz_harness.py), a later slice of the port",
+    "incident": "paging and incidents (chaos/paging.py, obs/alerting.py, "
+    "obs/incident.py), a later slice of the port",
+    "all": "the races, fuzz and incident runs too (control/race_harness.py, "
+    "chaos/fuzz.py, chaos/paging.py), which later slices of the port bring",
+}
+
+
+def run_coverage(run: str = "all", seed: int | None = None) -> dict:
+    """Run the named canned run under a fresh CoverageMap and return its
+    canonical export.  ``seed`` feeds the storm's schedule-variant
+    derivation (chaos/storm.py) and is part of the run label, so same-seed
+    exports are bit-identical and differently labeled ones are not
+    conflated.  A run whose plane is not ported raises ValueError."""
+    from k8s_gpu_hpa_tpu_torch.chaos.crunch import run_capacity_crunch
+    from k8s_gpu_hpa_tpu_torch.chaos.storm import run_fault_storm
+    from k8s_gpu_hpa_tpu_torch.control.scale_harness import run_recovery_drill
+    from k8s_gpu_hpa_tpu_torch.obs import coverage
+
+    if run in COVERAGE_RUNS_NOT_PORTED:
+        raise ValueError(
+            f"coverage run {run!r} is not ported yet: it needs "
+            f"{COVERAGE_RUNS_NOT_PORTED[run]}"
+        )
+    label = run if seed is None else f"{run}@{seed}"
+    with coverage.collect(label) as cmap:
+        if run == "storm":
+            run_fault_storm(seed=seed)
+        elif run == "crunch":
+            run_capacity_crunch()
+        elif run == "drill":
+            run_recovery_drill()
+        elif run == "slo":
+            run_slo_check()
+        elif run == "profile":
+            # fires all four profile:* probes deterministically: a tiny
+            # profiled fleet run, both exporters and synthetic diff and
+            # attribution trips (control/profile_harness.py)
+            from k8s_gpu_hpa_tpu_torch.control.profile_harness import (
+                run_profile_coverage_session,
+            )
+
+            run_profile_coverage_session()
+        elif run == "evacuate":
+            # fires the region:* probes deterministically: one smoke
+            # evacuation for the lifecycle, plus the torn-seal fallback and
+            # the never-published miss (chaos/evacuate.py)
+            from k8s_gpu_hpa_tpu_torch.chaos.evacuate import (
+                run_evacuation_coverage_session,
+            )
+
+            run_evacuation_coverage_session()
+    return cmap.export()
+
+
+def render_coverage_diff(diff: dict) -> str:
+    lines = []
+    for section in ("gained", "lost", "unchanged"):
+        probes = diff[section]
+        lines.append(f"{section} ({len(probes)}):")
+        lines.extend(f"  {pid}" for pid in probes)
+    lines.append(
+        "verdict: COVERAGE REGRESSION — probes lost"
+        if diff["regression"]
+        else "verdict: OK (superset or equal)"
+    )
+    return "\n".join(lines)
+
+
 HISTORY_TICK = 30.0
 HISTORY_DAY = 86400.0
 
@@ -1180,6 +1287,171 @@ def _main_evacuate(args) -> int:
     return 0 if result["ok"] else 2
 
 
+def _main_coverage(args) -> int:
+    """The ``coverage`` scenario: a canned run under a CoverageMap, its
+    scorecard and never-hit list; ``--json`` writes the canonical export,
+    ``--diff`` compares two exports (exit 2 on any lost probe) and
+    ``--floor`` gates the union ratio (exit 2 below it)."""
+    import json
+
+    from k8s_gpu_hpa_tpu_torch.obs import coverage as covmod
+    from k8s_gpu_hpa_tpu_torch.perfgates import COVERAGE_UNION_FLOOR
+
+    diff_paths = getattr(args, "diff", None)
+    if diff_paths:
+        if len(diff_paths) != 2:
+            print(
+                "simulate coverage --diff wants exactly two exports: "
+                "BASELINE CANDIDATE"
+            )
+            return 2
+        try:
+            a = json.loads(Path(diff_paths[0]).read_text())
+            b = json.loads(Path(diff_paths[1]).read_text())
+        except (OSError, ValueError) as e:
+            print(f"simulate coverage --diff: {e}")
+            return 2
+        diff = covmod.diff_exports(a, b)
+        print(render_coverage_diff(diff))
+        return 2 if diff["regression"] else 0
+
+    run = getattr(args, "run", None) or "all"
+    known = COVERAGE_RUN_NAMES + ("all",)
+    if run not in known:
+        print(
+            f"simulate coverage: unknown run {run!r} — pick one of: "
+            f"{', '.join(known)}"
+        )
+        return 2
+    try:
+        export = run_coverage(run=run, seed=getattr(args, "seed", None))
+    except ValueError as e:
+        print(f"simulate coverage: {e}")
+        return 2
+    print(covmod.render_scorecard(export))
+    json_path = getattr(args, "json_out", None)
+    if json_path:
+        Path(json_path).write_text(
+            json.dumps(export, sort_keys=True, separators=(",", ":")) + "\n"
+        )
+        print(f"wrote {json_path}")
+    # the union floor gates the full union by default (a single run covers
+    # less by design); --floor overrides either way
+    floor = getattr(args, "floor", None)
+    if floor is None and run == "all":
+        floor = COVERAGE_UNION_FLOOR
+    if floor is not None:
+        union = covmod.export_union_ratio(export)
+        if union < floor:
+            print(
+                f"COVERAGE FLOOR VIOLATED: union {union:.3f} < "
+                f"declared floor {floor:.3f}"
+            )
+            return 2
+        print(f"union {union:.3f} meets declared floor {floor:.3f}")
+    return 0
+
+
+def _main_profile(args) -> int:
+    """The ``profile`` scenario: canned run(s) under a ProfileMap and the
+    per-stage scorecard with its attribution; ``--json`` writes the timed
+    export, ``--trace-out``/``--flame-out`` the Chrome trace and collapsed
+    stacks, and ``--diff`` gates against a baseline (two paths: offline;
+    one path: this run against it).  Exit 2 on a regression, an unknown
+    run or stage, or an export that cannot be read."""
+    import json
+
+    from k8s_gpu_hpa_tpu_torch.control.profile_harness import PROFILE_RUNS, run_profile
+    from k8s_gpu_hpa_tpu_torch.obs import profile as profmod
+
+    diff_paths = getattr(args, "diff", None) or []
+    if len(diff_paths) > 2:
+        print(
+            "simulate profile --diff wants one export (run, then diff "
+            "this run against it) or two (diff offline)"
+        )
+        return 2
+    if len(diff_paths) == 2:
+        try:
+            a = json.loads(Path(diff_paths[0]).read_text())
+            b = json.loads(Path(diff_paths[1]).read_text())
+        except (OSError, ValueError) as e:
+            print(f"simulate profile --diff: {e}")
+            return 2
+        diff = profmod.diff_exports(a, b)
+        print(profmod.render_profile_diff(diff))
+        return 2 if diff["regression"] else 0
+
+    run = getattr(args, "run", None) or "storm"
+    known = PROFILE_RUNS + ("all",)
+    if run not in known:
+        print(
+            f"simulate profile: unknown run {run!r} — pick one of: "
+            f"{', '.join(known)}"
+        )
+        return 2
+    if diff_paths and run == "all":
+        print(
+            "simulate profile: --diff with a single baseline needs a "
+            "single --run (storm, crunch, or scale)"
+        )
+        return 2
+    plant = None
+    plant_arg = getattr(args, "plant", None)
+    if plant_arg:
+        stage_id, _, seconds = plant_arg.partition("=")
+        try:
+            plant = {stage_id: float(seconds)}
+        except ValueError:
+            print(
+                f"simulate profile: --plant wants STAGE=SECONDS, "
+                f"got {plant_arg!r}"
+            )
+            return 2
+    try:
+        records = run_profile(
+            run=run,
+            seed=getattr(args, "seed", None),
+            smoke=bool(getattr(args, "smoke", False)),
+            plant=plant,
+        )
+    except KeyError as e:
+        print(f"simulate profile: {e.args[0]}")
+        return 2
+    for i, rec in enumerate(records):
+        if i:
+            print()
+        print(profmod.render_scorecard(rec["timed"]))
+    last = records[-1]
+    json_path = getattr(args, "json_out", None)
+    if json_path:
+        Path(json_path).write_text(
+            json.dumps(last["timed"], sort_keys=True, separators=(",", ":")) + "\n"
+        )
+        print(f"wrote {json_path}")
+    trace_path = getattr(args, "trace_out", None)
+    if trace_path:
+        Path(trace_path).write_text(profmod.render_chrome_trace(last["pmap"]))
+        print(f"wrote {trace_path} (chrome://tracing / Perfetto)")
+    flame_path = getattr(args, "flame_out", None)
+    if flame_path:
+        Path(flame_path).write_text(
+            profmod.render_collapsed(last["pmap"], last["wall_s"])
+        )
+        print(f"wrote {flame_path} (flamegraph.pl / speedscope)")
+    if diff_paths:
+        try:
+            baseline = json.loads(Path(diff_paths[0]).read_text())
+        except (OSError, ValueError) as e:
+            print(f"simulate profile --diff: {e}")
+            return 2
+        diff = profmod.diff_exports(baseline, last["timed"])
+        print()
+        print(profmod.render_profile_diff(diff))
+        return 2 if diff["regression"] else 0
+    return 0
+
+
 def main(args) -> int:
     """Run ``args.scenario`` on the manifest ``args.hpa`` and print the
     report.  Exit 2 with a one-line diagnosis for a manifest or scenario the
@@ -1204,6 +1476,10 @@ def main(args) -> int:
         return 0 if result["ok"] else 2
     if args.scenario == "evacuate":
         return _main_evacuate(args)
+    if args.scenario == "coverage":
+        return _main_coverage(args)
+    if args.scenario == "profile":
+        return _main_profile(args)
     hpa_doc = load_yaml(Path(args.hpa).read_text())
     metrics = metrics_from_manifest(hpa_doc)
     try:
@@ -1247,7 +1523,7 @@ def add_arguments(parser) -> None:
     parser.add_argument(
         "--scenario",
         choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why", "crunch",
-                 "evacuate"],
+                 "evacuate", "coverage", "profile"],
         default="spike",
     )
     parser.add_argument("--duration", type=float, default=420.0)
@@ -1288,7 +1564,9 @@ def add_arguments(parser) -> None:
     parser.add_argument(
         "--trace-out",
         default=None,
-        help="JSONL span export path for --scenario trace (default trace.jsonl)",
+        help="JSONL span export path for --scenario trace (default "
+        "trace.jsonl); for --scenario profile, write the run's Chrome "
+        "trace_event JSON here (only when given)",
     )
     parser.add_argument(
         "--components",
@@ -1306,7 +1584,9 @@ def add_arguments(parser) -> None:
     parser.add_argument(
         "--smoke",
         action="store_true",
-        help="evacuate: shorten the kill and the tail",
+        help="profile: shrink the 'scale' run to the smoke shape "
+        "(perfgates.PROFILE_SCALE_SMOKE_*); evacuate: shorten the kill and "
+        "the tail",
     )
     parser.add_argument(
         "--no-spill",
@@ -1326,4 +1606,61 @@ def add_arguments(parser) -> None:
         metavar="SCENARIO_JSON",
         help="evacuate: run a committed scenario artifact (tests/scenarios/"
         "evac-*.json) again instead; exit 2 unless it reproduces bit-identically",
+    )
+    parser.add_argument(
+        "--run",
+        default=None,
+        help="which canned run --scenario coverage collects (storm, crunch, "
+        "drill, slo, profile or evacuate; races, fuzz, incident and the "
+        "default all are not ported yet and exit 2) or --scenario profile "
+        "measures (storm, crunch, scale or all; default storm)",
+    )
+    parser.add_argument(
+        "--seed",
+        type=int,
+        default=None,
+        help="schedule-variant seed of the storm (chaos/storm.py) for "
+        "--scenario coverage and profile; default the fixed canned timeline",
+    )
+    parser.add_argument(
+        "--json",
+        dest="json_out",
+        default=None,
+        metavar="PATH",
+        help="write --scenario coverage's canonical CoverageMap export "
+        "(bit-identical across same-seed runs) or --scenario profile's "
+        "timed ProfileMap export to PATH",
+    )
+    parser.add_argument(
+        "--diff",
+        nargs="+",
+        default=None,
+        metavar="EXPORT",
+        help="coverage: diff two --json exports instead of running anything "
+        "(exit 2 if the candidate lost any probe); profile: with two paths "
+        "diff them offline, with one path run then diff this run against "
+        "the baseline (exit 2 on a lost call path or a stage share "
+        "regression)",
+    )
+    parser.add_argument(
+        "--floor",
+        type=float,
+        default=None,
+        help="fail (exit 2) when --scenario coverage's union hit ratio lands "
+        "below this; default: the perfgates union floor for --run all, no "
+        "floor for single runs",
+    )
+    parser.add_argument(
+        "--plant",
+        default=None,
+        metavar="STAGE=SECONDS",
+        help="profile: add SECONDS to every call of STAGE in the accounting "
+        "(the regression canary for --diff; nothing sleeps)",
+    )
+    parser.add_argument(
+        "--flame-out",
+        default=None,
+        metavar="PATH",
+        help="profile: write the run's collapsed-stack rendering "
+        "(flamegraph.pl / speedscope) to PATH",
     )

@@ -77,7 +77,9 @@ and ``run_rung_downsample_bench``), drive the fleet harnesses of ``control/scale
 ``perfgates.py`` or, with ``full``, its full sizes.  ``region_evacuation_rung``
 (bench.py's ``run_rung_region_evacuation``, ``evacuation_rung`` of a
 finished run and its canary) runs the region evacuation and its planted
-canary on virtual clocks.
+canary on virtual clocks.  ``profile_bench_rung`` (bench.py's
+``run_rung_profile_bench``) profiles the fleet scale and the storm: the
+scale run's attribution, same-seed bit-identity and the planted canary.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -1696,6 +1698,63 @@ def downsample_bench_rung(full: bool = False) -> dict:
         and result["tier_selected"]
     )
     return result
+
+
+def profile_bench_rung(full: bool = False) -> dict:
+    """bench.py's ``profile_bench`` rung (``run_rung_profile_bench``), key
+    for key: the three guarantees the cost-attribution plane rests on, each
+    gated by perfgates' ``PROFILE_*``.  **Attribution**: the scale run
+    (the smoke shape, 200 targets for 600 s; ``full``: 1000 for an hour)
+    attributes at least ``PROFILE_MIN_ATTRIBUTION`` of its own measured
+    wall window to named stages.  **Determinism**: two same-seed storm runs
+    export bit-identical canonical structure.  **Canary**: a planted
+    ``PROFILE_CANARY_PLANT_S`` a call on ``PROFILE_CANARY_STAGE`` trips the
+    ``--diff`` share gate against the clean run, and the clean pair does
+    not.  The wall-clock fields are measured; the structure is the virtual
+    clock's, deterministic."""
+    from k8s_gpu_hpa_tpu_torch.control.profile_harness import run_profile
+    from k8s_gpu_hpa_tpu_torch.obs import profile
+
+    smoke = not full
+    scale = run_profile("scale", smoke=smoke)[0]
+    first = run_profile("storm", seed=0)[0]
+    second = run_profile("storm", seed=0)[0]
+    bit_identical = first["canonical"] == second["canonical"]
+    planted = run_profile(
+        "storm",
+        seed=0,
+        plant={perfgates.PROFILE_CANARY_STAGE: perfgates.PROFILE_CANARY_PLANT_S},
+    )[0]
+    canary_caught = profile.diff_exports(first["timed"], planted["timed"])["regression"]
+    clean_diff = profile.diff_exports(first["timed"], second["timed"])
+    rollup = profile.stage_rollup(scale["timed"])
+    return {
+        "mode": "measured",
+        "metric": "stage attribution + export determinism + diff canary",
+        "scale_targets": (
+            perfgates.PROFILE_SCALE_SMOKE_TARGETS if smoke else perfgates.PROFILE_SCALE_TARGETS
+        ),
+        "scale_wall_s": scale["wall_s"],
+        "attribution": scale["attribution"],
+        "attribution_floor": perfgates.PROFILE_MIN_ATTRIBUTION,
+        "stages": {
+            sid: {"calls": agg["calls"], "self_s": agg["self_s"], "cum_s": agg["cum_s"]}
+            for sid, agg in sorted(rollup.items())
+        },
+        "open_spans": scale["open_spans"],
+        "bit_identical": bit_identical,
+        "canary_stage": perfgates.PROFILE_CANARY_STAGE,
+        "canary_plant_s": perfgates.PROFILE_CANARY_PLANT_S,
+        "canary_caught": canary_caught,
+        "clean_diff_regression": clean_diff["regression"],
+        "ok": (
+            scale["attribution_ok"]
+            and not scale["open_spans"]
+            and bit_identical
+            and canary_caught
+            and not clean_diff["regression"]
+        ),
+    }
 
 
 class QueueJoint:

@@ -107,6 +107,9 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.metrics.global_query",
         "k8s_gpu_hpa_tpu_torch.control.region",
         "k8s_gpu_hpa_tpu_torch.chaos.evacuate",
+        "k8s_gpu_hpa_tpu_torch.obs.coverage",
+        "k8s_gpu_hpa_tpu_torch.obs.profile",
+        "k8s_gpu_hpa_tpu_torch.control.profile_harness",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -263,11 +266,15 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
      "hourly view from the rollup tiers"),
     (["simulate", "--scenario", "crunch"], "contract: all clauses hold"),
     (["simulate", "--scenario", "evacuate", "--smoke"], "contract: all clauses hold"),
-], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch", "evacuate"])
+    (["simulate", "--scenario", "coverage", "--run", "crunch"], "coverage scorecard — run: crunch"),
+    (["simulate", "--scenario", "profile", "--run", "scale", "--smoke"],
+     "profile scorecard — run: scale"),
+], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch", "evacuate",
+        "coverage", "profile"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
     """The storm, the SLO check, the pipeline generator, the sharded spike
-    with its plans, the flight recorder, the capacity crunch and the region
-    evacuation as a user runs them, in a fresh interpreter: exit 0, and the import log names
+    with its plans, the flight recorder, the capacity crunch, the region
+    evacuation, and the coverage and profile scenarios as a user runs them, in a fresh interpreter: exit 0, and the import log names
     neither JAX, the JAX package, PyYAML nor torch."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],
