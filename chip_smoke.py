@@ -442,6 +442,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    count and wall seconds, and the attributions, are
                    printed.  The kernels' counts are set to 0 before it and
                    read after: it launches none.
+49. incident     — the adversarial and paging planes, in this process on
+                   virtual clocks: simulate.run_coverage("incident") (a
+                   smoke evacuation paging drill and the alert router's and
+                   incident correlator's edges), the mis-inhibition canary
+                   (paging.run_paging_evacuation(smoke=True,
+                   break_inhibition=True)) and fuzz.replay_artifact of each
+                   committed fuzz artifact (tests/scenarios/
+                   break-grace-canary.json and overlap-stress.json).  The
+                   session's export and the canary's result must hash
+                   (SHA-256 of their canonical JSON) to the JAX package's
+                   (INCIDENT_EXPECTED), the canary must fail the paging
+                   contract on an uninhibited duplicate page, and each
+                   replay must reproduce its fingerprint and violations;
+                   each run's digest, hit or page count and wall seconds are
+                   printed.  The kernels' counts are set to 0 before it and
+                   read after: it launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -565,6 +581,8 @@ from k8s_gpu_hpa_tpu_torch import perfgates, simulate, trial
 from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
 from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm, run_region_evacuation
 from k8s_gpu_hpa_tpu_torch.chaos.evacuate import evacuation_fingerprint
+from k8s_gpu_hpa_tpu_torch.chaos.fuzz import replay_artifact
+from k8s_gpu_hpa_tpu_torch.chaos.paging import run_paging_evacuation
 from k8s_gpu_hpa_tpu_torch.control.capacity import capacity_selfcheck
 from k8s_gpu_hpa_tpu_torch.control.profile_harness import run_profile
 from k8s_gpu_hpa_tpu_torch.control.operator import (
@@ -4760,6 +4778,74 @@ def phase_coverage(maps: dict) -> dict:
     return out
 
 
+#: SHA-256 of the canonical JSON (sorted keys, no whitespace) of
+#: run_coverage("incident")'s export and of the smoke evacuation paging
+#: drill with --break-inhibition armed, as the JAX package gives them on a
+#: CPU (the canary's under PYTHONHASHSEED 0-3 alike)
+INCIDENT_EXPECTED = {
+    "coverage_incident": "e64655f27fced2bd8eddc8ab928d41927f83bff3d4bb2a26f489ab6a364bc4a8",
+    "evacuate_canary": "499c82b9639958a407584727744bc90e04522788c9892340cbecc2f2bb1db324",
+}
+#: the committed fuzz artifacts the phase replays (tests/scenarios/; the
+#: evac-*.json files there are evacuation artifacts, not fuzz ones)
+INCIDENT_REPLAYS = ("break-grace-canary", "overlap-stress")
+
+
+def phase_incident() -> dict:
+    """The adversarial and paging planes, in this process on virtual
+    clocks: the ``coverage --run incident`` session (a smoke evacuation
+    paging drill and the router's and correlator's edges), the
+    mis-inhibition canary (the smoke evacuation drill with
+    --break-inhibition) and a replay of each committed fuzz artifact.  The
+    session's export and the canary's result hash to the JAX package's
+    (INCIDENT_EXPECTED), the canary breaks the paging contract with an
+    uninhibited duplicate page, each replay reproduces its recorded
+    fingerprint and violations, and no kernel is launched."""
+    def digest(obj) -> str:
+        return _sha256(json.dumps(obj, sort_keys=True, separators=(",", ":")))
+
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = {"phase": "incident"}
+    t = time.perf_counter()
+    export = simulate.run_coverage("incident")
+    out["coverage_incident"] = {
+        "sha256": digest(export),
+        "probes_hit": sum(1 for rec in export["probes"].values() if rec["count"]),
+        "call_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    canary = run_paging_evacuation(smoke=True, break_inhibition=True)
+    out["evacuate_canary"] = {
+        "sha256": digest(canary),
+        "pages": canary["score"]["pages_total"], "ok": canary["ok"],
+        "violations": sorted({v["kind"] for v in canary["score"]["violations"]}),
+        "call_s": time.perf_counter() - t}
+    scenarios = Path(__file__).resolve().parent / "tests" / "scenarios"
+    out["replays"] = {}
+    for name in INCIDENT_REPLAYS:
+        t = time.perf_counter()
+        replay = replay_artifact(scenarios / f"{name}.json")
+        out["replays"][name] = {
+            "sha256": digest(replay),
+            **{k: replay[k] for k in ("ok", "fingerprint_match", "violations_match")},
+            "violations": len(replay["violations"]), "call_s": time.perf_counter() - t}
+    out["kernel_launches"] = _kernel_counts()
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for name, want in INCIDENT_EXPECTED.items():
+        if out[name]["sha256"] != want:
+            raise AssertionError(f"the {name} run differs from the JAX package's: {out[name]}")
+    if canary["ok"] or "uninhibited_duplicate_page" not in out["evacuate_canary"]["violations"]:
+        raise AssertionError(f"the mis-inhibition canary was not caught: {out['evacuate_canary']}")
+    for name, replay in out["replays"].items():
+        if not (replay["ok"] and replay["fingerprint_match"] and replay["violations_match"]):
+            raise AssertionError(f"the fuzz artifact {name} did not replay: {replay}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the incident phase launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -4881,6 +4967,7 @@ def main() -> int:
     capacity = phase_capacity()
     phase_evacuate()
     phase_coverage(capacity["maps"])
+    phase_incident()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

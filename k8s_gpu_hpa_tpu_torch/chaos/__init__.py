@@ -3,8 +3,9 @@ ChaosSchedule, each fault's recovery accounted as a RecoveryReport
 (detection time, degraded duration, MTTR), the canned storm, the
 capacity crunch and the region evacuation.
 
-Counterpart of ``k8s_gpu_hpa_tpu/chaos/``; the fuzzer and the paging drill
-come with later slices."""
+Counterpart of ``k8s_gpu_hpa_tpu/chaos/``.  The coverage-guided fuzzer
+(``chaos.fuzz``) and the paging drills (``chaos.paging``) are imported by
+name, as the JAX package's are."""
 
 from k8s_gpu_hpa_tpu_torch.chaos.crunch import (
     CRUNCH_FAULTS,

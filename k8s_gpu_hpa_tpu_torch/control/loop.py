@@ -252,6 +252,11 @@ class AutoscalingPipeline:
             selfmetrics=self.selfmetrics,
             planner=self.planner,
         )
+        #: obs.alerting.AlertRouter or None, hung here by the paging harness
+        #: (chaos/paging.py); polled once a rule tick with the labelled
+        #: firing alerts, so routing keeps the evaluator's cadence and owns
+        #: no timers (a VirtualClock callback must never advance the clock)
+        self.page_router = None
         self.adapter = CustomMetricsAdapter(
             self.db,
             [AdapterRule(series=r.record, resource_overrides=_overrides_for(r)) for r in rules]
@@ -399,10 +404,13 @@ class AutoscalingPipeline:
 
     def _rule_tick(self) -> None:
         """One rule tick: the shards' local rules first (the federation's
-        pre-reductions), then the global evaluator that reads them."""
+        pre-reductions), then the global evaluator that reads them, then the
+        alert router observing whatever that evaluation left firing."""
         if self.shard_plane is not None:
             self.shard_plane.evaluate_rules_once()
         self.evaluator.evaluate_once()
+        if self.page_router is not None:
+            self.page_router.observe(self.evaluator.firing_alert_instances())
 
     def _periodic(self, interval: float, fn) -> None:
         def tick():

@@ -10,9 +10,9 @@ multi-window burn-rate alerts (slo.py), decision-path coverage probes
 (coverage.py) and per-stage wall-clock cost attribution (profile.py).
 ``control/loop.py`` wires them in when a ``Tracer`` is passed to
 ``AutoscalingPipeline``; ``python -m k8s_gpu_hpa_tpu_torch simulate
---scenario trace|slo|coverage|profile`` and the rungs of ``trial.py``
-surface them.  The JAX package's alert routing and incident timelines are
-not ported.
+--scenario trace|slo|coverage|profile|incident`` and the rungs of ``trial.py``
+surface them.  Alert routing (alerting.py) and incident correlation
+(incident.py) are imported by name, as the JAX package's are.
 
 Import structure: ``selfmetrics`` and ``slo`` import from
 ``k8s_gpu_hpa_tpu_torch.metrics``, while the metrics modules import

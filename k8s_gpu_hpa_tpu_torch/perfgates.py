@@ -267,3 +267,80 @@ PROFILE_SCALE_SMOKE_HORIZON_S = 600.0
 #: scrape and rule traffic to fill a real ProfileMap for the exporters
 PROFILE_COVERAGE_TARGETS = 10
 PROFILE_COVERAGE_HORIZON_S = 120.0
+
+# ---- chaos_fuzz: the coverage-guided adversarial fuzzer ------------------------
+
+#: the smoke campaign (``simulate --scenario fuzz`` with no --budget or
+#: --seed): small enough for a quick check, large enough to accept and
+#: reject and to steer by novelty
+FUZZ_SMOKE_BUDGET = 8
+FUZZ_SMOKE_SEED = 7
+
+#: the rung's exploration budget; the rung runs it TWICE and requires the
+#: two reports to be the same bytes (the determinism that the corpus and
+#: its replays rest on)
+FUZZ_RUNG_BUDGET = 8
+FUZZ_RUNG_SEED = 7
+
+#: the planted-bug gate: with the --break-grace canary armed (an eviction
+#: grace of forever, so any preemption strands Terminating pods) the fuzzer
+#: must FIND a failing schedule and minimize it within this many cases
+FUZZ_CANARY_BUDGET = 6
+FUZZ_CANARY_SEED = 7
+
+#: the novelty floor: at least this many accepted mutations must each have
+#: hit a probe not seen before, over the rung's FUZZ_RUNG_BUDGET cases (a
+#: mutator that stopped varying the fault kinds lands at 0-1)
+FUZZ_MIN_NOVEL_ACCEPTS = 2
+
+#: the minimizer's ceiling: minimized faults over the failing schedule's
+#: faults for the canary's failure (the delta debugger must delete schedule
+#: mass, not hand back its input)
+FUZZ_MAX_SHRINK_RATIO = 0.67
+
+#: the ``coverage --run fuzz`` session's campaign, pinned with its seed so
+#: it both accepts AND rejects a mutation; the session then minimizes and
+#: replays chaos/fuzz.CANARY_CORE, so the minimizer and replay probes fire
+#: on every run
+FUZZ_COVERAGE_BUDGET = 4
+FUZZ_COVERAGE_SEED = 11
+
+# ---- paging_bench: the incident plane --------------------------------------------
+
+#: the router's timing, Alertmanager's semantics on the shared virtual
+#: clock.  group_wait gathers a burst into one first page; group_interval
+#: throttles the updates of a group already paged (a flap inside it folds
+#: into ONE update); repeat_interval pages a group still firing again.  The
+#: 120 s repeat is much shorter than Alertmanager's 4 h default on purpose:
+#: it bounds to one interval the gap of a fault injected into a group
+#: ALREADY firing (the crunch's overlaps), which the time-to-page budgets
+#: below are set against
+PAGING_GROUP_WAIT_S = 15.0
+PAGING_GROUP_INTERVAL_S = 60.0
+PAGING_REPEAT_INTERVAL_S = 120.0
+
+#: paging quality against the injected faults.  Recall is exact: every
+#: injected fault must give at least one attributed page or repeat inside
+#: its window.  Precision has margin: a page may ride on burn-rate evidence
+#: alone, but the canned drills measure 1.00 (every page attributable), so
+#: 0.90 trips on a real attribution regression
+PAGING_RECALL_FLOOR = 1.0
+PAGING_PRECISION_FLOOR = 0.90
+
+#: the p95 time-to-page ceiling of each canned drill, seconds from a
+#: fault's injection to its first covering notification.  The storm's
+#: faults page fresh groups (detection, for_seconds 5 and group_wait 15);
+#: the crunch's faults overlap, so the late ones ride repeats (bounded by
+#: PAGING_REPEAT_INTERVAL_S); the evacuation's region probes detect within
+#: a rule tick.  The margin over the measured times is there so that a
+#: routing regression trips the gate, not scheduling jitter
+PAGING_TTP_P95_MAX_S = {
+    "storm": 90.0,
+    "crunch": 240.0,
+    "evacuate": 60.0,
+}
+
+#: for_seconds of the harness's state-probe rules (chaos/paging.py): long
+#: enough to ride out a blip of one tick, short enough to keep the
+#: time-to-page inside the budgets above
+PAGING_ALERT_FOR_S = 5.0

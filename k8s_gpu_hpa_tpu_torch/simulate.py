@@ -71,15 +71,34 @@ Scenarios (offered load in percent of one device; the replicas share it):
               (tests/scenarios/evac-*.json) again instead.  Exit 2 on any
               violation of the fleet contract, on a replay that does not
               reproduce, and on an artifact that cannot be read;
+- ``fuzz``:   the coverage-guided chaos fuzzer (``chaos.fuzz.run_fuzz``),
+              which needs no manifest: ``--budget`` cases from ``--seed``
+              (default perfgates' smoke campaign) mutate fault schedules
+              and traffic against a fixed two-tenant harness; the first
+              contract failure is run again, minimized and, with
+              ``--fuzz-out DIR``, written as a replayable artifact.
+              ``--break-grace`` is the planted canary, and ``--replay
+              ARTIFACT`` runs a committed artifact (tests/scenarios/*.json
+              but evac-*) again instead.  Exit 0 on a clean campaign or the
+              canary found and minimized, 1 on a genuine minimized failure,
+              2 on a failure that does not reproduce or cannot be
+              minimized, a replay that diverges or an unreadable artifact;
+- ``incident``: the paging drill (``chaos.paging``), which needs no
+              manifest: the alert router armed over a canned run (``--run``
+              storm, crunch or evacuate; ``--smoke`` picks the smoke
+              evacuation), each page tied to its causes and the paging
+              scored against the injected faults; ``--json`` writes the
+              result, ``--why INC-00N`` one incident's causal chain, and
+              ``--break-inhibition`` is the planted canary.  Exit 2 on any
+              violation of the paging contract or an unknown run;
 - ``coverage``: a canned run (``--run``: storm, crunch, drill, slo,
-              profile or evacuate) under a coverage map
+              profile, evacuate, fuzz or incident) under a coverage map
               (``run_coverage``): the per-domain scorecard and the
               never-hit probes; ``--json`` writes the canonical export,
               ``--diff BASELINE CANDIDATE`` compares two exports (exit 2 on
               a lost probe) and ``--floor`` gates the union ratio.  The
-              races, fuzz and incident runs, and ``all``, which unions them
-              with the rest, exit 2 in one line naming the plane each
-              needs;
+              races run, and ``all``, which unions it with the rest, exit 2
+              in one line naming what each needs;
 - ``profile``: a canned run (``--run``: storm, crunch, scale or all)
               under a profile map (``control.profile_harness``): the
               per-stage scorecard with its attribution; ``--json`` writes
@@ -102,9 +121,7 @@ prints the query planner's physical plan of every rule and alert the
 pipeline evaluates.
 
 The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's race, fuzz and incident scenarios are not ported, nor the
-meanings of ``--why`` and ``--replay`` other than the evacuation's, nor the
-incident meaning of ``--smoke``.
+JAX simulator's race scenario is not ported.
 """
 
 from __future__ import annotations
@@ -686,16 +703,12 @@ COVERAGE_RUN_NAMES = (
 )
 
 #: the runs whose planes the port does not have yet, each with what it
-#: needs; ``all`` unions them with the rest, so it waits for all three
+#: needs; ``all`` unions them with the rest, so it waits for the races
 COVERAGE_RUNS_NOT_PORTED = {
     "races": "the race harness and the static analysis "
     "(control/race_harness.py, analysis/), a later slice of the port",
-    "fuzz": "the coverage-guided fuzzer (chaos/fuzz.py, "
-    "control/fuzz_harness.py), a later slice of the port",
-    "incident": "paging and incidents (chaos/paging.py, obs/alerting.py, "
-    "obs/incident.py), a later slice of the port",
-    "all": "the races, fuzz and incident runs too (control/race_harness.py, "
-    "chaos/fuzz.py, chaos/paging.py), which later slices of the port bring",
+    "all": "the races run too (control/race_harness.py, analysis/), which a "
+    "later slice of the port brings",
 }
 
 
@@ -743,6 +756,21 @@ def run_coverage(run: str = "all", seed: int | None = None) -> dict:
             )
 
             run_evacuation_coverage_session()
+        elif run == "fuzz":
+            # the fuzz session's campaign seed and budget are pinned in
+            # perfgates (they make all four fuzz:* probes fire); --seed
+            # varies the storm, not the fuzz campaign
+            from k8s_gpu_hpa_tpu_torch.chaos.fuzz import run_fuzz_coverage_session
+
+            run_fuzz_coverage_session()
+        elif run == "incident":
+            # fires all sixteen alerting:* probes deterministically: one
+            # smoke evacuation paging drill (real pages, inhibition and
+            # attribution) and synthetic router and correlator edges
+            # (chaos/paging.py)
+            from k8s_gpu_hpa_tpu_torch.chaos.paging import run_incident_coverage_session
+
+            run_incident_coverage_session()
     return cmap.export()
 
 
@@ -1287,6 +1315,105 @@ def _main_evacuate(args) -> int:
     return 0 if result["ok"] else 2
 
 
+def _main_fuzz(args) -> int:
+    """The ``fuzz`` scenario, which needs no manifest: a coverage-guided
+    campaign (chaos/fuzz.py) that mutates fault schedules and traffic
+    against the fixed fuzz harness and minimizes any contract failure into
+    a replayable ``seed + schedule`` artifact, or with ``--replay`` a
+    committed artifact run again.  Exit 0 on a clean campaign, and on the
+    ``--break-grace`` canary found and minimized (the fuzzer working); 1 on
+    a genuine minimized failure (corpus material: commit the artifact); 2
+    on a failure that does not reproduce or cannot be minimized, on a
+    replay that diverges from its recorded fingerprint, and on an artifact
+    that cannot be read."""
+    from k8s_gpu_hpa_tpu_torch import perfgates
+    from k8s_gpu_hpa_tpu_torch.chaos.fuzz import render_fuzz_report, replay_artifact, run_fuzz
+
+    replay = getattr(args, "replay", None)
+    if replay:
+        try:
+            result = replay_artifact(replay)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"simulate fuzz --replay: {e}")
+            return 2
+        if result["ok"]:
+            print(
+                f"scenario {result['name']}: reproduced bit-identically "
+                f"({len(result['violations'])} recorded violation(s) "
+                "fired again)"
+            )
+            return 0
+        print(f"scenario {result['name']}: DID NOT REPRODUCE")
+        print(f"  expected violations: {result['expected_violations']}")
+        print(f"  got violations:      {result['violations']}")
+        return 2
+    budget = getattr(args, "budget", None) or perfgates.FUZZ_SMOKE_BUDGET
+    seed = args.seed if args.seed is not None else perfgates.FUZZ_SMOKE_SEED
+    report = run_fuzz(
+        budget=budget,
+        seed=seed,
+        break_grace=getattr(args, "break_grace", False),
+        out_dir=getattr(args, "fuzz_out", None),
+    )
+    print(render_fuzz_report(report))
+    if not report["ok"]:
+        return 2
+    if report["failure"] is not None and not report["break_grace"]:
+        return 1
+    return 0
+
+
+def _main_incident(args) -> int:
+    """The ``incident`` scenario, which needs no manifest: the alert router
+    armed over a canned chaos run (``--run`` storm, crunch or evacuate;
+    ``--smoke`` picks the smoke evacuation), every page tied to its causes
+    and the paging scored against the injected faults.  ``--json`` writes
+    the result as canonical JSON, ``--why INC-00N`` prints one incident's
+    causal chain.  Exit 2 on any violation of the paging contract (a fault
+    never paged, a page with no attributable cause, a time-to-page over
+    budget, an uninhibited duplicate page: ``--break-inhibition`` plants
+    the last) and on an unknown run."""
+    import json
+
+    from k8s_gpu_hpa_tpu_torch.chaos.paging import (
+        run_paging_crunch,
+        run_paging_evacuation,
+        run_paging_storm,
+    )
+    from k8s_gpu_hpa_tpu_torch.obs.incident import render_incident_report, render_incident_why
+
+    smoke = getattr(args, "smoke", False)
+    run = getattr(args, "run", None) or ("evacuate" if smoke else "storm")
+    break_inhibition = getattr(args, "break_inhibition", False)
+    if run == "storm":
+        result = run_paging_storm(
+            seed=getattr(args, "seed", None), break_inhibition=break_inhibition
+        )
+    elif run == "crunch":
+        result = run_paging_crunch(break_inhibition=break_inhibition)
+    elif run == "evacuate":
+        result = run_paging_evacuation(break_inhibition=break_inhibition, smoke=smoke)
+    else:
+        print(f"simulate incident: unknown --run {run!r} (storm, crunch, evacuate)")
+        return 2
+    json_out = getattr(args, "json_out", None)
+    if json_out:
+        Path(json_out).write_text(
+            json.dumps(result, sort_keys=True, separators=(",", ":")) + "\n",
+            encoding="utf-8",
+        )
+    print(render_incident_report(result))
+    why = getattr(args, "why", None)
+    if why:
+        print()
+        print(render_incident_why(result, why))
+    if result["violations"]:
+        print()
+        for v in result["violations"]:
+            print(f"paging contract: {v}")
+    return 0 if result["ok"] else 2
+
+
 def _main_coverage(args) -> int:
     """The ``coverage`` scenario: a canned run under a CoverageMap, its
     scorecard and never-hit list; ``--json`` writes the canonical export,
@@ -1476,6 +1603,10 @@ def main(args) -> int:
         return 0 if result["ok"] else 2
     if args.scenario == "evacuate":
         return _main_evacuate(args)
+    if args.scenario == "fuzz":
+        return _main_fuzz(args)
+    if args.scenario == "incident":
+        return _main_incident(args)
     if args.scenario == "coverage":
         return _main_coverage(args)
     if args.scenario == "profile":
@@ -1523,7 +1654,7 @@ def add_arguments(parser) -> None:
     parser.add_argument(
         "--scenario",
         choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why", "crunch",
-                 "evacuate", "coverage", "profile"],
+                 "evacuate", "coverage", "profile", "fuzz", "incident"],
         default="spike",
     )
     parser.add_argument("--duration", type=float, default=420.0)
@@ -1586,7 +1717,7 @@ def add_arguments(parser) -> None:
         action="store_true",
         help="profile: shrink the 'scale' run to the smoke shape "
         "(perfgates.PROFILE_SCALE_SMOKE_*); evacuate: shorten the kill and "
-        "the tail",
+        "the tail; incident: run the smoke evacuation drill",
     )
     parser.add_argument(
         "--no-spill",
@@ -1597,30 +1728,64 @@ def add_arguments(parser) -> None:
     parser.add_argument(
         "--why",
         default=None,
-        metavar="TENANT",
-        help="evacuate: print TENANT's cross-region decision chain after the run",
+        metavar="TENANT|INC-00N",
+        help="evacuate: print TENANT's cross-region decision chain after the "
+        "run; incident: print incident INC-00N's causal chain as a "
+        "postmortem timeline",
     )
     parser.add_argument(
         "--replay",
         default=None,
         metavar="SCENARIO_JSON",
         help="evacuate: run a committed scenario artifact (tests/scenarios/"
-        "evac-*.json) again instead; exit 2 unless it reproduces bit-identically",
+        "evac-*.json) again instead; fuzz: run a committed fuzz artifact "
+        "(tests/scenarios/*.json but evac-*) again instead; exit 2 unless "
+        "it reproduces bit-identically",
+    )
+    parser.add_argument(
+        "--budget",
+        type=int,
+        default=None,
+        help="fuzz: exploration cases the campaign runs "
+        "(default perfgates.FUZZ_SMOKE_BUDGET)",
+    )
+    parser.add_argument(
+        "--break-grace",
+        action="store_true",
+        help="fuzz: arm the canary that stretches the preemption eviction "
+        "grace to forever, which shows the fuzzer finds and minimizes a "
+        "real failure",
+    )
+    parser.add_argument(
+        "--fuzz-out",
+        default=None,
+        metavar="DIR",
+        help="fuzz: write the minimized failure's replayable artifact under DIR",
+    )
+    parser.add_argument(
+        "--break-inhibition",
+        action="store_true",
+        help="incident: arm the canary that computes but does not apply "
+        "inhibition: the warning-severity duplicates page with "
+        "would_inhibit > 0 and the paging contract must fail (exit 2)",
     )
     parser.add_argument(
         "--run",
         default=None,
         help="which canned run --scenario coverage collects (storm, crunch, "
-        "drill, slo, profile or evacuate; races, fuzz, incident and the "
-        "default all are not ported yet and exit 2) or --scenario profile "
-        "measures (storm, crunch, scale or all; default storm)",
+        "drill, slo, profile, evacuate, fuzz or incident; races and the "
+        "default all are not ported yet and exit 2), --scenario profile "
+        "measures (storm, crunch, scale or all; default storm) or --scenario "
+        "incident pages over (storm, crunch or evacuate; default storm)",
     )
     parser.add_argument(
         "--seed",
         type=int,
         default=None,
         help="schedule-variant seed of the storm (chaos/storm.py) for "
-        "--scenario coverage and profile; default the fixed canned timeline",
+        "--scenario coverage, profile and incident; default the fixed canned "
+        "timeline; --scenario fuzz: the campaign's seed (default "
+        "perfgates.FUZZ_SMOKE_SEED)",
     )
     parser.add_argument(
         "--json",
@@ -1628,8 +1793,9 @@ def add_arguments(parser) -> None:
         default=None,
         metavar="PATH",
         help="write --scenario coverage's canonical CoverageMap export "
-        "(bit-identical across same-seed runs) or --scenario profile's "
-        "timed ProfileMap export to PATH",
+        "(bit-identical across same-seed runs), --scenario profile's "
+        "timed ProfileMap export or --scenario incident's result as "
+        "canonical JSON to PATH",
     )
     parser.add_argument(
         "--diff",

@@ -80,6 +80,10 @@ finished run and its canary) runs the region evacuation and its planted
 canary on virtual clocks.  ``profile_bench_rung`` (bench.py's
 ``run_rung_profile_bench``) profiles the fleet scale and the storm: the
 scale run's attribution, same-seed bit-identity and the planted canary.
+``chaos_fuzz_rung`` (bench.py's ``run_rung_chaos_fuzz``) runs the fuzz
+campaign twice and its break-grace canary (minutes of wall time on a CPU),
+and ``paging_bench_rung`` (bench.py's ``run_rung_paging_bench``) the three
+paging drills, the mis-inhibition canary and a second smoke evacuation.
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -1754,6 +1758,103 @@ def profile_bench_rung(full: bool = False) -> dict:
             and canary_caught
             and not clean_diff["regression"]
         ),
+    }
+
+
+def _canonical(obj) -> str:
+    return json.dumps(obj, sort_keys=True, separators=(",", ":"))
+
+
+def chaos_fuzz_rung() -> dict:
+    """bench.py's ``chaos_fuzz`` rung (``run_rung_chaos_fuzz``), key for
+    key: the three guarantees the corpus and its replays rest on, each
+    gated by perfgates' ``FUZZ_*``.  **Determinism**: one seeded campaign
+    run twice gives the same canonical JSON.  **Novelty**: the campaign
+    accepts at least ``FUZZ_MIN_NOVEL_ACCEPTS`` mutations for coverage not
+    seen before.  **Canary**: with --break-grace armed the fuzzer finds a
+    failing schedule within ``FUZZ_CANARY_BUDGET`` cases, shows that it
+    reproduces and minimizes it to at most ``FUZZ_MAX_SHRINK_RATIO`` of its
+    faults (or to a core of at most 2).  Virtual time throughout."""
+    from k8s_gpu_hpa_tpu_torch.chaos import fuzz
+
+    first = fuzz.run_fuzz(budget=perfgates.FUZZ_RUNG_BUDGET, seed=perfgates.FUZZ_RUNG_SEED)
+    second = fuzz.run_fuzz(budget=perfgates.FUZZ_RUNG_BUDGET, seed=perfgates.FUZZ_RUNG_SEED)
+    bit_identical = _canonical(first) == _canonical(second)
+    canary = fuzz.run_fuzz(
+        budget=perfgates.FUZZ_CANARY_BUDGET, seed=perfgates.FUZZ_CANARY_SEED, break_grace=True
+    )
+    failure = canary["failure"]
+    canary_found = failure is not None and failure["reproducible"]
+    minimized = failure["minimized"] if canary_found else None
+    shrink = failure["shrink_ratio"] if canary_found else None
+    canary_minimized = minimized is not None and (
+        shrink <= perfgates.FUZZ_MAX_SHRINK_RATIO or len(minimized["faults"]) <= 2
+    )
+    return {
+        "mode": "virtual",
+        "metric": "fuzz campaign determinism + canary find/minimize",
+        "budget": perfgates.FUZZ_RUNG_BUDGET,
+        "seed": perfgates.FUZZ_RUNG_SEED,
+        "bit_identical": bit_identical,
+        "novel_accepts": first["novel_accepts"],
+        "novel_accepts_min": perfgates.FUZZ_MIN_NOVEL_ACCEPTS,
+        "canary_budget": perfgates.FUZZ_CANARY_BUDGET,
+        "canary_found": canary_found,
+        "canary_minimized": canary_minimized,
+        "canary_shrink_ratio": shrink,
+        "shrink_ratio_max": perfgates.FUZZ_MAX_SHRINK_RATIO,
+        "canary_minimized_faults": len(minimized["faults"]) if minimized is not None else None,
+        "ok": (
+            bit_identical
+            and first["novel_accepts"] >= perfgates.FUZZ_MIN_NOVEL_ACCEPTS
+            and canary_found
+            and canary_minimized
+        ),
+    }
+
+
+def paging_bench_rung() -> dict:
+    """bench.py's ``paging_bench`` rung (``run_rung_paging_bench``), key for
+    key: the alert router armed over the storm, the crunch and the smoke
+    evacuation, each held to the paging contract (perfgates'
+    ``PAGING_*``: recall 1.0, precision, p95 time to page within the
+    drill's budget); the evacuation with --break-inhibition armed must
+    fail on an uninhibited duplicate page; and two smoke evacuations must
+    give the same canonical result.  Virtual time throughout."""
+    from k8s_gpu_hpa_tpu_torch.chaos import paging
+
+    storm = paging.run_paging_storm()
+    crunch = paging.run_paging_crunch()
+    evac = paging.run_paging_evacuation(smoke=True)
+    canary = paging.run_paging_evacuation(smoke=True, break_inhibition=True)
+    second = paging.run_paging_evacuation(smoke=True)
+    bit_identical = _canonical(evac) == _canonical(second)
+    canary_caught = not canary["ok"] and any(
+        v["kind"] == "uninhibited_duplicate_page" for v in canary["score"]["violations"]
+    )
+
+    def summarize(r: dict) -> dict:
+        s = r["score"]
+        return {
+            "pages": s["pages_total"],
+            "recall": s["recall"],
+            "precision": s["precision"],
+            "ttp_p95_s": s["time_to_page_s"]["p95"],
+            "violations": len(r["violations"]),
+            "ok": r["ok"],
+        }
+
+    return {
+        "mode": "virtual",
+        "metric": "paging contract (recall/precision/time-to-page) + "
+        "mis-inhibition canary + log determinism",
+        "storm": summarize(storm),
+        "crunch": summarize(crunch),
+        "evacuate": summarize(evac),
+        "ttp_budgets_s": dict(perfgates.PAGING_TTP_P95_MAX_S),
+        "canary_caught": canary_caught,
+        "bit_identical": bit_identical,
+        "ok": storm["ok"] and crunch["ok"] and evac["ok"] and canary_caught and bit_identical,
     }
 
 

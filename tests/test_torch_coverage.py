@@ -312,14 +312,14 @@ def test_cli_single_run_writes_canonical_json_and_scores(exports, tmp_path, caps
     assert "meets declared floor" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("run", ["races", "fuzz", "incident", "all", None])
+@pytest.mark.parametrize("run", ["races", "all", None])
 def test_the_runs_not_ported_exit_2_with_a_diagnosis(run, capsys):
     argv = ["simulate", "--scenario", "coverage"] + ([] if run is None else ["--run", run])
     assert umbrella_main(argv) == 2
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     assert f"coverage run {run or 'all'!r} is not ported yet" in lines[0]
-    assert set(simulate.COVERAGE_RUNS_NOT_PORTED) == {"races", "fuzz", "incident", "all"}
+    assert set(simulate.COVERAGE_RUNS_NOT_PORTED) == {"races", "all"}
     with pytest.raises(ValueError, match="not ported yet"):
         simulate.run_coverage(run=run or "all")
 

@@ -110,6 +110,11 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.obs.coverage",
         "k8s_gpu_hpa_tpu_torch.obs.profile",
         "k8s_gpu_hpa_tpu_torch.control.profile_harness",
+        "k8s_gpu_hpa_tpu_torch.control.fuzz_harness",
+        "k8s_gpu_hpa_tpu_torch.chaos.fuzz",
+        "k8s_gpu_hpa_tpu_torch.obs.alerting",
+        "k8s_gpu_hpa_tpu_torch.obs.incident",
+        "k8s_gpu_hpa_tpu_torch.chaos.paging",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -269,12 +274,16 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
     (["simulate", "--scenario", "coverage", "--run", "crunch"], "coverage scorecard — run: crunch"),
     (["simulate", "--scenario", "profile", "--run", "scale", "--smoke"],
      "profile scorecard — run: scale"),
+    (["simulate", "--scenario", "fuzz", "--replay", "tests/scenarios/break-grace-canary.json"],
+     "scenario break-grace-canary: reproduced bit-identically"),
+    (["simulate", "--scenario", "incident", "--smoke"], "incident drill: scenario=paging_evacuate"),
 ], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch", "evacuate",
-        "coverage", "profile"])
+        "coverage", "profile", "fuzz-replay", "incident"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
     """The storm, the SLO check, the pipeline generator, the sharded spike
     with its plans, the flight recorder, the capacity crunch, the region
-    evacuation, and the coverage and profile scenarios as a user runs them, in a fresh interpreter: exit 0, and the import log names
+    evacuation, the coverage and profile scenarios, a fuzz artifact's replay
+    and the smoke paging drill as a user runs them, in a fresh interpreter: exit 0, and the import log names
     neither JAX, the JAX package, PyYAML nor torch."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],

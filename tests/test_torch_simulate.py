@@ -189,14 +189,16 @@ def test_the_umbrella_offers_the_ported_commands_only(capsys):
                     "gen-pipeline", "gen-manifests"):
         assert command in text
     assert "stub-libtpu" not in text
-    # the crunch and the region evacuation are ported
-    # (tests/test_torch_{crunch,evacuate}.py); the incident drill is not yet
+    # the crunch, the region evacuation, the fuzzer and the incident drill
+    # are ported (tests/test_torch_{crunch,evacuate,fuzz,paging}.py); the
+    # race harness is not yet
     with pytest.raises(SystemExit):
         main(["simulate", "--help"])
     text = capsys.readouterr().out
-    assert "crunch" in text and "evacuate" in text
+    for scenario in ("crunch", "evacuate", "fuzz", "incident"):
+        assert scenario in text
     with pytest.raises(SystemExit):
-        main(["simulate", "--scenario", "incident"])
+        main(["simulate", "--scenario", "races"])
 
 
 def test_gen_manifests_writes_the_bundle(tmp_path, capsys):
