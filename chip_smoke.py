@@ -458,6 +458,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    each run's digest, hit or page count and wall seconds are
                    printed.  The kernels' counts are set to 0 before it and
                    read after: it launches none.
+50. races        — the race harness and the static-analysis gate, in this
+                   process on the host: race_harness.run_race_sweep() (a
+                   serial reference, four seeded permutations of the
+                   shard-rules fan-out and one run on a real
+                   ThreadPoolExecutor, the coverage map's inferred lockset
+                   armed as runtime assertions), its break-ordering canary
+                   at seed 7, simulate.run_coverage("races") and
+                   analysis.run_passes() over this checkout.  The sweep, the
+                   canary and the export must hash to the JAX package's
+                   (RACES_EXPECTED), the sweep pass, the canary diverge and
+                   the gate's ten passes be clean; each run's digest and
+                   wall seconds, and the gate's, are printed.  The kernels'
+                   counts are set to 0 before it and read after: it
+                   launches none.
 
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
@@ -577,7 +591,7 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
-from k8s_gpu_hpa_tpu_torch import perfgates, simulate, trial
+from k8s_gpu_hpa_tpu_torch import analysis, perfgates, simulate, trial
 from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
 from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm, run_region_evacuation
 from k8s_gpu_hpa_tpu_torch.chaos.evacuate import evacuation_fingerprint
@@ -585,6 +599,7 @@ from k8s_gpu_hpa_tpu_torch.chaos.fuzz import replay_artifact
 from k8s_gpu_hpa_tpu_torch.chaos.paging import run_paging_evacuation
 from k8s_gpu_hpa_tpu_torch.control.capacity import capacity_selfcheck
 from k8s_gpu_hpa_tpu_torch.control.profile_harness import run_profile
+from k8s_gpu_hpa_tpu_torch.control.race_harness import run_race_sweep
 from k8s_gpu_hpa_tpu_torch.control.operator import (
     KubeClient,
     LeaseElector,
@@ -4846,6 +4861,71 @@ def phase_incident() -> dict:
     return out
 
 
+#: SHA-256 of the canonical JSON of the JAX package's race sweep at its
+#: defaults, of its break-ordering canary at seed 7 and of its
+#: run_coverage("races") export, on the CPU (the same under PYTHONHASHSEED
+#: 0, 1 and 2)
+RACES_EXPECTED = {
+    "race_sweep": "853c79276f4488469c6804b0058c179bfea0b7abc10b41b7a110cbe019470892",
+    "race_canary": "380e64dab38abc52fd66ccc73314533eb3e79eb7e4c66e90f5f860db7ce957cb",
+    "coverage_races": "da406d54d6b317cba7263a1dc7ad8c08be4c2e233c784ffa671af371538668af",
+}
+
+
+def phase_races() -> dict:
+    """The race harness and the static-analysis gate, in this process on the
+    host: run_race_sweep() (a serial reference, four seeded permutations of
+    the shard-rules fan-out and one run on a real ThreadPoolExecutor, the
+    coverage map's inferred lockset armed), its break-ordering canary at
+    seed 7, simulate.run_coverage("races") and analysis.run_passes() over
+    this checkout.  The sweep, the canary and the export hash to the JAX
+    package's (RACES_EXPECTED), the sweep passes and the canary diverges,
+    the gate is ok with no stale allowlist entry, and no kernel is
+    launched."""
+    def digest(obj) -> str:
+        return _sha256(json.dumps(obj, sort_keys=True, separators=(",", ":")))
+
+    matmul_kernel.launches = 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = {"phase": "races"}
+    t = time.perf_counter()
+    sweep = run_race_sweep()
+    out["race_sweep"] = {"sha256": digest(sweep), "ok": sweep["ok"],
+                         "serial": sweep["serial_fingerprint"][:16],
+                         "threads_match": sweep["threads"]["match"],
+                         "call_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    canary = run_race_sweep(seed=7, break_ordering=True)
+    out["race_canary"] = {"sha256": digest(canary), "ok": canary["ok"],
+                          "divergent": canary["divergent"], "call_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    export = simulate.run_coverage("races")
+    out["coverage_races"] = {"sha256": digest(export),
+                             "concurrency": export["domains"]["concurrency"],
+                             "call_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    report = analysis.run_passes()
+    out["analysis"] = {"ok": report.ok, "passes": len(report.passes),
+                       "findings": [f.render() for f in report.findings],
+                       "allowed": len(report.allowed), "wall_s": time.perf_counter() - t}
+    out["kernel_launches"] = _kernel_counts()
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    for name, want in RACES_EXPECTED.items():
+        if out[name]["sha256"] != want:
+            raise AssertionError(f"the {name} run differs from the JAX package's: {out[name]}")
+    if not sweep["ok"]:
+        raise AssertionError(f"a schedule diverged from the serial reference: {out['race_sweep']}")
+    if canary["ok"]:
+        raise AssertionError(f"the break-ordering canary was not caught: {out['race_canary']}")
+    if not report.ok:
+        raise AssertionError(f"the static-analysis gate failed: {out['analysis']['findings']}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"the races phase launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 def _descendants(pid: int) -> list[str]:
     """The processes below ``pid`` that have not exited (zombies aside),
     as ``pid state command``."""
@@ -4968,6 +5048,7 @@ def main() -> int:
     phase_evacuate()
     phase_coverage(capacity["maps"])
     phase_incident()
+    phase_races()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape

@@ -266,8 +266,11 @@ class NvmlSource:
         except nvml.NvmlError:
             if not pair.primed:
                 # refused at the first sample although the device advertises
-                # GPM (a container can): a missing capability, not retried
-                del self._gpm[index]
+                # GPM (a container can): a missing capability, not retried.
+                # _mu is reentrant and sample() holds it already; taken here
+                # so every write of _gpm holds it where it is written
+                with self._mu:
+                    del self._gpm[index]
                 self._free({index: pair})
             # else a transient failure: the next sample pairs with ``last``
             return None

@@ -3,11 +3,12 @@
 Counterpart of ``k8s_gpu_hpa_tpu/metrics/federation.py``.
 ``ShardedScrapePlane`` is cut to what the pipeline sets: its shard DBs take
 the TSDB's defaults but for ``downsample`` (no ``lookback``, ``retention``,
-``chunk_size`` or ``ring`` knob), and the shards' rules run
-one shard after another, without JAX's thread-pool fan-out
-(``parallel_rules``); the recorded values are the same either way.  So
-JAX's two ``concurrency:shard_rules_*`` coverage probes, which mark that
-fan-out and its serial fallback, have no call site here yet.
+``chunk_size`` or ``ring`` knob).  Its shards' rules fan out onto a
+thread pool as JAX's do (``parallel_rules``), and fall back to one shard
+after another when an evaluator carries a tracer or self-metrics sink; the
+recorded values are the same either way, which ``control/race_harness.py``
+checks schedule by schedule and ``analysis/concurrency.py`` declares as the
+plane's concurrency contract.
 
 One scraper over one TSDB tops out well before 10,000 targets: every sweep
 walks the whole fleet and every fleet-wide query scans every series.  This
@@ -38,12 +39,14 @@ from __future__ import annotations
 import json
 import zlib
 from bisect import bisect_right
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 from k8s_gpu_hpa_tpu_torch.metrics.planner import QueryPlanner
 from k8s_gpu_hpa_tpu_torch.metrics.rules import RecordingRule, RuleEvaluator
 from k8s_gpu_hpa_tpu_torch.metrics.schema import Exemplar, Sample
 from k8s_gpu_hpa_tpu_torch.metrics.tsdb import LabelSet, Scraper, ScrapeTarget, TimeSeriesDB
+from k8s_gpu_hpa_tpu_torch.obs import coverage
 
 
 class HashRing:
@@ -92,6 +95,12 @@ class ShardedScrapePlane:
         ]
         #: per-shard rule evaluators (``add_shard_rules``), or None slots
         self.shard_evaluators: list[RuleEvaluator | None] = [None] * shards
+        #: evaluate shard rules concurrently (disjoint DBs make the passes
+        #: independent); falls back to the serial loop when a shard
+        #: evaluator carries a tracer or self-metrics sink, whose internals
+        #: are not thread-safe
+        self.parallel_rules = True
+        self._rule_pool: ThreadPoolExecutor | None = None
 
     # -- Scraper drop-in surface --------------------------------------------
 
@@ -142,10 +151,39 @@ class ShardedScrapePlane:
                 )
 
     def evaluate_rules_once(self) -> int:
-        """One evaluation pass over every shard's local rules, shard by
-        shard (the pipeline runs this before the global evaluator each rule
-        tick, so federated aggregates read fresh shard reductions)."""
-        return sum(ev.evaluate_once() for ev in self.shard_evaluators if ev is not None)
+        """One evaluation pass over every shard's local rules (the pipeline
+        runs this before the global evaluator each rule tick, so federated
+        aggregates read fresh shard reductions).
+
+        With two or more populated shards the passes fan out onto a shared
+        thread pool: shard DBs are disjoint by ring construction and a
+        rule's incremental state lives on the per-shard rule objects, so
+        the evaluations share nothing.  The fan-out is skipped when any
+        evaluator carries a tracer or selfmetrics sink (their span and list
+        internals are not guarded) or when ``parallel_rules`` is off."""
+        evaluators = [ev for ev in self.shard_evaluators if ev is not None]
+        if (
+            len(evaluators) < 2
+            or not self.parallel_rules
+            or any(ev.tracer is not None or ev.selfmetrics is not None for ev in evaluators)
+        ):
+            if len(evaluators) >= 2:
+                # a genuine fallback (a shared sink or parallelism off), not
+                # the trivial 0/1-shard case
+                coverage.hit("concurrency:shard_rules_serial_fallback")
+            return sum(ev.evaluate_once() for ev in evaluators)
+        # concurrency contract: the disjoint-ownership fan-out declared in
+        # analysis/concurrency.py CONTRACTS; the race harness holds it
+        # bit-identical to the serial loop
+        coverage.hit("concurrency:shard_rules_parallel")
+        pool = self._rule_pool
+        if pool is None or pool._max_workers < len(evaluators):
+            if pool is not None:
+                pool.shutdown(wait=True)
+            pool = self._rule_pool = ThreadPoolExecutor(
+                max_workers=len(evaluators), thread_name_prefix="shard-rules"
+            )
+        return sum(pool.map(lambda ev: ev.evaluate_once(), evaluators))
 
     # -- introspection (doctor check_shards) ---------------------------------
 

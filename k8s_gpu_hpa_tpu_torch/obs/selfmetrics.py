@@ -247,10 +247,11 @@ class PipelineSelfMetrics:
         for reason, count in sorted(self.decisions.items()):
             decisions.add(float(count), reason=reason)
         families = [sync, scrape, staleness, decisions]
-        counters = []
+        # literal tables, so the static producer table (analysis/symbols.py)
+        # sees every family name
         if self._planner_stats is not None:
             s = self._planner_stats
-            counters += [
+            for name, help_text, value in (
                 (PLANNER_FASTPATH_TOTAL,
                  "chunks served from seal-time summaries without decode", s.fastpath),
                 (PLANNER_FALLBACK_TOTAL, "chunks a planned range read decoded", s.fallback),
@@ -258,19 +259,21 @@ class PipelineSelfMetrics:
                  "series sets revalidated from the plan cache", s.series_cache_hits),
                 (PLANNER_SERIES_RESOLVES,
                  "series sets re-resolved through the inverted index", s.series_resolves),
-            ]
+            ):
+                fam = MetricFamily(name, "counter", help_text)
+                fam.add(float(value))
+                families.append(fam)
         if self._query_db is not None:
             db = self._query_db
-            counters += [
+            for name, help_text, value in (
                 (DECODE_CACHE_HITS,
                  "sealed-chunk reads served from the decoded-window cache",
                  db.decode_cache_hits),
                 (DECODE_CACHE_MISSES,
                  "sealed-chunk reads that decoded Gorilla blobs", db.decode_cache_misses),
-            ]
-        for name, help_text, value in counters:
-            fam = MetricFamily(name, "counter", help_text)
-            fam.add(float(value))
-            families.append(fam)
+            ):
+                fam = MetricFamily(name, "counter", help_text)
+                fam.add(float(value))
+                families.append(fam)
         families.extend(h.family() for h in self.histograms())
         return encode_text(families)

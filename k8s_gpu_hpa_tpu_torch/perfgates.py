@@ -234,6 +234,18 @@ COVERAGE_DOMAIN_FLOORS = {
 #: information
 COVERAGE_MIN_NEVER_HIT = 1
 
+# ---- race_sweep: the shard-rules fan-out's interleavings (`simulate races`) --
+
+#: permuted completion schedules a sweep runs; each must be bit-identical
+#: to the serial reference
+RACE_SWEEP_SCHEDULES = 4
+#: shards in the sweep's plane: enough for a nontrivial permutation space
+RACE_SWEEP_SHARDS = 4
+#: synthetic fleet targets spread over the ring
+RACE_SWEEP_TARGETS = 12
+#: scrape and evaluate ticks a schedule
+RACE_SWEEP_TICKS = 6
+
 # ---- profile_bench: the continuous-profiling plane --------------------------
 
 #: attribution floor for the scale run: at least this share of

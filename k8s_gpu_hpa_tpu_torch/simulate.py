@@ -91,14 +91,22 @@ Scenarios (offered load in percent of one device; the replicas share it):
               result, ``--why INC-00N`` one incident's causal chain, and
               ``--break-inhibition`` is the planted canary.  Exit 2 on any
               violation of the paging contract or an unknown run;
+- ``races``:  the race harness (``control.race_harness.run_race_sweep``),
+              which needs no manifest: a serial reference and
+              ``--schedules`` seeded permutations (from ``--seed``) of the
+              shard-rules fan-out, plus one run on a real thread pool, must
+              leave bit-identical shard DBs, with the statically inferred
+              lockset of the coverage map armed as runtime assertions.
+              ``--break-ordering`` is the planted canary.  Exit 2 on any
+              divergence or lock-discipline violation;
 - ``coverage``: a canned run (``--run``: storm, crunch, drill, slo,
-              profile, evacuate, fuzz or incident) under a coverage map
-              (``run_coverage``): the per-domain scorecard and the
-              never-hit probes; ``--json`` writes the canonical export,
-              ``--diff BASELINE CANDIDATE`` compares two exports (exit 2 on
-              a lost probe) and ``--floor`` gates the union ratio.  The
-              races run, and ``all``, which unions it with the rest, exit 2
-              in one line naming what each needs;
+              races, fuzz, profile, evacuate or incident; default ``all``,
+              their union) under a coverage map (``run_coverage``): the
+              per-domain scorecard and the never-hit probes; ``--json``
+              writes the canonical export, ``--diff BASELINE CANDIDATE``
+              compares two exports (exit 2 on a lost probe) and ``--floor``
+              gates the union ratio (by default the union floor for
+              ``all``);
 - ``profile``: a canned run (``--run``: storm, crunch, scale or all)
               under a profile map (``control.profile_harness``): the
               per-stage scorecard with its attribution; ``--json`` writes
@@ -120,8 +128,7 @@ plane of N hash-ring shards (metrics/federation.py), and ``--explain``
 prints the query planner's physical plan of every rule and alert the
 pipeline evaluates.
 
-The manifests are read with ``manifests.load_yaml``: no YAML library.  The
-JAX simulator's race scenario is not ported.
+The manifests are read with ``manifests.load_yaml``: no YAML library.
 """
 
 from __future__ import annotations
@@ -685,11 +692,8 @@ def render_slo_report(result: dict) -> str:
     return "\n".join(lines)
 
 
-#: flight-recorder cadence: the history scenario runs its pipeline at a
-#: 30 s tick (vs the live loop's 1 s) so multi-day virtual windows stay
-#: cheap; the HPA still syncs every other tick
 #: the canned runs ``simulate --scenario coverage`` can collect under one
-#: map, the JAX package's nine (its ``all`` unions them)
+#: map, the JAX package's nine in its order (``all`` unions them)
 COVERAGE_RUN_NAMES = (
     "storm",
     "crunch",
@@ -702,75 +706,68 @@ COVERAGE_RUN_NAMES = (
     "incident",
 )
 
-#: the runs whose planes the port does not have yet, each with what it
-#: needs; ``all`` unions them with the rest, so it waits for the races
-COVERAGE_RUNS_NOT_PORTED = {
-    "races": "the race harness and the static analysis "
-    "(control/race_harness.py, analysis/), a later slice of the port",
-    "all": "the races run too (control/race_harness.py, analysis/), which a "
-    "later slice of the port brings",
-}
-
 
 def run_coverage(run: str = "all", seed: int | None = None) -> dict:
-    """Run the named canned run under a fresh CoverageMap and return its
-    canonical export.  ``seed`` feeds the storm's schedule-variant
-    derivation (chaos/storm.py) and is part of the run label, so same-seed
-    exports are bit-identical and differently labeled ones are not
-    conflated.  A run whose plane is not ported raises ValueError."""
+    """Run the named canned run, or all of them (``run="all"``, in
+    ``COVERAGE_RUN_NAMES`` order), under one fresh CoverageMap and return
+    its canonical export.  ``seed`` feeds the storm's schedule-variant
+    derivation (chaos/storm.py) and the race sweep, and is part of the run
+    label, so same-seed exports are bit-identical and differently labeled
+    ones are not conflated."""
     from k8s_gpu_hpa_tpu_torch.chaos.crunch import run_capacity_crunch
     from k8s_gpu_hpa_tpu_torch.chaos.storm import run_fault_storm
     from k8s_gpu_hpa_tpu_torch.control.scale_harness import run_recovery_drill
     from k8s_gpu_hpa_tpu_torch.obs import coverage
 
-    if run in COVERAGE_RUNS_NOT_PORTED:
-        raise ValueError(
-            f"coverage run {run!r} is not ported yet: it needs "
-            f"{COVERAGE_RUNS_NOT_PORTED[run]}"
-        )
+    names = COVERAGE_RUN_NAMES if run == "all" else (run,)
     label = run if seed is None else f"{run}@{seed}"
     with coverage.collect(label) as cmap:
-        if run == "storm":
-            run_fault_storm(seed=seed)
-        elif run == "crunch":
-            run_capacity_crunch()
-        elif run == "drill":
-            run_recovery_drill()
-        elif run == "slo":
-            run_slo_check()
-        elif run == "profile":
-            # fires all four profile:* probes deterministically: a tiny
-            # profiled fleet run, both exporters and synthetic diff and
-            # attribution trips (control/profile_harness.py)
-            from k8s_gpu_hpa_tpu_torch.control.profile_harness import (
-                run_profile_coverage_session,
-            )
+        for name in names:
+            if name == "storm":
+                run_fault_storm(seed=seed)
+            elif name == "crunch":
+                run_capacity_crunch()
+            elif name == "drill":
+                run_recovery_drill()
+            elif name == "slo":
+                run_slo_check()
+            elif name == "races":
+                from k8s_gpu_hpa_tpu_torch.control.race_harness import run_race_sweep
 
-            run_profile_coverage_session()
-        elif run == "evacuate":
-            # fires the region:* probes deterministically: one smoke
-            # evacuation for the lifecycle, plus the torn-seal fallback and
-            # the never-published miss (chaos/evacuate.py)
-            from k8s_gpu_hpa_tpu_torch.chaos.evacuate import (
-                run_evacuation_coverage_session,
-            )
+                run_race_sweep(seed=0 if seed is None else seed)
+            elif name == "fuzz":
+                # the fuzz session's campaign seed and budget are pinned in
+                # perfgates (they make all four fuzz:* probes fire); --seed
+                # varies the storm and the races, not the fuzz campaign
+                from k8s_gpu_hpa_tpu_torch.chaos.fuzz import run_fuzz_coverage_session
 
-            run_evacuation_coverage_session()
-        elif run == "fuzz":
-            # the fuzz session's campaign seed and budget are pinned in
-            # perfgates (they make all four fuzz:* probes fire); --seed
-            # varies the storm, not the fuzz campaign
-            from k8s_gpu_hpa_tpu_torch.chaos.fuzz import run_fuzz_coverage_session
+                run_fuzz_coverage_session()
+            elif name == "profile":
+                # fires all four profile:* probes deterministically: a tiny
+                # profiled fleet run, both exporters and synthetic diff and
+                # attribution trips (control/profile_harness.py)
+                from k8s_gpu_hpa_tpu_torch.control.profile_harness import (
+                    run_profile_coverage_session,
+                )
 
-            run_fuzz_coverage_session()
-        elif run == "incident":
-            # fires all sixteen alerting:* probes deterministically: one
-            # smoke evacuation paging drill (real pages, inhibition and
-            # attribution) and synthetic router and correlator edges
-            # (chaos/paging.py)
-            from k8s_gpu_hpa_tpu_torch.chaos.paging import run_incident_coverage_session
+                run_profile_coverage_session()
+            elif name == "evacuate":
+                # fires the region:* probes deterministically: one smoke
+                # evacuation for the lifecycle, plus the torn-seal fallback
+                # and the never-published miss (chaos/evacuate.py)
+                from k8s_gpu_hpa_tpu_torch.chaos.evacuate import (
+                    run_evacuation_coverage_session,
+                )
 
-            run_incident_coverage_session()
+                run_evacuation_coverage_session()
+            elif name == "incident":
+                # fires all sixteen alerting:* probes deterministically: one
+                # smoke evacuation paging drill (real pages, inhibition and
+                # attribution) and synthetic router and correlator edges
+                # (chaos/paging.py)
+                from k8s_gpu_hpa_tpu_torch.chaos.paging import run_incident_coverage_session
+
+                run_incident_coverage_session()
     return cmap.export()
 
 
@@ -1450,11 +1447,7 @@ def _main_coverage(args) -> int:
             f"{', '.join(known)}"
         )
         return 2
-    try:
-        export = run_coverage(run=run, seed=getattr(args, "seed", None))
-    except ValueError as e:
-        print(f"simulate coverage: {e}")
-        return 2
+    export = run_coverage(run=run, seed=getattr(args, "seed", None))
     print(covmod.render_scorecard(export))
     json_path = getattr(args, "json_out", None)
     if json_path:
@@ -1607,6 +1600,16 @@ def main(args) -> int:
         return _main_fuzz(args)
     if args.scenario == "incident":
         return _main_incident(args)
+    if args.scenario == "races":
+        from k8s_gpu_hpa_tpu_torch.control.race_harness import render_race_report, run_race_sweep
+
+        result = run_race_sweep(
+            schedules=getattr(args, "schedules", None),
+            seed=args.seed if args.seed is not None else 0,
+            break_ordering=getattr(args, "break_ordering", False),
+        )
+        print(render_race_report(result))
+        return 0 if result["ok"] else 2
     if args.scenario == "coverage":
         return _main_coverage(args)
     if args.scenario == "profile":
@@ -1654,7 +1657,7 @@ def add_arguments(parser) -> None:
     parser.add_argument(
         "--scenario",
         choices=[*SCENARIOS, "trace", "chaos", "slo", "drill", "history", "why", "crunch",
-                 "evacuate", "coverage", "profile", "fuzz", "incident"],
+                 "evacuate", "coverage", "profile", "fuzz", "incident", "races"],
         default="spike",
     )
     parser.add_argument("--duration", type=float, default=420.0)
@@ -1773,8 +1776,8 @@ def add_arguments(parser) -> None:
         "--run",
         default=None,
         help="which canned run --scenario coverage collects (storm, crunch, "
-        "drill, slo, profile, evacuate, fuzz or incident; races and the "
-        "default all are not ported yet and exit 2), --scenario profile "
+        "drill, slo, races, fuzz, profile, evacuate or incident; default all, "
+        "their union), --scenario profile "
         "measures (storm, crunch, scale or all; default storm) or --scenario "
         "incident pages over (storm, crunch or evacuate; default storm)",
     )
@@ -1785,7 +1788,21 @@ def add_arguments(parser) -> None:
         help="schedule-variant seed of the storm (chaos/storm.py) for "
         "--scenario coverage, profile and incident; default the fixed canned "
         "timeline; --scenario fuzz: the campaign's seed (default "
-        "perfgates.FUZZ_SMOKE_SEED)",
+        "perfgates.FUZZ_SMOKE_SEED); --scenario races: the schedules' seed "
+        "(default 0)",
+    )
+    parser.add_argument(
+        "--schedules",
+        type=int,
+        default=None,
+        help="permuted completion schedules --scenario races sweeps "
+        "(default perfgates.RACE_SWEEP_SCHEDULES)",
+    )
+    parser.add_argument(
+        "--break-ordering",
+        action="store_true",
+        help="races: arm the test-only ordering canary that makes the merge "
+        "schedule-dependent, which proves the harness can fail (exit 2)",
     )
     parser.add_argument(
         "--json",

@@ -84,6 +84,9 @@ scale run's attribution, same-seed bit-identity and the planted canary.
 campaign twice and its break-grace canary (minutes of wall time on a CPU),
 and ``paging_bench_rung`` (bench.py's ``run_rung_paging_bench``) the three
 paging drills, the mis-inhibition canary and a second smoke evacuation.
+``coverage_floor_rung`` (bench.py's ``run_rung_coverage_floor``) gates the
+union coverage of every canned run against the coverage floors (some 70 s
+on a CPU, or a finished ``run_coverage("all")`` export).
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -348,21 +351,21 @@ def train_spec() -> LoopSpec:
     )
 
 
-def slice_spec(metric: str = TPU_TENSORCORE_UTIL, series: str = MULTIHOST_SERIES) -> LoopSpec:
+def slice_spec(metric: str = TPU_TENSORCORE_UTIL, record: str = MULTIHOST_SERIES) -> LoopSpec:
     """The slice loop: bench.py's multihost rung against the shipped slice
     HPA (deploy/tpu-test-multihost-hpa.yaml: target 40 on the StatefulSet,
     pods 2..8, quantum 2, its behavior) with the slice rule on ``metric``,
-    recorded as ``series``.  The trial offers 0.2 devices of load, then 3.2;
+    recorded as ``record``.  The trial offers 0.2 devices of load, then 3.2;
     it drains back to 0.2.  Mirror pods report the real pod's value in
     both activity gauges."""
     return LoopSpec(
         app=MULTIHOST_APP,
         real_pod=f"{MULTIHOST_APP}-0",
-        rules=(tpu_test_multihost_avg_rule(metric=metric, record=series),),
+        rules=(tpu_test_multihost_avg_rule(metric=metric, record=record),),
         metrics=(ObjectMetricSpec(
-            series, MULTIHOST_TARGET, ObjectReference("StatefulSet", MULTIHOST_APP, "default")
+            record, MULTIHOST_TARGET, ObjectReference("StatefulSet", MULTIHOST_APP, "default")
         ),),
-        series=(series,),
+        series=(record,),
         base_offered=0.2,
         settle_below=30.0,
         mirror_chip=_mirror_busy,
@@ -828,7 +831,9 @@ class LoadThread:
     def __init__(self, step: Callable[[], object]):
         self._step = step
         self._stop = threading.Event()
-        self._error: BaseException | None = None
+        #: the thread's exception, appended once (the declared contract in
+        #: analysis/concurrency.py: the only write the thread shares)
+        self._errors: list[BaseException] = []
         self._thread = threading.Thread(target=self._run, name="loadgen", daemon=True)
 
     def _run(self) -> None:
@@ -836,7 +841,7 @@ class LoadThread:
             while not self._stop.is_set():
                 self._step()
         except BaseException as e:  # noqa: BLE001 — handed to stop()
-            self._error = e
+            self._errors.append(e)
 
     def start(self) -> "LoadThread":
         self._thread.start()
@@ -844,8 +849,8 @@ class LoadThread:
 
     def check(self) -> None:
         """Raise the thread's exception, if it has died of one."""
-        if self._error is not None:
-            raise RuntimeError("load generator thread failed") from self._error
+        if self._errors:
+            raise RuntimeError("load generator thread failed") from self._errors[0]
 
     def stop(self, timeout: float = 30.0) -> None:
         self._stop.set()
@@ -853,6 +858,19 @@ class LoadThread:
         if self._thread.is_alive():
             raise RuntimeError(f"load generator thread did not stop within {timeout}s")
         self.check()
+
+
+def _feed_exporter(daemon: ExporterDaemon, stop: threading.Event, interval: float,
+                   errors: list[Exception]) -> None:
+    """The exporter-feed thread of ``_live_trial``: one daemon sweep every
+    ``interval`` s until ``stop`` is set; an exception ends it and is
+    appended to ``errors`` for the caller to raise after the join."""
+    try:
+        while not stop.is_set():
+            daemon.step()
+            stop.wait(interval)
+    except Exception as e:  # noqa: BLE001 — raised again by the caller
+        errors.append(e)
 
 
 def _live_trial(
@@ -888,19 +906,13 @@ def _live_trial(
     )
     clock = SystemClock()
     stop = threading.Event()
-    feed_interval = max(0.05, 0.5 * time_scale)
-
     feed_errors: list[Exception] = []
-
-    def feed() -> None:
-        try:
-            while not stop.is_set():
-                daemon.step()
-                stop.wait(feed_interval)
-        except Exception as e:  # noqa: BLE001 — raised again below
-            feed_errors.append(e)
-
-    feeder = threading.Thread(target=feed, name="exporter-feed", daemon=True)
+    feeder = threading.Thread(
+        target=_feed_exporter,
+        args=(daemon, stop, max(0.05, 0.5 * time_scale), feed_errors),
+        name="exporter-feed",
+        daemon=True,
+    )
     worker = LoadThread(step) if step is not None else None
     try:
         feeder.start()
@@ -1176,7 +1188,7 @@ def run_slice_trial(gen: AllReduceLoadGen, time_scale: float = 1.0) -> TrialResu
     load = PacedLoad(gen, window=3.0 * time_scale)
     source = TorchDeviceSource(util_fn=load.utilization, device=gen.device)
     spec = dataclasses.replace(
-        slice_spec(TPU_DUTY_CYCLE, MULTIHOST_DUTY_SERIES), drain_offered=None
+        slice_spec(TPU_DUTY_CYCLE, record=MULTIHOST_DUTY_SERIES), drain_offered=None
     )
     return _live_trial(spec, source, load.step, load, load.utilization, time_scale)
 
@@ -1702,6 +1714,45 @@ def downsample_bench_rung(full: bool = False) -> dict:
         and result["tier_selected"]
     )
     return result
+
+
+def coverage_floor_rung(export: dict | None = None) -> dict:
+    """bench.py's ``coverage_floor`` rung (``run_rung_coverage_floor``), field
+    for field: the canned runs (``simulate.COVERAGE_RUN_NAMES``) under one
+    CoverageMap, the union gated against perfgates' ``COVERAGE_*`` floors:
+    the union hit ratio, each domain's ratio and a least count of never-hit
+    probes (a gap list gone dark means coverage stopped carrying
+    information).  ``never_hit`` is the published gap list.  ``export`` is
+    a finished ``simulate.run_coverage("all")`` export, run here when None.
+    Virtual time: deterministic run to run."""
+    from k8s_gpu_hpa_tpu_torch.obs import coverage
+    from k8s_gpu_hpa_tpu_torch.simulate import run_coverage
+
+    if export is None:
+        export = run_coverage(run="all")
+    union = coverage.export_union_ratio(export)
+    gaps = coverage.export_never_hit(export)
+    domain_ratios = {d: round(export["domains"][d]["ratio"], 4) for d in coverage.DOMAINS}
+    domains_ok = all(
+        domain_ratios[d] >= perfgates.COVERAGE_DOMAIN_FLOORS[d] for d in coverage.DOMAINS
+    )
+    return {
+        "mode": "virtual",
+        "metric": "decision-path coverage (canned-scenario union, ratio)",
+        "probes_registered": len(export["probes"]),
+        "probes_hit": len(export["probes"]) - len(gaps),
+        "union_ratio": round(union, 4),
+        "union_floor": perfgates.COVERAGE_UNION_FLOOR,
+        "domain_ratios": domain_ratios,
+        "domain_floors": dict(perfgates.COVERAGE_DOMAIN_FLOORS),
+        "never_hit": gaps,
+        "never_hit_min": perfgates.COVERAGE_MIN_NEVER_HIT,
+        "ok": (
+            union >= perfgates.COVERAGE_UNION_FLOOR
+            and domains_ok
+            and len(gaps) >= perfgates.COVERAGE_MIN_NEVER_HIT
+        ),
+    }
 
 
 def profile_bench_rung(full: bool = False) -> dict:

@@ -14,8 +14,8 @@ and the ``coverage`` scenario against the JAX package's.
   are bit-identical; a storm seed changes the hit set.
 - The CLI through the port's umbrella: ``--diff`` (0 on a gain, 2 on a
   loss), an unreadable export, an unknown run, ``--json`` and ``--floor``
-  (test_coverage.py's four cases), and the runs not ported yet (races,
-  fuzz, incident, all) exiting 2 with a one-line diagnosis.
+  (test_coverage.py's four cases); the races run and the default union
+  are held in tests/test_torch_races.py and tests/test_torch_coverage_union.py.
 - ``chip_smoke.py``'s coverage phase holds the card's exports to JAX's
   digests, recomputed here from the JAX package.
 - test_evacuate.py's three registry cases: ``evacuate`` is a coverage run,
@@ -310,18 +310,6 @@ def test_cli_single_run_writes_canonical_json_and_scores(exports, tmp_path, caps
     )
     assert rc == 0
     assert "meets declared floor" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("run", ["races", "all", None])
-def test_the_runs_not_ported_exit_2_with_a_diagnosis(run, capsys):
-    argv = ["simulate", "--scenario", "coverage"] + ([] if run is None else ["--run", run])
-    assert umbrella_main(argv) == 2
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1
-    assert f"coverage run {run or 'all'!r} is not ported yet" in lines[0]
-    assert set(simulate.COVERAGE_RUNS_NOT_PORTED) == {"races", "all"}
-    with pytest.raises(ValueError, match="not ported yet"):
-        simulate.run_coverage(run=run or "all")
 
 
 def test_the_run_names_and_floors_are_jax_s():

@@ -248,6 +248,70 @@ def test_a_fleet_kind_refuses_a_pipeline_outside_a_region_in_jax_s_words(kind):
     assert str(got.value).startswith(f"{kind}: pipeline is not part of a region")
 
 
+#: tests/test_fault_injectors.py's natural spec of each fleet kind; the
+#: pipeline kinds' rows are in tests/test_torch_chaos.py
+NATURAL_SPECS = {
+    "region_kill": dict(duration=20.0),
+    "region_partition": dict(duration=10.0),
+    "objstore_outage": dict(duration=10.0),
+}
+
+
+def _one_region_pipeline(mods):
+    """tests/test_fault_injectors.py's single-region wrapper: a pipeline
+    inside one region of a GlobalControlPlane whose own loops are not
+    started, settled for 60 s."""
+    clock = mods["clock"]()
+    cluster = mods["cluster"](clock, nodes=[("tpu-node-0", 4), ("tpu-node-1", 4)],
+                              pod_start_latency=12.0)
+    dep = mods["deployment"](cluster, "tpu-test", "tpu-test", load_fn=lambda t: 90.0,
+                             load_mode="shared")
+    cluster.add_deployment(dep, replicas=1)
+    clock.advance(15.0)
+    pipe = mods["pipeline"](cluster, dep, target_value=40.0, max_replicas=4)
+    reg = mods["region"].Region("test-region", pipe)
+    mods["region"].GlobalControlPlane(clock, [reg], mods["store"](clock))
+    pipe.start()
+    clock.advance(60.0)
+    return clock, pipe, reg
+
+
+@pytest.mark.parametrize("kind", sorted(NATURAL_SPECS))
+def test_a_fleet_kind_injects_and_clears_twice_as_jax_s(kind):
+    """Each fleet kind with its natural spec on a one-region pipeline,
+    cleared twice and followed for 90 s: the region's state while the
+    fault holds and after, the scale history, the replicas and the
+    exporter's ``up`` series are JAX's, and the loop is healthy again."""
+    from k8s_gpu_hpa_tpu.control.cluster import SimCluster as JaxCluster
+    from k8s_gpu_hpa_tpu.control.cluster import SimDeployment as JaxDeployment
+    from k8s_gpu_hpa_tpu.control.loop import AutoscalingPipeline as JaxPipeline
+    from k8s_gpu_hpa_tpu.metrics.objstore import SimObjectStore as JaxStore
+    from k8s_gpu_hpa_tpu_torch.metrics.objstore import SimObjectStore
+
+    port = dict(clock=VirtualClock, cluster=SimCluster, deployment=SimDeployment,
+                pipeline=AutoscalingPipeline, region=region, store=SimObjectStore, faults=faults)
+    ref = dict(clock=JaxClock, cluster=JaxCluster, deployment=JaxDeployment,
+               pipeline=JaxPipeline, region=jax_region, store=JaxStore, faults=jax_faults)
+    runs = []
+    for mods in (port, ref):
+        clock, pipe, reg = _one_region_pipeline(mods)
+        spec = mods["faults"].FaultSpec(kind=kind, at=0.0, **NATURAL_SPECS[kind])
+        clear = mods["faults"].FAULT_KINDS[kind](pipe, spec)
+        during = (reg.alive, reg.partitioned, pipe.replicas())
+        clock.advance(max(spec.duration, 5.0))
+        clear()
+        clear()  # idempotent: the second call is a no-op
+        clock.advance(90.0)
+        assert pipe.running() == pipe.replicas() >= 1
+        assert pipe.db.latest("up", {"target": "exporter/tpu-node-1"}) == 1.0
+        assert all(getattr(t, "_fault_depth", 0) == 0 for t in pipe.scraper.targets)
+        runs.append(dict(during=during, after=(reg.alive, reg.partitioned),
+                         history=list(pipe.scale_history), replicas=pipe.replicas(),
+                         up=pipe.db.latest("up", {"target": "exporter/tpu-node-0"})))
+    assert runs[0] == runs[1]
+    assert runs[0]["after"] == (True, False)
+
+
 _TENANTS = [
     dict(name="a-prod", priority=100, weight=2.0, preemption_budget=0, starvation_budget_s=120.0,
          chips_per_pod=4, max_replicas=4, base_load=90.0, band="prod"),

@@ -104,9 +104,9 @@ def test_the_mutation_pool_and_its_tables_are_jax_s():
 
 
 def test_fuzz_is_a_registered_coverage_run():
-    from k8s_gpu_hpa_tpu_torch.simulate import COVERAGE_RUN_NAMES, COVERAGE_RUNS_NOT_PORTED
+    from k8s_gpu_hpa_tpu_torch.simulate import COVERAGE_RUN_NAMES
 
-    assert "fuzz" in COVERAGE_RUN_NAMES and "fuzz" not in COVERAGE_RUNS_NOT_PORTED
+    assert "fuzz" in COVERAGE_RUN_NAMES
     assert "fuzz" in coverage.DOMAINS
     assert "fuzz" in perfgates.COVERAGE_DOMAIN_FLOORS
     assert {p for p in coverage.probe_ids() if p.startswith("fuzz:")} == {

@@ -115,6 +115,16 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.obs.alerting",
         "k8s_gpu_hpa_tpu_torch.obs.incident",
         "k8s_gpu_hpa_tpu_torch.chaos.paging",
+        "k8s_gpu_hpa_tpu_torch.control.race_harness",
+        "k8s_gpu_hpa_tpu_torch.analysis",
+        "k8s_gpu_hpa_tpu_torch.analysis.__main__",
+        "k8s_gpu_hpa_tpu_torch.analysis.allowlist",
+        "k8s_gpu_hpa_tpu_torch.analysis.concurrency",
+        "k8s_gpu_hpa_tpu_torch.analysis.contracts",
+        "k8s_gpu_hpa_tpu_torch.analysis.coverage",
+        "k8s_gpu_hpa_tpu_torch.analysis.legacy",
+        "k8s_gpu_hpa_tpu_torch.analysis.purity",
+        "k8s_gpu_hpa_tpu_torch.analysis.symbols",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -277,14 +287,17 @@ def test_the_simulate_command_loads_no_jax_yaml_or_torch():
     (["simulate", "--scenario", "fuzz", "--replay", "tests/scenarios/break-grace-canary.json"],
      "scenario break-grace-canary: reproduced bit-identically"),
     (["simulate", "--scenario", "incident", "--smoke"], "incident drill: scenario=paging_evacuate"),
+    (["simulate", "--scenario", "races"], "PASS: all schedules bit-identical to serial"),
+    (["simulate", "--scenario", "coverage", "--run", "races"], "coverage scorecard — run: races"),
 ], ids=["chaos", "slo", "gen-pipeline", "shards-explain", "history", "crunch", "evacuate",
-        "coverage", "profile", "fuzz-replay", "incident"])
+        "coverage", "profile", "fuzz-replay", "incident", "races", "coverage-races"])
 def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv, says):
     """The storm, the SLO check, the pipeline generator, the sharded spike
     with its plans, the flight recorder, the capacity crunch, the region
-    evacuation, the coverage and profile scenarios, a fuzz artifact's replay
-    and the smoke paging drill as a user runs them, in a fresh interpreter: exit 0, and the import log names
-    neither JAX, the JAX package, PyYAML nor torch."""
+    evacuation, the coverage and profile scenarios, a fuzz artifact's replay,
+    the smoke paging drill and the race sweep as a user runs them, in a
+    fresh interpreter: exit 0, and the import log names neither JAX, the
+    JAX package, PyYAML nor torch."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch", *argv],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
@@ -293,6 +306,24 @@ def test_the_chaos_slo_and_gen_pipeline_commands_load_no_jax_yaml_or_torch(argv,
     imported = {line.rsplit("|", 1)[1].strip() for line in proc.stderr.splitlines()
                 if line.startswith("import time:") and "|" in line}
     heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch")]
+    assert heavy == []
+
+
+def test_the_analysis_gate_loads_no_jax_yaml_torch_or_tools():
+    """``python -m k8s_gpu_hpa_tpu_torch.analysis --all`` as a user runs it,
+    in a fresh interpreter: exit 0 on the port's tree, and the import log
+    names neither JAX, the JAX package, PyYAML, torch nor a script of
+    ``tools/`` (the port keeps its own copies of their lint bodies)."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "k8s_gpu_hpa_tpu_torch.analysis", "--all"],
+        cwd=REPO, capture_output=True, text=True, timeout=300, check=True,
+    )
+    assert proc.stdout.startswith("analyze ok: 10 pass(es) clean")
+    imported = {line.rsplit("|", 1)[1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line}
+    assert "k8s_gpu_hpa_tpu_torch.analysis.legacy" in imported
+    heavy = [m for m in imported if _forbidden(m) or m.split(".")[0] in ("yaml", "torch", "tools")
+             or m.startswith("_analyze_") or m.startswith("lint_")]
     assert heavy == []
 
 

@@ -189,16 +189,17 @@ def test_the_umbrella_offers_the_ported_commands_only(capsys):
                     "gen-pipeline", "gen-manifests"):
         assert command in text
     assert "stub-libtpu" not in text
-    # the crunch, the region evacuation, the fuzzer and the incident drill
-    # are ported (tests/test_torch_{crunch,evacuate,fuzz,paging}.py); the
-    # race harness is not yet
+    # the crunch, the region evacuation, the fuzzer, the incident drill and
+    # the race harness are ported
+    # (tests/test_torch_{crunch,evacuate,fuzz,paging,races}.py)
     with pytest.raises(SystemExit):
         main(["simulate", "--help"])
     text = capsys.readouterr().out
-    for scenario in ("crunch", "evacuate", "fuzz", "incident"):
+    for scenario in ("crunch", "evacuate", "fuzz", "incident", "races"):
         assert scenario in text
+    # a scenario the simulator does not have is refused
     with pytest.raises(SystemExit):
-        main(["simulate", "--scenario", "races"])
+        main(["simulate", "--scenario", "no-such-scenario"])
 
 
 def test_gen_manifests_writes_the_bundle(tmp_path, capsys):
