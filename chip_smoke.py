@@ -82,6 +82,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    bound, the plain version and scaled_dot_product_attention
                    (a yardstick the port never calls), in turns; and each
                    shape on one and on two consumer warpgroups.
+11b. dwell       — bench.py's two rate blocks through utils/dwell.py:
+                   trial.measure_attention_rates() (the flash forward and
+                   reference_attention, each one CUDA graph of 400 causal
+                   applications at b2 s4096 h8 d128 bf16, replayed once and
+                   wall-clock timed to a scalar read) and
+                   trial.measure_kernel_rates() (MatmulLoadGen's dwell at
+                   4096^2 through torch.matmul and the GEMM, 2000 products,
+                   and torch.matmul at 8192^2, 500).  First each attention
+                   chain, four applications captured and replayed, is held
+                   against the same four applied eagerly: the flash chain
+                   bit for bit, the naive within 0.06 of its RMS.  Both
+                   dicts are printed with the card's name and power limit.
 12. serve_parity — at the shipped serve sizes in bf16: prefill against
                    stepwise decode, and the CUDA-graph burst against the same
                    burst run eagerly, bit for bit.
@@ -591,6 +603,7 @@ from k8s_gpu_hpa_tpu_torch.ops.flash_attention import (
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul_kernel, matmul_reference
 from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention, ring_attention
 from k8s_gpu_hpa_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, mesh_shape
+from k8s_gpu_hpa_tpu_torch.utils import dwell
 from k8s_gpu_hpa_tpu_torch import analysis, perfgates, simulate, trial
 from k8s_gpu_hpa_tpu_torch.__main__ import main as cli_main
 from k8s_gpu_hpa_tpu_torch.chaos import run_capacity_crunch, run_fault_storm, run_region_evacuation
@@ -1605,6 +1618,58 @@ def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
     return out
 
 
+DWELL_CHECK_ITERS = 4
+DWELL_NAIVE_REL_RMS = 0.06
+
+
+def _chain_check(body, init: torch.Tensor) -> dict:
+    """The chain ``timed_chain`` captures and replays against the same
+    applications made eagerly."""
+    want = init
+    for _ in range(DWELL_CHECK_ITERS):
+        want = body(want)
+    got, _ = dwell.timed_chain(body, init, DWELL_CHECK_ITERS)
+    torch.cuda.synchronize()
+    return {"bit_identical": bool(torch.equal(got, want)), "rel_rms": _rel_rms(got, want),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def phase_dwell(device: dict) -> dict:
+    b, s, h, d = trial.ATTENTION_RATE_SHAPE
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(torch.bfloat16).cuda()
+               for _ in range(3))
+    with torch.no_grad():
+        checks = {
+            "flash": _chain_check(lambda x: flash_attention.flash_attention(x, k, v, causal=True), q),
+            "naive": _chain_check(lambda x: reference_attention(x, k, v, causal=True), q),
+        }
+    del q, k, v
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    attention = trial.measure_attention_rates("cuda")
+    attention_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernel = trial.measure_kernel_rates(MatmulLoadGen(size=SIZE, device="cuda:0"))
+    kernel_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit({"phase": "dwell", "nvidia_smi": device["nvidia_smi"], "chain_checks": checks,
+          "naive_rel_rms_tol": DWELL_NAIVE_REL_RMS, "attention": attention,
+          "attention_s": attention_s, "kernel": kernel, "kernel_s": kernel_s})
+    if not (checks["flash"]["bit_identical"] and checks["flash"]["finite"]):
+        raise AssertionError(f"the captured flash chain differs from the eager one: {checks}")
+    if not (checks["naive"]["rel_rms"] <= DWELL_NAIVE_REL_RMS and checks["naive"]["finite"]):
+        raise AssertionError(f"the captured naive chain differs from the eager one: {checks}")
+    rates = [attention["flash_tflops"], attention["naive_xla_tflops"],
+             kernel["achieved_tflops"], kernel["achieved_tflops_8192"], kernel["pallas_tflops"]]
+    # a wall-clock dwell is a lower bound: above the card's peak it is broken
+    if not all(0 < r < device["peak_bf16_tflops"] for r in rates):
+        raise AssertionError(f"a dwell rate outside (0, peak): {rates}")
+    return {"attention": attention, "kernel": kernel}
+
+
 def _cache_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
     diff = (got.float() - want.float()).abs()
     bad = int((diff > SERVE_ATOL + SERVE_CACHE_RTOL * want.float().abs()).sum())
@@ -2370,8 +2435,12 @@ class _Entry:
 
     def stop(self) -> int:
         """SIGTERM, then its exit code."""
+        self.proc.send_signal(signal.SIGTERM)
+        return self.wait()
+
+    def wait(self) -> int:
+        """Its exit code, waited for up to 60 s, after which it is killed."""
         try:
-            self.proc.send_signal(signal.SIGTERM)
             return self.proc.wait(timeout=60)
         finally:
             self.proc.kill()
@@ -3412,7 +3481,13 @@ def _run_slice(envs: list[dict], prefix: str, count: int) -> tuple[list[str], li
     try:
         entries[0].wait_for(prefix, seconds=300, count=count)
     finally:
-        codes = [e.stop() for e in entries]
+        # every rank gets its SIGTERM before any is waited for, as a slice's
+        # pods do at a scale-down: the ranks agree to stop at their next
+        # step, so a rank signalled only once its peer has exited may be
+        # shutting down already, past its handler, and die of the signal
+        for entry in entries:
+            entry.proc.send_signal(signal.SIGTERM)
+        codes = [entry.wait() for entry in entries]
     return entries[0].lines, codes
 
 
@@ -4982,6 +5057,7 @@ def main() -> int:
     del gen
     flash_err = phase_flash_parity()
     flash_timing = phase_flash_timing(*peaks)
+    phase_dwell(device)
     serve = DecodeLoadGen(**SERVE_SIZES, window=3.0, device="cuda:0")
     serve.warmup()
     phase_serve_parity(serve)

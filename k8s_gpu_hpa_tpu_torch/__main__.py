@@ -13,7 +13,8 @@ modules the port has:
     simulate      play a load scenario against a shipped HPA manifest
     gen-pipeline  render a whole custom pipeline (workload, rule, adapter
                   values, HPA) for GPU nodes
-    gen-manifests write the GPU manifests of the generator's bundle
+    gen-manifests write the GPU manifests of the generator's bundle, or
+                  ``--check`` a directory of them against it
 
 The container commands stay reachable at their module paths too
 (``python -m k8s_gpu_hpa_tpu_torch.exporter`` and so on, the forms the
@@ -169,7 +170,9 @@ def main(argv: list[str] | None = None) -> int:
 
     add_arguments(sim)
 
-    genm = sub.add_parser("gen-manifests", help="write the generated GPU manifests")
+    genm = sub.add_parser("gen-manifests", help="check or write the generated GPU manifests")
+    genm.add_argument("--check", action="store_true",
+                      help="verify --out's files agree with the generator")
     genm.add_argument("-o", "--out", required=True, help="directory to write the YAML files into")
 
     args = parser.parse_args(argv)
@@ -211,7 +214,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "gen-manifests":
         from k8s_gpu_hpa_tpu_torch import manifests
 
-        return manifests.main(["--out", args.out])
+        return manifests.main(["--out", args.out] + (["--check"] if args.check else []))
     raise AssertionError(f"unhandled command {args.command}")
 
 

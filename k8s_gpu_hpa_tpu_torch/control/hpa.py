@@ -427,6 +427,7 @@ class HPAController:
         min_replicas: int = 1,
         max_replicas: int = 4,
         behavior: HPABehavior | None = None,
+        sync_interval: float = 15.0,
         on_scale: Callable[[int, int], None] | None = None,
         replica_quantum: int = 1,
         resource_metrics: ResourceMetricsReader | None = None,
@@ -444,6 +445,9 @@ class HPAController:
         self.min_replicas = min_replicas
         self.max_replicas = max_replicas
         self.behavior = behavior or HPABehavior()
+        #: the period its owner syncs it at (the pipeline's ``hpa_sync``),
+        #: kept so that a rebuilt controller keeps it
+        self.sync_interval = sync_interval
         #: called with (from, to) after each change of the target's replicas
         self.on_scale = on_scale
         # Slice atomicity: on multi-host slices one logical replica is

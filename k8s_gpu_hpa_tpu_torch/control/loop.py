@@ -247,6 +247,7 @@ class AutoscalingPipeline:
         self.evaluator = RuleEvaluator(
             self.db,
             rules + slo_recorders,
+            interval=self.intervals.rule_eval,
             alerts=alerts,
             tracer=tracer,
             selfmetrics=self.selfmetrics,
@@ -286,6 +287,7 @@ class AutoscalingPipeline:
             min_replicas=min_replicas,
             max_replicas=max_replicas,
             behavior=behavior,
+            sync_interval=self.intervals.hpa_sync,
             replica_quantum=replica_quantum,
             pod_lister=deployment,
             namespace=deployment.namespace,
@@ -347,6 +349,7 @@ class AutoscalingPipeline:
             min_replicas=min_replicas,
             max_replicas=max_replicas,
             behavior=behavior,
+            sync_interval=self.intervals.hpa_sync,
             replica_quantum=replica_quantum,
             pod_lister=deployment,
             namespace=deployment.namespace,
@@ -499,6 +502,7 @@ class AutoscalingPipeline:
             min_replicas=old.min_replicas,
             max_replicas=old.max_replicas,
             behavior=old.behavior,
+            sync_interval=old.sync_interval,
             on_scale=old.on_scale,
             replica_quantum=old.replica_quantum,
             resource_metrics=old.resource_metrics,

@@ -214,7 +214,7 @@ def _build_plane(shards: int, targets: int):
     plane = ShardedScrapePlane(clock, shards=shards, interval=1.0)
     for i in range(targets):
         plane.add_target(_synthetic_fetch(i), name=f"synt-{i:04d}", job="fleet")
-    plane.add_shard_rules(fleet_shard_rules)
+    plane.add_shard_rules(fleet_shard_rules, interval=1.0)
     return clock, plane
 
 

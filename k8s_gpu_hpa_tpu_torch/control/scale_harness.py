@@ -203,7 +203,7 @@ def run_fleet_scale(
         scrape_shards=shards,
     )
     if shards:
-        pipe.shard_plane.add_shard_rules(fleet_shard_rules)
+        pipe.shard_plane.add_shard_rules(fleet_shard_rules, interval=rule_interval)
     for i in range(targets):
         pipe.scraper.add_target(_synthetic_fetch(i), name=f"fleet/synt-{i:04d}")
 

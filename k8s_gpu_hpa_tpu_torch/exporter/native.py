@@ -41,9 +41,10 @@ def _opt(value: float | None) -> float:
     return _NAN if value is None else value
 
 
-def build_native() -> Path:
-    """Compile the exporter core if needed; returns the library's path."""
-    return build_shared("libtpu_exporter.so", [SOURCE], CXX_FLAGS)[0]
+def build_native(force: bool = False) -> Path:
+    """Compile the exporter core if it is missing or older than its source,
+    or with ``force`` in any case; returns the library's path."""
+    return build_shared("libtpu_exporter.so", [SOURCE], CXX_FLAGS, force=force)[0]
 
 
 _lib: ctypes.CDLL | None = None

@@ -170,6 +170,12 @@ class TrainLoadGen:
         self._steps += 1
         return dt
 
+    def run_for(self, seconds: float) -> TrainStats:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            self.step()
+        return self.stats()
+
     def stats(self) -> TrainStats:
         wall = time.perf_counter() - self._t0 if self._t0 is not None else 0.0
         return TrainStats(

@@ -161,6 +161,30 @@ def behavior_doc(behavior: HPABehavior) -> dict:
     }
 
 
+def default_behavior(
+    *,
+    up_pods: int = 2,
+    up_percent: int | None = 100,
+    down_window: int = 120,
+    down_percent: int = 50,
+) -> dict:
+    """The behavior stanza of the shipped HPAs with its knobs: scale up by
+    ``up_pods`` pods (or ``up_percent`` percent, whichever is more; None
+    leaves the percent policy out) per 15 s sync with no window, scale down
+    by ``down_percent`` percent per 60 s after a ``down_window`` second
+    stabilization window.  The defaults are ``behavior_doc(shipped_behavior())``."""
+    up = [ScalingPolicy("Pods", up_pods, 15.0)]
+    if up_percent is not None:
+        up.append(ScalingPolicy("Percent", up_percent, 15.0))
+    return behavior_doc(HPABehavior(
+        scale_up=ScalingRules(stabilization_window_seconds=0.0, select_policy="Max",
+                              policies=up),
+        scale_down=ScalingRules(stabilization_window_seconds=float(down_window),
+                                select_policy="Max",
+                                policies=[ScalingPolicy("Percent", down_percent, 60.0)]),
+    ))
+
+
 def object_metric(name: str, kind: str, target_name: str, value: str) -> dict:
     """One Object-type HPA metric entry (the reference's only metric shape,
     cuda-test-hpa.yaml:13-21, upgraded to autoscaling/v2)."""
@@ -569,22 +593,27 @@ def shipped_rule_groups() -> list[tuple[str, list[RecordingRule]]]:
 def prometheusrule_manifest(
     name: str = "tpu-test",
     groups: list[tuple[str, list[RecordingRule]]] | None = None,
+    alerts: list[AlertRule] | None = None,
 ) -> dict:
-    """A PrometheusRule of recording-rule groups.  With none given it is the
-    shipped one: every recording rule, then ``tpu-pipeline-alerts``
-    (``shipped_alert_rules``) and ``tpu-slo-burn`` (the pipeline's SLO
-    burn-rate pairs).  Given groups carry no alert group."""
+    """A PrometheusRule of recording-rule groups.  With neither groups nor
+    alerts given it is the shipped one: every recording rule, then
+    ``tpu-pipeline-alerts`` (``shipped_alert_rules``) and ``tpu-slo-burn``
+    (the pipeline's SLO burn-rate pairs).  Given ``alerts`` (not empty) make
+    the ``tpu-pipeline-alerts`` group; given groups or alerts carry no
+    ``tpu-slo-burn`` group."""
     group_docs = [
         {"name": group_name, "interval": RULE_INTERVAL, "rules": [_rule_entry(r) for r in rules]}
         for group_name, rules in (groups or shipped_rule_groups())
     ]
-    if groups is None:
-        group_docs += [
-            {"name": "tpu-pipeline-alerts", "interval": RULE_INTERVAL,
-             "rules": [_alert_entry(a) for a in shipped_alert_rules()]},
-            {"name": "tpu-slo-burn", "interval": RULE_INTERVAL,
-             "rules": [_alert_entry(a) for a in shipped_slo_alerts()]},
-        ]
+    shipped_defaults = alerts is None and groups is None
+    if shipped_defaults:
+        alerts = shipped_alert_rules()
+    if alerts:
+        group_docs.append({"name": "tpu-pipeline-alerts", "interval": RULE_INTERVAL,
+                           "rules": [_alert_entry(a) for a in alerts]})
+    if shipped_defaults:
+        group_docs.append({"name": "tpu-slo-burn", "interval": RULE_INTERVAL,
+                           "rules": [_alert_entry(a) for a in shipped_slo_alerts()]})
     return {
         "apiVersion": "monitoring.coreos.com/v1",
         "kind": "PrometheusRule",
@@ -1563,12 +1592,31 @@ def load_yaml(text: str):
 def main(argv: list[str] | None = None) -> int:
     """``python -m k8s_gpu_hpa_tpu_torch.manifests --out DIR``: write the
     GPU manifests of ``default_bundle()`` into DIR, one YAML file each, and
-    print each path."""
+    print each path.  With ``--check`` write nothing: print the files of DIR
+    that disagree with the generator or are missing and exit 1, or exit 0
+    when all agree."""
     parser = argparse.ArgumentParser(prog="python -m k8s_gpu_hpa_tpu_torch.manifests")
     parser.add_argument("--out", required=True, help="directory to write the YAML files into")
-    out = Path(parser.parse_args(argv).out)
+    parser.add_argument("--check", action="store_true",
+                        help="verify DIR agrees with the generator instead of writing it")
+    args = parser.parse_args(argv)
+    out = Path(args.out)
+    bundle = default_bundle()
+    if args.check:
+        stale = []
+        for name, docs in bundle.items():
+            path = out / name
+            if not path.exists():
+                stale.append(f"{name} (missing)")
+            elif load_yaml_all(path.read_text()) != docs:
+                stale.append(name)
+        if stale:
+            print("stale (disagree with manifests.py): " + ", ".join(sorted(stale)))
+            return 1
+        print(f"all {len(bundle)} manifests agree with the generator")
+        return 0
     out.mkdir(parents=True, exist_ok=True)
-    for name, docs in default_bundle().items():
+    for name, docs in bundle.items():
         (out / name).write_text(to_yaml(docs))
         print(out / name)
     return 0

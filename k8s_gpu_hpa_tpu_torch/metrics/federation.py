@@ -1,14 +1,14 @@
 """Sharded scraping and TSDB federation: the 10k-target metrics plane.
 
 Counterpart of ``k8s_gpu_hpa_tpu/metrics/federation.py``.
-``ShardedScrapePlane`` is cut to what the pipeline sets: its shard DBs take
-the TSDB's defaults but for ``downsample`` (no ``lookback``, ``retention``,
-``chunk_size`` or ``ring`` knob).  Its shards' rules fan out onto a
-thread pool as JAX's do (``parallel_rules``), and fall back to one shard
-after another when an evaluator carries a tracer or self-metrics sink; the
-recorded values are the same either way, which ``control/race_harness.py``
-checks schedule by schedule and ``analysis/concurrency.py`` declares as the
-plane's concurrency contract.
+``ShardedScrapePlane`` takes JAX's knobs: the shard DBs' ``lookback``,
+``retention`` and ``chunk_size``, a ``ring`` of its own, and the shard
+rules' ``interval``, ``tracer`` and ``selfmetrics``.  Its shards' rules fan
+out onto a thread pool as JAX's do (``parallel_rules``), and fall back to
+one shard after another when an evaluator carries a tracer or self-metrics
+sink; the recorded values are the same either way, which
+``control/race_harness.py`` checks schedule by schedule and
+``analysis/concurrency.py`` declares as the plane's concurrency contract.
 
 One scraper over one TSDB tops out well before 10,000 targets: every sweep
 walks the whole fleet and every fleet-wide query scans every series.  This
@@ -85,10 +85,29 @@ class ShardedScrapePlane:
     ``add_target`` / ``scrape_once`` / ``targets`` /
     ``stagger_after_recovery`` surface)."""
 
-    def __init__(self, clock, shards: int, interval: float = 1.0, tracer=None, selfmetrics=None,
-                 downsample=None):
-        self.ring = HashRing(shards)
-        self.shard_dbs = [TimeSeriesDB(clock, downsample=downsample) for _ in range(shards)]
+    def __init__(
+        self,
+        clock,
+        shards: int,
+        interval: float = 1.0,
+        lookback: float = 300.0,
+        retention: float | None = None,
+        chunk_size: int = 64,
+        ring: HashRing | None = None,
+        tracer=None,
+        selfmetrics=None,
+        downsample=None,
+    ):
+        self.clock = clock
+        self.ring = ring or HashRing(shards)
+        if self.ring.shards != shards:
+            raise ValueError(f"ring has {self.ring.shards} shards, plane wants {shards}")
+        self.interval = interval
+        self.shard_dbs = [
+            TimeSeriesDB(clock, lookback=lookback, retention=retention, chunk_size=chunk_size,
+                         downsample=downsample)
+            for _ in range(shards)
+        ]
         self.scrapers = [
             Scraper(db, interval=interval, tracer=tracer, selfmetrics=selfmetrics)
             for db in self.shard_dbs
@@ -131,7 +150,13 @@ class ShardedScrapePlane:
 
     # -- shard-local rules (the federation pre-reduction) --------------------
 
-    def add_shard_rules(self, rules_for: "Callable[[int], list[RecordingRule]]") -> None:
+    def add_shard_rules(
+        self,
+        rules_for: "Callable[[int], list[RecordingRule]]",
+        interval: float = 1.0,
+        tracer=None,
+        selfmetrics=None,
+    ) -> None:
         """Install per-shard recording rules: ``rules_for(shard)`` returns
         the rules shard ``shard`` evaluates over ITS OWN DB (it can only see
         its own targets).  Outputs should carry a ``shard`` label so the
@@ -147,6 +172,9 @@ class ShardedScrapePlane:
                 self.shard_evaluators[shard] = RuleEvaluator(
                     self.shard_dbs[shard],
                     rules,
+                    interval=interval,
+                    tracer=tracer,
+                    selfmetrics=selfmetrics,
                     planner=QueryPlanner(self.shard_dbs[shard]),
                 )
 

@@ -712,6 +712,7 @@ class RuleEvaluator:
         self,
         db: TimeSeriesDB,
         rules: list[RecordingRule],
+        interval: float = 1.0,
         alerts: list[AlertRule] | None = None,
         tracer=None,
         selfmetrics=None,
@@ -719,6 +720,8 @@ class RuleEvaluator:
     ):
         self.db = db
         self.rules = rules
+        #: the period its owner evaluates it at (the pipeline's ``rule_eval``)
+        self.interval = interval
         self.alerts = alerts or []
         #: obs.Tracer / obs.PipelineSelfMetrics, passed to every evaluation
         self.tracer = tracer

@@ -92,6 +92,7 @@ from k8s_gpu_hpa_tpu_torch.metrics.gorilla import (
     GorillaChunk,
     GorillaEncoder,
     decode as gorilla_decode,
+    decode_ts,
 )
 from k8s_gpu_hpa_tpu_torch.metrics.schema import Exemplar, MetricFamily, Sample
 from k8s_gpu_hpa_tpu_torch.obs import profile
@@ -279,6 +280,10 @@ class _Series:
             return None
         return point
 
+    def latest_at(self, at: float, lookback: float) -> float | None:
+        point = self.latest_point_at(at, lookback)
+        return None if point is None else point[1]
+
     # -- decoded views (tests, tooling; not on any hot path) -----------------
 
     @property
@@ -298,6 +303,16 @@ class _Series:
             if origins is None:
                 origins = (None,) * self.enc.count
             out.extend(zip(ts_arr.tolist(), val_arr.tolist(), origins))
+        return out
+
+    @property
+    def ts(self) -> list[float]:
+        """All retained timestamps, decoded."""
+        out: list[float] = []
+        for chunk in self.chunks:
+            out.extend(decode_ts(chunk.ts_blob, chunk.count, chunk.ts_mode).tolist())
+        if self.enc.count:
+            out.extend(self.head_arrays()[0].tolist())
         return out
 
 

@@ -23,6 +23,7 @@ resolves the selfmetrics and slo names on first attribute access (PEP 562),
 by which time the metrics package is initialized.
 """
 
+from k8s_gpu_hpa_tpu_torch.utils.lazy import lazy_exports
 from k8s_gpu_hpa_tpu_torch.obs.coverage import (
     COVERAGE_HIT_RATIO,
     COVERAGE_METRIC_NAMES,
@@ -98,15 +99,7 @@ _LAZY_SUBMODULE = {
 }
 
 
-def __getattr__(name: str):
-    submodule = _LAZY_SUBMODULE.get(name)
-    if submodule is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    import importlib
-
-    value = getattr(importlib.import_module(f"{__name__}.{submodule}"), name)
-    globals()[name] = value
-    return value
+__getattr__ = lazy_exports(__name__, _LAZY_SUBMODULE)
 
 
 __all__ = [

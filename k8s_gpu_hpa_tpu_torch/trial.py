@@ -86,7 +86,10 @@ and ``paging_bench_rung`` (bench.py's ``run_rung_paging_bench``) the three
 paging drills, the mis-inhibition canary and a second smoke evacuation.
 ``coverage_floor_rung`` (bench.py's ``run_rung_coverage_floor``) gates the
 union coverage of every canned run against the coverage floors (some 70 s
-on a CPU, or a finished ``run_coverage("all")`` export).
+on a CPU, or a finished ``run_coverage("all")`` export).  The two dwell rate blocks of bench.py,
+``measure_attention_rates`` (the flash forward against the plain attention)
+and ``measure_kernel_rates`` (the hand-written GEMM against
+``torch.matmul``), time one long chain each (``utils/dwell.py``).
 
 The training trial (``run_train_trial``, the counterpart of bench.py's
 ``run_rung_train_multimetric``) runs the loop around the ResNet training
@@ -1907,6 +1910,98 @@ def paging_bench_rung() -> dict:
         "bit_identical": bit_identical,
         "ok": storm["ok"] and crunch["ok"] and evac["ok"] and canary_caught and bit_identical,
     }
+
+
+#: bench.py's attention block: a prefill-shaped causal attention, bf16
+ATTENTION_RATE_SHAPE = (2, 4096, 8, 128)
+#: at least a second of flash dwell: short flash dwells under-read
+ATTENTION_RATE_ITERS = 400
+
+
+def measure_kernel_rates(gen: MatmulLoadGen) -> dict:
+    """bench.py's kernel rates (``measure_kernel_rates``), key for key, with
+    the hand-written GEMM in the Pallas kernel's place: one long
+    uninterrupted matmul chain, wall-clock timed, no round-trip subtraction,
+    no clamp (achieved < peak by construction), through ``torch.matmul``
+    and then through the kernel (``MatmulLoadGen(use_kernel=True)``).  On
+    CUDA the dwell is 2000 products and the 8192² library dwell (500) is
+    read too; on the CPU it is 8 and the kernel's plain version stands in.
+    MFU is taken against the card's peak (``device.peak_tflops_for``), None
+    where the table has none.  Per-device numbers throughout: a multi-GPU
+    generator is measured on its first device alone.  A kernel that fails to
+    build or launch fails the call."""
+    from k8s_gpu_hpa_tpu_torch.loadgen.matmul import MatmulLoadGen
+
+    is_cuda = gen.device.type == "cuda"
+    peak = gen.peak_tflops if is_cuda else None
+    iters = 2000 if is_cuda else 8
+
+    def dwell(size: int, n: int, use_kernel: bool = False) -> float:
+        if size == gen.size and not use_kernel and gen.n_devices == 1:
+            one = gen
+        else:
+            one = MatmulLoadGen(size=size, use_kernel=use_kernel, device=gen.device,
+                                all_devices=False, intensity=1.0)
+        return one.measure_dwell_tflops(n)
+
+    library = dwell(gen.size, iters)
+    out = {
+        "achieved_tflops": library,
+        "per_chip": True,
+        "peak_tflops": peak,
+        "mfu_pct": 100.0 * library / peak if peak else None,
+        "method": f"{iters}-iter chained dwell, wall-clock, no correction",
+    }
+    if is_cuda and gen.size < 8192:
+        # bigger tiles amortize each product's epilogue further; 500 products
+        # at 8192² take about the seconds of 2000 at 4096²
+        big = dwell(8192, 500)
+        out["achieved_tflops_8192"] = big
+        if peak:
+            out["mfu_pct_8192"] = 100.0 * big / peak
+        torch.cuda.empty_cache()
+    kernel = dwell(gen.size, iters, use_kernel=True)
+    out["pallas_tflops"] = kernel
+    out["pallas_vs_xla"] = kernel / library
+    return out
+
+
+def measure_attention_rates(
+    device: str | torch.device | None = None,
+    shape: tuple[int, int, int, int] = ATTENTION_RATE_SHAPE,
+    iters: int = ATTENTION_RATE_ITERS,
+) -> dict:
+    """bench.py's attention rates (``measure_attention_rates``), key for key:
+    the hand-written flash forward against the plain ``reference_attention``
+    (JAX's "naive XLA" path, which writes the [seq, seq] scores to memory)
+    at a causal [b, s, h, d] bf16 attention, each timed as one chained dwell
+    of ``iters`` applications (``utils/dwell.py``) that feeds each output
+    back in as q: a softmax output is a convex combination of V's rows, so
+    magnitudes stay bounded.  The keywords exist for small CPU runs, where
+    the flash kernel's plain version stands in."""
+    from k8s_gpu_hpa_tpu_torch.ops.flash_attention import flash_attention
+    from k8s_gpu_hpa_tpu_torch.ops.ring_attention import reference_attention
+    from k8s_gpu_hpa_tpu_torch.utils.dwell import chained_dwell_tflops
+
+    dev = resolve(device)
+    b, s, h, d = shape
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(torch.bfloat16).to(dev)
+               for _ in range(3))
+    # causal effective operations: two products over the lower triangle
+    flops = 4.0 * b * h * s * s * d * 0.5
+    with torch.no_grad():
+        flash = chained_dwell_tflops(
+            lambda x: flash_attention(x, k, v, causal=True), q, iters, flops)
+        naive = chained_dwell_tflops(
+            lambda x: reference_attention(x, k, v, causal=True), q, iters, flops)
+    out = {
+        "shape": f"b{b} h{h} s{s} d{d} causal bf16",
+        "flash_tflops": flash,
+        "naive_xla_tflops": naive,
+        "flash_vs_naive": flash / naive,
+    }
+    return out
 
 
 class QueueJoint:

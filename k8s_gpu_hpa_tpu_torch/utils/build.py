@@ -40,16 +40,21 @@ def nvcc() -> str:
 
 
 def build_shared(
-    name: str, sources: list[Path], command: list[str], headers: tuple[Path, ...] = ()
+    name: str,
+    sources: list[Path],
+    command: list[str],
+    headers: tuple[Path, ...] = (),
+    force: bool = False,
 ) -> tuple[Path, str]:
     """Build ``BUILD_DIR/name`` with ``command + ["-o", tmp] + sources``.
-    ``headers`` are files the sources include: a newer one rebuilds too.
+    ``headers`` are files the sources include: a newer one rebuilds too, and
+    ``force`` rebuilds whatever the times say.
 
     Returns the library's path and the compiler's output (empty when the
     library was already up to date).  A failed build raises
     ``subprocess.CalledProcessError`` carrying the compiler's output."""
     out = BUILD_DIR / name
-    if out.exists() and all(
+    if not force and out.exists() and all(
         out.stat().st_mtime >= s.stat().st_mtime for s in [*sources, *headers]
     ):
         return out, ""

@@ -58,3 +58,52 @@ def test_failed_build_raises_and_leaves_no_file(build_dir, tmp_path):
         build.build_shared("libbad.so", [src], CXX)
     assert "bad.cc" in err.value.stderr
     assert list(build_dir.iterdir()) == []
+
+
+def test_force_rebuilds_an_up_to_date_library(build_dir, tmp_path):
+    src = tmp_path / "one.cc"
+    src.write_text('extern "C" int one() { return 1; }\n')
+    lib, _ = build.build_shared("libone.so", [src], CXX)
+    old = lib.stat().st_mtime - 10
+    os.utime(lib, (old, old))  # still newer than nothing it was built from
+    os.utime(src, (old - 10, old - 10))
+    assert build.build_shared("libone.so", [src], CXX) == (lib, "")
+    rebuilt, _ = build.build_shared("libone.so", [src], CXX, force=True)
+    assert rebuilt == lib and lib.stat().st_mtime > old
+
+
+@pytest.mark.parametrize("present,force", [(False, False), (True, False), (True, True),
+                                           (False, True)])
+def test_build_native_builds_when_jax_s_does(build_dir, tmp_path, monkeypatch, present, force):
+    """``build_native(force=)``: the exporter core is compiled when its
+    library is missing or when forced, and left alone otherwise, as the JAX
+    package's cmake build is.  Both compilers are stubbed: each records the
+    call and writes a placeholder where its library goes."""
+    from k8s_gpu_hpa_tpu.exporter import native as jax_native
+    from k8s_gpu_hpa_tpu_torch.exporter import native
+
+    jax_lib = tmp_path / "cpp-build" / "libtpu_exporter.so"
+    monkeypatch.setattr(jax_native, "_BUILD_DIR", jax_lib.parent)
+    monkeypatch.setattr(jax_native, "_LIB_PATH", jax_lib)
+    port_lib = build_dir / "libtpu_exporter.so"
+    if present:
+        for lib in (jax_lib, port_lib):
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            lib.write_bytes(b"built")
+    calls = []
+
+    def compiler(command, **_):
+        calls.append(command[0])
+        if "-o" in command:
+            out = command[command.index("-o") + 1]
+            with open(out, "wb") as f:
+                f.write(b"rebuilt")
+        return subprocess.CompletedProcess(command, 0, "", "")
+
+    monkeypatch.setattr(subprocess, "run", compiler)
+    assert native.build_native(force=force) == port_lib
+    port_built = bool(calls)
+    calls.clear()
+    assert jax_native.build_native(force=force) == jax_lib
+    jax_built = bool(calls)
+    assert port_built == jax_built == (force or not present)

@@ -278,3 +278,109 @@ def test_check_shards_says_what_jax_s_says(case):
             outcomes.append((False, str(e)))
     assert outcomes[0] == outcomes[1]
     assert outcomes[0][0] == (case == 0)
+
+
+# ---- the plane's knobs: lookback, retention, chunk_size, ring, rule sinks ----
+
+KNOB_SHARDS = 3
+
+
+def _knob_fetch(mods, i: int, vclock):
+    """Target ``i``'s gauge, moving with the clock so every scrape writes a
+    new point."""
+
+    def fetch():
+        fam = mods["schema"].MetricFamily("fleet_duty_cycle", "gauge")
+        fam.add(float((i * 37 + int(vclock.now()) * 13) % 101), job="fleet",
+                instance=f"fleet/synt-{i:03d}")
+        return [fam]
+
+    return fetch
+
+
+def _knob_plane(mods, n: int = 40, ticks: int = 60):
+    vclock = mods["clock"].VirtualClock()
+    ring = mods["federation"].HashRing(KNOB_SHARDS, vnodes=16)
+    plane = mods["federation"].ShardedScrapePlane(
+        vclock, KNOB_SHARDS, interval=5.0, lookback=60.0, retention=120.0, chunk_size=16,
+        ring=ring)
+    for i in range(n):
+        plane.add_target(_knob_fetch(mods, i, vclock), name=f"fleet/synt-{i:03d}")
+    for _ in range(ticks):
+        vclock.advance(5.0)
+        plane.scrape_once()
+    return vclock, plane
+
+
+def _retained(db) -> dict:
+    """Every series' retained points and timestamps, decoded, and its
+    sealed chunk count."""
+    return {(name, labels): (series.points, series.ts, len(series.chunks))
+            for name, by_labels in db._data.items() for labels, series in by_labels.items()}
+
+
+def test_the_plane_s_lookback_retention_chunks_and_ring_are_jax_s():
+    """A small fleet scraped for 300 s under retention 120, chunks of 16 and
+    a ring of 16 virtual nodes a shard: the series, the ring's ownership and
+    every retained point equal JAX's."""
+    (pc, port), (jc, ref) = _knob_plane(PORT), _knob_plane(JAX)
+    assert [(db.lookback, db.retention, db.chunk_size) for db in port.shard_dbs] == [
+        (db.lookback, db.retention, db.chunk_size) for db in ref.shard_dbs] == [
+        (60.0, 120.0, 16)] * KNOB_SHARDS
+    assert (port.ring.vnodes, port.interval, port.clock) == (16, 5.0, pc)
+    assert (port.ring._hashes, port.ring._owners) == (ref.ring._hashes, ref.ring._owners)
+    assert port.shard_status() == ref.shard_status()
+    assert [port.shard_of(t) for t in port.targets] == [ref.shard_of(t) for t in ref.targets]
+    assert [_dump(db) for db in port.shard_dbs] == [_dump(db) for db in ref.shard_dbs]
+    got, want = [_retained(db) for db in port.shard_dbs], [_retained(db) for db in ref.shard_dbs]
+    assert got == want
+    # retention dropped whole sealed chunks: 60 points were scraped a series
+    for shard in got:
+        for points, ts, chunks in shard.values():
+            assert len(points) < 60 and ts == [p[0] for p in points] and chunks >= 1
+    for at in (pc.now(), pc.now() - 50.0, pc.now() - 100.0):
+        for db, jdb in zip(port.shard_dbs, ref.shard_dbs):
+            for labels, series in db._data["fleet_duty_cycle"].items():
+                want_series = jdb._data["fleet_duty_cycle"][labels]
+                assert series.latest_at(at, db.lookback) == want_series.latest_at(
+                    at, jdb.lookback)
+
+
+def test_a_ring_of_other_shards_is_refused_as_jax_s():
+    errors = []
+    for mods in (PORT, JAX):
+        with pytest.raises(ValueError) as err:
+            mods["federation"].ShardedScrapePlane(
+                mods["clock"].VirtualClock(), 3, ring=mods["federation"].HashRing(4))
+        errors.append(str(err.value))
+    assert errors[0] == errors[1] == "ring has 4 shards, plane wants 3"
+
+
+def test_shard_rules_take_jax_s_interval_tracer_and_selfmetrics():
+    """``add_shard_rules(interval=, tracer=, selfmetrics=)``: each shard's
+    evaluator carries them, the sinks send the pass down the serial loop in
+    both packages, and the records and the spans are JAX's."""
+    from k8s_gpu_hpa_tpu.obs import selfmetrics as jax_selfmetrics
+    from k8s_gpu_hpa_tpu.obs import trace as jax_trace
+    from k8s_gpu_hpa_tpu_torch.obs import selfmetrics as port_selfmetrics
+    from k8s_gpu_hpa_tpu_torch.obs import trace as port_trace
+
+    out = []
+    for mods, harness, trace, selfm in ((PORT, scale_harness, port_trace, port_selfmetrics),
+                                        (JAX, jax_harness, jax_trace, jax_selfmetrics)):
+        vclock, plane = _plane(mods, 3, 50, seed=4)
+        tracer = trace.Tracer(vclock)
+        sink = selfm.PipelineSelfMetrics(clock=vclock)
+        plane.add_shard_rules(harness.fleet_shard_rules, interval=5.0, tracer=tracer,
+                              selfmetrics=sink)
+        evaluators = [ev for ev in plane.shard_evaluators if ev is not None]
+        assert [(ev.interval, ev.tracer, ev.selfmetrics) for ev in evaluators] == [
+            (5.0, tracer, sink)] * len(evaluators)
+        for _ in range(3):
+            vclock.advance(15.0)
+            plane.scrape_once()
+            plane.evaluate_rules_once()
+        kinds = sorted(s.kind for s in tracer.spans)
+        out.append(([_dump(db) for db in plane.shard_dbs], kinds))
+    assert out[0] == out[1]
+    assert "rule_eval" in out[0][1]

@@ -125,6 +125,8 @@ def test_importing_every_port_module_loads_no_jax():
         "k8s_gpu_hpa_tpu_torch.analysis.legacy",
         "k8s_gpu_hpa_tpu_torch.analysis.purity",
         "k8s_gpu_hpa_tpu_torch.analysis.symbols",
+        "k8s_gpu_hpa_tpu_torch.utils.dwell",
+        "k8s_gpu_hpa_tpu_torch.utils.lazy",
     ):
         assert name in out["imported"]
     assert "torch" in out["loaded"]
@@ -395,3 +397,30 @@ def test_forbidden_match_is_exact_not_by_prefix():
     assert not _forbidden("k8s_gpu_hpa_tpu_torch")
     assert not _forbidden("k8s_gpu_hpa_tpu_torch.ops.matmul")
     assert not _forbidden("jaxlib_free_module")
+
+
+_RESOLVE_REEXPORTS = """
+import importlib, json, sys
+torch_free = {}
+for package in ("control", "metrics", "utils", "exporter", "loadgen", "models", "ops"):
+    module = importlib.import_module("k8s_gpu_hpa_tpu_torch." + package)
+    for name in module.__all__:
+        getattr(module, name)
+    torch_free[package] = "torch" not in sys.modules
+print(json.dumps({"torch_free": torch_free, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_the_packages_re_exports_resolve_lazily_and_load_no_jax():
+    """Every name a port package lists in ``__all__`` (the JAX package's
+    re-exports) resolves on access, in a fresh interpreter; the control,
+    metrics and utils names load no torch, and none loads JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RESOLVE_REEXPORTS], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["torch_free"] == {"control": True, "metrics": True, "utils": True,
+                                 "exporter": False, "loadgen": False, "models": False,
+                                 "ops": False}
+    assert [m for m in out["loaded"] if _forbidden(m)] == []

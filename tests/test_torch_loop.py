@@ -345,3 +345,43 @@ def test_the_ticks_fire_in_jax_s_order():
     assert order[:2] == [(16.0, "scraper"), (16.0, "evaluator")]
     assert [t for t, attr in order if attr == "hpa"] == [30.0, 45.0, 60.0, 75.0]
     assert [a for t, a in order if t == 30.0] == ["hpa", "scraper", "evaluator"]
+
+
+def test_the_pipeline_keeps_jax_s_rule_interval_and_sync_interval():
+    """``RuleEvaluator(interval=)`` and ``HPAController(sync_interval=)``:
+    the pipeline hands them its ``rule_eval`` and ``hpa_sync``, a rebuilt
+    HPA and a tenant's keep them, as in the JAX package; the run itself is
+    JAX's."""
+    got = []
+    for mods in (PORT, JAX):
+        _, hpa_mod, loop_mod, _ = mods
+        intervals = loop_mod.PipelineIntervals(scrape=2.0, rule_eval=2.0, hpa_sync=30.0)
+        pipe = make_pipeline(mods, step_load(100.0, 20.0, 640.0), intervals=intervals,
+                             max_replicas=4)
+        pipe.start()
+        pipe._clock.run_until(200.0)
+        seen = [pipe.evaluator.interval, pipe.hpa.sync_interval]
+        pipe.restart_hpa()
+        seen.append(pipe.hpa.sync_interval)
+        pipe._clock.run_until(260.0)
+        got.append((seen, pipe.scale_history, pipe.replicas()))
+    assert got[0] == got[1]
+    assert got[0][0] == [2.0, 30.0, 30.0]
+
+
+def test_the_hpa_takes_jax_s_parameters_in_jax_s_order():
+    """``sync_interval`` sits where JAX's does, so a positional call builds
+    the same controller in both packages."""
+    import inspect
+
+    assert list(inspect.signature(hpa.HPAController).parameters) == list(
+        inspect.signature(jax_hpa.HPAController).parameters)
+    built = []
+    for cluster_mod, hpa_mod, _, clock_mod in (PORT, JAX):
+        vclock = clock_mod.VirtualClock()
+        sim = cluster_mod.SimCluster(vclock, nodes=[("n", 8)])
+        dep = cluster_mod.SimDeployment(sim, "d", "d", load_fn=lambda t: 0.0)
+        sim.add_deployment(dep, replicas=1)
+        h = hpa_mod.HPAController(dep, [], None, vclock, 1, 6, None, 45.0)
+        built.append((h.min_replicas, h.max_replicas, h.sync_interval, h.on_scale))
+    assert built[0] == built[1] == (1, 6, 45.0, None)

@@ -468,3 +468,48 @@ def test_load_yaml_wants_one_document():
     with pytest.raises(ValueError, match="one YAML document"):
         manifests.load_yaml("a: 1\n---\nb: 2\n")
     assert manifests.load_yaml("") is None
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, {"up_percent": None}, {"up_pods": 4, "down_window": 300},
+    {"up_percent": 200, "down_percent": 25}, {"up_pods": 1, "up_percent": None, "down_window": 0},
+])
+def test_default_behavior_is_jax_s_leaf_by_leaf(kwargs):
+    out: list[tuple] = []
+    _walk(manifests.default_behavior(**kwargs), jax_manifests.default_behavior(**kwargs), (),
+          out)
+    assert out == []
+    assert manifests.default_behavior() == manifests.behavior_doc(manifests.shipped_behavior())
+
+
+def _alert_cases():
+    """(groups, alerts) for each package: the shipped defaults, no alerts,
+    two of the shipped alerts, and a group of its own with and without
+    them."""
+    def both(make):
+        return make(rules), make(jax_rules)
+
+    yield "defaults", (None, None), (None, None)
+    yield "no-alerts", (None, []), (None, [])
+    two = both(lambda m: m.shipped_alert_rules()[:2])
+    yield "two-alerts", (None, two[0]), (None, two[1])
+    group = both(lambda m: [("g", [m.tpu_test_avg_rule()])])
+    yield "group", (group[0], None), (group[1], None)
+    yield "group-and-alerts", (group[0], two[0]), (group[1], two[1])
+
+
+@pytest.mark.parametrize("case,port,ref", list(_alert_cases()), ids=lambda v: v
+                         if isinstance(v, str) else "")
+def test_prometheusrule_takes_jax_s_alerts(case, port, ref):
+    """``prometheusrule_manifest(alerts=)``: the alert group holds the given
+    alerts, none when they are empty, and the SLO group comes only with
+    the defaults; leaf by leaf JAX's."""
+    got = manifests.prometheusrule_manifest(groups=port[0], alerts=port[1])
+    want = jax_manifests.prometheusrule_manifest(groups=ref[0], alerts=ref[1])
+    out: list[tuple] = []
+    _walk(got, want, (), out)
+    assert out == []
+    names = [g["name"] for g in got["spec"]["groups"]]
+    assert ("tpu-pipeline-alerts" in names) == (case in ("defaults", "two-alerts",
+                                                         "group-and-alerts"))
+    assert ("tpu-slo-burn" in names) == (case == "defaults")

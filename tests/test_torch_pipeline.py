@@ -300,3 +300,36 @@ def test_scripted_trace_gives_the_jax_packages_values_and_timeline(metric):
     assert any(reason.startswith("scale down 3->1") for *_, reason in port[1])
     assert any(reason == "metrics unavailable; holding" for *_, reason in port[1])
     assert all(tc is None and duty is None for t, tc, duty in port[0] if 201 <= t < 230)
+
+
+def test_the_rule_evaluator_takes_jax_s_interval_in_jax_s_place():
+    """``RuleEvaluator(db, rules, interval, ...)``: JAX's parameters in JAX's
+    order, the interval kept, and a positional evaluator records what JAX's
+    records from the same points."""
+    import inspect
+
+    from k8s_gpu_hpa_tpu_torch.metrics import rules, tsdb
+
+    assert list(inspect.signature(rules.RuleEvaluator).parameters) == list(
+        inspect.signature(jax_rules.RuleEvaluator).parameters)
+    got = []
+    for rules_mod, tsdb_mod, clock_cls in ((rules, tsdb, VirtualClock),
+                                           (jax_rules, jax_tsdb, JaxVirtualClock)):
+        vclock = clock_cls()
+        db = tsdb_mod.TimeSeriesDB(vclock)
+        evaluator = rules_mod.RuleEvaluator(db, [rules_mod.tpu_test_avg_rule()], 5.0)
+        for t, util in enumerate([10.0, 55.0, 80.0]):
+            vclock.advance(5.0)
+            for chip in range(2):
+                db.append("tpu_tensorcore_utilization",
+                          (("accelerator_id", str(chip)), ("namespace", "default"),
+                           ("node", "n0"), ("pod", f"p{chip}")),
+                          util + chip * t)
+                db.append("kube_pod_labels",
+                          (("label_app", "tpu-test"), ("namespace", "default"),
+                           ("pod", f"p{chip}")), 1.0)
+            evaluator.evaluate_once()
+        got.append((evaluator.interval, evaluator.alerts,
+                    db.latest(TENSORCORE_SERIES, {"deployment": "tpu-test"})))
+    assert got[0] == got[1]
+    assert got[0][0] == 5.0 and got[0][2] is not None

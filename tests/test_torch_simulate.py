@@ -211,3 +211,42 @@ def test_gen_manifests_writes_the_bundle(tmp_path, capsys):
     for name, docs in bundle.items():
         assert manifests.load_yaml_all((tmp_path / name).read_text()) == docs
     assert len(capsys.readouterr().out.splitlines()) == len(bundle)
+
+
+def test_gen_manifests_check_reports_as_jax_s(tmp_path, capsys, monkeypatch):
+    """``gen-manifests --check``: JAX's report and exit codes, the port's
+    bundle held against the directory ``--out`` names (JAX's against its
+    deploy/): every file agrees, then one is missing and one disagrees.
+    The check writes nothing."""
+    import re
+
+    from k8s_gpu_hpa_tpu import manifests as jax_manifests
+    from k8s_gpu_hpa_tpu_torch import manifests
+
+    assert main(["gen-manifests", "--out", str(tmp_path)]) == 0
+    capsys.readouterr()
+    written = {p.name: p.read_text() for p in tmp_path.iterdir()}
+    assert main(["gen-manifests", "--check", "--out", str(tmp_path)]) == 0
+    port_ok = capsys.readouterr().out
+    assert jax_main(["gen-manifests", "--check"]) == 0
+    jax_ok = capsys.readouterr().out
+    assert port_ok == f"all {len(manifests.default_bundle())} manifests agree with the generator\n"
+    assert re.sub(r"\d+", "N", port_ok) == re.sub(r"\d+", "N", jax_ok)
+    for module in (manifests, jax_manifests):
+        real = module.default_bundle
+
+        def bundle(real=real):
+            docs = dict(real())
+            docs["extra.yaml"] = [{"kind": "Extra"}]
+            docs["tpu-test-hpa.yaml"] = [{"kind": "Other"}]
+            return docs
+
+        monkeypatch.setattr(module, "default_bundle", bundle)
+    assert main(["gen-manifests", "--check", "-o", str(tmp_path)]) == 1
+    port_stale = capsys.readouterr().out
+    assert jax_main(["gen-manifests", "--check"]) == 1
+    assert port_stale == capsys.readouterr().out == (
+        "stale (disagree with manifests.py): extra.yaml (missing), tpu-test-hpa.yaml\n")
+    assert {p.name: p.read_text() for p in tmp_path.iterdir()} == written
+    with pytest.raises(SystemExit):
+        main(["gen-manifests", "--check"])  # --out stays required

@@ -111,6 +111,46 @@ def test_two_training_steps_match_the_jax_train_step(dtype):
                                    err_msg=name)
 
 
+def test_run_for_steps_until_the_time_is_up_as_jax_s(monkeypatch):
+    """``TrainLoadGen.run_for(seconds)``: steps while the clock is short of
+    the end, then ``stats()``.  On a stubbed clock that each step moves by
+    1 s both packages take three steps in 2.5 s over the same batches (the
+    JAX generator's, reproduced from its key) and report JAX's stats, the
+    loss within the f32 tolerance."""
+    jgen = JaxTrainLoadGen(mesh=make_mesh(1), batch_size=STEP_BATCH, image_size=STEP_IMAGE,
+                           small=True, seed=7)
+    jgen.model = jr.resnet18ish(10, dtype=jnp.float32)  # read when the step traces
+    gen = TrainLoadGen(batch_size=STEP_BATCH, image_size=STEP_IMAGE, small=True,
+                       dtype=torch.float32, device="cpu")
+    gen.model.load_state_dict(pr.params_from_jax(
+        {"params": _np(jgen.params), "batch_stats": _np(jgen.batch_stats)}))
+    key = jgen._key
+    batches = []
+    for _ in range(4):
+        key, images, labels = _jax_batch(key)
+        batches.append((torch.from_numpy(images.copy()).permute(0, 3, 1, 2),
+                        torch.from_numpy(labels.copy()).long()))
+    drawn = iter(batches)
+    gen.batch = lambda: next(drawn)
+    now = [0.0]
+    monkeypatch.setattr(time, "perf_counter", lambda: now[0])
+    for g in (jgen, gen):
+        real = g.step
+
+        def step(real=real):
+            dt = real()
+            now[0] += 1.0
+            return dt
+
+        g.step = step
+    want = jgen.run_for(2.5)
+    got = gen.run_for(2.5)
+    assert got.steps == want.steps == 3
+    assert (got.images_per_sec, got.utilization) == (want.images_per_sec, want.utilization)
+    assert abs(got.last_loss - want.last_loss) <= F32_TOL
+    assert gen.run_for(0.0) == gen.stats()  # no time: no step
+
+
 def test_loadgen_steps_report_and_draw_seeded_channels_last_batches():
     gen = TrainLoadGen(batch_size=BATCH, image_size=IMAGE, small=True, dtype=torch.float32,
                        device="cpu")

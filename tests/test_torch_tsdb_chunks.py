@@ -310,3 +310,27 @@ def test_snapshot_blobs_decode_to_the_points():
             assert len(base64.b64decode(tsb)) >= 8 and count == 64
             assert first_ts <= last_ts and mode in (0, 1)
         assert entry["head"][0] < 64
+
+
+@pytest.mark.parametrize("chunk_size,retention", [(64, None), (16, 900.0), (8, 300.0)])
+def test_series_latest_at_and_ts_are_jax_s(chunk_size, retention):
+    """``_Series.latest_at`` and ``_Series.ts``, JAX's decoded views: on the
+    seeded mix, after chunks sealed and retention dropped whole ones, every
+    series' timestamps equal JAX's, and its latest value at each of a
+    sweep of instants and lookbacks (markers and gaps among them) too."""
+    writes = _writes(300, seed=chunk_size)
+    port = _fill(PORT, writes, chunk_size=chunk_size, retention=retention)
+    ref = _fill(JAX, writes, chunk_size=chunk_size, retention=retention)
+    now = port.clock.now()
+    checked = 0
+    for name, by_labels in ref._data.items():
+        for labels, want in by_labels.items():
+            got = port._data[name][labels]
+            assert got.ts == want.ts == [t for t, _, _ in want.points]
+            for at in np.linspace(now - 1500.0, now + 20.0, 37):
+                for lookback in (3.0, 30.0, 300.0):
+                    a = got.latest_at(float(at), lookback)
+                    b = want.latest_at(float(at), lookback)
+                    assert (a is None and b is None) or a == b, (name, labels, at, lookback)
+                    checked += a is not None
+    assert checked > 100
