@@ -17,11 +17,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    GEMM's tile configuration, its registers by warpgroup role
                    and its shared memory beside ptxas's report; the flash
                    forward's registers and spills for each instantiation
-                   (head_dim 64 and 128 by one or two consumer warpgroups)
-                   beside its threads, stages, CTAs an SM and shared memory,
-                   and the backward's (dQ and dK/dV at head_dim 64 and 128)
-                   beside its threads, stages, shared memory and setmaxnreg
-                   counts.
+                   (head_dim 64 and 128 by one or two consumer warpgroups,
+                   256 by one) beside its threads, stages, CTAs an SM and
+                   shared memory, and the backward's (dQ and dK/dV at
+                   head_dim 64, 128 and 256) beside its threads, stages,
+                   shared memory and setmaxnreg counts.
 3. parity        — the GEMM against its plain PyTorch version at six shapes,
                    among them N = 128 mod 256 and K = 128; an f32 or
                    unaligned operand must raise.
@@ -72,16 +72,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    the logsumexp, one KV tile (seq 64), seq 192 causal and
                    not on one and on two consumer warpgroups, head dim 64
                    on each over ten K/V tiles (each ring wraps), and the
-                   long timed shape with the logsumexp; each output within
+                   long timed shape with the logsumexp; at head_dim 256 the
+                   prefill (b8 s512 h8) causal with and without the
+                   logsumexp, the training shape (b1 s2048 h8) with it, seq
+                   192 causal and not, and ten K/V tiles; each output within
                    0.02 absolute and its error's RMS within a bar of its
-                   own; off-envelope operands and an unknown split must
+                   own; off-envelope operands (head_dim 384 among them), an
+                   unknown split and two warpgroups at head_dim 256 must
                    raise.
 11. flash_timing — the flash kernel at the prefill's shape, at the llm
                    training shape with the logsumexp on fused-QKV views (as
-                   the transformer calls it) and at a long one, beside its
-                   bound, the plain version and scaled_dot_product_attention
-                   (a yardstick the port never calls), in turns; and each
-                   shape on one and on two consumer warpgroups.
+                   the transformer calls it), at a long one, and at head_dim
+                   256's prefill and training shape, beside its bound, the
+                   plain version and scaled_dot_product_attention (a
+                   yardstick the port never calls; the backend its dispatch
+                   chose named), in turns; and each shape on
+                   each consumer-warpgroup tiling of its head_dim.
 11b. dwell       — bench.py's two rate blocks through utils/dwell.py:
                    trial.measure_attention_rates() (the flash forward and
                    reference_attention, each one CUDA graph of 400 causal
@@ -108,15 +114,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    within the 60 s budget.
 16. flash_bwd_parity — the dQ and dK/dV kernels against their plain versions
                    at the llm training shape (causal and not), seq 192 with
-                   three heads, and head_dim 64 over ten tiles a side (each
-                   ring wraps), on views of one fused QKV product; the
+                   three heads, head_dim 64 over ten tiles a side (each
+                   ring wraps), and at head_dim 256 the llm shape of a
+                   2048-wide model (b1 s2048 h8) causal and not and seq
+                   192, on views of one fused QKV product; the
                    autograd Function's gradients against autograd through
                    the plain forward at the llm shape; off-envelope operands
                    must raise.
 17. flash_bwd_timing — both backward kernels (and the training forward) at the
-                   llm shape and at a long one, beside their bounds, their
-                   plain versions and scaled_dot_product_attention's backward
-                   (a yardstick the port never calls).
+                   llm shape, at a long one and at the llm shape at head_dim
+                   256, beside their bounds, their plain versions and
+                   scaled_dot_product_attention's backward (a yardstick the
+                   port never calls; its backend named).
 18. llm_parity   — at full width, from the same weights and tokens, the
                    loss's gradients with attn_impl "auto" and with "ring"
                    agree leaf by leaf; then one LlmLoadGen step of each: the
@@ -126,6 +135,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    tokens/s and the losses of some twenty steps.
 20. llm_profile  — one auto step under torch.profiler: device time by
                    kernel, launches a step, the idle share.
+20b. head256     — the serving container's sizes at D_MODEL=2048 N_HEADS=8
+                   (head_dim 256): DecodeLoadGen's graph burst (a prefill of
+                   512, 128 greedy tokens) against the same burst eagerly
+                   with the prefill's attention on the plain version (the
+                   logits within 0.06, the prompt's cache within 0.06 plus
+                   2^-5 of its value), one forward launch a layer a prefill;
+                   LlmLoadGen at that width auto against ring (the loss
+                   within 0.05, each leaf's gradient within 5% of norm,
+                   exact launches), then five auto steps: step ms, tokens/s,
+                   the forward, dQ and dK/dV launches.
 21. train_parity — the ResNet training rung at the shipped tpu-train width
                    (ResNet-50, CIFAR stem, image 32): one step on the card in
                    bf16 and channels_last against the same step on the CPU
@@ -546,6 +565,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend
 
 from k8s_gpu_hpa_tpu_torch.device import peak_hbm_gbps_for, peak_tflops_for
 from k8s_gpu_hpa_tpu_torch.exporter import native, nvml
@@ -704,7 +724,10 @@ SIZE = 4096
 # not, with the logsumexp; the llm training shape with the logsumexp; one
 # KV tile; seq 192 causal and not on each split (on two warpgroups the first
 # Q tile leaves the second none); head_dim 64 on each over ten K/V tiles,
-# more than twice either ring's stages; and the long timed shape
+# more than twice either ring's stages; the long timed shape; then head_dim
+# 256 (HEAD256_SIZES): its prefill causal with and without the logsumexp,
+# its training shape with it, seq 192 causal and not on its one split, and
+# ten K/V tiles, more than three times its ring's three stages
 FLASH_SHAPES = [
     (8, 512, 4, 128, True, False, None),
     (8, 512, 4, 128, False, False, None),
@@ -715,6 +738,12 @@ FLASH_SHAPES = [
       for split in flash_attention.FWD_SPLITS),
     *((2, 640, 2, 64, True, True, split) for split in flash_attention.FWD_SPLITS),
     (2, 4096, 8, 128, True, True, None),
+    (8, 512, 8, 256, True, False, None),
+    (8, 512, 8, 256, True, True, None),
+    (1, 2048, 8, 256, True, True, None),
+    *((2, 192, 3, 256, causal, True, split) for causal in (True, False)
+      for split in flash_attention.fwd_splits(256)),
+    (2, 640, 2, 256, True, True, None),
 ]
 # bf16 output, each side rounding P to bf16 once per KV tile it sums: the
 # kernel per 64-key tile against its running max, the plain version once
@@ -732,9 +761,11 @@ LSE_ATOL = 1e-4
 FLASH_REL_RMS = 5e-3
 # (batch, seq, heads, head_dim, with_lse, on fused-QKV views), causal, for
 # timing: the prefill's shape; the llm training shape as the transformer's
-# training step calls it; a long one
+# training step calls it; a long one; and head_dim 256's prefill and
+# training shape, the latter as the training step calls it
 FLASH_TIMED = [(8, 512, 4, 128, False, False), (1, 2048, 4, 128, True, True),
-               (2, 4096, 8, 128, False, False)]
+               (2, 4096, 8, 128, False, False), (8, 512, 8, 256, False, False),
+               (1, 2048, 8, 256, True, True)]
 # serve parity at the shipped sizes in bf16: prefill against stepwise decode
 # reach the cache and the logits through other products (a [b, 512, d] GEMM
 # and the flash kernel against [b, 1, d] GEMMs and the decode's products), so
@@ -747,11 +778,22 @@ SERVE_CACHE_RTOL = 2.0**-5
 #: the llm training rung's attention (LlmLoadGen's defaults: batch 1, 2048
 #: tokens, 4 heads of 128)
 LLM_SHAPE = (1, 2048, 4, 128)
+#: head_dim 256: the shipped serving container's sizes (SERVE_SIZES: batch 8,
+#: context 2048, prefill 512, 4 layers) at D_MODEL=2048 N_HEADS=8, the head
+#: width of Gemma's 2B and 7B models, and the llm rung at that width (batch
+#: 1, 2048 tokens); d_ff is 4 d_model in both
+HEAD256_SIZES = {**SERVE_SIZES, "d_model": 2048, "n_heads": 8}
+#: the auto steps the head256 phase times: a count, not a time
+HEAD256_STEPS = 5
+#: the llm rung's attention at that width: 8 heads of 256
+LLM_SHAPE_D256 = (1, 2048, 8, 256)
 # (batch, seq, heads, head_dim, causal): the llm shape causal and not; seq
 # 192, whose backward runs three 64-row tiles a side, the dK/dV loop
-# starting at the diagonal; and head_dim 64 over ten tiles a side, which
-# wraps every ring
-BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 640, 2, 64, True)]
+# starting at the diagonal; head_dim 64 over ten tiles a side, which wraps
+# every ring; and at head_dim 256 the llm shape causal and not (32 tiles a
+# side wrap its two-stage rings) and seq 192
+BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 640, 2, 64, True),
+              (*LLM_SHAPE_D256, True), (*LLM_SHAPE_D256, False), (2, 192, 3, 256, True)]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
 # orders, and rounds each gradient once; dS (and P for dV) is rounded to
 # bf16 before the second product, and where the two sides' fp32 dS straddle
@@ -774,8 +816,9 @@ BWD_REL_RMS = 1e-3
 # over the rtol term 0.0059, RMS ratio 0.0034; its bars are twice those.
 FN_ATOL = 0.012
 FN_REL_RMS = 0.007
-# the llm shape and a long causal one, for timing
-BWD_TIMED = [LLM_SHAPE, (2, 4096, 8, 128)]
+# the llm shape, a long causal one and the llm shape at head_dim 256, for
+# timing
+BWD_TIMED = [LLM_SHAPE, (2, 4096, 8, 128), LLM_SHAPE_D256]
 # train parity: the two steps' losses agree within the JAX package's bar for
 # the same comparison (tests/test_flash_attention.py:187).  The gradients of
 # the same loss from the same weights, auto (flash kernels) against ring
@@ -990,11 +1033,12 @@ def phase_build() -> None:
         # and the consumers' counts are set in the kernel
         "flash_bwd": flash_bwd,
     })
-    if len(flash_fwd) != 4 or any(e["spill_bytes"] for e in flash_fwd):
+    fwd_count = sum(len(flash_attention.fwd_splits(d)) for d in flash_attention.HEAD_DIMS)
+    if len(flash_fwd) != fwd_count or any(e["spill_bytes"] for e in flash_fwd):
         raise AssertionError(f"the flash forward's ptxas report: {flash_fwd}")
     # setmaxnreg.inc waits for registers the producer's .dec gives up: at
     # 384 threads they add up only from exactly 168 a thread at launch
-    if len(flash_bwd) != 4 or any(
+    if len(flash_bwd) != 2 * len(flash_attention.HEAD_DIMS) or any(
         e["spill_bytes"] or (e["consumer_regs"] and e["registers_at_launch"] != 168)
         for e in flash_bwd
     ):
@@ -1502,7 +1546,7 @@ def phase_flash_parity() -> float:
         diff = (got.float() - want.float()).abs()
         rms_want = float(want.float().square().mean().sqrt())
         row = {"bshd": [b, s, h, d], "causal": causal,
-               "kv_split": split or flash_attention.fwd_split(b * h, s, _sms()),
+               "kv_split": split or flash_attention.fwd_split(b * h, s, _sms(), d),
                "max_abs_err": float(diff.max()),
                "rms_err_over_rms_want": float(diff.square().mean().sqrt()) / rms_want,
                "lse_max_abs_err": lse_err, "max_abs_out": float(want.float().abs().max()),
@@ -1523,7 +1567,7 @@ def phase_flash_parity() -> float:
     cases = {
         "f32": (ok.float(), ok.float(), ok.float()),
         "seq_100": (ok[:, :100],) * 3,
-        "head_dim_256": (torch.zeros(1, 128, 1, 256, device="cuda", dtype=bf16),) * 3,
+        "head_dim_384": (torch.zeros(1, 128, 1, 384, device="cuda", dtype=bf16),) * 3,
         "shape_mismatch": (ok, ok[:, :64], ok[:, :64]),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128],) * 3,
     }
@@ -1540,6 +1584,13 @@ def phase_flash_parity() -> float:
         refused["kv_split_3"] = type(e).__name__
     else:
         raise AssertionError("the forward took three consumer warpgroups a CTA")
+    d256 = torch.zeros(1, 128, 1, 256, device="cuda", dtype=bf16)
+    try:
+        flash_attention._launch_fwd(d256, d256, d256, True, False, 2)
+    except ValueError as e:
+        refused["d256_kv_split_2"] = type(e).__name__
+    else:
+        raise AssertionError("the forward took two consumer warpgroups a CTA at head_dim 256")
     emit({"phase": "flash_parity", "atol": FLASH_ATOL, "lse_atol": LSE_ATOL,
           "rel_rms": FLASH_REL_RMS, "shapes": rows, "refused": refused})
     return worst
@@ -1551,6 +1602,15 @@ def flash_work(b: int, s: int, h: int, d: int, causal: bool) -> tuple[float, flo
     read once and O written once in bf16."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     return 4.0 * d * pairs, 4.0 * b * s * h * d * 2
+
+
+def _sdpa_backend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backend scaled_dot_product_attention takes for causal attention
+    on these operands (with their ``requires_grad``), by PyTorch's own
+    dispatch rule: ``CUDNN_ATTENTION`` on the card at every timed shape.
+    A trace of the call's kernels read the same early in the script but
+    came back empty late in it."""
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
 
 
 def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
@@ -1594,18 +1654,19 @@ def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
         by_split = {
             split: graph_time_ms(
                 lambda n=split: flash_attention._launch_fwd(q, k, v, True, with_lse, n), iters)
-            for split in flash_attention.FWD_SPLITS
+            for split in flash_attention.fwd_splits(d)
         }
         host_loop = cuda_time_ms(kernel_call, iters)
         row = {
             "bshd": [b, s, h, d], "causal": True, "with_lse": with_lse, "qkv_views": views,
-            "kv_split": flash_attention.fwd_split(b * h, s, _sms()),
+            "kv_split": flash_attention.fwd_split(b * h, s, _sms(), d),
             "ms": min(kernel), "ms_runs": kernel, "ms_by_split": by_split,
             "ms_host_launch_loop": host_loop,
             "tflops": flops / min(kernel) / 1e9,
             "plain_ms": min(plain), "plain_ms_runs": plain,
             "library_ms": min(library), "library_ms_runs": library,
             "library": "F.scaled_dot_product_attention(is_causal=True)",
+            "library_backend": _sdpa_backend(qt, kt, vt),
             "over_library": min(kernel) / min(library),
             "bound_ms": max(ms_by_ops, ms_by_bytes),
             "bound_by": "operations" if ms_by_ops >= ms_by_bytes else "bytes",
@@ -1876,7 +1937,7 @@ def phase_flash_bwd_parity() -> dict[str, float]:
     cases = {
         "f32": (ok.float(), lse),
         "seq_100": (ok[:, :100], lse[:, :100]),
-        "head_dim_256": (torch.zeros(1, 128, 2, 256, device="cuda", dtype=bf16), lse),
+        "head_dim_384": (torch.zeros(1, 128, 2, 384, device="cuda", dtype=bf16), lse),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128], lse),
         "lse_shape": (ok, lse[:1]),
         "lse_bf16": (ok, lse.to(bf16)),
@@ -1953,7 +2014,7 @@ def phase_flash_bwd_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
         library_bwd = graph_time_ms(sdpa_fwd_bwd, iters) - library_fwd
         row = {"bshd": [b, s, h, d], "causal": True,
                "library": "F.scaled_dot_product_attention backward (fwd+bwd minus fwd)",
-               "library_fwd_ms": library_fwd}
+               "library_backend": _sdpa_backend(qt, kt, vt), "library_fwd_ms": library_fwd}
         plains = {
             "dq": lambda: flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, True),
             "dkv": lambda: flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, True),
@@ -2000,13 +2061,12 @@ def _zero_counts() -> None:
     flash_attention_bwd_kernel.dkv_launches = 0
 
 
-def phase_llm_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
-    """At full width, from the same seeded weights and tokens (LlmLoadGen's):
-    the gradients of the training loss through the flash kernels (auto) and
-    through the plain blocking (ring), leaf by leaf; then one step of each
-    generator.  Returns the generators, one step in, and the auto step's
-    launches."""
-    gens = {impl: LlmLoadGen(attn_impl=impl, device="cuda:0") for impl in ("auto", "ring")}
+def _auto_against_ring(gens: dict[str, LlmLoadGen], phase: str) -> dict[str, int]:
+    """From the same seeded weights and tokens (LlmLoadGen's): the gradients
+    of the training loss through the flash kernels (auto) and through the
+    plain blocking (ring), leaf by leaf; then one step of each generator.
+    Emits ``phase``'s line and raises where they disagree; returns the auto
+    step's launches."""
     cfg = gens["auto"].cfg
     grads = {impl: transformer.make_loss_and_grad(cfg, impl)(g.params, g.tokens)[1]
              for impl, g in gens.items()}
@@ -2039,7 +2099,7 @@ def phase_llm_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
         bad += int((diff > TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * r.float().abs()).sum())
         moved += int((a != before[n]).sum())
     out = {
-        "phase": "llm_parity", "cfg": {"batch": gens["auto"].batch, "seq": cfg.max_seq,
+        "phase": phase, "cfg": {"batch": gens["auto"].batch, "seq": cfg.max_seq,
                                          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                                          "n_layers": cfg.n_layers, "d_ff": cfg.d_ff,
                                          "dtype": "bfloat16"},
@@ -2061,7 +2121,111 @@ def phase_llm_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
         raise AssertionError(f"the updated weights disagree or did not move: {out}")
     if counts != want:
         raise AssertionError(f"one auto step launched {counts}, not {want}")
-    return gens, counts
+    return counts
+
+
+def phase_llm_parity() -> tuple[dict[str, LlmLoadGen], dict[str, int]]:
+    """At full width, auto against ring (``_auto_against_ring``).  Returns
+    the generators, one step in, and the auto step's launches."""
+    gens = {impl: LlmLoadGen(attn_impl=impl, device="cuda:0") for impl in ("auto", "ring")}
+    return gens, _auto_against_ring(gens, "llm_parity")
+
+
+def _plain_flash(q, k, v, causal=False):
+    """The prefill's attention on the flash forward's plain version."""
+    return flash_attention_reference(q, k, v, causal)
+
+
+def phase_head256() -> dict[str, int]:
+    """The serving and training paths at head_dim 256 (HEAD256_SIZES), on
+    the d256 instantiations of the three flash kernels.
+
+    Serve: ``DecodeLoadGen`` warmed up (one eager burst, then the capture),
+    then one graph burst (a prefill of 512 and 128 greedy tokens) against
+    the same burst run eagerly with the prefill's attention on the plain
+    version: the prefill's logits within SERVE_ATOL, the prompt's cache
+    within SERVE_ATOL plus SERVE_CACHE_RTOL of its value; the decoded
+    tokens, which a near-tie may turn, read beside them.  The forward
+    launches once a layer a prefill.  Training: ``LlmLoadGen`` at the same
+    width, auto against ring (``_auto_against_ring``: loss within 0.05,
+    gradients leaf by leaf within TRAIN_GRAD_REL), then HEAD256_STEPS auto
+    steps: step ms, tokens/s and exact launches.  Returns the phase's
+    launches of each kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _zero_counts()
+    gen = DecodeLoadGen(**HEAD256_SIZES, window=3.0, device="cuda:0")
+    # an eager burst, the capture's eager burst on its own stream, and the
+    # capture: one launch a layer each
+    gen.warmup()
+    cfg = gen.cfg
+    if (flash_attention_kernel.launches != 3 * cfg.n_layers
+            or gen.flash_launches_per_burst != cfg.n_layers):
+        raise AssertionError(f"the d256 burst launched {flash_attention_kernel.launches} "
+                             f"forwards, {gen.flash_launches_per_burst} captured")
+    plen = gen.prefill_len
+    flash, runs = transformer.flash_attention, {}
+    for path, attn in (("kernel", flash), ("plain", _plain_flash)):
+        transformer.flash_attention = attn
+        try:
+            logits, _ = transformer.prefill(
+                gen.params, cfg, gen.prompt, transformer.init_kv_cache(cfg, gen.batch, gen.device))
+            gen.reset_state()
+            t0 = time.perf_counter()
+            gen.run_burst(use_graph=path == "kernel")  # the graph holds the kernel path
+            burst_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            transformer.flash_attention = flash
+        tokens, cache, pos = gen.state()
+        runs[path] = (logits, tokens.clone(), {n: c.clone() for n, c in cache.items()}, pos,
+                      burst_ms)
+    (kl, kt, kc, kp, kernel_ms), (pl, pt, pc, pp, plain_ms) = runs["kernel"], runs["plain"]
+    k_err, k_bad = _cache_err(kc["k"][:, :, :, :plen], pc["k"][:, :, :, :plen])
+    v_err, v_bad = _cache_err(kc["v"][:, :, :, :plen], pc["v"][:, :, :, :plen])
+    serve = {
+        "sizes": HEAD256_SIZES, "head_dim": cfg.head_dim, "dtype": "bfloat16",
+        "atol": SERVE_ATOL, "cache_rtol": SERVE_CACHE_RTOL,
+        "logits_max_abs_err": float((kl - pl).abs().max()),
+        "argmax_agree": float((kl.argmax(-1) == pl.argmax(-1)).float().mean()),
+        "prompt_cache_max_abs_err": max(k_err, v_err), "cache_out_of_tol": k_bad + v_bad,
+        "pos": [kp, pp], "tokens_agree": float((kt == pt).float().mean()),
+        "graph_burst_ms": kernel_ms, "plain_eager_burst_ms": plain_ms,
+        "flash_launches_per_burst": gen.flash_launches_per_burst,
+        "finite": bool(torch.isfinite(kl).all())
+                  and all(bool(torch.isfinite(c.float()).all()) for c in kc.values()),
+    }
+    launches = {"fwd": flash_attention_kernel.launches
+                + gen.replays * gen.flash_launches_per_burst, "dq": 0, "dkv": 0}
+    del gen, runs, kc, pc
+    torch.cuda.empty_cache()
+    if (serve["logits_max_abs_err"] > SERVE_ATOL or serve["cache_out_of_tol"]
+            or not serve["finite"] or kp != pp):
+        emit({"phase": "head256", "serve": serve})
+        raise AssertionError(f"the d256 burst disagrees with the plain path: {serve}")
+    width = {key: HEAD256_SIZES[key] for key in ("d_model", "n_heads", "n_layers")}
+    gens = {impl: LlmLoadGen(**width, attn_impl=impl, device="cuda:0")
+            for impl in ("auto", "ring")}
+    parity = _auto_against_ring(gens, "head256_llm_parity")
+    del gens["ring"]
+    torch.cuda.empty_cache()
+    llm = gens["auto"]
+    _zero_counts()
+    ms = [llm.step() * 1e3 for _ in range(HEAD256_STEPS)]
+    counts = _bwd_counts()
+    n = llm.cfg.n_layers
+    want = {"fwd": 2 * n * HEAD256_STEPS, "dq": n * HEAD256_STEPS, "dkv": n * HEAD256_STEPS}
+    stats = llm.stats()
+    out = {"phase": "head256", "serve": serve,
+           "llm": {"cfg": {**width, "seq": llm.cfg.max_seq, "batch": llm.batch,
+                           "head_dim": llm.cfg.head_dim},
+                   "parity_step_launches": parity, "steps": HEAD256_STEPS, "step_ms": ms,
+                   "tokens_per_s": stats.tokens_per_sec, "last_loss": stats.last_loss,
+                   "launches": counts}}
+    emit(out)
+    if counts != want or not math.isfinite(stats.last_loss):
+        raise AssertionError(f"{HEAD256_STEPS} d256 auto steps launched {counts}, not {want}")
+    for name in launches:
+        launches[name] += parity[name] + counts[name]
+    return launches
 
 
 def phase_llm_train(gens: dict[str, LlmLoadGen], seconds: float = 3.0) -> dict[str, int]:
@@ -3383,7 +3547,7 @@ def phase_tp_serve_parity(work_dir: str, device: str = "cuda:0") -> tuple[dict, 
     # the one device with a TP rank's attention split: its flash forward on
     # each half of the heads, at the rank's batch-heads
     split_logits, split_tokens, _ = _one_device_greedy(ref, head_groups=2)
-    splits = [flash_attention.fwd_split(ref.batch * heads, plen, _sms())
+    splits = [flash_attention.fwd_split(ref.batch * heads, plen, _sms(), cfg.head_dim)
               for heads in (cfg.n_heads, cfg.n_heads // 2)]
     del ref, cache
     ranks = sorted(_pair(tp_serve_rank, work_dir, device, device, tokens), key=lambda r: r["model"])
@@ -5071,6 +5235,9 @@ def main() -> int:
     train_counts = phase_llm_train(gens)
     phase_llm_profile(gens["auto"])
     del gens
+    torch.cuda.empty_cache()
+    head256 = phase_head256()
+    torch.cuda.empty_cache()
     phase_train_parity()
     train_gen, _ = phase_train_loadgen()
     phase_train_profile(train_gen)
@@ -5126,7 +5293,7 @@ def main() -> int:
     phase_incident()
     phase_races()
     phase_processes()
-    train = {n: parity_counts[n] + train_counts[n] for n in parity_counts}
+    train = {n: parity_counts[n] + train_counts[n] + head256[n] for n in parity_counts}
     path = flash_timing[0]  # the serve prefill's shape
     llm = bwd_timing[0]  # the llm training shape
     emit({"kernels": [
@@ -5143,18 +5310,21 @@ def main() -> int:
             "name": "flash_attention_fwd_bf16", "route": "cuda",
             "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
-            # the serve loop's launches, the training path's, TP serving's and
-            # the serving container's
+            # the serve loop's launches, the training paths' and head256's
+            # burst, TP serving's and the serving container's
             "launches": flash_launches + train["fwd"] + tp_launches + queue["flash_launches"],
+            "launches_head_dim_256": head256["fwd"],
             "max_abs_err": flash_err,
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
             # the same at each timed shape: the serve prefill (above), the
-            # llm training shape with the logsumexp, the long one
+            # llm training shape with the logsumexp, the long one, and
+            # head_dim 256's prefill and training shape
             "shapes": [
                 {key: row[key] for key in ("bshd", "with_lse", "kv_split", "ms", "plain_ms",
-                                           "bound_ms", "bound_by", "library_ms")}
+                                           "bound_ms", "bound_by", "library_ms",
+                                           "library_backend")}
                 for row in flash_timing
             ],
         },
@@ -5163,12 +5333,21 @@ def main() -> int:
                 "name": f"flash_attention_bwd_{name}_bf16", "route": "cuda",
                 "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
-                "launches": train[name], "max_abs_err": bwd_err[name],
+                "launches": train[name], "launches_head_dim_256": head256[name],
+                "max_abs_err": bwd_err[name],
                 "ms": llm[name]["ms"], "plain_ms": llm[name]["plain_ms"],
                 "bound_ms": llm[name]["bound_ms"], "bound_by": llm[name]["bound_by"],
                 # SDPA's backward computes dQ, dK and dV in one call: its
                 # time times this kernel's share of the pair's operations
                 "library_ms": llm[name]["library_ms"],
+                # the same at each timed shape: the llm's (above), the long
+                # one, and the llm's at head_dim 256
+                "shapes": [
+                    {"bshd": row["bshd"], "library_backend": row["library_backend"],
+                     **{key: row[name][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")}}
+                    for row in bwd_timing
+                ],
                 "library": "SDPA backward x {:.4f} of the pair's operations; whole call {} ms"
                            " against dQ + dK/dV {} ms".format(
                                llm[name]["library_share"], llm["pair"]["library_ms"],

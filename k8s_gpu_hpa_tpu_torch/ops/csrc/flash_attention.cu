@@ -15,7 +15,8 @@
 //
 // The TPU kernel keeps a whole K/V stripe of one batch-head in VMEM and loops
 // over it.  A Hopper CTA has at most 227 KB of shared memory, so this kernel
-// streams K/V tiles of 64 rows instead (FlashAttention-3 style):
+// streams K/V tiles of 64 rows instead (FlashAttention-3 style), at head_dim
+// 64, 128 or 256:
 //   - one CTA per (batch-head, Q tile of 64 rows), heaviest causal tiles
 //     first: the grid's fast axis is the batch-head, its slow axis the Q
 //     tile counted down from the last;
@@ -29,14 +30,17 @@
 //     rows are the product's N); O += P V is wgmma m64n{D}k16 with P from
 //     registers: the fp32 S accumulators, packed to bf16 pairs, are its A
 //     fragments, so scores never leave the registers; V is read N-major
-//     with the transpose bit.  Within a warpgroup the next tile's Q K^T is
-//     issued before this tile's P V, and its softmax runs while P V is in
-//     flight;
+//     with the transpose bit.  At D = 256 P V is two m64n128k16 products a
+//     16-key step, one on each half of O's columns (wgmma's N stops at 256,
+//     and the PTX layer's register-A products stop at 128), and Q K^T 16
+//     steps.  Within a warpgroup the next tile's Q K^T is issued before
+//     this tile's P V, and its softmax runs while P V is in flight;
 //   - tensors reach the TMA unit through 4-D tensor maps over (d, h, s, b)
 //     with the caller's strides, so the transformer's views of its fused QKV
 //     product are read where they lie; the map's s extent is the sequence,
 //     so a box past it reads zeros and never the next batch's rows.  Boxes
-//     are 64 x 64 (128-byte rows, the swizzle's width): d = 128 is two boxes.
+//     are 64 x 64 (128-byte rows, the swizzle's width): d = 128 is two boxes,
+//     d = 256 four.
 //
 // The consumer warpgroups a CTA are the host's choice (flash_attention_fwd's
 // kv_split; ops/flash_attention.py::fwd_split picks it from the grid):
@@ -48,6 +52,14 @@
 //     (288 threads, four stages, one CTA an SM), where they do not, as at
 //     the training shape (b1 s2048 h4: 128 CTAs on 132 SMs): the heaviest
 //     CTA's 32 tiles run on two warpgroups of one SM instead of one.
+// At head_dim 256 only the first fits: a 64-row tile is 32 KB, so Q and a
+// three-stage ring of K and V take 224 KB, one CTA an SM (two stages would
+// leave each tile's load exposed behind the previous tile's P V; two
+// warpgroups would need a ring of four stages, their turns two tiles apart,
+// and 66 KB of hand-over, past the SM's 227 KB).  A consumer thread then
+// holds O at 128 fp32 registers beside S (32) and P (16): launch bounds of
+// 160 threads, one CTA an SM, let it have up to 255, so the producer stays
+// one warp and no setmaxnreg is needed.
 //
 // Bound.  Each (batch-head, Q row, K row) pair that the causal loop visits
 // costs 4 d operations (two products).  At the serving prefill's shape (b8,
@@ -56,7 +68,10 @@
 // 16.8 MB of Q, K, V and O, or 5.0 us at 3.35 TB/s: memory bounds that shape.
 // At the training shape (b1, s2048, h4) it is 4.3 GFLOP, 4.3 us, and at (b2,
 // s4096, h8) 68.7 GFLOP, or 69.5 us, against 67.1 MB, 20.0 us: the tensor
-// cores bound both (NVIDIA H100 SXM data sheet).
+// cores bound both (NVIDIA H100 SXM data sheet).  At head_dim 256 (b8 s512
+// h8, the prefill of a 2048-wide model of 8 heads) it is 8.6 GFLOP, 8.7 us,
+// against 67.1 MB, 20.0 us: memory bounds it; at (b1, s2048, h8) 17.2 GFLOP,
+// 17.4 us, against 33.6 MB, 10.0 us: the tensor cores do.
 //
 // Layout.  Q, K, V are [B, S, H, D] with D contiguous and any other strides
 // (element counts, multiples of 8); a [B*H, S, D] tensor is the case H = 1.
@@ -94,13 +109,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // over its K/V tiles
 template <int D, int SPLIT>
 struct Cfg {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  static_assert(SPLIT == 1 || D <= 128, "at head_dim 256 one consumer warpgroup a CTA");
   static constexpr int kBoxes = D / kBox;  // boxes across a row of Q, K or V
   static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // 64 rows of Q, K or V
   static constexpr uint32_t kStageBytes = 2 * kTileBytes;  // K and V
   // two stages where two CTAs share an SM, four where one has it alone
-  static constexpr int kStages = SPLIT == 1 ? 2 : 4;
+  // (two warpgroups a CTA), three at head_dim 256 (one warpgroup, one CTA)
+  static constexpr int kStages = SPLIT == 2 ? 4 : D == 256 ? 3 : 2;
   static constexpr int kThreads = 128 * SPLIT + 32;
-  static constexpr int kCtasPerSm = SPLIT == 1 ? 2 : 1;
+  static constexpr int kCtasPerSm = SPLIT == 1 && D <= 128 ? 2 : 1;
   // the second warpgroup hands over its O, m and l there
   static constexpr uint32_t kXchgBytes = SPLIT == 1 ? 0 : (D / 2 + 4) * 128 * sizeof(float);
   // Q, the ring, its barriers, Q's and the hand-over's, the hand-over, and
@@ -108,7 +126,27 @@ struct Cfg {
   static constexpr size_t kSmem = kTileBytes + kStages * kStageBytes +
                                   (2 * kStages + 2) * sizeof(uint64_t) + kXchgBytes +
                                   kSwizzleAtom;
+  // an SM's 228 KB less 1 KB a CTA, as its launch bounds promise
+  static_assert(kCtasPerSm * (kSmem + 1024) <= 233472, "shared memory of an SM");
 };
+
+// O += P V for one 16-key step: P's A fragments from registers, V's 16 rows
+// read N-major (its 64-column boxes kBoxBytes apart); one m64n{D}k16 product,
+// two of 128 columns at D = 256, each on its half of O (the accumulator
+// layout of m64n256k16: O's first 64 values are columns 0-127)
+template <int D>
+__device__ __forceinline__ void pv_step(float (&o)[D / 2], const uint32_t (&a)[4],
+                                        const unsigned char* v_rows) {
+  if constexpr (D == 64) {
+    wgmma_m64n64k16_rs_bf16(o, a, desc_mn_major(v_rows, kBoxBytes), 1);
+  } else {
+#pragma unroll
+    for (int n = 0; n < D / 128; ++n) {
+      wgmma_m64n128k16_rs_bf16(*reinterpret_cast<float(*)[64]>(o + 64 * n), a,
+                               desc_mn_major(v_rows + 2 * n * kBoxBytes, kBoxBytes), 1);
+    }
+  }
+}
 
 struct Params {
   CUtensorMap q, k, v;  // [b, s, h, d], box 64 (d) x 1 x 64 (s) x 1
@@ -261,12 +299,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
       const unsigned char* v_tile = ring + stage_of(j) * C::kStageBytes + C::kTileBytes;
 #pragma unroll
       for (int kc = 0; kc < kBK / kWgK; ++kc) {
-        const uint64_t dv = desc_mn_major(v_tile + kc * kWgK * kSwizzleRow, kBoxBytes);
-        if constexpr (D == 128) {
-          wgmma_m64n128k16_rs_bf16(o, pk[kc], dv, 1);
-        } else {
-          wgmma_m64n64k16_rs_bf16(o, pk[kc], dv, 1);
-        }
+        pv_step<D>(o, pk[kc], v_tile + kc * kWgK * kSwizzleRow);
       }
       wgmma_commit();
     };
@@ -372,14 +405,10 @@ cudaError_t opt_in() {
                               static_cast<int>(Cfg<D, SPLIT>::kSmem));
 }
 
-template <int D>
-void launch(const Params& p, int kv_split, int batch_heads, cudaStream_t stream) {
+template <int D, int SPLIT>
+void launch(const Params& p, int batch_heads, cudaStream_t stream) {
   const dim3 grid(batch_heads, p.seq / kBK);
-  if (kv_split == 2) {
-    flash_fwd_kernel<D, 2><<<grid, Cfg<D, 2>::kThreads, Cfg<D, 2>::kSmem, stream>>>(p);
-  } else {
-    flash_fwd_kernel<D, 1><<<grid, Cfg<D, 1>::kThreads, Cfg<D, 1>::kSmem, stream>>>(p);
-  }
+  flash_fwd_kernel<D, SPLIT><<<grid, Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kSmem, stream>>>(p);
 }
 
 template <class C>
@@ -394,11 +423,12 @@ int config_of(int* out, int n) {
 
 // C entries, bound with ctypes.
 //
-// flash_attention_init opts the four instantiations (head_dim 64 and 128 by
-// one or two consumer warpgroups) in to the dynamic shared memory they need
-// above the default 48 KB and looks up the CUDA driver API's cuTensorMapEncodeTiled.
-// It is called once per device before the first launch, never at launch: a
-// launch may sit inside CUDA-graph capture.  Returns a cudaError_t.
+// flash_attention_init opts the five instantiations (head_dim 64 and 128 by
+// one or two consumer warpgroups, 256 by one) in to the dynamic shared
+// memory they need above the default 48 KB and looks up the CUDA driver
+// API's cuTensorMapEncodeTiled.  It is called once per device before the
+// first launch, never at launch: a launch may sit inside CUDA-graph
+// capture.  Returns a cudaError_t.
 extern "C" int flash_attention_init(int device) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -410,6 +440,7 @@ extern "C" int flash_attention_init(int device) {
   if (err == cudaSuccess) err = opt_in<64, 2>();
   if (err == cudaSuccess) err = opt_in<128, 1>();
   if (err == cudaSuccess) err = opt_in<128, 2>();
+  if (err == cudaSuccess) err = opt_in<256, 1>();
   if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -427,24 +458,27 @@ extern "C" int flash_attention_config(int head_dim, int kv_split, int* out, int 
   if (head_dim == 128) {
     return kv_split == 2 ? config_of<Cfg<128, 2>>(out, n) : config_of<Cfg<128, 1>>(out, n);
   }
+  if (head_dim == 256 && kv_split == 1) return config_of<Cfg<256, 1>>(out, n);
   return 0;
 }
 
 // `strides` holds 12 element strides: (batch, seq, head) for Q, K, V and O.
 // `lse` may be null.  A CTA takes 64 Q rows on `kv_split` consumer
-// warpgroups (1 or 2) that take turns over its K/V tiles.  `device` is the
-// CUDA ordinal the pointers live on, initialised with flash_attention_init,
-// and `stream` the caller's cudaStream_t.  Returns cudaGetLastError() after
-// the launch: nonzero means the launch was refused and nothing ran.  A
-// refused tensor map returns the CUDA driver API's CUresult.
+// warpgroups (1 or 2; 1 at head_dim 256) that take turns over its K/V
+// tiles.  `device` is the CUDA ordinal the pointers live on, initialised
+// with flash_attention_init, and `stream` the caller's cudaStream_t.
+// Returns cudaGetLastError() after the launch: nonzero means the launch was
+// refused and nothing ran.  A refused tensor map returns the CUDA driver
+// API's CUresult.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, const int64_t* strides, int kv_split,
                                    int batch, int heads, int seq, int head_dim, int causal,
                                    float scale, int device, void* stream) {
   if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  if ((head_dim != 64 && head_dim != 128) || (kv_split != 1 && kv_split != 2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool known = head_dim == 256 ? kv_split == 1
+                                     : (head_dim == 64 || head_dim == 128) &&
+                                           (kv_split == 1 || kv_split == 2);
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -471,10 +505,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) {
-    launch<128>(p, kv_split, batch * heads, s);
+  const int bh = batch * heads;
+  if (head_dim == 256) {
+    launch<256, 1>(p, bh, s);
+  } else if (head_dim == 128) {
+    kv_split == 2 ? launch<128, 2>(p, bh, s) : launch<128, 1>(p, bh, s);
   } else {
-    launch<64>(p, kv_split, batch * heads, s);
+    kv_split == 2 ? launch<64, 2>(p, bh, s) : launch<64, 1>(p, bh, s);
   }
   err = cudaGetLastError();
   if (cur != device) cudaSetDevice(cur);

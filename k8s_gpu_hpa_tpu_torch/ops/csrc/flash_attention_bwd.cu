@@ -28,7 +28,10 @@
 // (flash_attention.cu): wgmma for every product, operands brought once by
 // TMA into a ring, and no shared-memory round trip for the intermediates.
 // Recomputing S and dP in both kernels costs 14 d operations a pair where a
-// fused backward accumulating dQ with atomics does 10 d.
+// fused backward accumulating dQ with atomics does 10 d.  At head_dim 256
+// (b1, s2048, h8: a 2048-wide model of 8 heads) the pairs are 8 * 2048 *
+// 2049 / 2: 25.8 GFLOP, 26.1 us, and 34.4 GFLOP, 34.8 us, against 42.0 MB
+// and 50.4 MB (12.5 and 15.0 us): the tensor cores bound both.
 //
 // Both kernels:
 //   - one CTA per (batch-head, 64-row tile), heaviest causal tiles first:
@@ -82,11 +85,32 @@
 //     at d 128 dQ too has a producer warpgroup under setmaxnreg; at d 64 a
 //     producer warp.
 //
+// Head_dim 256.  A 64-row tile is 32 KB, so the CTA's own two tiles and a
+// ring of two stages take 192 KB; a third stage would pass the SM's 227 KB.
+//   - dQ keeps its two warpgroups taking turns, but not the overlap: a
+//     warpgroup that issued its next tile's S and dP before its current
+//     tile's dS K would hold two stages two tiles apart, which a ring of two
+//     gives the same stage.  So each tile is released before the next is
+//     awaited, and the two warpgroups' products overlap each other's
+//     exponentials instead.  Registers: dQ 128, S 32, dP 32 at most.
+//   - dK/dV cannot hold dK and dV (64 x 256 fp32 each, 256 registers a
+//     thread) in one warpgroup, so the two warpgroups split the roles
+//     instead of the tiles: both read every Q tile of the ring (its empty
+//     barrier takes two arrivals); the first computes S^T and dV += P^T dO
+//     (dV 128, S^T 32, P^T 16 registers), the second S^T, dP^T and dK +=
+//     dS^T Q (dK 128, S^T 32, dP^T 32); each stores its own gradient, with
+//     no hand-over.  S^T is computed twice, 10 d operations a pair where
+//     the other head_dims do 8 d, and the second warpgroup, at 6 d, paces
+//     the CTA.
+//   - the m64n{d}k16 products with A from registers are two m64n128k16 at
+//     d 256, one on each half of the accumulator's columns.
+// A simple tiling that is right; making it fast is later work.
+//
 // Layout.  Q, K, V, dO, dQ, dK and dV are [B, S, H, D] with D contiguous and
 // any other strides (element counts, multiples of 8); a [B*H, S, D] tensor is
 // the case H = 1.  lse and delta are [B*H, S] fp32, contiguous.  S must be a
-// multiple of 64 and D 64 or 128.  The Python wrapper (ops/flash_attention.py)
-// checks all of this before it calls in.
+// multiple of 64 and D 64, 128 or 256.  The Python wrapper
+// (ops/flash_attention.py) checks all of this before it calls in.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -118,17 +142,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // 64 rows a CTA on two consumer warpgroups that take turns over the ring's
-// tiles; DKV: the dK/dV kernel, else dQ
+// tiles (at d 256 the dK/dV kernel's split their roles instead); DKV: the
+// dK/dV kernel, else dQ
 template <int D, bool DKV>
 struct Cfg {
+  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
   static constexpr int kBoxes = D / kBox;  // boxes across a row of a tile
   static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // 64 rows of Q, K, V or dO
   // ptxas caps a thread at 168 registers in a CTA of more than 256 threads:
   // the producer is a warpgroup that gives registers up (setmaxnreg), except
   // for dQ at d 64, which fits in 168 beside a producer warp
-  static constexpr bool kRegSplit = DKV || D == 128;
+  static constexpr bool kRegSplit = DKV || D >= 128;
   static constexpr int kThreads = 256 + (kRegSplit ? 128 : 32);
-  static constexpr int kStages = 4;
+  // four stages, two at d 256, where a third would not fit
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  // a warpgroup issues its next tile's products before it releases its
+  // current tile, whose stage must then differ from the next's: four stages
+  // for two warpgroups taking turns
+  static constexpr bool kOverlap = kStages >= 4;
+  // d 256's dK/dV: the warpgroups split dV and dK, each reads every tile
+  static constexpr bool kRoles = DKV && D == 256;
   // a stage: two tiles (dK/dV: Q and dO; dQ: K and V), and dK/dV's lse and
   // delta rows, which lie apart so that the tiles keep the swizzle's alignment
   static constexpr uint32_t kStageBytes = 2 * kTileBytes;
@@ -140,8 +173,9 @@ struct Cfg {
                                   (2 * kStages + 3) * sizeof(uint64_t) + kSwizzleAtom;
   // the second warpgroup's accumulators (dK and dV: d a thread; dQ: d / 2),
   // handed over through the ring
-  static_assert((DKV ? D : D / 2) * 128 * sizeof(float) <= kStages * kStageBytes,
+  static_assert(kRoles || (DKV ? D : D / 2) * 128 * sizeof(float) <= kStages * kStageBytes,
                 "the hand-over fits in the ring");
+  static_assert(kSmem <= 232448, "shared memory of a CTA");
   static_assert(!kRegSplit || kConsumerRegs * 256 + kProducerRegs * 128 <= 65536,
                 "register file");
 };
@@ -188,7 +222,8 @@ __device__ __forceinline__ void init_barriers(const Smem<C>& sm) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], 1);  // one warpgroup reads each tile
+      // one warpgroup reads each tile, or both where they split the roles
+      mbar_init(&sm.empty[s], C::kRoles ? 2 : 1);
     }
     mbar_init(sm.own_full, 1);
     mbar_init(sm.done, 256);
@@ -221,17 +256,23 @@ __device__ __forceinline__ void product_ss(float (&d)[32], const unsigned char* 
 }
 
 // d += A B for a 64 x D x 64 product: A from registers, 16 columns each; B a
-// 64-row tile read N-major (step kc starts 16 rows further down)
+// 64-row tile read N-major (step kc starts 16 rows further down).  At D =
+// 256 each step is two m64n128k16 products, one on each half of d (the
+// accumulator layout of m64n256k16: d's first 64 values are columns 0-127)
 template <int D>
 __device__ __forceinline__ void product_rs(float (&d)[D / 2], const uint32_t (&a)[kBlk / kWgK][4],
                                            const unsigned char* b) {
 #pragma unroll
   for (int kc = 0; kc < kBlk / kWgK; ++kc) {
-    const uint64_t desc = desc_mn_major(b + kc * kWgK * kSwizzleRow, kBoxBytes);
-    if constexpr (D == 128) {
-      wgmma_m64n128k16_rs_bf16(d, a[kc], desc, 1);
+    const unsigned char* rows = b + kc * kWgK * kSwizzleRow;
+    if constexpr (D == 64) {
+      wgmma_m64n64k16_rs_bf16(d, a[kc], desc_mn_major(rows, kBoxBytes), 1);
     } else {
-      wgmma_m64n64k16_rs_bf16(d, a[kc], desc, 1);
+#pragma unroll
+      for (int n = 0; n < D / 128; ++n) {
+        wgmma_m64n128k16_rs_bf16(*reinterpret_cast<float(*)[64]>(d + 64 * n), a[kc],
+                                 desc_mn_major(rows + 2 * n * kBoxBytes, kBoxBytes), 1);
+      }
     }
   }
 }
@@ -298,6 +339,65 @@ __device__ __forceinline__ void store_rows(const Params& p, int which, int b, in
   }
 }
 
+// The dK/dV kernel's producer warpgroup: gives its registers up, and one
+// thread loads the CTA's K and V tiles once, then from the CTA's first Q
+// tile `lo` on each Q and dO tile with its lse and delta into the ring
+template <class C>
+__device__ __forceinline__ void dkv_producer(const Params& p, const Smem<C>& sm, int bh, int b,
+                                             int h, int k0, int lo, int count) {
+  setmaxnreg_dec<kProducerRegs>();
+  if (threadIdx.x != 256) return;
+  mbar_arrive_expect_tx(sm.own_full, 2 * C::kTileBytes);
+  load_tile<C>(sm.own, &p.k, sm.own_full, h, k0, b);
+  load_tile<C>(sm.own + C::kTileBytes, &p.v, sm.own_full, h, k0, b);
+  for (int n = 0; n < count; ++n) {
+    // the CTA's n-th Q tile lies in stage n % kStages, in the ring's round
+    // n / kStages
+    const int st = n % C::kStages;
+    const int q0 = (lo + n) * kBlk;
+    // a fresh ring starts empty
+    mbar_wait(&sm.empty[st], (static_cast<uint32_t>(n / C::kStages) & 1u) ^ 1);
+    unsigned char* q_tile = sm.ring + st * C::kStageBytes;
+    float* rows = sm.rows + st * 2 * kBlk;
+    mbar_arrive_expect_tx(&sm.full[st], C::kStageBytes + 2 * kRowBytes);
+    load_tile<C>(q_tile, &p.q, &sm.full[st], h, q0, b);
+    load_tile<C>(q_tile + C::kTileBytes, &p.dout, &sm.full[st], h, q0, b);
+    tma_load_2d(rows, &p.lse, &sm.full[st], q0, bh);
+    tma_load_2d(rows + kBlk, &p.delta, &sm.full[st], q0, bh);
+  }
+}
+
+// P^T = exp(S^T scale - lse[col]) in place for a Q tile from q0, masked on
+// the diagonal tile (q0 == k0); thread t holds K rows row0 and row0 + 8
+__device__ __forceinline__ void transposed_probs(float (&s)[32], const float* lse, const Params& p,
+                                                 int q0, int k0, int row0, int col0) {
+  const bool diagonal = p.causal && q0 == k0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + col0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * j + e;
+      if (diagonal && q0 + 8 * j + col0 + e % 2 < row0 + (e / 2) * 8) s[x] = kNegInf;
+      s[x] = exp2_approx(fmaf(s[x], p.scale_log2, -(e % 2 ? l.y : l.x) * kLog2e));
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta[col]) scale, in dP^T's registers
+__device__ __forceinline__ void transposed_ds(float (&dp)[32], const float (&s)[32],
+                                              const float* delta, float scale, int col0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * j + e;
+      dp[x] = s[x] * (dp[x] - (e % 2 ? dl.y : dl.x)) * scale;
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ Params p) {
@@ -314,8 +414,6 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
   // causal: Q tiles before the diagonal see none of these keys
   const int lo = p.causal ? blockIdx.y : 0;
   const int count = p.seq / kBlk - lo;  // the CTA's Q tiles, lo on
-  // the CTA's n-th Q tile lies in stage n % kStages, in the ring's round
-  // n / kStages
   auto stage_of = [](int n) { return n % C::kStages; };
   auto phase_of = [](int n) { return static_cast<uint32_t>(n / C::kStages) & 1u; };
   init_barriers(sm);
@@ -325,29 +423,10 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
   // serialize the wgmma under them
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
   if (wg == 2) {
-    if constexpr (C::kRegSplit) setmaxnreg_dec<kProducerRegs>();
-    // producer: one thread loads K and V once, then Q, dO, lse and delta
-    // tile by tile
-    if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(sm.own_full, 2 * C::kTileBytes);
-      load_tile<C>(k_s, &p.k, sm.own_full, h, k0, b);
-      load_tile<C>(v_s, &p.v, sm.own_full, h, k0, b);
-      for (int n = 0; n < count; ++n) {
-        const int st = stage_of(n);
-        const int q0 = (lo + n) * kBlk;
-        mbar_wait(&sm.empty[st], phase_of(n) ^ 1);  // a fresh ring starts empty
-        unsigned char* q_tile = sm.ring + st * C::kStageBytes;
-        float* rows = sm.rows + st * 2 * kBlk;
-        mbar_arrive_expect_tx(&sm.full[st], C::kStageBytes + 2 * kRowBytes);
-        load_tile<C>(q_tile, &p.q, &sm.full[st], h, q0, b);
-        load_tile<C>(q_tile + C::kTileBytes, &p.dout, &sm.full[st], h, q0, b);
-        tma_load_2d(rows, &p.lse, &sm.full[st], q0, bh);
-        tma_load_2d(rows + kBlk, &p.delta, &sm.full[st], q0, bh);
-      }
-    }
+    dkv_producer(p, sm, bh, b, h, k0, lo, count);
     return;
   }
-  if constexpr (C::kRegSplit) setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<kConsumerRegs>();
 
   // consumer warpgroup `wg`: of the CTA's Q tiles the n-th for n = wg (mod
   // 2).  Thread t holds K/V rows 16 warp + lane/4 (r = 0) and + 8 (r =
@@ -382,18 +461,7 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
     wgmma_commit();
     wgmma_wait<1>();
     wgmma_fence_operands(s);
-    // P^T = exp(S^T scale - lse[col]), masked on the diagonal tile
-    const bool diagonal = p.causal && q0 == k0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + col0);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 4 * j + e;
-        if (diagonal && q0 + 8 * j + col0 + e % 2 < row0 + (e / 2) * 8) s[x] = kNegInf;
-        s[x] = exp2_approx(fmaf(s[x], p.scale_log2, -(e % 2 ? l.y : l.x) * kLog2e));
-      }
-    }
+    transposed_probs(s, lse, p, q0, k0, row0, col0);
     pack(pp, s);
     // dV += P^T dO, while dS^T is computed
     wgmma_fence();
@@ -403,16 +471,7 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
     wgmma_commit();
     wgmma_wait<1>();
     wgmma_fence_operands(dp);
-    // dS^T = P^T (dP^T - delta[col]) scale
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 4 * j + e;
-        dp[x] = s[x] * (dp[x] - (e % 2 ? dl.y : dl.x)) * p.scale;
-      }
-    }
+    transposed_ds(dp, s, delta, p.scale, col0);
     pack(pds, dp);
     // dK += dS^T Q
     wgmma_fence();
@@ -431,6 +490,84 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
   if (!merge(sm, wg, t, dk, dv)) return;
   store_rows<D>(p, 0, b, h, row0, col0, dk);
   store_rows<D>(p, 1, b, h, row0, col0, dv);
+}
+
+// d 256 (the file's note): the two consumer warpgroups split the roles, both
+// reading every Q tile of the ring; the first accumulates dV, the second dK,
+// and each stores its own
+template <>
+__global__ void __launch_bounds__(Cfg<256, true>::kThreads, 1)
+    flash_bwd_dkv_kernel<256>(const __grid_constant__ Params p) {
+  constexpr int D = 256;
+  using C = Cfg<D, true>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Smem<C> sm(smem_raw);
+  unsigned char* k_s = sm.own;
+  unsigned char* v_s = sm.own + C::kTileBytes;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int k0 = blockIdx.y * kBlk;
+  const int lo = p.causal ? blockIdx.y : 0;
+  const int count = p.seq / kBlk - lo;
+  init_barriers(sm);
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 2) {
+    dkv_producer(p, sm, bh, b, h, k0, lo, count);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // thread t holds K/V rows row0 and row0 + 8 in the accumulator layout of
+  // the other tiling
+  const bool dk_role = wg == 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int row0 = k0 + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float acc[D / 2];  // dV, or dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t pa[kBlk / kWgK][4];  // P^T, or dS^T, in bf16 pairs
+
+  if (count > 0) mbar_wait(sm.own_full, 0);
+  for (int n = 0; n < count; ++n) {
+    const int st = n % C::kStages;
+    const int q0 = (lo + n) * kBlk;
+    const unsigned char* q_tile = sm.ring + st * C::kStageBytes;
+    const unsigned char* do_tile = q_tile + C::kTileBytes;
+    const float* lse = sm.rows + st * 2 * kBlk;
+    mbar_wait(&sm.full[st], static_cast<uint32_t>(n / C::kStages) & 1u);
+    // S^T = K Q^T, and for dK dP^T = V dO^T, one group
+    wgmma_fence();
+    product_ss<D>(s, k_s, q_tile);
+    if (dk_role) product_ss<D>(dp, v_s, do_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(s);
+    wgmma_fence_operands(dp);
+    transposed_probs(s, lse, p, q0, k0, row0, col0);
+    if (dk_role) {
+      transposed_ds(dp, s, lse + kBlk, p.scale, col0);
+      pack(pa, dp);
+    } else {
+      pack(pa, s);
+    }
+    // dV += P^T dO, or dK += dS^T Q
+    wgmma_fence();
+    wgmma_fence_operands(acc);
+    wgmma_fence_operands(pa);
+    product_rs<D>(acc, pa, dk_role ? q_tile : do_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(acc);
+    wgmma_fence_operands(pa);
+    if (t == 0) mbar_arrive(&sm.empty[st]);  // this warpgroup is done with the stage
+  }
+  store_rows<D>(p, dk_role ? 0 : 1, b, h, row0, col0, acc);
 }
 
 template <int D>
@@ -521,45 +658,70 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
       wgmma_commit();
     };
 
-    int cur = wg;  // the tile whose dS is packed
     mbar_wait(sm.own_full, 0);
-    mbar_wait(&sm.full[stage_of(cur)], phase_of(cur));
-    wgmma_fence();
-    issue_scores(cur);
-    wgmma_wait<0>();
-    wgmma_fence_operands(s);
-    wgmma_fence_operands(dp);
-    grad(cur);
-    pack(pds, dp);
-    // each step issues tile j's S and dP, then the previous tile's dS K,
-    // and computes tile j's dS while dS K is in flight; no wgmma sits under
-    // a condition
-    for (int i = 1; i < mine; ++i) {
-      const int j = wg + 2 * i;
-      mbar_wait(&sm.full[stage_of(j)], phase_of(j));
-      wgmma_fence();  // this thread's writes of dq and pds precede the products
-      wgmma_fence_operands(dq);
-      wgmma_fence_operands(pds);
-      issue_scores(j);
-      issue_dq(cur);
-      wgmma_wait<1>();
+    if constexpr (C::kOverlap) {
+      int cur = wg;  // the tile whose dS is packed
+      mbar_wait(&sm.full[stage_of(cur)], phase_of(cur));
+      wgmma_fence();
+      issue_scores(cur);
+      wgmma_wait<0>();
       wgmma_fence_operands(s);
       wgmma_fence_operands(dp);
-      grad(j);
-      wgmma_wait<0>();
+      grad(cur);
+      pack(pds, dp);
+      // each step issues tile j's S and dP, then the previous tile's dS K,
+      // and computes tile j's dS while dS K is in flight; no wgmma sits under
+      // a condition
+      for (int i = 1; i < mine; ++i) {
+        const int j = wg + 2 * i;
+        mbar_wait(&sm.full[stage_of(j)], phase_of(j));
+        wgmma_fence();  // this thread's writes of dq and pds precede the products
+        wgmma_fence_operands(dq);
+        wgmma_fence_operands(pds);
+        issue_scores(j);
+        issue_dq(cur);
+        wgmma_wait<1>();
+        wgmma_fence_operands(s);
+        wgmma_fence_operands(dp);
+        grad(j);
+        wgmma_wait<0>();
+        wgmma_fence_operands(dq);
+        wgmma_fence_operands(pds);
+        if (t == 0) mbar_arrive(&sm.empty[stage_of(cur)]);  // dS K is done with its stage
+        pack(pds, dp);
+        cur = j;
+      }
+      wgmma_fence();
       wgmma_fence_operands(dq);
       wgmma_fence_operands(pds);
-      if (t == 0) mbar_arrive(&sm.empty[stage_of(cur)]);  // dS K is done with its stage
-      pack(pds, dp);
-      cur = j;
+      issue_dq(cur);
+      wgmma_wait<0>();
+      wgmma_fence_operands(dq);
+      if (t == 0) mbar_arrive(&sm.empty[stage_of(cur)]);
+    } else {
+      // d 256: each tile's products in turn, its stage released before the
+      // next tile is awaited
+      for (int i = 0; i < mine; ++i) {
+        const int j = wg + 2 * i;
+        mbar_wait(&sm.full[stage_of(j)], phase_of(j));
+        wgmma_fence();  // this thread's writes of dq and pds precede the products
+        wgmma_fence_operands(dq);
+        wgmma_fence_operands(pds);
+        issue_scores(j);
+        wgmma_wait<0>();
+        wgmma_fence_operands(s);
+        wgmma_fence_operands(dp);
+        grad(j);
+        pack(pds, dp);
+        wgmma_fence();
+        wgmma_fence_operands(pds);
+        issue_dq(j);
+        wgmma_wait<0>();
+        wgmma_fence_operands(dq);
+        wgmma_fence_operands(pds);
+        if (t == 0) mbar_arrive(&sm.empty[stage_of(j)]);  // dS K is done with its stage
+      }
     }
-    wgmma_fence();
-    wgmma_fence_operands(dq);
-    wgmma_fence_operands(pds);
-    issue_dq(cur);
-    wgmma_wait<0>();
-    wgmma_fence_operands(dq);
-    if (t == 0) mbar_arrive(&sm.empty[stage_of(cur)]);
   }
 
   if (!merge(sm, wg, t, dq)) return;
@@ -607,7 +769,9 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
                const int64_t* strides, int batch, int heads, int seq, int head_dim, int causal,
                float scale, int device, void* stream) {
   if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -649,7 +813,9 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) {
+  if (head_dim == 256) {
+    dkv ? launch<256, true>(p, batch * heads, s) : launch<256, false>(p, batch * heads, s);
+  } else if (head_dim == 128) {
     dkv ? launch<128, true>(p, batch * heads, s) : launch<128, false>(p, batch * heads, s);
   } else {
     dkv ? launch<64, true>(p, batch * heads, s) : launch<64, false>(p, batch * heads, s);
@@ -663,8 +829,8 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
 
 // C entries, bound with ctypes.
 //
-// flash_attention_bwd_init opts the four instantiations (each kernel at
-// head_dim 64 and 128) in to the dynamic shared memory they need above the
+// flash_attention_bwd_init opts the six instantiations (each kernel at
+// head_dim 64, 128 and 256) in to the dynamic shared memory they need above the
 // default 48 KB and looks up the CUDA driver API's cuTensorMapEncodeTiled.
 // It is called once per device before the first launch, never at launch: a
 // launch may sit inside CUDA-graph capture.  Returns a cudaError_t.
@@ -677,6 +843,7 @@ extern "C" int flash_attention_bwd_init(int device) {
   }
   err = opt_in_both<64>();
   if (err == cudaSuccess) err = opt_in_both<128>();
+  if (err == cudaSuccess) err = opt_in_both<256>();
   if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -693,6 +860,9 @@ extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n
   }
   if (head_dim == 128) {
     return dkv ? config_of<Cfg<128, true>>(out, n) : config_of<Cfg<128, false>>(out, n);
+  }
+  if (head_dim == 256) {
+    return dkv ? config_of<Cfg<256, true>>(out, n) : config_of<Cfg<256, false>>(out, n);
   }
   return 0;
 }

@@ -33,12 +33,17 @@ Entry points:
   the envelope it takes ``reference_attention``, which autograd
   differentiates.
 
-The envelope is the Hopper kernels', not the TPU's: bf16, head_dim 64 or
-128, and a sequence that is a positive multiple of the 64-row KV tile.
+The envelope is the Hopper kernels', not the TPU's: bf16, head_dim 64, 128
+or 256, and a sequence that is a positive multiple of the 64-row KV tile.
 There is no stripe cap, because the kernels stream tiles through shared
-memory instead of holding a batch-head's whole stripe.  The kernels' tiles
-are fixed; ``block_q`` and ``block_k`` are the TPU kernel's tile sizes,
-accepted so that callers keep the JAX signature, and change nothing here.
+memory instead of holding a batch-head's whole stripe.  In bf16 it covers
+the TPU kernel's envelope (head_dim a multiple of 128 within a 12 MiB K/V
+stripe: 128 and 256 up to 24,576 positions), but not the TPU kernel's other
+dtypes nor head_dim 384 and 512: f32 and f16 operands and those widths take
+``reference_attention``, as any shape outside the envelope does (ROADMAP.md
+§2 queues them).  The kernels' tiles are fixed; ``block_q`` and ``block_k``
+are the TPU kernel's tile sizes, accepted so that callers keep the JAX
+signature, and change nothing here.
 """
 
 from __future__ import annotations
@@ -60,12 +65,13 @@ BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
 HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "smem_desc.cuh", CSRC / "tensor_map.cuh")
 #: K/V rows per tile of the kernels; the sequence must be a multiple
 KV_TILE = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 #: the forward's consumer warpgroups a CTA of 64 Q rows, which take turns
 #: over its K/V tiles: one (two CTAs an SM) or two (one CTA an SM)
 FWD_SPLITS = (1, 2)
 #: the backward kernels, each on two consumer warpgroups a CTA of 64 rows
-#: that take turns over the ring's tiles: K/V tiles for dQ, Q tiles for dK/dV
+#: that take turns over the ring's tiles: K/V tiles for dQ, Q tiles for
+#: dK/dV (at head_dim 256 dK/dV's split dV and dK instead)
 BWD_KERNELS = ("dq", "dkv")
 
 _PTR, _INT, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
@@ -126,13 +132,22 @@ def build() -> tuple[Path, str]:
     return _FWD.build()
 
 
-def fwd_split(batch_heads: int, seq: int, sms: int) -> int:
+def fwd_splits(head_dim: int) -> tuple[int, ...]:
+    """The forward's instantiations at ``head_dim``, by consumer warpgroups
+    a CTA: ``FWD_SPLITS``, or one alone at 256, where a 64-row tile is 32 KB
+    and two warpgroups' ring and hand-over do not fit an SM's shared memory
+    (csrc/flash_attention.cu)."""
+    return (1,) if head_dim == 256 else FWD_SPLITS
+
+
+def fwd_split(batch_heads: int, seq: int, sms: int, head_dim: int) -> int:
     """The forward's consumer warpgroups a CTA on a card of ``sms`` SMs,
-    from ``FWD_SPLITS``: two, which split each CTA's K/V tiles, where the
-    64-row CTAs do not outnumber the SMs (the training shape, 4
-    batch-heads of 2048: 128 CTAs), so that each SM runs two warpgroups;
-    else one (two CTAs an SM)."""
-    return 2 if batch_heads * (seq // KV_TILE) <= sms else 1
+    from ``fwd_splits(head_dim)``: two, which split each CTA's K/V tiles,
+    where the head_dim has that tiling and the 64-row CTAs do not outnumber
+    the SMs (the training shape, 4 batch-heads of 2048: 128 CTAs), so that
+    each SM runs two warpgroups; else one."""
+    two = 2 in fwd_splits(head_dim) and batch_heads * (seq // KV_TILE) <= sms
+    return 2 if two else 1
 
 
 def fwd_config(head_dim: int, kv_split: int, device: int = 0) -> dict[str, int]:
@@ -276,7 +291,7 @@ def flash_attention_bwd_reference(
 
 def _check(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
     """Raises unless the bf16 operands suit the kernels: one CUDA device, one
-    shape, [b*h, s, d] or [b, s, h, d], head_dim 64 or 128, seq a positive
+    shape, [b*h, s, d] or [b, s, h, d], head_dim in ``HEAD_DIMS``, seq a positive
     multiple of the KV tile, head_dim contiguous and every other stride a
     multiple of 8 elements, 16-byte aligned."""
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
@@ -340,21 +355,22 @@ def flash_attention_kernel(
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_reference(q, k, v, causal, with_lse)
     _check("flash_attention_kernel", (q, k, v))
-    batch, seq, heads, _ = _dims(q)
+    batch, seq, heads, d = _dims(q)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return _launch_fwd(q, k, v, causal, with_lse, fwd_split(batch * heads, seq, sms))
+    return _launch_fwd(q, k, v, causal, with_lse, fwd_split(batch * heads, seq, sms, d))
 
 
 def _launch_fwd(q, k, v, causal: bool, with_lse: bool, kv_split: int):
     """The forward kernel on operands ``_check`` has passed, on ``kv_split``
-    consumer warpgroups a CTA (one of ``FWD_SPLITS``; each computes the
-    same), counted in ``flash_attention_kernel.launches``.
+    consumer warpgroups a CTA (one of ``fwd_splits(head_dim)``; each
+    computes the same), counted in ``flash_attention_kernel.launches``.
     ``flash_attention_kernel`` calls it with ``fwd_split``'s choice;
-    ``chip_smoke.py`` calls it with each to hold both to the plain
+    ``chip_smoke.py`` calls it with each to hold each to the plain
     version."""
-    if kv_split not in FWD_SPLITS:
-        raise ValueError(f"the forward takes kv_split in {FWD_SPLITS}, got {kv_split}")
     batch, seq, heads, d = _dims(q)
+    if kv_split not in fwd_splits(d):
+        raise ValueError(f"the forward takes kv_split in {fwd_splits(d)} at head_dim {d}, "
+                         f"got {kv_split}")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (
         torch.empty((batch * heads, seq, 1), dtype=torch.float32, device=q.device)
@@ -474,7 +490,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_shape_supported(
     seq: int, head_dim: int, dtype: torch.dtype, block_q: int = 512, block_k: int = 512
 ) -> bool:
-    """The kernels' envelope: bf16, head_dim 64 or 128, seq a positive
+    """The kernels' envelope: bf16, head_dim 64, 128 or 256, seq a positive
     multiple of the KV tile.  ``block_q``/``block_k`` change nothing (see
     the module's note)."""
     return (

@@ -72,11 +72,13 @@ def test_causal_with_uneven_jax_blocks():
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
-def test_bf16_matches_jax_flash(causal):
+def test_bf16_matches_jax_flash(causal, head_dim):
     """bf16, inside the envelope: the dispatcher takes the kernel's wrapper,
-    which on the CPU computes the plain version."""
-    q, k, v = _qkv(seq=128)
+    which on the CPU computes the plain version; JAX's Pallas kernel takes
+    head_dim 128 and 256 alike."""
+    q, k, v = _qkv(seq=128, head_dim=head_dim)
     assert flash_attention_supported(_torch(q, dtype=torch.bfloat16)[0])
     want = jax_flash_attention(
         *_jax(q, k, v, dtype=jnp.bfloat16), causal=causal, block_q=64, block_k=64
@@ -88,12 +90,14 @@ def test_bf16_matches_jax_flash(causal):
     )
 
 
+@pytest.mark.parametrize("head_dim", [64, 128, 256], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
-def test_with_lse_matches_jax_flash_bhsd(causal):
+def test_with_lse_matches_jax_flash_bhsd(causal, head_dim):
     """The training forward's residual: [b*h, s, d] in, (o, lse [b*h, s, 1]
-    f32) out.  The logsumexp is a sum of exponentials, an f32 reduction in
-    two orders: 1e-4 absolute."""
-    q, k, v = (x.reshape(4, 128, 64) for x in _qkv(batch=2, seq=128, heads=2, head_dim=64))
+    f32) out, at each head_dim of the envelope.  The logsumexp is a sum of
+    exponentials, an f32 reduction in two orders: 1e-4 absolute."""
+    q, k, v = (x.reshape(4, 128, head_dim)
+               for x in _qkv(batch=2, seq=128, heads=2, head_dim=head_dim))
     want_o, want_lse = _flash_bhsd(*_jax(q, k, v), causal, 64, 64, with_lse=True)
     got_o, got_lse = flash_attention_kernel(*_torch(q, k, v), causal, with_lse=True)
     assert got_lse.shape == (4, 128, 1) and got_lse.dtype == torch.float32
@@ -121,7 +125,12 @@ def test_envelope():
     assert flash_shape_supported(192, 64, bf16)
     assert flash_shape_supported(64, 128, bf16, block_q=24, block_k=24)  # blocks change nothing
     assert not flash_shape_supported(512, 128, torch.float32)  # the kernel is bf16
-    assert not flash_shape_supported(512, 256, bf16)
+    # head_dim 256 (D_MODEL=2048 N_HEADS=8) at every positive multiple of the tile
+    assert all(flash_shape_supported(64 * n, 256, bf16) for n in range(1, 385))
+    assert not flash_shape_supported(512, 256, torch.float32)
+    assert not flash_shape_supported(512, 256, torch.float16)
+    assert not flash_shape_supported(512, 384, bf16)  # past the kernels' widths: ROADMAP
+    assert not flash_shape_supported(512, 512, bf16)
     assert not flash_shape_supported(512, 16, bf16)
     assert not flash_shape_supported(96, 128, bf16)  # not a multiple of the KV tile
     assert not flash_shape_supported(0, 128, bf16)
@@ -169,23 +178,38 @@ def test_cpu_path_ignores_the_tiling(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "batch_heads, seq, sms, want",
+    "batch_heads, seq, sms, head_dim, want",
     [
-        (4, 2048, 132, 2),  # the llm training shape: 128 CTAs, two warpgroups each
-        (32, 512, 132, 1),  # the serve prefill: 256 CTAs, two an SM
-        (16, 4096, 132, 1),  # the long timed shape: 1,024 CTAs
-        (66, 128, 132, 2),  # exactly one CTA an SM
-        (67, 128, 132, 1),
-        (33, 256, 132, 2),
-        (34, 256, 132, 1),
-        (2, 192, 2, 1),  # the simulator's two SMs
-        (1, 256, 4, 2),
-        (1, 128, 4, 2),
+        (4, 2048, 132, 128, 2),  # the llm training shape: 128 CTAs, two warpgroups each
+        (32, 512, 132, 128, 1),  # the serve prefill: 256 CTAs, two an SM
+        (16, 4096, 132, 128, 1),  # the long timed shape: 1,024 CTAs
+        (66, 128, 132, 128, 2),  # exactly one CTA an SM
+        (67, 128, 132, 128, 1),
+        (33, 256, 132, 128, 2),
+        (34, 256, 132, 128, 1),
+        (2, 192, 2, 128, 1),  # the simulator's two SMs
+        (1, 256, 4, 128, 2),
+        (1, 128, 4, 128, 2),
+        (2, 4096, 132, 64, 2),  # head_dim 64 as 128
+        # head_dim 256 has one warpgroup a CTA, whatever the grid: the llm
+        # shape at D_MODEL=2048 (256 CTAs), its prefill (512), a grid that
+        # would take two at 128 (4 CTAs), the simulator's
+        (8, 2048, 132, 256, 1),
+        (64, 512, 132, 256, 1),
+        (1, 256, 132, 256, 1),
+        (2, 192, 2, 256, 1),
     ],
 )
-def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, want):
-    assert fa.fwd_split(batch_heads, seq, sms) == want
-    assert want in fa.FWD_SPLITS
+def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, head_dim, want):
+    assert fa.fwd_split(batch_heads, seq, sms, head_dim) == want
+    assert want in fa.fwd_splits(head_dim)
+
+
+def test_forward_instantiations_by_head_dim():
+    """Two tilings at head_dim 64 and 128, one at 256 (a 64-row tile is 32
+    KB: two warpgroups' ring and hand-over pass an SM's shared memory)."""
+    assert fa.HEAD_DIMS == (64, 128, 256)
+    assert [fa.fwd_splits(d) for d in fa.HEAD_DIMS] == [(1, 2), (1, 2), (1,)]
 
 
 def _assert_wgmma_fed_by_tma(source, used: tuple[str, ...]) -> None:
@@ -204,9 +228,16 @@ def _assert_wgmma_fed_by_tma(source, used: tuple[str, ...]) -> None:
 def test_forward_source_is_wgmma_fed_by_tma():
     """The forward's source issues wgmma for both products and loads by TMA
     on mbarriers; the mma.sync, ldmatrix and cp.async path is gone, and the
-    headers it includes rebuild it."""
+    headers it includes rebuild it.  Every instantiation, d256's among them,
+    is opted in and launched, on the same wgmma products (P V at 256 as two
+    of 128 columns)."""
     _assert_wgmma_fed_by_tma(fa.SOURCE, ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16",
                                          "wgmma_m64n64k16_rs_bf16", "tma_load_4d"))
+    code = fa.SOURCE.read_text()
+    for d in fa.HEAD_DIMS:
+        for split in fa.fwd_splits(d):
+            assert f"opt_in<{d}, {split}>()" in code and f"launch<{d}, {split}>(" in code
+    assert "opt_in<256, 2>" not in code and "launch<256, 2>" not in code
 
 
 def test_backward_source_is_wgmma_fed_by_tma():
@@ -218,6 +249,12 @@ def test_backward_source_is_wgmma_fed_by_tma():
     _assert_wgmma_fed_by_tma(fa.BWD_SOURCE, ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16",
                                              "wgmma_m64n64k16_rs_bf16", "tma_load_4d",
                                              "tma_load_2d", "setmaxnreg_inc"))
+    code = fa.BWD_SOURCE.read_text()
+    for d in fa.HEAD_DIMS:  # both kernels at every head_dim, 256's too
+        assert f"opt_in_both<{d}>()" in code
+        assert f"launch<{d}, true>(" in code and f"launch<{d}, false>(" in code
+    # d256's dK/dV splits dV and dK between its warpgroups, on the same wgmma
+    assert "flash_bwd_dkv_kernel<256>(const __grid_constant__ Params p)" in code
     for path in fa.CSRC.iterdir():
         text = path.read_text()
         for gone in ("mma.sync", "ldmatrix", "cp.async.ca", "cp.async.cg"):

@@ -72,13 +72,14 @@ def test_plain_backward_matches_the_pallas_kernels(seq, block_q, block_k, causal
         _close(g, w, f"{name} seq={seq} causal={causal}")
 
 
+@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("seq, block_q, block_k", BLOCKS)
 @pytest.mark.parametrize("causal", [False, True])
-def test_function_gradients_match_jax_vjp(seq, block_q, block_k, causal):
+def test_function_gradients_match_jax_vjp(seq, block_q, block_k, causal, head_dim):
     """``FlashAttention.apply`` on [b, s, h, d] in f32 (its plain versions on
     the CPU) against ``jax.vjp`` through JAX ``flash_attention`` (the Pallas
-    forward and backward under its custom VJP)."""
-    q, k, v, do = _arrays((1, seq, 2, 128), 4, seed=7 * seq + causal)
+    forward and backward under its custom VJP), at head_dim 128 and 256."""
+    q, k, v, do = _arrays((1, seq, 2, head_dim), 4, seed=7 * seq + causal)
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
     out, vjp = jax.vjp(
         lambda q, k, v: jax_flash_attention(q, k, v, causal=causal, block_q=block_q, block_k=block_k),
@@ -113,11 +114,13 @@ def test_function_gradients_equal_autograd_through_the_plain_forward():
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
-def test_bf16_dispatcher_gradients_match_jax_vjp(causal):
-    """bf16 inside the envelope: ``flash_attention`` takes the Function, and
-    its gradients lie within the JAX bf16 attention bar of JAX's."""
-    q, k, v, do = _arrays((1, 128, 2, 128), 4, seed=21 + causal)
+def test_bf16_dispatcher_gradients_match_jax_vjp(causal, head_dim):
+    """bf16 inside the envelope, head_dim 128 and 256: ``flash_attention``
+    takes the Function, and its gradients lie within the JAX bf16 attention
+    bar of JAX's."""
+    q, k, v, do = _arrays((1, 128, 2, head_dim), 4, seed=21 + causal)
     jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
     _, vjp = jax.vjp(
         lambda q, k, v: jax_flash_attention(q, k, v, causal=causal, block_q=64, block_k=64),

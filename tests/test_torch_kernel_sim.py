@@ -64,10 +64,14 @@ GEMM_ATOL, GEMM_RTOL = 1e-2, 2.0**-6
 # ring's stages (two on one warpgroup of the forward, four elsewhere), so
 # that every stage is released and refilled and every barrier's phase
 # flips, at head_dim 64 on each forward split and at 128, where dQ too has
-# its producer warpgroup under setmaxnreg
+# its producer warpgroup under setmaxnreg; and head_dim 256 (one forward
+# split, a three-stage forward ring, two-stage backward rings, dQ without
+# the overlap and dK/dV split by role) at seq 192 with three heads causal,
+# with b = 2 not causal, and over nine tiles
 SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 128, 0, 2), (2, 192, 3, 128, 1, 1),
           (2, 192, 1, 128, 0, 1), (1, 192, 2, 128, 1, 2), (1, 576, 1, 64, 1, 1),
-          (1, 576, 1, 64, 1, 2), (1, 576, 1, 128, 1, 2)]
+          (1, 576, 1, 64, 1, 2), (1, 576, 1, 128, 1, 2), (2, 192, 3, 256, 1, 1),
+          (2, 192, 1, 256, 0, 1), (1, 576, 1, 256, 1, 1)]
 # (M, K, N) for the GEMM, whose simulated device has two SMs: one tile with
 # N = 128 under the 256-wide tile and K = 128 (two steps); 2x2 tiles with N =
 # 384 and K = 640 (ten steps: the four-stage ring wraps inside a tile and runs
@@ -262,16 +266,20 @@ def test_the_simulation_catches_ds_packed_in_swapped_order(tmp_path):
 
 def test_the_simulation_catches_k_read_k_major_in_dq(tmp_path):
     """A planted fault: the dQ kernel's dS K reading the K tile with a
-    K-major descriptor where the product reads B N-major.  dQ leaves its
-    bar; dK and dV, the other kernel's, stay right."""
+    K-major descriptor where the product reads B N-major, at head_dim 64
+    (the shape run here; the other widths keep the right product).  dQ
+    leaves its bar; dK and dV, the other kernel's, stay right."""
     plant = _planted(
         "flash_attention_bwd.cu",
         "product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);",
-        "for (int kc = 0; kc < kBlk / kWgK; ++kc) {"
-        "  const uint64_t k_desc = desc_k_major(sm.ring + stage_of(j) * C::kStageBytes"
-        "                                       + kc * kWgK * 2);"
-        "  if constexpr (D == 128) wgmma_m64n128k16_rs_bf16(dq, pds[kc], k_desc, 1);"
-        "  else wgmma_m64n64k16_rs_bf16(dq, pds[kc], k_desc, 1);"
+        "if constexpr (D == 64) {"
+        "  for (int kc = 0; kc < kBlk / kWgK; ++kc) {"
+        "    const uint64_t k_desc = desc_k_major(sm.ring + stage_of(j) * C::kStageBytes"
+        "                                         + kc * kWgK * 2);"
+        "    wgmma_m64n64k16_rs_bf16(dq, pds[kc], k_desc, 1);"
+        "  }"
+        "} else {"
+        "  product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);"
         "}")
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["dk_bar"] <= 1.0 and err["dv_bar"] <= 1.0, err

@@ -49,6 +49,9 @@ LOSS_TOL = 0.05
 SMALL = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=64)
 #: head_dim 128, seq 128: inside both packages' flash envelopes
 FLASH = dict(d_model=128, n_heads=1, n_layers=2, d_ff=512, max_seq=128)
+#: head_dim 256 (the width of D_MODEL=2048 N_HEADS=8 cut to 2 heads), seq
+#: 128: inside both envelopes too
+FLASH_D256 = dict(d_model=512, n_heads=2, n_layers=2, d_ff=1024, max_seq=128)
 
 
 def _models(sizes, jdtype, tdtype, seed=1):
@@ -184,12 +187,14 @@ def test_loss_is_finite_and_near_uniform_at_init():
     assert abs(float(loss) - math.log(pcfg.vocab)) < 0.1
 
 
-def test_bf16_flash_step_matches_jax_and_the_ring_step(monkeypatch):
-    """The flash branch in bf16 (d_model 128, one head of 128, seq 128, two
-    layers): the port's auto loss lies within 0.05 of JAX's auto loss and of
-    the port's own ring loss.  Under remat each layer runs the flash forward
-    twice with the logsumexp and the backward once."""
-    jcfg, pcfg, params, ported = _models(FLASH, jnp.bfloat16, torch.bfloat16)
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+def test_bf16_flash_step_matches_jax_and_the_ring_step(monkeypatch, sizes):
+    """The flash branch in bf16 (one head of 128, d_model 128; or two of
+    256, d_model 512; seq 128, two layers): the port's auto loss lies within
+    0.05 of JAX's auto loss and of the port's own ring loss.  Under remat
+    each layer runs the flash forward twice with the logsumexp and the
+    backward once."""
+    jcfg, pcfg, params, ported = _models(sizes, jnp.bfloat16, torch.bfloat16)
     tokens = _tokens(jcfg, batch=1)
     _, want = jt.make_train_step(make_mesh(n_devices=1), jcfg)(params, jnp.asarray(tokens))
     calls = {"fwd_lse": 0, "bwd": 0}
@@ -215,8 +220,8 @@ def test_bf16_flash_step_matches_jax_and_the_ring_step(monkeypatch):
     assert abs(float(auto) - float(ring)) < LOSS_TOL
 
 
-@pytest.mark.parametrize("sizes", [FLASH, dict(FLASH, d_model=256, n_heads=2, max_seq=256)],
-                         ids=["h1s128", "h2s256"])
+@pytest.mark.parametrize("sizes", [FLASH, dict(FLASH, d_model=256, n_heads=2, max_seq=256),
+                                   FLASH_D256], ids=["h1s128", "h2s256", "h2d256"])
 def test_bf16_flash_gradients_match_the_ring_gradients(sizes):
     """The loss's gradient through the flash branch (the plain backward on
     the CPU, inside the model: fused-QKV views, non-reentrant remat) against

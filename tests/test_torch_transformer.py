@@ -29,6 +29,8 @@ BF16_TOL = 0.06
 SMALL = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=64)
 #: head_dim 128 and a 64-token prompt: inside the flash kernel's envelope
 FLASH = dict(d_model=256, n_heads=2, n_layers=2, d_ff=512, max_seq=128)
+#: head_dim 256, the width of D_MODEL=2048 N_HEADS=8 cut to two heads
+FLASH_D256 = dict(d_model=512, n_heads=2, n_layers=2, d_ff=1024, max_seq=128)
 
 
 def _models(sizes, jdtype, tdtype, seed=0):
@@ -130,11 +132,13 @@ def test_prefill_equals_stepwise_decode():
         assert not got_cache[side][:, :, :, 16:].any()
 
 
-def test_bf16_prefill_inside_the_flash_envelope_matches_jax_and_stepwise_decode():
-    """d_model 256 / 2 heads / head_dim 128, bf16, a 64-token prompt: the
-    prefill takes the flash kernel's wrapper (its plain version on the CPU),
-    and JAX's prefill takes its Pallas kernel in interpret mode."""
-    jcfg, pcfg, params, ported = _models(FLASH, jnp.bfloat16, torch.bfloat16)
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+def test_bf16_prefill_inside_the_flash_envelope_matches_jax_and_stepwise_decode(sizes):
+    """2 heads of 128 (d_model 256) or of 256 (d_model 512), bf16, a 64-token
+    prompt: the prefill takes the flash kernel's wrapper (its plain version
+    on the CPU), and JAX's prefill takes its Pallas kernel in interpret
+    mode."""
+    jcfg, pcfg, params, ported = _models(sizes, jnp.bfloat16, torch.bfloat16)
     assert flash_shape_supported(64, pcfg.head_dim, pcfg.dtype)
     prompt = _prompt(2, 64)
     want_logits, want_cache = _jax_prefill(params, jcfg, prompt)
