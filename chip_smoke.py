@@ -12,8 +12,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device        — the card's name and power limit as nvidia-smi reports them.
 2. build         — nvcc builds the GEMM (ops/csrc/matmul.cu), the flash
                    attention forward (ops/csrc/flash_attention.cu) and its
-                   backward (ops/csrc/flash_attention_bwd.cu), g++ the
-                   exporter core from cpp/exporter, all four at once; the
+                   backward (ops/csrc/flash_attention_bwd.cu), each as bf16
+                   and as f16, and their f32 sources (matmul_f32.cu,
+                   flash_attention_f32.cu, flash_attention_bwd_f32.cu), g++
+                   the exporter core from cpp/exporter, all ten at once; the
                    GEMM's tile configuration, its registers by warpgroup role
                    and its shared memory beside ptxas's report; the flash
                    forward's registers and spills for each instantiation
@@ -21,12 +23,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    256 by one) beside its threads, stages, CTAs an SM and
                    shared memory, and the backward's (dQ and dK/dV at
                    head_dim 64, 128 and 256) beside its threads, stages,
-                   shared memory and setmaxnreg counts.
+                   shared memory and setmaxnreg counts, in bf16 and in
+                   f16; the f32 kernels' registers and spills beside their
+                   configuration.
 3. parity        — the GEMM against its plain PyTorch version at six shapes,
-                   among them N = 128 mod 256 and K = 128; an f32 or
-                   unaligned operand must raise.
+                   among them N = 128 mod 256 and K = 128, in bf16, f16
+                   and f32 (f32 at the JAX package's bar, 1e-3); an f64,
+                   mixed or unaligned operand must raise.
 4. timing        — the GEMM at 4096^3 beside its bound, the plain version and
-                   torch.matmul (a yardstick the port never calls).
+                   torch.matmul (a yardstick the port never calls), in
+                   bf16, f16 and f32 (the bound at the dtype's peak).
 5. loadgen       — MatmulLoadGen on the GEMM tracks the commanded duty cycle,
                    launches the kernel once per product, and sustains more
                    than 44% of the card's peak at full duty (the tensor-core
@@ -77,9 +83,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    logsumexp, the training shape (b1 s2048 h8) with it, seq
                    192 causal and not, and ten K/V tiles; each output within
                    0.02 absolute and its error's RMS within a bar of its
-                   own; off-envelope operands (head_dim 384 among them), an
-                   unknown split and two warpgroups at head_dim 256 must
-                   raise.
+                   own; then f16 at the same bars and f32 at the JAX
+                   package's (2e-3) at the prefill, training, head_dim 64
+                   and 256 shapes; off-envelope operands (f64 and head_dim
+                   384 among them), an unknown split and two warpgroups at
+                   head_dim 256 or in f32 must raise.
 11. flash_timing — the flash kernel at the prefill's shape, at the llm
                    training shape with the logsumexp on fused-QKV views (as
                    the transformer calls it), at a long one, and at head_dim
@@ -87,7 +95,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    plain version and scaled_dot_product_attention (a
                    yardstick the port never calls; the backend its dispatch
                    chose named), in turns; and each shape on
-                   each consumer-warpgroup tiling of its head_dim.
+                   each consumer-warpgroup tiling of its head_dim; then the
+                   prefill and training shapes at head_dim 128 and 256 in
+                   f16 and f32, the bound at the dtype's peak, SDPA in the
+                   dtype.
 11b. dwell       — bench.py's two rate blocks through utils/dwell.py:
                    trial.measure_attention_rates() (the flash forward and
                    reference_attention, each one CUDA graph of 400 causal
@@ -117,15 +128,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    three heads, head_dim 64 over ten tiles a side (each
                    ring wraps), and at head_dim 256 the llm shape of a
                    2048-wide model (b1 s2048 h8) causal and not and seq
-                   192, on views of one fused QKV product; the
-                   autograd Function's gradients against autograd through
-                   the plain forward at the llm shape; off-envelope operands
-                   must raise.
+                   192, on views of one fused QKV product; in f16 at the
+                   same bars and in f32 at the JAX package's (2e-4) at
+                   those shapes and seq 192 not causal; the autograd
+                   Function's gradients against autograd through the plain
+                   forward at the llm shape, in bf16 and in f32;
+                   off-envelope operands (f64 among them) must raise.
 17. flash_bwd_timing — both backward kernels (and the training forward) at the
                    llm shape, at a long one and at the llm shape at head_dim
                    256, beside their bounds, their plain versions and
                    scaled_dot_product_attention's backward (a yardstick the
-                   port never calls; its backend named).
+                   port never calls; its backend named); the llm shape and
+                   its head_dim 256 in f16 and f32 too.
 18. llm_parity   — at full width, from the same weights and tokens, the
                    loss's gradients with attn_impl "auto" and with "ring"
                    agree leaf by leaf; then one LlmLoadGen step of each: the
@@ -145,6 +159,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    within 0.05, each leaf's gradient within 5% of norm,
                    exact launches), then five auto steps: step ms, tokens/s,
                    the forward, dQ and dK/dV launches.
+20c. dtypes      — the three load generators in f16 and in f32 on the
+                   kernels of those dtypes, every count set to 0 before each
+                   and read after, and reference_attention counted (none):
+                   MatmulLoadGen(size=4096, use_kernel=True), four bursts of
+                   16 products, one GEMM a product, one product against the
+                   plain version; DecodeLoadGen at the serve cell's sizes
+                   (prefill 512, bursts of 16 tokens), its warm-up and one
+                   graph replay, one forward a layer each, the prefill's
+                   logits against the plain attention's (f16 0.06, f32
+                   2e-3); LlmLoadGen at the rung's defaults auto against
+                   ring (loss within 0.05 in f16 and 1e-3 in f32, each
+                   leaf's gradient within 5% and 1e-3 of its norm), then
+                   three auto steps: two forwards, one dQ and one dK/dV a
+                   layer a step.
 21. train_parity — the ResNet training rung at the shipped tpu-train width
                    (ResNet-50, CIFAR stem, image 32): one step on the card in
                    bf16 and channels_last against the same step on the CPU
@@ -701,13 +729,21 @@ from k8s_gpu_hpa_tpu_torch.trial import (
 )
 from k8s_gpu_hpa_tpu_torch.utils import protowire
 
-# M, K, N: the loadgen's shape; the JAX parity test's (N 128, half of the
-# kernel's 256-wide tile); a shape the JAX package would run on its k-grid
-# kernel; a shallow wide one (K 128, two K steps); one tile with K and N 128;
-# and N 384 (a tile column half outside C) over five tile rows
+#: the kernels' dtypes by name; the two each kernel takes beside bf16: f16 (the
+#: wgmma sources built as f16) and f32 (the FFMA sources)
+DT_NAME = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+NEW_DTYPES = (torch.float16, torch.float32)
+#: explicit mantissa bits, for an error in units of the dtype's ulp
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+# M, K, N, dtype: the loadgen's shape; the JAX parity test's (N 128, half of
+# the kernel's 256-wide tile); a shape the JAX package would run on its
+# k-grid kernel; a shallow wide one (K 128, two K steps); one tile with K and
+# N 128; and N 384 (a tile column half outside C) over five tile rows; each
+# in bf16, f16 and f32
 PARITY_SHAPES = [
-    (4096, 4096, 4096), (256, 384, 128), (1024, 8192, 2048), (512, 128, 1024),
-    (128, 128, 128), (640, 2048, 384),
+    (*mkn, dt) for dt in DT_NAME for mkn in (
+        (4096, 4096, 4096), (256, 384, 128), (1024, 8192, 2048), (512, 128, 1024),
+        (128, 128, 128), (640, 2048, 384))
 ]
 # bf16 output: each side rounds its fp32 sum to bf16 once, so two results can
 # differ by one bf16 ulp (2^-7 relative at worst) and by the fp32 sums'
@@ -718,32 +754,53 @@ PARITY_SHAPES = [
 RTOL = 2.0**-6
 ATOL = 1e-2
 SIZE = 4096
+#: (atol, rtol) of the GEMM by dtype: f16 at bf16's bar (f16 rounds finer);
+#: f32 at the JAX package's f32 bar, rtol and atol 1e-3
+#: (tests/test_jax_workloads.py:35-42), against the plain version with TF32 off
+GEMM_BARS = {torch.bfloat16: (ATOL, RTOL), torch.float16: (ATOL, RTOL),
+             torch.float32: (1e-3, 1e-3)}
 
 # (batch, seq, heads, head_dim, causal, with_lse, consumer warpgroups a CTA
-# or None for the wrapper's choice): the serve prefill's shape causal and
-# not, with the logsumexp; the llm training shape with the logsumexp; one
-# KV tile; seq 192 causal and not on each split (on two warpgroups the first
-# Q tile leaves the second none); head_dim 64 on each over ten K/V tiles,
-# more than twice either ring's stages; the long timed shape; then head_dim
-# 256 (HEAD256_SIZES): its prefill causal with and without the logsumexp,
-# its training shape with it, seq 192 causal and not on its one split, and
-# ten K/V tiles, more than three times its ring's three stages
+# or None for the wrapper's choice, dtype): in bf16 the serve prefill's
+# shape causal and not, with the logsumexp; the llm training shape with the
+# logsumexp; one KV tile; seq 192 causal and not on each split (on two
+# warpgroups the first Q tile leaves the second none); head_dim 64 on each
+# over ten K/V tiles, more than twice either ring's stages; the long timed
+# shape; then head_dim 256 (HEAD256_SIZES): its prefill causal with and
+# without the logsumexp, its training shape with it, seq 192 causal and not
+# on its one split, and ten K/V tiles, more than three times its ring's
+# three stages.  Then f16 (the wgmma kernel built as f16: each split at
+# head_dim 64 and 128) and f32 (the FFMA kernel, one tiling): the prefill
+# causal without and not with the logsumexp, the training shape, head_dim 64
+# over ten tiles and seq 192 not causal, and head_dim 256 at seq 192 both
+# ways and at its training and prefill shapes
 FLASH_SHAPES = [
-    (8, 512, 4, 128, True, False, None),
-    (8, 512, 4, 128, False, False, None),
-    (8, 512, 4, 128, True, True, None),
-    (1, 2048, 4, 128, True, True, None),
-    (2, 64, 4, 128, True, True, None),
-    *((2, 192, 3, 128, causal, True, split) for causal in (True, False)
-      for split in flash_attention.FWD_SPLITS),
-    *((2, 640, 2, 64, True, True, split) for split in flash_attention.FWD_SPLITS),
-    (2, 4096, 8, 128, True, True, None),
-    (8, 512, 8, 256, True, False, None),
-    (8, 512, 8, 256, True, True, None),
-    (1, 2048, 8, 256, True, True, None),
-    *((2, 192, 3, 256, causal, True, split) for causal in (True, False)
-      for split in flash_attention.fwd_splits(256)),
-    (2, 640, 2, 256, True, True, None),
+    *((*row, torch.bfloat16) for row in [
+        (8, 512, 4, 128, True, False, None),
+        (8, 512, 4, 128, False, False, None),
+        (8, 512, 4, 128, True, True, None),
+        (1, 2048, 4, 128, True, True, None),
+        (2, 64, 4, 128, True, True, None),
+        *((2, 192, 3, 128, causal, True, split) for causal in (True, False)
+          for split in flash_attention.FWD_SPLITS),
+        *((2, 640, 2, 64, True, True, split) for split in flash_attention.FWD_SPLITS),
+        (2, 4096, 8, 128, True, True, None),
+        (8, 512, 8, 256, True, False, None),
+        (8, 512, 8, 256, True, True, None),
+        (1, 2048, 8, 256, True, True, None),
+        *((2, 192, 3, 256, causal, True, split) for causal in (True, False)
+          for split in flash_attention.fwd_splits(256)),
+        (2, 640, 2, 256, True, True, None),
+    ]),
+    *((*row, dt) for dt in NEW_DTYPES for row in [
+        (8, 512, 4, 128, True, False, None), (8, 512, 4, 128, False, True, None),
+        (1, 2048, 4, 128, True, True, None),
+        *((2, 640, 2, 64, True, True, split) for split in flash_attention.fwd_splits(64, dt)),
+        (2, 192, 3, 64, False, False, None),
+        *((2, 192, 3, 128, True, True, split) for split in flash_attention.fwd_splits(128, dt)),
+        (2, 192, 3, 256, True, True, None), (2, 192, 3, 256, False, False, None),
+        (1, 2048, 8, 256, True, True, None), (8, 512, 8, 256, True, False, None),
+    ]),
 ]
 # bf16 output, each side rounding P to bf16 once per KV tile it sums: the
 # kernel per 64-key tile against its running max, the plain version once
@@ -759,13 +816,22 @@ FLASH_SHAPES = [
 FLASH_ATOL = 0.02
 LSE_ATOL = 1e-4
 FLASH_REL_RMS = 5e-3
-# (batch, seq, heads, head_dim, with_lse, on fused-QKV views), causal, for
-# timing: the prefill's shape; the llm training shape as the transformer's
-# training step calls it; a long one; and head_dim 256's prefill and
-# training shape, the latter as the training step calls it
-FLASH_TIMED = [(8, 512, 4, 128, False, False), (1, 2048, 4, 128, True, True),
-               (2, 4096, 8, 128, False, False), (8, 512, 8, 256, False, False),
-               (1, 2048, 8, 256, True, True)]
+#: the forward's (atol, rtol) by dtype: f16 at bf16's (f16 rounds P and O
+#: finer); f32 at the JAX package's f32 bar, 2e-3 both
+#: (tests/test_flash_attention.py:31), against the plain version with TF32 off
+FLASH_BARS = {torch.bfloat16: (FLASH_ATOL, 0.0), torch.float16: (FLASH_ATOL, 0.0),
+              torch.float32: (2e-3, 2e-3)}
+# (batch, seq, heads, head_dim, with_lse, on fused-QKV views, dtype),
+# causal, for timing: the prefill's shape; the llm training shape as the
+# transformer's training step calls it; a long one; and head_dim 256's
+# prefill and training shape, the latter as the training step calls it; in
+# bf16, then the four but the long one in f16 and in f32
+FLASH_TIMED = [
+    *((*row, dt) for dt in DT_NAME for row in (
+        (8, 512, 4, 128, False, False), (1, 2048, 4, 128, True, True),
+        (2, 4096, 8, 128, False, False), (8, 512, 8, 256, False, False),
+        (1, 2048, 8, 256, True, True)) if dt == torch.bfloat16 or row[0] != 2),
+]
 # serve parity at the shipped sizes in bf16: prefill against stepwise decode
 # reach the cache and the logits through other products (a [b, 512, d] GEMM
 # and the flash kernel against [b, 1, d] GEMMs and the decode's products), so
@@ -787,13 +853,21 @@ HEAD256_SIZES = {**SERVE_SIZES, "d_model": 2048, "n_heads": 8}
 HEAD256_STEPS = 5
 #: the llm rung's attention at that width: 8 heads of 256
 LLM_SHAPE_D256 = (1, 2048, 8, 256)
-# (batch, seq, heads, head_dim, causal): the llm shape causal and not; seq
-# 192, whose backward runs three 64-row tiles a side, the dK/dV loop
-# starting at the diagonal; head_dim 64 over ten tiles a side, which wraps
-# every ring; and at head_dim 256 the llm shape causal and not (32 tiles a
-# side wrap its two-stage rings) and seq 192
-BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 640, 2, 64, True),
-              (*LLM_SHAPE_D256, True), (*LLM_SHAPE_D256, False), (2, 192, 3, 256, True)]
+# (batch, seq, heads, head_dim, causal, dtype): the llm shape causal and
+# not; seq 192, whose backward runs three 64-row tiles a side, the dK/dV
+# loop starting at the diagonal; head_dim 64 over ten tiles a side, which
+# wraps every ring; and at head_dim 256 the llm shape causal and not (32
+# tiles a side wrap its two-stage rings) and seq 192; in bf16, and but the
+# d256 llm shape not causal in f16 and f32 (seq 192 not causal at d128
+# there instead)
+BWD_SHAPES = [
+    *((*row, torch.bfloat16) for row in (
+        (*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (2, 640, 2, 64, True),
+        (*LLM_SHAPE_D256, True), (*LLM_SHAPE_D256, False), (2, 192, 3, 256, True))),
+    *((*row, dt) for dt in NEW_DTYPES for row in (
+        (*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, False), (2, 640, 2, 64, True),
+        (*LLM_SHAPE_D256, True), (2, 192, 3, 256, True), (2, 192, 3, 256, False))),
+]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
 # orders, and rounds each gradient once; dS (and P for dV) is rounded to
 # bf16 before the second product, and where the two sides' fp32 dS straddle
@@ -809,6 +883,12 @@ BWD_SHAPES = [(*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, True), (
 BWD_RTOL = 2.0**-6
 BWD_ATOL = 2e-3
 BWD_REL_RMS = 1e-3
+#: the gradients' (atol, rtol) by dtype: f16 at bf16's (f16 rounds dS and P
+#: finer); f32 at the JAX package's f32 gradient bar, 2e-4 both
+#: (tests/test_flash_attention.py:110), against the plain version with TF32
+#: off, the RMS bar as bf16's
+GRAD_BARS = {torch.bfloat16: (BWD_ATOL, BWD_RTOL), torch.float16: (BWD_ATOL, BWD_RTOL),
+             torch.float32: (2e-4, 2e-4)}
 # The autograd Function against autograd through the plain forward, which
 # keeps dS in fp32 and takes delta from the unrounded output: every summand
 # differs by a bf16 rounding, so near zero the difference grows with the
@@ -817,8 +897,10 @@ BWD_REL_RMS = 1e-3
 FN_ATOL = 0.012
 FN_REL_RMS = 0.007
 # the llm shape, a long causal one and the llm shape at head_dim 256, for
-# timing
-BWD_TIMED = [LLM_SHAPE, (2, 4096, 8, 128), LLM_SHAPE_D256]
+# timing, in bf16; the llm shape and its head_dim 256 in f16 and f32
+BWD_TIMED = [(*LLM_SHAPE, torch.bfloat16), (2, 4096, 8, 128, torch.bfloat16),
+             (*LLM_SHAPE_D256, torch.bfloat16),
+             *((*shape, dt) for dt in NEW_DTYPES for shape in (LLM_SHAPE, LLM_SHAPE_D256))]
 # train parity: the two steps' losses agree within the JAX package's bar for
 # the same comparison (tests/test_flash_attention.py:187).  The gradients of
 # the same loss from the same weights, auto (flash kernels) against ring
@@ -963,6 +1045,8 @@ def phase_device() -> dict:
         "phase": "device", "nvidia_smi": smi, "torch_name": name,
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "peak_bf16_tflops": peak_tflops,
+        "peak_f16_tflops": peak_tflops_for(name, torch.float16),
+        "peak_f32_tflops": peak_tflops_for(name, torch.float32),
         "peak_hbm_gbps": peak_gbps,
     }
     emit(info)
@@ -970,112 +1054,153 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    def timed(fn):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        out = fn()
+        out = fn(*args)
         return out, time.perf_counter() - t0
 
     def ptxas_lines(out: str) -> list[str]:
         # registers on the "ptxas info" lines, spills on the lines after them
         return [ln.strip() for ln in out.splitlines() if "ptxas info" in ln or "spill" in ln]
 
-    with ThreadPoolExecutor(4) as pool:
-        kernel = pool.submit(timed, matmul.build)
-        flash = pool.submit(timed, flash_attention.build)
-        flash_bwd = pool.submit(timed, flash_attention.build_bwd)
+    # one nvcc for each source and dtype, all at once: the wgmma sources as
+    # bf16 and as f16, the FFMA sources for f32
+    builds = {(name, dt): (fn, dt) for dt in DT_NAME
+              for name, fn in (("matmul", matmul.build), ("flash", flash_attention.build),
+                               ("flash_bwd", flash_attention.build_bwd))}
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
+        running = {key: pool.submit(timed, *job) for key, job in builds.items()}
         exporter = pool.submit(timed, native.build_native)
-        (_, ptxas), kernel_s = kernel.result()
-        (_, flash_ptxas), flash_s = flash.result()
-        (_, bwd_ptxas), bwd_s = flash_bwd.result()
+        done = {key: job.result() for key, job in running.items()}
         _, exporter_s = exporter.result()
-    config = matmul.kernel_config()
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
-    # ptxas reports each entry function's registers and spills in turn
-    entries = re.findall(
-        r"Function properties for \S*flash_fwd_kernelILi(\d+)ELi(\d+)E\S*\s+"
-        r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s+"
-        r"ptxas info\s+: Used (\d+) registers", flash_ptxas)
-    flash_fwd = [
-        {"head_dim": int(d), "registers": int(regs), "spill_bytes": int(st) + int(ld),
-         "kv_split": int(split), **flash_attention.fwd_config(int(d), int(split))}
-        for d, split, st, ld, regs in entries
-    ]
-    bwd_entries = re.findall(
-        r"Function properties for \S*flash_bwd_(dq|dkv)_kernelILi(\d+)E\S*\s+"
-        r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s+"
-        r"ptxas info\s+: Used (\d+) registers", bwd_ptxas)
-    flash_bwd = [
-        {"kernel": kernel, "head_dim": int(d), "registers_at_launch": int(regs),
-         "spill_bytes": int(st) + int(ld), **flash_attention.bwd_config(kernel, int(d))}
-        for kernel, d, st, ld, regs in bwd_entries
-    ]
+    ptxas = {key: out[1] for key, (out, _) in done.items()}
+    seconds = {f"{name}_{DT_NAME[dt]}": round(s, 3) for (name, dt), (_, s) in done.items()}
+    props = r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s+" \
+            r"ptxas info\s+: Used (\d+) registers"
+    wgmma = {}
+    for dt in (torch.bfloat16, torch.float16):
+        name = DT_NAME[dt]
+        mm_ptxas = ptxas[("matmul", dt)]
+        config = matmul.kernel_config(dt)
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", mm_ptxas)]
+        # ptxas reports each entry function's registers and spills in turn
+        entries = re.findall(r"Function properties for \S*flash_fwd_kernelILi(\d+)ELi(\d+)E\S*\s+"
+                             + props, ptxas[("flash", dt)])
+        flash_fwd = [
+            {"head_dim": int(d), "registers": int(regs), "spill_bytes": int(st) + int(ld),
+             "kv_split": int(split), **flash_attention.fwd_config(int(d), int(split), dtype=dt)}
+            for d, split, st, ld, regs in entries
+        ]
+        bwd_entries = re.findall(r"Function properties for \S*flash_bwd_(dq|dkv)_kernelILi(\d+)E\S*\s+"
+                                 + props, ptxas[("flash_bwd", dt)])
+        flash_bwd = [
+            {"kernel": kernel, "head_dim": int(d), "registers_at_launch": int(regs),
+             "spill_bytes": int(st) + int(ld),
+             **flash_attention.bwd_config(kernel, int(d), dtype=dt)}
+            for kernel, d, st, ld, regs in bwd_entries
+        ]
+        wgmma[name] = {
+            "ptxas": ptxas_lines(mm_ptxas),
+            # ptxas reports the registers a thread is launched with;
+            # setmaxnreg then moves them between the warpgroups' roles
+            "matmul": {
+                "config": config,
+                "registers_at_launch": [int(n) for n in re.findall(r"Used (\d+) registers", mm_ptxas)],
+                "registers_by_role": {"producer": config["producer_regs"],
+                                      "consumers": config["consumer_regs"]},
+                "dynamic_smem_bytes": config["smem_bytes"],
+                "spill": f"{sum(spills)} bytes spill" if spills else "not reported",
+            },
+            "flash_ptxas": ptxas_lines(ptxas[("flash", dt)]),
+            "flash_fwd": flash_fwd,
+            "flash_bwd_ptxas": ptxas_lines(ptxas[("flash_bwd", dt)]),
+            # under setmaxnreg (every instantiation but dQ at head_dim 64) a
+            # thread launches with 168 registers, and the producer
+            # warpgroup's and the consumers' counts are set in the kernel
+            "flash_bwd": flash_bwd,
+        }
+    f32 = torch.float32
+    f32_entries = {
+        key: [{"kernel": kernel, "head_dim": int(d), "registers": int(regs),
+               "spill_bytes": int(st) + int(ld)}
+              for kernel, d, st, ld, regs in re.findall(
+                  r"Function properties for \S*flash_(fwd|bwd_dq|bwd_dkv)_f32_kernelILi(\d+)E\S*\s+"
+                  + props, ptxas[(key, f32)])]
+        for key in ("flash", "flash_bwd")
+    }
+    mm32 = re.findall(r"Function properties for \S*matmul_f32_kernel\S*\s+" + props,
+                      ptxas[("matmul", f32)])
     emit({
-        "phase": "build", "matmul_cu_s": round(kernel_s, 3),
-        "flash_attention_cu_s": round(flash_s, 3),
-        "flash_attention_bwd_cu_s": round(bwd_s, 3),
+        "phase": "build", **{f"{key}_s": s for key, s in seconds.items()},
         "exporter_cc_s": round(exporter_s, 3),
-        "ptxas": ptxas_lines(ptxas),
-        # ptxas reports the registers a thread is launched with; setmaxnreg
-        # then moves them between the warpgroups' roles
-        "matmul": {
-            "config": config,
-            "registers_at_launch": [int(n) for n in re.findall(r"Used (\d+) registers", ptxas)],
-            "registers_by_role": {"producer": config["producer_regs"],
-                                  "consumers": config["consumer_regs"]},
-            "dynamic_smem_bytes": config["smem_bytes"],
-            "spill": f"{sum(spills)} bytes spill" if spills else "not reported",
+        # the bf16 libraries' report as before, then f16's and f32's
+        **wgmma["bf16"], "f16": wgmma["f16"],
+        "f32": {
+            "matmul": {"config": matmul.kernel_config(f32),
+                       "registers": [int(regs) for _, _, regs in mm32],
+                       "spill_bytes": sum(int(st) + int(ld) for st, ld, _ in mm32)},
+            "flash_fwd": [{**e, **flash_attention.fwd_config(e["head_dim"], 1, dtype=f32)}
+                          for e in f32_entries["flash"]],
+            "flash_bwd": [{**e, **flash_attention.bwd_config(e["kernel"][4:], e["head_dim"],
+                                                             dtype=f32)}
+                          for e in f32_entries["flash_bwd"]],
         },
-        "flash_ptxas": ptxas_lines(flash_ptxas),
-        "flash_fwd": flash_fwd,
-        "flash_bwd_ptxas": ptxas_lines(bwd_ptxas),
-        # under setmaxnreg (every instantiation but dQ at head_dim 64) a
-        # thread launches with 168 registers, and the producer warpgroup's
-        # and the consumers' counts are set in the kernel
-        "flash_bwd": flash_bwd,
     })
-    fwd_count = sum(len(flash_attention.fwd_splits(d)) for d in flash_attention.HEAD_DIMS)
-    if len(flash_fwd) != fwd_count or any(e["spill_bytes"] for e in flash_fwd):
-        raise AssertionError(f"the flash forward's ptxas report: {flash_fwd}")
-    # setmaxnreg.inc waits for registers the producer's .dec gives up: at
-    # 384 threads they add up only from exactly 168 a thread at launch
-    if len(flash_bwd) != 2 * len(flash_attention.HEAD_DIMS) or any(
-        e["spill_bytes"] or (e["consumer_regs"] and e["registers_at_launch"] != 168)
-        for e in flash_bwd
-    ):
-        raise AssertionError(f"the flash backward's ptxas report: {flash_bwd}")
+    for name, report in wgmma.items():
+        flash_fwd, flash_bwd = report["flash_fwd"], report["flash_bwd"]
+        fwd_count = sum(len(flash_attention.fwd_splits(d)) for d in flash_attention.HEAD_DIMS)
+        if len(flash_fwd) != fwd_count or any(e["spill_bytes"] for e in flash_fwd):
+            raise AssertionError(f"the {name} flash forward's ptxas report: {flash_fwd}")
+        # setmaxnreg.inc waits for registers the producer's .dec gives up: at
+        # 384 threads they add up only from exactly 168 a thread at launch
+        if len(flash_bwd) != 2 * len(flash_attention.HEAD_DIMS) or any(
+            e["spill_bytes"] or (e["consumer_regs"] and e["registers_at_launch"] != 168)
+            for e in flash_bwd
+        ):
+            raise AssertionError(f"the {name} flash backward's ptxas report: {flash_bwd}")
     # a product serialized for want of registers (C7512) or under a branch
     # (C7520)
-    if "are serialized" in flash_ptxas + bwd_ptxas:
+    if any("are serialized" in ptxas[(kind, dt)] for kind in ("flash", "flash_bwd")
+           for dt in (torch.bfloat16, torch.float16)):
         raise AssertionError("ptxas serialized a flash kernel's wgmma")
+    n = len(flash_attention.HEAD_DIMS)
+    if len(f32_entries["flash"]) != n or len(f32_entries["flash_bwd"]) != 2 * n or len(mm32) != 1:
+        raise AssertionError(f"the f32 kernels' ptxas report: {f32_entries}, {mm32}")
 
 
-def phase_parity() -> float:
+def phase_parity() -> dict[str, float]:
+    """The GEMM of each dtype against its plain version; returns the worst
+    absolute error by dtype name."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
+    worst = dict.fromkeys(DT_NAME.values(), 0.0)
     rows = []
-    for m, k, n in PARITY_SHAPES:
-        a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        b = torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+    for m, k, n, dt in PARITY_SHAPES:
+        atol, rtol = GEMM_BARS[dt]
+        a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(dt)
         got = matmul_kernel(a, b)
         torch.cuda.synchronize()
         want = matmul_reference(a, b)
         diff = (got.float() - want.float()).abs()
-        bad = int((diff > ATOL + RTOL * want.float().abs()).sum())
+        bad = int((diff > atol + rtol * want.float().abs()).sum())
         worst_at = int(diff.argmax())
         err = float(diff.view(-1)[worst_at])
         # the reference's value where the error is largest, and the error in
-        # units of that value's bf16 ulp
+        # units of that value's ulp in the dtype
         at = float(want.view(-1)[worst_at])
-        ulp = 2.0 ** (math.floor(math.log2(abs(at))) - 7) if at else float("nan")
-        rows.append({"mkn": [m, k, n], "max_abs_err": err, "out_of_tol": bad,
-                     "want_at_max_err": at, "ulps_at_max_err": err / ulp})
-        worst = max(worst, err)
+        ulp = 2.0 ** (math.floor(math.log2(abs(at))) - MANTISSA_BITS[dt]) if at else float("nan")
+        rows.append({"mkn": [m, k, n], "dtype": DT_NAME[dt], "max_abs_err": err,
+                     "out_of_tol": bad, "want_at_max_err": at, "ulps_at_max_err": err / ulp})
+        worst[DT_NAME[dt]] = max(worst[DT_NAME[dt]], err)
         if bad or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"kernel disagrees with its plain version at {(m, k, n)}: {rows[-1]}")
     refused = {}
     cases = {
-        "f32": (torch.ones(128, 128, device="cuda"), torch.ones(128, 128, device="cuda")),
+        "f64": (torch.ones(128, 128, device="cuda", dtype=torch.float64),
+                torch.ones(128, 128, device="cuda", dtype=torch.float64)),
+        "mixed": (torch.ones(128, 128, device="cuda"),
+                  torch.ones(128, 128, device="cuda", dtype=torch.float16)),
         "unaligned": (
             torch.ones(100, 128, device="cuda", dtype=torch.bfloat16),
             torch.ones(128, 128, device="cuda", dtype=torch.bfloat16),
@@ -1088,40 +1213,62 @@ def phase_parity() -> float:
             refused[case] = type(e).__name__
         else:
             raise AssertionError(f"matmul_kernel took a {case} operand")
-    emit({"phase": "parity", "rtol": RTOL, "atol": ATOL, "shapes": rows, "refused": refused})
+    emit({"phase": "parity", "bars": {DT_NAME[dt]: bar for dt, bar in GEMM_BARS.items()},
+          "shapes": rows, "refused": refused})
     return worst
 
 
-def phase_timing(peak_tflops: float, peak_gbps: float) -> dict:
+def _peak(dtype: torch.dtype) -> tuple[float, str]:
+    """The card's peak for ``dtype`` (device.py's table) and its name: the
+    tensor cores' dense rate for bf16 and f16, the CUDA cores' for f32 (FFMA
+    kernels)."""
+    peak = peak_tflops_for(torch.cuda.get_device_name(0), dtype)
+    where = "CUDA cores (FFMA)" if dtype == torch.float32 else "tensor cores, dense"
+    return peak, f"{DT_NAME[dtype]} {peak} TFLOP/s, {where}"
+
+
+def _gemm_timing(dt: torch.dtype, peak_gbps: float, kernel_iters: int, plain_iters: int) -> dict:
+    """The GEMM of ``dt`` at 4096^3 by CUDA events, in turns (plain,
+    kernel, library, kernel, plain), beside its bound and torch.matmul in
+    the same dtype with TF32 off (a yardstick the port never calls)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
-    a = torch.randn(SIZE, SIZE, generator=gen, device="cuda").to(torch.bfloat16)
-    b = torch.randn(SIZE, SIZE, generator=gen, device="cuda").to(torch.bfloat16)
+    a = torch.randn(SIZE, SIZE, generator=gen, device="cuda").to(dt)
+    b = torch.randn(SIZE, SIZE, generator=gen, device="cuda").to(dt)
     flops = 2.0 * SIZE**3
-    nbytes = 3 * SIZE * SIZE * 2  # A and B read once, C written once
-    ms_by_ops = flops / (peak_tflops * 1e12) * 1e3
+    nbytes = 3 * SIZE * SIZE * a.element_size()  # A and B read once, C written once
+    peak, named = _peak(dt)
+    ms_by_ops = flops / (peak * 1e12) * 1e3
     ms_by_bytes = nbytes / (peak_gbps * 1e9) * 1e3
     # turns: plain, kernel, library, kernel, plain — compare within one call
-    plain = [cuda_time_ms(lambda: matmul_reference(a, b), 10)]
-    kernel = [cuda_time_ms(lambda: matmul_kernel(a, b), 50)]
-    library = cuda_time_ms(lambda: torch.matmul(a, b), 50)
-    kernel.append(cuda_time_ms(lambda: matmul_kernel(a, b), 50))
-    plain.append(cuda_time_ms(lambda: matmul_reference(a, b), 10))
-    config = matmul.kernel_config()
+    plain = [cuda_time_ms(lambda: matmul_reference(a, b), plain_iters)]
+    kernel = [cuda_time_ms(lambda: matmul_kernel(a, b), kernel_iters)]
+    library = cuda_time_ms(lambda: torch.matmul(a, b), kernel_iters)
+    kernel.append(cuda_time_ms(lambda: matmul_kernel(a, b), kernel_iters))
+    plain.append(cuda_time_ms(lambda: matmul_reference(a, b), plain_iters))
+    config = matmul.kernel_config(dt)
     tiles = (SIZE // config["tile_m"]) * -(-SIZE // config["tile_n"])
     out = {
-        "phase": "timing", "mkn": [SIZE, SIZE, SIZE],
+        "mkn": [SIZE, SIZE, SIZE], "dtype": DT_NAME[dt],
         "tile": [config["tile_m"], config["tile_n"], config["tile_k"]],
         "stages": config["stages"], "tiles": tiles,
-        "ctas": min(tiles, torch.cuda.get_device_properties(0).multi_processor_count),
         "ms": min(kernel), "ms_runs": kernel,
         "tflops": flops / min(kernel) / 1e9,
         "plain_ms": min(plain), "plain_ms_runs": plain,
-        "library_ms": library, "library": "torch.matmul bf16",
+        "library_ms": library, "library": f"torch.matmul {DT_NAME[dt]}, TF32 off",
         "bound_ms": max(ms_by_ops, ms_by_bytes),
         "bound_by": "operations" if ms_by_ops >= ms_by_bytes else "bytes",
-        "bound_ops_ms": ms_by_ops, "bound_bytes_ms": ms_by_bytes,
+        "bound_ops_ms": ms_by_ops, "bound_bytes_ms": ms_by_bytes, "bound_peak": named,
     }
     out["fraction_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def phase_timing(peak_gbps: float) -> dict:
+    out = {"phase": "timing", **_gemm_timing(torch.bfloat16, peak_gbps, 50, 10)}
+    out["ctas"] = min(out["tiles"], torch.cuda.get_device_properties(0).multi_processor_count)
+    out["by_dtype"] = {DT_NAME[dt]: _gemm_timing(dt, peak_gbps, iters, 4)
+                       for dt, iters in zip(NEW_DTYPES, (50, 10))}
     emit(out)
     return out
 
@@ -1191,7 +1338,7 @@ def phase_profile(gen) -> dict:
         "phase": "profile", "products": gen.iters_per_burst, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": None if not kernels else max(0.0, 1.0 - busy_ms / wall_ms),
-        "gemm_calls": calls_of("matmul_bf16_kernel"), "wrapper_launches": wrapper_launches,
+        "gemm_calls": calls_of("matmul_wgmma_kernel"), "wrapper_launches": wrapper_launches,
         # the renorm y.mul_(scale), PyTorch's elementwise kernel; the probe's
         # cast is its copy kernel
         "renorm_calls": calls_of("elementwise_kernel") - calls_of("copy"),
@@ -1515,10 +1662,11 @@ def phase_node_loop(gen, attribution: dict[int, tuple[str, str]]) -> int:
     return launches
 
 
-def _qkv_views(b: int, s: int, h: int, d: int, gen: torch.Generator):
+def _qkv_views(b: int, s: int, h: int, d: int, gen: torch.Generator,
+               dtype: torch.dtype = torch.bfloat16):
     """q, k, v as the prefill hands them to the kernel: [b, s, h, d] views of
     one fused [b, s, 3*h*d] projection."""
-    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dtype)
     return tuple(t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
 
 
@@ -1526,13 +1674,15 @@ def _sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def phase_flash_parity() -> float:
+def phase_flash_parity() -> dict[str, float]:
+    """The forward of each dtype against its plain version; returns the
+    worst absolute error by dtype name."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = 0.0
+    worst = dict.fromkeys(DT_NAME.values(), 0.0)
     rows = []
-    for b, s, h, d, causal, with_lse, split in FLASH_SHAPES:
-        q, k, v = _qkv_views(b, s, h, d, gen)
+    for b, s, h, d, causal, with_lse, split, dt in FLASH_SHAPES:
+        q, k, v = _qkv_views(b, s, h, d, gen, dt)
         if split is None:
             got = flash_attention_kernel(q, k, v, causal, with_lse=with_lse)
         else:
@@ -1545,16 +1695,18 @@ def phase_flash_parity() -> float:
             lse_err = float((got_lse - want_lse).abs().max())
         diff = (got.float() - want.float()).abs()
         rms_want = float(want.float().square().mean().sqrt())
-        row = {"bshd": [b, s, h, d], "causal": causal,
-               "kv_split": split or flash_attention.fwd_split(b * h, s, _sms(), d),
+        atol, rtol = FLASH_BARS[dt]
+        row = {"bshd": [b, s, h, d], "causal": causal, "dtype": DT_NAME[dt],
+               "kv_split": split or flash_attention.fwd_split(b * h, s, _sms(), d, dt),
                "max_abs_err": float(diff.max()),
+               "out_of_tol": int((diff > atol + rtol * want.float().abs()).sum()),
                "rms_err_over_rms_want": float(diff.square().mean().sqrt()) / rms_want,
                "lse_max_abs_err": lse_err, "max_abs_out": float(want.float().abs().max()),
                "rms_out": rms_want}
         rows.append(row)
-        worst = max(worst, row["max_abs_err"])
+        worst[DT_NAME[dt]] = max(worst[DT_NAME[dt]], row["max_abs_err"])
         if (
-            row["max_abs_err"] > FLASH_ATOL
+            row["out_of_tol"]
             or row["rms_err_over_rms_want"] > FLASH_REL_RMS
             or (lse_err is not None and lse_err > LSE_ATOL)
             or not bool(torch.isfinite(got.float()).all())
@@ -1565,7 +1717,8 @@ def phase_flash_parity() -> float:
     bf16 = torch.bfloat16
     ok = torch.zeros(1, 128, 2, 128, device="cuda", dtype=bf16)
     cases = {
-        "f32": (ok.float(), ok.float(), ok.float()),
+        "f64": (ok.double(), ok.double(), ok.double()),
+        "mixed": (ok, ok.half(), ok),
         "seq_100": (ok[:, :100],) * 3,
         "head_dim_384": (torch.zeros(1, 128, 1, 384, device="cuda", dtype=bf16),) * 3,
         "shape_mismatch": (ok, ok[:, :64], ok[:, :64]),
@@ -1591,17 +1744,26 @@ def phase_flash_parity() -> float:
         refused["d256_kv_split_2"] = type(e).__name__
     else:
         raise AssertionError("the forward took two consumer warpgroups a CTA at head_dim 256")
-    emit({"phase": "flash_parity", "atol": FLASH_ATOL, "lse_atol": LSE_ATOL,
-          "rel_rms": FLASH_REL_RMS, "shapes": rows, "refused": refused})
+    f32 = ok.float()
+    try:
+        flash_attention._launch_fwd(f32, f32, f32, True, False, 2)
+    except ValueError as e:
+        refused["f32_kv_split_2"] = type(e).__name__
+    else:
+        raise AssertionError("the f32 forward took two consumer warpgroups a CTA")
+    emit({"phase": "flash_parity", "bars": {DT_NAME[dt]: bar for dt, bar in FLASH_BARS.items()},
+          "lse_atol": LSE_ATOL, "rel_rms": FLASH_REL_RMS, "shapes": rows, "refused": refused})
     return worst
 
 
-def flash_work(b: int, s: int, h: int, d: int, causal: bool) -> tuple[float, float]:
+def flash_work(b: int, s: int, h: int, d: int, causal: bool,
+               elem: int = 2) -> tuple[float, float]:
     """(operations, bytes) of one forward: two products of 2 d operations
     per (batch-head, query, key) pair the causal loop visits, and Q, K, V
-    read once and O written once in bf16."""
+    read once and O written once, ``elem`` bytes an element (2: bf16, f16;
+    4: f32)."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    return 4.0 * d * pairs, 4.0 * b * s * h * d * 2
+    return 4.0 * d * pairs, 4.0 * b * s * h * d * elem
 
 
 def _sdpa_backend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -1613,25 +1775,34 @@ def _sdpa_backend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
 
 
-def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
+def phase_flash_timing(peak_gbps: float) -> list[dict]:
+    """Each FLASH_TIMED row by graph replay, in turns, beside its bound, the
+    plain version and SDPA; bf16 rows also on each tiling and in a host loop
+    of launches.  Each row's bound names the peak it takes (``_peak``: f32's
+    is the CUDA cores' FFMA rate, the kernel's own), and SDPA runs in the
+    row's dtype with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
-    for b, s, h, d, with_lse, views in FLASH_TIMED:
+    for b, s, h, d, with_lse, views, dt in FLASH_TIMED:
         if views:
-            q, k, v = _qkv_views(b, s, h, d, gen)
+            q, k, v = _qkv_views(b, s, h, d, gen, dt)
         else:
             q, k, v = (
-                torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
                 for _ in range(3)
             )
         # scaled_dot_product_attention's layout, made before timing
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        flops, nbytes = flash_work(b, s, h, d, causal=True)
+        flops, nbytes = flash_work(b, s, h, d, causal=True, elem=q.element_size())
         if with_lse:
             nbytes += b * h * s * 4  # the fp32 logsumexp, written once
-        ms_by_ops = flops / (peak_tflops * 1e12) * 1e3
+        peak, named = _peak(dt)
+        ms_by_ops = flops / (peak * 1e12) * 1e3
         ms_by_bytes = nbytes / (peak_gbps * 1e9) * 1e3
         iters = 100 if s <= 1024 else 50 if s <= 2048 else 20
+        if dt == torch.float32:
+            iters //= 5  # some ten to twenty times slower: as many milliseconds a replay
 
         def kernel_call():
             flash_attention_kernel(q, k, v, True, with_lse=with_lse)
@@ -1643,23 +1814,27 @@ def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
             flash_attention_reference(q, k, v, True, with_lse=with_lse)
 
         # device time from graph replays, in turns: plain, kernel, library,
-        # kernel, library, plain; then on one and on two consumer warpgroups;
-        # and once the kernel in a host loop of launches
-        plain = [graph_time_ms(plain_call, 4)]
+        # kernel, library, plain (f16 and f32: kernel, library, plain, once
+        # each); then (bf16) on one and on two consumer warpgroups, and once
+        # the kernel in a host loop of launches
+        bf16 = dt == torch.bfloat16
+        plain = [graph_time_ms(plain_call, 4)] if bf16 else []
         kernel = [graph_time_ms(kernel_call, iters)]
         library = [graph_time_ms(library_call, iters)]
-        kernel.append(graph_time_ms(kernel_call, iters))
-        library.append(graph_time_ms(library_call, iters))
+        if bf16:
+            kernel.append(graph_time_ms(kernel_call, iters))
+            library.append(graph_time_ms(library_call, iters))
         plain.append(graph_time_ms(plain_call, 4))
         by_split = {
             split: graph_time_ms(
                 lambda n=split: flash_attention._launch_fwd(q, k, v, True, with_lse, n), iters)
             for split in flash_attention.fwd_splits(d)
-        }
-        host_loop = cuda_time_ms(kernel_call, iters)
+        } if bf16 else None
+        host_loop = cuda_time_ms(kernel_call, iters) if bf16 else None
         row = {
-            "bshd": [b, s, h, d], "causal": True, "with_lse": with_lse, "qkv_views": views,
-            "kv_split": flash_attention.fwd_split(b * h, s, _sms(), d),
+            "bshd": [b, s, h, d], "dtype": DT_NAME[dt], "causal": True, "with_lse": with_lse,
+            "qkv_views": views,
+            "kv_split": flash_attention.fwd_split(b * h, s, _sms(), d, dt),
             "ms": min(kernel), "ms_runs": kernel, "ms_by_split": by_split,
             "ms_host_launch_loop": host_loop,
             "tflops": flops / min(kernel) / 1e9,
@@ -1670,7 +1845,7 @@ def phase_flash_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
             "over_library": min(kernel) / min(library),
             "bound_ms": max(ms_by_ops, ms_by_bytes),
             "bound_by": "operations" if ms_by_ops >= ms_by_bytes else "bytes",
-            "bound_ops_ms": ms_by_ops, "bound_bytes_ms": ms_by_bytes,
+            "bound_ops_ms": ms_by_ops, "bound_bytes_ms": ms_by_bytes, "bound_peak": named,
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
         row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
@@ -1867,32 +2042,34 @@ def phase_serve_loop(gen: DecodeLoadGen) -> tuple[int, float]:
 
 
 def _grad_err(
-    got: torch.Tensor, want: torch.Tensor, atol: float = BWD_ATOL, rel_rms: float = BWD_REL_RMS
+    got: torch.Tensor, want: torch.Tensor, atol: float = BWD_ATOL, rel_rms: float = BWD_REL_RMS,
+    rtol: float = BWD_RTOL,
 ) -> dict:
     want = want.float()
     diff = (got.float() - want).abs()
-    bad = int((diff > atol + BWD_RTOL * want.abs()).sum())
+    bad = int((diff > atol + rtol * want.abs()).sum())
     at = int(diff.argmax())
     rms_ratio = float(diff.square().mean().sqrt() / want.square().mean().sqrt())
     finite = bool(torch.isfinite(got.float()).all())
     return {
         "ok": finite and bad == 0 and rms_ratio <= rel_rms,
-        "max_abs_err": float(diff.view(-1)[at]), "out_of_tol": bad, "atol": atol,
+        "max_abs_err": float(diff.view(-1)[at]), "out_of_tol": bad, "atol": atol, "rtol": rtol,
         "want_at_max_err": float(want.view(-1)[at]),
-        "excess_over_rtol": float((diff - BWD_RTOL * want.abs()).max()),
+        "excess_over_rtol": float((diff - rtol * want.abs()).max()),
         "rms_err_over_rms_want": rms_ratio, "rel_rms_bar": rel_rms,
         "rms_want": float(want.square().mean().sqrt()),
         "max_abs_want": float(want.abs().max()), "finite": finite,
     }
 
 
-def phase_flash_bwd_parity() -> dict[str, float]:
-    """The two backward kernels against their plain versions, then the
-    autograd Function against autograd through the plain forward.  Returns
-    the worst absolute error of each kernel."""
+def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
+    """The two backward kernels of each dtype against their plain versions,
+    then the autograd Function against autograd through the plain forward
+    (bf16 at FN_ATOL; f32, where neither side rounds, at the f32 gradient
+    bar).  Returns the worst absolute error of each kernel by dtype name."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
-    worst = {"dq": 0.0, "dkv": 0.0}
+    worst = {name: {"dq": 0.0, "dkv": 0.0} for name in DT_NAME.values()}
     rows = []
     failed = []
 
@@ -1900,42 +2077,50 @@ def phase_flash_bwd_parity() -> dict[str, float]:
         if not all(row[n]["ok"] for n in names):
             failed.append(row)
 
-    for b, s, h, d, causal in BWD_SHAPES:
-        q, k, v = _qkv_views(b, s, h, d, gen)
+    for b, s, h, d, causal, dt in BWD_SHAPES:
+        q, k, v = _qkv_views(b, s, h, d, gen, dt)
         o, lse = flash_attention_kernel(q, k, v, causal, with_lse=True)
-        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
         got = flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
         want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
-        row = {"bshd": [b, s, h, d], "causal": causal}
-        row.update({n: _grad_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)})
+        atol, rtol = GRAD_BARS[dt]
+        row = {"bshd": [b, s, h, d], "causal": causal, "dtype": DT_NAME[dt]}
+        row.update({n: _grad_err(g, w, atol, rtol=rtol)
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)})
         rows.append(row)
         check(row, ("dq", "dk", "dv"))
-        worst["dq"] = max(worst["dq"], row["dq"]["max_abs_err"])
-        worst["dkv"] = max(worst["dkv"], row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
+        w = worst[DT_NAME[dt]]
+        w["dq"] = max(w["dq"], row["dq"]["max_abs_err"])
+        w["dkv"] = max(w["dkv"], row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
     b, s, h, d = LLM_SHAPE
-    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
-    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
-    grads = {}
-    for name, fn in (
-        ("function", lambda q, k, v: FlashAttention.apply(q, k, v, True)),
-        ("plain_autograd", lambda q, k, v: flash_attention_reference(q, k, v, True)),
-    ):
-        leaf = qkv.clone().requires_grad_()
-        q, k, v = (t.view(b, s, h, d) for t in leaf.split(h * d, dim=-1))
-        fn(q, k, v).backward(do)
-        grads[name] = leaf.grad
-    torch.cuda.synchronize()
-    function = {"bshd": list(LLM_SHAPE), "causal": True,
-                "dqkv": _grad_err(grads["function"], grads["plain_autograd"], FN_ATOL,
-                                         FN_REL_RMS)}
-    check(function, ("dqkv",))
+    functions = []
+    for dt, bars in ((torch.bfloat16, (FN_ATOL, FN_REL_RMS, BWD_RTOL)),
+                     (torch.float32, (GRAD_BARS[torch.float32][0], BWD_REL_RMS,
+                                      GRAD_BARS[torch.float32][1]))):
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dt)
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+        grads = {}
+        for name, fn in (
+            ("function", lambda q, k, v: FlashAttention.apply(q, k, v, True)),
+            ("plain_autograd", lambda q, k, v: flash_attention_reference(q, k, v, True)),
+        ):
+            leaf = qkv.clone().requires_grad_()
+            q, k, v = (t.view(b, s, h, d) for t in leaf.split(h * d, dim=-1))
+            fn(q, k, v).backward(do)
+            grads[name] = leaf.grad
+        torch.cuda.synchronize()
+        function = {"bshd": list(LLM_SHAPE), "causal": True, "dtype": DT_NAME[dt],
+                    "dqkv": _grad_err(grads["function"], grads["plain_autograd"], bars[0],
+                                      bars[1], rtol=bars[2])}
+        check(function, ("dqkv",))
+        functions.append(function)
     refused = {}
     bf16 = torch.bfloat16
     ok = torch.zeros(1, 128, 2, 128, device="cuda", dtype=bf16)
     lse = torch.zeros(2, 128, 1, device="cuda")
     cases = {
-        "f32": (ok.float(), lse),
+        "f64": (ok.double(), lse),
         "seq_100": (ok[:, :100], lse[:, :100]),
         "head_dim_384": (torch.zeros(1, 128, 2, 384, device="cuda", dtype=bf16), lse),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128], lse),
@@ -1949,25 +2134,27 @@ def phase_flash_bwd_parity() -> dict[str, float]:
             refused[case] = type(e).__name__
         else:
             raise AssertionError(f"flash_attention_bwd_kernel took a {case} operand")
-    emit({"phase": "flash_bwd_parity", "atol": BWD_ATOL, "rtol": BWD_RTOL,
+    emit({"phase": "flash_bwd_parity",
+          "bars": {DT_NAME[dt]: bar for dt, bar in GRAD_BARS.items()},
           "rel_rms": BWD_REL_RMS, "shapes": rows,
-          "function_vs_plain_autograd": function, "refused": refused})
+          "function_vs_plain_autograd": functions, "refused": refused})
     if failed:
         raise AssertionError(f"flash backward disagrees with its plain version: {failed}")
     return worst
 
 
-def bwd_work(b: int, s: int, h: int, d: int, causal: bool) -> dict[str, tuple[float, float]]:
+def bwd_work(b: int, s: int, h: int, d: int, causal: bool,
+             elem: int = 2) -> dict[str, tuple[float, float]]:
     """(operations, bytes) of each backward kernel: per (batch-head, query,
     key) pair at or below the diagonal three products of 2 d operations for
-    dQ (S, dP, dS K) and four for dK/dV (S, dP, P^T dO, dS^T Q); bf16 Q, K,
-    V and dO read once, fp32 lse and delta read once, the bf16 gradients
-    written once."""
+    dQ (S, dP, dS K) and four for dK/dV (S, dP, P^T dO, dS^T Q); Q, K, V and
+    dO read once, fp32 lse and delta read once, the gradients written once,
+    ``elem`` bytes an element (2: bf16, f16; 4: f32)."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     elems, rows = b * s * h * d, b * h * s
-    reads = 4 * elems * 2 + 2 * rows * 4
-    return {"dq": (6.0 * d * pairs, reads + elems * 2),
-            "dkv": (8.0 * d * pairs, reads + 2 * elems * 2)}
+    reads = 4 * elems * elem + 2 * rows * 4
+    return {"dq": (6.0 * d * pairs, reads + elems * elem),
+            "dkv": (8.0 * d * pairs, reads + 2 * elems * elem)}
 
 
 def _bound(flops: float, nbytes: float, peak_tflops: float, peak_gbps: float) -> dict:
@@ -1979,28 +2166,33 @@ def _bound(flops: float, nbytes: float, peak_tflops: float, peak_gbps: float) ->
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
-def phase_flash_bwd_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
+def phase_flash_bwd_timing(peak_gbps: float) -> list[dict]:
     """Each backward kernel's device time by graph replay, in turns (plain,
-    kernel, library, kernel, plain), beside its bound, its plain version and
-    scaled_dot_product_attention's backward: SDPA forward plus backward minus
-    SDPA forward, one call that computes dQ, dK and dV together.  That call
+    kernel, kernel, plain; once each in f16 and f32), beside its bound, its
+    plain version and scaled_dot_product_attention's backward: SDPA forward
+    plus backward minus SDPA forward, one call that computes dQ, dK and dV
+    together.  That call
     is compared whole with the pair (``pair``: dQ ms + dK/dV ms); each
     kernel's ``library_ms`` is the call's time times the kernel's share of
     the pair's operations (6/14 for dQ, 8/14 for dK/dV), so that no row
     reads as one kernel against the whole call.  The training forward (with
-    the logsumexp) is timed at the same shapes."""
+    the logsumexp) is timed at the same shapes.  Each row's bound names the
+    peak it takes (``_peak``), and SDPA runs in the row's dtype with TF32
+    off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = []
-    for b, s, h, d in BWD_TIMED:
+    for b, s, h, d, dt in BWD_TIMED:
         q, k, v, do = (
-            torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+            torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
             for _ in range(4)
         )
+        peak, named = _peak(dt)
         o, lse = flash_attention_kernel(q, k, v, True, with_lse=True)
         delta = flash_attention_bwd_delta(o, do)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
-        iters = 50 if s <= 2048 else 10
+        iters = (50 if s <= 2048 else 10) // (5 if dt == torch.float32 else 1)
         plain_iters = 2
 
         def sdpa_fwd():
@@ -2012,39 +2204,41 @@ def phase_flash_bwd_timing(peak_tflops: float, peak_gbps: float) -> list[dict]:
 
         library_fwd = graph_time_ms(sdpa_fwd, iters)
         library_bwd = graph_time_ms(sdpa_fwd_bwd, iters) - library_fwd
-        row = {"bshd": [b, s, h, d], "causal": True,
+        row = {"bshd": [b, s, h, d], "dtype": DT_NAME[dt], "causal": True, "bound_peak": named,
                "library": "F.scaled_dot_product_attention backward (fwd+bwd minus fwd)",
                "library_backend": _sdpa_backend(qt, kt, vt), "library_fwd_ms": library_fwd}
         plains = {
             "dq": lambda: flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, True),
             "dkv": lambda: flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, True),
         }
-        work = bwd_work(b, s, h, d, causal=True)
+        work = bwd_work(b, s, h, d, causal=True, elem=q.element_size())
         pair_flops = sum(flops for flops, _ in work.values())
         for name, (flops, nbytes) in work.items():
             def kernel_call(name=name):
                 flash_attention_bwd_launch(name, q, k, v, do, lse, delta, True)
 
+            # in turns (f16 and f32: once each)
             plain = [graph_time_ms(plains[name], plain_iters)]
             kernel = [graph_time_ms(kernel_call, iters)]
-            kernel.append(graph_time_ms(kernel_call, iters))
-            plain.append(graph_time_ms(plains[name], plain_iters))
+            if dt == torch.bfloat16:
+                kernel.append(graph_time_ms(kernel_call, iters))
+                plain.append(graph_time_ms(plains[name], plain_iters))
             row[name] = {
                 "ms": min(kernel), "ms_runs": kernel, "tflops": flops / min(kernel) / 1e9,
                 "plain_ms": min(plain), "plain_ms_runs": plain,
                 "library_ms": library_bwd * flops / pair_flops,
                 "library_share": flops / pair_flops,
-                **_bound(flops, nbytes, peak_tflops, peak_gbps),
+                **_bound(flops, nbytes, peak, peak_gbps),
             }
             row[name]["fraction_of_bound"] = row[name]["bound_ms"] / row[name]["ms"]
         pair_ms = row["dq"]["ms"] + row["dkv"]["ms"]
         row["pair"] = {"ms": pair_ms, "library_ms": library_bwd,
                        "over_library": pair_ms / library_bwd}
-        fwd_flops, fwd_bytes = flash_work(b, s, h, d, causal=True)
+        fwd_flops, fwd_bytes = flash_work(b, s, h, d, causal=True, elem=q.element_size())
         fwd_ms = graph_time_ms(lambda: flash_attention_kernel(q, k, v, True, with_lse=True), iters)
         row["fwd_with_lse"] = {"ms": fwd_ms, "tflops": fwd_flops / fwd_ms / 1e9,
                                "library_ms": library_fwd,
-                               **_bound(fwd_flops, fwd_bytes, peak_tflops, peak_gbps)}
+                               **_bound(fwd_flops, fwd_bytes, peak, peak_gbps)}
         out.append(row)
     emit({"phase": "flash_bwd_timing", "shapes": out})
     return out
@@ -2059,31 +2253,54 @@ def _zero_counts() -> None:
     flash_attention_kernel.launches = 0
     flash_attention_bwd_kernel.dq_launches = 0
     flash_attention_bwd_kernel.dkv_launches = 0
+    for counts in (flash_attention_kernel.launches_by_dtype,
+                   flash_attention_bwd_kernel.dq_launches_by_dtype,
+                   flash_attention_bwd_kernel.dkv_launches_by_dtype,
+                   matmul_kernel.launches_by_dtype):
+        counts.update(dict.fromkeys(counts, 0))
 
 
-def _auto_against_ring(gens: dict[str, LlmLoadGen], phase: str) -> dict[str, int]:
-    """From the same seeded weights and tokens (LlmLoadGen's): the gradients
-    of the training loss through the flash kernels (auto) and through the
-    plain blocking (ring), leaf by leaf; then one step of each generator.
-    Emits ``phase``'s line and raises where they disagree; returns the auto
-    step's launches."""
-    cfg = gens["auto"].cfg
-    grads = {impl: transformer.make_loss_and_grad(cfg, impl)(g.params, g.tokens)[1]
-             for impl, g in gens.items()}
+def _dtype_counts(dt: torch.dtype) -> dict[str, int]:
+    """Every kernel's launches of ``dt`` since the counts were set to 0."""
+    name = DT_NAME[dt]
+    return {"matmul": matmul_kernel.launches_by_dtype[name],
+            "fwd": flash_attention_kernel.launches_by_dtype[name],
+            "dq": flash_attention_bwd_kernel.dq_launches_by_dtype[name],
+            "dkv": flash_attention_bwd_kernel.dkv_launches_by_dtype[name]}
+
+
+def _grad_rel(cfg, grads: list[torch.Tensor], want: list[torch.Tensor]) -> dict[str, float]:
+    """Leaf by leaf, the norm of ``grads`` less ``want`` over ``want``'s
+    norm, wqkv's gradient apart for its Q, K and V columns: dQ reaches the
+    first third only, dK and dV the others."""
     names = ["embed", "pos", "out_norm"] + [
         f"blocks[{i}].{leaf}" for i in range(cfg.n_layers)
         for leaf in ("attn_norm", "wqkv", "wo", "mlp_norm", "w1", "w2")
     ]
-    grad_rel = {}
-    for name, ga, gr in zip(names, grads["auto"], grads["ring"], strict=True):
-        # wqkv's gradient apart for its Q, K and V columns: dQ reaches the
-        # first third only, dK and dV the others
+    rel = {}
+    for name, ga, gr in zip(names, grads, want, strict=True):
         parts = zip(("q", "k", "v"), ga.split(cfg.d_model, -1), gr.split(cfg.d_model, -1)) \
             if name.endswith("wqkv") else ((None, ga, gr),)
         for part, a, r in parts:
             a, r = a.float(), r.float()
-            key = f"{name}.{part}" if part else name
-            grad_rel[key] = float((a - r).norm() / r.norm())
+            rel[f"{name}.{part}" if part else name] = float((a - r).norm() / r.norm())
+    return rel
+
+
+def _auto_against_ring(gens: dict[str, LlmLoadGen], phase: str,
+                       loss_atol: float = TRAIN_LOSS_ATOL,
+                       grad_rel: float | None = TRAIN_GRAD_REL) -> dict[str, int]:
+    """From the same seeded weights and tokens (LlmLoadGen's): the gradients
+    of the training loss through the flash kernels (auto) and through the
+    plain blocking (ring), leaf by leaf; then one step of each generator.
+    Emits ``phase``'s line and raises where they disagree (the loss beyond
+    ``loss_atol``, a leaf's gradient beyond ``grad_rel`` of its norm, unless
+    ``grad_rel`` is None: read, not held); returns the auto step's
+    launches."""
+    cfg = gens["auto"].cfg
+    grads = {impl: transformer.make_loss_and_grad(cfg, impl)(g.params, g.tokens)[1]
+             for impl, g in gens.items()}
+    rel = _grad_rel(cfg, grads["auto"], grads["ring"])
     del grads
     before = {n: t.clone() for n, t in enumerate(transformer.param_leaves(gens["auto"].params))}
     _zero_counts()
@@ -2102,21 +2319,21 @@ def _auto_against_ring(gens: dict[str, LlmLoadGen], phase: str) -> dict[str, int
         "phase": phase, "cfg": {"batch": gens["auto"].batch, "seq": cfg.max_seq,
                                          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
                                          "n_layers": cfg.n_layers, "d_ff": cfg.d_ff,
-                                         "dtype": "bfloat16"},
+                                         "dtype": str(cfg.dtype).removeprefix("torch.")},
         "loss": losses, "loss_diff": abs(losses["auto"] - losses["ring"]),
-        "loss_atol": TRAIN_LOSS_ATOL,
-        "grad_rel_err": grad_rel, "grad_rel_err_max": max(grad_rel.values()),
-        "grad_rel_bar": TRAIN_GRAD_REL,
+        "loss_atol": loss_atol,
+        "grad_rel_err": rel, "grad_rel_err_max": max(rel.values()),
+        "grad_rel_bar": grad_rel,
         "param_max_abs_diff": worst, "param_out_of_tol": bad,
         "param_rtol": TRAIN_PARAM_RTOL, "params_moved_by_auto_step": moved,
         "auto_step_launches": counts,
     }
     emit(out)
     want = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
-    if not all(math.isfinite(x) for x in losses.values()) or out["loss_diff"] > TRAIN_LOSS_ATOL:
+    if not all(math.isfinite(x) for x in losses.values()) or out["loss_diff"] > loss_atol:
         raise AssertionError(f"the auto and ring steps disagree: {out}")
-    if not all(x <= TRAIN_GRAD_REL for x in grad_rel.values()):  # a NaN fails too
-        raise AssertionError(f"the auto and ring gradients disagree: {grad_rel}")
+    if grad_rel is not None and not all(x <= grad_rel for x in rel.values()):  # a NaN fails too
+        raise AssertionError(f"the auto and ring gradients disagree: {rel}")
     if bad or moved == 0:
         raise AssertionError(f"the updated weights disagree or did not move: {out}")
     if counts != want:
@@ -2225,6 +2442,187 @@ def phase_head256() -> dict[str, int]:
         raise AssertionError(f"{HEAD256_STEPS} d256 auto steps launched {counts}, not {want}")
     for name in launches:
         launches[name] += parity[name] + counts[name]
+    return launches
+
+
+#: the dtypes phase's bars by dtype: the training loss, auto against ring
+#: (f16 at the bf16 bar, the JAX package's 0.05; f32 at 1e-3), and in f32,
+#: where neither path rounds a product, each leaf's gradient against ring's
+#: at 1e-3 of its norm.  f16's gradients are read, not held: at init
+#: attention is near uniform over 2048 keys (P ~ 5e-4) and dS = P (dP -
+#: delta) / sqrt(d) lies near and under f16's smallest subnormal (6e-8), so
+#: dS rounded to f16, as the JAX package's kernel rounds it (`.to(q.dtype)`),
+#: is mostly 0 or one subnormal step, where the ring keeps it; dQ and dK,
+#: and every leaf upstream of them, then differ from ring's, and from the
+#: same gradient through the kernels' plain versions wherever a sum's order
+#: moves a rounding across one of those coarse steps (both read beside the
+#: loss).  The f16 backward kernels are held at their own parity rows, on
+#: inputs whose dS is normal.  And the serve prefill's logits on the kernel
+#: against the same prefill on its plain attention (f16 at the serve bar,
+#: 0.06; f32 at the forward's f32 bar)
+DTYPE_LOSS_ATOL = {torch.float16: TRAIN_LOSS_ATOL, torch.float32: 1e-3}
+DTYPE_GRAD_REL = {torch.float16: None, torch.float32: 1e-3}
+DTYPE_SERVE_ATOL = {torch.float16: SERVE_ATOL, torch.float32: 2e-3}
+#: the depth of the dtypes phase's runs: products a headline burst and
+#: bursts after the warm-up; tokens a serve burst (after its prefill of 512);
+#: auto training steps after the parity step
+DTYPE_ITERS, DTYPE_BURSTS, DTYPE_TOKENS, DTYPE_STEPS = 16, 3, 16, 3
+
+
+def phase_dtypes() -> dict[str, dict[str, int]]:
+    """The three load generators in f16 and f32 at full width, on the
+    kernels of those dtypes, each with every count set to 0 just before it
+    and read just after; the dispatcher's fallback, ``reference_attention``,
+    is counted too and must not run.
+
+    Headline: ``MatmulLoadGen(size=4096, dtype, use_kernel=True)``, its
+    warm-up burst and DTYPE_BURSTS more of DTYPE_ITERS products: one GEMM a
+    product; then one of its products against the plain version at the
+    GEMM's bar of the dtype.  Serve: ``DecodeLoadGen`` at the serve cell's
+    sizes (SERVE_SIZES: a prefill of 512 on the flash forward) with bursts
+    of DTYPE_TOKENS tokens: the warm-up (an eager burst, the capture's
+    eager burst and the capture) and one graph replay, one forward a layer
+    each; then the prefill's logits against the same prefill on the plain
+    attention.  Training: ``LlmLoadGen`` at the rung's defaults, auto
+    against ring from the same weights (``_auto_against_ring``: the loss
+    within DTYPE_LOSS_ATOL, each leaf's gradient within DTYPE_GRAD_REL),
+    then DTYPE_STEPS auto steps: two forwards, one dQ and one dK/dV a layer
+    a step.  Returns each dtype's launches of each kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fallbacks = []
+    reference = flash_attention.reference_attention
+
+    def counted_reference(*args, **kwargs):
+        fallbacks.append(tuple(args[0].shape))
+        return reference(*args, **kwargs)
+
+    flash_attention.reference_attention = counted_reference
+    out = {"phase": "dtypes"}
+    launches = {}
+    try:
+        for dt in NEW_DTYPES:
+            name = DT_NAME[dt]
+            row = {}
+            _zero_counts()
+            gen = MatmulLoadGen(size=SIZE, dtype=dt, use_kernel=True, iters_per_burst=DTYPE_ITERS,
+                                intensity=1.0, window=3.0, device="cuda:0")
+            with tempfile.TemporaryDirectory() as knob_dir:
+                gen.intensity_file = str(Path(knob_dir) / "intensity")  # absent: API knob only
+                gen.warmup()
+                for _ in range(DTYPE_BURSTS):
+                    gen.step()
+            probe = gen._burst(1)
+            counts = _dtype_counts(dt)
+            a, b = gen._a[0], gen._b[0]
+            got, want = matmul_kernel(a, b), matmul_reference(a, b)
+            atol, rtol = GEMM_BARS[dt]
+            diff = (got.float() - want.float()).abs()
+            row["headline"] = {
+                "size": SIZE, "products": DTYPE_ITERS * (1 + DTYPE_BURSTS) + 1,
+                "launches": counts["matmul"], "probe": probe,
+                "max_abs_err": float(diff.max()),
+                "out_of_tol": int((diff > atol + rtol * want.float().abs()).sum()),
+                "tflops": gen.stats().achieved_tflops,
+            }
+            launches[name] = {"matmul": counts["matmul"]}
+            del gen, a, b, got, want, diff
+            if (row["headline"]["launches"] != row["headline"]["products"]
+                    or row["headline"]["out_of_tol"] or not math.isfinite(probe)):
+                emit({**out, name: row})
+                raise AssertionError(f"the {name} headline load: {row['headline']}")
+
+            _zero_counts()
+            serve = DecodeLoadGen(**SERVE_SIZES, dtype=dt, tokens_per_burst=DTYPE_TOKENS,
+                                  window=3.0, device="cuda:0")
+            serve.warmup()
+            serve.run_burst()
+            counts = _dtype_counts(dt)
+            cfg = serve.cfg
+            serve_fwd = counts["fwd"] + serve.replays * serve.flash_launches_per_burst
+            logits = {}
+            flash = transformer.flash_attention
+            for path, attn in (("kernel", flash), ("plain", _plain_flash)):
+                transformer.flash_attention = attn
+                try:
+                    logits[path], _ = transformer.prefill(
+                        serve.params, cfg, serve.prompt,
+                        transformer.init_kv_cache(cfg, serve.batch, serve.device))
+                finally:
+                    transformer.flash_attention = flash
+            err = float((logits["kernel"] - logits["plain"]).abs().max())
+            row["serve"] = {
+                "sizes": SERVE_SIZES, "tokens_per_burst": DTYPE_TOKENS,
+                "warmup_launches": counts["fwd"], "replays": serve.replays,
+                "flash_launches_per_burst": serve.flash_launches_per_burst,
+                "fwd_launches": serve_fwd, "logits_max_abs_err": err,
+                "logits_atol": DTYPE_SERVE_ATOL[dt],
+                "finite": bool(torch.isfinite(logits["kernel"]).all()),
+            }
+            launches[name]["fwd"] = serve_fwd
+            del serve, logits
+            torch.cuda.empty_cache()
+            if (counts["fwd"] != 3 * cfg.n_layers or row["serve"]["flash_launches_per_burst"]
+                    != cfg.n_layers or err > DTYPE_SERVE_ATOL[dt] or not row["serve"]["finite"]):
+                emit({**out, name: row})
+                raise AssertionError(f"the {name} serve path: {row['serve']}")
+
+            gens = {impl: LlmLoadGen(dtype=dt, attn_impl=impl, device="cuda:0")
+                    for impl in ("auto", "ring")}
+            if DTYPE_GRAD_REL[dt] is None:
+                # the auto gradient through the kernels against the same
+                # through their plain versions, which round as they do: read
+                auto = gens["auto"]
+                loss_and_grad = transformer.make_loss_and_grad(auto.cfg, "auto")
+                kernels = loss_and_grad(auto.params, auto.tokens)[1]
+                fwd = flash_attention.flash_attention_kernel
+                bwd = flash_attention.flash_attention_bwd_kernel
+                flash_attention.flash_attention_kernel = flash_attention_reference
+                flash_attention.flash_attention_bwd_kernel = flash_attention_bwd_reference
+                try:
+                    plain = loss_and_grad(auto.params, auto.tokens)[1]
+                finally:
+                    flash_attention.flash_attention_kernel = fwd
+                    flash_attention.flash_attention_bwd_kernel = bwd
+                rel = _grad_rel(auto.cfg, kernels, plain)
+                del kernels, plain
+                row["llm_grads_against_plain_versions"] = {
+                    "grad_rel_err": rel, "grad_rel_err_max": max(rel.values())}
+            parity = _auto_against_ring(gens, f"dtypes_llm_parity_{name}",
+                                        DTYPE_LOSS_ATOL[dt], DTYPE_GRAD_REL[dt])
+            del gens["ring"]
+            llm = gens.pop("auto")
+            _zero_counts()
+            ms = [llm.step() * 1e3 for _ in range(DTYPE_STEPS)]
+            counts = _dtype_counts(dt)
+            n = llm.cfg.n_layers
+            want_counts = {"fwd": 2 * n * DTYPE_STEPS, "dq": n * DTYPE_STEPS,
+                           "dkv": n * DTYPE_STEPS}
+            stats = llm.stats()
+            row["llm"] = {"cfg": {"seq": llm.cfg.max_seq, "batch": llm.batch,
+                                  "d_model": llm.cfg.d_model, "n_heads": llm.cfg.n_heads,
+                                  "n_layers": n},
+                          "parity_step_launches": parity, "steps": DTYPE_STEPS,
+                          "step_ms": ms, "tokens_per_s": stats.tokens_per_sec,
+                          "last_loss": stats.last_loss,
+                          "launches": {key: counts[key] for key in want_counts}}
+            for key in want_counts:
+                launches[name][key] = counts[key] + parity[key]
+            launches[name]["fwd"] += serve_fwd
+            del llm
+            torch.cuda.empty_cache()
+            if ({key: counts[key] for key in want_counts} != want_counts
+                    or not math.isfinite(stats.last_loss)):
+                emit({**out, name: row})
+                raise AssertionError(f"{DTYPE_STEPS} {name} auto steps launched {counts}, "
+                                     f"not {want_counts}")
+            out[name] = row
+    finally:
+        flash_attention.reference_attention = reference
+    out["reference_attention_calls"] = len(fallbacks)
+    out["launches"] = launches
+    emit(out)
+    if fallbacks:
+        raise AssertionError(f"the dispatcher fell back to reference_attention: {fallbacks}")
     return launches
 
 
@@ -5207,10 +5605,10 @@ def main() -> int:
     _START = time.perf_counter()
     torch.cuda.set_device(0)
     device = phase_device()
-    peaks = device["peak_bf16_tflops"], device["peak_hbm_gbps"]
+    peak_gbps = device["peak_hbm_gbps"]
     phase_build()
     max_err = phase_parity()
-    timing = phase_timing(*peaks)
+    timing = phase_timing(peak_gbps)
     with tempfile.TemporaryDirectory() as knob_dir:
         gen, dwell_mfu_pct = phase_loadgen(knob_dir)
         phase_profile(gen)
@@ -5220,7 +5618,7 @@ def main() -> int:
         launches += phase_node_loop(gen, attribution)
     del gen
     flash_err = phase_flash_parity()
-    flash_timing = phase_flash_timing(*peaks)
+    flash_timing = phase_flash_timing(peak_gbps)
     phase_dwell(device)
     serve = DecodeLoadGen(**SERVE_SIZES, window=3.0, device="cuda:0")
     serve.warmup()
@@ -5230,13 +5628,15 @@ def main() -> int:
     flash_launches, serve_scale_up_s = phase_serve_loop(serve)
     del serve
     bwd_err = phase_flash_bwd_parity()
-    bwd_timing = phase_flash_bwd_timing(*peaks)
+    bwd_timing = phase_flash_bwd_timing(peak_gbps)
     gens, parity_counts = phase_llm_parity()
     train_counts = phase_llm_train(gens)
     phase_llm_profile(gens["auto"])
     del gens
     torch.cuda.empty_cache()
     head256 = phase_head256()
+    torch.cuda.empty_cache()
+    dtypes = phase_dtypes()
     torch.cuda.empty_cache()
     phase_train_parity()
     train_gen, _ = phase_train_loadgen()
@@ -5294,14 +5694,52 @@ def main() -> int:
     phase_races()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] + head256[n] for n in parity_counts}
-    path = flash_timing[0]  # the serve prefill's shape
-    llm = bwd_timing[0]  # the llm training shape
+    # the serve prefill's shape and the llm training shape, by dtype
+    prefill = {row["dtype"]: row for row in flash_timing if row["bshd"] == [8, 512, 4, 128]}
+    llm_rows = {row["dtype"]: row for row in bwd_timing if row["bshd"] == list(LLM_SHAPE)}
+    path, llm = prefill["bf16"], llm_rows["bf16"]
+    csrc = "k8s_gpu_hpa_tpu_torch/ops/csrc"
+    row_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # f16's and f32's instantiations, each with its launches in the dtypes
+    # phase's three paths and its own parity and timing rows
+    new_kernels = []
+    for dt in NEW_DTYPES:
+        name = DT_NAME[dt]
+        wgmma = dt == torch.float16
+        gemm = timing["by_dtype"][name]
+        new_kernels += [
+            {"name": f"matmul_{name}", "route": "cuda",
+             "source": f"{csrc}/{'matmul.cu' if wgmma else 'matmul_f32.cu'}",
+             "replaces": "k8s_gpu_hpa_tpu/ops/pallas_matmul.py:56",
+             "launches": dtypes[name]["matmul"], "max_abs_err": max_err[name],
+             **{key: gemm[key] for key in row_keys}, "bound_peak": gemm["bound_peak"]},
+            {"name": f"flash_attention_fwd_{name}", "route": "cuda",
+             "source": f"{csrc}/{'flash_attention.cu' if wgmma else 'flash_attention_f32.cu'}",
+             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
+             "launches": dtypes[name]["fwd"], "max_abs_err": flash_err[name],
+             **{key: prefill[name][key] for key in row_keys},
+             "bound_peak": prefill[name]["bound_peak"],
+             "shapes": [{key: row[key] for key in ("bshd", "with_lse", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms",
+                                                   "library_backend")}
+                        for row in flash_timing if row["dtype"] == name]},
+            *({"name": f"flash_attention_bwd_{kernel}_{name}", "route": "cuda",
+               "source": f"{csrc}/{'flash_attention_bwd.cu' if wgmma else 'flash_attention_bwd_f32.cu'}",
+               "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
+               "launches": dtypes[name][kernel], "max_abs_err": bwd_err[name][kernel],
+               **{key: llm_rows[name][kernel][key] for key in row_keys},
+               "bound_peak": llm_rows[name]["bound_peak"],
+               "shapes": [{"bshd": row["bshd"], "library_backend": row["library_backend"],
+                           **{key: row[kernel][key] for key in row_keys}}
+                          for row in bwd_timing if row["dtype"] == name]}
+              for kernel, line in (("dq", 165), ("dkv", 207))),
+        ]
     emit({"kernels": [
         {
             "name": "matmul_bf16", "route": "cuda",
             "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/matmul.cu",
             "replaces": "k8s_gpu_hpa_tpu/ops/pallas_matmul.py:56",
-            "launches": launches, "max_abs_err": max_err,
+            "launches": launches, "max_abs_err": max_err["bf16"],
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
             "library_ms": timing["library_ms"],
@@ -5314,7 +5752,7 @@ def main() -> int:
             # burst, TP serving's and the serving container's
             "launches": flash_launches + train["fwd"] + tp_launches + queue["flash_launches"],
             "launches_head_dim_256": head256["fwd"],
-            "max_abs_err": flash_err,
+            "max_abs_err": flash_err["bf16"],
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
@@ -5325,7 +5763,7 @@ def main() -> int:
                 {key: row[key] for key in ("bshd", "with_lse", "kv_split", "ms", "plain_ms",
                                            "bound_ms", "bound_by", "library_ms",
                                            "library_backend")}
-                for row in flash_timing
+                for row in flash_timing if row["dtype"] == "bf16"
             ],
         },
         *(
@@ -5334,7 +5772,7 @@ def main() -> int:
                 "source": "k8s_gpu_hpa_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
                 "launches": train[name], "launches_head_dim_256": head256[name],
-                "max_abs_err": bwd_err[name],
+                "max_abs_err": bwd_err["bf16"][name],
                 "ms": llm[name]["ms"], "plain_ms": llm[name]["plain_ms"],
                 "bound_ms": llm[name]["bound_ms"], "bound_by": llm[name]["bound_by"],
                 # SDPA's backward computes dQ, dK and dV in one call: its
@@ -5346,7 +5784,7 @@ def main() -> int:
                     {"bshd": row["bshd"], "library_backend": row["library_backend"],
                      **{key: row[name][key] for key in ("ms", "plain_ms", "bound_ms",
                                                         "bound_by", "library_ms")}}
-                    for row in bwd_timing
+                    for row in bwd_timing if row["dtype"] == "bf16"
                 ],
                 "library": "SDPA backward x {:.4f} of the pair's operations; whole call {} ms"
                            " against dQ + dK/dV {} ms".format(
@@ -5355,6 +5793,7 @@ def main() -> int:
             }
             for name, line in (("dq", 165), ("dkv", 207))
         ),
+        *new_kernels,
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

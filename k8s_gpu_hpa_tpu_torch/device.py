@@ -21,6 +21,22 @@ PEAK_BF16_TFLOPS = {
     "NVIDIA H100 PCIe": 756.0,
 }
 
+#: dense f16 tensor-core peak, TFLOP/s: bf16's
+PEAK_F16_TFLOPS = dict(PEAK_BF16_TFLOPS)
+
+#: f32 peak on the CUDA cores (FFMA, no tensor cores), TFLOP/s
+PEAK_F32_TFLOPS = {
+    "NVIDIA H100": 67.0,  # SXM
+    "NVIDIA H100 PCIe": 51.0,
+}
+
+#: the peak table of each dtype the kernels take
+PEAK_TFLOPS_BY_DTYPE = {
+    torch.bfloat16: PEAK_BF16_TFLOPS,
+    torch.float16: PEAK_F16_TFLOPS,
+    torch.float32: PEAK_F32_TFLOPS,
+}
+
 #: device-memory bandwidth peak, GB/s
 PEAK_HBM_GBPS = {
     "NVIDIA H100": 3350.0,  # SXM, HBM3
@@ -69,10 +85,13 @@ def _peak_for(name: str, table: dict[str, float]) -> float | None:
     return best[1] if best else None
 
 
-def peak_tflops_for(device: str | torch.device) -> float | None:
-    """Dense bf16 peak of a device, given as a ``torch.device`` or by the
-    name it reports; None where the table has no entry (the CPU)."""
-    return _peak_for(_name_of(device), PEAK_BF16_TFLOPS)
+def peak_tflops_for(device: str | torch.device, dtype: torch.dtype = torch.bfloat16) -> float | None:
+    """Peak of a device for ``dtype`` (dense bf16 by default; f16 on the
+    tensor cores, f32 on the CUDA cores), the device given as a
+    ``torch.device`` or by the name it reports; None where the table has no
+    entry (the CPU) or for another dtype."""
+    table = PEAK_TFLOPS_BY_DTYPE.get(dtype)
+    return None if table is None else _peak_for(_name_of(device), table)
 
 
 def peak_hbm_gbps_for(device: str | torch.device) -> float | None:

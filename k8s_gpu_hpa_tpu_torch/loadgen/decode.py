@@ -10,7 +10,8 @@ A burst is greedy decode kept on the device: the sampled token feeds the
 next step with no host round-trip, ``tokens_per_burst`` steps, then one
 host sync.  With ``prefill_len > 0`` each burst first admits a fresh request
 batch: the prompt is scored in one causal pass (``models/transformer.py``
-``prefill``, on the hand-written flash-attention kernel), then its
+``prefill``, on the hand-written flash-attention kernel of the model's
+dtype: bf16, f16 or f32), then its
 continuation is decoded.  On a GPU the burst is captured once, in
 ``warmup()``, as a ``torch.cuda.CUDAGraph`` on the generator's own stream,
 and each burst is one replay of it — the counterpart of the JAX burst's one

@@ -255,11 +255,12 @@ def _train_attn_fn(cfg: TransformerConfig, axis: str, n: int, lq: int, attn_impl
     with/without knob.  Any other value raises, as it arrives from the
     ``LLM_ATTN`` pod env and must not silently run the ring.
 
-    The envelope is the Hopper kernels' (bf16, head_dim 64, 128 or 256,
-    seq a multiple of 64), not the TPU kernel's (head_dim a multiple of 128
-    and a 12 MiB stripe, any dtype), so for some shapes (head_dim 64, f32,
-    head_dim 384) the two packages take different branches.  Both branches compute exact attention, so the results agree
-    at the bars of the attention tests."""
+    The envelope is the Hopper kernels' (bf16, f16 or f32, head_dim 64,
+    128 or 256, seq a multiple of 64), not the TPU kernel's (head_dim a
+    multiple of 128 and a 12 MiB stripe, any dtype), so for some shapes
+    (head_dim 64, head_dim 384) the two packages take different branches.
+    Both branches compute exact attention, so the results agree at the bars
+    of the attention tests."""
     if attn_impl not in ("auto", "ring"):
         raise ValueError(f"attn_impl must be 'auto' or 'ring', got {attn_impl!r}")
     if attn_impl == "auto" and n == 1 and flash_shape_supported(lq, cfg.head_dim, cfg.dtype):

@@ -1,12 +1,16 @@
 // Flash attention forward for Hopper (sm_90a): O = softmax(Q K^T / sqrt(d)) V
-// over bf16 operands, fp32 online softmax, optional causal mask and per-row
-// logsumexp.
+// over bf16 or f16 operands, fp32 online softmax, optional causal mask and
+// per-row logsumexp.  The operands' type is elem.cuh's Elem: this source
+// builds once as bf16 and once with ELEM_F16 as f16, each into a library of
+// its own with the same C entries; the two types have one size, so the
+// tilings, rings and budgets below hold for both.  f32 operands take
+// flash_attention_f32.cu.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` of
 // k8s_gpu_hpa_tpu/ops/flash_attention.py (pallas_call in `_flash_bhsd`).  It
 // computes what that kernel computes: scores in fp32 times 1/sqrt(d), the
 // causal mask q_pos >= k_pos with -1e30 (not -inf), the online softmax
-// (m, l, acc) in fp32, P rounded to bf16 before P V, fp32 accumulation,
+// (m, l, acc) in fp32, P rounded to Elem before P V, fp32 accumulation,
 // out = acc / max(l, 1e-30), and with an lse pointer lse = m + log(l_safe).
 // Causal tiles past the diagonal are skipped, not masked: the 64 Q rows from
 // q0 stop their KV loop at tile q0 / 64, the diagonal, the only one masked.
@@ -28,7 +32,7 @@
 //   - one or two consumer warpgroups on the CTA's 64 Q rows.  S = Q K^T is
 //     wgmma m64n64k16 with both operands in shared memory, K-major (K's
 //     rows are the product's N); O += P V is wgmma m64n{D}k16 with P from
-//     registers: the fp32 S accumulators, packed to bf16 pairs, are its A
+//     registers: the fp32 S accumulators, packed to Elem pairs, are its A
 //     fragments, so scores never leave the registers; V is read N-major
 //     with the transpose bit.  At D = 256 P V is two m64n128k16 products a
 //     16-key step, one on each half of O's columns (wgmma's N stops at 256,
@@ -82,7 +86,6 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,12 +101,6 @@ constexpr uint32_t kBoxBytes = kBK * kBox * 2;  // 8 KB
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// two floats rounded to a bf16 pair, the first in the lower half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 64 Q rows a CTA on SPLIT consumer warpgroups (1 or 2) that take turns
 // over its K/V tiles
@@ -138,11 +135,11 @@ template <int D>
 __device__ __forceinline__ void pv_step(float (&o)[D / 2], const uint32_t (&a)[4],
                                         const unsigned char* v_rows) {
   if constexpr (D == 64) {
-    wgmma_m64n64k16_rs_bf16(o, a, desc_mn_major(v_rows, kBoxBytes), 1);
+    wgmma_m64n64k16_rs(o, a, desc_mn_major(v_rows, kBoxBytes), 1);
   } else {
 #pragma unroll
     for (int n = 0; n < D / 128; ++n) {
-      wgmma_m64n128k16_rs_bf16(*reinterpret_cast<float(*)[64]>(o + 64 * n), a,
+      wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(o + 64 * n), a,
                                desc_mn_major(v_rows + 2 * n * kBoxBytes, kBoxBytes), 1);
     }
   }
@@ -150,7 +147,7 @@ __device__ __forceinline__ void pv_step(float (&o)[D / 2], const uint32_t (&a)[4
 
 struct Params {
   CUtensorMap q, k, v;  // [b, s, h, d], box 64 (d) x 1 x 64 (s) x 1
-  __nv_bfloat16* o;
+  Elem* o;
   float* lse;  // null: no logsumexp output
   int64_t o_sb, o_ss, o_sh;
   int heads, seq;
@@ -238,7 +235,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
 
   if (mine > 0) {
     float s[32] = {};
-    uint32_t pk[kBK / kWgK][4];  // P in bf16 pairs: A of P V, 16 keys each
+    uint32_t pk[kBK / kWgK][4];  // P in Elem pairs: A of P V, 16 keys each
     float corr[2];
 
     // S = Q K^T for tile j (K-major both: 32-byte steps along a row, the
@@ -248,7 +245,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
 #pragma unroll
       for (int kk = 0; kk < D / kWgK; ++kk) {
         const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
-        wgmma_m64n64k16_ss_bf16(s, desc_k_major(q_s + at), desc_k_major(k_tile + at), kk > 0);
+        wgmma_m64n64k16_ss(s, desc_k_major(q_s + at), desc_k_major(k_tile + at), kk > 0);
       }
       wgmma_commit();
     };
@@ -284,14 +281,14 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
     };
-    // P to bf16 pairs: keys 16 kc .. 16 kc + 15 are S blocks 2 kc, 2 kc + 1
+    // P to Elem pairs: keys 16 kc .. 16 kc + 15 are S blocks 2 kc, 2 kc + 1
     auto pack = [&] {
 #pragma unroll
       for (int kc = 0; kc < kBK / kWgK; ++kc) {
-        pk[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
-        pk[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-        pk[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-        pk[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+        pk[kc][0] = pack_pair(s[8 * kc + 0], s[8 * kc + 1]);
+        pk[kc][1] = pack_pair(s[8 * kc + 2], s[8 * kc + 3]);
+        pk[kc][2] = pack_pair(s[8 * kc + 4], s[8 * kc + 5]);
+        pk[kc][3] = pack_pair(s[8 * kc + 6], s[8 * kc + 7]);
       }
     };
     // O += P V for tile j, P from the registers
@@ -386,11 +383,10 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   for (int r = 0; r < 2; ++r) {
     const float l_safe = fmaxf(l_run[r], 1e-30f);
     const int row = row0 + r * 8;
-    __nv_bfloat16* out = p.o + b * p.o_sb + static_cast<int64_t>(row) * p.o_ss + h * p.o_sh;
+    Elem* out = p.o + b * p.o_sb + static_cast<int64_t>(row) * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(out + i * 8 + col0) =
-          __floats2bfloat162_rn(o[4 * i + 2 * r] / l_safe, o[4 * i + 2 * r + 1] / l_safe);
+      store_pair(out + i * 8 + col0, o[4 * i + 2 * r] / l_safe, o[4 * i + 2 * r + 1] / l_safe);
     }
     if (p.lse != nullptr && lane % 4 == 0) {
       p.lse[static_cast<int64_t>(bh) * p.seq + row] = m_run[r] * kLn2 + logf(l_safe);
@@ -497,7 +493,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (cur != device) cudaSetDevice(cur);
     return static_cast<int>(refused);
   }
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = static_cast<Elem*>(o);
   p.lse = static_cast<float*>(lse);
   p.o_sb = strides[9], p.o_ss = strides[10], p.o_sh = strides[11];
   p.heads = heads;

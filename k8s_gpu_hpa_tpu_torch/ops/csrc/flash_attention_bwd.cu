@@ -1,6 +1,10 @@
 // Flash attention backward for Hopper (sm_90a): dQ, dK and dV of
-// O = softmax(Q K^T / sqrt(d)) V over bf16 operands, the probabilities
-// recomputed from the forward's logsumexp, never stored.
+// O = softmax(Q K^T / sqrt(d)) V over bf16 or f16 operands, the probabilities
+// recomputed from the forward's logsumexp, never stored.  The operands' type
+// is elem.cuh's Elem: this source builds once as bf16 and once with ELEM_F16
+// as f16, each into a library of its own with the same C entries; the two
+// types have one size, so everything below holds for both ("bf16" reads
+// Elem).  f32 operands take flash_attention_bwd_f32.cu.
 //
 // Replaces the two Pallas TPU kernels of k8s_gpu_hpa_tpu/ops/flash_attention.py
 // called by `_flash_bhsd_bwd`: `_flash_bwd_dq_kernel` (pallas_call at :273)
@@ -114,7 +118,6 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -132,14 +135,6 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-
-using bf16 = __nv_bfloat16;
-
-// two floats rounded to a bf16 pair, the first in the lower half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 64 rows a CTA on two consumer warpgroups that take turns over the ring's
 // tiles (at d 256 the dK/dV kernel's split their roles instead); DKV: the
@@ -185,7 +180,7 @@ struct Params {
   CUtensorMap lse, delta;     // [b*h, s] fp32, box 64 (s) x 1: dK/dV only
   const float* lse_rows;      // the same tensors, for dQ's plain loads
   const float* delta_rows;
-  bf16* out[2];       // dQ; or dK and dV
+  Elem* out[2];       // dQ; or dK and dV
   int64_t st[2][3];   // their (batch, seq, head) element strides
   int heads, seq;
   float scale;        // 1/sqrt(d)
@@ -251,7 +246,7 @@ __device__ __forceinline__ void product_ss(float (&d)[32], const unsigned char* 
 #pragma unroll
   for (int kk = 0; kk < D / kWgK; ++kk) {
     const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
-    wgmma_m64n64k16_ss_bf16(d, desc_k_major(a + at), desc_k_major(b + at), kk > 0);
+    wgmma_m64n64k16_ss(d, desc_k_major(a + at), desc_k_major(b + at), kk > 0);
   }
 }
 
@@ -266,26 +261,26 @@ __device__ __forceinline__ void product_rs(float (&d)[D / 2], const uint32_t (&a
   for (int kc = 0; kc < kBlk / kWgK; ++kc) {
     const unsigned char* rows = b + kc * kWgK * kSwizzleRow;
     if constexpr (D == 64) {
-      wgmma_m64n64k16_rs_bf16(d, a[kc], desc_mn_major(rows, kBoxBytes), 1);
+      wgmma_m64n64k16_rs(d, a[kc], desc_mn_major(rows, kBoxBytes), 1);
     } else {
 #pragma unroll
       for (int n = 0; n < D / 128; ++n) {
-        wgmma_m64n128k16_rs_bf16(*reinterpret_cast<float(*)[64]>(d + 64 * n), a[kc],
+        wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(d + 64 * n), a[kc],
                                  desc_mn_major(rows + 2 * n * kBoxBytes, kBoxBytes), 1);
       }
     }
   }
 }
 
-// fp32 accumulators to bf16 pairs, the A fragments of the next product:
+// fp32 accumulators to Elem pairs, the A fragments of the next product:
 // columns 16 kc .. 16 kc + 15 are accumulator blocks 2 kc and 2 kc + 1
 __device__ __forceinline__ void pack(uint32_t (&a)[kBlk / kWgK][4], const float (&x)[32]) {
 #pragma unroll
   for (int kc = 0; kc < kBlk / kWgK; ++kc) {
-    a[kc][0] = pack_bf16(x[8 * kc + 0], x[8 * kc + 1]);
-    a[kc][1] = pack_bf16(x[8 * kc + 2], x[8 * kc + 3]);
-    a[kc][2] = pack_bf16(x[8 * kc + 4], x[8 * kc + 5]);
-    a[kc][3] = pack_bf16(x[8 * kc + 6], x[8 * kc + 7]);
+    a[kc][0] = pack_pair(x[8 * kc + 0], x[8 * kc + 1]);
+    a[kc][1] = pack_pair(x[8 * kc + 2], x[8 * kc + 3]);
+    a[kc][2] = pack_pair(x[8 * kc + 4], x[8 * kc + 5]);
+    a[kc][3] = pack_pair(x[8 * kc + 6], x[8 * kc + 7]);
   }
 }
 
@@ -322,19 +317,18 @@ __device__ __forceinline__ bool merge(const Smem<C>& sm, int wg, int t, Acc&... 
   return true;
 }
 
-// Stores a warpgroup's 64 x D fp32 accumulator rows as bf16: thread t holds
+// Stores a warpgroup's 64 x D fp32 accumulator rows as Elem: thread t holds
 // rows `row0` and `row0 + 8`, columns 8 i + col0 and + 1
 template <int D>
 __device__ __forceinline__ void store_rows(const Params& p, int which, int b, int h, int row0,
                                            int col0, const float (&acc)[D / 2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* dst = p.out[which] + b * p.st[which][0] +
+    Elem* dst = p.out[which] + b * p.st[which][0] +
                 static_cast<int64_t>(row0 + r * 8) * p.st[which][1] + h * p.st[which][2];
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + i * 8 + col0) =
-          __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+      store_pair(dst + i * 8 + col0, acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
     }
   }
 }
@@ -801,8 +795,8 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   }
   p.lse_rows = lse;
   p.delta_rows = delta;
-  p.out[0] = static_cast<bf16*>(out0);
-  p.out[1] = static_cast<bf16*>(out1);
+  p.out[0] = static_cast<Elem*>(out0);
+  p.out[1] = static_cast<Elem*>(out1);
   // dq's strides, or dk's and dv's
   for (int o = 0; o < 2; ++o) {
     for (int a = 0; a < 3; ++a) p.st[o][a] = strides[(dkv ? 15 + 3 * o : 12) + a];

@@ -1,0 +1,351 @@
+// Flash attention backward for f32 operands on Hopper (sm_90a): dQ, dK and
+// dV of O = softmax(Q K^T / sqrt(d)) V, fp32 throughout, the probabilities
+// recomputed from the forward's logsumexp, never stored; head_dim 64, 128 or
+// 256.
+//
+// Replaces the two Pallas TPU kernels of k8s_gpu_hpa_tpu/ops/flash_attention.py
+// called by `_flash_bhsd_bwd`, `_flash_bwd_dq_kernel` (pallas_call at :273)
+// and `_flash_bwd_dkv_kernel` (pallas_call at :289), at f32, the dtype the
+// JAX package's own gradient tests run them in.  Each computes what its
+// Pallas kernel computes: S = (Q K^T) * scale in fp32, the causal mask
+// q_pos >= k_pos with -1e30 before the exponential, P = exp(S - lse), dP =
+// dO V^T, dS = P (dP - delta) scale, dQ = sum dS K, dV = sum P^T dO, dK =
+// sum dS^T Q, all in fp32 (the operand dtype: no rounding between the
+// products).  The exponentials are exp2 of log2(e)-prescaled scores.  delta
+// = rowsum(dO O) in fp32 comes from the caller, as on the TPU.  Two
+// kernels, as the bf16 and f16 pair (flash_attention_bwd.cu): dQ over Q
+// tiles, dK and dV over K/V tiles, no atomics.
+//
+// Bound.  6 d operations a (batch-head, query, key) pair at or below the
+// diagonal for dQ (S, dP, dS K) and 8 d for dK/dV (S^T, dP^T, P^T dO, dS^T
+// Q), on the CUDA cores at the H100 SXM's f32 peak of 67 TFLOP/s (NVIDIA
+// H100 SXM data sheet): at the llm training shape (b1, s2048, h4, d128,
+// causal) 6.45 GFLOP, 96 us, and 8.59 GFLOP, 128 us, against 21.0 MB (6.3
+// us) and 25.2 MB (7.5 us) at 3.35 TB/s.  The FFMA rate bounds both.
+// ffma_tiles.cuh says why not the tensor cores.
+//
+// Design, the simplest that is right (making it fast is later work): one
+// CTA of 256 threads per (batch-head, 64-row tile), heaviest causal tiles
+// first; the CTA's own two tiles stay in shared memory and the other side's
+// tiles stream through one stage (64 rows, 32 at head_dim 256, where two own
+// tiles and two 64-row streamed tiles would pass the 227 KB a CTA may have),
+// loaded with float4 loads behind a barrier; every product is one of
+// ffma_tiles.cuh's register tiles, the score tiles (dS, P^T, dS^T) going
+// through shared memory between the products.
+//   - dQ: Q and dO stay; K and V tiles stream up to the diagonal.  S = Q
+//     K^T, dP = dO V^T, then dS over V's tile (which dP no longer needs),
+//     and dQ += dS K.  Each thread reads lse and delta for its four rows
+//     once.
+//   - dK/dV: K and V stay; Q and dO tiles stream from the diagonal on (or
+//     from 0), each thread reading lse and delta for its score columns.
+//     S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T into shared memory,
+//     and dV += P^T dO, dK += dS^T Q.
+//
+// Layout.  Q, K, V, dO, dQ, dK and dV are [B, S, H, D] with D contiguous and
+// any other strides (element counts, multiples of 8); a [B*H, S, D] tensor
+// is the case H = 1.  lse and delta are [B*H, S] fp32, contiguous.  S must
+// be a multiple of 64.  The Python wrapper (ops/flash_attention.py) checks
+// all of this before it calls in.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ffma_tiles.cuh"
+
+namespace {
+
+template <int D, bool DKV>
+struct Cfg {
+  using T = F32Tiles<D>;
+  // the own two tiles, the streamed two, and dK/dV's P^T and dS^T (dQ's dS
+  // lies over V's tile)
+  static constexpr size_t kSmem =
+      (2 * T::kTileFloats + 2 * T::kOtherFloats + (DKV ? 2 * T::kScoreFloats : 0)) *
+      sizeof(float);
+  static_assert(T::kScoreFloats <= T::kOtherFloats, "dS fits over the V tile");
+  static_assert(kSmem <= 232448, "shared memory of a CTA");
+};
+
+struct Params {
+  const float* in[4];  // q, k, v, dout
+  const float* lse;    // [b*h, s]
+  const float* delta;
+  float* out[2];       // dQ; or dK and dV
+  int64_t st[4][3];    // (batch, seq, head) element strides of q, k, v, dout
+  int64_t out_st[2][3];
+  int heads, seq;
+  float scale;       // 1/sqrt(d)
+  float scale_log2;  // 1/sqrt(d) * log2(e)
+  int causal;
+};
+
+__device__ __forceinline__ int64_t at(const int64_t (&st)[3], int b, int row, int h) {
+  return b * st[0] + static_cast<int64_t>(row) * st[1] + h * st[2];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dq_f32_kernel(const __grid_constant__ Params p) {
+  using T = F32Tiles<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* do_s = q_s + T::kTileFloats;
+  float* k_s = do_s + T::kTileFloats;
+  float* v_s = k_s + T::kOtherFloats;
+  float* ds_s = v_s;  // dS over V, once dP is done with it
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // the longest causal loops first
+  const int n_kv = (p.causal ? q0 + kF32Rows : p.seq) / T::kOther;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  load_rows<D>(q_s, p.in[0] + at(p.st[0], b, q0, h), kF32Rows, p.st[0][1]);
+  load_rows<D>(do_s, p.in[3] + at(p.st[3], b, q0, h), kF32Rows, p.st[3][1]);
+  float lse_l2[4], delta[4];  // lse in log2 units
+  float dq[4][T::kOut];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int64_t row = static_cast<int64_t>(bh) * p.seq + q0 + 4 * ty + ii;
+    lse_l2[ii] = p.lse[row] * kF32Log2e;
+    delta[ii] = p.delta[row];
+#pragma unroll
+    for (int c = 0; c < T::kOut; ++c) dq[ii][c] = 0.0f;
+  }
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int kv0 = j * T::kOther;
+    __syncthreads();  // the previous tile's dS K is done with dS and K
+    load_rows<D>(k_s, p.in[1] + at(p.st[1], b, kv0, h), T::kOther, p.st[1][1]);
+    load_rows<D>(v_s, p.in[2] + at(p.st[2], b, kv0, h), T::kOther, p.st[2][1]);
+    __syncthreads();
+    float s[4][T::kCols], dp[4][T::kCols];
+    scores<D>(s, q_s, k_s, ty, tx);
+    scores<D>(dp, do_s, v_s, ty, tx);
+    // P = exp(S scale - lse) under the mask, then dS = P (dP - delta) scale
+    const bool crossing = p.causal && kv0 + T::kOther - 1 > q0;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < T::kCols; ++jj) {
+        if (crossing && q0 + 4 * ty + ii < kv0 + tx + 16 * jj) s[ii][jj] = kF32NegInf;
+        const float pe = exp2f(fmaf(s[ii][jj], p.scale_log2, -lse_l2[ii]));
+        dp[ii][jj] = pe * (dp[ii][jj] - delta[ii]) * p.scale;
+      }
+    }
+    __syncthreads();  // every thread's dP is done with V
+    put_scores<D>(ds_s, dp, ty, tx);
+    __syncthreads();
+    accumulate<D>(dq, ds_s, k_s, ty, tx);
+  }
+
+  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  store_out<D>(p.out[0] + at(p.out_st[0], b, q0, h), p.out_st[0][1], dq, one, ty, tx);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dkv_f32_kernel(const __grid_constant__ Params p) {
+  using T = F32Tiles<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);
+  float* v_s = k_s + T::kTileFloats;
+  float* q_s = v_s + T::kTileFloats;
+  float* do_s = q_s + T::kOtherFloats;
+  float* pt_s = do_s + T::kOtherFloats;  // P^T
+  float* dst_s = pt_s + T::kScoreFloats;  // dS^T
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int k0 = blockIdx.y * kF32Rows;  // the longest causal loops first
+  // causal: Q tiles before the CTA's first key see none of its keys
+  const int lo = p.causal ? k0 / T::kOther : 0;
+  const int count = p.seq / T::kOther - lo;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  load_rows<D>(k_s, p.in[1] + at(p.st[1], b, k0, h), kF32Rows, p.st[1][1]);
+  load_rows<D>(v_s, p.in[2] + at(p.st[2], b, k0, h), kF32Rows, p.st[2][1]);
+  float dk[4][T::kOut], dv[4][T::kOut];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int c = 0; c < T::kOut; ++c) dk[ii][c] = dv[ii][c] = 0.0f;
+  }
+
+  for (int n = 0; n < count; ++n) {
+    const int q0 = (lo + n) * T::kOther;
+    __syncthreads();  // the previous tile's products are done with its tiles
+    load_rows<D>(q_s, p.in[0] + at(p.st[0], b, q0, h), T::kOther, p.st[0][1]);
+    load_rows<D>(do_s, p.in[3] + at(p.st[3], b, q0, h), T::kOther, p.st[3][1]);
+    __syncthreads();
+    // S^T = K Q^T and dP^T = V dO^T: rows are the CTA's keys, columns the
+    // tile's queries
+    float s[4][T::kCols], dp[4][T::kCols];
+    scores<D>(s, k_s, q_s, ty, tx);
+    scores<D>(dp, v_s, do_s, ty, tx);
+    const bool crossing = p.causal && q0 < k0 + kF32Rows - 1;
+#pragma unroll
+    for (int jj = 0; jj < T::kCols; ++jj) {
+      const int q = q0 + tx + 16 * jj;
+      const int64_t row = static_cast<int64_t>(bh) * p.seq + q;
+      const float lse_l2 = p.lse[row] * kF32Log2e;
+      const float dl = p.delta[row];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        if (crossing && q < k0 + 4 * ty + ii) s[ii][jj] = kF32NegInf;
+        s[ii][jj] = exp2f(fmaf(s[ii][jj], p.scale_log2, -lse_l2));
+        dp[ii][jj] = s[ii][jj] * (dp[ii][jj] - dl) * p.scale;
+      }
+    }
+    put_scores<D>(pt_s, s, ty, tx);
+    put_scores<D>(dst_s, dp, ty, tx);
+    __syncthreads();
+    accumulate<D>(dv, pt_s, do_s, ty, tx);
+    accumulate<D>(dk, dst_s, q_s, ty, tx);
+  }
+
+  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  store_out<D>(p.out[0] + at(p.out_st[0], b, k0, h), p.out_st[0][1], dk, one, ty, tx);
+  store_out<D>(p.out[1] + at(p.out_st[1], b, k0, h), p.out_st[1][1], dv, one, ty, tx);
+}
+
+template <int D>
+cudaError_t opt_in_both() {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Cfg<D, false>::kSmem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Cfg<D, true>::kSmem));
+  }
+  return err;
+}
+
+template <int D, bool DKV>
+void launch(const Params& p, int batch_heads, cudaStream_t stream) {
+  const dim3 grid(batch_heads, p.seq / kF32Rows);
+  if constexpr (DKV) {
+    flash_bwd_dkv_f32_kernel<D><<<grid, kF32Threads, Cfg<D, true>::kSmem, stream>>>(p);
+  } else {
+    flash_bwd_dq_f32_kernel<D><<<grid, kF32Threads, Cfg<D, false>::kSmem, stream>>>(p);
+  }
+}
+
+template <class C>
+int config_of(int* out, int n) {
+  const int values[] = {kF32Threads, 1, static_cast<int>(C::kSmem), 0, 0};
+  const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
+  for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
+  return count;
+}
+
+int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* out0, void* out1,
+               const int64_t* strides, int batch, int heads, int seq, int head_dim, int causal,
+               float scale, int device, void* stream) {
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
+  Params p;
+  const void* in[4] = {q, k, v, dout};
+  for (int t = 0; t < 4; ++t) {
+    p.in[t] = static_cast<const float*>(in[t]);
+    for (int a = 0; a < 3; ++a) p.st[t][a] = strides[3 * t + a];
+  }
+  p.lse = lse;
+  p.delta = delta;
+  p.out[0] = static_cast<float*>(out0);
+  p.out[1] = static_cast<float*>(out1);
+  // dq's strides, or dk's and dv's
+  for (int o = 0; o < 2; ++o) {
+    for (int a = 0; a < 3; ++a) p.out_st[o][a] = strides[(dkv ? 15 + 3 * o : 12) + a];
+  }
+  p.heads = heads;
+  p.seq = seq;
+  p.scale = scale;
+  p.scale_log2 = scale * kF32Log2e;
+  p.causal = causal;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bh = batch * heads;
+  if (head_dim == 256) {
+    dkv ? launch<256, true>(p, bh, s) : launch<256, false>(p, bh, s);
+  } else if (head_dim == 128) {
+    dkv ? launch<128, true>(p, bh, s) : launch<128, false>(p, bh, s);
+  } else {
+    dkv ? launch<64, true>(p, bh, s) : launch<64, false>(p, bh, s);
+  }
+  err = cudaGetLastError();
+  if (cur != device) cudaSetDevice(cur);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// C entries, bound with ctypes, as flash_attention_bwd.cu's: the same names
+// and arguments, so ops/flash_attention.py drives either library alike.
+//
+// flash_attention_bwd_init opts the six instantiations (each kernel at
+// head_dim 64, 128 and 256) in to the dynamic shared memory they need above
+// the default 48 KB, once per device before the first launch.  Returns a
+// cudaError_t.
+extern "C" int flash_attention_bwd_init(int device) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  err = opt_in_both<64>();
+  if (err == cudaSuccess) err = opt_in_both<128>();
+  if (err == cudaSuccess) err = opt_in_both<256>();
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// The configuration of (dkv: the dK/dV kernel, else dQ; head_dim): threads,
+// stages (one), dynamic shared memory in bytes, and 0, 0 (no setmaxnreg).
+// Returns how many values there are, or 0 where there is no such
+// instantiation.
+extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n) {
+  if (head_dim == 64) {
+    return dkv ? config_of<Cfg<64, true>>(out, n) : config_of<Cfg<64, false>>(out, n);
+  }
+  if (head_dim == 128) {
+    return dkv ? config_of<Cfg<128, true>>(out, n) : config_of<Cfg<128, false>>(out, n);
+  }
+  if (head_dim == 256) {
+    return dkv ? config_of<Cfg<256, true>>(out, n) : config_of<Cfg<256, false>>(out, n);
+  }
+  return 0;
+}
+
+// `strides` holds 21 element strides: (batch, seq, head) for q, k, v, dout,
+// dq, dk and dv; the dq entry reads those of dq and ignores dk and dv, the
+// dkv entry the other way round.  lse and delta are [batch * heads, seq]
+// fp32, contiguous.  `device` is the CUDA ordinal the pointers live on,
+// initialised with flash_attention_bwd_init, and `stream` the caller's
+// cudaStream_t.  Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* dout, const float* lse, const float* delta,
+                                      void* dq, const int64_t* strides, int batch, int heads,
+                                      int seq, int head_dim, int causal, float scale, int device,
+                                      void* stream) {
+  return launch_bwd(false, q, k, v, dout, lse, delta, dq, dq, strides, batch, heads, seq,
+                    head_dim, causal, scale, device, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* delta,
+                                       void* dk, void* dv, const int64_t* strides, int batch,
+                                       int heads, int seq, int head_dim, int causal, float scale,
+                                       int device, void* stream) {
+  return launch_bwd(true, q, k, v, dout, lse, delta, dk, dv, strides, batch, heads, seq,
+                    head_dim, causal, scale, device, stream);
+}

@@ -3,13 +3,16 @@
 // backward): mbarriers, TMA tile loads, wgmma and setmaxnreg.
 // tools/warpsim/hopper_ptx.cuh is the same interface for the CPU simulator;
 // everything above this layer is shared.
-// Each operation is as the PTX ISA (8.0 and later, sm_90a) defines it.
+// Each operation is as the PTX ISA (8.0 and later, sm_90a) defines it.  The
+// wgmma take their operands' type from elem.cuh: bf16, or f16 in a build
+// with ELEM_F16.
 
 #pragma once
 
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -117,16 +120,16 @@ __device__ __forceinline__ void wgmma_fence_operands(uint32_t (&a)[N][4]) {
 }
 
 // d = A B + (scale_d ? d : 0) for a 64x256x16 tile: A [64,16] K-major, B
-// [16,256] N-major (imm-trans-b 1), both bf16 in shared memory; d fp32,
+// [16,256] N-major (imm-trans-b 1), both Elem in shared memory; d fp32,
 // thread t of the warpgroup holding, for j < 32, rows 16(t/32) + (t%32)/4 and
 // +8, columns 8j + 2(t%4) and +1, as d[4j..4j+3].
-__device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t desc_a,
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                       uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." ELEM_PTX "." ELEM_PTX " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
@@ -160,14 +163,14 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
 
 // d = A B + (scale_d ? d : 0) for a 64x64x16 tile: A [64,16] and B [16,64] both
 // K-major in shared memory (imm-trans-b 0: B is stored as 64 rows of K);
-// d fp32, in the layout of wgmma_m64n256k16_bf16, j < 8.
-__device__ __forceinline__ void wgmma_m64n64k16_ss_bf16(float (&d)[32], uint64_t desc_a,
+// d fp32, in the layout of wgmma_m64n256k16, j < 8.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                       uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." ELEM_PTX "." ELEM_PTX " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
@@ -179,20 +182,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_bf16(float (&d)[32], uint64_t
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d = A B + (scale_d ? d : 0) for a 64x64x16 tile: A [64,16] bf16 from
+// d = A B + (scale_d ? d : 0) for a 64x64x16 tile: A [64,16] Elem from
 // registers, B [16,64] N-major in shared memory (imm-trans-b 1).  Thread t
 // of the warpgroup holds A's rows 16(t/32) + (t%32)/4 and +8, columns 2(t%4),
 // +1 and +8, +9, as the m16n8k16 A fragment: a[0] (row, cols 2q..), a[1]
 // (row + 8, cols 2q..), a[2] (row, cols 2q + 8..), a[3] (row + 8, cols 2q +
 // 8..), the lower column in the lower half.  A's registers must not change
 // until the product is waited for.
-__device__ __forceinline__ void wgmma_m64n64k16_rs_bf16(float (&d)[32], const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                       uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." ELEM_PTX "." ELEM_PTX " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
@@ -204,20 +207,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_bf16(float (&d)[32], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// d = A B + (scale_d ? d : 0) for a 64x128x16 tile: A [64,16] bf16 from
+// d = A B + (scale_d ? d : 0) for a 64x128x16 tile: A [64,16] Elem from
 // registers, B [16,128] N-major in shared memory (imm-trans-b 1).  Thread t
 // of the warpgroup holds A's rows 16(t/32) + (t%32)/4 and +8, columns 2(t%4),
 // +1 and +8, +9, as the m16n8k16 A fragment: a[0] (row, cols 2q..), a[1]
 // (row + 8, cols 2q..), a[2] (row, cols 2q + 8..), a[3] (row + 8, cols 2q +
 // 8..), the lower column in the lower half.  A's registers must not change
 // until the product is waited for.
-__device__ __forceinline__ void wgmma_m64n128k16_rs_bf16(float (&d)[64], const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                       uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." ELEM_PTX "." ELEM_PTX " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"

@@ -1,5 +1,10 @@
-// bf16 GEMM for Hopper (sm_90a): C[M,N] = A[M,K] @ B[K,N], fp32 accumulation,
-// C rounded once to bf16.  All three matrices are row-major and contiguous.
+// bf16 or f16 GEMM for Hopper (sm_90a): C[M,N] = A[M,K] @ B[K,N], fp32
+// accumulation, C rounded once to the operands' type.  All three matrices are
+// row-major and contiguous.  The type is elem.cuh's Elem: this source builds
+// once as bf16 and once with ELEM_F16 as f16, each into a library of its own
+// with the same C entries; the two types have one size, so everything below
+// holds for both (the bound's 989 TFLOP/s is f16's dense peak too).  f32
+// operands take matmul_f32.cu.
 //
 // Replaces the two Pallas TPU kernels of k8s_gpu_hpa_tpu/ops/pallas_matmul.py:
 // `_matmul_kernel_fullk` (full-K stripes, one contraction per output tile) and
@@ -14,7 +19,7 @@
 // SXM's 989 TFLOP/s dense bf16, against 100.7 MB, or 0.030 ms at 3.35 TB/s: the
 // tensor cores bound it, not the memory (NVIDIA H100 SXM data sheet).  So the
 // design keeps the tensor cores fed and hides every copy behind them:
-//   - tensor cores through wgmma.mma_async m64n256k16 (bf16 in, fp32
+//   - tensor cores through wgmma.mma_async m64n256k16 (bf16 or f16 in, fp32
 //     accumulators), the only instruction that reaches their full rate on
 //     Hopper; both operands come from shared memory through matrix
 //     descriptors with the 128-byte swizzle.  A's tile is K-major, as A is;
@@ -40,7 +45,7 @@
 //     16 tile rows, so the ~132 tiles in flight share their A and B stripes
 //     in the 50 MB L2; the ring runs on across tiles, so the producer loads
 //     the next tile while the consumers store this one.
-//   - the epilogue casts to bf16 in registers and stores straight to C, two
+//   - the epilogue casts to Elem in registers and stores straight to C, two
 //     values a store: no shared-memory staging, so the ring keeps all four
 //     stages.
 // Edges: every dim a multiple of 128 (the wrapper checks).  N = 128 mod 256
@@ -55,7 +60,6 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,7 +93,7 @@ constexpr size_t kSmemBytes =
 struct Params {
   CUtensorMap a;  // [M, K], box 64 (K) x 128 (M)
   CUtensorMap b;  // [K, N], box 64 (N) x 64 (K)
-  __nv_bfloat16* c;
+  Elem* c;
   int m, n, k;
 };
 
@@ -115,7 +119,7 @@ __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n, int
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-    matmul_bf16_kernel(const __grid_constant__ Params p) {
+    matmul_wgmma_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle is a function of the shared address: align the ring to it
   unsigned char* ring =
@@ -187,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence_operands(acc);
 #pragma unroll
         for (int kk = 0; kk < kBK / kWgK; ++kk) {
-          wgmma_m64n256k16_bf16(acc, desc_a(a_tile, kk), desc_b(b_tile, kk), ks > 0 || kk > 0);
+          wgmma_m64n256k16(acc, desc_a(a_tile, kk), desc_b(b_tile, kk), ks > 0 || kk > 0);
         }
         wgmma_commit();
         wgmma_fence_operands(acc);
@@ -207,16 +211,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       // epilogue: rows r and r + 8, columns 8j + 2(lane % 4) and +1
       const int row = tm * kBM + half * 64 + warp * 16 + lane / 4;
       const int col0 = tn * kBN + 2 * (lane % 4);
-      __nv_bfloat16* c0 = p.c + static_cast<size_t>(row) * p.n;
-      __nv_bfloat16* c8 = c0 + static_cast<size_t>(8) * p.n;
+      Elem* c0 = p.c + static_cast<size_t>(row) * p.n;
+      Elem* c8 = c0 + static_cast<size_t>(8) * p.n;
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int col = col0 + 8 * j;
         if (col < p.n) {
-          *reinterpret_cast<__nv_bfloat162*>(c0 + col) =
-              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(c8 + col) =
-              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+          store_pair(c0 + col, acc[4 * j], acc[4 * j + 1]);
+          store_pair(c8 + col, acc[4 * j + 2], acc[4 * j + 3]);
         }
       }
     }
@@ -226,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 PFN_cuTensorMapEncodeTiled g_encode = nullptr;
 int g_sms[64] = {};
 
-// a row-major [rows, cols] bf16 tensor, read in boxes of box_cols x box_rows
+// a row-major [rows, cols] Elem tensor, read in boxes of box_cols x box_rows
 // under the 128-byte swizzle; out-of-bounds elements read as zero
 CUresult encode(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
                 int box_rows) {
@@ -234,7 +236,7 @@ CUresult encode(CUtensorMap* map, const void* base, int rows, int cols, int box_
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
-  return g_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  return g_encode(map, kElemTma, 2, const_cast<void*>(base), dims,
                   strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -243,11 +245,11 @@ CUresult encode(CUtensorMap* map, const void* base, int rows, int cols, int box_
 
 // C entries, bound with ctypes.
 //
-// matmul_bf16_init opts the kernel in to its dynamic shared memory, reads the
+// matmul_init opts the kernel in to its dynamic shared memory, reads the
 // device's SM count (the persistent grid's size) and looks up the CUDA
 // driver API's cuTensorMapEncodeTiled.  It is called once per device before
 // the first launch, never at launch.  Returns a cudaError_t.
-extern "C" int matmul_bf16_init(int device) {
+extern "C" int matmul_init(int device) {
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -255,7 +257,7 @@ extern "C" int matmul_bf16_init(int device) {
   if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  err = cudaFuncSetAttribute(matmul_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSmemBytes));
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount, device);
@@ -279,7 +281,7 @@ extern "C" int matmul_bf16_init(int device) {
 // stages, consumer warpgroups, the producer's and the consumers' registers a
 // thread under setmaxnreg, dynamic shared memory in bytes, tile rows per
 // group.  Writes at most `n` values; returns how many there are.
-extern "C" int matmul_bf16_config(int* out, int n) {
+extern "C" int matmul_config(int* out, int n) {
   const int values[] = {kBM, kBN, kBK, kStages, kConsumers, kProducerRegs,
                         kConsumerRegs, static_cast<int>(kSmemBytes), kGroupM};
   const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
@@ -288,12 +290,12 @@ extern "C" int matmul_bf16_config(int* out, int n) {
 }
 
 // `device` is the CUDA ordinal the pointers live on, initialised with
-// matmul_bf16_init, and `stream` the caller's cudaStream_t.  Returns
+// matmul_init, and `stream` the caller's cudaStream_t.  Returns
 // cudaGetLastError() after the launch: nonzero means the launch was refused
 // and nothing ran.  A refused descriptor returns the CUDA driver API's
 // CUresult, whose codes are the runtime's (201: no current context).
-extern "C" int matmul_bf16(const void* a, const void* b, void* c, int m, int n, int k,
-                           int device, void* stream) {
+extern "C" int matmul_launch(const void* a, const void* b, void* c, int m, int n, int k,
+                             int device, void* stream) {
   if (device < 0 || device >= 64 || g_sms[device] == 0 || g_encode == nullptr) {
     return static_cast<int>(cudaErrorInitializationError);
   }
@@ -310,13 +312,13 @@ extern "C" int matmul_bf16(const void* a, const void* b, void* c, int m, int n, 
     if (cur != device) cudaSetDevice(cur);
     return static_cast<int>(refused);
   }
-  p.c = static_cast<__nv_bfloat16*>(c);
+  p.c = static_cast<Elem*>(c);
   p.m = m;
   p.n = n;
   p.k = k;
   const int tiles = (m / kBM) * ((n + kBN - 1) / kBN);
   const dim3 grid(tiles < g_sms[device] ? tiles : g_sms[device]);
-  matmul_bf16_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  matmul_wgmma_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   err = cudaGetLastError();
   if (cur != device) cudaSetDevice(cur);
   return static_cast<int>(err);

@@ -13,9 +13,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
+
 namespace {
 
-constexpr int kBox = 64;      // a bf16 box's columns: one 128-byte swizzle row
+constexpr int kBox = 64;      // an Elem box's columns: one 128-byte swizzle row
 constexpr int kBoxRows = 64;  // a box's rows: one tile of Q, K, V or dO
 
 PFN_cuTensorMapEncodeTiled g_encode = nullptr;
@@ -33,7 +35,7 @@ cudaError_t find_encode() {
   return err;
 }
 
-// a [b, s, h, d] bf16 tensor with element strides (sb, ss, sh, 1), read in
+// a [b, s, h, d] Elem tensor with element strides (sb, ss, sh, 1), read in
 // 64 x 64 boxes of (d, s) under the 128-byte swizzle; out of bounds reads
 // zero
 CUresult encode_bshd(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d,
@@ -47,7 +49,7 @@ CUresult encode_bshd(CUtensorMap* map, const void* base, int batch, int seq, int
                                static_cast<cuuint64_t>(strides[0]) * 2};
   const cuuint32_t box[4] = {kBox, 1, kBoxRows, 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
-  return g_encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, bytes,
+  return g_encode(map, kElemTma, 4, const_cast<void*>(base), dims, bytes,
                   box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

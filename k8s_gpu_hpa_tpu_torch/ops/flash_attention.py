@@ -4,9 +4,13 @@ hot op of the prefill and of the training step.
 Counterpart of ``k8s_gpu_hpa_tpu/ops/flash_attention.py``.  Its Pallas
 forward kernel ``_flash_kernel`` becomes ``csrc/flash_attention.cu`` and its
 two backward kernels ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``
-become ``csrc/flash_attention_bwd.cu``: CUDA C++ for ``sm_90a``, each built
-with ``nvcc`` at first use into a library of its own and bound with ctypes.
-The sources state what they replace and what bounds them.
+become ``csrc/flash_attention_bwd.cu`` for bf16 and f16 operands (wgmma on
+the tensor cores; each source built once per type), and
+``csrc/flash_attention_f32.cu`` and ``csrc/flash_attention_bwd_f32.cu`` for
+f32 (FFMA on the CUDA cores): CUDA C++ for ``sm_90a``, each built with
+``nvcc`` at first use into a library of its own, one per source and dtype,
+with the same C entries, and bound with ctypes.  The sources state what
+they replace and what bounds them.
 
 Entry points:
 
@@ -16,13 +20,15 @@ Entry points:
   take.
   For CPU tensors it computes ``flash_attention_reference`` instead — the
   only case in which the plain version stands in.
-  ``flash_attention_kernel.launches`` counts launches.  Operands are
+  ``flash_attention_kernel.launches`` counts launches, and
+  ``.launches_by_dtype`` the same by dtype name.  Operands are
   [b*h, s, d], or [b, s, h, d] with any strides whose last is 1 (the
   transformer hands it views of its fused QKV projection, copied nowhere).
 - ``flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)``: dQ, dK and dV
   on the two backward kernels, the same way round: kernels for CUDA tensors,
   ``flash_attention_bwd_reference`` for CPU tensors.  It counts its launches
-  in ``.dq_launches`` and ``.dkv_launches``.
+  in ``.dq_launches`` and ``.dkv_launches``, and by dtype name in
+  ``.dq_launches_by_dtype`` and ``.dkv_launches_by_dtype``.
 - ``FlashAttention``: the ``torch.autograd.Function`` over both, the
   counterpart of the JAX ``custom_vjp`` ``_flash_bhsd_diff``.  It saves
   (q, k, v, o, lse) and asks the forward for the logsumexp only when a
@@ -33,17 +39,16 @@ Entry points:
   the envelope it takes ``reference_attention``, which autograd
   differentiates.
 
-The envelope is the Hopper kernels', not the TPU's: bf16, head_dim 64, 128
-or 256, and a sequence that is a positive multiple of the 64-row KV tile.
-There is no stripe cap, because the kernels stream tiles through shared
-memory instead of holding a batch-head's whole stripe.  In bf16 it covers
-the TPU kernel's envelope (head_dim a multiple of 128 within a 12 MiB K/V
-stripe: 128 and 256 up to 24,576 positions), but not the TPU kernel's other
-dtypes nor head_dim 384 and 512: f32 and f16 operands and those widths take
-``reference_attention``, as any shape outside the envelope does (ROADMAP.md
-§2 queues them).  The kernels' tiles are fixed; ``block_q`` and ``block_k``
-are the TPU kernel's tile sizes, accepted so that callers keep the JAX
-signature, and change nothing here.
+The envelope is the Hopper kernels', not the TPU's: bf16, f16 or f32,
+head_dim 64, 128 or 256, and a sequence that is a positive multiple of the
+64-row KV tile.  There is no stripe cap, because the kernels stream tiles
+through shared memory instead of holding a batch-head's whole stripe.  It
+covers the TPU kernel's envelope in those dtypes (head_dim a multiple of
+128 within a 12 MiB K/V stripe: 128 and 256), but not head_dim 384 and 512,
+which take ``reference_attention``, as any shape or dtype outside the
+envelope does (ROADMAP.md §2 queues them).  The kernels' tiles are fixed;
+``block_q`` and ``block_k`` are the TPU kernel's tile sizes, accepted so
+that callers keep the JAX signature, and change nothing here.
 """
 
 from __future__ import annotations
@@ -60,9 +65,16 @@ from k8s_gpu_hpa_tpu_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
-#: the headers the sources include: the TMA, wgmma and descriptor layer and
-#: the tensor maps
-HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "smem_desc.cuh", CSRC / "tensor_map.cuh")
+F32_SOURCE = CSRC / "flash_attention_f32.cu"
+BWD_F32_SOURCE = CSRC / "flash_attention_bwd_f32.cu"
+#: the headers the wgmma sources include: the TMA, wgmma and descriptor
+#: layer, the element type and the tensor maps
+HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "elem.cuh", CSRC / "smem_desc.cuh",
+           CSRC / "tensor_map.cuh")
+#: the header the f32 sources include: the FFMA tile products
+F32_HEADERS = (CSRC / "ffma_tiles.cuh",)
+#: the kernels' dtypes by name: the name of each library and count
+DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 #: K/V rows per tile of the kernels; the sequence must be a multiple
 KV_TILE = 64
 HEAD_DIMS = (64, 128, 256)
@@ -81,44 +93,50 @@ _TAIL = [_INT, _INT, _INT, _INT, _INT, ctypes.c_float, _INT, _PTR]
 
 
 class _Library:
-    """One kernel library: built at first use, loaded with ctypes, and its
-    shared-memory opt-in made once per device.
+    """One kernel source's libraries, one per dtype: each built at first
+    use, loaded with ctypes, and its shared-memory opt-in made once per
+    device.  Every library of a source has the same C entries.
 
     The opt-in is a device attribute call, which CUDA-graph capture does not
     allow, so it happens at the first launch on each device and never inside
     a launch."""
 
-    def __init__(self, name: str, source: Path, init: str, entries: dict[str, list]):
-        self.name, self.source, self.init, self.entries = name, source, init, entries
-        self._lib: ctypes.CDLL | None = None
-        self._ready: set[int] = set()
+    def __init__(self, stem: str, wgmma: Path, f32: Path, init: str, entries: dict[str, list]):
+        self.stem, self.init, self.entries = stem, init, entries
+        self.sources = {torch.bfloat16: wgmma, torch.float16: wgmma, torch.float32: f32}
+        self._libs: dict[torch.dtype, ctypes.CDLL] = {}
+        self._ready: set[tuple[torch.dtype, int]] = set()
 
-    def build(self) -> tuple[Path, str]:
-        """Compile the source if needed; returns (library, nvcc output)."""
-        return build_shared(self.name, [self.source], [nvcc(), *NVCC_FLAGS], HEADERS)
+    def build(self, dtype: torch.dtype = torch.bfloat16) -> tuple[Path, str]:
+        """Compile the source of ``dtype`` if needed (f16 is the bf16 source
+        built with ``ELEM_F16``); returns (library, nvcc output)."""
+        f32 = dtype == torch.float32
+        flags = ["-DELEM_F16"] if dtype == torch.float16 else []
+        return build_shared(f"{self.stem}_{DTYPES[dtype]}.so", [self.sources[dtype]],
+                            [nvcc(), *NVCC_FLAGS, *flags], F32_HEADERS if f32 else HEADERS)
 
-    def load(self, device: int) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()[0]))
+    def load(self, dtype: torch.dtype, device: int) -> ctypes.CDLL:
+        if dtype not in self._libs:
+            lib = ctypes.CDLL(str(self.build(dtype)[0]))
             for entry, argtypes in {self.init: [_INT], **self.entries}.items():
                 getattr(lib, entry).restype = ctypes.c_int
                 getattr(lib, entry).argtypes = argtypes
-            self._lib = lib
-        if device not in self._ready:
-            err = getattr(self._lib, self.init)(device)
+            self._libs[dtype] = lib
+        if (dtype, device) not in self._ready:
+            err = getattr(self._libs[dtype], self.init)(device)
             if err:
-                raise RuntimeError(f"{self.init} failed with cudaError {err}")
-            self._ready.add(device)
-        return self._lib
+                raise RuntimeError(f"{self.init} ({DTYPES[dtype]}) failed with cudaError {err}")
+            self._ready.add((dtype, device))
+        return self._libs[dtype]
 
 
 _FWD = _Library(
-    "libflash_attention.so", SOURCE, "flash_attention_init",
+    "libflash_attention", SOURCE, F32_SOURCE, "flash_attention_init",
     {"flash_attention_fwd": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64P, _INT, *_TAIL],
      "flash_attention_config": [_INT, _INT, ctypes.POINTER(ctypes.c_int), _INT]},
 )
 _BWD = _Library(
-    "libflash_attention_bwd.so", BWD_SOURCE, "flash_attention_bwd_init",
+    "libflash_attention_bwd", BWD_SOURCE, BWD_F32_SOURCE, "flash_attention_bwd_init",
     {
         "flash_attention_bwd_dq": [_PTR] * 7 + [_I64P, *_TAIL],
         "flash_attention_bwd_dkv": [_PTR] * 8 + [_I64P, *_TAIL],
@@ -127,55 +145,62 @@ _BWD = _Library(
 )
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/flash_attention.cu`` if needed; returns (library, nvcc output)."""
-    return _FWD.build()
+def build(dtype: torch.dtype = torch.bfloat16) -> tuple[Path, str]:
+    """Compile the forward of ``dtype`` if needed; returns (library, nvcc output)."""
+    return _FWD.build(dtype)
 
 
-def fwd_splits(head_dim: int) -> tuple[int, ...]:
-    """The forward's instantiations at ``head_dim``, by consumer warpgroups
-    a CTA: ``FWD_SPLITS``, or one alone at 256, where a 64-row tile is 32 KB
-    and two warpgroups' ring and hand-over do not fit an SM's shared memory
-    (csrc/flash_attention.cu)."""
-    return (1,) if head_dim == 256 else FWD_SPLITS
+def fwd_splits(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> tuple[int, ...]:
+    """The forward's instantiations at ``head_dim`` and ``dtype``, by
+    consumer warpgroups a CTA: ``FWD_SPLITS``, or one alone at 256, where a
+    64-row tile is 32 KB and two warpgroups' ring and hand-over do not fit
+    an SM's shared memory (csrc/flash_attention.cu), and in f32, whose
+    kernel has one tiling (csrc/flash_attention_f32.cu)."""
+    return (1,) if head_dim == 256 or dtype == torch.float32 else FWD_SPLITS
 
 
-def fwd_split(batch_heads: int, seq: int, sms: int, head_dim: int) -> int:
+def fwd_split(batch_heads: int, seq: int, sms: int, head_dim: int,
+              dtype: torch.dtype = torch.bfloat16) -> int:
     """The forward's consumer warpgroups a CTA on a card of ``sms`` SMs,
-    from ``fwd_splits(head_dim)``: two, which split each CTA's K/V tiles,
-    where the head_dim has that tiling and the 64-row CTAs do not outnumber
-    the SMs (the training shape, 4 batch-heads of 2048: 128 CTAs), so that
-    each SM runs two warpgroups; else one."""
-    two = 2 in fwd_splits(head_dim) and batch_heads * (seq // KV_TILE) <= sms
+    from ``fwd_splits(head_dim, dtype)``: two, which split each CTA's K/V
+    tiles, where the kernel has that tiling and the 64-row CTAs do not
+    outnumber the SMs (the training shape, 4 batch-heads of 2048: 128 CTAs),
+    so that each SM runs two warpgroups; else one."""
+    two = 2 in fwd_splits(head_dim, dtype) and batch_heads * (seq // KV_TILE) <= sms
     return 2 if two else 1
 
 
-def fwd_config(head_dim: int, kv_split: int, device: int = 0) -> dict[str, int]:
-    """The forward instantiation's configuration, as the library reports
-    it: threads, ring stages, CTAs an SM, dynamic shared memory in bytes."""
+def fwd_config(head_dim: int, kv_split: int, device: int = 0,
+               dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
+    """The forward instantiation's configuration, as the library of
+    ``dtype`` reports it: threads, ring stages, CTAs an SM, dynamic shared
+    memory in bytes."""
     out = (ctypes.c_int * 4)()
-    n = _FWD.load(device).flash_attention_config(head_dim, kv_split, out, 4)
+    n = _FWD.load(dtype, device).flash_attention_config(head_dim, kv_split, out, 4)
     if n != 4:
-        raise ValueError(f"no forward instantiation for head_dim {head_dim}, kv_split {kv_split}")
+        raise ValueError(f"no {DTYPES[dtype]} forward instantiation for head_dim {head_dim}, "
+                         f"kv_split {kv_split}")
     return dict(zip(("threads", "stages", "ctas_per_sm", "smem_bytes"), out))
 
 
-def build_bwd() -> tuple[Path, str]:
-    """Compile ``csrc/flash_attention_bwd.cu`` if needed; returns (library, nvcc output)."""
-    return _BWD.build()
+def build_bwd(dtype: torch.dtype = torch.bfloat16) -> tuple[Path, str]:
+    """Compile the backward of ``dtype`` if needed; returns (library, nvcc output)."""
+    return _BWD.build(dtype)
 
 
-def bwd_config(kernel: str, head_dim: int, device: int = 0) -> dict[str, int]:
+def bwd_config(kernel: str, head_dim: int, device: int = 0,
+               dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
     """A backward instantiation's configuration (``kernel`` one of
-    ``BWD_KERNELS``), as the library reports it: threads, ring stages,
-    dynamic shared memory in bytes (one CTA an SM), and the producer's and
-    the consumers' registers under ``setmaxnreg`` (0 without it)."""
+    ``BWD_KERNELS``), as the library of ``dtype`` reports it: threads, ring
+    stages, dynamic shared memory in bytes (one CTA an SM), and the
+    producer's and the consumers' registers under ``setmaxnreg`` (0 without
+    it)."""
     keys = ("threads", "stages", "smem_bytes", "producer_regs", "consumer_regs")
     out = (ctypes.c_int * len(keys))()
-    n = _BWD.load(device).flash_attention_bwd_config(
+    n = _BWD.load(dtype, device).flash_attention_bwd_config(
         BWD_KERNELS.index(kernel), head_dim, out, len(keys))
     if n != len(keys):
-        raise ValueError(f"no {kernel} instantiation for head_dim {head_dim}")
+        raise ValueError(f"no {DTYPES[dtype]} {kernel} instantiation for head_dim {head_dim}")
     return dict(zip(keys, out))
 
 
@@ -290,17 +315,19 @@ def flash_attention_bwd_reference(
 
 
 def _check(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
-    """Raises unless the bf16 operands suit the kernels: one CUDA device, one
-    shape, [b*h, s, d] or [b, s, h, d], head_dim in ``HEAD_DIMS``, seq a positive
-    multiple of the KV tile, head_dim contiguous and every other stride a
-    multiple of 8 elements, 16-byte aligned."""
+    """Raises unless the operands suit the kernels: one CUDA device, one
+    dtype of ``DTYPES``, one shape, [b*h, s, d] or [b, s, h, d], head_dim in
+    ``HEAD_DIMS``, seq a positive multiple of the KV tile, head_dim
+    contiguous and every other stride a multiple of 8 elements, 16-byte
+    aligned."""
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError(
             f"{name} needs its operands on one CUDA device, got "
             f"{[str(t.device) for t in tensors]}"
         )
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"{name} takes bf16, got {[t.dtype for t in tensors]}")
+    if tensors[0].dtype not in DTYPES or any(t.dtype != tensors[0].dtype for t in tensors):
+        raise TypeError(f"{name} takes operands of one of {[str(d) for d in DTYPES]}, got "
+                        f"{[t.dtype for t in tensors]}")
     q = tensors[0]
     if q.ndim not in (3, 4) or any(t.shape != q.shape for t in tensors):
         raise ValueError(
@@ -346,8 +373,9 @@ def flash_attention_kernel(
     causal: bool,
     with_lse: bool = False,
 ):
-    """Attention on the Hopper kernel: bf16 in, fp32 softmax, bf16 out, and
-    with ``with_lse`` the [b*h, s, 1] fp32 logsumexp beside it.
+    """Attention on the Hopper kernel of the operands' dtype (bf16, f16 or
+    f32 in, fp32 softmax, the same dtype out), and with ``with_lse`` the
+    [b*h, s, 1] fp32 logsumexp beside it.
 
     CPU tensors take ``flash_attention_reference``; CUDA tensors launch the
     kernel or raise — there is no fallback.  The output is contiguous in the
@@ -357,20 +385,23 @@ def flash_attention_kernel(
     _check("flash_attention_kernel", (q, k, v))
     batch, seq, heads, d = _dims(q)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return _launch_fwd(q, k, v, causal, with_lse, fwd_split(batch * heads, seq, sms, d))
+    return _launch_fwd(q, k, v, causal, with_lse,
+                       fwd_split(batch * heads, seq, sms, d, q.dtype))
 
 
 def _launch_fwd(q, k, v, causal: bool, with_lse: bool, kv_split: int):
     """The forward kernel on operands ``_check`` has passed, on ``kv_split``
-    consumer warpgroups a CTA (one of ``fwd_splits(head_dim)``; each
-    computes the same), counted in ``flash_attention_kernel.launches``.
+    consumer warpgroups a CTA (one of ``fwd_splits(head_dim, dtype)``;
+    each computes the same), counted in ``flash_attention_kernel.launches``
+    and ``.launches_by_dtype``.
     ``flash_attention_kernel`` calls it with ``fwd_split``'s choice;
     ``chip_smoke.py`` calls it with each to hold each to the plain
     version."""
     batch, seq, heads, d = _dims(q)
-    if kv_split not in fwd_splits(d):
-        raise ValueError(f"the forward takes kv_split in {fwd_splits(d)} at head_dim {d}, "
-                         f"got {kv_split}")
+    splits = fwd_splits(d, q.dtype)
+    if kv_split not in splits:
+        raise ValueError(f"the {DTYPES[q.dtype]} forward takes kv_split in {splits} at "
+                         f"head_dim {d}, got {kv_split}")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (
         torch.empty((batch * heads, seq, 1), dtype=torch.float32, device=q.device)
@@ -378,7 +409,7 @@ def _launch_fwd(q, k, v, causal: bool, with_lse: bool, kv_split: int):
         else None
     )
     index = q.device.index
-    err = _FWD.load(index).flash_attention_fwd(
+    err = _FWD.load(q.dtype, index).flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), _strides(q, k, v, o), kv_split,
         batch, heads, seq, d, int(causal), 1.0 / math.sqrt(d), index,
@@ -387,10 +418,12 @@ def _launch_fwd(q, k, v, causal: bool, with_lse: bool, kv_split: int):
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed with cudaError {err}")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_dtype[DTYPES[q.dtype]] += 1
     return (o, lse) if with_lse else o
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_dtype = dict.fromkeys(DTYPES.values(), 0)
 
 
 def flash_attention_bwd_launch(
@@ -404,7 +437,7 @@ def flash_attention_bwd_launch(
     n_out = {"dq": 1, "dkv": 2}[kernel]
     outs = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(n_out))
     index = q.device.index
-    entry = getattr(_BWD.load(index), f"flash_attention_bwd_{kernel}")
+    entry = getattr(_BWD.load(q.dtype, index), f"flash_attention_bwd_{kernel}")
     err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(t.data_ptr() for t in outs),
@@ -417,6 +450,7 @@ def flash_attention_bwd_launch(
         raise RuntimeError(f"flash_attention_bwd_{kernel} launch failed with cudaError {err}")
     counter = f"{kernel}_launches"
     setattr(flash_attention_bwd_kernel, counter, getattr(flash_attention_bwd_kernel, counter) + 1)
+    getattr(flash_attention_bwd_kernel, f"{counter}_by_dtype")[DTYPES[q.dtype]] += 1
     return outs
 
 
@@ -460,6 +494,8 @@ def flash_attention_bwd_kernel(
 
 flash_attention_bwd_kernel.dq_launches = 0
 flash_attention_bwd_kernel.dkv_launches = 0
+flash_attention_bwd_kernel.dq_launches_by_dtype = dict.fromkeys(DTYPES.values(), 0)
+flash_attention_bwd_kernel.dkv_launches_by_dtype = dict.fromkeys(DTYPES.values(), 0)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -490,11 +526,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_shape_supported(
     seq: int, head_dim: int, dtype: torch.dtype, block_q: int = 512, block_k: int = 512
 ) -> bool:
-    """The kernels' envelope: bf16, head_dim 64, 128 or 256, seq a positive
-    multiple of the KV tile.  ``block_q``/``block_k`` change nothing (see
-    the module's note)."""
+    """The kernels' envelope: bf16, f16 or f32, head_dim 64, 128 or 256,
+    seq a positive multiple of the KV tile.  ``block_q``/``block_k`` change
+    nothing (see the module's note)."""
     return (
-        dtype == torch.bfloat16
+        dtype in DTYPES
         and head_dim in HEAD_DIMS
         and seq > 0
         and seq % KV_TILE == 0

@@ -6,8 +6,8 @@ On the CPU the kernel's wrapper computes its plain version; the CUDA kernel
 is held against that plain version on the card by chip_smoke.py.  Inputs are
 made with numpy from a seed and handed to both.  The bars are the JAX
 tests': 2e-3 in f32 (the two sides sum in other orders and the Pallas
-kernel blocks its softmax), 0.06 in bf16 (each side rounds P to bf16 before
-P V at other points of its blocking)."""
+kernel blocks its softmax), 0.06 in bf16 and f16 (each side rounds P to the
+operand dtype before P V at other points of its blocking)."""
 
 import re
 
@@ -53,9 +53,11 @@ def _jax(*arrays, dtype=jnp.float32):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_f32_matches_jax_flash(causal):
-    """f32 lies outside the Hopper kernel's envelope, so the dispatcher takes
-    the exact reference; the kernel's plain version is held to the same bar."""
+    """f32 lies inside the Hopper kernels' envelope (the FFMA kernel), so the
+    dispatcher takes the kernel's wrapper, whose plain version runs on the
+    CPU; called directly, the wrapper is held to the same bar."""
     q, k, v = _qkv()
+    assert flash_attention_supported(_torch(q)[0])
     want = np.asarray(jax_flash_attention(*_jax(q, k, v), causal=causal, block_q=64, block_k=64))
     got = flash_attention(*_torch(q, k, v), causal=causal)
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
@@ -88,6 +90,43 @@ def test_bf16_matches_jax_flash(causal, head_dim):
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want, np.float32), rtol=BF16_TOL, atol=BF16_TOL
     )
+
+
+@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("causal", [False, True])
+def test_f16_matches_jax_flash(causal, head_dim):
+    """f16, inside the envelope (the wgmma kernel built as f16): the
+    dispatcher takes the kernel's wrapper, its plain version on the CPU,
+    against JAX's Pallas kernel in interpret mode at f16, at the bf16 bar:
+    each side rounds P to f16 at other points of its blocking."""
+    q, k, v = _qkv(seq=128, head_dim=head_dim, seed=13)
+    tq, tk, tv = _torch(q, k, v, dtype=torch.float16)
+    assert flash_attention_supported(tq)
+    want = jax_flash_attention(
+        *_jax(q, k, v, dtype=jnp.float16), causal=causal, block_q=64, block_k=64
+    )
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=BF16_TOL, atol=BF16_TOL
+    )
+
+
+@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("causal", [False, True])
+def test_f16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
+    """The training forward's residual in f16: the output at the bf16 bar;
+    the logsumexp is fp32 on both sides, from the same f16 scores: 1e-4."""
+    q, k, v = (x.reshape(4, 128, head_dim)
+               for x in _qkv(batch=2, seq=128, heads=2, head_dim=head_dim, seed=17))
+    want_o, want_lse = _flash_bhsd(*_jax(q, k, v, dtype=jnp.float16), causal, 64, 64,
+                                   with_lse=True)
+    got_o, got_lse = flash_attention_kernel(*_torch(q, k, v, dtype=torch.float16), causal,
+                                            with_lse=True)
+    assert got_o.dtype == torch.float16 and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_o.float().numpy(), np.asarray(want_o, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("head_dim", [64, 128, 256], ids=lambda d: f"d{d}")
@@ -124,11 +163,12 @@ def test_envelope():
     assert flash_shape_supported(512, 128, bf16)  # the serve prefill's shape
     assert flash_shape_supported(192, 64, bf16)
     assert flash_shape_supported(64, 128, bf16, block_q=24, block_k=24)  # blocks change nothing
-    assert not flash_shape_supported(512, 128, torch.float32)  # the kernel is bf16
+    # the kernels take bf16, f16 (wgmma) and f32 (FFMA) at every head_dim
+    for dtype in (bf16, torch.float16, torch.float32):
+        assert all(flash_shape_supported(512, d, dtype) for d in (64, 128, 256))
+    assert not flash_shape_supported(512, 128, torch.float64)  # no kernel of that dtype
     # head_dim 256 (D_MODEL=2048 N_HEADS=8) at every positive multiple of the tile
     assert all(flash_shape_supported(64 * n, 256, bf16) for n in range(1, 385))
-    assert not flash_shape_supported(512, 256, torch.float32)
-    assert not flash_shape_supported(512, 256, torch.float16)
     assert not flash_shape_supported(512, 384, bf16)  # past the kernels' widths: ROADMAP
     assert not flash_shape_supported(512, 512, bf16)
     assert not flash_shape_supported(512, 16, bf16)
@@ -207,9 +247,82 @@ def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, head_dim, wan
 
 def test_forward_instantiations_by_head_dim():
     """Two tilings at head_dim 64 and 128, one at 256 (a 64-row tile is 32
-    KB: two warpgroups' ring and hand-over pass an SM's shared memory)."""
+    KB: two warpgroups' ring and hand-over pass an SM's shared memory), in
+    bf16 and f16 alike (one source, two builds); the f32 kernel has one
+    tiling at every head_dim, so its split is 1 whatever the grid."""
     assert fa.HEAD_DIMS == (64, 128, 256)
-    assert [fa.fwd_splits(d) for d in fa.HEAD_DIMS] == [(1, 2), (1, 2), (1,)]
+    for dtype in (torch.bfloat16, torch.float16):
+        assert [fa.fwd_splits(d, dtype) for d in fa.HEAD_DIMS] == [(1, 2), (1, 2), (1,)]
+    assert [fa.fwd_splits(d, torch.float32) for d in fa.HEAD_DIMS] == [(1,), (1,), (1,)]
+    assert fa.fwd_split(4, 2048, 132, 128, torch.float32) == 1
+    assert fa.fwd_split(4, 2048, 132, 128, torch.float16) == 2
+
+
+def test_each_dtype_builds_a_library_of_its_own(monkeypatch):
+    """bf16 and f16 build the wgmma source, f16 with ELEM_F16; f32 builds
+    the FFMA source; each into a library named for its dtype, with the
+    headers its source includes."""
+    calls = []
+    monkeypatch.setattr(fa, "build_shared", lambda *args: calls.append(args))
+    monkeypatch.setattr(fa, "nvcc", lambda: "nvcc")
+    for lib in (fa._FWD, fa._BWD):
+        for dtype in fa.DTYPES:
+            lib.build(dtype)
+    names = [name for name, *_ in calls]
+    assert names == ["libflash_attention_bf16.so", "libflash_attention_f16.so",
+                     "libflash_attention_f32.so", "libflash_attention_bwd_bf16.so",
+                     "libflash_attention_bwd_f16.so", "libflash_attention_bwd_f32.so"]
+    sources = [srcs[0] for _, srcs, *_ in calls]
+    assert sources == [fa.SOURCE, fa.SOURCE, fa.F32_SOURCE,
+                       fa.BWD_SOURCE, fa.BWD_SOURCE, fa.BWD_F32_SOURCE]
+    assert ["-DELEM_F16" in cmd for _, _, cmd, _ in calls] == [False, True, False] * 2
+    assert [hdrs for *_, hdrs in calls] == [fa.HEADERS, fa.HEADERS, fa.F32_HEADERS] * 2
+
+
+def test_f32_sources_are_ffma_with_every_head_dim():
+    """The f32 forward and backward multiply on the CUDA cores (no wgmma, TMA
+    or mbarrier), include only the FFMA tile header, and opt in and launch
+    every head_dim of each kernel."""
+    for source, launched in ((fa.F32_SOURCE, ("launch<{d}>(",)),
+                             (fa.BWD_F32_SOURCE, ("launch<{d}, true>(", "launch<{d}, false>("))):
+        code = "\n".join(line.split("//")[0] for line in source.read_text().splitlines())
+        for gone in ("wgmma", "tma_load", "mbar_", "hopper_ptx"):
+            assert gone not in code, (source.name, gone)
+        assert "fmaf(" in (fa.CSRC / "ffma_tiles.cuh").read_text()
+        included = set(re.findall(r'#include "([^"]+)"', code))
+        assert {fa.CSRC / name for name in included} == set(fa.F32_HEADERS)
+        for d in fa.HEAD_DIMS:
+            assert all(form.format(d=d) in code for form in launched), (source.name, d)
+            assert f"opt_in<{d}>()" in code or f"opt_in_both<{d}>()" in code
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor in a check that reads only its
+    attributes: a CUDA tensor cannot be made on this host."""
+
+    def __init__(self, dtype, shape=(1, 128, 2, 128)):
+        self.dtype, self.shape, self.ndim, self.is_cuda = dtype, shape, len(shape), True
+        self.device = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32], ids=str)
+def test_a_cuda_operand_of_another_dtype_raises(dtype):
+    """On a CUDA tensor of a dtype no kernel takes, the wrappers' check
+    raises; nothing falls back to the plain version."""
+    with pytest.raises(TypeError, match="operands of one of"):
+        fa._check("flash_attention_kernel", (_FakeCuda(dtype),) * 3)
+    mixed = (_FakeCuda(torch.float16), _FakeCuda(torch.float32), _FakeCuda(torch.float16))
+    with pytest.raises(TypeError, match="operands of one of"):
+        fa._check("flash_attention_kernel", mixed)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16, torch.float32], ids=str)
+def test_cpu_path_takes_the_plain_version_in_every_dtype(dtype):
+    q, k, v = _torch(*_qkv(seq=64, head_dim=64), dtype=dtype)
+    before = dict(flash_attention_kernel.launches_by_dtype)
+    got = flash_attention_kernel(q, k, v, True)
+    assert got.dtype == dtype and flash_attention_kernel.launches_by_dtype == before
+    assert torch.equal(got, flash_attention_reference(q, k, v, True))
 
 
 def _assert_wgmma_fed_by_tma(source, used: tuple[str, ...]) -> None:
@@ -231,8 +344,8 @@ def test_forward_source_is_wgmma_fed_by_tma():
     headers it includes rebuild it.  Every instantiation, d256's among them,
     is opted in and launched, on the same wgmma products (P V at 256 as two
     of 128 columns)."""
-    _assert_wgmma_fed_by_tma(fa.SOURCE, ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16",
-                                         "wgmma_m64n64k16_rs_bf16", "tma_load_4d"))
+    _assert_wgmma_fed_by_tma(fa.SOURCE, ("wgmma_m64n64k16_ss", "wgmma_m64n128k16_rs",
+                                         "wgmma_m64n64k16_rs", "tma_load_4d"))
     code = fa.SOURCE.read_text()
     for d in fa.HEAD_DIMS:
         for split in fa.fwd_splits(d):
@@ -246,8 +359,8 @@ def test_backward_source_is_wgmma_fed_by_tma():
     loads Q, K, V and dO by 4-D TMA and lse and delta by 2-D TMA on
     mbarriers; no source or header of the kernels has an mma.sync, ldmatrix
     or cp.async left."""
-    _assert_wgmma_fed_by_tma(fa.BWD_SOURCE, ("wgmma_m64n64k16_ss_bf16", "wgmma_m64n128k16_rs_bf16",
-                                             "wgmma_m64n64k16_rs_bf16", "tma_load_4d",
+    _assert_wgmma_fed_by_tma(fa.BWD_SOURCE, ("wgmma_m64n64k16_ss", "wgmma_m64n128k16_rs",
+                                             "wgmma_m64n64k16_rs", "tma_load_4d",
                                              "tma_load_2d", "setmaxnreg_inc"))
     code = fa.BWD_SOURCE.read_text()
     for d in fa.HEAD_DIMS:  # both kernels at every head_dim, 256's too

@@ -136,6 +136,52 @@ def test_bf16_dispatcher_gradients_match_jax_vjp(causal, head_dim):
         _close(g, w, name, tol=BF16_TOL)
 
 
+@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("causal", [False, True])
+def test_f16_dispatcher_gradients_match_jax_vjp(causal, head_dim):
+    """f16 inside the envelope (the wgmma kernels built as f16), head_dim
+    128 and 256: ``flash_attention`` takes the Function, and its gradients
+    lie within the bf16 bar of JAX's VJP through its Pallas kernels at f16,
+    each side rounding dS and P to f16 at its own points."""
+    q, k, v, do = _arrays((1, 128, 2, head_dim), 4, seed=31 + causal)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.float16) for x in (q, k, v))
+    _, vjp = jax.vjp(
+        lambda q, k, v: jax_flash_attention(q, k, v, causal=causal, block_q=64, block_k=64),
+        jq, jk, jv,
+    )
+    want = vjp(jnp.asarray(do).astype(jnp.float16))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.float16).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(do).to(torch.float16))
+    for name, g, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), want, strict=True):
+        assert g.dtype == torch.float16
+        _close(g, w, name, tol=BF16_TOL)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_dispatcher_gradients_match_jax_vjp(causal, head_dim):
+    """f32 inside the envelope (the FFMA kernels): ``flash_attention`` takes
+    the Function, where it took ``reference_attention`` while the kernels
+    were bf16 only, and its gradients lie within JAX's f32 gradient bar of
+    JAX's VJP through its Pallas kernels."""
+    q, k, v, do = _arrays((1, 128, 2, head_dim), 4, seed=41 + causal)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    _, vjp = jax.vjp(
+        lambda q, k, v: jax_flash_attention(q, k, v, causal=causal, block_q=64, block_k=64),
+        jq, jk, jv,
+    )
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.backward(torch.from_numpy(do))
+    for name, g, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), want, strict=True):
+        assert g.dtype == torch.float32
+        _close(g, w, name)
+
+
 def test_forward_asks_for_the_logsumexp_only_when_a_gradient_is_needed(monkeypatch):
     calls = []
     real = fa.flash_attention_kernel

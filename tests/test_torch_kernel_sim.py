@@ -1,20 +1,24 @@
 """The CUDA sources of the flash-attention kernels (forward and backward) and
-of the GEMM, run on the CPU.
+of the GEMM, run on the CPU: the wgmma sources built as bf16 and as f16
+(``ELEM_F16``), and the f32 sources (FFMA), each into a library of its own.
 
 The sources compile as C++ against a lockstep simulator of the CUDA features
 they use (tools/warpsim: one host thread per CUDA thread; shuffles exchanged
 at a barrier of the warp, wgmma at a barrier of the warpgroup, in the
-layouts of the PTX ISA; mbarriers as shared state under a lock; a TMA load
-of bf16 or fp32 as a swizzled or plain, zero-filled copy that completes its
-barrier's bytes; shared-memory addresses checked for alignment and bounds).
-The simulator replaces only the PTX layer (csrc/hopper_ptx.cuh); the kernels,
-csrc/smem_desc.cuh and csrc/tensor_map.cuh compile as they are.  So their
-tiling, fragment and descriptor layouts, causal bounds, strided addressing,
-barrier phases and the GEMM's persistent tile order are held against the
-plain versions here, at small shapes, with chip_smoke.py's bars:
-outputs within 0.02 absolute (the forward's bar), the logsumexp within 1e-4,
-gradients within 2e-3 + 2^-6 of their value, the GEMM within 1e-2 + 2^-6 of
-its value.  What it cannot show: speed; a wgmma read before its wait
+layouts of the PTX ISA, reading bf16 or f16 operands; mbarriers as shared
+state under a lock; a TMA load of bf16, f16 or fp32 as a swizzled or plain,
+zero-filled copy that completes its barrier's bytes; shared-memory
+addresses checked for alignment and bounds).  The simulator replaces only
+the PTX layer (csrc/hopper_ptx.cuh); the kernels, csrc/elem.cuh,
+csrc/smem_desc.cuh, csrc/tensor_map.cuh and csrc/ffma_tiles.cuh compile as
+they are.  So their tiling, fragment and descriptor layouts, causal bounds,
+strided addressing, barrier phases and the GEMM's persistent tile order are
+held against the plain versions here, at small shapes, with chip_smoke.py's
+bars: in bf16 and f16 outputs within 0.02 absolute (the forward's bar), the
+logsumexp within 1e-4, gradients within 2e-3 + 2^-6 of their value, the
+GEMM within 1e-2 + 2^-6 of its value; in f32 the JAX package's f32 bars,
+2e-3 (forward), 2e-4 (gradients) and 1e-3 (GEMM), each absolute plus that
+much of the value.  What it cannot show: speed; a wgmma read before its wait
 (copies and products land at once); what nvcc refuses; and a hardware
 layout (a descriptor's offsets, the swizzle, the accumulator fragment) that
 the simulator and the kernel misread the same way.  chip_smoke.py's parity
@@ -47,11 +51,22 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "k8s_gpu_hpa_tpu_torch" / "ops" / "csrc"
 SIM = REPO / "tools" / "warpsim"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "matmul.cu")
-# chip_smoke.py's bar for the gradients: BWD_ATOL + BWD_RTOL * |value|
-GRAD_ATOL, GRAD_RTOL = 2e-3, 2.0**-6
-# and for the GEMM: ATOL + RTOL * |value|
-GEMM_ATOL, GEMM_RTOL = 1e-2, 2.0**-6
+#: the sources of each library: the wgmma ones build as bf16 and as f16
+SOURCES = {
+    "bf16": ("flash_attention.cu", "flash_attention_bwd.cu", "matmul.cu"),
+    "f16": ("flash_attention.cu", "flash_attention_bwd.cu", "matmul.cu"),
+    "f32": ("flash_attention_f32.cu", "flash_attention_bwd_f32.cu", "matmul_f32.cu"),
+}
+#: the headers the kernels include that compile as they are
+HEADERS = ("elem.cuh", "smem_desc.cuh", "tensor_map.cuh", "ffma_tiles.cuh")
+DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+# chip_smoke.py's bar for the gradients: BWD_ATOL + BWD_RTOL * |value|, in
+# bf16 and f16; in f32 the JAX package's 2e-4 + 2e-4 |value|
+GRAD_BARS = {"bf16": (2e-3, 2.0**-6), "f16": (2e-3, 2.0**-6), "f32": (2e-4, 2e-4)}
+# and for the GEMM: ATOL + RTOL * |value|; in f32 JAX's 1e-3 + 1e-3 |value|
+GEMM_BARS = {"bf16": (1e-2, 2.0**-6), "f16": (1e-2, 2.0**-6), "f32": (1e-3, 1e-3)}
+# and for the forward's output: 0.02 absolute; in f32 JAX's 2e-3 + 2e-3 |value|
+OUT_BARS = {"bf16": (0.02, 0.0), "f16": (0.02, 0.0), "f32": (2e-3, 2e-3)}
 
 # (batch, seq, heads, head_dim, causal, the forward's consumer warpgroups a
 # CTA): head_dim 64 causal on one warpgroup; head_dim 128 not causal split
@@ -78,6 +93,19 @@ SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 128, 0, 2), (2, 192, 3, 128, 1, 1),
 # on into the block's next tile); and 17x1 tiles, past one group of 16 tile
 # rows, eight or nine tiles a block
 GEMM_SHAPES = [(128, 128, 128), (256, 640, 384), (2176, 128, 256)]
+# f16, the wgmma sources built with ELEM_F16: every instantiation once (the
+# forward at head_dim 64 and 128 on one and on two warpgroups, 256 on one;
+# both backward kernels at each head_dim), causal and not, several heads
+# and batches, seq 192 whose dK/dV loops start at the diagonal
+F16_SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 64, 0, 2), (2, 192, 3, 128, 1, 1),
+              (1, 192, 2, 128, 1, 2), (2, 192, 3, 256, 1, 1)]
+F16_GEMM_SHAPES = [(128, 128, 128), (256, 640, 384)]
+# f32, the FFMA sources, one tiling (kv_split 1): each head_dim causal and
+# not; at 256 the streamed tiles are 32 rows, so two cross the diagonal
+F32_SHAPES = [(1, 128, 2, 64, 1, 1), (2, 192, 1, 64, 0, 1), (2, 192, 3, 128, 1, 1),
+              (1, 128, 2, 128, 0, 1), (1, 192, 2, 256, 1, 1), (2, 128, 1, 256, 0, 1)]
+# one tile; 2x3 tiles over 80 K steps of 8, the two stages alternating
+F32_GEMM_SHAPES = [(128, 128, 128), (256, 640, 384)]
 
 
 def _simulated(text: str) -> str:
@@ -88,23 +116,25 @@ def _simulated(text: str) -> str:
     return "\n".join(ln for ln in text.splitlines() if "extern __shared__" not in ln)
 
 
-def _build(out: Path, edit=lambda name, text: text) -> Path:
+def _build(out: Path, edit=lambda name, text: text, dtype: str = "bf16") -> Path:
+    """The library of ``dtype``'s sources (``SOURCES``) in ``out``; f16
+    builds the wgmma sources with ``ELEM_F16``, as ops/*.py do for nvcc."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found")
     # the simulator's PTX layer beside the kernels' own headers over it
-    for f in (*SIM.iterdir(), CSRC / "smem_desc.cuh", CSRC / "tensor_map.cuh"):
+    for f in (*SIM.iterdir(), *(CSRC / name for name in HEADERS)):
         shutil.copy(f, out / f.name)
     units = [out / "sim.cc"]
-    for name in SOURCES:
+    for name in SOURCES[dtype]:
         unit = out / name.replace(".cu", ".cc")
         unit.write_text(_simulated(edit(name, (CSRC / name).read_text())))
         units.append(unit)
-    lib = out / "libsim.so"
+    lib = out / f"libsim_{dtype}.so"
     subprocess.run(
-        # pack_bf16 reads a bf16 pair through a uint32_t pointer, as nvcc allows
+        # pack_pair reads an element pair through a uint32_t pointer, as nvcc allows
         [gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-         "-fno-strict-aliasing",
+         "-fno-strict-aliasing", *(["-DELEM_F16"] if dtype == "f16" else []),
          f"-I{out}", "-o", str(lib), *map(str, units)],
         check=True, capture_output=True, text=True, timeout=300,
     )
@@ -121,9 +151,9 @@ def _two_cores() -> None:
     os.setpriority(os.PRIO_PROCESS, 0, PORT_NICE)
 
 
-def _run(lib: Path, shape, kernel: str = "flash") -> dict:
+def _run(lib: Path, shape, kernel: str = "flash", dtype: str = "bf16") -> dict:
     proc = subprocess.run(
-        [sys.executable, __file__, str(lib), kernel, *map(str, shape)],
+        [sys.executable, __file__, str(lib), kernel, dtype, *map(str, shape)],
         cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
         capture_output=True, text=True, timeout=300,
         preexec_fn=_two_cores if hasattr(os, "sched_setaffinity") else None,
@@ -133,25 +163,28 @@ def _run(lib: Path, shape, kernel: str = "flash") -> dict:
 
 
 def _simulate(
-    lib_path: str, b: int, s: int, h: int, d: int, causal: int, kv_split: int
+    lib_path: str, dtype: str, b: int, s: int, h: int, d: int, causal: int, kv_split: int
 ) -> dict:
-    """The simulated kernels on CPU tensors at one shape: their largest
-    differences from the plain versions.  Inputs are views of one fused QKV
-    product, as the transformer hands them over, made from a numpy seed; the
-    backward kernels take the simulated forward's output and logsumexp, as
-    chip_smoke.py feeds them the card's."""
+    """The simulated kernels of ``dtype`` on CPU tensors at one shape: their
+    largest differences from the plain versions.  Inputs are views of one
+    fused QKV product, as the transformer hands them over, made from a numpy
+    seed; the backward kernels take the simulated forward's output and
+    logsumexp, as chip_smoke.py feeds them the card's."""
+    dt = DTYPES[dtype]
+    out_atol, out_rtol = OUT_BARS[dtype]
+    grad_atol, grad_rtol = GRAD_BARS[dtype]
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in {**fa._FWD.entries, **fa._BWD.entries}.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     rng = np.random.default_rng(s * 7 + h + causal)
-    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d), dtype=np.float32)).bfloat16()
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d), dtype=np.float32)).to(dt)
     q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-    do = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).bfloat16()
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(dt)
     tail = (b, h, s, d, causal, 1.0 / math.sqrt(d), 0, None)
 
     def unwritten():
-        return torch.full(q.shape, float("nan"), dtype=torch.bfloat16)
+        return torch.full(q.shape, float("nan"), dtype=dt)
 
     o, lse = unwritten(), torch.full((b * h, s, 1), float("nan"))
     assert lib.flash_attention_init(0) == 0
@@ -169,37 +202,60 @@ def _simulate(
     assert lib.flash_attention_bwd_dkv(*inputs, dk.data_ptr(), dv.data_ptr(), strides, *tail) == 0
     want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, bool(causal))
     # an element never written (NaN) lies outside every bar
-    out = {"o": float((o.float() - want_o.float()).abs().nan_to_num(math.inf).max()),
+    o_diff = (o.float() - want_o.float()).abs().nan_to_num(math.inf)
+    out = {"o": float(o_diff.max()),
+           "o_bar": float((o_diff / (out_atol + out_rtol * want_o.float().abs())).max()),
            "lse": float((lse - want_lse).abs().nan_to_num(math.inf).max())}
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         diff = (got.float() - ref.float()).abs().nan_to_num(math.inf)
         out[name] = float(diff.max())
-        out[name + "_bar"] = float((diff / (GRAD_ATOL + GRAD_RTOL * ref.float().abs())).max())
+        out[name + "_bar"] = float((diff / (grad_atol + grad_rtol * ref.float().abs())).max())
     return out
 
 
-def _simulate_gemm(lib_path: str, m: int, k: int, n: int) -> dict:
-    """The simulated GEMM on CPU tensors at one shape: its largest
-    difference from the plain version, and in units of the bar."""
+def _simulate_gemm(lib_path: str, dtype: str, m: int, k: int, n: int) -> dict:
+    """The simulated GEMM of ``dtype`` on CPU tensors at one shape: its
+    largest difference from the plain version, and in units of the bar."""
+    dt = DTYPES[dtype]
+    gemm_atol, gemm_rtol = GEMM_BARS[dtype]
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in mm.ENTRIES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     rng = np.random.default_rng(m + 3 * k + 7 * n)
-    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).bfloat16()
-    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).bfloat16()
-    c = torch.full((m, n), float("nan"), dtype=torch.bfloat16)
-    assert lib.matmul_bf16_init(0) == 0
-    assert lib.matmul_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, 0, None) == 0
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dt)
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(dt)
+    c = torch.full((m, n), float("nan"), dtype=dt)
+    assert lib.matmul_init(0) == 0
+    assert lib.matmul_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, 0, None) == 0
     want = mm.matmul_reference(a, b).float()
     diff = (c.float() - want).abs().nan_to_num(math.inf)
     return {"max_abs_err": float(diff.max()),
-            "bar": float((diff / (GEMM_ATOL + GEMM_RTOL * want.abs())).max())}
+            "bar": float((diff / (gemm_atol + gemm_rtol * want.abs())).max())}
 
 
 @pytest.fixture(scope="module")
 def sim_lib(tmp_path_factory) -> Path:
     return _build(tmp_path_factory.mktemp("warpsim"))
+
+
+@pytest.fixture(scope="module")
+def sim_libs(tmp_path_factory):
+    """The f16 and f32 libraries, each built at its first use."""
+    built = {}
+
+    def lib(dtype: str) -> Path:
+        if dtype not in built:
+            built[dtype] = _build(tmp_path_factory.mktemp(f"warpsim_{dtype}"), dtype=dtype)
+        return built[dtype]
+
+    return lib
+
+
+def _assert_within(err: dict, dtype: str) -> None:
+    assert err["o_bar"] <= 1.0 and err["lse"] <= 1e-4, (dtype, err)
+    for name in ("dq", "dk", "dv"):
+        assert err[name + "_bar"] <= 1.0, (dtype, name, err)
 
 
 # 64 Q rows a CTA ("q64"), on one or two warpgroups
@@ -214,6 +270,32 @@ def test_kernel_sources_match_the_plain_versions(sim_lib, shape):
 @pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "m{}k{}n{}".format(*s))
 def test_gemm_source_matches_the_plain_version(sim_lib, shape):
     err = _run(sim_lib, shape, "gemm")
+    assert err["bar"] <= 1.0, err
+
+
+@pytest.mark.parametrize("shape", F16_SHAPES, ids=lambda s: "b{}s{}h{}d{}c{}q64x{}".format(*s))
+def test_f16_kernel_sources_match_the_plain_versions(sim_libs, shape):
+    """The wgmma sources built as f16: f16 wgmma operands, f16 TMA boxes, and
+    P, dS and the outputs rounded to f16, held to the bf16 bars."""
+    _assert_within(_run(sim_libs("f16"), shape, dtype="f16"), "f16")
+
+
+@pytest.mark.parametrize("shape", F16_GEMM_SHAPES, ids=lambda s: "m{}k{}n{}".format(*s))
+def test_f16_gemm_source_matches_the_plain_version(sim_libs, shape):
+    err = _run(sim_libs("f16"), shape, "gemm", "f16")
+    assert err["bar"] <= 1.0, err
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "b{}s{}h{}d{}c{}".format(*s[:5]))
+def test_f32_kernel_sources_match_the_plain_versions(sim_libs, shape):
+    """The FFMA sources of the f32 forward, dQ and dK/dV, held to the JAX
+    package's f32 bars."""
+    _assert_within(_run(sim_libs("f32"), shape, dtype="f32"), "f32")
+
+
+@pytest.mark.parametrize("shape", F32_GEMM_SHAPES, ids=lambda s: "m{}k{}n{}".format(*s))
+def test_f32_gemm_source_matches_the_plain_version(sim_libs, shape):
+    err = _run(sim_libs("f32"), shape, "gemm", "f32")
     assert err["bar"] <= 1.0, err
 
 
@@ -276,7 +358,7 @@ def test_the_simulation_catches_k_read_k_major_in_dq(tmp_path):
         "  for (int kc = 0; kc < kBlk / kWgK; ++kc) {"
         "    const uint64_t k_desc = desc_k_major(sm.ring + stage_of(j) * C::kStageBytes"
         "                                         + kc * kWgK * 2);"
-        "    wgmma_m64n64k16_rs_bf16(dq, pds[kc], k_desc, 1);"
+        "    wgmma_m64n64k16_rs(dq, pds[kc], k_desc, 1);"
         "  }"
         "} else {"
         "  product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);"
@@ -286,21 +368,32 @@ def test_the_simulation_catches_k_read_k_major_in_dq(tmp_path):
     assert err["dq_bar"] > 1.0, err
 
 
+def test_the_simulation_catches_an_f32_mask_that_misses_the_diagonal(tmp_path):
+    """A planted fault: the f32 forward masking only tiles that start past
+    the CTA's first row, so at head_dim 64 the diagonal tile goes unmasked.
+    The output leaves its bar."""
+    right = "const bool crossing = p.causal && kv0 + T::kOther - 1 > q0;"
+    plant = _planted("flash_attention_f32.cu", right,
+                     right.replace("kv0 + T::kOther - 1 > q0", "kv0 > q0"))
+    err = _run(_build(tmp_path, plant, "f32"), (1, 128, 1, 64, 1, 1), dtype="f32")
+    assert err["o_bar"] > 1.0, err
+
+
 def test_the_simulation_catches_p_packed_in_swapped_order(tmp_path):
     """A planted fault: the forward packing each bf16 pair of P with its two
     keys swapped, so P V weighs each value row by its neighbour's
     probability.  The output leaves its bar; the logsumexp, which P's
     packing never reaches, stays right."""
 
-    plant = _planted("flash_attention.cu", "pk[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);",
-                     "pk[kc][0] = pack_bf16(s[8 * kc + 1], s[8 * kc + 0]);")
+    plant = _planted("flash_attention.cu", "pk[kc][0] = pack_pair(s[8 * kc + 0], s[8 * kc + 1]);",
+                     "pk[kc][0] = pack_pair(s[8 * kc + 1], s[8 * kc + 0]);")
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["lse"] <= 1e-4
     assert err["o"] > 0.02, err
 
 
 if __name__ == "__main__":
-    # python tests/test_torch_kernel_sim.py LIBSIM flash BATCH SEQ HEADS HEAD_DIM CAUSAL KV_SPLIT
-    # python tests/test_torch_kernel_sim.py LIBSIM gemm M K N
+    # python tests/test_torch_kernel_sim.py LIBSIM flash DTYPE BATCH SEQ HEADS HEAD_DIM CAUSAL KV_SPLIT
+    # python tests/test_torch_kernel_sim.py LIBSIM gemm DTYPE M K N
     simulate = {"flash": _simulate, "gemm": _simulate_gemm}[sys.argv[2]]
-    print(json.dumps(simulate(sys.argv[1], *(int(x) for x in sys.argv[3:]))))
+    print(json.dumps(simulate(sys.argv[1], sys.argv[3], *(int(x) for x in sys.argv[4:]))))

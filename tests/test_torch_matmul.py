@@ -14,6 +14,7 @@ import torch
 
 from k8s_gpu_hpa_tpu.ops.pallas_matmul import matmul as jax_matmul
 from k8s_gpu_hpa_tpu.ops.pallas_matmul import matmul_pallas
+from k8s_gpu_hpa_tpu_torch.ops import matmul as mm
 from k8s_gpu_hpa_tpu_torch.ops.matmul import matmul, matmul_kernel, matmul_reference
 from tests.test_torch_cores import confined_to_port_cores  # noqa: F401  (autouse)
 
@@ -64,6 +65,64 @@ def test_bf16_matches_pallas():
     got = matmul(a, b)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0**-7, atol=1e-3)
+
+
+def test_f16_matches_pallas():
+    """f16 in, f16 out, against JAX's ``matmul`` (the Pallas kernel, which
+    takes any dtype) at f16 on the same f16 values.  Both sides sum in fp32
+    and round once to f16: rtol 2^-10 is one f16 ulp at the bottom of a
+    binade, atol 1e-3 covers values near zero."""
+    a32, b32 = _operands(256, 384, 128, seed=4)
+    a = torch.from_numpy(a32).to(torch.float16)
+    b = torch.from_numpy(b32).to(torch.float16)
+    want = np.asarray(jax_matmul(jnp.asarray(a.float().numpy()).astype(jnp.float16),
+                                 jnp.asarray(b.float().numpy()).astype(jnp.float16))
+                      .astype(jnp.float32))
+    got = matmul(a, b)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0**-10, atol=1e-3)
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor in a check that reads only its
+    attributes: a CUDA tensor cannot be made on this host."""
+
+    def __init__(self, dtype, shape=(128, 128)):
+        self.dtype, self.shape, self.ndim, self.is_cuda = dtype, shape, len(shape), True
+        self.device = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32], ids=str)
+def test_a_cuda_operand_of_another_dtype_raises(dtype):
+    """The GEMM's kernels take bf16, f16 and f32; a CUDA operand of another
+    dtype, or two of different dtypes, raises and falls back to nothing."""
+    with pytest.raises(TypeError, match="operands of one of"):
+        mm._check(_FakeCuda(dtype), _FakeCuda(dtype))
+    with pytest.raises(TypeError, match="operands of one of"):
+        mm._check(_FakeCuda(torch.float16), _FakeCuda(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16, torch.bfloat16], ids=str)
+def test_cpu_path_takes_the_plain_version_in_every_dtype(dtype):
+    a, b = (torch.from_numpy(x).to(dtype) for x in _operands(128, 128, 256, seed=5))
+    before = dict(matmul_kernel.launches_by_dtype)
+    got = matmul_kernel(a, b)
+    assert got.dtype == dtype and matmul_kernel.launches_by_dtype == before
+    assert torch.equal(got, matmul_reference(a, b))
+
+
+def test_each_dtype_builds_a_library_of_its_own(monkeypatch):
+    """bf16 and f16 build the wgmma source, f16 with ELEM_F16; f32 the FFMA
+    source; each into a library named for its dtype."""
+    calls = []
+    monkeypatch.setattr(mm, "build_shared", lambda *args: calls.append(args))
+    monkeypatch.setattr(mm, "nvcc", lambda: "nvcc")
+    for dtype in mm.DTYPES:
+        mm.build(dtype)
+    assert [c[0] for c in calls] == ["libmatmul_bf16.so", "libmatmul_f16.so", "libmatmul_f32.so"]
+    assert [c[1] for c in calls] == [[mm.SOURCE], [mm.SOURCE], [mm.F32_SOURCE]]
+    assert ["-DELEM_F16" in c[2] for c in calls] == [False, True, False]
+    assert [c[3] for c in calls] == [mm.HEADERS, mm.HEADERS, ()]
 
 
 def test_unaligned_dispatch_matches_jax():

@@ -124,9 +124,10 @@ def test_train_attn_fn_branches_and_refuses_unknown_impls():
     # head_dim 32 lies off the envelope: a ring of one takes the ring too
     cfg32 = pt.TransformerConfig(d_model=128, n_heads=4, max_seq=128)
     assert _branch(pt._train_attn_fn(cfg32, "data", 1, 128, "auto"), cfg32) == "ring"
-    # f32 lies off the port's envelope (bf16 only)
-    cfg_f32 = pt.TransformerConfig(d_model=128, n_heads=1, max_seq=128, dtype=torch.float32)
-    assert _branch(pt._train_attn_fn(cfg_f32, "data", 1, 128, "auto"), cfg_f32) == "ring"
+    # f32 and f16 lie inside the port's envelope (their own kernels), as in JAX
+    for dtype in (torch.float32, torch.float16):
+        cfg_dt = pt.TransformerConfig(d_model=128, n_heads=1, max_seq=128, dtype=dtype)
+        assert _branch(pt._train_attn_fn(cfg_dt, "data", 1, 128, "auto"), cfg_dt) == "flash"
     # a ring of two takes the ring path, which needs the ring's group
     with pytest.raises(TypeError, match="through its process group"):
         _branch(pt._train_attn_fn(cfg, "data", 2, 128, "auto"), cfg)
@@ -179,6 +180,43 @@ def test_f32_train_step_matches_jax_and_the_loss_falls():
         got_params, loss = pstep(got_params, ttokens)
         losses.append(float(loss))
     assert losses[-1] < losses[0] * 0.7, losses
+
+
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+def test_f32_flash_step_matches_jax(monkeypatch, sizes):
+    """The slice in f32 inside both flash envelopes (head_dim 128 or 256,
+    seq 128), from the JAX weights carried over: the port's training step
+    runs its flash branch (the kernels' plain versions on the CPU: the
+    forward twice a layer with the logsumexp, the backward once), where it
+    took the ring while the kernels were bf16 only, and JAX's takes its
+    Pallas kernels in interpret mode.  The loss and every updated leaf agree
+    at the f32 bar, 2e-4."""
+    jcfg, pcfg, params, ported = _models(sizes, jnp.float32, torch.float32)
+    tokens = _tokens(jcfg, batch=1)
+    want_params, want = jt.make_train_step(make_mesh(n_devices=1), jcfg, lr=0.5)(
+        params, jnp.asarray(tokens))
+    calls = {"fwd_lse": 0, "bwd": 0}
+    fwd, bwd = fa.flash_attention_kernel, fa.flash_attention_bwd_kernel
+
+    def fwd_spy(q, k, v, causal, with_lse=False):
+        calls["fwd_lse"] += with_lse
+        return fwd(q, k, v, causal, with_lse)
+
+    def bwd_spy(*args):
+        calls["bwd"] += 1
+        return bwd(*args)
+
+    monkeypatch.setattr(fa, "flash_attention_kernel", fwd_spy)
+    monkeypatch.setattr(fa, "flash_attention_bwd_kernel", bwd_spy)
+    got_params, got = pt.make_train_step(pcfg, lr=0.5)(ported, torch.from_numpy(tokens).long())
+    assert calls == {"fwd_lse": 2 * pcfg.n_layers, "bwd": pcfg.n_layers}
+    _close(float(got), float(want), F32_TOL, "loss")
+    want_np = jax.tree.map(lambda x: np.asarray(x, np.float32), want_params)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(pt.params_to_numpy(got_params)):
+        ref = want_np
+        for key in path:
+            ref = ref[key.key if hasattr(key, "key") else key.idx]
+        _close(leaf, ref, F32_TOL, jax.tree_util.keystr(path))
 
 
 def test_loss_is_finite_and_near_uniform_at_init():

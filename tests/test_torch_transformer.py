@@ -157,6 +157,35 @@ def test_bf16_prefill_inside_the_flash_envelope_matches_jax_and_stepwise_decode(
     )
 
 
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+def test_f32_prefill_inside_the_flash_envelope_matches_jax(monkeypatch, sizes):
+    """The serving slice in f32 inside the flash envelope (2 heads of 128 or
+    of 256, a 64-token prompt), from the JAX weights carried over: the
+    prefill takes the kernel's wrapper once a layer (its plain version on
+    the CPU), where it took ``reference_attention`` while the kernels were
+    bf16 only, and JAX's prefill its Pallas kernel in interpret mode.  The
+    logits and the cache agree at the f32 bar, 2e-4."""
+    from k8s_gpu_hpa_tpu_torch.ops import flash_attention as fa
+
+    jcfg, pcfg, params, ported = _models(sizes, jnp.float32, torch.float32)
+    assert flash_shape_supported(64, pcfg.head_dim, pcfg.dtype)
+    calls = []
+    kernel = fa.flash_attention_kernel
+    monkeypatch.setattr(fa, "flash_attention_kernel",
+                        lambda *args, **kw: calls.append(1) or kernel(*args, **kw))
+    prompt = _prompt(2, 64)
+    want_logits, want_cache = _jax_prefill(params, jcfg, prompt)
+    got_logits, cache = pt.prefill(
+        ported, pcfg, torch.from_numpy(prompt).long(), pt.init_kv_cache(pcfg, 2)
+    )
+    assert len(calls) == pcfg.n_layers
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits), rtol=F32_TOL, atol=F32_TOL)
+    for side in ("k", "v"):
+        np.testing.assert_allclose(
+            _jax_layout(cache[side]), np.asarray(want_cache[side]), rtol=F32_TOL, atol=F32_TOL
+        )
+
+
 @pytest.mark.parametrize("pos", [0, 7])
 def test_bf16_decode_step_matches_jax(pos):
     jcfg, pcfg, params, ported = _models(SMALL, jnp.bfloat16, torch.bfloat16)

@@ -8,7 +8,7 @@
 //
 // This header stands in for <cuda_bf16.h> and carries the rest of the
 // device environment: the qualifiers, threadIdx/blockIdx/gridDim, float2,
-// and bf16 with round-to-nearest-even.
+// float4, and bf16 with round-to-nearest-even (cuda_fp16.h adds f16).
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -49,6 +49,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 
 struct uint3 { unsigned x, y, z; };
 struct float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}

@@ -8,7 +8,7 @@
 //   arrivals and its transaction bytes are all in, and a wait blocks until
 //   the phase of the parity it names has completed (the PTX ISA's
 //   try_wait.parity).  A wait that lasts 20 s fails as a deadlock.
-// - A TMA load copies its box of bf16 or fp32 at once, zero wherever one of
+// - A TMA load copies its box of bf16, f16 or fp32 at once, zero wherever one of
 //   its coordinates leaves the tensor's extent in that dimension, into
 //   shared memory under the 128-byte swizzle or none, as its tensor map
 //   says, and completes its bytes on the barrier.
@@ -29,6 +29,7 @@
 
 #include "cuda.h"
 #include "cuda_bf16.h"
+#include "elem.cuh"
 
 namespace {
 
@@ -169,12 +170,21 @@ inline SimDesc sim_desc(uint64_t d) {
           static_cast<uint32_t>((d >> 32) & 0x3FFF) << 4};
 }
 
+// an operand's 16 bits as the type the build's wgmma reads (elem.cuh)
+inline float sim_elem2f(uint16_t h) {
+#if defined(ELEM_F16)
+  return sim_h2f(h);
+#else
+  return sim_bf2f(h);
+#endif
+}
+
 inline float sim_operand(uint32_t addr) {
   const uint32_t at = sim_swizzle128(addr);
   if (at + 2 > sim.smem_bytes) sim_fail("wgmma operand outside shared memory", smem_raw + at);
   uint16_t h;
   std::memcpy(&h, smem_raw + at, 2);
-  return sim_bf2f(h);
+  return sim_elem2f(h);
 }
 
 // K-major under the 128-byte swizzle: row r of the tile is 128 bytes of K at
@@ -216,7 +226,7 @@ inline void sim_wgmma(float (&d)[N / 2], uint64_t desc_a, const uint32_t* a_regs
         // in register (r % 16) / 8 + 2 (k / 8), half k % 2
         const uint32_t reg =
             sim.wgmma_a[wg][32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16) / 8 + 2 * (k / 8)];
-        arow[h][k] = sim_bf2f(static_cast<uint16_t>(k % 2 ? reg >> 16 : reg & 0xffffu));
+        arow[h][k] = sim_elem2f(static_cast<uint16_t>(k % 2 ? reg >> 16 : reg & 0xffffu));
       } else {
         arow[h][k] = sim_operand(sim_k_major(sim_desc(desc_a), row, k));
       }
@@ -240,22 +250,22 @@ inline void sim_wgmma(float (&d)[N / 2], uint64_t desc_a, const uint32_t* a_regs
   sim.warpgroups[wg]->arrive_and_wait();
 }
 
-inline void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+inline void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                   int scale_d) {
   sim_wgmma<256>(d, desc_a, nullptr, desc_b, true, scale_d);
 }
 
-inline void wgmma_m64n64k16_ss_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+inline void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                     int scale_d) {
   sim_wgmma<64>(d, desc_a, nullptr, desc_b, false, scale_d);
 }
 
-inline void wgmma_m64n64k16_rs_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+inline void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
                                     int scale_d) {
   sim_wgmma<64>(d, 0, a, desc_b, true, scale_d);
 }
 
-inline void wgmma_m64n128k16_rs_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+inline void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
                                      int scale_d) {
   sim_wgmma<128>(d, 0, a, desc_b, true, scale_d);
 }
