@@ -20,11 +20,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    and its shared memory beside ptxas's report; the flash
                    forward's registers and spills for each instantiation
                    (head_dim 64 and 128 by one or two consumer warpgroups,
-                   256 by one) beside its threads, stages, CTAs an SM and
-                   shared memory, and the backward's (dQ and dK/dV at
-                   head_dim 64, 128 and 256) beside its threads, stages,
-                   shared memory and setmaxnreg counts, in bf16 and in
-                   f16; the f32 kernels' registers and spills beside their
+                   256, 384 and 512 by one) beside its threads, stages,
+                   CTAs an SM, shared memory, chunks and K/V rows, and the
+                   backward's (dQ and dK/dV at head_dim 64 to 512) beside
+                   its threads, stages, shared memory, setmaxnreg counts,
+                   chunks and streamed rows, in bf16 and in f16; the f32
+                   kernels' registers and spills beside their
                    configuration.
 3. parity        — the GEMM against its plain PyTorch version at six shapes,
                    among them N = 128 mod 256 and K = 128, in bf16, f16
@@ -85,9 +86,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    0.02 absolute and its error's RMS within a bar of its
                    own; then f16 at the same bars and f32 at the JAX
                    package's (2e-3) at the prefill, training, head_dim 64
-                   and 256 shapes; off-envelope operands (f64 and head_dim
-                   384 among them), an unknown split and two warpgroups at
-                   head_dim 256 or in f32 must raise.
+                   and 256 shapes; then the chunked tilings at head_dim 384
+                   and 512 in bf16 and f16: the prefill (b8 s512 h4, bf16),
+                   the training shape (b1 s2048 h4) with the logsumexp,
+                   seq 192 causal and not, and 20 K/V tiles (seq 640);
+                   off-envelope operands (f64, head_dim 640 and f32 at 512
+                   among them), an unknown split and two warpgroups past
+                   head_dim 128 or in f32 must raise.
 11. flash_timing — the flash kernel at the prefill's shape, at the llm
                    training shape with the logsumexp on fused-QKV views (as
                    the transformer calls it), at a long one, and at head_dim
@@ -98,7 +103,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    each consumer-warpgroup tiling of its head_dim; then the
                    prefill and training shapes at head_dim 128 and 256 in
                    f16 and f32, the bound at the dtype's peak, SDPA in the
-                   dtype.
+                   dtype; and at head_dim 384 and 512 the prefill (b8 s512
+                   h4) and the training shape (b1 s2048 h4) in bf16, the
+                   training shape in f16 (SDPA's efficient backend there:
+                   cuDNN's stops at 256).
 11b. dwell       — bench.py's two rate blocks through utils/dwell.py:
                    trial.measure_attention_rates() (the flash forward and
                    reference_attention, each one CUDA graph of 400 causal
@@ -130,16 +138,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    2048-wide model (b1 s2048 h8) causal and not and seq
                    192, on views of one fused QKV product; in f16 at the
                    same bars and in f32 at the JAX package's (2e-4) at
-                   those shapes and seq 192 not causal; the autograd
-                   Function's gradients against autograd through the plain
-                   forward at the llm shape, in bf16 and in f32;
-                   off-envelope operands (f64 among them) must raise.
+                   those shapes and seq 192 not causal; at head_dim 384 and
+                   512 in bf16 and f16 the llm shape of 4 heads causal and
+                   not, seq 192 causal and not and 20 streamed tiles (seq
+                   640); the autograd Function's gradients against autograd
+                   through the plain forward at the llm shape, in bf16 and
+                   in f32; off-envelope operands (f64, head_dim 640 and f32
+                   at 512 among them) must raise.
 17. flash_bwd_timing — both backward kernels (and the training forward) at the
                    llm shape, at a long one and at the llm shape at head_dim
                    256, beside their bounds, their plain versions and
                    scaled_dot_product_attention's backward (a yardstick the
                    port never calls; its backend named); the llm shape and
-                   its head_dim 256 in f16 and f32 too.
+                   its head_dim 256 in f16 and f32 too, and the llm shape at
+                   head_dim 384 and 512 (4 heads) in bf16 and f16.
 18. llm_parity   — at full width, from the same weights and tokens, the
                    loss's gradients with attn_impl "auto" and with "ring"
                    agree leaf by leaf; then one LlmLoadGen step of each: the
@@ -158,7 +170,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    LlmLoadGen at that width auto against ring (the loss
                    within 0.05, each leaf's gradient within 5% of norm,
                    exact launches), then five auto steps: step ms, tokens/s,
-                   the forward, dQ and dK/dV launches.
+                   the forward, dQ and dK/dV launches; reference_attention
+                   counted (none).
+20bb. head_wide  — the same at head_dim 512 and 384, the serving
+                   container's sizes at D_MODEL=2048 and 1536 in N_HEADS=4,
+                   on the chunked instantiations: in bf16 as head256 (three
+                   auto steps), then in f16 one serve warm-up and graph
+                   burst of 16 tokens (the prefill's logits against the
+                   plain attention's within 0.06) and two auto steps, each
+                   with exact launches; reference_attention counted (none).
 20c. dtypes      — the three load generators in f16 and in f32 on the
                    kernels of those dtypes, every count set to 0 before each
                    and read after, and reference_attention counted (none):
@@ -532,6 +552,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    counts are set to 0 before it and read after: it
                    launches none.
 
+Phases 41-50 (``phase_host_only``) run in a process of their own, started
+before the headline loop (phase 7) and run beside it: they launch no
+kernel, and the loop leaves the host's cores idle while it waits on its
+syncs.  Their lines are printed after phase 40, each ``t_s`` on the
+script's clock; that process must exit 0 with no process of its own left.
+
 No hand-written kernel is on the ResNet path: its convolutions are cuDNN's,
 its BatchNorm PyTorch's own kernels and its head cuBLAS's, as XLA's are in
 the JAX package.  Nor on the mesh's paths (phases 27-35c, 37): their
@@ -569,6 +595,7 @@ no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import hashlib
@@ -760,6 +787,8 @@ SIZE = 4096
 GEMM_BARS = {torch.bfloat16: (ATOL, RTOL), torch.float16: (ATOL, RTOL),
              torch.float32: (1e-3, 1e-3)}
 
+#: the chunked instantiations' head_dims (bf16 and f16 only)
+WIDE_HEAD_DIMS = (384, 512)
 # (batch, seq, heads, head_dim, causal, with_lse, consumer warpgroups a CTA
 # or None for the wrapper's choice, dtype): in bf16 the serve prefill's
 # shape causal and not, with the logsumexp; the llm training shape with the
@@ -801,6 +830,15 @@ FLASH_SHAPES = [
         (2, 192, 3, 256, True, True, None), (2, 192, 3, 256, False, False, None),
         (1, 2048, 8, 256, True, True, None), (8, 512, 8, 256, True, False, None),
     ]),
+    # head_dim 384 and 512 (WIDE_SIZES), the chunked tilings, in bf16 and
+    # f16: the prefill (bf16), the training shape with the logsumexp, seq
+    # 192 causal and not, and 20 K/V tiles of 32 rows (seq 640), more than
+    # five times either ring's stages
+    *((*row, dt) for dt in (torch.bfloat16, torch.float16) for d in WIDE_HEAD_DIMS for row in [
+        *([(8, 512, 4, d, True, False, None)] if dt == torch.bfloat16 else []),
+        (1, 2048, 4, d, True, True, None), (2, 192, 3, d, True, True, None),
+        (2, 192, 3, d, False, True, None), (2, 640, 2, d, True, True, None),
+    ]),
 ]
 # bf16 output, each side rounding P to bf16 once per KV tile it sums: the
 # kernel per 64-key tile against its running max, the plain version once
@@ -831,6 +869,11 @@ FLASH_TIMED = [
         (8, 512, 4, 128, False, False), (1, 2048, 4, 128, True, True),
         (2, 4096, 8, 128, False, False), (8, 512, 8, 256, False, False),
         (1, 2048, 8, 256, True, True)) if dt == torch.bfloat16 or row[0] != 2),
+    # head_dim 384 and 512: the prefill (b8 s512 h4) and the training shape
+    # (b1 s2048 h4) in bf16, the training shape in f16
+    *((*row, dt) for dt in (torch.bfloat16, torch.float16) for d in WIDE_HEAD_DIMS for row in (
+        (8, 512, 4, d, False, False), (1, 2048, 4, d, True, True))
+      if dt == torch.bfloat16 or row[0] == 1),
 ]
 # serve parity at the shipped sizes in bf16: prefill against stepwise decode
 # reach the cache and the logits through other products (a [b, 512, d] GEMM
@@ -853,6 +896,13 @@ HEAD256_SIZES = {**SERVE_SIZES, "d_model": 2048, "n_heads": 8}
 HEAD256_STEPS = 5
 #: the llm rung's attention at that width: 8 heads of 256
 LLM_SHAPE_D256 = (1, 2048, 8, 256)
+#: head_dim 512 and 384: the serving container's sizes at D_MODEL=2048
+#: N_HEADS=4 and at D_MODEL=1536 N_HEADS=4, on the chunked instantiations,
+#: and the llm rung at those widths (4 heads of 512 and of 384)
+WIDE_SIZES = {512: {**SERVE_SIZES, "d_model": 2048, "n_heads": 4},
+              384: {**SERVE_SIZES, "d_model": 1536, "n_heads": 4}}
+#: the auto steps the wide phase times at each width, in bf16 and in f16
+WIDE_STEPS, WIDE_F16_STEPS = 3, 2
 # (batch, seq, heads, head_dim, causal, dtype): the llm shape causal and
 # not; seq 192, whose backward runs three 64-row tiles a side, the dK/dV
 # loop starting at the diagonal; head_dim 64 over ten tiles a side, which
@@ -867,6 +917,13 @@ BWD_SHAPES = [
     *((*row, dt) for dt in NEW_DTYPES for row in (
         (*LLM_SHAPE, True), (*LLM_SHAPE, False), (2, 192, 3, 128, False), (2, 640, 2, 64, True),
         (*LLM_SHAPE_D256, True), (2, 192, 3, 256, True), (2, 192, 3, 256, False))),
+    # head_dim 384 and 512 in bf16 and f16: the llm shape at those widths
+    # (4 heads) causal and not, seq 192 causal and not (the dK/dV loop from
+    # the diagonal), and 20 streamed tiles of 32 rows (seq 640), which wrap
+    # the two- and one-stage rings
+    *((*row, dt) for dt in (torch.bfloat16, torch.float16) for d in WIDE_HEAD_DIMS for row in (
+        (1, 2048, 4, d, True), (1, 2048, 4, d, False), (2, 192, 3, d, True),
+        (2, 192, 3, d, False), (1, 640, 1, d, True))),
 ]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
 # orders, and rounds each gradient once; dS (and P for dV) is rounded to
@@ -900,7 +957,10 @@ FN_REL_RMS = 0.007
 # timing, in bf16; the llm shape and its head_dim 256 in f16 and f32
 BWD_TIMED = [(*LLM_SHAPE, torch.bfloat16), (2, 4096, 8, 128, torch.bfloat16),
              (*LLM_SHAPE_D256, torch.bfloat16),
-             *((*shape, dt) for dt in NEW_DTYPES for shape in (LLM_SHAPE, LLM_SHAPE_D256))]
+             *((*shape, dt) for dt in NEW_DTYPES for shape in (LLM_SHAPE, LLM_SHAPE_D256)),
+             # the llm shape at head_dim 384 and 512, in bf16 and f16
+             *((1, 2048, 4, d, dt) for dt in (torch.bfloat16, torch.float16)
+               for d in WIDE_HEAD_DIMS)]
 # train parity: the two steps' losses agree within the JAX package's bar for
 # the same comparison (tests/test_flash_attention.py:187).  The gradients of
 # the same loss from the same weights, auto (flash kernels) against ring
@@ -1146,14 +1206,15 @@ def phase_build() -> None:
                           for e in f32_entries["flash_bwd"]],
         },
     })
-    for name, report in wgmma.items():
-        flash_fwd, flash_bwd = report["flash_fwd"], report["flash_bwd"]
-        fwd_count = sum(len(flash_attention.fwd_splits(d)) for d in flash_attention.HEAD_DIMS)
+    for dt in (torch.bfloat16, torch.float16):
+        name, head_dims = DT_NAME[dt], flash_attention.HEAD_DIMS[dt]
+        flash_fwd, flash_bwd = wgmma[name]["flash_fwd"], wgmma[name]["flash_bwd"]
+        fwd_count = sum(len(flash_attention.fwd_splits(d, dt)) for d in head_dims)
         if len(flash_fwd) != fwd_count or any(e["spill_bytes"] for e in flash_fwd):
             raise AssertionError(f"the {name} flash forward's ptxas report: {flash_fwd}")
         # setmaxnreg.inc waits for registers the producer's .dec gives up: at
         # 384 threads they add up only from exactly 168 a thread at launch
-        if len(flash_bwd) != 2 * len(flash_attention.HEAD_DIMS) or any(
+        if len(flash_bwd) != 2 * len(head_dims) or any(
             e["spill_bytes"] or (e["consumer_regs"] and e["registers_at_launch"] != 168)
             for e in flash_bwd
         ):
@@ -1163,7 +1224,7 @@ def phase_build() -> None:
     if any("are serialized" in ptxas[(kind, dt)] for kind in ("flash", "flash_bwd")
            for dt in (torch.bfloat16, torch.float16)):
         raise AssertionError("ptxas serialized a flash kernel's wgmma")
-    n = len(flash_attention.HEAD_DIMS)
+    n = len(flash_attention.HEAD_DIMS[f32])
     if len(f32_entries["flash"]) != n or len(f32_entries["flash_bwd"]) != 2 * n or len(mm32) != 1:
         raise AssertionError(f"the f32 kernels' ptxas report: {f32_entries}, {mm32}")
 
@@ -1676,10 +1737,11 @@ def _sms() -> int:
 
 def phase_flash_parity() -> dict[str, float]:
     """The forward of each dtype against its plain version; returns the
-    worst absolute error by dtype name."""
+    worst absolute error by dtype name, and of the chunked instantiations
+    (head_dim 384 and 512) by dtype name and ``_wide``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = dict.fromkeys(DT_NAME.values(), 0.0)
+    worst = {**dict.fromkeys(DT_NAME.values(), 0.0), "bf16_wide": 0.0, "f16_wide": 0.0}
     rows = []
     for b, s, h, d, causal, with_lse, split, dt in FLASH_SHAPES:
         q, k, v = _qkv_views(b, s, h, d, gen, dt)
@@ -1704,7 +1766,8 @@ def phase_flash_parity() -> dict[str, float]:
                "lse_max_abs_err": lse_err, "max_abs_out": float(want.float().abs().max()),
                "rms_out": rms_want}
         rows.append(row)
-        worst[DT_NAME[dt]] = max(worst[DT_NAME[dt]], row["max_abs_err"])
+        key = DT_NAME[dt] + ("_wide" if d in WIDE_HEAD_DIMS else "")
+        worst[key] = max(worst[key], row["max_abs_err"])
         if (
             row["out_of_tol"]
             or row["rms_err_over_rms_want"] > FLASH_REL_RMS
@@ -1720,7 +1783,9 @@ def phase_flash_parity() -> dict[str, float]:
         "f64": (ok.double(), ok.double(), ok.double()),
         "mixed": (ok, ok.half(), ok),
         "seq_100": (ok[:, :100],) * 3,
-        "head_dim_384": (torch.zeros(1, 128, 1, 384, device="cuda", dtype=bf16),) * 3,
+        "head_dim_640": (torch.zeros(1, 128, 1, 640, device="cuda", dtype=bf16),) * 3,
+        # f32 stops at head_dim 256 (the FFMA kernels)
+        "f32_head_dim_512": (torch.zeros(1, 128, 1, 512, device="cuda"),) * 3,
         "shape_mismatch": (ok, ok[:, :64], ok[:, :64]),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128],) * 3,
     }
@@ -1737,13 +1802,14 @@ def phase_flash_parity() -> dict[str, float]:
         refused["kv_split_3"] = type(e).__name__
     else:
         raise AssertionError("the forward took three consumer warpgroups a CTA")
-    d256 = torch.zeros(1, 128, 1, 256, device="cuda", dtype=bf16)
-    try:
-        flash_attention._launch_fwd(d256, d256, d256, True, False, 2)
-    except ValueError as e:
-        refused["d256_kv_split_2"] = type(e).__name__
-    else:
-        raise AssertionError("the forward took two consumer warpgroups a CTA at head_dim 256")
+    for d in (256, *WIDE_HEAD_DIMS):
+        wide = torch.zeros(1, 128, 1, d, device="cuda", dtype=bf16)
+        try:
+            flash_attention._launch_fwd(wide, wide, wide, True, False, 2)
+        except ValueError as e:
+            refused[f"d{d}_kv_split_2"] = type(e).__name__
+        else:
+            raise AssertionError(f"the forward took two consumer warpgroups a CTA at head_dim {d}")
     f32 = ok.float()
     try:
         flash_attention._launch_fwd(f32, f32, f32, True, False, 2)
@@ -2066,10 +2132,13 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
     """The two backward kernels of each dtype against their plain versions,
     then the autograd Function against autograd through the plain forward
     (bf16 at FN_ATOL; f32, where neither side rounds, at the f32 gradient
-    bar).  Returns the worst absolute error of each kernel by dtype name."""
+    bar).  Returns the worst absolute error of each kernel by dtype name,
+    and of the chunked instantiations (head_dim 384 and 512) by dtype name
+    and ``_wide``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
-    worst = {name: {"dq": 0.0, "dkv": 0.0} for name in DT_NAME.values()}
+    worst = {name: {"dq": 0.0, "dkv": 0.0}
+             for name in (*DT_NAME.values(), "bf16_wide", "f16_wide")}
     rows = []
     failed = []
 
@@ -2090,7 +2159,7 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
                     for n, g, w in zip(("dq", "dk", "dv"), got, want)})
         rows.append(row)
         check(row, ("dq", "dk", "dv"))
-        w = worst[DT_NAME[dt]]
+        w = worst[DT_NAME[dt] + ("_wide" if d in WIDE_HEAD_DIMS else "")]
         w["dq"] = max(w["dq"], row["dq"]["max_abs_err"])
         w["dkv"] = max(w["dkv"], row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
     b, s, h, d = LLM_SHAPE
@@ -2122,7 +2191,8 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
     cases = {
         "f64": (ok.double(), lse),
         "seq_100": (ok[:, :100], lse[:, :100]),
-        "head_dim_384": (torch.zeros(1, 128, 2, 384, device="cuda", dtype=bf16), lse),
+        "head_dim_640": (torch.zeros(1, 128, 2, 640, device="cuda", dtype=bf16), lse),
+        "f32_head_dim_512": (torch.zeros(1, 128, 2, 512, device="cuda"), lse),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128], lse),
         "lse_shape": (ok, lse[:1]),
         "lse_bf16": (ok, lse.to(bf16)),
@@ -2353,9 +2423,25 @@ def _plain_flash(q, k, v, causal=False):
     return flash_attention_reference(q, k, v, causal)
 
 
-def phase_head256() -> dict[str, int]:
-    """The serving and training paths at head_dim 256 (HEAD256_SIZES), on
-    the d256 instantiations of the three flash kernels.
+def _counting_reference(calls: list):
+    """``flash_attention.reference_attention`` replaced by a version that
+    appends its operands' shape to ``calls``; returns the original, which
+    the caller puts back."""
+    reference = flash_attention.reference_attention
+
+    def counted(*args, **kwargs):
+        calls.append(tuple(args[0].shape))
+        return reference(*args, **kwargs)
+
+    flash_attention.reference_attention = counted
+    return reference
+
+
+def _wide_path(sizes: dict, phase: str, steps: int) -> dict[str, int]:
+    """The serving and training paths in bf16 at ``sizes`` (the serving
+    container's, at a head width past 128), on the flash kernels of that
+    head_dim, the dispatcher's fallback (``reference_attention``) counted:
+    it must not run.
 
     Serve: ``DecodeLoadGen`` warmed up (one eager burst, then the capture),
     then one graph burst (a prefill of 512 and 128 greedy tokens) against
@@ -2365,83 +2451,199 @@ def phase_head256() -> dict[str, int]:
     tokens, which a near-tie may turn, read beside them.  The forward
     launches once a layer a prefill.  Training: ``LlmLoadGen`` at the same
     width, auto against ring (``_auto_against_ring``: loss within 0.05,
-    gradients leaf by leaf within TRAIN_GRAD_REL), then HEAD256_STEPS auto
-    steps: step ms, tokens/s and exact launches.  Returns the phase's
-    launches of each kernel."""
+    gradients leaf by leaf within TRAIN_GRAD_REL), then ``steps`` auto
+    steps: step ms, tokens/s and exact launches.  Emits ``phase``'s lines;
+    returns the launches of each kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    fallbacks = []
+    reference = _counting_reference(fallbacks)
+    try:
+        _zero_counts()
+        gen = DecodeLoadGen(**sizes, window=3.0, device="cuda:0")
+        # an eager burst, the capture's eager burst on its own stream, and the
+        # capture: one launch a layer each
+        gen.warmup()
+        cfg = gen.cfg
+        if (flash_attention_kernel.launches != 3 * cfg.n_layers
+                or gen.flash_launches_per_burst != cfg.n_layers):
+            raise AssertionError(f"the {phase} burst launched {flash_attention_kernel.launches} "
+                                 f"forwards, {gen.flash_launches_per_burst} captured")
+        plen = gen.prefill_len
+        flash, runs = transformer.flash_attention, {}
+        for path, attn in (("kernel", flash), ("plain", _plain_flash)):
+            transformer.flash_attention = attn
+            try:
+                logits, _ = transformer.prefill(
+                    gen.params, cfg, gen.prompt,
+                    transformer.init_kv_cache(cfg, gen.batch, gen.device))
+                gen.reset_state()
+                t0 = time.perf_counter()
+                gen.run_burst(use_graph=path == "kernel")  # the graph holds the kernel path
+                burst_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                transformer.flash_attention = flash
+            tokens, cache, pos = gen.state()
+            runs[path] = (logits, tokens.clone(), {n: c.clone() for n, c in cache.items()}, pos,
+                          burst_ms)
+        (kl, kt, kc, kp, kernel_ms), (pl, pt, pc, pp, plain_ms) = runs["kernel"], runs["plain"]
+        k_err, k_bad = _cache_err(kc["k"][:, :, :, :plen], pc["k"][:, :, :, :plen])
+        v_err, v_bad = _cache_err(kc["v"][:, :, :, :plen], pc["v"][:, :, :, :plen])
+        serve = {
+            "sizes": sizes, "head_dim": cfg.head_dim, "dtype": "bfloat16",
+            "atol": SERVE_ATOL, "cache_rtol": SERVE_CACHE_RTOL,
+            "logits_max_abs_err": float((kl - pl).abs().max()),
+            "argmax_agree": float((kl.argmax(-1) == pl.argmax(-1)).float().mean()),
+            "prompt_cache_max_abs_err": max(k_err, v_err), "cache_out_of_tol": k_bad + v_bad,
+            "pos": [kp, pp], "tokens_agree": float((kt == pt).float().mean()),
+            "graph_burst_ms": kernel_ms, "plain_eager_burst_ms": plain_ms,
+            "flash_launches_per_burst": gen.flash_launches_per_burst,
+            "finite": bool(torch.isfinite(kl).all())
+                      and all(bool(torch.isfinite(c.float()).all()) for c in kc.values()),
+        }
+        launches = {"fwd": flash_attention_kernel.launches
+                    + gen.replays * gen.flash_launches_per_burst, "dq": 0, "dkv": 0}
+        del gen, runs, kc, pc
+        torch.cuda.empty_cache()
+        if (serve["logits_max_abs_err"] > SERVE_ATOL or serve["cache_out_of_tol"]
+                or not serve["finite"] or kp != pp):
+            emit({"phase": phase, "serve": serve})
+            raise AssertionError(f"the {phase} burst disagrees with the plain path: {serve}")
+        width = {key: sizes[key] for key in ("d_model", "n_heads", "n_layers")}
+        gens = {impl: LlmLoadGen(**width, attn_impl=impl, device="cuda:0")
+                for impl in ("auto", "ring")}
+        parity = _auto_against_ring(gens, f"{phase}_llm_parity")
+        del gens["ring"]
+        torch.cuda.empty_cache()
+        llm = gens["auto"]
+        _zero_counts()
+        ms = [llm.step() * 1e3 for _ in range(steps)]
+        counts = _bwd_counts()
+    finally:
+        flash_attention.reference_attention = reference
+    n = llm.cfg.n_layers
+    want = {"fwd": 2 * n * steps, "dq": n * steps, "dkv": n * steps}
+    stats = llm.stats()
+    out = {"phase": phase, "serve": serve,
+           "llm": {"cfg": {**width, "seq": llm.cfg.max_seq, "batch": llm.batch,
+                           "head_dim": llm.cfg.head_dim},
+                   "parity_step_launches": parity, "steps": steps, "step_ms": ms,
+                   "tokens_per_s": stats.tokens_per_sec, "last_loss": stats.last_loss,
+                   "launches": counts},
+           "reference_attention_calls": len(fallbacks)}
+    emit(out)
+    if counts != want or not math.isfinite(stats.last_loss):
+        raise AssertionError(f"{steps} {phase} auto steps launched {counts}, not {want}")
+    if fallbacks:
+        raise AssertionError(f"the {phase} paths fell back to reference_attention: {fallbacks}")
+    for name in launches:
+        launches[name] += parity[name] + counts[name]
+    return launches
+
+
+def phase_head256() -> dict[str, int]:
+    """The serving and training paths at head_dim 256 (HEAD256_SIZES), on
+    the d256 instantiations of the three flash kernels (``_wide_path``, with
+    HEAD256_STEPS auto steps).  Returns the phase's launches of each
+    kernel."""
+    return _wide_path(HEAD256_SIZES, "head256", HEAD256_STEPS)
+
+
+def _serve_in_dtype(sizes: dict, dt: torch.dtype, phase: str) -> dict:
+    """``DecodeLoadGen`` at ``sizes`` in ``dt`` with bursts of DTYPE_TOKENS
+    tokens, every count set to 0 just before and read just after: the
+    warm-up (an eager burst, the capture's eager burst and the capture) and
+    one graph replay, one forward a layer each; then the prefill's logits
+    against the same prefill on the plain attention, within
+    DTYPE_SERVE_ATOL.  Returns the row, ``fwd_launches`` the forward's
+    launches; emits ``phase``'s line and raises where it fails."""
     _zero_counts()
-    gen = DecodeLoadGen(**HEAD256_SIZES, window=3.0, device="cuda:0")
-    # an eager burst, the capture's eager burst on its own stream, and the
-    # capture: one launch a layer each
-    gen.warmup()
-    cfg = gen.cfg
-    if (flash_attention_kernel.launches != 3 * cfg.n_layers
-            or gen.flash_launches_per_burst != cfg.n_layers):
-        raise AssertionError(f"the d256 burst launched {flash_attention_kernel.launches} "
-                             f"forwards, {gen.flash_launches_per_burst} captured")
-    plen = gen.prefill_len
-    flash, runs = transformer.flash_attention, {}
+    serve = DecodeLoadGen(**sizes, dtype=dt, tokens_per_burst=DTYPE_TOKENS, window=3.0,
+                          device="cuda:0")
+    serve.warmup()
+    serve.run_burst()
+    counts = _dtype_counts(dt)
+    cfg = serve.cfg
+    logits = {}
+    flash = transformer.flash_attention
     for path, attn in (("kernel", flash), ("plain", _plain_flash)):
         transformer.flash_attention = attn
         try:
-            logits, _ = transformer.prefill(
-                gen.params, cfg, gen.prompt, transformer.init_kv_cache(cfg, gen.batch, gen.device))
-            gen.reset_state()
-            t0 = time.perf_counter()
-            gen.run_burst(use_graph=path == "kernel")  # the graph holds the kernel path
-            burst_ms = (time.perf_counter() - t0) * 1e3
+            logits[path], _ = transformer.prefill(
+                serve.params, cfg, serve.prompt,
+                transformer.init_kv_cache(cfg, serve.batch, serve.device))
         finally:
             transformer.flash_attention = flash
-        tokens, cache, pos = gen.state()
-        runs[path] = (logits, tokens.clone(), {n: c.clone() for n, c in cache.items()}, pos,
-                      burst_ms)
-    (kl, kt, kc, kp, kernel_ms), (pl, pt, pc, pp, plain_ms) = runs["kernel"], runs["plain"]
-    k_err, k_bad = _cache_err(kc["k"][:, :, :, :plen], pc["k"][:, :, :, :plen])
-    v_err, v_bad = _cache_err(kc["v"][:, :, :, :plen], pc["v"][:, :, :, :plen])
-    serve = {
-        "sizes": HEAD256_SIZES, "head_dim": cfg.head_dim, "dtype": "bfloat16",
-        "atol": SERVE_ATOL, "cache_rtol": SERVE_CACHE_RTOL,
-        "logits_max_abs_err": float((kl - pl).abs().max()),
-        "argmax_agree": float((kl.argmax(-1) == pl.argmax(-1)).float().mean()),
-        "prompt_cache_max_abs_err": max(k_err, v_err), "cache_out_of_tol": k_bad + v_bad,
-        "pos": [kp, pp], "tokens_agree": float((kt == pt).float().mean()),
-        "graph_burst_ms": kernel_ms, "plain_eager_burst_ms": plain_ms,
-        "flash_launches_per_burst": gen.flash_launches_per_burst,
-        "finite": bool(torch.isfinite(kl).all())
-                  and all(bool(torch.isfinite(c.float()).all()) for c in kc.values()),
+    row = {
+        "sizes": sizes, "tokens_per_burst": DTYPE_TOKENS,
+        "warmup_launches": counts["fwd"], "replays": serve.replays,
+        "flash_launches_per_burst": serve.flash_launches_per_burst,
+        "fwd_launches": counts["fwd"] + serve.replays * serve.flash_launches_per_burst,
+        "logits_max_abs_err": float((logits["kernel"] - logits["plain"]).abs().max()),
+        "logits_atol": DTYPE_SERVE_ATOL[dt],
+        "finite": bool(torch.isfinite(logits["kernel"]).all()),
     }
-    launches = {"fwd": flash_attention_kernel.launches
-                + gen.replays * gen.flash_launches_per_burst, "dq": 0, "dkv": 0}
-    del gen, runs, kc, pc
+    del serve, logits
     torch.cuda.empty_cache()
-    if (serve["logits_max_abs_err"] > SERVE_ATOL or serve["cache_out_of_tol"]
-            or not serve["finite"] or kp != pp):
-        emit({"phase": "head256", "serve": serve})
-        raise AssertionError(f"the d256 burst disagrees with the plain path: {serve}")
-    width = {key: HEAD256_SIZES[key] for key in ("d_model", "n_heads", "n_layers")}
-    gens = {impl: LlmLoadGen(**width, attn_impl=impl, device="cuda:0")
-            for impl in ("auto", "ring")}
-    parity = _auto_against_ring(gens, "head256_llm_parity")
-    del gens["ring"]
-    torch.cuda.empty_cache()
-    llm = gens["auto"]
+    if (counts["fwd"] != 3 * cfg.n_layers or row["flash_launches_per_burst"] != cfg.n_layers
+            or row["logits_max_abs_err"] > DTYPE_SERVE_ATOL[dt] or not row["finite"]):
+        emit({"phase": phase, "dtype": DT_NAME[dt], "serve": row})
+        raise AssertionError(f"the {phase} {DT_NAME[dt]} serve path: {row}")
+    return row
+
+
+def _wide_f16(sizes: dict, phase: str) -> dict[str, int]:
+    """The serving and training paths at ``sizes`` in f16, on the f16
+    library's chunked instantiations: the serve burst (``_serve_in_dtype``);
+    then, every count set to 0 just before and read just after,
+    WIDE_F16_STEPS auto steps of ``LlmLoadGen`` at that width, two forwards,
+    one dQ and one dK/dV a layer a step, the loss finite.  Returns the f16
+    launches."""
+    dt = torch.float16
+    row = {"serve": _serve_in_dtype(sizes, dt, phase)}
+    launches = {"fwd": row["serve"]["fwd_launches"]}
+    n = sizes["n_layers"]
+    llm = LlmLoadGen(d_model=sizes["d_model"], n_heads=sizes["n_heads"], n_layers=n, dtype=dt,
+                     device="cuda:0")
     _zero_counts()
-    ms = [llm.step() * 1e3 for _ in range(HEAD256_STEPS)]
-    counts = _bwd_counts()
-    n = llm.cfg.n_layers
-    want = {"fwd": 2 * n * HEAD256_STEPS, "dq": n * HEAD256_STEPS, "dkv": n * HEAD256_STEPS}
-    stats = llm.stats()
-    out = {"phase": "head256", "serve": serve,
-           "llm": {"cfg": {**width, "seq": llm.cfg.max_seq, "batch": llm.batch,
-                           "head_dim": llm.cfg.head_dim},
-                   "parity_step_launches": parity, "steps": HEAD256_STEPS, "step_ms": ms,
-                   "tokens_per_s": stats.tokens_per_sec, "last_loss": stats.last_loss,
-                   "launches": counts}}
-    emit(out)
-    if counts != want or not math.isfinite(stats.last_loss):
-        raise AssertionError(f"{HEAD256_STEPS} d256 auto steps launched {counts}, not {want}")
-    for name in launches:
-        launches[name] += parity[name] + counts[name]
+    ms = [llm.step() * 1e3 for _ in range(WIDE_F16_STEPS)]
+    counts = _dtype_counts(dt)
+    want = {"fwd": 2 * n * WIDE_F16_STEPS, "dq": n * WIDE_F16_STEPS, "dkv": n * WIDE_F16_STEPS}
+    got = {key: counts[key] for key in want}
+    row["llm"] = {"steps": WIDE_F16_STEPS, "step_ms": ms, "last_loss": llm.stats().last_loss,
+                  "launches": got}
+    emit({"phase": phase, **row})
+    if got != want or not math.isfinite(row["llm"]["last_loss"]):
+        raise AssertionError(f"{WIDE_F16_STEPS} {phase} auto steps launched {got}, not {want}")
+    launches["fwd"] += got["fwd"]
+    launches.update(dq=got["dq"], dkv=got["dkv"])
+    return launches
+
+
+def phase_head_wide() -> dict[str, dict[str, int]]:
+    """The serving and training paths at head_dim 512 and 384 (WIDE_SIZES:
+    D_MODEL=2048 and 1536 in N_HEADS=4), on the chunked instantiations of
+    the three flash kernels: in bf16 as ``phase_head256`` runs them
+    (``_wide_path``, WIDE_STEPS auto steps), then in f16 (``_wide_f16``),
+    the dispatcher's fallback counted in both and never taken.  Returns
+    each dtype's launches of each kernel, both widths together."""
+    launches = {"bf16": dict.fromkeys(("fwd", "dq", "dkv"), 0),
+                "f16": dict.fromkeys(("fwd", "dq", "dkv"), 0)}
+    fallbacks = []
+    for d, sizes in WIDE_SIZES.items():
+        for name, got in _wide_path(sizes, f"head{d}", WIDE_STEPS).items():
+            launches["bf16"][name] += got
+        torch.cuda.empty_cache()
+        reference = _counting_reference(fallbacks)
+        try:
+            f16 = _wide_f16(sizes, f"head{d}_f16")
+        finally:
+            flash_attention.reference_attention = reference
+        for name, got in f16.items():
+            launches["f16"][name] += got
+        torch.cuda.empty_cache()
+    emit({"phase": "head_wide", "launches": launches, "reference_attention_calls": len(fallbacks)})
+    if fallbacks:
+        raise AssertionError(f"the f16 wide paths fell back to reference_attention: {fallbacks}")
     return launches
 
 
@@ -2490,13 +2692,7 @@ def phase_dtypes() -> dict[str, dict[str, int]]:
     a step.  Returns each dtype's launches of each kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     fallbacks = []
-    reference = flash_attention.reference_attention
-
-    def counted_reference(*args, **kwargs):
-        fallbacks.append(tuple(args[0].shape))
-        return reference(*args, **kwargs)
-
-    flash_attention.reference_attention = counted_reference
+    reference = _counting_reference(fallbacks)
     out = {"phase": "dtypes"}
     launches = {}
     try:
@@ -2531,40 +2727,8 @@ def phase_dtypes() -> dict[str, dict[str, int]]:
                 emit({**out, name: row})
                 raise AssertionError(f"the {name} headline load: {row['headline']}")
 
-            _zero_counts()
-            serve = DecodeLoadGen(**SERVE_SIZES, dtype=dt, tokens_per_burst=DTYPE_TOKENS,
-                                  window=3.0, device="cuda:0")
-            serve.warmup()
-            serve.run_burst()
-            counts = _dtype_counts(dt)
-            cfg = serve.cfg
-            serve_fwd = counts["fwd"] + serve.replays * serve.flash_launches_per_burst
-            logits = {}
-            flash = transformer.flash_attention
-            for path, attn in (("kernel", flash), ("plain", _plain_flash)):
-                transformer.flash_attention = attn
-                try:
-                    logits[path], _ = transformer.prefill(
-                        serve.params, cfg, serve.prompt,
-                        transformer.init_kv_cache(cfg, serve.batch, serve.device))
-                finally:
-                    transformer.flash_attention = flash
-            err = float((logits["kernel"] - logits["plain"]).abs().max())
-            row["serve"] = {
-                "sizes": SERVE_SIZES, "tokens_per_burst": DTYPE_TOKENS,
-                "warmup_launches": counts["fwd"], "replays": serve.replays,
-                "flash_launches_per_burst": serve.flash_launches_per_burst,
-                "fwd_launches": serve_fwd, "logits_max_abs_err": err,
-                "logits_atol": DTYPE_SERVE_ATOL[dt],
-                "finite": bool(torch.isfinite(logits["kernel"]).all()),
-            }
-            launches[name]["fwd"] = serve_fwd
-            del serve, logits
-            torch.cuda.empty_cache()
-            if (counts["fwd"] != 3 * cfg.n_layers or row["serve"]["flash_launches_per_burst"]
-                    != cfg.n_layers or err > DTYPE_SERVE_ATOL[dt] or not row["serve"]["finite"]):
-                emit({**out, name: row})
-                raise AssertionError(f"the {name} serve path: {row['serve']}")
+            row["serve"] = _serve_in_dtype(SERVE_SIZES, dt, "dtypes")
+            serve_fwd = row["serve"]["fwd_launches"]
 
             gens = {impl: LlmLoadGen(dtype=dt, attn_impl=impl, device="cuda:0")
                     for impl in ("auto", "ring")}
@@ -5597,6 +5761,54 @@ def phase_processes() -> dict:
     return out
 
 
+def phase_host_only() -> None:
+    """The host-only phases in turn (virtual time, no kernel, the JAX
+    package's numbers as their bars), then a check that no process they
+    started still runs.  ``main`` runs this in a process of its own beside
+    the headline loop (``_host_only_start``)."""
+    phase_trace()
+    phase_chaos()
+    phase_drill()
+    phase_metrics_scale()
+    phase_rollups()
+    capacity = phase_capacity()
+    phase_evacuate()
+    phase_coverage(capacity["maps"])
+    phase_incident()
+    phase_races()
+    stop_rank_server()
+    left = _descendants(os.getpid())
+    if left:
+        raise AssertionError(f"processes the host-only phases started still run: {left}")
+
+
+def _host_only_start(log: Path) -> subprocess.Popen:
+    """``phase_host_only`` in a process of its own, its lines (their ``t_s``
+    on this process's clock) into ``log``.  They launch no kernel and leave
+    the device idle, and the headline loop leaves the host's cores idle
+    while it waits on its syncs, so the two run side by side; the process
+    is killed at exit if it is still running."""
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as c; c._START = {_START!r}; c.phase_host_only()"],
+            cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT,
+            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def _host_only_finish(proc: subprocess.Popen, log: Path) -> None:
+    """Waits for the host-only phases, prints their lines, and fails where
+    they failed."""
+    code = proc.wait(timeout=900)
+    with _EMIT_LOCK:
+        sys.stdout.write(log.read_text())
+        sys.stdout.flush()
+    if code != 0:
+        raise AssertionError(f"the host-only phases failed with exit code {code}")
+
+
 def main() -> int:
     global _START
     if not torch.cuda.is_available():
@@ -5609,9 +5821,12 @@ def main() -> int:
     phase_build()
     max_err = phase_parity()
     timing = phase_timing(peak_gbps)
+    host_dir = tempfile.TemporaryDirectory()
+    host_log = Path(host_dir.name) / "host_only.log"
     with tempfile.TemporaryDirectory() as knob_dir:
         gen, dwell_mfu_pct = phase_loadgen(knob_dir)
         phase_profile(gen)
+        host_only = _host_only_start(host_log)
         launches, loop_scale_up_s = phase_loop(gen)
         launches += phase_overshoot(gen)
         attribution = phase_nvml(gen)
@@ -5635,6 +5850,8 @@ def main() -> int:
     del gens
     torch.cuda.empty_cache()
     head256 = phase_head256()
+    torch.cuda.empty_cache()
+    wide = phase_head_wide()
     torch.cuda.empty_cache()
     dtypes = phase_dtypes()
     torch.cuda.empty_cache()
@@ -5682,16 +5899,8 @@ def main() -> int:
         phase_hbm_pods_loop()
         queue = phase_queue_external(work_dir)
     phase_simulate((dwell_mfu_pct, loop_scale_up_s), (serve_saturated_pct, serve_scale_up_s))
-    phase_trace()
-    phase_chaos()
-    phase_drill()
-    phase_metrics_scale()
-    phase_rollups()
-    capacity = phase_capacity()
-    phase_evacuate()
-    phase_coverage(capacity["maps"])
-    phase_incident()
-    phase_races()
+    _host_only_finish(host_only, host_log)
+    host_dir.cleanup()
     phase_processes()
     train = {n: parity_counts[n] + train_counts[n] + head256[n] for n in parity_counts}
     # the serve prefill's shape and the llm training shape, by dtype
@@ -5732,6 +5941,38 @@ def main() -> int:
                "shapes": [{"bshd": row["bshd"], "library_backend": row["library_backend"],
                            **{key: row[kernel][key] for key in row_keys}}
                           for row in bwd_timing if row["dtype"] == name]}
+              for kernel, line in (("dq", 165), ("dkv", 207))),
+        ]
+    # the chunked instantiations at head_dim 384 and 512, in bf16 and f16:
+    # their launches in the head_wide phase, their numbers at the llm shape
+    # at head_dim 512 (the wide phase's training path), every timed wide
+    # shape beside them
+    wide_kernels = []
+    for dt in (torch.bfloat16, torch.float16):
+        name = DT_NAME[dt]
+        fwd_rows = [row for row in flash_timing
+                    if row["dtype"] == name and row["bshd"][3] in WIDE_HEAD_DIMS]
+        bwd_rows = [row for row in bwd_timing
+                    if row["dtype"] == name and row["bshd"][3] in WIDE_HEAD_DIMS]
+        fwd_head = next(row for row in fwd_rows if row["bshd"] == [1, 2048, 4, 512])
+        bwd_head = next(row for row in bwd_rows if row["bshd"] == [1, 2048, 4, 512])
+        wide_kernels += [
+            {"name": f"flash_attention_fwd_d384_d512_{name}", "route": "cuda",
+             "source": f"{csrc}/flash_attention.cu",
+             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
+             "launches": wide[name]["fwd"], "max_abs_err": flash_err[f"{name}_wide"],
+             **{key: fwd_head[key] for key in row_keys}, "bound_peak": fwd_head["bound_peak"],
+             "shapes": [{key: row[key] for key in ("bshd", "with_lse", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms",
+                                                   "library_backend")} for row in fwd_rows]},
+            *({"name": f"flash_attention_bwd_{kernel}_d384_d512_{name}", "route": "cuda",
+               "source": f"{csrc}/flash_attention_bwd.cu",
+               "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
+               "launches": wide[name][kernel], "max_abs_err": bwd_err[f"{name}_wide"][kernel],
+               **{key: bwd_head[kernel][key] for key in row_keys},
+               "bound_peak": bwd_head["bound_peak"],
+               "shapes": [{"bshd": row["bshd"], "library_backend": row["library_backend"],
+                           **{key: row[kernel][key] for key in row_keys}} for row in bwd_rows]}
               for kernel, line in (("dq", 165), ("dkv", 207))),
         ]
     emit({"kernels": [
@@ -5794,6 +6035,7 @@ def main() -> int:
             for name, line in (("dq", 165), ("dkv", 207))
         ),
         *new_kernels,
+        *wide_kernels,
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

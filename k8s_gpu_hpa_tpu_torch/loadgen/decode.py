@@ -499,9 +499,9 @@ def serve(device: str | torch.device | None = None) -> None:
         batch=int(os.environ.get("DECODE_BATCH", "8")),
         max_seq=int(os.environ.get("MAX_SEQ", "2048")),
         d_model=int(os.environ.get("D_MODEL", "512")),
-        # the flash kernel's envelope needs head_dim 64, 128 or 256: N_HEADS=4
-        # and the default 8 at D_MODEL=512 prefill on it, as N_HEADS=8 at
-        # D_MODEL=2048 does
+        # the flash kernel's envelope in bf16 is head_dim 64 to 512: N_HEADS=4
+        # and the default 8 at D_MODEL=512 prefill on it, as N_HEADS=8 and 4
+        # at D_MODEL=2048 and N_HEADS=4 at D_MODEL=1536 do
         n_heads=int(os.environ.get("N_HEADS", "8")),
         n_layers=int(os.environ.get("N_LAYERS", "4")),
         prefill_len=int(os.environ.get("PREFILL_LEN", "0")),

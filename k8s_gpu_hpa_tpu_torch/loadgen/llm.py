@@ -58,8 +58,8 @@ class LlmLoadGen:
         batch: int = 1,
         d_model: int = 512,
         # head_dim 128 (512/4) sits inside the flash kernels' envelope, as 8
-        # heads of 64 would too; attention FLOPs do not depend on the head
-        # count at fixed d_model
+        # heads of 64 would too, and in bf16 and f16 any multiple of 128 to
+        # 512; attention FLOPs do not depend on the head count at fixed d_model
         n_heads: int = 4,
         n_layers: int = 4,
         dtype: torch.dtype = torch.bfloat16,

@@ -488,7 +488,8 @@ def run_llm(topology: HostTopology | None, device: str | torch.device | None) ->
         batch=int(os.environ.get("BATCH_SIZE", "1")),
         d_model=int(os.environ.get("D_MODEL", "512")),
         # head_dim = D_MODEL/N_HEADS; 64, 128 or 256 rides the flash
-        # kernels on a ring of one, in bf16, f16 or f32
+        # kernels on a ring of one in bf16, f16 or f32, and 384 or 512 in
+        # bf16 or f16
         n_heads=int(os.environ.get("N_HEADS", "4")),
         n_layers=int(os.environ.get("N_LAYERS", "4")),
         attn_impl=os.environ.get("LLM_ATTN", "auto"),

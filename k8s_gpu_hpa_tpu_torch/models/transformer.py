@@ -255,10 +255,11 @@ def _train_attn_fn(cfg: TransformerConfig, axis: str, n: int, lq: int, attn_impl
     with/without knob.  Any other value raises, as it arrives from the
     ``LLM_ATTN`` pod env and must not silently run the ring.
 
-    The envelope is the Hopper kernels' (bf16, f16 or f32, head_dim 64,
-    128 or 256, seq a multiple of 64), not the TPU kernel's (head_dim a
-    multiple of 128 and a 12 MiB stripe, any dtype), so for some shapes
-    (head_dim 64, head_dim 384) the two packages take different branches.
+    The envelope is the Hopper kernels' (head_dim 64 to 512 in bf16 and
+    f16, 64 to 256 in f32, seq a multiple of 64), not the TPU kernel's
+    (head_dim a multiple of 128 and a 12 MiB stripe, any dtype), so for some
+    shapes (head_dim 64, f32 at 384, head_dim 640) the two packages take
+    different branches.
     Both branches compute exact attention, so the results agree at the bars
     of the attention tests."""
     if attn_impl not in ("auto", "ring"):

@@ -20,7 +20,7 @@
 // The TPU kernel keeps a whole K/V stripe of one batch-head in VMEM and loops
 // over it.  A Hopper CTA has at most 227 KB of shared memory, so this kernel
 // streams K/V tiles of 64 rows instead (FlashAttention-3 style), at head_dim
-// 64, 128 or 256:
+// 64, 128 or 256 (384 and 512: the chunked tiling below):
 //   - one CTA per (batch-head, Q tile of 64 rows), heaviest causal tiles
 //     first: the grid's fast axis is the batch-head, its slow axis the Q
 //     tile counted down from the last;
@@ -65,6 +65,26 @@
 // 160 threads, one CTA an SM, let it have up to 255, so the producer stays
 // one warp and no setmaxnreg is needed.
 //
+// Head_dim 384 and 512: the chunked tiling.  O in one warpgroup would be 192
+// or 256 fp32 registers a thread (past 255 at 512), and Q with one 64-row K/V
+// stage 144 or 192 KB.  So each CTA computes half of O's columns (192 or
+// 256: two chunks, the grid's fast axis the batch-head's chunks), the d256
+// tiling on its own columns:
+//   - S = Q K^T contracts over the whole head_dim in every chunk (the scores
+//     are computed once a chunk: 6 d operations a pair, 1.5 times the
+//     minimum 4 d), so each chunk loads all of K but only its columns of V;
+//   - K/V tiles are 32 rows, their scores m64n32k16 products: a stage is 36
+//     or 48 KB, and Q (48 or 64 KB) and four or three stages fit;
+//   - P V is an m64n128k16 product on each 128 of the chunk's columns, and
+//     an m64n64k16 on the last 64 at 384, from P's registers as before;
+//   - the causal loop runs through tile (q0 + 64) / 32, the two tiles on the
+//     CTA's own keys masked;
+//   - every chunk computes the same (m, l) by the same instructions in the
+//     same order; the first writes the logsumexp.
+// One consumer warpgroup (O at 96 or 128 registers beside S's 16), a
+// producer warp, 160 threads, one CTA an SM.  A simple tiling that is right;
+// the recomputed scores are the next thing to speed up.
+//
 // Bound.  Each (batch-head, Q row, K row) pair that the causal loop visits
 // costs 4 d operations (two products).  At the serving prefill's shape (b8,
 // s512, h4, d128, causal) the pairs below the diagonal are 32 * 512 * 513 / 2,
@@ -75,12 +95,16 @@
 // cores bound both (NVIDIA H100 SXM data sheet).  At head_dim 256 (b8 s512
 // h8, the prefill of a 2048-wide model of 8 heads) it is 8.6 GFLOP, 8.7 us,
 // against 67.1 MB, 20.0 us: memory bounds it; at (b1, s2048, h8) 17.2 GFLOP,
-// 17.4 us, against 33.6 MB, 10.0 us: the tensor cores do.
+// 17.4 us, against 33.6 MB, 10.0 us: the tensor cores do.  At head_dim 384
+// and 512 in 4 heads (D_MODEL=1536 and 2048) the prefill (b8 s512 h4) moves
+// 50.3 and 67.1 MB, 15.0 and 20.0 us: memory bounds it; the training shape
+// (b1 s2048 h4) is 12.9 and 17.2 GFLOP, 13.0 and 17.4 us: the tensor cores
+// do.
 //
 // Layout.  Q, K, V are [B, S, H, D] with D contiguous and any other strides
 // (element counts, multiples of 8); a [B*H, S, D] tensor is the case H = 1.
 // O has its own strides; lse is [B*H, S] fp32, contiguous.  S must be a
-// multiple of the KV tile (64).  The Python wrapper (ops/flash_attention.py)
+// multiple of the Q tile (64).  The Python wrapper (ops/flash_attention.py)
 // checks all of this before it calls in.  The backward kernels are in
 // flash_attention_bwd.cu.
 
@@ -95,7 +119,7 @@
 
 namespace {
 
-constexpr int kBK = 64;     // K/V rows per tile, and Q rows per warpgroup
+constexpr int kBK = 64;     // Q rows a CTA: one warpgroup's wgmma M
 constexpr int kWgK = 16;    // one wgmma's K
 constexpr uint32_t kBoxBytes = kBK * kBox * 2;  // 8 KB
 constexpr float kNegInf = -1e30f;
@@ -103,17 +127,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // 64 Q rows a CTA on SPLIT consumer warpgroups (1 or 2) that take turns
-// over its K/V tiles
+// over its K/V tiles, and kDc of O's D columns: all of them, or at head_dim
+// 384 and 512 half (the chunked tiling of the file's note)
 template <int D, int SPLIT>
 struct Cfg {
-  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
-  static_assert(SPLIT == 1 || D <= 128, "at head_dim 256 one consumer warpgroup a CTA");
-  static constexpr int kBoxes = D / kBox;  // boxes across a row of Q, K or V
-  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // 64 rows of Q, K or V
-  static constexpr uint32_t kStageBytes = 2 * kTileBytes;  // K and V
+  static_assert(D == 64 || D == 128 || D == 256 || D == 384 || D == 512,
+                "head_dim 64, 128, 256, 384 or 512");
+  static_assert(SPLIT == 1 || D <= 128, "past head_dim 128 one consumer warpgroup a CTA");
+  static constexpr int kDc = D > 256 ? D / 2 : D;  // O's columns a CTA
+  static constexpr int kChunks = D / kDc;
+  static constexpr int kKv = stream_rows(D);  // K/V rows a tile
+  static constexpr int kBoxes = D / kBox;     // boxes across a row of Q or K
+  static constexpr uint32_t kKvBoxBytes = kKv * kBox * 2;
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // Q's 64 rows
+  static constexpr uint32_t kKBytes = kBoxes * kKvBoxBytes;   // a K tile
+  // a K tile and V's tile of the CTA's columns
+  static constexpr uint32_t kStageBytes = kKBytes + kDc / kBox * kKvBoxBytes;
   // two stages where two CTAs share an SM, four where one has it alone
-  // (two warpgroups a CTA), three at head_dim 256 (one warpgroup, one CTA)
-  static constexpr int kStages = SPLIT == 2 ? 4 : D == 256 ? 3 : 2;
+  // (two warpgroups a CTA), three at head_dim 256 (one warpgroup, one CTA);
+  // at 384 and 512 as many as fit beside Q: four and three
+  static constexpr int kStages = SPLIT == 2 ? 4 : D == 256 || D == 512 ? 3 : D == 384 ? 4 : 2;
   static constexpr int kThreads = 128 * SPLIT + 32;
   static constexpr int kCtasPerSm = SPLIT == 1 && D <= 128 ? 2 : 1;
   // the second warpgroup hands over its O, m and l there
@@ -127,21 +160,22 @@ struct Cfg {
   static_assert(kCtasPerSm * (kSmem + 1024) <= 233472, "shared memory of an SM");
 };
 
-// O += P V for one 16-key step: P's A fragments from registers, V's 16 rows
-// read N-major (its 64-column boxes kBoxBytes apart); one m64n{D}k16 product,
-// two of 128 columns at D = 256, each on its half of O (the accumulator
-// layout of m64n256k16: O's first 64 values are columns 0-127)
-template <int D>
-__device__ __forceinline__ void pv_step(float (&o)[D / 2], const uint32_t (&a)[4],
-                                        const unsigned char* v_rows) {
-  if constexpr (D == 64) {
-    wgmma_m64n64k16_rs(o, a, desc_mn_major(v_rows, kBoxBytes), 1);
-  } else {
+// O += P V for one 16-key step over O's N columns: P's A fragments from
+// registers, V's 16 rows read N-major (its 64-column boxes `box` bytes
+// apart); m64n128k16 products on 128 columns each, then an m64n64k16 on the
+// last 64 where N is an odd multiple of 64 (the accumulator layout of
+// m64n256k16: O's first 64 values are columns 0-127)
+template <int N>
+__device__ __forceinline__ void pv_step(float (&o)[N / 2], const uint32_t (&a)[4],
+                                        const unsigned char* v_rows, uint32_t box) {
 #pragma unroll
-    for (int n = 0; n < D / 128; ++n) {
-      wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(o + 64 * n), a,
-                               desc_mn_major(v_rows + 2 * n * kBoxBytes, kBoxBytes), 1);
-    }
+  for (int n = 0; n < N / 128; ++n) {
+    wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(o + 64 * n), a,
+                             desc_mn_major(v_rows + 2 * n * box, box), 1);
+  }
+  if constexpr (N % 128) {
+    wgmma_m64n64k16_rs(*reinterpret_cast<float(*)[32]>(o + 64 * (N / 128)), a,
+                            desc_mn_major(v_rows + 2 * (N / 128) * box, box), 1);
   }
 }
 
@@ -170,12 +204,15 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   uint64_t* handed = q_full + 1;
   float* xchg = reinterpret_cast<float*>(handed + 1);
 
-  const int bh = blockIdx.x;
+  // the grid's fast axis: the batch-head's chunks of O's columns, each
+  // chunk a CTA
+  const int bh = blockIdx.x / C::kChunks;
+  const int chunk = blockIdx.x % C::kChunks;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBK;
   // the CTA's KV tiles: through its diagonal
-  const int n_kv = p.causal ? q0 / kBK + 1 : p.seq / kBK;
+  const int n_kv = p.causal ? (q0 + kBK) / C::kKv : p.seq / C::kKv;
   // tile j lies in stage j % kStages, in the ring's round j / kStages
   auto stage_of = [](int j) { return j % C::kStages; };
   auto phase_of = [](int j) { return static_cast<uint32_t>(j / C::kStages) & 1u; };
@@ -196,7 +233,8 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   // serialize the wgmma under them
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
   if (wg == SPLIT) {
-    // producer: one thread loads Q once, then K and V tile by tile
+    // producer: one thread loads Q once, then K and the CTA's columns of V
+    // tile by tile
     if (threadIdx.x % 32 == 0) {
       mbar_arrive_expect_tx(q_full, C::kTileBytes);
       for (int c = 0; c < C::kBoxes; ++c) {
@@ -206,11 +244,14 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
         const int st = stage_of(j);
         mbar_wait(&empty[st], phase_of(j) ^ 1);  // a fresh ring starts empty
         unsigned char* k_tile = ring + st * C::kStageBytes;
-        unsigned char* v_tile = k_tile + C::kTileBytes;
+        unsigned char* v_tile = k_tile + C::kKBytes;
         mbar_arrive_expect_tx(&full[st], C::kStageBytes);
         for (int c = 0; c < C::kBoxes; ++c) {
-          tma_load_4d(k_tile + c * kBoxBytes, &p.k, &full[st], c * kBox, h, j * kBK, b);
-          tma_load_4d(v_tile + c * kBoxBytes, &p.v, &full[st], c * kBox, h, j * kBK, b);
+          tma_load_4d(k_tile + c * C::kKvBoxBytes, &p.k, &full[st], c * kBox, h, j * C::kKv, b);
+        }
+        for (int c = 0; c < C::kDc / kBox; ++c) {
+          tma_load_4d(v_tile + c * C::kKvBoxBytes, &p.v, &full[st], chunk * C::kDc + c * kBox, h,
+                      j * C::kKv, b);
         }
       }
     }
@@ -227,25 +268,31 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   // 2 (lane % 4) + {0, 1}: element 4 j + e is block j, row e / 2.
   const int row0 = q0 + warp * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
-  float o[D / 2];
+  float o[C::kDc / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < C::kDc / 2; ++i) o[i] = 0.0f;
   float m_run[2] = {kNegInf, kNegInf};  // in log2 units
   float l_run[2] = {0.0f, 0.0f};       // this thread's share of the row sums
 
   if (mine > 0) {
-    float s[32] = {};
-    uint32_t pk[kBK / kWgK][4];  // P in Elem pairs: A of P V, 16 keys each
+    float s[C::kKv / 2] = {};
+    uint32_t pk[C::kKv / kWgK][4];  // P in Elem pairs: A of P V, 16 keys each
     float corr[2];
 
     // S = Q K^T for tile j (K-major both: 32-byte steps along a row, the
-    // next 64-column box every four)
+    // next 64-column box every four), over every column of Q and K
     auto issue_scores = [&](int j) {
       const unsigned char* k_tile = ring + stage_of(j) * C::kStageBytes;
 #pragma unroll
       for (int kk = 0; kk < D / kWgK; ++kk) {
-        const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
-        wgmma_m64n64k16_ss(s, desc_k_major(q_s + at), desc_k_major(k_tile + at), kk > 0);
+        const uint32_t along = (kk % 4) * kWgK * 2;
+        const uint64_t qd = desc_k_major(q_s + (kk / 4) * kBoxBytes + along);
+        const uint64_t kd = desc_k_major(k_tile + (kk / 4) * C::kKvBoxBytes + along);
+        if constexpr (C::kKv == 64) {
+          wgmma_m64n64k16_ss(s, qd, kd, kk > 0);
+        } else {
+          wgmma_m64n32k16_ss(s, qd, kd, kk > 0);
+        }
       }
       wgmma_commit();
     };
@@ -255,11 +302,13 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
     // max is taken on the raw scores and scaled once, and each score is
     // scaled and offset by one fma.
     auto softmax = [&](int j) {
-      const bool diagonal = p.causal && j * kBK == q0;
+      // the tiles that reach past the CTA's first row: the diagonal one, or
+      // at 32 rows a tile the two that cover the CTA's own keys
+      const bool diagonal = p.causal && (j + 1) * C::kKv > q0;
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        if (diagonal && row0 + (i % 4 / 2) * 8 < j * kBK + (i / 4) * 8 + col0 + i % 2) {
+      for (int i = 0; i < C::kKv / 2; ++i) {
+        if (diagonal && row0 + (i % 4 / 2) * 8 < j * C::kKv + (i / 4) * 8 + col0 + i % 2) {
           s[i] = kNegInf;
         }
         mx[i % 4 / 2] = fmaxf(mx[i % 4 / 2], s[i]);
@@ -274,7 +323,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
         m_run[r] = mx[r];
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < C::kKv / 2; ++i) {
         s[i] = exp2_approx(fmaf(s[i], p.scale_log2, -mx[i % 4 / 2]));
         rs[i % 4 / 2] += s[i];
       }
@@ -284,7 +333,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
     // P to Elem pairs: keys 16 kc .. 16 kc + 15 are S blocks 2 kc, 2 kc + 1
     auto pack = [&] {
 #pragma unroll
-      for (int kc = 0; kc < kBK / kWgK; ++kc) {
+      for (int kc = 0; kc < C::kKv / kWgK; ++kc) {
         pk[kc][0] = pack_pair(s[8 * kc + 0], s[8 * kc + 1]);
         pk[kc][1] = pack_pair(s[8 * kc + 2], s[8 * kc + 3]);
         pk[kc][2] = pack_pair(s[8 * kc + 4], s[8 * kc + 5]);
@@ -293,10 +342,10 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
     };
     // O += P V for tile j, P from the registers
     auto issue_pv = [&](int j) {
-      const unsigned char* v_tile = ring + stage_of(j) * C::kStageBytes + C::kTileBytes;
+      const unsigned char* v_tile = ring + stage_of(j) * C::kStageBytes + C::kKBytes;
 #pragma unroll
-      for (int kc = 0; kc < kBK / kWgK; ++kc) {
-        pv_step<D>(o, pk[kc], v_tile + kc * kWgK * kSwizzleRow);
+      for (int kc = 0; kc < C::kKv / kWgK; ++kc) {
+        pv_step<C::kDc>(o, pk[kc], v_tile + kc * kWgK * kSwizzleRow, C::kKvBoxBytes);
       }
       wgmma_commit();
     };
@@ -329,7 +378,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
       wgmma_fence_operands(pk);
       if (t == 0) mbar_arrive(&empty[stage_of(cur)]);  // P V is done with its stage
 #pragma unroll
-      for (int k = 0; k < D / 2; ++k) o[k] *= corr[k % 4 / 2];
+      for (int k = 0; k < C::kDc / 2; ++k) o[k] *= corr[k % 4 / 2];
       pack();
       cur = j;
     }
@@ -383,12 +432,14 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   for (int r = 0; r < 2; ++r) {
     const float l_safe = fmaxf(l_run[r], 1e-30f);
     const int row = row0 + r * 8;
-    Elem* out = p.o + b * p.o_sb + static_cast<int64_t>(row) * p.o_ss + h * p.o_sh;
+    Elem* out = p.o + b * p.o_sb + static_cast<int64_t>(row) * p.o_ss + h * p.o_sh +
+                chunk * C::kDc;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < C::kDc / 8; ++i) {
       store_pair(out + i * 8 + col0, o[4 * i + 2 * r] / l_safe, o[4 * i + 2 * r + 1] / l_safe);
     }
-    if (p.lse != nullptr && lane % 4 == 0) {
+    // every chunk computes the same (m, l): the first writes the logsumexp
+    if (p.lse != nullptr && chunk == 0 && lane % 4 == 0) {
       p.lse[static_cast<int64_t>(bh) * p.seq + row] = m_run[r] * kLn2 + logf(l_safe);
     }
   }
@@ -403,13 +454,14 @@ cudaError_t opt_in() {
 
 template <int D, int SPLIT>
 void launch(const Params& p, int batch_heads, cudaStream_t stream) {
-  const dim3 grid(batch_heads, p.seq / kBK);
+  const dim3 grid(batch_heads * Cfg<D, SPLIT>::kChunks, p.seq / kBK);
   flash_fwd_kernel<D, SPLIT><<<grid, Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kSmem, stream>>>(p);
 }
 
 template <class C>
 int config_of(int* out, int n) {
-  const int values[] = {C::kThreads, C::kStages, C::kCtasPerSm, static_cast<int>(C::kSmem)};
+  const int values[] = {C::kThreads, C::kStages, C::kCtasPerSm, static_cast<int>(C::kSmem),
+                        C::kChunks, C::kKv};
   const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
   for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
   return count;
@@ -419,9 +471,9 @@ int config_of(int* out, int n) {
 
 // C entries, bound with ctypes.
 //
-// flash_attention_init opts the five instantiations (head_dim 64 and 128 by
-// one or two consumer warpgroups, 256 by one) in to the dynamic shared
-// memory they need above the default 48 KB and looks up the CUDA driver
+// flash_attention_init opts the seven instantiations (head_dim 64 and 128 by
+// one or two consumer warpgroups, 256, 384 and 512 by one) in to the dynamic
+// shared memory they need above the default 48 KB and looks up the CUDA driver
 // API's cuTensorMapEncodeTiled.  It is called once per device before the
 // first launch, never at launch: a launch may sit inside CUDA-graph
 // capture.  Returns a cudaError_t.
@@ -437,6 +489,8 @@ extern "C" int flash_attention_init(int device) {
   if (err == cudaSuccess) err = opt_in<128, 1>();
   if (err == cudaSuccess) err = opt_in<128, 2>();
   if (err == cudaSuccess) err = opt_in<256, 1>();
+  if (err == cudaSuccess) err = opt_in<384, 1>();
+  if (err == cudaSuccess) err = opt_in<512, 1>();
   if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -444,7 +498,8 @@ extern "C" int flash_attention_init(int device) {
 
 // The configuration of the instantiation for (head_dim, kv_split), for
 // reports: threads, stages, CTAs an SM by launch bounds, dynamic shared
-// memory in bytes.  Writes at most `n` values; returns how many there are,
+// memory in bytes, CTAs a (batch-head, Q tile) (chunks of O's columns), and
+// K/V rows a tile.  Writes at most `n` values; returns how many there are,
 // or 0 where there is no such instantiation.
 extern "C" int flash_attention_config(int head_dim, int kv_split, int* out, int n) {
   if (kv_split != 1 && kv_split != 2) return 0;
@@ -454,15 +509,19 @@ extern "C" int flash_attention_config(int head_dim, int kv_split, int* out, int 
   if (head_dim == 128) {
     return kv_split == 2 ? config_of<Cfg<128, 2>>(out, n) : config_of<Cfg<128, 1>>(out, n);
   }
-  if (head_dim == 256 && kv_split == 1) return config_of<Cfg<256, 1>>(out, n);
+  if (kv_split != 1) return 0;
+  if (head_dim == 256) return config_of<Cfg<256, 1>>(out, n);
+  if (head_dim == 384) return config_of<Cfg<384, 1>>(out, n);
+  if (head_dim == 512) return config_of<Cfg<512, 1>>(out, n);
   return 0;
 }
 
 // `strides` holds 12 element strides: (batch, seq, head) for Q, K, V and O.
 // `lse` may be null.  A CTA takes 64 Q rows on `kv_split` consumer
-// warpgroups (1 or 2; 1 at head_dim 256) that take turns over its K/V
-// tiles.  `device` is the CUDA ordinal the pointers live on, initialised
-// with flash_attention_init, and `stream` the caller's cudaStream_t.
+// warpgroups (1 or 2; 1 past head_dim 128) that take turns over its K/V
+// tiles, and at head_dim 384 and 512 half of O's columns.  `device` is the
+// CUDA ordinal the pointers live on, initialised with flash_attention_init,
+// and `stream` the caller's cudaStream_t.
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
 // refused and nothing ran.  A refused tensor map returns the CUDA driver
 // API's CUresult.
@@ -471,9 +530,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int batch, int heads, int seq, int head_dim, int causal,
                                    float scale, int device, void* stream) {
   if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  const bool known = head_dim == 256 ? kv_split == 1
-                                     : (head_dim == 64 || head_dim == 128) &&
-                                           (kv_split == 1 || kv_split == 2);
+  const bool known = head_dim == 256 || head_dim == 384 || head_dim == 512
+                         ? kv_split == 1
+                         : (head_dim == 64 || head_dim == 128) && (kv_split == 1 || kv_split == 2);
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
@@ -482,12 +541,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   // cuTensorMapEncodeTiled needs; a thread's first cudaGetDevice does not
   if ((err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   Params p;
+  // Q in 64-row boxes, K and V in the tiles' rows
+  const int rows = stream_rows(head_dim);
   CUresult refused = encode_bshd(&p.q, q, batch, seq, heads, head_dim, strides);
   if (refused == CUDA_SUCCESS) {
-    refused = encode_bshd(&p.k, k, batch, seq, heads, head_dim, strides + 3);
+    refused = encode_bshd(&p.k, k, batch, seq, heads, head_dim, strides + 3, rows);
   }
   if (refused == CUDA_SUCCESS) {
-    refused = encode_bshd(&p.v, v, batch, seq, heads, head_dim, strides + 6);
+    refused = encode_bshd(&p.v, v, batch, seq, heads, head_dim, strides + 6, rows);
   }
   if (refused != CUDA_SUCCESS) {
     if (cur != device) cudaSetDevice(cur);
@@ -502,7 +563,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  if (head_dim == 256) {
+  if (head_dim == 512) {
+    launch<512, 1>(p, bh, s);
+  } else if (head_dim == 384) {
+    launch<384, 1>(p, bh, s);
+  } else if (head_dim == 256) {
     launch<256, 1>(p, bh, s);
   } else if (head_dim == 128) {
     kv_split == 2 ? launch<128, 2>(p, bh, s) : launch<128, 1>(p, bh, s);

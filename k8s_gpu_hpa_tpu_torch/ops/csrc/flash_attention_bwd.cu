@@ -35,7 +35,10 @@
 // fused backward accumulating dQ with atomics does 10 d.  At head_dim 256
 // (b1, s2048, h8: a 2048-wide model of 8 heads) the pairs are 8 * 2048 *
 // 2049 / 2: 25.8 GFLOP, 26.1 us, and 34.4 GFLOP, 34.8 us, against 42.0 MB
-// and 50.4 MB (12.5 and 15.0 us): the tensor cores bound both.
+// and 50.4 MB (12.5 and 15.0 us): the tensor cores bound both.  At head_dim
+// 384 and 512 in 4 heads (b1, s2048, h4) dQ is 19.3 and 25.8 GFLOP, 19.5 and
+// 26.1 us, dK/dV 25.8 and 34.4 GFLOP, 26.1 and 34.8 us: the tensor cores
+// again.
 //
 // Both kernels:
 //   - one CTA per (batch-head, 64-row tile), heaviest causal tiles first:
@@ -110,10 +113,36 @@
 //     d 256, one on each half of the accumulator's columns.
 // A simple tiling that is right; making it fast is later work.
 //
+// Head_dim 384 and 512: the chunked tilings.  A 64-row tile is 48 or 64 KB:
+// the CTA's own two tiles and a 64-row stage of the other two would take
+// 192 or 256 KB, and dK and dV 64 x 512 fp32 each 256 registers a thread.
+// So each CTA computes a chunk of its output's columns, the grid's fast
+// axis the batch-head's chunks, and streams tiles of 32 rows:
+//   - dQ: half of dQ's columns (192 or 256: two chunks); S = Q K^T and dP =
+//     dO V^T contract over the whole head_dim in every chunk (m64n32k16),
+//     dQ += dS K on the chunk's columns of the same K tile: 10 d operations
+//     a pair, 1.67 times the minimum 6 d.  Own Q and dO (96 or 128 KB) and
+//     a ring of two stages of 32-row K and V tiles (48 KB each) at 384, of
+//     one (64 KB) at 512, which releases each tile before the next is
+//     loaded;
+//   - dK/dV: 128 of dK's and of dV's columns (three or four chunks: 64 +
+//     64 registers a thread, as at d 128, where 192 + 192 would not fit);
+//     S^T and dP^T over the whole head_dim in every chunk, dV += P^T dO and
+//     dK += dS^T Q on the chunk's columns of the streamed Q and dO tiles:
+//     20 d operations a pair at 512 and 16 d at 384, 2.5 and 2 times the
+//     minimum 8 d.  Two stages at 384, one at 512; lse and delta in boxes
+//     of 32;
+//   - one consumer warpgroup and a producer warp, 160 threads (up to 255
+//     registers, no setmaxnreg, no hand-over); causal tiles that reach past
+//     the CTA's first row (dQ) or last key (dK/dV) are masked, two a CTA.
+// This chunks dK/dV narrower than the 256-column chunks dQ and the forward
+// take, since two accumulators share a thread's registers.  The recomputed
+// score products are the next thing to speed up.
+//
 // Layout.  Q, K, V, dO, dQ, dK and dV are [B, S, H, D] with D contiguous and
 // any other strides (element counts, multiples of 8); a [B*H, S, D] tensor is
 // the case H = 1.  lse and delta are [B*H, S] fp32, contiguous.  S must be a
-// multiple of 64 and D 64, 128 or 256.  The Python wrapper
+// multiple of 64 and D 64, 128, 256, 384 or 512.  The Python wrapper
 // (ops/flash_attention.py) checks all of this before it calls in.
 
 #include <cuda.h>
@@ -127,39 +156,51 @@
 
 namespace {
 
-constexpr int kBlk = kBoxRows;  // rows of every tile, Q and K/V alike
+constexpr int kBlk = kBoxRows;  // a CTA's own rows (a warpgroup's wgmma M)
 constexpr int kWgK = 16;        // one wgmma's K
 constexpr uint32_t kBoxBytes = kBlk * kBox * 2;       // 8 KB
-constexpr uint32_t kRowBytes = kBlk * sizeof(float);  // a tile's lse or delta
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 // 64 rows a CTA on two consumer warpgroups that take turns over the ring's
-// tiles (at d 256 the dK/dV kernel's split their roles instead); DKV: the
-// dK/dV kernel, else dQ
+// tiles (at d 256 the dK/dV kernel's split their roles instead), or at d 384
+// and 512 on one, with kDc of the output's columns (the file's note); DKV:
+// the dK/dV kernel, else dQ
 template <int D, bool DKV>
 struct Cfg {
-  static_assert(D == 64 || D == 128 || D == 256, "head_dim 64, 128 or 256");
+  static_assert(D == 64 || D == 128 || D == 256 || D == 384 || D == 512,
+                "head_dim 64, 128, 256, 384 or 512");
+  static constexpr bool kWide = D > 256;
+  static constexpr int kConsumers = kWide ? 1 : 2;
+  // the output's columns a CTA: all, or at d 384 and 512 a chunk: dQ's
+  // half, dK's and dV's 128 each (two accumulators of 64 registers a thread)
+  static constexpr int kDc = !kWide ? D : DKV ? 128 : D / 2;
+  static constexpr int kChunks = D / kDc;
+  static constexpr int kStream = stream_rows(D);  // rows of a streamed tile
   static constexpr int kBoxes = D / kBox;  // boxes across a row of a tile
   static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // 64 rows of Q, K, V or dO
+  static constexpr uint32_t kStreamBoxBytes = kStream * kBox * 2;
+  static constexpr uint32_t kStreamTileBytes = kBoxes * kStreamBoxBytes;
+  static constexpr uint32_t kRowBytes = kStream * sizeof(float);  // a tile's lse or delta
   // ptxas caps a thread at 168 registers in a CTA of more than 256 threads:
   // the producer is a warpgroup that gives registers up (setmaxnreg), except
-  // for dQ at d 64, which fits in 168 beside a producer warp
-  static constexpr bool kRegSplit = DKV || D >= 128;
-  static constexpr int kThreads = 256 + (kRegSplit ? 128 : 32);
-  // four stages, two at d 256, where a third would not fit
-  static constexpr int kStages = D == 256 ? 2 : 4;
+  // for dQ at d 64, which fits in 168 beside a producer warp, and at d 384
+  // and 512, whose one consumer warpgroup may hold 255 beside a producer warp
+  static constexpr bool kRegSplit = !kWide && (DKV || D >= 128);
+  static constexpr int kThreads = 128 * kConsumers + (kRegSplit ? 128 : 32);
+  // four stages; two at d 256 and 384, one at 512, where more would not fit
+  static constexpr int kStages = D == 512 ? 1 : D >= 256 ? 2 : 4;
   // a warpgroup issues its next tile's products before it releases its
-  // current tile, whose stage must then differ from the next's: four stages
-  // for two warpgroups taking turns
-  static constexpr bool kOverlap = kStages >= 4;
+  // current tile, whose stage must then differ from the next's: two stages
+  // a consumer warpgroup taking turns
+  static constexpr bool kOverlap = kStages >= 2 * kConsumers;
   // d 256's dK/dV: the warpgroups split dV and dK, each reads every tile
   static constexpr bool kRoles = DKV && D == 256;
   // a stage: two tiles (dK/dV: Q and dO; dQ: K and V), and dK/dV's lse and
   // delta rows, which lie apart so that the tiles keep the swizzle's alignment
-  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr uint32_t kStageBytes = 2 * kStreamTileBytes;
   static constexpr uint32_t kRowsBytes = DKV ? kStages * 2 * kRowBytes : 0;
   // the CTA's own two tiles, the ring, the rows, the barriers (full and
   // empty a stage, the own tiles', done, handed), and room to align to the
@@ -168,7 +209,8 @@ struct Cfg {
                                   (2 * kStages + 3) * sizeof(uint64_t) + kSwizzleAtom;
   // the second warpgroup's accumulators (dK and dV: d a thread; dQ: d / 2),
   // handed over through the ring
-  static_assert(kRoles || (DKV ? D : D / 2) * 128 * sizeof(float) <= kStages * kStageBytes,
+  static_assert(kRoles || kConsumers == 1 ||
+                    (DKV ? D : D / 2) * 128 * sizeof(float) <= kStages * kStageBytes,
                 "the hand-over fits in the ring");
   static_assert(kSmem <= 232448, "shared memory of a CTA");
   static_assert(!kRegSplit || kConsumerRegs * 256 + kProducerRegs * 128 <= 65536,
@@ -221,62 +263,73 @@ __device__ __forceinline__ void init_barriers(const Smem<C>& sm) {
       mbar_init(&sm.empty[s], C::kRoles ? 2 : 1);
     }
     mbar_init(sm.own_full, 1);
-    mbar_init(sm.done, 256);
+    mbar_init(sm.done, 128 * C::kConsumers);
     mbar_init(sm.handed, 128);
     mbar_fence_init();
   }
   __syncthreads();
 }
 
-// a 64-row tile of a [b, s, h, d] tensor: its 64-column boxes, kBoxBytes apart
-template <class C>
+// a tile of a [b, s, h, d] tensor, as many rows as the map's box: its
+// BOXES 64-column boxes, BOX_BYTES apart
+template <uint32_t BOX_BYTES, int BOXES>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
                                           uint64_t* bar, int h, int row, int b) {
 #pragma unroll
-  for (int c = 0; c < C::kBoxes; ++c) {
-    tma_load_4d(dst + c * kBoxBytes, map, bar, c * kBox, h, row, b);
+  for (int c = 0; c < BOXES; ++c) {
+    tma_load_4d(dst + c * BOX_BYTES, map, bar, c * kBox, h, row, b);
   }
 }
 
-// d = A B for a 64 x 64 x D product, both operands K-major 64-row tiles in
-// shared memory (32-byte steps along a row, the next box every four)
-template <int D>
-__device__ __forceinline__ void product_ss(float (&d)[32], const unsigned char* a,
+// d = A B for a 64 x N x D product, both operands K-major in shared memory
+// (32-byte steps along a row, the next box every four): A a 64-row tile
+// (own), B an N-row tile (streamed, N 64 or 32)
+template <int D, int N>
+__device__ __forceinline__ void product_ss(float (&d)[N / 2], const unsigned char* a,
                                            const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < D / kWgK; ++kk) {
-    const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
-    wgmma_m64n64k16_ss(d, desc_k_major(a + at), desc_k_major(b + at), kk > 0);
-  }
-}
-
-// d += A B for a 64 x D x 64 product: A from registers, 16 columns each; B a
-// 64-row tile read N-major (step kc starts 16 rows further down).  At D =
-// 256 each step is two m64n128k16 products, one on each half of d (the
-// accumulator layout of m64n256k16: d's first 64 values are columns 0-127)
-template <int D>
-__device__ __forceinline__ void product_rs(float (&d)[D / 2], const uint32_t (&a)[kBlk / kWgK][4],
-                                           const unsigned char* b) {
-#pragma unroll
-  for (int kc = 0; kc < kBlk / kWgK; ++kc) {
-    const unsigned char* rows = b + kc * kWgK * kSwizzleRow;
-    if constexpr (D == 64) {
-      wgmma_m64n64k16_rs(d, a[kc], desc_mn_major(rows, kBoxBytes), 1);
+    const uint32_t along = (kk % 4) * kWgK * 2;
+    const uint64_t ad = desc_k_major(a + (kk / 4) * kBoxBytes + along);
+    const uint64_t bd = desc_k_major(b + (kk / 4) * (N * kSwizzleRow) + along);
+    if constexpr (N == 64) {
+      wgmma_m64n64k16_ss(d, ad, bd, kk > 0);
     } else {
-#pragma unroll
-      for (int n = 0; n < D / 128; ++n) {
-        wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(d + 64 * n), a[kc],
-                                 desc_mn_major(rows + 2 * n * kBoxBytes, kBoxBytes), 1);
-      }
+      wgmma_m64n32k16_ss(d, ad, bd, kk > 0);
     }
   }
 }
 
-// fp32 accumulators to Elem pairs, the A fragments of the next product:
-// columns 16 kc .. 16 kc + 15 are accumulator blocks 2 kc and 2 kc + 1
-__device__ __forceinline__ void pack(uint32_t (&a)[kBlk / kWgK][4], const float (&x)[32]) {
+// d += A B for a 64 x N x K product: A from registers, 16 columns each; B a
+// K-row tile's N columns read N-major (step kc starts 16 rows further down,
+// its 64-column boxes `box` bytes apart).  Each step is an m64n128k16
+// product on each 128 of d's columns, then an m64n64k16 on the last 64
+// where N is an odd multiple of 64 (the accumulator layout of m64n256k16:
+// d's first 64 values are columns 0-127)
+template <int N, int K>
+__device__ __forceinline__ void product_rs(float (&d)[N / 2], const uint32_t (&a)[K / kWgK][4],
+                                           const unsigned char* b, uint32_t box) {
 #pragma unroll
-  for (int kc = 0; kc < kBlk / kWgK; ++kc) {
+  for (int kc = 0; kc < K / kWgK; ++kc) {
+    const unsigned char* rows = b + kc * kWgK * kSwizzleRow;
+#pragma unroll
+    for (int n = 0; n < N / 128; ++n) {
+      wgmma_m64n128k16_rs(*reinterpret_cast<float(*)[64]>(d + 64 * n), a[kc],
+                               desc_mn_major(rows + 2 * n * box, box), 1);
+    }
+    if constexpr (N % 128) {
+      wgmma_m64n64k16_rs(*reinterpret_cast<float(*)[32]>(d + 64 * (N / 128)), a[kc],
+                              desc_mn_major(rows + 2 * (N / 128) * box, box), 1);
+    }
+  }
+}
+
+// fp32 accumulators of N columns to Elem pairs, the A fragments of the next
+// product: columns 16 kc .. 16 kc + 15 are accumulator blocks 2 kc and 2 kc + 1
+template <int N>
+__device__ __forceinline__ void pack(uint32_t (&a)[N / kWgK][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / kWgK; ++kc) {
     a[kc][0] = pack_pair(x[8 * kc + 0], x[8 * kc + 1]);
     a[kc][1] = pack_pair(x[8 * kc + 2], x[8 * kc + 3]);
     a[kc][2] = pack_pair(x[8 * kc + 4], x[8 * kc + 5]);
@@ -317,15 +370,16 @@ __device__ __forceinline__ bool merge(const Smem<C>& sm, int wg, int t, Acc&... 
   return true;
 }
 
-// Stores a warpgroup's 64 x D fp32 accumulator rows as Elem: thread t holds
-// rows `row0` and `row0 + 8`, columns 8 i + col0 and + 1
+// Stores a warpgroup's 64 x D fp32 accumulator rows as Elem, from column
+// `first` on: thread t holds rows `row0` and `row0 + 8`, columns 8 i + col0
+// and + 1 of the D
 template <int D>
 __device__ __forceinline__ void store_rows(const Params& p, int which, int b, int h, int row0,
-                                           int col0, const float (&acc)[D / 2]) {
+                                           int col0, const float (&acc)[D / 2], int first = 0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     Elem* dst = p.out[which] + b * p.st[which][0] +
-                static_cast<int64_t>(row0 + r * 8) * p.st[which][1] + h * p.st[which][2];
+                static_cast<int64_t>(row0 + r * 8) * p.st[which][1] + h * p.st[which][2] + first;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       store_pair(dst + i * 8 + col0, acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
@@ -333,41 +387,47 @@ __device__ __forceinline__ void store_rows(const Params& p, int which, int b, in
   }
 }
 
-// The dK/dV kernel's producer warpgroup: gives its registers up, and one
-// thread loads the CTA's K and V tiles once, then from the CTA's first Q
-// tile `lo` on each Q and dO tile with its lse and delta into the ring
+// The dK/dV kernel's producer: a warpgroup that gives its registers up (a
+// warp at d 384 and 512), one thread of which loads the CTA's K and V tiles
+// once, then from the CTA's first Q tile `lo` on each Q and dO tile with its
+// lse and delta into the ring
 template <class C>
 __device__ __forceinline__ void dkv_producer(const Params& p, const Smem<C>& sm, int bh, int b,
                                              int h, int k0, int lo, int count) {
-  setmaxnreg_dec<kProducerRegs>();
-  if (threadIdx.x != 256) return;
+  if constexpr (C::kRegSplit) setmaxnreg_dec<kProducerRegs>();
+  if (threadIdx.x != 128 * C::kConsumers) return;
   mbar_arrive_expect_tx(sm.own_full, 2 * C::kTileBytes);
-  load_tile<C>(sm.own, &p.k, sm.own_full, h, k0, b);
-  load_tile<C>(sm.own + C::kTileBytes, &p.v, sm.own_full, h, k0, b);
+  load_tile<kBoxBytes, C::kBoxes>(sm.own, &p.k, sm.own_full, h, k0, b);
+  load_tile<kBoxBytes, C::kBoxes>(sm.own + C::kTileBytes, &p.v, sm.own_full, h, k0, b);
   for (int n = 0; n < count; ++n) {
     // the CTA's n-th Q tile lies in stage n % kStages, in the ring's round
     // n / kStages
     const int st = n % C::kStages;
-    const int q0 = (lo + n) * kBlk;
+    const int q0 = (lo + n) * C::kStream;
     // a fresh ring starts empty
     mbar_wait(&sm.empty[st], (static_cast<uint32_t>(n / C::kStages) & 1u) ^ 1);
     unsigned char* q_tile = sm.ring + st * C::kStageBytes;
-    float* rows = sm.rows + st * 2 * kBlk;
-    mbar_arrive_expect_tx(&sm.full[st], C::kStageBytes + 2 * kRowBytes);
-    load_tile<C>(q_tile, &p.q, &sm.full[st], h, q0, b);
-    load_tile<C>(q_tile + C::kTileBytes, &p.dout, &sm.full[st], h, q0, b);
+    float* rows = sm.rows + st * 2 * C::kStream;
+    mbar_arrive_expect_tx(&sm.full[st], C::kStageBytes + 2 * C::kRowBytes);
+    load_tile<C::kStreamBoxBytes, C::kBoxes>(q_tile, &p.q, &sm.full[st], h, q0, b);
+    load_tile<C::kStreamBoxBytes, C::kBoxes>(q_tile + C::kStreamTileBytes, &p.dout, &sm.full[st],
+                                             h, q0, b);
     tma_load_2d(rows, &p.lse, &sm.full[st], q0, bh);
-    tma_load_2d(rows + kBlk, &p.delta, &sm.full[st], q0, bh);
+    tma_load_2d(rows + C::kStream, &p.delta, &sm.full[st], q0, bh);
   }
 }
 
-// P^T = exp(S^T scale - lse[col]) in place for a Q tile from q0, masked on
-// the diagonal tile (q0 == k0); thread t holds K rows row0 and row0 + 8
-__device__ __forceinline__ void transposed_probs(float (&s)[32], const float* lse, const Params& p,
-                                                 int q0, int k0, int row0, int col0) {
-  const bool diagonal = p.causal && q0 == k0;
+// P^T = exp(S^T scale - lse[col]) in place for an N-row Q tile from q0,
+// masked where the tile reaches above the CTA's last key row (the diagonal
+// tile, or at 32 rows a tile the two that cover the CTA's own rows); thread
+// t holds K rows row0 and row0 + 8
+template <int N>
+__device__ __forceinline__ void transposed_probs(float (&s)[N / 2], const float* lse,
+                                                 const Params& p, int q0, int k0, int row0,
+                                                 int col0) {
+  const bool diagonal = p.causal && q0 < k0 + kBlk;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + col0);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -379,10 +439,11 @@ __device__ __forceinline__ void transposed_probs(float (&s)[32], const float* ls
 }
 
 // dS^T = P^T (dP^T - delta[col]) scale, in dP^T's registers
-__device__ __forceinline__ void transposed_ds(float (&dp)[32], const float (&s)[32],
+template <int N>
+__device__ __forceinline__ void transposed_ds(float (&dp)[N / 2], const float (&s)[N / 2],
                                               const float* delta, float scale, int col0) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + col0);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -401,13 +462,16 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
   unsigned char* k_s = sm.own;
   unsigned char* v_s = sm.own + C::kTileBytes;
 
-  const int bh = blockIdx.x;
+  // the grid's fast axis: the batch-head's chunks of dK's and dV's
+  // columns, each chunk a CTA
+  const int bh = blockIdx.x / C::kChunks;
+  const int chunk = blockIdx.x % C::kChunks;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
   const int k0 = blockIdx.y * kBlk;  // the longest causal loops first
   // causal: Q tiles before the diagonal see none of these keys
-  const int lo = p.causal ? blockIdx.y : 0;
-  const int count = p.seq / kBlk - lo;  // the CTA's Q tiles, lo on
+  const int lo = p.causal ? k0 / C::kStream : 0;
+  const int count = p.seq / C::kStream - lo;  // the CTA's Q tiles, lo on
   auto stage_of = [](int n) { return n % C::kStages; };
   auto phase_of = [](int n) { return static_cast<uint32_t>(n / C::kStages) & 1u; };
   init_barriers(sm);
@@ -416,62 +480,65 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
   // the warp: branches on it are then not divergent, and it does not
   // serialize the wgmma under them
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
-  if (wg == 2) {
+  if (wg == C::kConsumers) {
     dkv_producer(p, sm, bh, b, h, k0, lo, count);
     return;
   }
-  setmaxnreg_inc<kConsumerRegs>();
+  if constexpr (C::kRegSplit) setmaxnreg_inc<kConsumerRegs>();
 
   // consumer warpgroup `wg`: of the CTA's Q tiles the n-th for n = wg (mod
-  // 2).  Thread t holds K/V rows 16 warp + lane/4 (r = 0) and + 8 (r =
-  // 1) of the 64, and in each 8-column block of an accumulator the columns
-  // col0 + {0, 1}: element 4 j + e is block j, row e / 2, column e % 2.
+  // kConsumers).  Thread t holds K/V rows 16 warp + lane/4 (r = 0) and + 8
+  // (r = 1) of the 64, and in each 8-column block of an accumulator the
+  // columns col0 + {0, 1}: element 4 j + e is block j, row e / 2, column e % 2.
+  constexpr int N = C::kStream;
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
-  const int mine = count > wg ? (count - wg + 1) / 2 : 0;
+  const int mine = count > wg ? (count - wg + C::kConsumers - 1) / C::kConsumers : 0;
   const int row0 = k0 + warp * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
-  float dk[D / 2], dv[D / 2];
+  // where the CTA's columns of a Q or dO tile start
+  const uint32_t cols = chunk * (C::kDc / kBox) * C::kStreamBoxBytes;
+  float dk[C::kDc / 2], dv[C::kDc / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
-  float s[32], dp[32];
-  uint32_t pp[kBlk / kWgK][4], pds[kBlk / kWgK][4];  // P^T and dS^T in bf16 pairs
+  for (int i = 0; i < C::kDc / 2; ++i) dk[i] = dv[i] = 0.0f;
+  float s[N / 2], dp[N / 2];
+  uint32_t pp[N / kWgK][4], pds[N / kWgK][4];  // P^T and dS^T in bf16 pairs
 
   if (mine > 0) mbar_wait(sm.own_full, 0);
   for (int i = 0; i < mine; ++i) {
-    const int n = wg + 2 * i;
+    const int n = wg + C::kConsumers * i;
     const int st = stage_of(n);
-    const int q0 = (lo + n) * kBlk;
+    const int q0 = (lo + n) * N;
     const unsigned char* q_tile = sm.ring + st * C::kStageBytes;
-    const unsigned char* do_tile = q_tile + C::kTileBytes;
-    const float* lse = sm.rows + st * 2 * kBlk;
-    const float* delta = lse + kBlk;
+    const unsigned char* do_tile = q_tile + C::kStreamTileBytes;
+    const float* lse = sm.rows + st * 2 * N;
+    const float* delta = lse + N;
     mbar_wait(&sm.full[st], phase_of(n));
-    // S^T = K Q^T, then dP^T = V dO^T, one group each
+    // S^T = K Q^T, then dP^T = V dO^T, one group each, over every column
     wgmma_fence();
-    product_ss<D>(s, k_s, q_tile);
+    product_ss<D, N>(s, k_s, q_tile);
     wgmma_commit();
-    product_ss<D>(dp, v_s, do_tile);
+    product_ss<D, N>(dp, v_s, do_tile);
     wgmma_commit();
     wgmma_wait<1>();
     wgmma_fence_operands(s);
-    transposed_probs(s, lse, p, q0, k0, row0, col0);
-    pack(pp, s);
-    // dV += P^T dO, while dS^T is computed
+    transposed_probs<N>(s, lse, p, q0, k0, row0, col0);
+    pack<N>(pp, s);
+    // dV += P^T dO on the CTA's columns, while dS^T is computed
     wgmma_fence();
     wgmma_fence_operands(dv);
     wgmma_fence_operands(pp);
-    product_rs<D>(dv, pp, do_tile);
+    product_rs<C::kDc, N>(dv, pp, do_tile + cols, C::kStreamBoxBytes);
     wgmma_commit();
     wgmma_wait<1>();
     wgmma_fence_operands(dp);
-    transposed_ds(dp, s, delta, p.scale, col0);
-    pack(pds, dp);
+    transposed_ds<N>(dp, s, delta, p.scale, col0);
+    pack<N>(pds, dp);
     // dK += dS^T Q
     wgmma_fence();
     wgmma_fence_operands(dk);
     wgmma_fence_operands(pds);
-    product_rs<D>(dk, pds, q_tile);
+    product_rs<C::kDc, N>(dk, pds, q_tile + cols, C::kStreamBoxBytes);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_operands(dk);
@@ -481,9 +548,11 @@ __global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
     if (t == 0) mbar_arrive(&sm.empty[st]);  // both products are done with the stage
   }
 
-  if (!merge(sm, wg, t, dk, dv)) return;
-  store_rows<D>(p, 0, b, h, row0, col0, dk);
-  store_rows<D>(p, 1, b, h, row0, col0, dv);
+  if constexpr (C::kConsumers == 2) {
+    if (!merge(sm, wg, t, dk, dv)) return;
+  }
+  store_rows<C::kDc>(p, 0, b, h, row0, col0, dk, chunk * C::kDc);
+  store_rows<C::kDc>(p, 1, b, h, row0, col0, dv, chunk * C::kDc);
 }
 
 // d 256 (the file's note): the two consumer warpgroups split the roles, both
@@ -524,7 +593,7 @@ __global__ void __launch_bounds__(Cfg<256, true>::kThreads, 1)
   float acc[D / 2];  // dV, or dK
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-  float s[32], dp[32];
+  float s[kBlk / 2], dp[kBlk / 2];
   uint32_t pa[kBlk / kWgK][4];  // P^T, or dS^T, in bf16 pairs
 
   if (count > 0) mbar_wait(sm.own_full, 0);
@@ -537,24 +606,24 @@ __global__ void __launch_bounds__(Cfg<256, true>::kThreads, 1)
     mbar_wait(&sm.full[st], static_cast<uint32_t>(n / C::kStages) & 1u);
     // S^T = K Q^T, and for dK dP^T = V dO^T, one group
     wgmma_fence();
-    product_ss<D>(s, k_s, q_tile);
-    if (dk_role) product_ss<D>(dp, v_s, do_tile);
+    product_ss<D, kBlk>(s, k_s, q_tile);
+    if (dk_role) product_ss<D, kBlk>(dp, v_s, do_tile);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_operands(s);
     wgmma_fence_operands(dp);
-    transposed_probs(s, lse, p, q0, k0, row0, col0);
+    transposed_probs<kBlk>(s, lse, p, q0, k0, row0, col0);
     if (dk_role) {
-      transposed_ds(dp, s, lse + kBlk, p.scale, col0);
-      pack(pa, dp);
+      transposed_ds<kBlk>(dp, s, lse + kBlk, p.scale, col0);
+      pack<kBlk>(pa, dp);
     } else {
-      pack(pa, s);
+      pack<kBlk>(pa, s);
     }
     // dV += P^T dO, or dK += dS^T Q
     wgmma_fence();
     wgmma_fence_operands(acc);
     wgmma_fence_operands(pa);
-    product_rs<D>(acc, pa, dk_role ? q_tile : do_tile);
+    product_rs<D, kBlk>(acc, pa, dk_role ? q_tile : do_tile, kBoxBytes);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_operands(acc);
@@ -573,31 +642,36 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
   unsigned char* q_s = sm.own;
   unsigned char* do_s = sm.own + C::kTileBytes;
 
-  const int bh = blockIdx.x;
+  // the grid's fast axis: the batch-head's chunks of dQ's columns, each
+  // chunk a CTA
+  const int bh = blockIdx.x / C::kChunks;
+  const int chunk = blockIdx.x % C::kChunks;
   const int b = bh / p.heads;
   const int h = bh % p.heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;  // the longest causal loops first
   // the forward's causal bound: the CTA's K/V tiles run through its diagonal
-  const int n_kv = p.causal ? q0 / kBlk + 1 : p.seq / kBlk;
+  constexpr int N = C::kStream;
+  const int n_kv = p.causal ? (q0 + kBlk) / N : p.seq / N;
   auto stage_of = [](int j) { return j % C::kStages; };
   auto phase_of = [](int j) { return static_cast<uint32_t>(j / C::kStages) & 1u; };
   init_barriers(sm);
 
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
-  if (wg == 2) {
+  if (wg == C::kConsumers) {
     if constexpr (C::kRegSplit) setmaxnreg_dec<kProducerRegs>();
     // producer: one thread loads Q and dO once, then K and V tile by tile
-    if (threadIdx.x == 256) {
+    if (threadIdx.x == 128 * C::kConsumers) {
       mbar_arrive_expect_tx(sm.own_full, 2 * C::kTileBytes);
-      load_tile<C>(q_s, &p.q, sm.own_full, h, q0, b);
-      load_tile<C>(do_s, &p.dout, sm.own_full, h, q0, b);
+      load_tile<kBoxBytes, C::kBoxes>(q_s, &p.q, sm.own_full, h, q0, b);
+      load_tile<kBoxBytes, C::kBoxes>(do_s, &p.dout, sm.own_full, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int st = stage_of(j);
         mbar_wait(&sm.empty[st], phase_of(j) ^ 1);  // a fresh ring starts empty
         unsigned char* k_tile = sm.ring + st * C::kStageBytes;
         mbar_arrive_expect_tx(&sm.full[st], C::kStageBytes);
-        load_tile<C>(k_tile, &p.k, &sm.full[st], h, j * kBlk, b);
-        load_tile<C>(k_tile + C::kTileBytes, &p.v, &sm.full[st], h, j * kBlk, b);
+        load_tile<C::kStreamBoxBytes, C::kBoxes>(k_tile, &p.k, &sm.full[st], h, j * N, b);
+        load_tile<C::kStreamBoxBytes, C::kBoxes>(k_tile + C::kStreamTileBytes, &p.v,
+                                                 &sm.full[st], h, j * N, b);
       }
     }
     return;
@@ -605,11 +679,11 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
   if constexpr (C::kRegSplit) setmaxnreg_inc<kConsumerRegs>();
 
   // consumer warpgroup `wg`: of the CTA's K/V tiles the ones j = wg (mod
-  // 2); thread t holds Q rows row0 and row0 + 8, in the accumulator
-  // layout of the dK/dV kernel
+  // kConsumers); thread t holds Q rows row0 and row0 + 8, in the
+  // accumulator layout of the dK/dV kernel
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
-  const int mine = n_kv > wg ? (n_kv - wg + 1) / 2 : 0;
+  const int mine = n_kv > wg ? (n_kv - wg + C::kConsumers - 1) / C::kConsumers : 0;
   const int row0 = q0 + warp * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
   float lse_l2[2], delta[2];  // lse in log2 units
@@ -619,36 +693,40 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
     lse_l2[r] = p.lse_rows[at] * kLog2e;
     delta[r] = p.delta_rows[at];
   }
-  float dq[D / 2];
+  float dq[C::kDc / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+  for (int i = 0; i < C::kDc / 2; ++i) dq[i] = 0.0f;
 
   if (mine > 0) {
-    float s[32], dp[32];
-    uint32_t pds[kBlk / kWgK][4];  // dS in bf16 pairs: A of dS K
+    float s[N / 2], dp[N / 2];
+    uint32_t pds[N / kWgK][4];  // dS in bf16 pairs: A of dS K
 
-    // S = Q K^T and dP = dO V^T for tile j, one group
+    // S = Q K^T and dP = dO V^T for tile j, one group, over every column
     auto issue_scores = [&](int j) {
       const unsigned char* k_tile = sm.ring + stage_of(j) * C::kStageBytes;
-      product_ss<D>(s, q_s, k_tile);
-      product_ss<D>(dp, do_s, k_tile + C::kTileBytes);
+      product_ss<D, N>(s, q_s, k_tile);
+      product_ss<D, N>(dp, do_s, k_tile + C::kStreamTileBytes);
       wgmma_commit();
     };
-    // P = exp(S scale - lse) under the diagonal tile's mask, then dS = P
-    // (dP - delta) scale, in dP's registers
+    // P = exp(S scale - lse) under the mask of the tiles that reach past the
+    // CTA's first row (the diagonal one, or at 32 rows a tile the two that
+    // cover the CTA's own keys), then dS = P (dP - delta) scale, in dP's
+    // registers
     auto grad = [&](int j) {
-      const bool diagonal = p.causal && j * kBlk == q0;
+      const bool diagonal = p.causal && (j + 1) * N > q0;
 #pragma unroll
-      for (int x = 0; x < 32; ++x) {
+      for (int x = 0; x < N / 2; ++x) {
         const int r = x % 4 / 2;
-        if (diagonal && row0 + r * 8 < j * kBlk + (x / 4) * 8 + col0 + x % 2) s[x] = kNegInf;
+        if (diagonal && row0 + r * 8 < j * N + (x / 4) * 8 + col0 + x % 2) s[x] = kNegInf;
         const float pe = exp2_approx(fmaf(s[x], p.scale_log2, -lse_l2[r]));
         dp[x] = pe * (dp[x] - delta[r]) * p.scale;
       }
     };
-    // dQ += dS K for tile j, K read N-major
+    // dQ += dS K on the CTA's columns for tile j, K read N-major
     auto issue_dq = [&](int j) {
-      product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);
+      const unsigned char* k_cols =
+          sm.ring + stage_of(j) * C::kStageBytes + chunk * (C::kDc / kBox) * C::kStreamBoxBytes;
+      product_rs<C::kDc, N>(dq, pds, k_cols, C::kStreamBoxBytes);
       wgmma_commit();
     };
 
@@ -662,12 +740,12 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
       wgmma_fence_operands(s);
       wgmma_fence_operands(dp);
       grad(cur);
-      pack(pds, dp);
+      pack<N>(pds, dp);
       // each step issues tile j's S and dP, then the previous tile's dS K,
       // and computes tile j's dS while dS K is in flight; no wgmma sits under
       // a condition
       for (int i = 1; i < mine; ++i) {
-        const int j = wg + 2 * i;
+        const int j = wg + C::kConsumers * i;
         mbar_wait(&sm.full[stage_of(j)], phase_of(j));
         wgmma_fence();  // this thread's writes of dq and pds precede the products
         wgmma_fence_operands(dq);
@@ -682,7 +760,7 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
         wgmma_fence_operands(dq);
         wgmma_fence_operands(pds);
         if (t == 0) mbar_arrive(&sm.empty[stage_of(cur)]);  // dS K is done with its stage
-        pack(pds, dp);
+        pack<N>(pds, dp);
         cur = j;
       }
       wgmma_fence();
@@ -693,10 +771,10 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
       wgmma_fence_operands(dq);
       if (t == 0) mbar_arrive(&sm.empty[stage_of(cur)]);
     } else {
-      // d 256: each tile's products in turn, its stage released before the
-      // next tile is awaited
+      // d 256 and 512: each tile's products in turn, its stage released
+      // before the next tile is awaited
       for (int i = 0; i < mine; ++i) {
-        const int j = wg + 2 * i;
+        const int j = wg + C::kConsumers * i;
         mbar_wait(&sm.full[stage_of(j)], phase_of(j));
         wgmma_fence();  // this thread's writes of dq and pds precede the products
         wgmma_fence_operands(dq);
@@ -706,7 +784,7 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
         wgmma_fence_operands(s);
         wgmma_fence_operands(dp);
         grad(j);
-        pack(pds, dp);
+        pack<N>(pds, dp);
         wgmma_fence();
         wgmma_fence_operands(pds);
         issue_dq(j);
@@ -718,8 +796,10 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
     }
   }
 
-  if (!merge(sm, wg, t, dq)) return;
-  store_rows<D>(p, 0, b, h, row0, col0, dq);
+  if constexpr (C::kConsumers == 2) {
+    if (!merge(sm, wg, t, dq)) return;
+  }
+  store_rows<C::kDc>(p, 0, b, h, row0, col0, dq, chunk * C::kDc);
 }
 
 template <class Kernel>
@@ -738,7 +818,7 @@ cudaError_t opt_in_both() {
 template <int D, bool DKV>
 void launch(const Params& p, int batch_heads, cudaStream_t stream) {
   using C = Cfg<D, DKV>;
-  const dim3 grid(batch_heads, p.seq / kBlk);
+  const dim3 grid(batch_heads * C::kChunks, p.seq / kBlk);
   if constexpr (DKV) {
     flash_bwd_dkv_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(p);
   } else {
@@ -749,7 +829,8 @@ void launch(const Params& p, int batch_heads, cudaStream_t stream) {
 template <class C>
 int config_of(int* out, int n) {
   const int values[] = {C::kThreads, C::kStages, static_cast<int>(C::kSmem),
-                        C::kRegSplit ? kProducerRegs : 0, C::kRegSplit ? kConsumerRegs : 0};
+                        C::kRegSplit ? kProducerRegs : 0, C::kRegSplit ? kConsumerRegs : 0,
+                        C::kChunks, C::kStream};
   const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
   for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
   return count;
@@ -763,7 +844,8 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
                const int64_t* strides, int batch, int heads, int seq, int head_dim, int causal,
                float scale, int device, void* stream) {
   if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  if (head_dim != 64 && head_dim != 128 && head_dim != 256) {
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256 && head_dim != 384 &&
+      head_dim != 512) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int cur = 0;
@@ -773,21 +855,25 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   // cuTensorMapEncodeTiled needs; a thread's first cudaGetDevice does not
   if ((err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   Params p;
-  CUresult refused = encode_bshd(&p.q, q, batch, seq, heads, head_dim, strides);
+  // the CTA's own tiles in 64-row boxes, the streamed ones (dQ: K and V;
+  // dK/dV: Q, dO, lse and delta) in the tiles' rows
+  const int rows = stream_rows(head_dim);
+  const int q_rows = dkv ? rows : kBlk, kv_rows = dkv ? kBlk : rows;
+  CUresult refused = encode_bshd(&p.q, q, batch, seq, heads, head_dim, strides, q_rows);
   if (refused == CUDA_SUCCESS) {
-    refused = encode_bshd(&p.k, k, batch, seq, heads, head_dim, strides + 3);
+    refused = encode_bshd(&p.k, k, batch, seq, heads, head_dim, strides + 3, kv_rows);
   }
   if (refused == CUDA_SUCCESS) {
-    refused = encode_bshd(&p.v, v, batch, seq, heads, head_dim, strides + 6);
+    refused = encode_bshd(&p.v, v, batch, seq, heads, head_dim, strides + 6, kv_rows);
   }
   if (refused == CUDA_SUCCESS) {
-    refused = encode_bshd(&p.dout, dout, batch, seq, heads, head_dim, strides + 9);
+    refused = encode_bshd(&p.dout, dout, batch, seq, heads, head_dim, strides + 9, q_rows);
   }
   if (dkv && refused == CUDA_SUCCESS) {
-    refused = encode_rows_f32(&p.lse, lse, batch * heads, seq);
+    refused = encode_rows_f32(&p.lse, lse, batch * heads, seq, rows);
   }
   if (dkv && refused == CUDA_SUCCESS) {
-    refused = encode_rows_f32(&p.delta, delta, batch * heads, seq);
+    refused = encode_rows_f32(&p.delta, delta, batch * heads, seq, rows);
   }
   if (refused != CUDA_SUCCESS) {
     if (cur != device) cudaSetDevice(cur);
@@ -807,7 +893,11 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 256) {
+  if (head_dim == 512) {
+    dkv ? launch<512, true>(p, batch * heads, s) : launch<512, false>(p, batch * heads, s);
+  } else if (head_dim == 384) {
+    dkv ? launch<384, true>(p, batch * heads, s) : launch<384, false>(p, batch * heads, s);
+  } else if (head_dim == 256) {
     dkv ? launch<256, true>(p, batch * heads, s) : launch<256, false>(p, batch * heads, s);
   } else if (head_dim == 128) {
     dkv ? launch<128, true>(p, batch * heads, s) : launch<128, false>(p, batch * heads, s);
@@ -823,9 +913,9 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
 
 // C entries, bound with ctypes.
 //
-// flash_attention_bwd_init opts the six instantiations (each kernel at
-// head_dim 64, 128 and 256) in to the dynamic shared memory they need above the
-// default 48 KB and looks up the CUDA driver API's cuTensorMapEncodeTiled.
+// flash_attention_bwd_init opts the ten instantiations (each kernel at
+// head_dim 64, 128, 256, 384 and 512) in to the dynamic shared memory they
+// need above the default 48 KB and looks up the CUDA driver API's cuTensorMapEncodeTiled.
 // It is called once per device before the first launch, never at launch: a
 // launch may sit inside CUDA-graph capture.  Returns a cudaError_t.
 extern "C" int flash_attention_bwd_init(int device) {
@@ -838,6 +928,8 @@ extern "C" int flash_attention_bwd_init(int device) {
   err = opt_in_both<64>();
   if (err == cudaSuccess) err = opt_in_both<128>();
   if (err == cudaSuccess) err = opt_in_both<256>();
+  if (err == cudaSuccess) err = opt_in_both<384>();
+  if (err == cudaSuccess) err = opt_in_both<512>();
   if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -845,8 +937,9 @@ extern "C" int flash_attention_bwd_init(int device) {
 
 // The configuration of the instantiation for (dkv: the dK/dV kernel, else
 // dQ; head_dim), for reports: threads, ring stages, dynamic shared memory in
-// bytes (one CTA an SM), and the producer's and the consumers' registers
-// under setmaxnreg (0, 0 without it).  Writes at most `n` values; returns
+// bytes (one CTA an SM), the producer's and the consumers' registers under
+// setmaxnreg (0, 0 without it), CTAs a (batch-head, 64-row tile) (chunks of
+// the output's columns), and rows a streamed tile.  Writes at most `n` values; returns
 // how many there are, or 0 where there is no such instantiation.
 extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n) {
   if (head_dim == 64) {
@@ -857,6 +950,12 @@ extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n
   }
   if (head_dim == 256) {
     return dkv ? config_of<Cfg<256, true>>(out, n) : config_of<Cfg<256, false>>(out, n);
+  }
+  if (head_dim == 384) {
+    return dkv ? config_of<Cfg<384, true>>(out, n) : config_of<Cfg<384, false>>(out, n);
+  }
+  if (head_dim == 512) {
+    return dkv ? config_of<Cfg<512, true>>(out, n) : config_of<Cfg<512, false>>(out, n);
   }
   return 0;
 }

@@ -236,7 +236,8 @@ void launch(const Params& p, int batch_heads, cudaStream_t stream) {
 
 template <class C>
 int config_of(int* out, int n) {
-  const int values[] = {kF32Threads, 1, static_cast<int>(C::kSmem), 0, 0};
+  // one CTA a (batch-head, 64-row tile): its chunks, 1
+  const int values[] = {kF32Threads, 1, static_cast<int>(C::kSmem), 0, 0, 1, C::T::kOther};
   const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
   for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
   return count;

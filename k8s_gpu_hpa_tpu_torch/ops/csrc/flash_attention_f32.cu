@@ -172,7 +172,9 @@ void launch(const Params& p, int batch_heads, cudaStream_t stream) {
 
 template <int D>
 int config_of(int* out, int n) {
-  const int values[] = {kF32Threads, 1, Cfg<D>::kCtasPerSm, static_cast<int>(Cfg<D>::kSmem)};
+  // one CTA a (batch-head, Q tile): its chunks, 1
+  const int values[] = {kF32Threads, 1, Cfg<D>::kCtasPerSm, static_cast<int>(Cfg<D>::kSmem), 1,
+                        F32Tiles<D>::kOther};
   const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
   for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
   return count;

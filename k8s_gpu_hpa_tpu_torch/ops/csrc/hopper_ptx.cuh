@@ -182,6 +182,26 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d = A B + (scale_d ? d : 0) for a 64x32x16 tile: A [64,16] and B [16,32] both
+// K-major in shared memory (imm-trans-b 0: B is stored as 32 rows of K);
+// d fp32, in the layout of wgmma_m64n256k16, j < 4.  The score products of
+// the flash kernels at head_dim 384 and 512, whose streamed tiles are 32 rows.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." ELEM_PTX "." ELEM_PTX " "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d = A B + (scale_d ? d : 0) for a 64x64x16 tile: A [64,16] Elem from
 // registers, B [16,64] N-major in shared memory (imm-trans-b 1).  Thread t
 // of the warpgroup holds A's rows 16(t/32) + (t%32)/4 and +8, columns 2(t%4),

@@ -20,6 +20,11 @@ namespace {
 constexpr int kBox = 64;      // an Elem box's columns: one 128-byte swizzle row
 constexpr int kBoxRows = 64;  // a box's rows: one tile of Q, K, V or dO
 
+// the rows of a streamed tile (K/V in the forward and dQ, Q/dO in dK/dV):
+// 64, and 32 at head_dim 384 and 512, where a 64-row ring does not fit
+// shared memory beside the CTA's own 64-row tiles
+constexpr int stream_rows(int head_dim) { return head_dim > 256 ? 32 : kBoxRows; }
+
 PFN_cuTensorMapEncodeTiled g_encode = nullptr;
 
 // Looks up cuTensorMapEncodeTiled, once.
@@ -36,10 +41,10 @@ cudaError_t find_encode() {
 }
 
 // a [b, s, h, d] Elem tensor with element strides (sb, ss, sh, 1), read in
-// 64 x 64 boxes of (d, s) under the 128-byte swizzle; out of bounds reads
-// zero
+// boxes of 64 (d) x `rows` (s) under the 128-byte swizzle; out of bounds
+// reads zero
 CUresult encode_bshd(CUtensorMap* map, const void* base, int batch, int seq, int heads, int d,
-                     const int64_t* strides) {
+                     const int64_t* strides, int rows = kBoxRows) {
   // a head stride never stepped (one head) may be anything legal
   const int64_t sh = heads == 1 ? d : strides[2];
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
@@ -47,22 +52,23 @@ CUresult encode_bshd(CUtensorMap* map, const void* base, int batch, int seq, int
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(sh) * 2,
                                static_cast<cuuint64_t>(strides[1]) * 2,
                                static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {kBox, 1, kBoxRows, 1};
+  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
   return g_encode(map, kElemTma, 4, const_cast<void*>(base), dims, bytes,
                   box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// a contiguous [rows, seq] fp32 tensor, read in boxes of 64 values of one
-// row, unswizzled
-CUresult encode_rows_f32(CUtensorMap* map, const float* base, int rows, int seq) {
+// a contiguous [rows, seq] fp32 tensor, read in boxes of `box` values of
+// one row, unswizzled
+CUresult encode_rows_f32(CUtensorMap* map, const float* base, int rows, int seq,
+                         int box = kBoxRows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(rows)};
   const cuuint64_t bytes[1] = {static_cast<cuuint64_t>(seq) * sizeof(float)};
-  const cuuint32_t box[2] = {kBoxRows, 1};
+  const cuuint32_t boxes[2] = {static_cast<cuuint32_t>(box), 1};
   const cuuint32_t steps[2] = {1, 1};
   return g_encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, bytes,
-                  box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -39,16 +39,21 @@ Entry points:
   the envelope it takes ``reference_attention``, which autograd
   differentiates.
 
-The envelope is the Hopper kernels', not the TPU's: bf16, f16 or f32,
-head_dim 64, 128 or 256, and a sequence that is a positive multiple of the
-64-row KV tile.  There is no stripe cap, because the kernels stream tiles
-through shared memory instead of holding a batch-head's whole stripe.  It
-covers the TPU kernel's envelope in those dtypes (head_dim a multiple of
-128 within a 12 MiB K/V stripe: 128 and 256), but not head_dim 384 and 512,
-which take ``reference_attention``, as any shape or dtype outside the
-envelope does (ROADMAP.md §2 queues them).  The kernels' tiles are fixed;
-``block_q`` and ``block_k`` are the TPU kernel's tile sizes, accepted so
-that callers keep the JAX signature, and change nothing here.
+The envelope is the Hopper kernels', not the TPU's, and it is per dtype
+(``HEAD_DIMS``): head_dim 64, 128, 256, 384 or 512 in bf16 and f16, 64, 128
+or 256 in f32, and a sequence that is a positive multiple of the 64-row
+tile.  There is no stripe cap, because the kernels stream tiles through
+shared memory instead of holding a batch-head's whole stripe.  It covers
+the TPU kernel's envelope (head_dim a multiple of 128 within a 12 MiB K/V
+stripe) up to head_dim 512 in bf16 and f16, and to 256 in f32; anything
+outside it, f32 at 384 and 512 and every head_dim past 512 among them,
+takes ``reference_attention`` (ROADMAP.md §2 queues those).  At head_dim
+384 and 512 each kernel splits its output's columns across CTAs (chunks:
+half of O's and dQ's, a 128 of dK's and dV's), every chunk recomputing the
+scores over the whole head_dim; a call is still one launch.  The kernels'
+tiles are fixed; ``block_q`` and ``block_k`` are the TPU kernel's tile
+sizes, accepted so that callers keep the JAX signature, and change nothing
+here.
 """
 
 from __future__ import annotations
@@ -75,15 +80,19 @@ HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "elem.cuh", CSRC / "smem_desc.cuh",
 F32_HEADERS = (CSRC / "ffma_tiles.cuh",)
 #: the kernels' dtypes by name: the name of each library and count
 DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
-#: K/V rows per tile of the kernels; the sequence must be a multiple
+#: rows of a CTA's own tile; the sequence must be a multiple
 KV_TILE = 64
-HEAD_DIMS = (64, 128, 256)
+#: the head_dims each dtype's kernels take: the wgmma sources' five (at 384
+#: and 512 the chunked tilings), the f32 FFMA sources' three
+HEAD_DIMS = {torch.bfloat16: (64, 128, 256, 384, 512), torch.float16: (64, 128, 256, 384, 512),
+             torch.float32: (64, 128, 256)}
 #: the forward's consumer warpgroups a CTA of 64 Q rows, which take turns
 #: over its K/V tiles: one (two CTAs an SM) or two (one CTA an SM)
 FWD_SPLITS = (1, 2)
 #: the backward kernels, each on two consumer warpgroups a CTA of 64 rows
 #: that take turns over the ring's tiles: K/V tiles for dQ, Q tiles for
-#: dK/dV (at head_dim 256 dK/dV's split dV and dK instead)
+#: dK/dV (at head_dim 256 dK/dV's split dV and dK instead; at 384 and 512
+#: one warpgroup a CTA)
 BWD_KERNELS = ("dq", "dkv")
 
 _PTR, _INT, _I64P = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
@@ -152,11 +161,11 @@ def build(dtype: torch.dtype = torch.bfloat16) -> tuple[Path, str]:
 
 def fwd_splits(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> tuple[int, ...]:
     """The forward's instantiations at ``head_dim`` and ``dtype``, by
-    consumer warpgroups a CTA: ``FWD_SPLITS``, or one alone at 256, where a
-    64-row tile is 32 KB and two warpgroups' ring and hand-over do not fit
-    an SM's shared memory (csrc/flash_attention.cu), and in f32, whose
-    kernel has one tiling (csrc/flash_attention_f32.cu)."""
-    return (1,) if head_dim == 256 or dtype == torch.float32 else FWD_SPLITS
+    consumer warpgroups a CTA: ``FWD_SPLITS``, or one alone from 256 on,
+    where a 64-row tile is 32 KB or more and two warpgroups' ring and
+    hand-over do not fit an SM's shared memory (csrc/flash_attention.cu),
+    and in f32, whose kernel has one tiling (csrc/flash_attention_f32.cu)."""
+    return (1,) if head_dim >= 256 or dtype == torch.float32 else FWD_SPLITS
 
 
 def fwd_split(batch_heads: int, seq: int, sms: int, head_dim: int,
@@ -174,13 +183,15 @@ def fwd_config(head_dim: int, kv_split: int, device: int = 0,
                dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
     """The forward instantiation's configuration, as the library of
     ``dtype`` reports it: threads, ring stages, CTAs an SM, dynamic shared
-    memory in bytes."""
-    out = (ctypes.c_int * 4)()
-    n = _FWD.load(dtype, device).flash_attention_config(head_dim, kv_split, out, 4)
-    if n != 4:
+    memory in bytes, CTAs a (batch-head, Q tile) (``chunks`` of O's
+    columns: 2 at head_dim 384 and 512, else 1) and K/V rows a tile."""
+    keys = ("threads", "stages", "ctas_per_sm", "smem_bytes", "chunks", "kv_rows")
+    out = (ctypes.c_int * len(keys))()
+    n = _FWD.load(dtype, device).flash_attention_config(head_dim, kv_split, out, len(keys))
+    if n != len(keys):
         raise ValueError(f"no {DTYPES[dtype]} forward instantiation for head_dim {head_dim}, "
                          f"kv_split {kv_split}")
-    return dict(zip(("threads", "stages", "ctas_per_sm", "smem_bytes"), out))
+    return dict(zip(keys, out))
 
 
 def build_bwd(dtype: torch.dtype = torch.bfloat16) -> tuple[Path, str]:
@@ -192,10 +203,13 @@ def bwd_config(kernel: str, head_dim: int, device: int = 0,
                dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
     """A backward instantiation's configuration (``kernel`` one of
     ``BWD_KERNELS``), as the library of ``dtype`` reports it: threads, ring
-    stages, dynamic shared memory in bytes (one CTA an SM), and the
-    producer's and the consumers' registers under ``setmaxnreg`` (0 without
-    it)."""
-    keys = ("threads", "stages", "smem_bytes", "producer_regs", "consumer_regs")
+    stages, dynamic shared memory in bytes (one CTA an SM), the producer's
+    and the consumers' registers under ``setmaxnreg`` (0 without it), CTAs
+    a (batch-head, 64-row tile) (``chunks`` of the output's columns: at
+    head_dim 384 and 512 dQ's 2, dK/dV's 3 and 4, else 1) and rows a
+    streamed tile."""
+    keys = ("threads", "stages", "smem_bytes", "producer_regs", "consumer_regs", "chunks",
+            "stream_rows")
     out = (ctypes.c_int * len(keys))()
     n = _BWD.load(dtype, device).flash_attention_bwd_config(
         BWD_KERNELS.index(kernel), head_dim, out, len(keys))
@@ -317,7 +331,7 @@ def flash_attention_bwd_reference(
 def _check(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
     """Raises unless the operands suit the kernels: one CUDA device, one
     dtype of ``DTYPES``, one shape, [b*h, s, d] or [b, s, h, d], head_dim in
-    ``HEAD_DIMS``, seq a positive multiple of the KV tile, head_dim
+    the dtype's ``HEAD_DIMS``, seq a positive multiple of the tile, head_dim
     contiguous and every other stride a multiple of 8 elements, 16-byte
     aligned."""
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
@@ -335,8 +349,9 @@ def _check(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
             f"{[tuple(t.shape) for t in tensors]}"
         )
     seq, d = q.shape[1], q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{name} takes {DTYPES[q.dtype]} operands of head_dim in "
+                         f"{HEAD_DIMS[q.dtype]}, got {d}")
     if seq <= 0 or seq % KV_TILE:
         raise ValueError(f"{name} needs seq a positive multiple of {KV_TILE}, got {seq}")
     for t in tensors:
@@ -526,12 +541,13 @@ class FlashAttention(torch.autograd.Function):
 def flash_shape_supported(
     seq: int, head_dim: int, dtype: torch.dtype, block_q: int = 512, block_k: int = 512
 ) -> bool:
-    """The kernels' envelope: bf16, f16 or f32, head_dim 64, 128 or 256,
-    seq a positive multiple of the KV tile.  ``block_q``/``block_k`` change
-    nothing (see the module's note)."""
+    """The kernels' envelope: bf16 or f16 at head_dim 64, 128, 256, 384 or
+    512, f32 at 64, 128 or 256 (``HEAD_DIMS``), seq a positive multiple of
+    the tile.  ``block_q``/``block_k`` change nothing (see the module's
+    note)."""
     return (
         dtype in DTYPES
-        and head_dim in HEAD_DIMS
+        and head_dim in HEAD_DIMS[dtype]
         and seq > 0
         and seq % KV_TILE == 0
     )

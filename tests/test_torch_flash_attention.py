@@ -74,12 +74,13 @@ def test_causal_with_uneven_jax_blocks():
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_matches_jax_flash(causal, head_dim):
     """bf16, inside the envelope: the dispatcher takes the kernel's wrapper,
     which on the CPU computes the plain version; JAX's Pallas kernel takes
-    head_dim 128 and 256 alike."""
+    head_dim 128, 256, 384 and 512 alike (the last two the chunked kernels'
+    widths on the card), at JAX's bf16 bar, 0.06."""
     q, k, v = _qkv(seq=128, head_dim=head_dim)
     assert flash_attention_supported(_torch(q, dtype=torch.bfloat16)[0])
     want = jax_flash_attention(
@@ -92,7 +93,7 @@ def test_bf16_matches_jax_flash(causal, head_dim):
     )
 
 
-@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_f16_matches_jax_flash(causal, head_dim):
     """f16, inside the envelope (the wgmma kernel built as f16): the
@@ -112,7 +113,7 @@ def test_f16_matches_jax_flash(causal, head_dim):
     )
 
 
-@pytest.mark.parametrize("head_dim", [128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_f16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
     """The training forward's residual in f16: the output at the bf16 bar;
@@ -124,6 +125,24 @@ def test_f16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
     got_o, got_lse = flash_attention_kernel(*_torch(q, k, v, dtype=torch.float16), causal,
                                             with_lse=True)
     assert got_o.dtype == torch.float16 and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_o.float().numpy(), np.asarray(want_o, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("head_dim", [384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
+    """The training forward's residual in bf16 at the chunked kernels'
+    widths: the output at JAX's bf16 bar, 0.06; the logsumexp is fp32 on
+    both sides, from the same bf16 scores: 1e-4."""
+    q, k, v = (x.reshape(4, 128, head_dim)
+               for x in _qkv(batch=2, seq=128, heads=2, head_dim=head_dim, seed=19))
+    want_o, want_lse = _flash_bhsd(*_jax(q, k, v, dtype=jnp.bfloat16), causal, 64, 64,
+                                   with_lse=True)
+    got_o, got_lse = flash_attention_kernel(*_torch(q, k, v, dtype=torch.bfloat16), causal,
+                                            with_lse=True)
+    assert got_o.dtype == torch.bfloat16 and got_lse.dtype == torch.float32
     np.testing.assert_allclose(got_o.float().numpy(), np.asarray(want_o, np.float32),
                                rtol=BF16_TOL, atol=BF16_TOL)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0, atol=1e-4)
@@ -163,14 +182,19 @@ def test_envelope():
     assert flash_shape_supported(512, 128, bf16)  # the serve prefill's shape
     assert flash_shape_supported(192, 64, bf16)
     assert flash_shape_supported(64, 128, bf16, block_q=24, block_k=24)  # blocks change nothing
-    # the kernels take bf16, f16 (wgmma) and f32 (FFMA) at every head_dim
+    # the kernels take bf16, f16 (wgmma) and f32 (FFMA) at head_dim 64-256
     for dtype in (bf16, torch.float16, torch.float32):
         assert all(flash_shape_supported(512, d, dtype) for d in (64, 128, 256))
     assert not flash_shape_supported(512, 128, torch.float64)  # no kernel of that dtype
     # head_dim 256 (D_MODEL=2048 N_HEADS=8) at every positive multiple of the tile
     assert all(flash_shape_supported(64 * n, 256, bf16) for n in range(1, 385))
-    assert not flash_shape_supported(512, 384, bf16)  # past the kernels' widths: ROADMAP
-    assert not flash_shape_supported(512, 512, bf16)
+    # 384 and 512 (D_MODEL=1536 and 2048 in N_HEADS=4) in bf16 and f16 alone:
+    # the chunked wgmma kernels; f32's FFMA kernels stop at 256 (ROADMAP)
+    for d in (384, 512):
+        assert flash_shape_supported(512, d, bf16) and flash_shape_supported(512, d, torch.float16)
+        assert all(flash_shape_supported(64 * n, d, bf16) for n in range(1, 65))
+        assert not flash_shape_supported(512, d, torch.float32)
+    assert not flash_shape_supported(512, 640, bf16)  # past the kernels' widths: ROADMAP
     assert not flash_shape_supported(512, 16, bf16)
     assert not flash_shape_supported(96, 128, bf16)  # not a multiple of the KV tile
     assert not flash_shape_supported(0, 128, bf16)
@@ -238,6 +262,13 @@ def test_cpu_path_ignores_the_tiling(monkeypatch):
         (64, 512, 132, 256, 1),
         (1, 256, 132, 256, 1),
         (2, 192, 2, 256, 1),
+        # so have 384 and 512: the llm shape and the prefill at D_MODEL=1536
+        # and 2048 in N_HEADS=4, and a grid of 4 CTAs
+        (4, 2048, 132, 384, 1),
+        (32, 512, 132, 384, 1),
+        (4, 2048, 132, 512, 1),
+        (32, 512, 132, 512, 1),
+        (1, 256, 132, 512, 1),
     ],
 )
 def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, head_dim, want):
@@ -246,14 +277,18 @@ def test_forward_tiling_keeps_the_card_busy(batch_heads, seq, sms, head_dim, wan
 
 
 def test_forward_instantiations_by_head_dim():
-    """Two tilings at head_dim 64 and 128, one at 256 (a 64-row tile is 32
-    KB: two warpgroups' ring and hand-over pass an SM's shared memory), in
-    bf16 and f16 alike (one source, two builds); the f32 kernel has one
-    tiling at every head_dim, so its split is 1 whatever the grid."""
-    assert fa.HEAD_DIMS == (64, 128, 256)
+    """Two tilings at head_dim 64 and 128, one at 256, 384 and 512 (a 64-row
+    tile is 32 KB or more: two warpgroups' ring and hand-over pass an SM's
+    shared memory), in bf16 and f16 alike (one source, two builds); the f32
+    kernel has one tiling at each of its head_dims, 64 to 256, so its split
+    is 1 whatever the grid."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert [fa.fwd_splits(d, dtype) for d in fa.HEAD_DIMS] == [(1, 2), (1, 2), (1,)]
-    assert [fa.fwd_splits(d, torch.float32) for d in fa.HEAD_DIMS] == [(1,), (1,), (1,)]
+        assert fa.HEAD_DIMS[dtype] == (64, 128, 256, 384, 512)
+        assert [fa.fwd_splits(d, dtype) for d in fa.HEAD_DIMS[dtype]] == [
+            (1, 2), (1, 2), (1,), (1,), (1,)]
+    assert fa.HEAD_DIMS[torch.float32] == (64, 128, 256)
+    assert [fa.fwd_splits(d, torch.float32) for d in fa.HEAD_DIMS[torch.float32]] == [
+        (1,), (1,), (1,)]
     assert fa.fwd_split(4, 2048, 132, 128, torch.float32) == 1
     assert fa.fwd_split(4, 2048, 132, 128, torch.float16) == 2
 
@@ -291,7 +326,7 @@ def test_f32_sources_are_ffma_with_every_head_dim():
         assert "fmaf(" in (fa.CSRC / "ffma_tiles.cuh").read_text()
         included = set(re.findall(r'#include "([^"]+)"', code))
         assert {fa.CSRC / name for name in included} == set(fa.F32_HEADERS)
-        for d in fa.HEAD_DIMS:
+        for d in fa.HEAD_DIMS[torch.float32]:
             assert all(form.format(d=d) in code for form in launched), (source.name, d)
             assert f"opt_in<{d}>()" in code or f"opt_in_both<{d}>()" in code
 
@@ -314,6 +349,18 @@ def test_a_cuda_operand_of_another_dtype_raises(dtype):
     mixed = (_FakeCuda(torch.float16), _FakeCuda(torch.float32), _FakeCuda(torch.float16))
     with pytest.raises(TypeError, match="operands of one of"):
         fa._check("flash_attention_kernel", mixed)
+
+
+def test_a_cuda_f32_operand_past_head_dim_256_raises():
+    """f32 stops at head_dim 256 (the FFMA kernels): a CUDA f32 operand of
+    384 or 512 raises in the wrappers' check, where bf16 and f16 pass that
+    test; nothing falls back to the plain version."""
+    for d in (384, 512):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check("flash_attention_kernel", (_FakeCuda(torch.float32, (1, 128, 2, d)),) * 3)
+        assert d in fa.HEAD_DIMS[torch.bfloat16] and d in fa.HEAD_DIMS[torch.float16]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check("flash_attention_kernel", (_FakeCuda(torch.bfloat16, (1, 128, 2, 640)),) * 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float16, torch.float32], ids=str)
@@ -343,14 +390,17 @@ def test_forward_source_is_wgmma_fed_by_tma():
     on mbarriers; the mma.sync, ldmatrix and cp.async path is gone, and the
     headers it includes rebuild it.  Every instantiation, d256's among them,
     is opted in and launched, on the same wgmma products (P V at 256 as two
-    of 128 columns)."""
-    _assert_wgmma_fed_by_tma(fa.SOURCE, ("wgmma_m64n64k16_ss", "wgmma_m64n128k16_rs",
-                                         "wgmma_m64n64k16_rs", "tma_load_4d"))
+    of 128 columns; at 384 and 512 the scores as m64n32k16 products over
+    32-row K tiles)."""
+    _assert_wgmma_fed_by_tma(fa.SOURCE, ("wgmma_m64n64k16_ss", "wgmma_m64n32k16_ss",
+                                         "wgmma_m64n128k16_rs", "wgmma_m64n64k16_rs",
+                                         "tma_load_4d"))
     code = fa.SOURCE.read_text()
-    for d in fa.HEAD_DIMS:
+    for d in fa.HEAD_DIMS[torch.bfloat16]:
         for split in fa.fwd_splits(d):
             assert f"opt_in<{d}, {split}>()" in code and f"launch<{d}, {split}>(" in code
-    assert "opt_in<256, 2>" not in code and "launch<256, 2>" not in code
+    for d in (256, 384, 512):
+        assert f"opt_in<{d}, 2>" not in code and f"launch<{d}, 2>" not in code
 
 
 def test_backward_source_is_wgmma_fed_by_tma():
@@ -359,11 +409,11 @@ def test_backward_source_is_wgmma_fed_by_tma():
     loads Q, K, V and dO by 4-D TMA and lse and delta by 2-D TMA on
     mbarriers; no source or header of the kernels has an mma.sync, ldmatrix
     or cp.async left."""
-    _assert_wgmma_fed_by_tma(fa.BWD_SOURCE, ("wgmma_m64n64k16_ss", "wgmma_m64n128k16_rs",
-                                             "wgmma_m64n64k16_rs", "tma_load_4d",
-                                             "tma_load_2d", "setmaxnreg_inc"))
+    _assert_wgmma_fed_by_tma(fa.BWD_SOURCE, ("wgmma_m64n64k16_ss", "wgmma_m64n32k16_ss",
+                                             "wgmma_m64n128k16_rs", "wgmma_m64n64k16_rs",
+                                             "tma_load_4d", "tma_load_2d", "setmaxnreg_inc"))
     code = fa.BWD_SOURCE.read_text()
-    for d in fa.HEAD_DIMS:  # both kernels at every head_dim, 256's too
+    for d in fa.HEAD_DIMS[torch.bfloat16]:  # both kernels at every head_dim, 256's to 512's
         assert f"opt_in_both<{d}>()" in code
         assert f"launch<{d}, true>(" in code and f"launch<{d}, false>(" in code
     # d256's dK/dV splits dV and dK between its warpgroups, on the same wgmma

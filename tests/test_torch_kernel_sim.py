@@ -82,11 +82,18 @@ OUT_BARS = {"bf16": (0.02, 0.0), "f16": (0.02, 0.0), "f32": (2e-3, 2e-3)}
 # its producer warpgroup under setmaxnreg; and head_dim 256 (one forward
 # split, a three-stage forward ring, two-stage backward rings, dQ without
 # the overlap and dK/dV split by role) at seq 192 with three heads causal,
-# with b = 2 not causal, and over nine tiles
+# with b = 2 not causal, and over nine tiles; and head_dim 384 and 512, the
+# chunked tilings (each CTA a half of O's and dQ's columns and a 128 of dK's
+# and dV's, 32-row streamed tiles whose scores are m64n32k16 products, one
+# consumer warpgroup; rings of four and two stages at 384, three and one at
+# 512) at seq 192 with three heads causal, with b = 2 not causal, and over
+# 12 and 10 streamed tiles a side, more than twice every ring's stages
 SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 128, 0, 2), (2, 192, 3, 128, 1, 1),
           (2, 192, 1, 128, 0, 1), (1, 192, 2, 128, 1, 2), (1, 576, 1, 64, 1, 1),
           (1, 576, 1, 64, 1, 2), (1, 576, 1, 128, 1, 2), (2, 192, 3, 256, 1, 1),
-          (2, 192, 1, 256, 0, 1), (1, 576, 1, 256, 1, 1)]
+          (2, 192, 1, 256, 0, 1), (1, 576, 1, 256, 1, 1), (2, 192, 3, 384, 1, 1),
+          (2, 192, 1, 384, 0, 1), (1, 384, 1, 384, 1, 1), (2, 192, 3, 512, 1, 1),
+          (2, 192, 1, 512, 0, 1), (1, 320, 1, 512, 1, 1)]
 # (M, K, N) for the GEMM, whose simulated device has two SMs: one tile with
 # N = 128 under the 256-wide tile and K = 128 (two steps); 2x2 tiles with N =
 # 384 and K = 640 (ten steps: the four-stage ring wraps inside a tile and runs
@@ -94,11 +101,12 @@ SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 128, 0, 2), (2, 192, 3, 128, 1, 1),
 # rows, eight or nine tiles a block
 GEMM_SHAPES = [(128, 128, 128), (256, 640, 384), (2176, 128, 256)]
 # f16, the wgmma sources built with ELEM_F16: every instantiation once (the
-# forward at head_dim 64 and 128 on one and on two warpgroups, 256 on one;
-# both backward kernels at each head_dim), causal and not, several heads
-# and batches, seq 192 whose dK/dV loops start at the diagonal
+# forward at head_dim 64 and 128 on one and on two warpgroups, 256, 384 and
+# 512 on one; both backward kernels at each head_dim), causal and not,
+# several heads and batches, seq 192 whose dK/dV loops start at the diagonal
 F16_SHAPES = [(1, 128, 2, 64, 1, 1), (1, 128, 1, 64, 0, 2), (2, 192, 3, 128, 1, 1),
-              (1, 192, 2, 128, 1, 2), (2, 192, 3, 256, 1, 1)]
+              (1, 192, 2, 128, 1, 2), (2, 192, 3, 256, 1, 1), (2, 192, 3, 384, 1, 1),
+              (2, 192, 1, 512, 0, 1)]
 F16_GEMM_SHAPES = [(128, 128, 128), (256, 640, 384)]
 # f32, the FFMA sources, one tiling (kv_split 1): each head_dim causal and
 # not; at 256 the streamed tiles are 32 rows, so two cross the diagonal
@@ -338,8 +346,8 @@ def test_the_simulation_catches_ds_packed_in_swapped_order(tmp_path):
     its two Q rows swapped, so dS^T Q weighs each Q row by its neighbour's
     dS.  dK leaves its bar; dV, whose P^T is packed apart, and dQ stay
     right."""
-    plant = _planted("flash_attention_bwd.cu", "    pack(pds, dp);\n    // dK += dS^T Q",
-                     "    pack(pds, dp);\n    for (auto& a : pds) for (auto& r : a) "
+    plant = _planted("flash_attention_bwd.cu", "    pack<N>(pds, dp);\n    // dK += dS^T Q",
+                     "    pack<N>(pds, dp);\n    for (auto& a : pds) for (auto& r : a) "
                      "r = r >> 16 | r << 16;\n    // dK += dS^T Q")
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["dq_bar"] <= 1.0 and err["dv_bar"] <= 1.0, err
@@ -353,15 +361,13 @@ def test_the_simulation_catches_k_read_k_major_in_dq(tmp_path):
     leaves its bar; dK and dV, the other kernel's, stay right."""
     plant = _planted(
         "flash_attention_bwd.cu",
-        "product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);",
+        "product_rs<C::kDc, N>(dq, pds, k_cols, C::kStreamBoxBytes);",
         "if constexpr (D == 64) {"
-        "  for (int kc = 0; kc < kBlk / kWgK; ++kc) {"
-        "    const uint64_t k_desc = desc_k_major(sm.ring + stage_of(j) * C::kStageBytes"
-        "                                         + kc * kWgK * 2);"
-        "    wgmma_m64n64k16_rs(dq, pds[kc], k_desc, 1);"
+        "  for (int kc = 0; kc < N / kWgK; ++kc) {"
+        "    wgmma_m64n64k16_rs(dq, pds[kc], desc_k_major(k_cols + kc * kWgK * 2), 1);"
         "  }"
         "} else {"
-        "  product_rs<D>(dq, pds, sm.ring + stage_of(j) * C::kStageBytes);"
+        "  product_rs<C::kDc, N>(dq, pds, k_cols, C::kStreamBoxBytes);"
         "}")
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["dk_bar"] <= 1.0 and err["dv_bar"] <= 1.0, err
@@ -377,6 +383,31 @@ def test_the_simulation_catches_an_f32_mask_that_misses_the_diagonal(tmp_path):
                      right.replace("kv0 + T::kOther - 1 > q0", "kv0 > q0"))
     err = _run(_build(tmp_path, plant, "f32"), (1, 128, 1, 64, 1, 1), dtype="f32")
     assert err["o_bar"] > 1.0, err
+
+
+def test_the_simulation_catches_a_chunk_storing_the_wrong_columns(tmp_path):
+    """A planted fault: at head_dim 512 every CTA of the dK/dV kernel stores
+    its chunk of dK at columns 0-127, whatever its chunk, so dK's other
+    columns are never written.  dK leaves its bar; dV, stored apart, and dQ
+    stay right."""
+    right = "store_rows<C::kDc>(p, 0, b, h, row0, col0, dk, chunk * C::kDc);"
+    plant = _planted("flash_attention_bwd.cu", right, right.replace("chunk * C::kDc", "0"))
+    err = _run(_build(tmp_path, plant), (1, 128, 1, 512, 1, 1))
+    assert err["dq_bar"] <= 1.0 and err["dv_bar"] <= 1.0, err
+    assert err["dk_bar"] > 1.0, err
+
+
+def test_the_logsumexp_does_not_depend_on_the_chunk_that_writes_it(sim_lib, tmp_path):
+    """At head_dim 512 every chunk of the forward computes the same (m, l)
+    by the same instructions in the same order, and the first writes the
+    logsumexp.  The source with the last chunk writing it instead gives the
+    same outputs, to the last bit of every difference from the plain
+    versions."""
+    right = "if (p.lse != nullptr && chunk == 0 && lane % 4 == 0) {"
+    plant = _planted("flash_attention.cu", right,
+                     right.replace("chunk == 0", "chunk == C::kChunks - 1"))
+    shape = (1, 128, 1, 512, 1, 1)
+    assert _run(_build(tmp_path, plant), shape) == _run(sim_lib, shape)
 
 
 def test_the_simulation_catches_p_packed_in_swapped_order(tmp_path):

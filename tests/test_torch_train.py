@@ -52,6 +52,9 @@ FLASH = dict(d_model=128, n_heads=1, n_layers=2, d_ff=512, max_seq=128)
 #: head_dim 256 (the width of D_MODEL=2048 N_HEADS=8 cut to 2 heads), seq
 #: 128: inside both envelopes too
 FLASH_D256 = dict(d_model=512, n_heads=2, n_layers=2, d_ff=1024, max_seq=128)
+#: head_dim 512 (the width of D_MODEL=2048 N_HEADS=4 cut to 2 heads), seq
+#: 128: the chunked kernels' width on the card, inside both envelopes in bf16
+FLASH_D512 = dict(d_model=1024, n_heads=2, n_layers=2, d_ff=2048, max_seq=128)
 
 
 def _models(sizes, jdtype, tdtype, seed=1):
@@ -225,10 +228,11 @@ def test_loss_is_finite_and_near_uniform_at_init():
     assert abs(float(loss) - math.log(pcfg.vocab)) < 0.1
 
 
-@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512], ids=["d128", "d256", "d512"])
 def test_bf16_flash_step_matches_jax_and_the_ring_step(monkeypatch, sizes):
     """The flash branch in bf16 (one head of 128, d_model 128; or two of
-    256, d_model 512; seq 128, two layers): the port's auto loss lies within
+    256, d_model 512; or two of 512, d_model 1024; seq 128, two layers),
+    from the JAX weights carried over: the port's auto loss lies within
     0.05 of JAX's auto loss and of the port's own ring loss.  Under remat
     each layer runs the flash forward twice with the logsumexp and the
     backward once."""

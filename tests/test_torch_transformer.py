@@ -31,6 +31,9 @@ SMALL = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq=64)
 FLASH = dict(d_model=256, n_heads=2, n_layers=2, d_ff=512, max_seq=128)
 #: head_dim 256, the width of D_MODEL=2048 N_HEADS=8 cut to two heads
 FLASH_D256 = dict(d_model=512, n_heads=2, n_layers=2, d_ff=1024, max_seq=128)
+#: head_dim 512, the width of D_MODEL=2048 N_HEADS=4 cut to two heads (the
+#: chunked kernels on the card)
+FLASH_D512 = dict(d_model=1024, n_heads=2, n_layers=2, d_ff=2048, max_seq=128)
 
 
 def _models(sizes, jdtype, tdtype, seed=0):
@@ -132,12 +135,13 @@ def test_prefill_equals_stepwise_decode():
         assert not got_cache[side][:, :, :, 16:].any()
 
 
-@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512], ids=["d128", "d256", "d512"])
 def test_bf16_prefill_inside_the_flash_envelope_matches_jax_and_stepwise_decode(sizes):
-    """2 heads of 128 (d_model 256) or of 256 (d_model 512), bf16, a 64-token
-    prompt: the prefill takes the flash kernel's wrapper (its plain version
-    on the CPU), and JAX's prefill takes its Pallas kernel in interpret
-    mode."""
+    """2 heads of 128 (d_model 256), of 256 (d_model 512) or of 512 (d_model
+    1024), bf16, a 64-token prompt: the prefill takes the flash kernel's
+    wrapper (its plain version on the CPU), and JAX's prefill takes its
+    Pallas kernel in interpret mode; logits and cache within JAX's bf16
+    bar, 0.06."""
     jcfg, pcfg, params, ported = _models(sizes, jnp.bfloat16, torch.bfloat16)
     assert flash_shape_supported(64, pcfg.head_dim, pcfg.dtype)
     prompt = _prompt(2, 64)

@@ -260,6 +260,11 @@ inline void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
   sim_wgmma<64>(d, desc_a, nullptr, desc_b, false, scale_d);
 }
 
+inline void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                    int scale_d) {
+  sim_wgmma<32>(d, desc_a, nullptr, desc_b, false, scale_d);
+}
+
 inline void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
                                     int scale_d) {
   sim_wgmma<64>(d, 0, a, desc_b, true, scale_d);
