@@ -789,6 +789,21 @@ GEMM_BARS = {torch.bfloat16: (ATOL, RTOL), torch.float16: (ATOL, RTOL),
 
 #: the chunked instantiations' head_dims (bf16 and f16 only)
 WIDE_HEAD_DIMS = (384, 512)
+#: the streamed instantiations' head_dims held here, by dtype: any multiple
+#: of 128 from 640 on in bf16 and f16 (five and eight 128-column chunks),
+#: from 384 on in f32 (``flash_attention.STREAMED_FROM``)
+STREAMED_HEAD_DIMS = {torch.bfloat16: (640, 1024), torch.float16: (640, 1024),
+                      torch.float32: (384, 512, 1024)}
+
+
+def _kind(d: int, dt: torch.dtype) -> str:
+    """The key of a row's worst error: its dtype's name, and ``_wide`` on the
+    chunked instantiations or ``_streamed`` on the streamed ones."""
+    if flash_attention.streamed(d, dt):
+        return DT_NAME[dt] + "_streamed"
+    return DT_NAME[dt] + ("_wide" if d in WIDE_HEAD_DIMS else "")
+
+
 # (batch, seq, heads, head_dim, causal, with_lse, consumer warpgroups a CTA
 # or None for the wrapper's choice, dtype): in bf16 the serve prefill's
 # shape causal and not, with the logsumexp; the llm training shape with the
@@ -839,6 +854,24 @@ FLASH_SHAPES = [
         (1, 2048, 4, d, True, True, None), (2, 192, 3, d, True, True, None),
         (2, 192, 3, d, False, True, None), (2, 640, 2, d, True, True, None),
     ]),
+    # the streamed instantiations (STREAMED_HEAD_DIMS): in bf16 and f16 at
+    # head_dim 640 and 1024 seq 192 causal and not, and ten K/V tiles (seq
+    # 640), which wrap the two-stage V ring five times; the training shape of
+    # D_MODEL=2048 N_HEADS=2 (b1 s2048 h2 d1024) with the logsumexp, and in
+    # bf16 its prefill; in f32 at 384, 512 and 1024 seq 192 causal and not,
+    # and the training shape of four heads of 384 and 512
+    *((*row, dt) for dt in (torch.bfloat16, torch.float16) for row in [
+        *((2, 192, 3, d, causal, True, None) for d in STREAMED_HEAD_DIMS[dt]
+          for causal in (True, False)),
+        *((1, 640, 2, d, True, True, None) for d in STREAMED_HEAD_DIMS[dt]),
+        (1, 2048, 2, 1024, True, True, None),
+        *([(8, 512, 2, 1024, True, False, None)] if dt == torch.bfloat16 else []),
+    ]),
+    *((*row, torch.float32) for row in [
+        *((2, 192, 3, d, causal, True, None) for d in STREAMED_HEAD_DIMS[torch.float32]
+          for causal in (True, False)),
+        (1, 2048, 4, 384, True, True, None), (1, 2048, 4, 512, True, True, None),
+    ]),
 ]
 # bf16 output, each side rounding P to bf16 once per KV tile it sums: the
 # kernel per 64-key tile against its running max, the plain version once
@@ -874,6 +907,11 @@ FLASH_TIMED = [
     *((*row, dt) for dt in (torch.bfloat16, torch.float16) for d in WIDE_HEAD_DIMS for row in (
         (8, 512, 4, d, False, False), (1, 2048, 4, d, True, True))
       if dt == torch.bfloat16 or row[0] == 1),
+    # the streamed instantiations: head_dim 1024's prefill (b8 s512 h2) and
+    # training shape (b1 s2048 h2) in bf16, the training shape in f16, and
+    # in f32 the training shape of four heads of 512
+    (8, 512, 2, 1024, False, False, torch.bfloat16), (1, 2048, 2, 1024, True, True, torch.bfloat16),
+    (1, 2048, 2, 1024, True, True, torch.float16), (1, 2048, 4, 512, True, True, torch.float32),
 ]
 # serve parity at the shipped sizes in bf16: prefill against stepwise decode
 # reach the cache and the logits through other products (a [b, 512, d] GEMM
@@ -893,7 +931,7 @@ LLM_SHAPE = (1, 2048, 4, 128)
 #: 1, 2048 tokens); d_ff is 4 d_model in both
 HEAD256_SIZES = {**SERVE_SIZES, "d_model": 2048, "n_heads": 8}
 #: the auto steps the head256 phase times: a count, not a time
-HEAD256_STEPS = 5
+HEAD256_STEPS = 2
 #: the llm rung's attention at that width: 8 heads of 256
 LLM_SHAPE_D256 = (1, 2048, 8, 256)
 #: head_dim 512 and 384: the serving container's sizes at D_MODEL=2048
@@ -902,7 +940,15 @@ LLM_SHAPE_D256 = (1, 2048, 8, 256)
 WIDE_SIZES = {512: {**SERVE_SIZES, "d_model": 2048, "n_heads": 4},
               384: {**SERVE_SIZES, "d_model": 1536, "n_heads": 4}}
 #: the auto steps the wide phase times at each width, in bf16 and in f16
-WIDE_STEPS, WIDE_F16_STEPS = 3, 2
+WIDE_STEPS, WIDE_F16_STEPS = 1, 1
+#: head_dim 1024: the serving container's sizes at D_MODEL=2048 N_HEADS=2
+#: (deploy/tpu-serve-deployment.yaml's knobs), on the streamed
+#: instantiations, and the llm rung at that width; then head_dim 512 in
+#: f32, the serving container and the llm rung at D_MODEL=2048 N_HEADS=4
+STREAMED_SIZES = {**SERVE_SIZES, "d_model": 2048, "n_heads": 2}
+#: the head1024 phase's depth: tokens a serve burst (after its prefill of
+#: 512) and auto steps, in each dtype
+STREAMED_TOKENS, STREAMED_STEPS = 16, 1
 # (batch, seq, heads, head_dim, causal, dtype): the llm shape causal and
 # not; seq 192, whose backward runs three 64-row tiles a side, the dK/dV
 # loop starting at the diagonal; head_dim 64 over ten tiles a side, which
@@ -924,6 +970,22 @@ BWD_SHAPES = [
     *((*row, dt) for dt in (torch.bfloat16, torch.float16) for d in WIDE_HEAD_DIMS for row in (
         (1, 2048, 4, d, True), (1, 2048, 4, d, False), (2, 192, 3, d, True),
         (2, 192, 3, d, False), (1, 640, 1, d, True))),
+    # the serve prefill's shape at head_dim 512 and 384 (b8 s512 h4), causal,
+    # in bf16, refereed against the exact gradient (BWD_F64_SHAPES)
+    *((8, 512, 4, d, True, torch.bfloat16) for d in WIDE_HEAD_DIMS),
+    # the streamed instantiations: in bf16 and f16 at head_dim 640 and 1024
+    # seq 192 causal and not (the dK/dV loop from the diagonal) and ten
+    # 64-row tiles a side (seq 640), which wrap the two-stage rings five
+    # times, and the training shape of D_MODEL=2048 N_HEADS=2; in f32 at
+    # 384, 512 and 1024 seq 192 causal and not, and the training shape of
+    # four heads of 384 and 512
+    *((*row, dt) for dt in (torch.bfloat16, torch.float16) for row in (
+        *((2, 192, 3, d, causal) for d in STREAMED_HEAD_DIMS[dt] for causal in (True, False)),
+        *((1, 640, 1, d, True) for d in STREAMED_HEAD_DIMS[dt]), (1, 2048, 2, 1024, True))),
+    *((*row, torch.float32) for row in (
+        *((2, 192, 3, d, causal) for d in STREAMED_HEAD_DIMS[torch.float32]
+          for causal in (True, False)),
+        (1, 2048, 4, 384, True), (1, 2048, 4, 512, True))),
 ]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
 # orders, and rounds each gradient once; dS (and P for dV) is rounded to
@@ -940,6 +1002,22 @@ BWD_SHAPES = [
 BWD_RTOL = 2.0**-6
 BWD_ATOL = 2e-3
 BWD_REL_RMS = 1e-3
+#: rows also refereed against the exact gradient in f64 (bshd): the serve
+#: prefill's shape (512 keys) at head_dim 384 and 512, in bf16.  BWD_ATOL's
+#: basis is readings at 2048 keys; at 512 the probabilities, and so dS and
+#: its bf16 rounding, are some four times larger, and one element of dK at
+#: d384 read 0.0027 past the rtol term, over BWD_ATOL (NVIDIA H100 80GB
+#: HBM3, 700.00 W, this phase).  Against the exact gradient the kernel and
+#: the plain version read the same largest error (0.0112-0.0211) and RMS
+#: errors within 0.01% of each other: the two sides differ by where they
+#: round, not by accuracy.  So a gradient of these rows that lands past the
+#: bar is held instead to the referee: its RMS and largest errors against
+#: the exact gradient within F64_RATIO of the plain version's, with the RMS
+#: bar above still held against the plain version.  A dropped or misplaced
+#: 64-row tile moves the kernel's RMS error against the exact gradient by
+#: orders of magnitude
+BWD_F64_SHAPES = {(8, 512, 4, 384), (8, 512, 4, 512)}
+F64_RATIO = 1.05
 #: the gradients' (atol, rtol) by dtype: f16 at bf16's (f16 rounds dS and P
 #: finer); f32 at the JAX package's f32 gradient bar, 2e-4 both
 #: (tests/test_flash_attention.py:110), against the plain version with TF32
@@ -960,7 +1038,11 @@ BWD_TIMED = [(*LLM_SHAPE, torch.bfloat16), (2, 4096, 8, 128, torch.bfloat16),
              *((*shape, dt) for dt in NEW_DTYPES for shape in (LLM_SHAPE, LLM_SHAPE_D256)),
              # the llm shape at head_dim 384 and 512, in bf16 and f16
              *((1, 2048, 4, d, dt) for dt in (torch.bfloat16, torch.float16)
-               for d in WIDE_HEAD_DIMS)]
+               for d in WIDE_HEAD_DIMS),
+             # the streamed instantiations: the llm shape at head_dim 1024 (two
+             # heads) in bf16 and f16, and at 512 (four heads) in f32
+             (1, 2048, 2, 1024, torch.bfloat16), (1, 2048, 2, 1024, torch.float16),
+             (1, 2048, 4, 512, torch.float32)]
 # train parity: the two steps' losses agree within the JAX package's bar for
 # the same comparison (tests/test_flash_attention.py:187).  The gradients of
 # the same loss from the same weights, auto (flash kernels) against ring
@@ -1137,6 +1219,20 @@ def phase_build() -> None:
     seconds = {f"{name}_{DT_NAME[dt]}": round(s, 3) for (name, dt), (_, s) in done.items()}
     props = r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads\s+" \
             r"ptxas info\s+: Used (\d+) registers"
+
+    def streamed_entries(dt: torch.dtype, infix: str, head_dim: int) -> list[dict]:
+        """The streamed instantiations' ptxas entries in ``dt``'s libraries
+        (one of each kernel, head_dim an argument), with their configs at
+        ``head_dim``."""
+        return [
+            {"kernel": kernel, "registers": int(regs), "spill_bytes": int(st) + int(ld),
+             **(flash_attention.fwd_config(head_dim, 1, dtype=dt) if kernel == "fwd" else
+                flash_attention.bwd_config(kernel, head_dim, dtype=dt))}
+            for key, pattern in (("flash", f"flash_(fwd){infix}_streamed_kernel"),
+                                 ("flash_bwd", f"flash_bwd_(dq|dkv){infix}_streamed_kernel"))
+            for kernel, st, ld, regs in re.findall(
+                r"Function properties for \S*" + pattern + r"\S*\s+" + props, ptxas[(key, dt)])
+        ]
     wgmma = {}
     for dt in (torch.bfloat16, torch.float16):
         name = DT_NAME[dt]
@@ -1178,6 +1274,8 @@ def phase_build() -> None:
             # thread launches with 168 registers, and the producer
             # warpgroup's and the consumers' counts are set in the kernel
             "flash_bwd": flash_bwd,
+            # configs at head_dim 1024 (chunks: head_dim / 128)
+            "flash_streamed": streamed_entries(dt, "", 1024),
         }
     f32 = torch.float32
     f32_entries = {
@@ -1190,6 +1288,7 @@ def phase_build() -> None:
     }
     mm32 = re.findall(r"Function properties for \S*matmul_f32_kernel\S*\s+" + props,
                       ptxas[("matmul", f32)])
+    f32_streamed = streamed_entries(f32, "_f32", 512)
     emit({
         "phase": "build", **{f"{key}_s": s for key, s in seconds.items()},
         "exporter_cc_s": round(exporter_s, 3),
@@ -1204,8 +1303,16 @@ def phase_build() -> None:
             "flash_bwd": [{**e, **flash_attention.bwd_config(e["kernel"][4:], e["head_dim"],
                                                              dtype=f32)}
                           for e in f32_entries["flash_bwd"]],
+            # configs at head_dim 512 (chunks: head_dim / 128)
+            "flash_streamed": f32_streamed,
         },
     })
+    # one streamed instantiation of each kernel in each library, no spill
+    for name, streamed in (("bf16", wgmma["bf16"]["flash_streamed"]),
+                           ("f16", wgmma["f16"]["flash_streamed"]), ("f32", f32_streamed)):
+        if sorted(e["kernel"] for e in streamed) != ["dkv", "dq", "fwd"] or any(
+                e["spill_bytes"] for e in streamed):
+            raise AssertionError(f"the {name} streamed kernels' ptxas report: {streamed}")
     for dt in (torch.bfloat16, torch.float16):
         name, head_dims = DT_NAME[dt], flash_attention.HEAD_DIMS[dt]
         flash_fwd, flash_bwd = wgmma[name]["flash_fwd"], wgmma[name]["flash_bwd"]
@@ -1738,10 +1845,12 @@ def _sms() -> int:
 def phase_flash_parity() -> dict[str, float]:
     """The forward of each dtype against its plain version; returns the
     worst absolute error by dtype name, and of the chunked instantiations
-    (head_dim 384 and 512) by dtype name and ``_wide``."""
+    (head_dim 384 and 512) by dtype name and ``_wide``, of the streamed ones
+    by dtype name and ``_streamed`` (``_kind``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {**dict.fromkeys(DT_NAME.values(), 0.0), "bf16_wide": 0.0, "f16_wide": 0.0}
+    worst = {**dict.fromkeys(DT_NAME.values(), 0.0), "bf16_wide": 0.0, "f16_wide": 0.0,
+             **{f"{name}_streamed": 0.0 for name in DT_NAME.values()}}
     rows = []
     for b, s, h, d, causal, with_lse, split, dt in FLASH_SHAPES:
         q, k, v = _qkv_views(b, s, h, d, gen, dt)
@@ -1766,7 +1875,7 @@ def phase_flash_parity() -> dict[str, float]:
                "lse_max_abs_err": lse_err, "max_abs_out": float(want.float().abs().max()),
                "rms_out": rms_want}
         rows.append(row)
-        key = DT_NAME[dt] + ("_wide" if d in WIDE_HEAD_DIMS else "")
+        key = _kind(d, dt)
         worst[key] = max(worst[key], row["max_abs_err"])
         if (
             row["out_of_tol"]
@@ -1783,9 +1892,10 @@ def phase_flash_parity() -> dict[str, float]:
         "f64": (ok.double(), ok.double(), ok.double()),
         "mixed": (ok, ok.half(), ok),
         "seq_100": (ok[:, :100],) * 3,
-        "head_dim_640": (torch.zeros(1, 128, 1, 640, device="cuda", dtype=bf16),) * 3,
-        # f32 stops at head_dim 256 (the FFMA kernels)
-        "f32_head_dim_512": (torch.zeros(1, 128, 1, 512, device="cuda"),) * 3,
+        # past 512 only multiples of 128 (the streamed tilings' chunks)
+        "head_dim_576": (torch.zeros(1, 128, 1, 576, device="cuda", dtype=bf16),) * 3,
+        # f32 takes 64, 128, 256 and the multiples of 128 from 384 on
+        "f32_head_dim_320": (torch.zeros(1, 128, 1, 320, device="cuda"),) * 3,
         "shape_mismatch": (ok, ok[:, :64], ok[:, :64]),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128],) * 3,
     }
@@ -1802,7 +1912,7 @@ def phase_flash_parity() -> dict[str, float]:
         refused["kv_split_3"] = type(e).__name__
     else:
         raise AssertionError("the forward took three consumer warpgroups a CTA")
-    for d in (256, *WIDE_HEAD_DIMS):
+    for d in (256, *WIDE_HEAD_DIMS, 1024):
         wide = torch.zeros(1, 128, 1, d, device="cuda", dtype=bf16)
         try:
             flash_attention._launch_fwd(wide, wide, wide, True, False, 2)
@@ -2128,17 +2238,53 @@ def _grad_err(
     }
 
 
+def _grads_f64(q, k, v, do, causal: bool) -> tuple[torch.Tensor, ...]:
+    """The exact (dQ, dK, dV) of attention at these operands, in f64 from
+    the operands' values: no rounding of P, dS or the output between the
+    products, delta from the f64 output.  In q's layout, contiguous."""
+    qb, kb, vb, dob = (flash_attention._bhsd(t).double() for t in (q, k, v, do))
+    s = qb @ kb.transpose(1, 2) / math.sqrt(q.shape[-1])
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    o = p @ vb
+    ds = p * (dob @ vb.transpose(1, 2) - (dob * o).sum(-1, keepdim=True)) / math.sqrt(q.shape[-1])
+    return tuple(flash_attention._bshd_like(g, q)
+                 for g in (ds @ kb, ds.transpose(1, 2) @ qb, p.transpose(1, 2) @ dob))
+
+
+def _f64_referee(got, want, exact) -> dict:
+    """Kernel and plain version each against the exact gradient: the
+    largest and the RMS error, at the element where the two sides differ
+    most, and ``ok``: the kernel's errors within F64_RATIO of the plain
+    version's."""
+    kernel, plain = (got.double() - exact).abs(), (want.double() - exact).abs()
+    at = int((got.double() - want.double()).abs().argmax())
+    out = {"kernel_max_err": float(kernel.max()), "plain_max_err": float(plain.max()),
+           "kernel_rms_err": float(kernel.square().mean().sqrt()),
+           "plain_rms_err": float(plain.square().mean().sqrt()), "ratio_bar": F64_RATIO,
+           "at_max_diff": {"exact": float(exact.view(-1)[at]),
+                           "kernel_err": float(kernel.view(-1)[at]),
+                           "plain_err": float(plain.view(-1)[at])}}
+    out["ok"] = (out["kernel_max_err"] <= F64_RATIO * out["plain_max_err"]
+                 and out["kernel_rms_err"] <= F64_RATIO * out["plain_rms_err"])
+    return out
+
+
 def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
     """The two backward kernels of each dtype against their plain versions,
     then the autograd Function against autograd through the plain forward
     (bf16 at FN_ATOL; f32, where neither side rounds, at the f32 gradient
     bar).  Returns the worst absolute error of each kernel by dtype name,
     and of the chunked instantiations (head_dim 384 and 512) by dtype name
-    and ``_wide``."""
+    and ``_wide``, of the streamed ones by dtype name and ``_streamed``
+    (``_kind``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {name: {"dq": 0.0, "dkv": 0.0}
-             for name in (*DT_NAME.values(), "bf16_wide", "f16_wide")}
+             for name in (*DT_NAME.values(), "bf16_wide", "f16_wide",
+                          *(f"{name}_streamed" for name in DT_NAME.values()))}
     rows = []
     failed = []
 
@@ -2157,9 +2303,19 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
         row = {"bshd": [b, s, h, d], "causal": causal, "dtype": DT_NAME[dt]}
         row.update({n: _grad_err(g, w, atol, rtol=rtol)
                     for n, g, w in zip(("dq", "dk", "dv"), got, want)})
+        if (b, s, h, d) in BWD_F64_SHAPES:
+            row["f64"] = {n: _f64_referee(g, w, x) for n, g, w, x in zip(
+                ("dq", "dk", "dv"), got, want, _grads_f64(q, k, v, do, causal))}
+            for n, err in row.items():
+                if n in row["f64"]:
+                    # the bar, or past it the referee (BWD_F64_SHAPES' note)
+                    err["held_by"] = "bar" if err["ok"] else "f64"
+                    err["ok"] = err["ok"] or (
+                        row["f64"][n]["ok"] and err["finite"]
+                        and err["rms_err_over_rms_want"] <= err["rel_rms_bar"])
         rows.append(row)
         check(row, ("dq", "dk", "dv"))
-        w = worst[DT_NAME[dt] + ("_wide" if d in WIDE_HEAD_DIMS else "")]
+        w = worst[_kind(d, dt)]
         w["dq"] = max(w["dq"], row["dq"]["max_abs_err"])
         w["dkv"] = max(w["dkv"], row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
     b, s, h, d = LLM_SHAPE
@@ -2191,8 +2347,8 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
     cases = {
         "f64": (ok.double(), lse),
         "seq_100": (ok[:, :100], lse[:, :100]),
-        "head_dim_640": (torch.zeros(1, 128, 2, 640, device="cuda", dtype=bf16), lse),
-        "f32_head_dim_512": (torch.zeros(1, 128, 2, 512, device="cuda"), lse),
+        "head_dim_576": (torch.zeros(1, 128, 2, 576, device="cuda", dtype=bf16), lse),
+        "f32_head_dim_320": (torch.zeros(1, 128, 2, 320, device="cuda"), lse),
         "stride_not_8": (torch.zeros(1, 128, 2, 132, device="cuda", dtype=bf16)[..., :128], lse),
         "lse_shape": (ok, lse[:1]),
         "lse_bf16": (ok, lse.to(bf16)),
@@ -2437,14 +2593,15 @@ def _counting_reference(calls: list):
     return reference
 
 
-def _wide_path(sizes: dict, phase: str, steps: int) -> dict[str, int]:
+def _wide_path(sizes: dict, phase: str, steps: int, tokens: int | None = None) -> dict[str, int]:
     """The serving and training paths in bf16 at ``sizes`` (the serving
     container's, at a head width past 128), on the flash kernels of that
     head_dim, the dispatcher's fallback (``reference_attention``) counted:
     it must not run.
 
     Serve: ``DecodeLoadGen`` warmed up (one eager burst, then the capture),
-    then one graph burst (a prefill of 512 and 128 greedy tokens) against
+    then one graph burst (a prefill of 512 and 128 greedy tokens, or
+    ``tokens``) against
     the same burst run eagerly with the prefill's attention on the plain
     version: the prefill's logits within SERVE_ATOL, the prompt's cache
     within SERVE_ATOL plus SERVE_CACHE_RTOL of its value; the decoded
@@ -2459,7 +2616,8 @@ def _wide_path(sizes: dict, phase: str, steps: int) -> dict[str, int]:
     reference = _counting_reference(fallbacks)
     try:
         _zero_counts()
-        gen = DecodeLoadGen(**sizes, window=3.0, device="cuda:0")
+        gen = DecodeLoadGen(**sizes, window=3.0, device="cuda:0",
+                            **({"tokens_per_burst": tokens} if tokens else {}))
         # an eager burst, the capture's eager burst on its own stream, and the
         # capture: one launch a layer each
         gen.warmup()
@@ -2591,29 +2749,31 @@ def _serve_in_dtype(sizes: dict, dt: torch.dtype, phase: str) -> dict:
     return row
 
 
-def _wide_f16(sizes: dict, phase: str) -> dict[str, int]:
-    """The serving and training paths at ``sizes`` in f16, on the f16
-    library's chunked instantiations: the serve burst (``_serve_in_dtype``);
-    then, every count set to 0 just before and read just after,
-    WIDE_F16_STEPS auto steps of ``LlmLoadGen`` at that width, two forwards,
-    one dQ and one dK/dV a layer a step, the loss finite.  Returns the f16
-    launches."""
-    dt = torch.float16
+def _wide_in_dtype(sizes: dict, phase: str, dt: torch.dtype, steps: int) -> dict[str, int]:
+    """The serving and training paths at ``sizes`` in ``dt`` (f16 or f32),
+    on that library's instantiations of the head_dim: the serve burst
+    (``_serve_in_dtype``); then, every count set to 0 just before and read
+    just after, ``steps`` auto steps of ``LlmLoadGen`` at that width, two
+    forwards, one dQ and one dK/dV a layer a step, the loss finite.  Returns
+    the dtype's launches."""
     row = {"serve": _serve_in_dtype(sizes, dt, phase)}
     launches = {"fwd": row["serve"]["fwd_launches"]}
     n = sizes["n_layers"]
     llm = LlmLoadGen(d_model=sizes["d_model"], n_heads=sizes["n_heads"], n_layers=n, dtype=dt,
                      device="cuda:0")
     _zero_counts()
-    ms = [llm.step() * 1e3 for _ in range(WIDE_F16_STEPS)]
+    ms = [llm.step() * 1e3 for _ in range(steps)]
     counts = _dtype_counts(dt)
-    want = {"fwd": 2 * n * WIDE_F16_STEPS, "dq": n * WIDE_F16_STEPS, "dkv": n * WIDE_F16_STEPS}
+    want = {"fwd": 2 * n * steps, "dq": n * steps, "dkv": n * steps}
     got = {key: counts[key] for key in want}
-    row["llm"] = {"steps": WIDE_F16_STEPS, "step_ms": ms, "last_loss": llm.stats().last_loss,
+    row["llm"] = {"cfg": {**{key: sizes[key] for key in ("d_model", "n_heads", "n_layers")},
+                          "head_dim": llm.cfg.head_dim},
+                  "steps": steps, "step_ms": ms, "last_loss": llm.stats().last_loss,
                   "launches": got}
-    emit({"phase": phase, **row})
+    del llm
+    emit({"phase": phase, "dtype": DT_NAME[dt], **row})
     if got != want or not math.isfinite(row["llm"]["last_loss"]):
-        raise AssertionError(f"{WIDE_F16_STEPS} {phase} auto steps launched {got}, not {want}")
+        raise AssertionError(f"{steps} {phase} auto steps launched {got}, not {want}")
     launches["fwd"] += got["fwd"]
     launches.update(dq=got["dq"], dkv=got["dkv"])
     return launches
@@ -2623,7 +2783,8 @@ def phase_head_wide() -> dict[str, dict[str, int]]:
     """The serving and training paths at head_dim 512 and 384 (WIDE_SIZES:
     D_MODEL=2048 and 1536 in N_HEADS=4), on the chunked instantiations of
     the three flash kernels: in bf16 as ``phase_head256`` runs them
-    (``_wide_path``, WIDE_STEPS auto steps), then in f16 (``_wide_f16``),
+    (``_wide_path``, WIDE_STEPS auto steps), then in f16
+    (``_wide_in_dtype``, WIDE_F16_STEPS auto steps),
     the dispatcher's fallback counted in both and never taken.  Returns
     each dtype's launches of each kernel, both widths together."""
     launches = {"bf16": dict.fromkeys(("fwd", "dq", "dkv"), 0),
@@ -2635,7 +2796,7 @@ def phase_head_wide() -> dict[str, dict[str, int]]:
         torch.cuda.empty_cache()
         reference = _counting_reference(fallbacks)
         try:
-            f16 = _wide_f16(sizes, f"head{d}_f16")
+            f16 = _wide_in_dtype(sizes, f"head{d}_f16", torch.float16, WIDE_F16_STEPS)
         finally:
             flash_attention.reference_attention = reference
         for name, got in f16.items():
@@ -2644,6 +2805,34 @@ def phase_head_wide() -> dict[str, dict[str, int]]:
     emit({"phase": "head_wide", "launches": launches, "reference_attention_calls": len(fallbacks)})
     if fallbacks:
         raise AssertionError(f"the f16 wide paths fell back to reference_attention: {fallbacks}")
+    return launches
+
+
+def phase_head1024() -> dict[str, dict[str, int]]:
+    """The serving and training paths on the streamed instantiations of the
+    three flash kernels: at head_dim 1024 (STREAMED_SIZES: D_MODEL=2048
+    N_HEADS=2) in bf16 as the wide phases run them (``_wide_path``, with
+    bursts of STREAMED_TOKENS tokens and STREAMED_STEPS auto steps) and in
+    f16 (``_wide_in_dtype``), then at head_dim 512 in f32 (WIDE_SIZES[512]:
+    D_MODEL=2048 N_HEADS=4, ``_wide_in_dtype``), with exact launches and the
+    dispatcher's fallback (``reference_attention``) counted in each and
+    never taken.  Returns each dtype's launches of each kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {"bf16": _wide_path(STREAMED_SIZES, "head1024", STREAMED_STEPS, STREAMED_TOKENS)}
+    torch.cuda.empty_cache()
+    fallbacks = []
+    reference = _counting_reference(fallbacks)
+    try:
+        for dt, sizes, phase in ((torch.float16, STREAMED_SIZES, "head1024_f16"),
+                                 (torch.float32, WIDE_SIZES[512], "head512_f32")):
+            launches[DT_NAME[dt]] = _wide_in_dtype(sizes, phase, dt, STREAMED_STEPS)
+            torch.cuda.empty_cache()
+    finally:
+        flash_attention.reference_attention = reference
+    emit({"phase": "head_streamed", "launches": launches,
+          "reference_attention_calls": len(fallbacks)})
+    if fallbacks:
+        raise AssertionError(f"the streamed paths fell back to reference_attention: {fallbacks}")
     return launches
 
 
@@ -5855,6 +6044,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dtypes = phase_dtypes()
     torch.cuda.empty_cache()
+    streamed = phase_head1024()
+    torch.cuda.empty_cache()
     phase_train_parity()
     train_gen, _ = phase_train_loadgen()
     phase_train_profile(train_gen)
@@ -5975,6 +6166,43 @@ def main() -> int:
                            **{key: row[kernel][key] for key in row_keys}} for row in bwd_rows]}
               for kernel, line in (("dq", 165), ("dkv", 207))),
         ]
+    # the streamed instantiations, in each dtype: their launches in the
+    # head1024 phase, their numbers at the llm shape of that phase's width
+    # (bf16, f16: two heads of 1024; f32: four of 512), every timed
+    # streamed shape beside them
+    streamed_kernels = []
+    for dt, name in DT_NAME.items():
+        f32 = dt == torch.float32
+        fwd_rows = [row for row in flash_timing
+                    if row["dtype"] == name and flash_attention.streamed(row["bshd"][3], dt)]
+        bwd_rows = [row for row in bwd_timing
+                    if row["dtype"] == name and flash_attention.streamed(row["bshd"][3], dt)]
+        shape = [1, 2048, 4, 512] if f32 else [1, 2048, 2, 1024]
+        fwd_head = next(row for row in fwd_rows if row["bshd"] == shape)
+        bwd_head = next(row for row in bwd_rows if row["bshd"] == shape)
+        streamed_kernels += [
+            {"name": f"flash_attention_fwd_streamed_{name}", "route": "cuda",
+             "source": f"{csrc}/{'flash_attention_f32.cu' if f32 else 'flash_attention.cu'}",
+             "replaces": "k8s_gpu_hpa_tpu/ops/flash_attention.py:59",
+             "launches": streamed[name]["fwd"], "max_abs_err": flash_err[f"{name}_streamed"],
+             **{key: fwd_head[key] for key in row_keys}, "bound_peak": fwd_head["bound_peak"],
+             "shapes": [{key: row[key] for key in ("bshd", "with_lse", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms",
+                                                   "library_backend")} for row in fwd_rows]},
+            *({"name": f"flash_attention_bwd_{kernel}_streamed_{name}", "route": "cuda",
+               "source": f"{csrc}/"
+                         f"{'flash_attention_bwd_f32.cu' if f32 else 'flash_attention_bwd.cu'}",
+               "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
+               "launches": streamed[name][kernel],
+               "max_abs_err": bwd_err[f"{name}_streamed"][kernel],
+               **{key: bwd_head[kernel][key] for key in row_keys},
+               "bound_peak": bwd_head["bound_peak"],
+               "shapes": [{"bshd": row["bshd"], "library_backend": row["library_backend"],
+                           **{key: row[kernel][key] for key in row_keys}} for row in bwd_rows]}
+              for kernel, line in (("dq", 165), ("dkv", 207))),
+        ]
+    if any(row["launches"] <= 0 for row in streamed_kernels):
+        raise AssertionError(f"a streamed kernel never launched on its path: {streamed}")
     emit({"kernels": [
         {
             "name": "matmul_bf16", "route": "cuda",
@@ -6036,6 +6264,7 @@ def main() -> int:
         ),
         *new_kernels,
         *wide_kernels,
+        *streamed_kernels,
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

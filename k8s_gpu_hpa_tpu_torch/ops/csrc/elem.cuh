@@ -50,6 +50,20 @@ __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// fp32 accumulators of N columns (the wgmma layout: element 4 j + e is
+// 8-column block j) to Elem pairs, the A fragments of a product with A from
+// registers: columns 16 kc .. 16 kc + 15 are blocks 2 kc and 2 kc + 1
+template <int N>
+__device__ __forceinline__ void pack(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+    a[kc][0] = pack_pair(x[8 * kc + 0], x[8 * kc + 1]);
+    a[kc][1] = pack_pair(x[8 * kc + 2], x[8 * kc + 3]);
+    a[kc][2] = pack_pair(x[8 * kc + 4], x[8 * kc + 5]);
+    a[kc][3] = pack_pair(x[8 * kc + 6], x[8 * kc + 7]);
+  }
+}
+
 // two floats rounded and stored at `dst` (4-byte aligned), the first lower
 __device__ __forceinline__ void store_pair(Elem* dst, float lo, float hi) {
   *reinterpret_cast<Elem2*>(dst) = to_elem2(lo, hi);

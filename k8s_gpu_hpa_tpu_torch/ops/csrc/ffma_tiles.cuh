@@ -20,6 +20,10 @@
 // ii (ii < 4) and columns tx + 16 jj (jj < kOther / 16) of it.  An output
 // tile is 64 x D; the thread holds rows 4 ty + ii and columns 64 m + 4 tx +
 // e (m < D / 64, e < 4), as acc[ii][4 m + e].
+//
+// The streamed tilings (head_dim 384 and up, any multiple of 128) use the
+// D = 128 tiles on 128-column chunks of wider rows: a score tile is summed
+// chunk by chunk (add_scores), and an output tile is a CTA's 128 columns.
 
 #pragma once
 
@@ -46,6 +50,10 @@ struct F32Tiles {
   static constexpr uint32_t kScoreFloats = kF32Rows * kPLd;   // P, dS or their transposes
 };
 
+// the streamed tilings' chunk of a row: 128 columns, the D = 128 tiles
+constexpr int kF32ChunkCols = 128;
+using F32Chunk = F32Tiles<kF32ChunkCols>;
+
 // `rows` rows of D floats from `src` (row r at src + r * row_stride, 16-byte
 // aligned) into `dst`, rows kLd apart; the whole CTA takes part
 template <int D>
@@ -59,17 +67,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int rows
   }
 }
 
-// s[ii][jj] = sum_k a[4 ty + ii][k] b[tx + 16 jj][k]: a score tile of the
-// own tile `a` against the streamed tile `b`, both D wide
+// s[ii][jj] += sum_k a[4 ty + ii][k] b[tx + 16 jj][k]: a score tile of the
+// own tile `a` against the streamed tile `b`, both D wide, added to `s`
+// (the streamed tilings sum one over the head_dim's 128-column chunks)
 template <int D>
-__device__ __forceinline__ void scores(float (&s)[4][F32Tiles<D>::kCols], const float* a,
-                                       const float* b, int ty, int tx) {
+__device__ __forceinline__ void add_scores(float (&s)[4][F32Tiles<D>::kCols], const float* a,
+                                           const float* b, int ty, int tx) {
   using T = F32Tiles<D>;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-    for (int jj = 0; jj < T::kCols; ++jj) s[ii][jj] = 0.0f;
-  }
 #pragma unroll 4
   for (int k = 0; k < D; k += 4) {
     float4 av[4], bv[T::kCols];
@@ -93,6 +97,18 @@ __device__ __forceinline__ void scores(float (&s)[4][F32Tiles<D>::kCols], const 
       }
     }
   }
+}
+
+// s[ii][jj] = sum_k a[4 ty + ii][k] b[tx + 16 jj][k]
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[4][F32Tiles<D>::kCols], const float* a,
+                                       const float* b, int ty, int tx) {
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < F32Tiles<D>::kCols; ++jj) s[ii][jj] = 0.0f;
+  }
+  add_scores<D>(s, a, b, ty, tx);
 }
 
 // writes a score tile held as `s` into `dst` (64 rows kPLd apart)

@@ -20,7 +20,8 @@
 // The TPU kernel keeps a whole K/V stripe of one batch-head in VMEM and loops
 // over it.  A Hopper CTA has at most 227 KB of shared memory, so this kernel
 // streams K/V tiles of 64 rows instead (FlashAttention-3 style), at head_dim
-// 64, 128 or 256 (384 and 512: the chunked tiling below):
+// 64, 128 or 256 (384 and 512: the chunked tiling below; 640 and up: the
+// streamed tiling after it):
 //   - one CTA per (batch-head, Q tile of 64 rows), heaviest causal tiles
 //     first: the grid's fast axis is the batch-head, its slow axis the Q
 //     tile counted down from the last;
@@ -85,6 +86,30 @@
 // producer warp, 160 threads, one CTA an SM.  A simple tiling that is right;
 // the recomputed scores are the next thing to speed up.
 //
+// Head_dim 640 and up: the streamed tiling, one instantiation for every
+// multiple of 128, head_dim a kernel argument.  The chunked tiling cannot
+// reach 640 (Q alone is 80 KB there, 128 KB at 1024), so no tile holds a
+// whole row:
+//   - each CTA owns 64 Q rows and one 128-column chunk of O's columns
+//     (head_dim / 128 chunks, the grid's fast axis the batch-head's
+//     chunks), one consumer warpgroup and a producer warp, 160 threads;
+//   - S = Q K^T for a 64-row K/V tile is summed over the head_dim in a
+//     runtime loop of 128-column chunks: a stage of the ring holds one pair,
+//     Q's and K's 64 x 128 chunks (two 64 x 64 boxes each, 32 KB), and the
+//     warpgroup adds their m64n64k16 products into S's fp32 registers; Q is
+//     re-read from L2 for every K/V tile;
+//   - then V's 64 x 128 box pair of the CTA's columns comes through a ring of
+//     its own (16 KB stages), and O += P V is four m64n128k16 products with P
+//     from registers;
+//   - rings of four pair stages and two V stages: 160 KB; O takes 64 fp32
+//     registers a thread, S 32 and P 16;
+//   - every chunk computes the same (m, l) in the same order; the first
+//     writes the logsumexp.
+// Every chunk recomputes the scores over the whole row: with n = d / 128
+// chunks a pair costs 2 d n + 2 d operations against the minimum 4 d (3.0
+// times at 640, 4.5 times at 1024).  A simple tiling that is right; sharing
+// the scores across chunks is later work.
+//
 // Bound.  Each (batch-head, Q row, K row) pair that the causal loop visits
 // costs 4 d operations (two products).  At the serving prefill's shape (b8,
 // s512, h4, d128, causal) the pairs below the diagonal are 32 * 512 * 513 / 2,
@@ -99,7 +124,10 @@
 // and 512 in 4 heads (D_MODEL=1536 and 2048) the prefill (b8 s512 h4) moves
 // 50.3 and 67.1 MB, 15.0 and 20.0 us: memory bounds it; the training shape
 // (b1 s2048 h4) is 12.9 and 17.2 GFLOP, 13.0 and 17.4 us: the tensor cores
-// do.
+// do.  At head_dim 1024 in 2 heads (D_MODEL=2048 N_HEADS=2) the prefill (b8
+// s512 h2) moves 67.1 MB, 20.0 us, against 8.6 GFLOP, 8.7 us: memory bounds
+// it; the training shape (b1 s2048 h2) is 17.2 GFLOP, 17.4 us, against 33.6
+// MB, 10.0 us: the tensor cores do.
 //
 // Layout.  Q, K, V are [B, S, H, D] with D contiguous and any other strides
 // (element counts, multiples of 8); a [B*H, S, D] tensor is the case H = 1.
@@ -179,6 +207,41 @@ __device__ __forceinline__ void pv_step(float (&o)[N / 2], const uint32_t (&a)[4
   }
 }
 
+// The causal mask where `diagonal` (keys from `key0`; thread t holds rows
+// row0 and row0 + 8, columns col0 + {0, 1} of each 8-column block), then
+// the online softmax update: S becomes P (fp32, against the new running
+// max), `corr` the factor the earlier sums scale by.  The scale is
+// positive, so the row max is taken on the raw scores and scaled once, and
+// each score is scaled and offset by one fma
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float (&m_run)[2],
+                                               float (&l_run)[2], float (&corr)[2],
+                                               bool diagonal, int key0, int row0, int col0,
+                                               float scale_log2) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    if (diagonal && row0 + (i % 4 / 2) * 8 < key0 + (i / 4) * 8 + col0 + i % 2) s[i] = kNegInf;
+    mx[i % 4 / 2] = fmaxf(mx[i % 4 / 2], s[i]);
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mx[r] = fmaxf(m_run[r], mx[r] * scale_log2);
+    corr[r] = exp2_approx(m_run[r] - mx[r]);
+    m_run[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -mx[i % 4 / 2]));
+    rs[i % 4 / 2] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
+}
+
 struct Params {
   CUtensorMap q, k, v;  // [b, s, h, d], box 64 (d) x 1 x 64 (s) x 1
   Elem* o;
@@ -187,6 +250,7 @@ struct Params {
   int heads, seq;
   float scale_log2;  // 1/sqrt(d) * log2(e)
   int causal;
+  int head_dim;
 };
 
 template <int D, int SPLIT>
@@ -296,49 +360,12 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
       }
       wgmma_commit();
     };
-    // causal mask on the diagonal tile, scale, and the online softmax
-    // update: S becomes P (fp32, against the new running max), corr the
-    // factor the earlier sums scale by.  The scale is positive, so the row
-    // max is taken on the raw scores and scaled once, and each score is
-    // scaled and offset by one fma.
+    // the mask on the tiles that reach past the CTA's first row (the
+    // diagonal one, or at 32 rows a tile the two that cover the CTA's own
+    // keys), and the online softmax update
     auto softmax = [&](int j) {
-      // the tiles that reach past the CTA's first row: the diagonal one, or
-      // at 32 rows a tile the two that cover the CTA's own keys
-      const bool diagonal = p.causal && (j + 1) * C::kKv > q0;
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int i = 0; i < C::kKv / 2; ++i) {
-        if (diagonal && row0 + (i % 4 / 2) * 8 < j * C::kKv + (i / 4) * 8 + col0 + i % 2) {
-          s[i] = kNegInf;
-        }
-        mx[i % 4 / 2] = fmaxf(mx[i % 4 / 2], s[i]);
-      }
-      float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        mx[r] = fmaxf(m_run[r], mx[r] * p.scale_log2);
-        corr[r] = exp2_approx(m_run[r] - mx[r]);
-        m_run[r] = mx[r];
-      }
-#pragma unroll
-      for (int i = 0; i < C::kKv / 2; ++i) {
-        s[i] = exp2_approx(fmaf(s[i], p.scale_log2, -mx[i % 4 / 2]));
-        rs[i % 4 / 2] += s[i];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
-    };
-    // P to Elem pairs: keys 16 kc .. 16 kc + 15 are S blocks 2 kc, 2 kc + 1
-    auto pack = [&] {
-#pragma unroll
-      for (int kc = 0; kc < C::kKv / kWgK; ++kc) {
-        pk[kc][0] = pack_pair(s[8 * kc + 0], s[8 * kc + 1]);
-        pk[kc][1] = pack_pair(s[8 * kc + 2], s[8 * kc + 3]);
-        pk[kc][2] = pack_pair(s[8 * kc + 4], s[8 * kc + 5]);
-        pk[kc][3] = pack_pair(s[8 * kc + 6], s[8 * kc + 7]);
-      }
+      online_softmax<C::kKv>(s, m_run, l_run, corr, p.causal && (j + 1) * C::kKv > q0,
+                             j * C::kKv, row0, col0, p.scale_log2);
     };
     // O += P V for tile j, P from the registers
     auto issue_pv = [&](int j) {
@@ -358,7 +385,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
     wgmma_wait<0>();
     wgmma_fence_operands(s);
     softmax(cur);  // o is still zero: corr needs no applying
-    pack();
+    pack<C::kKv>(pk, s);
     // each step issues tile j's Q K^T, then the previous tile's P V, and
     // runs tile j's softmax while P V is in flight; no wgmma sits under a
     // condition
@@ -379,7 +406,7 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
       if (t == 0) mbar_arrive(&empty[stage_of(cur)]);  // P V is done with its stage
 #pragma unroll
       for (int k = 0; k < C::kDc / 2; ++k) o[k] *= corr[k % 4 / 2];
-      pack();
+      pack<C::kKv>(pk, s);
       cur = j;
     }
     wgmma_fence();
@@ -445,6 +472,171 @@ __global__ void __launch_bounds__(Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kCtasP
   }
 }
 
+// The streamed tiling (the file's note)
+struct Streamed {
+  static constexpr int kDc = 128;  // O's columns a CTA
+  static constexpr int kKv = 64;   // K/V rows a tile
+  static constexpr int kStages = 4;   // pair stages: Q's and K's chunks
+  static constexpr int kVStages = 2;  // V stages
+  static constexpr uint32_t kChunkBytes = 2 * kBoxBytes;  // 64 x 128: two boxes
+  static constexpr uint32_t kPairBytes = 2 * kChunkBytes;
+  static constexpr int kThreads = 160;
+  static constexpr size_t kSmem = kStages * kPairBytes + kVStages * kChunkBytes +
+                                  2 * (kStages + kVStages) * sizeof(uint64_t) + kSwizzleAtom;
+  static_assert(kSmem + 1024 <= 233472, "shared memory of an SM");
+};
+
+__global__ void __launch_bounds__(Streamed::kThreads, 1)
+    flash_fwd_streamed_kernel(const __grid_constant__ Params p) {
+  using C = Streamed;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + (kSwizzleAtom - smem_u32(smem_raw) % kSwizzleAtom) % kSwizzleAtom;
+  unsigned char* v_ring = ring + C::kStages * C::kPairBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_ring + C::kVStages * C::kChunkBytes);
+  uint64_t* empty = full + C::kStages;
+  uint64_t* v_full = empty + C::kStages;
+  uint64_t* v_empty = v_full + C::kVStages;
+
+  // the grid's fast axis: the batch-head's chunks of O's columns
+  const int chunks = p.head_dim / C::kDc;
+  const int bh = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBK;
+  const int n_kv = p.causal ? (q0 + kBK) / C::kKv : p.seq / C::kKv;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    for (int s = 0; s < C::kVStages; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 1) {
+    // producer: one thread streams, for each K/V tile, the pairs of Q's and
+    // K's chunks, then V's chunk of the CTA's columns; pair n of the CTA
+    // lies in stage n % kStages, in the ring's round n / kStages
+    if (threadIdx.x == 128) {
+      int n = 0;
+      for (int j = 0; j < n_kv; ++j) {
+        for (int c = 0; c < chunks; ++c, ++n) {
+          const int st = n % C::kStages;
+          mbar_wait(&empty[st], (static_cast<uint32_t>(n / C::kStages) & 1u) ^ 1);
+          unsigned char* pair = ring + st * C::kPairBytes;
+          mbar_arrive_expect_tx(&full[st], C::kPairBytes);
+          for (int x = 0; x < 2; ++x) {
+            tma_load_4d(pair + x * kBoxBytes, &p.q, &full[st], c * C::kDc + x * kBox, h, q0, b);
+            tma_load_4d(pair + C::kChunkBytes + x * kBoxBytes, &p.k, &full[st],
+                        c * C::kDc + x * kBox, h, j * C::kKv, b);
+          }
+        }
+        const int vs = j % C::kVStages;
+        mbar_wait(&v_empty[vs], (static_cast<uint32_t>(j / C::kVStages) & 1u) ^ 1);
+        mbar_arrive_expect_tx(&v_full[vs], C::kChunkBytes);
+        for (int x = 0; x < 2; ++x) {
+          tma_load_4d(v_ring + vs * C::kChunkBytes + x * kBoxBytes, &p.v, &v_full[vs],
+                      chunk * C::kDc + x * kBox, h, j * C::kKv, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer: thread t holds rows 16 warp + lane/4 (r = 0) and + 8 (r = 1),
+  // and in each 8-column block of S or O the columns 2 (lane % 4) + {0, 1}
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float o[C::kDc / 2];
+#pragma unroll
+  for (int i = 0; i < C::kDc / 2; ++i) o[i] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf};  // in log2 units
+  float l_run[2] = {0.0f, 0.0f};       // this thread's share of the row sums
+  float s[C::kKv / 2] = {};
+  uint32_t pk[C::kKv / kWgK][4];  // P in Elem pairs: A of P V, 16 keys each
+
+  int n = 0;  // the pairs consumed
+  for (int j = 0; j < n_kv; ++j) {
+    // S = Q K^T over the head_dim, one pair of 128-column chunks a stage
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int st = n % C::kStages;
+      mbar_wait(&full[st], static_cast<uint32_t>(n / C::kStages) & 1u);
+      const unsigned char* pair = ring + st * C::kPairBytes;
+      wgmma_fence();
+      wgmma_fence_operands(s);
+#pragma unroll
+      for (int kk = 0; kk < C::kDc / kWgK; ++kk) {
+        const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
+        wgmma_m64n64k16_ss(s, desc_k_major(pair + at), desc_k_major(pair + C::kChunkBytes + at),
+                           c > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operands(s);
+      if (t == 0) mbar_arrive(&empty[st]);  // the products are done with the pair
+    }
+    // the causal mask on the diagonal tile, and the online softmax update
+    float corr[2];
+    online_softmax<C::kKv>(s, m_run, l_run, corr, p.causal && (j + 1) * C::kKv > q0,
+                           j * C::kKv, row0, col0, p.scale_log2);
+#pragma unroll
+    for (int k = 0; k < C::kDc / 2; ++k) o[k] *= corr[k % 4 / 2];
+    pack<C::kKv>(pk, s);
+    // O += P V on the CTA's columns
+    const int vs = j % C::kVStages;
+    mbar_wait(&v_full[vs], static_cast<uint32_t>(j / C::kVStages) & 1u);
+    const unsigned char* v_tile = v_ring + vs * C::kChunkBytes;
+    wgmma_fence();
+    wgmma_fence_operands(o);
+    wgmma_fence_operands(pk);
+#pragma unroll
+    for (int kc = 0; kc < C::kKv / kWgK; ++kc) {
+      pv_step<C::kDc>(o, pk[kc], v_tile + kc * kWgK * kSwizzleRow, kBoxBytes);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(o);
+    wgmma_fence_operands(pk);
+    if (t == 0) mbar_arrive(&v_empty[vs]);  // P V is done with V's stage
+  }
+
+  // the four threads of a row hold parts of its sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const float l_safe = fmaxf(l_run[r], 1e-30f);
+    const int row = row0 + r * 8;
+    Elem* out = p.o + b * p.o_sb + static_cast<int64_t>(row) * p.o_ss + h * p.o_sh +
+                chunk * C::kDc;
+#pragma unroll
+    for (int i = 0; i < C::kDc / 8; ++i) {
+      store_pair(out + i * 8 + col0, o[4 * i + 2 * r] / l_safe, o[4 * i + 2 * r + 1] / l_safe);
+    }
+    // every chunk computes the same (m, l): the first writes the logsumexp
+    if (chunk == 0 && p.lse != nullptr && lane % 4 == 0) {
+      p.lse[static_cast<int64_t>(bh) * p.seq + row] = m_run[r] * kLn2 + logf(l_safe);
+    }
+  }
+}
+
+// the head_dims of the fixed tilings (64-512), and of the streamed one
+bool fixed_width(int head_dim) {
+  return head_dim == 64 || head_dim == 128 || head_dim == 256 || head_dim == 384 ||
+         head_dim == 512;
+}
+bool streamed(int head_dim) { return head_dim >= 640 && head_dim % Streamed::kDc == 0; }
+
 template <int D, int SPLIT>
 cudaError_t opt_in() {
   return cudaFuncSetAttribute(flash_fwd_kernel<D, SPLIT>,
@@ -458,21 +650,24 @@ void launch(const Params& p, int batch_heads, cudaStream_t stream) {
   flash_fwd_kernel<D, SPLIT><<<grid, Cfg<D, SPLIT>::kThreads, Cfg<D, SPLIT>::kSmem, stream>>>(p);
 }
 
+int put_config(const int (&values)[6], int* out, int n) {
+  for (int i = 0; i < n && i < 6; ++i) out[i] = values[i];
+  return 6;
+}
+
 template <class C>
 int config_of(int* out, int n) {
-  const int values[] = {C::kThreads, C::kStages, C::kCtasPerSm, static_cast<int>(C::kSmem),
-                        C::kChunks, C::kKv};
-  const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
-  for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
-  return count;
+  return put_config({C::kThreads, C::kStages, C::kCtasPerSm, static_cast<int>(C::kSmem),
+                     C::kChunks, C::kKv}, out, n);
 }
 
 }  // namespace
 
 // C entries, bound with ctypes.
 //
-// flash_attention_init opts the seven instantiations (head_dim 64 and 128 by
-// one or two consumer warpgroups, 256, 384 and 512 by one) in to the dynamic
+// flash_attention_init opts the eight instantiations (head_dim 64 and 128 by
+// one or two consumer warpgroups, 256, 384 and 512 by one, and the streamed
+// one) in to the dynamic
 // shared memory they need above the default 48 KB and looks up the CUDA driver
 // API's cuTensorMapEncodeTiled.  It is called once per device before the
 // first launch, never at launch: a launch may sit inside CUDA-graph
@@ -491,6 +686,11 @@ extern "C" int flash_attention_init(int device) {
   if (err == cudaSuccess) err = opt_in<256, 1>();
   if (err == cudaSuccess) err = opt_in<384, 1>();
   if (err == cudaSuccess) err = opt_in<512, 1>();
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_fwd_streamed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Streamed::kSmem));
+  }
   if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -513,13 +713,19 @@ extern "C" int flash_attention_config(int head_dim, int kv_split, int* out, int 
   if (head_dim == 256) return config_of<Cfg<256, 1>>(out, n);
   if (head_dim == 384) return config_of<Cfg<384, 1>>(out, n);
   if (head_dim == 512) return config_of<Cfg<512, 1>>(out, n);
+  if (streamed(head_dim)) {
+    using C = Streamed;
+    return put_config({C::kThreads, C::kStages, 1, static_cast<int>(C::kSmem),
+                       head_dim / C::kDc, C::kKv}, out, n);
+  }
   return 0;
 }
 
 // `strides` holds 12 element strides: (batch, seq, head) for Q, K, V and O.
 // `lse` may be null.  A CTA takes 64 Q rows on `kv_split` consumer
 // warpgroups (1 or 2; 1 past head_dim 128) that take turns over its K/V
-// tiles, and at head_dim 384 and 512 half of O's columns.  `device` is the
+// tiles, and at head_dim 384 and 512 half of O's columns, from 640 on (any
+// multiple of 128) a 128-column chunk of them.  `device` is the
 // CUDA ordinal the pointers live on, initialised with flash_attention_init,
 // and `stream` the caller's cudaStream_t.
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
@@ -530,9 +736,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int batch, int heads, int seq, int head_dim, int causal,
                                    float scale, int device, void* stream) {
   if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  const bool known = head_dim == 256 || head_dim == 384 || head_dim == 512
-                         ? kv_split == 1
-                         : (head_dim == 64 || head_dim == 128) && (kv_split == 1 || kv_split == 2);
+  const bool known = head_dim == 64 || head_dim == 128
+                         ? kv_split == 1 || kv_split == 2
+                         : (fixed_width(head_dim) || streamed(head_dim)) && kv_split == 1;
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
@@ -561,9 +767,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.seq = seq;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.head_dim = head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  if (head_dim == 512) {
+  if (streamed(head_dim)) {
+    const dim3 grid(bh * (head_dim / Streamed::kDc), seq / kBK);
+    flash_fwd_streamed_kernel<<<grid, Streamed::kThreads, Streamed::kSmem, s>>>(p);
+  } else if (head_dim == 512) {
     launch<512, 1>(p, bh, s);
   } else if (head_dim == 384) {
     launch<384, 1>(p, bh, s);

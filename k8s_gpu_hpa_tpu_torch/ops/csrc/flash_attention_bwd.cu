@@ -139,10 +139,40 @@
 // take, since two accumulators share a thread's registers.  The recomputed
 // score products are the next thing to speed up.
 //
+// Head_dim 640 and up: the streamed tilings, one instantiation of each
+// kernel for every multiple of 128, head_dim a kernel argument.  At 640 the
+// chunked tiling's own two tiles (160 KB) and one 32-row stage (80 KB) pass
+// a CTA's 227 KB, so no tile holds a whole row:
+//   - each CTA owns 64 rows and one 128-column chunk of its outputs'
+//     columns (head_dim / 128 chunks, the grid's fast axis the batch-head's
+//     chunks), one consumer warpgroup and a producer warp, 160 threads;
+//   - for each 64-row tile of the other side, the two score products (dQ: S
+//     = Q K^T and dP = dO V^T; dK/dV: S^T = K Q^T and dP^T = V dO^T) are each
+//     summed over the head_dim in a runtime loop of 128-column chunks: a
+//     stage of the ring holds one pair of 64 x 128 chunks (32 KB), and the
+//     own rows' chunks are re-read from L2 for every tile like the others';
+//   - then the tile's chunks of the CTA's columns come through a second
+//     ring of two stages (dQ: K's, 16 KB; dK/dV: Q's and dO's with the
+//     tile's lse and delta, 32.5 KB), and dQ += dS K, or dV += P^T dO and
+//     dK += dS^T Q, run on those columns alone, A from registers;
+//   - four pair stages: 160 KB for dQ, 194 KB for dK/dV; registers: dQ 64,
+//     S 32, dP 32, dS 16; dK 64, dV 64, S^T 32, dP^T 32, P^T and dS^T 16
+//     each;
+//   - causal tiles are 64 rows, so one a CTA crosses the diagonal.
+// Every chunk recomputes the scores over the whole row: with n = d / 128
+// chunks a pair costs 4 d n + 2 d operations in dQ against the minimum 6 d,
+// and 4 d n + 4 d in dK/dV against 8 d (at 1024: 34 d and 36 d, 5.7 and 4.5
+// times).  At the training shape of a 2048-wide model of two heads of 1024
+// (b1, s2048, h2, causal) the minima are 25.8 and 34.4 GFLOP, 26.1 and 34.8
+// us at 989 TFLOP/s, against 41.9 and 50.4 MB, 12.5 and 15.0 us at 3.35
+// TB/s: the tensor cores bound both.  Sharing the scores across chunks is
+// later work.
+//
 // Layout.  Q, K, V, dO, dQ, dK and dV are [B, S, H, D] with D contiguous and
 // any other strides (element counts, multiples of 8); a [B*H, S, D] tensor is
 // the case H = 1.  lse and delta are [B*H, S] fp32, contiguous.  S must be a
-// multiple of 64 and D 64, 128, 256, 384 or 512.  The Python wrapper
+// multiple of 64 and D 64, 128, 256, 384, 512 or a multiple of 128 from 640
+// on.  The Python wrapper
 // (ops/flash_attention.py) checks all of this before it calls in.
 
 #include <cuda.h>
@@ -228,6 +258,7 @@ struct Params {
   float scale;        // 1/sqrt(d)
   float scale_log2;   // 1/sqrt(d) * log2(e)
   int causal;
+  int head_dim;
 };
 
 // CTA layout in shared memory, aligned to the swizzle atom
@@ -324,16 +355,20 @@ __device__ __forceinline__ void product_rs(float (&d)[N / 2], const uint32_t (&a
   }
 }
 
-// fp32 accumulators of N columns to Elem pairs, the A fragments of the next
-// product: columns 16 kc .. 16 kc + 15 are accumulator blocks 2 kc and 2 kc + 1
+// P = exp(S scale - lse) under the causal mask where `diagonal` (keys from
+// `key0`; thread t holds Q rows row0 and row0 + 8), then dS = P (dP - delta)
+// scale, in dP's registers: dQ's step between its two products
 template <int N>
-__device__ __forceinline__ void pack(uint32_t (&a)[N / kWgK][4], const float (&x)[N / 2]) {
+__device__ __forceinline__ void probs_ds(float (&s)[N / 2], float (&dp)[N / 2],
+                                         const float (&lse_l2)[2], const float (&delta)[2],
+                                         const Params& p, bool diagonal, int key0, int row0,
+                                         int col0) {
 #pragma unroll
-  for (int kc = 0; kc < N / kWgK; ++kc) {
-    a[kc][0] = pack_pair(x[8 * kc + 0], x[8 * kc + 1]);
-    a[kc][1] = pack_pair(x[8 * kc + 2], x[8 * kc + 3]);
-    a[kc][2] = pack_pair(x[8 * kc + 4], x[8 * kc + 5]);
-    a[kc][3] = pack_pair(x[8 * kc + 6], x[8 * kc + 7]);
+  for (int x = 0; x < N / 2; ++x) {
+    const int r = x % 4 / 2;
+    if (diagonal && row0 + r * 8 < key0 + (x / 4) * 8 + col0 + x % 2) s[x] = kNegInf;
+    const float pe = exp2_approx(fmaf(s[x], p.scale_log2, -lse_l2[r]));
+    dp[x] = pe * (dp[x] - delta[r]) * p.scale;
   }
 }
 
@@ -708,19 +743,11 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
       product_ss<D, N>(dp, do_s, k_tile + C::kStreamTileBytes);
       wgmma_commit();
     };
-    // P = exp(S scale - lse) under the mask of the tiles that reach past the
-    // CTA's first row (the diagonal one, or at 32 rows a tile the two that
-    // cover the CTA's own keys), then dS = P (dP - delta) scale, in dP's
-    // registers
+    // P and dS for tile j, masked where the tile reaches past the CTA's first
+    // row (the diagonal one, or at 32 rows a tile the two that cover the
+    // CTA's own keys)
     auto grad = [&](int j) {
-      const bool diagonal = p.causal && (j + 1) * N > q0;
-#pragma unroll
-      for (int x = 0; x < N / 2; ++x) {
-        const int r = x % 4 / 2;
-        if (diagonal && row0 + r * 8 < j * N + (x / 4) * 8 + col0 + x % 2) s[x] = kNegInf;
-        const float pe = exp2_approx(fmaf(s[x], p.scale_log2, -lse_l2[r]));
-        dp[x] = pe * (dp[x] - delta[r]) * p.scale;
-      }
+      probs_ds<N>(s, dp, lse_l2, delta, p, p.causal && (j + 1) * N > q0, j * N, row0, col0);
     };
     // dQ += dS K on the CTA's columns for tile j, K read N-major
     auto issue_dq = [&](int j) {
@@ -802,6 +829,273 @@ __global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
   store_rows<C::kDc>(p, 0, b, h, row0, col0, dq, chunk * C::kDc);
 }
 
+// The streamed tilings (the file's note); DKV: the dK/dV kernel, else dQ
+template <bool DKV>
+struct Streamed {
+  static constexpr int kDc = 128;        // the outputs' columns a CTA
+  static constexpr int kStages = 4;      // pair stages
+  static constexpr int kOwnStages = 2;   // stages of the CTA's columns
+  static constexpr uint32_t kChunkBytes = 2 * kBoxBytes;  // 64 x 128: two boxes
+  static constexpr uint32_t kPairBytes = 2 * kChunkBytes;
+  // dQ: K's chunk; dK/dV: Q's and dO's, and the tile's lse and delta apart
+  static constexpr uint32_t kOwnBytes = (DKV ? 2 : 1) * kChunkBytes;
+  static constexpr uint32_t kRowBytes = kBlk * sizeof(float);
+  static constexpr uint32_t kRowsBytes = DKV ? kOwnStages * 2 * kRowBytes : 0;
+  static constexpr int kThreads = 160;
+  static constexpr size_t kSmem = kStages * kPairBytes + kOwnStages * kOwnBytes + kRowsBytes +
+                                  2 * (kStages + kOwnStages) * sizeof(uint64_t) + kSwizzleAtom;
+  static_assert(kSmem <= 232448, "shared memory of a CTA");
+};
+
+template <bool DKV>
+struct StreamedSmem {
+  using C = Streamed<DKV>;
+  unsigned char* ring;  // pair stage s at s * kPairBytes
+  unsigned char* own;   // own stage s at s * kOwnBytes
+  float* rows;          // dK/dV: own stage s's lse at 2 s * 64, its delta after
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* own_full;
+  uint64_t* own_empty;
+
+  __device__ explicit StreamedSmem(unsigned char* raw) {
+    ring = raw + (kSwizzleAtom - smem_u32(raw) % kSwizzleAtom) % kSwizzleAtom;
+    own = ring + C::kStages * C::kPairBytes;
+    rows = reinterpret_cast<float*>(own + C::kOwnStages * C::kOwnBytes);
+    full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(rows) + C::kRowsBytes);
+    empty = full + C::kStages;
+    own_full = empty + C::kStages;
+    own_empty = own_full + C::kOwnStages;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < C::kStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], 1);
+      }
+      for (int s = 0; s < C::kOwnStages; ++s) {
+        mbar_init(&own_full[s], 1);
+        mbar_init(&own_empty[s], 1);
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+};
+
+// the 64 x 128 chunk of a [b, s, h, d] tensor from column `col`, row `row`
+__device__ __forceinline__ void load_chunk(unsigned char* dst, const CUtensorMap* map,
+                                           uint64_t* bar, int col, int h, int row, int b) {
+  tma_load_4d(dst, map, bar, col, h, row, b);
+  tma_load_4d(dst + kBoxBytes, map, bar, col + kBox, h, row, b);
+}
+
+// The streamed producer: one thread streams, for each of the CTA's `count`
+// tiles of the other side from tile `first`, the pairs of the first score
+// product's chunks (A of the CTA's rows `own_row`, B of the tile's), then
+// the second's, then the tile's chunks of the CTA's columns.  Pair n of
+// the CTA lies in stage n % kStages, in the ring's round n / kStages
+template <bool DKV>
+__device__ __forceinline__ void streamed_producer(const Params& p, const StreamedSmem<DKV>& sm,
+                                                  int bh, int b, int h, int chunk, int chunks,
+                                                  int own_row, int first, int count) {
+  using C = Streamed<DKV>;
+  if (threadIdx.x != 128) return;
+  // dK/dV: S^T = K Q^T, dP^T = V dO^T; dQ: S = Q K^T, dP = dO V^T
+  const CUtensorMap* a[2] = {DKV ? &p.k : &p.q, DKV ? &p.v : &p.dout};
+  const CUtensorMap* bm[2] = {DKV ? &p.q : &p.k, DKV ? &p.dout : &p.v};
+  int n = 0;
+  for (int i = 0; i < count; ++i) {
+    const int row = (first + i) * kBlk;
+    for (int g = 0; g < 2; ++g) {
+      for (int c = 0; c < chunks; ++c, ++n) {
+        const int st = n % C::kStages;
+        mbar_wait(&sm.empty[st], (static_cast<uint32_t>(n / C::kStages) & 1u) ^ 1);
+        unsigned char* pair = sm.ring + st * C::kPairBytes;
+        mbar_arrive_expect_tx(&sm.full[st], C::kPairBytes);
+        load_chunk(pair, a[g], &sm.full[st], c * C::kDc, h, own_row, b);
+        load_chunk(pair + C::kChunkBytes, bm[g], &sm.full[st], c * C::kDc, h, row, b);
+      }
+    }
+    const int os = i % C::kOwnStages;
+    mbar_wait(&sm.own_empty[os], (static_cast<uint32_t>(i / C::kOwnStages) & 1u) ^ 1);
+    unsigned char* own = sm.own + os * C::kOwnBytes;
+    const int col = chunk * C::kDc;
+    if constexpr (DKV) {
+      float* rows = sm.rows + os * 2 * kBlk;
+      mbar_arrive_expect_tx(&sm.own_full[os], C::kOwnBytes + 2 * C::kRowBytes);
+      load_chunk(own, &p.q, &sm.own_full[os], col, h, row, b);
+      load_chunk(own + C::kChunkBytes, &p.dout, &sm.own_full[os], col, h, row, b);
+      tma_load_2d(rows, &p.lse, &sm.own_full[os], row, bh);
+      tma_load_2d(rows + kBlk, &p.delta, &sm.own_full[os], row, bh);
+    } else {
+      mbar_arrive_expect_tx(&sm.own_full[os], C::kOwnBytes);
+      load_chunk(own, &p.k, &sm.own_full[os], col, h, row, b);
+    }
+  }
+}
+
+// d = A B^T over the head_dim for one tile: `chunks` pairs of the ring from
+// pair n on, each two 64 x 128 chunks, K-major both; returns the next pair
+template <bool DKV>
+__device__ __forceinline__ int streamed_scores(float (&d)[kBlk / 2], const StreamedSmem<DKV>& sm,
+                                               int n, int chunks) {
+  using C = Streamed<DKV>;
+  for (int c = 0; c < chunks; ++c, ++n) {
+    const int st = n % C::kStages;
+    mbar_wait(&sm.full[st], static_cast<uint32_t>(n / C::kStages) & 1u);
+    const unsigned char* pair = sm.ring + st * C::kPairBytes;
+    wgmma_fence();
+    wgmma_fence_operands(d);
+#pragma unroll
+    for (int kk = 0; kk < C::kDc / kWgK; ++kk) {
+      const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * kWgK * 2;
+      wgmma_m64n64k16_ss(d, desc_k_major(pair + at), desc_k_major(pair + C::kChunkBytes + at),
+                         c > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(d);
+    if (threadIdx.x == 0) mbar_arrive(&sm.empty[st]);  // the products are done with the pair
+  }
+  return n;
+}
+
+// the streamed dQ (the file's note)
+__global__ void __launch_bounds__(Streamed<false>::kThreads, 1)
+    flash_bwd_dq_streamed_kernel(const __grid_constant__ Params p) {
+  using C = Streamed<false>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int chunks = p.head_dim / C::kDc;
+  const int bh = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;  // the longest causal loops first
+  const int n_kv = p.causal ? (q0 + kBlk) / kBlk : p.seq / kBlk;
+  const StreamedSmem<false> sm(smem_raw);
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 1) {
+    streamed_producer(p, sm, bh, b, h, chunk, chunks, q0, 0, n_kv);
+    return;
+  }
+
+  // thread t holds Q rows row0 and row0 + 8, in the accumulator layout of
+  // the fixed tilings
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float lse_l2[2], delta[2];  // lse in log2 units
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t at = static_cast<int64_t>(bh) * p.seq + row0 + r * 8;
+    lse_l2[r] = p.lse_rows[at] * kLog2e;
+    delta[r] = p.delta_rows[at];
+  }
+  float dq[C::kDc / 2];
+#pragma unroll
+  for (int i = 0; i < C::kDc / 2; ++i) dq[i] = 0.0f;
+  float s[kBlk / 2] = {}, dp[kBlk / 2] = {};
+  uint32_t pds[kBlk / kWgK][4];  // dS in Elem pairs: A of dS K
+
+  int n = 0;  // the pairs consumed
+  for (int j = 0; j < n_kv; ++j) {
+    n = streamed_scores(s, sm, n, chunks);   // S = Q K^T
+    n = streamed_scores(dp, sm, n, chunks);  // dP = dO V^T
+    // P and dS, masked on the diagonal tile
+    probs_ds<kBlk>(s, dp, lse_l2, delta, p, p.causal && (j + 1) * kBlk > q0, j * kBlk, row0,
+                   col0);
+    pack<kBlk>(pds, dp);
+    // dQ += dS K on the CTA's columns, K read N-major
+    const int os = j % C::kOwnStages;
+    mbar_wait(&sm.own_full[os], static_cast<uint32_t>(j / C::kOwnStages) & 1u);
+    wgmma_fence();
+    wgmma_fence_operands(dq);
+    wgmma_fence_operands(pds);
+    product_rs<C::kDc, kBlk>(dq, pds, sm.own + os * C::kOwnBytes, kBoxBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(dq);
+    wgmma_fence_operands(pds);
+    if (t == 0) mbar_arrive(&sm.own_empty[os]);  // dS K is done with its stage
+  }
+  store_rows<C::kDc>(p, 0, b, h, row0, col0, dq, chunk * C::kDc);
+}
+
+// the streamed dK/dV (the file's note)
+__global__ void __launch_bounds__(Streamed<true>::kThreads, 1)
+    flash_bwd_dkv_streamed_kernel(const __grid_constant__ Params p) {
+  using C = Streamed<true>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int chunks = p.head_dim / C::kDc;
+  const int bh = blockIdx.x / chunks;
+  const int chunk = blockIdx.x % chunks;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int k0 = blockIdx.y * kBlk;  // the longest causal loops first
+  // causal: Q tiles before the diagonal see none of these keys
+  const int lo = p.causal ? blockIdx.y : 0;
+  const int count = p.seq / kBlk - lo;
+  const StreamedSmem<true> sm(smem_raw);
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 1) {
+    streamed_producer(p, sm, bh, b, h, chunk, chunks, k0, lo, count);
+    return;
+  }
+
+  // thread t holds K/V rows row0 and row0 + 8, in the accumulator layout of
+  // the fixed tilings
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int row0 = k0 + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  float dk[C::kDc / 2], dv[C::kDc / 2];
+#pragma unroll
+  for (int i = 0; i < C::kDc / 2; ++i) dk[i] = dv[i] = 0.0f;
+  float s[kBlk / 2] = {}, dp[kBlk / 2] = {};
+  uint32_t pp[kBlk / kWgK][4], pds[kBlk / kWgK][4];  // P^T and dS^T in Elem pairs
+
+  int n = 0;  // the pairs consumed
+  for (int i = 0; i < count; ++i) {
+    const int q0 = (lo + i) * kBlk;
+    n = streamed_scores(s, sm, n, chunks);   // S^T = K Q^T
+    n = streamed_scores(dp, sm, n, chunks);  // dP^T = V dO^T
+    const int os = i % C::kOwnStages;
+    mbar_wait(&sm.own_full[os], static_cast<uint32_t>(i / C::kOwnStages) & 1u);
+    const unsigned char* q_cols = sm.own + os * C::kOwnBytes;
+    const float* lse = sm.rows + os * 2 * kBlk;
+    transposed_probs<kBlk>(s, lse, p, q0, k0, row0, col0);
+    transposed_ds<kBlk>(dp, s, lse + kBlk, p.scale, col0);
+    pack<kBlk>(pp, s);
+    pack<kBlk>(pds, dp);
+    // dV += P^T dO and dK += dS^T Q on the CTA's columns
+    wgmma_fence();
+    wgmma_fence_operands(dv);
+    wgmma_fence_operands(dk);
+    wgmma_fence_operands(pp);
+    wgmma_fence_operands(pds);
+    product_rs<C::kDc, kBlk>(dv, pp, q_cols + C::kChunkBytes, kBoxBytes);
+    product_rs<C::kDc, kBlk>(dk, pds, q_cols, kBoxBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operands(dv);
+    wgmma_fence_operands(dk);
+    wgmma_fence_operands(pp);
+    wgmma_fence_operands(pds);
+    if (t == 0) mbar_arrive(&sm.own_empty[os]);  // both products are done with the stage
+  }
+  store_rows<C::kDc>(p, 0, b, h, row0, col0, dk, chunk * C::kDc);
+  store_rows<C::kDc>(p, 1, b, h, row0, col0, dv, chunk * C::kDc);
+}
+
+// the head_dims of the fixed tilings (64-512), and of the streamed one
+bool fixed_width(int head_dim) {
+  return head_dim == 64 || head_dim == 128 || head_dim == 256 || head_dim == 384 ||
+         head_dim == 512;
+}
+bool streamed(int head_dim) { return head_dim >= 640 && head_dim % Streamed<false>::kDc == 0; }
+
 template <class Kernel>
 cudaError_t opt_in(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -826,14 +1120,23 @@ void launch(const Params& p, int batch_heads, cudaStream_t stream) {
   }
 }
 
+int put_config(const int (&values)[7], int* out, int n) {
+  for (int i = 0; i < n && i < 7; ++i) out[i] = values[i];
+  return 7;
+}
+
 template <class C>
 int config_of(int* out, int n) {
-  const int values[] = {C::kThreads, C::kStages, static_cast<int>(C::kSmem),
-                        C::kRegSplit ? kProducerRegs : 0, C::kRegSplit ? kConsumerRegs : 0,
-                        C::kChunks, C::kStream};
-  const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
-  for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
-  return count;
+  return put_config({C::kThreads, C::kStages, static_cast<int>(C::kSmem),
+                     C::kRegSplit ? kProducerRegs : 0, C::kRegSplit ? kConsumerRegs : 0,
+                     C::kChunks, C::kStream}, out, n);
+}
+
+template <bool DKV>
+int streamed_config(int head_dim, int* out, int n) {
+  using C = Streamed<DKV>;
+  return put_config({C::kThreads, C::kStages, static_cast<int>(C::kSmem), 0, 0,
+                     head_dim / C::kDc, kBlk}, out, n);
 }
 
 // Encodes the maps a kernel reads (dkv: the dK/dV kernel, else dQ) on
@@ -844,8 +1147,7 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
                const int64_t* strides, int batch, int heads, int seq, int head_dim, int causal,
                float scale, int device, void* stream) {
   if (g_encode == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  if (head_dim != 64 && head_dim != 128 && head_dim != 256 && head_dim != 384 &&
-      head_dim != 512) {
+  if (!fixed_width(head_dim) && !streamed(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int cur = 0;
@@ -892,8 +1194,18 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   p.causal = causal;
+  p.head_dim = head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 512) {
+  if (streamed(head_dim)) {
+    using Dq = Streamed<false>;
+    using Dkv = Streamed<true>;
+    const dim3 grid(batch * heads * (head_dim / Dq::kDc), seq / kBlk);
+    if (dkv) {
+      flash_bwd_dkv_streamed_kernel<<<grid, Dkv::kThreads, Dkv::kSmem, s>>>(p);
+    } else {
+      flash_bwd_dq_streamed_kernel<<<grid, Dq::kThreads, Dq::kSmem, s>>>(p);
+    }
+  } else if (head_dim == 512) {
     dkv ? launch<512, true>(p, batch * heads, s) : launch<512, false>(p, batch * heads, s);
   } else if (head_dim == 384) {
     dkv ? launch<384, true>(p, batch * heads, s) : launch<384, false>(p, batch * heads, s);
@@ -913,11 +1225,12 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
 
 // C entries, bound with ctypes.
 //
-// flash_attention_bwd_init opts the ten instantiations (each kernel at
-// head_dim 64, 128, 256, 384 and 512) in to the dynamic shared memory they
-// need above the default 48 KB and looks up the CUDA driver API's cuTensorMapEncodeTiled.
-// It is called once per device before the first launch, never at launch: a
-// launch may sit inside CUDA-graph capture.  Returns a cudaError_t.
+// flash_attention_bwd_init opts the twelve instantiations (each kernel at
+// head_dim 64, 128, 256, 384 and 512, and streamed) in to the dynamic shared
+// memory they need above the default 48 KB and looks up the CUDA driver
+// API's cuTensorMapEncodeTiled.  It is called once per device before the
+// first launch, never at launch: a launch may sit inside CUDA-graph
+// capture.  Returns a cudaError_t.
 extern "C" int flash_attention_bwd_init(int device) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -930,6 +1243,8 @@ extern "C" int flash_attention_bwd_init(int device) {
   if (err == cudaSuccess) err = opt_in_both<256>();
   if (err == cudaSuccess) err = opt_in_both<384>();
   if (err == cudaSuccess) err = opt_in_both<512>();
+  if (err == cudaSuccess) err = opt_in(flash_bwd_dq_streamed_kernel, Streamed<false>::kSmem);
+  if (err == cudaSuccess) err = opt_in(flash_bwd_dkv_streamed_kernel, Streamed<true>::kSmem);
   if (err == cudaSuccess) err = find_encode();
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -956,6 +1271,9 @@ extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n
   }
   if (head_dim == 512) {
     return dkv ? config_of<Cfg<512, true>>(out, n) : config_of<Cfg<512, false>>(out, n);
+  }
+  if (streamed(head_dim)) {
+    return dkv ? streamed_config<true>(head_dim, out, n) : streamed_config<false>(head_dim, out, n);
   }
   return 0;
 }

@@ -1,7 +1,7 @@
 // Flash attention backward for f32 operands on Hopper (sm_90a): dQ, dK and
 // dV of O = softmax(Q K^T / sqrt(d)) V, fp32 throughout, the probabilities
 // recomputed from the forward's logsumexp, never stored; head_dim 64, 128 or
-// 256.
+// 256, and on the streamed tiling (below) any multiple of 128 from 384 on.
 //
 // Replaces the two Pallas TPU kernels of k8s_gpu_hpa_tpu/ops/flash_attention.py
 // called by `_flash_bhsd_bwd`, `_flash_bwd_dq_kernel` (pallas_call at :273)
@@ -41,6 +41,27 @@
 //     S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T into shared memory,
 //     and dV += P^T dO, dK += dS^T Q.
 //
+// Head_dim 384 and up: the streamed tiling, one instantiation of each
+// kernel for every multiple of 128, head_dim a kernel argument.  No tile
+// holds a whole row.  Each CTA of 256 threads owns 64 rows and one
+// 128-column chunk of its outputs' columns (head_dim / 128 chunks, the
+// grid's fast axis the batch-head's chunks); shared memory holds four
+// 64 x 128 chunks (135 KB, one CTA an SM):
+//   - dQ: for each K/V tile, S = Q K^T and dP = dO V^T are summed over the
+//     head_dim in a runtime loop of 128-column chunks of Q, K, dO and V (Q
+//     and dO re-read from L2 for every tile); then dS, and dQ += dS K on
+//     K's chunk of the CTA's columns;
+//   - dK/dV: for each Q tile, S^T = K Q^T and dP^T = V dO^T the same way
+//     (K and V re-read for every tile); then P^T and dS^T, and dV += P^T
+//     dO, dK += dS^T Q on Q's and dO's chunks of the CTA's columns.
+// Every chunk recomputes the scores over the whole row: with n = d / 128
+// chunks a pair costs 4 d n + 2 d operations in dQ against the minimum 6 d,
+// and 4 d n + 4 d in dK/dV against 8 d (at 512: 18 d and 20 d; at 384: 14 d
+// and 16 d).  At the training shape of four heads of 512 in f32 (b1, s2048,
+// h4, causal) the minima are 25.8 and 34.4 GFLOP, 385 and 513 us at 67
+// TFLOP/s, against 84 and 101 MB, 25 and 30 us at 3.35 TB/s: the FFMA rate
+// bounds both.
+//
 // Layout.  Q, K, V, dO, dQ, dK and dV are [B, S, H, D] with D contiguous and
 // any other strides (element counts, multiples of 8); a [B*H, S, D] tensor
 // is the case H = 1.  lse and delta are [B*H, S] fp32, contiguous.  S must
@@ -77,10 +98,54 @@ struct Params {
   float scale;       // 1/sqrt(d)
   float scale_log2;  // 1/sqrt(d) * log2(e)
   int causal;
+  int head_dim;
 };
 
 __device__ __forceinline__ int64_t at(const int64_t (&st)[3], int b, int row, int h) {
   return b * st[0] + static_cast<int64_t>(row) * st[1] + h * st[2];
+}
+
+// dQ's step between its products: P = exp(S scale - lse) under the mask
+// where the K/V tile from kv0 reaches past the CTA's first row q0
+// (`crossing`), then dS = P (dP - delta) scale, in dP's registers
+template <class T>
+__device__ __forceinline__ void probs_ds(float (&s)[4][T::kCols], float (&dp)[4][T::kCols],
+                                         const float (&lse_l2)[4], const float (&delta)[4],
+                                         const Params& p, bool crossing, int q0, int kv0,
+                                         int ty, int tx) {
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < T::kCols; ++jj) {
+      if (crossing && q0 + 4 * ty + ii < kv0 + tx + 16 * jj) s[ii][jj] = kF32NegInf;
+      const float pe = exp2f(fmaf(s[ii][jj], p.scale_log2, -lse_l2[ii]));
+      dp[ii][jj] = pe * (dp[ii][jj] - delta[ii]) * p.scale;
+    }
+  }
+}
+
+// dK/dV's step between its products: P^T = exp(S^T scale - lse[col]) under
+// the mask where the Q tile from q0 reaches above the CTA's last key
+// (`crossing`; its first key k0), then dS^T = P^T (dP^T - delta[col])
+// scale, each thread reading lse and delta for its score columns
+template <class T>
+__device__ __forceinline__ void transposed_probs_ds(float (&s)[4][T::kCols],
+                                                    float (&dp)[4][T::kCols], const Params& p,
+                                                    int bh, bool crossing, int q0, int k0,
+                                                    int ty, int tx) {
+#pragma unroll
+  for (int jj = 0; jj < T::kCols; ++jj) {
+    const int q = q0 + tx + 16 * jj;
+    const int64_t row = static_cast<int64_t>(bh) * p.seq + q;
+    const float lse_l2 = p.lse[row] * kF32Log2e;
+    const float dl = p.delta[row];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      if (crossing && q < k0 + 4 * ty + ii) s[ii][jj] = kF32NegInf;
+      s[ii][jj] = exp2f(fmaf(s[ii][jj], p.scale_log2, -lse_l2));
+      dp[ii][jj] = s[ii][jj] * (dp[ii][jj] - dl) * p.scale;
+    }
+  }
 }
 
 template <int D>
@@ -123,17 +188,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     float s[4][T::kCols], dp[4][T::kCols];
     scores<D>(s, q_s, k_s, ty, tx);
     scores<D>(dp, do_s, v_s, ty, tx);
-    // P = exp(S scale - lse) under the mask, then dS = P (dP - delta) scale
-    const bool crossing = p.causal && kv0 + T::kOther - 1 > q0;
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-#pragma unroll
-      for (int jj = 0; jj < T::kCols; ++jj) {
-        if (crossing && q0 + 4 * ty + ii < kv0 + tx + 16 * jj) s[ii][jj] = kF32NegInf;
-        const float pe = exp2f(fmaf(s[ii][jj], p.scale_log2, -lse_l2[ii]));
-        dp[ii][jj] = pe * (dp[ii][jj] - delta[ii]) * p.scale;
-      }
-    }
+    probs_ds<T>(s, dp, lse_l2, delta, p, p.causal && kv0 + T::kOther - 1 > q0, q0, kv0, ty, tx);
     __syncthreads();  // every thread's dP is done with V
     put_scores<D>(ds_s, dp, ty, tx);
     __syncthreads();
@@ -185,20 +240,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     float s[4][T::kCols], dp[4][T::kCols];
     scores<D>(s, k_s, q_s, ty, tx);
     scores<D>(dp, v_s, do_s, ty, tx);
-    const bool crossing = p.causal && q0 < k0 + kF32Rows - 1;
-#pragma unroll
-    for (int jj = 0; jj < T::kCols; ++jj) {
-      const int q = q0 + tx + 16 * jj;
-      const int64_t row = static_cast<int64_t>(bh) * p.seq + q;
-      const float lse_l2 = p.lse[row] * kF32Log2e;
-      const float dl = p.delta[row];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        if (crossing && q < k0 + 4 * ty + ii) s[ii][jj] = kF32NegInf;
-        s[ii][jj] = exp2f(fmaf(s[ii][jj], p.scale_log2, -lse_l2));
-        dp[ii][jj] = s[ii][jj] * (dp[ii][jj] - dl) * p.scale;
-      }
-    }
+    transposed_probs_ds<T>(s, dp, p, bh, p.causal && q0 < k0 + kF32Rows - 1, q0, k0, ty, tx);
     put_scores<D>(pt_s, s, ty, tx);
     put_scores<D>(dst_s, dp, ty, tx);
     __syncthreads();
@@ -210,6 +252,157 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   store_out<D>(p.out[0] + at(p.out_st[0], b, k0, h), p.out_st[0][1], dk, one, ty, tx);
   store_out<D>(p.out[1] + at(p.out_st[1], b, k0, h), p.out_st[1][1], dv, one, ty, tx);
 }
+
+// the streamed tiling (the file's note): four 64 x 128 chunks
+constexpr size_t kStreamedSmem = 4 * F32Chunk::kTileFloats * sizeof(float);
+static_assert(F32Chunk::kOther == kF32Rows, "streamed tiles of 64 rows");
+static_assert(kStreamedSmem <= 232448, "shared memory of a CTA");
+
+// The CTA's (batch-head, chunk, own 64 rows) on the streamed tiling; the
+// own rows counted down from the last (dQ's longest causal loops first) or
+// up from 0 (dK/dV's)
+struct StreamedCta {
+  int bh, b, h, chunk, chunks, row0;
+  __device__ StreamedCta(const Params& p, bool down) {
+    chunks = p.head_dim / kF32ChunkCols;
+    bh = blockIdx.x / chunks;
+    chunk = blockIdx.x % chunks;
+    b = bh / p.heads;
+    h = bh % p.heads;
+    row0 = (down ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kF32Rows;
+  }
+};
+
+// a += x y^T and c += z w^T over the head_dim: the score tiles of the own
+// rows of x and z (from row `own`) against the streamed rows of y and w
+// (from row `other`), a 128-column chunk of each of the four at a time
+// through bufs[0..3]
+__device__ __forceinline__ void streamed_scores(
+    float (&a)[4][F32Chunk::kCols], float (&c)[4][F32Chunk::kCols], float* const (&bufs)[4],
+    const Params& p, const StreamedCta& cta, int x, int y, int z, int w, int own, int other,
+    int ty, int tx) {
+  const int which[4] = {x, y, z, w};
+  const int rows[4] = {own, other, own, other};
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < F32Chunk::kCols; ++jj) a[ii][jj] = c[ii][jj] = 0.0f;
+  }
+  for (int k = 0; k < cta.chunks; ++k) {
+    __syncthreads();  // the previous chunk's (or tile's) products are done
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      load_rows<kF32ChunkCols>(
+          bufs[i], p.in[which[i]] + at(p.st[which[i]], cta.b, rows[i], cta.h) + k * kF32ChunkCols,
+          kF32Rows, p.st[which[i]][1]);
+    }
+    __syncthreads();
+    add_scores<kF32ChunkCols>(a, bufs[0], bufs[1], ty, tx);
+    add_scores<kF32ChunkCols>(c, bufs[2], bufs[3], ty, tx);
+  }
+}
+
+// the streamed dQ (the file's note)
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dq_f32_streamed_kernel(const __grid_constant__ Params p) {
+  using T = F32Chunk;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* const bufs[4] = {
+      reinterpret_cast<float*>(smem_raw), reinterpret_cast<float*>(smem_raw) + T::kTileFloats,
+      reinterpret_cast<float*>(smem_raw) + 2 * T::kTileFloats,
+      reinterpret_cast<float*>(smem_raw) + 3 * T::kTileFloats};
+  const StreamedCta cta(p, true);
+  const int q0 = cta.row0;
+  const int n_kv = (p.causal ? q0 + kF32Rows : p.seq) / kF32Rows;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  float lse_l2[4], delta[4];  // lse in log2 units
+  float dq[4][T::kOut];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int64_t row = static_cast<int64_t>(cta.bh) * p.seq + q0 + 4 * ty + ii;
+    lse_l2[ii] = p.lse[row] * kF32Log2e;
+    delta[ii] = p.delta[row];
+#pragma unroll
+    for (int c = 0; c < T::kOut; ++c) dq[ii][c] = 0.0f;
+  }
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int kv0 = j * kF32Rows;
+    float s[4][T::kCols], dp[4][T::kCols];
+    // S = Q K^T and dP = dO V^T over the head_dim
+    streamed_scores(s, dp, bufs, p, cta, 0, 1, 3, 2, q0, kv0, ty, tx);
+    probs_ds<T>(s, dp, lse_l2, delta, p, p.causal && kv0 + kF32Rows - 1 > q0, q0, kv0, ty, tx);
+    __syncthreads();  // every thread's scores are done with the chunks
+    // K's chunk of the CTA's columns, and dS
+    load_rows<kF32ChunkCols>(
+        bufs[0], p.in[1] + at(p.st[1], cta.b, kv0, cta.h) + cta.chunk * kF32ChunkCols, kF32Rows,
+        p.st[1][1]);
+    put_scores<kF32ChunkCols>(bufs[1], dp, ty, tx);
+    __syncthreads();
+    accumulate<kF32ChunkCols>(dq, bufs[1], bufs[0], ty, tx);
+  }
+
+  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  store_out<kF32ChunkCols>(
+      p.out[0] + at(p.out_st[0], cta.b, q0, cta.h) + cta.chunk * kF32ChunkCols, p.out_st[0][1],
+      dq, one, ty, tx);
+}
+
+// the streamed dK/dV (the file's note)
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dkv_f32_streamed_kernel(const __grid_constant__ Params p) {
+  using T = F32Chunk;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* const bufs[4] = {
+      reinterpret_cast<float*>(smem_raw), reinterpret_cast<float*>(smem_raw) + T::kTileFloats,
+      reinterpret_cast<float*>(smem_raw) + 2 * T::kTileFloats,
+      reinterpret_cast<float*>(smem_raw) + 3 * T::kTileFloats};
+  const StreamedCta cta(p, false);
+  const int k0 = cta.row0;
+  // causal: Q tiles before the CTA's first key see none of its keys
+  const int lo = p.causal ? k0 / kF32Rows : 0;
+  const int count = p.seq / kF32Rows - lo;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int cols = cta.chunk * kF32ChunkCols;
+
+  float dk[4][T::kOut], dv[4][T::kOut];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int c = 0; c < T::kOut; ++c) dk[ii][c] = dv[ii][c] = 0.0f;
+  }
+
+  for (int n = 0; n < count; ++n) {
+    const int q0 = (lo + n) * kF32Rows;
+    // S^T = K Q^T and dP^T = V dO^T over the head_dim: rows are the CTA's
+    // keys, columns the tile's queries
+    float s[4][T::kCols], dp[4][T::kCols];
+    streamed_scores(s, dp, bufs, p, cta, 1, 0, 2, 3, k0, q0, ty, tx);
+    transposed_probs_ds<T>(s, dp, p, cta.bh, p.causal && q0 < k0 + kF32Rows - 1, q0, k0, ty, tx);
+    __syncthreads();  // every thread's scores are done with the chunks
+    // Q's and dO's chunks of the CTA's columns, P^T and dS^T
+    load_rows<kF32ChunkCols>(bufs[0], p.in[0] + at(p.st[0], cta.b, q0, cta.h) + cols, kF32Rows,
+                             p.st[0][1]);
+    load_rows<kF32ChunkCols>(bufs[2], p.in[3] + at(p.st[3], cta.b, q0, cta.h) + cols, kF32Rows,
+                             p.st[3][1]);
+    put_scores<kF32ChunkCols>(bufs[1], s, ty, tx);
+    put_scores<kF32ChunkCols>(bufs[3], dp, ty, tx);
+    __syncthreads();
+    accumulate<kF32ChunkCols>(dv, bufs[1], bufs[2], ty, tx);
+    accumulate<kF32ChunkCols>(dk, bufs[3], bufs[0], ty, tx);
+  }
+
+  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  store_out<kF32ChunkCols>(p.out[0] + at(p.out_st[0], cta.b, k0, cta.h) + cols, p.out_st[0][1],
+                           dk, one, ty, tx);
+  store_out<kF32ChunkCols>(p.out[1] + at(p.out_st[1], cta.b, k0, cta.h) + cols, p.out_st[1][1],
+                           dv, one, ty, tx);
+}
+
+// head_dims of the fixed tilings, and of the streamed one
+bool fixed_width(int head_dim) { return head_dim == 64 || head_dim == 128 || head_dim == 256; }
+bool streamed(int head_dim) { return head_dim >= 384 && head_dim % kF32ChunkCols == 0; }
 
 template <int D>
 cudaError_t opt_in_both() {
@@ -234,20 +427,22 @@ void launch(const Params& p, int batch_heads, cudaStream_t stream) {
   }
 }
 
+int put_config(const int (&values)[7], int* out, int n) {
+  for (int i = 0; i < n && i < 7; ++i) out[i] = values[i];
+  return 7;
+}
+
 template <class C>
 int config_of(int* out, int n) {
   // one CTA a (batch-head, 64-row tile): its chunks, 1
-  const int values[] = {kF32Threads, 1, static_cast<int>(C::kSmem), 0, 0, 1, C::T::kOther};
-  const int count = static_cast<int>(sizeof(values) / sizeof(values[0]));
-  for (int i = 0; i < n && i < count; ++i) out[i] = values[i];
-  return count;
+  return put_config({kF32Threads, 1, static_cast<int>(C::kSmem), 0, 0, 1, C::T::kOther}, out, n);
 }
 
 int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* out0, void* out1,
                const int64_t* strides, int batch, int heads, int seq, int head_dim, int causal,
                float scale, int device, void* stream) {
-  if (head_dim != 64 && head_dim != 128 && head_dim != 256) {
+  if (!fixed_width(head_dim) && !streamed(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int cur = 0;
@@ -273,9 +468,17 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   p.scale = scale;
   p.scale_log2 = scale * kF32Log2e;
   p.causal = causal;
+  p.head_dim = head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  if (head_dim == 256) {
+  if (streamed(head_dim)) {
+    const dim3 grid(bh * (head_dim / kF32ChunkCols), seq / kF32Rows);
+    if (dkv) {
+      flash_bwd_dkv_f32_streamed_kernel<<<grid, kF32Threads, kStreamedSmem, s>>>(p);
+    } else {
+      flash_bwd_dq_f32_streamed_kernel<<<grid, kF32Threads, kStreamedSmem, s>>>(p);
+    }
+  } else if (head_dim == 256) {
     dkv ? launch<256, true>(p, bh, s) : launch<256, false>(p, bh, s);
   } else if (head_dim == 128) {
     dkv ? launch<128, true>(p, bh, s) : launch<128, false>(p, bh, s);
@@ -292,10 +495,10 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
 // C entries, bound with ctypes, as flash_attention_bwd.cu's: the same names
 // and arguments, so ops/flash_attention.py drives either library alike.
 //
-// flash_attention_bwd_init opts the six instantiations (each kernel at
-// head_dim 64, 128 and 256) in to the dynamic shared memory they need above
-// the default 48 KB, once per device before the first launch.  Returns a
-// cudaError_t.
+// flash_attention_bwd_init opts the eight instantiations (each kernel at
+// head_dim 64, 128 and 256, and streamed) in to the dynamic shared memory
+// they need above the default 48 KB, once per device before the first
+// launch.  Returns a cudaError_t.
 extern "C" int flash_attention_bwd_init(int device) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -306,15 +509,27 @@ extern "C" int flash_attention_bwd_init(int device) {
   err = opt_in_both<64>();
   if (err == cudaSuccess) err = opt_in_both<128>();
   if (err == cudaSuccess) err = opt_in_both<256>();
+  for (const void* kernel : {reinterpret_cast<const void*>(flash_bwd_dq_f32_streamed_kernel),
+                             reinterpret_cast<const void*>(flash_bwd_dkv_f32_streamed_kernel)}) {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kStreamedSmem));
+    }
+  }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
 
 // The configuration of (dkv: the dK/dV kernel, else dQ; head_dim): threads,
-// stages (one), dynamic shared memory in bytes, and 0, 0 (no setmaxnreg).
-// Returns how many values there are, or 0 where there is no such
-// instantiation.
+// stages (one), dynamic shared memory in bytes, 0, 0 (no setmaxnreg), CTAs
+// a (batch-head, 64-row tile) (chunks of the outputs' columns) and rows a
+// streamed tile.  Returns how many values there are, or 0 where there is
+// no such instantiation.
 extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n) {
+  if (streamed(head_dim)) {
+    return put_config({kF32Threads, 1, static_cast<int>(kStreamedSmem), 0, 0,
+                       head_dim / kF32ChunkCols, F32Chunk::kOther}, out, n);
+  }
   if (head_dim == 64) {
     return dkv ? config_of<Cfg<64, true>>(out, n) : config_of<Cfg<64, false>>(out, n);
   }

@@ -22,8 +22,11 @@ constexpr int kBoxRows = 64;  // a box's rows: one tile of Q, K, V or dO
 
 // the rows of a streamed tile (K/V in the forward and dQ, Q/dO in dK/dV):
 // 64, and 32 at head_dim 384 and 512, where a 64-row ring does not fit
-// shared memory beside the CTA's own 64-row tiles
-constexpr int stream_rows(int head_dim) { return head_dim > 256 ? 32 : kBoxRows; }
+// shared memory beside the CTA's own 64-row tiles (from 640 on the streamed
+// tilings hold no whole row, and stream 64-row chunks of every tensor)
+constexpr int stream_rows(int head_dim) {
+  return head_dim > 256 && head_dim <= 512 ? 32 : kBoxRows;
+}
 
 PFN_cuTensorMapEncodeTiled g_encode = nullptr;
 

@@ -40,20 +40,26 @@ Entry points:
   differentiates.
 
 The envelope is the Hopper kernels', not the TPU's, and it is per dtype
-(``HEAD_DIMS``): head_dim 64, 128, 256, 384 or 512 in bf16 and f16, 64, 128
-or 256 in f32, and a sequence that is a positive multiple of the 64-row
-tile.  There is no stripe cap, because the kernels stream tiles through
-shared memory instead of holding a batch-head's whole stripe.  It covers
-the TPU kernel's envelope (head_dim a multiple of 128 within a 12 MiB K/V
-stripe) up to head_dim 512 in bf16 and f16, and to 256 in f32; anything
-outside it, f32 at 384 and 512 and every head_dim past 512 among them,
-takes ``reference_attention`` (ROADMAP.md §2 queues those).  At head_dim
-384 and 512 each kernel splits its output's columns across CTAs (chunks:
-half of O's and dQ's, a 128 of dK's and dV's), every chunk recomputing the
-scores over the whole head_dim; a call is still one launch.  The kernels'
-tiles are fixed; ``block_q`` and ``block_k`` are the TPU kernel's tile
-sizes, accepted so that callers keep the JAX signature, and change nothing
-here.
+(``head_dim_supported``): the fixed-width instantiations' head_dims
+(``HEAD_DIMS``: 64, 128, 256, 384 and 512 in bf16 and f16; 64, 128 and 256
+in f32), and from ``STREAMED_FROM`` on (640 in bf16 and f16, 384 in f32)
+every multiple of 128, with no upper width; and a sequence that is a
+positive multiple of the 64-row tile.  There is no stripe cap, because the
+kernels stream tiles through shared memory instead of holding a
+batch-head's whole stripe.  So it contains the TPU kernel's envelope
+(head_dim a multiple of 128, a sequence some 64-aligned block divides,
+within a 12 MiB K/V stripe) in every dtype, and adds head_dim 64.  At
+head_dim 384 and 512 in bf16 and f16 each kernel splits its output's
+columns across CTAs (chunks: half of O's and dQ's, a 128 of dK's and
+dV's).  From ``STREAMED_FROM`` on each kernel runs the streamed tiling: a
+CTA owns 128 of its output's columns, sums the scores over the head_dim in
+a runtime loop of 128-column chunks streamed through shared memory, and
+then runs the owned-column product; head_dim is a kernel argument, so one
+instantiation takes every width.  In both, every chunk recomputes the
+scores over the whole head_dim, and a call is still one launch.  The
+kernels' tiles are fixed; ``block_q`` and ``block_k`` are the TPU kernel's
+tile sizes, accepted so that callers keep the JAX signature, and change
+nothing here.
 """
 
 from __future__ import annotations
@@ -82,10 +88,16 @@ F32_HEADERS = (CSRC / "ffma_tiles.cuh",)
 DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 #: rows of a CTA's own tile; the sequence must be a multiple
 KV_TILE = 64
-#: the head_dims each dtype's kernels take: the wgmma sources' five (at 384
-#: and 512 the chunked tilings), the f32 FFMA sources' three
+#: the head_dims of each dtype's fixed-width instantiations: the wgmma
+#: sources' five (at 384 and 512 the chunked tilings), the f32 FFMA sources'
+#: three
 HEAD_DIMS = {torch.bfloat16: (64, 128, 256, 384, 512), torch.float16: (64, 128, 256, 384, 512),
              torch.float32: (64, 128, 256)}
+#: the streamed tilings' columns a CTA, and the chunk of the head_dim their
+#: score products step over: they take every multiple of it
+STREAMED_COLS = 128
+#: from this head_dim on, each dtype's kernels run the streamed tiling
+STREAMED_FROM = {torch.bfloat16: 640, torch.float16: 640, torch.float32: 384}
 #: the forward's consumer warpgroups a CTA of 64 Q rows, which take turns
 #: over its K/V tiles: one (two CTAs an SM) or two (one CTA an SM)
 FWD_SPLITS = (1, 2)
@@ -159,12 +171,28 @@ def build(dtype: torch.dtype = torch.bfloat16) -> tuple[Path, str]:
     return _FWD.build(dtype)
 
 
+def streamed(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether ``dtype``'s kernels run the streamed tiling at ``head_dim``."""
+    return head_dim >= STREAMED_FROM[dtype]
+
+
+def head_dim_supported(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether ``dtype``'s kernels take ``head_dim``: a fixed-width
+    instantiation's (``HEAD_DIMS``), or from ``STREAMED_FROM`` on any
+    multiple of ``STREAMED_COLS``."""
+    return dtype in DTYPES and (
+        head_dim in HEAD_DIMS[dtype]
+        or (streamed(head_dim, dtype) and head_dim % STREAMED_COLS == 0)
+    )
+
+
 def fwd_splits(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> tuple[int, ...]:
     """The forward's instantiations at ``head_dim`` and ``dtype``, by
     consumer warpgroups a CTA: ``FWD_SPLITS``, or one alone from 256 on,
     where a 64-row tile is 32 KB or more and two warpgroups' ring and
     hand-over do not fit an SM's shared memory (csrc/flash_attention.cu),
-    and in f32, whose kernel has one tiling (csrc/flash_attention_f32.cu)."""
+    and in f32, whose kernel has one tiling (csrc/flash_attention_f32.cu);
+    the streamed tilings have one too."""
     return (1,) if head_dim >= 256 or dtype == torch.float32 else FWD_SPLITS
 
 
@@ -184,7 +212,8 @@ def fwd_config(head_dim: int, kv_split: int, device: int = 0,
     """The forward instantiation's configuration, as the library of
     ``dtype`` reports it: threads, ring stages, CTAs an SM, dynamic shared
     memory in bytes, CTAs a (batch-head, Q tile) (``chunks`` of O's
-    columns: 2 at head_dim 384 and 512, else 1) and K/V rows a tile."""
+    columns: 2 at head_dim 384 and 512 in bf16 and f16, head_dim / 128 on
+    the streamed tiling, else 1) and K/V rows a tile."""
     keys = ("threads", "stages", "ctas_per_sm", "smem_bytes", "chunks", "kv_rows")
     out = (ctypes.c_int * len(keys))()
     n = _FWD.load(dtype, device).flash_attention_config(head_dim, kv_split, out, len(keys))
@@ -206,8 +235,8 @@ def bwd_config(kernel: str, head_dim: int, device: int = 0,
     stages, dynamic shared memory in bytes (one CTA an SM), the producer's
     and the consumers' registers under ``setmaxnreg`` (0 without it), CTAs
     a (batch-head, 64-row tile) (``chunks`` of the output's columns: at
-    head_dim 384 and 512 dQ's 2, dK/dV's 3 and 4, else 1) and rows a
-    streamed tile."""
+    head_dim 384 and 512 in bf16 and f16 dQ's 2, dK/dV's 3 and 4, on the
+    streamed tiling head_dim / 128, else 1) and rows a streamed tile."""
     keys = ("threads", "stages", "smem_bytes", "producer_regs", "consumer_regs", "chunks",
             "stream_rows")
     out = (ctypes.c_int * len(keys))()
@@ -330,10 +359,10 @@ def flash_attention_bwd_reference(
 
 def _check(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
     """Raises unless the operands suit the kernels: one CUDA device, one
-    dtype of ``DTYPES``, one shape, [b*h, s, d] or [b, s, h, d], head_dim in
-    the dtype's ``HEAD_DIMS``, seq a positive multiple of the tile, head_dim
-    contiguous and every other stride a multiple of 8 elements, 16-byte
-    aligned."""
+    dtype of ``DTYPES``, one shape, [b*h, s, d] or [b, s, h, d], a head_dim
+    the dtype's kernels take (``head_dim_supported``), seq a positive
+    multiple of the tile, head_dim contiguous and every other stride a
+    multiple of 8 elements, 16-byte aligned."""
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError(
             f"{name} needs its operands on one CUDA device, got "
@@ -349,9 +378,10 @@ def _check(name: str, tensors: tuple[torch.Tensor, ...]) -> None:
             f"{[tuple(t.shape) for t in tensors]}"
         )
     seq, d = q.shape[1], q.shape[-1]
-    if d not in HEAD_DIMS[q.dtype]:
+    if not head_dim_supported(d, q.dtype):
         raise ValueError(f"{name} takes {DTYPES[q.dtype]} operands of head_dim in "
-                         f"{HEAD_DIMS[q.dtype]}, got {d}")
+                         f"{HEAD_DIMS[q.dtype]} or a multiple of {STREAMED_COLS} from "
+                         f"{STREAMED_FROM[q.dtype]} on, got {d}")
     if seq <= 0 or seq % KV_TILE:
         raise ValueError(f"{name} needs seq a positive multiple of {KV_TILE}, got {seq}")
     for t in tensors:
@@ -541,16 +571,12 @@ class FlashAttention(torch.autograd.Function):
 def flash_shape_supported(
     seq: int, head_dim: int, dtype: torch.dtype, block_q: int = 512, block_k: int = 512
 ) -> bool:
-    """The kernels' envelope: bf16 or f16 at head_dim 64, 128, 256, 384 or
-    512, f32 at 64, 128 or 256 (``HEAD_DIMS``), seq a positive multiple of
-    the tile.  ``block_q``/``block_k`` change nothing (see the module's
-    note)."""
-    return (
-        dtype in DTYPES
-        and head_dim in HEAD_DIMS[dtype]
-        and seq > 0
-        and seq % KV_TILE == 0
-    )
+    """The kernels' envelope: a head_dim the dtype's kernels take
+    (``head_dim_supported``: bf16 or f16 at 64-512 and every multiple of
+    128 from 640 on, f32 at 64, 128, 256 and every multiple of 128 from 384
+    on), seq a positive multiple of the tile.  ``block_q``/``block_k``
+    change nothing (see the module's note)."""
+    return head_dim_supported(head_dim, dtype) and seq > 0 and seq % KV_TILE == 0
 
 
 def flash_attention_supported(q: torch.Tensor, block_q: int = 512, block_k: int = 512) -> bool:

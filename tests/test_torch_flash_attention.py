@@ -65,6 +65,44 @@ def test_f32_matches_jax_flash(causal):
     np.testing.assert_allclose(plain.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("head_dim", [384, 512, 640], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_streamed_widths_match_jax_flash(causal, head_dim):
+    """f32 at the streamed kernels' widths, where the dispatcher took
+    ``reference_attention`` before they existed: it takes the kernel's
+    wrapper (its plain version on the CPU), within JAX's f32 bar of JAX's
+    Pallas kernel."""
+    q, k, v = _qkv(seq=128, head_dim=head_dim, seed=23)
+    assert flash_attention_supported(_torch(q)[0])
+    want = np.asarray(jax_flash_attention(*_jax(q, k, v), causal=causal, block_q=64, block_k=64))
+    got = flash_attention(*_torch(q, k, v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+#: the sweep's grid: JAX's envelope is head_dim % 128 == 0, a sequence a
+#: 64-aligned block divides, and a K/V stripe of at most 12 MiB
+SWEEP_SEQS = (64, 192, 512, 2048, 6144, 8192)
+SWEEP_HEAD_DIMS = tuple(range(64, 2049, 64))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_the_envelope_contains_jaxs(dtype):
+    """Every shape of the grid that JAX's ``flash_shape_supported`` takes,
+    the port's takes too, in each dtype: so no shape on which JAX's
+    training step or dispatcher runs its Pallas kernel sends the port to
+    ``reference_attention`` or its training step to ring attention.  Past
+    it the port adds head_dim 64 and sequences past the stripe cap."""
+    from k8s_gpu_hpa_tpu.ops.flash_attention import flash_shape_supported as jax_supported
+
+    accepted = [(s, d) for s in SWEEP_SEQS for d in SWEEP_HEAD_DIMS
+                if jax_supported(s, d, getattr(jnp, dtype))]
+    assert len(accepted) > 20  # the grid reaches into JAX's envelope
+    assert max(d for _, d in accepted) == 2048
+    missing = [(s, d) for s, d in accepted
+               if not flash_shape_supported(s, d, getattr(torch, dtype))]
+    assert not missing, missing
+
+
 def test_causal_with_uneven_jax_blocks():
     """block_q != block_k drives the JAX kernel's skip bound
     ceil((iq+1)*bq / bk); the port's result does not depend on the blocks."""
@@ -74,13 +112,13 @@ def test_causal_with_uneven_jax_blocks():
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512, 640, 1024], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_matches_jax_flash(causal, head_dim):
     """bf16, inside the envelope: the dispatcher takes the kernel's wrapper,
     which on the CPU computes the plain version; JAX's Pallas kernel takes
-    head_dim 128, 256, 384 and 512 alike (the last two the chunked kernels'
-    widths on the card), at JAX's bf16 bar, 0.06."""
+    head_dim 128 to 1024 alike (384 and 512 the chunked kernels' widths on
+    the card, 640 and 1024 the streamed ones'), at JAX's bf16 bar, 0.06."""
     q, k, v = _qkv(seq=128, head_dim=head_dim)
     assert flash_attention_supported(_torch(q, dtype=torch.bfloat16)[0])
     want = jax_flash_attention(
@@ -93,7 +131,7 @@ def test_bf16_matches_jax_flash(causal, head_dim):
     )
 
 
-@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512, 640, 1024], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_f16_matches_jax_flash(causal, head_dim):
     """f16, inside the envelope (the wgmma kernel built as f16): the
@@ -113,7 +151,7 @@ def test_f16_matches_jax_flash(causal, head_dim):
     )
 
 
-@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512, 640, 1024], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_f16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
     """The training forward's residual in f16: the output at the bf16 bar;
@@ -130,12 +168,12 @@ def test_f16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("head_dim", [384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [384, 512, 640, 1024], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
-    """The training forward's residual in bf16 at the chunked kernels'
-    widths: the output at JAX's bf16 bar, 0.06; the logsumexp is fp32 on
-    both sides, from the same bf16 scores: 1e-4."""
+    """The training forward's residual in bf16 at the chunked and the
+    streamed kernels' widths: the output at JAX's bf16 bar, 0.06; the
+    logsumexp is fp32 on both sides, from the same bf16 scores: 1e-4."""
     q, k, v = (x.reshape(4, 128, head_dim)
                for x in _qkv(batch=2, seq=128, heads=2, head_dim=head_dim, seed=19))
     want_o, want_lse = _flash_bhsd(*_jax(q, k, v, dtype=jnp.bfloat16), causal, 64, 64,
@@ -148,12 +186,13 @@ def test_bf16_with_lse_matches_jax_flash_bhsd(causal, head_dim):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128, 256], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [64, 128, 256, 384, 512, 640], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_with_lse_matches_jax_flash_bhsd(causal, head_dim):
-    """The training forward's residual: [b*h, s, d] in, (o, lse [b*h, s, 1]
-    f32) out, at each head_dim of the envelope.  The logsumexp is a sum of
-    exponentials, an f32 reduction in two orders: 1e-4 absolute."""
+    """The training forward's residual in f32: [b*h, s, d] in, (o, lse
+    [b*h, s, 1] f32) out, at the fixed kernels' head_dims and the streamed
+    ones' 384, 512 and 640.  The logsumexp is a sum of exponentials, an f32
+    reduction in two orders: 1e-4 absolute."""
     q, k, v = (x.reshape(4, 128, head_dim)
                for x in _qkv(batch=2, seq=128, heads=2, head_dim=head_dim))
     want_o, want_lse = _flash_bhsd(*_jax(q, k, v), causal, 64, 64, with_lse=True)
@@ -188,13 +227,19 @@ def test_envelope():
     assert not flash_shape_supported(512, 128, torch.float64)  # no kernel of that dtype
     # head_dim 256 (D_MODEL=2048 N_HEADS=8) at every positive multiple of the tile
     assert all(flash_shape_supported(64 * n, 256, bf16) for n in range(1, 385))
-    # 384 and 512 (D_MODEL=1536 and 2048 in N_HEADS=4) in bf16 and f16 alone:
-    # the chunked wgmma kernels; f32's FFMA kernels stop at 256 (ROADMAP)
+    # 384 and 512 (D_MODEL=1536 and 2048 in N_HEADS=4) in every dtype: the
+    # chunked wgmma kernels in bf16 and f16, f32's streamed FFMA kernels
     for d in (384, 512):
         assert flash_shape_supported(512, d, bf16) and flash_shape_supported(512, d, torch.float16)
         assert all(flash_shape_supported(64 * n, d, bf16) for n in range(1, 65))
-        assert not flash_shape_supported(512, d, torch.float32)
-    assert not flash_shape_supported(512, 640, bf16)  # past the kernels' widths: ROADMAP
+        assert flash_shape_supported(512, d, torch.float32)
+        assert fa.streamed(d, torch.float32) and not fa.streamed(d, bf16)
+    # from 640 on every multiple of 128 in every dtype, with no upper width:
+    # the streamed kernels (D_MODEL=2048 N_HEADS=2 is head_dim 1024)
+    for dtype in (bf16, torch.float16, torch.float32):
+        assert all(flash_shape_supported(512, d, dtype) for d in range(640, 4097, 128))
+        assert not any(flash_shape_supported(512, d, dtype) for d in range(576, 4097, 128))
+    assert not flash_shape_supported(512, 320, torch.float32)  # f32: 64, 128, 256, then 384 on
     assert not flash_shape_supported(512, 16, bf16)
     assert not flash_shape_supported(96, 128, bf16)  # not a multiple of the KV tile
     assert not flash_shape_supported(0, 128, bf16)
@@ -281,14 +326,23 @@ def test_forward_instantiations_by_head_dim():
     tile is 32 KB or more: two warpgroups' ring and hand-over pass an SM's
     shared memory), in bf16 and f16 alike (one source, two builds); the f32
     kernel has one tiling at each of its head_dims, 64 to 256, so its split
-    is 1 whatever the grid."""
+    is 1 whatever the grid.  Past those, the streamed tiling (from 640 in
+    bf16 and f16, from 384 in f32) is one instantiation of one split at
+    every multiple of 128."""
     for dtype in (torch.bfloat16, torch.float16):
         assert fa.HEAD_DIMS[dtype] == (64, 128, 256, 384, 512)
         assert [fa.fwd_splits(d, dtype) for d in fa.HEAD_DIMS[dtype]] == [
             (1, 2), (1, 2), (1,), (1,), (1,)]
+        assert fa.STREAMED_FROM[dtype] == 640
     assert fa.HEAD_DIMS[torch.float32] == (64, 128, 256)
     assert [fa.fwd_splits(d, torch.float32) for d in fa.HEAD_DIMS[torch.float32]] == [
         (1,), (1,), (1,)]
+    assert fa.STREAMED_FROM[torch.float32] == 384 and fa.STREAMED_COLS == 128
+    for dtype, first in fa.STREAMED_FROM.items():
+        for d in range(first, 2049, 128):
+            assert fa.streamed(d, dtype) and fa.head_dim_supported(d, dtype)
+            assert fa.fwd_splits(d, dtype) == (1,)
+        assert not fa.streamed(first - 128, dtype)
     assert fa.fwd_split(4, 2048, 132, 128, torch.float32) == 1
     assert fa.fwd_split(4, 2048, 132, 128, torch.float16) == 2
 
@@ -317,9 +371,12 @@ def test_each_dtype_builds_a_library_of_its_own(monkeypatch):
 def test_f32_sources_are_ffma_with_every_head_dim():
     """The f32 forward and backward multiply on the CUDA cores (no wgmma, TMA
     or mbarrier), include only the FFMA tile header, and opt in and launch
-    every head_dim of each kernel."""
-    for source, launched in ((fa.F32_SOURCE, ("launch<{d}>(",)),
-                             (fa.BWD_F32_SOURCE, ("launch<{d}, true>(", "launch<{d}, false>("))):
+    every fixed head_dim of each kernel and the streamed instantiations,
+    whose head_dim is an argument."""
+    for source, launched, streamed in (
+            (fa.F32_SOURCE, ("launch<{d}>(",), ("flash_fwd_f32_streamed_kernel<<<",)),
+            (fa.BWD_F32_SOURCE, ("launch<{d}, true>(", "launch<{d}, false>("),
+             ("flash_bwd_dq_f32_streamed_kernel<<<", "flash_bwd_dkv_f32_streamed_kernel<<<"))):
         code = "\n".join(line.split("//")[0] for line in source.read_text().splitlines())
         for gone in ("wgmma", "tma_load", "mbar_", "hopper_ptx"):
             assert gone not in code, (source.name, gone)
@@ -329,6 +386,11 @@ def test_f32_sources_are_ffma_with_every_head_dim():
         for d in fa.HEAD_DIMS[torch.float32]:
             assert all(form.format(d=d) in code for form in launched), (source.name, d)
             assert f"opt_in<{d}>()" in code or f"opt_in_both<{d}>()" in code
+        for launch in streamed:
+            kernel = launch.removesuffix("<<<")
+            assert launch in code and f"cudaFuncSetAttribute({kernel}" in code.replace(
+                "reinterpret_cast<const void*>(", "cudaFuncSetAttribute("), (source.name, kernel)
+        assert "p.head_dim / kF32ChunkCols" in code
 
 
 class _FakeCuda:
@@ -352,15 +414,26 @@ def test_a_cuda_operand_of_another_dtype_raises(dtype):
 
 
 def test_a_cuda_f32_operand_past_head_dim_256_raises():
-    """f32 stops at head_dim 256 (the FFMA kernels): a CUDA f32 operand of
-    384 or 512 raises in the wrappers' check, where bf16 and f16 pass that
-    test; nothing falls back to the plain version."""
+    """A CUDA operand of a head_dim no kernel of its dtype takes raises in
+    the wrappers' check, and nothing falls back to the plain version: f32 at
+    320 (its kernels take 64, 128, 256, then every multiple of 128 from 384
+    on, where 384 and 512 pass that test as in bf16 and f16), and past 512 a
+    head_dim that is not a multiple of the streamed tilings' 128 columns in
+    every dtype.  The check reads the tensor's attributes alone, so it runs
+    on this host."""
     for d in (384, 512):
-        with pytest.raises(ValueError, match="head_dim"):
-            fa._check("flash_attention_kernel", (_FakeCuda(torch.float32, (1, 128, 2, d)),) * 3)
-        assert d in fa.HEAD_DIMS[torch.bfloat16] and d in fa.HEAD_DIMS[torch.float16]
+        for dtype in fa.DTYPES:
+            try:
+                fa._check("flash_attention_kernel", (_FakeCuda(dtype, (1, 128, 2, d)),) * 3)
+            except ValueError as e:
+                assert "head_dim" not in str(e), (dtype, d, e)
+            except AttributeError:
+                pass  # past the head_dim check: the fake has no strides
     with pytest.raises(ValueError, match="head_dim"):
-        fa._check("flash_attention_kernel", (_FakeCuda(torch.bfloat16, (1, 128, 2, 640)),) * 3)
+        fa._check("flash_attention_kernel", (_FakeCuda(torch.float32, (1, 128, 2, 320)),) * 3)
+    for dtype in fa.DTYPES:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa._check("flash_attention_kernel", (_FakeCuda(dtype, (1, 128, 2, 704)),) * 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float16, torch.float32], ids=str)
@@ -401,6 +474,9 @@ def test_forward_source_is_wgmma_fed_by_tma():
             assert f"opt_in<{d}, {split}>()" in code and f"launch<{d}, {split}>(" in code
     for d in (256, 384, 512):
         assert f"opt_in<{d}, 2>" not in code and f"launch<{d}, 2>" not in code
+    # the streamed tiling: one instantiation, head_dim an argument
+    assert "cudaFuncSetAttribute(flash_fwd_streamed_kernel," in code
+    assert "flash_fwd_streamed_kernel<<<" in code and "p.head_dim / C::kDc" in code
 
 
 def test_backward_source_is_wgmma_fed_by_tma():
@@ -418,6 +494,9 @@ def test_backward_source_is_wgmma_fed_by_tma():
         assert f"launch<{d}, true>(" in code and f"launch<{d}, false>(" in code
     # d256's dK/dV splits dV and dK between its warpgroups, on the same wgmma
     assert "flash_bwd_dkv_kernel<256>(const __grid_constant__ Params p)" in code
+    # the streamed tilings: one instantiation of each kernel, head_dim an argument
+    for kernel in ("flash_bwd_dq_streamed_kernel", "flash_bwd_dkv_streamed_kernel"):
+        assert f"opt_in({kernel}," in code and f"{kernel}<<<" in code
     for path in fa.CSRC.iterdir():
         text = path.read_text()
         for gone in ("mma.sync", "ldmatrix", "cp.async.ca", "cp.async.cg"):

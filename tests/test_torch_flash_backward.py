@@ -114,13 +114,13 @@ def test_function_gradients_equal_autograd_through_the_plain_forward():
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512, 640, 1024], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_dispatcher_gradients_match_jax_vjp(causal, head_dim):
-    """bf16 inside the envelope, head_dim 128 to 512 (the last two the
-    chunked kernels' widths on the card): ``flash_attention`` takes the
-    Function, and its gradients lie within the JAX bf16 attention bar, 0.06,
-    of JAX's."""
+    """bf16 inside the envelope, head_dim 128 to 1024 (384 and 512 the
+    chunked kernels' widths on the card, 640 and 1024 the streamed ones'):
+    ``flash_attention`` takes the Function, and its gradients lie within the
+    JAX bf16 attention bar, 0.06, of JAX's."""
     q, k, v, do = _arrays((1, 128, 2, head_dim), 4, seed=21 + causal)
     jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
     _, vjp = jax.vjp(
@@ -137,11 +137,11 @@ def test_bf16_dispatcher_gradients_match_jax_vjp(causal, head_dim):
         _close(g, w, name, tol=BF16_TOL)
 
 
-@pytest.mark.parametrize("head_dim", [128, 256, 384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [128, 256, 384, 512, 640, 1024], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_f16_dispatcher_gradients_match_jax_vjp(causal, head_dim):
     """f16 inside the envelope (the wgmma kernels built as f16), head_dim
-    128 to 512: ``flash_attention`` takes the Function, and its gradients
+    128 to 1024: ``flash_attention`` takes the Function, and its gradients
     lie within the bf16 bar, 0.06, of JAX's VJP through its Pallas kernels
     at f16, each side rounding dS and P to f16 at its own points."""
     q, k, v, do = _arrays((1, 128, 2, head_dim), 4, seed=31 + causal)
@@ -183,14 +183,14 @@ def test_f32_dispatcher_gradients_match_jax_vjp(causal, head_dim):
         _close(g, w, name)
 
 
-@pytest.mark.parametrize("head_dim", [384, 512], ids=lambda d: f"d{d}")
+@pytest.mark.parametrize("head_dim", [384, 512, 640], ids=lambda d: f"d{d}")
 @pytest.mark.parametrize("causal", [False, True])
 def test_f32_past_head_dim_256_takes_the_plain_path_and_matches_jax_vjp(causal, head_dim):
-    """f32 at head_dim 384 and 512 lies outside the kernels' envelope (the
-    FFMA kernels stop at 256): ``flash_attention`` takes
-    ``reference_attention``, which autograd differentiates, and its
-    gradients lie within JAX's f32 gradient bar, 2e-4, of JAX's VJP through
-    its Pallas kernels."""
+    """f32 past head_dim 256, which took ``reference_attention`` before the
+    streamed FFMA kernels: ``flash_attention`` now takes the Function, whose
+    plain path (the CPU's: the plain forward and the plain backward) lies
+    within JAX's f32 gradient bar, 2e-4, of JAX's VJP through its Pallas
+    kernels."""
     q, k, v, do = _arrays((1, 128, 2, head_dim), 4, seed=51 + causal)
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
     _, vjp = jax.vjp(
@@ -199,9 +199,9 @@ def test_f32_past_head_dim_256_takes_the_plain_path_and_matches_jax_vjp(causal, 
     )
     want = vjp(jnp.asarray(do))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    assert not fa.flash_attention_supported(tq)
+    assert fa.flash_attention_supported(tq) and fa.streamed(head_dim, torch.float32)
     out = flash_attention(tq, tk, tv, causal=causal)
-    assert type(out.grad_fn).__name__ != "FlashAttentionBackward"
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     out.backward(torch.from_numpy(do))
     for name, g, w in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), want, strict=True):
         assert g.dtype == torch.float32

@@ -416,8 +416,8 @@ def test_the_simulation_catches_p_packed_in_swapped_order(tmp_path):
     probability.  The output leaves its bar; the logsumexp, which P's
     packing never reaches, stays right."""
 
-    plant = _planted("flash_attention.cu", "pk[kc][0] = pack_pair(s[8 * kc + 0], s[8 * kc + 1]);",
-                     "pk[kc][0] = pack_pair(s[8 * kc + 1], s[8 * kc + 0]);")
+    plant = _planted("flash_attention.cu", "pack<C::kKv>(pk, s);",
+                     "pack<C::kKv>(pk, s); for (auto& a : pk) a[0] = a[0] >> 16 | a[0] << 16;")
     err = _run(_build(tmp_path, plant), (1, 128, 1, 64, 1, 1))
     assert err["lse"] <= 1e-4
     assert err["o"] > 0.02, err

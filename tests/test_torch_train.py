@@ -55,6 +55,9 @@ FLASH_D256 = dict(d_model=512, n_heads=2, n_layers=2, d_ff=1024, max_seq=128)
 #: head_dim 512 (the width of D_MODEL=2048 N_HEADS=4 cut to 2 heads), seq
 #: 128: the chunked kernels' width on the card, inside both envelopes in bf16
 FLASH_D512 = dict(d_model=1024, n_heads=2, n_layers=2, d_ff=2048, max_seq=128)
+#: head_dim 1024 (the width of D_MODEL=2048 N_HEADS=2 cut to one head), seq
+#: 128: the streamed kernels' width on the card
+FLASH_D1024 = dict(d_model=1024, n_heads=1, n_layers=2, d_ff=2048, max_seq=128)
 
 
 def _models(sizes, jdtype, tdtype, seed=1):
@@ -185,10 +188,12 @@ def test_f32_train_step_matches_jax_and_the_loss_falls():
     assert losses[-1] < losses[0] * 0.7, losses
 
 
-@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512], ids=["d128", "d256", "d512"])
 def test_f32_flash_step_matches_jax(monkeypatch, sizes):
-    """The slice in f32 inside both flash envelopes (head_dim 128 or 256,
-    seq 128), from the JAX weights carried over: the port's training step
+    """The slice in f32 inside both flash envelopes (head_dim 128, 256 or
+    512, the last the streamed FFMA kernels' width, where the port's step
+    took the ring before them; seq 128), from the JAX weights carried over:
+    the port's training step
     runs its flash branch (the kernels' plain versions on the CPU: the
     forward twice a layer with the logsumexp, the backward once), where it
     took the ring while the kernels were bf16 only, and JAX's takes its
@@ -228,10 +233,12 @@ def test_loss_is_finite_and_near_uniform_at_init():
     assert abs(float(loss) - math.log(pcfg.vocab)) < 0.1
 
 
-@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512], ids=["d128", "d256", "d512"])
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512, FLASH_D1024],
+                         ids=["d128", "d256", "d512", "d1024"])
 def test_bf16_flash_step_matches_jax_and_the_ring_step(monkeypatch, sizes):
     """The flash branch in bf16 (one head of 128, d_model 128; or two of
-    256, d_model 512; or two of 512, d_model 1024; seq 128, two layers),
+    256, d_model 512; or two of 512, d_model 1024; or one of 1024, d_model
+    1024; seq 128, two layers),
     from the JAX weights carried over: the port's auto loss lies within
     0.05 of JAX's auto loss and of the port's own ring loss.  Under remat
     each layer runs the flash forward twice with the logsumexp and the

@@ -34,6 +34,9 @@ FLASH_D256 = dict(d_model=512, n_heads=2, n_layers=2, d_ff=1024, max_seq=128)
 #: head_dim 512, the width of D_MODEL=2048 N_HEADS=4 cut to two heads (the
 #: chunked kernels on the card)
 FLASH_D512 = dict(d_model=1024, n_heads=2, n_layers=2, d_ff=2048, max_seq=128)
+#: head_dim 1024, the width of D_MODEL=2048 N_HEADS=2 cut to one head (the
+#: streamed kernels' width on the card in bf16 and f16)
+FLASH_D1024 = dict(d_model=1024, n_heads=1, n_layers=2, d_ff=2048, max_seq=128)
 
 
 def _models(sizes, jdtype, tdtype, seed=0):
@@ -135,10 +138,12 @@ def test_prefill_equals_stepwise_decode():
         assert not got_cache[side][:, :, :, 16:].any()
 
 
-@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512], ids=["d128", "d256", "d512"])
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512, FLASH_D1024],
+                         ids=["d128", "d256", "d512", "d1024"])
 def test_bf16_prefill_inside_the_flash_envelope_matches_jax_and_stepwise_decode(sizes):
     """2 heads of 128 (d_model 256), of 256 (d_model 512) or of 512 (d_model
-    1024), bf16, a 64-token prompt: the prefill takes the flash kernel's
+    1024), or one of 1024 (d_model 1024), bf16, a 64-token prompt: the
+    prefill takes the flash kernel's
     wrapper (its plain version on the CPU), and JAX's prefill takes its
     Pallas kernel in interpret mode; logits and cache within JAX's bf16
     bar, 0.06."""
@@ -161,10 +166,11 @@ def test_bf16_prefill_inside_the_flash_envelope_matches_jax_and_stepwise_decode(
     )
 
 
-@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256], ids=["d128", "d256"])
+@pytest.mark.parametrize("sizes", [FLASH, FLASH_D256, FLASH_D512], ids=["d128", "d256", "d512"])
 def test_f32_prefill_inside_the_flash_envelope_matches_jax(monkeypatch, sizes):
-    """The serving slice in f32 inside the flash envelope (2 heads of 128 or
-    of 256, a 64-token prompt), from the JAX weights carried over: the
+    """The serving slice in f32 inside the flash envelope (2 heads of 128,
+    of 256 or of 512, the last the streamed FFMA kernels' width on the
+    card; a 64-token prompt), from the JAX weights carried over: the
     prefill takes the kernel's wrapper once a layer (its plain version on
     the CPU), where it took ``reference_attention`` while the kernels were
     bf16 only, and JAX's prefill its Pallas kernel in interpret mode.  The
