@@ -26,7 +26,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                    its threads, stages, shared memory, setmaxnreg counts,
                    chunks and streamed rows, in bf16 and in f16; the f32
                    kernels' registers and spills beside their
-                   configuration.
+                   configuration, and the f32 backward's cluster kernels'
+                   beside the clusters of 4 and 8 CTAs the card holds at
+                   once (cudaOccupancyMaxActiveClusters).
 3. parity        — the GEMM against its plain PyTorch version at six shapes,
                    among them N = 128 mod 256 and K = 128, in bf16, f16
                    and f32 (f32 at the JAX package's bar, 1e-3); an f64,
@@ -804,6 +806,14 @@ def _kind(d: int, dt: torch.dtype) -> str:
     return DT_NAME[dt] + ("_wide" if d in WIDE_HEAD_DIMS else "")
 
 
+def _bwd_kind(d: int, dt: torch.dtype) -> str:
+    """``_kind`` of a backward row, and ``f32_cluster`` on the f32
+    backward's cluster tiling (``flash_attention.CLUSTER_HEAD_DIMS``)."""
+    if dt == torch.float32 and d in flash_attention.CLUSTER_HEAD_DIMS:
+        return "f32_cluster"
+    return _kind(d, dt)
+
+
 # (batch, seq, heads, head_dim, causal, with_lse, consumer warpgroups a CTA
 # or None for the wrapper's choice, dtype): in bf16 the serve prefill's
 # shape causal and not, with the logsumexp; the llm training shape with the
@@ -976,16 +986,17 @@ BWD_SHAPES = [
     # the streamed instantiations: in bf16 and f16 at head_dim 640 and 1024
     # seq 192 causal and not (the dK/dV loop from the diagonal) and ten
     # 64-row tiles a side (seq 640), which wrap the two-stage rings five
-    # times, and the training shape of D_MODEL=2048 N_HEADS=2; in f32 at
-    # 384, 512 and 1024 seq 192 causal and not, and the training shape of
-    # four heads of 384 and 512
+    # times, and the training shape of D_MODEL=2048 N_HEADS=2; in f32 on
+    # the cluster tiling at 384, 512 and 1024 (clusters of 3, 4 and 8) seq
+    # 192 causal and not, and the training shape of four heads of 384 and
+    # 512, and past it on the streamed tiling at 1152 seq 192 causal
     *((*row, dt) for dt in (torch.bfloat16, torch.float16) for row in (
         *((2, 192, 3, d, causal) for d in STREAMED_HEAD_DIMS[dt] for causal in (True, False)),
         *((1, 640, 1, d, True) for d in STREAMED_HEAD_DIMS[dt]), (1, 2048, 2, 1024, True))),
     *((*row, torch.float32) for row in (
         *((2, 192, 3, d, causal) for d in STREAMED_HEAD_DIMS[torch.float32]
           for causal in (True, False)),
-        (1, 2048, 4, 384, True), (1, 2048, 4, 512, True))),
+        (1, 2048, 4, 384, True), (1, 2048, 4, 512, True), (2, 192, 3, 1152, True))),
 ]
 # bf16 gradients: each side sums exact bf16 products in fp32, in other
 # orders, and rounds each gradient once; dS (and P for dV) is rounded to
@@ -1040,9 +1051,10 @@ BWD_TIMED = [(*LLM_SHAPE, torch.bfloat16), (2, 4096, 8, 128, torch.bfloat16),
              *((1, 2048, 4, d, dt) for dt in (torch.bfloat16, torch.float16)
                for d in WIDE_HEAD_DIMS),
              # the streamed instantiations: the llm shape at head_dim 1024 (two
-             # heads) in bf16 and f16, and at 512 (four heads) in f32
+             # heads) in bf16 and f16, and at 512 (four heads) in f32, and the
+             # f32 backward's cluster of eight at 1024 (two heads)
              (1, 2048, 2, 1024, torch.bfloat16), (1, 2048, 2, 1024, torch.float16),
-             (1, 2048, 4, 512, torch.float32)]
+             (1, 2048, 4, 512, torch.float32), (1, 2048, 2, 1024, torch.float32)]
 # train parity: the two steps' losses agree within the JAX package's bar for
 # the same comparison (tests/test_flash_attention.py:187).  The gradients of
 # the same loss from the same weights, auto (flash kernels) against ring
@@ -1288,7 +1300,19 @@ def phase_build() -> None:
     }
     mm32 = re.findall(r"Function properties for \S*matmul_f32_kernel\S*\s+" + props,
                       ptxas[("matmul", f32)])
-    f32_streamed = streamed_entries(f32, "_f32", 512)
+    # the f32 streamed tiling now runs the backward past 1024 only
+    f32_streamed = streamed_entries(f32, "_f32", 1152)
+    # the f32 backward's cluster tiling, its config at 512 and the clusters
+    # of 4 and 8 CTAs (head_dim 512 and 1024) the card holds at once
+    f32_cluster = [
+        {"kernel": kernel, "registers": int(regs), "spill_bytes": int(st) + int(ld),
+         **flash_attention.bwd_config(kernel, 512, dtype=f32),
+         "max_active_clusters": {n: flash_attention.bwd_max_clusters(kernel, 128 * n)
+                                 for n in (4, 8)}}
+        for kernel, st, ld, regs in re.findall(
+            r"Function properties for \S*flash_bwd_(dq|dkv)_f32_cluster_kernel\S*\s+" + props,
+            ptxas[("flash_bwd", f32)])
+    ]
     emit({
         "phase": "build", **{f"{key}_s": s for key, s in seconds.items()},
         "exporter_cc_s": round(exporter_s, 3),
@@ -1303,8 +1327,9 @@ def phase_build() -> None:
             "flash_bwd": [{**e, **flash_attention.bwd_config(e["kernel"][4:], e["head_dim"],
                                                              dtype=f32)}
                           for e in f32_entries["flash_bwd"]],
-            # configs at head_dim 512 (chunks: head_dim / 128)
+            # configs at head_dim 1152 (chunks: head_dim / 128)
             "flash_streamed": f32_streamed,
+            "flash_bwd_cluster": f32_cluster,
         },
     })
     # one streamed instantiation of each kernel in each library, no spill
@@ -1313,6 +1338,11 @@ def phase_build() -> None:
         if sorted(e["kernel"] for e in streamed) != ["dkv", "dq", "fwd"] or any(
                 e["spill_bytes"] for e in streamed):
             raise AssertionError(f"the {name} streamed kernels' ptxas report: {streamed}")
+    # the f32 backward's two cluster kernels, no spill, each cluster of 4
+    # and of 8 CTAs resident somewhere on the card
+    if sorted(e["kernel"] for e in f32_cluster) != ["dkv", "dq"] or any(
+            e["spill_bytes"] or min(e["max_active_clusters"].values()) < 1 for e in f32_cluster):
+        raise AssertionError(f"the f32 cluster kernels' ptxas report: {f32_cluster}")
     for dt in (torch.bfloat16, torch.float16):
         name, head_dims = DT_NAME[dt], flash_attention.HEAD_DIMS[dt]
         flash_fwd, flash_bwd = wgmma[name]["flash_fwd"], wgmma[name]["flash_bwd"]
@@ -2278,12 +2308,12 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
     (bf16 at FN_ATOL; f32, where neither side rounds, at the f32 gradient
     bar).  Returns the worst absolute error of each kernel by dtype name,
     and of the chunked instantiations (head_dim 384 and 512) by dtype name
-    and ``_wide``, of the streamed ones by dtype name and ``_streamed``
-    (``_kind``)."""
+    and ``_wide``, of the streamed ones by dtype name and ``_streamed``, of
+    the f32 cluster tiling as ``f32_cluster`` (``_bwd_kind``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {name: {"dq": 0.0, "dkv": 0.0}
-             for name in (*DT_NAME.values(), "bf16_wide", "f16_wide",
+             for name in (*DT_NAME.values(), "bf16_wide", "f16_wide", "f32_cluster",
                           *(f"{name}_streamed" for name in DT_NAME.values()))}
     rows = []
     failed = []
@@ -2315,7 +2345,7 @@ def phase_flash_bwd_parity() -> dict[str, dict[str, float]]:
                         and err["rms_err_over_rms_want"] <= err["rel_rms_bar"])
         rows.append(row)
         check(row, ("dq", "dk", "dv"))
-        w = worst[_kind(d, dt)]
+        w = worst[_bwd_kind(d, dt)]
         w["dq"] = max(w["dq"], row["dq"]["max_abs_err"])
         w["dkv"] = max(w["dkv"], row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])
     b, s, h, d = LLM_SHAPE
@@ -2814,7 +2844,8 @@ def phase_head1024() -> dict[str, dict[str, int]]:
     N_HEADS=2) in bf16 as the wide phases run them (``_wide_path``, with
     bursts of STREAMED_TOKENS tokens and STREAMED_STEPS auto steps) and in
     f16 (``_wide_in_dtype``), then at head_dim 512 in f32 (WIDE_SIZES[512]:
-    D_MODEL=2048 N_HEADS=4, ``_wide_in_dtype``), with exact launches and the
+    D_MODEL=2048 N_HEADS=4, ``_wide_in_dtype``; the backward there on its
+    clusters of four CTAs), with exact launches and the
     dispatcher's fallback (``reference_attention``) counted in each and
     never taken.  Returns each dtype's launches of each kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6166,10 +6197,10 @@ def main() -> int:
                            **{key: row[kernel][key] for key in row_keys}} for row in bwd_rows]}
               for kernel, line in (("dq", 165), ("dkv", 207))),
         ]
-    # the streamed instantiations, in each dtype: their launches in the
-    # head1024 phase, their numbers at the llm shape of that phase's width
-    # (bf16, f16: two heads of 1024; f32: four of 512), every timed
-    # streamed shape beside them
+    # the streamed instantiations, in each dtype (the f32 backward's on its
+    # cluster tiling): their launches in the head1024 phase, their numbers
+    # at the llm shape of that phase's width (bf16, f16: two heads of 1024;
+    # f32: four of 512), every timed streamed shape beside them
     streamed_kernels = []
     for dt, name in DT_NAME.items():
         f32 = dt == torch.float32
@@ -6180,6 +6211,7 @@ def main() -> int:
         shape = [1, 2048, 4, 512] if f32 else [1, 2048, 2, 1024]
         fwd_head = next(row for row in fwd_rows if row["bshd"] == shape)
         bwd_head = next(row for row in bwd_rows if row["bshd"] == shape)
+        bwd_name, bwd_kind = ("cluster", "f32_cluster") if f32 else ("streamed", f"{name}_streamed")
         streamed_kernels += [
             {"name": f"flash_attention_fwd_streamed_{name}", "route": "cuda",
              "source": f"{csrc}/{'flash_attention_f32.cu' if f32 else 'flash_attention.cu'}",
@@ -6189,12 +6221,12 @@ def main() -> int:
              "shapes": [{key: row[key] for key in ("bshd", "with_lse", "ms", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms",
                                                    "library_backend")} for row in fwd_rows]},
-            *({"name": f"flash_attention_bwd_{kernel}_streamed_{name}", "route": "cuda",
+            *({"name": f"flash_attention_bwd_{kernel}_{bwd_name}_{name}", "route": "cuda",
                "source": f"{csrc}/"
                          f"{'flash_attention_bwd_f32.cu' if f32 else 'flash_attention_bwd.cu'}",
                "replaces": f"k8s_gpu_hpa_tpu/ops/flash_attention.py:{line}",
                "launches": streamed[name][kernel],
-               "max_abs_err": bwd_err[f"{name}_streamed"][kernel],
+               "max_abs_err": bwd_err[bwd_kind][kernel],
                **{key: bwd_head[kernel][key] for key in row_keys},
                "bound_peak": bwd_head["bound_peak"],
                "shapes": [{"bshd": row["bshd"], "library_backend": row["library_backend"],

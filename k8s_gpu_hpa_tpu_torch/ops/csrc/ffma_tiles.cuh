@@ -21,9 +21,13 @@
 // tile is 64 x D; the thread holds rows 4 ty + ii and columns 64 m + 4 tx +
 // e (m < D / 64, e < 4), as acc[ii][4 m + e].
 //
-// The streamed tilings (head_dim 384 and up, any multiple of 128) use the
-// D = 128 tiles on 128-column chunks of wider rows: a score tile is summed
-// chunk by chunk (add_scores), and an output tile is a CTA's 128 columns.
+// The wide tilings (head_dim 384 and up, any multiple of 128) use the D =
+// 128 tiles on 128-column chunks of wider rows, an output tile a CTA's 128
+// columns.  The forward's streamed tiling, and the backward's past 1024,
+// sum a score tile chunk by chunk in one CTA (add_scores); the backward's
+// cluster tiling (384 to 1024) computes one chunk's part of it in each CTA
+// of a cluster and sums the parts across the cluster
+// (flash_attention_bwd_f32.cu).
 
 #pragma once
 

@@ -41,26 +41,48 @@
 //     S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T into shared memory,
 //     and dV += P^T dO, dK += dS^T Q.
 //
-// Head_dim 384 and up: the streamed tiling, one instantiation of each
-// kernel for every multiple of 128, head_dim a kernel argument.  No tile
-// holds a whole row.  Each CTA of 256 threads owns 64 rows and one
-// 128-column chunk of its outputs' columns (head_dim / 128 chunks, the
-// grid's fast axis the batch-head's chunks); shared memory holds four
-// 64 x 128 chunks (135 KB, one CTA an SM):
-//   - dQ: for each K/V tile, S = Q K^T and dP = dO V^T are summed over the
-//     head_dim in a runtime loop of 128-column chunks of Q, K, dO and V (Q
-//     and dO re-read from L2 for every tile); then dS, and dQ += dS K on
-//     K's chunk of the CTA's columns;
-//   - dK/dV: for each Q tile, S^T = K Q^T and dP^T = V dO^T the same way
-//     (K and V re-read for every tile); then P^T and dS^T, and dV += P^T
-//     dO, dK += dS^T Q on Q's and dO's chunks of the CTA's columns.
-// Every chunk recomputes the scores over the whole row: with n = d / 128
-// chunks a pair costs 4 d n + 2 d operations in dQ against the minimum 6 d,
-// and 4 d n + 4 d in dK/dV against 8 d (at 512: 18 d and 20 d; at 384: 14 d
-// and 16 d).  At the training shape of four heads of 512 in f32 (b1, s2048,
-// h4, causal) the minima are 25.8 and 34.4 GFLOP, 385 and 513 us at 67
-// TFLOP/s, against 84 and 101 MB, 25 and 30 us at 3.35 TB/s: the FFMA rate
-// bounds both.
+// Head_dim 384 to 1024: the cluster tiling, one instantiation of each
+// kernel, head_dim a kernel argument.  No tile holds a whole row.  Each CTA
+// of 256 threads owns 64 rows and one 128-column chunk of its outputs'
+// columns, and the n = head_dim / 128 CTAs of one (batch-head, 64-row tile)
+// form a thread-block cluster (n = 3 to 8, 8 the portable limit; the grid's
+// fast axis the batch-head's chunks, a CTA's rank in the cluster its chunk).
+// Each CTA computes the part of every score tile over its own 128 columns,
+// and the cluster sums the parts through distributed shared memory (DSMEM):
+//   - dQ: Q's and dO's chunks stay; for each K/V tile up to the diagonal a
+//     CTA loads K's and V's chunks alone, writes its partials S_c = Q_c K_c^T
+//     and dP_c = dO_c V_c^T to its shared memory, and after a cluster
+//     barrier sums the n partials of S and of dP from the cluster's shared
+//     memory in rank order 0 .. n-1, so that every CTA sums the same values
+//     in the same order and holds the same bits; then dS, and dQ_c += dS K_c
+//     on the K chunk it holds.  V's chunk is done with once the partials
+//     are in, so the next tile's comes in between the CTA's arrival at the
+//     barrier and its wait;
+//   - dK/dV: K's and V's chunks stay; for each Q tile from the diagonal on,
+//     Q's and dO's chunks, the partials S^T_c = K_c Q_c^T and dP^T_c = V_c
+//     dO_c^T, summed the same way; then P^T and dS^T, and dV_c += P^T dO_c,
+//     dK_c += dS^T Q_c on the chunks it holds.
+// So a pair costs the minimum across the cluster, 6 d and 8 d operations,
+// and a tile two chunk loads a CTA; the exchange adds 2 n DSMEM loads of a
+// 16 KB partial a CTA a tile.  Shared memory: four 64 x 128 chunks (135 KB)
+// and four slots of a padded 64 x 64 score tile (70 KB), 204,800 bytes, one
+// CTA an SM.  A tile's partials (S and dP) take the two slots of its
+// parity; the score tiles of its products (dQ's dS; dK/dV's P^T and dS^T)
+// take the other parity's, which no peer loads during the tile.  So one
+// cluster barrier a tile orders the exchange: a CTA writes a parity's
+// partials again two tiles on, after a barrier that every peer reached once
+// done loading them; and a last barrier keeps each CTA, and its shared
+// memory, until its peers are done with it.  At the training shape of four
+// heads of 512 in f32 (b1, s2048, h4, causal) the minima are 25.8 and 34.4
+// GFLOP, 385 and 513 us at 67 TFLOP/s, against 84 and 101 MB, 25 and 30 us
+// at 3.35 TB/s: the FFMA rate bounds both.
+//
+// Past 1024 (n > 8, beyond the portable cluster) the streamed tiling runs:
+// the same CTAs, no cluster, each summing S and dP (or S^T and dP^T) over
+// the whole head_dim itself in a runtime loop of 128-column chunks of Q, K,
+// dO and V (135 KB); then its own columns' products as above.  A pair costs
+// 4 d n + 2 d operations in dQ and 4 d n + 4 d in dK/dV.  (A CTA of a
+// cluster that owned two chunks would hold eight 64 x 128 chunks, 270 KB.)
 //
 // Layout.  Q, K, V, dO, dQ, dK and dV are [B, S, H, D] with D contiguous and
 // any other strides (element counts, multiples of 8); a [B*H, S, D] tensor
@@ -72,6 +94,7 @@
 #include <stdint.h>
 
 #include "ffma_tiles.cuh"
+#include "hopper_ptx.cuh"
 
 namespace {
 
@@ -258,15 +281,25 @@ constexpr size_t kStreamedSmem = 4 * F32Chunk::kTileFloats * sizeof(float);
 static_assert(F32Chunk::kOther == kF32Rows, "streamed tiles of 64 rows");
 static_assert(kStreamedSmem <= 232448, "shared memory of a CTA");
 
-// The CTA's (batch-head, chunk, own 64 rows) on the streamed tiling; the
-// own rows counted down from the last (dQ's longest causal loops first) or
-// up from 0 (dK/dV's)
+// the cluster tiling (the file's note): four 64 x 128 chunks and four slots
+// of a padded score tile; a partial lies in a slot thread-major, the
+// thread's float4 ii at float (ii * kF32Threads + t) * 4, so that a warp's
+// loads of it, in its own CTA or a peer's, are 512 contiguous bytes
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr uint32_t kSlotFloats = F32Chunk::kScoreFloats;
+constexpr size_t kClusterSmem = (4 * F32Chunk::kTileFloats + 4 * kSlotFloats) * sizeof(float);
+static_assert(4 * 4 * kF32Threads <= kSlotFloats, "a partial fits a slot");
+static_assert(kClusterSmem <= 232448, "shared memory of a CTA");
+
+// The CTA's (batch-head, chunk, own 64 rows) on the streamed and cluster
+// tilings; the chunk is given (the cluster's: the CTA's rank), the own rows
+// counted down from the last (dQ's longest causal loops first) or up from 0
+// (dK/dV's)
 struct StreamedCta {
   int bh, b, h, chunk, chunks, row0;
-  __device__ StreamedCta(const Params& p, bool down) {
+  __device__ StreamedCta(const Params& p, bool down, int chunk_) : chunk(chunk_) {
     chunks = p.head_dim / kF32ChunkCols;
     bh = blockIdx.x / chunks;
-    chunk = blockIdx.x % chunks;
     b = bh / p.heads;
     h = bh % p.heads;
     row0 = (down ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kF32Rows;
@@ -311,7 +344,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
       reinterpret_cast<float*>(smem_raw), reinterpret_cast<float*>(smem_raw) + T::kTileFloats,
       reinterpret_cast<float*>(smem_raw) + 2 * T::kTileFloats,
       reinterpret_cast<float*>(smem_raw) + 3 * T::kTileFloats};
-  const StreamedCta cta(p, true);
+  const StreamedCta cta(p, true, blockIdx.x % (p.head_dim / kF32ChunkCols));
   const int q0 = cta.row0;
   const int n_kv = (p.causal ? q0 + kF32Rows : p.seq) / kF32Rows;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -358,7 +391,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
       reinterpret_cast<float*>(smem_raw), reinterpret_cast<float*>(smem_raw) + T::kTileFloats,
       reinterpret_cast<float*>(smem_raw) + 2 * T::kTileFloats,
       reinterpret_cast<float*>(smem_raw) + 3 * T::kTileFloats};
-  const StreamedCta cta(p, false);
+  const StreamedCta cta(p, false, blockIdx.x % (p.head_dim / kF32ChunkCols));
   const int k0 = cta.row0;
   // causal: Q tiles before the CTA's first key see none of its keys
   const int lo = p.causal ? k0 / kF32Rows : 0;
@@ -400,9 +433,214 @@ __global__ void __launch_bounds__(kF32Threads, 1)
                            dv, one, ty, tx);
 }
 
-// head_dims of the fixed tilings, and of the streamed one
+// writes the thread's score tile `s` to `slot`, thread-major (kClusterSmem)
+__device__ __forceinline__ void put_partial(float* slot, const float (&s)[4][F32Chunk::kCols]) {
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    *reinterpret_cast<float4*>(slot + (ii * kF32Threads + threadIdx.x) * 4) = {
+        s[ii][0], s[ii][1], s[ii][2], s[ii][3]};
+  }
+}
+
+// a = the sum of the cluster's partials at `x`, and c of those at `z` (the
+// same slots in every CTA), rank 0 first: every CTA adds the same values in
+// the same order
+__device__ __forceinline__ void sum_partials(float (&a)[4][F32Chunk::kCols],
+                                             float (&c)[4][F32Chunk::kCols], const float* x,
+                                             const float* z, int ranks) {
+  const uint32_t ax = smem_u32(x) + threadIdx.x * 16, az = smem_u32(z) + threadIdx.x * 16;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < F32Chunk::kCols; ++jj) a[ii][jj] = c[ii][jj] = 0.0f;
+  }
+  for (int r = 0; r < ranks; ++r) {
+    const uint32_t px = mapa(ax, r), pz = mapa(az, r);
+    float4 vx[4], vz[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      vx[ii] = ld_cluster_f4(px + ii * kF32Threads * 16);
+      vz[ii] = ld_cluster_f4(pz + ii * kF32Threads * 16);
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      a[ii][0] += vx[ii].x, a[ii][1] += vx[ii].y, a[ii][2] += vx[ii].z, a[ii][3] += vx[ii].w;
+      c[ii][0] += vz[ii].x, c[ii][1] += vz[ii].y, c[ii][2] += vz[ii].z, c[ii][3] += vz[ii].w;
+    }
+  }
+}
+
+// The cluster tiling's shared memory: Q's and dO's chunks (dQ) or K's and
+// V's (dK/dV), which stay, the other two, which stream, and the slots, two
+// a tile parity: its partials of S and dP (or S^T and dP^T)
+struct ClusterSmem {
+  float* own[2];
+  float* streamed[2];
+  float* slots;
+  __device__ explicit ClusterSmem(unsigned char* raw) {
+    float* f = reinterpret_cast<float*>(raw);
+    own[0] = f, own[1] = f + F32Chunk::kTileFloats;
+    streamed[0] = f + 2 * F32Chunk::kTileFloats, streamed[1] = f + 3 * F32Chunk::kTileFloats;
+    slots = f + 4 * F32Chunk::kTileFloats;
+  }
+  // the two slots of a tile's parity
+  __device__ float* parity(int tile) const { return slots + (tile % 2) * 2 * kSlotFloats; }
+};
+
+// the cluster dQ (the file's note)
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dq_f32_cluster_kernel(const __grid_constant__ Params p) {
+  using T = F32Chunk;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const ClusterSmem sm(smem_raw);
+  float *const q_s = sm.own[0], *const do_s = sm.own[1];
+  float *const k_s = sm.streamed[0], *const v_s = sm.streamed[1];
+  const StreamedCta cta(p, true, static_cast<int>(cluster_ctarank()));
+  const int q0 = cta.row0;
+  const int n_kv = (p.causal ? q0 + kF32Rows : p.seq) / kF32Rows;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int cols = cta.chunk * kF32ChunkCols;
+
+  load_rows<kF32ChunkCols>(q_s, p.in[0] + at(p.st[0], cta.b, q0, cta.h) + cols, kF32Rows,
+                           p.st[0][1]);
+  load_rows<kF32ChunkCols>(do_s, p.in[3] + at(p.st[3], cta.b, q0, cta.h) + cols, kF32Rows,
+                           p.st[3][1]);
+  float lse_l2[4], delta[4];  // lse in log2 units
+  float dq[4][T::kOut];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int64_t row = static_cast<int64_t>(cta.bh) * p.seq + q0 + 4 * ty + ii;
+    lse_l2[ii] = p.lse[row] * kF32Log2e;
+    delta[ii] = p.delta[row];
+#pragma unroll
+    for (int c = 0; c < T::kOut; ++c) dq[ii][c] = 0.0f;
+  }
+
+  // V's chunk of the K/V tile from row kv0
+  const auto load_v = [&](int kv0) {
+    load_rows<kF32ChunkCols>(v_s, p.in[2] + at(p.st[2], cta.b, kv0, cta.h) + cols, kF32Rows,
+                             p.st[2][1]);
+  };
+  load_v(0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int kv0 = j * kF32Rows;
+    float* const part = sm.parity(j);
+    float* const ds_s = sm.parity(j + 1);  // no peer loads it during this tile
+    __syncthreads();  // the previous tile's dS K is done with K and dS
+    load_rows<kF32ChunkCols>(k_s, p.in[1] + at(p.st[1], cta.b, kv0, cta.h) + cols, kF32Rows,
+                             p.st[1][1]);
+    __syncthreads();
+    float s[4][T::kCols], dp[4][T::kCols];
+    scores<kF32ChunkCols>(s, q_s, k_s, ty, tx);
+    scores<kF32ChunkCols>(dp, do_s, v_s, ty, tx);
+    put_partial(part, s);
+    put_partial(part + kSlotFloats, dp);
+    cluster_arrive();  // this CTA's partials of the tile are in
+    __syncthreads();   // every thread's dP is done with V: the next V comes in
+    if (j + 1 < n_kv) load_v(kv0 + kF32Rows);
+    cluster_wait();  // and every peer's
+    sum_partials(s, dp, part, part + kSlotFloats, cta.chunks);
+    probs_ds<T>(s, dp, lse_l2, delta, p, p.causal && kv0 + kF32Rows - 1 > q0, q0, kv0, ty, tx);
+    put_scores<kF32ChunkCols>(ds_s, dp, ty, tx);
+    __syncthreads();
+    accumulate<kF32ChunkCols>(dq, ds_s, k_s, ty, tx);
+  }
+  cluster_sync();  // no CTA leaves while a peer may still load its partials
+
+  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  store_out<kF32ChunkCols>(p.out[0] + at(p.out_st[0], cta.b, q0, cta.h) + cols, p.out_st[0][1],
+                           dq, one, ty, tx);
+}
+
+// the cluster dK/dV (the file's note)
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_bwd_dkv_f32_cluster_kernel(const __grid_constant__ Params p) {
+  using T = F32Chunk;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const ClusterSmem sm(smem_raw);
+  float *const k_s = sm.own[0], *const v_s = sm.own[1];
+  float *const q_s = sm.streamed[0], *const do_s = sm.streamed[1];
+  const StreamedCta cta(p, false, static_cast<int>(cluster_ctarank()));
+  const int k0 = cta.row0;
+  // causal: Q tiles before the CTA's first key see none of its keys
+  const int lo = p.causal ? k0 / kF32Rows : 0;
+  const int count = p.seq / kF32Rows - lo;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int cols = cta.chunk * kF32ChunkCols;
+
+  load_rows<kF32ChunkCols>(k_s, p.in[1] + at(p.st[1], cta.b, k0, cta.h) + cols, kF32Rows,
+                           p.st[1][1]);
+  load_rows<kF32ChunkCols>(v_s, p.in[2] + at(p.st[2], cta.b, k0, cta.h) + cols, kF32Rows,
+                           p.st[2][1]);
+  float dk[4][T::kOut], dv[4][T::kOut];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int c = 0; c < T::kOut; ++c) dk[ii][c] = dv[ii][c] = 0.0f;
+  }
+
+  for (int n = 0; n < count; ++n) {
+    const int q0 = (lo + n) * kF32Rows;
+    float* const part = sm.parity(n);
+    float* const pt_s = sm.parity(n + 1);  // P^T, then dS^T: no peer loads them now
+    float* const dst_s = pt_s + kSlotFloats;
+    __syncthreads();  // the previous tile's products are done with its tiles
+    load_rows<kF32ChunkCols>(q_s, p.in[0] + at(p.st[0], cta.b, q0, cta.h) + cols, kF32Rows,
+                             p.st[0][1]);
+    load_rows<kF32ChunkCols>(do_s, p.in[3] + at(p.st[3], cta.b, q0, cta.h) + cols, kF32Rows,
+                             p.st[3][1]);
+    __syncthreads();
+    // S^T = K Q^T and dP^T = V dO^T: rows are the CTA's keys, columns the
+    // tile's queries
+    float s[4][T::kCols], dp[4][T::kCols];
+    scores<kF32ChunkCols>(s, k_s, q_s, ty, tx);
+    scores<kF32ChunkCols>(dp, v_s, do_s, ty, tx);
+    put_partial(part, s);
+    put_partial(part + kSlotFloats, dp);
+    cluster_sync();  // every CTA's partials of this tile are in
+    sum_partials(s, dp, part, part + kSlotFloats, cta.chunks);
+    transposed_probs_ds<T>(s, dp, p, cta.bh, p.causal && q0 < k0 + kF32Rows - 1, q0, k0, ty, tx);
+    put_scores<kF32ChunkCols>(pt_s, s, ty, tx);
+    put_scores<kF32ChunkCols>(dst_s, dp, ty, tx);
+    __syncthreads();
+    accumulate<kF32ChunkCols>(dv, pt_s, do_s, ty, tx);
+    accumulate<kF32ChunkCols>(dk, dst_s, q_s, ty, tx);
+  }
+  cluster_sync();  // no CTA leaves while a peer may still load its partials
+
+  const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  store_out<kF32ChunkCols>(p.out[0] + at(p.out_st[0], cta.b, k0, cta.h) + cols, p.out_st[0][1],
+                           dk, one, ty, tx);
+  store_out<kF32ChunkCols>(p.out[1] + at(p.out_st[1], cta.b, k0, cta.h) + cols, p.out_st[1][1],
+                           dv, one, ty, tx);
+}
+
+// head_dims of the fixed tilings, of the cluster one and of the streamed one
 bool fixed_width(int head_dim) { return head_dim == 64 || head_dim == 128 || head_dim == 256; }
-bool streamed(int head_dim) { return head_dim >= 384 && head_dim % kF32ChunkCols == 0; }
+bool chunked(int head_dim) { return head_dim >= 384 && head_dim % kF32ChunkCols == 0; }
+bool clustered(int head_dim) {
+  return chunked(head_dim) && head_dim <= kMaxCluster * kF32ChunkCols;
+}
+bool streamed(int head_dim) { return chunked(head_dim) && !clustered(head_dim); }
+
+// a launch of the cluster tiling: the grid, and a cluster of the
+// batch-head's chunks along its fast axis
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, int chunks, cudaStream_t stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = chunks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kF32Threads);
+    cfg.dynamicSmemBytes = kClusterSmem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
 
 template <int D>
 cudaError_t opt_in_both() {
@@ -442,7 +680,7 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
                const float* lse, const float* delta, void* out0, void* out1,
                const int64_t* strides, int batch, int heads, int seq, int head_dim, int causal,
                float scale, int device, void* stream) {
-  if (!fixed_width(head_dim) && !streamed(head_dim)) {
+  if (!fixed_width(head_dim) && !chunked(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int cur = 0;
@@ -471,12 +709,21 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
   p.head_dim = head_dim;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = batch * heads;
-  if (streamed(head_dim)) {
-    const dim3 grid(bh * (head_dim / kF32ChunkCols), seq / kF32Rows);
+  const int chunks = head_dim / kF32ChunkCols;
+  const dim3 chunk_grid(bh * chunks, seq / kF32Rows);
+  if (clustered(head_dim)) {
+    const ClusterLaunch cl(chunk_grid, chunks, s);
+    err = dkv ? cudaLaunchKernelEx(&cl.cfg, flash_bwd_dkv_f32_cluster_kernel, p)
+              : cudaLaunchKernelEx(&cl.cfg, flash_bwd_dq_f32_cluster_kernel, p);
+    if (err != cudaSuccess) {
+      if (cur != device) cudaSetDevice(cur);
+      return static_cast<int>(err);
+    }
+  } else if (streamed(head_dim)) {
     if (dkv) {
-      flash_bwd_dkv_f32_streamed_kernel<<<grid, kF32Threads, kStreamedSmem, s>>>(p);
+      flash_bwd_dkv_f32_streamed_kernel<<<chunk_grid, kF32Threads, kStreamedSmem, s>>>(p);
     } else {
-      flash_bwd_dq_f32_streamed_kernel<<<grid, kF32Threads, kStreamedSmem, s>>>(p);
+      flash_bwd_dq_f32_streamed_kernel<<<chunk_grid, kF32Threads, kStreamedSmem, s>>>(p);
     }
   } else if (head_dim == 256) {
     dkv ? launch<256, true>(p, bh, s) : launch<256, false>(p, bh, s);
@@ -495,10 +742,10 @@ int launch_bwd(bool dkv, const void* q, const void* k, const void* v, const void
 // C entries, bound with ctypes, as flash_attention_bwd.cu's: the same names
 // and arguments, so ops/flash_attention.py drives either library alike.
 //
-// flash_attention_bwd_init opts the eight instantiations (each kernel at
-// head_dim 64, 128 and 256, and streamed) in to the dynamic shared memory
-// they need above the default 48 KB, once per device before the first
-// launch.  Returns a cudaError_t.
+// flash_attention_bwd_init opts the ten instantiations (each kernel at
+// head_dim 64, 128 and 256, on clusters and streamed) in to the dynamic
+// shared memory they need above the default 48 KB, once per device before
+// the first launch.  Returns a cudaError_t.
 extern "C" int flash_attention_bwd_init(int device) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
@@ -509,12 +756,25 @@ extern "C" int flash_attention_bwd_init(int device) {
   err = opt_in_both<64>();
   if (err == cudaSuccess) err = opt_in_both<128>();
   if (err == cudaSuccess) err = opt_in_both<256>();
-  for (const void* kernel : {reinterpret_cast<const void*>(flash_bwd_dq_f32_streamed_kernel),
-                             reinterpret_cast<const void*>(flash_bwd_dkv_f32_streamed_kernel)}) {
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kStreamedSmem));
-    }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_f32_streamed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kStreamedSmem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_streamed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kStreamedSmem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_f32_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kClusterSmem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kClusterSmem));
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
@@ -522,13 +782,14 @@ extern "C" int flash_attention_bwd_init(int device) {
 
 // The configuration of (dkv: the dK/dV kernel, else dQ; head_dim): threads,
 // stages (one), dynamic shared memory in bytes, 0, 0 (no setmaxnreg), CTAs
-// a (batch-head, 64-row tile) (chunks of the outputs' columns) and rows a
-// streamed tile.  Returns how many values there are, or 0 where there is
-// no such instantiation.
+// a (batch-head, 64-row tile) (chunks of the outputs' columns: on the
+// cluster tiling the cluster's CTAs) and rows a streamed tile.  Returns how
+// many values there are, or 0 where there is no such instantiation.
 extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n) {
-  if (streamed(head_dim)) {
-    return put_config({kF32Threads, 1, static_cast<int>(kStreamedSmem), 0, 0,
-                       head_dim / kF32ChunkCols, F32Chunk::kOther}, out, n);
+  if (chunked(head_dim)) {
+    const size_t smem = clustered(head_dim) ? kClusterSmem : kStreamedSmem;
+    return put_config({kF32Threads, 1, static_cast<int>(smem), 0, 0, head_dim / kF32ChunkCols,
+                       F32Chunk::kOther}, out, n);
   }
   if (head_dim == 64) {
     return dkv ? config_of<Cfg<64, true>>(out, n) : config_of<Cfg<64, false>>(out, n);
@@ -540,6 +801,28 @@ extern "C" int flash_attention_bwd_config(int dkv, int head_dim, int* out, int n
     return dkv ? config_of<Cfg<256, true>>(out, n) : config_of<Cfg<256, false>>(out, n);
   }
   return 0;
+}
+
+// The most clusters of (dkv: the dK/dV kernel, else dQ) at `head_dim` on
+// the cluster tiling that `device`, initialised with
+// flash_attention_bwd_init, holds at once
+// (cudaOccupancyMaxActiveClusters), into `clusters`.  Returns a
+// cudaError_t, cudaErrorInvalidValue for a head_dim off the cluster tiling.
+extern "C" int flash_attention_bwd_max_clusters(int dkv, int head_dim, int device,
+                                                int* clusters) {
+  if (!clustered(head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int chunks = head_dim / kF32ChunkCols;
+  const ClusterLaunch cl(dim3(chunks), chunks, nullptr);
+  err = dkv ? cudaOccupancyMaxActiveClusters(clusters, flash_bwd_dkv_f32_cluster_kernel, &cl.cfg)
+            : cudaOccupancyMaxActiveClusters(clusters, flash_bwd_dq_f32_cluster_kernel, &cl.cfg);
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
 }
 
 // `strides` holds 21 element strides: (batch, seq, head) for q, k, v, dout,

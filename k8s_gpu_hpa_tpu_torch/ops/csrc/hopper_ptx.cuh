@@ -1,6 +1,8 @@
 // The PTX-level operations of the Hopper kernels (matmul.cu, the GEMM;
 // flash_attention.cu, the attention forward; flash_attention_bwd.cu, its
-// backward): mbarriers, TMA tile loads, wgmma and setmaxnreg.
+// backward; flash_attention_bwd_f32.cu, the f32 backward's clusters):
+// mbarriers, TMA tile loads, wgmma, setmaxnreg, and the cluster barrier and
+// loads from a peer CTA's shared memory.
 // tools/warpsim/hopper_ptx.cuh is the same interface for the CPU simulator;
 // everything above this layer is shared.
 // Each operation is as the PTX ISA (8.0 and later, sm_90a) defines it.  The
@@ -254,6 +256,51 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- clusters: the CTAs of a thread-block cluster run at once on
+// neighbouring SMs, and each can load from the others' shared memory
+// (distributed shared memory) at a shared::cluster address.
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// every thread of the cluster arrives, its earlier memory accesses released
+// to the cluster; then waits until all have, acquiring theirs.  Every
+// thread of a warp takes part (.aligned)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the shared::cluster address of the shared-memory address `addr` (as
+// smem_u32 gives it) in the CTA of rank `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes at a shared::cluster address, 16-byte aligned
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- math

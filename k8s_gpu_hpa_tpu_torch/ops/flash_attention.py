@@ -56,10 +56,14 @@ CTA owns 128 of its output's columns, sums the scores over the head_dim in
 a runtime loop of 128-column chunks streamed through shared memory, and
 then runs the owned-column product; head_dim is a kernel argument, so one
 instantiation takes every width.  In both, every chunk recomputes the
-scores over the whole head_dim, and a call is still one launch.  The
-kernels' tiles are fixed; ``block_q`` and ``block_k`` are the TPU kernel's
-tile sizes, accepted so that callers keep the JAX signature, and change
-nothing here.
+scores over the whole head_dim, but for the f32 backward from 384 to 1024
+(``CLUSTER_HEAD_DIMS``): there the head_dim / 128 CTAs of a (batch-head,
+64-row tile) form a thread-block cluster, each computes the scores' part
+over its own columns, and the cluster sums the parts through distributed
+shared memory, so that each score tile is computed once.  A call is still
+one launch.  The kernels' tiles are fixed; ``block_q`` and ``block_k`` are
+the TPU kernel's tile sizes, accepted so that callers keep the JAX
+signature, and change nothing here.
 """
 
 from __future__ import annotations
@@ -82,8 +86,10 @@ BWD_F32_SOURCE = CSRC / "flash_attention_bwd_f32.cu"
 #: layer, the element type and the tensor maps
 HEADERS = (CSRC / "hopper_ptx.cuh", CSRC / "elem.cuh", CSRC / "smem_desc.cuh",
            CSRC / "tensor_map.cuh")
-#: the header the f32 sources include: the FFMA tile products
-F32_HEADERS = (CSRC / "ffma_tiles.cuh",)
+#: the headers the f32 sources include: the FFMA tile products, and the PTX
+#: layer (the backward's cluster barrier and loads from a peer's shared
+#: memory) with the element type it includes
+F32_HEADERS = (CSRC / "ffma_tiles.cuh", CSRC / "hopper_ptx.cuh", CSRC / "elem.cuh")
 #: the kernels' dtypes by name: the name of each library and count
 DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 #: rows of a CTA's own tile; the sequence must be a multiple
@@ -98,6 +104,10 @@ HEAD_DIMS = {torch.bfloat16: (64, 128, 256, 384, 512), torch.float16: (64, 128, 
 STREAMED_COLS = 128
 #: from this head_dim on, each dtype's kernels run the streamed tiling
 STREAMED_FROM = {torch.bfloat16: 640, torch.float16: 640, torch.float32: 384}
+#: the head_dims at which the f32 backward's CTAs of a (batch-head, 64-row
+#: tile) form a cluster (of head_dim / 128, at most the portable 8) and share
+#: the score tiles (csrc/flash_attention_bwd_f32.cu); past them it streams
+CLUSTER_HEAD_DIMS = range(384, 1025, STREAMED_COLS)
 #: the forward's consumer warpgroups a CTA of 64 Q rows, which take turns
 #: over its K/V tiles: one (two CTAs an SM) or two (one CTA an SM)
 FWD_SPLITS = (1, 2)
@@ -236,7 +246,8 @@ def bwd_config(kernel: str, head_dim: int, device: int = 0,
     and the consumers' registers under ``setmaxnreg`` (0 without it), CTAs
     a (batch-head, 64-row tile) (``chunks`` of the output's columns: at
     head_dim 384 and 512 in bf16 and f16 dQ's 2, dK/dV's 3 and 4, on the
-    streamed tiling head_dim / 128, else 1) and rows a streamed tile."""
+    streamed tiling head_dim / 128, in f32 from 384 to 1024 the CTAs of a
+    cluster, head_dim / 128, else 1) and rows a streamed tile."""
     keys = ("threads", "stages", "smem_bytes", "producer_regs", "consumer_regs", "chunks",
             "stream_rows")
     out = (ctypes.c_int * len(keys))()
@@ -245,6 +256,21 @@ def bwd_config(kernel: str, head_dim: int, device: int = 0,
     if n != len(keys):
         raise ValueError(f"no {DTYPES[dtype]} {kernel} instantiation for head_dim {head_dim}")
     return dict(zip(keys, out))
+
+
+def bwd_max_clusters(kernel: str, head_dim: int, device: int = 0) -> int:
+    """The most clusters of the f32 backward ``kernel`` (one of
+    ``BWD_KERNELS``) at ``head_dim`` (in ``CLUSTER_HEAD_DIMS``) that the
+    card holds at once, as ``cudaOccupancyMaxActiveClusters`` reports it."""
+    lib = _BWD.load(torch.float32, device)
+    entry = lib.flash_attention_bwd_max_clusters
+    entry.argtypes, entry.restype = [_INT, _INT, _INT, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    clusters = ctypes.c_int(0)
+    err = entry(BWD_KERNELS.index(kernel), head_dim, device, ctypes.byref(clusters))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters ({kernel}, head_dim {head_dim}) "
+                           f"failed with cudaError {err}")
+    return clusters.value
 
 
 def _bhsd(x: torch.Tensor) -> torch.Tensor:

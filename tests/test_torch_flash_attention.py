@@ -370,19 +370,26 @@ def test_each_dtype_builds_a_library_of_its_own(monkeypatch):
 
 def test_f32_sources_are_ffma_with_every_head_dim():
     """The f32 forward and backward multiply on the CUDA cores (no wgmma, TMA
-    or mbarrier), include only the FFMA tile header, and opt in and launch
-    every fixed head_dim of each kernel and the streamed instantiations,
-    whose head_dim is an argument."""
-    for source, launched, streamed in (
-            (fa.F32_SOURCE, ("launch<{d}>(",), ("flash_fwd_f32_streamed_kernel<<<",)),
-            (fa.BWD_F32_SOURCE, ("launch<{d}, true>(", "launch<{d}, false>("),
+    or mbarrier); the forward includes only the FFMA tile header, the
+    backward that and the PTX layer, for its clusters' barrier and loads
+    from a peer's shared memory, and ``F32_HEADERS`` names what they
+    include (the PTX layer's element type with it).  Each opts in and
+    launches every fixed head_dim of each kernel and the streamed
+    instantiations, the backward its cluster instantiations too, whose
+    head_dim is an argument."""
+    for source, headers, launched, streamed in (
+            (fa.F32_SOURCE, {"ffma_tiles.cuh"}, ("launch<{d}>(",),
+             ("flash_fwd_f32_streamed_kernel<<<",)),
+            (fa.BWD_F32_SOURCE, {"ffma_tiles.cuh", "hopper_ptx.cuh"},
+             ("launch<{d}, true>(", "launch<{d}, false>("),
              ("flash_bwd_dq_f32_streamed_kernel<<<", "flash_bwd_dkv_f32_streamed_kernel<<<"))):
         code = "\n".join(line.split("//")[0] for line in source.read_text().splitlines())
-        for gone in ("wgmma", "tma_load", "mbar_", "hopper_ptx"):
+        for gone in ("wgmma", "tma_load", "mbar_"):
             assert gone not in code, (source.name, gone)
         assert "fmaf(" in (fa.CSRC / "ffma_tiles.cuh").read_text()
         included = set(re.findall(r'#include "([^"]+)"', code))
-        assert {fa.CSRC / name for name in included} == set(fa.F32_HEADERS)
+        assert included == headers, source.name
+        assert {fa.CSRC / name for name in included} <= set(fa.F32_HEADERS)
         for d in fa.HEAD_DIMS[torch.float32]:
             assert all(form.format(d=d) in code for form in launched), (source.name, d)
             assert f"opt_in<{d}>()" in code or f"opt_in_both<{d}>()" in code
@@ -391,6 +398,12 @@ def test_f32_sources_are_ffma_with_every_head_dim():
             assert launch in code and f"cudaFuncSetAttribute({kernel}" in code.replace(
                 "reinterpret_cast<const void*>(", "cudaFuncSetAttribute("), (source.name, kernel)
         assert "p.head_dim / kF32ChunkCols" in code
+    for kernel in ("flash_bwd_dq_f32_cluster_kernel", "flash_bwd_dkv_f32_cluster_kernel"):
+        assert f"cudaLaunchKernelEx(&cl.cfg, {kernel}, p)" in code, kernel
+        assert f"cudaFuncSetAttribute({kernel}" in code, kernel
+    assert '#include "elem.cuh"' in (fa.CSRC / "hopper_ptx.cuh").read_text()
+    assert set(fa.F32_HEADERS) == {
+        fa.CSRC / name for name in ("ffma_tiles.cuh", "hopper_ptx.cuh", "elem.cuh")}
 
 
 class _FakeCuda:

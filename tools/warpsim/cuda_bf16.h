@@ -4,7 +4,10 @@
 // of a block; every warp-collective operation (a shuffle) meets at a barrier
 // of its warp, every warpgroup one (wgmma) at a barrier of its warpgroup,
 // __syncthreads at a barrier of the block; mbarriers are shared state under
-// a lock.  Blocks run one after another, so shared memory is one buffer.
+// a lock.  Clusters run one after another, the CTAs of a cluster at once
+// (a launch without one is a cluster of one CTA), each CTA with its own
+// shared memory and barriers (SimCta); a cluster barrier, and loads from a
+// peer's shared memory, are hopper_ptx.cuh's.
 //
 // This header stands in for <cuda_bf16.h> and carries the rest of the
 // device environment: the qualifiers, threadIdx/blockIdx/gridDim, float2,
@@ -17,6 +20,8 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <atomic>
+#include <memory>
 #include <mutex>
 #include <stddef.h>
 #include <unordered_map>
@@ -57,15 +62,17 @@ struct dim3 {
 
 extern thread_local uint3 threadIdx, blockIdx;
 extern dim3 gridDim;
-// the block's dynamic shared memory (the kernels' `extern __shared__` array)
-alignas(1024) extern unsigned char smem_raw[];
+// the CTA's dynamic shared memory (the kernels' `extern __shared__` array,
+// which the tests' rewrite of a source takes out): each thread points at
+// its own CTA's
+extern thread_local unsigned char* smem_raw;
 
 // an mbarrier (hopper_ptx.cuh): arrivals still due in the current phase and
-// the phase's parity, the transaction bytes still due, the block that set it
+// the phase's parity, the transaction bytes still due
 struct SimMbar {
   int count, pending;
   int64_t tx;
-  unsigned parity, block;
+  unsigned parity;
 };
 // one thread's wgmma operands, held against its warpgroup's
 struct SimWgmma {
@@ -73,26 +80,60 @@ struct SimWgmma {
   int scale_d;
 };
 
-struct Sim {
+// one CTA: its barriers, a shuffle's values, its wgmma operands, its
+// shared memory, and its serial number, which keys its mbarriers
+struct SimCta {
   std::barrier<>* block;
   std::barrier<>* warps[32];
   std::barrier<>* warpgroups[8];
-  size_t smem_bytes;
   float x[32][32];  // a shuffle's values, by warp and lane
   SimWgmma wgmma[8][128];
   uint32_t wgmma_a[8][128][4];  // A's registers of a wgmma that takes them
-  // mbarriers by shared address, and the block that runs (blocks run in turn)
+  unsigned char* smem;
+  unsigned serial;
+};
+// the CTA of the calling thread
+extern thread_local SimCta* sim_cta;
+
+// the cluster that runs (clusters run in turn): for each CTA its shared
+// memory as it stood when the last cluster barrier completed (`seen`, what
+// a peer's load reads), and for each 16 bytes of it the cluster barriers
+// its last reader had passed, plus one (`read`, 0: never read); the
+// barriers each CTA had passed when it exited
+constexpr int kSimMaxCluster = 8;
+struct SimCluster {
+  unsigned size = 1, threads = 0;
+  unsigned char* live[kSimMaxCluster];
+  std::unique_ptr<unsigned char[]> seen[kSimMaxCluster];
+  std::unique_ptr<std::atomic<uint32_t>[]> read[kSimMaxCluster];
+  unsigned exited[kSimMaxCluster];
+  // the barrier: arrivals in the current phase, phases completed
+  std::mutex lock;
+  std::condition_variable moved;
+  unsigned arrivals = 0, phases = 0;
+  // a fault of the exchange was found (its message printed): the launch
+  // runs on, and cudaGetLastError reports a launch failure
+  bool faulted = false;
+};
+
+struct Sim {
+  size_t smem_bytes;
+  // mbarriers by (CTA serial, shared address)
   std::mutex mbar_lock;
   std::condition_variable mbar_moved;
-  std::unordered_map<uint32_t, SimMbar> mbars;
-  unsigned block_serial;
+  std::unordered_map<uint64_t, SimMbar> mbars;
+  SimCluster cluster;
 };
 extern Sim sim;
+// the cluster barriers this thread has passed, and whether it has arrived
+// at the next without waiting yet
+extern thread_local unsigned sim_passed;
+extern thread_local bool sim_arrived;
 
 inline int sim_lane() { return threadIdx.x % 32; }
 inline int sim_warp() { return threadIdx.x / 32; }
-inline void sim_warp_sync() { sim.warps[sim_warp()]->arrive_and_wait(); }
-inline void __syncthreads() { sim.block->arrive_and_wait(); }
+inline void sim_warp_sync() { sim_cta->warps[sim_warp()]->arrive_and_wait(); }
+inline void __syncthreads() { sim_cta->block->arrive_and_wait(); }
 inline int min(int a, int b) { return a < b ? a : b; }
 
 [[noreturn]] inline void sim_fail(const char* what, const void* p) {
@@ -102,17 +143,17 @@ inline int min(int a, int b) { return a < b ? a : b; }
 }
 
 inline int __shfl_sync(unsigned, int v, int src) {
-  sim.x[sim_warp()][sim_lane()] = static_cast<float>(v);
+  sim_cta->x[sim_warp()][sim_lane()] = static_cast<float>(v);
   sim_warp_sync();
-  const int r = static_cast<int>(sim.x[sim_warp()][src]);
+  const int r = static_cast<int>(sim_cta->x[sim_warp()][src]);
   sim_warp_sync();
   return r;
 }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
-  sim.x[sim_warp()][sim_lane()] = v;
+  sim_cta->x[sim_warp()][sim_lane()] = v;
   sim_warp_sync();
-  const float r = sim.x[sim_warp()][sim_lane() ^ mask];
+  const float r = sim_cta->x[sim_warp()][sim_lane() ^ mask];
   sim_warp_sync();
   return r;
 }

@@ -1,9 +1,9 @@
 // The simulator's version of hopper_ptx.cuh (the PTX layer under
-// ops/csrc/matmul.cu, ops/csrc/flash_attention.cu and
-// ops/csrc/flash_attention_bwd.cu, which the simulation compiles as they
-// are).
+// ops/csrc/matmul.cu, ops/csrc/flash_attention.cu,
+// ops/csrc/flash_attention_bwd.cu and ops/csrc/flash_attention_bwd_f32.cu,
+// which the simulation compiles as they are).
 //
-// - A shared address is the offset into the block's shared memory.
+// - A shared address is the offset into the CTA's shared memory.
 // - An mbarrier is shared state under one lock: a phase completes when its
 //   arrivals and its transaction bytes are all in, and a wait blocks until
 //   the phase of the parity it names has completed (the PTX ISA's
@@ -12,6 +12,19 @@
 //   its coordinates leaves the tensor's extent in that dimension, into
 //   shared memory under the 128-byte swizzle or none, as its tensor map
 //   says, and completes its bytes on the barrier.
+// - A cluster barrier completes when every thread of the cluster has
+//   arrived; a wait that lasts 20 s fails as a deadlock.  A load from a
+//   peer's shared memory (ld.shared::cluster, at an address mapa made) is
+//   bounds-checked against the peer's shared memory and reads it as it
+//   stood when the last cluster barrier completed (fresh shared memory
+//   holds 0xff bytes), so a load before the barrier that should order it
+//   reads stale bytes.  Two faults of the exchange are reported, and the
+//   launch runs on to its end and then fails (cudaGetLastError): a CTA
+//   that rewrote 16 bytes a peer loaded since the barrier before (found
+//   when the next barrier completes), and a CTA that exited before a
+//   barrier that its last peer load precedes (found at the cluster's end).
+//   A load between a thread's arrive and its wait fails at once (the
+//   hardware allows it; the kernels here do not need it).
 // - wgmma meets at the warpgroup's barrier, checks that all 128 threads
 //   issue the same operands, and computes at once: each thread reads the
 //   operands through the matrix descriptors (start address, leading and
@@ -25,6 +38,7 @@
 // function of the shared address: bits 4-6 (the 16-byte chunk of a 128-byte
 // row) XOR bits 7-9 (the row within a 1024-byte atom).
 #pragma once
+#include <algorithm>
 #include <chrono>
 
 #include "cuda.h"
@@ -43,13 +57,16 @@ inline uint32_t sim_swizzle128(uint32_t addr) { return addr ^ (((addr >> 7) & 7u
 
 // ---- mbarrier
 
-inline SimMbar& sim_mbar(uint64_t* bar) {  // under sim.mbar_lock
+// an mbarrier's key: its CTA's serial number and its shared address
+inline uint64_t sim_mbar_key(uint64_t* bar) {
   const uint32_t at = smem_u32(bar);
   if (at % 8) sim_fail("misaligned mbarrier", bar);
-  auto it = sim.mbars.find(at);
-  if (it == sim.mbars.end() || it->second.block != sim.block_serial) {
-    sim_fail("mbarrier used before its init in this block", bar);
-  }
+  return static_cast<uint64_t>(sim_cta->serial) << 32 | at;
+}
+
+inline SimMbar& sim_mbar(uint64_t* bar) {  // under sim.mbar_lock
+  auto it = sim.mbars.find(sim_mbar_key(bar));
+  if (it == sim.mbars.end()) sim_fail("mbarrier used before its init in this block", bar);
   return it->second;
 }
 
@@ -64,9 +81,7 @@ inline void sim_mbar_settle(SimMbar& m, uint64_t* bar) {
 
 inline void mbar_init(uint64_t* bar, uint32_t arrivals) {
   std::lock_guard<std::mutex> hold(sim.mbar_lock);
-  const uint32_t at = smem_u32(bar);
-  if (at % 8) sim_fail("misaligned mbarrier", bar);
-  sim.mbars[at] = {static_cast<int>(arrivals), static_cast<int>(arrivals), 0, 0, sim.block_serial};
+  sim.mbars[sim_mbar_key(bar)] = {static_cast<int>(arrivals), static_cast<int>(arrivals), 0, 0};
 }
 
 inline void mbar_fence_init() {}
@@ -209,10 +224,10 @@ template <int N>
 inline void sim_wgmma(float (&d)[N / 2], uint64_t desc_a, const uint32_t* a_regs,
                       uint64_t desc_b, bool b_n_major, int scale_d) {
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
-  sim.wgmma[wg][t] = {desc_a, desc_b, scale_d != 0};
-  if (a_regs) std::memcpy(sim.wgmma_a[wg][t], a_regs, sizeof(sim.wgmma_a[wg][t]));
-  sim.warpgroups[wg]->arrive_and_wait();
-  const SimWgmma first = sim.wgmma[wg][0];
+  sim_cta->wgmma[wg][t] = {desc_a, desc_b, scale_d != 0};
+  if (a_regs) std::memcpy(sim_cta->wgmma_a[wg][t], a_regs, sizeof(sim_cta->wgmma_a[wg][t]));
+  sim_cta->warpgroups[wg]->arrive_and_wait();
+  const SimWgmma first = sim_cta->wgmma[wg][0];
   if (first.a != desc_a || first.b != desc_b || first.scale_d != (scale_d != 0)) {
     sim_fail("wgmma operands differ across the warpgroup", nullptr);
   }
@@ -225,7 +240,7 @@ inline void sim_wgmma(float (&d)[N / 2], uint64_t desc_a, const uint32_t* a_regs
         // row r, column k sits with thread 32 (r / 16) + 4 (r % 8) + (k % 8) / 2,
         // in register (r % 16) / 8 + 2 (k / 8), half k % 2
         const uint32_t reg =
-            sim.wgmma_a[wg][32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16) / 8 + 2 * (k / 8)];
+            sim_cta->wgmma_a[wg][32 * (row / 16) + 4 * (row % 8) + (k % 8) / 2][(row % 16) / 8 + 2 * (k / 8)];
         arow[h][k] = sim_elem2f(static_cast<uint16_t>(k % 2 ? reg >> 16 : reg & 0xffffu));
       } else {
         arow[h][k] = sim_operand(sim_k_major(sim_desc(desc_a), row, k));
@@ -247,7 +262,7 @@ inline void sim_wgmma(float (&d)[N / 2], uint64_t desc_a, const uint32_t* a_regs
   // the product is one operation of the warpgroup: no thread goes on (and
   // releases its stage, or rewrites A's registers) before every thread has
   // read its operands
-  sim.warpgroups[wg]->arrive_and_wait();
+  sim_cta->warpgroups[wg]->arrive_and_wait();
 }
 
 inline void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
@@ -273,6 +288,90 @@ inline void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t 
 inline void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
                                      int scale_d) {
   sim_wgmma<128>(d, 0, a, desc_b, true, scale_d);
+}
+
+// ---- clusters
+//
+// A shared::cluster address is the CTA's rank times kSimRankStride plus the
+// offset into its shared memory.
+
+constexpr uint32_t kSimRankStride = 1u << 20;
+
+inline const void* sim_addr(uint32_t addr) {
+  return reinterpret_cast<const void*>(static_cast<uintptr_t>(addr));
+}
+
+inline uint32_t cluster_ctarank() { return blockIdx.x % sim.cluster.size; }
+
+// under sim.cluster.lock, once every thread of the cluster has arrived: no
+// CTA may have rewritten what a peer loaded since the barrier before; then
+// what the peers' loads read becomes each CTA's shared memory as it stands
+inline void sim_cluster_complete() {
+  SimCluster& c = sim.cluster;
+  for (unsigned r = 0; r < c.size; ++r) {
+    for (size_t u = 0; u < sim.smem_bytes / 16 && !c.faulted; ++u) {
+      if (c.read[r][u].load(std::memory_order_relaxed) == c.phases + 1 &&
+          std::memcmp(c.live[r] + 16 * u, c.seen[r].get() + 16 * u, 16) != 0) {
+        std::fprintf(stderr, "warpsim: CTA rank %u rewrote bytes %zu-%zu of its shared memory "
+                     "that a peer loaded before the next cluster barrier\n", r, 16 * u,
+                     16 * u + 15);
+        c.faulted = true;
+      }
+    }
+    std::memcpy(c.seen[r].get(), c.live[r], sim.smem_bytes);
+  }
+}
+
+inline void cluster_arrive() {
+  SimCluster& c = sim.cluster;
+  if (sim_arrived) sim_fail("barrier.cluster.arrive twice without a wait", nullptr);
+  std::lock_guard<std::mutex> hold(c.lock);
+  sim_arrived = true;
+  if (++c.arrivals == c.threads) {
+    sim_cluster_complete();
+    c.arrivals = 0;
+    ++c.phases;
+    c.moved.notify_all();
+  }
+}
+
+inline void cluster_wait() {
+  SimCluster& c = sim.cluster;
+  if (!sim_arrived) sim_fail("barrier.cluster.wait without an arrive", nullptr);
+  std::unique_lock<std::mutex> hold(c.lock);
+  const unsigned want = sim_passed + 1;
+  if (!c.moved.wait_for(hold, std::chrono::seconds(20), [&] { return c.phases >= want; })) {
+    sim_fail("cluster barrier wait lasted 20 s: deadlock", nullptr);
+  }
+  sim_passed = want;
+  sim_arrived = false;
+}
+
+inline void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+inline uint32_t mapa(uint32_t addr, uint32_t rank) {
+  if (addr >= sim.smem_bytes) sim_fail("mapa of an address outside shared memory", sim_addr(addr));
+  if (rank >= sim.cluster.size) sim_fail("mapa to a rank outside the cluster", sim_addr(addr));
+  return rank * kSimRankStride + addr;
+}
+
+inline float4 ld_cluster_f4(uint32_t addr) {
+  const uint32_t rank = addr / kSimRankStride, at = addr % kSimRankStride;
+  if (rank >= sim.cluster.size) sim_fail("shared::cluster load outside the cluster", sim_addr(addr));
+  if (at % 16) sim_fail("misaligned v4 shared::cluster load", sim_addr(addr));
+  if (at + 16 > sim.smem_bytes) {
+    sim_fail("shared::cluster load outside the peer's shared memory", sim_addr(addr));
+  }
+  if (sim_arrived) {
+    sim_fail("shared::cluster load between a cluster barrier's arrive and its wait", sim_addr(addr));
+  }
+  sim.cluster.read[rank][at / 16].store(sim_passed + 1, std::memory_order_relaxed);
+  float4 v;
+  std::memcpy(&v, sim.cluster.seen[rank].get() + at, 16);
+  return v;
 }
 
 // ---- math
